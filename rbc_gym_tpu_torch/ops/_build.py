@@ -1,0 +1,116 @@
+"""Build the port's CUDA sources with nvcc and load them through ctypes.
+
+One ``nvcc`` call compiles every ``csrc/*.cu`` into a shared library with a
+plain C interface (no PyTorch headers, no ``cpp_extension``), written to
+``rbc_gym_tpu_torch/_build/`` under a name keyed by a hash of the sources
+and flags, so it is built once and reused until a source changes. Nothing
+here runs at import time: the first kernel launch builds and loads.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# argtypes of every exported function: pointers (and the stream) as c_void_p,
+# so ctypes never truncates them to 32-bit ints.
+ARGTYPES = {
+    "launch_env_step_2d": [
+        _P, _P, _P, _P,  # u, w, b, bottom
+        _P, _P, _P,  # F, G, inv
+        _P, _P, _P, _P,  # u_out, w_out, b_out, p_out
+        _P,  # scratch
+        _I, _I, _I, _I,  # n_env, nx, nz, n_substeps
+        _F, _F, _F, _F, _F, _F,  # dt, dx, dz, nu, kappa, min_b
+        _P,  # stream
+    ],
+    "launch_tendencies_2d": [
+        _P, _P, _P, _P, _P,  # u, w, b, p_hy, bottom
+        _P, _P, _P,  # gu, gw, gb
+        _I, _I, _I,  # n_env, nx, nz
+        _F, _F, _F, _F, _F,  # dx, dz, nu, kappa, min_b
+        _P,  # stream
+    ],
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def nvcc_command(output: Path) -> list[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(output), *map(str, sources())]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"librbc_gym_kernels_{_source_hash()}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the sources unless this hash is already built.
+
+    Returns the library's path and the seconds spent compiling (0 if cached).
+    """
+    lib = library_path()
+    if lib.exists():
+        return lib, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    start = time.perf_counter()
+    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib)
+    return lib, seconds
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load, and declare every export's signature."""
+    lib = ctypes.CDLL(str(build()[0]))
+    for name, argtypes in ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,260 @@
+"""The 2D env-step kernels: wrappers, their plain PyTorch versions, counters.
+
+``env_step_2d`` replaces ``rbc_gym_tpu/ops/pallas2d.py:_env_step_kernel``
+(the whole env step) and ``tendencies_2d`` replaces ``_tendency_kernel``
+(one stage's gu, gw, gb). Both kernels are CUDA C++ in ``csrc/rbc2d.cu``;
+the source says what bounds each on an H100 and what its design does about
+it. A wrapper launches its kernel for CUDA tensors (float32, contiguous,
+batch-major (E, nx, nz[+1])) and raises on anything else; it takes its
+plain version only for tensors on the CPU. Each wrapper counts its launches
+in ``<wrapper>.launches``.
+
+The plain versions are the JAX package's XLA path written in PyTorch:
+``tendencies_2d_plain`` is the stencil composition of
+``solver2d.tendencies_bm``, ``env_step_2d_plain`` the solver's eager
+substep loop. They run on any device, so a test can hold a kernel against
+its plain version on the same card.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Tuple
+
+import torch
+
+from rbc_gym_tpu_torch.ops import _build
+from rbc_gym_tpu_torch.ops import stencils as st
+from rbc_gym_tpu_torch.ops.poisson import Spectral2D, poisson_solve_2d
+
+RK3_GAMMA = (8.0 / 15.0, 5.0 / 12.0, 3.0 / 4.0)
+RK3_ZETA = (0.0, -17.0 / 60.0, -5.0 / 12.0)
+
+Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+class Coeffs2D(NamedTuple):
+    """Scalars of the 2D tendencies."""
+
+    dx: float
+    dz: float
+    nu: float
+    kappa: float
+    min_b: float
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (batch-major: x = dim -2, z = dim -1)
+# ---------------------------------------------------------------------------
+
+
+def hydrostatic_pressure(b: torch.Tensor, dz: float, min_b: float) -> torch.Tensor:
+    """pHY'(z) = -integral_z^Lz b dz', cumulative from the top at centers.
+
+    Discretely (p[k] - p[k-1])/dz equals the face-interpolated buoyancy, so
+    the w-momentum cancellation with the buoyancy term is exact.
+    """
+    b_face = 0.5 * (b[..., :-1] + b[..., 1:])  # interior faces 1..nz-1
+    # top half-cell: face value is the Dirichlet top BC min_b
+    top = torch.full_like(b[..., :1], 0.5 * dz * min_b)
+    increments = torch.cat([dz * b_face, top], dim=-1)
+    # p[k] = -(sum of increments k+1..nz-1 + top half) -> reverse cumsum
+    return -torch.flip(torch.cumsum(torch.flip(increments, (-1,)), dim=-1), (-1,))
+
+
+def tendencies_2d_plain(
+    u: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    p_hy: torch.Tensor,
+    bottom: torch.Tensor,
+    c: Coeffs2D,
+) -> Tensors3:
+    """gu, gw, gb of one RK3 stage (UB5 flux-form advection, diffusion)."""
+    X, Z = -2, -1
+    dx, dz = c.dx, c.dz
+
+    # ---- u momentum --------------------------------------------------------
+    u_c = st.interp_f2c_x(u, X)  # advecting u at centers
+    adv_u = st.ddx_c2f(u_c * st.recon_f2c_periodic(u, u_c, X), dx, X)
+    w_xf = st.interp_c2f_x(w, X)  # w at (x-face, z-face); walls stay 0
+    adv_u = adv_u + st.ddz_f2c(w_xf * st.recon_c2f_z_fused(u, w_xf, Z), dz, Z)
+    dphy_dx = st.ddx_c2f(p_hy, dx, X)
+    lap_u = st.d2x_periodic(u, dx, X) + st.d2z_center_value_bc(u, dz, 0.0, 0.0, Z)
+    gu = -adv_u - dphy_dx + c.nu * lap_u
+
+    # ---- w momentum (buoyancy absorbed into pHY') --------------------------
+    u_zf = st.interp_c2f_z_interior(u, Z)  # u at (x-face, z-face), walls 0
+    adv_w = st.ddx_f2c(u_zf * st.recon_c2f_periodic(w, u_zf, X), dx, X)
+    w_c = st.interp_f2c_z(w, Z)  # advecting w at centers
+    adv_w = adv_w + st.ddz_c2f_interior(w_c * st.recon_f2c_z_fused(w, w_c, Z), dz, Z)
+    lap_w = st.d2x_periodic(w, dx, X) + st.d2z_face_interior(w, dz, Z)
+    gw = st.zero_z_walls(-adv_w + c.nu * lap_w, Z)  # wall faces stay w = 0
+
+    # ---- buoyancy tracer ---------------------------------------------------
+    adv_b = st.ddx_f2c(u * st.recon_c2f_periodic(b, u, X), dx, X)
+    adv_b = adv_b + st.ddz_f2c(w * st.recon_c2f_z_fused(b, w, Z), dz, Z)
+    lap_b = st.d2x_periodic(b, dx, X) + st.d2z_center_value_bc(b, dz, bottom, c.min_b, Z)
+    gb = -adv_b + c.kappa * lap_b
+    return gu, gw, gb
+
+
+def rk3_substep(
+    u: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    bottom: torch.Tensor,
+    spectral: Spectral2D,
+    c: Coeffs2D,
+    dt: float,
+    tendencies: Callable[..., Tensors3],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One RK3 solver step of ``dt``: 3 stages, each projected.
+
+    Returns (u, w, b, p_nhs); never writes to its inputs."""
+    g_prev = None
+    p_nhs = None
+    for m in range(3):
+        gamma, zeta = RK3_GAMMA[m], RK3_ZETA[m]
+        p_hy = hydrostatic_pressure(b, c.dz, c.min_b)
+        gu, gw, gb = tendencies(u, w, b, p_hy, bottom, c)
+        if m == 0:
+            u = u + dt * gamma * gu
+            w = w + dt * gamma * gw
+            b = b + dt * gamma * gb
+        else:
+            u = u + dt * (gamma * gu + zeta * g_prev[0])
+            w = w + dt * (gamma * gw + zeta * g_prev[1])
+            b = b + dt * (gamma * gb + zeta * g_prev[2])
+        g_prev = (gu, gw, gb)
+        dt_stage = (gamma + zeta) * dt
+        div = st.ddx_f2c(u, c.dx) + st.ddz_f2c(w, c.dz)
+        p_nhs = poisson_solve_2d(spectral, div / dt_stage)
+        u = u - dt_stage * st.ddx_c2f(p_nhs, c.dx)
+        w = w - dt_stage * st.ddz_c2f_interior(p_nhs, c.dz)
+    return u, w, b, p_nhs
+
+
+def env_step_2d_plain(
+    u: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    bottom: torch.Tensor,
+    spectral: Spectral2D,
+    c: Coeffs2D,
+    dt: float,
+    n_substeps: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``n_substeps`` RK3 substeps of the eager path -> (u, w, b, p_nhs)."""
+    p_nhs = torch.zeros_like(u)
+    for _ in range(n_substeps):
+        u, w, b, p_nhs = rk3_substep(u, w, b, bottom, spectral, c, dt, tendencies_2d_plain)
+    return u, w, b, p_nhs
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda(named: dict, shapes: dict) -> None:
+    device = None
+    for name, t in named.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}; the kernel takes CUDA tensors")
+        if device is None:
+            device = t.device
+        elif t.device != device:
+            raise ValueError(f"{name} is on {t.device}, not {device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; the kernel takes float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shapes[name]}")
+
+
+def _field_shapes(u: torch.Tensor) -> Tuple[int, int, int]:
+    if u.ndim != 3:
+        raise ValueError(f"fields must be batch-major (E, nx, nz), got {tuple(u.shape)}")
+    return tuple(u.shape)
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def tendencies_2d(
+    u: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    p_hy: torch.Tensor,
+    bottom: torch.Tensor,
+    c: Coeffs2D,
+) -> Tensors3:
+    """gu, gw, gb of one stage: the CUDA kernel for CUDA tensors."""
+    if u.device.type == "cpu":
+        return tendencies_2d_plain(u, w, b, p_hy, bottom, c)
+    e, nx, nz = _field_shapes(u)
+    _check_cuda(
+        dict(u=u, w=w, b=b, p_hy=p_hy, bottom=bottom),
+        dict(u=(e, nx, nz), w=(e, nx, nz + 1), b=(e, nx, nz), p_hy=(e, nx, nz), bottom=(e, nx)),
+    )
+    gu, gw, gb = torch.empty_like(u), torch.empty_like(w), torch.empty_like(b)
+    lib = _build.load_library()
+    with torch.cuda.device(u.device):
+        err = lib.launch_tendencies_2d(
+            u.data_ptr(), w.data_ptr(), b.data_ptr(), p_hy.data_ptr(), bottom.data_ptr(),
+            gu.data_ptr(), gw.data_ptr(), gb.data_ptr(),
+            e, nx, nz, c.dx, c.dz, c.nu, c.kappa, c.min_b,
+            torch.cuda.current_stream(u.device).cuda_stream,
+        )
+    _raise_on(err, "tendencies_2d")
+    tendencies_2d.launches += 1
+    return gu, gw, gb
+
+
+tendencies_2d.launches = 0
+
+
+def env_step_2d(
+    u: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    bottom: torch.Tensor,
+    spectral: Spectral2D,
+    c: Coeffs2D,
+    dt: float,
+    n_substeps: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A whole env step (n_substeps RK3 substeps) -> (u, w, b, p_nhs):
+    the CUDA kernel for CUDA tensors."""
+    if u.device.type == "cpu":
+        return env_step_2d_plain(u, w, b, bottom, spectral, c, dt, n_substeps)
+    e, nx, nz = _field_shapes(u)
+    _check_cuda(
+        dict(u=u, w=w, b=b, bottom=bottom, f=spectral.f, g=spectral.g, inv=spectral.inv),
+        dict(u=(e, nx, nz), w=(e, nx, nz + 1), b=(e, nx, nz), bottom=(e, nx),
+             f=(nx, nx), g=(nx, nx), inv=(nx, nz, nz)),
+    )
+    if n_substeps < 1:
+        raise ValueError(f"n_substeps must be >= 1, got {n_substeps}")
+    u_out, w_out, b_out, p_out = (torch.empty_like(t) for t in (u, w, b, u))
+    # per env: this stage's and the previous stage's tendencies, and pHY'
+    scratch = torch.empty(e * (5 * nx * nz + 2 * nx * (nz + 1)), dtype=u.dtype, device=u.device)
+    lib = _build.load_library()
+    with torch.cuda.device(u.device):  # the launch goes to the current device
+        err = lib.launch_env_step_2d(
+            u.data_ptr(), w.data_ptr(), b.data_ptr(), bottom.data_ptr(),
+            spectral.f.data_ptr(), spectral.g.data_ptr(), spectral.inv.data_ptr(),
+            u_out.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), p_out.data_ptr(),
+            scratch.data_ptr(),
+            e, nx, nz, n_substeps, dt, c.dx, c.dz, c.nu, c.kappa, c.min_b,
+            torch.cuda.current_stream(u.device).cuda_stream,
+        )
+    _raise_on(err, "env_step_2d")
+    env_step_2d.launches += 1
+    return u_out, w_out, b_out, p_out
+
+
+env_step_2d.launches = 0

@@ -1,0 +1,118 @@
+"""2D pressure-Poisson solve for the nonhydrostatic fractional step.
+
+Port of the 2D part of ``rbc_gym_tpu.ops.poisson``: each RK3 stage solves
+
+    laplace(p) = div(u*) / dt_stage
+
+with periodic x and homogeneous Neumann z. A real-DFT matrix F along x
+diagonalizes the horizontal part; the per-mode vertical operators
+A_m = D2z_neumann + lambda_m I are inverted once at setup in float64 numpy
+(the singular mean mode takes the pseudo-inverse, i.e. the zero-mean
+solution). The solve is then three products: F.rhs, the per-mode inverse,
+and the synthesis G.p_hat. The constants are the same float64 formulas as
+the JAX package's, so both packages start from identical numbers.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+
+def _dft_eigenvalues(n: int, d: float) -> np.ndarray:
+    """Eigenvalues of the periodic 1D second-difference for rfft modes."""
+    m = np.arange(n // 2 + 1)
+    return -(2.0 - 2.0 * np.cos(2.0 * np.pi * m / n)) / (d * d)
+
+
+def _vertical_inverses(lams: np.ndarray, nz: int, dz: float) -> np.ndarray:
+    """Stack of inverses of (D2z_neumann + lam I), shape (M, nz, nz)."""
+    # Neumann ghost: p[-1] = p[0], p[nz] = p[nz-1] -> first/last diagonal -1.
+    d2 = (
+        np.diag(np.full(nz, -2.0))
+        + np.diag(np.ones(nz - 1), 1)
+        + np.diag(np.ones(nz - 1), -1)
+    )
+    d2[0, 0] = -1.0
+    d2[-1, -1] = -1.0
+    d2 /= dz * dz
+
+    inv = np.empty((lams.size, nz, nz), dtype=np.float64)
+    eye = np.eye(nz)
+    for i, lam in enumerate(lams):
+        a = d2 + lam * eye
+        if abs(lam) < 1e-14:
+            inv[i] = np.linalg.pinv(a)  # zero-mean solution for the mean mode
+        else:
+            inv[i] = np.linalg.inv(a)
+    return inv
+
+
+def _real_dft_matrices(n: int):
+    """Real DFT analysis F (n, n) and synthesis G (n, n) with G @ F = I.
+
+    Rows interleave cos/sin per wavenumber; mode 0 (and the Nyquist mode
+    for even n) contribute a single cosine row."""
+    i = np.arange(n)
+    rows = []
+    row_modes = []
+    for m in range(n // 2 + 1):
+        rows.append(np.cos(2.0 * np.pi * m * i / n))
+        row_modes.append(m)
+        if m != 0 and not (n % 2 == 0 and m == n // 2):
+            rows.append(np.sin(2.0 * np.pi * m * i / n))
+            row_modes.append(m)
+    f = np.stack(rows)
+    modes = np.asarray(row_modes)
+    # synthesis = scaled transpose: 1/n for the single (mode-0 / Nyquist)
+    # rows, 2/n for paired cos/sin rows
+    scale = np.full(f.shape[0], 2.0 / n)
+    scale[modes == 0] = 1.0 / n
+    if n % 2 == 0:
+        scale[modes == n // 2] = 1.0 / n
+    g = (f * scale[:, None]).T
+    if not np.allclose(g @ f, np.eye(n), atol=1e-10):
+        raise ArithmeticError("real DFT synthesis is not the inverse of analysis")
+    return f, g, modes
+
+
+class Spectral2D(NamedTuple):
+    """Constants of the 2D spectral solve, on the working device and dtype."""
+
+    f: torch.Tensor  # (nx, nx) real-DFT analysis, [m, x]
+    g: torch.Tensor  # (nx, nx) synthesis, [x, m]
+    inv: torch.Tensor  # (nx, nz, nz) per-DFT-row vertical inverse, [m, z, f]
+
+
+def spectral_constants_2d(
+    nx: int, nz: int, dx: float, dz: float, dtype=torch.float32, device="cuda"
+) -> Spectral2D:
+    """Build F, G and the per-row inverses in float64, then cast once."""
+    f_mat, g_mat, row_modes = _real_dft_matrices(nx)
+    inv_rows = _vertical_inverses(_dft_eigenvalues(nx, dx), nz, dz)[row_modes]
+
+    def cast(a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+    return Spectral2D(cast(f_mat), cast(g_mat), cast(inv_rows))
+
+
+def poisson_solve_2d(consts: Spectral2D, rhs: torch.Tensor) -> torch.Tensor:
+    """Zero-mean solution of laplace(p) = rhs for rhs (E, nx, nz)."""
+    rhat = torch.matmul(consts.f, rhs)  # (E, m, z)
+    # per-mode (z, f) inverse: batch over m, rows over envs
+    phat = torch.matmul(rhat.transpose(0, 1), consts.inv).transpose(0, 1)
+    return torch.matmul(consts.g, phat)  # (E, x, f)
+
+
+def make_poisson_solver_2d_bm(
+    nx: int, nz: int, dx: float, dz: float, dtype=torch.float32, device="cuda"
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Solver for a batch-major (E, nx, nz) cell-centered RHS -> pressure.
+
+    The JAX package's batch-minor ``make_poisson_solver_2d_bm`` with the
+    port's public (E, nx, nz) layout: three ``torch.matmul`` calls."""
+    consts = spectral_constants_2d(nx, nz, dx, dz, dtype, device)
+    return lambda rhs: poisson_solve_2d(consts, rhs)
