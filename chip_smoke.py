@@ -81,21 +81,22 @@ def working_dtype(device: torch.device) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 # FLOP per cell of one stage outside the spectral products, counted from
-# csrc: tendencies gu 103 + gw 101 + gb 92 (two 19-FLOP C6/D5 fluxes per
-# direction, interpolations, Laplacians), pHY' 4, RK update 15, div 6,
-# correction 8.
-_STAGE_FLOPS_PER_CELL = 103 + 101 + 92 + 4 + 15 + 6 + 8
-_TENDENCY_FLOPS_PER_CELL = 103 + 101 + 92
+# csrc with each face flux counted once (the kernels recompute a flux on
+# both of its cells; that repeat is not work the function needs): the
+# tendencies gu 61 + gw 59 + gb 54 (one 19-FLOP C6/D5 flux per face and
+# direction, the face interpolations, differences, Laplacians), pHY' 4,
+# RK update 15, divergence 6, correction 8.
+_TENDENCY_FLOPS_PER_CELL = 61 + 59 + 54
+_STAGE_FLOPS_PER_CELL = _TENDENCY_FLOPS_PER_CELL + 4 + 15 + 6 + 8
 
 
 def env_step_work(n_env: int, nx: int, nz: int, n_substeps: int) -> dict:
-    """FLOP and bytes of K1 on these shapes (each input read once, each
-    output written once)."""
-    cells = nx * nz
+    """FLOP and bytes of K1 on these shapes: u, w, b, bottom read and u, w,
+    b, p written once per env; F, G and the modal inverses read once."""
+    cells, faces = nx * nz, nx * (nz + 1)
     solve = 2 * (2 * nx * nx * nz + nx * nz * nz)  # F.rhs, inverse, G.p_hat
     flops = n_env * n_substeps * 3 * (_STAGE_FLOPS_PER_CELL * cells + solve)
-    field_words = 3 * cells + nx * (nz + 1)  # u, b (and out p), w
-    words = n_env * (2 * field_words + cells + nx) + 2 * nx * nx + nx * nz * nz
+    words = n_env * (5 * cells + 2 * faces + nx) + 2 * nx * nx + nx * nz * nz
     return {"flops": flops, "bytes": 4 * words}
 
 

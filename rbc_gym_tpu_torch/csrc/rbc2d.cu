@@ -8,7 +8,8 @@
 // correction.
 //   Bound: operations. The spectral solve is 2 (2 nx^2 nz + nx nz^2) FLOP
 //   per stage per env, about 3.1 MFLOP at 96x64 and 0.47 GFLOP per env step;
-//   the fields move through device memory once per env step, ~100 KB an env.
+//   the fields move through device memory once per env step, about 170 KB
+//   an env in and out.
 //   Design: one thread block per env on the batch-major (E, nx, nz[+1])
 //   tensors, so an env's slabs are contiguous and the substep loop runs
 //   inside the block, phases separated by __syncthreads(). The solve's

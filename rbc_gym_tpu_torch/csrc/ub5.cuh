@@ -54,7 +54,7 @@ __device__ __forceinline__ float uw_flux_x(const float* q, int stride, int nx,
 // faces -> centers). Rows where UB5 fits on both sides (3 <= m <= n_src - 3)
 // use C6/D5; the wall rows take, per side, the first stencil of UB5, UB3
 // that fits in [0, n_src), else UB1 with zero-padded taps, as
-// stencils._biased_matrix does.
+// stencils._z_order_ladder does.
 __device__ __forceinline__ float z_uw_flux(const float* qc, int n_src, int j,
                                            int split, float vel) {
   const int m = j + split;

@@ -66,18 +66,18 @@ class RBC2DVectorEnv:
         dtype: torch.dtype = torch.float32,
         device: str | torch.device | None = "cuda",
     ):
-        """``bank_sampling`` and ``ic_noise`` act on checkpoint-bank initial
-        conditions (random or sequential bank index; Gaussian kick on bank
-        states). Banks are read with h5py and are not ported yet (ROADMAP
-        A.6), so ``checkpoint`` must be None and initial conditions are the
-        solver's random ones."""
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "checkpoint banks are not ported yet (ROADMAP A.6): "
-                "pass checkpoint=None"
-            )
+        """``bank_sampling`` and ``ic_noise`` act only on checkpoint-bank
+        initial conditions (random or sequential bank index; Gaussian kick
+        on bank states). Banks are read with h5py and are not ported yet
+        (ROADMAP A.6), so ``checkpoint`` must be None, these two keep their
+        defaults, and initial conditions are the solver's random ones."""
         if bank_sampling not in ("random", "sequential"):
             raise ValueError(f"unknown bank_sampling {bank_sampling!r}")
+        if checkpoint is not None or bank_sampling != "random" or ic_noise > 0.0:
+            raise NotImplementedError(
+                "checkpoint banks (and bank_sampling/ic_noise, which act on "
+                "them) are not ported yet (ROADMAP A.6): pass checkpoint=None"
+            )
         self.num_envs = num_envs
         nz, nx = state_shape
         self.grid = Grid2D(nx=nx, nz=nz, lx=2 * np.pi, lz=2.0)
@@ -92,8 +92,6 @@ class RBC2DVectorEnv:
         self.observation_shape = tuple(observation_shape)
         self.include_pressure = pressure
         self.auto_reset = auto_reset
-        self.bank_sampling = bank_sampling
-        self.ic_noise = float(ic_noise)
         self.dtype = dtype
         self.solver = make_solver2d(self.grid, self.params, dtype=dtype, device=device)
         self.device = self.solver.device

@@ -9,8 +9,7 @@ walls.
 These are the plain PyTorch stencils: the eager solver path and the plain
 versions of the CUDA kernels are built from them. Periodic directions use
 one halo pad plus static slices; the bounded z direction selects per row
-between candidate stencils (``_z_upwind``), which equals the precomputed
-stencil-matrix form (``z_recon_matrices_*``, ``recon_*_z``).
+between candidate stencils (``_z_upwind``).
 
 Classic UB5 face reconstruction (uniform grid), positive advecting velocity
 through the face between cells m-1 (upstream) and m:
@@ -23,7 +22,6 @@ The negative-velocity stencil is the mirror image.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
 
 import numpy as np
 import torch
@@ -96,56 +94,15 @@ def recon_f2c_periodic(q: torch.Tensor, vel_center: torch.Tensor, axis: int) -> 
 # ---------------------------------------------------------------------------
 
 
-def _biased_matrix(n_src: int, n_dst: int, split: int, biased: str) -> np.ndarray:
-    """(n_dst, n_src) reconstruction matrix for the bounded direction.
+def _z_order_ladder(n_src: int, n_dst: int, split: int, biased: str) -> np.ndarray:
+    """Per-destination-row stencil order (5/3/1/0) for the bounded direction.
 
     Destination point j lies between source points j+split-1 and j+split
     (split=0: centers->faces, split=1: faces->centers). The highest-order
     stencil whose support fits in [0, n_src) is used per row; rows with no
-    valid stencil (wall faces) stay zero: their advective fluxes are
+    valid stencil (wall faces) get order 0: their advective fluxes are
     multiplied by a wall-normal velocity that is exactly zero.
     """
-    if biased not in ("left", "right"):
-        raise ValueError(f"biased must be 'left' or 'right', not {biased!r}")
-    ladder = (
-        (_UB5_LEFT, _UB5_RIGHT),
-        (_UB3_LEFT, _UB3_RIGHT),
-        (_UB1_LEFT, _UB1_RIGHT),
-    )
-    mat = np.zeros((n_dst, n_src), dtype=np.float64)
-    for j in range(n_dst):
-        m = j + split
-        for pair in ladder:
-            stencil = pair[0] if biased == "left" else pair[1]
-            idx = [m + off for off, _ in stencil]
-            if min(idx) >= 0 and max(idx) < n_src:
-                for off, c in stencil:
-                    mat[j, m + off] = c
-                break
-    return mat
-
-
-@functools.lru_cache(maxsize=None)
-def z_recon_matrices_c2f(nz: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(left, right) matrices, shape (nz+1, nz): cell values -> face values."""
-    return (
-        _biased_matrix(nz, nz + 1, split=0, biased="left"),
-        _biased_matrix(nz, nz + 1, split=0, biased="right"),
-    )
-
-
-@functools.lru_cache(maxsize=None)
-def z_recon_matrices_f2c(nz: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(left, right) matrices, shape (nz, nz+1): face values -> cell values."""
-    return (
-        _biased_matrix(nz + 1, nz, split=1, biased="left"),
-        _biased_matrix(nz + 1, nz, split=1, biased="right"),
-    )
-
-
-def _z_order_ladder(n_src: int, n_dst: int, split: int, biased: str) -> np.ndarray:
-    """Per-destination-row stencil order (5/3/1/0), by the same
-    fits-in-range rule as ``_biased_matrix``."""
     ladder = (
         (5, _UB5_LEFT, _UB5_RIGHT),
         (3, _UB3_LEFT, _UB3_RIGHT),
@@ -219,8 +176,7 @@ def _z_order_masks(n_src: int, n_dst: int, split: int):
 
 
 def _z_upwind(q: torch.Tensor, vel: torch.Tensor, n_dst: int, split: int, dim: int = -1) -> torch.Tensor:
-    """Upwind-biased z reconstruction with near-wall order reduction;
-    equal to the matrix path (``z_recon_matrices_*``)."""
+    """Upwind-biased z reconstruction with near-wall order reduction."""
     n_src = q.shape[dim]
     masks = _z_order_masks(n_src, n_dst, split)
 
@@ -241,25 +197,6 @@ def recon_c2f_z_fused(q: torch.Tensor, vel_face: torch.Tensor, axis: int = -1) -
 def recon_f2c_z_fused(q: torch.Tensor, vel_center: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """z-face field (nz+1 along ``axis``) -> centers (nz), upwind by vel_center."""
     return _z_upwind(q, vel_center, n_dst=q.shape[axis] - 1, split=1, dim=axis)
-
-
-def apply_z_matrix(mat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Contract the trailing (z) axis of q with a stencil matrix:
-    (..., n_src) -> (..., n_dst)."""
-    return torch.matmul(q, mat.T)
-
-
-def recon_c2f_z(q: torch.Tensor, vel_face: torch.Tensor, mats) -> torch.Tensor:
-    """Upwind reconstruction of a centered field to z-faces (matrix form).
-
-    ``mats`` is the (left, right) pair from ``z_recon_matrices_c2f`` as
-    tensors of q's dtype and device."""
-    return torch.where(vel_face > 0, apply_z_matrix(mats[0], q), apply_z_matrix(mats[1], q))
-
-
-def recon_f2c_z(q: torch.Tensor, vel_center: torch.Tensor, mats) -> torch.Tensor:
-    """Upwind reconstruction of a z-face field to cell centers (matrix form)."""
-    return torch.where(vel_center > 0, apply_z_matrix(mats[0], q), apply_z_matrix(mats[1], q))
 
 
 # ---------------------------------------------------------------------------

@@ -105,8 +105,6 @@ class Solver2D(NamedTuple):
     heater_profile: Callable  # action (..., S) -> (..., nx)
 
 
-_hydrostatic_pressure = hydrostatic_pressure
-
 # Largest max|div u| a projected step may leave, per working dtype: float64
 # as the JAX package's oracle (tests/test_solver2d.py:57); float32 from its
 # rounding (~1e-6 at |u| ~ 0.2 on 96x64, growing with the velocity).

@@ -181,3 +181,8 @@ def test_checkpoint_banks_are_not_ported_yet():
         _env(2, checkpoint="data/checkpoints/train/ckpt_ra10000.h5")
     with pytest.raises(ValueError, match="bank_sampling"):
         _env(2, bank_sampling="nope")
+    # both act only on banks, so they are refused rather than ignored
+    with pytest.raises(NotImplementedError, match="A.6"):
+        _env(2, bank_sampling="sequential")
+    with pytest.raises(NotImplementedError, match="A.6"):
+        _env(2, ic_noise=0.01)
