@@ -7,12 +7,20 @@ Run from the repo root on a machine with one CUDA card (H100, sm_90a) and
 nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
 ``rbc_gym_tpu_torch/csrc`` and runs, printing one JSON line per phase:
 
-1. build          nvcc into rbc_gym_tpu_torch/_build/ (ctypes, no torch headers)
-2. kernel_parity  each kernel against its plain PyTorch version on the card
-3. main_path      RBC2DVectorEnv(num_envs=1024) at 96x64, Ra=1e4: reset, 3
-                  steps with random actions, one Solver2D.substep; checks
-                  shapes, finiteness, Nu, divergence and the launch counters
-4. timing         each kernel, its plain version and its bound, in ms
+1. build             nvcc into rbc_gym_tpu_torch/_build/ (ctypes, no torch headers)
+2. kernel_parity     K1 and K2 against their plain PyTorch versions on the card
+3. main_path         RBC2DVectorEnv(num_envs=1024) at 96x64, Ra=1e4: reset, 3
+                     steps with random actions, one Solver2D.substep; checks
+                     shapes, finiteness, Nu, divergence and the launch counters
+4. timing            K1, K2, their plain versions and bounds, in ms
+5. kernel_parity_3d  K3 (each stage variant) and K4 against their plain
+                     versions at the 3D main path's shapes; one env step of
+                     the kernel path against the all-plain path
+6. main_path_3d      RBC3DVectorEnv(num_envs=1024) at 16x32x32, Ra=2500: reset,
+                     3 steps with random (E, 8, 8) actions, one Solver3D.substep;
+                     the same checks, launch counters 117 (K3) and 3 (K4)
+7. timing_3d         K3 per stage, K4, both Poisson forms, the split of one
+                     3D env step
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -34,9 +42,13 @@ import numpy as np
 import torch
 
 from rbc_gym_tpu_torch.envs.vector2d import RBC2DVectorEnv
+from rbc_gym_tpu_torch.envs.vector3d import RBC3DVectorEnv
 from rbc_gym_tpu_torch.ops import _build
 from rbc_gym_tpu_torch.ops import kernels2d as k2d
-from rbc_gym_tpu_torch.sim.grid import Grid2D
+from rbc_gym_tpu_torch.ops import kernels3d as k3d
+from rbc_gym_tpu_torch.ops.poisson import FACTORED_POISSON_MIN_NXNZ, make_poisson_solver_3d
+from rbc_gym_tpu_torch.sim import solver3d as s3d
+from rbc_gym_tpu_torch.sim.grid import Grid2D, Grid3D
 from rbc_gym_tpu_torch.sim.nusselt import nusselt_2d_physical
 from rbc_gym_tpu_torch.sim.solver2d import (
     SimParams2D,
@@ -55,17 +67,48 @@ K1_MAIN_ATOL = 4e-5
 K2_ATOL = 1e-5
 # Physical Nu at Ra=1e4 spans conduction (1) to developed 2D convection (~5).
 NU_RANGE = (0.9, 6.0)
+# K3, one stage on the same inputs: the updated fields and div within the
+# JAX package's gate for its stage kernel against its XLA path
+# (tests/test_pallas3d.py:56-70); the tendencies within its gate for a
+# tendency kernel (tests/test_solver2d.py:208), as for K2. Both halves
+# differ in float32 rounding only (flux form and FMA against the select
+# form, a sequential against a library suffix sum).
+K3_FIELD_ATOL = 5e-6
+K3_G_ATOL = 1e-5
+# K4 does the same three differences as its plain version; only FMA
+# contraction may change the last bits of values of order 0.1.
+K4_ATOL = 1e-6
+# A whole 3D env step (13 substeps), kernel path against the all-plain
+# path, u, v, w, b and p_nhs: the JAX package's gate for its stage-kernel
+# path against the XLA path (tests/test_pallas3d.py:161-175).
+ENV_STEP_3D_ATOL = 5e-6
+# 3D Nu (the reference's definition, 1 + <T'w>/kappa) at Ra=2500, 1.5x the
+# onset: 1 in conduction, under 2 for developed convection at this Ra; 3
+# steps (1.5 time units) from the random IC leave it near 1. Below 0.8 or
+# above 3 the solve has gone wrong.
+NU_RANGE_3D = (0.8, 3.0)
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
-SOURCE = "rbc_gym_tpu_torch/csrc/rbc2d.cu"
-MAIN_SHAPE_CHECK = {"env_step_2d": "env_step_2d_main", "tendencies_2d": "tendencies_2d"}
+SOURCES = {
+    "env_step_2d": "rbc_gym_tpu_torch/csrc/rbc2d.cu",
+    "tendencies_2d": "rbc_gym_tpu_torch/csrc/rbc2d.cu",
+    "stage_rk_3d": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
+    "correct_3d": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
+}
 REPLACES = {
     "env_step_2d": "rbc_gym_tpu/ops/pallas2d.py:220",
     "tendencies_2d": "rbc_gym_tpu/ops/pallas2d.py:187",
+    "stage_rk_3d": "rbc_gym_tpu/ops/pallas3d.py:597",
+    "correct_3d": "rbc_gym_tpu/ops/pallas3d.py:894",
 }
+# the gated parity error at the main path's shapes that each kernel reports
+MAIN_SHAPE_CHECK = {"env_step_2d": "env_step_2d_main", "tendencies_2d": "tendencies_2d",
+                    "stage_rk_3d": "stage_rk_3d", "correct_3d": "correct_3d"}
+WRAPPERS = {"env_step_2d": k2d.env_step_2d, "tendencies_2d": k2d.tendencies_2d,
+            "stage_rk_3d": k3d.stage_rk_3d, "correct_3d": k3d.correct_3d}
 
 
 def emit(obj) -> None:
@@ -206,6 +249,11 @@ def kernel_parity(device, k1_envs=128, main_envs=1024, state_shape=(64, 96)) -> 
             "seconds": time.perf_counter() - start}
 
 
+def reset_counters() -> None:
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -222,8 +270,7 @@ def main_path(device, num_envs=1024, state_shape=(64, 96), observation_shape=(8,
     rng = np.random.default_rng(seed)
     actions = [rng.uniform(-1.0, 1.0, (num_envs, env.params.n_heaters)) for _ in range(steps)]
 
-    k2d.env_step_2d.launches = 0
-    k2d.tendencies_2d.launches = 0
+    reset_counters()
     start = time.perf_counter()
     state, obs = env.reset(seed=seed)
     _sync(device)
@@ -235,8 +282,7 @@ def main_path(device, num_envs=1024, state_shape=(64, 96), observation_shape=(8,
     steps_s = time.perf_counter() - start
     sub = env.solver.substep(state.fields, env.solver.heater_profile(actions[-1]))
     _sync(device)
-    launches = {"env_step_2d": k2d.env_step_2d.launches,
-                "tendencies_2d": k2d.tendencies_2d.launches}
+    launches = {name: WRAPPERS[name].launches for name in ("env_step_2d", "tendencies_2d")}
 
     nz_o, nx_o = observation_shape
     if tuple(ts.obs.shape) != (num_envs, 3, nz_o, nx_o):
@@ -300,16 +346,267 @@ def timing(device, num_envs=1024, state_shape=(64, 96), heater_duration=1.5) -> 
             "seconds": time.perf_counter() - begin}
 
 
-def kernel_records(parity: dict, path: dict, times: dict) -> list:
-    """One record per kernel: launches from the main path, the gated
-    parity error at the main path's shapes, and this run's times and bounds."""
+# ---------------------------------------------------------------------------
+# 3D: the training grid through RBC3DVectorEnv
+# ---------------------------------------------------------------------------
+
+# FLOP per cell of one K3 stage, counted from csrc/rbc3d.cu with each face
+# flux once (as for K1): the tendencies gu 90 + gv 90 + gw 87 + gb 81 (per
+# direction a 19-FLOP C6/D5 flux, the face velocity, the difference; three
+# 4-FLOP second differences), the correction 9, pHY' 4, the RK update 3
+# per field at stage 0 and 5 at stages 1-2, the divergence 8.
+_TENDENCY_3D_FLOPS_PER_CELL = 90 + 90 + 87 + 81
+
+
+def stage_rk_3d_work(n_env: int, nx: int, ny: int, nz: int, stage: int) -> dict:
+    """FLOP and bytes of one K3 launch: u, v, b, q, bottom and w read and
+    u*, v*, b', div and w* written once per env; g_prev read at stages 1-2
+    and g written at stages 0-1 (three cell slabs and one face slab each)."""
+    cells, faces = nx * ny * nz, nx * ny * (nz + 1)
+    slab4 = 3 * cells + faces
+    words = 4 * cells + faces + nx * ny + 4 * cells + faces
+    words += slab4 * ((stage > 0) + (stage < 2))
+    per_cell = _TENDENCY_3D_FLOPS_PER_CELL + 9 + 4 + 8 + 4 * (3 if stage == 0 else 5)
+    return {"flops": n_env * per_cell * cells, "bytes": 4 * n_env * words}
+
+
+def correct_3d_work(n_env: int, nx: int, ny: int, nz: int) -> dict:
+    """u, v, w, q read and u, v, w written once; 3 FLOP per velocity point."""
+    cells, faces = nx * ny * nz, nx * ny * (nz + 1)
+    return {"flops": n_env * 9 * cells, "bytes": 4 * n_env * (5 * cells + 2 * faces)}
+
+
+def poisson_3d_flops(n_env: int, nx: int, ny: int, nz: int, factored: bool) -> int:
+    """Multiply-adds of one solve as ``make_poisson_solver_3d`` does it."""
+    k = nx * nz
+    xz = 2 * (nx + nz) if factored else k  # (x, z) transform, per output point
+    return n_env * ny * (2 * 2 * k * xz + 2 * 2 * ny * k + k)
+
+
+def make_case_3d(device, num_envs: int, state_shape=(16, 32, 32), seed=0, dtype=None):
+    """3D solver plus fields, bottom plate and the pending solve q of their
+    divergence, made by numpy from a seed."""
+    device = torch.device(device)
+    dtype = dtype or working_dtype(device)
+    nz, ny, nx = state_shape
+    grid = Grid3D(nx=nx, ny=ny, nz=nz, lx=4 * np.pi, ly=4 * np.pi, lz=2.0)
+    params = s3d.SimParams3D()
+    solver = s3d.make_solver3d(grid, params, dtype=dtype, device=device)
+    rng = np.random.default_rng(seed)
+    amp = 0.05
+    u = amp * rng.standard_normal((num_envs, nx, ny, nz))
+    v = amp * rng.standard_normal((num_envs, nx, ny, nz))
+    w = amp * rng.standard_normal((num_envs, nx, ny, nz + 1))
+    w[..., 0] = w[..., -1] = 0.0
+    profile = params.min_b + (grid.lz - grid.z_centers()) * params.delta_b / 2.0
+    b = np.clip(profile + amp * rng.standard_normal(u.shape), params.min_b,
+                params.min_b + params.delta_b)
+    actions = rng.uniform(-1.0, 1.0, (num_envs, params.n_heaters, params.n_heaters))
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+
+    u, v, w, b = t(u), t(v), t(w), t(b)
+    bottom = solver.heater_profile(t(actions)).contiguous()
+    q = solver.solve(k3d.to_solve_layout(k3d.divergence_3d(u, v, w, solver.coeffs)))
+    return solver, dict(u=u, v=v, w=w, b=b, bottom=bottom, q=q)
+
+
+def k3_run(solver, case, stage: int, g_prev, kernel: bool):
+    fn = k3d.stage_rk_3d if kernel else k3d.stage_rk_3d_plain
+    return fn(case["u"], case["v"], case["w"], case["b"], case["q"], case["bottom"],
+              solver.coeffs, 0.04, stage, g_prev)
+
+
+def k4_run(solver, case, kernel: bool):
+    fn = k3d.correct_3d if kernel else k3d.correct_3d_plain
+    return fn(case["u"], case["v"], case["w"], case["q"], solver.coeffs)
+
+
+def env_step_3d_run(solver, case, kernel: bool):
+    """One env step's lazy loop from the case's fields -> (u, v, w, b, p_nhs)."""
+    kw = {} if kernel else dict(stage_rk=k3d.stage_rk_3d_plain, correct=k3d.correct_3d_plain)
+    dts = [float(d) for d in solver.params.substep_dts()]
+    u, v, w, b, q = s3d.lazy_substeps(case["u"], case["v"], case["w"], case["b"], case["bottom"],
+                                      dts, solver.solve, solver.coeffs, **kw)
+    dt_last = (k3d.RK3_GAMMA[2] + k3d.RK3_ZETA[2]) * dts[-1]
+    return u, v, w, b, k3d.from_solve_layout(q) / dt_last
+
+
+K3_OUT = ("u", "v", "w", "b", "div")
+G_OUT = ("gu", "gv", "gw", "gb")
+ENV3_OUT = ("u", "v", "w", "b", "p_nhs")
+
+
+def kernel_parity_3d(device, main_envs=1024, step_envs=32, state_shape=(16, 32, 32)) -> dict:
+    """K3 stage 0, 1, 2 and K4 against their plain versions at the main
+    path's shapes, each stage fed the plain outputs of the one before; one
+    whole env step of the kernel path against the all-plain path at
+    ``step_envs`` and at ``main_envs``, and both against a float64 plain run."""
+    start = time.perf_counter()
+    solver, case = make_case_3d(device, main_envs, state_shape, seed=3)
+    by_stage, g_prev, errs = {}, None, {}
+    stage_case = dict(case)
+    for stage in range(3):
+        got = k3_run(solver, stage_case, stage, g_prev, True)
+        want = k3_run(solver, stage_case, stage, g_prev, False)
+        fields = abs_diffs(K3_OUT, got[:5], want[:5])
+        g = abs_diffs(G_OUT, got[5], want[5]) if stage < 2 else {}
+        by_stage[f"stage{stage}"] = {**fields, **g}
+        errs[f"stage{stage}_fields"] = (max(fields.values()), K3_FIELD_ATOL)
+        if g:
+            errs[f"stage{stage}_g"] = (max(g.values()), K3_G_ATOL)
+        stage_case.update(zip("uvwb", want[:4]), q=solver.solve(want[4]))
+        g_prev = want[5]
+    k4 = abs_diffs("uvw", k4_run(solver, case, True), k4_run(solver, case, False))
+    errs["correct_3d"] = (max(k4.values()), K4_ATOL)
+    steps = {}
+    for n_env in sorted({step_envs, main_envs}):
+        solver, case = make_case_3d(device, n_env, state_shape, seed=4)
+        kern = env_step_3d_run(solver, case, True)
+        plain = env_step_3d_run(solver, case, False)
+        steps[n_env] = {"kernel_vs_plain": abs_diffs(ENV3_OUT, kern, plain)}
+        errs[f"env_step_{n_env}"] = (max(steps[n_env]["kernel_vs_plain"].values()),
+                                     ENV_STEP_3D_ATOL)
+        if n_env == step_envs:
+            ref = env_step_3d_run(*make_case_3d(device, n_env, state_shape, seed=4,
+                                                dtype=torch.float64), False)
+            steps[n_env]["float64_plain_vs"] = {
+                "kernel": abs_diffs(ENV3_OUT, ref, kern),
+                "plain_float32": abs_diffs(ENV3_OUT, ref, plain)}
+    failed = {k: v for k, v in errs.items() if not v[0] <= v[1]}
+    if failed:
+        raise AssertionError(f"3D kernel parity failed (error, atol): {failed}")
+    max_err = {"stage_rk_3d": max(v[0] for k, v in errs.items() if k.startswith("stage")),
+               "correct_3d": errs["correct_3d"][0]}
+    return {"phase": "kernel_parity_3d", "num_envs": main_envs, "max_abs_err": max_err,
+            "gated": {k: {"error": e, "atol": a} for k, (e, a) in errs.items()},
+            "stage_rk_3d_by_stage": by_stage, "correct_3d_by_field": k4,
+            "env_step": {str(k): v for k, v in steps.items()},
+            "seconds": time.perf_counter() - start}
+
+
+def main_path_3d(device, num_envs=1024, state_shape=(16, 32, 32), heater_duration=0.125,
+                 steps=3, seed=0) -> dict:
+    """The user's 3D path: reset, ``steps`` env steps, one single substep."""
+    device = torch.device(device)
+    env = RBC3DVectorEnv(num_envs, state_shape=state_shape, heater_duration=heater_duration,
+                         dtype=working_dtype(device), device=device)
+    s = env.params.n_heaters
+    rng = np.random.default_rng(seed)
+    actions = [rng.uniform(-1.0, 1.0, (num_envs, s, s)) for _ in range(steps)]
+
+    reset_counters()
+    start = time.perf_counter()
+    state, obs = env.reset(seed=seed)
+    _sync(device)
+    reset_s = time.perf_counter() - start
+    start = time.perf_counter()
+    for a in actions:
+        state, ts = env.step(state, a)
+    _sync(device)
+    steps_s = time.perf_counter() - start
+    sub = env.solver.substep(state.fields, env.solver.heater_profile(actions[-1]),
+                             float(env.params.substep_dts()[0]))
+    _sync(device)
+    launches = {name: WRAPPERS[name].launches for name in ("stage_rk_3d", "correct_3d")}
+
+    nz, ny, nx = state_shape
+    for o in (obs, ts.obs):
+        if tuple(o.shape) != (num_envs, 4, nz, ny, nx):
+            raise AssertionError(f"obs shape {tuple(o.shape)}")
+    for name, x in [("obs", ts.obs), ("reward", ts.reward), *state.fields._asdict().items(),
+                    *(("substep." + k, v) for k, v in sub._asdict().items())]:
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{name} is not finite")
+    if not torch.equal(ts.reward, -ts.nusselt):
+        raise AssertionError("reward is not -Nu")
+    nu_lo, nu_hi = float(ts.nusselt.min()), float(ts.nusselt.max())
+    if not (NU_RANGE_3D[0] <= nu_lo and nu_hi <= NU_RANGE_3D[1]):
+        raise AssertionError(f"Nu in [{nu_lo}, {nu_hi}], outside {NU_RANGE_3D}")
+    div_tol = s3d.DIVERGENCE_ATOL[env.dtype]
+    div = max(s3d.max_divergence_3d(state.fields, env.grid),
+              s3d.max_divergence_3d(sub, env.grid))
+    if div >= div_tol:
+        raise AssertionError(f"max |div| {div} >= {div_tol}")
+    n_stages = steps * 3 * len(env.params.substep_dts())
+    if device.type == "cuda" and launches != {"stage_rk_3d": n_stages, "correct_3d": steps}:
+        raise AssertionError(f"launches {launches}, expected {n_stages} and {steps}")
+    return {"phase": "main_path_3d", "num_envs": num_envs, "steps": steps,
+            "reset_s": reset_s, "steps_s": steps_s,
+            "env_steps_per_s": num_envs * steps / steps_s,
+            "nusselt": [nu_lo, nu_hi], "max_abs_div": div, "div_atol": div_tol,
+            "launches": launches}
+
+
+def timing_3d(device, num_envs=1024, state_shape=(16, 32, 32)) -> dict:
+    """CUDA-event times at the 3D main path's shapes: K3 per stage, K4,
+    their plain versions and bounds, both Poisson forms, and one env step
+    split into K3, solves, K4 and the rest. Launches here are not the main
+    path's."""
+    begin = time.perf_counter()
+    nz, ny, nx = state_shape
+    solver, case = make_case_3d(device, num_envs, state_shape, seed=5)
+    g_prev = k3_run(solver, case, 0, None, False)[5]
+    out = {}
+    for stage in range(3):
+        gp = g_prev if stage else None
+        ms = _cuda_ms(lambda: k3_run(solver, case, stage, gp, True), 20)
+        plain_ms = _cuda_ms(lambda: k3_run(solver, case, stage, gp, False), 3)
+        work = stage_rk_3d_work(num_envs, nx, ny, nz, stage)
+        bound_ms, bound_by = bound(work)
+        out[f"stage_rk_3d.stage{stage}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                            "bound_by": bound_by, **work}
+    work = correct_3d_work(num_envs, nx, ny, nz)
+    bound_ms, bound_by = bound(work)
+    out["correct_3d"] = {"ms": _cuda_ms(lambda: k4_run(solver, case, True), 20),
+                         "plain_ms": _cuda_ms(lambda: k4_run(solver, case, False), 3),
+                         "bound_ms": bound_ms, "bound_by": bound_by, **work}
+    # K3 per env step: 13 substeps of the three variants; its record is
+    # the mean launch, its bound the mean bound
+    stages = [out[f"stage_rk_3d.stage{m}"] for m in range(3)]
+    mean = {k: sum(st[k] for st in stages) / 3 for k in ("ms", "plain_ms", "bound_ms")}
+    out["stage_rk_3d"] = {**mean, "bound_by": stages[1]["bound_by"]}
+
+    rhs = case["q"]
+    solves = {}
+    for factored in (False, True):
+        solve = make_poisson_solver_3d(nx, ny, nz, solver.grid.dx, solver.grid.dy,
+                                       solver.grid.dz, rhs.dtype, rhs.device, factored=factored)
+        flops = poisson_3d_flops(num_envs, nx, ny, nz, factored)
+        solves["factored" if factored else "dense"] = {
+            "ms": _cuda_ms(lambda: solve(rhs), 10), "flops": flops,
+            "bound_ms": 1e3 * flops / FP32_FLOPS}
+    zeros = torch.zeros_like(case["u"])
+    f = s3d.Fields3D(case["u"], case["v"], case["w"], case["b"], zeros, zeros)
+    actions = torch.zeros((num_envs, 8, 8), dtype=rhs.dtype, device=rhs.device)
+    step_ms = _cuda_ms(lambda: solver.env_step(f, actions), 3)
+    n_sub = len(solver.params.substep_dts())
+    default = "factored" if nx * nz >= FACTORED_POISSON_MIN_NXNZ else "dense"
+    split = {"env_step_ms": step_ms,
+             "stage_rk_3d_ms": n_sub * sum(st["ms"] for st in stages),
+             "poisson_ms": 3 * n_sub * solves[default]["ms"],
+             "correct_3d_ms": out["correct_3d"]["ms"]}
+    split["rest_ms"] = step_ms - sum(v for k, v in split.items() if k != "env_step_ms")
+    return {"phase": "timing_3d", "num_envs": num_envs, "kernels": out, "poisson": solves,
+            "env_step_split": split, "seconds": time.perf_counter() - begin}
+
+
+# ---------------------------------------------------------------------------
+# Records
+# ---------------------------------------------------------------------------
+
+
+def kernel_records(parity: dict, launches: dict, times: dict) -> list:
+    """One record per kernel: launches from its main path, the gated parity
+    error at the main path's shapes, and this run's times and bounds."""
     return [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": path["launches"][name],
-         "max_abs_err": parity["max_abs_err"][MAIN_SHAPE_CHECK[name]],
-         **{k: times["kernels"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+         "launches": launches[name],
+         "max_abs_err": parity[MAIN_SHAPE_CHECK[name]],
+         **{k: times[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None}
-        for name in ("env_step_2d", "tendencies_2d")
+        for name in WRAPPERS
     ]
 
 
@@ -334,7 +631,16 @@ def main() -> int:
     emit({**path, "card": card})
     times = timing(device)
     emit(times)
-    emit({"kernels": kernel_records(parity, path, times)})
+    parity_3d = kernel_parity_3d(device)
+    emit(parity_3d)
+    path_3d = main_path_3d(device)
+    emit({**path_3d, "card": card})
+    times_3d = timing_3d(device)
+    emit({**times_3d, "card": card})
+    emit({"kernels": kernel_records(
+        {**parity["max_abs_err"], **parity_3d["max_abs_err"]},
+        {**path["launches"], **path_3d["launches"]},
+        {**times["kernels"], **times_3d["kernels"]})})
     emit({"phase": "total", "seconds": time.perf_counter() - wall})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

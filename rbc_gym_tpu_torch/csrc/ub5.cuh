@@ -2,12 +2,13 @@
 //
 // Ports the shared Pallas helpers of rbc_gym_tpu/ops/pallas3d.py:
 //   _c6_d5_flux (:171-187)        -> c6_d5_flux
-//   _uw_flux_periodic (:190-201)  -> uw_flux_x
+//   _uw_flux_periodic (:190-201)  -> uw_flux_periodic (any strided periodic
+//                                    axis: x in 2D, y in 3D), uw_flux_x
 //   _z_row_flux/_z_uw_flux        -> z_uw_flux (interior C6/D5 rows, wall
 //     (:204-255)                     rows by the UB5 -> UB3 -> UB1 ladder)
 // and the body of ops/pallas2d.py:_tendencies (:144-184) -> tendencies_block.
 //
-// Layout: one env's fields are contiguous slabs, x-major with z fastest:
+// 2D layout: one env's fields are contiguous slabs, x-major with z fastest:
 // u, b, p_hy are (nx, nz), w is (nx, nz + 1), bottom is (nx,). x is periodic,
 // z is bounded (no-slip walls, w = 0 on the wall faces).
 //
@@ -37,16 +38,23 @@ __device__ __forceinline__ float c6_d5_flux(float tm3, float tm2, float tm1,
   return vel * c6 - fabsf(vel) * d5;
 }
 
-// Flux vel * UB5 reconstruction of q along periodic x at (i, k); the taps are
-// q[i + m + off][k] for off in -3..2 (m = 0: centers -> faces, m = 1: faces
-// -> centers). `stride` is q's row length (nz or nz + 1).
+// Flux vel * UB5 reconstruction of q along a periodic axis of n points
+// that sit `stride` floats apart, at point i; the taps are
+// q[wrap(i + m + off) * stride] for off in -3..2 (m = 0: centers -> faces,
+// m = 1: faces -> centers).
+__device__ __forceinline__ float uw_flux_periodic(const float* q, int stride, int n,
+                                                  int i, int m, float vel) {
+  const int c = i + m;
+  return c6_d5_flux(q[wrap_x(c - 3, n) * stride], q[wrap_x(c - 2, n) * stride],
+                    q[wrap_x(c - 1, n) * stride], q[wrap_x(c, n) * stride],
+                    q[wrap_x(c + 1, n) * stride], q[wrap_x(c + 2, n) * stride], vel);
+}
+
+// The same along periodic x of a 2D (nx, stride) slab, at (i, k): `stride`
+// is q's row length (nz or nz + 1).
 __device__ __forceinline__ float uw_flux_x(const float* q, int stride, int nx,
                                            int i, int k, int m, float vel) {
-  const int c = i + m;
-  return c6_d5_flux(q[wrap_x(c - 3, nx) * stride + k], q[wrap_x(c - 2, nx) * stride + k],
-                    q[wrap_x(c - 1, nx) * stride + k], q[wrap_x(c, nx) * stride + k],
-                    q[wrap_x(c + 1, nx) * stride + k], q[wrap_x(c + 2, nx) * stride + k],
-                    vel);
+  return uw_flux_periodic(q + k, stride, nx, i, m, vel);
 }
 
 // Flux vel * upwind z reconstruction of one column qc (n_src points) at

@@ -1,4 +1,4 @@
-"""Nusselt-number diagnostics and observation extraction (2D).
+"""Nusselt-number diagnostics and observation extraction.
 
 Port of ``rbc_gym_tpu.sim.nusselt``. Replicates the reference's 2D Nusselt
 definition *exactly*, including its index-spacing quirk, because it defines
@@ -10,6 +10,8 @@ where ``grad_index`` is a unit-spacing finite-difference gradient over the
 *array index* (NOT divided by dz), T is the buoyancy tracer and w is sampled
 at the bottom z-face of each cell. ``nusselt_2d_physical`` is the
 dimensionally consistent definition used for physics validation.
+``nusselt_3d`` is the reference's 3D definition (convective flux of the
+anomaly from the conductive profile).
 """
 
 from __future__ import annotations
@@ -50,6 +52,22 @@ def nusselt_2d_physical(
     t_profile = t.mean(dim=-2)
     q2 = kappa * (index_gradient(t_profile) / dz).mean(dim=-1)
     return (q1 - q2) / (kappa * delta_b / height)
+
+
+def nusselt_3d(
+    b: torch.Tensor, w: torch.Tensor, kappa: float, min_b: float, delta_b: float
+) -> torch.Tensor:
+    """Reference 3D Nusselt. b, w: (..., nx, ny, nz) in solver order, w the
+    bottom-face sample (first nz face points).
+
+    The conductive profile is taken at unit-height midpoints
+    z = (k + 0.5) / nz whatever the domain height, as the reference does.
+    """
+    nz = b.shape[-1]
+    z = (torch.arange(nz, dtype=b.dtype, device=b.device) + 0.5) / nz
+    t_conductive = (1.0 - z) * delta_b + min_b
+    q_conv = ((b - t_conductive) * w).mean(dim=(-3, -2, -1))
+    return 1.0 + q_conv / kappa
 
 
 def sensor_subsample_2d(field: torch.Tensor, n_obs_x: int, n_obs_z: int) -> torch.Tensor:

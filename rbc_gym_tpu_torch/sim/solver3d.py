@@ -1,0 +1,263 @@
+"""3D Rayleigh-Bénard solver (periodic x/y, bounded z) on the staggered C-grid.
+
+Port of ``rbc_gym_tpu.sim.solver3d``. Physics: the reference's
+sim/rbc_sim3D.jl (UpwindBiasedFifthOrder, :RungeKutta3, buoyancy tracer,
+nu = sqrt(Pr/Ra), kappa = 1/sqrt(Pr Ra), no-slip u/v, fixed top
+temperature, actuated S x S bottom tiles). Times are in free-fall units,
+t_ff = Lz^2: one env step spans heater_duration * t_ff, split into solver
+steps of dt_solver * t_ff whose last one is clipped to land on the step
+boundary (``SimParams3D.substep_dts``).
+
+Public layout (batch..., nx, ny, nz[+1]):
+  u (x-face, y-center, z-center), v (x-center, y-face, z-center),
+  w (x-center, y-center, z-face), b and pressures at centers.
+
+``env_step`` runs the lazy-projection loop of the JAX package's
+``fused="stage"`` path: per substep three ``stage_rk_3d`` launches with
+a Poisson solve after each, the pending (unscaled) solve ``q`` carried
+between stages; one ``correct_3d`` at the end of the env step; pHY' and
+p_nhs = q / dt_stage recovered once. For CUDA tensors the two wrappers
+launch the kernels of ``csrc/rbc3d.cu``; for CPU tensors the same loop
+runs their plain versions. ``substep`` is the plain eager substep of the
+JAX package's ``substep_bm``, which reaches no kernel there either.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from rbc_gym_tpu_torch import default_device
+from rbc_gym_tpu_torch.ops.kernels2d import RK3_GAMMA, RK3_ZETA, hydrostatic_pressure
+from rbc_gym_tpu_torch.ops.kernels3d import (
+    Coeffs3D,
+    correct_3d,
+    divergence_3d,
+    from_solve_layout,
+    stage_rk_3d,
+    tendencies_3d_plain,
+    to_solve_layout,
+    X,
+    Y,
+    Z,
+)
+from rbc_gym_tpu_torch.ops import stencils as st
+from rbc_gym_tpu_torch.ops.poisson import make_poisson_solver_3d
+from rbc_gym_tpu_torch.sim.actuation import heater_profile_3d, preprocess_action_3d
+from rbc_gym_tpu_torch.sim.grid import Grid3D
+
+
+@dataclasses.dataclass(frozen=True)
+class SimParams3D:
+    """Defaults: reference rbc_sim3D_api.jl:17 + envs/rbc3D.py:43-60."""
+
+    ra: float = 2500.0
+    pr: float = 0.7
+    min_b: float = 1.0
+    delta_b: float = 1.0
+    dt_solver: float = 0.01  # free-fall units
+    heater_duration: float = 0.125  # env step, free-fall units
+    n_heaters: int = 8
+    heater_limit: float = 0.9
+    random_kick: float = 0.01
+    lz: float = 2.0
+
+    @property
+    def nu(self) -> float:
+        return float(np.sqrt(self.pr / self.ra))
+
+    @property
+    def kappa(self) -> float:
+        return float(1.0 / np.sqrt(self.pr * self.ra))
+
+    @property
+    def t_ff(self) -> float:
+        return self.lz**2
+
+    def substep_dts(self) -> np.ndarray:
+        """Solver dt sequence per env step (buoyancy time units); the final
+        entry is clipped so the sum is exactly heater_duration * t_ff."""
+        total = self.heater_duration * self.t_ff
+        dt = self.dt_solver * self.t_ff
+        n_full = int(total / dt + 1e-9)
+        rem = total - n_full * dt
+        if rem > 1e-12 * max(1.0, total):
+            return np.array([dt] * n_full + [rem])
+        return np.array([dt] * n_full)
+
+
+class Fields3D(NamedTuple):
+    u: torch.Tensor  # (..., nx, ny, nz)
+    v: torch.Tensor  # (..., nx, ny, nz)
+    w: torch.Tensor  # (..., nx, ny, nz + 1)
+    b: torch.Tensor  # (..., nx, ny, nz)
+    p_hy: torch.Tensor  # (..., nx, ny, nz)
+    p_nhs: torch.Tensor  # (..., nx, ny, nz)
+
+
+class Solver3D(NamedTuple):
+    """Function bundle for one grid + params + dtype + device."""
+
+    grid: Grid3D
+    params: SimParams3D
+    dtype: torch.dtype
+    device: torch.device
+    coeffs: Coeffs3D
+    solve: Callable  # solve-layout rhs (E, ny, nx, nz) -> p
+    init_random: Callable  # (generator, batch_shape) -> Fields3D
+    env_step: Callable  # (Fields3D, action (..., S, S)) -> Fields3D
+    substep: Callable  # (Fields3D, bottom (..., nx, ny), dt) -> Fields3D
+    preprocess_action: Callable  # action (..., S, S) -> tile temperatures
+    heater_profile: Callable  # action (..., S, S) -> bottom (..., nx, ny)
+
+
+# Largest max|div u| a projected step may leave: float64 as the JAX
+# package's oracle (tests/test_solver3d.py:65), float32 its device gate
+# (tests/test_pallas3d.py:95).
+DIVERGENCE_ATOL = {torch.float64: 1e-8, torch.float32: 5e-4}
+
+
+def max_divergence_3d(f: Fields3D, grid: Grid3D) -> float:
+    """max |div u| over all envs and cells."""
+    c = Coeffs3D(grid.dx, grid.dy, grid.dz, 0.0, 0.0, 0.0)
+    return float(divergence_3d(f.u, f.v, f.w, c).abs().max())
+
+
+def lazy_substeps(
+    u: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    bottom: torch.Tensor,
+    dts: Sequence[float],
+    solve: Callable,
+    c: Coeffs3D,
+    stage_rk: Callable = stage_rk_3d,
+    correct: Callable = correct_3d,
+):
+    """The lazy-projection substep loop of one env step on (E, ...) fields
+    -> (u, v, w, b, q), velocities projected, q the last stage's unscaled
+    solve in the solve layout.
+
+    The incoming fields are projected, so the pending solve starts at zero.
+    ``stage_rk`` and ``correct`` default to the kernel wrappers; a caller
+    that wants the all-plain path on a card passes the plain versions."""
+    e, nx, ny, nz = u.shape
+    q = torch.zeros((e, ny, nx, nz), dtype=u.dtype, device=u.device)
+    for dt in dts:
+        g = None
+        for m in range(3):
+            u, v, w, b, div, g = stage_rk(u, v, w, b, q, bottom, c, float(dt), m, g)
+            q = solve(div)
+    u, v, w = correct(u, v, w, q, c)
+    return u, v, w, b, q
+
+
+def make_solver3d(
+    grid: Grid3D,
+    params: SimParams3D,
+    dtype: torch.dtype = torch.float32,
+    device: str | torch.device | None = "cuda",
+) -> Solver3D:
+    """Build the 3D solver bundle on ``device``. The Poisson solve takes the
+    JAX package's form for the grid (dense below nx * nz = 1024)."""
+    if abs(grid.lz - params.lz) > 1e-12:
+        params = dataclasses.replace(params, lz=grid.lz)
+    device = default_device(device)
+    nx, ny, nz = grid.nx, grid.ny, grid.nz
+    min_b = params.min_b
+    coeffs = Coeffs3D(grid.dx, grid.dy, grid.dz, params.nu, params.kappa, min_b)
+    solve = make_poisson_solver_3d(nx, ny, nz, grid.dx, grid.dy, grid.dz, dtype, device)
+    dts = [float(d) for d in params.substep_dts()]
+    dt_last = (RK3_GAMMA[2] + RK3_ZETA[2]) * dts[-1]
+
+    def flat(f: Fields3D) -> Fields3D:
+        return Fields3D(*(q.reshape((-1,) + q.shape[-3:]).contiguous() for q in f))
+
+    def unflat(f: Fields3D, batch) -> Fields3D:
+        return Fields3D(*(q.reshape(batch + q.shape[-3:]) for q in f))
+
+    def flat_bottom(bottom: torch.Tensor, batch) -> torch.Tensor:
+        return torch.broadcast_to(bottom, batch + (nx, ny)).reshape(-1, nx, ny).contiguous()
+
+    def preprocess(action) -> torch.Tensor:
+        action = torch.as_tensor(action, dtype=dtype, device=device)
+        return preprocess_action_3d(action, params.heater_limit, min_b, params.delta_b)
+
+    def heater_profile(action) -> torch.Tensor:
+        return heater_profile_3d(preprocess(action), grid.x_centers(), grid.y_centers(),
+                                 grid.lx, grid.ly, params.n_heaters)
+
+    def env_step(f: Fields3D, action) -> Fields3D:
+        """Advance one env step; action is the raw (..., S, S) agent action."""
+        batch = f.u.shape[:-3]
+        g = flat(f)
+        u, v, w, b, q = lazy_substeps(g.u, g.v, g.w, g.b,
+                                      flat_bottom(heater_profile(action), batch),
+                                      dts, solve, coeffs)
+        out = Fields3D(u, v, w, b, hydrostatic_pressure(b, grid.dz, min_b),
+                       from_solve_layout(q) / dt_last)
+        return unflat(out, batch)
+
+    def substep(f: Fields3D, bottom: torch.Tensor, dt: float) -> Fields3D:
+        """One plain RK3 solver step of ``dt``, each stage projected; bottom
+        (..., nx, ny) broadcasting."""
+        batch = f.u.shape[:-3]
+        g = flat(f)
+        bot = flat_bottom(torch.as_tensor(bottom, dtype=dtype, device=device), batch)
+        u, v, w, b = g.u, g.v, g.w, g.b
+        p_nhs, g_prev = g.p_nhs, None
+        for m in range(3):
+            gamma, zeta = RK3_GAMMA[m], RK3_ZETA[m]
+            gs = tendencies_3d_plain(u, v, w, b, hydrostatic_pressure(b, grid.dz, min_b),
+                                     bot, coeffs)
+            if m == 0:
+                u, v, w, b = (q + dt * gamma * gq for q, gq in zip((u, v, w, b), gs))
+            else:
+                u, v, w, b = (q + dt * (gamma * gq + zeta * gp)
+                              for q, gq, gp in zip((u, v, w, b), gs, g_prev))
+            g_prev = gs
+            dt_stage = (gamma + zeta) * dt
+            div = divergence_3d(u, v, w, coeffs)
+            p_nhs = from_solve_layout(solve(to_solve_layout(div / dt_stage)))
+            u = u - dt_stage * st.ddx_c2f(p_nhs, grid.dx, X)
+            v = v - dt_stage * st.ddx_c2f(p_nhs, grid.dy, Y)
+            w = w - dt_stage * st.ddz_c2f_interior(p_nhs, grid.dz, Z)
+        out = Fields3D(u, v, w, b, hydrostatic_pressure(b, grid.dz, min_b), p_nhs)
+        return unflat(out, batch)
+
+    def init_random(generator: torch.Generator, batch_shape: Tuple[int, ...] = ()) -> Fields3D:
+        """Reference sim/rbc_sim3D.jl:169-178: conductive profile + kick."""
+        batch_shape = tuple(batch_shape)
+        kick = params.random_kick
+
+        def normal(shape):
+            return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+
+        shape_c = batch_shape + (nx, ny, nz)
+        u = kick * normal(shape_c)
+        v = kick * normal(shape_c)
+        w = kick * normal(batch_shape + (nx, ny, nz + 1))
+        w[..., 0] = 0.0
+        w[..., -1] = 0.0
+        z_c = torch.as_tensor(grid.z_centers(), dtype=dtype, device=device)
+        profile = min_b + (grid.lz - z_c) * params.delta_b / 2.0
+        b = torch.clamp(profile + kick * normal(shape_c), min_b, min_b + params.delta_b)
+        return Fields3D(u, v, w, b, hydrostatic_pressure(b, grid.dz, min_b), torch.zeros_like(u))
+
+    return Solver3D(
+        grid=grid,
+        params=params,
+        dtype=dtype,
+        device=device,
+        coeffs=coeffs,
+        solve=solve,
+        init_random=init_random,
+        env_step=env_step,
+        substep=substep,
+        preprocess_action=preprocess,
+        heater_profile=heater_profile,
+    )

@@ -1,0 +1,176 @@
+"""K3 and K4's CUDA source, compiled for the host and held against the
+plain versions, on the CPU.
+
+The card is needed to run the kernels as built. Their arithmetic and
+indexing, though, can run here: both kernels walk their points in
+strided loops separated by block-wide barriers, so one thread per block,
+run block after block, executes every phase of ``csrc/rbc3d.cu`` to its
+end before the next begins, as the card does. A small header stands in
+for the CUDA keywords; the C launchers (which need nvcc) are cut off. The
+gates are the smoke's on-card ones (``chip_smoke.py``): the emulation
+differs from the plain versions in float32 rounding only.
+"""
+
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from rbc_gym_tpu_torch.ops import _build
+from rbc_gym_tpu_torch.ops import kernels3d as k3
+
+SHIM = r"""
+#pragma once
+#include <cmath>
+#include <cstddef>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__
+struct dim3 { unsigned x = 0, y = 0, z = 0; };
+inline dim3 threadIdx, blockIdx, blockDim;
+inline void __syncthreads() {}
+"""
+
+DRIVER = r"""
+#include <cstdio>
+#include <cstdlib>
+#include <string>
+#include <vector>
+namespace host { float smem[1 << 20]; }
+#include "rbc3d_host.h"
+using namespace host;
+static std::string dir;
+static std::vector<float> rd(const char* n, size_t count) {
+  std::vector<float> v(count);
+  FILE* f = fopen((dir + n).c_str(), "rb");
+  if (!f || fread(v.data(), 4, count, f) != count) exit(2);
+  fclose(f);
+  return v;
+}
+static void wr(const char* n, const std::vector<float>& v) {
+  FILE* f = fopen((dir + n).c_str(), "wb");
+  fwrite(v.data(), 4, v.size(), f);
+  fclose(f);
+}
+int main(int argc, char** argv) {
+  dir = argv[1];
+  const int E = atoi(argv[2]), nx = atoi(argv[3]), ny = atoi(argv[4]), nz = atoi(argv[5]);
+  const int stage = atoi(argv[6]);
+  const float dt = atof(argv[7]), gamma = atof(argv[8]), zeta = atof(argv[9]);
+  const RBC3DParams P{nx, ny, nz, (float)atof(argv[10]), (float)atof(argv[11]),
+                      (float)atof(argv[12]), (float)atof(argv[13]), (float)atof(argv[14]),
+                      (float)atof(argv[15])};
+  const size_t C = (size_t)E * nx * ny * nz, F = (size_t)E * nx * ny * (nz + 1);
+  auto u = rd("u", C), v = rd("v", C), w = rd("w", F), b = rd("b", C), q = rd("q", C);
+  auto bottom = rd("bottom", (size_t)E * nx * ny);
+  std::vector<float> gp[4] = {rd("gu_prev", C), rd("gv_prev", C), rd("gw_prev", F),
+                              rd("gb_prev", C)};
+  std::vector<float> out[5] = {std::vector<float>(C), std::vector<float>(C),
+                               std::vector<float>(F), std::vector<float>(C),
+                               std::vector<float>(C)};
+  std::vector<float> g[4] = {std::vector<float>(C), std::vector<float>(C),
+                             std::vector<float>(F), std::vector<float>(C)};
+  auto prev = [&](int i) { return stage > 0 ? gp[i].data() : nullptr; };
+  auto emit = [&](int i) { return stage < 2 ? g[i].data() : nullptr; };
+  blockDim.x = 1;
+  for (unsigned blk = 0; blk < (unsigned)(E * (nx / kXBlk)); ++blk) {
+    blockIdx.x = blk;
+    stage_rk_3d_kernel(u.data(), v.data(), w.data(), b.data(), q.data(), bottom.data(),
+                       prev(0), prev(1), prev(2), prev(3), out[0].data(), out[1].data(),
+                       out[2].data(), out[3].data(), out[4].data(), emit(0), emit(1),
+                       emit(2), emit(3), dt, gamma, zeta, P);
+  }
+  const char* names[9] = {"u_out", "v_out", "w_out", "b_out", "div", "gu", "gv", "gw", "gb"};
+  for (int i = 0; i < 5; ++i) wr(names[i], out[i]);
+  for (int i = 0; i < 4 && stage < 2; ++i) wr(names[5 + i], g[i]);
+  std::vector<float> c[3] = {std::vector<float>(C), std::vector<float>(C),
+                             std::vector<float>(F)};
+  for (size_t p = 0; p < F; ++p) {
+    blockIdx.x = (unsigned)p;
+    correct_3d_kernel(u.data(), v.data(), w.data(), q.data(), c[0].data(), c[1].data(),
+                      c[2].data(), E, nx, ny, nz, P.dx, P.dy, P.dz);
+  }
+  wr("cu", c[0]); wr("cv", c[1]); wr("cw", c[2]);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_binary(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no host C++ compiler to build the kernels' host emulation")
+    d = tmp_path_factory.mktemp("rbc3d_host")
+    src = (_build.CSRC_DIR / "rbc3d.cu").read_text()
+    src = src[: src.index('extern "C" {')]  # the launchers need nvcc
+    src = src.replace("#include <cuda_runtime.h>", '#include "shim.h"')
+    src = src.replace('#include "ub5.cuh"', f'#include "{_build.CSRC_DIR / "ub5.cuh"}"')
+    src = src.replace("namespace {", "namespace host {", 1)
+    (d / "shim.h").write_text(SHIM)
+    (d / "rbc3d_host.h").write_text(src)
+    (d / "driver.cpp").write_text(DRIVER)
+    exe = d / "driver"
+    proc = subprocess.run([gxx, "-std=c++17", "-O1", "-o", str(exe), str(d / "driver.cpp")],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    return exe
+
+
+def _case(e, nx, ny, nz, seed):
+    rng = np.random.default_rng(seed)
+    amp = 0.05
+    u = amp * rng.standard_normal((e, nx, ny, nz))
+    v = amp * rng.standard_normal((e, nx, ny, nz))
+    w = amp * rng.standard_normal((e, nx, ny, nz + 1))
+    w[..., 0] = w[..., -1] = 0.0
+    z_c = (np.arange(nz) + 0.5) * 2.0 / nz
+    b = np.clip(1.0 + (2.0 - z_c) / 2.0 + amp * rng.standard_normal(u.shape), 1.0, 2.0)
+    bottom = rng.uniform(1.5, 2.5, (e, nx, ny))
+    q = 0.01 * rng.standard_normal((e, ny, nx, nz))
+    g_prev = [0.1 * rng.standard_normal(a.shape) for a in (u, v, w, b)]
+    g_prev[2][..., 0] = g_prev[2][..., -1] = 0.0
+    return dict(u=u, v=v, w=w, b=b, bottom=bottom, q=q, gu_prev=g_prev[0],
+                gv_prev=g_prev[1], gw_prev=g_prev[2], gb_prev=g_prev[3])
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2])
+@pytest.mark.parametrize("shape", [(3, 32, 32, 16), (2, 8, 8, 8), (1, 12, 8, 5)])
+def test_host_build_of_k3_and_k4_matches_plain(host_binary, tmp_path, shape, stage):
+    e, nx, ny, nz = shape
+    case = _case(*shape, seed=0)
+    for name, a in case.items():
+        a.astype(np.float32).tofile(tmp_path / name)
+    c = k3.Coeffs3D(4 * np.pi / nx, 4 * np.pi / ny, 2.0 / nz, float(np.sqrt(0.7 / 2500)),
+                    float(1 / np.sqrt(0.7 * 2500)), 1.0)
+    dt = 0.04
+    args = [*map(str, (*shape, stage)),
+            *(repr(float(x)) for x in (dt, k3.RK3_GAMMA[stage], k3.RK3_ZETA[stage], *c))]
+    subprocess.run([str(host_binary), f"{tmp_path}/", *args], check=True)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32)
+
+    def got(name, like):
+        return np.fromfile(tmp_path / name, np.float32).reshape(like.shape)
+
+    g_prev = tuple(t(case[n]) for n in ("gu_prev", "gv_prev", "gw_prev", "gb_prev"))
+    want = k3.stage_rk_3d_plain(*(t(case[n]) for n in ("u", "v", "w", "b", "q", "bottom")),
+                                c, dt, stage, g_prev if stage else None)
+    for name, x in zip(("u_out", "v_out", "w_out", "b_out", "div"), want[:5]):
+        np.testing.assert_allclose(got(name, x), x.numpy(), rtol=0,
+                                   atol=chip_smoke.K3_FIELD_ATOL, err_msg=name)
+    for name, x in zip(("gu", "gv", "gw", "gb"), want[5] or ()):
+        np.testing.assert_allclose(got(name, x), x.numpy(), rtol=0,
+                                   atol=chip_smoke.K3_G_ATOL, err_msg=name)
+    w_out = got("w_out", want[2])
+    assert np.all(w_out[..., 0] == 0) and np.all(w_out[..., -1] == 0)
+    plain = k3.correct_3d_plain(*(t(case[n]) for n in ("u", "v", "w", "q")), c)
+    for name, x in zip(("cu", "cv", "cw"), plain):
+        np.testing.assert_allclose(got(name, x), x.numpy(), rtol=0, atol=chip_smoke.K4_ATOL,
+                                   err_msg=name)

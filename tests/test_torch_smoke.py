@@ -85,11 +85,15 @@ def test_smoke_phases_run_on_cpu_plain_halves():
     json.dumps(path)
 
     fake = {"ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5, "bound_by": "bytes"}
+    names = ("env_step_2d", "tendencies_2d", "stage_rk_3d", "correct_3d")
     records = chip_smoke.kernel_records(
-        {"max_abs_err": {"env_step_2d": 1e-7, "env_step_2d_main": 2e-7, "tendencies_2d": 1e-8}},
-        {"launches": {"env_step_2d": 3, "tendencies_2d": 3}},
-        {"kernels": {"env_step_2d": fake, "tendencies_2d": fake}},
+        {"env_step_2d": 1e-7, "env_step_2d_main": 2e-7, "tendencies_2d": 1e-8,
+         "stage_rk_3d": 3e-7, "correct_3d": 1e-8},
+        {"env_step_2d": 3, "tendencies_2d": 3, "stage_rk_3d": 117, "correct_3d": 3},
+        {name: fake for name in names},
     )
+    assert [rec["name"] for rec in records] == list(names)
+    assert records[0]["max_abs_err"] == 2e-7  # the main path's shapes
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for rec in records:
@@ -100,12 +104,52 @@ def test_smoke_phases_run_on_cpu_plain_halves():
     json.dumps({"kernels": records})
 
 
+def test_smoke_3d_phases_run_on_cpu_plain_halves():
+    """The 3D phases at a reduced grid: both halves of every comparison are
+    the plain versions here, so they agree exactly; the main path's checks
+    (shapes, finiteness, reward, Nu, divergence) run as on the card."""
+    tiny = dict(state_shape=(8, 8, 8))
+    solver, case = chip_smoke.make_case_3d("cpu", 2, **tiny)
+    assert tuple(case["q"].shape) == (2, 8, 8, 8) and tuple(case["bottom"].shape) == (2, 8, 8)
+    out = chip_smoke.k3_run(solver, case, 0, None, kernel=False)
+    assert [tuple(t.shape) for t in out[:5]] == [(2, 8, 8, 8)] * 2 + [(2, 8, 8, 9)] + [
+        (2, 8, 8, 8)] * 2
+    parity = chip_smoke.kernel_parity_3d("cpu", main_envs=2, step_envs=1, **tiny)
+    assert set(parity["max_abs_err"]) == {"stage_rk_3d", "correct_3d"}
+    assert all(v["error"] == 0.0 for v in parity["gated"].values())
+    assert {"stage0_fields", "stage1_g", "stage2_fields", "correct_3d", "env_step_1",
+            "env_step_2"} <= set(parity["gated"])
+    json.dumps(parity)
+    path = chip_smoke.main_path_3d("cpu", num_envs=2, heater_duration=0.0125, steps=2, **tiny)
+    assert path["launches"] == {"stage_rk_3d": 0, "correct_3d": 0}
+    assert path["max_abs_div"] < path["div_atol"]
+    lo, hi = chip_smoke.NU_RANGE_3D
+    assert lo <= path["nusselt"][0] <= path["nusselt"][1] <= hi
+    json.dumps(path)
+
+
 def test_bounds_at_main_path_shapes():
     k1_ms, k1_by = chip_smoke.bound(chip_smoke.env_step_work(1024, 96, 64, 50))
     k2_ms, k2_by = chip_smoke.bound(chip_smoke.tendencies_work(1024, 96, 64))
     assert (k1_by, k2_by) == ("operations", "bytes")
     # ~0.66 GFLOP per env per env step at 67 TFLOP/s; ~7 field slabs at 3.35 TB/s
     assert 9.5 < k1_ms < 11.0 and 0.04 < k2_ms < 0.08
+
+
+def test_3d_bounds_at_main_path_shapes():
+    """K3 and K4 move more bytes than the card can hide behind their FLOP:
+    ~1.2 MB per env per stage-1 launch at 3.35 TB/s (0.37 ms at 1024 envs)."""
+    works = [chip_smoke.stage_rk_3d_work(1024, 32, 32, 16, m) for m in range(3)]
+    bounds = [chip_smoke.bound(w) for w in works]
+    assert all(by == "bytes" for _, by in bounds)
+    assert works[0]["bytes"] == works[2]["bytes"] < works[1]["bytes"]
+    assert 0.35 < bounds[1][0] < 0.38 and 0.27 < bounds[0][0] < 0.30
+    k4_ms, k4_by = chip_smoke.bound(chip_smoke.correct_3d_work(1024, 32, 32, 16))
+    assert k4_by == "bytes" and 0.1 < k4_ms < 0.15
+    # the dense solve is ~36 MFLOP per env at 16x32x32; the factored one fewer
+    dense = chip_smoke.poisson_3d_flops(1, 32, 32, 16, factored=False)
+    assert 3.4e7 < dense < 3.8e7
+    assert chip_smoke.poisson_3d_flops(1, 32, 32, 16, factored=True) < dense / 4
 
 
 @pytest.mark.parametrize("alone", [False, True])
