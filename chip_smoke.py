@@ -21,6 +21,18 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      the same checks, launch counters 117 (K3) and 3 (K4)
 7. timing_3d         K3 per stage, K4, both Poisson forms, the split of one
                      3D env step
+8. selection         the stage-kernel rule: 16x32x32 float32 -> K3, 32x64x64
+                     float32 -> K5, float64 in 2D and 3D -> the plain path with
+                     no launch, K3 forced at 32x64x64 -> ValueError, no launch
+9. kernel_parity_big K5 (each stage) against its plain version at 32x64x64
+                     and, forced, at 16x32x32; one big-grid env step of the
+                     kernel path against the all-plain path and a float64 run
+10. main_path_big    RBC3DVectorEnv(1024, state_shape=(32, 64, 64),
+                     dt_solver=0.005): reset, 3 steps (25 substeps each); the
+                     same checks, launch counters 225 (K5), 3 (K4), 0 (K3),
+                     peak device memory
+11. timing_big       K5 per stage, K4, the factored Poisson solve, the split
+                     of one big-grid env step
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -34,6 +46,7 @@ tests run them at a tiny size with the plain versions.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -56,6 +69,10 @@ from rbc_gym_tpu_torch.sim.solver2d import (
     DIVERGENCE_ATOL,
     make_solver2d,
 )
+
+# The big grid: 32x64x64 at dt_solver 0.005, 25 substeps per env step.
+BIG_SHAPE = (32, 64, 64)
+BIG_DT_SOLVER = 0.005
 
 # K1 after 6 substeps: the JAX package's own device gate for the fused
 # whole-step kernel against the XLA path (rbc_gym_tpu/utils/parity.py:20);
@@ -97,18 +114,25 @@ SOURCES = {
     "tendencies_2d": "rbc_gym_tpu_torch/csrc/rbc2d.cu",
     "stage_rk_3d": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
     "correct_3d": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
+    "stage_rk_3d_xy": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
 }
 REPLACES = {
     "env_step_2d": "rbc_gym_tpu/ops/pallas2d.py:220",
     "tendencies_2d": "rbc_gym_tpu/ops/pallas2d.py:187",
     "stage_rk_3d": "rbc_gym_tpu/ops/pallas3d.py:597",
     "correct_3d": "rbc_gym_tpu/ops/pallas3d.py:894",
+    "stage_rk_3d_xy": "rbc_gym_tpu/ops/pallas3d.py:1242",
 }
 # the gated parity error at the main path's shapes that each kernel reports
 MAIN_SHAPE_CHECK = {"env_step_2d": "env_step_2d_main", "tendencies_2d": "tendencies_2d",
-                    "stage_rk_3d": "stage_rk_3d", "correct_3d": "correct_3d"}
+                    "stage_rk_3d": "stage_rk_3d", "correct_3d": "correct_3d",
+                    "stage_rk_3d_xy": "stage_rk_3d_xy"}
 WRAPPERS = {"env_step_2d": k2d.env_step_2d, "tendencies_2d": k2d.tendencies_2d,
-            "stage_rk_3d": k3d.stage_rk_3d, "correct_3d": k3d.correct_3d}
+            "stage_rk_3d": k3d.stage_rk_3d, "correct_3d": k3d.correct_3d,
+            "stage_rk_3d_xy": k3d.stage_rk_3d_xy}
+KERNEL_NAMES = {"env_step_2d_kernel": "env_step_2d", "tendencies_2d_kernel": "tendencies_2d",
+                "stage_rk_3d_kernel": "stage_rk_3d", "correct_3d_kernel": "correct_3d",
+                "stage_rk_3d_xy_kernel": "stage_rk_3d_xy"}
 
 
 def emit(obj) -> None:
@@ -213,11 +237,32 @@ K2_OUT = ("gu", "gw", "gb")
 # ---------------------------------------------------------------------------
 
 
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes per kernel from nvcc's ``-Xptxas -v`` log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = next((v for k, v in KERNEL_NAMES.items() if f"{len(k)}{k}" in m.group(1)),
+                        m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build() -> dict:
     start = time.perf_counter()
     lib, nvcc_s = _build.build()
     _build.load_library()
+    log = _build.build_log_path(lib)
     return {"phase": "build", "library": lib.name, "nvcc_s": nvcc_s,
+            "ptxas": ptxas_report(log.read_text()) if log.exists() else None,
             "seconds": time.perf_counter() - start}
 
 
@@ -359,7 +404,8 @@ _TENDENCY_3D_FLOPS_PER_CELL = 90 + 90 + 87 + 81
 
 
 def stage_rk_3d_work(n_env: int, nx: int, ny: int, nz: int, stage: int) -> dict:
-    """FLOP and bytes of one K3 launch: u, v, b, q, bottom and w read and
+    """FLOP and bytes of one K3 or K5 launch (one function): u, v, b, q,
+    bottom and w read and
     u*, v*, b', div and w* written once per env; g_prev read at stages 1-2
     and g written at stages 0-1 (three cell slabs and one face slab each)."""
     cells, faces = nx * ny * nz, nx * ny * (nz + 1)
@@ -383,14 +429,15 @@ def poisson_3d_flops(n_env: int, nx: int, ny: int, nz: int, factored: bool) -> i
     return n_env * ny * (2 * 2 * k * xz + 2 * 2 * ny * k + k)
 
 
-def make_case_3d(device, num_envs: int, state_shape=(16, 32, 32), seed=0, dtype=None):
+def make_case_3d(device, num_envs: int, state_shape=(16, 32, 32), seed=0, dtype=None,
+                 dt_solver=0.01):
     """3D solver plus fields, bottom plate and the pending solve q of their
     divergence, made by numpy from a seed."""
     device = torch.device(device)
     dtype = dtype or working_dtype(device)
     nz, ny, nx = state_shape
     grid = Grid3D(nx=nx, ny=ny, nz=nz, lx=4 * np.pi, ly=4 * np.pi, lz=2.0)
-    params = s3d.SimParams3D()
+    params = s3d.SimParams3D(dt_solver=dt_solver)
     solver = s3d.make_solver3d(grid, params, dtype=dtype, device=device)
     rng = np.random.default_rng(seed)
     amp = 0.05
@@ -412,8 +459,9 @@ def make_case_3d(device, num_envs: int, state_shape=(16, 32, 32), seed=0, dtype=
     return solver, dict(u=u, v=v, w=w, b=b, bottom=bottom, q=q)
 
 
-def k3_run(solver, case, stage: int, g_prev, kernel: bool):
-    fn = k3d.stage_rk_3d if kernel else k3d.stage_rk_3d_plain
+def k3_run(solver, case, stage: int, g_prev, kernel: bool, wrapper=k3d.stage_rk_3d):
+    """One stage of ``wrapper`` (K3 or K5) or of the plain version."""
+    fn = wrapper if kernel else k3d.stage_rk_3d_plain
     return fn(case["u"], case["v"], case["w"], case["b"], case["q"], case["bottom"],
               solver.coeffs, 0.04, stage, g_prev)
 
@@ -424,11 +472,12 @@ def k4_run(solver, case, kernel: bool):
 
 
 def env_step_3d_run(solver, case, kernel: bool):
-    """One env step's lazy loop from the case's fields -> (u, v, w, b, p_nhs)."""
-    kw = {} if kernel else dict(stage_rk=k3d.stage_rk_3d_plain, correct=k3d.correct_3d_plain)
+    """One env step's lazy loop from the case's fields -> (u, v, w, b,
+    p_nhs), through the solver's path or the all-plain one."""
+    stage_rk, correct = s3d.STAGE_PATHS[solver.path if kernel else "plain"]
     dts = [float(d) for d in solver.params.substep_dts()]
     u, v, w, b, q = s3d.lazy_substeps(case["u"], case["v"], case["w"], case["b"], case["bottom"],
-                                      dts, solver.solve, solver.coeffs, **kw)
+                                      dts, solver.solve, solver.coeffs, stage_rk, correct)
     dt_last = (k3d.RK3_GAMMA[2] + k3d.RK3_ZETA[2]) * dts[-1]
     return u, v, w, b, k3d.from_solve_layout(q) / dt_last
 
@@ -438,6 +487,26 @@ G_OUT = ("gu", "gv", "gw", "gb")
 ENV3_OUT = ("u", "v", "w", "b", "p_nhs")
 
 
+def stage_parity(solver, case, wrapper, prefix=""):
+    """Stage 0, 1, 2 of ``wrapper`` (K3 or K5) against the plain version,
+    each stage fed the plain outputs of the one before -> (errors by stage
+    and output, {check: (error, atol)})."""
+    by_stage, g_prev, errs = {}, None, {}
+    stage_case = dict(case)
+    for stage in range(3):
+        got = k3_run(solver, stage_case, stage, g_prev, True, wrapper)
+        want = k3_run(solver, stage_case, stage, g_prev, False)
+        fields = abs_diffs(K3_OUT, got[:5], want[:5])
+        g = abs_diffs(G_OUT, got[5], want[5]) if stage < 2 else {}
+        by_stage[f"stage{stage}"] = {**fields, **g}
+        errs[f"{prefix}stage{stage}_fields"] = (max(fields.values()), K3_FIELD_ATOL)
+        if g:
+            errs[f"{prefix}stage{stage}_g"] = (max(g.values()), K3_G_ATOL)
+        stage_case.update(zip("uvwb", want[:4]), q=solver.solve(want[4]))
+        g_prev = want[5]
+    return by_stage, errs
+
+
 def kernel_parity_3d(device, main_envs=1024, step_envs=32, state_shape=(16, 32, 32)) -> dict:
     """K3 stage 0, 1, 2 and K4 against their plain versions at the main
     path's shapes, each stage fed the plain outputs of the one before; one
@@ -445,19 +514,7 @@ def kernel_parity_3d(device, main_envs=1024, step_envs=32, state_shape=(16, 32, 
     ``step_envs`` and at ``main_envs``, and both against a float64 plain run."""
     start = time.perf_counter()
     solver, case = make_case_3d(device, main_envs, state_shape, seed=3)
-    by_stage, g_prev, errs = {}, None, {}
-    stage_case = dict(case)
-    for stage in range(3):
-        got = k3_run(solver, stage_case, stage, g_prev, True)
-        want = k3_run(solver, stage_case, stage, g_prev, False)
-        fields = abs_diffs(K3_OUT, got[:5], want[:5])
-        g = abs_diffs(G_OUT, got[5], want[5]) if stage < 2 else {}
-        by_stage[f"stage{stage}"] = {**fields, **g}
-        errs[f"stage{stage}_fields"] = (max(fields.values()), K3_FIELD_ATOL)
-        if g:
-            errs[f"stage{stage}_g"] = (max(g.values()), K3_G_ATOL)
-        stage_case.update(zip("uvwb", want[:4]), q=solver.solve(want[4]))
-        g_prev = want[5]
+    by_stage, errs = stage_parity(solver, case, k3d.stage_rk_3d)
     k4 = abs_diffs("uvw", k4_run(solver, case, True), k4_run(solver, case, False))
     errs["correct_3d"] = (max(k4.values()), K4_ATOL)
     steps = {}
@@ -486,16 +543,15 @@ def kernel_parity_3d(device, main_envs=1024, step_envs=32, state_shape=(16, 32, 
             "seconds": time.perf_counter() - start}
 
 
-def main_path_3d(device, num_envs=1024, state_shape=(16, 32, 32), heater_duration=0.125,
-                 steps=3, seed=0) -> dict:
-    """The user's 3D path: reset, ``steps`` env steps, one single substep."""
-    device = torch.device(device)
-    env = RBC3DVectorEnv(num_envs, state_shape=state_shape, heater_duration=heater_duration,
-                         dtype=working_dtype(device), device=device)
-    s = env.params.n_heaters
+STAGE_WRAPPERS = ("stage_rk_3d", "stage_rk_3d_xy", "correct_3d")
+
+
+def drive_3d(env, steps: int, seed: int):
+    """The user's 3D path from zeroed counters: reset, ``steps`` env steps
+    with random (E, S, S) actions -> (state, obs, last timestep, record)."""
+    device, num_envs, s = env.device, env.num_envs, env.params.n_heaters
     rng = np.random.default_rng(seed)
     actions = [rng.uniform(-1.0, 1.0, (num_envs, s, s)) for _ in range(steps)]
-
     reset_counters()
     start = time.perf_counter()
     state, obs = env.reset(seed=seed)
@@ -506,17 +562,23 @@ def main_path_3d(device, num_envs=1024, state_shape=(16, 32, 32), heater_duratio
         state, ts = env.step(state, a)
     _sync(device)
     steps_s = time.perf_counter() - start
-    sub = env.solver.substep(state.fields, env.solver.heater_profile(actions[-1]),
-                             float(env.params.substep_dts()[0]))
-    _sync(device)
-    launches = {name: WRAPPERS[name].launches for name in ("stage_rk_3d", "correct_3d")}
+    launches = {name: WRAPPERS[name].launches for name in STAGE_WRAPPERS}
+    return state, obs, ts, actions, {
+        "num_envs": num_envs, "steps": steps, "path": env.solver.path, "reset_s": reset_s,
+        "steps_s": steps_s, "env_steps_per_s": num_envs * steps / steps_s,
+        "launches": launches}
 
-    nz, ny, nx = state_shape
+
+def check_3d(env, state, obs, ts, extra=None) -> dict:
+    """Shapes, finiteness, reward, Nu and divergence of a 3D run (and of
+    ``extra``, more fields on the same grid)."""
+    nz, ny, nx = env.grid.nz, env.grid.ny, env.grid.nx
     for o in (obs, ts.obs):
-        if tuple(o.shape) != (num_envs, 4, nz, ny, nx):
+        if tuple(o.shape) != (env.num_envs, 4, nz, ny, nx):
             raise AssertionError(f"obs shape {tuple(o.shape)}")
+    more = () if extra is None else tuple(("substep." + k, v) for k, v in extra._asdict().items())
     for name, x in [("obs", ts.obs), ("reward", ts.reward), *state.fields._asdict().items(),
-                    *(("substep." + k, v) for k, v in sub._asdict().items())]:
+                    *more]:
         if not bool(torch.isfinite(x).all()):
             raise AssertionError(f"{name} is not finite")
     if not torch.equal(ts.reward, -ts.nusselt):
@@ -525,18 +587,58 @@ def main_path_3d(device, num_envs=1024, state_shape=(16, 32, 32), heater_duratio
     if not (NU_RANGE_3D[0] <= nu_lo and nu_hi <= NU_RANGE_3D[1]):
         raise AssertionError(f"Nu in [{nu_lo}, {nu_hi}], outside {NU_RANGE_3D}")
     div_tol = s3d.DIVERGENCE_ATOL[env.dtype]
-    div = max(s3d.max_divergence_3d(state.fields, env.grid),
-              s3d.max_divergence_3d(sub, env.grid))
+    div = s3d.max_divergence_3d(state.fields, env.grid)
+    if extra is not None:
+        div = max(div, s3d.max_divergence_3d(extra, env.grid))
     if div >= div_tol:
         raise AssertionError(f"max |div| {div} >= {div_tol}")
+    return {"nusselt": [nu_lo, nu_hi], "max_abs_div": div, "div_atol": div_tol}
+
+
+def expect_launches(device, got: dict, want: dict) -> None:
+    if device.type == "cuda" and got != want:
+        raise AssertionError(f"launches {got}, expected {want}")
+
+
+def main_path_3d(device, num_envs=1024, state_shape=(16, 32, 32), heater_duration=0.125,
+                 steps=3, seed=0) -> dict:
+    """The user's 3D path: reset, ``steps`` env steps, one single substep."""
+    device = torch.device(device)
+    env = RBC3DVectorEnv(num_envs, state_shape=state_shape, heater_duration=heater_duration,
+                         dtype=working_dtype(device), device=device)
+    state, obs, ts, actions, rec = drive_3d(env, steps, seed)
+    sub = env.solver.substep(state.fields, env.solver.heater_profile(actions[-1]),
+                             float(env.params.substep_dts()[0]))
+    _sync(device)
+    checks = check_3d(env, state, obs, ts, sub)
     n_stages = steps * 3 * len(env.params.substep_dts())
-    if device.type == "cuda" and launches != {"stage_rk_3d": n_stages, "correct_3d": steps}:
-        raise AssertionError(f"launches {launches}, expected {n_stages} and {steps}")
-    return {"phase": "main_path_3d", "num_envs": num_envs, "steps": steps,
-            "reset_s": reset_s, "steps_s": steps_s,
-            "env_steps_per_s": num_envs * steps / steps_s,
-            "nusselt": [nu_lo, nu_hi], "max_abs_div": div, "div_atol": div_tol,
-            "launches": launches}
+    expect_launches(device, rec["launches"],
+                    {"stage_rk_3d": n_stages, "stage_rk_3d_xy": 0, "correct_3d": steps})
+    launches = {k: rec["launches"][k] for k in ("stage_rk_3d", "correct_3d")}
+    return {"phase": "main_path_3d", **rec, **checks, "launches": launches}
+
+
+def main_path_big(device, num_envs=1024, state_shape=BIG_SHAPE, dt_solver=BIG_DT_SOLVER,
+                  heater_duration=0.125, steps=3, seed=0) -> dict:
+    """The big grid through the user's path: reset and ``steps`` env steps
+    of ``RBC3DVectorEnv(num_envs, state_shape, dt_solver)``; the peak of
+    device memory over them."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    env = RBC3DVectorEnv(num_envs, state_shape=state_shape, dt_solver=dt_solver,
+                         heater_duration=heater_duration, dtype=working_dtype(device),
+                         device=device)
+    state, obs, ts, _, rec = drive_3d(env, steps, seed)
+    checks = check_3d(env, state, obs, ts)
+    n_stages = steps * 3 * len(env.params.substep_dts())
+    expect_launches(device, rec["launches"],
+                    {"stage_rk_3d": 0, "stage_rk_3d_xy": n_stages, "correct_3d": steps})
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    return {"phase": "main_path_big", "state_shape": list(state_shape),
+            "substeps_per_step": len(env.params.substep_dts()), **rec, **checks,
+            "peak_memory_bytes": peak}
 
 
 def timing_3d(device, num_envs=1024, state_shape=(16, 32, 32)) -> dict:
@@ -593,6 +695,159 @@ def timing_3d(device, num_envs=1024, state_shape=(16, 32, 32)) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 3D: the 32x64x64 big grid, K5 and the kernel-selection rule
+# ---------------------------------------------------------------------------
+
+
+def selection(device) -> dict:
+    """The rule of ``Solver3D.path`` / ``Solver2D.path`` on this device:
+    auto picks K3 on the training grid and K5 on the big grid (CUDA,
+    float32), the plain path for float64 (no kernel launch in a step);
+    forcing K3 on the big grid raises before any launch. On the CPU auto
+    is the plain path everywhere."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    f32, f64 = working_dtype(device), torch.float64
+    paths = {}
+    for name, shape in (("training_grid", (16, 32, 32)), ("big_grid", BIG_SHAPE)):
+        env = RBC3DVectorEnv(2, state_shape=shape, dtype=f32, device=device)
+        paths[name] = env.solver.path
+    want = {"training_grid": "stage" if cuda else "plain",
+            "big_grid": "stage_xy" if cuda else "plain"}
+    rng = np.random.default_rng(0)
+    reset_counters()
+    env = RBC3DVectorEnv(2, state_shape=(8, 16, 16), heater_duration=0.0125, dtype=f64,
+                         device=device)
+    state, _ = env.reset(seed=0)
+    state, ts = env.step(state, rng.uniform(-1.0, 1.0, (2, 8, 8)))
+    _sync(device)
+    paths["float64_3d"], want["float64_3d"] = env.solver.path, "plain"
+    env2 = RBC2DVectorEnv(2, heater_duration=0.06, dtype=f64, device=device)
+    state2, _ = env2.reset(seed=0)
+    state2, ts2 = env2.step(state2, rng.uniform(-1.0, 1.0, (2, env2.params.n_heaters)))
+    _sync(device)
+    paths["float64_2d"], want["float64_2d"] = env2.solver.path, "plain"
+    if not all(bool(torch.isfinite(t).all()) for t in (*state.fields, *state2.fields)):
+        raise AssertionError("a float64 plain step is not finite")
+    try:
+        RBC3DVectorEnv(2, state_shape=BIG_SHAPE, fused="stage", dtype=torch.float32,
+                       device=device)
+    except ValueError as err:
+        forced = str(err)
+    else:
+        raise AssertionError("forcing K3 on the big grid did not raise")
+    if "436,736" not in forced:
+        raise AssertionError(f"the refusal does not name K3's shared memory: {forced}")
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    if paths != want:
+        raise AssertionError(f"paths {paths}, expected {want}")
+    if any(launches.values()):
+        raise AssertionError(f"a plain or refused path launched a kernel: {launches}")
+    return {"phase": "selection", "paths": paths, "forced_stage_big_grid": forced,
+            "launches": launches}
+
+
+def kernel_parity_big(device, big_envs=8, small_envs=256, step_envs=4,
+                      state_shape=BIG_SHAPE, small_shape=(16, 32, 32)) -> dict:
+    """K5 stage 0, 1, 2 against the plain version at the big grid
+    (``big_envs``) and, forced, at the training grid, where ny = 32 makes
+    four y blocks (``small_envs``); one whole big-grid env step (25
+    substeps) of the kernel path against the all-plain path and both
+    against a float64 plain run (``step_envs``)."""
+    start = time.perf_counter()
+    solver, case = make_case_3d(device, big_envs, state_shape, seed=6, dt_solver=BIG_DT_SOLVER)
+    by_stage, errs = stage_parity(solver, case, k3d.stage_rk_3d_xy)
+    # stage 0 in float64 from the same inputs: the float32 rounding of both
+    # halves, which grows with 1/dx^2 and 1/dz^2 on this finer grid
+    case64 = {k: v.double() for k, v in case.items()}
+
+    def outs(out):
+        return (*out[:5], *out[5])
+
+    ref = outs(k3_run(solver, case64, 0, None, False))
+    rounding = {
+        "kernel": abs_diffs(K3_OUT + G_OUT, ref,
+                            outs(k3_run(solver, case, 0, None, True, k3d.stage_rk_3d_xy))),
+        "plain_float32": abs_diffs(K3_OUT + G_OUT, ref,
+                                   outs(k3_run(solver, case, 0, None, False)))}
+    solver, case = make_case_3d(device, small_envs, small_shape, seed=7)
+    by_stage_small, errs_small = stage_parity(solver, case, k3d.stage_rk_3d_xy, "small_")
+    errs.update(errs_small)
+    solver, case = make_case_3d(device, step_envs, state_shape, seed=8, dt_solver=BIG_DT_SOLVER)
+    kern = env_step_3d_run(solver, case, True)
+    plain = env_step_3d_run(solver, case, False)
+    step = {"path": solver.path, "kernel_vs_plain": abs_diffs(ENV3_OUT, kern, plain)}
+    errs["env_step"] = (max(step["kernel_vs_plain"].values()), ENV_STEP_3D_ATOL)
+    ref = env_step_3d_run(*make_case_3d(device, step_envs, state_shape, seed=8,
+                                        dtype=torch.float64, dt_solver=BIG_DT_SOLVER), False)
+    step["float64_plain_vs"] = {"kernel": abs_diffs(ENV3_OUT, ref, kern),
+                                "plain_float32": abs_diffs(ENV3_OUT, ref, plain)}
+    failed = {k: v for k, v in errs.items() if not v[0] <= v[1]}
+    if failed:
+        raise AssertionError(f"big-grid kernel parity failed (error, atol): {failed}")
+    at_big = [e for k, (e, _) in errs.items() if k.startswith("stage")]
+    return {"phase": "kernel_parity_big", "num_envs": big_envs,
+            "max_abs_err": {"stage_rk_3d_xy": max(at_big)},
+            "gated": {k: {"error": e, "atol": a} for k, (e, a) in errs.items()},
+            "stage_rk_3d_xy_by_stage": by_stage,
+            "stage0_float64_plain_vs": rounding,
+            "stage_rk_3d_xy_small_grid_by_stage": by_stage_small,
+            "env_step": step, "seconds": time.perf_counter() - start}
+
+
+def timing_big(device, num_envs=1024, state_shape=BIG_SHAPE, plain_envs=1024) -> dict:
+    """CUDA-event times at the big main path's shapes: K5 per stage and its
+    plain version (at ``plain_envs``), K4, one factored Poisson solve, and
+    one env step split into K5, solves, K4 and the rest. Launches here are
+    not the main path's."""
+    begin = time.perf_counter()
+    nz, ny, nx = state_shape
+    solver, case = make_case_3d(device, num_envs, state_shape, seed=9, dt_solver=BIG_DT_SOLVER)
+    if plain_envs == num_envs:
+        p_case = case
+    else:
+        p_case = {k: v[:plain_envs].contiguous() for k, v in case.items()}
+    g_prev = k3_run(solver, case, 0, None, True, k3d.stage_rk_3d_xy)[5]
+    p_g_prev = tuple(g[:plain_envs].contiguous() for g in g_prev)
+    out = {}
+    for stage in range(3):
+        gp, pgp = (g_prev, p_g_prev) if stage else (None, None)
+        ms = _cuda_ms(lambda: k3_run(solver, case, stage, gp, True, k3d.stage_rk_3d_xy), 5)
+        plain_ms = _cuda_ms(lambda: k3_run(solver, p_case, stage, pgp, False), 2)
+        work = stage_rk_3d_work(num_envs, nx, ny, nz, stage)
+        bound_ms, bound_by = bound(work)
+        out[f"stage_rk_3d_xy.stage{stage}"] = {
+            "ms": ms, "plain_ms": plain_ms, "plain_envs": plain_envs, "bound_ms": bound_ms,
+            "bound_by": bound_by, **work}
+    del g_prev, p_g_prev
+    work = correct_3d_work(num_envs, nx, ny, nz)
+    bound_ms, bound_by = bound(work)
+    out["correct_3d"] = {"ms": _cuda_ms(lambda: k4_run(solver, case, True), 5),
+                         "plain_ms": _cuda_ms(lambda: k4_run(solver, case, False), 2),
+                         "bound_ms": bound_ms, "bound_by": bound_by, **work}
+    stages = [out[f"stage_rk_3d_xy.stage{m}"] for m in range(3)]
+    mean = {k: sum(st[k] for st in stages) / 3 for k in ("ms", "plain_ms", "bound_ms")}
+    out["stage_rk_3d_xy"] = {**mean, "bound_by": stages[1]["bound_by"]}
+    rhs = case["q"]
+    flops = poisson_3d_flops(num_envs, nx, ny, nz, factored=True)
+    solve = {"ms": _cuda_ms(lambda: solver.solve(rhs), 5), "flops": flops,
+             "bound_ms": 1e3 * flops / FP32_FLOPS}
+    zeros = torch.zeros_like(case["u"])
+    f = s3d.Fields3D(case["u"], case["v"], case["w"], case["b"], zeros, zeros)
+    actions = torch.zeros((num_envs, 8, 8), dtype=rhs.dtype, device=rhs.device)
+    step_ms = _cuda_ms(lambda: solver.env_step(f, actions), 2)
+    n_sub = len(solver.params.substep_dts())
+    split = {"env_step_ms": step_ms,
+             "stage_rk_3d_xy_ms": n_sub * sum(st["ms"] for st in stages),
+             "poisson_ms": 3 * n_sub * solve["ms"],
+             "correct_3d_ms": out["correct_3d"]["ms"]}
+    split["rest_ms"] = step_ms - sum(v for k, v in split.items() if k != "env_step_ms")
+    return {"phase": "timing_big", "num_envs": num_envs, "path": solver.path, "kernels": out,
+            "poisson_factored": solve, "env_step_split": split,
+            "seconds": time.perf_counter() - begin}
+
+
+# ---------------------------------------------------------------------------
 # Records
 # ---------------------------------------------------------------------------
 
@@ -637,10 +892,21 @@ def main() -> int:
     emit({**path_3d, "card": card})
     times_3d = timing_3d(device)
     emit({**times_3d, "card": card})
+    emit(selection(device))
+    parity_big = kernel_parity_big(device)
+    emit(parity_big)
+    path_big = main_path_big(device)
+    emit({**path_big, "card": card})
+    times_big = timing_big(device)
+    emit({**times_big, "card": card})
+    # each kernel's launches from the main path that is its own (K4 runs in
+    # both 3D paths; its count is the training grid's)
     emit({"kernels": kernel_records(
-        {**parity["max_abs_err"], **parity_3d["max_abs_err"]},
-        {**path["launches"], **path_3d["launches"]},
-        {**times["kernels"], **times_3d["kernels"]})})
+        {**parity["max_abs_err"], **parity_3d["max_abs_err"], **parity_big["max_abs_err"]},
+        {**path["launches"], **path_3d["launches"],
+         "stage_rk_3d_xy": path_big["launches"]["stage_rk_3d_xy"]},
+        {**times["kernels"], **times_3d["kernels"],
+         "stage_rk_3d_xy": times_big["kernels"]["stage_rk_3d_xy"]})})
     emit({"phase": "total", "seconds": time.perf_counter() - wall})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

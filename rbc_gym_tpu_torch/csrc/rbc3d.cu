@@ -37,6 +37,28 @@
 //   Plain float32 loads and stores, FP32 FMA; making it fast (cp.async or
 //   TMA staging, occupancy) is later work.
 //
+// K5 stage_rk_3d_xy_kernel replaces ops/pallas3d.py:_stage_rk_kernel_xy
+// (reached from make_stage_rk_3d_xy, pl.pallas_call at :1592): K3's stage,
+// with K3's contract and layouts, on (x, y)-blocked slabs, for grids whose
+// whole-y slab does not fit a block's 232,448 bytes of shared memory (the
+// 32x64x64 big grid needs 436,736 in K3).
+//   Bound: bytes, as K3. At 32x64x64 it moves 7.4 MB per env at stages 0
+//   and 2 and 9.5 MB at stage 1, against some 400 FLOP per cell.
+//   Design: one block per (env, kXBlk = 4 x columns, kYBlk = 8 y rows),
+//   full z in every column. y halos are staged from global memory with
+//   periodic wrap, as K3 stages x: q with 4 rows on each side, v with 3
+//   below and 4 above (v* is computed one row wider for the divergence at
+//   the far y face, the Pallas kernel's gv scratch of y_blk + 1 rows), u,
+//   w, b with 3 and 3; no y index wraps inside the block. u* at the right
+//   x face and v* at the far y face stay in shared memory for phase 5. The
+//   phases and the tendency code are K3's (the Slab types differ only in
+//   how y is indexed). At nz = 32 the slabs take 99,888 bytes, so two
+//   256-thread blocks share an SM. The halos cost bytes that the bound does
+//   not count: the block stages 4.85 times the cells it owns (K3 at
+//   16x32x32: 2.65). The Pallas kernel's _YH = 8 (the TPU's sublane
+//   tiling), e_blk and XLA-side padding have no counterpart. Plain float32
+//   loads and FP32 FMA; making it fast is later work.
+//
 // K4 correct_3d_kernel replaces ops/pallas3d.py:_correct_kernel (reached
 // from make_projection_glue_3d, pl.pallas_call at :959): u -= ddx q,
 // v -= ddy q, w -= ddz q at interior faces, once per env step after the
@@ -49,15 +71,17 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kXBlk = 4;  // x columns a block owns
+constexpr int kXBlk = 4;  // x columns a K3 or K5 block owns
+constexpr int kYBlk = 8;  // y rows a K5 block owns
 
 struct RBC3DParams {
   int nx, ny, nz;
   float dx, dy, dz, nu, kappa, min_b;
 };
 
-// An x-extended slab in shared memory: columns x = lo, lo + 1, ... (x
-// relative to the block's first column), each ny rows of nk z values.
+// An x-extended slab in shared memory that holds all of periodic y (K3):
+// columns x = lo, lo + 1, ... (x relative to the block's first column),
+// each ny rows of nk z values; y neighbours and y taps wrap in the slab.
 struct Slab {
   float* p;
   int lo, ny, nk;
@@ -67,40 +91,64 @@ struct Slab {
   __device__ __forceinline__ float operator()(int x, int y, int k) const {
     return col(x, y)[k];
   }
+  __device__ __forceinline__ int yp(int j) const { return wrap_x(j + 1, ny); }
+  __device__ __forceinline__ int ym(int j) const { return wrap_x(j - 1, ny); }
+  // vel * UB5 reconstruction along periodic y at row j + m of column x.
+  __device__ __forceinline__ float flux_y(int x, int j, int k, int m, float vel) const {
+    return uw_flux_periodic(col(x, 0) + k, nk, ny, j, m, vel);
+  }
 };
+
+// An (x, y)-extended slab (K5): columns x = lo, lo + 1, ... and rows
+// y = ylo, ..., ylo + ny - 1, both relative to the block's first column
+// and row, halos included, so no y neighbour or tap wraps.
+struct SlabXY {
+  float* p;
+  int lo, ylo, ny, nk;
+  __device__ __forceinline__ float* col(int x, int y) const {
+    return p + ((x - lo) * ny + (y - ylo)) * nk;
+  }
+  __device__ __forceinline__ float operator()(int x, int y, int k) const {
+    return col(x, y)[k];
+  }
+  __device__ __forceinline__ int yp(int j) const { return j + 1; }
+  __device__ __forceinline__ int ym(int j) const { return j - 1; }
+  __device__ __forceinline__ float flux_y(int x, int j, int k, int m, float vel) const {
+    return uw_flux_strided(col(x, 0) + k, nk, j, m, vel);
+  }
+};
+
+// The tendencies below take either slab type: x is never wrapped inside a
+// slab, y goes through the slab's yp/ym/flux_y.
 
 // vel * UB5 reconstruction along x (non-periodic inside the slab) at
 // column i + m, taps i + m + off for off in -3..2.
-__device__ __forceinline__ float flux_x(const Slab& q, int i, int y, int k, int m,
-                                        float vel) {
+template <class S>
+__device__ __forceinline__ float flux_x(const S& q, int i, int y, int k, int m, float vel) {
   const int c = i + m;
   return c6_d5_flux(q(c - 3, y, k), q(c - 2, y, k), q(c - 1, y, k), q(c, y, k),
                     q(c + 1, y, k), q(c + 2, y, k), vel);
 }
 
-// vel * UB5 reconstruction along periodic y at row j + m of column x.
-__device__ __forceinline__ float flux_y(const Slab& q, int x, int j, int k, int m,
-                                        float vel) {
-  return uw_flux_periodic(q.col(x, 0) + k, q.nk, q.ny, j, m, vel);
-}
-
-__device__ __forceinline__ float lap_h(const Slab& q, int i, int j, int k, float c,
+template <class S>
+__device__ __forceinline__ float lap_h(const S& q, int i, int j, int k, float c,
                                        const RBC3DParams& P) {
-  const int jm = wrap_x(j - 1, P.ny), jp = wrap_x(j + 1, P.ny);
+  const int jm = q.ym(j), jp = q.yp(j);
   return (q(i + 1, j, k) - 2.0f * c + q(i - 1, j, k)) / (P.dx * P.dx) +
          (q(i, jp, k) - 2.0f * c + q(i, jm, k)) / (P.dy * P.dy);
 }
 
 // gu at (x-face i, y-center j, z-center k).
-__device__ float tendency_u(const Slab& U, const Slab& V, const Slab& W, const Slab& PH,
+template <class S>
+__device__ float tendency_u(const S& U, const S& V, const S& W, const S& PH,
                             int i, int j, int k, const RBC3DParams& P) {
-  const int nz = P.nz, jp = wrap_x(j + 1, P.ny);
+  const int nz = P.nz, jp = U.yp(j);
   const float uc_i = 0.5f * (U(i, j, k) + U(i + 1, j, k));
   const float uc_im = 0.5f * (U(i - 1, j, k) + U(i, j, k));
   float adv = (flux_x(U, i, j, k, 1, uc_i) - flux_x(U, i - 1, j, k, 1, uc_im)) / P.dx;
   const float vf_j = 0.5f * (V(i - 1, j, k) + V(i, j, k));
   const float vf_jp = 0.5f * (V(i - 1, jp, k) + V(i, jp, k));
-  adv += (flux_y(U, i, j + 1, k, 0, vf_jp) - flux_y(U, i, j, k, 0, vf_j)) / P.dy;
+  adv += (U.flux_y(i, j + 1, k, 0, vf_jp) - U.flux_y(i, j, k, 0, vf_j)) / P.dy;
   const float wf_k = 0.5f * (W(i - 1, j, k) + W(i, j, k));
   const float wf_kp = 0.5f * (W(i - 1, j, k + 1) + W(i, j, k + 1));
   const float* uc = U.col(i, j);
@@ -114,15 +162,16 @@ __device__ float tendency_u(const Slab& U, const Slab& V, const Slab& W, const S
 }
 
 // gv at (x-center i, y-face j, z-center k).
-__device__ float tendency_v(const Slab& U, const Slab& V, const Slab& W, const Slab& PH,
+template <class S>
+__device__ float tendency_v(const S& U, const S& V, const S& W, const S& PH,
                             int i, int j, int k, const RBC3DParams& P) {
-  const int nz = P.nz, jm = wrap_x(j - 1, P.ny), jp = wrap_x(j + 1, P.ny);
+  const int nz = P.nz, jm = V.ym(j), jp = V.yp(j);
   const float uf_i = 0.5f * (U(i, jm, k) + U(i, j, k));
   const float uf_ip = 0.5f * (U(i + 1, jm, k) + U(i + 1, j, k));
   float adv = (flux_x(V, i + 1, j, k, 0, uf_ip) - flux_x(V, i, j, k, 0, uf_i)) / P.dx;
   const float vc_j = 0.5f * (V(i, j, k) + V(i, jp, k));
   const float vc_jm = 0.5f * (V(i, jm, k) + V(i, j, k));
-  adv += (flux_y(V, i, j, k, 1, vc_j) - flux_y(V, i, j - 1, k, 1, vc_jm)) / P.dy;
+  adv += (V.flux_y(i, j, k, 1, vc_j) - V.flux_y(i, j - 1, k, 1, vc_jm)) / P.dy;
   const float wf_k = 0.5f * (W(i, jm, k) + W(i, j, k));
   const float wf_kp = 0.5f * (W(i, jm, k + 1) + W(i, j, k + 1));
   const float* vc = V.col(i, j);
@@ -136,16 +185,17 @@ __device__ float tendency_v(const Slab& U, const Slab& V, const Slab& W, const S
 }
 
 // gw at (x-center i, y-center j, z-face k); zero on the wall faces.
-__device__ float tendency_w(const Slab& U, const Slab& V, const Slab& W, int i, int j,
+template <class S>
+__device__ float tendency_w(const S& U, const S& V, const S& W, int i, int j,
                             int k, const RBC3DParams& P) {
-  const int nz = P.nz, jp = wrap_x(j + 1, P.ny);
+  const int nz = P.nz, jp = W.yp(j);
   if (k == 0 || k == nz) return 0.0f;
   const float uf_i = 0.5f * (U(i, j, k - 1) + U(i, j, k));
   const float uf_ip = 0.5f * (U(i + 1, j, k - 1) + U(i + 1, j, k));
   float adv = (flux_x(W, i + 1, j, k, 0, uf_ip) - flux_x(W, i, j, k, 0, uf_i)) / P.dx;
   const float vf_j = 0.5f * (V(i, j, k - 1) + V(i, j, k));
   const float vf_jp = 0.5f * (V(i, jp, k - 1) + V(i, jp, k));
-  adv += (flux_y(W, i, j + 1, k, 0, vf_jp) - flux_y(W, i, j, k, 0, vf_j)) / P.dy;
+  adv += (W.flux_y(i, j + 1, k, 0, vf_jp) - W.flux_y(i, j, k, 0, vf_j)) / P.dy;
   const float* wc = W.col(i, j);
   const float wc_k = 0.5f * (wc[k] + wc[k + 1]);
   const float wc_km = 0.5f * (wc[k - 1] + wc[k]);
@@ -156,11 +206,12 @@ __device__ float tendency_w(const Slab& U, const Slab& V, const Slab& W, int i, 
 }
 
 // gb at (x-center i, y-center j, z-center k); Dirichlet bottom and min_b.
-__device__ float tendency_b(const Slab& U, const Slab& V, const Slab& W, const Slab& B,
+template <class S>
+__device__ float tendency_b(const S& U, const S& V, const S& W, const S& B,
                             float bottom, int i, int j, int k, const RBC3DParams& P) {
-  const int nz = P.nz, jp = wrap_x(j + 1, P.ny);
+  const int nz = P.nz, jp = B.yp(j);
   float adv = (flux_x(B, i + 1, j, k, 0, U(i + 1, j, k)) - flux_x(B, i, j, k, 0, U(i, j, k))) / P.dx;
-  adv += (flux_y(B, i, j + 1, k, 0, V(i, jp, k)) - flux_y(B, i, j, k, 0, V(i, j, k))) / P.dy;
+  adv += (B.flux_y(i, j + 1, k, 0, V(i, jp, k)) - B.flux_y(i, j, k, 0, V(i, j, k))) / P.dy;
   const float* bc = B.col(i, j);
   adv += (z_uw_flux(bc, nz, k + 1, 0, W(i, j, k + 1)) - z_uw_flux(bc, nz, k, 0, W(i, j, k))) / P.dz;
   const float q = bc[k];
@@ -174,6 +225,19 @@ __device__ float tendency_b(const Slab& U, const Slab& V, const Slab& W, const S
 __device__ __forceinline__ float rk_update(float f, float g, const float* gp, size_t idx,
                                            float dt, float gamma, float zeta) {
   return gp == nullptr ? f + dt * (gamma * g) : f + dt * (gamma * g + zeta * gp[idx]);
+}
+
+// pHY'[k] = -sum_{j >= k} inc[j] of one column, walked from the top (the
+// order of solver3d's suffix sum).
+__device__ __forceinline__ void hydrostatic_column(const float* bc, float* pc,
+                                                   const RBC3DParams& P) {
+  const int nz = P.nz;
+  float acc = 0.5f * P.dz * P.min_b;
+  pc[nz - 1] = -acc;
+  for (int k = nz - 2; k >= 0; --k) {
+    acc += P.dz * (0.5f * (bc[k] + bc[k + 1]));
+    pc[k] = -acc;
+  }
 }
 
 // Copy columns lo .. lo + n_cols - 1 (block-relative, periodic in x) of one
@@ -249,17 +313,10 @@ stage_rk_3d_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   }
   __syncthreads();
 
-  // ---- 3. pHY'[k] = -sum_{j >= k} inc[j], walked from the top ----------------
+  // ---- 3. pHY' per (x, y) column ---------------------------------------------
   for (int t = threadIdx.x; t < (kXBlk + 2) * ny; t += blockDim.x) {
     const int x = t / ny + PH.lo, y = t % ny;
-    const float* bc = B.col(x, y);
-    float* pc = PH.col(x, y);
-    float acc = 0.5f * P.dz * P.min_b;
-    pc[nz - 1] = -acc;
-    for (int k = nz - 2; k >= 0; --k) {
-      acc += P.dz * (0.5f * (bc[k] + bc[k + 1]));
-      pc[k] = -acc;
-    }
+    hydrostatic_column(B.col(x, y), PH.col(x, y), P);
   }
   __syncthreads();
 
@@ -316,6 +373,160 @@ stage_rk_3d_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   }
 }
 
+// Copy the window of columns lo .. lo + n_cols - 1 and rows ylo .. ylo +
+// n_rows - 1 (block-relative, periodic in x and y) of one env's
+// public-layout field (nx, ny, nk) into an (x, y)-extended slab.
+__device__ void load_window(const float* __restrict__ src, float* dst, int x0, int lo,
+                            int n_cols, int nx, int y0, int ylo, int n_rows, int ny,
+                            int nk) {
+  const int col_len = n_rows * nk;
+  for (int idx = threadIdx.x; idx < n_cols * col_len; idx += blockDim.x) {
+    const int c = idx / col_len, r = idx - c * col_len;
+    const int y = r / nk, k = r - y * nk;
+    dst[idx] = src[((size_t)wrap_x(x0 + lo + c, nx) * ny + wrap_x(y0 + ylo + y, ny)) * nk + k];
+  }
+}
+
+// Shared memory K5 needs per block, in floats: q (kXBlk + 8 columns of
+// kYBlk + 8 rows), u (kXBlk + 7 of kYBlk + 6), v (kXBlk + 6 of kYBlk + 7),
+// b (kXBlk + 6 of kYBlk + 6) of nz; w (kXBlk + 6 of kYBlk + 6) of nz + 1.
+size_t stage_xy_smem_floats(int nz) {
+  return (size_t)((kXBlk + 8) * (kYBlk + 8) + (kXBlk + 7) * (kYBlk + 6) +
+                  (kXBlk + 6) * (kYBlk + 7) + (kXBlk + 6) * (kYBlk + 6)) * nz +
+         (size_t)(kXBlk + 6) * (kYBlk + 6) * (nz + 1);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
+                      const float* __restrict__ w_in, const float* __restrict__ b_in,
+                      const float* __restrict__ q_in, const float* __restrict__ bottom_in,
+                      const float* gu_prev, const float* gv_prev, const float* gw_prev,
+                      const float* gb_prev, float* u_out, float* v_out, float* w_out,
+                      float* b_out, float* div_out, float* gu_out, float* gv_out,
+                      float* gw_out, float* gb_out, float dt, float gamma, float zeta,
+                      RBC3DParams P) {
+  extern __shared__ float smem[];
+  const int nx = P.nx, ny = P.ny, nz = P.nz;
+  const int S = ny * nz, SW = ny * (nz + 1);
+  const int nxb = nx / kXBlk, nyb = ny / kYBlk;
+  const size_t e = blockIdx.x / (nxb * nyb);
+  const int t_blk = blockIdx.x - (int)e * (nxb * nyb);
+  const int x0 = (t_blk / nyb) * kXBlk, y0 = (t_blk % nyb) * kYBlk;
+
+  SlabXY Q{smem, -4, -4, kYBlk + 8, nz};
+  SlabXY U{Q.p + (kXBlk + 8) * Q.ny * nz, -3, -3, kYBlk + 6, nz};
+  SlabXY V{U.p + (kXBlk + 7) * U.ny * nz, -3, -3, kYBlk + 7, nz};
+  SlabXY B{V.p + (kXBlk + 6) * V.ny * nz, -3, -3, kYBlk + 6, nz};
+  SlabXY W{B.p + (kXBlk + 6) * B.ny * nz, -3, -3, kYBlk + 6, nz + 1};
+  // phase 3 on: pHY' over x in [-1, kXBlk], y in [-1, kYBlk]
+  SlabXY PH{Q.p, -1, -1, kYBlk + 2, nz};
+  // phase 4 on: u* at x = kXBlk (kYBlk rows) and v* at y = kYBlk (kXBlk columns)
+  float* u_edge = Q.p + (kXBlk + 2) * PH.ny * nz;
+  float* v_edge = u_edge + kYBlk * nz;
+
+  // ---- 1. stage the slabs ---------------------------------------------------
+  const size_t cell0 = e * nx * S, face0 = e * nx * SW;
+  load_window(u_in + cell0, U.p, x0, U.lo, kXBlk + 7, nx, y0, U.ylo, U.ny, ny, nz);
+  load_window(v_in + cell0, V.p, x0, V.lo, kXBlk + 6, nx, y0, V.ylo, V.ny, ny, nz);
+  load_window(b_in + cell0, B.p, x0, B.lo, kXBlk + 6, nx, y0, B.ylo, B.ny, ny, nz);
+  load_window(w_in + face0, W.p, x0, W.lo, kXBlk + 6, nx, y0, W.ylo, W.ny, ny, nz + 1);
+  {  // q is (E, ny, nx, nz): per y row, the block's columns are one run
+    const int n_cols = kXBlk + 8;
+    const float* qe = q_in + e * (size_t)ny * nx * nz;
+    for (int idx = threadIdx.x; idx < Q.ny * n_cols * nz; idx += blockDim.x) {
+      const int k = idx % nz, t = idx / nz;
+      const int c = t % n_cols, y = t / n_cols;
+      Q.p[(c * Q.ny + y) * nz + k] =
+          qe[((size_t)wrap_x(y0 + Q.ylo + y, ny) * nx + wrap_x(x0 + Q.lo + c, nx)) * nz + k];
+    }
+  }
+  __syncthreads();
+
+  // ---- 2. lazy-projection correction -----------------------------------------
+  {
+    const int cu = U.ny * nz, cv = V.ny * nz, cw = W.ny * (nz + 1);
+    for (int idx = threadIdx.x; idx < (kXBlk + 7) * cu; idx += blockDim.x) {
+      const int x = idx / cu + U.lo, r = idx % cu, y = r / nz + U.ylo, k = r % nz;
+      U.p[idx] -= (Q(x, y, k) - Q(x - 1, y, k)) / P.dx;
+    }
+    for (int idx = threadIdx.x; idx < (kXBlk + 6) * cv; idx += blockDim.x) {
+      const int x = idx / cv + V.lo, r = idx % cv, y = r / nz + V.ylo, k = r % nz;
+      V.p[idx] -= (Q(x, y, k) - Q(x, y - 1, k)) / P.dy;
+    }
+    for (int idx = threadIdx.x; idx < (kXBlk + 6) * cw; idx += blockDim.x) {
+      const int x = idx / cw + W.lo, r = idx % cw, y = r / (nz + 1) + W.ylo, k = r % (nz + 1);
+      if (k > 0 && k < nz) W.p[idx] -= (Q(x, y, k) - Q(x, y, k - 1)) / P.dz;
+    }
+  }
+  __syncthreads();
+
+  // ---- 3. pHY' per (x, y) column ---------------------------------------------
+  for (int t = threadIdx.x; t < (kXBlk + 2) * PH.ny; t += blockDim.x) {
+    const int x = t / PH.ny + PH.lo, y = t % PH.ny + PH.ylo;
+    hydrostatic_column(B.col(x, y), PH.col(x, y), P);
+  }
+  __syncthreads();
+
+  // ---- 4. tendencies and RK update ------------------------------------------
+  const bool emit_g = gu_out != nullptr;
+  const int SB = kYBlk * nz;  // the block's own rows of one column
+  for (int idx = threadIdx.x; idx < (kXBlk + 1) * SB; idx += blockDim.x) {
+    const int i = idx / SB, r = idx % SB, j = r / nz, k = r % nz;
+    const float g = tendency_u(U, V, W, PH, i, j, k, P);
+    const size_t o = cell0 + (size_t)wrap_x(x0 + i, nx) * S + (size_t)(y0 + j) * nz + k;
+    const float f = rk_update(U(i, j, k), g, gu_prev, o, dt, gamma, zeta);
+    if (i == kXBlk) {
+      u_edge[r] = f;
+    } else {
+      u_out[o] = f;
+      if (emit_g) gu_out[o] = g;
+    }
+  }
+  const int SV = (kYBlk + 1) * nz;  // v one row wider: v* at the far y face
+  for (int idx = threadIdx.x; idx < kXBlk * SV; idx += blockDim.x) {
+    const int i = idx / SV, r = idx % SV, j = r / nz, k = r % nz;
+    const float g = tendency_v(U, V, W, PH, i, j, k, P);
+    const size_t o = cell0 + (size_t)(x0 + i) * S + (size_t)wrap_x(y0 + j, ny) * nz + k;
+    const float f = rk_update(V(i, j, k), g, gv_prev, o, dt, gamma, zeta);
+    if (j == kYBlk) {
+      v_edge[i * nz + k] = f;
+    } else {
+      v_out[o] = f;
+      if (emit_g) gv_out[o] = g;
+    }
+  }
+  const int SBW = kYBlk * (nz + 1);
+  for (int idx = threadIdx.x; idx < kXBlk * SBW; idx += blockDim.x) {
+    const int i = idx / SBW, r = idx % SBW, j = r / (nz + 1), k = r % (nz + 1);
+    const size_t o = face0 + (size_t)(x0 + i) * SW + (size_t)(y0 + j) * (nz + 1) + k;
+    const float g = tendency_w(U, V, W, i, j, k, P);
+    w_out[o] = rk_update(W(i, j, k), g, gw_prev, o, dt, gamma, zeta);
+    if (emit_g) gw_out[o] = g;
+  }
+  for (int idx = threadIdx.x; idx < kXBlk * SB; idx += blockDim.x) {
+    const int i = idx / SB, r = idx % SB, j = r / nz, k = r % nz;
+    const size_t o = cell0 + (size_t)(x0 + i) * S + (size_t)(y0 + j) * nz + k;
+    const float bottom = bottom_in[(e * nx + x0 + i) * ny + y0 + j];
+    const float g = tendency_b(U, V, W, B, bottom, i, j, k, P);
+    b_out[o] = rk_update(B(i, j, k), g, gb_prev, o, dt, gamma, zeta);
+    if (emit_g) gb_out[o] = g;
+  }
+  __syncthreads();  // this block's u*, v*, w* writes are visible below
+
+  // ---- 5. div(u*, v*, w*) into the solve layout ------------------------------
+  for (int idx = threadIdx.x; idx < kXBlk * SB; idx += blockDim.x) {
+    const int k = idx % nz, t = idx / nz, i = t % kXBlk, j = t / kXBlk;
+    const int x = x0 + i, y = y0 + j;
+    const size_t o = cell0 + (size_t)x * S + (size_t)y * nz + k;
+    const float u_ip = i + 1 < kXBlk ? u_out[o + S] : u_edge[j * nz + k];
+    const float v_jp = j + 1 < kYBlk ? v_out[o + nz] : v_edge[i * nz + k];
+    const float* wc = w_out + face0 + (size_t)x * SW + (size_t)y * (nz + 1);
+    const float d = (u_ip - u_out[o]) / P.dx + (v_jp - v_out[o]) / P.dy +
+                    (wc[k + 1] - wc[k]) / P.dz;
+    div_out[((e * ny + y) * nx + x) * nz + k] = d;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 correct_3d_kernel(const float* __restrict__ u, const float* __restrict__ v,
                   const float* __restrict__ w, const float* __restrict__ q,
@@ -366,6 +577,32 @@ int launch_stage_rk_3d(const float* u, const float* v, const float* w, const flo
   if (err != cudaSuccess) return (int)err;
   const RBC3DParams P{nx, ny, nz, dx, dy, dz, nu, kappa, min_b};
   stage_rk_3d_kernel<<<n_env * (nx / kXBlk), kThreads, smem, (cudaStream_t)stream>>>(
+      u, v, w, b, q, bottom, gu_prev, gv_prev, gw_prev, gb_prev, u_out, v_out, w_out,
+      b_out, div_out, gu, gv, gw, gb, dt, gamma, zeta, P);
+  return (int)cudaGetLastError();
+}
+
+int launch_stage_rk_3d_xy(const float* u, const float* v, const float* w, const float* b,
+                          const float* q, const float* bottom, const float* gu_prev,
+                          const float* gv_prev, const float* gw_prev, const float* gb_prev,
+                          float* u_out, float* v_out, float* w_out, float* b_out,
+                          float* div_out, float* gu, float* gv, float* gw, float* gb,
+                          int n_env, int nx, int ny, int nz, int stage, float dt,
+                          float gamma, float zeta, float dx, float dy, float dz, float nu,
+                          float kappa, float min_b, void* stream) {
+  const bool reads_g = gu_prev && gv_prev && gw_prev && gb_prev;
+  const bool writes_g = gu && gv && gw && gb;
+  if (nx % kXBlk != 0 || nx < kXBlk || ny % kYBlk != 0 || ny < kYBlk || nz < 2 ||
+      stage < 0 || stage > 2 || reads_g != (stage > 0) || writes_g != (stage < 2)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = sizeof(float) * stage_xy_smem_floats(nz);
+  cudaError_t err = cudaFuncSetAttribute(
+      stage_rk_3d_xy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const RBC3DParams P{nx, ny, nz, dx, dy, dz, nu, kappa, min_b};
+  const unsigned blocks = (unsigned)n_env * (nx / kXBlk) * (ny / kYBlk);
+  stage_rk_3d_xy_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       u, v, w, b, q, bottom, gu_prev, gv_prev, gw_prev, gb_prev, u_out, v_out, w_out,
       b_out, div_out, gu, gv, gw, gb, dt, gamma, zeta, P);
   return (int)cudaGetLastError();

@@ -69,14 +69,14 @@ class RBC2DVectorEnv:
         """``bank_sampling`` and ``ic_noise`` act only on checkpoint-bank
         initial conditions (random or sequential bank index; Gaussian kick
         on bank states). Banks are read with h5py and are not ported yet
-        (ROADMAP A.6), so ``checkpoint`` must be None, these two keep their
+        (ROADMAP A.2), so ``checkpoint`` must be None, these two keep their
         defaults, and initial conditions are the solver's random ones."""
         if bank_sampling not in ("random", "sequential"):
             raise ValueError(f"unknown bank_sampling {bank_sampling!r}")
         if checkpoint is not None or bank_sampling != "random" or ic_noise > 0.0:
             raise NotImplementedError(
                 "checkpoint banks (and bank_sampling/ic_noise, which act on "
-                "them) are not ported yet (ROADMAP A.6): pass checkpoint=None"
+                "them) are not ported yet (ROADMAP A.2): pass checkpoint=None"
             )
         self.num_envs = num_envs
         nz, nx = state_shape

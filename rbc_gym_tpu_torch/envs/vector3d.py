@@ -68,18 +68,30 @@ class RBC3DVectorEnv:
         bank_sampling: str = "random",
         ic_noise: float = 0.0,
         dtype: torch.dtype = torch.float32,
+        fused: bool | str | None = None,
+        poisson_precision: Optional[str] = None,
         device: str | torch.device | None = "cuda",
     ):
         """``bank_sampling`` and ``ic_noise`` act only on checkpoint-bank
         initial conditions, which are read with h5py and not ported yet
-        (ROADMAP A.6): ``checkpoint`` must be None, these two keep their
-        defaults, and initial conditions are the solver's random ones."""
+        (ROADMAP A.2): ``checkpoint`` must be None, these two keep their
+        defaults, and initial conditions are the solver's random ones.
+
+        ``fused`` picks the solver's stage function (``Solver3D.path``, see
+        ``sim.solver3d.select_stage_path``). ``poisson_precision`` counts
+        the TPU matrix unit's passes in the JAX package; the port's solve
+        runs in full float32 (TF32 off), so only None is accepted."""
+        if poisson_precision is not None:
+            raise ValueError(
+                f"poisson_precision={poisson_precision!r} is a TPU matrix-unit pass "
+                "count; the port's Poisson solve runs in full float32: pass None"
+            )
         if bank_sampling not in ("random", "sequential"):
             raise ValueError(f"unknown bank_sampling {bank_sampling!r}")
         if checkpoint is not None or bank_sampling != "random" or ic_noise > 0.0:
             raise NotImplementedError(
                 "checkpoint banks (and bank_sampling/ic_noise, which act on "
-                "them) are not ported yet (ROADMAP A.6): pass checkpoint=None"
+                "them) are not ported yet (ROADMAP A.2): pass checkpoint=None"
             )
         self.num_envs = num_envs
         nz, ny, nx = state_shape
@@ -101,7 +113,8 @@ class RBC3DVectorEnv:
         self.episode_steps = int(round(float(episode_length) / self._t_per_step))
         self.auto_reset = auto_reset
         self.dtype = dtype
-        self.solver = make_solver3d(self.grid, self.params, dtype=dtype, device=device)
+        self.solver = make_solver3d(self.grid, self.params, dtype=dtype, device=device,
+                                    fused=fused)
         self.device = self.solver.device
 
     # -- init ----------------------------------------------------------

@@ -25,6 +25,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # each kernel's registers and spills, kept in the build log
 )
 
 _P = ctypes.c_void_p
@@ -51,6 +52,16 @@ ARGTYPES = {
         _P,  # stream
     ],
     "launch_stage_rk_3d": [
+        _P, _P, _P, _P, _P, _P,  # u, v, w, b, q, bottom
+        _P, _P, _P, _P,  # gu_prev, gv_prev, gw_prev, gb_prev (NULL at stage 0)
+        _P, _P, _P, _P, _P,  # u_out, v_out, w_out, b_out, div_out
+        _P, _P, _P, _P,  # gu, gv, gw, gb (NULL at stage 2)
+        _I, _I, _I, _I, _I,  # n_env, nx, ny, nz, stage
+        _F, _F, _F,  # dt, gamma, zeta
+        _F, _F, _F, _F, _F, _F,  # dx, dy, dz, nu, kappa, min_b
+        _P,  # stream
+    ],
+    "launch_stage_rk_3d_xy": [
         _P, _P, _P, _P, _P, _P,  # u, v, w, b, q, bottom
         _P, _P, _P, _P,  # gu_prev, gv_prev, gw_prev, gb_prev (NULL at stage 0)
         _P, _P, _P, _P, _P,  # u_out, v_out, w_out, b_out, div_out
@@ -101,6 +112,11 @@ def library_path() -> Path:
     return BUILD_DIR / f"librbc_gym_kernels_{_source_hash()}.so"
 
 
+def build_log_path(lib: Path) -> Path:
+    """nvcc's output for ``lib``, ptxas's resource report included."""
+    return lib.with_suffix(".log")
+
+
 def build() -> tuple[Path, float]:
     """Compile the sources unless this hash is already built.
 
@@ -118,6 +134,7 @@ def build() -> tuple[Path, float]:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
         )
+    build_log_path(lib).write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib, seconds
 

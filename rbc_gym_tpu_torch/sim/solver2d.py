@@ -14,12 +14,13 @@ periodic x. Pressure is split p = pHY' + pNHS (hydrostatic anomaly plus
 projection pressure). Time stepping is the low-storage 3-stage RK3 of the
 reference's ``:RungeKutta3`` with a projection after every stage.
 
-Fields are batch-major, (..., nx, nz[+1]) with any leading env batch. The
-dispatch follows the JAX solver's: for CUDA tensors ``env_step`` launches
-the whole-step kernel and ``substep`` the tendency kernel with the RK
-update and projection around it; for CPU tensors both take the plain path.
-The kernels take float32; a CUDA solver of another dtype raises when it
-launches.
+Fields are batch-major, (..., nx, nz[+1]) with any leading env batch.
+``select_env_step_path`` picks the path once per solver (``Solver2D.path``),
+as the JAX solver's ``fused`` does: on "fused", ``env_step`` launches the
+whole-step kernel K1 and ``substep`` the tendency kernel K2 with the RK
+update and projection around it; on "plain" both run the plain versions.
+Auto takes "fused" on CUDA for float32 when K1's shared memory fits a
+block, and "plain" otherwise (float64, a grid too large, the CPU).
 """
 
 from __future__ import annotations
@@ -32,11 +33,15 @@ import torch
 
 from rbc_gym_tpu_torch import default_device
 from rbc_gym_tpu_torch.ops.kernels2d import (
+    SMEM_PER_BLOCK,
     Coeffs2D,
     env_step_2d,
+    env_step_2d_plain,
+    env_step_2d_smem_bytes,
     hydrostatic_pressure,
     rk3_substep,
     tendencies_2d,
+    tendencies_2d_plain,
 )
 from rbc_gym_tpu_torch.ops import stencils as st
 from rbc_gym_tpu_torch.ops.poisson import Spectral2D, spectral_constants_2d
@@ -97,6 +102,7 @@ class Solver2D(NamedTuple):
     params: SimParams2D
     dtype: torch.dtype
     device: torch.device
+    path: str  # "fused" (K1 env_step, K2 substep) or "plain"
     coeffs: Coeffs2D
     spectral: Spectral2D
     init_random: Callable  # (generator, batch_shape) -> Fields2D
@@ -111,6 +117,49 @@ class Solver2D(NamedTuple):
 DIVERGENCE_ATOL = {torch.float64: 1e-8, torch.float32: 1e-4}
 
 
+# The env-step and tendency functions of each path.
+ENV_STEP_PATHS = {
+    "fused": (env_step_2d, tendencies_2d),
+    "plain": (env_step_2d_plain, tendencies_2d_plain),
+}
+
+
+def env_step_kernel_limit(dtype: torch.dtype, nx: int, nz: int):
+    """Why K1 cannot take this configuration, or None if it can: float32
+    only, and its two (nx, nz) slabs in a block's shared memory."""
+    if dtype != torch.float32:
+        return f"the fused kernels take float32, not {dtype}"
+    need = env_step_2d_smem_bytes(nx, nz)
+    if need > SMEM_PER_BLOCK:
+        return (f"the env-step kernel needs {need:,} bytes of shared memory per block at "
+                f"nx={nx}, nz={nz}; the card's limit is {SMEM_PER_BLOCK:,}")
+    return None
+
+
+def select_env_step_path(dtype: torch.dtype, nx: int, nz: int, device_type: str,
+                         fused: bool | None = None) -> str:
+    """"fused" or "plain", from the dtype and the grid only.
+
+    Auto (``fused=None``): "fused" on CUDA when K1 can take the
+    configuration (the card's 232,448 bytes of shared memory per block,
+    float32; the JAX package takes its XLA path for float64,
+    rbc_gym_tpu/sim/solver2d.py:247-250), "plain" otherwise and on the
+    CPU. ``fused=False`` is "plain"; ``fused=True`` forces the kernels and
+    raises ``ValueError``, naming the limit, if they cannot take it (on
+    the CPU the wrappers then run their plain versions)."""
+    if fused is None:
+        fits = env_step_kernel_limit(dtype, nx, nz) is None
+        return "fused" if device_type == "cuda" and fits else "plain"
+    if fused is False:
+        return "plain"
+    if fused is not True:
+        raise ValueError(f"unknown fused={fused!r}: None, True or False")
+    limit = env_step_kernel_limit(dtype, nx, nz)
+    if limit is not None:
+        raise ValueError(f"fused=True cannot be forced here: {limit}")
+    return "fused"
+
+
 def max_divergence(f: Fields2D, grid: Grid2D) -> float:
     """max |div u| over all envs and cells."""
     div = st.ddx_f2c(f.u, grid.dx) + st.ddz_f2c(f.w, grid.dz)
@@ -122,10 +171,14 @@ def make_solver2d(
     params: SimParams2D,
     dtype: torch.dtype = torch.float32,
     device: str | torch.device | None = "cuda",
+    fused: bool | None = None,
 ) -> Solver2D:
-    """Build the 2D solver function bundle on ``device``."""
+    """Build the 2D solver function bundle on ``device``; ``fused`` picks
+    the path (``select_env_step_path``)."""
     device = default_device(device)
     nx, nz = grid.nx, grid.nz
+    path = select_env_step_path(dtype, nx, nz, device.type, fused)
+    step_fn, tendencies = ENV_STEP_PATHS[path]
     min_b = params.min_b
     coeffs = Coeffs2D(grid.dx, grid.dz, params.nu, params.kappa, min_b)
     spectral = spectral_constants_2d(nx, nz, grid.dx, grid.dz, dtype, device)
@@ -157,7 +210,7 @@ def make_solver2d(
         g = flat(f)
         u, w, b, p_nhs = rk3_substep(
             g.u, g.w, g.b, flat_bottom(bottom_b, batch), spectral, coeffs,
-            params.dt_solver, tendencies_2d,
+            params.dt_solver, tendencies,
         )
         out = Fields2D(u, w, b, hydrostatic_pressure(b, grid.dz, min_b), p_nhs)
         return unflat(out, batch)
@@ -166,7 +219,7 @@ def make_solver2d(
         """Advance by one environment step (heater_duration of sim time)."""
         batch = f.u.shape[:-2]
         g = flat(f)
-        u, w, b, p_nhs = env_step_2d(
+        u, w, b, p_nhs = step_fn(
             g.u, g.w, g.b, flat_bottom(heater_profile(action), batch), spectral,
             coeffs, params.dt_solver, n_substeps,
         )
@@ -201,6 +254,7 @@ def make_solver2d(
         params=params,
         dtype=dtype,
         device=device,
+        path=path,
         coeffs=coeffs,
         spectral=spectral,
         init_random=init_random,

@@ -12,14 +12,16 @@ Public layout (batch..., nx, ny, nz[+1]):
   u (x-face, y-center, z-center), v (x-center, y-face, z-center),
   w (x-center, y-center, z-face), b and pressures at centers.
 
-``env_step`` runs the lazy-projection loop of the JAX package's
-``fused="stage"`` path: per substep three ``stage_rk_3d`` launches with
-a Poisson solve after each, the pending (unscaled) solve ``q`` carried
-between stages; one ``correct_3d`` at the end of the env step; pHY' and
-p_nhs = q / dt_stage recovered once. For CUDA tensors the two wrappers
-launch the kernels of ``csrc/rbc3d.cu``; for CPU tensors the same loop
-runs their plain versions. ``substep`` is the plain eager substep of the
-JAX package's ``substep_bm``, which reaches no kernel there either.
+``env_step`` runs the lazy-projection loop of the JAX package's stage
+paths: per substep three stage launches with a Poisson solve after each,
+the pending (unscaled) solve ``q`` carried between stages; one
+correction at the end of the env step; pHY' and p_nhs = q / dt_stage
+recovered once. ``select_stage_path`` picks, once per solver, which stage
+function the loop runs (``Solver3D.path``): K3 ``stage_rk_3d``, K5
+``stage_rk_3d_xy`` (both with K4 ``correct_3d``, all in
+``csrc/rbc3d.cu``) or the plain versions. For CPU tensors a kernel
+wrapper runs its plain version. ``substep`` is the plain eager substep of
+the JAX package's ``substep_bm``, which reaches no kernel there either.
 """
 
 from __future__ import annotations
@@ -31,13 +33,25 @@ import numpy as np
 import torch
 
 from rbc_gym_tpu_torch import default_device
-from rbc_gym_tpu_torch.ops.kernels2d import RK3_GAMMA, RK3_ZETA, hydrostatic_pressure
+from rbc_gym_tpu_torch.ops.kernels2d import (
+    RK3_GAMMA,
+    RK3_ZETA,
+    SMEM_PER_BLOCK,
+    hydrostatic_pressure,
+)
 from rbc_gym_tpu_torch.ops.kernels3d import (
+    X_BLK,
+    Y_BLK,
     Coeffs3D,
     correct_3d,
+    correct_3d_plain,
     divergence_3d,
     from_solve_layout,
     stage_rk_3d,
+    stage_rk_3d_plain,
+    stage_rk_3d_xy,
+    stage_smem_bytes,
+    stage_xy_smem_bytes,
     tendencies_3d_plain,
     to_solve_layout,
     X,
@@ -105,6 +119,7 @@ class Solver3D(NamedTuple):
     params: SimParams3D
     dtype: torch.dtype
     device: torch.device
+    path: str  # the stage function of env_step: "stage", "stage_xy" or "plain"
     coeffs: Coeffs3D
     solve: Callable  # solve-layout rhs (E, ny, nx, nz) -> p
     init_random: Callable  # (generator, batch_shape) -> Fields3D
@@ -118,6 +133,81 @@ class Solver3D(NamedTuple):
 # package's oracle (tests/test_solver3d.py:65), float32 its device gate
 # (tests/test_pallas3d.py:95).
 DIVERGENCE_ATOL = {torch.float64: 1e-8, torch.float32: 5e-4}
+
+
+# The stage and correction functions of each path.
+STAGE_PATHS = {
+    "stage": (stage_rk_3d, correct_3d),
+    "stage_xy": (stage_rk_3d_xy, correct_3d),
+    "plain": (stage_rk_3d_plain, correct_3d_plain),
+}
+# fused= values of the JAX package that the port refuses, with the reason.
+REFUSED_FUSED = {
+    "field": "the per-field tendency kernels are not ported yet (ROADMAP B.2)",
+    "stage_qp": "not carried over (PERF.md section 6: K3's emit_rhat option)",
+    "stage_ew": "not carried over (PERF.md section 6: K3's element_windows option)",
+}
+
+
+def stage_kernel_limit(kernel: str, dtype: torch.dtype, nx: int, ny: int, nz: int):
+    """Why stage kernel ``kernel`` ("stage" for K3, "stage_xy" for K5)
+    cannot take this configuration, or None if it can: the checks of its
+    launcher in ``csrc/rbc3d.cu`` and the card's shared memory per block."""
+    if dtype != torch.float32:
+        return f"the {kernel} kernel takes float32, not {dtype}"
+    if nx % X_BLK or nz < 2:
+        return f"the {kernel} kernel needs nx % {X_BLK} == 0 and nz >= 2 (nx={nx}, nz={nz})"
+    if kernel == "stage":
+        if ny < 4:
+            return f"the stage kernel needs ny >= 4 (ny={ny})"
+        need = stage_smem_bytes(ny, nz)
+    else:
+        if ny % Y_BLK:
+            return f"the stage_xy kernel needs ny % {Y_BLK} == 0 (ny={ny})"
+        need = stage_xy_smem_bytes(nz)
+    if need > SMEM_PER_BLOCK:
+        return (f"the {kernel} kernel needs {need:,} bytes of shared memory per block "
+                f"at nx={nx}, ny={ny}, nz={nz}; the card's limit is {SMEM_PER_BLOCK:,}")
+    return None
+
+
+def select_stage_path(dtype: torch.dtype, nx: int, ny: int, nz: int, device_type: str,
+                      fused=None) -> str:
+    """The stage function ``env_step`` runs: "stage" (K3), "stage_xy" (K5)
+    or "plain", from the dtype and the grid only.
+
+    Auto (``fused=None``) on CUDA: K3 for float32 when its whole-y slab
+    fits a block's shared memory, else K5 for float32 when its (x, y)
+    blocks fit, else the plain path; on the CPU the plain path. This
+    follows the JAX package's rule (rbc_gym_tpu/sim/solver3d.py:323-350)
+    with the card's limit, 232,448 bytes of shared memory per block, in
+    place of the TPU's VMEM rule. float64 takes the plain path, as the JAX
+    package takes its XLA path for it. ``fused=False`` is the plain path;
+    "stage" or "stage_xy" forces that kernel and raises ``ValueError``,
+    naming the limit, if the configuration cannot take it (on the CPU its
+    wrapper then runs the plain version). "field" and True (the JAX
+    package's alias of "field") are not ported yet, "stage_qp" and
+    "stage_ew" not carried over: each is refused by name.
+    """
+    if fused is False:
+        return "plain"
+    refused = "field" if fused is True else fused
+    if refused in REFUSED_FUSED:
+        error = NotImplementedError if refused == "field" else ValueError
+        raise error(f"fused={fused!r}: {REFUSED_FUSED[refused]}")
+    if fused is None:
+        if device_type != "cuda":
+            return "plain"
+        for kernel in ("stage", "stage_xy"):
+            if stage_kernel_limit(kernel, dtype, nx, ny, nz) is None:
+                return kernel
+        return "plain"
+    if fused not in ("stage", "stage_xy"):
+        raise ValueError(f"unknown fused={fused!r}: None, False, 'stage' or 'stage_xy'")
+    limit = stage_kernel_limit(fused, dtype, nx, ny, nz)
+    if limit is not None:
+        raise ValueError(f"fused={fused!r} cannot be forced here: {limit}")
+    return fused
 
 
 def max_divergence_3d(f: Fields3D, grid: Grid3D) -> float:
@@ -135,16 +225,15 @@ def lazy_substeps(
     dts: Sequence[float],
     solve: Callable,
     c: Coeffs3D,
-    stage_rk: Callable = stage_rk_3d,
-    correct: Callable = correct_3d,
+    stage_rk: Callable,
+    correct: Callable,
 ):
     """The lazy-projection substep loop of one env step on (E, ...) fields
     -> (u, v, w, b, q), velocities projected, q the last stage's unscaled
     solve in the solve layout.
 
     The incoming fields are projected, so the pending solve starts at zero.
-    ``stage_rk`` and ``correct`` default to the kernel wrappers; a caller
-    that wants the all-plain path on a card passes the plain versions."""
+    ``stage_rk`` and ``correct`` are a path's pair of ``STAGE_PATHS``."""
     e, nx, ny, nz = u.shape
     q = torch.zeros((e, ny, nx, nz), dtype=u.dtype, device=u.device)
     for dt in dts:
@@ -161,13 +250,17 @@ def make_solver3d(
     params: SimParams3D,
     dtype: torch.dtype = torch.float32,
     device: str | torch.device | None = "cuda",
+    fused: bool | str | None = None,
 ) -> Solver3D:
-    """Build the 3D solver bundle on ``device``. The Poisson solve takes the
-    JAX package's form for the grid (dense below nx * nz = 1024)."""
+    """Build the 3D solver bundle on ``device``. ``fused`` picks the stage
+    function (``select_stage_path``); the Poisson solve takes the JAX
+    package's form for the grid (dense below nx * nz = 1024)."""
     if abs(grid.lz - params.lz) > 1e-12:
         params = dataclasses.replace(params, lz=grid.lz)
     device = default_device(device)
     nx, ny, nz = grid.nx, grid.ny, grid.nz
+    path = select_stage_path(dtype, nx, ny, nz, device.type, fused)
+    stage_rk, correct = STAGE_PATHS[path]
     min_b = params.min_b
     coeffs = Coeffs3D(grid.dx, grid.dy, grid.dz, params.nu, params.kappa, min_b)
     solve = make_poisson_solver_3d(nx, ny, nz, grid.dx, grid.dy, grid.dz, dtype, device)
@@ -197,7 +290,7 @@ def make_solver3d(
         g = flat(f)
         u, v, w, b, q = lazy_substeps(g.u, g.v, g.w, g.b,
                                       flat_bottom(heater_profile(action), batch),
-                                      dts, solve, coeffs)
+                                      dts, solve, coeffs, stage_rk, correct)
         out = Fields3D(u, v, w, b, hydrostatic_pressure(b, grid.dz, min_b),
                        from_solve_layout(q) / dt_last)
         return unflat(out, batch)
@@ -253,6 +346,7 @@ def make_solver3d(
         params=params,
         dtype=dtype,
         device=device,
+        path=path,
         coeffs=coeffs,
         solve=solve,
         init_random=init_random,

@@ -1,12 +1,12 @@
-"""K3 and K4's CUDA source, compiled for the host and held against the
+"""K3, K4 and K5's CUDA source, compiled for the host and held against the
 plain versions, on the CPU.
 
 The card is needed to run the kernels as built. Their arithmetic and
-indexing, though, can run here: both kernels walk their points in
-strided loops separated by block-wide barriers, so one thread per block,
-run block after block, executes every phase of ``csrc/rbc3d.cu`` to its
-end before the next begins, as the card does. A small header stands in
-for the CUDA keywords; the C launchers (which need nvcc) are cut off. The
+indexing, though, can run here: the kernels walk their points in strided
+loops separated by block-wide barriers, so one thread per block, run
+block after block, executes every phase of ``csrc/rbc3d.cu`` to its end
+before the next begins, as the card does. A small header stands in for
+the CUDA keywords; the C launchers (which need nvcc) are cut off. The
 gates are the smoke's on-card ones (``chip_smoke.py``): the emulation
 differs from the plain versions in float32 rounding only.
 """
@@ -58,7 +58,13 @@ static void wr(const char* n, const std::vector<float>& v) {
   fclose(f);
 }
 int main(int argc, char** argv) {
+  if (std::string(argv[1]) == "smem") {  // smem NY NZ: the launchers' floats
+    printf("%zu %zu\n", stage_smem_floats(atoi(argv[2]), atoi(argv[3])),
+           stage_xy_smem_floats(atoi(argv[3])));
+    return 0;
+  }
   dir = argv[1];
+  const bool xy = std::string(argv[16]) == "xy";  // K5, else K3
   const int E = atoi(argv[2]), nx = atoi(argv[3]), ny = atoi(argv[4]), nz = atoi(argv[5]);
   const int stage = atoi(argv[6]);
   const float dt = atof(argv[7]), gamma = atof(argv[8]), zeta = atof(argv[9]);
@@ -78,12 +84,13 @@ int main(int argc, char** argv) {
   auto prev = [&](int i) { return stage > 0 ? gp[i].data() : nullptr; };
   auto emit = [&](int i) { return stage < 2 ? g[i].data() : nullptr; };
   blockDim.x = 1;
-  for (unsigned blk = 0; blk < (unsigned)(E * (nx / kXBlk)); ++blk) {
+  const unsigned n_blk = E * (nx / kXBlk) * (xy ? ny / kYBlk : 1);
+  for (unsigned blk = 0; blk < n_blk; ++blk) {
     blockIdx.x = blk;
-    stage_rk_3d_kernel(u.data(), v.data(), w.data(), b.data(), q.data(), bottom.data(),
-                       prev(0), prev(1), prev(2), prev(3), out[0].data(), out[1].data(),
-                       out[2].data(), out[3].data(), out[4].data(), emit(0), emit(1),
-                       emit(2), emit(3), dt, gamma, zeta, P);
+    (xy ? stage_rk_3d_xy_kernel : stage_rk_3d_kernel)(
+        u.data(), v.data(), w.data(), b.data(), q.data(), bottom.data(), prev(0), prev(1),
+        prev(2), prev(3), out[0].data(), out[1].data(), out[2].data(), out[3].data(),
+        out[4].data(), emit(0), emit(1), emit(2), emit(3), dt, gamma, zeta, P);
   }
   const char* names[9] = {"u_out", "v_out", "w_out", "b_out", "div", "gu", "gv", "gw", "gb"};
   for (int i = 0; i < 5; ++i) wr(names[i], out[i]);
@@ -139,9 +146,9 @@ def _case(e, nx, ny, nz, seed):
                 gv_prev=g_prev[1], gw_prev=g_prev[2], gb_prev=g_prev[3])
 
 
-@pytest.mark.parametrize("stage", [0, 1, 2])
-@pytest.mark.parametrize("shape", [(3, 32, 32, 16), (2, 8, 8, 8), (1, 12, 8, 5)])
-def test_host_build_of_k3_and_k4_matches_plain(host_binary, tmp_path, shape, stage):
+def _run_stage(host_binary, tmp_path, shape, stage, kernel):
+    """Run one stage of ``kernel`` ("x": K3 and K4, "xy": K5) on the host
+    and hold it against the plain versions."""
     e, nx, ny, nz = shape
     case = _case(*shape, seed=0)
     for name, a in case.items():
@@ -150,7 +157,8 @@ def test_host_build_of_k3_and_k4_matches_plain(host_binary, tmp_path, shape, sta
                     float(1 / np.sqrt(0.7 * 2500)), 1.0)
     dt = 0.04
     args = [*map(str, (*shape, stage)),
-            *(repr(float(x)) for x in (dt, k3.RK3_GAMMA[stage], k3.RK3_ZETA[stage], *c))]
+            *(repr(float(x)) for x in (dt, k3.RK3_GAMMA[stage], k3.RK3_ZETA[stage], *c)),
+            kernel]
     subprocess.run([str(host_binary), f"{tmp_path}/", *args], check=True)
 
     def t(a):
@@ -170,7 +178,34 @@ def test_host_build_of_k3_and_k4_matches_plain(host_binary, tmp_path, shape, sta
                                    atol=chip_smoke.K3_G_ATOL, err_msg=name)
     w_out = got("w_out", want[2])
     assert np.all(w_out[..., 0] == 0) and np.all(w_out[..., -1] == 0)
-    plain = k3.correct_3d_plain(*(t(case[n]) for n in ("u", "v", "w", "q")), c)
+    return case, c, got
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2])
+@pytest.mark.parametrize("shape", [(3, 32, 32, 16), (2, 8, 8, 8), (1, 12, 8, 5)])
+def test_host_build_of_k3_and_k4_matches_plain(host_binary, tmp_path, shape, stage):
+    case, c, got = _run_stage(host_binary, tmp_path, shape, stage, "x")
+    plain = k3.correct_3d_plain(*(torch.as_tensor(case[n], dtype=torch.float32)
+                                  for n in ("u", "v", "w", "q")), c)
     for name, x in zip(("cu", "cv", "cw"), plain):
         np.testing.assert_allclose(got(name, x), x.numpy(), rtol=0, atol=chip_smoke.K4_ATOL,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2])
+@pytest.mark.parametrize("shape", [
+    (2, 8, 16, 8),  # 2 x blocks and 2 y blocks
+    (1, 4, 8, 5),  # ny = y_blk: the one y block's halos wrap onto itself
+    (1, 8, 24, 6),  # 3 y blocks, nz where the z ladder meets in the middle
+])
+def test_host_build_of_k5_matches_plain(host_binary, tmp_path, shape, stage):
+    _run_stage(host_binary, tmp_path, shape, stage, "xy")
+
+
+@pytest.mark.parametrize("ny,nz", [(32, 16), (64, 32), (8, 8)])
+def test_smem_formulas_match_the_launchers(host_binary, ny, nz):
+    """The selection rule's byte counts are the launchers' own."""
+    out = subprocess.run([str(host_binary), "smem", str(ny), str(nz)], check=True,
+                         capture_output=True, text=True).stdout.split()
+    assert [4 * int(n) for n in out] == [k3.stage_smem_bytes(ny, nz),
+                                         k3.stage_xy_smem_bytes(nz)]

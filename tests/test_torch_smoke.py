@@ -85,11 +85,12 @@ def test_smoke_phases_run_on_cpu_plain_halves():
     json.dumps(path)
 
     fake = {"ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5, "bound_by": "bytes"}
-    names = ("env_step_2d", "tendencies_2d", "stage_rk_3d", "correct_3d")
+    names = ("env_step_2d", "tendencies_2d", "stage_rk_3d", "correct_3d", "stage_rk_3d_xy")
     records = chip_smoke.kernel_records(
         {"env_step_2d": 1e-7, "env_step_2d_main": 2e-7, "tendencies_2d": 1e-8,
-         "stage_rk_3d": 3e-7, "correct_3d": 1e-8},
-        {"env_step_2d": 3, "tendencies_2d": 3, "stage_rk_3d": 117, "correct_3d": 3},
+         "stage_rk_3d": 3e-7, "correct_3d": 1e-8, "stage_rk_3d_xy": 4e-7},
+        {"env_step_2d": 3, "tendencies_2d": 3, "stage_rk_3d": 117, "correct_3d": 3,
+         "stage_rk_3d_xy": 225},
         {name: fake for name in names},
     )
     assert [rec["name"] for rec in records] == list(names)
@@ -100,7 +101,8 @@ def test_smoke_phases_run_on_cpu_plain_halves():
         assert set(rec) == keys and rec["route"] == "cuda"
         assert (REPO / rec["source"]).exists()
         path_, line = rec["replaces"].split(":")
-        assert "_kernel(" in (REPO / path_).read_text().splitlines()[int(line) - 1]
+        body = (REPO / path_).read_text().splitlines()[int(line) - 1]
+        assert re.match(r"def _\w*_kernel\w*\(", body)
     json.dumps({"kernels": records})
 
 
@@ -128,6 +130,45 @@ def test_smoke_3d_phases_run_on_cpu_plain_halves():
     json.dumps(path)
 
 
+def test_smoke_big_grid_phases_run_on_cpu_plain_halves():
+    """The selection rule and the big-grid phases at a reduced grid: on the
+    CPU auto is the plain path, a forced K3 on the big grid is refused, and
+    both halves of every comparison are the plain versions."""
+    sel = chip_smoke.selection("cpu")
+    assert set(sel["paths"].values()) == {"plain"}
+    assert "436,736" in sel["forced_stage_big_grid"] and not any(sel["launches"].values())
+    json.dumps(sel)
+    parity = chip_smoke.kernel_parity_big("cpu", big_envs=1, small_envs=1, step_envs=1,
+                                          state_shape=(8, 16, 16), small_shape=(8, 8, 8))
+    assert all(v["error"] == 0.0 for v in parity["gated"].values())
+    assert {"stage0_g", "stage2_fields", "small_stage1_g", "env_step"} <= set(parity["gated"])
+    assert set(parity["max_abs_err"]) == {"stage_rk_3d_xy"}
+    json.dumps(parity)
+    path = chip_smoke.main_path_big("cpu", num_envs=2, state_shape=(8, 16, 16),
+                                    heater_duration=0.0125, steps=2)
+    assert path["launches"] == {"stage_rk_3d": 0, "stage_rk_3d_xy": 0, "correct_3d": 0}
+    assert path["substeps_per_step"] == 3 and path["max_abs_div"] < path["div_atol"]
+    lo, hi = chip_smoke.NU_RANGE_3D
+    assert lo <= path["nusselt"][0] <= path["nusselt"][1] <= hi
+    json.dumps(path)
+
+
+def test_ptxas_report_names_each_kernel():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__c0f6_8_rbc3d_cu_13d8291b"
+        "21stage_rk_3d_xy_kernelEPKfS1_fffNS_11RBC3DParamsE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 72 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__c0f6_8_rbc3d_cu_13d8291b"
+        "18stage_rk_3d_kernelEPKfS1_fffNS_11RBC3DParamsE' for 'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 70 registers, used 1 barriers",
+    ])
+    assert chip_smoke.ptxas_report(log) == {
+        "stage_rk_3d_xy": {"registers": 72, "spill_stores": 0, "spill_loads": 0},
+        "stage_rk_3d": {"registers": 70, "spill_stores": 4, "spill_loads": 12}}
+
+
 def test_bounds_at_main_path_shapes():
     k1_ms, k1_by = chip_smoke.bound(chip_smoke.env_step_work(1024, 96, 64, 50))
     k2_ms, k2_by = chip_smoke.bound(chip_smoke.tendencies_work(1024, 96, 64))
@@ -150,6 +191,17 @@ def test_3d_bounds_at_main_path_shapes():
     dense = chip_smoke.poisson_3d_flops(1, 32, 32, 16, factored=False)
     assert 3.4e7 < dense < 3.8e7
     assert chip_smoke.poisson_3d_flops(1, 32, 32, 16, factored=True) < dense / 4
+
+
+def test_big_grid_bounds():
+    """K5 on 32x64x64 at 1024 envs: 7.4 MB per env at stages 0 and 2, 9.5 MB
+    at stage 1, 2.264 and 2.910 ms at 3.35 TB/s; its FLOP need 0.76-0.78 ms."""
+    works = [chip_smoke.stage_rk_3d_work(1024, 64, 64, 32, m) for m in range(3)]
+    assert [w["bytes"] for w in works] == [7_583_301_632, 9_747_562_496, 7_583_301_632]
+    bounds = [chip_smoke.bound(w) for w in works]
+    assert all(by == "bytes" for _, by in bounds)
+    assert [round(ms, 3) for ms, _ in bounds] == [2.264, 2.910, 2.264]
+    assert all(0.76e-3 < w["flops"] / chip_smoke.FP32_FLOPS < 0.78e-3 for w in works)
 
 
 @pytest.mark.parametrize("alone", [False, True])

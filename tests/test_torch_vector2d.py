@@ -177,12 +177,12 @@ def test_step_leaves_its_input_state_unmodified():
 
 
 def test_checkpoint_banks_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="A.2"):
         _env(2, checkpoint="data/checkpoints/train/ckpt_ra10000.h5")
     with pytest.raises(ValueError, match="bank_sampling"):
         _env(2, bank_sampling="nope")
     # both act only on banks, so they are refused rather than ignored
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="A.2"):
         _env(2, bank_sampling="sequential")
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="A.2"):
         _env(2, ic_noise=0.01)

@@ -170,11 +170,39 @@ def test_step_leaves_its_input_state_unmodified():
 
 
 def test_checkpoint_banks_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="A.2"):
         _env(2, checkpoint="data/checkpoints/train/ckpt_ra2500_3d.h5")
     with pytest.raises(ValueError, match="bank_sampling"):
         _env(2, bank_sampling="nope")
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="A.2"):
         _env(2, bank_sampling="sequential")
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="A.2"):
         _env(2, ic_noise=0.01)
+
+
+def test_stage_xy_env_steps_and_refuses_unported_options():
+    """The K5 path forced on the CPU (its wrapper runs the plain version):
+    steps, leaves its input state alone, equals the plain path; the JAX
+    env's ``fused`` values that are not ported, and any
+    ``poisson_precision`` but None, are refused by name."""
+    env = RBC3DVectorEnv(2, state_shape=(8, 16, 16), heater_duration=0.0125,
+                         episode_length=0.15, fused="stage_xy", device="cpu")
+    plain = RBC3DVectorEnv(2, state_shape=(8, 16, 16), heater_duration=0.0125,
+                           episode_length=0.15, fused=False, device="cpu")
+    assert (env.solver.path, plain.solver.path) == ("stage_xy", "plain")
+    state, obs = env.reset(seed=6)
+    assert tuple(obs.shape) == (2, 4, 8, 16, 16) and obs.dtype == torch.float32
+    snapshot = [t.clone() for t in (*state.fields, state.t, state.step, state.key)]
+    actions = np.random.default_rng(7).uniform(-1, 1, (2,) + ACT)
+    nxt, ts = env.step(state, actions)
+    for before, after in zip(snapshot, (*state.fields, state.t, state.step, state.key)):
+        assert torch.equal(before, after)
+    ref, ref_ts = plain.step(state, actions)
+    assert all(torch.equal(a, b) for a, b in zip(nxt.fields, ref.fields))
+    assert torch.equal(ts.reward, ref_ts.reward) and bool(torch.isfinite(ts.obs).all())
+    for fused, error in (("field", NotImplementedError), (True, NotImplementedError),
+                         ("stage_qp", ValueError), ("stage_ew", ValueError)):
+        with pytest.raises(error, match=repr(fused)):
+            _env(2, fused=fused)
+    with pytest.raises(ValueError, match="poisson_precision"):
+        _env(2, poisson_precision="bf16x3")
