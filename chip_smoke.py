@@ -24,9 +24,11 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
 8. selection         the stage-kernel rule: 16x32x32 float32 -> K3, 32x64x64
                      float32 -> K5, float64 in 2D and 3D -> the plain path with
                      no launch, K3 forced at 32x64x64 -> ValueError, no launch
-9. kernel_parity_big K5 (each stage) against its plain version at 32x64x64
-                     and, forced, at 16x32x32; one big-grid env step of the
-                     kernel path against the all-plain path and a float64 run
+9. kernel_parity_big K5 (each stage) and K4 against their plain versions at
+                     the big main path's shapes (1024 envs at 32x64x64); K5
+                     at 8 envs beside a float64 stage and, forced, at
+                     16x32x32; one big-grid env step of the kernel path
+                     against the all-plain path and a float64 run
 10. main_path_big    RBC3DVectorEnv(1024, state_shape=(32, 64, 64),
                      dt_solver=0.005): reset, 3 steps (25 substeps each); the
                      same checks, launch counters 225 (K5), 3 (K4), 0 (K3),
@@ -46,7 +48,6 @@ tests run them at a tiny size with the plain versions.
 from __future__ import annotations
 
 import json
-import re
 import subprocess
 import sys
 import time
@@ -130,9 +131,6 @@ MAIN_SHAPE_CHECK = {"env_step_2d": "env_step_2d_main", "tendencies_2d": "tendenc
 WRAPPERS = {"env_step_2d": k2d.env_step_2d, "tendencies_2d": k2d.tendencies_2d,
             "stage_rk_3d": k3d.stage_rk_3d, "correct_3d": k3d.correct_3d,
             "stage_rk_3d_xy": k3d.stage_rk_3d_xy}
-KERNEL_NAMES = {"env_step_2d_kernel": "env_step_2d", "tendencies_2d_kernel": "tendencies_2d",
-                "stage_rk_3d_kernel": "stage_rk_3d", "correct_3d_kernel": "correct_3d",
-                "stage_rk_3d_xy_kernel": "stage_rk_3d_xy"}
 
 
 def emit(obj) -> None:
@@ -237,32 +235,11 @@ K2_OUT = ("gu", "gw", "gb")
 # ---------------------------------------------------------------------------
 
 
-def ptxas_report(log: str) -> dict:
-    """Registers and spill bytes per kernel from nvcc's ``-Xptxas -v`` log."""
-    out, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            name = next((v for k, v in KERNEL_NAMES.items() if f"{len(k)}{k}" in m.group(1)),
-                        m.group(1))
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and name:
-            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
-                                            spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out.setdefault(name, {})["registers"] = int(m.group(1))
-    return out
-
-
 def phase_build() -> dict:
     start = time.perf_counter()
     lib, nvcc_s = _build.build()
     _build.load_library()
-    log = _build.build_log_path(lib)
     return {"phase": "build", "library": lib.name, "nvcc_s": nvcc_s,
-            "ptxas": ptxas_report(log.read_text()) if log.exists() else None,
             "seconds": time.perf_counter() - start}
 
 
@@ -747,16 +724,25 @@ def selection(device) -> dict:
             "launches": launches}
 
 
-def kernel_parity_big(device, big_envs=8, small_envs=256, step_envs=4,
+def kernel_parity_big(device, main_envs=1024, big_envs=8, small_envs=256, step_envs=4,
                       state_shape=BIG_SHAPE, small_shape=(16, 32, 32)) -> dict:
-    """K5 stage 0, 1, 2 against the plain version at the big grid
-    (``big_envs``) and, forced, at the training grid, where ny = 32 makes
+    """K5 stage 0, 1, 2 and K4 against their plain versions at the big main
+    path's shapes (``main_envs``); K5 again at ``big_envs`` beside a float64
+    run of stage 0, and, forced, at the training grid, where ny = 32 makes
     four y blocks (``small_envs``); one whole big-grid env step (25
     substeps) of the kernel path against the all-plain path and both
     against a float64 plain run (``step_envs``)."""
     start = time.perf_counter()
-    solver, case = make_case_3d(device, big_envs, state_shape, seed=6, dt_solver=BIG_DT_SOLVER)
+    solver, case = make_case_3d(device, main_envs, state_shape, seed=6, dt_solver=BIG_DT_SOLVER)
     by_stage, errs = stage_parity(solver, case, k3d.stage_rk_3d_xy)
+    k4 = abs_diffs("uvw", k4_run(solver, case, True), k4_run(solver, case, False))
+    errs["correct_3d"] = (max(k4.values()), K4_ATOL)
+    max_err = {"stage_rk_3d_xy": max(e for k, (e, _) in errs.items() if k.startswith("stage")),
+               "correct_3d": errs["correct_3d"][0]}
+    del case
+    solver, case = make_case_3d(device, big_envs, state_shape, seed=10, dt_solver=BIG_DT_SOLVER)
+    by_stage_few, errs_few = stage_parity(solver, case, k3d.stage_rk_3d_xy, "few_envs_")
+    errs.update(errs_few)
     # stage 0 in float64 from the same inputs: the float32 rounding of both
     # halves, which grows with 1/dx^2 and 1/dz^2 on this finer grid
     case64 = {k: v.double() for k, v in case.items()}
@@ -785,11 +771,10 @@ def kernel_parity_big(device, big_envs=8, small_envs=256, step_envs=4,
     failed = {k: v for k, v in errs.items() if not v[0] <= v[1]}
     if failed:
         raise AssertionError(f"big-grid kernel parity failed (error, atol): {failed}")
-    at_big = [e for k, (e, _) in errs.items() if k.startswith("stage")]
-    return {"phase": "kernel_parity_big", "num_envs": big_envs,
-            "max_abs_err": {"stage_rk_3d_xy": max(at_big)},
+    return {"phase": "kernel_parity_big", "num_envs": main_envs, "max_abs_err": max_err,
             "gated": {k: {"error": e, "atol": a} for k, (e, a) in errs.items()},
-            "stage_rk_3d_xy_by_stage": by_stage,
+            "stage_rk_3d_xy_by_stage": by_stage, "correct_3d_by_field": k4,
+            "stage_rk_3d_xy_few_envs_by_stage": by_stage_few,
             "stage0_float64_plain_vs": rounding,
             "stage_rk_3d_xy_small_grid_by_stage": by_stage_small,
             "env_step": step, "seconds": time.perf_counter() - start}
@@ -900,9 +885,13 @@ def main() -> int:
     times_big = timing_big(device)
     emit({**times_big, "card": card})
     # each kernel's launches from the main path that is its own (K4 runs in
-    # both 3D paths; its count is the training grid's)
+    # both 3D paths; its count is the training grid's, its error the larger
+    # of the two grids')
+    errors = {**parity["max_abs_err"], **parity_3d["max_abs_err"],
+              "stage_rk_3d_xy": parity_big["max_abs_err"]["stage_rk_3d_xy"]}
+    errors["correct_3d"] = max(errors["correct_3d"], parity_big["max_abs_err"]["correct_3d"])
     emit({"kernels": kernel_records(
-        {**parity["max_abs_err"], **parity_3d["max_abs_err"], **parity_big["max_abs_err"]},
+        errors,
         {**path["launches"], **path_3d["launches"],
          "stage_rk_3d_xy": path_big["launches"]["stage_rk_3d_xy"]},
         {**times["kernels"], **times_3d["kernels"],

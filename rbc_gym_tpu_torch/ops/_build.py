@@ -25,7 +25,6 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",  # each kernel's registers and spills, kept in the build log
 )
 
 _P = ctypes.c_void_p
@@ -112,11 +111,6 @@ def library_path() -> Path:
     return BUILD_DIR / f"librbc_gym_kernels_{_source_hash()}.so"
 
 
-def build_log_path(lib: Path) -> Path:
-    """nvcc's output for ``lib``, ptxas's resource report included."""
-    return lib.with_suffix(".log")
-
-
 def build() -> tuple[Path, float]:
     """Compile the sources unless this hash is already built.
 
@@ -134,7 +128,6 @@ def build() -> tuple[Path, float]:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
         )
-    build_log_path(lib).write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib, seconds
 

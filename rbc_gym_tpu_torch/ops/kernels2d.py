@@ -29,9 +29,6 @@ from rbc_gym_tpu_torch.ops.poisson import Spectral2D, poisson_solve_2d
 RK3_GAMMA = (8.0 / 15.0, 5.0 / 12.0, 3.0 / 4.0)
 RK3_ZETA = (0.0, -17.0 / 60.0, -5.0 / 12.0)
 
-# Shared memory one block may ask for on an H100 (sm_90): 227 KB.
-SMEM_PER_BLOCK = 232_448
-
 Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
@@ -157,12 +154,6 @@ def env_step_2d_plain(
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
-
-
-def env_step_2d_smem_bytes(nx: int, nz: int) -> int:
-    """Shared memory K1 asks for per block: the solve's right-hand side and
-    its modal coefficients, (nx, nz) float32 each (``csrc/rbc2d.cu``)."""
-    return 2 * 4 * nx * nz
 
 
 def _check_cuda(named: dict, shapes: dict) -> None:

@@ -10,9 +10,7 @@ block's shared memory) and ``correct_3d`` replaces ``_correct_kernel``
 its design does about it. A wrapper launches its kernel for CUDA tensors
 (float32, contiguous) and raises on anything else; it takes its plain
 version only for tensors on the CPU. Each wrapper counts its launches in
-``<wrapper>.launches``. ``stage_smem_bytes`` and ``stage_xy_smem_bytes``
-are the shared memory the two stage kernels ask for per block, the
-formulas of their launchers.
+``<wrapper>.launches``.
 
 Layouts: the fields u, v, b (E, nx, ny, nz) and w (E, nx, ny, nz + 1) are
 in the public batch-major layout, bottom is (E, nx, ny). The divergence a
@@ -52,24 +50,6 @@ Tensors4 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 # public-layout axes of (E, nx, ny, nz[+1]) fields
 X, Y, Z = -3, -2, -1
-
-X_BLK = 4  # x columns a K3 or K5 block owns (csrc/rbc3d.cu kXBlk)
-Y_BLK = 8  # y rows a K5 block owns (kYBlk)
-
-
-def stage_smem_bytes(ny: int, nz: int) -> int:
-    """K3's slabs: q, u, v, b of x_blk + 8, + 7, + 6, + 6 whole-y columns of
-    nz, w of x_blk + 6 columns of nz + 1 (``stage_smem_floats``)."""
-    return 4 * ((4 * X_BLK + 27) * ny * nz + (X_BLK + 6) * ny * (nz + 1))
-
-
-def stage_xy_smem_bytes(nz: int) -> int:
-    """K5's slabs: (columns, rows) of q (x_blk + 8, y_blk + 8), u (x_blk + 7,
-    y_blk + 6), v (x_blk + 6, y_blk + 7), b (x_blk + 6, y_blk + 6) of nz, w
-    (x_blk + 6, y_blk + 6) of nz + 1 (``stage_xy_smem_floats``)."""
-    cells = ((X_BLK + 8) * (Y_BLK + 8) + (X_BLK + 7) * (Y_BLK + 6)
-             + (X_BLK + 6) * (Y_BLK + 7) + (X_BLK + 6) * (Y_BLK + 6))
-    return 4 * (cells * nz + (X_BLK + 6) * (Y_BLK + 6) * (nz + 1))
 
 
 class Coeffs3D(NamedTuple):
@@ -235,60 +215,42 @@ def _launch_stage(name: str, u, v, w, b, q, bottom, c: Coeffs3D, dt: float, stag
     return (*outs, g)
 
 
-def _check_stage(stage: int, g_prev) -> None:
-    if stage not in (0, 1, 2):
-        raise ValueError(f"stage must be 0, 1 or 2, got {stage}")
-    if (g_prev is None) != (stage == 0):
-        raise ValueError("stages 1 and 2 take g_prev, stage 0 does not")
+def _stage_wrapper(name: str, doc: str):
+    """The wrapper of stage kernel ``name``: K3 and K5 compute one function,
+    so both take ``stage_rk_3d_plain`` for CPU tensors."""
+
+    def wrapper(
+        u: torch.Tensor,
+        v: torch.Tensor,
+        w: torch.Tensor,
+        b: torch.Tensor,
+        q: torch.Tensor,
+        bottom: torch.Tensor,
+        c: Coeffs3D,
+        dt: float,
+        stage: int,
+        g_prev: Optional[Tensors4] = None,
+    ):
+        if stage not in (0, 1, 2):
+            raise ValueError(f"stage must be 0, 1 or 2, got {stage}")
+        if (g_prev is None) != (stage == 0):
+            raise ValueError("stages 1 and 2 take g_prev, stage 0 does not")
+        if u.device.type == "cpu":
+            return stage_rk_3d_plain(u, v, w, b, q, bottom, c, dt, stage, g_prev)
+        out = _launch_stage(name, u, v, w, b, q, bottom, c, dt, stage, g_prev)
+        wrapper.launches += 1
+        return out
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = doc
+    wrapper.launches = 0
+    return wrapper
 
 
-def stage_rk_3d(
-    u: torch.Tensor,
-    v: torch.Tensor,
-    w: torch.Tensor,
-    b: torch.Tensor,
-    q: torch.Tensor,
-    bottom: torch.Tensor,
-    c: Coeffs3D,
-    dt: float,
-    stage: int,
-    g_prev: Optional[Tensors4] = None,
-):
-    """One lazy-projection RK3 stage: K3 for CUDA tensors."""
-    _check_stage(stage, g_prev)
-    if u.device.type == "cpu":
-        return stage_rk_3d_plain(u, v, w, b, q, bottom, c, dt, stage, g_prev)
-    out = _launch_stage("stage_rk_3d", u, v, w, b, q, bottom, c, dt, stage, g_prev)
-    stage_rk_3d.launches += 1
-    return out
-
-
-stage_rk_3d.launches = 0
-
-
-def stage_rk_3d_xy(
-    u: torch.Tensor,
-    v: torch.Tensor,
-    w: torch.Tensor,
-    b: torch.Tensor,
-    q: torch.Tensor,
-    bottom: torch.Tensor,
-    c: Coeffs3D,
-    dt: float,
-    stage: int,
-    g_prev: Optional[Tensors4] = None,
-):
-    """The same stage on (x, y)-blocked slabs: K5 for CUDA tensors. K3 and
-    K5 compute one function, so both have ``stage_rk_3d_plain``."""
-    _check_stage(stage, g_prev)
-    if u.device.type == "cpu":
-        return stage_rk_3d_plain(u, v, w, b, q, bottom, c, dt, stage, g_prev)
-    out = _launch_stage("stage_rk_3d_xy", u, v, w, b, q, bottom, c, dt, stage, g_prev)
-    stage_rk_3d_xy.launches += 1
-    return out
-
-
-stage_rk_3d_xy.launches = 0
+stage_rk_3d = _stage_wrapper(
+    "stage_rk_3d", "One lazy-projection RK3 stage: K3 for CUDA tensors.")
+stage_rk_3d_xy = _stage_wrapper(
+    "stage_rk_3d_xy", "The same stage on (x, y)-blocked slabs: K5 for CUDA tensors.")
 
 
 def correct_3d(

@@ -19,8 +19,9 @@ Fields are batch-major, (..., nx, nz[+1]) with any leading env batch.
 as the JAX solver's ``fused`` does: on "fused", ``env_step`` launches the
 whole-step kernel K1 and ``substep`` the tendency kernel K2 with the RK
 update and projection around it; on "plain" both run the plain versions.
-Auto takes "fused" on CUDA for float32 when K1's shared memory fits a
-block, and "plain" otherwise (float64, a grid too large, the CPU).
+Auto takes "fused" on CUDA for float32, as the JAX solver does, and
+raises where K1's shared memory does not fit a block; "plain" for
+float64 and on the CPU.
 """
 
 from __future__ import annotations
@@ -33,17 +34,16 @@ import torch
 
 from rbc_gym_tpu_torch import default_device
 from rbc_gym_tpu_torch.ops.kernels2d import (
-    SMEM_PER_BLOCK,
     Coeffs2D,
     env_step_2d,
     env_step_2d_plain,
-    env_step_2d_smem_bytes,
     hydrostatic_pressure,
     rk3_substep,
     tendencies_2d,
     tendencies_2d_plain,
 )
 from rbc_gym_tpu_torch.ops import stencils as st
+from rbc_gym_tpu_torch.ops.limits import SMEM_PER_BLOCK, env_step_2d_smem_bytes
 from rbc_gym_tpu_torch.ops.poisson import Spectral2D, spectral_constants_2d
 from rbc_gym_tpu_torch.sim.actuation import heater_profile_2d
 from rbc_gym_tpu_torch.sim.grid import Grid2D
@@ -140,16 +140,22 @@ def select_env_step_path(dtype: torch.dtype, nx: int, nz: int, device_type: str,
                          fused: bool | None = None) -> str:
     """"fused" or "plain", from the dtype and the grid only.
 
-    Auto (``fused=None``): "fused" on CUDA when K1 can take the
-    configuration (the card's 232,448 bytes of shared memory per block,
-    float32; the JAX package takes its XLA path for float64,
-    rbc_gym_tpu/sim/solver2d.py:247-250), "plain" otherwise and on the
-    CPU. ``fused=False`` is "plain"; ``fused=True`` forces the kernels and
-    raises ``ValueError``, naming the limit, if they cannot take it (on
-    the CPU the wrappers then run their plain versions)."""
+    Auto (``fused=None``) is the JAX package's rule
+    (rbc_gym_tpu/sim/solver2d.py:247-250): "fused" on CUDA for float32,
+    "plain" for float64 and on the CPU. Where K1 cannot take a float32
+    grid on CUDA (its slabs above the card's 232,448 bytes of shared
+    memory per block) it raises ``NotImplementedError`` naming the limit,
+    since the JAX package runs its kernel there. ``fused=False`` is
+    "plain"; ``fused=True`` forces the kernels and raises ``ValueError``,
+    naming the limit, if they cannot take it (on the CPU the wrappers
+    then run their plain versions)."""
     if fused is None:
-        fits = env_step_kernel_limit(dtype, nx, nz) is None
-        return "fused" if device_type == "cuda" and fits else "plain"
+        if device_type != "cuda" or dtype != torch.float32:
+            return "plain"
+        limit = env_step_kernel_limit(dtype, nx, nz)
+        if limit is not None:
+            raise NotImplementedError(f"the JAX package runs its fused kernels here, and {limit}")
+        return "fused"
     if fused is False:
         return "plain"
     if fused is not True:

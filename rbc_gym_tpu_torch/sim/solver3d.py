@@ -33,15 +33,8 @@ import numpy as np
 import torch
 
 from rbc_gym_tpu_torch import default_device
-from rbc_gym_tpu_torch.ops.kernels2d import (
-    RK3_GAMMA,
-    RK3_ZETA,
-    SMEM_PER_BLOCK,
-    hydrostatic_pressure,
-)
+from rbc_gym_tpu_torch.ops.kernels2d import RK3_GAMMA, RK3_ZETA, hydrostatic_pressure
 from rbc_gym_tpu_torch.ops.kernels3d import (
-    X_BLK,
-    Y_BLK,
     Coeffs3D,
     correct_3d,
     correct_3d_plain,
@@ -50,8 +43,6 @@ from rbc_gym_tpu_torch.ops.kernels3d import (
     stage_rk_3d,
     stage_rk_3d_plain,
     stage_rk_3d_xy,
-    stage_smem_bytes,
-    stage_xy_smem_bytes,
     tendencies_3d_plain,
     to_solve_layout,
     X,
@@ -59,6 +50,13 @@ from rbc_gym_tpu_torch.ops.kernels3d import (
     Z,
 )
 from rbc_gym_tpu_torch.ops import stencils as st
+from rbc_gym_tpu_torch.ops.limits import (
+    SMEM_PER_BLOCK,
+    X_BLK,
+    Y_BLK,
+    stage_smem_bytes,
+    stage_xy_smem_bytes,
+)
 from rbc_gym_tpu_torch.ops.poisson import make_poisson_solver_3d
 from rbc_gym_tpu_torch.sim.actuation import heater_profile_3d, preprocess_action_3d
 from rbc_gym_tpu_torch.sim.grid import Grid3D
@@ -176,18 +174,22 @@ def select_stage_path(dtype: torch.dtype, nx: int, ny: int, nz: int, device_type
     """The stage function ``env_step`` runs: "stage" (K3), "stage_xy" (K5)
     or "plain", from the dtype and the grid only.
 
-    Auto (``fused=None``) on CUDA: K3 for float32 when its whole-y slab
-    fits a block's shared memory, else K5 for float32 when its (x, y)
-    blocks fit, else the plain path; on the CPU the plain path. This
-    follows the JAX package's rule (rbc_gym_tpu/sim/solver3d.py:323-350)
-    with the card's limit, 232,448 bytes of shared memory per block, in
-    place of the TPU's VMEM rule. float64 takes the plain path, as the JAX
-    package takes its XLA path for it. ``fused=False`` is the plain path;
-    "stage" or "stage_xy" forces that kernel and raises ``ValueError``,
-    naming the limit, if the configuration cannot take it (on the CPU its
-    wrapper then runs the plain version). "field" and True (the JAX
-    package's alias of "field") are not ported yet, "stage_qp" and
-    "stage_ew" not carried over: each is refused by name.
+    Auto (``fused=None``) follows the JAX package's rule
+    (rbc_gym_tpu/sim/solver3d.py:323-350) with the card's limit, 232,448
+    bytes of shared memory per block, in place of the TPU's VMEM rule.
+    On CUDA in float32: where K3's whole-y slab fits a block, K3 if
+    nx % 4 == 0 and otherwise the JAX package's per-field path, which is
+    not ported yet (ROADMAP B.2) and raises ``NotImplementedError``; where
+    it does not fit, K5 if nx % 4 == 0 and ny % 8 == 0, raising
+    ``NotImplementedError`` if K5's own slabs do not fit either; otherwise
+    the plain path, as the JAX package takes its XLA path there. float64
+    and the CPU take the plain path, as the JAX package does.
+    ``fused=False`` is the plain path; "stage" or "stage_xy" forces that
+    kernel and raises ``ValueError``, naming the limit, if the
+    configuration cannot take it (on the CPU its wrapper then runs the
+    plain version). "field" and True (the JAX package's alias of "field")
+    are not ported yet, "stage_qp" and "stage_ew" not carried over: each
+    is refused by name.
     """
     if fused is False:
         return "plain"
@@ -196,12 +198,23 @@ def select_stage_path(dtype: torch.dtype, nx: int, ny: int, nz: int, device_type
         error = NotImplementedError if refused == "field" else ValueError
         raise error(f"fused={fused!r}: {REFUSED_FUSED[refused]}")
     if fused is None:
-        if device_type != "cuda":
+        if device_type != "cuda" or dtype != torch.float32:
             return "plain"
-        for kernel in ("stage", "stage_xy"):
-            if stage_kernel_limit(kernel, dtype, nx, ny, nz) is None:
-                return kernel
-        return "plain"
+        if stage_smem_bytes(ny, nz) <= SMEM_PER_BLOCK:
+            if nx % X_BLK:
+                raise NotImplementedError(
+                    f"nx={nx} is not a multiple of {X_BLK}: the JAX package runs its "
+                    f"per-field kernels here, {REFUSED_FUSED['field']}")
+            want = "stage"
+        elif nx % X_BLK == 0 and ny % Y_BLK == 0:
+            want = "stage_xy"
+        else:
+            return "plain"
+        limit = stage_kernel_limit(want, dtype, nx, ny, nz)
+        if limit is not None:
+            raise NotImplementedError(
+                f"the JAX package runs its {want} kernel here, and {limit}")
+        return want
     if fused not in ("stage", "stage_xy"):
         raise ValueError(f"unknown fused={fused!r}: None, False, 'stage' or 'stage_xy'")
     limit = stage_kernel_limit(fused, dtype, nx, ny, nz)

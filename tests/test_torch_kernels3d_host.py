@@ -21,6 +21,7 @@ import torch
 import chip_smoke
 from rbc_gym_tpu_torch.ops import _build
 from rbc_gym_tpu_torch.ops import kernels3d as k3
+from rbc_gym_tpu_torch.ops import limits
 
 SHIM = r"""
 #pragma once
@@ -207,5 +208,5 @@ def test_smem_formulas_match_the_launchers(host_binary, ny, nz):
     """The selection rule's byte counts are the launchers' own."""
     out = subprocess.run([str(host_binary), "smem", str(ny), str(nz)], check=True,
                          capture_output=True, text=True).stdout.split()
-    assert [4 * int(n) for n in out] == [k3.stage_smem_bytes(ny, nz),
-                                         k3.stage_xy_smem_bytes(nz)]
+    assert [4 * int(n) for n in out] == [limits.stage_smem_bytes(ny, nz),
+                                         limits.stage_xy_smem_bytes(nz)]

@@ -13,6 +13,7 @@ import torch
 
 from rbc_gym_tpu_torch.ops import kernels2d as k2
 from rbc_gym_tpu_torch.ops import kernels3d as k3
+from rbc_gym_tpu_torch.ops import limits
 from rbc_gym_tpu_torch.sim import solver2d as s2
 from rbc_gym_tpu_torch.sim import solver3d as s3
 from rbc_gym_tpu_torch.sim.grid import Grid2D, Grid3D
@@ -28,14 +29,29 @@ BIG = (64, 64, 32)  # the 32x64x64 big grid
     (F32, (16, 16, 8), "cuda", "stage"),
     (F64, TRAINING, "cuda", "plain"),  # the JAX package's XLA path for float64
     (F64, BIG, "cuda", "plain"),
-    (F32, (6, 32, 16), "cuda", "plain"),  # nx % 4 != 0: neither kernel
-    (F32, (64, 60, 32), "cuda", "plain"),  # K3 too large, ny % 8 != 0 for K5
-    (F32, (64, 64, 80), "cuda", "plain"),  # both too large: K5 needs 248,880
+    (F32, (64, 60, 32), "cuda", "plain"),  # K3 too large, ny % 8 != 0: JAX's XLA path
+    (F32, (66, 64, 32), "cuda", "plain"),  # K3 too large, nx % 4 != 0: the same
+    (F32, (6, 32, 16), "cpu", "plain"),
     (F32, TRAINING, "cpu", "plain"),
     (F32, BIG, "cpu", "plain"),
 ])
 def test_auto_selection(dtype, shape, device_type, want):
     assert s3.select_stage_path(dtype, *shape, device_type) == want
+
+
+@pytest.mark.parametrize("shape,message", [
+    # K3's slab fits but nx % 4 != 0: the JAX package's per-field kernels
+    ((6, 32, 16), "per-field kernels.*B.2"),
+    ((30, 16, 8), "per-field kernels.*B.2"),
+    # K3 too large, K5's constraints hold but its slabs need 248,880 bytes
+    ((64, 64, 80), "stage_xy kernel needs 248,880 bytes.*232,448"),
+])
+def test_auto_selection_raises_where_only_the_jax_package_has_a_kernel(shape, message):
+    """Auto never puts the plain path on the card where the JAX package
+    runs a kernel that the port lacks."""
+    with pytest.raises(NotImplementedError, match=message):
+        s3.select_stage_path(F32, *shape, "cuda")
+    assert s3.select_stage_path(F64, *shape, "cuda") == "plain"
 
 
 @pytest.mark.parametrize("fused,shape,want", [
@@ -109,12 +125,20 @@ def test_solver3d_exposes_its_path_and_runs_it():
 @pytest.mark.parametrize("dtype,nx,nz,device_type,want", [
     (F32, 96, 64, "cuda", "fused"),  # K1: 49,152 bytes
     (F32, 128, 224, "cuda", "fused"),  # 229,376 bytes: still fits
-    (F32, 256, 256, "cuda", "plain"),  # 524,288 bytes
     (F64, 96, 64, "cuda", "plain"),
+    (F64, 256, 256, "cuda", "plain"),
     (F32, 96, 64, "cpu", "plain"),
+    (F32, 256, 256, "cpu", "plain"),
 ])
 def test_2d_auto_selection(dtype, nx, nz, device_type, want):
     assert s2.select_env_step_path(dtype, nx, nz, device_type) == want
+
+
+def test_2d_auto_selection_raises_where_k1_does_not_fit():
+    """The JAX package runs its fused kernels for every float32 grid; where
+    K1's slabs (524,288 bytes here) exceed a block, auto refuses."""
+    with pytest.raises(NotImplementedError, match="524,288 bytes.*232,448"):
+        s2.select_env_step_path(F32, 256, 256, "cuda")
 
 
 def test_2d_forced_selection():
@@ -128,7 +152,7 @@ def test_2d_forced_selection():
             s2.select_env_step_path(F64, 96, 64, device_type, True)
         with pytest.raises(ValueError, match="unknown fused"):
             s2.select_env_step_path(F32, 96, 64, device_type, "stage")
-    assert k2.env_step_2d_smem_bytes(96, 64) == 49_152
+    assert limits.env_step_2d_smem_bytes(96, 64) == 49_152
 
 
 def test_solver2d_exposes_its_path_and_runs_it():

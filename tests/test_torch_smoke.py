@@ -138,11 +138,13 @@ def test_smoke_big_grid_phases_run_on_cpu_plain_halves():
     assert set(sel["paths"].values()) == {"plain"}
     assert "436,736" in sel["forced_stage_big_grid"] and not any(sel["launches"].values())
     json.dumps(sel)
-    parity = chip_smoke.kernel_parity_big("cpu", big_envs=1, small_envs=1, step_envs=1,
-                                          state_shape=(8, 16, 16), small_shape=(8, 8, 8))
+    parity = chip_smoke.kernel_parity_big("cpu", main_envs=2, big_envs=1, small_envs=1,
+                                          step_envs=1, state_shape=(8, 16, 16),
+                                          small_shape=(8, 8, 8))
     assert all(v["error"] == 0.0 for v in parity["gated"].values())
-    assert {"stage0_g", "stage2_fields", "small_stage1_g", "env_step"} <= set(parity["gated"])
-    assert set(parity["max_abs_err"]) == {"stage_rk_3d_xy"}
+    assert {"stage0_g", "stage2_fields", "correct_3d", "few_envs_stage1_g", "small_stage1_g",
+            "env_step"} <= set(parity["gated"])
+    assert parity["max_abs_err"] == {"stage_rk_3d_xy": 0.0, "correct_3d": 0.0}
     json.dumps(parity)
     path = chip_smoke.main_path_big("cpu", num_envs=2, state_shape=(8, 16, 16),
                                     heater_duration=0.0125, steps=2)
@@ -151,22 +153,6 @@ def test_smoke_big_grid_phases_run_on_cpu_plain_halves():
     lo, hi = chip_smoke.NU_RANGE_3D
     assert lo <= path["nusselt"][0] <= path["nusselt"][1] <= hi
     json.dumps(path)
-
-
-def test_ptxas_report_names_each_kernel():
-    log = "\n".join([
-        "ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__c0f6_8_rbc3d_cu_13d8291b"
-        "21stage_rk_3d_xy_kernelEPKfS1_fffNS_11RBC3DParamsE' for 'sm_90a'",
-        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "ptxas info    : Used 72 registers, used 1 barriers",
-        "ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__c0f6_8_rbc3d_cu_13d8291b"
-        "18stage_rk_3d_kernelEPKfS1_fffNS_11RBC3DParamsE' for 'sm_90a'",
-        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads",
-        "ptxas info    : Used 70 registers, used 1 barriers",
-    ])
-    assert chip_smoke.ptxas_report(log) == {
-        "stage_rk_3d_xy": {"registers": 72, "spill_stores": 0, "spill_loads": 0},
-        "stage_rk_3d": {"registers": 70, "spill_stores": 4, "spill_loads": 12}}
 
 
 def test_bounds_at_main_path_shapes():
