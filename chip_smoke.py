@@ -21,9 +21,12 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      the same checks, launch counters 117 (K3) and 3 (K4)
 7. timing_3d         K3 per stage, K4, both Poisson forms, the split of one
                      3D env step
-8. selection         the stage-kernel rule: 16x32x32 float32 -> K3, 32x64x64
-                     float32 -> K5, float64 in 2D and 3D -> the plain path with
-                     no launch, K3 forced at 32x64x64 -> ValueError, no launch
+8. selection         the path rule: 16x32x32 float32 -> K3, 32x64x64
+                     float32 -> K5, 16x32x30 float32 -> the field path (a step
+                     there launches K6 and K7), fused=True -> the field path,
+                     float64 in 2D and 3D -> the plain path with no launch, K3
+                     forced at 32x64x64 and the field path forced in float64
+                     -> ValueError, no launch
 9. kernel_parity_big K5 (each stage) and K4 against their plain versions at
                      the big main path's shapes (1024 envs at 32x64x64); K5
                      at 8 envs beside a float64 stage and, forced, at
@@ -35,6 +38,16 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      peak device memory
 11. timing_big       K5 per stage, K4, the factored Poisson solve, the split
                      of one big-grid env step
+12. kernel_parity_field K6 (each field) and K7 against their plain versions
+                     at the per-field path's shapes (1024 envs at 16x32x32)
+                     and forced on the big grid; one env step of the field
+                     path against its plain loop and against the K3 path
+13. main_path_field  RBC3DVectorEnv(1024, fused="field"): reset, 3 steps; the
+                     same checks, launch counters K6 468 (117 per field), K7
+                     117, K4 117, K3 0, K5 0
+14. timing_field     K6 per field, K7, K4, their plain versions and bounds,
+                     the dense solve, pHY', the RK update, the split of one
+                     field-path env step
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -105,6 +118,17 @@ ENV_STEP_3D_ATOL = 5e-6
 # steps (1.5 time units) from the random IC leave it near 1. Below 0.8 or
 # above 3 the solve has gone wrong.
 NU_RANGE_3D = (0.8, 3.0)
+# K6, one field's tendency: K3's tendency gate (the flux form against the
+# plain version's, float32 rounding only). K7 does the plain version's
+# three differences in its order; FMA contraction moves the last bits of
+# terms of order 0.1-1.
+K6_ATOL = 1e-5
+K7_ATOL = 5e-6
+# One env step of the per-field path against the K3 path from the same
+# state: the same RK3 projection (each stage projected, or its correction
+# carried to the next stage), which the JAX package holds against its XLA
+# path at 5e-6 each (tests/test_pallas3d.py:30-43, :56-70).
+FIELD_VS_STAGE_ATOL = 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
 FP32_FLOPS = 67e12
@@ -116,6 +140,8 @@ SOURCES = {
     "stage_rk_3d": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
     "correct_3d": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
     "stage_rk_3d_xy": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
+    "field_tendency_3d": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
+    "div_3d": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
 }
 REPLACES = {
     "env_step_2d": "rbc_gym_tpu/ops/pallas2d.py:220",
@@ -123,14 +149,18 @@ REPLACES = {
     "stage_rk_3d": "rbc_gym_tpu/ops/pallas3d.py:597",
     "correct_3d": "rbc_gym_tpu/ops/pallas3d.py:894",
     "stage_rk_3d_xy": "rbc_gym_tpu/ops/pallas3d.py:1242",
+    "field_tendency_3d": "rbc_gym_tpu/ops/pallas3d.py:441",
+    "div_3d": "rbc_gym_tpu/ops/pallas3d.py:886",
 }
 # the gated parity error at the main path's shapes that each kernel reports
 MAIN_SHAPE_CHECK = {"env_step_2d": "env_step_2d_main", "tendencies_2d": "tendencies_2d",
                     "stage_rk_3d": "stage_rk_3d", "correct_3d": "correct_3d",
-                    "stage_rk_3d_xy": "stage_rk_3d_xy"}
+                    "stage_rk_3d_xy": "stage_rk_3d_xy", "field_tendency_3d": "field_tendency_3d",
+                    "div_3d": "div_3d"}
 WRAPPERS = {"env_step_2d": k2d.env_step_2d, "tendencies_2d": k2d.tendencies_2d,
             "stage_rk_3d": k3d.stage_rk_3d, "correct_3d": k3d.correct_3d,
-            "stage_rk_3d_xy": k3d.stage_rk_3d_xy}
+            "stage_rk_3d_xy": k3d.stage_rk_3d_xy, "field_tendency_3d": k3d.field_tendency_3d,
+            "div_3d": k3d.div_3d}
 
 
 def emit(obj) -> None:
@@ -274,6 +304,7 @@ def kernel_parity(device, k1_envs=128, main_envs=1024, state_shape=(64, 96)) -> 
 def reset_counters() -> None:
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
+    k3d.field_tendency_3d.launches_by_field = dict.fromkeys(k3d.FIELD_INPUTS, 0)
 
 
 def _sync(device: torch.device) -> None:
@@ -399,6 +430,26 @@ def correct_3d_work(n_env: int, nx: int, ny: int, nz: int) -> dict:
     return {"flops": n_env * 9 * cells, "bytes": 4 * n_env * (5 * cells + 2 * faces)}
 
 
+# FLOP per cell of K6, counted as for K3 (the same tendency code).
+_FIELD_FLOPS_PER_CELL = {"u": 90, "v": 90, "w": 87, "b": 81}
+
+
+def field_tendency_3d_work(n_env: int, nx: int, ny: int, nz: int, field: str) -> dict:
+    """FLOP and bytes of one K6 launch: u, v, w and the field's own inputs
+    (pHY' for u and v, b and bottom for b) read once, g written once."""
+    cells, faces = nx * ny * nz, nx * ny * (nz + 1)
+    words = {"u": 4 * cells + faces, "v": 4 * cells + faces, "w": 2 * cells + 2 * faces,
+             "b": 4 * cells + faces + nx * ny}[field]
+    return {"flops": n_env * _FIELD_FLOPS_PER_CELL[field] * cells, "bytes": 4 * n_env * words}
+
+
+def div_3d_work(n_env: int, nx: int, ny: int, nz: int) -> dict:
+    """u, v, w read and div written once; three differences, three
+    divisions and two sums per cell."""
+    cells, faces = nx * ny * nz, nx * ny * (nz + 1)
+    return {"flops": n_env * 8 * cells, "bytes": 4 * n_env * (3 * cells + faces)}
+
+
 def poisson_3d_flops(n_env: int, nx: int, ny: int, nz: int, factored: bool) -> int:
     """Multiply-adds of one solve as ``make_poisson_solver_3d`` does it."""
     k = nx * nz
@@ -407,15 +458,15 @@ def poisson_3d_flops(n_env: int, nx: int, ny: int, nz: int, factored: bool) -> i
 
 
 def make_case_3d(device, num_envs: int, state_shape=(16, 32, 32), seed=0, dtype=None,
-                 dt_solver=0.01):
-    """3D solver plus fields, bottom plate and the pending solve q of their
-    divergence, made by numpy from a seed."""
+                 dt_solver=0.01, fused=None):
+    """3D solver (path ``fused``) plus fields, bottom plate, pHY' and the
+    pending solve q of their divergence, made by numpy from a seed."""
     device = torch.device(device)
     dtype = dtype or working_dtype(device)
     nz, ny, nx = state_shape
     grid = Grid3D(nx=nx, ny=ny, nz=nz, lx=4 * np.pi, ly=4 * np.pi, lz=2.0)
     params = s3d.SimParams3D(dt_solver=dt_solver)
-    solver = s3d.make_solver3d(grid, params, dtype=dtype, device=device)
+    solver = s3d.make_solver3d(grid, params, dtype=dtype, device=device, fused=fused)
     rng = np.random.default_rng(seed)
     amp = 0.05
     u = amp * rng.standard_normal((num_envs, nx, ny, nz))
@@ -432,8 +483,9 @@ def make_case_3d(device, num_envs: int, state_shape=(16, 32, 32), seed=0, dtype=
 
     u, v, w, b = t(u), t(v), t(w), t(b)
     bottom = solver.heater_profile(t(actions)).contiguous()
-    q = solver.solve(k3d.to_solve_layout(k3d.divergence_3d(u, v, w, solver.coeffs)))
-    return solver, dict(u=u, v=v, w=w, b=b, bottom=bottom, q=q)
+    q = solver.solve(k3d.div_3d_plain(u, v, w, solver.coeffs))
+    p_hy = k3d.hydrostatic_pressure(b, grid.dz, params.min_b)
+    return solver, dict(u=u, v=v, w=w, b=b, bottom=bottom, q=q, p_hy=p_hy)
 
 
 def k3_run(solver, case, stage: int, g_prev, kernel: bool, wrapper=k3d.stage_rk_3d):
@@ -455,6 +507,27 @@ def env_step_3d_run(solver, case, kernel: bool):
     dts = [float(d) for d in solver.params.substep_dts()]
     u, v, w, b, q = s3d.lazy_substeps(case["u"], case["v"], case["w"], case["b"], case["bottom"],
                                       dts, solver.solve, solver.coeffs, stage_rk, correct)
+    dt_last = (k3d.RK3_GAMMA[2] + k3d.RK3_ZETA[2]) * dts[-1]
+    return u, v, w, b, k3d.from_solve_layout(q) / dt_last
+
+
+def k6_run(solver, case, field: str, kernel: bool):
+    fn = k3d.field_tendency_3d if kernel else k3d.field_tendency_3d_plain
+    return fn(field, *(case[n] for n in k3d.FIELD_INPUTS[field]), c=solver.coeffs)
+
+
+def k7_run(solver, case, kernel: bool):
+    fn = k3d.div_3d if kernel else k3d.div_3d_plain
+    return fn(case["u"], case["v"], case["w"], solver.coeffs)
+
+
+def field_step_run(solver, case, kernel: bool):
+    """One env step's per-field loop from the case's fields -> (u, v, w,
+    b, p_nhs), through the kernels or their plain versions."""
+    dts = [float(d) for d in solver.params.substep_dts()]
+    u, v, w, b, q = s3d.field_substeps(
+        case["u"], case["v"], case["w"], case["b"], case["bottom"], dts, solver.solve,
+        solver.coeffs, *(s3d.FIELD_KERNELS if kernel else s3d.FIELD_PLAIN))
     dt_last = (k3d.RK3_GAMMA[2] + k3d.RK3_ZETA[2]) * dts[-1]
     return u, v, w, b, k3d.from_solve_layout(q) / dt_last
 
@@ -521,11 +594,13 @@ def kernel_parity_3d(device, main_envs=1024, step_envs=32, state_shape=(16, 32, 
 
 
 STAGE_WRAPPERS = ("stage_rk_3d", "stage_rk_3d_xy", "correct_3d")
+FIELD_PATH_WRAPPERS = STAGE_WRAPPERS + ("field_tendency_3d", "div_3d")
 
 
-def drive_3d(env, steps: int, seed: int):
+def drive_3d(env, steps: int, seed: int, counted=STAGE_WRAPPERS):
     """The user's 3D path from zeroed counters: reset, ``steps`` env steps
-    with random (E, S, S) actions -> (state, obs, last timestep, record)."""
+    with random (E, S, S) actions -> (state, obs, last timestep, record
+    with the launches of the wrappers ``counted``)."""
     device, num_envs, s = env.device, env.num_envs, env.params.n_heaters
     rng = np.random.default_rng(seed)
     actions = [rng.uniform(-1.0, 1.0, (num_envs, s, s)) for _ in range(steps)]
@@ -539,7 +614,7 @@ def drive_3d(env, steps: int, seed: int):
         state, ts = env.step(state, a)
     _sync(device)
     steps_s = time.perf_counter() - start
-    launches = {name: WRAPPERS[name].launches for name in STAGE_WRAPPERS}
+    launches = {name: WRAPPERS[name].launches for name in counted}
     return state, obs, ts, actions, {
         "num_envs": num_envs, "steps": steps, "path": env.solver.path, "reset_s": reset_s,
         "steps_s": steps_s, "env_steps_per_s": num_envs * steps / steps_s,
@@ -676,21 +751,31 @@ def timing_3d(device, num_envs=1024, state_shape=(16, 32, 32)) -> dict:
 # ---------------------------------------------------------------------------
 
 
+ODD_NX_SHAPE = (16, 32, 30)  # nx = 30: K3's slab fits, nx % 4 != 0
+
+
 def selection(device) -> dict:
     """The rule of ``Solver3D.path`` / ``Solver2D.path`` on this device:
-    auto picks K3 on the training grid and K5 on the big grid (CUDA,
-    float32), the plain path for float64 (no kernel launch in a step);
-    forcing K3 on the big grid raises before any launch. On the CPU auto
-    is the plain path everywhere."""
+    auto picks K3 on the training grid, K5 on the big grid and the field
+    path at nx = 30 (CUDA, float32), where one env step launches K6 and
+    K7; the plain path for float64 (no kernel launch in a step);
+    ``fused=True`` is the field path; forcing K3 on the big grid, or the
+    field path in float64, raises before any launch. On the CPU auto is
+    the plain path everywhere."""
     device = torch.device(device)
     cuda = device.type == "cuda"
-    f32, f64 = working_dtype(device), torch.float64
+    f32, f64 = torch.float32, torch.float64
     paths = {}
-    for name, shape in (("training_grid", (16, 32, 32)), ("big_grid", BIG_SHAPE)):
+    for name, shape in (("training_grid", (16, 32, 32)), ("big_grid", BIG_SHAPE),
+                        ("odd_nx", ODD_NX_SHAPE)):
         env = RBC3DVectorEnv(2, state_shape=shape, dtype=f32, device=device)
         paths[name] = env.solver.path
     want = {"training_grid": "stage" if cuda else "plain",
-            "big_grid": "stage_xy" if cuda else "plain"}
+            "big_grid": "stage_xy" if cuda else "plain",
+            "odd_nx": "field" if cuda else "plain"}
+    fused_true = RBC3DVectorEnv(2, fused=True, dtype=f32, device=device).solver.path
+    if fused_true != "field":
+        raise AssertionError(f"fused=True took the {fused_true} path, not the field path")
     rng = np.random.default_rng(0)
     reset_counters()
     env = RBC3DVectorEnv(2, state_shape=(8, 16, 16), heater_duration=0.0125, dtype=f64,
@@ -715,13 +800,34 @@ def selection(device) -> dict:
         raise AssertionError("forcing K3 on the big grid did not raise")
     if "436,736" not in forced:
         raise AssertionError(f"the refusal does not name K3's shared memory: {forced}")
+    try:
+        RBC3DVectorEnv(2, fused="field", dtype=f64, device=device)
+    except ValueError as err:
+        forced_field = str(err)
+    else:
+        raise AssertionError("forcing the field path in float64 did not raise")
+    if "float32" not in forced_field:
+        raise AssertionError(f"the refusal does not name the dtype: {forced_field}")
     launches = {name: w.launches for name, w in WRAPPERS.items()}
     if paths != want:
         raise AssertionError(f"paths {paths}, expected {want}")
     if any(launches.values()):
         raise AssertionError(f"a plain or refused path launched a kernel: {launches}")
-    return {"phase": "selection", "paths": paths, "forced_stage_big_grid": forced,
-            "launches": launches}
+    # one env step where auto took the field path (2 substeps)
+    env = RBC3DVectorEnv(2, state_shape=ODD_NX_SHAPE, heater_duration=0.0125, dtype=f32,
+                         device=device)
+    state, _ = env.reset(seed=0)
+    state, _ = env.step(state, rng.uniform(-1.0, 1.0, (2, 8, 8)))
+    _sync(device)
+    if not all(bool(torch.isfinite(t).all()) for t in state.fields):
+        raise AssertionError("the odd-nx step is not finite")
+    odd = {name: WRAPPERS[name].launches - launches[name] for name in FIELD_PATH_WRAPPERS}
+    n_stages = 3 * len(env.params.substep_dts())
+    expect_launches(device, odd, {"stage_rk_3d": 0, "stage_rk_3d_xy": 0, "correct_3d": n_stages,
+                                  "field_tendency_3d": 4 * n_stages, "div_3d": n_stages})
+    return {"phase": "selection", "paths": paths, "fused_true": fused_true,
+            "forced_stage_big_grid": forced, "forced_field_float64": forced_field,
+            "launches": launches, "odd_nx_step_launches": odd}
 
 
 def kernel_parity_big(device, main_envs=1024, big_envs=8, small_envs=256, step_envs=4,
@@ -833,6 +939,134 @@ def timing_big(device, num_envs=1024, state_shape=BIG_SHAPE, plain_envs=1024) ->
 
 
 # ---------------------------------------------------------------------------
+# 3D: the per-field path (fused="field") on the training grid, K6 and K7
+# ---------------------------------------------------------------------------
+
+
+def kernel_parity_field(device, main_envs=1024, step_envs=32, big_envs=128,
+                        state_shape=(16, 32, 32), big_shape=BIG_SHAPE) -> dict:
+    """K6 for each field and K7 against their plain versions at the field
+    path's shapes (``main_envs``) and, forced, on the big grid
+    (``big_envs``); one env step of the field path's kernels against its
+    plain loop, and against the lazy loop of the solver's own path (K3 on
+    the card) from the same state, at ``step_envs`` and ``main_envs``."""
+    start = time.perf_counter()
+    errs, by_field = {}, {}
+    for prefix, n_env, shape, seed, dt_solver in (
+        ("", main_envs, state_shape, 11, 0.01),
+        ("big_", big_envs, big_shape, 12, BIG_DT_SOLVER),
+    ):
+        solver, case = make_case_3d(device, n_env, shape, seed=seed, dt_solver=dt_solver)
+        for field in "uvwb":
+            got, want = k6_run(solver, case, field, True), k6_run(solver, case, field, False)
+            by_field[f"{prefix}g{field}"] = abs_diffs(["g"], [got], [want])["g"]
+            errs[f"{prefix}g{field}"] = (by_field[f"{prefix}g{field}"], K6_ATOL)
+        errs[f"{prefix}div"] = (abs_diffs(["div"], [k7_run(solver, case, True)],
+                                          [k7_run(solver, case, False)])["div"], K7_ATOL)
+        del case
+    steps = {}
+    for n_env in sorted({step_envs, main_envs}):
+        solver, case = make_case_3d(device, n_env, state_shape, seed=13)
+        kern = field_step_run(solver, case, True)
+        steps[n_env] = {
+            "stage_path": solver.path,
+            "kernel_vs_plain": abs_diffs(ENV3_OUT, kern, field_step_run(solver, case, False)),
+            "field_vs_stage_path": abs_diffs(ENV3_OUT, kern, env_step_3d_run(solver, case, True))}
+        errs[f"env_step_{n_env}"] = (max(steps[n_env]["kernel_vs_plain"].values()),
+                                     ENV_STEP_3D_ATOL)
+        errs[f"field_vs_stage_path_{n_env}"] = (
+            max(steps[n_env]["field_vs_stage_path"].values()), FIELD_VS_STAGE_ATOL)
+    failed = {k: v for k, v in errs.items() if not v[0] <= v[1]}
+    if failed:
+        raise AssertionError(f"field-path kernel parity failed (error, atol): {failed}")
+    max_err = {"field_tendency_3d": max(errs[f"g{f}"][0] for f in "uvwb"),
+               "div_3d": errs["div"][0]}
+    return {"phase": "kernel_parity_field", "num_envs": main_envs, "big_envs": big_envs,
+            "max_abs_err": max_err,
+            "gated": {k: {"error": e, "atol": a} for k, (e, a) in errs.items()},
+            "env_step": {str(k): v for k, v in steps.items()},
+            "seconds": time.perf_counter() - start}
+
+
+def main_path_field(device, num_envs=1024, state_shape=(16, 32, 32), heater_duration=0.125,
+                    steps=3, seed=0) -> dict:
+    """The per-field path through the user's entry point:
+    ``RBC3DVectorEnv(num_envs, fused="field")``, reset and ``steps`` env
+    steps. The path is forced, so it runs in float32 on any device."""
+    device = torch.device(device)
+    env = RBC3DVectorEnv(num_envs, state_shape=state_shape, heater_duration=heater_duration,
+                         fused="field", dtype=torch.float32, device=device)
+    state, obs, ts, _, rec = drive_3d(env, steps, seed, FIELD_PATH_WRAPPERS)
+    checks = check_3d(env, state, obs, ts)
+    n_stages = steps * 3 * len(env.params.substep_dts())
+    by_field = dict(k3d.field_tendency_3d.launches_by_field)
+    expect_launches(device, {**rec["launches"], **by_field},
+                    {"stage_rk_3d": 0, "stage_rk_3d_xy": 0, "correct_3d": n_stages,
+                     "field_tendency_3d": 4 * n_stages, "div_3d": n_stages,
+                     **dict.fromkeys(k3d.FIELD_INPUTS, n_stages)})
+    return {"phase": "main_path_field", **rec, **checks,
+            "field_tendency_3d_launches_by_field": by_field}
+
+
+def timing_field(device, num_envs=1024, state_shape=(16, 32, 32)) -> dict:
+    """CUDA-event times at the field path's shapes: K6 per field, K7, K4,
+    their plain versions and bounds, the dense solve, pHY', the RK update
+    of one stage, and one field-path env step split into them. Launches
+    here are not the main path's."""
+    begin = time.perf_counter()
+    nz, ny, nx = state_shape
+    solver, case = make_case_3d(device, num_envs, state_shape, seed=14, fused="field")
+    out = {}
+    for field in "uvwb":
+        work = field_tendency_3d_work(num_envs, nx, ny, nz, field)
+        bound_ms, bound_by = bound(work)
+        out[f"field_tendency_3d.{field}"] = {
+            "ms": _cuda_ms(lambda: k6_run(solver, case, field, True), 20),
+            "plain_ms": _cuda_ms(lambda: k6_run(solver, case, field, False), 3),
+            "bound_ms": bound_ms, "bound_by": bound_by, **work}
+    # K6 per stage: one launch per field; its record is the mean launch
+    fields = [out[f"field_tendency_3d.{f}"] for f in "uvwb"]
+    out["field_tendency_3d"] = {
+        **{k: sum(r[k] for r in fields) / 4 for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": fields[0]["bound_by"]}
+    for name, run, work in (("div_3d", k7_run, div_3d_work(num_envs, nx, ny, nz)),
+                            ("correct_3d", k4_run, correct_3d_work(num_envs, nx, ny, nz))):
+        bound_ms, bound_by = bound(work)
+        out[name] = {"ms": _cuda_ms(lambda: run(solver, case, True), 20),
+                     "plain_ms": _cuda_ms(lambda: run(solver, case, False), 3),
+                     "bound_ms": bound_ms, "bound_by": bound_by, **work}
+    c = solver.coeffs
+    g = [k6_run(solver, case, f, True) for f in "uvwb"]
+    f4 = [case[n] for n in "uvwb"]
+    dt = float(solver.params.substep_dts()[0])
+    gamma, zeta = k3d.RK3_GAMMA[1], k3d.RK3_ZETA[1]
+    parts = {
+        "poisson_dense_ms": _cuda_ms(lambda: solver.solve(case["q"]), 10),
+        "p_hy_ms": _cuda_ms(lambda: k3d.hydrostatic_pressure(case["b"], c.dz, c.min_b), 20),
+        "rk_update_stage0_ms": _cuda_ms(
+            lambda: [f + dt * gamma * gf for f, gf in zip(f4, g)], 20),
+        "rk_update_stage12_ms": _cuda_ms(
+            lambda: [f + dt * (gamma * gf + zeta * gp) for f, gf, gp in zip(f4, g, g)], 20)}
+    zeros = torch.zeros_like(case["u"])
+    f = s3d.Fields3D(case["u"], case["v"], case["w"], case["b"], zeros, zeros)
+    actions = torch.zeros((num_envs, 8, 8), dtype=zeros.dtype, device=zeros.device)
+    step_ms = _cuda_ms(lambda: solver.env_step(f, actions), 3)
+    n_sub = len(solver.params.substep_dts())
+    n_stages = 3 * n_sub
+    split = {"env_step_ms": step_ms,
+             "field_tendency_3d_ms": n_stages * sum(r["ms"] for r in fields),
+             "div_3d_ms": n_stages * out["div_3d"]["ms"],
+             "poisson_ms": n_stages * parts["poisson_dense_ms"],
+             "correct_3d_ms": n_stages * out["correct_3d"]["ms"],
+             "rk_update_ms": n_sub * (parts["rk_update_stage0_ms"]
+                                      + 2 * parts["rk_update_stage12_ms"]),
+             "p_hy_ms": (n_stages + 1) * parts["p_hy_ms"]}
+    split["rest_ms"] = step_ms - sum(v for k, v in split.items() if k != "env_step_ms")
+    return {"phase": "timing_field", "num_envs": num_envs, "path": solver.path, "kernels": out,
+            "parts": parts, "env_step_split": split, "seconds": time.perf_counter() - begin}
+
+
+# ---------------------------------------------------------------------------
 # Records
 # ---------------------------------------------------------------------------
 
@@ -884,18 +1118,28 @@ def main() -> int:
     emit({**path_big, "card": card})
     times_big = timing_big(device)
     emit({**times_big, "card": card})
-    # each kernel's launches from the main path that is its own (K4 runs in
-    # both 3D paths; its count is the training grid's, its error the larger
-    # of the two grids')
+    parity_field = kernel_parity_field(device)
+    emit(parity_field)
+    path_field = main_path_field(device)
+    emit({**path_field, "card": card})
+    times_field = timing_field(device)
+    emit({**times_field, "card": card})
+    # each kernel's launches from the main path that is its own (K4 runs on
+    # every 3D path; its count is the training grid's lazy path, its error
+    # the larger of the two grids')
     errors = {**parity["max_abs_err"], **parity_3d["max_abs_err"],
-              "stage_rk_3d_xy": parity_big["max_abs_err"]["stage_rk_3d_xy"]}
+              "stage_rk_3d_xy": parity_big["max_abs_err"]["stage_rk_3d_xy"],
+              **parity_field["max_abs_err"]}
     errors["correct_3d"] = max(errors["correct_3d"], parity_big["max_abs_err"]["correct_3d"])
+    field_names = ("field_tendency_3d", "div_3d")
     emit({"kernels": kernel_records(
         errors,
         {**path["launches"], **path_3d["launches"],
-         "stage_rk_3d_xy": path_big["launches"]["stage_rk_3d_xy"]},
+         "stage_rk_3d_xy": path_big["launches"]["stage_rk_3d_xy"],
+         **{k: path_field["launches"][k] for k in field_names}},
         {**times["kernels"], **times_3d["kernels"],
-         "stage_rk_3d_xy": times_big["kernels"]["stage_rk_3d_xy"]})})
+         "stage_rk_3d_xy": times_big["kernels"]["stage_rk_3d_xy"],
+         **{k: times_field["kernels"][k] for k in field_names}})})
     emit({"phase": "total", "seconds": time.perf_counter() - wall})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

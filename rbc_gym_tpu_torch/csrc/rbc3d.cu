@@ -62,8 +62,37 @@
 // K4 correct_3d_kernel replaces ops/pallas3d.py:_correct_kernel (reached
 // from make_projection_glue_3d, pl.pallas_call at :959): u -= ddx q,
 // v -= ddy q, w -= ddz q at interior faces, once per env step after the
-// last stage. Bound: bytes (u, v, w, q in; u, v, w out). Design: one thread
-// per w point, which also does the u and v point of the same cell.
+// last stage of the lazy loop, and after every stage of the per-field path.
+// Bound: bytes (u, v, w, q in; u, v, w out). Design: one thread per w
+// point, which also does the u and v point of the same cell.
+//
+// K6 field_tendency_3d_kernel replaces ops/pallas3d.py:_field_stage_kernel
+// (reached from make_field_stage_3d, pl.pallas_call at :1694): one field's
+// UB5 tendency (u, v, w or b; four launches a stage) of the per-field path,
+// without the RK update, which runs in PyTorch as it runs in XLA there.
+//   Bound: bytes. It reads u, v, w and the field's own input (pHY' for u
+//   and v, b and bottom for b) and writes g: about 330 KB per env at
+//   16x32x32 against some 90 FLOP per point.
+//   Design: one thread per output point in the public batch-major layout
+//   (z fastest, so a warp reads and writes runs of consecutive z), reading
+//   its taps straight from global memory, where L1 and L2 catch the reuse
+//   of neighbouring threads. The tendency code is K3's: GlobalField is a
+//   third slab type for the same templates, which wraps x and y
+//   periodically. So K6 computes the flux form (C6 - |v| D5/60) where the
+//   Pallas kernel selects a one-sided UB5 stencil by the sign of the
+//   velocity; the two are the same reconstruction and differ in float32
+//   rounding only (pallas3d.py:185-186). No shared memory, so no grid is
+//   too large for a block; offsets are 64-bit. The Pallas kernel's env
+//   slabs (e_blk lanes) have no counterpart. Plain float32 loads and FP32
+//   FMA; staging tiles in shared memory is later work.
+//
+// K7 div_3d_kernel replaces ops/pallas3d.py:_div_kernel (reached from
+// make_projection_glue_3d, pl.pallas_call at :947): the staggered
+// div(u, v, w) at cell centers, once a stage on the per-field path.
+// Bound: bytes (u, v, w in, div out). Design: one thread per output point,
+// written straight into the solve layout (E, ny, nx, nz) that the Poisson
+// solve reads, as K3 and K5 emit theirs; the reads of u and v are runs of
+// nz consecutive floats.
 #include <cuda_runtime.h>
 
 #include "ub5.cuh"
@@ -118,8 +147,27 @@ struct SlabXY {
   }
 };
 
-// The tendencies below take either slab type: x is never wrapped inside a
-// slab, y goes through the slab's yp/ym/flux_y.
+// One env's field (nx, ny, nk) in global memory, the public layout (K6):
+// x and y wrap periodically (taps reach 3 points past either end, so
+// nx, ny >= 3).
+struct GlobalField {
+  const float* p;
+  int nx, ny, nk;
+  __device__ __forceinline__ const float* col(int x, int y) const {
+    return p + ((size_t)wrap_x(x, nx) * ny + wrap_x(y, ny)) * nk;
+  }
+  __device__ __forceinline__ float operator()(int x, int y, int k) const {
+    return col(x, y)[k];
+  }
+  __device__ __forceinline__ int yp(int j) const { return wrap_x(j + 1, ny); }
+  __device__ __forceinline__ int ym(int j) const { return wrap_x(j - 1, ny); }
+  __device__ __forceinline__ float flux_y(int x, int j, int k, int m, float vel) const {
+    return uw_flux_periodic(col(x, 0) + k, nk, ny, j, m, vel);
+  }
+};
+
+// The tendencies below take any of the three slab types: x wraps only in a
+// GlobalField, y goes through the slab's yp/ym/flux_y.
 
 // vel * UB5 reconstruction along x (non-periodic inside the slab) at
 // column i + m, taps i + m + off for off in -3..2.
@@ -553,6 +601,63 @@ correct_3d_kernel(const float* __restrict__ u, const float* __restrict__ v,
   w_out[p] = (k == 0 || k == nz) ? w[p] : w[p] - (qr[x * nz + k] - qr[x * nz + k - 1]) / dz;
 }
 
+enum FieldIndex { kFieldU = 0, kFieldV = 1, kFieldW = 2, kFieldB = 3 };
+
+// aux is pHY' for u and v and b for b; bottom is read for b only.
+template <int kField>
+__global__ void __launch_bounds__(kThreads)
+field_tendency_3d_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                         const float* __restrict__ w, const float* __restrict__ aux,
+                         const float* __restrict__ bottom, float* __restrict__ g,
+                         int n_env, RBC3DParams P) {
+  const int nx = P.nx, ny = P.ny, nz = P.nz;
+  const int nk = kField == kFieldW ? nz + 1 : nz;
+  const size_t n = (size_t)n_env * nx * ny * nk;
+  const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  const int k = p % nk;
+  size_t t = p / nk;
+  const int j = t % ny;
+  t /= ny;
+  const int i = t % nx;
+  const size_t e = t / nx;
+  const size_t cells = (size_t)nx * ny * nz, faces = (size_t)nx * ny * (nz + 1);
+  const GlobalField U{u + e * cells, nx, ny, nz}, V{v + e * cells, nx, ny, nz},
+      W{w + e * faces, nx, ny, nz + 1};
+  float out;
+  if constexpr (kField == kFieldU) {
+    out = tendency_u(U, V, W, GlobalField{aux + e * cells, nx, ny, nz}, i, j, k, P);
+  } else if constexpr (kField == kFieldV) {
+    out = tendency_v(U, V, W, GlobalField{aux + e * cells, nx, ny, nz}, i, j, k, P);
+  } else if constexpr (kField == kFieldW) {
+    out = tendency_w(U, V, W, i, j, k, P);
+  } else {
+    out = tendency_b(U, V, W, GlobalField{aux + e * cells, nx, ny, nz},
+                     bottom[(e * nx + i) * ny + j], i, j, k, P);
+  }
+  g[p] = out;
+}
+
+__global__ void __launch_bounds__(kThreads)
+div_3d_kernel(const float* __restrict__ u, const float* __restrict__ v,
+              const float* __restrict__ w, float* __restrict__ div_out, int n_env, int nx,
+              int ny, int nz, float dx, float dy, float dz) {
+  const size_t n = (size_t)n_env * ny * nx * nz;
+  const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  const int k = p % nz;
+  size_t t = p / nz;
+  const int x = t % nx;
+  t /= nx;
+  const int y = t % ny;
+  const size_t e = t / ny;
+  const size_t c = ((e * nx + x) * ny + y) * nz + k;
+  const float u_ip = u[((e * nx + wrap_x(x + 1, nx)) * ny + y) * nz + k];
+  const float v_jp = v[((e * nx + x) * ny + wrap_x(y + 1, ny)) * nz + k];
+  const float* wc = w + ((e * nx + x) * ny + y) * (nz + 1);
+  div_out[p] = (u_ip - u[c]) / dx + (v_jp - v[c]) / dy + (wc[k + 1] - wc[k]) / dz;
+}
+
 }  // namespace
 
 extern "C" {
@@ -615,6 +720,34 @@ int launch_correct_3d(const float* u, const float* v, const float* w, const floa
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   correct_3d_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       u, v, w, q, u_out, v_out, w_out, n_env, nx, ny, nz, dx, dy, dz);
+  return (int)cudaGetLastError();
+}
+
+int launch_field_tendency_3d(int field, const float* u, const float* v, const float* w,
+                             const float* aux, const float* bottom, float* g, int n_env,
+                             int nx, int ny, int nz, float dx, float dy, float dz, float nu,
+                             float kappa, float min_b, void* stream) {
+  if (field < kFieldU || field > kFieldB || nx < 3 || ny < 3 || nz < 2 ||
+      (aux == nullptr) != (field == kFieldW) || (bottom != nullptr) != (field == kFieldB)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const RBC3DParams P{nx, ny, nz, dx, dy, dz, nu, kappa, min_b};
+  const size_t n = (size_t)n_env * nx * ny * (field == kFieldW ? nz + 1 : nz);
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  auto* kernel = field == kFieldU   ? field_tendency_3d_kernel<kFieldU>
+                 : field == kFieldV ? field_tendency_3d_kernel<kFieldV>
+                 : field == kFieldW ? field_tendency_3d_kernel<kFieldW>
+                                    : field_tendency_3d_kernel<kFieldB>;
+  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(u, v, w, aux, bottom, g, n_env, P);
+  return (int)cudaGetLastError();
+}
+
+int launch_div_3d(const float* u, const float* v, const float* w, float* div_out, int n_env,
+                  int nx, int ny, int nz, float dx, float dy, float dz, void* stream) {
+  const size_t n = (size_t)n_env * ny * nx * nz;
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  div_3d_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(u, v, w, div_out, n_env, nx,
+                                                                ny, nz, dx, dy, dz);
   return (int)cudaGetLastError();
 }
 

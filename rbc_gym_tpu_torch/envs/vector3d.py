@@ -77,8 +77,11 @@ class RBC3DVectorEnv:
         (ROADMAP A.2): ``checkpoint`` must be None, these two keep their
         defaults, and initial conditions are the solver's random ones.
 
-        ``fused`` picks the solver's stage function (``Solver3D.path``, see
-        ``sim.solver3d.select_stage_path``). ``poisson_precision`` counts
+        ``fused`` picks the solver's loop and kernels (``Solver3D.path``, see
+        ``sim.solver3d.select_stage_path``): None for auto, False for plain
+        PyTorch, "stage" (K3), "stage_xy" (K5) or "field" (the per-field
+        path, K6 and K7; True is its alias). Auto takes "field" on CUDA in
+        float32 where K3's slab fits and nx % 4 != 0. ``poisson_precision`` counts
         the TPU matrix unit's passes in the JAX package; the port's solve
         runs in full float32 (TF32 off), so only None is accepted."""
         if poisson_precision is not None:

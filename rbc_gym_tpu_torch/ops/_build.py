@@ -77,6 +77,21 @@ ARGTYPES = {
         _F, _F, _F,  # dx, dy, dz
         _P,  # stream
     ],
+    "launch_field_tendency_3d": [
+        _I,  # field: 0 u, 1 v, 2 w, 3 b
+        _P, _P, _P, _P, _P,  # u, v, w, aux (pHY' or b; NULL for w), bottom (b only)
+        _P,  # g
+        _I, _I, _I, _I,  # n_env, nx, ny, nz
+        _F, _F, _F, _F, _F, _F,  # dx, dy, dz, nu, kappa, min_b
+        _P,  # stream
+    ],
+    "launch_div_3d": [
+        _P, _P, _P,  # u, v, w
+        _P,  # div_out
+        _I, _I, _I, _I,  # n_env, nx, ny, nz
+        _F, _F, _F,  # dx, dy, dz
+        _P,  # stream
+    ],
 }
 
 

@@ -1,21 +1,24 @@
-"""The 3D stage kernels: wrappers, their plain PyTorch versions, counters.
+"""The 3D kernels: wrappers, their plain PyTorch versions, counters.
 
 ``stage_rk_3d`` replaces ``rbc_gym_tpu/ops/pallas3d.py:_stage_rk_kernel``
 (one whole RK3 stage of the lazy-projection loop on x-blocked whole-y
 slabs), ``stage_rk_3d_xy`` replaces ``_stage_rk_kernel_xy`` (the same
 stage on (x, y)-blocked slabs, for grids whose whole-y slab does not fit a
-block's shared memory) and ``correct_3d`` replaces ``_correct_kernel``
-(the velocity correction u -= grad q). The kernels are CUDA C++ in
-``csrc/rbc3d.cu``; the source says what bounds each on an H100 and what
-its design does about it. A wrapper launches its kernel for CUDA tensors
-(float32, contiguous) and raises on anything else; it takes its plain
-version only for tensors on the CPU. Each wrapper counts its launches in
-``<wrapper>.launches``.
+block's shared memory), ``correct_3d`` replaces ``_correct_kernel`` (the
+velocity correction u -= grad q), ``field_tendency_3d`` replaces
+``_field_stage_kernel`` (one field's tendency, of the per-field path) and
+``div_3d`` replaces ``_div_kernel`` (the staggered divergence). The
+kernels are CUDA C++ in ``csrc/rbc3d.cu``; the source says what bounds
+each on an H100 and what its design does about it. A wrapper launches its
+kernel for CUDA tensors (float32, contiguous) and raises on anything else;
+it takes its plain version only for tensors on the CPU. Each wrapper
+counts its launches in ``<wrapper>.launches``.
 
-Layouts: the fields u, v, b (E, nx, ny, nz) and w (E, nx, ny, nz + 1) are
-in the public batch-major layout, bottom is (E, nx, ny). The divergence a
-stage emits and the Poisson solve ``q`` it reads are in the solve layout
-(E, ny, nx, nz) of ``ops/poisson.make_poisson_solver_3d``.
+Layouts: the fields u, v, b, pHY' (E, nx, ny, nz) and w (E, nx, ny,
+nz + 1) are in the public batch-major layout, bottom is (E, nx, ny). The
+divergence that a stage or ``div_3d`` emits and the Poisson solve ``q``
+that a stage or ``correct_3d`` reads are in the solve layout (E, ny, nx,
+nz) of ``ops/poisson.make_poisson_solver_3d``.
 
 Lazy projection (the JAX package's contract, pallas3d.py:597-660): a stage
 takes the UNPROJECTED fields of the previous stage and ``q``, the solve of
@@ -23,7 +26,10 @@ their unscaled divergence; it corrects u, v, w by grad q (the solve is
 linear, so dt_stage cancels), computes pHY' from b, the four UB5
 tendencies g, the RK update f* = f + dt (gamma g + zeta g_prev) and the
 divergence of the updated fields. Stage 0 reads no g_prev (zeta = 0) and
-stage 2 emits no g (the next substep's stage 0 does not read it).
+stage 2 emits no g (the next substep's stage 0 does not read it). The
+per-field path computes the same stage from K6's tendencies, with the RK
+update, pHY' and the solve in PyTorch between the launches, and projects
+each stage right away (``sim/solver3d.field_substeps``).
 
 The plain versions are the JAX package's XLA path written in PyTorch
 (``solver3d.tendencies_bm``); they run on any device, so a test can hold
@@ -78,6 +84,56 @@ def from_solve_layout(q: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _lap_h(q: torch.Tensor, c: Coeffs3D) -> torch.Tensor:
+    return st.d2x_periodic(q, c.dx, X) + st.d2x_periodic(q, c.dy, Y)
+
+
+def tendency_u_plain(u, v, w, p_hy, c: Coeffs3D) -> torch.Tensor:
+    """gu at (fx, cy, cz): UB5 flux-form advection, -d(pHY')/dx, nu Laplacian
+    with no-slip value ghosts."""
+    u_cx = st.interp_f2c_x(u, X)
+    adv = st.ddx_c2f(u_cx * st.recon_f2c_periodic(u, u_cx, X), c.dx, X)
+    v_fxfy = st.interp_c2f_x(v, X)
+    adv = adv + st.ddx_f2c(v_fxfy * st.recon_c2f_periodic(u, v_fxfy, Y), c.dy, Y)
+    w_fx = st.interp_c2f_x(w, X)  # wall faces stay 0
+    adv = adv + st.ddz_f2c(w_fx * st.recon_c2f_z_fused(u, w_fx, Z), c.dz, Z)
+    return (-adv - st.ddx_c2f(p_hy, c.dx, X)
+            + c.nu * (_lap_h(u, c) + st.d2z_center_value_bc(u, c.dz, 0.0, 0.0, Z)))
+
+
+def tendency_v_plain(u, v, w, p_hy, c: Coeffs3D) -> torch.Tensor:
+    """gv at (cx, fy, cz)."""
+    u_fxfy = st.interp_c2f_x(u, Y)
+    adv = st.ddx_f2c(u_fxfy * st.recon_c2f_periodic(v, u_fxfy, X), c.dx, X)
+    v_cy = st.interp_f2c_x(v, Y)
+    adv = adv + st.ddx_c2f(v_cy * st.recon_f2c_periodic(v, v_cy, Y), c.dy, Y)
+    w_fy = st.interp_c2f_x(w, Y)
+    adv = adv + st.ddz_f2c(w_fy * st.recon_c2f_z_fused(v, w_fy, Z), c.dz, Z)
+    return (-adv - st.ddx_c2f(p_hy, c.dy, Y)
+            + c.nu * (_lap_h(v, c) + st.d2z_center_value_bc(v, c.dz, 0.0, 0.0, Z)))
+
+
+def tendency_w_plain(u, v, w, c: Coeffs3D) -> torch.Tensor:
+    """gw at (cx, cy, fz), zero on the wall faces; buoyancy is absorbed
+    into pHY'."""
+    u_fz = st.interp_c2f_z_interior(u, Z)
+    adv = st.ddx_f2c(u_fz * st.recon_c2f_periodic(w, u_fz, X), c.dx, X)
+    v_fz = st.interp_c2f_z_interior(v, Z)
+    adv = adv + st.ddx_f2c(v_fz * st.recon_c2f_periodic(w, v_fz, Y), c.dy, Y)
+    w_cz = st.interp_f2c_z(w, Z)
+    adv = adv + st.ddz_c2f_interior(w_cz * st.recon_f2c_z_fused(w, w_cz, Z), c.dz, Z)
+    return st.zero_z_walls(-adv + c.nu * (_lap_h(w, c) + st.d2z_face_interior(w, c.dz, Z)), Z)
+
+
+def tendency_b_plain(u, v, w, b, bottom, c: Coeffs3D) -> torch.Tensor:
+    """gb at centers: value ghosts ``bottom`` below and min_b above."""
+    adv = st.ddx_f2c(u * st.recon_c2f_periodic(b, u, X), c.dx, X)
+    adv = adv + st.ddx_f2c(v * st.recon_c2f_periodic(b, v, Y), c.dy, Y)
+    adv = adv + st.ddz_f2c(w * st.recon_c2f_z_fused(b, w, Z), c.dz, Z)
+    return -adv + c.kappa * (_lap_h(b, c)
+                             + st.d2z_center_value_bc(b, c.dz, bottom, c.min_b, Z))
+
+
 def tendencies_3d_plain(
     u: torch.Tensor,
     v: torch.Tensor,
@@ -88,51 +144,40 @@ def tendencies_3d_plain(
     c: Coeffs3D,
 ) -> Tensors4:
     """gu, gv, gw, gb: UB5 flux-form advection, diffusion, pHY' gradient."""
-    dx, dy, dz = c.dx, c.dy, c.dz
+    return (tendency_u_plain(u, v, w, p_hy, c), tendency_v_plain(u, v, w, p_hy, c),
+            tendency_w_plain(u, v, w, c), tendency_b_plain(u, v, w, b, bottom, c))
 
-    def lap_h(q):
-        return st.d2x_periodic(q, dx, X) + st.d2x_periodic(q, dy, Y)
 
-    # ---- u at (fx, cy, cz) -------------------------------------------------
-    u_cx = st.interp_f2c_x(u, X)
-    adv = st.ddx_c2f(u_cx * st.recon_f2c_periodic(u, u_cx, X), dx, X)
-    v_fxfy = st.interp_c2f_x(v, X)
-    adv = adv + st.ddx_f2c(v_fxfy * st.recon_c2f_periodic(u, v_fxfy, Y), dy, Y)
-    w_fx = st.interp_c2f_x(w, X)  # wall faces stay 0
-    adv = adv + st.ddz_f2c(w_fx * st.recon_c2f_z_fused(u, w_fx, Z), dz, Z)
-    gu = (-adv - st.ddx_c2f(p_hy, dx, X)
-          + c.nu * (lap_h(u) + st.d2z_center_value_bc(u, dz, 0.0, 0.0, Z)))
+# The inputs of each field's tendency, in the order of the JAX package's
+# make_field_stage_3d (pallas3d.py:1631-1637), and its plain version.
+FIELD_INPUTS = {"u": ("u", "v", "w", "p_hy"), "v": ("u", "v", "w", "p_hy"),
+                "w": ("u", "v", "w"), "b": ("u", "v", "w", "b", "bottom")}
+_FIELD_PLAIN = {"u": tendency_u_plain, "v": tendency_v_plain, "w": tendency_w_plain,
+                "b": tendency_b_plain}
 
-    # ---- v at (cx, fy, cz) -------------------------------------------------
-    u_fxfy = st.interp_c2f_x(u, Y)
-    adv = st.ddx_f2c(u_fxfy * st.recon_c2f_periodic(v, u_fxfy, X), dx, X)
-    v_cy = st.interp_f2c_x(v, Y)
-    adv = adv + st.ddx_c2f(v_cy * st.recon_f2c_periodic(v, v_cy, Y), dy, Y)
-    w_fy = st.interp_c2f_x(w, Y)
-    adv = adv + st.ddz_f2c(w_fy * st.recon_c2f_z_fused(v, w_fy, Z), dz, Z)
-    gv = (-adv - st.ddx_c2f(p_hy, dy, Y)
-          + c.nu * (lap_h(v) + st.d2z_center_value_bc(v, dz, 0.0, 0.0, Z)))
 
-    # ---- w at (cx, cy, fz); buoyancy absorbed into pHY' --------------------
-    u_fz = st.interp_c2f_z_interior(u, Z)
-    adv = st.ddx_f2c(u_fz * st.recon_c2f_periodic(w, u_fz, X), dx, X)
-    v_fz = st.interp_c2f_z_interior(v, Z)
-    adv = adv + st.ddx_f2c(v_fz * st.recon_c2f_periodic(w, v_fz, Y), dy, Y)
-    w_cz = st.interp_f2c_z(w, Z)
-    adv = adv + st.ddz_c2f_interior(w_cz * st.recon_f2c_z_fused(w, w_cz, Z), dz, Z)
-    gw = st.zero_z_walls(-adv + c.nu * (lap_h(w) + st.d2z_face_interior(w, dz, Z)), Z)
+def _check_field_args(field: str, arrays) -> None:
+    if field not in FIELD_INPUTS:
+        raise ValueError(f"field must be one of {tuple(FIELD_INPUTS)}, got {field!r}")
+    if len(arrays) != len(FIELD_INPUTS[field]):
+        raise ValueError(f"the {field} tendency takes {', '.join(FIELD_INPUTS[field])}; "
+                         f"got {len(arrays)} arrays")
 
-    # ---- buoyancy tracer ---------------------------------------------------
-    adv = st.ddx_f2c(u * st.recon_c2f_periodic(b, u, X), dx, X)
-    adv = adv + st.ddx_f2c(v * st.recon_c2f_periodic(b, v, Y), dy, Y)
-    adv = adv + st.ddz_f2c(w * st.recon_c2f_z_fused(b, w, Z), dz, Z)
-    gb = -adv + c.kappa * (lap_h(b) + st.d2z_center_value_bc(b, dz, bottom, c.min_b, Z))
-    return gu, gv, gw, gb
+
+def field_tendency_3d_plain(field: str, *arrays: torch.Tensor, c: Coeffs3D) -> torch.Tensor:
+    """One field's tendency from the inputs ``FIELD_INPUTS[field]``."""
+    _check_field_args(field, arrays)
+    return _FIELD_PLAIN[field](*arrays, c)
 
 
 def divergence_3d(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor, c: Coeffs3D) -> torch.Tensor:
     """Staggered div(u, v, w) at cell centers, public layout."""
     return st.ddx_f2c(u, c.dx, X) + st.ddx_f2c(v, c.dy, Y) + st.ddz_f2c(w, c.dz, Z)
+
+
+def div_3d_plain(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor, c: Coeffs3D) -> torch.Tensor:
+    """``divergence_3d`` in the solve layout (E, ny, nx, nz), as K7 emits it."""
+    return to_solve_layout(divergence_3d(u, v, w, c))
 
 
 def correct_3d_plain(
@@ -168,8 +213,7 @@ def stage_rk_3d_plain(
         new = [f + dt * gamma * gf for f, gf in zip((u, v, w, b), g)]
     else:
         new = [f + dt * (gamma * gf + zeta * gp) for f, gf, gp in zip((u, v, w, b), g, g_prev)]
-    div = to_solve_layout(divergence_3d(new[0], new[1], new[2], c))
-    return (*new, div, g if stage < 2 else None)
+    return (*new, div_3d_plain(new[0], new[1], new[2], c), g if stage < 2 else None)
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +225,11 @@ def _shapes(u: torch.Tensor) -> Tuple[int, int, int, int]:
     if u.ndim != 4:
         raise ValueError(f"fields must be batch-major (E, nx, ny, nz), got {tuple(u.shape)}")
     return tuple(u.shape)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    """A tensor's device address for ctypes; NULL for None."""
+    return None if t is None else t.data_ptr()
 
 
 def _launch_stage(name: str, u, v, w, b, q, bottom, c: Coeffs3D, dt: float, stage: int,
@@ -198,15 +247,11 @@ def _launch_stage(name: str, u, v, w, b, q, bottom, c: Coeffs3D, dt: float, stag
     g = [torch.empty_like(t) for t in (u, v, w, b)] if stage < 2 else None
     gp = g_prev if g_prev is not None else (None,) * 4
     go = g if g is not None else (None,) * 4
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     lib = _build.load_library()
     with torch.cuda.device(u.device):
         err = getattr(lib, "launch_" + name)(
             *(t.data_ptr() for t in (u, v, w, b, q, bottom)),
-            *map(ptr, gp), *(t.data_ptr() for t in outs), *map(ptr, go),
+            *map(_ptr, gp), *(t.data_ptr() for t in outs), *map(_ptr, go),
             e, nx, ny, nz, stage, dt, RK3_GAMMA[stage], RK3_ZETA[stage],
             c.dx, c.dy, c.dz, c.nu, c.kappa, c.min_b,
             torch.cuda.current_stream(u.device).cuda_stream,
@@ -277,3 +322,58 @@ def correct_3d(
 
 
 correct_3d.launches = 0
+
+
+def field_tendency_3d(field: str, *arrays: torch.Tensor, c: Coeffs3D) -> torch.Tensor:
+    """One field's tendency from ``FIELD_INPUTS[field]``: K6 for CUDA
+    tensors. Counts its launches in ``.launches`` and, per field, in
+    ``.launches_by_field``."""
+    _check_field_args(field, arrays)
+    if arrays[0].device.type == "cpu":
+        return field_tendency_3d_plain(field, *arrays, c=c)
+    e, nx, ny, nz = _shapes(arrays[0])
+    cells, faces = (e, nx, ny, nz), (e, nx, ny, nz + 1)
+    named = dict(zip(FIELD_INPUTS[field], arrays))
+    _check_cuda(named, dict(u=cells, v=cells, w=faces, p_hy=cells, b=cells, bottom=(e, nx, ny)))
+    g = torch.empty(faces if field == "w" else cells, dtype=torch.float32,
+                    device=arrays[0].device)
+    # the fourth input: pHY' for u and v, b for b; bottom for b only
+    aux = named.get("p_hy", named.get("b"))
+    lib = _build.load_library()
+    with torch.cuda.device(g.device):
+        err = lib.launch_field_tendency_3d(
+            "uvwb".index(field), *map(_ptr, (named["u"], named["v"], named["w"], aux,
+                                             named.get("bottom"), g)),
+            e, nx, ny, nz, c.dx, c.dy, c.dz, c.nu, c.kappa, c.min_b,
+            torch.cuda.current_stream(g.device).cuda_stream,
+        )
+    _raise_on(err, "field_tendency_3d")
+    field_tendency_3d.launches += 1
+    field_tendency_3d.launches_by_field[field] += 1
+    return g
+
+
+field_tendency_3d.launches = 0
+field_tendency_3d.launches_by_field = dict.fromkeys(FIELD_INPUTS, 0)
+
+
+def div_3d(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor, c: Coeffs3D) -> torch.Tensor:
+    """div(u, v, w) in the solve layout: K7 for CUDA tensors."""
+    if u.device.type == "cpu":
+        return div_3d_plain(u, v, w, c)
+    e, nx, ny, nz = _shapes(u)
+    _check_cuda(dict(u=u, v=v, w=w),
+                dict(u=(e, nx, ny, nz), v=(e, nx, ny, nz), w=(e, nx, ny, nz + 1)))
+    out = torch.empty((e, ny, nx, nz), dtype=torch.float32, device=u.device)
+    lib = _build.load_library()
+    with torch.cuda.device(u.device):
+        err = lib.launch_div_3d(
+            *(t.data_ptr() for t in (u, v, w, out)), e, nx, ny, nz, c.dx, c.dy, c.dz,
+            torch.cuda.current_stream(u.device).cuda_stream,
+        )
+    _raise_on(err, "div_3d")
+    div_3d.launches += 1
+    return out
+
+
+div_3d.launches = 0

@@ -12,16 +12,23 @@ Public layout (batch..., nx, ny, nz[+1]):
   u (x-face, y-center, z-center), v (x-center, y-face, z-center),
   w (x-center, y-center, z-face), b and pressures at centers.
 
-``env_step`` runs the lazy-projection loop of the JAX package's stage
-paths: per substep three stage launches with a Poisson solve after each,
-the pending (unscaled) solve ``q`` carried between stages; one
-correction at the end of the env step; pHY' and p_nhs = q / dt_stage
-recovered once. ``select_stage_path`` picks, once per solver, which stage
-function the loop runs (``Solver3D.path``): K3 ``stage_rk_3d``, K5
-``stage_rk_3d_xy`` (both with K4 ``correct_3d``, all in
-``csrc/rbc3d.cu``) or the plain versions. For CPU tensors a kernel
-wrapper runs its plain version. ``substep`` is the plain eager substep of
-the JAX package's ``substep_bm``, which reaches no kernel there either.
+``env_step`` runs one of two substep loops of the JAX package, picked
+once per solver by ``select_stage_path`` (``Solver3D.path``):
+- the lazy-projection loop of its stage paths (``lazy_substeps``): per
+  substep three stage launches with a Poisson solve after each, the
+  pending (unscaled) solve ``q`` carried between stages; one correction
+  at the end of the env step; pHY' and p_nhs = q / dt_stage recovered
+  once. The stage function is K3 ``stage_rk_3d`` ("stage") or K5
+  ``stage_rk_3d_xy`` ("stage_xy"), with K4 ``correct_3d``, or their
+  plain versions ("plain");
+- the per-field loop of its ``fused="field"`` path (``field_substeps``,
+  "field"): each stage computes pHY', the four tendencies (K6
+  ``field_tendency_3d``), the RK update, the divergence (K7 ``div_3d``),
+  its solve and the correction (K4), so every stage is projected.
+All kernels are in ``csrc/rbc3d.cu``; for CPU tensors a kernel wrapper
+runs its plain version. ``substep`` is one substep of the per-field loop
+through the plain versions: the JAX package's eager ``substep_bm``, which
+reaches no kernel there either.
 """
 
 from __future__ import annotations
@@ -38,7 +45,11 @@ from rbc_gym_tpu_torch.ops.kernels3d import (
     Coeffs3D,
     correct_3d,
     correct_3d_plain,
+    div_3d,
+    div_3d_plain,
     divergence_3d,
+    field_tendency_3d,
+    field_tendency_3d_plain,
     from_solve_layout,
     stage_rk_3d,
     stage_rk_3d_plain,
@@ -117,7 +128,7 @@ class Solver3D(NamedTuple):
     params: SimParams3D
     dtype: torch.dtype
     device: torch.device
-    path: str  # the stage function of env_step: "stage", "stage_xy" or "plain"
+    path: str  # env_step's loop and kernels: "stage", "stage_xy", "field" or "plain"
     coeffs: Coeffs3D
     solve: Callable  # solve-layout rhs (E, ny, nx, nz) -> p
     init_random: Callable  # (generator, batch_shape) -> Fields3D
@@ -133,26 +144,35 @@ class Solver3D(NamedTuple):
 DIVERGENCE_ATOL = {torch.float64: 1e-8, torch.float32: 5e-4}
 
 
-# The stage and correction functions of each path.
+# The stage and correction functions of each lazy-loop path.
 STAGE_PATHS = {
     "stage": (stage_rk_3d, correct_3d),
     "stage_xy": (stage_rk_3d_xy, correct_3d),
     "plain": (stage_rk_3d_plain, correct_3d_plain),
 }
+# The tendency, divergence and correction functions of the per-field loop:
+# the kernels, and their plain versions.
+FIELD_KERNELS = (field_tendency_3d, div_3d, correct_3d)
+FIELD_PLAIN = (field_tendency_3d_plain, div_3d_plain, correct_3d_plain)
 # fused= values of the JAX package that the port refuses, with the reason.
 REFUSED_FUSED = {
-    "field": "the per-field tendency kernels are not ported yet (ROADMAP B.2)",
     "stage_qp": "not carried over (PERF.md section 6: K3's emit_rhat option)",
     "stage_ew": "not carried over (PERF.md section 6: K3's element_windows option)",
 }
+KERNEL_PATHS = ("stage", "stage_xy", "field")
 
 
 def stage_kernel_limit(kernel: str, dtype: torch.dtype, nx: int, ny: int, nz: int):
-    """Why stage kernel ``kernel`` ("stage" for K3, "stage_xy" for K5)
-    cannot take this configuration, or None if it can: the checks of its
-    launcher in ``csrc/rbc3d.cu`` and the card's shared memory per block."""
+    """Why the kernels of path ``kernel`` ("stage" for K3, "stage_xy" for
+    K5, "field" for K6 and K7) cannot take this configuration, or None if
+    they can: the checks of the launchers in ``csrc/rbc3d.cu`` and the
+    card's shared memory per block."""
     if dtype != torch.float32:
         return f"the {kernel} kernel takes float32, not {dtype}"
+    if kernel == "field":  # no shared memory; taps wrap 3 points in x and y
+        if nx < 3 or ny < 3 or nz < 2:
+            return f"the field kernels need nx, ny >= 3 and nz >= 2 (nx={nx}, ny={ny}, nz={nz})"
+        return None
     if nx % X_BLK or nz < 2:
         return f"the {kernel} kernel needs nx % {X_BLK} == 0 and nz >= 2 (nx={nx}, nz={nz})"
     if kernel == "stage":
@@ -171,41 +191,35 @@ def stage_kernel_limit(kernel: str, dtype: torch.dtype, nx: int, ny: int, nz: in
 
 def select_stage_path(dtype: torch.dtype, nx: int, ny: int, nz: int, device_type: str,
                       fused=None) -> str:
-    """The stage function ``env_step`` runs: "stage" (K3), "stage_xy" (K5)
-    or "plain", from the dtype and the grid only.
+    """The loop and kernels ``env_step`` runs: "stage" (K3), "stage_xy"
+    (K5), "field" (K6 and K7) or "plain", from the dtype and the grid only.
 
     Auto (``fused=None``) follows the JAX package's rule
     (rbc_gym_tpu/sim/solver3d.py:323-350) with the card's limit, 232,448
     bytes of shared memory per block, in place of the TPU's VMEM rule.
     On CUDA in float32: where K3's whole-y slab fits a block, K3 if
-    nx % 4 == 0 and otherwise the JAX package's per-field path, which is
-    not ported yet (ROADMAP B.2) and raises ``NotImplementedError``; where
-    it does not fit, K5 if nx % 4 == 0 and ny % 8 == 0, raising
-    ``NotImplementedError`` if K5's own slabs do not fit either; otherwise
-    the plain path, as the JAX package takes its XLA path there. float64
-    and the CPU take the plain path, as the JAX package does.
-    ``fused=False`` is the plain path; "stage" or "stage_xy" forces that
-    kernel and raises ``ValueError``, naming the limit, if the
-    configuration cannot take it (on the CPU its wrapper then runs the
-    plain version). "field" and True (the JAX package's alias of "field")
-    are not ported yet, "stage_qp" and "stage_ew" not carried over: each
-    is refused by name.
+    nx % 4 == 0 and otherwise the per-field path; where it does not fit,
+    K5 if nx % 4 == 0 and ny % 8 == 0, raising ``NotImplementedError`` if
+    K5's own slabs do not fit either; otherwise the plain path, as the JAX
+    package takes its XLA path there. float64 and the CPU take the plain
+    path, as the JAX package does. ``fused=False`` is the plain path;
+    "stage", "stage_xy" or "field" (True is the JAX package's alias of
+    "field") forces that path and raises ``ValueError``, naming the limit,
+    if its kernels cannot take the configuration (on the CPU the wrappers
+    then run their plain versions). "stage_qp" and "stage_ew" are not
+    carried over and are refused by name.
     """
     if fused is False:
         return "plain"
-    refused = "field" if fused is True else fused
-    if refused in REFUSED_FUSED:
-        error = NotImplementedError if refused == "field" else ValueError
-        raise error(f"fused={fused!r}: {REFUSED_FUSED[refused]}")
+    if fused is True:
+        fused = "field"
+    if fused in REFUSED_FUSED:
+        raise ValueError(f"fused={fused!r}: {REFUSED_FUSED[fused]}")
     if fused is None:
         if device_type != "cuda" or dtype != torch.float32:
             return "plain"
         if stage_smem_bytes(ny, nz) <= SMEM_PER_BLOCK:
-            if nx % X_BLK:
-                raise NotImplementedError(
-                    f"nx={nx} is not a multiple of {X_BLK}: the JAX package runs its "
-                    f"per-field kernels here, {REFUSED_FUSED['field']}")
-            want = "stage"
+            want = "stage" if nx % X_BLK == 0 else "field"
         elif nx % X_BLK == 0 and ny % Y_BLK == 0:
             want = "stage_xy"
         else:
@@ -215,8 +229,9 @@ def select_stage_path(dtype: torch.dtype, nx: int, ny: int, nz: int, device_type
             raise NotImplementedError(
                 f"the JAX package runs its {want} kernel here, and {limit}")
         return want
-    if fused not in ("stage", "stage_xy"):
-        raise ValueError(f"unknown fused={fused!r}: None, False, 'stage' or 'stage_xy'")
+    if fused not in KERNEL_PATHS:
+        raise ValueError(f"unknown fused={fused!r}: None, False, True, "
+                         + ", ".join(map(repr, KERNEL_PATHS)))
     limit = stage_kernel_limit(fused, dtype, nx, ny, nz)
     if limit is not None:
         raise ValueError(f"fused={fused!r} cannot be forced here: {limit}")
@@ -258,6 +273,47 @@ def lazy_substeps(
     return u, v, w, b, q
 
 
+def field_substeps(
+    u: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    bottom: torch.Tensor,
+    dts: Sequence[float],
+    solve: Callable,
+    c: Coeffs3D,
+    tend: Callable,
+    div: Callable,
+    correct: Callable,
+):
+    """The per-field substep loop of one env step on (E, ...) fields
+    (the JAX package's ``substep_bm_fused``) -> (u, v, w, b, q), q the
+    last stage's unscaled solve in the solve layout, which the last
+    correction has already applied.
+
+    Each stage: pHY' from b, the four tendencies, the RK update, the
+    divergence, its solve and the correction. ``tend``, ``div`` and
+    ``correct`` are ``FIELD_KERNELS`` or ``FIELD_PLAIN``."""
+    q = None
+    for dt in dts:
+        dt = float(dt)
+        g_prev = None
+        for m in range(3):
+            gamma, zeta = RK3_GAMMA[m], RK3_ZETA[m]
+            p_hy = hydrostatic_pressure(b, c.dz, c.min_b)
+            g = (tend("u", u, v, w, p_hy, c=c), tend("v", u, v, w, p_hy, c=c),
+                 tend("w", u, v, w, c=c), tend("b", u, v, w, b, bottom, c=c))
+            if m == 0:
+                u, v, w, b = (f + dt * gamma * gf for f, gf in zip((u, v, w, b), g))
+            else:
+                u, v, w, b = (f + dt * (gamma * gf + zeta * gp)
+                              for f, gf, gp in zip((u, v, w, b), g, g_prev))
+            g_prev = g
+            q = solve(div(u, v, w, c))
+            u, v, w = correct(u, v, w, q, c)
+    return u, v, w, b, q
+
+
 def make_solver3d(
     grid: Grid3D,
     params: SimParams3D,
@@ -265,15 +321,14 @@ def make_solver3d(
     device: str | torch.device | None = "cuda",
     fused: bool | str | None = None,
 ) -> Solver3D:
-    """Build the 3D solver bundle on ``device``. ``fused`` picks the stage
-    function (``select_stage_path``); the Poisson solve takes the JAX
-    package's form for the grid (dense below nx * nz = 1024)."""
+    """Build the 3D solver bundle on ``device``. ``fused`` picks the loop
+    and its kernels (``select_stage_path``); the Poisson solve takes the
+    JAX package's form for the grid (dense below nx * nz = 1024)."""
     if abs(grid.lz - params.lz) > 1e-12:
         params = dataclasses.replace(params, lz=grid.lz)
     device = default_device(device)
     nx, ny, nz = grid.nx, grid.ny, grid.nz
     path = select_stage_path(dtype, nx, ny, nz, device.type, fused)
-    stage_rk, correct = STAGE_PATHS[path]
     min_b = params.min_b
     coeffs = Coeffs3D(grid.dx, grid.dy, grid.dz, params.nu, params.kappa, min_b)
     solve = make_poisson_solver_3d(nx, ny, nz, grid.dx, grid.dy, grid.dz, dtype, device)
@@ -301,9 +356,13 @@ def make_solver3d(
         """Advance one env step; action is the raw (..., S, S) agent action."""
         batch = f.u.shape[:-3]
         g = flat(f)
-        u, v, w, b, q = lazy_substeps(g.u, g.v, g.w, g.b,
-                                      flat_bottom(heater_profile(action), batch),
-                                      dts, solve, coeffs, stage_rk, correct)
+        bottom = flat_bottom(heater_profile(action), batch)
+        if path == "field":
+            u, v, w, b, q = field_substeps(g.u, g.v, g.w, g.b, bottom, dts, solve, coeffs,
+                                           *FIELD_KERNELS)
+        else:
+            u, v, w, b, q = lazy_substeps(g.u, g.v, g.w, g.b, bottom, dts, solve, coeffs,
+                                          *STAGE_PATHS[path])
         out = Fields3D(u, v, w, b, hydrostatic_pressure(b, grid.dz, min_b),
                        from_solve_layout(q) / dt_last)
         return unflat(out, batch)
@@ -314,24 +373,9 @@ def make_solver3d(
         batch = f.u.shape[:-3]
         g = flat(f)
         bot = flat_bottom(torch.as_tensor(bottom, dtype=dtype, device=device), batch)
-        u, v, w, b = g.u, g.v, g.w, g.b
-        p_nhs, g_prev = g.p_nhs, None
-        for m in range(3):
-            gamma, zeta = RK3_GAMMA[m], RK3_ZETA[m]
-            gs = tendencies_3d_plain(u, v, w, b, hydrostatic_pressure(b, grid.dz, min_b),
-                                     bot, coeffs)
-            if m == 0:
-                u, v, w, b = (q + dt * gamma * gq for q, gq in zip((u, v, w, b), gs))
-            else:
-                u, v, w, b = (q + dt * (gamma * gq + zeta * gp)
-                              for q, gq, gp in zip((u, v, w, b), gs, g_prev))
-            g_prev = gs
-            dt_stage = (gamma + zeta) * dt
-            div = divergence_3d(u, v, w, coeffs)
-            p_nhs = from_solve_layout(solve(to_solve_layout(div / dt_stage)))
-            u = u - dt_stage * st.ddx_c2f(p_nhs, grid.dx, X)
-            v = v - dt_stage * st.ddx_c2f(p_nhs, grid.dy, Y)
-            w = w - dt_stage * st.ddz_c2f_interior(p_nhs, grid.dz, Z)
+        u, v, w, b, q = field_substeps(g.u, g.v, g.w, g.b, bot, [dt], solve, coeffs,
+                                       *FIELD_PLAIN)
+        p_nhs = from_solve_layout(q) / ((RK3_GAMMA[2] + RK3_ZETA[2]) * float(dt))
         out = Fields3D(u, v, w, b, hydrostatic_pressure(b, grid.dz, min_b), p_nhs)
         return unflat(out, batch)
 

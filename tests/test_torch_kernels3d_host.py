@@ -1,11 +1,12 @@
-"""K3, K4 and K5's CUDA source, compiled for the host and held against the
+"""K3 to K7's CUDA source, compiled for the host and held against the
 plain versions, on the CPU.
 
 The card is needed to run the kernels as built. Their arithmetic and
 indexing, though, can run here: the kernels walk their points in strided
 loops separated by block-wide barriers, so one thread per block, run
 block after block, executes every phase of ``csrc/rbc3d.cu`` to its end
-before the next begins, as the card does. A small header stands in for
+before the next begins, as the card does; the one-thread-per-point
+kernels (K4, K6, K7) run point after point. A small header stands in for
 the CUDA keywords; the C launchers (which need nvcc) are cut off. The
 gates are the smoke's on-card ones (``chip_smoke.py``): the emulation
 differs from the plain versions in float32 rounding only.
@@ -62,6 +63,34 @@ int main(int argc, char** argv) {
   if (std::string(argv[1]) == "smem") {  // smem NY NZ: the launchers' floats
     printf("%zu %zu\n", stage_smem_floats(atoi(argv[2]), atoi(argv[3])),
            stage_xy_smem_floats(atoi(argv[3])));
+    return 0;
+  }
+  if (std::string(argv[1]) == "field") {  // field DIR E NX NY NZ DX DY DZ NU KAPPA MIN_B
+    dir = argv[2];
+    const int E = atoi(argv[3]), nx = atoi(argv[4]), ny = atoi(argv[5]), nz = atoi(argv[6]);
+    const RBC3DParams P{nx, ny, nz, (float)atof(argv[7]), (float)atof(argv[8]),
+                        (float)atof(argv[9]), (float)atof(argv[10]), (float)atof(argv[11]),
+                        (float)atof(argv[12])};
+    const size_t C = (size_t)E * nx * ny * nz, F = (size_t)E * nx * ny * (nz + 1);
+    auto u = rd("u", C), v = rd("v", C), w = rd("w", F), b = rd("b", C), p_hy = rd("p_hy", C);
+    auto bottom = rd("bottom", (size_t)E * nx * ny);
+    std::vector<float> g[4] = {std::vector<float>(C), std::vector<float>(C),
+                               std::vector<float>(F), std::vector<float>(C)};
+    std::vector<float> div(C);
+    blockDim.x = 1;
+    for (size_t p = 0; p < F; ++p) {
+      blockIdx.x = (unsigned)p;
+      field_tendency_3d_kernel<kFieldU>(u.data(), v.data(), w.data(), p_hy.data(), nullptr,
+                                        g[0].data(), E, P);
+      field_tendency_3d_kernel<kFieldV>(u.data(), v.data(), w.data(), p_hy.data(), nullptr,
+                                        g[1].data(), E, P);
+      field_tendency_3d_kernel<kFieldW>(u.data(), v.data(), w.data(), nullptr, nullptr,
+                                        g[2].data(), E, P);
+      field_tendency_3d_kernel<kFieldB>(u.data(), v.data(), w.data(), b.data(), bottom.data(),
+                                        g[3].data(), E, P);
+      div_3d_kernel(u.data(), v.data(), w.data(), div.data(), E, nx, ny, nz, P.dx, P.dy, P.dz);
+    }
+    wr("gu", g[0]); wr("gv", g[1]); wr("gw", g[2]); wr("gb", g[3]); wr("div", div);
     return 0;
   }
   dir = argv[1];
@@ -210,3 +239,33 @@ def test_smem_formulas_match_the_launchers(host_binary, ny, nz):
                          capture_output=True, text=True).stdout.split()
     assert [4 * int(n) for n in out] == [limits.stage_smem_bytes(ny, nz),
                                          limits.stage_xy_smem_bytes(nz)]
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 6, 8, 8),  # odd nx / 2: the grids where auto takes the field path
+    (1, 32, 32, 16),  # the training grid
+    (1, 3, 5, 4),  # the smallest nx the field kernels take; the z ladder meets
+])
+def test_host_build_of_k6_and_k7_matches_plain(host_binary, tmp_path, shape):
+    """K6 for each field and K7 against ``field_tendency_3d_plain`` and
+    ``div_3d_plain`` at the smoke's gates."""
+    e, nx, ny, nz = shape
+    case = _case(*shape, seed=1)
+    case["p_hy"] = k3.hydrostatic_pressure(torch.as_tensor(case["b"]), 2.0 / nz, 1.0).numpy()
+    for name, a in case.items():
+        a.astype(np.float32).tofile(tmp_path / name)
+    c = k3.Coeffs3D(4 * np.pi / nx, 4 * np.pi / ny, 2.0 / nz, float(np.sqrt(0.7 / 2500)),
+                    float(1 / np.sqrt(0.7 * 2500)), 1.0)
+    subprocess.run([str(host_binary), "field", f"{tmp_path}/", *map(str, shape),
+                    *(repr(float(x)) for x in c)], check=True)
+    t = {n: torch.as_tensor(a, dtype=torch.float32) for n, a in case.items()}
+    for field in "uvwb":
+        want = k3.field_tendency_3d_plain(field, *(t[n] for n in k3.FIELD_INPUTS[field]), c=c)
+        got = np.fromfile(tmp_path / f"g{field}", np.float32).reshape(want.shape)
+        np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=chip_smoke.K6_ATOL,
+                                   err_msg=f"g{field}")
+        if field == "w":
+            assert np.all(got[..., 0] == 0) and np.all(got[..., -1] == 0)
+    want = k3.div_3d_plain(t["u"], t["v"], t["w"], c)
+    got = np.fromfile(tmp_path / "div", np.float32).reshape(want.shape)
+    np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=chip_smoke.K7_ATOL)

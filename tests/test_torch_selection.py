@@ -31,6 +31,9 @@ BIG = (64, 64, 32)  # the 32x64x64 big grid
     (F64, BIG, "cuda", "plain"),
     (F32, (64, 60, 32), "cuda", "plain"),  # K3 too large, ny % 8 != 0: JAX's XLA path
     (F32, (66, 64, 32), "cuda", "plain"),  # K3 too large, nx % 4 != 0: the same
+    # K3's slab fits but nx % 4 != 0: the JAX package's per-field path
+    (F32, (6, 32, 16), "cuda", "field"),
+    (F32, (30, 16, 8), "cuda", "field"),
     (F32, (6, 32, 16), "cpu", "plain"),
     (F32, TRAINING, "cpu", "plain"),
     (F32, BIG, "cpu", "plain"),
@@ -40,9 +43,6 @@ def test_auto_selection(dtype, shape, device_type, want):
 
 
 @pytest.mark.parametrize("shape,message", [
-    # K3's slab fits but nx % 4 != 0: the JAX package's per-field kernels
-    ((6, 32, 16), "per-field kernels.*B.2"),
-    ((30, 16, 8), "per-field kernels.*B.2"),
     # K3 too large, K5's constraints hold but its slabs need 248,880 bytes
     ((64, 64, 80), "stage_xy kernel needs 248,880 bytes.*232,448"),
 ])
@@ -58,6 +58,9 @@ def test_auto_selection_raises_where_only_the_jax_package_has_a_kernel(shape, me
     ("stage", TRAINING, "stage"),
     ("stage_xy", BIG, "stage_xy"),
     ("stage_xy", TRAINING, "stage_xy"),  # ny = 32: four y blocks
+    ("field", TRAINING, "field"),
+    (True, TRAINING, "field"),  # the JAX package maps True to "field"
+    ("field", BIG, "field"),  # K6 and K7 use no shared memory
     (False, TRAINING, "plain"),
     (False, BIG, "plain"),
 ])
@@ -73,6 +76,9 @@ def test_forced_selection_that_fits(fused, shape, want, device_type):
     ("stage_xy", F32, (64, 60, 32), "ny % 8 == 0"),
     ("stage_xy", F32, (64, 64, 80), "248,880 bytes"),
     ("stage_xy", F64, BIG, "float32"),
+    ("field", F64, TRAINING, "float32, not torch.float64"),
+    (True, F64, (6, 32, 16), "float32, not torch.float64"),
+    ("field", F32, (2, 32, 16), "nx, ny >= 3"),
 ])
 def test_forced_selection_that_cannot_fit_raises(fused, dtype, shape, message):
     for device_type in ("cuda", "cpu"):
@@ -83,8 +89,6 @@ def test_forced_selection_that_cannot_fit_raises(fused, dtype, shape, message):
 
 
 @pytest.mark.parametrize("fused,error,reason", [
-    ("field", NotImplementedError, "B.2"),
-    (True, NotImplementedError, "B.2"),  # the JAX package maps True to "field"
     ("stage_qp", ValueError, "not carried over"),
     ("stage_ew", ValueError, "not carried over"),
     ("stage_x", ValueError, "unknown fused"),

@@ -85,12 +85,14 @@ def test_smoke_phases_run_on_cpu_plain_halves():
     json.dumps(path)
 
     fake = {"ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5, "bound_by": "bytes"}
-    names = ("env_step_2d", "tendencies_2d", "stage_rk_3d", "correct_3d", "stage_rk_3d_xy")
+    names = ("env_step_2d", "tendencies_2d", "stage_rk_3d", "correct_3d", "stage_rk_3d_xy",
+             "field_tendency_3d", "div_3d")
     records = chip_smoke.kernel_records(
         {"env_step_2d": 1e-7, "env_step_2d_main": 2e-7, "tendencies_2d": 1e-8,
-         "stage_rk_3d": 3e-7, "correct_3d": 1e-8, "stage_rk_3d_xy": 4e-7},
+         "stage_rk_3d": 3e-7, "correct_3d": 1e-8, "stage_rk_3d_xy": 4e-7,
+         "field_tendency_3d": 5e-7, "div_3d": 6e-8},
         {"env_step_2d": 3, "tendencies_2d": 3, "stage_rk_3d": 117, "correct_3d": 3,
-         "stage_rk_3d_xy": 225},
+         "stage_rk_3d_xy": 225, "field_tendency_3d": 468, "div_3d": 117},
         {name: fake for name in names},
     )
     assert [rec["name"] for rec in records] == list(names)
@@ -153,6 +155,47 @@ def test_smoke_big_grid_phases_run_on_cpu_plain_halves():
     lo, hi = chip_smoke.NU_RANGE_3D
     assert lo <= path["nusselt"][0] <= path["nusselt"][1] <= hi
     json.dumps(path)
+
+
+def test_smoke_field_phases_run_on_cpu_plain_halves():
+    """The field path's phases at a reduced grid with odd nx: on the CPU
+    both halves of every comparison are the plain versions, and the lazy
+    plain loop does the field loop's operations in the same order, so all
+    agree exactly; the main path is the user's ``fused="field"`` env."""
+    tiny = dict(state_shape=(8, 8, 6))
+    parity = chip_smoke.kernel_parity_field("cpu", main_envs=2, step_envs=1, big_envs=1,
+                                            big_shape=(8, 16, 16), **tiny)
+    assert all(v["error"] == 0.0 for v in parity["gated"].values())
+    assert {"gu", "gv", "gw", "gb", "div", "big_gb", "big_div", "env_step_1", "env_step_2",
+            "field_vs_stage_path_2"} <= set(parity["gated"])
+    assert parity["max_abs_err"] == {"field_tendency_3d": 0.0, "div_3d": 0.0}
+    json.dumps(parity)
+    path = chip_smoke.main_path_field("cpu", num_envs=2, heater_duration=0.0125, steps=2, **tiny)
+    assert path["path"] == "field" and not any(path["launches"].values())
+    assert set(path["launches"]) == {"stage_rk_3d", "stage_rk_3d_xy", "correct_3d",
+                                     "field_tendency_3d", "div_3d"}
+    assert path["max_abs_div"] < path["div_atol"]
+    lo, hi = chip_smoke.NU_RANGE_3D
+    assert lo <= path["nusselt"][0] <= path["nusselt"][1] <= hi
+    json.dumps(path)
+    sel = chip_smoke.selection("cpu")
+    assert sel["fused_true"] == "field" and sel["paths"]["odd_nx"] == "plain"
+    assert "float32" in sel["forced_field_float64"]
+    assert not any(sel["odd_nx_step_launches"].values())
+
+
+def test_field_bounds():
+    """K6 and K7 at 1024 envs on 16x32x32 move more bytes than their FLOP
+    hide: 339,738,624 bytes for gu and gv, 276,824,064 for gw, 343,932,928
+    for gb and 272,629,760 for div."""
+    works = {f: chip_smoke.field_tendency_3d_work(1024, 32, 32, 16, f) for f in "uvwb"}
+    assert [works[f]["bytes"] for f in "uvwb"] == [339_738_624, 339_738_624, 276_824_064,
+                                                   343_932_928]
+    div = chip_smoke.div_3d_work(1024, 32, 32, 16)
+    assert div["bytes"] == 272_629_760
+    bounds = [chip_smoke.bound(w) for w in (*works.values(), div)]
+    assert all(by == "bytes" for _, by in bounds)
+    assert [round(ms, 4) for ms, _ in bounds] == [0.1014, 0.1014, 0.0826, 0.1027, 0.0814]
 
 
 def test_bounds_at_main_path_shapes():

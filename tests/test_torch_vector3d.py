@@ -183,7 +183,9 @@ def test_checkpoint_banks_are_not_ported_yet():
 def test_stage_xy_env_steps_and_refuses_unported_options():
     """The K5 path forced on the CPU (its wrapper runs the plain version):
     steps, leaves its input state alone, equals the plain path; the JAX
-    env's ``fused`` values that are not ported, and any
+    env's ``fused="field"`` and its alias True take the field path in
+    float32 and are refused in float64; its
+    ``fused`` values that are not carried over, and any
     ``poisson_precision`` but None, are refused by name."""
     env = RBC3DVectorEnv(2, state_shape=(8, 16, 16), heater_duration=0.0125,
                          episode_length=0.15, fused="stage_xy", device="cpu")
@@ -200,9 +202,12 @@ def test_stage_xy_env_steps_and_refuses_unported_options():
     ref, ref_ts = plain.step(state, actions)
     assert all(torch.equal(a, b) for a, b in zip(nxt.fields, ref.fields))
     assert torch.equal(ts.reward, ref_ts.reward) and bool(torch.isfinite(ts.obs).all())
-    for fused, error in (("field", NotImplementedError), (True, NotImplementedError),
-                         ("stage_qp", ValueError), ("stage_ew", ValueError)):
-        with pytest.raises(error, match=repr(fused)):
+    for fused in ("field", True):  # float32 only, as the JAX package's field kernels
+        assert RBC3DVectorEnv(2, **CFG, fused=fused, device="cpu").solver.path == "field"
+        with pytest.raises(ValueError, match="float32"):
+            _env(2, fused=fused)
+    for fused in ("stage_qp", "stage_ew"):
+        with pytest.raises(ValueError, match=repr(fused)):
             _env(2, fused=fused)
     with pytest.raises(ValueError, match="poisson_precision"):
         _env(2, poisson_precision="bf16x3")
