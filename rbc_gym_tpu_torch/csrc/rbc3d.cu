@@ -444,6 +444,7 @@ size_t stage_xy_smem_floats(int nz) {
          (size_t)(kXBlk + 6) * (kYBlk + 6) * (nz + 1);
 }
 
+template <int NZ>
 __global__ void __launch_bounds__(kThreads, 2)
 stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
                       const float* __restrict__ w_in, const float* __restrict__ b_in,
@@ -454,7 +455,7 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
                       float* gw_out, float* gb_out, float dt, float gamma, float zeta,
                       RBC3DParams P) {
   extern __shared__ float smem[];
-  const int nx = P.nx, ny = P.ny, nz = P.nz;
+  const int nx = P.nx, ny = P.ny, nz = NZ > 0 ? NZ : P.nz;
   const int S = ny * nz, SW = ny * (nz + 1);
   const int nxb = nx / kXBlk, nyb = ny / kYBlk;
   const size_t e = blockIdx.x / (nxb * nyb);
@@ -702,12 +703,14 @@ int launch_stage_rk_3d_xy(const float* u, const float* v, const float* w, const 
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = sizeof(float) * stage_xy_smem_floats(nz);
+  auto* kernel = nz == 32 ? stage_rk_3d_xy_kernel<32>
+                 : nz == 16 ? stage_rk_3d_xy_kernel<16> : stage_rk_3d_xy_kernel<0>;
   cudaError_t err = cudaFuncSetAttribute(
-      stage_rk_3d_xy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const RBC3DParams P{nx, ny, nz, dx, dy, dz, nu, kappa, min_b};
   const unsigned blocks = (unsigned)n_env * (nx / kXBlk) * (ny / kYBlk);
-  stage_rk_3d_xy_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       u, v, w, b, q, bottom, gu_prev, gv_prev, gw_prev, gb_prev, u_out, v_out, w_out,
       b_out, div_out, gu, gv, gw, gb, dt, gamma, zeta, P);
   return (int)cudaGetLastError();

@@ -117,7 +117,7 @@ int main(int argc, char** argv) {
   const unsigned n_blk = E * (nx / kXBlk) * (xy ? ny / kYBlk : 1);
   for (unsigned blk = 0; blk < n_blk; ++blk) {
     blockIdx.x = blk;
-    (xy ? stage_rk_3d_xy_kernel : stage_rk_3d_kernel)(
+    (xy ? stage_rk_3d_xy_kernel<0> : stage_rk_3d_kernel)(
         u.data(), v.data(), w.data(), b.data(), q.data(), bottom.data(), prev(0), prev(1),
         prev(2), prev(3), out[0].data(), out[1].data(), out[2].data(), out[3].data(),
         out[4].data(), emit(0), emit(1), emit(2), emit(3), dt, gamma, zeta, P);
