@@ -106,7 +106,16 @@ constexpr int kYBlk = 8;  // y rows a K5 block owns
 struct RBC3DParams {
   int nx, ny, nz;
   float dx, dy, dz, nu, kappa, min_b;
+  float idx, idy, idz, idx2, idy2, idz2;
 };
+
+inline RBC3DParams params3d(int nx, int ny, int nz, float dx, float dy, float dz, float nu,
+                            float kappa, float min_b) {
+  return RBC3DParams{nx, ny, nz, dx, dy, dz, nu, kappa, min_b,
+                     (float)(1.0 / dx), (float)(1.0 / dy), (float)(1.0 / dz),
+                     (float)(1.0 / ((double)dx * dx)), (float)(1.0 / ((double)dy * dy)),
+                     (float)(1.0 / ((double)dz * dz))};
+}
 
 // An x-extended slab in shared memory that holds all of periodic y (K3):
 // columns x = lo, lo + 1, ... (x relative to the block's first column),
@@ -182,8 +191,8 @@ template <class S>
 __device__ __forceinline__ float lap_h(const S& q, int i, int j, int k, float c,
                                        const RBC3DParams& P) {
   const int jm = q.ym(j), jp = q.yp(j);
-  return (q(i + 1, j, k) - 2.0f * c + q(i - 1, j, k)) / (P.dx * P.dx) +
-         (q(i, jp, k) - 2.0f * c + q(i, jm, k)) / (P.dy * P.dy);
+  return (q(i + 1, j, k) - 2.0f * c + q(i - 1, j, k)) * P.idx2 +
+         (q(i, jp, k) - 2.0f * c + q(i, jm, k)) * P.idy2;
 }
 
 // gu at (x-face i, y-center j, z-center k).
@@ -193,19 +202,19 @@ __device__ float tendency_u(const S& U, const S& V, const S& W, const S& PH,
   const int nz = P.nz, jp = U.yp(j);
   const float uc_i = 0.5f * (U(i, j, k) + U(i + 1, j, k));
   const float uc_im = 0.5f * (U(i - 1, j, k) + U(i, j, k));
-  float adv = (flux_x(U, i, j, k, 1, uc_i) - flux_x(U, i - 1, j, k, 1, uc_im)) / P.dx;
+  float adv = (flux_x(U, i, j, k, 1, uc_i) - flux_x(U, i - 1, j, k, 1, uc_im)) * P.idx;
   const float vf_j = 0.5f * (V(i - 1, j, k) + V(i, j, k));
   const float vf_jp = 0.5f * (V(i - 1, jp, k) + V(i, jp, k));
-  adv += (U.flux_y(i, j + 1, k, 0, vf_jp) - U.flux_y(i, j, k, 0, vf_j)) / P.dy;
+  adv += (U.flux_y(i, j + 1, k, 0, vf_jp) - U.flux_y(i, j, k, 0, vf_j)) * P.idy;
   const float wf_k = 0.5f * (W(i - 1, j, k) + W(i, j, k));
   const float wf_kp = 0.5f * (W(i - 1, j, k + 1) + W(i, j, k + 1));
   const float* uc = U.col(i, j);
-  adv += (z_uw_flux(uc, nz, k + 1, 0, wf_kp) - z_uw_flux(uc, nz, k, 0, wf_k)) / P.dz;
-  const float dphy = (PH(i, j, k) - PH(i - 1, j, k)) / P.dx;
+  adv += (z_uw_flux(uc, nz, k + 1, 0, wf_kp) - z_uw_flux(uc, nz, k, 0, wf_k)) * P.idz;
+  const float dphy = (PH(i, j, k) - PH(i - 1, j, k)) * P.idx;
   const float q = uc[k];
   const float qm = k > 0 ? uc[k - 1] : -uc[0];  // no-slip ghost: 2 * 0 - q0
   const float qp = k < nz - 1 ? uc[k + 1] : -uc[nz - 1];
-  const float lap = lap_h(U, i, j, k, q, P) + (qp - 2.0f * q + qm) / (P.dz * P.dz);
+  const float lap = lap_h(U, i, j, k, q, P) + (qp - 2.0f * q + qm) * P.idz2;
   return -adv - dphy + P.nu * lap;
 }
 
@@ -216,19 +225,19 @@ __device__ float tendency_v(const S& U, const S& V, const S& W, const S& PH,
   const int nz = P.nz, jm = V.ym(j), jp = V.yp(j);
   const float uf_i = 0.5f * (U(i, jm, k) + U(i, j, k));
   const float uf_ip = 0.5f * (U(i + 1, jm, k) + U(i + 1, j, k));
-  float adv = (flux_x(V, i + 1, j, k, 0, uf_ip) - flux_x(V, i, j, k, 0, uf_i)) / P.dx;
+  float adv = (flux_x(V, i + 1, j, k, 0, uf_ip) - flux_x(V, i, j, k, 0, uf_i)) * P.idx;
   const float vc_j = 0.5f * (V(i, j, k) + V(i, jp, k));
   const float vc_jm = 0.5f * (V(i, jm, k) + V(i, j, k));
-  adv += (V.flux_y(i, j, k, 1, vc_j) - V.flux_y(i, j - 1, k, 1, vc_jm)) / P.dy;
+  adv += (V.flux_y(i, j, k, 1, vc_j) - V.flux_y(i, j - 1, k, 1, vc_jm)) * P.idy;
   const float wf_k = 0.5f * (W(i, jm, k) + W(i, j, k));
   const float wf_kp = 0.5f * (W(i, jm, k + 1) + W(i, j, k + 1));
   const float* vc = V.col(i, j);
-  adv += (z_uw_flux(vc, nz, k + 1, 0, wf_kp) - z_uw_flux(vc, nz, k, 0, wf_k)) / P.dz;
-  const float dphy = (PH(i, j, k) - PH(i, jm, k)) / P.dy;
+  adv += (z_uw_flux(vc, nz, k + 1, 0, wf_kp) - z_uw_flux(vc, nz, k, 0, wf_k)) * P.idz;
+  const float dphy = (PH(i, j, k) - PH(i, jm, k)) * P.idy;
   const float q = vc[k];
   const float qm = k > 0 ? vc[k - 1] : -vc[0];
   const float qp = k < nz - 1 ? vc[k + 1] : -vc[nz - 1];
-  const float lap = lap_h(V, i, j, k, q, P) + (qp - 2.0f * q + qm) / (P.dz * P.dz);
+  const float lap = lap_h(V, i, j, k, q, P) + (qp - 2.0f * q + qm) * P.idz2;
   return -adv - dphy + P.nu * lap;
 }
 
@@ -240,16 +249,16 @@ __device__ float tendency_w(const S& U, const S& V, const S& W, int i, int j,
   if (k == 0 || k == nz) return 0.0f;
   const float uf_i = 0.5f * (U(i, j, k - 1) + U(i, j, k));
   const float uf_ip = 0.5f * (U(i + 1, j, k - 1) + U(i + 1, j, k));
-  float adv = (flux_x(W, i + 1, j, k, 0, uf_ip) - flux_x(W, i, j, k, 0, uf_i)) / P.dx;
+  float adv = (flux_x(W, i + 1, j, k, 0, uf_ip) - flux_x(W, i, j, k, 0, uf_i)) * P.idx;
   const float vf_j = 0.5f * (V(i, j, k - 1) + V(i, j, k));
   const float vf_jp = 0.5f * (V(i, jp, k - 1) + V(i, jp, k));
-  adv += (W.flux_y(i, j + 1, k, 0, vf_jp) - W.flux_y(i, j, k, 0, vf_j)) / P.dy;
+  adv += (W.flux_y(i, j + 1, k, 0, vf_jp) - W.flux_y(i, j, k, 0, vf_j)) * P.idy;
   const float* wc = W.col(i, j);
   const float wc_k = 0.5f * (wc[k] + wc[k + 1]);
   const float wc_km = 0.5f * (wc[k - 1] + wc[k]);
-  adv += (z_uw_flux(wc, nz + 1, k, 1, wc_k) - z_uw_flux(wc, nz + 1, k - 1, 1, wc_km)) / P.dz;
+  adv += (z_uw_flux(wc, nz + 1, k, 1, wc_k) - z_uw_flux(wc, nz + 1, k - 1, 1, wc_km)) * P.idz;
   const float q = wc[k];
-  const float lap = lap_h(W, i, j, k, q, P) + (wc[k + 1] - 2.0f * q + wc[k - 1]) / (P.dz * P.dz);
+  const float lap = lap_h(W, i, j, k, q, P) + (wc[k + 1] - 2.0f * q + wc[k - 1]) * P.idz2;
   return -adv + P.nu * lap;
 }
 
@@ -258,14 +267,14 @@ template <class S>
 __device__ float tendency_b(const S& U, const S& V, const S& W, const S& B,
                             float bottom, int i, int j, int k, const RBC3DParams& P) {
   const int nz = P.nz, jp = B.yp(j);
-  float adv = (flux_x(B, i + 1, j, k, 0, U(i + 1, j, k)) - flux_x(B, i, j, k, 0, U(i, j, k))) / P.dx;
-  adv += (B.flux_y(i, j + 1, k, 0, V(i, jp, k)) - B.flux_y(i, j, k, 0, V(i, j, k))) / P.dy;
+  float adv = (flux_x(B, i + 1, j, k, 0, U(i + 1, j, k)) - flux_x(B, i, j, k, 0, U(i, j, k))) * P.idx;
+  adv += (B.flux_y(i, j + 1, k, 0, V(i, jp, k)) - B.flux_y(i, j, k, 0, V(i, j, k))) * P.idy;
   const float* bc = B.col(i, j);
-  adv += (z_uw_flux(bc, nz, k + 1, 0, W(i, j, k + 1)) - z_uw_flux(bc, nz, k, 0, W(i, j, k))) / P.dz;
+  adv += (z_uw_flux(bc, nz, k + 1, 0, W(i, j, k + 1)) - z_uw_flux(bc, nz, k, 0, W(i, j, k))) * P.idz;
   const float q = bc[k];
   const float qm = k > 0 ? bc[k - 1] : 2.0f * bottom - bc[0];
   const float qp = k < nz - 1 ? bc[k + 1] : 2.0f * P.min_b - bc[nz - 1];
-  const float lap = lap_h(B, i, j, k, q, P) + (qp - 2.0f * q + qm) / (P.dz * P.dz);
+  const float lap = lap_h(B, i, j, k, q, P) + (qp - 2.0f * q + qm) * P.idz2;
   return -adv + P.kappa * lap;
 }
 
@@ -496,15 +505,15 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
     const int cu = U.ny * nz, cv = V.ny * nz, cw = W.ny * (nz + 1);
     for (int idx = threadIdx.x; idx < (kXBlk + 7) * cu; idx += blockDim.x) {
       const int x = idx / cu + U.lo, r = idx % cu, y = r / nz + U.ylo, k = r % nz;
-      U.p[idx] -= (Q(x, y, k) - Q(x - 1, y, k)) / P.dx;
+      U.p[idx] -= (Q(x, y, k) - Q(x - 1, y, k)) * P.idx;
     }
     for (int idx = threadIdx.x; idx < (kXBlk + 6) * cv; idx += blockDim.x) {
       const int x = idx / cv + V.lo, r = idx % cv, y = r / nz + V.ylo, k = r % nz;
-      V.p[idx] -= (Q(x, y, k) - Q(x, y - 1, k)) / P.dy;
+      V.p[idx] -= (Q(x, y, k) - Q(x, y - 1, k)) * P.idy;
     }
     for (int idx = threadIdx.x; idx < (kXBlk + 6) * cw; idx += blockDim.x) {
       const int x = idx / cw + W.lo, r = idx % cw, y = r / (nz + 1) + W.ylo, k = r % (nz + 1);
-      if (k > 0 && k < nz) W.p[idx] -= (Q(x, y, k) - Q(x, y, k - 1)) / P.dz;
+      if (k > 0 && k < nz) W.p[idx] -= (Q(x, y, k) - Q(x, y, k - 1)) * P.idz;
     }
   }
   __syncthreads();
@@ -570,8 +579,8 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
     const float u_ip = i + 1 < kXBlk ? u_out[o + S] : u_edge[j * nz + k];
     const float v_jp = j + 1 < kYBlk ? v_out[o + nz] : v_edge[i * nz + k];
     const float* wc = w_out + face0 + (size_t)x * SW + (size_t)y * (nz + 1);
-    const float d = (u_ip - u_out[o]) / P.dx + (v_jp - v_out[o]) / P.dy +
-                    (wc[k + 1] - wc[k]) / P.dz;
+    const float d = (u_ip - u_out[o]) * P.idx + (v_jp - v_out[o]) * P.idy +
+                    (wc[k + 1] - wc[k]) * P.idz;
     div_out[((e * ny + y) * nx + x) * nz + k] = d;
   }
 }
@@ -681,7 +690,7 @@ int launch_stage_rk_3d(const float* u, const float* v, const float* w, const flo
   cudaError_t err = cudaFuncSetAttribute(
       stage_rk_3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const RBC3DParams P{nx, ny, nz, dx, dy, dz, nu, kappa, min_b};
+  const RBC3DParams P = params3d(nx, ny, nz, dx, dy, dz, nu, kappa, min_b);
   stage_rk_3d_kernel<<<n_env * (nx / kXBlk), kThreads, smem, (cudaStream_t)stream>>>(
       u, v, w, b, q, bottom, gu_prev, gv_prev, gw_prev, gb_prev, u_out, v_out, w_out,
       b_out, div_out, gu, gv, gw, gb, dt, gamma, zeta, P);
@@ -708,7 +717,7 @@ int launch_stage_rk_3d_xy(const float* u, const float* v, const float* w, const 
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const RBC3DParams P{nx, ny, nz, dx, dy, dz, nu, kappa, min_b};
+  const RBC3DParams P = params3d(nx, ny, nz, dx, dy, dz, nu, kappa, min_b);
   const unsigned blocks = (unsigned)n_env * (nx / kXBlk) * (ny / kYBlk);
   kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       u, v, w, b, q, bottom, gu_prev, gv_prev, gw_prev, gb_prev, u_out, v_out, w_out,
@@ -734,7 +743,7 @@ int launch_field_tendency_3d(int field, const float* u, const float* v, const fl
       (aux == nullptr) != (field == kFieldW) || (bottom != nullptr) != (field == kFieldB)) {
     return (int)cudaErrorInvalidValue;
   }
-  const RBC3DParams P{nx, ny, nz, dx, dy, dz, nu, kappa, min_b};
+  const RBC3DParams P = params3d(nx, ny, nz, dx, dy, dz, nu, kappa, min_b);
   const size_t n = (size_t)n_env * nx * ny * (field == kFieldW ? nz + 1 : nz);
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   auto* kernel = field == kFieldU   ? field_tendency_3d_kernel<kFieldU>

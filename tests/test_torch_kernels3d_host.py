@@ -68,9 +68,9 @@ int main(int argc, char** argv) {
   if (std::string(argv[1]) == "field") {  // field DIR E NX NY NZ DX DY DZ NU KAPPA MIN_B
     dir = argv[2];
     const int E = atoi(argv[3]), nx = atoi(argv[4]), ny = atoi(argv[5]), nz = atoi(argv[6]);
-    const RBC3DParams P{nx, ny, nz, (float)atof(argv[7]), (float)atof(argv[8]),
+    const RBC3DParams P = params3d(nx, ny, nz, (float)atof(argv[7]), (float)atof(argv[8]),
                         (float)atof(argv[9]), (float)atof(argv[10]), (float)atof(argv[11]),
-                        (float)atof(argv[12])};
+                        (float)atof(argv[12]));
     const size_t C = (size_t)E * nx * ny * nz, F = (size_t)E * nx * ny * (nz + 1);
     auto u = rd("u", C), v = rd("v", C), w = rd("w", F), b = rd("b", C), p_hy = rd("p_hy", C);
     auto bottom = rd("bottom", (size_t)E * nx * ny);
@@ -98,9 +98,9 @@ int main(int argc, char** argv) {
   const int E = atoi(argv[2]), nx = atoi(argv[3]), ny = atoi(argv[4]), nz = atoi(argv[5]);
   const int stage = atoi(argv[6]);
   const float dt = atof(argv[7]), gamma = atof(argv[8]), zeta = atof(argv[9]);
-  const RBC3DParams P{nx, ny, nz, (float)atof(argv[10]), (float)atof(argv[11]),
+  const RBC3DParams P = params3d(nx, ny, nz, (float)atof(argv[10]), (float)atof(argv[11]),
                       (float)atof(argv[12]), (float)atof(argv[13]), (float)atof(argv[14]),
-                      (float)atof(argv[15])};
+                      (float)atof(argv[15]));
   const size_t C = (size_t)E * nx * ny * nz, F = (size_t)E * nx * ny * (nz + 1);
   auto u = rd("u", C), v = rd("v", C), w = rd("w", F), b = rd("b", C), q = rd("q", C);
   auto bottom = rd("bottom", (size_t)E * nx * ny);
