@@ -39,25 +39,41 @@
 //
 // K5 stage_rk_3d_xy_kernel replaces ops/pallas3d.py:_stage_rk_kernel_xy
 // (reached from make_stage_rk_3d_xy, pl.pallas_call at :1592): K3's stage,
-// with K3's contract and layouts, on (x, y)-blocked slabs, for grids whose
-// whole-y slab does not fit a block's 232,448 bytes of shared memory (the
-// 32x64x64 big grid needs 436,736 in K3).
-//   Bound: bytes, as K3. At 32x64x64 it moves 7.4 MB per env at stages 0
-//   and 2 and 9.5 MB at stage 1, against some 400 FLOP per cell.
-//   Design: one block per (env, kXBlk = 4 x columns, kYBlk = 8 y rows),
-//   full z in every column. y halos are staged from global memory with
-//   periodic wrap, as K3 stages x: q with 4 rows on each side, v with 3
-//   below and 4 above (v* is computed one row wider for the divergence at
-//   the far y face, the Pallas kernel's gv scratch of y_blk + 1 rows), u,
-//   w, b with 3 and 3; no y index wraps inside the block. u* at the right
-//   x face and v* at the far y face stay in shared memory for phase 5. The
-//   phases and the tendency code are K3's (the Slab types differ only in
-//   how y is indexed). At nz = 32 the slabs take 99,888 bytes, so two
-//   256-thread blocks share an SM. The halos cost bytes that the bound does
-//   not count: the block stages 4.85 times the cells it owns (K3 at
-//   16x32x32: 2.65). The Pallas kernel's _YH = 8 (the TPU's sublane
-//   tiling), e_blk and XLA-side padding have no counterpart. Plain float32
-//   loads and FP32 FMA; making it fast is later work.
+// with K3's contract and layouts, for grids whose whole-y slab does not fit
+// a block's 232,448 bytes of shared memory (the 32x64x64 big grid needs
+// 436,736 in K3).
+//   Bound: bytes. At 32x64x64 it moves 7.4 MB per env at stages 0 and 2 and
+//   9.5 MB at stage 1, against some 400 FLOP per cell. What held its first
+//   design (4 x 8 columns a block, 48.7-51.6 ms at 1024 envs) to 5 % of
+//   that: runtime integer division in every index, IEEE division in every
+//   difference, every face flux computed twice, a divergent z ladder, halos
+//   staged 4.85 times over in a phase of their own, and a serial pHY'.
+//   Design: one block per (env, kYT = 8 y rows) that marches along periodic
+//   x, one thread per (row, z) point of an x-plane (rows 0..kYT, so at
+//   nz = 32 a warp is one column and lane == k). Shared memory holds a ring
+//   of kRing = 8 x-planes of u, v, w, b with their y halos, two of q, four
+//   of pHY', and v*, w* of one plane. Per plane i:
+//   - plane i + 4 is copied in with cp.async while plane i is computed, so
+//     each field's plane is read from global memory once per block (the y
+//     halos are the only repeat: 1.75-2 times the rows the block owns);
+//   - it is corrected by grad q once, as it arrives, and pHY' of plane
+//     i + 1 is summed per point in float64 (every thread, no serial phase;
+//     the sum rounds once, closer to float64 than a float32 scan);
+//   - each thread computes gu, gv, gw, gb and the RK update at its point;
+//     the x flux of each field enters at one face and is carried in a
+//     register to the next plane, so each x-face flux is computed once;
+//   - z fluxes select the ladder's UB5, UB3 or UB1 per lane from orders
+//     fixed per thread before the march, with taps clamped into the
+//     column: every lane runs one instruction stream;
+//   - the divergence of plane i - 1 is emitted once u*(i) is known, from
+//     v*, w* of plane i - 1 kept in shared memory and u* in a register.
+//   nz is a template parameter for 32 and 16 (no runtime / or % in the
+//   loop; a runtime-nz instance takes every other nz). The spacings enter
+//   as reciprocals taken in double on the host. Shared memory, in floats:
+//   (8 * (14 + 15 + 14) + 2 * 16 + 4 * 10 + 9) nz + (8 * 14 + 8) (nz + 1),
+//   that is 545 nz + 120: 70,240 bytes at nz = 32. The grid's rule:
+//   nx >= 4, ny % 8 == 0, nz >= 2 and that formula under the limit
+//   (nz <= 106). No matrix product, so no wgmma or tensor cores.
 //
 // K4 correct_3d_kernel replaces ops/pallas3d.py:_correct_kernel (reached
 // from make_projection_glue_3d, pl.pallas_call at :959): u -= ddx q,
@@ -77,7 +93,7 @@
 //   (z fastest, so a warp reads and writes runs of consecutive z), reading
 //   its taps straight from global memory, where L1 and L2 catch the reuse
 //   of neighbouring threads. The tendency code is K3's: GlobalField is a
-//   third slab type for the same templates, which wraps x and y
+//   second slab type for the same templates, which wraps x and y
 //   periodically. So K6 computes the flux form (C6 - |v| D5/60) where the
 //   Pallas kernel selects a one-sided UB5 stencil by the sign of the
 //   velocity; the two are the same reconstruction and differ in float32
@@ -93,6 +109,7 @@
 // written straight into the solve layout (E, ny, nx, nz) that the Poisson
 // solve reads, as K3 and K5 emit theirs; the reads of u and v are runs of
 // nz consecutive floats.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "ub5.cuh"
@@ -100,22 +117,12 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kXBlk = 4;  // x columns a K3 or K5 block owns
-constexpr int kYBlk = 8;  // y rows a K5 block owns
+constexpr int kXBlk = 4;  // x columns a K3 block owns
 
 struct RBC3DParams {
   int nx, ny, nz;
   float dx, dy, dz, nu, kappa, min_b;
-  float idx, idy, idz, idx2, idy2, idz2;
 };
-
-inline RBC3DParams params3d(int nx, int ny, int nz, float dx, float dy, float dz, float nu,
-                            float kappa, float min_b) {
-  return RBC3DParams{nx, ny, nz, dx, dy, dz, nu, kappa, min_b,
-                     (float)(1.0 / dx), (float)(1.0 / dy), (float)(1.0 / dz),
-                     (float)(1.0 / ((double)dx * dx)), (float)(1.0 / ((double)dy * dy)),
-                     (float)(1.0 / ((double)dz * dz))};
-}
 
 // An x-extended slab in shared memory that holds all of periodic y (K3):
 // columns x = lo, lo + 1, ... (x relative to the block's first column),
@@ -134,25 +141,6 @@ struct Slab {
   // vel * UB5 reconstruction along periodic y at row j + m of column x.
   __device__ __forceinline__ float flux_y(int x, int j, int k, int m, float vel) const {
     return uw_flux_periodic(col(x, 0) + k, nk, ny, j, m, vel);
-  }
-};
-
-// An (x, y)-extended slab (K5): columns x = lo, lo + 1, ... and rows
-// y = ylo, ..., ylo + ny - 1, both relative to the block's first column
-// and row, halos included, so no y neighbour or tap wraps.
-struct SlabXY {
-  float* p;
-  int lo, ylo, ny, nk;
-  __device__ __forceinline__ float* col(int x, int y) const {
-    return p + ((x - lo) * ny + (y - ylo)) * nk;
-  }
-  __device__ __forceinline__ float operator()(int x, int y, int k) const {
-    return col(x, y)[k];
-  }
-  __device__ __forceinline__ int yp(int j) const { return j + 1; }
-  __device__ __forceinline__ int ym(int j) const { return j - 1; }
-  __device__ __forceinline__ float flux_y(int x, int j, int k, int m, float vel) const {
-    return uw_flux_strided(col(x, 0) + k, nk, j, m, vel);
   }
 };
 
@@ -175,7 +163,7 @@ struct GlobalField {
   }
 };
 
-// The tendencies below take any of the three slab types: x wraps only in a
+// The tendencies below take either slab type: x wraps only in a
 // GlobalField, y goes through the slab's yp/ym/flux_y.
 
 // vel * UB5 reconstruction along x (non-periodic inside the slab) at
@@ -191,8 +179,8 @@ template <class S>
 __device__ __forceinline__ float lap_h(const S& q, int i, int j, int k, float c,
                                        const RBC3DParams& P) {
   const int jm = q.ym(j), jp = q.yp(j);
-  return (q(i + 1, j, k) - 2.0f * c + q(i - 1, j, k)) * P.idx2 +
-         (q(i, jp, k) - 2.0f * c + q(i, jm, k)) * P.idy2;
+  return (q(i + 1, j, k) - 2.0f * c + q(i - 1, j, k)) / (P.dx * P.dx) +
+         (q(i, jp, k) - 2.0f * c + q(i, jm, k)) / (P.dy * P.dy);
 }
 
 // gu at (x-face i, y-center j, z-center k).
@@ -202,19 +190,19 @@ __device__ float tendency_u(const S& U, const S& V, const S& W, const S& PH,
   const int nz = P.nz, jp = U.yp(j);
   const float uc_i = 0.5f * (U(i, j, k) + U(i + 1, j, k));
   const float uc_im = 0.5f * (U(i - 1, j, k) + U(i, j, k));
-  float adv = (flux_x(U, i, j, k, 1, uc_i) - flux_x(U, i - 1, j, k, 1, uc_im)) * P.idx;
+  float adv = (flux_x(U, i, j, k, 1, uc_i) - flux_x(U, i - 1, j, k, 1, uc_im)) / P.dx;
   const float vf_j = 0.5f * (V(i - 1, j, k) + V(i, j, k));
   const float vf_jp = 0.5f * (V(i - 1, jp, k) + V(i, jp, k));
-  adv += (U.flux_y(i, j + 1, k, 0, vf_jp) - U.flux_y(i, j, k, 0, vf_j)) * P.idy;
+  adv += (U.flux_y(i, j + 1, k, 0, vf_jp) - U.flux_y(i, j, k, 0, vf_j)) / P.dy;
   const float wf_k = 0.5f * (W(i - 1, j, k) + W(i, j, k));
   const float wf_kp = 0.5f * (W(i - 1, j, k + 1) + W(i, j, k + 1));
   const float* uc = U.col(i, j);
-  adv += (z_uw_flux(uc, nz, k + 1, 0, wf_kp) - z_uw_flux(uc, nz, k, 0, wf_k)) * P.idz;
-  const float dphy = (PH(i, j, k) - PH(i - 1, j, k)) * P.idx;
+  adv += (z_uw_flux(uc, nz, k + 1, 0, wf_kp) - z_uw_flux(uc, nz, k, 0, wf_k)) / P.dz;
+  const float dphy = (PH(i, j, k) - PH(i - 1, j, k)) / P.dx;
   const float q = uc[k];
   const float qm = k > 0 ? uc[k - 1] : -uc[0];  // no-slip ghost: 2 * 0 - q0
   const float qp = k < nz - 1 ? uc[k + 1] : -uc[nz - 1];
-  const float lap = lap_h(U, i, j, k, q, P) + (qp - 2.0f * q + qm) * P.idz2;
+  const float lap = lap_h(U, i, j, k, q, P) + (qp - 2.0f * q + qm) / (P.dz * P.dz);
   return -adv - dphy + P.nu * lap;
 }
 
@@ -225,19 +213,19 @@ __device__ float tendency_v(const S& U, const S& V, const S& W, const S& PH,
   const int nz = P.nz, jm = V.ym(j), jp = V.yp(j);
   const float uf_i = 0.5f * (U(i, jm, k) + U(i, j, k));
   const float uf_ip = 0.5f * (U(i + 1, jm, k) + U(i + 1, j, k));
-  float adv = (flux_x(V, i + 1, j, k, 0, uf_ip) - flux_x(V, i, j, k, 0, uf_i)) * P.idx;
+  float adv = (flux_x(V, i + 1, j, k, 0, uf_ip) - flux_x(V, i, j, k, 0, uf_i)) / P.dx;
   const float vc_j = 0.5f * (V(i, j, k) + V(i, jp, k));
   const float vc_jm = 0.5f * (V(i, jm, k) + V(i, j, k));
-  adv += (V.flux_y(i, j, k, 1, vc_j) - V.flux_y(i, j - 1, k, 1, vc_jm)) * P.idy;
+  adv += (V.flux_y(i, j, k, 1, vc_j) - V.flux_y(i, j - 1, k, 1, vc_jm)) / P.dy;
   const float wf_k = 0.5f * (W(i, jm, k) + W(i, j, k));
   const float wf_kp = 0.5f * (W(i, jm, k + 1) + W(i, j, k + 1));
   const float* vc = V.col(i, j);
-  adv += (z_uw_flux(vc, nz, k + 1, 0, wf_kp) - z_uw_flux(vc, nz, k, 0, wf_k)) * P.idz;
-  const float dphy = (PH(i, j, k) - PH(i, jm, k)) * P.idy;
+  adv += (z_uw_flux(vc, nz, k + 1, 0, wf_kp) - z_uw_flux(vc, nz, k, 0, wf_k)) / P.dz;
+  const float dphy = (PH(i, j, k) - PH(i, jm, k)) / P.dy;
   const float q = vc[k];
   const float qm = k > 0 ? vc[k - 1] : -vc[0];
   const float qp = k < nz - 1 ? vc[k + 1] : -vc[nz - 1];
-  const float lap = lap_h(V, i, j, k, q, P) + (qp - 2.0f * q + qm) * P.idz2;
+  const float lap = lap_h(V, i, j, k, q, P) + (qp - 2.0f * q + qm) / (P.dz * P.dz);
   return -adv - dphy + P.nu * lap;
 }
 
@@ -249,16 +237,16 @@ __device__ float tendency_w(const S& U, const S& V, const S& W, int i, int j,
   if (k == 0 || k == nz) return 0.0f;
   const float uf_i = 0.5f * (U(i, j, k - 1) + U(i, j, k));
   const float uf_ip = 0.5f * (U(i + 1, j, k - 1) + U(i + 1, j, k));
-  float adv = (flux_x(W, i + 1, j, k, 0, uf_ip) - flux_x(W, i, j, k, 0, uf_i)) * P.idx;
+  float adv = (flux_x(W, i + 1, j, k, 0, uf_ip) - flux_x(W, i, j, k, 0, uf_i)) / P.dx;
   const float vf_j = 0.5f * (V(i, j, k - 1) + V(i, j, k));
   const float vf_jp = 0.5f * (V(i, jp, k - 1) + V(i, jp, k));
-  adv += (W.flux_y(i, j + 1, k, 0, vf_jp) - W.flux_y(i, j, k, 0, vf_j)) * P.idy;
+  adv += (W.flux_y(i, j + 1, k, 0, vf_jp) - W.flux_y(i, j, k, 0, vf_j)) / P.dy;
   const float* wc = W.col(i, j);
   const float wc_k = 0.5f * (wc[k] + wc[k + 1]);
   const float wc_km = 0.5f * (wc[k - 1] + wc[k]);
-  adv += (z_uw_flux(wc, nz + 1, k, 1, wc_k) - z_uw_flux(wc, nz + 1, k - 1, 1, wc_km)) * P.idz;
+  adv += (z_uw_flux(wc, nz + 1, k, 1, wc_k) - z_uw_flux(wc, nz + 1, k - 1, 1, wc_km)) / P.dz;
   const float q = wc[k];
-  const float lap = lap_h(W, i, j, k, q, P) + (wc[k + 1] - 2.0f * q + wc[k - 1]) * P.idz2;
+  const float lap = lap_h(W, i, j, k, q, P) + (wc[k + 1] - 2.0f * q + wc[k - 1]) / (P.dz * P.dz);
   return -adv + P.nu * lap;
 }
 
@@ -267,14 +255,14 @@ template <class S>
 __device__ float tendency_b(const S& U, const S& V, const S& W, const S& B,
                             float bottom, int i, int j, int k, const RBC3DParams& P) {
   const int nz = P.nz, jp = B.yp(j);
-  float adv = (flux_x(B, i + 1, j, k, 0, U(i + 1, j, k)) - flux_x(B, i, j, k, 0, U(i, j, k))) * P.idx;
-  adv += (B.flux_y(i, j + 1, k, 0, V(i, jp, k)) - B.flux_y(i, j, k, 0, V(i, j, k))) * P.idy;
+  float adv = (flux_x(B, i + 1, j, k, 0, U(i + 1, j, k)) - flux_x(B, i, j, k, 0, U(i, j, k))) / P.dx;
+  adv += (B.flux_y(i, j + 1, k, 0, V(i, jp, k)) - B.flux_y(i, j, k, 0, V(i, j, k))) / P.dy;
   const float* bc = B.col(i, j);
-  adv += (z_uw_flux(bc, nz, k + 1, 0, W(i, j, k + 1)) - z_uw_flux(bc, nz, k, 0, W(i, j, k))) * P.idz;
+  adv += (z_uw_flux(bc, nz, k + 1, 0, W(i, j, k + 1)) - z_uw_flux(bc, nz, k, 0, W(i, j, k))) / P.dz;
   const float q = bc[k];
   const float qm = k > 0 ? bc[k - 1] : 2.0f * bottom - bc[0];
   const float qp = k < nz - 1 ? bc[k + 1] : 2.0f * P.min_b - bc[nz - 1];
-  const float lap = lap_h(B, i, j, k, q, P) + (qp - 2.0f * q + qm) * P.idz2;
+  const float lap = lap_h(B, i, j, k, q, P) + (qp - 2.0f * q + qm) / (P.dz * P.dz);
   return -adv + P.kappa * lap;
 }
 
@@ -430,31 +418,101 @@ stage_rk_3d_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   }
 }
 
-// Copy the window of columns lo .. lo + n_cols - 1 and rows ylo .. ylo +
-// n_rows - 1 (block-relative, periodic in x and y) of one env's
-// public-layout field (nx, ny, nk) into an (x, y)-extended slab.
-__device__ void load_window(const float* __restrict__ src, float* dst, int x0, int lo,
-                            int n_cols, int nx, int y0, int ylo, int n_rows, int ny,
-                            int nk) {
-  const int col_len = n_rows * nk;
-  for (int idx = threadIdx.x; idx < n_cols * col_len; idx += blockDim.x) {
-    const int c = idx / col_len, r = idx - c * col_len;
-    const int y = r / nk, k = r - y * nk;
-    dst[idx] = src[((size_t)wrap_x(x0 + lo + c, nx) * ny + wrap_x(y0 + ylo + y, ny)) * nk + k];
-  }
+// ---- K5: the (x, y)-blocked stage, marching along x -------------------------
+
+constexpr int kYT = 8;       // y rows a K5 block owns
+constexpr int kRing = 8;     // x-planes of u, v, w, b a K5 block holds
+constexpr int kPhRing = 4;   // x-planes of pHY'
+// Rows of each staged x-plane, relative to the block's first row: the first
+// one and how many (the y taps reach 3 rows; v* is computed one row wider,
+// at the far y face, for the divergence; v's correction needs q a row lower).
+constexpr int kULo = -3, kURows = kYT + 6;
+constexpr int kVLo = -3, kVRows = kYT + 7;
+constexpr int kWLo = -3, kWRows = kYT + 6;
+constexpr int kBLo = -3, kBRows = kYT + 6;
+constexpr int kQLo = -4, kQRows = kYT + 8;
+constexpr int kPLo = -1, kPRows = kYT + 2;
+
+// K5's scalars: reciprocals of the spacings and their squares, taken once on
+// the host in double precision, so that no tendency divides.
+struct XYParams {
+  int nx, ny, nz;
+  float idx, idy, idz, idx2, idy2, idz2, dz, nu, kappa, min_b;
+};
+
+XYParams xy_params(int nx, int ny, int nz, float dx, float dy, float dz, float nu,
+                   float kappa, float min_b) {
+  return {nx, ny, nz, (float)(1.0 / dx), (float)(1.0 / dy), (float)(1.0 / dz),
+          (float)(1.0 / ((double)dx * dx)), (float)(1.0 / ((double)dy * dy)),
+          (float)(1.0 / ((double)dz * dz)), dz, nu, kappa, min_b};
 }
 
-// Shared memory K5 needs per block, in floats: q (kXBlk + 8 columns of
-// kYBlk + 8 rows), u (kXBlk + 7 of kYBlk + 6), v (kXBlk + 6 of kYBlk + 7),
-// b (kXBlk + 6 of kYBlk + 6) of nz; w (kXBlk + 6 of kYBlk + 6) of nz + 1.
-size_t stage_xy_smem_floats(int nz) {
-  return (size_t)((kXBlk + 8) * (kYBlk + 8) + (kXBlk + 7) * (kYBlk + 6) +
-                  (kXBlk + 6) * (kYBlk + 7) + (kXBlk + 6) * (kYBlk + 6)) * nz +
-         (size_t)(kXBlk + 6) * (kYBlk + 6) * (nz + 1);
+constexpr int kXYMinNx = 4;                 // plane indices -4..nx+3 wrap once
+constexpr size_t kSmemPerBlock = 232448;    // an H100 block's shared memory
+
+// A ring of kSlots x-planes in shared memory, each `rows` rows of nk floats;
+// plane x lives in slot x mod kSlots (a power of 2, so negative x works).
+template <int kSlots>
+struct Ring {
+  float* p;
+  int lo, rows, nk;
+  __device__ __forceinline__ float* row(int x, int r) const {
+    return p + ((x & (kSlots - 1)) * rows + r - lo) * nk;
+  }
+  __device__ __forceinline__ float* end() const { return p + kSlots * rows * nk; }
+};
+
+// UB5 reconstruction in the select form of the plain stencils: the five
+// taps upwind of the face, in the left-biased order, then one weighted sum.
+__device__ __forceinline__ float ub5_upwind(float tm3, float tm2, float tm1, float t0,
+                                            float t1, float t2, float vel) {
+  const bool pos = vel > 0.0f;
+  const float a0 = pos ? tm3 : t2, a1 = pos ? tm2 : t1, a2 = pos ? tm1 : t0;
+  const float a3 = pos ? t0 : tm1, a4 = pos ? t1 : tm2;
+  return vel * ((2.0f / 60.0f) * a0 + (-13.0f / 60.0f) * a1 + (47.0f / 60.0f) * a2 +
+                (27.0f / 60.0f) * a3 + (-3.0f / 60.0f) * a4);
 }
+
+// The order (5, 3 or 1) of the z ladder's left- and right-biased stencils
+// at face m of a column of n points, as stencils._z_order_ladder picks it.
+struct ZOrders {
+  int left, right;
+};
+__device__ __forceinline__ ZOrders z_orders(int m, int n) {
+  return {m >= 3 && m + 1 <= n - 1 ? 5 : (m >= 2 && m <= n - 1 ? 3 : 1),
+          m >= 2 && m + 2 <= n - 1 ? 5 : (m >= 1 && m + 1 <= n - 1 ? 3 : 1)};
+}
+
+// vel * the z ladder's reconstruction at a face with taps at offsets -3..2
+// (clamped into the column: a tap outside it has weight 0 in the order the
+// ladder picks, or meets a wall velocity of exactly 0). Every order is
+// computed and one is selected, so the lanes of a warp never diverge.
+__device__ __forceinline__ float z_upwind(float tm3, float tm2, float tm1, float t0,
+                                          float t1, float t2, ZOrders o, float vel) {
+  const bool pos = vel > 0.0f;
+  const float a0 = pos ? tm3 : t2, a1 = pos ? tm2 : t1, a2 = pos ? tm1 : t0;
+  const float a3 = pos ? t0 : tm1, a4 = pos ? t1 : tm2;
+  const float r5 = (2.0f / 60.0f) * a0 + (-13.0f / 60.0f) * a1 + (47.0f / 60.0f) * a2 +
+                   (27.0f / 60.0f) * a3 + (-3.0f / 60.0f) * a4;
+  const float r3 = (-1.0f / 6.0f) * a1 + (5.0f / 6.0f) * a2 + (2.0f / 6.0f) * a3;
+  const int order = pos ? o.left : o.right;
+  return vel * (order == 5 ? r5 : (order == 3 ? r3 : a2));
+}
+
+// Shared memory K5 needs per block, in floats: rings of kRing x-planes of u,
+// v, b (nz per row) and w (nz + 1), two planes of q, kPhRing of pHY', and
+// v*, w* of one plane.
+size_t stage_xy_smem_floats(int nz) {
+  return (size_t)(kRing * (kURows + kVRows + kBRows) + 2 * kQRows + kPhRing * kPRows +
+                  kYT + 1) * nz +
+         (size_t)(kRing * kWRows + kYT) * (nz + 1);
+}
+
+// Threads of a K5 block: one per (row, z) point of an x-plane, rows 0..kYT.
+int stage_xy_threads(int nz) { return (kYT + 1) * nz; }
 
 template <int NZ>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(NZ > 0 ? (kYT + 1) * NZ : 1024, NZ == 32 ? 2 : 1)
 stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
                       const float* __restrict__ w_in, const float* __restrict__ b_in,
                       const float* __restrict__ q_in, const float* __restrict__ bottom_in,
@@ -462,127 +520,273 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
                       const float* gb_prev, float* u_out, float* v_out, float* w_out,
                       float* b_out, float* div_out, float* gu_out, float* gv_out,
                       float* gw_out, float* gb_out, float dt, float gamma, float zeta,
-                      RBC3DParams P) {
+                      XYParams P) {
   extern __shared__ float smem[];
-  const int nx = P.nx, ny = P.ny, nz = NZ > 0 ? NZ : P.nz;
-  const int S = ny * nz, SW = ny * (nz + 1);
-  const int nxb = nx / kXBlk, nyb = ny / kYBlk;
-  const size_t e = blockIdx.x / (nxb * nyb);
-  const int t_blk = blockIdx.x - (int)e * (nxb * nyb);
-  const int x0 = (t_blk / nyb) * kXBlk, y0 = (t_blk % nyb) * kYBlk;
-
-  SlabXY Q{smem, -4, -4, kYBlk + 8, nz};
-  SlabXY U{Q.p + (kXBlk + 8) * Q.ny * nz, -3, -3, kYBlk + 6, nz};
-  SlabXY V{U.p + (kXBlk + 7) * U.ny * nz, -3, -3, kYBlk + 7, nz};
-  SlabXY B{V.p + (kXBlk + 6) * V.ny * nz, -3, -3, kYBlk + 6, nz};
-  SlabXY W{B.p + (kXBlk + 6) * B.ny * nz, -3, -3, kYBlk + 6, nz + 1};
-  // phase 3 on: pHY' over x in [-1, kXBlk], y in [-1, kYBlk]
-  SlabXY PH{Q.p, -1, -1, kYBlk + 2, nz};
-  // phase 4 on: u* at x = kXBlk (kYBlk rows) and v* at y = kYBlk (kXBlk columns)
-  float* u_edge = Q.p + (kXBlk + 2) * PH.ny * nz;
-  float* v_edge = u_edge + kYBlk * nz;
-
-  // ---- 1. stage the slabs ---------------------------------------------------
+  const int nx = P.nx, ny = P.ny, nz = NZ > 0 ? NZ : P.nz, nw = nz + 1;
+  // this thread's point of every x-plane: row j (0..kYT), level k; the
+  // only divisions by a runtime size are these and the block's
+  const int j = threadIdx.x / nz, k = threadIdx.x - j * nz;
+  const int nyb = ny / kYT;
+  const size_t e = blockIdx.x / nyb;
+  const int y0 = (blockIdx.x - (int)e * nyb) * kYT;
+  const size_t S = (size_t)ny * nz, SW = (size_t)ny * nw;
   const size_t cell0 = e * nx * S, face0 = e * nx * SW;
-  load_window(u_in + cell0, U.p, x0, U.lo, kXBlk + 7, nx, y0, U.ylo, U.ny, ny, nz);
-  load_window(v_in + cell0, V.p, x0, V.lo, kXBlk + 6, nx, y0, V.ylo, V.ny, ny, nz);
-  load_window(b_in + cell0, B.p, x0, B.lo, kXBlk + 6, nx, y0, B.ylo, B.ny, ny, nz);
-  load_window(w_in + face0, W.p, x0, W.lo, kXBlk + 6, nx, y0, W.ylo, W.ny, ny, nz + 1);
-  {  // q is (E, ny, nx, nz): per y row, the block's columns are one run
-    const int n_cols = kXBlk + 8;
-    const float* qe = q_in + e * (size_t)ny * nx * nz;
-    for (int idx = threadIdx.x; idx < Q.ny * n_cols * nz; idx += blockDim.x) {
-      const int k = idx % nz, t = idx / nz;
-      const int c = t % n_cols, y = t / n_cols;
-      Q.p[(c * Q.ny + y) * nz + k] =
-          qe[((size_t)wrap_x(y0 + Q.ylo + y, ny) * nx + wrap_x(x0 + Q.lo + c, nx)) * nz + k];
+  const bool own = j < kYT;  // row kYT computes v* only, for the divergence
+
+  Ring<kRing> U{smem, kULo, kURows, nz};
+  Ring<kRing> V{U.end(), kVLo, kVRows, nz};
+  Ring<kRing> W{V.end(), kWLo, kWRows, nw};
+  Ring<kRing> B{W.end(), kBLo, kBRows, nz};
+  Ring<2> Q{B.end(), kQLo, kQRows, nz};
+  Ring<kPhRing> PH{Q.end(), kPLo, kPRows, nz};
+  float* vs = PH.end();             // v* of the current plane, rows 0..kYT
+  float* ws = vs + (kYT + 1) * nz;  // w* of the current plane, rows 0..kYT-1
+
+  // ---- staging: plane x of u, v, w, b and q, raw, by asynchronous copies ----
+  auto copy_rows = [&](const Ring<kRing>& R, const float* src, size_t row_stride, int x) {
+    for (int r = R.lo + j; r < R.lo + R.rows; r += kYT + 1) {
+      const float* s = src + wrap_x(y0 + r, ny) * row_stride;
+      float* d = R.row(x, r);
+      __pipeline_memcpy_async(d + k, s + k, sizeof(float));
+      if (R.nk > nz && k == 0) __pipeline_memcpy_async(d + nz, s + nz, sizeof(float));
     }
+  };
+  auto load_q = [&](int x) {  // q is (E, ny, nx, nz): row y of plane x is one run
+    const float* qe = q_in + e * ny * nx * nz + (size_t)wrap_x(x, nx) * nz;
+    for (int r = kQLo + j; r < kQLo + kQRows; r += kYT + 1) {
+      __pipeline_memcpy_async(Q.row(x, r) + k, qe + (size_t)wrap_x(y0 + r, ny) * nx * nz + k,
+                              sizeof(float));
+    }
+  };
+  auto load_plane = [&](int x) {
+    const size_t xc = (size_t)wrap_x(x, nx);
+    copy_rows(U, u_in + cell0 + xc * S, nz, x);
+    copy_rows(V, v_in + cell0 + xc * S, nz, x);
+    copy_rows(B, b_in + cell0 + xc * S, nz, x);
+    copy_rows(W, w_in + face0 + xc * SW, nw, x);
+    load_q(x);
+    __pipeline_commit();
+  };
+  // ---- lazy-projection correction of plane x, once, as it arrives ----------
+  auto correct_plane = [&](int x) {
+    for (int r = kULo + j; r < kULo + kURows; r += kYT + 1)
+      U.row(x, r)[k] -= (Q.row(x, r)[k] - Q.row(x - 1, r)[k]) * P.idx;
+    for (int r = kVLo + j; r < kVLo + kVRows; r += kYT + 1)
+      V.row(x, r)[k] -= (Q.row(x, r)[k] - Q.row(x, r - 1)[k]) * P.idy;
+    if (k > 0) {  // interior faces only
+      for (int r = kWLo + j; r < kWLo + kWRows; r += kYT + 1)
+        W.row(x, r)[k] -= (Q.row(x, r)[k] - Q.row(x, r)[k - 1]) * P.idz;
+    }
+  };
+  // ---- pHY' of plane x: each point sums its column above it in float64 -----
+  auto hydrostatic = [&](int x) {
+    const double dz = P.dz;
+    for (int r = kPLo + j; r < kPLo + kPRows; r += kYT + 1) {
+      const float* bc = B.row(x, r);
+      double s = 0.0;  // sum of b[k..nz-1], walked from the top (one address a warp)
+      for (int m = nz - 1; m >= k; --m) s += (double)bc[m];
+      // -(0.5 dz min_b + dz sum_{m=k}^{nz-2} (b[m] + b[m+1]) / 2)
+      PH.row(x, r)[k] =
+          (float)-(0.5 * dz * P.min_b + dz * (s - 0.5 * ((double)bc[k] + (double)bc[nz - 1])));
+    }
+  };
+
+  // z ladder orders of this thread's faces k and k + 1 in a column of nz
+  // (u, v, b) and of nz + 1 points (w), once; z taps clamped into the column
+  const ZOrders zc0 = z_orders(k, nz), zc1 = z_orders(k + 1, nz);
+  const ZOrders zw0 = z_orders(k, nw), zw1 = z_orders(k + 1, nw);
+  int zt[7], zwt[7];  // offsets of taps k-3..k+3
+  for (int o = 0; o < 7; ++o) {
+    zt[o] = min(max(k + o - 3, 0), nz - 1);
+    zwt[o] = min(max(k + o - 3, 0), nw - 1);
+  }
+
+  // ---- x fluxes: each face's once, carried to the next plane ---------------
+  // u at center c (taps faces c-2..c+3); v, w, b at face c (taps c-3..c+2)
+  auto xflux_u = [&](int c) {
+    const float a = U.row(c, j)[k], b = U.row(c + 1, j)[k];
+    return ub5_upwind(U.row(c - 2, j)[k], U.row(c - 1, j)[k], a, b, U.row(c + 2, j)[k],
+                      U.row(c + 3, j)[k], 0.5f * (a + b));
+  };
+  auto xflux_face = [&](const Ring<kRing>& R, int c, float vel) {
+    return ub5_upwind(R.row(c - 3, j)[k], R.row(c - 2, j)[k], R.row(c - 1, j)[k],
+                      R.row(c, j)[k], R.row(c + 1, j)[k], R.row(c + 2, j)[k], vel);
+  };
+  auto xflux_v = [&](int c) {
+    return xflux_face(V, c, 0.5f * (U.row(c, j - 1)[k] + U.row(c, j)[k]));
+  };
+  auto xflux_w = [&](int c) {
+    const float* uc = U.row(c, j);
+    return xflux_face(W, c, 0.5f * (uc[k - 1] + uc[k]));
+  };
+  auto xflux_b = [&](int c) { return xflux_face(B, c, U.row(c, j)[k]); };
+  // vel * UB5 along y at face/center c of plane x, level kk (taps c-3..c+2)
+  auto yflux = [&](const Ring<kRing>& R, int x, int c, int kk, float vel) {
+    return ub5_upwind(R.row(x, c - 3)[kk], R.row(x, c - 2)[kk], R.row(x, c - 1)[kk],
+                      R.row(x, c)[kk], R.row(x, c + 1)[kk], R.row(x, c + 2)[kk], vel);
+  };
+  auto lap_h = [&](const Ring<kRing>& R, int i, int kk, float c) {
+    return (R.row(i + 1, j)[kk] - 2.0f * c + R.row(i - 1, j)[kk]) * P.idx2 +
+           (R.row(i, j + 1)[kk] - 2.0f * c + R.row(i, j - 1)[kk]) * P.idy2;
+  };
+
+  // ---- prologue: planes -3..3, pHY' of -1 and 0, the fluxes entering plane 0
+  load_q(-4);
+  for (int x = -3; x <= 3; ++x) {
+    load_plane(x);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    correct_plane(x);
+    __syncthreads();
+  }
+  hydrostatic(-1);
+  hydrostatic(0);
+  float fu = 0.0f, fv = xflux_v(0), fw = 0.0f, fb = 0.0f;
+  if (own) {
+    fu = xflux_u(-1);
+    fb = xflux_b(0);
+    if (k > 0) fw = xflux_w(0);
   }
   __syncthreads();
 
-  // ---- 2. lazy-projection correction -----------------------------------------
-  {
-    const int cu = U.ny * nz, cv = V.ny * nz, cw = W.ny * (nz + 1);
-    for (int idx = threadIdx.x; idx < (kXBlk + 7) * cu; idx += blockDim.x) {
-      const int x = idx / cu + U.lo, r = idx % cu, y = r / nz + U.ylo, k = r % nz;
-      U.p[idx] -= (Q(x, y, k) - Q(x - 1, y, k)) * P.idx;
-    }
-    for (int idx = threadIdx.x; idx < (kXBlk + 6) * cv; idx += blockDim.x) {
-      const int x = idx / cv + V.lo, r = idx % cv, y = r / nz + V.ylo, k = r % nz;
-      V.p[idx] -= (Q(x, y, k) - Q(x, y - 1, k)) * P.idy;
-    }
-    for (int idx = threadIdx.x; idx < (kXBlk + 6) * cw; idx += blockDim.x) {
-      const int x = idx / cw + W.lo, r = idx % cw, y = r / (nz + 1) + W.ylo, k = r % (nz + 1);
-      if (k > 0 && k < nz) W.p[idx] -= (Q(x, y, k) - Q(x, y, k - 1)) * P.idz;
-    }
-  }
-  __syncthreads();
-
-  // ---- 3. pHY' per (x, y) column ---------------------------------------------
-  for (int t = threadIdx.x; t < (kXBlk + 2) * PH.ny; t += blockDim.x) {
-    const int x = t / PH.ny + PH.lo, y = t % PH.ny + PH.ylo;
-    hydrostatic_column(B.col(x, y), PH.col(x, y), P);
-  }
-  __syncthreads();
-
-  // ---- 4. tendencies and RK update ------------------------------------------
   const bool emit_g = gu_out != nullptr;
-  const int SB = kYBlk * nz;  // the block's own rows of one column
-  for (int idx = threadIdx.x; idx < (kXBlk + 1) * SB; idx += blockDim.x) {
-    const int i = idx / SB, r = idx % SB, j = r / nz, k = r % nz;
-    const float g = tendency_u(U, V, W, PH, i, j, k, P);
-    const size_t o = cell0 + (size_t)wrap_x(x0 + i, nx) * S + (size_t)(y0 + j) * nz + k;
-    const float f = rk_update(U(i, j, k), g, gu_prev, o, dt, gamma, zeta);
-    if (i == kXBlk) {
-      u_edge[r] = f;
-    } else {
-      u_out[o] = f;
-      if (emit_g) gu_out[o] = g;
+  float u_first = 0.0f, u_prev = 0.0f, dv = 0.0f, dw = 0.0f;
+  for (int i = 0; i < nx; ++i) {
+    load_plane(i + 4);  // into plane i - 4's slot, overlapping this plane
+    const size_t o = cell0 + (size_t)i * S + (size_t)(y0 + j) * nz + k;
+    const float* vc = V.row(i, j);
+    // ---- gv and v* at (i, j, k), rows 0..kYT ----
+    {
+      const float f_new = xflux_v(i + 1);
+      float adv = (f_new - fv) * P.idx;
+      fv = f_new;
+      const float vc_j = 0.5f * (vc[k] + V.row(i, j + 1)[k]);
+      const float vc_jm = 0.5f * (V.row(i, j - 1)[k] + vc[k]);
+      adv += (yflux(V, i, j + 1, k, vc_j) - yflux(V, i, j, k, vc_jm)) * P.idy;
+      const float* wa = W.row(i, j - 1);
+      const float* wb = W.row(i, j);
+      const float wf_k = 0.5f * (wa[k] + wb[k]), wf_kp = 0.5f * (wa[k + 1] + wb[k + 1]);
+      const float t0 = vc[zt[0]], t1 = vc[zt[1]], t2 = vc[zt[2]], t3 = vc[k],
+                  t4 = vc[zt[4]], t5 = vc[zt[5]], t6 = vc[zt[6]];
+      adv += (z_upwind(t1, t2, t3, t4, t5, t6, zc1, wf_kp) -
+              z_upwind(t0, t1, t2, t3, t4, t5, zc0, wf_k)) * P.idz;
+      const float dphy = (PH.row(i, j)[k] - PH.row(i, j - 1)[k]) * P.idy;
+      const float qm = k > 0 ? t2 : -vc[0], qp = k < nz - 1 ? t4 : -vc[nz - 1];
+      const float lap = lap_h(V, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
+      const float g = -adv - dphy + P.nu * lap;
+      const size_t ov = cell0 + (size_t)i * S + (size_t)wrap_x(y0 + j, ny) * nz + k;
+      const float f = rk_update(t3, g, gv_prev, ov, dt, gamma, zeta);
+      vs[j * nz + k] = f;
+      if (own) {
+        v_out[o] = f;
+        if (emit_g) gv_out[o] = g;
+      }
     }
-  }
-  const int SV = (kYBlk + 1) * nz;  // v one row wider: v* at the far y face
-  for (int idx = threadIdx.x; idx < kXBlk * SV; idx += blockDim.x) {
-    const int i = idx / SV, r = idx % SV, j = r / nz, k = r % nz;
-    const float g = tendency_v(U, V, W, PH, i, j, k, P);
-    const size_t o = cell0 + (size_t)(x0 + i) * S + (size_t)wrap_x(y0 + j, ny) * nz + k;
-    const float f = rk_update(V(i, j, k), g, gv_prev, o, dt, gamma, zeta);
-    if (j == kYBlk) {
-      v_edge[i * nz + k] = f;
-    } else {
-      v_out[o] = f;
-      if (emit_g) gv_out[o] = g;
+    if (own) {
+      const float* uc = U.row(i, j);
+      const float* wc = W.row(i, j);
+      const float* wm = W.row(i - 1, j);
+      // ---- gu and u* at face i ----
+      {
+        const float f_new = xflux_u(i);
+        float adv = (f_new - fu) * P.idx;
+        fu = f_new;
+        const float* va = V.row(i - 1, j);
+        const float* vb = V.row(i - 1, j + 1);
+        const float vf_j = 0.5f * (va[k] + vc[k]);
+        const float vf_jp = 0.5f * (vb[k] + V.row(i, j + 1)[k]);
+        adv += (yflux(U, i, j + 1, k, vf_jp) - yflux(U, i, j, k, vf_j)) * P.idy;
+        const float wf_k = 0.5f * (wm[k] + wc[k]), wf_kp = 0.5f * (wm[k + 1] + wc[k + 1]);
+        const float t0 = uc[zt[0]], t1 = uc[zt[1]], t2 = uc[zt[2]], t3 = uc[k],
+                    t4 = uc[zt[4]], t5 = uc[zt[5]], t6 = uc[zt[6]];
+        adv += (z_upwind(t1, t2, t3, t4, t5, t6, zc1, wf_kp) -
+                z_upwind(t0, t1, t2, t3, t4, t5, zc0, wf_k)) * P.idz;
+        const float dphy = (PH.row(i, j)[k] - PH.row(i - 1, j)[k]) * P.idx;
+        const float qm = k > 0 ? t2 : -uc[0], qp = k < nz - 1 ? t4 : -uc[nz - 1];
+        const float lap = lap_h(U, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
+        const float g = -adv - dphy + P.nu * lap;
+        const float f = rk_update(t3, g, gu_prev, o, dt, gamma, zeta);
+        u_out[o] = f;
+        if (emit_g) gu_out[o] = g;
+        // div(i - 1) = ((u*(i) - u*(i-1)) / dx + dv) + dw, the plain version's order
+        if (i > 0) {
+          div_out[((e * ny + y0 + j) * nx + i - 1) * nz + k] = ((f - u_prev) * P.idx + dv) + dw;
+        } else {
+          u_first = f;
+        }
+        u_prev = f;
+      }
+      // ---- gw and w* at (i, j, face k); the k = 0 thread takes both walls ----
+      {
+        const size_t ow = face0 + (size_t)i * SW + (size_t)(y0 + j) * nw + k;
+        if (k > 0) {
+          const float f_new = xflux_w(i + 1);
+          float adv = (f_new - fw) * P.idx;
+          fw = f_new;
+          const float* va = V.row(i, j + 1);
+          const float vf_j = 0.5f * (vc[k - 1] + vc[k]);
+          const float vf_jp = 0.5f * (va[k - 1] + va[k]);
+          adv += (yflux(W, i, j + 1, k, vf_jp) - yflux(W, i, j, k, vf_j)) * P.idy;
+          const float t0 = wc[zwt[0]], t1 = wc[zwt[1]], t2 = wc[k - 1], t3 = wc[k],
+                      t4 = wc[k + 1], t5 = wc[zwt[5]], t6 = wc[zwt[6]];
+          adv += (z_upwind(t1, t2, t3, t4, t5, t6, zw1, 0.5f * (t3 + t4)) -
+                  z_upwind(t0, t1, t2, t3, t4, t5, zw0, 0.5f * (t2 + t3))) * P.idz;
+          const float lap = lap_h(W, i, k, t3) + (t4 - 2.0f * t3 + t2) * P.idz2;
+          const float g = -adv + P.nu * lap;
+          const float f = rk_update(t3, g, gw_prev, ow, dt, gamma, zeta);
+          w_out[ow] = f;
+          if (emit_g) gw_out[ow] = g;
+          ws[j * nw + k] = f;
+        } else {  // wall faces: w, g and g_prev are all 0, so w* stays exactly 0
+          for (int face = 0; face <= nz; face += nz) {
+            const float f = rk_update(wc[face], 0.0f, gw_prev, ow + face, dt, gamma, zeta);
+            w_out[ow + face] = f;
+            if (emit_g) gw_out[ow + face] = 0.0f;
+            ws[j * nw + face] = f;
+          }
+        }
+      }
+      // ---- gb and b' ----
+      {
+        const float* bc = B.row(i, j);
+        const float f_new = xflux_b(i + 1);
+        float adv = (f_new - fb) * P.idx;
+        fb = f_new;
+        adv += (yflux(B, i, j + 1, k, V.row(i, j + 1)[k]) - yflux(B, i, j, k, vc[k])) * P.idy;
+        const float t0 = bc[zt[0]], t1 = bc[zt[1]], t2 = bc[zt[2]], t3 = bc[k],
+                    t4 = bc[zt[4]], t5 = bc[zt[5]], t6 = bc[zt[6]];
+        adv += (z_upwind(t1, t2, t3, t4, t5, t6, zc1, wc[k + 1]) -
+                z_upwind(t0, t1, t2, t3, t4, t5, zc0, wc[k])) * P.idz;
+        const float bottom = k == 0 ? bottom_in[(e * nx + i) * ny + y0 + j] : 0.0f;
+        const float qm = k > 0 ? t2 : 2.0f * bottom - bc[0];
+        const float qp = k < nz - 1 ? t4 : 2.0f * P.min_b - bc[nz - 1];
+        const float lap = lap_h(B, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
+        const float g = -adv + P.kappa * lap;
+        const float f = rk_update(t3, g, gb_prev, o, dt, gamma, zeta);
+        b_out[o] = f;
+        if (emit_g) gb_out[o] = g;
+      }
     }
+    __pipeline_wait_prior(0);
+    __syncthreads();  // plane i + 4 has landed; v*, w* of plane i are complete
+    correct_plane(i + 4);
+    hydrostatic(i + 1);
+    if (own) {
+      dv = (vs[(j + 1) * nz + k] - vs[j * nz + k]) * P.idy;
+      dw = (ws[j * nw + k + 1] - ws[j * nw + k]) * P.idz;
+    }
+    __syncthreads();
   }
-  const int SBW = kYBlk * (nz + 1);
-  for (int idx = threadIdx.x; idx < kXBlk * SBW; idx += blockDim.x) {
-    const int i = idx / SBW, r = idx % SBW, j = r / (nz + 1), k = r % (nz + 1);
-    const size_t o = face0 + (size_t)(x0 + i) * SW + (size_t)(y0 + j) * (nz + 1) + k;
-    const float g = tendency_w(U, V, W, i, j, k, P);
-    w_out[o] = rk_update(W(i, j, k), g, gw_prev, o, dt, gamma, zeta);
-    if (emit_g) gw_out[o] = g;
+  if (own) {  // div(nx - 1): u* at face nx is u* at face 0
+    div_out[((e * ny + y0 + j) * nx + nx - 1) * nz + k] = ((u_first - u_prev) * P.idx + dv) + dw;
   }
-  for (int idx = threadIdx.x; idx < kXBlk * SB; idx += blockDim.x) {
-    const int i = idx / SB, r = idx % SB, j = r / nz, k = r % nz;
-    const size_t o = cell0 + (size_t)(x0 + i) * S + (size_t)(y0 + j) * nz + k;
-    const float bottom = bottom_in[(e * nx + x0 + i) * ny + y0 + j];
-    const float g = tendency_b(U, V, W, B, bottom, i, j, k, P);
-    b_out[o] = rk_update(B(i, j, k), g, gb_prev, o, dt, gamma, zeta);
-    if (emit_g) gb_out[o] = g;
-  }
-  __syncthreads();  // this block's u*, v*, w* writes are visible below
+}
 
-  // ---- 5. div(u*, v*, w*) into the solve layout ------------------------------
-  for (int idx = threadIdx.x; idx < kXBlk * SB; idx += blockDim.x) {
-    const int k = idx % nz, t = idx / nz, i = t % kXBlk, j = t / kXBlk;
-    const int x = x0 + i, y = y0 + j;
-    const size_t o = cell0 + (size_t)x * S + (size_t)y * nz + k;
-    const float u_ip = i + 1 < kXBlk ? u_out[o + S] : u_edge[j * nz + k];
-    const float v_jp = j + 1 < kYBlk ? v_out[o + nz] : v_edge[i * nz + k];
-    const float* wc = w_out + face0 + (size_t)x * SW + (size_t)y * (nz + 1);
-    const float d = (u_ip - u_out[o]) * P.idx + (v_jp - v_out[o]) * P.idy +
-                    (wc[k + 1] - wc[k]) * P.idz;
-    div_out[((e * ny + y) * nx + x) * nz + k] = d;
-  }
+// The K5 instance for nz: specialised for the grids users run (the big
+// grid's 32, and 16), the runtime-nz one for every other nz.
+decltype(&stage_rk_3d_xy_kernel<0>) stage_xy_kernel_for(int nz) {
+  return nz == 32 ? stage_rk_3d_xy_kernel<32>
+                  : (nz == 16 ? stage_rk_3d_xy_kernel<16> : stage_rk_3d_xy_kernel<0>);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -690,7 +894,7 @@ int launch_stage_rk_3d(const float* u, const float* v, const float* w, const flo
   cudaError_t err = cudaFuncSetAttribute(
       stage_rk_3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const RBC3DParams P = params3d(nx, ny, nz, dx, dy, dz, nu, kappa, min_b);
+  const RBC3DParams P{nx, ny, nz, dx, dy, dz, nu, kappa, min_b};
   stage_rk_3d_kernel<<<n_env * (nx / kXBlk), kThreads, smem, (cudaStream_t)stream>>>(
       u, v, w, b, q, bottom, gu_prev, gv_prev, gw_prev, gb_prev, u_out, v_out, w_out,
       b_out, div_out, gu, gv, gw, gb, dt, gamma, zeta, P);
@@ -707,19 +911,18 @@ int launch_stage_rk_3d_xy(const float* u, const float* v, const float* w, const 
                           float kappa, float min_b, void* stream) {
   const bool reads_g = gu_prev && gv_prev && gw_prev && gb_prev;
   const bool writes_g = gu && gv && gw && gb;
-  if (nx % kXBlk != 0 || nx < kXBlk || ny % kYBlk != 0 || ny < kYBlk || nz < 2 ||
+  const size_t smem = sizeof(float) * stage_xy_smem_floats(nz);
+  if (nx < kXYMinNx || ny % kYT != 0 || ny < kYT || nz < 2 || smem > kSmemPerBlock ||
       stage < 0 || stage > 2 || reads_g != (stage > 0) || writes_g != (stage < 2)) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = sizeof(float) * stage_xy_smem_floats(nz);
-  auto* kernel = nz == 32 ? stage_rk_3d_xy_kernel<32>
-                 : nz == 16 ? stage_rk_3d_xy_kernel<16> : stage_rk_3d_xy_kernel<0>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto* kernel = stage_xy_kernel_for(nz);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const RBC3DParams P = params3d(nx, ny, nz, dx, dy, dz, nu, kappa, min_b);
-  const unsigned blocks = (unsigned)n_env * (nx / kXBlk) * (ny / kYBlk);
-  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  const XYParams P = xy_params(nx, ny, nz, dx, dy, dz, nu, kappa, min_b);
+  const unsigned blocks = (unsigned)n_env * (ny / kYT);
+  kernel<<<blocks, stage_xy_threads(nz), smem, (cudaStream_t)stream>>>(
       u, v, w, b, q, bottom, gu_prev, gv_prev, gw_prev, gb_prev, u_out, v_out, w_out,
       b_out, div_out, gu, gv, gw, gb, dt, gamma, zeta, P);
   return (int)cudaGetLastError();
@@ -743,7 +946,7 @@ int launch_field_tendency_3d(int field, const float* u, const float* v, const fl
       (aux == nullptr) != (field == kFieldW) || (bottom != nullptr) != (field == kFieldB)) {
     return (int)cudaErrorInvalidValue;
   }
-  const RBC3DParams P = params3d(nx, ny, nz, dx, dy, dz, nu, kappa, min_b);
+  const RBC3DParams P{nx, ny, nz, dx, dy, dz, nu, kappa, min_b};
   const size_t n = (size_t)n_env * nx * ny * (field == kFieldW ? nz + 1 : nz);
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   auto* kernel = field == kFieldU   ? field_tendency_3d_kernel<kFieldU>

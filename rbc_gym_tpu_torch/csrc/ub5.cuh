@@ -3,9 +3,7 @@
 // Ports the shared Pallas helpers of rbc_gym_tpu/ops/pallas3d.py:
 //   _c6_d5_flux (:171-187)        -> c6_d5_flux
 //   _uw_flux_periodic (:190-201)  -> uw_flux_periodic (any strided periodic
-//                                    axis: x in 2D, y in 3D), uw_flux_x, and
-//                                    uw_flux_strided (an axis staged with
-//                                    its halo: y in K5)
+//                                    axis: x in 2D, y in 3D) and uw_flux_x
 //   _z_row_flux/_z_uw_flux        -> z_uw_flux (interior C6/D5 rows, wall
 //     (:204-255)                     rows by the UB5 -> UB3 -> UB1 ladder)
 // and the body of ops/pallas2d.py:_tendencies (:144-184) -> tendencies_block.
@@ -50,15 +48,6 @@ __device__ __forceinline__ float uw_flux_periodic(const float* q, int stride, in
   return c6_d5_flux(q[wrap_x(c - 3, n) * stride], q[wrap_x(c - 2, n) * stride],
                     q[wrap_x(c - 1, n) * stride], q[wrap_x(c, n) * stride],
                     q[wrap_x(c + 1, n) * stride], q[wrap_x(c + 2, n) * stride], vel);
-}
-
-// The same along an axis staged with its halo, so that every tap lies in
-// the array: q[(i + m + off) * stride] for off in -3..2, no wrap.
-__device__ __forceinline__ float uw_flux_strided(const float* q, int stride, int i, int m,
-                                                 float vel) {
-  const int c = i + m;
-  return c6_d5_flux(q[(c - 3) * stride], q[(c - 2) * stride], q[(c - 1) * stride],
-                    q[c * stride], q[(c + 1) * stride], q[(c + 2) * stride], vel);
 }
 
 // The same along periodic x of a 2D (nx, stride) slab, at (i, k): `stride`

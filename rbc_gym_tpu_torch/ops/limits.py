@@ -12,8 +12,10 @@ from __future__ import annotations
 # Shared memory one block may ask for on an H100 (sm_90): 227 KB.
 SMEM_PER_BLOCK = 232_448
 
-X_BLK = 4  # x columns a K3 or K5 block owns (csrc/rbc3d.cu kXBlk)
-Y_BLK = 8  # y rows a K5 block owns (kYBlk)
+X_BLK = 4  # x columns a K3 block owns (csrc/rbc3d.cu kXBlk)
+Y_BLK = 8  # y rows a K5 block owns (kYT)
+XY_MIN_NX = 4  # K5's plane indices -4..nx+3 wrap x once (kXYMinNx)
+XY_RING = 8  # x-planes of u, v, w, b a K5 block holds (kRing)
 
 
 def env_step_2d_smem_bytes(nx: int, nz: int) -> int:
@@ -29,9 +31,10 @@ def stage_smem_bytes(ny: int, nz: int) -> int:
 
 
 def stage_xy_smem_bytes(nz: int) -> int:
-    """K5's slabs: (columns, rows) of q (x_blk + 8, y_blk + 8), u (x_blk + 7,
-    y_blk + 6), v (x_blk + 6, y_blk + 7), b (x_blk + 6, y_blk + 6) of nz, w
-    (x_blk + 6, y_blk + 6) of nz + 1 (``stage_xy_smem_floats``)."""
-    cells = ((X_BLK + 8) * (Y_BLK + 8) + (X_BLK + 7) * (Y_BLK + 6)
-             + (X_BLK + 6) * (Y_BLK + 7) + (X_BLK + 6) * (Y_BLK + 6))
-    return 4 * (cells * nz + (X_BLK + 6) * (Y_BLK + 6) * (nz + 1))
+    """K5's x-plane rings: ``XY_RING`` planes of u (y_blk + 6 rows), v
+    (y_blk + 7) and b (y_blk + 6) of nz and of w (y_blk + 6) of nz + 1, two
+    planes of q (y_blk + 8 rows), four of pHY' (y_blk + 2), and v* (y_blk + 1
+    rows) and w* (y_blk) of one plane (``stage_xy_smem_floats``)."""
+    rows_nz = XY_RING * (3 * Y_BLK + 19) + 2 * (Y_BLK + 8) + 4 * (Y_BLK + 2) + Y_BLK + 1
+    rows_nw = XY_RING * (Y_BLK + 6) + Y_BLK
+    return 4 * (rows_nz * nz + rows_nw * (nz + 1))

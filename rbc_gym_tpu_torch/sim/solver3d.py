@@ -64,6 +64,7 @@ from rbc_gym_tpu_torch.ops import stencils as st
 from rbc_gym_tpu_torch.ops.limits import (
     SMEM_PER_BLOCK,
     X_BLK,
+    XY_MIN_NX,
     Y_BLK,
     stage_smem_bytes,
     stage_xy_smem_bytes,
@@ -173,15 +174,16 @@ def stage_kernel_limit(kernel: str, dtype: torch.dtype, nx: int, ny: int, nz: in
         if nx < 3 or ny < 3 or nz < 2:
             return f"the field kernels need nx, ny >= 3 and nz >= 2 (nx={nx}, ny={ny}, nz={nz})"
         return None
-    if nx % X_BLK or nz < 2:
-        return f"the {kernel} kernel needs nx % {X_BLK} == 0 and nz >= 2 (nx={nx}, nz={nz})"
     if kernel == "stage":
+        if nx % X_BLK or nz < 2:
+            return f"the stage kernel needs nx % {X_BLK} == 0 and nz >= 2 (nx={nx}, nz={nz})"
         if ny < 4:
             return f"the stage kernel needs ny >= 4 (ny={ny})"
         need = stage_smem_bytes(ny, nz)
     else:
-        if ny % Y_BLK:
-            return f"the stage_xy kernel needs ny % {Y_BLK} == 0 (ny={ny})"
+        if nx < XY_MIN_NX or ny % Y_BLK or nz < 2:
+            return (f"the stage_xy kernel needs nx >= {XY_MIN_NX}, ny % {Y_BLK} == 0 and "
+                    f"nz >= 2 (nx={nx}, ny={ny}, nz={nz})")
         need = stage_xy_smem_bytes(nz)
     if need > SMEM_PER_BLOCK:
         return (f"the {kernel} kernel needs {need:,} bytes of shared memory per block "

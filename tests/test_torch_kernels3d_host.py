@@ -26,22 +26,39 @@ from rbc_gym_tpu_torch.ops import limits
 
 SHIM = r"""
 #pragma once
+#include <algorithm>
+#include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
+using std::max;
+using std::min;
 #define __global__
 #define __device__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
-inline dim3 threadIdx, blockIdx, blockDim;
-inline void __syncthreads() {}
+inline thread_local dim3 threadIdx;
+inline dim3 blockIdx, blockDim;
+// the barrier of the block's threads (none when a block runs on one thread)
+inline std::barrier<>* block_barrier = nullptr;
+inline void __syncthreads() {
+  if (block_barrier) block_barrier->arrive_and_wait();
+}
+// cp.async: the copy lands at once, which its wait and barrier imply anyway
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n, size_t = 0) {
+  std::memcpy(dst, src, n);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 """
 
 DRIVER = r"""
 #include <cstdio>
 #include <cstdlib>
 #include <string>
+#include <thread>
 #include <vector>
 namespace host { float smem[1 << 20]; }
 #include "rbc3d_host.h"
@@ -68,9 +85,9 @@ int main(int argc, char** argv) {
   if (std::string(argv[1]) == "field") {  // field DIR E NX NY NZ DX DY DZ NU KAPPA MIN_B
     dir = argv[2];
     const int E = atoi(argv[3]), nx = atoi(argv[4]), ny = atoi(argv[5]), nz = atoi(argv[6]);
-    const RBC3DParams P = params3d(nx, ny, nz, (float)atof(argv[7]), (float)atof(argv[8]),
+    const RBC3DParams P{nx, ny, nz, (float)atof(argv[7]), (float)atof(argv[8]),
                         (float)atof(argv[9]), (float)atof(argv[10]), (float)atof(argv[11]),
-                        (float)atof(argv[12]));
+                        (float)atof(argv[12])};
     const size_t C = (size_t)E * nx * ny * nz, F = (size_t)E * nx * ny * (nz + 1);
     auto u = rd("u", C), v = rd("v", C), w = rd("w", F), b = rd("b", C), p_hy = rd("p_hy", C);
     auto bottom = rd("bottom", (size_t)E * nx * ny);
@@ -98,9 +115,9 @@ int main(int argc, char** argv) {
   const int E = atoi(argv[2]), nx = atoi(argv[3]), ny = atoi(argv[4]), nz = atoi(argv[5]);
   const int stage = atoi(argv[6]);
   const float dt = atof(argv[7]), gamma = atof(argv[8]), zeta = atof(argv[9]);
-  const RBC3DParams P = params3d(nx, ny, nz, (float)atof(argv[10]), (float)atof(argv[11]),
+  const RBC3DParams P{nx, ny, nz, (float)atof(argv[10]), (float)atof(argv[11]),
                       (float)atof(argv[12]), (float)atof(argv[13]), (float)atof(argv[14]),
-                      (float)atof(argv[15]));
+                      (float)atof(argv[15])};
   const size_t C = (size_t)E * nx * ny * nz, F = (size_t)E * nx * ny * (nz + 1);
   auto u = rd("u", C), v = rd("v", C), w = rd("w", F), b = rd("b", C), q = rd("q", C);
   auto bottom = rd("bottom", (size_t)E * nx * ny);
@@ -113,15 +130,39 @@ int main(int argc, char** argv) {
                              std::vector<float>(F), std::vector<float>(C)};
   auto prev = [&](int i) { return stage > 0 ? gp[i].data() : nullptr; };
   auto emit = [&](int i) { return stage < 2 ? g[i].data() : nullptr; };
-  blockDim.x = 1;
-  const unsigned n_blk = E * (nx / kXBlk) * (xy ? ny / kYBlk : 1);
-  for (unsigned blk = 0; blk < n_blk; ++blk) {
-    blockIdx.x = blk;
-    (xy ? stage_rk_3d_xy_kernel<0> : stage_rk_3d_kernel)(
-        u.data(), v.data(), w.data(), b.data(), q.data(), bottom.data(), prev(0), prev(1),
-        prev(2), prev(3), out[0].data(), out[1].data(), out[2].data(), out[3].data(),
-        out[4].data(), emit(0), emit(1), emit(2), emit(3), dt, gamma, zeta, P);
+  if (xy) {  // K5: every thread of a block, meeting at real barriers
+    const XYParams PX = xy_params(nx, ny, nz, P.dx, P.dy, P.dz, P.nu, P.kappa, P.min_b);
+    const int n_thr = stage_xy_threads(nz);
+    auto* kernel = stage_xy_kernel_for(nz);
+    blockDim.x = n_thr;
+    for (unsigned blk = 0; blk < E * (unsigned)(ny / kYT); ++blk) {
+      blockIdx.x = blk;
+      std::barrier<> bar(n_thr);
+      block_barrier = &bar;
+      std::vector<std::thread> threads;
+      for (int t = 0; t < n_thr; ++t) {
+        threads.emplace_back([&, t] {
+          threadIdx.x = t;
+          kernel(u.data(), v.data(), w.data(), b.data(), q.data(), bottom.data(), prev(0),
+                 prev(1), prev(2), prev(3), out[0].data(), out[1].data(), out[2].data(),
+                 out[3].data(), out[4].data(), emit(0), emit(1), emit(2), emit(3), dt, gamma,
+                 zeta, PX);
+        });
+      }
+      for (auto& th : threads) th.join();
+      block_barrier = nullptr;
+    }
+  } else {  // K3: one thread per block
+    blockDim.x = 1;
+    for (unsigned blk = 0; blk < E * (unsigned)(nx / kXBlk); ++blk) {
+      blockIdx.x = blk;
+      stage_rk_3d_kernel(u.data(), v.data(), w.data(), b.data(), q.data(), bottom.data(),
+                         prev(0), prev(1), prev(2), prev(3), out[0].data(), out[1].data(),
+                         out[2].data(), out[3].data(), out[4].data(), emit(0), emit(1),
+                         emit(2), emit(3), dt, gamma, zeta, P);
+    }
   }
+  blockDim.x = 1;
   const char* names[9] = {"u_out", "v_out", "w_out", "b_out", "div", "gu", "gv", "gw", "gb"};
   for (int i = 0; i < 5; ++i) wr(names[i], out[i]);
   for (int i = 0; i < 4 && stage < 2; ++i) wr(names[5 + i], g[i]);
@@ -147,13 +188,15 @@ def host_binary(tmp_path_factory):
     src = (_build.CSRC_DIR / "rbc3d.cu").read_text()
     src = src[: src.index('extern "C" {')]  # the launchers need nvcc
     src = src.replace("#include <cuda_runtime.h>", '#include "shim.h"')
+    src = src.replace("#include <cuda_pipeline.h>\n", "")
     src = src.replace('#include "ub5.cuh"', f'#include "{_build.CSRC_DIR / "ub5.cuh"}"')
     src = src.replace("namespace {", "namespace host {", 1)
     (d / "shim.h").write_text(SHIM)
     (d / "rbc3d_host.h").write_text(src)
     (d / "driver.cpp").write_text(DRIVER)
     exe = d / "driver"
-    proc = subprocess.run([gxx, "-std=c++17", "-O1", "-o", str(exe), str(d / "driver.cpp")],
+    proc = subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-o", str(exe),
+                           str(d / "driver.cpp")],
                           capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     return exe
@@ -227,6 +270,9 @@ def test_host_build_of_k3_and_k4_matches_plain(host_binary, tmp_path, shape, sta
     (2, 8, 16, 8),  # 2 x blocks and 2 y blocks
     (1, 4, 8, 5),  # ny = y_blk: the one y block's halos wrap onto itself
     (1, 8, 24, 6),  # 3 y blocks, nz where the z ladder meets in the middle
+    (1, 8, 16, 32),  # the specialised nz = 32 (a warp per column), two y tiles
+    (1, 4, 16, 16),  # the specialised nz = 16; nx = 4: every x tap and plane wraps
+    (1, 6, 8, 7),  # runtime nz, nx % 4 != 0, one y tile whose halos wrap onto itself
 ])
 def test_host_build_of_k5_matches_plain(host_binary, tmp_path, shape, stage):
     _run_stage(host_binary, tmp_path, shape, stage, "xy")

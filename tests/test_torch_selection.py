@@ -43,8 +43,8 @@ def test_auto_selection(dtype, shape, device_type, want):
 
 
 @pytest.mark.parametrize("shape,message", [
-    # K3 too large, K5's constraints hold but its slabs need 248,880 bytes
-    ((64, 64, 80), "stage_xy kernel needs 248,880 bytes.*232,448"),
+    # K3 too large, K5's constraints hold but its x-plane rings need 233,740 bytes
+    ((64, 64, 107), "stage_xy kernel needs 233,740 bytes.*232,448"),
 ])
 def test_auto_selection_raises_where_only_the_jax_package_has_a_kernel(shape, message):
     """Auto never puts the plain path on the card where the JAX package
@@ -74,7 +74,8 @@ def test_forced_selection_that_fits(fused, shape, want, device_type):
     ("stage", F64, TRAINING, "float32"),
     ("stage", F32, (6, 32, 16), "nx % 4 == 0"),
     ("stage_xy", F32, (64, 60, 32), "ny % 8 == 0"),
-    ("stage_xy", F32, (64, 64, 80), "248,880 bytes"),
+    ("stage_xy", F32, (64, 64, 107), "233,740 bytes"),
+    ("stage_xy", F32, (3, 64, 32), "nx >= 4"),
     ("stage_xy", F64, BIG, "float32"),
     ("field", F64, TRAINING, "float32, not torch.float64"),
     (True, F64, (6, 32, 16), "float32, not torch.float64"),
@@ -86,6 +87,24 @@ def test_forced_selection_that_cannot_fit_raises(fused, dtype, shape, message):
             s3.select_stage_path(dtype, *shape, device_type, fused)
         if "bytes" in message:
             assert "232,448" in str(err.value)
+
+
+# Every grid the (x, y)-blocked K5 of the first design took, as (nx, ny, nz),
+# with the path auto picked for it then: K5's x march keeps taking each.
+K5_GRIDS = [
+    (BIG, "stage_xy"),  # the big grid, the main path of K5
+    (TRAINING, "stage"),  # forced to K5 by the smoke's kernel_parity_big
+    ((16, 16, 8), "stage"),  # the CPU tests' forced stage_xy grid
+    ((4, 8, 5), "stage"),  # the host build's one-tile grid
+]
+
+
+@pytest.mark.parametrize("shape,auto", K5_GRIDS)
+def test_k5_still_takes_every_grid_it_took(shape, auto):
+    assert s3.stage_kernel_limit("stage_xy", F32, *shape) is None
+    assert s3.select_stage_path(F32, *shape, "cuda", "stage_xy") == "stage_xy"
+    assert s3.select_stage_path(F32, *shape, "cuda") == auto
+    assert s3.select_stage_path(F32, *shape, "cpu") == "plain"
 
 
 @pytest.mark.parametrize("fused,error,reason", [
