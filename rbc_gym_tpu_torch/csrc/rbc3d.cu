@@ -512,7 +512,7 @@ size_t stage_xy_smem_floats(int nz) {
 int stage_xy_threads(int nz) { return (kYT + 1) * nz; }
 
 template <int NZ>
-__global__ void __launch_bounds__(NZ > 0 ? (kYT + 1) * NZ : 1024, NZ == 32 ? 2 : 1)
+__global__ void __launch_bounds__(NZ > 0 ? (kYT + 1) * NZ : 1024, NZ == 32 ? 3 : 1)
 stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
                       const float* __restrict__ w_in, const float* __restrict__ b_in,
                       const float* __restrict__ q_in, const float* __restrict__ bottom_in,
@@ -649,11 +649,28 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
   }
   __syncthreads();
 
-  const bool emit_g = gu_out != nullptr;
+  const bool emit_g = gu_out != nullptr, reads_g = gu_prev != nullptr;
+  // f + dt (gamma g + zeta g_prev), rk_update's arithmetic; stage 0 has no g_prev
+  auto rk_value = [&](float f, float g, float gp) {
+    return reads_g ? f + dt * (gamma * g + zeta * gp) : f + dt * (gamma * g);
+  };
   float u_first = 0.0f, u_prev = 0.0f, dv = 0.0f, dw = 0.0f;
   for (int i = 0; i < nx; ++i) {
     load_plane(i + 4);  // into plane i - 4's slot, overlapping this plane
     const size_t o = cell0 + (size_t)i * S + (size_t)(y0 + j) * nz + k;
+    const size_t ov = cell0 + (size_t)i * S + (size_t)wrap_x(y0 + j, ny) * nz + k;
+    const size_t ow = face0 + (size_t)i * SW + (size_t)(y0 + j) * nw + k;
+    // this point's g_prev and bottom, loaded before the arithmetic hides them
+    float gp_u = 0.0f, gp_v = 0.0f, gp_w = 0.0f, gp_b = 0.0f, bottom = 0.0f;
+    if (reads_g) {
+      gp_v = gv_prev[ov];
+      if (own) {
+        gp_u = gu_prev[o];
+        gp_w = gw_prev[ow];
+        gp_b = gb_prev[o];
+      }
+    }
+    if (own && k == 0) bottom = bottom_in[(e * nx + i) * ny + y0 + j];
     const float* vc = V.row(i, j);
     // ---- gv and v* at (i, j, k), rows 0..kYT ----
     {
@@ -674,8 +691,7 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
       const float qm = k > 0 ? t2 : -vc[0], qp = k < nz - 1 ? t4 : -vc[nz - 1];
       const float lap = lap_h(V, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
       const float g = -adv - dphy + P.nu * lap;
-      const size_t ov = cell0 + (size_t)i * S + (size_t)wrap_x(y0 + j, ny) * nz + k;
-      const float f = rk_update(t3, g, gv_prev, ov, dt, gamma, zeta);
+      const float f = rk_value(t3, g, gp_v);
       vs[j * nz + k] = f;
       if (own) {
         v_out[o] = f;
@@ -705,7 +721,7 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
         const float qm = k > 0 ? t2 : -uc[0], qp = k < nz - 1 ? t4 : -uc[nz - 1];
         const float lap = lap_h(U, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
         const float g = -adv - dphy + P.nu * lap;
-        const float f = rk_update(t3, g, gu_prev, o, dt, gamma, zeta);
+        const float f = rk_value(t3, g, gp_u);
         u_out[o] = f;
         if (emit_g) gu_out[o] = g;
         // div(i - 1) = ((u*(i) - u*(i-1)) / dx + dv) + dw, the plain version's order
@@ -718,7 +734,6 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
       }
       // ---- gw and w* at (i, j, face k); the k = 0 thread takes both walls ----
       {
-        const size_t ow = face0 + (size_t)i * SW + (size_t)(y0 + j) * nw + k;
         if (k > 0) {
           const float f_new = xflux_w(i + 1);
           float adv = (f_new - fw) * P.idx;
@@ -733,7 +748,7 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
                   z_upwind(t0, t1, t2, t3, t4, t5, zw0, 0.5f * (t2 + t3))) * P.idz;
           const float lap = lap_h(W, i, k, t3) + (t4 - 2.0f * t3 + t2) * P.idz2;
           const float g = -adv + P.nu * lap;
-          const float f = rk_update(t3, g, gw_prev, ow, dt, gamma, zeta);
+          const float f = rk_value(t3, g, gp_w);
           w_out[ow] = f;
           if (emit_g) gw_out[ow] = g;
           ws[j * nw + k] = f;
@@ -757,12 +772,11 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
                     t4 = bc[zt[4]], t5 = bc[zt[5]], t6 = bc[zt[6]];
         adv += (z_upwind(t1, t2, t3, t4, t5, t6, zc1, wc[k + 1]) -
                 z_upwind(t0, t1, t2, t3, t4, t5, zc0, wc[k])) * P.idz;
-        const float bottom = k == 0 ? bottom_in[(e * nx + i) * ny + y0 + j] : 0.0f;
         const float qm = k > 0 ? t2 : 2.0f * bottom - bc[0];
         const float qp = k < nz - 1 ? t4 : 2.0f * P.min_b - bc[nz - 1];
         const float lap = lap_h(B, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
         const float g = -adv + P.kappa * lap;
-        const float f = rk_update(t3, g, gb_prev, o, dt, gamma, zeta);
+        const float f = rk_value(t3, g, gp_b);
         b_out[o] = f;
         if (emit_g) gb_out[o] = g;
       }
