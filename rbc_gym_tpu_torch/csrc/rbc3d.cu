@@ -578,16 +578,19 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
         W.row(x, r)[k] -= (Q.row(x, r)[k] - Q.row(x, r)[k - 1]) * P.idz;
     }
   };
-  // ---- pHY' of plane x: each point sums its column above it in float64 -----
+  // ---- pHY' of plane x: a thread of row kYT per (row, column), summed from
+  // the top in float64, so that each value rounds once ---------------------
   auto hydrostatic = [&](int x) {
     const double dz = P.dz;
-    for (int r = kPLo + j; r < kPLo + kPRows; r += kYT + 1) {
+    for (int r = kPLo + k; r < kPLo + kPRows; r += nz) {
       const float* bc = B.row(x, r);
-      double s = 0.0;  // sum of b[k..nz-1], walked from the top (one address a warp)
-      for (int m = nz - 1; m >= k; --m) s += (double)bc[m];
-      // -(0.5 dz min_b + dz sum_{m=k}^{nz-2} (b[m] + b[m+1]) / 2)
-      PH.row(x, r)[k] =
-          (float)-(0.5 * dz * P.min_b + dz * (s - 0.5 * ((double)bc[k] + (double)bc[nz - 1])));
+      float* pc = PH.row(x, r);
+      double acc = 0.5 * dz * P.min_b;
+      pc[nz - 1] = (float)-acc;
+      for (int m = nz - 2; m >= 0; --m) {
+        acc += dz * (0.5 * ((double)bc[m] + (double)bc[m + 1]));
+        pc[m] = (float)-acc;
+      }
     }
   };
 
@@ -639,8 +642,9 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
     correct_plane(x);
     __syncthreads();
   }
-  hydrostatic(-1);
-  hydrostatic(0);
+  if (!own) {
+    for (int x = -1; x <= 1; ++x) hydrostatic(x);
+  }
   float fu = 0.0f, fv = xflux_v(0), fw = 0.0f, fb = 0.0f;
   if (own) {
     fu = xflux_u(-1);
@@ -698,6 +702,8 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
         if (emit_g) gv_out[o] = g;
       }
     }
+    // row kYT, which has no other work, sums pHY' of plane i + 2 meanwhile
+    if (!own) hydrostatic(i + 2);
     if (own) {
       const float* uc = U.row(i, j);
       const float* wc = W.row(i, j);
@@ -784,7 +790,6 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
     __pipeline_wait_prior(0);
     __syncthreads();  // plane i + 4 has landed; v*, w* of plane i are complete
     correct_plane(i + 4);
-    hydrostatic(i + 1);
     if (own) {
       dv = (vs[(j + 1) * nz + k] - vs[j * nz + k]) * P.idy;
       dw = (ws[j * nw + k + 1] - ws[j * nw + k]) * P.idz;

@@ -7,7 +7,8 @@ Each TREE is a checkout of this repo (for example a ``git archive`` of a
 commit unpacked under the git-ignored ``rbc_gym_tpu_torch/_build/``).
 The script builds every tree's kernels at once (one nvcc each, in
 parallel, plus one ``-Xptxas -v`` compile of ``csrc/rbc3d.cu`` for K5's
-registers and spills), then runs each tree in a process of its own, one
+registers and spills, and a count of the SASS opcodes of K5's nz = 32
+instance from ``cuobjdump``), then runs each tree in a process of its own, one
 after the other, importing that tree's own ``chip_smoke``: K5 at 1024 envs
 on the 32x64x64 big grid, stages 0, 1 and 2, CUDA events over 5 launches
 after a warm-up, each stage's share of its bytes bound, and K5's errors
@@ -79,6 +80,24 @@ def ptxas_lines(tree: Path, nvcc: str) -> subprocess.Popen:
                             stderr=subprocess.STDOUT, text=True)
 
 
+def sass_histogram(tree: Path, cuobjdump: str) -> dict:
+    """Opcode counts of the K5 nz = 32 instance in the tree's built library."""
+    lib = next((tree / "rbc_gym_tpu_torch" / "_build").glob("librbc_gym_kernels_*.so"))
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True).stdout
+    counts, inside = {}, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "stage_rk_3d_xy_kernelILi32E" in line
+        elif inside and "/*" in line and ";" in line:
+            words = line.split("*/", 1)[1].split(";")[0].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words:
+                op = words[0].split(".")[0]
+                counts[op] = counts.get(op, 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
 def main() -> int:
     import torch
 
@@ -106,8 +125,12 @@ def main() -> int:
                 entry = line.split("'")[1] if "'" in line else line
             elif "stage_rk_3d_xy" in entry and ("Used" in line or "spill" in line):
                 k5.append(f"{entry}: {line.strip()}")
-        print(json.dumps({"tree": str(t), "build_rc": b.returncode, "nvcc": log.strip()[-2000:],
-                          "ptxas": k5}), flush=True)
+        rec = {"tree": str(t), "build_rc": b.returncode, "nvcc": log.strip()[-2000:],
+               "ptxas": k5}
+        if b.returncode == 0:
+            rec["sass_k5_nz32"] = sass_histogram(t, str(Path(_build.nvcc_path()).with_name(
+                "cuobjdump")))
+        print(json.dumps(rec), flush=True)
         failed |= b.returncode != 0
     for t, b in zip(trees, builds):
         if b.returncode == 0:
