@@ -36,8 +36,8 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      dt_solver=0.005): reset, 3 steps (25 substeps each); the
                      same checks, launch counters 225 (K5), 3 (K4), 0 (K3),
                      peak device memory
-11. timing_big       K5 per stage, K4, the factored Poisson solve, the split
-                     of one big-grid env step
+11. timing_big       K5 per stage with its share of the bytes bound, K4, the
+                     factored Poisson solve, the split of one big-grid env step
 12. kernel_parity_field K6 (each field) and K7 against their plain versions
                      at the per-field path's shapes (1024 envs at 16x32x32)
                      and forced on the big grid; one env step of the field
@@ -887,10 +887,10 @@ def kernel_parity_big(device, main_envs=1024, big_envs=8, small_envs=256, step_e
 
 
 def timing_big(device, num_envs=1024, state_shape=BIG_SHAPE, plain_envs=1024) -> dict:
-    """CUDA-event times at the big main path's shapes: K5 per stage and its
-    plain version (at ``plain_envs``), K4, one factored Poisson solve, and
-    one env step split into K5, solves, K4 and the rest. Launches here are
-    not the main path's."""
+    """CUDA-event times at the big main path's shapes: K5 per stage, its
+    share of its bound and its plain version (at ``plain_envs``), K4, one
+    factored Poisson solve, and one env step split into K5, solves, K4 and
+    the rest. Launches here are not the main path's."""
     begin = time.perf_counter()
     nz, ny, nx = state_shape
     solver, case = make_case_3d(device, num_envs, state_shape, seed=9, dt_solver=BIG_DT_SOLVER)
@@ -909,7 +909,7 @@ def timing_big(device, num_envs=1024, state_shape=BIG_SHAPE, plain_envs=1024) ->
         bound_ms, bound_by = bound(work)
         out[f"stage_rk_3d_xy.stage{stage}"] = {
             "ms": ms, "plain_ms": plain_ms, "plain_envs": plain_envs, "bound_ms": bound_ms,
-            "bound_by": bound_by, **work}
+            "bound_by": bound_by, "share_of_bound": bound_ms / ms, **work}
     del g_prev, p_g_prev
     work = correct_3d_work(num_envs, nx, ny, nz)
     bound_ms, bound_by = bound(work)

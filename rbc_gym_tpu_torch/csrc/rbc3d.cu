@@ -44,36 +44,45 @@
 // 436,736 in K3).
 //   Bound: bytes. At 32x64x64 it moves 7.4 MB per env at stages 0 and 2 and
 //   9.5 MB at stage 1, against some 400 FLOP per cell. What held its first
-//   design (4 x 8 columns a block, 48.7-51.6 ms at 1024 envs) to 5 % of
-//   that: runtime integer division in every index, IEEE division in every
-//   difference, every face flux computed twice, a divergent z ladder, halos
-//   staged 4.85 times over in a phase of their own, and a serial pHY'.
+//   design (4 x 8 columns a block; 48.7-51.6 ms at 1024 envs on an H100
+//   80GB HBM3 at 700 W) to 5 % of that: runtime integer division in every
+//   index, IEEE division in every difference, every face flux computed
+//   twice, a divergent z ladder, halos staged 4.85 times over in a phase of
+//   their own, and a serial pHY'. This design takes 7.9-8.3 ms there, 28-35
+//   % of the bound (PERF.md, section 6).
 //   Design: one block per (env, kYT = 8 y rows) that marches along periodic
 //   x, one thread per (row, z) point of an x-plane (rows 0..kYT, so at
 //   nz = 32 a warp is one column and lane == k). Shared memory holds a ring
 //   of kRing = 8 x-planes of u, v, w, b with their y halos, two of q, four
 //   of pHY', and v*, w* of one plane. Per plane i:
 //   - plane i + 4 is copied in with cp.async while plane i is computed, so
-//     each field's plane is read from global memory once per block (the y
-//     halos are the only repeat: 1.75-2 times the rows the block owns);
-//   - it is corrected by grad q once, as it arrives, and pHY' of plane
-//     i + 1 is summed per point in float64 (every thread, no serial phase;
-//     the sum rounds once, closer to float64 than a float32 scan);
-//   - each thread computes gu, gv, gw, gb and the RK update at its point;
-//     the x flux of each field enters at one face and is carried in a
-//     register to the next plane, so each x-face flux is computed once;
+//     each field's plane is read from global memory once per block; the y
+//     halos are the only repeat (1.8-2 times the rows a block owns, against
+//     4.85 times the cells in the first design), and no phase waits on them;
+//   - it is corrected by grad q once, as it arrives (u needs q one plane
+//     back, kept in the second q slot);
+//   - each thread computes gu, gv, gw, gb and the RK update at its point,
+//     with its g_prev loaded before the arithmetic; the x flux of each field
+//     enters at one face and is carried in a register to the next plane, so
+//     each x-face flux is computed once;
 //   - z fluxes select the ladder's UB5, UB3 or UB1 per lane from orders
-//     fixed per thread before the march, with taps clamped into the
-//     column: every lane runs one instruction stream;
+//     fixed per thread before the march, with taps clamped into the column:
+//     every lane runs one instruction stream;
+//   - row kYT, which only computes v* (for the divergence at the far y
+//     face), meanwhile sums pHY' of plane i + 2 down each column in
+//     float64, one thread a column: no serial phase holds the block, and
+//     each value rounds once;
 //   - the divergence of plane i - 1 is emitted once u*(i) is known, from
 //     v*, w* of plane i - 1 kept in shared memory and u* in a register.
 //   nz is a template parameter for 32 and 16 (no runtime / or % in the
 //   loop; a runtime-nz instance takes every other nz). The spacings enter
 //   as reciprocals taken in double on the host. Shared memory, in floats:
 //   (8 * (14 + 15 + 14) + 2 * 16 + 4 * 10 + 9) nz + (8 * 14 + 8) (nz + 1),
-//   that is 545 nz + 120: 70,240 bytes at nz = 32. The grid's rule:
-//   nx >= 4, ny % 8 == 0, nz >= 2 and that formula under the limit
-//   (nz <= 106). No matrix product, so no wgmma or tensor cores.
+//   that is 545 nz + 120: 70,240 bytes at nz = 32, where three 288-thread
+//   blocks share an SM (72 registers). The grid's rule: nx >= 4, ny % 8 ==
+//   0, nz >= 2 and that formula under the limit (nz <= 106). Each y and z
+//   face flux is still computed by both of its cells; there is no matrix
+//   product, so no wgmma or tensor cores.
 //
 // K4 correct_3d_kernel replaces ops/pallas3d.py:_correct_kernel (reached
 // from make_projection_glue_3d, pl.pallas_call at :959): u -= ddx q,
@@ -604,6 +613,23 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
     zwt[o] = min(max(k + o - 3, 0), nw - 1);
   }
 
+  // flux(k + 1) - flux(k) of a column's z fluxes through this thread's two
+  // faces (taps at k-3..k+3). At nz = 32 or 16 the lanes of a column are
+  // consecutive, and a lane takes face k + 1's flux from its neighbour
+  // (through the top wall it is 0: w = 0 there); else it computes both.
+  auto z_flux_diff = [&](float t0, float t1, float t2, float t3, float t4, float t5,
+                         float t6, float vel_k, float vel_kp) {
+    const float f_k = z_upwind(t0, t1, t2, t3, t4, t5, zc0, vel_k);
+    float f_kp;
+    if constexpr (NZ > 0) {
+      f_kp = __shfl_down_sync(__activemask(), f_k, 1, NZ);
+      if (k == nz - 1) f_kp = 0.0f;
+    } else {
+      f_kp = z_upwind(t1, t2, t3, t4, t5, t6, zc1, vel_kp);
+    }
+    return f_kp - f_k;
+  };
+
   // ---- x fluxes: each face's once, carried to the next plane ---------------
   // u at center c (taps faces c-2..c+3); v, w, b at face c (taps c-3..c+2)
   auto xflux_u = [&](int c) {
@@ -689,8 +715,7 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
       const float wf_k = 0.5f * (wa[k] + wb[k]), wf_kp = 0.5f * (wa[k + 1] + wb[k + 1]);
       const float t0 = vc[zt[0]], t1 = vc[zt[1]], t2 = vc[zt[2]], t3 = vc[k],
                   t4 = vc[zt[4]], t5 = vc[zt[5]], t6 = vc[zt[6]];
-      adv += (z_upwind(t1, t2, t3, t4, t5, t6, zc1, wf_kp) -
-              z_upwind(t0, t1, t2, t3, t4, t5, zc0, wf_k)) * P.idz;
+      adv += z_flux_diff(t0, t1, t2, t3, t4, t5, t6, wf_k, wf_kp) * P.idz;
       const float dphy = (PH.row(i, j)[k] - PH.row(i, j - 1)[k]) * P.idy;
       const float qm = k > 0 ? t2 : -vc[0], qp = k < nz - 1 ? t4 : -vc[nz - 1];
       const float lap = lap_h(V, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
@@ -721,8 +746,7 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
         const float wf_k = 0.5f * (wm[k] + wc[k]), wf_kp = 0.5f * (wm[k + 1] + wc[k + 1]);
         const float t0 = uc[zt[0]], t1 = uc[zt[1]], t2 = uc[zt[2]], t3 = uc[k],
                     t4 = uc[zt[4]], t5 = uc[zt[5]], t6 = uc[zt[6]];
-        adv += (z_upwind(t1, t2, t3, t4, t5, t6, zc1, wf_kp) -
-                z_upwind(t0, t1, t2, t3, t4, t5, zc0, wf_k)) * P.idz;
+        adv += z_flux_diff(t0, t1, t2, t3, t4, t5, t6, wf_k, wf_kp) * P.idz;
         const float dphy = (PH.row(i, j)[k] - PH.row(i - 1, j)[k]) * P.idx;
         const float qm = k > 0 ? t2 : -uc[0], qp = k < nz - 1 ? t4 : -uc[nz - 1];
         const float lap = lap_h(U, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
@@ -740,6 +764,16 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
       }
       // ---- gw and w* at (i, j, face k); the k = 0 thread takes both walls ----
       {
+        const float t0 = wc[zwt[0]], t1 = wc[zwt[1]], t2 = wc[zwt[2]], t3 = wc[k],
+                    t4 = wc[k + 1], t5 = wc[zwt[5]], t6 = wc[zwt[6]];
+        // z fluxes at the centers k (every lane, k = 0 too) and k - 1
+        const float fz = z_upwind(t1, t2, t3, t4, t5, t6, zw1, 0.5f * (t3 + t4));
+        float fz_m;
+        if constexpr (NZ > 0) {
+          fz_m = __shfl_up_sync(__activemask(), fz, 1, NZ);
+        } else {
+          fz_m = z_upwind(t0, t1, t2, t3, t4, t5, zw0, 0.5f * (t2 + t3));
+        }
         if (k > 0) {
           const float f_new = xflux_w(i + 1);
           float adv = (f_new - fw) * P.idx;
@@ -748,10 +782,7 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
           const float vf_j = 0.5f * (vc[k - 1] + vc[k]);
           const float vf_jp = 0.5f * (va[k - 1] + va[k]);
           adv += (yflux(W, i, j + 1, k, vf_jp) - yflux(W, i, j, k, vf_j)) * P.idy;
-          const float t0 = wc[zwt[0]], t1 = wc[zwt[1]], t2 = wc[k - 1], t3 = wc[k],
-                      t4 = wc[k + 1], t5 = wc[zwt[5]], t6 = wc[zwt[6]];
-          adv += (z_upwind(t1, t2, t3, t4, t5, t6, zw1, 0.5f * (t3 + t4)) -
-                  z_upwind(t0, t1, t2, t3, t4, t5, zw0, 0.5f * (t2 + t3))) * P.idz;
+          adv += (fz - fz_m) * P.idz;
           const float lap = lap_h(W, i, k, t3) + (t4 - 2.0f * t3 + t2) * P.idz2;
           const float g = -adv + P.nu * lap;
           const float f = rk_value(t3, g, gp_w);
@@ -776,8 +807,7 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
         adv += (yflux(B, i, j + 1, k, V.row(i, j + 1)[k]) - yflux(B, i, j, k, vc[k])) * P.idy;
         const float t0 = bc[zt[0]], t1 = bc[zt[1]], t2 = bc[zt[2]], t3 = bc[k],
                     t4 = bc[zt[4]], t5 = bc[zt[5]], t6 = bc[zt[6]];
-        adv += (z_upwind(t1, t2, t3, t4, t5, t6, zc1, wc[k + 1]) -
-                z_upwind(t0, t1, t2, t3, t4, t5, zc0, wc[k])) * P.idz;
+        adv += z_flux_diff(t0, t1, t2, t3, t4, t5, t6, wc[k], wc[k + 1]) * P.idz;
         const float qm = k > 0 ? t2 : 2.0f * bottom - bc[0];
         const float qp = k < nz - 1 ? t4 : 2.0f * P.min_b - bc[nz - 1];
         const float lap = lap_h(B, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;

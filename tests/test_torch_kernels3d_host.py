@@ -52,11 +52,33 @@ inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n, size_t
 }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(size_t) {}
+// Warp shuffles: the lanes of a warp post their values and meet at the
+// warp's barrier, read their source lane's, and meet again.
+inline std::barrier<>* warp_barriers[32];
+inline float shuffle_slots[1024];
+inline float shuffle(float v, unsigned src) {
+  std::barrier<>& bar = *warp_barriers[threadIdx.x / 32];
+  shuffle_slots[threadIdx.x] = v;
+  bar.arrive_and_wait();
+  const float out = shuffle_slots[src];
+  bar.arrive_and_wait();
+  return out;
+}
+inline unsigned __activemask() { return 0xffffffffu; }
+inline float __shfl_down_sync(unsigned, float v, unsigned delta, int width) {
+  const unsigned lane = threadIdx.x % width;
+  return shuffle(v, lane + delta < (unsigned)width ? threadIdx.x + delta : threadIdx.x);
+}
+inline float __shfl_up_sync(unsigned, float v, unsigned delta, int width) {
+  const unsigned lane = threadIdx.x % width;
+  return shuffle(v, lane >= delta ? threadIdx.x - delta : threadIdx.x);
+}
 """
 
 DRIVER = r"""
 #include <cstdio>
 #include <cstdlib>
+#include <memory>
 #include <string>
 #include <thread>
 #include <vector>
@@ -139,6 +161,11 @@ int main(int argc, char** argv) {
       blockIdx.x = blk;
       std::barrier<> bar(n_thr);
       block_barrier = &bar;
+      std::vector<std::unique_ptr<std::barrier<>>> warps;
+      for (int w = 0; w * 32 < n_thr; ++w) {
+        warps.push_back(std::make_unique<std::barrier<>>(std::min(32, n_thr - 32 * w)));
+        warp_barriers[w] = warps.back().get();
+      }
       std::vector<std::thread> threads;
       for (int t = 0; t < n_thr; ++t) {
         threads.emplace_back([&, t] {

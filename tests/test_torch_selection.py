@@ -25,7 +25,7 @@ BIG = (64, 64, 32)  # the 32x64x64 big grid
 
 @pytest.mark.parametrize("dtype,shape,device_type,want", [
     (F32, TRAINING, "cuda", "stage"),  # K3's whole-y slab fits: 109,824 bytes
-    (F32, BIG, "cuda", "stage_xy"),  # K3 needs 436,736 bytes; K5 99,888
+    (F32, BIG, "cuda", "stage_xy"),  # K3 needs 436,736 bytes; K5 70,240
     (F32, (16, 16, 8), "cuda", "stage"),
     (F64, TRAINING, "cuda", "plain"),  # the JAX package's XLA path for float64
     (F64, BIG, "cuda", "plain"),
