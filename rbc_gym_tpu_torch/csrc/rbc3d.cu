@@ -48,7 +48,7 @@
 //   80GB HBM3 at 700 W) to 5 % of that: runtime integer division in every
 //   index, IEEE division in every difference, every face flux computed
 //   twice, a divergent z ladder, halos staged 4.85 times over in a phase of
-//   their own, and a serial pHY'. This design takes 7.9-8.3 ms there, 28-35
+//   their own, and a serial pHY'. This design takes 7.5-7.8 ms there, 30-37
 //   % of the bound (PERF.md, section 6).
 //   Design: one block per (env, kYT = 8 y rows) that marches along periodic
 //   x, one thread per (row, z) point of an x-plane (rows 0..kYT, so at
@@ -57,7 +57,7 @@
 //   of pHY', and v*, w* of one plane. Per plane i:
 //   - plane i + 4 is copied in with cp.async while plane i is computed, so
 //     each field's plane is read from global memory once per block; the y
-//     halos are the only repeat (1.8-2 times the rows a block owns, against
+//     halos are the only repeat (1.75-2 times the rows a block owns, against
 //     4.85 times the cells in the first design), and no phase waits on them;
 //   - it is corrected by grad q once, as it arrives (u needs q one plane
 //     back, kept in the second q slot);
@@ -67,7 +67,9 @@
 //     each x-face flux is computed once;
 //   - z fluxes select the ladder's UB5, UB3 or UB1 per lane from orders
 //     fixed per thread before the march, with taps clamped into the column:
-//     every lane runs one instruction stream;
+//     every lane runs one instruction stream; at nz = 32 and 16 a column's
+//     lanes are consecutive, so each z-face flux is computed once and
+//     handed to the neighbouring lane by a warp shuffle;
 //   - row kYT, which only computes v* (for the divergence at the far y
 //     face), meanwhile sums pHY' of plane i + 2 down each column in
 //     float64, one thread a column: no serial phase holds the block, and
@@ -80,9 +82,11 @@
 //   (8 * (14 + 15 + 14) + 2 * 16 + 4 * 10 + 9) nz + (8 * 14 + 8) (nz + 1),
 //   that is 545 nz + 120: 70,240 bytes at nz = 32, where three 288-thread
 //   blocks share an SM (72 registers). The grid's rule: nx >= 4, ny % 8 ==
-//   0, nz >= 2 and that formula under the limit (nz <= 106). Each y and z
-//   face flux is still computed by both of its cells; there is no matrix
-//   product, so no wgmma or tensor cores.
+//   0, nz >= 2 and that formula under the limit (nz <= 106). Each y-face
+//   flux is still computed by both of its cells (its rows are in other
+//   warps). There is no matrix product, so no wgmma or tensor cores. The
+//   Pallas kernel's _YH = 8 (the TPU's sublane tiling), e_blk and XLA-side
+//   padding have no counterpart.
 //
 // K4 correct_3d_kernel replaces ops/pallas3d.py:_correct_kernel (reached
 // from make_projection_glue_3d, pl.pallas_call at :959): u -= ddx q,
@@ -680,7 +684,7 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
   __syncthreads();
 
   const bool emit_g = gu_out != nullptr, reads_g = gu_prev != nullptr;
-  // f + dt (gamma g + zeta g_prev), rk_update's arithmetic; stage 0 has no g_prev
+  // f + dt (gamma g + zeta g_prev), K3's rk_update on a loaded g_prev; stage 0 has none
   auto rk_value = [&](float f, float g, float gp) {
     return reads_g ? f + dt * (gamma * g + zeta * gp) : f + dt * (gamma * g);
   };
@@ -791,7 +795,7 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
           ws[j * nw + k] = f;
         } else {  // wall faces: w, g and g_prev are all 0, so w* stays exactly 0
           for (int face = 0; face <= nz; face += nz) {
-            const float f = rk_update(wc[face], 0.0f, gw_prev, ow + face, dt, gamma, zeta);
+            const float f = rk_value(wc[face], 0.0f, reads_g ? gw_prev[ow + face] : 0.0f);
             w_out[ow + face] = f;
             if (emit_g) gw_out[ow + face] = 0.0f;
             ws[j * nw + face] = f;

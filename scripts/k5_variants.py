@@ -28,7 +28,7 @@ import sys
 from pathlib import Path
 
 MEASURE = r"""
-import json, sys, time
+import json, sys
 import torch
 import chip_smoke as cs
 from rbc_gym_tpu_torch.ops import kernels3d as k3d

@@ -2,14 +2,23 @@
 plain versions, on the CPU.
 
 The card is needed to run the kernels as built. Their arithmetic and
-indexing, though, can run here: the kernels walk their points in strided
-loops separated by block-wide barriers, so one thread per block, run
-block after block, executes every phase of ``csrc/rbc3d.cu`` to its end
-before the next begins, as the card does; the one-thread-per-point
-kernels (K4, K6, K7) run point after point. A small header stands in for
-the CUDA keywords; the C launchers (which need nvcc) are cut off. The
-gates are the smoke's on-card ones (``chip_smoke.py``): the emulation
-differs from the plain versions in float32 rounding only.
+indexing, though, can run here. K3 walks its points in strided loops
+separated by block-wide barriers, so one thread per block, run block
+after block, executes every phase of ``csrc/rbc3d.cu`` to its end before
+the next begins, as the card does; the one-thread-per-point kernels (K4,
+K6, K7) run point after point. K5 keeps one thread per point of an
+x-plane for its whole march (its carried fluxes live in registers), so
+each of its blocks runs as that many host threads meeting at real
+barriers (``std::barrier``). A small header stands in for the CUDA
+keywords and for the intrinsics K5 uses: ``__syncthreads`` is the block's
+barrier; a cp.async copy (``__pipeline_memcpy_async``) lands at once,
+which is what its ``__pipeline_wait_prior`` and the barrier after it
+guarantee on the card; a warp shuffle (``__shfl_down_sync``,
+``__shfl_up_sync``) posts each lane's value and meets the other lanes of
+its warp at a barrier of their own before reading its source lane's. The
+C launchers (which need nvcc) are cut off. The gates are the smoke's
+on-card ones (``chip_smoke.py``): the emulation differs from the plain
+versions in float32 rounding only.
 """
 
 import shutil
