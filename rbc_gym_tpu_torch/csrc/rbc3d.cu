@@ -48,7 +48,7 @@
 //   80GB HBM3 at 700 W) to 5 % of that: runtime integer division in every
 //   index, IEEE division in every difference, every face flux computed
 //   twice, a divergent z ladder, halos staged 4.85 times over in a phase of
-//   their own, and a serial pHY'. This design takes 7.5-7.8 ms there, 30-37
+//   their own, and a serial pHY'. This design takes 7.5-7.8 ms there, 29-37
 //   % of the bound (PERF.md, section 6).
 //   Design: one block per (env, kYT = 8 y rows) that marches along periodic
 //   x, one thread per (row, z) point of an x-plane (rows 0..kYT, so at

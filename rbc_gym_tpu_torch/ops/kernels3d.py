@@ -3,8 +3,8 @@
 ``stage_rk_3d`` replaces ``rbc_gym_tpu/ops/pallas3d.py:_stage_rk_kernel``
 (one whole RK3 stage of the lazy-projection loop on x-blocked whole-y
 slabs), ``stage_rk_3d_xy`` replaces ``_stage_rk_kernel_xy`` (the same
-stage on (x, y)-blocked slabs, for grids whose whole-y slab does not fit a
-block's shared memory), ``correct_3d`` replaces ``_correct_kernel`` (the
+stage, y-blocked and marching along x, for grids whose whole-y slab does
+not fit a block's shared memory), ``correct_3d`` replaces ``_correct_kernel`` (the
 velocity correction u -= grad q), ``field_tendency_3d`` replaces
 ``_field_stage_kernel`` (one field's tendency, of the per-field path) and
 ``div_3d`` replaces ``_div_kernel`` (the staggered divergence). The
@@ -295,7 +295,7 @@ def _stage_wrapper(name: str, doc: str):
 stage_rk_3d = _stage_wrapper(
     "stage_rk_3d", "One lazy-projection RK3 stage: K3 for CUDA tensors.")
 stage_rk_3d_xy = _stage_wrapper(
-    "stage_rk_3d_xy", "The same stage on (x, y)-blocked slabs: K5 for CUDA tensors.")
+    "stage_rk_3d_xy", "The same stage, y-blocked and marching along x: K5 for CUDA tensors.")
 
 
 def correct_3d(

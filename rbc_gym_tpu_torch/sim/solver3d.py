@@ -202,8 +202,8 @@ def select_stage_path(dtype: torch.dtype, nx: int, ny: int, nz: int, device_type
     On CUDA in float32: where K3's whole-y slab fits a block, K3 if
     nx % 4 == 0 and otherwise the per-field path; where it does not fit,
     K5 if nx % 4 == 0 and ny % 8 == 0, raising ``NotImplementedError`` if
-    K5's own slabs do not fit either; otherwise the plain path, as the JAX
-    package takes its XLA path there. float64 and the CPU take the plain
+    K5's own x-plane rings do not fit either; otherwise the plain path, as
+    the JAX package takes its XLA path there. float64 and the CPU take the plain
     path, as the JAX package does. ``fused=False`` is the plain path;
     "stage", "stage_xy" or "field" (True is the JAX package's alias of
     "field") forces that path and raises ``ValueError``, naming the limit,
