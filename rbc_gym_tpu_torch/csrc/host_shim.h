@@ -1,0 +1,80 @@
+// Host stand-ins for the CUDA keywords and intrinsics the kernels of
+// rbc2d.cu and rbc3d.cu use, so that their device code (everything above
+// each file's `extern "C"` launchers) compiles with a host C++20 compiler
+// and runs on the CPU: tests/test_torch_kernels2d_host.py and
+// tests/test_torch_kernels3d_host.py build it with `g++ -std=c++20 -pthread`
+// and hold it against the plain PyTorch versions.
+//
+// A test runs a block either on one host thread (blockDim.x = 1, for the
+// kernels whose phases are strided loops between barriers, and the
+// one-thread-per-point ones) or as one host thread per CUDA thread, with
+// `block_barrier` and `warp_barriers` set: then
+// - __syncthreads is the block's std::barrier;
+// - a cp.async copy (__pipeline_memcpy_async) lands at once, which its
+//   __pipeline_wait_prior and the barrier after it guarantee on the card;
+// - a warp shuffle posts each lane's value and meets the other lanes of its
+//   warp at the warp's barrier, reads its source lane's, and meets them
+//   again.
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstring>
+using std::max;
+using std::min;
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__
+#define __constant__
+struct dim3 {
+  unsigned x = 0, y = 0, z = 0;
+};
+struct float4 {
+  float x, y, z, w;
+};
+inline thread_local dim3 threadIdx;
+inline dim3 blockIdx, blockDim;
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
+}
+// the barrier of the block's threads (none when a block runs on one thread)
+inline std::barrier<>* block_barrier = nullptr;
+inline void __syncthreads() {
+  if (block_barrier) block_barrier->arrive_and_wait();
+}
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n, size_t = 0) {
+  std::memcpy(dst, src, n);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
+inline std::barrier<>* warp_barriers[32];
+inline double shuffle_slots[1024];
+template <class T>
+inline T shuffle(T v, unsigned src) {
+  std::barrier<>& bar = *warp_barriers[threadIdx.x / 32];
+  shuffle_slots[threadIdx.x] = (double)v;
+  bar.arrive_and_wait();
+  const T out = (T)shuffle_slots[src];
+  bar.arrive_and_wait();
+  return out;
+}
+inline unsigned __activemask() { return 0xffffffffu; }
+template <class T>
+inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  return shuffle(v, threadIdx.x - threadIdx.x % width + (unsigned)src % width);
+}
+template <class T>
+inline T __shfl_down_sync(unsigned, T v, unsigned delta, int width = 32) {
+  const unsigned lane = threadIdx.x % width;
+  return shuffle(v, lane + delta < (unsigned)width ? threadIdx.x + delta : threadIdx.x);
+}
+template <class T>
+inline T __shfl_up_sync(unsigned, T v, unsigned delta, int width = 32) {
+  const unsigned lane = threadIdx.x % width;
+  return shuffle(v, lane >= delta ? threadIdx.x - delta : threadIdx.x);
+}

@@ -4,185 +4,489 @@
 // (reached from make_env_step_fused_2d, pl.pallas_call at :486): a whole env
 // step, n_substeps x 3 low-storage RK3 stages, each doing the hydrostatic
 // pressure pHY', the UB5 tendencies, the RK update, the divergence, the
-// spectral Poisson solve (F.rhs, per-mode inverse, G.p_hat) and the velocity
-// correction.
-//   Bound: operations. The spectral solve is 2 (2 nx^2 nz + nx nz^2) FLOP
-//   per stage per env, about 3.1 MFLOP at 96x64 and 0.47 GFLOP per env step;
-//   the fields move through device memory once per env step, about 170 KB
-//   an env in and out.
-//   Design: one thread block per env on the batch-major (E, nx, nz[+1])
-//   tensors, so an env's slabs are contiguous and the substep loop runs
-//   inside the block, phases separated by __syncthreads(). The solve's
-//   right-hand side and mode coefficients sit in dynamic shared memory; F, G
-//   and the inverses (shared by every env) come through the read-only cache.
-//   Per-env scratch (g_prev, the stage tendencies, pHY') lives in global
-//   memory, allocated by the caller. FP32 FMA on the CUDA cores; no tensor
-//   cores, no TF32.
+// spectral Poisson solve and the velocity correction.
+//   Bound: operations. The TPU kernel's spectral solve (F.rhs, a dense
+//   per-mode inverse, G.p_hat) is 2 (2 nx^2 nz + nx nz^2) FLOP per stage
+//   per env, about 3.1 MFLOP at 96x64 and 0.47 GFLOP per env step; the
+//   fields move through device memory once per env step, about 170 KB an
+//   env in and out.
+//   What held its first design (179 ms an env step at 1024 envs on an H100
+//   80GB HBM3 at 700 W, 5.7 % of the bound): products that issued a load
+//   for every FMA, the 1.57 MB stack of vertical inverses streamed from L2
+//   every stage, the state and 172 KB of scratch per env in global memory,
+//   runtime division in every index, IEEE division in every difference,
+//   every face flux computed twice, a z ladder that split warps, and a
+//   serial pHY' phase on 96 of 256 threads (PERF.md, section 6).
+//   Design: one 512-thread block per env holds the whole env step on the
+//   chip. Shared memory holds two copies of u, w, b (a stage reads one and
+//   writes the other, so the RK update needs no pass of its own), two
+//   (nx, nz) slabs for pHY', the divergence and the solve, and the z
+//   transforms. Warp v owns the x columns [v xs, (v + 1) xs) (xs = nx / 16:
+//   6 at 96x64), lane l the levels k = l + 32 s, s < 2, and each thread
+//   keeps the previous stage's tendencies of its points in registers for
+//   the whole kernel. Per stage, with a barrier after each phase:
+//   1. pHY' of each column by a float64 suffix scan across the lanes of
+//      its warp (no serial phase; each value rounds once);
+//   2. each warp marches along its columns: the x flux of each field is
+//      carried in a register to the next column (each x-face flux once,
+//      one extra per strip), the z-face flux comes from the neighbouring
+//      lane by a shuffle (each once), the z ladder is branch-free (orders
+//      fixed per level, taps clamped into the column), and the RK update
+//      goes straight into the other copy of the state;
+//   3. the divergence of the updated velocities, over dt_stage, into a slab;
+//   4. the solve as four register-tiled float32 products, each thread
+//      computing its own xs x 2 points from one broadcast row of the left
+//      factor and two columns of the right per contraction index:
+//      r_hat = F . rhs, then the vertical solve in the DCT-II basis that
+//      diagonalises every mode's D2z + lambda I (inv = S diag(d) C, the
+//      pseudo-inverse of the mean mode by d = 0; 32 KB of transforms in
+//      shared memory in place of the 1.57 MB stack): (r_hat C^T) * d, then
+//      times S^T, then p = G . p_hat, which each thread keeps for its own
+//      points;
+//   5. the correction of the thread's own u, w by grad p.
+//   The spacings and the z transforms' constants are taken in double on
+//   the host. nx, nz are template parameters for 96x64 (no runtime / or %);
+//   a runtime instance takes nx <= 128, nz <= 64. Shared memory, in floats:
+//   2 (2 nx nz + nx (nz + 1)) + 2 nx nz + 2 nz^2 + nx, 230,528 bytes at
+//   96x64: one block an SM, 1024 envs in 7.76 waves over 132 SMs. FP32 FMA
+//   on the CUDA cores; no tensor cores, no TF32.
 //
 // K2 tendencies_2d_kernel replaces ops/pallas2d.py:_tendency_kernel (reached
 // from make_tendencies_2d, pl.pallas_call at :562): gu, gw, gb of one RK3
 // stage. Bound: bytes (u, w, b, p_hy, bottom in; gu, gw, gb out, each once).
-// Design: one block per env over the same ub5.cuh device code as K1.
+// Design: one block per env over ub5.cuh's flux-form device code.
 #include <cuda_runtime.h>
 
 #include "ub5.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // K2
 
 // RK3 coefficients of the reference's :RungeKutta3 (pallas2d.py:214-215).
 __constant__ float kGamma[3] = {8.0f / 15.0f, 5.0f / 12.0f, 3.0f / 4.0f};
 __constant__ float kZeta[3] = {0.0f, -17.0f / 60.0f, -5.0f / 12.0f};
 
-// pHY'[i][k] = -sum_{j >= k} inc[j], inc[j] = dz (b[j] + b[j+1]) / 2 for
-// j < nz - 1 and the top half cell dz min_b / 2: one thread per x column
-// walks z from the top, in the order of solver2d._hydrostatic_pressure.
-__device__ void hydrostatic_block(const float* b, float* p_hy, const RBCParams& P) {
-  const int nz = P.nz;
-  for (int i = threadIdx.x; i < P.nx; i += blockDim.x) {
-    const float* bc = b + i * nz;
-    float* pc = p_hy + i * nz;
-    float acc = 0.5f * P.dz * P.min_b;
-    pc[nz - 1] = -acc;
-    for (int k = nz - 2; k >= 0; --k) {
-      acc += P.dz * (0.5f * (bc[k] + bc[k + 1]));
-      pc[k] = -acc;
-    }
+// ---- K1 ---------------------------------------------------------------------
+
+constexpr int kK1Threads = 512;
+constexpr int kK1Warps = kK1Threads / 32;
+constexpr int kK1Levels = 2;              // z levels a lane owns: k = lane + 32 s
+constexpr int kK1MaxNz = 32 * kK1Levels;  // 64
+constexpr int kK1MaxCols = 8;             // x columns a warp owns, runtime instance
+constexpr size_t kSmemPerBlock = 232448;  // an H100 block's shared memory
+constexpr unsigned kFull = 0xffffffffu;
+
+// K1's scalars: reciprocals of the spacings and their squares and of each
+// stage's dt_stage, taken once on the host in double precision.
+struct K1Params {
+  int nx, nz, n_substeps;
+  float dt, idx, idz, idx2, idz2, dz, nu, kappa, min_b;
+  float dts[3], idts[3];  // (gamma + zeta) dt of each stage, and its reciprocal
+};
+
+K1Params k1_params(int nx, int nz, int n_substeps, float dt, float dx, float dz, float nu,
+                   float kappa, float min_b) {
+  K1Params P{nx, nz, n_substeps, dt, (float)(1.0 / dx), (float)(1.0 / dz),
+             (float)(1.0 / ((double)dx * dx)), (float)(1.0 / ((double)dz * dz)), dz, nu,
+             kappa, min_b, {}, {}};
+  const double gamma[3] = {8.0 / 15.0, 5.0 / 12.0, 3.0 / 4.0};
+  const double zeta[3] = {0.0, -17.0 / 60.0, -5.0 / 12.0};
+  for (int m = 0; m < 3; ++m) {
+    const double dts = (gamma[m] + zeta[m]) * (double)dt;
+    P.dts[m] = (float)dts;
+    P.idts[m] = (float)(1.0 / dts);
   }
+  return P;
 }
 
-// out[r][c] = sum_k a[r][k] * x[k][c] for a (R, K) read through the
-// read-only cache and x (K, C) in shared memory. Each thread owns a column c
-// and kRows consecutive rows, so a warp reads one a[r][k] (a broadcast) and
-// 32 consecutive x[k][c].
-template <int kRows>
-__device__ void dense_left_product(const float* __restrict__ a, const float* x,
-                                   float* out, int R, int K, int C) {
-  const int groups = (R + kRows - 1) / kRows;
-  for (int item = threadIdx.x; item < groups * C; item += blockDim.x) {
-    const int r0 = (item / C) * kRows, c = item % C;
-    float acc[kRows];
+// Shared memory K1 needs per block, in floats: two copies of u, b (nx, nz)
+// and w (nx, nz + 1), two (nx, nz) slabs, the z analysis and synthesis
+// (nz, nz) and the bottom profile (nx).
+size_t env_step_2d_smem_floats(int nx, int nz) {
+  return 2 * (2 * (size_t)nx * nz + (size_t)nx * (nz + 1)) + 2 * (size_t)nx * nz +
+         2 * (size_t)nz * nz + nx;
+}
+
+// x columns a K1 warp owns.
+__host__ __device__ constexpr int k1_cols(int nx) { return (nx + kK1Warps - 1) / kK1Warps; }
+
+struct State2D {
+  float* u;  // (nx, nz)
+  float* w;  // (nx, nz + 1)
+  float* b;  // (nx, nz)
+};
+
+// acc[r][s] = sum_{k < K} L[row_r][k] R[k][col_s] for the thread's rows
+// row_r = min(row0 + r, nrow - 1) and columns col_s = min(lane + 32 s,
+// ldr - 1): L is row-major with rows of K (a warp reads one row value, a
+// broadcast), R row-major with rows of ldr (a warp reads 32 consecutive
+// values). kVec reads L four values at a time (K % 4 == 0, rows 16-byte
+// aligned), so a thread loads XS + 4 NS values for 4 XS NS FMA.
+template <int XS, int NS, bool kVec>
+__device__ __forceinline__ void tile_product(const float* L, const float* R, int K, int ldr,
+                                             int row0, int nrow, int lane,
+                                             float (&acc)[XS][NS]) {
+  int row[XS], col[NS];
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) acc[j] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const float xv = x[k * C + c];
+  for (int r = 0; r < XS; ++r) row[r] = min(row0 + r, nrow - 1) * K;
 #pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        if (r0 + j < R) acc[j] = fmaf(__ldg(a + (r0 + j) * K + k), xv, acc[j]);
+  for (int s = 0; s < NS; ++s) col[s] = min(lane + 32 * s, ldr - 1);
+#pragma unroll
+  for (int r = 0; r < XS; ++r)
+#pragma unroll
+    for (int s = 0; s < NS; ++s) acc[r][s] = 0.0f;
+  if constexpr (kVec) {
+#pragma unroll 2
+    for (int k = 0; k < K; k += 4) {
+      float4 a[XS];
+#pragma unroll
+      for (int r = 0; r < XS; ++r) a[r] = *reinterpret_cast<const float4*>(L + row[r] + k);
+      const float* rk = R + k * ldr;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float bv[NS];
+#pragma unroll
+        for (int s = 0; s < NS; ++s) bv[s] = rk[kk * ldr + col[s]];
+#pragma unroll
+        for (int r = 0; r < XS; ++r) {
+          const float av = kk == 0 ? a[r].x : (kk == 1 ? a[r].y : (kk == 2 ? a[r].z : a[r].w));
+#pragma unroll
+          for (int s = 0; s < NS; ++s) acc[r][s] = fmaf(av, bv[s], acc[r][s]);
+        }
       }
     }
+  } else {
+    for (int k = 0; k < K; ++k) {
+      float bv[NS];
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      if (r0 + j < R) out[(r0 + j) * C + c] = acc[j];
+      for (int s = 0; s < NS; ++s) bv[s] = R[k * ldr + col[s]];
+#pragma unroll
+      for (int r = 0; r < XS; ++r) {
+        const float av = L[row[r] + k];
+#pragma unroll
+        for (int s = 0; s < NS; ++s) acc[r][s] = fmaf(av, bv[s], acc[r][s]);
+      }
     }
   }
 }
 
-// p_hat[m][f] = sum_z inv[m][z][f] * r_hat[m][z]: a warp reads 32
-// consecutive f of one inverse row and broadcasts r_hat from shared memory.
-__device__ void modal_inverse(const float* __restrict__ inv, const float* rhat,
-                              float* phat, int nx, int nz) {
-  for (int item = threadIdx.x; item < nx * nz; item += blockDim.x) {
-    const int m = item / nz, f = item - m * nz;
-    const float* im = inv + (size_t)m * nz * nz + f;
-    const float* rm = rhat + m * nz;
-    float acc = 0.0f;
-    for (int z = 0; z < nz; ++z) acc = fmaf(__ldg(im + z * nz), rm[z], acc);
-    phat[item] = acc;
+// The flux through face k + 1 of each of this lane's levels, from every
+// lane's flux through face k: lane + 1's of the same level, lane 0's of the
+// next level for lane 31, and 0 through the top wall (w = 0 there).
+template <int NS>
+__device__ __forceinline__ void flux_above(const float (&f)[NS], float (&out)[NS], int lane,
+                                           int nz) {
+  float r[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) r[s] = __shfl_sync(kFull, f[s], (lane + 1) & 31);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const float next = s + 1 < NS ? r[(s + 1) % NS] : 0.0f;
+    out[s] = lane + 32 * s + 1 >= nz ? 0.0f : (lane == 31 ? next : r[s]);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The flux through center k - 1 of each of this lane's levels, from every
+// lane's flux through center k (level 0 of lane 0 is the bottom wall face,
+// whose tendency is 0: its value is not used).
+template <int NS>
+__device__ __forceinline__ void flux_below(const float (&f)[NS], float (&out)[NS], int lane) {
+  float r[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) r[s] = __shfl_sync(kFull, f[s], (lane + 31) & 31);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const float prev = s > 0 ? r[(s + NS - 1) % NS] : 0.0f;
+    out[s] = lane == 0 ? prev : r[s];
+  }
+}
+
+template <int NX, int NZ>
+__global__ void __launch_bounds__(kK1Threads, 1)
 env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_in,
                    const float* __restrict__ b_in, const float* __restrict__ bottom_in,
                    const float* __restrict__ fmat, const float* __restrict__ gmat,
-                   const float* __restrict__ inv, float* u_all, float* w_all,
-                   float* b_all, float* p_all, float* scratch, int n_substeps,
-                   float dt, RBCParams P) {
+                   const float* __restrict__ dct, const float* __restrict__ idct,
+                   const float* __restrict__ dinv, float* __restrict__ u_out,
+                   float* __restrict__ w_out, float* __restrict__ b_out,
+                   float* __restrict__ p_out, K1Params P) {
+  constexpr int NS = kK1Levels;
+  constexpr int XS = NX > 0 ? k1_cols(NX) : kK1MaxCols;
+  constexpr bool kVec = NX > 0 && NX % 4 == 0 && NZ % 4 == 0;
   extern __shared__ float smem[];
-  const int nx = P.nx, nz = P.nz;
-  const int nc = nx * nz, nw = nx * (nz + 1);
+  const int nx = NX > 0 ? NX : P.nx, nz = NZ > 0 ? NZ : P.nz, nw = nz + 1;
+  const int nc = nx * nz, nf = nx * nw;
   const size_t e = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int xs = k1_cols(nx), x0 = warp * xs, xn = min(xs, nx - x0);  // xn may be <= 0
 
-  float* u = u_all + e * nc;
-  float* w = w_all + e * nw;
-  float* b = b_all + e * nc;
-  float* p = p_all + e * nc;
-  const float* bottom = bottom_in + e * nx;
-  // scratch per env: gu, gw, gb (this stage), gu, gw, gb (previous), pHY'
-  float* s = scratch + e * (size_t)(5 * nc + 2 * nw);
-  float* gu = s;
-  float* gw = gu + nc;
-  float* gb = gw + nw;
-  float* gu0 = gb + nc;
-  float* gw0 = gu0 + nc;
-  float* gb0 = gw0 + nw;
-  float* p_hy = gb0 + nc;
-  float* rhs = smem;       // (nx, nz): div / dt_stage, later p_hat
-  float* rhat = smem + nc; // (nx, nz): F . rhs
+  State2D X{smem, smem + nc, smem + nc + nf};
+  State2D Y{X.b + nc, X.b + nc + nc, X.b + nc + nc + nf};
+  float* s1 = Y.b + nc;       // pHY', then the divergence, R~ and p
+  float* s2 = s1 + nc;        // r_hat and p_hat
+  float* ct = s2 + nc;        // z analysis, (z, j)
+  float* st = ct + nz * nz;   // z synthesis, (j, z)
+  float* bot = st + nz * nz;  // bottom (nx)
 
-  for (int q = threadIdx.x; q < nc; q += blockDim.x) {
-    u[q] = u_in[e * nc + q];
-    b[q] = b_in[e * nc + q];
+  for (int q = threadIdx.x; q < nc; q += kK1Threads) {
+    X.u[q] = u_in[e * nc + q];
+    X.b[q] = b_in[e * nc + q];
   }
-  for (int q = threadIdx.x; q < nw; q += blockDim.x) w[q] = w_in[e * nw + q];
+  for (int q = threadIdx.x; q < nf; q += kK1Threads) X.w[q] = Y.w[q] = w_in[e * nf + q];
+  for (int q = threadIdx.x; q < nz * nz; q += kK1Threads) {
+    ct[q] = dct[q];
+    st[q] = idct[q];
+  }
+  for (int q = threadIdx.x; q < nx; q += kK1Threads) bot[q] = bottom_in[e * nx + q];
   __syncthreads();
 
-  for (int step = 0; step < n_substeps; ++step) {
+  auto wrap = [&](int i) { return i < 0 ? i + nx : (i >= nx ? i - nx : i); };
+  int kl[NS], kc[NS];  // this lane's levels, and the same clamped into the column
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    kl[s] = lane + 32 * s;
+    kc[s] = min(kl[s], nz - 1);
+  }
+  // z tap o of level s (offsets -3..3 as o = 0..6), clamped into a column of n
+  auto tap = [&](int s, int o, int n) { return min(max(kl[s] + o - 3, 0), n - 1); };
+
+  // x fluxes: u at center c (taps faces c-2..c+3); w, b at face c (taps c-3..c+2)
+  auto xflux_u = [&](const State2D& S, int c, int k) {
+    const float* u = S.u + k;
+    const float a = u[wrap(c) * nz], b = u[wrap(c + 1) * nz];
+    return ub5_upwind(u[wrap(c - 2) * nz], u[wrap(c - 1) * nz], a, b, u[wrap(c + 2) * nz],
+                      u[wrap(c + 3) * nz], 0.5f * (a + b));
+  };
+  auto xflux_face = [&](const float* q, int ld, int c, float vel) {
+    return ub5_upwind(q[wrap(c - 3) * ld], q[wrap(c - 2) * ld], q[wrap(c - 1) * ld],
+                      q[wrap(c) * ld], q[wrap(c + 1) * ld], q[wrap(c + 2) * ld], vel);
+  };
+  auto xflux_w = [&](const State2D& S, int c, int s) {
+    const float* uc = S.u + wrap(c) * nz;
+    const float vel = 0.5f * (uc[max(kl[s] - 1, 0)] + uc[kc[s]]);
+    return xflux_face(S.w + kc[s], nw, c, vel);
+  };
+  auto xflux_b = [&](const State2D& S, int c, int s) {
+    return xflux_face(S.b + kc[s], nz, c, S.u[wrap(c) * nz + kc[s]]);
+  };
+
+  float gp[XS][NS][3] = {};  // the previous stage's gu, gw, gb of this thread's points
+  float pt[XS][NS];     // the solve's tile: this thread's points
+  for (int step = 0; step < P.n_substeps; ++step) {
     for (int stage = 0; stage < 3; ++stage) {
       const float gamma = kGamma[stage], zeta = kZeta[stage];
-      hydrostatic_block(b, p_hy, P);
-      __syncthreads();
-      tendencies_block(u, w, b, p_hy, bottom, gu, gw, gb, P);
-      __syncthreads();
-      // low-storage RK update; stage 0 has no previous tendency
-      for (int q = threadIdx.x; q < nc; q += blockDim.x) {
-        const float g1 = gu[q], h1 = gb[q];
-        if (stage == 0) {
-          u[q] += dt * gamma * g1;
-          b[q] += dt * gamma * h1;
-        } else {
-          u[q] += dt * (gamma * g1 + zeta * gu0[q]);
-          b[q] += dt * (gamma * h1 + zeta * gb0[q]);
+      const float dts = P.dts[stage], idts = P.idts[stage];
+      const bool last = step == P.n_substeps - 1 && stage == 2;
+      auto rk = [&](float f, float g, float g_prev) {
+        return stage == 0 ? f + P.dt * (gamma * g) : f + P.dt * (gamma * g + zeta * g_prev);
+      };
+
+      // ---- 1. pHY' of this warp's columns: a float64 suffix scan along z ----
+#pragma unroll
+      for (int xi = 0; xi < XS; ++xi) {
+        if (xi < xn) {
+          const float* bc = X.b + (x0 + xi) * nz;
+          double v[NS];
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            const int k = kl[s];
+            const double face = 0.5 * ((double)bc[kc[s]] + (double)bc[min(k + 1, nz - 1)]);
+            v[s] = k < nz - 1 ? (double)P.dz * face : (k == nz - 1 ? 0.5 * P.dz * P.min_b : 0.0);
+          }
+#pragma unroll
+          for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+            for (int s = 0; s < NS; ++s) {
+              const double t = __shfl_down_sync(kFull, v[s], off);
+              if (lane + off < 32) v[s] += t;
+            }
+          }
+          double above = 0.0;
+#pragma unroll
+          for (int s = NS - 1; s >= 0; --s) {
+            const double total = __shfl_sync(kFull, v[s], 0);
+            if (kl[s] < nz) s1[(x0 + xi) * nz + kl[s]] = (float)-(v[s] + above);
+            above += total;
+          }
         }
-        gu0[q] = g1;
-        gb0[q] = h1;
-      }
-      for (int q = threadIdx.x; q < nw; q += blockDim.x) {
-        const float g1 = gw[q];
-        w[q] += stage == 0 ? dt * gamma * g1 : dt * (gamma * g1 + zeta * gw0[q]);
-        gw0[q] = g1;
       }
       __syncthreads();
-      const float dts = (gamma + zeta) * dt;
-      for (int q = threadIdx.x; q < nc; q += blockDim.x) {
-        const int i = q / nz, k = q - i * nz;
-        const int ip = wrap_x(i + 1, nx);
-        const float div = (u[ip * nz + k] - u[q]) / P.dx +
-                          (w[i * (nz + 1) + k + 1] - w[i * (nz + 1) + k]) / P.dz;
-        rhs[q] = div / dts;
+
+      // ---- 2. tendencies and the RK update, marching along x ------------------
+      {
+        float fu[NS], fw[NS], fb[NS];  // x fluxes entering the current column
+        if (xn > 0) {
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            fu[s] = xflux_u(X, x0 - 1, kc[s]);
+            fw[s] = xflux_w(X, x0, s);
+            fb[s] = xflux_b(X, x0, s);
+          }
+        }
+#pragma unroll
+        for (int xi = 0; xi < XS; ++xi) {
+          if (xi < xn) {
+            const int i = x0 + xi, im = wrap(i - 1), ip = wrap(i + 1);
+            const float* uc = X.u + i * nz;
+            const float* wc = X.w + i * nw;
+            const float* bc = X.b + i * nz;
+            const float* wm = X.w + im * nw;
+            // z fluxes through face k of u (velocity w at the x-face) and b,
+            // and through center k of w
+            float zu[NS], zb[NS], zw[NS], zu_up[NS], zb_up[NS], zw_dn[NS];
+#pragma unroll
+            for (int s = 0; s < NS; ++s) {
+              const ZOrders oc = z_orders(kl[s], nz), ow = z_orders(kl[s] + 1, nw);
+              const int k = kc[s];
+              zu[s] = z_upwind(uc[tap(s, 0, nz)], uc[tap(s, 1, nz)], uc[tap(s, 2, nz)], uc[k],
+                               uc[tap(s, 4, nz)], uc[tap(s, 5, nz)], oc,
+                               0.5f * (wm[k] + wc[k]));
+              zb[s] = z_upwind(bc[tap(s, 0, nz)], bc[tap(s, 1, nz)], bc[tap(s, 2, nz)], bc[k],
+                               bc[tap(s, 4, nz)], bc[tap(s, 5, nz)], oc, wc[k]);
+              const float w0 = wc[k], w1 = wc[k + 1];
+              zw[s] = z_upwind(wc[tap(s, 1, nw)], wc[tap(s, 2, nw)], w0, w1, wc[tap(s, 5, nw)],
+                               wc[tap(s, 6, nw)], ow, 0.5f * (w0 + w1));
+            }
+            flux_above(zu, zu_up, lane, nz);
+            flux_above(zb, zb_up, lane, nz);
+            flux_below(zw, zw_dn, lane);
+#pragma unroll
+            for (int s = 0; s < NS; ++s) {
+              const int kk = kl[s], k = kc[s];
+              // ---- gu and u* at (face i, center k) ----
+              {
+                const float f_new = xflux_u(X, i, k);
+                float adv = (f_new - fu[s]) * P.idx;
+                fu[s] = f_new;
+                adv += (zu_up[s] - zu[s]) * P.idz;
+                const float dphy = (s1[i * nz + k] - s1[im * nz + k]) * P.idx;
+                const float q = uc[k];
+                const float qm = kk > 0 ? uc[max(kk - 1, 0)] : -uc[0];
+                const float qp = kk < nz - 1 ? uc[min(kk + 1, nz - 1)] : -uc[nz - 1];
+                const float lap = (X.u[ip * nz + k] - 2.0f * q + X.u[im * nz + k]) * P.idx2 +
+                                  (qp - 2.0f * q + qm) * P.idz2;
+                const float g = -adv - dphy + P.nu * lap;
+                if (kk < nz) Y.u[i * nz + k] = rk(q, g, gp[xi][s][0]);
+                gp[xi][s][0] = g;
+              }
+              // ---- gw and w* at (center i, face k); face 0 is a wall ----
+              {
+                const float f_new = xflux_w(X, i + 1, s);
+                float adv = (f_new - fw[s]) * P.idx;
+                fw[s] = f_new;
+                adv += (zw[s] - zw_dn[s]) * P.idz;
+                const float q = wc[k];
+                const float lap = (X.w[ip * nw + k] - 2.0f * q + X.w[im * nw + k]) * P.idx2 +
+                                  (wc[k + 1] - 2.0f * q + wc[max(k - 1, 0)]) * P.idz2;
+                const float g = kk == 0 ? 0.0f : -adv + P.nu * lap;
+                if (kk < nz) Y.w[i * nw + k] = rk(q, g, gp[xi][s][1]);
+                gp[xi][s][1] = g;
+              }
+              // ---- gb and b' at (center i, center k) ----
+              {
+                const float f_new = xflux_b(X, i + 1, s);
+                float adv = (f_new - fb[s]) * P.idx;
+                fb[s] = f_new;
+                adv += (zb_up[s] - zb[s]) * P.idz;
+                const float q = bc[k];
+                const float qm = kk > 0 ? bc[max(kk - 1, 0)] : 2.0f * bot[i] - bc[0];
+                const float qp = kk < nz - 1 ? bc[min(kk + 1, nz - 1)] : 2.0f * P.min_b - bc[nz - 1];
+                const float lap = (X.b[ip * nz + k] - 2.0f * q + X.b[im * nz + k]) * P.idx2 +
+                                  (qp - 2.0f * q + qm) * P.idz2;
+                const float g = -adv + P.kappa * lap;
+                if (kk < nz) Y.b[i * nz + k] = rk(q, g, gp[xi][s][2]);
+                gp[xi][s][2] = g;
+              }
+            }
+          }
+        }
       }
       __syncthreads();
-      dense_left_product<8>(fmat, rhs, rhat, nx, nx, nz);  // r_hat = F . rhs
-      __syncthreads();
-      modal_inverse(inv, rhat, rhs, nx, nz);                // p_hat -> rhs
-      __syncthreads();
-      dense_left_product<8>(gmat, rhs, p, nx, nx, nz);     // p = G . p_hat
-      __syncthreads();
-      for (int q = threadIdx.x; q < nc; q += blockDim.x) {
-        const int i = q / nz, k = q - i * nz;
-        const int im = wrap_x(i - 1, nx);
-        u[q] -= dts * (p[q] - p[im * nz + k]) / P.dx;
+
+      // ---- 3. div(u*, w*) / dt_stage ------------------------------------------
+#pragma unroll
+      for (int xi = 0; xi < XS; ++xi) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          const int i = x0 + xi, k = kl[s];
+          if (xi < xn && k < nz) {
+            const float div = (Y.u[wrap(i + 1) * nz + k] - Y.u[i * nz + k]) * P.idx +
+                              (Y.w[i * nw + k + 1] - Y.w[i * nw + k]) * P.idz;
+            s1[i * nz + k] = div * idts;
+          }
+        }
       }
-      for (int q = threadIdx.x; q < nw; q += blockDim.x) {
-        const int i = q / (nz + 1), k = q - i * (nz + 1);
-        if (k > 0 && k < nz) w[q] -= dts * (p[i * nz + k] - p[i * nz + k - 1]) / P.dz;
+      __syncthreads();
+
+      // ---- 4. the solve: four products, each from one slab into the other -----
+      auto store = [&](float* dst) {
+#pragma unroll
+        for (int xi = 0; xi < XS; ++xi)
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+            if (xi < xn && kl[s] < nz) dst[(x0 + xi) * nz + kl[s]] = pt[xi][s];
+      };
+      tile_product<XS, NS, kVec>(fmat, s1, nx, nz, x0, nx, lane, pt);  // r_hat = F . rhs
+      store(s2);
+      __syncthreads();
+      tile_product<XS, NS, kVec>(s2, ct, nz, nz, x0, nx, lane, pt);  // r_hat C^T
+#pragma unroll
+      for (int xi = 0; xi < XS; ++xi)
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          pt[xi][s] *= __ldg(dinv + min(x0 + xi, nx - 1) * nz + kc[s]);
+      store(s1);
+      __syncthreads();
+      tile_product<XS, NS, kVec>(s1, st, nz, nz, x0, nx, lane, pt);  // p_hat = R~ S^T
+      store(s2);
+      __syncthreads();
+      tile_product<XS, NS, kVec>(gmat, s2, nx, nz, x0, nx, lane, pt);  // p = G . p_hat
+      store(s1);
+      if (last) {
+#pragma unroll
+        for (int xi = 0; xi < XS; ++xi)
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+            if (xi < xn && kl[s] < nz) p_out[e * nc + (x0 + xi) * nz + kl[s]] = pt[xi][s];
       }
       __syncthreads();
+
+      // ---- 5. correct this thread's u*, w* by grad p ----------------------------
+#pragma unroll
+      for (int xi = 0; xi < XS; ++xi) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          const int i = x0 + xi, k = kl[s];
+          if (xi < xn && k < nz) {
+            const float p = pt[xi][s];
+            const float pm = xi > 0 ? pt[xi - 1][s] : s1[wrap(i - 1) * nz + k];
+            Y.u[i * nz + k] -= dts * ((p - pm) * P.idx);
+            if (k > 0) Y.w[i * nw + k] -= dts * ((p - s1[i * nz + k - 1]) * P.idz);
+          }
+        }
+      }
+      __syncthreads();
+      const State2D t = X;
+      X = Y;
+      Y = t;
     }
   }
+
+  for (int q = threadIdx.x; q < nc; q += kK1Threads) {
+    u_out[e * nc + q] = X.u[q];
+    b_out[e * nc + q] = X.b[q];
+  }
+  for (int q = threadIdx.x; q < nf; q += kK1Threads) w_out[e * nf + q] = X.w[q];
 }
+
+// The K1 instance for a grid: specialised for the reference's 96x64, the
+// runtime-size one for every other grid.
+decltype(&env_step_2d_kernel<0, 0>) env_step_kernel_for(int nx, int nz) {
+  return nx == 96 && nz == 64 ? env_step_2d_kernel<96, 64> : env_step_2d_kernel<0, 0>;
+}
+
+// ---- K2 -----------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
 tendencies_2d_kernel(const float* __restrict__ u, const float* __restrict__ w,
@@ -195,29 +499,28 @@ tendencies_2d_kernel(const float* __restrict__ u, const float* __restrict__ w,
                    bottom + e * P.nx, gu + e * nc, gw + e * nw, gb + e * nc, P);
 }
 
-// Dynamic shared memory K1 needs per block: rhs and r_hat, in bytes.
-int env_step_2d_smem_bytes(int nx, int nz) {
-  return (int)(2 * sizeof(float) * (size_t)nx * nz);
-}
-
 }  // namespace
 
 extern "C" {
 
 int launch_env_step_2d(const float* u, const float* w, const float* b,
                        const float* bottom, const float* fmat, const float* gmat,
-                       const float* inv, float* u_out, float* w_out, float* b_out,
-                       float* p_out, float* scratch, int n_env, int nx, int nz,
+                       const float* dct, const float* idct, const float* dinv, float* u_out,
+                       float* w_out, float* b_out, float* p_out, int n_env, int nx, int nz,
                        int n_substeps, float dt, float dx, float dz, float nu,
                        float kappa, float min_b, void* stream) {
-  const int smem = env_step_2d_smem_bytes(nx, nz);
-  cudaError_t err = cudaFuncSetAttribute(
-      env_step_2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const size_t smem = sizeof(float) * env_step_2d_smem_floats(nx, nz);
+  if (nx < 4 || k1_cols(nx) > kK1MaxCols || nz < 2 || nz > kK1MaxNz || smem > kSmemPerBlock ||
+      n_substeps < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto* kernel = env_step_kernel_for(nx, nz);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const RBCParams P{nx, nz, dx, dz, nu, kappa, min_b};
-  env_step_2d_kernel<<<n_env, kThreads, smem, (cudaStream_t)stream>>>(
-      u, w, b, bottom, fmat, gmat, inv, u_out, w_out, b_out, p_out, scratch,
-      n_substeps, dt, P);
+  const K1Params P = k1_params(nx, nz, n_substeps, dt, dx, dz, nu, kappa, min_b);
+  kernel<<<n_env, kK1Threads, smem, (cudaStream_t)stream>>>(
+      u, w, b, bottom, fmat, gmat, dct, idct, dinv, u_out, w_out, b_out, p_out, P);
   return (int)cudaGetLastError();
 }
 

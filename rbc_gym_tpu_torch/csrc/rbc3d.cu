@@ -130,31 +130,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kXBlk = 4;  // x columns a K3 block owns
 
 struct RBC3DParams {
   int nx, ny, nz;
   float dx, dy, dz, nu, kappa, min_b;
-};
-
-// An x-extended slab in shared memory that holds all of periodic y (K3):
-// columns x = lo, lo + 1, ... (x relative to the block's first column),
-// each ny rows of nk z values; y neighbours and y taps wrap in the slab.
-struct Slab {
-  float* p;
-  int lo, ny, nk;
-  __device__ __forceinline__ float* col(int x, int y) const {
-    return p + ((x - lo) * ny + y) * nk;
-  }
-  __device__ __forceinline__ float operator()(int x, int y, int k) const {
-    return col(x, y)[k];
-  }
-  __device__ __forceinline__ int yp(int j) const { return wrap_x(j + 1, ny); }
-  __device__ __forceinline__ int ym(int j) const { return wrap_x(j - 1, ny); }
-  // vel * UB5 reconstruction along periodic y at row j + m of column x.
-  __device__ __forceinline__ float flux_y(int x, int j, int k, int m, float vel) const {
-    return uw_flux_periodic(col(x, 0) + k, nk, ny, j, m, vel);
-  }
 };
 
 // One env's field (nx, ny, nk) in global memory, the public layout (K6):
@@ -176,8 +155,7 @@ struct GlobalField {
   }
 };
 
-// The tendencies below take either slab type: x wraps only in a
-// GlobalField, y goes through the slab's yp/ym/flux_y.
+// The tendencies below are templates over K6's slab type.
 
 // vel * UB5 reconstruction along x (non-periodic inside the slab) at
 // column i + m, taps i + m + off for off in -3..2.
@@ -279,166 +257,16 @@ __device__ float tendency_b(const S& U, const S& V, const S& W, const S& B,
   return -adv + P.kappa * lap;
 }
 
-// f + dt (gamma g + zeta g_prev); stage 0 has no g_prev.
-__device__ __forceinline__ float rk_update(float f, float g, const float* gp, size_t idx,
-                                           float dt, float gamma, float zeta) {
-  return gp == nullptr ? f + dt * (gamma * g) : f + dt * (gamma * g + zeta * gp[idx]);
-}
-
-// pHY'[k] = -sum_{j >= k} inc[j] of one column, walked from the top (the
-// order of solver3d's suffix sum).
-__device__ __forceinline__ void hydrostatic_column(const float* bc, float* pc,
-                                                   const RBC3DParams& P) {
-  const int nz = P.nz;
-  float acc = 0.5f * P.dz * P.min_b;
-  pc[nz - 1] = -acc;
-  for (int k = nz - 2; k >= 0; --k) {
-    acc += P.dz * (0.5f * (bc[k] + bc[k + 1]));
-    pc[k] = -acc;
-  }
-}
-
-// Copy columns lo .. lo + n_cols - 1 (block-relative, periodic in x) of one
-// env's public-layout field into a slab.
-__device__ void load_columns(const float* __restrict__ src, float* dst, int x0, int lo,
-                             int n_cols, int nx, int col_len) {
-  for (int idx = threadIdx.x; idx < n_cols * col_len; idx += blockDim.x) {
-    const int c = idx / col_len, r = idx - c * col_len;
-    dst[idx] = src[(size_t)wrap_x(x0 + lo + c, nx) * col_len + r];
-  }
-}
-
-// Shared memory K3 needs per block, in floats: q (kXBlk + 8 columns), u
-// (kXBlk + 7), v and b (kXBlk + 6 each) of ny * nz; w (kXBlk + 6) of
-// ny * (nz + 1).
-size_t stage_smem_floats(int ny, int nz) {
-  return (size_t)(4 * kXBlk + 27) * ny * nz + (size_t)(kXBlk + 6) * ny * (nz + 1);
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
-stage_rk_3d_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
-                   const float* __restrict__ w_in, const float* __restrict__ b_in,
-                   const float* __restrict__ q_in, const float* __restrict__ bottom_in,
-                   const float* gu_prev, const float* gv_prev, const float* gw_prev,
-                   const float* gb_prev, float* u_out, float* v_out, float* w_out,
-                   float* b_out, float* div_out, float* gu_out, float* gv_out,
-                   float* gw_out, float* gb_out, float dt, float gamma, float zeta,
-                   RBC3DParams P) {
-  extern __shared__ float smem[];
-  const int nx = P.nx, ny = P.ny, nz = P.nz;
-  const int S = ny * nz, SW = ny * (nz + 1);
-  const int nxb = nx / kXBlk;
-  const size_t e = blockIdx.x / nxb;
-  const int x0 = (blockIdx.x - (int)e * nxb) * kXBlk;
-
-  Slab Q{smem, -4, ny, nz};
-  Slab U{Q.p + (kXBlk + 8) * S, -3, ny, nz};
-  Slab V{U.p + (kXBlk + 7) * S, -3, ny, nz};
-  Slab B{V.p + (kXBlk + 6) * S, -3, ny, nz};
-  Slab W{B.p + (kXBlk + 6) * S, -3, ny, nz + 1};
-  Slab PH{Q.p, -1, ny, nz};          // phase 3 on: pHY' over x in [-1, kXBlk]
-  float* u_edge = Q.p + (kXBlk + 2) * S;  // phase 4 on: u* at x = kXBlk
-
-  // ---- 1. stage the slabs ---------------------------------------------------
-  const size_t cell0 = e * nx * S, face0 = e * nx * SW;
-  load_columns(u_in + cell0, U.p, x0, U.lo, kXBlk + 7, nx, S);
-  load_columns(v_in + cell0, V.p, x0, V.lo, kXBlk + 6, nx, S);
-  load_columns(b_in + cell0, B.p, x0, B.lo, kXBlk + 6, nx, S);
-  load_columns(w_in + face0, W.p, x0, W.lo, kXBlk + 6, nx, SW);
-  {  // q is (E, ny, nx, nz): per y row, the block's columns are one run
-    const int n_cols = kXBlk + 8;
-    const float* qe = q_in + e * (size_t)ny * nx * nz;
-    for (int idx = threadIdx.x; idx < ny * n_cols * nz; idx += blockDim.x) {
-      const int k = idx % nz, t = idx / nz;
-      const int c = t % n_cols, y = t / n_cols;
-      Q.p[(c * ny + y) * nz + k] = qe[((size_t)y * nx + wrap_x(x0 + Q.lo + c, nx)) * nz + k];
-    }
-  }
-  __syncthreads();
-
-  // ---- 2. lazy-projection correction -----------------------------------------
-  for (int idx = threadIdx.x; idx < (kXBlk + 7) * S; idx += blockDim.x) {
-    const int x = idx / S + U.lo, r = idx % S;
-    U.p[idx] -= (Q.col(x, 0)[r] - Q.col(x - 1, 0)[r]) / P.dx;
-  }
-  for (int idx = threadIdx.x; idx < (kXBlk + 6) * S; idx += blockDim.x) {
-    const int x = idx / S + V.lo, r = idx % S, y = r / nz, k = r % nz;
-    V.p[idx] -= (Q(x, y, k) - Q(x, wrap_x(y - 1, ny), k)) / P.dy;
-  }
-  for (int idx = threadIdx.x; idx < (kXBlk + 6) * SW; idx += blockDim.x) {
-    const int x = idx / SW + W.lo, r = idx % SW, y = r / (nz + 1), k = r % (nz + 1);
-    if (k > 0 && k < nz) W.p[idx] -= (Q(x, y, k) - Q(x, y, k - 1)) / P.dz;
-  }
-  __syncthreads();
-
-  // ---- 3. pHY' per (x, y) column ---------------------------------------------
-  for (int t = threadIdx.x; t < (kXBlk + 2) * ny; t += blockDim.x) {
-    const int x = t / ny + PH.lo, y = t % ny;
-    hydrostatic_column(B.col(x, y), PH.col(x, y), P);
-  }
-  __syncthreads();
-
-  // ---- 4. tendencies and RK update ------------------------------------------
-  const bool emit_g = gu_out != nullptr;
-  for (int idx = threadIdx.x; idx < (kXBlk + 1) * S; idx += blockDim.x) {
-    const int i = idx / S, r = idx % S, j = r / nz, k = r % nz;
-    const float g = tendency_u(U, V, W, PH, i, j, k, P);
-    const size_t o = cell0 + (size_t)wrap_x(x0 + i, nx) * S + r;
-    const float f = rk_update(U(i, j, k), g, gu_prev, o, dt, gamma, zeta);
-    if (i == kXBlk) {
-      u_edge[r] = f;
-    } else {
-      u_out[o] = f;
-      if (emit_g) gu_out[o] = g;
-    }
-  }
-  for (int idx = threadIdx.x; idx < kXBlk * S; idx += blockDim.x) {
-    const int i = idx / S, r = idx % S, j = r / nz, k = r % nz;
-    const size_t o = cell0 + (size_t)(x0 + i) * S + r;
-    const float g = tendency_v(U, V, W, PH, i, j, k, P);
-    v_out[o] = rk_update(V(i, j, k), g, gv_prev, o, dt, gamma, zeta);
-    if (emit_g) gv_out[o] = g;
-  }
-  for (int idx = threadIdx.x; idx < kXBlk * SW; idx += blockDim.x) {
-    const int i = idx / SW, r = idx % SW, j = r / (nz + 1), k = r % (nz + 1);
-    const size_t o = face0 + (size_t)(x0 + i) * SW + r;
-    const float g = tendency_w(U, V, W, i, j, k, P);
-    // wall faces: W, g and g_prev are all 0, so w* stays exactly 0 there
-    w_out[o] = rk_update(W(i, j, k), g, gw_prev, o, dt, gamma, zeta);
-    if (emit_g) gw_out[o] = g;
-  }
-  for (int idx = threadIdx.x; idx < kXBlk * S; idx += blockDim.x) {
-    const int i = idx / S, r = idx % S, j = r / nz, k = r % nz;
-    const size_t o = cell0 + (size_t)(x0 + i) * S + r;
-    const float bottom = bottom_in[(e * nx + x0 + i) * ny + j];
-    const float g = tendency_b(U, V, W, B, bottom, i, j, k, P);
-    b_out[o] = rk_update(B(i, j, k), g, gb_prev, o, dt, gamma, zeta);
-    if (emit_g) gb_out[o] = g;
-  }
-  __syncthreads();  // this block's u*, v*, w* writes are visible below
-
-  // ---- 5. div(u*, v*, w*) into the solve layout ------------------------------
-  for (int idx = threadIdx.x; idx < kXBlk * S; idx += blockDim.x) {
-    const int k = idx % nz, t = idx / nz, i = t % kXBlk, j = t / kXBlk;
-    const int x = x0 + i, jp = wrap_x(j + 1, ny);
-    const size_t o = cell0 + (size_t)x * S + j * nz + k;
-    const float u_ip = i + 1 < kXBlk ? u_out[o + S] : u_edge[j * nz + k];
-    const float* wc = w_out + face0 + (size_t)x * SW + j * (nz + 1);
-    const float d = (u_ip - u_out[o]) / P.dx +
-                    (v_out[cell0 + (size_t)x * S + jp * nz + k] - v_out[o]) / P.dy +
-                    (wc[k + 1] - wc[k]) / P.dz;
-    div_out[((e * ny + j) * nx + x) * nz + k] = d;
-  }
-}
-
-// ---- K5: the (x, y)-blocked stage, marching along x -------------------------
+// ---- K3 and K5: the stage as a march along x ---------------------------------
 
 constexpr int kYT = 8;       // y rows a K5 block owns
-constexpr int kRing = 8;     // x-planes of u, v, w, b a K5 block holds
+constexpr int kRing = 8;     // x-planes of u, v, w, b a block holds
 constexpr int kPhRing = 4;   // x-planes of pHY'
-// Rows of each staged x-plane, relative to the block's first row: the first
-// one and how many (the y taps reach 3 rows; v* is computed one row wider,
-// at the far y face, for the divergence; v's correction needs q a row lower).
+constexpr int kMaxThreads = 1024;
+// K5: rows of each staged x-plane, relative to the block's first row: the
+// first one and how many (the y taps reach 3 rows; v* is computed one row
+// wider, at the far y face, for the divergence; v's correction needs q a row
+// lower). K3's planes hold every row of periodic y once.
 constexpr int kULo = -3, kURows = kYT + 6;
 constexpr int kVLo = -3, kVRows = kYT + 7;
 constexpr int kWLo = -3, kWRows = kYT + 6;
@@ -446,8 +274,8 @@ constexpr int kBLo = -3, kBRows = kYT + 6;
 constexpr int kQLo = -4, kQRows = kYT + 8;
 constexpr int kPLo = -1, kPRows = kYT + 2;
 
-// K5's scalars: reciprocals of the spacings and their squares, taken once on
-// the host in double precision, so that no tendency divides.
+// The march's scalars: reciprocals of the spacings and their squares, taken
+// once on the host in double precision, so that no tendency divides.
 struct XYParams {
   int nx, ny, nz;
   float idx, idy, idz, idx2, idy2, idz2, dz, nu, kappa, min_b;
@@ -465,51 +293,30 @@ constexpr size_t kSmemPerBlock = 232448;    // an H100 block's shared memory
 
 // A ring of kSlots x-planes in shared memory, each `rows` rows of nk floats;
 // plane x lives in slot x mod kSlots (a power of 2, so negative x works).
-template <int kSlots>
+// K5's planes hold a y tile and its halos (row r at r - lo); K3's all of
+// periodic y (kWrap: row r at r mod rows, lo = 0).
+template <int kSlots, bool kWrap = false>
 struct Ring {
   float* p;
   int lo, rows, nk;
   __device__ __forceinline__ float* row(int x, int r) const {
-    return p + ((x & (kSlots - 1)) * rows + r - lo) * nk;
+    return p + ((x & (kSlots - 1)) * rows + (kWrap ? wrap_x(r, rows) : r - lo)) * nk;
   }
   __device__ __forceinline__ float* end() const { return p + kSlots * rows * nk; }
 };
 
-// UB5 reconstruction in the select form of the plain stencils: the five
-// taps upwind of the face, in the left-biased order, then one weighted sum.
-__device__ __forceinline__ float ub5_upwind(float tm3, float tm2, float tm1, float t0,
-                                            float t1, float t2, float vel) {
-  const bool pos = vel > 0.0f;
-  const float a0 = pos ? tm3 : t2, a1 = pos ? tm2 : t1, a2 = pos ? tm1 : t0;
-  const float a3 = pos ? t0 : tm1, a4 = pos ? t1 : tm2;
-  return vel * ((2.0f / 60.0f) * a0 + (-13.0f / 60.0f) * a1 + (47.0f / 60.0f) * a2 +
-                (27.0f / 60.0f) * a3 + (-3.0f / 60.0f) * a4);
-}
-
-// The order (5, 3 or 1) of the z ladder's left- and right-biased stencils
-// at face m of a column of n points, as stencils._z_order_ladder picks it.
-struct ZOrders {
-  int left, right;
-};
-__device__ __forceinline__ ZOrders z_orders(int m, int n) {
-  return {m >= 3 && m + 1 <= n - 1 ? 5 : (m >= 2 && m <= n - 1 ? 3 : 1),
-          m >= 2 && m + 2 <= n - 1 ? 5 : (m >= 1 && m + 1 <= n - 1 ? 3 : 1)};
-}
-
-// vel * the z ladder's reconstruction at a face with taps at offsets -3..2
-// (clamped into the column: a tap outside it has weight 0 in the order the
-// ladder picks, or meets a wall velocity of exactly 0). Every order is
-// computed and one is selected, so the lanes of a warp never diverge.
-__device__ __forceinline__ float z_upwind(float tm3, float tm2, float tm1, float t0,
-                                          float t1, float t2, ZOrders o, float vel) {
-  const bool pos = vel > 0.0f;
-  const float a0 = pos ? tm3 : t2, a1 = pos ? tm2 : t1, a2 = pos ? tm1 : t0;
-  const float a3 = pos ? t0 : tm1, a4 = pos ? t1 : tm2;
-  const float r5 = (2.0f / 60.0f) * a0 + (-13.0f / 60.0f) * a1 + (47.0f / 60.0f) * a2 +
-                   (27.0f / 60.0f) * a3 + (-3.0f / 60.0f) * a4;
-  const float r3 = (-1.0f / 6.0f) * a1 + (5.0f / 6.0f) * a2 + (2.0f / 6.0f) * a3;
-  const int order = pos ? o.left : o.right;
-  return vel * (order == 5 ? r5 : (order == 3 ? r3 : a2));
+// pHY'[m] = -sum_{m' >= m} inc[m'] of one column, summed from the top in
+// float64 (inc[m] = dz (b[m] + b[m + 1]) / 2, the top half cell dz min_b / 2),
+// so that each value rounds once.
+__device__ __forceinline__ void hydrostatic_column(const float* bc, float* pc, int nz,
+                                                   const XYParams& P) {
+  const double dz = P.dz;
+  double acc = 0.5 * dz * P.min_b;
+  pc[nz - 1] = (float)-acc;
+  for (int m = nz - 2; m >= 0; --m) {
+    acc += dz * (0.5 * ((double)bc[m] + (double)bc[m + 1]));
+    pc[m] = (float)-acc;
+  }
 }
 
 // Shared memory K5 needs per block, in floats: rings of kRing x-planes of u,
@@ -521,12 +328,24 @@ size_t stage_xy_smem_floats(int nz) {
          (size_t)(kRing * kWRows + kYT) * (nz + 1);
 }
 
-// Threads of a K5 block: one per (row, z) point of an x-plane, rows 0..kYT.
-int stage_xy_threads(int nz) { return (kYT + 1) * nz; }
+// Shared memory K3 needs per block, in floats: rings of kRing x-planes of
+// u, v, b and w, two of q, kPhRing of pHY' and v*, w* of one plane, each
+// plane all ny rows: ny (40 nz + 9).
+size_t stage_smem_floats(int ny, int nz) {
+  return (size_t)ny * ((kRing * 3 + 2 + kPhRing + 1) * (size_t)nz + (kRing + 1) * (size_t)(nz + 1));
+}
 
-template <int NZ>
-__global__ void __launch_bounds__(NZ > 0 ? (kYT + 1) * NZ : 1024, NZ == 32 ? 3 : 1)
-stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
+// Threads of a block: one per (row, z) point of an x-plane; K5's rows
+// 0..kYT (NY < 0), K3's rows 0..ny - 1 (NY >= 0).
+__host__ __device__ constexpr int march_threads(int nz, int ny) { return (ny < 0 ? kYT + 1 : ny) * nz; }
+
+// The march kernel: K5 for NY < 0 (a block per (env, kYT y rows)), K3 for
+// NY >= 0 (a block per env, all of periodic y; NY = 0: ny at run time). NZ
+// (and NY) > 0 fix the sizes at compile time.
+template <int NZ, int NY>
+__global__ void __launch_bounds__(NZ > 0 && NY != 0 ? march_threads(NZ, NY) : kMaxThreads,
+                                  NY < 0 ? (NZ == 32 ? 3 : 1) : (NZ > 0 && NY > 0 ? 2 : 1))
+stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
                       const float* __restrict__ w_in, const float* __restrict__ b_in,
                       const float* __restrict__ q_in, const float* __restrict__ bottom_in,
                       const float* gu_prev, const float* gv_prev, const float* gw_prev,
@@ -534,30 +353,44 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
                       float* b_out, float* div_out, float* gu_out, float* gv_out,
                       float* gw_out, float* gb_out, float dt, float gamma, float zeta,
                       XYParams P) {
+  constexpr bool kWhole = NY >= 0;  // K3
   extern __shared__ float smem[];
-  const int nx = P.nx, ny = P.ny, nz = NZ > 0 ? NZ : P.nz, nw = nz + 1;
-  // this thread's point of every x-plane: row j (0..kYT), level k; the
-  // only divisions by a runtime size are these and the block's
+  const int nx = P.nx, ny = NY > 0 ? NY : P.ny, nz = NZ > 0 ? NZ : P.nz, nw = nz + 1;
+  // this thread's point of every x-plane: row j, level k; the only
+  // divisions by a runtime size are these and the block's
   const int j = threadIdx.x / nz, k = threadIdx.x - j * nz;
-  const int nyb = ny / kYT;
-  const size_t e = blockIdx.x / nyb;
-  const int y0 = (blockIdx.x - (int)e * nyb) * kYT;
+  const int n_rows = kWhole ? ny : kYT + 1;  // rows of threads
+  size_t e;
+  int y0;
+  if constexpr (kWhole) {
+    e = blockIdx.x;
+    y0 = 0;
+  } else {
+    const int nyb = ny / kYT;
+    e = blockIdx.x / nyb;
+    y0 = (blockIdx.x - (int)e * nyb) * kYT;
+  }
   const size_t S = (size_t)ny * nz, SW = (size_t)ny * nw;
   const size_t cell0 = e * nx * S, face0 = e * nx * SW;
-  const bool own = j < kYT;  // row kYT computes v* only, for the divergence
+  const bool own = kWhole || j < kYT;  // K5's row kYT computes v* only, for the divergence
+  const int jp = kWhole ? wrap_x(j + 1, ny) : j + 1;  // the row of v* above
 
-  Ring<kRing> U{smem, kULo, kURows, nz};
-  Ring<kRing> V{U.end(), kVLo, kVRows, nz};
-  Ring<kRing> W{V.end(), kWLo, kWRows, nw};
-  Ring<kRing> B{W.end(), kBLo, kBRows, nz};
-  Ring<2> Q{B.end(), kQLo, kQRows, nz};
-  Ring<kPhRing> PH{Q.end(), kPLo, kPRows, nz};
-  float* vs = PH.end();             // v* of the current plane, rows 0..kYT
-  float* ws = vs + (kYT + 1) * nz;  // w* of the current plane, rows 0..kYT-1
+  // each ring's first row and rows: K5's tile and halos, K3's every row
+  auto lo = [&](int tile_lo) { return kWhole ? 0 : tile_lo; };
+  auto rows = [&](int tile_rows) { return kWhole ? ny : tile_rows; };
+  Ring<kRing, kWhole> U{smem, lo(kULo), rows(kURows), nz};
+  Ring<kRing, kWhole> V{U.end(), lo(kVLo), rows(kVRows), nz};
+  Ring<kRing, kWhole> W{V.end(), lo(kWLo), rows(kWRows), nw};
+  Ring<kRing, kWhole> B{W.end(), lo(kBLo), rows(kBRows), nz};
+  Ring<2, kWhole> Q{B.end(), lo(kQLo), rows(kQRows), nz};
+  Ring<kPhRing, kWhole> PH{Q.end(), lo(kPLo), rows(kPRows), nz};
+  float* vs = PH.end();       // v* of the current plane, every row of threads
+  float* ws = vs + n_rows * nz;  // w* of the current plane, rows 0..kYT-1 (K3: all)
 
   // ---- staging: plane x of u, v, w, b and q, raw, by asynchronous copies ----
-  auto copy_rows = [&](const Ring<kRing>& R, const float* src, size_t row_stride, int x) {
-    for (int r = R.lo + j; r < R.lo + R.rows; r += kYT + 1) {
+  auto copy_rows = [&](const Ring<kRing, kWhole>& R, const float* src, size_t row_stride,
+                       int x) {
+    for (int r = R.lo + j; r < R.lo + R.rows; r += n_rows) {
       const float* s = src + wrap_x(y0 + r, ny) * row_stride;
       float* d = R.row(x, r);
       __pipeline_memcpy_async(d + k, s + k, sizeof(float));
@@ -566,7 +399,7 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
   };
   auto load_q = [&](int x) {  // q is (E, ny, nx, nz): row y of plane x is one run
     const float* qe = q_in + e * ny * nx * nz + (size_t)wrap_x(x, nx) * nz;
-    for (int r = kQLo + j; r < kQLo + kQRows; r += kYT + 1) {
+    for (int r = Q.lo + j; r < Q.lo + Q.rows; r += n_rows) {
       __pipeline_memcpy_async(Q.row(x, r) + k, qe + (size_t)wrap_x(y0 + r, ny) * nx * nz + k,
                               sizeof(float));
     }
@@ -582,28 +415,34 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
   };
   // ---- lazy-projection correction of plane x, once, as it arrives ----------
   auto correct_plane = [&](int x) {
-    for (int r = kULo + j; r < kULo + kURows; r += kYT + 1)
+    for (int r = U.lo + j; r < U.lo + U.rows; r += n_rows)
       U.row(x, r)[k] -= (Q.row(x, r)[k] - Q.row(x - 1, r)[k]) * P.idx;
-    for (int r = kVLo + j; r < kVLo + kVRows; r += kYT + 1)
+    for (int r = V.lo + j; r < V.lo + V.rows; r += n_rows)
       V.row(x, r)[k] -= (Q.row(x, r)[k] - Q.row(x, r - 1)[k]) * P.idy;
     if (k > 0) {  // interior faces only
-      for (int r = kWLo + j; r < kWLo + kWRows; r += kYT + 1)
+      for (int r = W.lo + j; r < W.lo + W.rows; r += n_rows)
         W.row(x, r)[k] -= (Q.row(x, r)[k] - Q.row(x, r)[k - 1]) * P.idz;
     }
   };
-  // ---- pHY' of plane x: a thread of row kYT per (row, column), summed from
-  // the top in float64, so that each value rounds once ---------------------
+  // ---- pHY' of plane x, in float64 so that each value rounds once: K5's
+  // row kYT sums a column a thread from the top; K3's threads take a suffix
+  // scan across the lanes of their column (NZ > 0), else each column's
+  // k = 0 thread sums it ---------------------------------------------------
   auto hydrostatic = [&](int x) {
-    const double dz = P.dz;
-    for (int r = kPLo + k; r < kPLo + kPRows; r += nz) {
-      const float* bc = B.row(x, r);
-      float* pc = PH.row(x, r);
-      double acc = 0.5 * dz * P.min_b;
-      pc[nz - 1] = (float)-acc;
-      for (int m = nz - 2; m >= 0; --m) {
-        acc += dz * (0.5 * ((double)bc[m] + (double)bc[m + 1]));
-        pc[m] = (float)-acc;
+    if constexpr (kWhole && NZ > 0) {
+      const float* bc = B.row(x, j);
+      const double dz = P.dz;
+      double v = k < nz - 1 ? dz * (0.5 * ((double)bc[k] + (double)bc[min(k + 1, nz - 1)]))
+                            : 0.5 * dz * P.min_b;
+#pragma unroll
+      for (int off = 1; off < NZ; off <<= 1) {
+        const double t = __shfl_down_sync(__activemask(), v, off, NZ);
+        if (k + off < NZ) v += t;
       }
+      PH.row(x, j)[k] = (float)-v;
+    } else {
+      const int r0 = kWhole ? (k == 0 ? j : n_rows) : kPLo + k, r1 = kWhole ? j + 1 : kPLo + kPRows;
+      for (int r = r0; r < r1; r += nz) hydrostatic_column(B.row(x, r), PH.row(x, r), nz, P);
     }
   };
 
@@ -641,7 +480,7 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
     return ub5_upwind(U.row(c - 2, j)[k], U.row(c - 1, j)[k], a, b, U.row(c + 2, j)[k],
                       U.row(c + 3, j)[k], 0.5f * (a + b));
   };
-  auto xflux_face = [&](const Ring<kRing>& R, int c, float vel) {
+  auto xflux_face = [&](const Ring<kRing, kWhole>& R, int c, float vel) {
     return ub5_upwind(R.row(c - 3, j)[k], R.row(c - 2, j)[k], R.row(c - 1, j)[k],
                       R.row(c, j)[k], R.row(c + 1, j)[k], R.row(c + 2, j)[k], vel);
   };
@@ -654,11 +493,11 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
   };
   auto xflux_b = [&](int c) { return xflux_face(B, c, U.row(c, j)[k]); };
   // vel * UB5 along y at face/center c of plane x, level kk (taps c-3..c+2)
-  auto yflux = [&](const Ring<kRing>& R, int x, int c, int kk, float vel) {
+  auto yflux = [&](const Ring<kRing, kWhole>& R, int x, int c, int kk, float vel) {
     return ub5_upwind(R.row(x, c - 3)[kk], R.row(x, c - 2)[kk], R.row(x, c - 1)[kk],
                       R.row(x, c)[kk], R.row(x, c + 1)[kk], R.row(x, c + 2)[kk], vel);
   };
-  auto lap_h = [&](const Ring<kRing>& R, int i, int kk, float c) {
+  auto lap_h = [&](const Ring<kRing, kWhole>& R, int i, int kk, float c) {
     return (R.row(i + 1, j)[kk] - 2.0f * c + R.row(i - 1, j)[kk]) * P.idx2 +
            (R.row(i, j + 1)[kk] - 2.0f * c + R.row(i, j - 1)[kk]) * P.idy2;
   };
@@ -672,7 +511,7 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
     correct_plane(x);
     __syncthreads();
   }
-  if (!own) {
+  if (kWhole || !own) {
     for (int x = -1; x <= 1; ++x) hydrostatic(x);
   }
   float fu = 0.0f, fv = xflux_v(0), fw = 0.0f, fb = 0.0f;
@@ -731,8 +570,9 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
         if (emit_g) gv_out[o] = g;
       }
     }
-    // row kYT, which has no other work, sums pHY' of plane i + 2 meanwhile
-    if (!own) hydrostatic(i + 2);
+    // K5's row kYT, which has no other work, sums pHY' of plane i + 2
+    // meanwhile; K3's threads take their own points of it
+    if (kWhole || !own) hydrostatic(i + 2);
     if (own) {
       const float* uc = U.row(i, j);
       const float* wc = W.row(i, j);
@@ -825,7 +665,7 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
     __syncthreads();  // plane i + 4 has landed; v*, w* of plane i are complete
     correct_plane(i + 4);
     if (own) {
-      dv = (vs[(j + 1) * nz + k] - vs[j * nz + k]) * P.idy;
+      dv = (vs[jp * nz + k] - vs[j * nz + k]) * P.idy;
       dw = (ws[j * nw + k + 1] - ws[j * nw + k]) * P.idz;
     }
     __syncthreads();
@@ -837,9 +677,15 @@ stage_rk_3d_xy_kernel(const float* __restrict__ u_in, const float* __restrict__ 
 
 // The K5 instance for nz: specialised for the grids users run (the big
 // grid's 32, and 16), the runtime-nz one for every other nz.
-decltype(&stage_rk_3d_xy_kernel<0>) stage_xy_kernel_for(int nz) {
-  return nz == 32 ? stage_rk_3d_xy_kernel<32>
-                  : (nz == 16 ? stage_rk_3d_xy_kernel<16> : stage_rk_3d_xy_kernel<0>);
+decltype(&stage_march_kernel<0, -1>) stage_xy_kernel_for(int nz) {
+  return nz == 32 ? stage_march_kernel<32, -1>
+                  : (nz == 16 ? stage_march_kernel<16, -1> : stage_march_kernel<0, -1>);
+}
+
+// The K3 instance: specialised for the training grid's 32 rows of 16, the
+// runtime-size one for every other grid.
+decltype(&stage_march_kernel<0, 0>) stage_kernel_for(int ny, int nz) {
+  return ny == 32 && nz == 16 ? stage_march_kernel<16, 32> : stage_march_kernel<0, 0>;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -939,16 +785,18 @@ int launch_stage_rk_3d(const float* u, const float* v, const float* w, const flo
                        float kappa, float min_b, void* stream) {
   const bool reads_g = gu_prev && gv_prev && gw_prev && gb_prev;
   const bool writes_g = gu && gv && gw && gb;
-  if (nx % kXBlk != 0 || nx < kXBlk || ny < 4 || nz < 2 || stage < 0 || stage > 2 ||
-      reads_g != (stage > 0) || writes_g != (stage < 2)) {
+  const size_t smem = sizeof(float) * stage_smem_floats(ny, nz);
+  if (nx < kXYMinNx || ny < 4 || nz < 2 || march_threads(nz, ny) > kMaxThreads ||
+      smem > kSmemPerBlock || stage < 0 || stage > 2 || reads_g != (stage > 0) ||
+      writes_g != (stage < 2)) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = sizeof(float) * stage_smem_floats(ny, nz);
-  cudaError_t err = cudaFuncSetAttribute(
-      stage_rk_3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto* kernel = stage_kernel_for(ny, nz);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const RBC3DParams P{nx, ny, nz, dx, dy, dz, nu, kappa, min_b};
-  stage_rk_3d_kernel<<<n_env * (nx / kXBlk), kThreads, smem, (cudaStream_t)stream>>>(
+  const XYParams P = xy_params(nx, ny, nz, dx, dy, dz, nu, kappa, min_b);
+  kernel<<<n_env, march_threads(nz, ny), smem, (cudaStream_t)stream>>>(
       u, v, w, b, q, bottom, gu_prev, gv_prev, gw_prev, gb_prev, u_out, v_out, w_out,
       b_out, div_out, gu, gv, gw, gb, dt, gamma, zeta, P);
   return (int)cudaGetLastError();
@@ -975,7 +823,7 @@ int launch_stage_rk_3d_xy(const float* u, const float* v, const float* w, const 
   if (err != cudaSuccess) return (int)err;
   const XYParams P = xy_params(nx, ny, nz, dx, dy, dz, nu, kappa, min_b);
   const unsigned blocks = (unsigned)n_env * (ny / kYT);
-  kernel<<<blocks, stage_xy_threads(nz), smem, (cudaStream_t)stream>>>(
+  kernel<<<blocks, march_threads(nz, -1), smem, (cudaStream_t)stream>>>(
       u, v, w, b, q, bottom, gu_prev, gv_prev, gw_prev, gb_prev, u_out, v_out, w_out,
       b_out, div_out, gu, gv, gw, gb, dt, gamma, zeta, P);
   return (int)cudaGetLastError();

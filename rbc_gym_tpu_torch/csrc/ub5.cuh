@@ -93,6 +93,43 @@ __device__ __forceinline__ float z_uw_flux(const float* qc, int n_src, int j,
   return vel * (vel > 0.0f ? left : right);
 }
 
+// UB5 reconstruction in the select form of the plain stencils: the five
+// taps upwind of the face, in the left-biased order, then one weighted sum.
+__device__ __forceinline__ float ub5_upwind(float tm3, float tm2, float tm1, float t0,
+                                            float t1, float t2, float vel) {
+  const bool pos = vel > 0.0f;
+  const float a0 = pos ? tm3 : t2, a1 = pos ? tm2 : t1, a2 = pos ? tm1 : t0;
+  const float a3 = pos ? t0 : tm1, a4 = pos ? t1 : tm2;
+  return vel * ((2.0f / 60.0f) * a0 + (-13.0f / 60.0f) * a1 + (47.0f / 60.0f) * a2 +
+                (27.0f / 60.0f) * a3 + (-3.0f / 60.0f) * a4);
+}
+
+// The order (5, 3 or 1) of the z ladder's left- and right-biased stencils
+// at face m of a column of n points, as stencils._z_order_ladder picks it.
+struct ZOrders {
+  int left, right;
+};
+__device__ __forceinline__ ZOrders z_orders(int m, int n) {
+  return {m >= 3 && m + 1 <= n - 1 ? 5 : (m >= 2 && m <= n - 1 ? 3 : 1),
+          m >= 2 && m + 2 <= n - 1 ? 5 : (m >= 1 && m + 1 <= n - 1 ? 3 : 1)};
+}
+
+// vel * the z ladder's reconstruction at a face with taps at offsets -3..2
+// (clamped into the column: a tap outside it has weight 0 in the order the
+// ladder picks, or meets a wall velocity of exactly 0). Every order is
+// computed and one is selected, so the lanes of a warp never diverge.
+__device__ __forceinline__ float z_upwind(float tm3, float tm2, float tm1, float t0,
+                                          float t1, float t2, ZOrders o, float vel) {
+  const bool pos = vel > 0.0f;
+  const float a0 = pos ? tm3 : t2, a1 = pos ? tm2 : t1, a2 = pos ? tm1 : t0;
+  const float a3 = pos ? t0 : tm1, a4 = pos ? t1 : tm2;
+  const float r5 = (2.0f / 60.0f) * a0 + (-13.0f / 60.0f) * a1 + (47.0f / 60.0f) * a2 +
+                   (27.0f / 60.0f) * a3 + (-3.0f / 60.0f) * a4;
+  const float r3 = (-1.0f / 6.0f) * a1 + (5.0f / 6.0f) * a2 + (2.0f / 6.0f) * a3;
+  const int order = pos ? o.left : o.right;
+  return vel * (order == 5 ? r5 : (order == 3 ? r3 : a2));
+}
+
 // gu at (x-face i, z-center k).
 __device__ __forceinline__ float tendency_u(const float* u, const float* w,
                                             const float* p_hy, int i, int k,

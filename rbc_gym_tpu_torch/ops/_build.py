@@ -36,9 +36,8 @@ _F = ctypes.c_float
 ARGTYPES = {
     "launch_env_step_2d": [
         _P, _P, _P, _P,  # u, w, b, bottom
-        _P, _P, _P,  # F, G, inv
+        _P, _P, _P, _P, _P,  # F, G, z analysis, z synthesis, modal reciprocals
         _P, _P, _P, _P,  # u_out, w_out, b_out, p_out
-        _P,  # scratch
         _I, _I, _I, _I,  # n_env, nx, nz, n_substeps
         _F, _F, _F, _F, _F, _F,  # dt, dx, dz, nu, kappa, min_b
         _P,  # stream
@@ -93,6 +92,22 @@ ARGTYPES = {
         _P,  # stream
     ],
 }
+
+
+HOST_SHIM = CSRC_DIR / "host_shim.h"
+
+
+def host_source(name: str) -> str:
+    """``csrc/<name>``'s device code for a host C++20 build (the CPU tests'
+    rehearsal of the kernels): the C launchers, which need nvcc, cut off,
+    the CUDA headers replaced by ``csrc/host_shim.h`` and the anonymous
+    namespace named ``host``."""
+    src = (CSRC_DIR / name).read_text()
+    src = src[: src.index('extern "C" {')]
+    src = src.replace("#include <cuda_runtime.h>", f'#include "{HOST_SHIM}"')
+    src = src.replace("#include <cuda_pipeline.h>\n", "")
+    src = src.replace('#include "ub5.cuh"', f'#include "{CSRC_DIR / "ub5.cuh"}"')
+    return src.replace("namespace {", "namespace host {", 1)
 
 
 def sources() -> list[Path]:

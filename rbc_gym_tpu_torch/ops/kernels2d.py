@@ -233,22 +233,21 @@ def env_step_2d(
         return env_step_2d_plain(u, w, b, bottom, spectral, c, dt, n_substeps)
     e, nx, nz = _field_shapes(u)
     _check_cuda(
-        dict(u=u, w=w, b=b, bottom=bottom, f=spectral.f, g=spectral.g, inv=spectral.inv),
+        dict(u=u, w=w, b=b, bottom=bottom, f=spectral.f, g=spectral.g, dct=spectral.dct,
+             idct=spectral.idct, dinv=spectral.dinv),
         dict(u=(e, nx, nz), w=(e, nx, nz + 1), b=(e, nx, nz), bottom=(e, nx),
-             f=(nx, nx), g=(nx, nx), inv=(nx, nz, nz)),
+             f=(nx, nx), g=(nx, nx), dct=(nz, nz), idct=(nz, nz), dinv=(nx, nz)),
     )
     if n_substeps < 1:
         raise ValueError(f"n_substeps must be >= 1, got {n_substeps}")
     u_out, w_out, b_out, p_out = (torch.empty_like(t) for t in (u, w, b, u))
-    # per env: this stage's and the previous stage's tendencies, and pHY'
-    scratch = torch.empty(e * (5 * nx * nz + 2 * nx * (nz + 1)), dtype=u.dtype, device=u.device)
     lib = _build.load_library()
     with torch.cuda.device(u.device):  # the launch goes to the current device
         err = lib.launch_env_step_2d(
             u.data_ptr(), w.data_ptr(), b.data_ptr(), bottom.data_ptr(),
-            spectral.f.data_ptr(), spectral.g.data_ptr(), spectral.inv.data_ptr(),
+            spectral.f.data_ptr(), spectral.g.data_ptr(), spectral.dct.data_ptr(),
+            spectral.idct.data_ptr(), spectral.dinv.data_ptr(),
             u_out.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), p_out.data_ptr(),
-            scratch.data_ptr(),
             e, nx, nz, n_substeps, dt, c.dx, c.dz, c.nu, c.kappa, c.min_b,
             torch.cuda.current_stream(u.device).cuda_stream,
         )

@@ -3,8 +3,9 @@
 The selection rules of ``sim/solver2d.py`` and ``sim/solver3d.py`` decide
 from these numbers alone whether a kernel can take a configuration. The
 launchers in ``csrc/`` compute the same byte counts and refuse a launch
-that does not fit; ``tests/test_torch_kernels3d_host.py`` holds the 3D
-formulas against the compiled launchers.
+that does not fit; ``tests/test_torch_kernels2d_host.py`` and
+``tests/test_torch_kernels3d_host.py`` hold the formulas against the
+compiled launchers.
 """
 
 from __future__ import annotations
@@ -12,22 +13,37 @@ from __future__ import annotations
 # Shared memory one block may ask for on an H100 (sm_90): 227 KB.
 SMEM_PER_BLOCK = 232_448
 
-X_BLK = 4  # x columns a K3 block owns (csrc/rbc3d.cu kXBlk)
+MAX_THREADS = 1024  # threads a block may have; K3 runs one per point of an x-plane
 Y_BLK = 8  # y rows a K5 block owns (kYT)
-XY_MIN_NX = 4  # K5's plane indices -4..nx+3 wrap x once (kXYMinNx)
-XY_RING = 8  # x-planes of u, v, w, b a K5 block holds (kRing)
+XY_MIN_NX = 4  # K3's and K5's plane indices -4..nx+3 wrap x once (kXYMinNx)
+XY_RING = 8  # x-planes of u, v, w, b a K3 or K5 block holds (kRing)
+
+
+K1_MAX_NZ = 64  # z levels of a K1 column: two per lane (csrc/rbc2d.cu kK1MaxNz)
+K1_MAX_NX = 128  # x columns: at most 8 per warp of 16 (kK1MaxCols)
 
 
 def env_step_2d_smem_bytes(nx: int, nz: int) -> int:
-    """K1: the solve's right-hand side and its modal coefficients, (nx, nz)
-    float32 each (``csrc/rbc2d.cu``)."""
-    return 2 * 4 * nx * nz
+    """K1: two copies of u, b (nx, nz) and w (nx, nz + 1), two (nx, nz)
+    slabs, the z analysis and synthesis (nz, nz) and the bottom profile,
+    float32 (``env_step_2d_smem_floats``)."""
+    return 4 * (2 * (2 * nx * nz + nx * (nz + 1)) + 2 * nx * nz + 2 * nz * nz + nx)
 
 
 def stage_smem_bytes(ny: int, nz: int) -> int:
-    """K3's slabs: q, u, v, b of x_blk + 8, + 7, + 6, + 6 whole-y columns of
-    nz, w of x_blk + 6 columns of nz + 1 (``stage_smem_floats``)."""
-    return 4 * ((4 * X_BLK + 27) * ny * nz + (X_BLK + 6) * ny * (nz + 1))
+    """K3's x-plane rings, every plane all ny rows: ``XY_RING`` planes of u,
+    v, b of nz and of w of nz + 1, two planes of q, four of pHY', and v*
+    and w* of one plane (``stage_smem_floats``): 4 ny (40 nz + 9)."""
+    return 4 * ny * ((3 * XY_RING + 2 + 4 + 1) * nz + (XY_RING + 1) * (nz + 1))
+
+
+def whole_y_fits(ny: int, nz: int) -> bool:
+    """Where the path rule takes a whole-y path (K3, or the per-field path
+    at nx % 4 != 0), as the JAX package does below its VMEM ceiling: the
+    boundary the port drew in PR 5, where the first K3 design's whole-y
+    slab, 43 ny nz + 10 ny (nz + 1) floats, fits a block. It stays there so
+    that no grid moves between the whole-y and the tiled paths."""
+    return 4 * (43 * ny * nz + 10 * ny * (nz + 1)) <= SMEM_PER_BLOCK
 
 
 def stage_xy_smem_bytes(nz: int) -> int:

@@ -89,24 +89,38 @@ def _real_dft_matrices(n: int):
 
 
 class Spectral2D(NamedTuple):
-    """Constants of the 2D spectral solve, on the working device and dtype."""
+    """Constants of the 2D spectral solve, on the working device and dtype.
+
+    ``inv`` is the JAX package's dense form, which the plain solve uses;
+    the env-step kernel takes each mode's inverse in the DCT-II basis that
+    diagonalises it, inv[m] = idct^T diag(dinv[m]) dct^T."""
 
     f: torch.Tensor  # (nx, nx) real-DFT analysis, [m, x]
     g: torch.Tensor  # (nx, nx) synthesis, [x, m]
     inv: torch.Tensor  # (nx, nz, nz) per-DFT-row vertical inverse, [m, z, f]
+    dct: torch.Tensor  # (nz, nz) z analysis, transposed: [z, j]
+    idct: torch.Tensor  # (nz, nz) z synthesis, transposed: [j, z]
+    dinv: torch.Tensor  # (nx, nz) 1 / (lambda_m + mu_j), 0 for the mean mode, [m, j]
 
 
 def spectral_constants_2d(
     nx: int, nz: int, dx: float, dz: float, dtype=torch.float32, device="cuda"
 ) -> Spectral2D:
-    """Build F, G and the per-row inverses in float64, then cast once."""
+    """Build F, G, the per-row inverses and their DCT-II factors in
+    float64, then cast once."""
     f_mat, g_mat, row_modes = _real_dft_matrices(nx)
+    lam_rows = _dft_eigenvalues(nx, dx)[row_modes]
     inv_rows = _vertical_inverses(_dft_eigenvalues(nx, dx), nz, dz)[row_modes]
+    cz, sz, mu = _dct2_matrices(nz, dz)
+    lam = lam_rows[:, None] + mu[None, :]
+    with np.errstate(divide="ignore"):
+        dinv = np.where(np.abs(lam) < 1e-14, 0.0, 1.0 / lam)
 
     def cast(a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
-    return Spectral2D(cast(f_mat), cast(g_mat), cast(inv_rows))
+    return Spectral2D(cast(f_mat), cast(g_mat), cast(inv_rows), cast(cz.T), cast(sz.T),
+                      cast(dinv))
 
 
 def poisson_solve_2d(consts: Spectral2D, rhs: torch.Tensor) -> torch.Tensor:

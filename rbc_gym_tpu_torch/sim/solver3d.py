@@ -63,10 +63,11 @@ from rbc_gym_tpu_torch.ops.kernels3d import (
 from rbc_gym_tpu_torch.ops import stencils as st
 from rbc_gym_tpu_torch.ops.limits import (
     SMEM_PER_BLOCK,
-    X_BLK,
+    MAX_THREADS,
     XY_MIN_NX,
     Y_BLK,
     stage_smem_bytes,
+    whole_y_fits,
     stage_xy_smem_bytes,
 )
 from rbc_gym_tpu_torch.ops.poisson import make_poisson_solver_3d
@@ -175,10 +176,12 @@ def stage_kernel_limit(kernel: str, dtype: torch.dtype, nx: int, ny: int, nz: in
             return f"the field kernels need nx, ny >= 3 and nz >= 2 (nx={nx}, ny={ny}, nz={nz})"
         return None
     if kernel == "stage":
-        if nx % X_BLK or nz < 2:
-            return f"the stage kernel needs nx % {X_BLK} == 0 and nz >= 2 (nx={nx}, nz={nz})"
-        if ny < 4:
-            return f"the stage kernel needs ny >= 4 (ny={ny})"
+        if nx < XY_MIN_NX or ny < 4 or nz < 2:
+            return (f"the stage kernel needs nx >= {XY_MIN_NX}, ny >= 4 and nz >= 2 "
+                    f"(nx={nx}, ny={ny}, nz={nz})")
+        if ny * nz > MAX_THREADS:
+            return (f"the stage kernel needs ny * nz <= {MAX_THREADS}, one thread per point "
+                    f"of an x-plane (ny={ny}, nz={nz})")
         need = stage_smem_bytes(ny, nz)
     else:
         if nx < XY_MIN_NX or ny % Y_BLK or nz < 2:
@@ -197,10 +200,11 @@ def select_stage_path(dtype: torch.dtype, nx: int, ny: int, nz: int, device_type
     (K5), "field" (K6 and K7) or "plain", from the dtype and the grid only.
 
     Auto (``fused=None``) follows the JAX package's rule
-    (rbc_gym_tpu/sim/solver3d.py:323-350) with the card's limit, 232,448
-    bytes of shared memory per block, in place of the TPU's VMEM rule.
-    On CUDA in float32: where K3's whole-y slab fits a block, K3 if
-    nx % 4 == 0 and otherwise the per-field path; where it does not fit,
+    (rbc_gym_tpu/sim/solver3d.py:323-350) with a boundary on the card,
+    ``limits.whole_y_fits``, in place of the TPU's VMEM rule. On CUDA in
+    float32: inside it, K3 if nx % 4 == 0 and K3 takes the grid (one
+    thread per point of an x-plane: ny * nz <= 1024), otherwise the
+    per-field path; outside it,
     K5 if nx % 4 == 0 and ny % 8 == 0, raising ``NotImplementedError`` if
     K5's own x-plane rings do not fit either; otherwise the plain path, as
     the JAX package takes its XLA path there. float64 and the CPU take the plain
@@ -220,9 +224,10 @@ def select_stage_path(dtype: torch.dtype, nx: int, ny: int, nz: int, device_type
     if fused is None:
         if device_type != "cuda" or dtype != torch.float32:
             return "plain"
-        if stage_smem_bytes(ny, nz) <= SMEM_PER_BLOCK:
-            want = "stage" if nx % X_BLK == 0 else "field"
-        elif nx % X_BLK == 0 and ny % Y_BLK == 0:
+        if whole_y_fits(ny, nz):
+            k3_takes = stage_kernel_limit("stage", dtype, nx, ny, nz) is None
+            want = "stage" if nx % 4 == 0 and k3_takes else "field"
+        elif nx % 4 == 0 and ny % Y_BLK == 0:
             want = "stage_xy"
         else:
             return "plain"

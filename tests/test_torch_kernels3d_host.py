@@ -33,57 +33,6 @@ from rbc_gym_tpu_torch.ops import _build
 from rbc_gym_tpu_torch.ops import kernels3d as k3
 from rbc_gym_tpu_torch.ops import limits
 
-SHIM = r"""
-#pragma once
-#include <algorithm>
-#include <barrier>
-#include <cmath>
-#include <cstddef>
-#include <cstring>
-using std::max;
-using std::min;
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __shared__
-struct dim3 { unsigned x = 0, y = 0, z = 0; };
-inline thread_local dim3 threadIdx;
-inline dim3 blockIdx, blockDim;
-// the barrier of the block's threads (none when a block runs on one thread)
-inline std::barrier<>* block_barrier = nullptr;
-inline void __syncthreads() {
-  if (block_barrier) block_barrier->arrive_and_wait();
-}
-// cp.async: the copy lands at once, which its wait and barrier imply anyway
-inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n, size_t = 0) {
-  std::memcpy(dst, src, n);
-}
-inline void __pipeline_commit() {}
-inline void __pipeline_wait_prior(size_t) {}
-// Warp shuffles: the lanes of a warp post their values and meet at the
-// warp's barrier, read their source lane's, and meet again.
-inline std::barrier<>* warp_barriers[32];
-inline float shuffle_slots[1024];
-inline float shuffle(float v, unsigned src) {
-  std::barrier<>& bar = *warp_barriers[threadIdx.x / 32];
-  shuffle_slots[threadIdx.x] = v;
-  bar.arrive_and_wait();
-  const float out = shuffle_slots[src];
-  bar.arrive_and_wait();
-  return out;
-}
-inline unsigned __activemask() { return 0xffffffffu; }
-inline float __shfl_down_sync(unsigned, float v, unsigned delta, int width) {
-  const unsigned lane = threadIdx.x % width;
-  return shuffle(v, lane + delta < (unsigned)width ? threadIdx.x + delta : threadIdx.x);
-}
-inline float __shfl_up_sync(unsigned, float v, unsigned delta, int width) {
-  const unsigned lane = threadIdx.x % width;
-  return shuffle(v, lane >= delta ? threadIdx.x - delta : threadIdx.x);
-}
-"""
-
 DRIVER = r"""
 #include <cstdio>
 #include <cstdlib>
@@ -161,12 +110,13 @@ int main(int argc, char** argv) {
                              std::vector<float>(F), std::vector<float>(C)};
   auto prev = [&](int i) { return stage > 0 ? gp[i].data() : nullptr; };
   auto emit = [&](int i) { return stage < 2 ? g[i].data() : nullptr; };
-  if (xy) {  // K5: every thread of a block, meeting at real barriers
+  {  // K3 and K5: every thread of a block, meeting at real barriers
     const XYParams PX = xy_params(nx, ny, nz, P.dx, P.dy, P.dz, P.nu, P.kappa, P.min_b);
-    const int n_thr = stage_xy_threads(nz);
-    auto* kernel = stage_xy_kernel_for(nz);
+    const int n_thr = xy ? march_threads(nz, -1) : march_threads(nz, ny);
+    auto* kernel = xy ? stage_xy_kernel_for(nz) : stage_kernel_for(ny, nz);
+    const unsigned n_blocks = xy ? E * (unsigned)(ny / kYT) : (unsigned)E;
     blockDim.x = n_thr;
-    for (unsigned blk = 0; blk < E * (unsigned)(ny / kYT); ++blk) {
+    for (unsigned blk = 0; blk < n_blocks; ++blk) {
       blockIdx.x = blk;
       std::barrier<> bar(n_thr);
       block_barrier = &bar;
@@ -187,15 +137,6 @@ int main(int argc, char** argv) {
       }
       for (auto& th : threads) th.join();
       block_barrier = nullptr;
-    }
-  } else {  // K3: one thread per block
-    blockDim.x = 1;
-    for (unsigned blk = 0; blk < E * (unsigned)(nx / kXBlk); ++blk) {
-      blockIdx.x = blk;
-      stage_rk_3d_kernel(u.data(), v.data(), w.data(), b.data(), q.data(), bottom.data(),
-                         prev(0), prev(1), prev(2), prev(3), out[0].data(), out[1].data(),
-                         out[2].data(), out[3].data(), out[4].data(), emit(0), emit(1),
-                         emit(2), emit(3), dt, gamma, zeta, P);
     }
   }
   blockDim.x = 1;
@@ -221,14 +162,7 @@ def host_binary(tmp_path_factory):
     if gxx is None:
         pytest.skip("no host C++ compiler to build the kernels' host emulation")
     d = tmp_path_factory.mktemp("rbc3d_host")
-    src = (_build.CSRC_DIR / "rbc3d.cu").read_text()
-    src = src[: src.index('extern "C" {')]  # the launchers need nvcc
-    src = src.replace("#include <cuda_runtime.h>", '#include "shim.h"')
-    src = src.replace("#include <cuda_pipeline.h>\n", "")
-    src = src.replace('#include "ub5.cuh"', f'#include "{_build.CSRC_DIR / "ub5.cuh"}"')
-    src = src.replace("namespace {", "namespace host {", 1)
-    (d / "shim.h").write_text(SHIM)
-    (d / "rbc3d_host.h").write_text(src)
+    (d / "rbc3d_host.h").write_text(_build.host_source("rbc3d.cu"))
     (d / "driver.cpp").write_text(DRIVER)
     exe = d / "driver"
     proc = subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-o", str(exe),
@@ -291,7 +225,13 @@ def _run_stage(host_binary, tmp_path, shape, stage, kernel):
 
 
 @pytest.mark.parametrize("stage", [0, 1, 2])
-@pytest.mark.parametrize("shape", [(3, 32, 32, 16), (2, 8, 8, 8), (1, 12, 8, 5)])
+@pytest.mark.parametrize("shape", [
+    (3, 32, 32, 16),  # the training grid: the specialised instance, 512 threads
+    (2, 8, 8, 8),  # runtime sizes
+    (1, 12, 8, 5),  # runtime sizes, nz where the z ladder meets in the middle
+    (1, 6, 32, 16),  # the specialised instance at nx % 4 != 0: every plane wraps once
+    (1, 4, 5, 7),  # the smallest nx; odd ny and nz: every y tap and x plane wraps
+])
 def test_host_build_of_k3_and_k4_matches_plain(host_binary, tmp_path, shape, stage):
     case, c, got = _run_stage(host_binary, tmp_path, shape, stage, "x")
     plain = k3.correct_3d_plain(*(torch.as_tensor(case[n], dtype=torch.float32)

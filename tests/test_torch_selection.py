@@ -24,8 +24,8 @@ BIG = (64, 64, 32)  # the 32x64x64 big grid
 
 
 @pytest.mark.parametrize("dtype,shape,device_type,want", [
-    (F32, TRAINING, "cuda", "stage"),  # K3's whole-y slab fits: 109,824 bytes
-    (F32, BIG, "cuda", "stage_xy"),  # K3 needs 436,736 bytes; K5 70,240
+    (F32, TRAINING, "cuda", "stage"),  # K3: 512 threads, 83,072 bytes
+    (F32, BIG, "cuda", "stage_xy"),  # outside the whole-y boundary; K5 70,240 bytes
     (F32, (16, 16, 8), "cuda", "stage"),
     (F64, TRAINING, "cuda", "plain"),  # the JAX package's XLA path for float64
     (F64, BIG, "cuda", "plain"),
@@ -34,6 +34,10 @@ BIG = (64, 64, 32)  # the 32x64x64 big grid
     # K3's slab fits but nx % 4 != 0: the JAX package's per-field path
     (F32, (6, 32, 16), "cuda", "field"),
     (F32, (30, 16, 8), "cuda", "field"),
+    # inside the whole-y boundary but ny * nz = 1056 > 1024 threads: K3 cannot
+    # take it, the per-field path does (it took K3's first design)
+    (F32, (32, 33, 32), "cuda", "field"),
+    (F32, (8, 3, 16), "cuda", "field"),  # ny = 3 < 4: K3 refuses, the field path takes it
     (F32, (6, 32, 16), "cpu", "plain"),
     (F32, TRAINING, "cpu", "plain"),
     (F32, BIG, "cpu", "plain"),
@@ -56,6 +60,7 @@ def test_auto_selection_raises_where_only_the_jax_package_has_a_kernel(shape, me
 
 @pytest.mark.parametrize("fused,shape,want", [
     ("stage", TRAINING, "stage"),
+    ("stage", (6, 32, 16), "stage"),  # K3 marches along x: any nx >= 4
     ("stage_xy", BIG, "stage_xy"),
     ("stage_xy", TRAINING, "stage_xy"),  # ny = 32: four y blocks
     ("field", TRAINING, "field"),
@@ -70,9 +75,9 @@ def test_forced_selection_that_fits(fused, shape, want, device_type):
 
 
 @pytest.mark.parametrize("fused,dtype,shape,message", [
-    ("stage", F32, BIG, "436,736 bytes of shared memory per block"),
+    ("stage", F32, BIG, r"ny \* nz <= 1024, one thread per point"),
     ("stage", F64, TRAINING, "float32"),
-    ("stage", F32, (6, 32, 16), "nx % 4 == 0"),
+    ("stage", F32, (3, 32, 16), "nx >= 4, ny >= 4 and nz >= 2"),
     ("stage_xy", F32, (64, 60, 32), "ny % 8 == 0"),
     ("stage_xy", F32, (64, 64, 107), "233,740 bytes"),
     ("stage_xy", F32, (3, 64, 32), "nx >= 4"),
@@ -135,7 +140,7 @@ def test_solver3d_exposes_its_path_and_runs_it():
             k3.correct_3d.launches) == before
     for name in ("stage", "stage_xy"):
         assert all(torch.equal(a, b) for a, b in zip(outs[name], outs["auto"]))
-    with pytest.raises(ValueError, match="436,736"):
+    with pytest.raises(ValueError, match=r"ny \* nz <= 1024"):
         s3.make_solver3d(Grid3D(nx=64, ny=64, nz=32, lx=4 * np.pi, ly=4 * np.pi, lz=2.0),
                          params, dtype=F32, device="cpu", fused="stage")
 
@@ -146,8 +151,8 @@ def test_solver3d_exposes_its_path_and_runs_it():
 
 
 @pytest.mark.parametrize("dtype,nx,nz,device_type,want", [
-    (F32, 96, 64, "cuda", "fused"),  # K1: 49,152 bytes
-    (F32, 128, 224, "cuda", "fused"),  # 229,376 bytes: still fits
+    (F32, 96, 64, "cuda", "fused"),  # K1: 230,528 bytes
+    (F32, 128, 16, "cuda", "fused"),  # 8 columns a warp, one level a lane: 69,120 bytes
     (F64, 96, 64, "cuda", "plain"),
     (F64, 256, 256, "cuda", "plain"),
     (F32, 96, 64, "cpu", "plain"),
@@ -159,23 +164,31 @@ def test_2d_auto_selection(dtype, nx, nz, device_type, want):
 
 def test_2d_auto_selection_raises_where_k1_does_not_fit():
     """The JAX package runs its fused kernels for every float32 grid; where
-    K1's slabs (524,288 bytes here) exceed a block, auto refuses."""
-    with pytest.raises(NotImplementedError, match="524,288 bytes.*232,448"):
-        s2.select_env_step_path(F32, 256, 256, "cuda")
+    K1's state and slabs (296,448 bytes here) exceed a block, auto refuses."""
+    with pytest.raises(NotImplementedError, match="296,448 bytes.*232,448"):
+        s2.select_env_step_path(F32, 128, 64, "cuda")
+
+
+@pytest.mark.parametrize("nx,nz", [(256, 256), (96, 65), (132, 16), (3, 8), (8, 1)])
+def test_2d_auto_selection_raises_outside_k1s_grid_rule(nx, nz):
+    """K1's warps cover at most 128 columns and its lanes 64 levels."""
+    with pytest.raises(NotImplementedError, match=r"4 <= nx <= 128 and 2 <= nz <= 64"):
+        s2.select_env_step_path(F32, nx, nz, "cuda")
+    assert s2.select_env_step_path(F64, nx, nz, "cuda") == "plain"
 
 
 def test_2d_forced_selection():
     for device_type in ("cuda", "cpu"):
         assert s2.select_env_step_path(F32, 96, 64, device_type, True) == "fused"
         assert s2.select_env_step_path(F32, 96, 64, device_type, False) == "plain"
-        with pytest.raises(ValueError, match="524,288 bytes") as err:
-            s2.select_env_step_path(F32, 256, 256, device_type, True)
+        with pytest.raises(ValueError, match="296,448 bytes") as err:
+            s2.select_env_step_path(F32, 128, 64, device_type, True)
         assert "232,448" in str(err.value)
         with pytest.raises(ValueError, match="float32"):
             s2.select_env_step_path(F64, 96, 64, device_type, True)
         with pytest.raises(ValueError, match="unknown fused"):
             s2.select_env_step_path(F32, 96, 64, device_type, "stage")
-    assert limits.env_step_2d_smem_bytes(96, 64) == 49_152
+    assert limits.env_step_2d_smem_bytes(96, 64) == 230_528
 
 
 def test_solver2d_exposes_its_path_and_runs_it():
