@@ -329,10 +329,11 @@ size_t stage_xy_smem_floats(int nz) {
 }
 
 // Shared memory K3 needs per block, in floats: rings of kRing x-planes of
-// u, v, b and w, two of q, kPhRing of pHY' and v*, w* of one plane, each
-// plane all ny rows: ny (40 nz + 9).
+// u, v, b and w, two of q, kPhRing of pHY', v* and w* of one plane and the
+// y fluxes of u, v, w, b of two, each plane all ny rows: ny (48 nz + 9).
 size_t stage_smem_floats(int ny, int nz) {
-  return (size_t)ny * ((kRing * 3 + 2 + kPhRing + 1) * (size_t)nz + (kRing + 1) * (size_t)(nz + 1));
+  return (size_t)ny *
+         ((kRing * 3 + 2 + kPhRing + 1 + 8) * (size_t)nz + (kRing + 1) * (size_t)(nz + 1));
 }
 
 // Threads of a block: one per (row, z) point of an x-plane; K5's rows
@@ -386,6 +387,8 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   Ring<kPhRing, kWhole> PH{Q.end(), lo(kPLo), rows(kPRows), nz};
   float* vs = PH.end();       // v* of the current plane, every row of threads
   float* ws = vs + n_rows * nz;  // w* of the current plane, rows 0..kYT-1 (K3: all)
+  // K3: y fluxes of a plane, two planes by parity, each [u | v | w | b] (ny, nz)
+  float* yfl = ws + (kWhole ? ny : kYT) * nw;
 
   // ---- staging: plane x of u, v, w, b and q, raw, by asynchronous copies ----
   auto copy_rows = [&](const Ring<kRing, kWhole>& R, const float* src, size_t row_stride,
@@ -497,6 +500,23 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
     return ub5_upwind(R.row(x, c - 3)[kk], R.row(x, c - 2)[kk], R.row(x, c - 1)[kk],
                       R.row(x, c)[kk], R.row(x, c + 1)[kk], R.row(x, c + 2)[kk], vel);
   };
+  // K3: each y flux of plane x once, by the thread at its face (u, w, b: face
+  // j) or center (v: center j), for its neighbours to read
+  auto y_fluxes = [&](int x) {
+    float* yf = yfl + (x & 1) * 4 * S + j * nz + k;
+    const float* va = V.row(x - 1, j);
+    const float* vc = V.row(x, j);
+    yf[0] = yflux(U, x, j, k, 0.5f * (va[k] + vc[k]));
+    yf[S] = yflux(V, x, j + 1, k, 0.5f * (vc[k] + V.row(x, j + 1)[k]));
+    yf[2 * S] = k > 0 ? yflux(W, x, j, k, 0.5f * (vc[k - 1] + vc[k])) : 0.0f;
+    yf[3 * S] = yflux(B, x, j, k, vc[k]);
+  };
+  // K3: the difference of field f's y fluxes of plane x at rows r1 and r0
+  auto y_diff = [&](int x, int f, int r1, int r0) {
+    const float* yf = yfl + (x & 1) * 4 * S + f * S + k;
+    return yf[r1 * nz] - yf[r0 * nz];
+  };
+  const int jm = kWhole ? wrap_x(j - 1, ny) : j - 1;
   auto lap_h = [&](const Ring<kRing, kWhole>& R, int i, int kk, float c) {
     return (R.row(i + 1, j)[kk] - 2.0f * c + R.row(i - 1, j)[kk]) * P.idx2 +
            (R.row(i, j + 1)[kk] - 2.0f * c + R.row(i, j - 1)[kk]) * P.idy2;
@@ -514,6 +534,7 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   if (kWhole || !own) {
     for (int x = -1; x <= 1; ++x) hydrostatic(x);
   }
+  if constexpr (kWhole) y_fluxes(0);
   float fu = 0.0f, fv = xflux_v(0), fw = 0.0f, fb = 0.0f;
   if (own) {
     fu = xflux_u(-1);
@@ -550,9 +571,13 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
       const float f_new = xflux_v(i + 1);
       float adv = (f_new - fv) * P.idx;
       fv = f_new;
-      const float vc_j = 0.5f * (vc[k] + V.row(i, j + 1)[k]);
-      const float vc_jm = 0.5f * (V.row(i, j - 1)[k] + vc[k]);
-      adv += (yflux(V, i, j + 1, k, vc_j) - yflux(V, i, j, k, vc_jm)) * P.idy;
+      if constexpr (kWhole) {
+        adv += y_diff(i, 1, j, jm) * P.idy;
+      } else {
+        const float vc_j = 0.5f * (vc[k] + V.row(i, j + 1)[k]);
+        const float vc_jm = 0.5f * (V.row(i, j - 1)[k] + vc[k]);
+        adv += (yflux(V, i, j + 1, k, vc_j) - yflux(V, i, j, k, vc_jm)) * P.idy;
+      }
       const float* wa = W.row(i, j - 1);
       const float* wb = W.row(i, j);
       const float wf_k = 0.5f * (wa[k] + wb[k]), wf_kp = 0.5f * (wa[k + 1] + wb[k + 1]);
@@ -582,11 +607,15 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
         const float f_new = xflux_u(i);
         float adv = (f_new - fu) * P.idx;
         fu = f_new;
-        const float* va = V.row(i - 1, j);
-        const float* vb = V.row(i - 1, j + 1);
-        const float vf_j = 0.5f * (va[k] + vc[k]);
-        const float vf_jp = 0.5f * (vb[k] + V.row(i, j + 1)[k]);
-        adv += (yflux(U, i, j + 1, k, vf_jp) - yflux(U, i, j, k, vf_j)) * P.idy;
+        if constexpr (kWhole) {
+          adv += y_diff(i, 0, jp, j) * P.idy;
+        } else {
+          const float* va = V.row(i - 1, j);
+          const float* vb = V.row(i - 1, j + 1);
+          const float vf_j = 0.5f * (va[k] + vc[k]);
+          const float vf_jp = 0.5f * (vb[k] + V.row(i, j + 1)[k]);
+          adv += (yflux(U, i, j + 1, k, vf_jp) - yflux(U, i, j, k, vf_j)) * P.idy;
+        }
         const float wf_k = 0.5f * (wm[k] + wc[k]), wf_kp = 0.5f * (wm[k + 1] + wc[k + 1]);
         const float t0 = uc[zt[0]], t1 = uc[zt[1]], t2 = uc[zt[2]], t3 = uc[k],
                     t4 = uc[zt[4]], t5 = uc[zt[5]], t6 = uc[zt[6]];
@@ -622,10 +651,14 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
           const float f_new = xflux_w(i + 1);
           float adv = (f_new - fw) * P.idx;
           fw = f_new;
-          const float* va = V.row(i, j + 1);
-          const float vf_j = 0.5f * (vc[k - 1] + vc[k]);
-          const float vf_jp = 0.5f * (va[k - 1] + va[k]);
-          adv += (yflux(W, i, j + 1, k, vf_jp) - yflux(W, i, j, k, vf_j)) * P.idy;
+          if constexpr (kWhole) {
+            adv += y_diff(i, 2, jp, j) * P.idy;
+          } else {
+            const float* va = V.row(i, j + 1);
+            const float vf_j = 0.5f * (vc[k - 1] + vc[k]);
+            const float vf_jp = 0.5f * (va[k - 1] + va[k]);
+            adv += (yflux(W, i, j + 1, k, vf_jp) - yflux(W, i, j, k, vf_j)) * P.idy;
+          }
           adv += (fz - fz_m) * P.idz;
           const float lap = lap_h(W, i, k, t3) + (t4 - 2.0f * t3 + t2) * P.idz2;
           const float g = -adv + P.nu * lap;
@@ -648,7 +681,11 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
         const float f_new = xflux_b(i + 1);
         float adv = (f_new - fb) * P.idx;
         fb = f_new;
-        adv += (yflux(B, i, j + 1, k, V.row(i, j + 1)[k]) - yflux(B, i, j, k, vc[k])) * P.idy;
+        if constexpr (kWhole) {
+          adv += y_diff(i, 3, jp, j) * P.idy;
+        } else {
+          adv += (yflux(B, i, j + 1, k, V.row(i, j + 1)[k]) - yflux(B, i, j, k, vc[k])) * P.idy;
+        }
         const float t0 = bc[zt[0]], t1 = bc[zt[1]], t2 = bc[zt[2]], t3 = bc[k],
                     t4 = bc[zt[4]], t5 = bc[zt[5]], t6 = bc[zt[6]];
         adv += z_flux_diff(t0, t1, t2, t3, t4, t5, t6, wc[k], wc[k + 1]) * P.idz;
@@ -661,6 +698,7 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
         if (emit_g) gb_out[o] = g;
       }
     }
+    if constexpr (kWhole) y_fluxes(i + 1);
     __pipeline_wait_prior(0);
     __syncthreads();  // plane i + 4 has landed; v*, w* of plane i are complete
     correct_plane(i + 4);

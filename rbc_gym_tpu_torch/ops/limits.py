@@ -32,9 +32,10 @@ def env_step_2d_smem_bytes(nx: int, nz: int) -> int:
 
 def stage_smem_bytes(ny: int, nz: int) -> int:
     """K3's x-plane rings, every plane all ny rows: ``XY_RING`` planes of u,
-    v, b of nz and of w of nz + 1, two planes of q, four of pHY', and v*
-    and w* of one plane (``stage_smem_floats``): 4 ny (40 nz + 9)."""
-    return 4 * ny * ((3 * XY_RING + 2 + 4 + 1) * nz + (XY_RING + 1) * (nz + 1))
+    v, b of nz and of w of nz + 1, two planes of q, four of pHY', v* and w*
+    of one plane, and the y fluxes of u, v, w, b of two planes
+    (``stage_smem_floats``): 4 ny (48 nz + 9)."""
+    return 4 * ny * ((3 * XY_RING + 2 + 4 + 1 + 8) * nz + (XY_RING + 1) * (nz + 1))
 
 
 def whole_y_fits(ny: int, nz: int) -> bool:

@@ -24,7 +24,7 @@ BIG = (64, 64, 32)  # the 32x64x64 big grid
 
 
 @pytest.mark.parametrize("dtype,shape,device_type,want", [
-    (F32, TRAINING, "cuda", "stage"),  # K3: 512 threads, 83,072 bytes
+    (F32, TRAINING, "cuda", "stage"),  # K3: 512 threads, 99,456 bytes
     (F32, BIG, "cuda", "stage_xy"),  # outside the whole-y boundary; K5 70,240 bytes
     (F32, (16, 16, 8), "cuda", "stage"),
     (F64, TRAINING, "cuda", "plain"),  # the JAX package's XLA path for float64
