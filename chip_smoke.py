@@ -8,19 +8,23 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
 ``rbc_gym_tpu_torch/csrc`` and runs, printing one JSON line per phase:
 
 1. build             nvcc into rbc_gym_tpu_torch/_build/ (ctypes, no torch headers)
-2. kernel_parity     K1 and K2 against their plain PyTorch versions on the card
+2. kernel_parity     K1 and K2 against their plain PyTorch versions on the card;
+                     K1 and its plain version beside a float64 run
 3. main_path         RBC2DVectorEnv(num_envs=1024) at 96x64, Ra=1e4: reset, 3
                      steps with random actions, one Solver2D.substep; checks
                      shapes, finiteness, Nu, divergence and the launch counters
-4. timing            K1, K2, their plain versions and bounds, in ms
+4. timing            K1, K2, their plain versions and bounds (K1's share of
+                     it), in ms
 5. kernel_parity_3d  K3 (each stage variant) and K4 against their plain
-                     versions at the 3D main path's shapes; one env step of
-                     the kernel path against the all-plain path
+                     versions at the 3D main path's shapes, K3's stage 0 beside
+                     a float64 run; one env step of the kernel path against
+                     the all-plain path
 6. main_path_3d      RBC3DVectorEnv(num_envs=1024) at 16x32x32, Ra=2500: reset,
                      3 steps with random (E, 8, 8) actions, one Solver3D.substep;
                      the same checks, launch counters 117 (K3) and 3 (K4)
-7. timing_3d         K3 per stage, K4, both Poisson forms, the split of one
-                     3D env step
+7. timing_3d         K3 per stage with its share of the bound, K5 forced on the
+                     same inputs (K3's yardstick), K4, both Poisson forms, the
+                     split of one 3D env step
 8. selection         the path rule: 16x32x32 float32 -> K3, 32x64x64
                      float32 -> K5, 16x32x30 float32 -> the field path (a step
                      there launches K6 and K7), fused=True -> the field path,
@@ -273,17 +277,24 @@ def phase_build() -> dict:
             "seconds": time.perf_counter() - start}
 
 
-def kernel_parity(device, k1_envs=128, main_envs=1024, state_shape=(64, 96)) -> dict:
+def kernel_parity(device, k1_envs=128, main_envs=1024, state_shape=(64, 96),
+                  f64_envs=64) -> dict:
     """Each kernel against its plain version from the same inputs: K1 after
     6 substeps (heater_duration 0.18) at ``k1_envs`` and after the main
-    path's 50 at ``main_envs``, K2 on one stage at ``main_envs``. Also the
-    6-substep K1 and its plain version against a float64 plain run."""
+    path's 50 at ``main_envs``, K2 on one stage at ``main_envs``. Also K1
+    and its plain version against a float64 plain run, after 6 substeps
+    at ``k1_envs`` and after 50 at ``f64_envs``."""
     start = time.perf_counter()
     solver, case = make_case(device, k1_envs, state_shape, heater_duration=0.18)
     k1_out = k1_run(solver, case, True)
     plain = k1_run(solver, case, False)
     k1 = abs_diffs(K1_OUT, k1_out, plain)
     ref = k1_run(*make_case(device, k1_envs, state_shape, 0.18, dtype=torch.float64), False)
+    solver, case = make_case(device, f64_envs, state_shape, heater_duration=1.5, seed=3)
+    ref50 = k1_run(*make_case(device, f64_envs, state_shape, 1.5, seed=3, dtype=torch.float64),
+                   False)
+    float64_50 = {"kernel": abs_diffs(K1_OUT, ref50, k1_run(solver, case, True)),
+                  "plain_float32": abs_diffs(K1_OUT, ref50, k1_run(solver, case, False))}
     solver, case = make_case(device, main_envs, state_shape, heater_duration=1.5, seed=1)
     k1_main = abs_diffs(K1_OUT, k1_run(solver, case, True), k1_run(solver, case, False))
     k2 = abs_diffs(K2_OUT, k2_run(solver, case, True), k2_run(solver, case, False))
@@ -298,6 +309,7 @@ def kernel_parity(device, k1_envs=128, main_envs=1024, state_shape=(64, 96)) -> 
             "tendencies_2d_by_field": k2,
             "float64_plain_vs": {"kernel": abs_diffs(K1_OUT, ref, k1_out),
                                  "plain_float32": abs_diffs(K1_OUT, ref, plain)},
+            "float64_plain_vs_50_substeps": float64_50,
             "seconds": time.perf_counter() - start}
 
 
@@ -394,7 +406,7 @@ def timing(device, num_envs=1024, state_shape=(64, 96), heater_duration=1.5) -> 
         plain_ms = _cuda_ms(lambda: run(solver, case, False), max(1, reps // 3))
         bound_ms, bound_by = bound(work)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, **work}
+                     "bound_by": bound_by, "share_of_bound": bound_ms / ms, **work}
     return {"phase": "timing", "num_envs": num_envs, "kernels": out,
             "seconds": time.perf_counter() - begin}
 
@@ -557,16 +569,36 @@ def stage_parity(solver, case, wrapper, prefix=""):
     return by_stage, errs
 
 
+def stage0_float64(solver, case, wrapper) -> dict:
+    """Stage 0 of ``wrapper`` (K3 or K5) and of the float32 plain version
+    against a float64 plain run from the same inputs: each half's float32
+    rounding."""
+    case64 = {k: v.double() for k, v in case.items()}
+
+    def outs(out):
+        return (*out[:5], *out[5])
+
+    ref = outs(k3_run(solver, case64, 0, None, False))
+    return {"kernel": abs_diffs(K3_OUT + G_OUT, ref,
+                                outs(k3_run(solver, case, 0, None, True, wrapper))),
+            "plain_float32": abs_diffs(K3_OUT + G_OUT, ref,
+                                       outs(k3_run(solver, case, 0, None, False)))}
+
+
 def kernel_parity_3d(device, main_envs=1024, step_envs=32, state_shape=(16, 32, 32)) -> dict:
     """K3 stage 0, 1, 2 and K4 against their plain versions at the main
-    path's shapes, each stage fed the plain outputs of the one before; one
-    whole env step of the kernel path against the all-plain path at
-    ``step_envs`` and at ``main_envs``, and both against a float64 plain run."""
+    path's shapes, each stage fed the plain outputs of the one before; K3's
+    stage 0 beside a float64 run at ``step_envs``; one whole env step of
+    the kernel path against the all-plain path at ``step_envs`` and at
+    ``main_envs``, and both against a float64 plain run."""
     start = time.perf_counter()
     solver, case = make_case_3d(device, main_envs, state_shape, seed=3)
     by_stage, errs = stage_parity(solver, case, k3d.stage_rk_3d)
     k4 = abs_diffs("uvw", k4_run(solver, case, True), k4_run(solver, case, False))
     errs["correct_3d"] = (max(k4.values()), K4_ATOL)
+    del case
+    rounding = stage0_float64(*make_case_3d(device, step_envs, state_shape, seed=10),
+                              k3d.stage_rk_3d)
     steps = {}
     for n_env in sorted({step_envs, main_envs}):
         solver, case = make_case_3d(device, n_env, state_shape, seed=4)
@@ -589,6 +621,7 @@ def kernel_parity_3d(device, main_envs=1024, step_envs=32, state_shape=(16, 32, 
     return {"phase": "kernel_parity_3d", "num_envs": main_envs, "max_abs_err": max_err,
             "gated": {k: {"error": e, "atol": a} for k, (e, a) in errs.items()},
             "stage_rk_3d_by_stage": by_stage, "correct_3d_by_field": k4,
+            "stage0_float64_plain_vs": rounding,
             "env_step": {str(k): v for k, v in steps.items()},
             "seconds": time.perf_counter() - start}
 
@@ -694,7 +727,8 @@ def main_path_big(device, num_envs=1024, state_shape=BIG_SHAPE, dt_solver=BIG_DT
 
 
 def timing_3d(device, num_envs=1024, state_shape=(16, 32, 32)) -> dict:
-    """CUDA-event times at the 3D main path's shapes: K3 per stage, K4,
+    """CUDA-event times at the 3D main path's shapes: K3 per stage with its
+    share of the bound, K5 forced on the same inputs (K3's yardstick), K4,
     their plain versions and bounds, both Poisson forms, and one env step
     split into K3, solves, K4 and the rest. Launches here are not the main
     path's."""
@@ -707,10 +741,14 @@ def timing_3d(device, num_envs=1024, state_shape=(16, 32, 32)) -> dict:
         gp = g_prev if stage else None
         ms = _cuda_ms(lambda: k3_run(solver, case, stage, gp, True), 20)
         plain_ms = _cuda_ms(lambda: k3_run(solver, case, stage, gp, False), 3)
+        xy_ms = _cuda_ms(lambda: k3_run(solver, case, stage, gp, True, k3d.stage_rk_3d_xy), 20)
         work = stage_rk_3d_work(num_envs, nx, ny, nz, stage)
         bound_ms, bound_by = bound(work)
         out[f"stage_rk_3d.stage{stage}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                            "bound_by": bound_by, **work}
+                                            "bound_by": bound_by,
+                                            "share_of_bound": bound_ms / ms, **work}
+        out[f"stage_rk_3d_xy_forced.stage{stage}"] = {"ms": xy_ms,
+                                                      "share_of_bound": bound_ms / xy_ms}
     work = correct_3d_work(num_envs, nx, ny, nz)
     bound_ms, bound_by = bound(work)
     out["correct_3d"] = {"ms": _cuda_ms(lambda: k4_run(solver, case, True), 20),
@@ -798,8 +836,8 @@ def selection(device) -> dict:
         forced = str(err)
     else:
         raise AssertionError("forcing K3 on the big grid did not raise")
-    if "436,736" not in forced:
-        raise AssertionError(f"the refusal does not name K3's shared memory: {forced}")
+    if "ny * nz <= 1024" not in forced:
+        raise AssertionError(f"the refusal does not name K3's thread limit: {forced}")
     try:
         RBC3DVectorEnv(2, fused="field", dtype=f64, device=device)
     except ValueError as err:
@@ -851,17 +889,7 @@ def kernel_parity_big(device, main_envs=1024, big_envs=8, small_envs=256, step_e
     errs.update(errs_few)
     # stage 0 in float64 from the same inputs: the float32 rounding of both
     # halves, which grows with 1/dx^2 and 1/dz^2 on this finer grid
-    case64 = {k: v.double() for k, v in case.items()}
-
-    def outs(out):
-        return (*out[:5], *out[5])
-
-    ref = outs(k3_run(solver, case64, 0, None, False))
-    rounding = {
-        "kernel": abs_diffs(K3_OUT + G_OUT, ref,
-                            outs(k3_run(solver, case, 0, None, True, k3d.stage_rk_3d_xy))),
-        "plain_float32": abs_diffs(K3_OUT + G_OUT, ref,
-                                   outs(k3_run(solver, case, 0, None, False)))}
+    rounding = stage0_float64(solver, case, k3d.stage_rk_3d_xy)
     solver, case = make_case_3d(device, small_envs, small_shape, seed=7)
     by_stage_small, errs_small = stage_parity(solver, case, k3d.stage_rk_3d_xy, "small_")
     errs.update(errs_small)

@@ -16,7 +16,8 @@
 //   every stage, the state and 172 KB of scratch per env in global memory,
 //   runtime division in every index, IEEE division in every difference,
 //   every face flux computed twice, a z ladder that split warps, and a
-//   serial pHY' phase on 96 of 256 threads (PERF.md, section 6).
+//   serial pHY' phase on 96 of 256 threads. This design takes 41 ms
+//   there, 25 % of the bound (PERF.md, section 6).
 //   Design: one 512-thread block per env holds the whole env step on the
 //   chip. Shared memory holds two copies of u, w, b (a stage reads one and
 //   writes the other, so the RK update needs no pass of its own), two
@@ -137,7 +138,7 @@ __device__ __forceinline__ void tile_product(const float* L, const float* R, int
 #pragma unroll
     for (int s = 0; s < NS; ++s) acc[r][s] = 0.0f;
   if constexpr (kVec) {
-#pragma unroll 2
+#pragma unroll 4
     for (int k = 0; k < K; k += 4) {
       float4 a[XS];
 #pragma unroll

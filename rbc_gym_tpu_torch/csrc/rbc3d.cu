@@ -1,6 +1,6 @@
 // Hopper kernels of the 3D RBC env step, bound through a plain C ABI.
 //
-// K3 stage_rk_3d_kernel replaces rbc_gym_tpu/ops/pallas3d.py:_stage_rk_kernel
+// K3 stage_march_kernel<NZ, NY >= 0> replaces rbc_gym_tpu/ops/pallas3d.py:_stage_rk_kernel
 // (reached from make_stage_rk_3d, pl.pallas_call at :1190): one RK3 stage of
 // the lazy-projection loop. It corrects the previous stage's unprojected
 // u, v, w by grad q (q: the Poisson solve of their unscaled divergence),
@@ -10,38 +10,38 @@
 //   Bound: bytes. Per env and stage it reads u, v, w, b, q, bottom (and
 //   g_prev at stages 1-2) and writes u*, v*, w*, b', div (and g at stages
 //   0-1): about 1.2 MB at 16x32x32, against some 380 FLOP per cell.
-//   Design: one block per (env, x block of kXBlk = 4 columns); the block
-//   holds full y (periodic, wrapped inside the block) and full z. The TPU
-//   kernel's batch-minor (x, z, y, E) layout fills 128 lanes with envs and
-//   has no counterpart here: the fields stay in the public batch-major
-//   (E, nx, ny, nz[+1]) layout, where an (env, x) column is one contiguous
-//   ny * nz[+1] run, and div and q are in the solve layout (E, ny, nx, nz)
-//   of ops/poisson.make_poisson_solver_3d. Phases, separated by barriers:
-//   1. stage x-extended slabs in shared memory: u with 3 halo columns left
-//      and 4 right, v, w, b with 3 and 3, q with 4 and 4 (the Pallas
-//      kernel's _HALO views, pallas3d.py:684-702);
-//   2. correct u, v, w in place (u needs q one column further left);
-//   3. pHY' per (x, y) column for x in [-1, kXBlk], a sequential suffix sum
-//      along z by one thread, into q's space (q is no longer read);
-//   4. per output point, its tendency from the slabs and its RK update,
-//      written to global memory; gu and u* are computed one column wider,
-//      and u* at the block's right face is kept in shared memory (the
-//      Pallas kernel's gu scratch and gp_u_edge view, :776-798);
-//   5. div from u*, v*, w* read back from this block's own writes.
-//   Each output point is computed from the slabs alone (a face flux is
-//   recomputed on both of its cells), so a phase walks its points in any
-//   order; consecutive threads take consecutive z. At 16x32x32 the slabs
-//   take 109,824 bytes of shared memory, so two 256-thread blocks share an
-//   SM. A narrower block fits no third one (kXBlk = 2 needs 89,088 bytes)
-//   and stages each field column more often (4.3 times against 2.65).
-//   Plain float32 loads and stores, FP32 FMA; making it fast (cp.async or
-//   TMA staging, occupancy) is later work.
+//   The TPU kernel's batch-minor (x, z, y, E) layout fills 128 lanes with
+//   envs and has no counterpart here: the fields stay in the public
+//   batch-major (E, nx, ny, nz[+1]) layout, and div and q are in the solve
+//   layout (E, ny, nx, nz) of ops/poisson.make_poisson_solver_3d.
+//   What held its first design (x blocks of 4 columns staged whole with
+//   their halos; 4.15-4.52 ms at 1024 envs on 16x32x32 on an H100 80GB HBM3
+//   at 700 W, 6-8 % of the bound) were K5's first design's causes: runtime
+//   integer division in every index, IEEE division, every face flux
+//   computed twice, a divergent z ladder (at nz = 16 a warp holds two
+//   columns), x halos staged 2.65 times over in a phase of their own, and a
+//   serial pHY' phase. This design takes 0.72-0.81 ms there, 37-45 % of the
+//   bound (PERF.md, section 6).
+//   Design: K5's x march (below; one template, stage_march_kernel<NZ, NY>
+//   with NY >= 0), with one block per env that holds all of its periodic y,
+//   the Pallas kernel's own tiling: one thread per (y row, z) point of an
+//   x-plane, 512 at 16x32x32. So there are no y halos (rows wrap in the
+//   ring), no row that only computes v*, and each y-face flux is computed
+//   once: each thread computes the y fluxes of plane i + 1 at its own face
+//   (center for v) into shared memory, two planes by parity, and reads its
+//   neighbour's after the plane's barrier. pHY' is a float64 suffix scan
+//   across the 16 lanes of a column (each column's k = 0 thread sums it in
+//   the runtime instance). The training grid's sizes are template
+//   parameters; a runtime instance takes ny * nz <= 1024. Shared memory,
+//   in floats: ny (48 nz + 9), 99,456 bytes at 16x32x32, where two
+//   512-thread blocks share an SM (64 registers; one block an SM at 128
+//   registers was slower, PERF.md, section 6). The grid's rule: nx >= 4,
+//   ny >= 4, nz >= 2, ny * nz <= 1024 and that formula under the limit.
 //
-// K5 stage_rk_3d_xy_kernel replaces ops/pallas3d.py:_stage_rk_kernel_xy
+// K5 stage_march_kernel<NZ, -1> replaces ops/pallas3d.py:_stage_rk_kernel_xy
 // (reached from make_stage_rk_3d_xy, pl.pallas_call at :1592): K3's stage,
-// with K3's contract and layouts, for grids whose whole-y slab does not fit
-// a block's 232,448 bytes of shared memory (the 32x64x64 big grid needs
-// 436,736 in K3).
+// with K3's contract and layouts, for grids outside the path rule's whole-y
+// boundary (the 32x64x64 big grid: 2048 points an x-plane).
 //   Bound: bytes. At 32x64x64 it moves 7.4 MB per env at stages 0 and 2 and
 //   9.5 MB at stage 1, against some 400 FLOP per cell. What held its first
 //   design (4 x 8 columns a block; 48.7-51.6 ms at 1024 envs on an H100

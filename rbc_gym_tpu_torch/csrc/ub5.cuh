@@ -6,13 +6,16 @@
 //                                    axis: x in 2D, y in 3D) and uw_flux_x
 //   _z_row_flux/_z_uw_flux        -> z_uw_flux (interior C6/D5 rows, wall
 //     (:204-255)                     rows by the UB5 -> UB3 -> UB1 ladder)
-// and the body of ops/pallas2d.py:_tendencies (:144-184) -> tendencies_block.
+// and the body of ops/pallas2d.py:_tendencies (:144-184) -> tendencies_block
+// (K2), and the select form of _upwind_periodic / _z_upwind (:85-168) and
+// stencils._z_order_ladder that the x-march kernels (K1, K3, K5) use ->
+// ub5_upwind, z_orders and the branch-free z_upwind.
 //
 // 2D layout: one env's fields are contiguous slabs, x-major with z fastest:
 // u, b, p_hy are (nx, nz), w is (nx, nz + 1), bottom is (nx,). x is periodic,
 // z is bounded (no-slip walls, w = 0 on the wall faces).
 //
-// Each output point is computed from the input slabs alone (fluxes on both
+// In tendencies_block each output point is computed from the input slabs alone (fluxes on both
 // faces of a cell are recomputed rather than staged), so a block walks its
 // points in any order; consecutive threads take consecutive z for coalescing.
 #pragma once

@@ -81,7 +81,8 @@ class RBC3DVectorEnv:
         ``sim.solver3d.select_stage_path``): None for auto, False for plain
         PyTorch, "stage" (K3), "stage_xy" (K5) or "field" (the per-field
         path, K6 and K7; True is its alias). Auto takes "field" on CUDA in
-        float32 where K3's slab fits and nx % 4 != 0. ``poisson_precision`` counts
+        float32 inside the whole-y boundary where nx % 4 != 0 or K3 cannot
+        take the grid. ``poisson_precision`` counts
         the TPU matrix unit's passes in the JAX package; the port's solve
         runs in full float32 (TF32 off), so only None is accepted."""
         if poisson_precision is not None:

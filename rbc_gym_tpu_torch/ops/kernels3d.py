@@ -1,10 +1,11 @@
 """The 3D kernels: wrappers, their plain PyTorch versions, counters.
 
 ``stage_rk_3d`` replaces ``rbc_gym_tpu/ops/pallas3d.py:_stage_rk_kernel``
-(one whole RK3 stage of the lazy-projection loop on x-blocked whole-y
-slabs), ``stage_rk_3d_xy`` replaces ``_stage_rk_kernel_xy`` (the same
-stage, y-blocked and marching along x, for grids whose whole-y slab does
-not fit a block's shared memory), ``correct_3d`` replaces ``_correct_kernel`` (the
+(one whole RK3 stage of the lazy-projection loop, a block per env holding
+all of periodic y), ``stage_rk_3d_xy`` replaces ``_stage_rk_kernel_xy``
+(the same stage, a block per env and 8 y rows, for grids outside the
+whole-y paths); both march along x over a ring of x-planes, from one
+kernel template. ``correct_3d`` replaces ``_correct_kernel`` (the
 velocity correction u -= grad q), ``field_tendency_3d`` replaces
 ``_field_stage_kernel`` (one field's tendency, of the per-field path) and
 ``div_3d`` replaces ``_div_kernel`` (the staggered divergence). The

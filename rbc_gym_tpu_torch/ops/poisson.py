@@ -109,10 +109,10 @@ def spectral_constants_2d(
     """Build F, G, the per-row inverses and their DCT-II factors in
     float64, then cast once."""
     f_mat, g_mat, row_modes = _real_dft_matrices(nx)
-    lam_rows = _dft_eigenvalues(nx, dx)[row_modes]
-    inv_rows = _vertical_inverses(_dft_eigenvalues(nx, dx), nz, dz)[row_modes]
+    lams = _dft_eigenvalues(nx, dx)
+    inv_rows = _vertical_inverses(lams, nz, dz)[row_modes]
     cz, sz, mu = _dct2_matrices(nz, dz)
-    lam = lam_rows[:, None] + mu[None, :]
+    lam = lams[row_modes][:, None] + mu[None, :]
     with np.errstate(divide="ignore"):
         dinv = np.where(np.abs(lam) < 1e-14, 0.0, 1.0 / lam)
 

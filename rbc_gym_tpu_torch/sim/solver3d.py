@@ -67,8 +67,8 @@ from rbc_gym_tpu_torch.ops.limits import (
     XY_MIN_NX,
     Y_BLK,
     stage_smem_bytes,
-    whole_y_fits,
     stage_xy_smem_bytes,
+    whole_y_fits,
 )
 from rbc_gym_tpu_torch.ops.poisson import make_poisson_solver_3d
 from rbc_gym_tpu_torch.sim.actuation import heater_profile_3d, preprocess_action_3d

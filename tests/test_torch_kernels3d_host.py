@@ -1,24 +1,18 @@
 """K3 to K7's CUDA source, compiled for the host and held against the
 plain versions, on the CPU.
 
-The card is needed to run the kernels as built. Their arithmetic and
-indexing, though, can run here. K3 walks its points in strided loops
-separated by block-wide barriers, so one thread per block, run block
-after block, executes every phase of ``csrc/rbc3d.cu`` to its end before
-the next begins, as the card does; the one-thread-per-point kernels (K4,
-K6, K7) run point after point. K5 keeps one thread per point of an
-x-plane for its whole march (its carried fluxes live in registers), so
-each of its blocks runs as that many host threads meeting at real
-barriers (``std::barrier``). A small header stands in for the CUDA
-keywords and for the intrinsics K5 uses: ``__syncthreads`` is the block's
-barrier; a cp.async copy (``__pipeline_memcpy_async``) lands at once,
-which is what its ``__pipeline_wait_prior`` and the barrier after it
-guarantee on the card; a warp shuffle (``__shfl_down_sync``,
-``__shfl_up_sync``) posts each lane's value and meets the other lanes of
-its warp at a barrier of their own before reading its source lane's. The
-C launchers (which need nvcc) are cut off. The gates are the smoke's
-on-card ones (``chip_smoke.py``): the emulation differs from the plain
-versions in float32 rounding only.
+The card is needed to run the kernels as built; their arithmetic and
+indexing can run here. ``_build.host_source`` cuts the C launchers (which
+need nvcc) off ``csrc/rbc3d.cu`` and puts ``csrc/host_shim.h`` in place of
+the CUDA headers. The one-thread-per-point kernels (K4, K6, K7) run point
+after point. K3 and K5, one x-march template, keep one thread per point
+of an x-plane for the whole march (their carried fluxes live in
+registers), so each of their blocks runs as that many host threads
+meeting at real barriers (``std::barrier``); a cp.async copy lands at
+once, which its wait and the barrier after it guarantee on the card, and
+a warp shuffle meets the other lanes of its warp at a barrier of their
+own. The gates are the smoke's on-card ones (``chip_smoke.py``): the
+emulation differs from the plain versions in float32 rounding only.
 """
 
 import shutil
@@ -254,7 +248,7 @@ def test_host_build_of_k5_matches_plain(host_binary, tmp_path, shape, stage):
     _run_stage(host_binary, tmp_path, shape, stage, "xy")
 
 
-@pytest.mark.parametrize("ny,nz", [(32, 16), (64, 32), (8, 8)])
+@pytest.mark.parametrize("ny,nz", [(32, 16), (64, 32), (8, 8), (4, 256), (33, 31)])
 def test_smem_formulas_match_the_launchers(host_binary, ny, nz):
     """The selection rule's byte counts are the launchers' own."""
     out = subprocess.run([str(host_binary), "smem", str(ny), str(nz)], check=True,
