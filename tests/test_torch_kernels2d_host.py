@@ -26,7 +26,6 @@ from rbc_gym_tpu_torch.ops import kernels2d as k2
 from rbc_gym_tpu_torch.ops import limits
 from rbc_gym_tpu_torch.ops.poisson import spectral_constants_2d
 from rbc_gym_tpu_torch.sim.grid import Grid2D
-from rbc_gym_tpu_torch.sim.solver2d import SimParams2D, make_solver2d
 
 DRIVER = r"""
 #include <cstdio>
@@ -128,7 +127,8 @@ def host_binary(tmp_path_factory):
 
 def _run(host_binary, tmp_path, mode, n_env, nx, nz, heater_duration, seed):
     """Write a float32 case (``chip_smoke.make_case``) and the solve's
-    constants, run ``mode`` on the host -> (solver, case, outputs by name)."""
+    constants, run ``mode`` on the host -> (solver, case); the outputs are
+    files in ``tmp_path``."""
     solver, case = chip_smoke.make_case("cpu", n_env, (nz, nx), heater_duration, seed=seed,
                                         dtype=torch.float32)
     for name, t in {**case, **solver.spectral._asdict()}.items():
@@ -174,7 +174,7 @@ def test_host_build_of_k2_matches_plain(host_binary, tmp_path, n_env, nx, nz):
 
 
 @pytest.mark.parametrize("nx,nz", [(96, 64), (20, 12), (128, 16), (8, 2)])
-def test_k1_smem_formula_matches_the_launcher(host_binary, nx, nz):
+def test_smem_formulas_match_the_launchers(host_binary, nx, nz):
     """The selection rule's byte count is the launcher's own."""
     out = subprocess.run([str(host_binary), "smem", str(nx), str(nz)], check=True,
                          capture_output=True, text=True).stdout.split()
