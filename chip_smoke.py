@@ -77,6 +77,7 @@ from rbc_gym_tpu_torch.envs.vector3d import RBC3DVectorEnv
 from rbc_gym_tpu_torch.ops import _build
 from rbc_gym_tpu_torch.ops import kernels2d as k2d
 from rbc_gym_tpu_torch.ops import kernels3d as k3d
+from rbc_gym_tpu_torch.ops.limits import env_step_2d_on_chip
 from rbc_gym_tpu_torch.ops.poisson import FACTORED_POISSON_MIN_NXNZ, make_poisson_solver_3d
 from rbc_gym_tpu_torch.sim import solver3d as s3d
 from rbc_gym_tpu_torch.sim.grid import Grid2D, Grid3D
@@ -217,13 +218,14 @@ def bound(work: dict) -> tuple[float, str]:
 
 
 def make_case(device, num_envs: int, state_shape=(64, 96), heater_duration=0.18, seed=0,
-              dtype=None):
+              dtype=None, dt_solver=None):
     """Solver plus fields, bottom profile and pHY' made by numpy from a seed."""
     device = torch.device(device)
     dtype = dtype or working_dtype(device)
     nz, nx = state_shape
     grid = Grid2D(nx=nx, nz=nz, lx=2 * np.pi, lz=2.0)
-    params = SimParams2D(heater_duration=heater_duration)
+    params = SimParams2D(heater_duration=heater_duration,
+                         **({} if dt_solver is None else {"dt_solver": dt_solver}))
     solver = make_solver2d(grid, params, dtype=dtype, device=device)
     rng = np.random.default_rng(seed)
     kick = params.random_kick
@@ -278,34 +280,43 @@ def phase_build() -> dict:
 
 
 def kernel_parity(device, k1_envs=128, main_envs=1024, state_shape=(64, 96),
-                  f64_envs=64) -> dict:
+                  off_chip_shape=(64, 128)) -> dict:
     """Each kernel against its plain version from the same inputs: K1 after
     6 substeps (heater_duration 0.18) at ``k1_envs`` and after the main
     path's 50 at ``main_envs``, K2 on one stage at ``main_envs``. Also K1
-    and its plain version against a float64 plain run, after 6 substeps
-    at ``k1_envs`` and after 50 at ``f64_envs``."""
+    and its plain version against a float64 plain run, after 6 and after
+    50 substeps at ``k1_envs``, and K1's off-chip instance after 6 substeps
+    at ``k1_envs`` on ``off_chip_shape`` (128x64: the on-chip state does
+    not fit a block)."""
     start = time.perf_counter()
     solver, case = make_case(device, k1_envs, state_shape, heater_duration=0.18)
     k1_out = k1_run(solver, case, True)
     plain = k1_run(solver, case, False)
     k1 = abs_diffs(K1_OUT, k1_out, plain)
     ref = k1_run(*make_case(device, k1_envs, state_shape, 0.18, dtype=torch.float64), False)
-    solver, case = make_case(device, f64_envs, state_shape, heater_duration=1.5, seed=3)
-    ref50 = k1_run(*make_case(device, f64_envs, state_shape, 1.5, seed=3, dtype=torch.float64),
+    solver, case = make_case(device, k1_envs, state_shape, heater_duration=1.5, seed=3)
+    ref50 = k1_run(*make_case(device, k1_envs, state_shape, 1.5, seed=3, dtype=torch.float64),
                    False)
     float64_50 = {"kernel": abs_diffs(K1_OUT, ref50, k1_run(solver, case, True)),
                   "plain_float32": abs_diffs(K1_OUT, ref50, k1_run(solver, case, False))}
+    nz, nx = off_chip_shape
+    if env_step_2d_on_chip(nx, nz):
+        raise AssertionError(f"{off_chip_shape} runs K1's on-chip instance, not the off-chip one")
+    solver, case = make_case(device, k1_envs, off_chip_shape, heater_duration=0.18, seed=4)
+    k1_off = abs_diffs(K1_OUT, k1_run(solver, case, True), k1_run(solver, case, False))
     solver, case = make_case(device, main_envs, state_shape, heater_duration=1.5, seed=1)
     k1_main = abs_diffs(K1_OUT, k1_run(solver, case, True), k1_run(solver, case, False))
     k2 = abs_diffs(K2_OUT, k2_run(solver, case, True), k2_run(solver, case, False))
     errs = {"env_step_2d": max(k1.values()), "env_step_2d_main": max(k1_main.values()),
-            "tendencies_2d": max(k2.values())}
-    atols = {"env_step_2d": K1_ATOL, "env_step_2d_main": K1_MAIN_ATOL, "tendencies_2d": K2_ATOL}
+            "env_step_2d_off_chip": max(k1_off.values()), "tendencies_2d": max(k2.values())}
+    atols = {"env_step_2d": K1_ATOL, "env_step_2d_main": K1_MAIN_ATOL,
+             "env_step_2d_off_chip": K1_ATOL, "tendencies_2d": K2_ATOL}
     failed = {k: (errs[k], atols[k]) for k in errs if not errs[k] <= atols[k]}
     if failed:
         raise AssertionError(f"kernel parity failed (error, atol): {failed}")
     return {"phase": "kernel_parity", "max_abs_err": errs, "atol": atols,
             "env_step_2d_by_field": k1, "env_step_2d_main_by_field": k1_main,
+            "env_step_2d_off_chip_by_field": k1_off, "off_chip_shape": list(off_chip_shape),
             "tendencies_2d_by_field": k2,
             "float64_plain_vs": {"kernel": abs_diffs(K1_OUT, ref, k1_out),
                                  "plain_float32": abs_diffs(K1_OUT, ref, plain)},
@@ -390,18 +401,23 @@ def _cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def timing(device, num_envs=1024, state_shape=(64, 96), heater_duration=1.5) -> dict:
+def timing(device, num_envs=1024, state_shape=(64, 96), heater_duration=1.5,
+           off_chip_shape=(64, 128)) -> dict:
     """CUDA-event times at the main path's shapes, with the plain versions
-    and the bounds; launches made here are not the main path's."""
+    and the bounds, and K1's off-chip instance on ``off_chip_shape``;
+    launches made here are not the main path's."""
     begin = time.perf_counter()
-    solver, case = make_case(device, num_envs, state_shape, heater_duration, seed=2)
-    nz, nx = state_shape
-    n_sub = solver.params.substeps_per_env_step
     out = {}
-    for name, run, work, reps in (
-        ("env_step_2d", k1_run, env_step_work(num_envs, nx, nz, n_sub), 3),
-        ("tendencies_2d", k2_run, tendencies_work(num_envs, nx, nz), 20),
+    for name, shape, run, reps in (
+        ("env_step_2d", state_shape, k1_run, 3),
+        ("tendencies_2d", state_shape, k2_run, 20),
+        ("env_step_2d_off_chip", off_chip_shape, k1_run, 1),
     ):
+        solver, case = make_case(device, num_envs, shape, heater_duration, seed=2)
+        nz, nx = shape
+        n_sub = solver.params.substeps_per_env_step
+        work = (tendencies_work(num_envs, nx, nz) if run is k2_run
+                else env_step_work(num_envs, nx, nz, n_sub))
         ms = _cuda_ms(lambda: run(solver, case, True), reps)
         plain_ms = _cuda_ms(lambda: run(solver, case, False), max(1, reps // 3))
         bound_ms, bound_by = bound(work)

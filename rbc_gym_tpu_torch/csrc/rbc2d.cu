@@ -47,10 +47,19 @@
 //   5. the correction of the thread's own u, w by grad p.
 //   The spacings and the z transforms' constants are taken in double on
 //   the host. nx, nz are template parameters for 96x64 (no runtime / or %);
-//   a runtime instance takes nx <= 128, nz <= 64. Shared memory, in floats:
+//   a runtime instance takes the other grids with 4 <= nx <= 128, 2 <= nz <=
+//   64 whose shared memory fits. Shared memory, in floats:
 //   2 (2 nx nz + nx (nz + 1)) + 2 nx nz + 2 nz^2 + nx, 230,528 bytes at
 //   96x64: one block an SM, 1024 envs in 7.76 waves over 132 SMs. FP32 FMA
 //   on the CUDA cores; no tensor cores, no TF32.
+//   Every other grid with nx >= 3 whose two (nx, nz) slabs fit a block
+//   (8 nx nz bytes) runs the off-chip instance, env_step_2d_global_kernel:
+//   the state in the output tensors, the tendencies of this and the
+//   previous stage and pHY' in per-env global scratch, the slabs in shared
+//   memory, and each phase a loop over points between barriers (pHY' by the
+//   same warp scan, a chunk of 32 levels at a time from the top; the
+//   tendencies by K2's tendencies_block; the same DCT-form solve, one
+//   32-column tile of each product after another).
 //
 // K2 tendencies_2d_kernel replaces ops/pallas2d.py:_tendency_kernel (reached
 // from make_tendencies_2d, pl.pallas_call at :562): gu, gw, gb of one RK3
@@ -75,6 +84,7 @@ constexpr int kK1Warps = kK1Threads / 32;
 constexpr int kK1Levels = 2;              // z levels a lane owns: k = lane + 32 s
 constexpr int kK1MaxNz = 32 * kK1Levels;  // 64
 constexpr int kK1MaxCols = 8;             // x columns a warp owns, runtime instance
+constexpr int kK1MinNx = 3;               // x stencils wrap once: taps i - 3 .. i + 3
 constexpr size_t kSmemPerBlock = 232448;  // an H100 block's shared memory
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -101,16 +111,35 @@ K1Params k1_params(int nx, int nz, int n_substeps, float dt, float dx, float dz,
   return P;
 }
 
-// Shared memory K1 needs per block, in floats: two copies of u, b (nx, nz)
-// and w (nx, nz + 1), two (nx, nz) slabs, the z analysis and synthesis
-// (nz, nz) and the bottom profile (nx).
-size_t env_step_2d_smem_floats(int nx, int nz) {
+// x columns a K1 warp owns.
+__host__ __device__ constexpr int k1_cols(int nx) { return (nx + kK1Warps - 1) / kK1Warps; }
+
+// Shared memory of the on-chip instance, in floats: two copies of u, b
+// (nx, nz) and w (nx, nz + 1), two (nx, nz) slabs, the z analysis and
+// synthesis (nz, nz) and the bottom profile (nx).
+size_t on_chip_smem_floats(int nx, int nz) {
   return 2 * (2 * (size_t)nx * nz + (size_t)nx * (nz + 1)) + 2 * (size_t)nx * nz +
          2 * (size_t)nz * nz + nx;
 }
 
-// x columns a K1 warp owns.
-__host__ __device__ constexpr int k1_cols(int nx) { return (nx + kK1Warps - 1) / kK1Warps; }
+// Whether the on-chip instance takes the grid: its warps' columns, its
+// lanes' levels and its shared memory.
+bool env_step_2d_on_chip(int nx, int nz) {
+  return nx >= 4 && k1_cols(nx) <= kK1MaxCols && nz >= 2 && nz <= kK1MaxNz &&
+         sizeof(float) * on_chip_smem_floats(nx, nz) <= kSmemPerBlock;
+}
+
+// Shared memory K1 needs per block, in floats: the on-chip instance's, or
+// the off-chip one's two (nx, nz) slabs.
+size_t env_step_2d_smem_floats(int nx, int nz) {
+  return env_step_2d_on_chip(nx, nz) ? on_chip_smem_floats(nx, nz) : 2 * (size_t)nx * nz;
+}
+
+// Global scratch per env, in floats: none on the chip; off it, gu, gw, gb
+// of this stage and of the previous one, and pHY'.
+size_t env_step_2d_scratch_floats(int nx, int nz) {
+  return env_step_2d_on_chip(nx, nz) ? 0 : 5 * (size_t)nx * nz + 2 * (size_t)nx * (nz + 1);
+}
 
 struct State2D {
   float* u;  // (nx, nz)
@@ -119,20 +148,20 @@ struct State2D {
 };
 
 // acc[r][s] = sum_{k < K} L[row_r][k] R[k][col_s] for the thread's rows
-// row_r = min(row0 + r, nrow - 1) and columns col_s = min(lane + 32 s,
-// ldr - 1): L is row-major with rows of K (a warp reads one row value, a
+// row_r = min(row0 + r, nrow - 1) and columns col_s = min(col0 + lane +
+// 32 s, ldr - 1): L is row-major with rows of K (a warp reads one row value, a
 // broadcast), R row-major with rows of ldr (a warp reads 32 consecutive
 // values). kVec reads L four values at a time (K % 4 == 0, rows 16-byte
 // aligned), so a thread loads XS + 4 NS values for 4 XS NS FMA.
 template <int XS, int NS, bool kVec>
 __device__ __forceinline__ void tile_product(const float* L, const float* R, int K, int ldr,
-                                             int row0, int nrow, int lane,
+                                             int row0, int nrow, int col0, int lane,
                                              float (&acc)[XS][NS]) {
   int row[XS], col[NS];
 #pragma unroll
   for (int r = 0; r < XS; ++r) row[r] = min(row0 + r, nrow - 1) * K;
 #pragma unroll
-  for (int s = 0; s < NS; ++s) col[s] = min(lane + 32 * s, ldr - 1);
+  for (int s = 0; s < NS; ++s) col[s] = min(col0 + lane + 32 * s, ldr - 1);
 #pragma unroll
   for (int r = 0; r < XS; ++r)
 #pragma unroll
@@ -169,6 +198,38 @@ __device__ __forceinline__ void tile_product(const float* L, const float* R, int
         for (int s = 0; s < NS; ++s) acc[r][s] = fmaf(av, bv[s], acc[r][s]);
       }
     }
+  }
+}
+
+// pHY' at this lane's levels k = k0 + lane + 32 s (s < NS) of one column
+// bc of nz levels, into pc: pHY'[k] = -sum_{j >= k} inc[j], inc[j] = dz
+// (b[j] + b[j+1]) / 2 for j < nz - 1 and dz min_b / 2 at the top, by a
+// float64 suffix scan across the warp's lanes (each value rounds once).
+// `above` holds the sum over the levels above these and gains theirs.
+template <int NS>
+__device__ __forceinline__ void phy_levels(const float* bc, float* pc, int k0, int nz, int lane,
+                                           const K1Params& P, double& above) {
+  double v[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int k = k0 + lane + 32 * s;
+    const double face = 0.5 * ((double)bc[min(k, nz - 1)] + (double)bc[min(k + 1, nz - 1)]);
+    v[s] = k < nz - 1 ? (double)P.dz * face : (k == nz - 1 ? 0.5 * P.dz * P.min_b : 0.0);
+  }
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const double t = __shfl_down_sync(kFull, v[s], off);
+      if (lane + off < 32) v[s] += t;
+    }
+  }
+#pragma unroll
+  for (int s = NS - 1; s >= 0; --s) {
+    const double total = __shfl_sync(kFull, v[s], 0);
+    const int k = k0 + lane + 32 * s;
+    if (k < nz) pc[k] = (float)-(v[s] + above);
+    above += total;
   }
 }
 
@@ -287,29 +348,8 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
 #pragma unroll
       for (int xi = 0; xi < XS; ++xi) {
         if (xi < xn) {
-          const float* bc = X.b + (x0 + xi) * nz;
-          double v[NS];
-#pragma unroll
-          for (int s = 0; s < NS; ++s) {
-            const int k = kl[s];
-            const double face = 0.5 * ((double)bc[kc[s]] + (double)bc[min(k + 1, nz - 1)]);
-            v[s] = k < nz - 1 ? (double)P.dz * face : (k == nz - 1 ? 0.5 * P.dz * P.min_b : 0.0);
-          }
-#pragma unroll
-          for (int off = 1; off < 32; off <<= 1) {
-#pragma unroll
-            for (int s = 0; s < NS; ++s) {
-              const double t = __shfl_down_sync(kFull, v[s], off);
-              if (lane + off < 32) v[s] += t;
-            }
-          }
           double above = 0.0;
-#pragma unroll
-          for (int s = NS - 1; s >= 0; --s) {
-            const double total = __shfl_sync(kFull, v[s], 0);
-            if (kl[s] < nz) s1[(x0 + xi) * nz + kl[s]] = (float)-(v[s] + above);
-            above += total;
-          }
+          phy_levels<NS>(X.b + (x0 + xi) * nz, s1 + (x0 + xi) * nz, 0, nz, lane, P, above);
         }
       }
       __syncthreads();
@@ -428,10 +468,10 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
           for (int s = 0; s < NS; ++s)
             if (xi < xn && kl[s] < nz) dst[(x0 + xi) * nz + kl[s]] = pt[xi][s];
       };
-      tile_product<XS, NS, kVec>(fmat, s1, nx, nz, x0, nx, lane, pt);  // r_hat = F . rhs
+      tile_product<XS, NS, kVec>(fmat, s1, nx, nz, x0, nx, 0, lane, pt);  // r_hat = F . rhs
       store(s2);
       __syncthreads();
-      tile_product<XS, NS, kVec>(s2, ct, nz, nz, x0, nx, lane, pt);  // r_hat C^T
+      tile_product<XS, NS, kVec>(s2, ct, nz, nz, x0, nx, 0, lane, pt);  // r_hat C^T
 #pragma unroll
       for (int xi = 0; xi < XS; ++xi)
 #pragma unroll
@@ -439,10 +479,10 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
           pt[xi][s] *= __ldg(dinv + min(x0 + xi, nx - 1) * nz + kc[s]);
       store(s1);
       __syncthreads();
-      tile_product<XS, NS, kVec>(s1, st, nz, nz, x0, nx, lane, pt);  // p_hat = R~ S^T
+      tile_product<XS, NS, kVec>(s1, st, nz, nz, x0, nx, 0, lane, pt);  // p_hat = R~ S^T
       store(s2);
       __syncthreads();
-      tile_product<XS, NS, kVec>(gmat, s2, nx, nz, x0, nx, lane, pt);  // p = G . p_hat
+      tile_product<XS, NS, kVec>(gmat, s2, nx, nz, x0, nx, 0, lane, pt);  // p = G . p_hat
       store(s1);
       if (last) {
 #pragma unroll
@@ -487,6 +527,117 @@ decltype(&env_step_2d_kernel<0, 0>) env_step_kernel_for(int nx, int nz) {
   return nx == 96 && nz == 64 ? env_step_2d_kernel<96, 64> : env_step_2d_kernel<0, 0>;
 }
 
+// dst = L . R for the (nrow, ldr) result, one 4 x 32 tile a warp at a time,
+// each element scaled by epi(value, row, col) on its way out.
+template <class Epi>
+__device__ __forceinline__ void block_product(const float* L, const float* R, int K, int ldr,
+                                              int nrow, float* dst, Epi epi) {
+  constexpr int XS = 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tiles_c = (ldr + 31) / 32, tiles = (nrow + XS - 1) / XS * tiles_c;
+  for (int t = warp; t < tiles; t += kK1Warps) {
+    const int r0 = t / tiles_c * XS, col = t % tiles_c * 32 + lane;
+    float acc[XS][1];
+    tile_product<XS, 1, false>(L, R, K, ldr, r0, nrow, col - lane, lane, acc);
+#pragma unroll
+    for (int r = 0; r < XS; ++r)
+      if (r0 + r < nrow && col < ldr) dst[(r0 + r) * ldr + col] = epi(acc[r][0], r0 + r, col);
+  }
+}
+
+// K1's off-chip instance (see the head of this file), for the grids the
+// on-chip one cannot hold.
+__global__ void __launch_bounds__(kK1Threads)
+env_step_2d_global_kernel(const float* __restrict__ u_in, const float* __restrict__ w_in,
+                          const float* __restrict__ b_in, const float* __restrict__ bottom_in,
+                          const float* __restrict__ fmat, const float* __restrict__ gmat,
+                          const float* __restrict__ dct, const float* __restrict__ idct,
+                          const float* __restrict__ dinv, float* u_all, float* w_all,
+                          float* b_all, float* p_all, float* scratch, K1Params P,
+                          RBCParams R) {
+  extern __shared__ float smem[];
+  const int nx = P.nx, nz = P.nz, nw = nz + 1;
+  const int nc = nx * nz, nf = nx * nw;
+  const size_t e = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* u = u_all + e * nc;
+  float* w = w_all + e * nf;
+  float* b = b_all + e * nc;
+  float* p = p_all + e * nc;
+  const float* bottom = bottom_in + e * nx;
+  float* gu = scratch + e * (size_t)(5 * nc + 2 * nf);  // env_step_2d_scratch_floats
+  float* gw = gu + nc;
+  float* gb = gw + nf;
+  float* gu0 = gb + nc;  // the previous stage's
+  float* gw0 = gu0 + nc;
+  float* gb0 = gw0 + nf;
+  float* p_hy = gb0 + nc;
+  float* s1 = smem;       // the divergence, then R~
+  float* s2 = smem + nc;  // r_hat, then p_hat
+
+  for (int q = threadIdx.x; q < nc; q += kK1Threads) {
+    u[q] = u_in[e * nc + q];
+    b[q] = b_in[e * nc + q];
+  }
+  for (int q = threadIdx.x; q < nf; q += kK1Threads) w[q] = w_in[e * nf + q];
+  __syncthreads();
+
+  for (int step = 0; step < P.n_substeps; ++step) {
+    for (int stage = 0; stage < 3; ++stage) {
+      const float gamma = kGamma[stage], zeta = kZeta[stage];
+      const float dts = P.dts[stage], idts = P.idts[stage];
+      auto rk = [&](float f, float g, float g_prev) {
+        return stage == 0 ? f + P.dt * (gamma * g) : f + P.dt * (gamma * g + zeta * g_prev);
+      };
+      for (int i = warp; i < nx; i += kK1Warps) {
+        double above = 0.0;
+        for (int k0 = (nz - 1) / 32 * 32; k0 >= 0; k0 -= 32)
+          phy_levels<1>(b + i * nz, p_hy + i * nz, k0, nz, lane, P, above);
+      }
+      __syncthreads();
+      tendencies_block(u, w, b, p_hy, bottom, gu, gw, gb, R);
+      __syncthreads();
+      for (int q = threadIdx.x; q < nc; q += kK1Threads) {
+        u[q] = rk(u[q], gu[q], gu0[q]);
+        b[q] = rk(b[q], gb[q], gb0[q]);
+        gu0[q] = gu[q];
+        gb0[q] = gb[q];
+      }
+      for (int q = threadIdx.x; q < nf; q += kK1Threads) {
+        w[q] = rk(w[q], gw[q], gw0[q]);
+        gw0[q] = gw[q];
+      }
+      __syncthreads();
+      for (int q = threadIdx.x; q < nc; q += kK1Threads) {
+        const int i = q / nz, k = q - i * nz;
+        const float div = (u[wrap_x(i + 1, nx) * nz + k] - u[q]) * P.idx +
+                          (w[i * nw + k + 1] - w[i * nw + k]) * P.idz;
+        s1[q] = div * idts;
+      }
+      __syncthreads();
+      auto as_is = [](float v, int, int) { return v; };
+      block_product(fmat, s1, nx, nz, nx, s2, as_is);  // r_hat = F . rhs
+      __syncthreads();
+      block_product(s2, dct, nz, nz, nx, s1,  // (r_hat C^T) * d
+                    [&](float v, int m, int j) { return v * __ldg(dinv + m * nz + j); });
+      __syncthreads();
+      block_product(s1, idct, nz, nz, nx, s2, as_is);  // p_hat = R~ S^T
+      __syncthreads();
+      block_product(gmat, s2, nx, nz, nx, p, as_is);  // p = G . p_hat
+      __syncthreads();
+      for (int q = threadIdx.x; q < nc; q += kK1Threads) {
+        const int i = q / nz, k = q - i * nz;
+        u[q] -= dts * ((p[q] - p[wrap_x(i - 1, nx) * nz + k]) * P.idx);
+      }
+      for (int q = threadIdx.x; q < nf; q += kK1Threads) {
+        const int i = q / nw, k = q - i * nw;
+        if (k > 0 && k < nz) w[q] -= dts * ((p[i * nz + k] - p[i * nz + k - 1]) * P.idz);
+      }
+      __syncthreads();
+    }
+  }
+}
+
 // ---- K2 -----------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
@@ -507,19 +658,30 @@ extern "C" {
 int launch_env_step_2d(const float* u, const float* w, const float* b,
                        const float* bottom, const float* fmat, const float* gmat,
                        const float* dct, const float* idct, const float* dinv, float* u_out,
-                       float* w_out, float* b_out, float* p_out, int n_env, int nx, int nz,
-                       int n_substeps, float dt, float dx, float dz, float nu,
+                       float* w_out, float* b_out, float* p_out, float* scratch, int n_env,
+                       int nx, int nz, int n_substeps, float dt, float dx, float dz, float nu,
                        float kappa, float min_b, void* stream) {
+  const bool on_chip = env_step_2d_on_chip(nx, nz);
   const size_t smem = sizeof(float) * env_step_2d_smem_floats(nx, nz);
-  if (nx < 4 || k1_cols(nx) > kK1MaxCols || nz < 2 || nz > kK1MaxNz || smem > kSmemPerBlock ||
-      n_substeps < 1) {
+  if (nx < kK1MinNx || nz < 1 || smem > kSmemPerBlock || n_substeps < 1 ||
+      (!on_chip && scratch == nullptr)) {
     return (int)cudaErrorInvalidValue;
+  }
+  const K1Params P = k1_params(nx, nz, n_substeps, dt, dx, dz, nu, kappa, min_b);
+  if (!on_chip) {
+    cudaError_t err = cudaFuncSetAttribute(
+        env_step_2d_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const RBCParams R{nx, nz, dx, dz, nu, kappa, min_b};
+    env_step_2d_global_kernel<<<n_env, kK1Threads, smem, (cudaStream_t)stream>>>(
+        u, w, b, bottom, fmat, gmat, dct, idct, dinv, u_out, w_out, b_out, p_out, scratch, P,
+        R);
+    return (int)cudaGetLastError();
   }
   auto* kernel = env_step_kernel_for(nx, nz);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const K1Params P = k1_params(nx, nz, n_substeps, dt, dx, dz, nu, kappa, min_b);
   kernel<<<n_env, kK1Threads, smem, (cudaStream_t)stream>>>(
       u, w, b, bottom, fmat, gmat, dct, idct, dinv, u_out, w_out, b_out, p_out, P);
   return (int)cudaGetLastError();

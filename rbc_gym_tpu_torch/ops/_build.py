@@ -38,6 +38,7 @@ ARGTYPES = {
         _P, _P, _P, _P,  # u, w, b, bottom
         _P, _P, _P, _P, _P,  # F, G, z analysis, z synthesis, modal reciprocals
         _P, _P, _P, _P,  # u_out, w_out, b_out, p_out
+        _P,  # per-env scratch of the off-chip instance (NULL on the chip)
         _I, _I, _I, _I,  # n_env, nx, nz, n_substeps
         _F, _F, _F, _F, _F, _F,  # dt, dx, dz, nu, kappa, min_b
         _P,  # stream

@@ -22,7 +22,7 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
-from rbc_gym_tpu_torch.ops import _build
+from rbc_gym_tpu_torch.ops import _build, limits
 from rbc_gym_tpu_torch.ops import stencils as st
 from rbc_gym_tpu_torch.ops.poisson import Spectral2D, poisson_solve_2d
 
@@ -241,6 +241,8 @@ def env_step_2d(
     if n_substeps < 1:
         raise ValueError(f"n_substeps must be >= 1, got {n_substeps}")
     u_out, w_out, b_out, p_out = (torch.empty_like(t) for t in (u, w, b, u))
+    scratch = torch.empty(e * limits.env_step_2d_scratch_floats(nx, nz), dtype=u.dtype,
+                          device=u.device)
     lib = _build.load_library()
     with torch.cuda.device(u.device):  # the launch goes to the current device
         err = lib.launch_env_step_2d(
@@ -248,6 +250,7 @@ def env_step_2d(
             spectral.f.data_ptr(), spectral.g.data_ptr(), spectral.dct.data_ptr(),
             spectral.idct.data_ptr(), spectral.dinv.data_ptr(),
             u_out.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), p_out.data_ptr(),
+            scratch.data_ptr() if scratch.numel() else None,
             e, nx, nz, n_substeps, dt, c.dx, c.dz, c.nu, c.kappa, c.min_b,
             torch.cuda.current_stream(u.device).cuda_stream,
         )

@@ -19,15 +19,35 @@ XY_MIN_NX = 4  # K3's and K5's plane indices -4..nx+3 wrap x once (kXYMinNx)
 XY_RING = 8  # x-planes of u, v, w, b a K3 or K5 block holds (kRing)
 
 
-K1_MAX_NZ = 64  # z levels of a K1 column: two per lane (csrc/rbc2d.cu kK1MaxNz)
-K1_MAX_NX = 128  # x columns: at most 8 per warp of 16 (kK1MaxCols)
+K1_MIN_NX = 3  # K1's x stencils wrap once (csrc/rbc2d.cu kK1MinNx)
+K1_MAX_NZ = 64  # z levels of an on-chip K1 column: two per lane (kK1MaxNz)
+K1_MAX_NX = 128  # x columns on the chip: at most 8 per warp of 16 (kK1MaxCols)
+
+
+def _on_chip_smem_bytes(nx: int, nz: int) -> int:
+    return 4 * (2 * (2 * nx * nz + nx * (nz + 1)) + 2 * nx * nz + 2 * nz * nz + nx)
+
+
+def env_step_2d_on_chip(nx: int, nz: int) -> bool:
+    """Whether K1's on-chip instance takes the grid (``env_step_2d_on_chip``
+    in ``csrc/rbc2d.cu``): 4 <= nx <= 128, 2 <= nz <= 64 and its shared
+    memory in a block; every other grid runs the off-chip instance."""
+    return (4 <= nx <= K1_MAX_NX and 2 <= nz <= K1_MAX_NZ
+            and _on_chip_smem_bytes(nx, nz) <= SMEM_PER_BLOCK)
 
 
 def env_step_2d_smem_bytes(nx: int, nz: int) -> int:
-    """K1: two copies of u, b (nx, nz) and w (nx, nz + 1), two (nx, nz)
-    slabs, the z analysis and synthesis (nz, nz) and the bottom profile,
-    float32 (``env_step_2d_smem_floats``)."""
-    return 4 * (2 * (2 * nx * nz + nx * (nz + 1)) + 2 * nx * nz + 2 * nz * nz + nx)
+    """K1's shared memory per block (``env_step_2d_smem_floats``), float32:
+    on the chip two copies of u, b (nx, nz) and w (nx, nz + 1), two (nx, nz)
+    slabs, the z analysis and synthesis (nz, nz) and the bottom profile;
+    off it the two slabs alone."""
+    return _on_chip_smem_bytes(nx, nz) if env_step_2d_on_chip(nx, nz) else 8 * nx * nz
+
+
+def env_step_2d_scratch_floats(nx: int, nz: int) -> int:
+    """K1's global scratch per env (``env_step_2d_scratch_floats``): none on
+    the chip; off it gu, gw, gb of this stage and the previous one, and pHY'."""
+    return 0 if env_step_2d_on_chip(nx, nz) else 5 * nx * nz + 2 * nx * (nz + 1)
 
 
 def stage_smem_bytes(ny: int, nz: int) -> int:
@@ -38,13 +58,18 @@ def stage_smem_bytes(ny: int, nz: int) -> int:
     return 4 * ny * ((3 * XY_RING + 2 + 4 + 1 + 8) * nz + (XY_RING + 1) * (nz + 1))
 
 
+# The largest x-plane, ny * nz points, that the 3D path rule gives a whole-y
+# path (K3, or the per-field path where K3 cannot take it). It stands where
+# the JAX package's VMEM ceiling, (nz + 1) ny <= 1088
+# (rbc_gym_tpu/sim/solver3d.py:335), stands in its rule, and it is the
+# largest ny * nz the port's rule has taken whole-y (3 x 365), so that no
+# grid leaves the whole-y paths.
+WHOLE_Y_MAX_POINTS = 1096
+
+
 def whole_y_fits(ny: int, nz: int) -> bool:
-    """Where the path rule takes a whole-y path (K3, or the per-field path
-    at nx % 4 != 0), as the JAX package does below its VMEM ceiling: the
-    boundary the port drew in PR 5, where the first K3 design's whole-y
-    slab, 43 ny nz + 10 ny (nz + 1) floats, fits a block. It stays there so
-    that no grid moves between the whole-y and the tiled paths."""
-    return 4 * (43 * ny * nz + 10 * ny * (nz + 1)) <= SMEM_PER_BLOCK
+    """Where the path rule takes a whole-y path: ny * nz <= ``WHOLE_Y_MAX_POINTS``."""
+    return ny * nz <= WHOLE_Y_MAX_POINTS
 
 
 def stage_xy_smem_bytes(nz: int) -> int:

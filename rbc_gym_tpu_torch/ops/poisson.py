@@ -37,8 +37,8 @@ def _dft_eigenvalues(n: int, d: float) -> np.ndarray:
     return -(2.0 - 2.0 * np.cos(2.0 * np.pi * m / n)) / (d * d)
 
 
-def _vertical_inverses(lams: np.ndarray, nz: int, dz: float) -> np.ndarray:
-    """Stack of inverses of (D2z_neumann + lam I), shape (M, nz, nz)."""
+def _neumann_d2(nz: int, dz: float) -> np.ndarray:
+    """D2z_neumann, (nz, nz)."""
     # Neumann ghost: p[-1] = p[0], p[nz] = p[nz-1] -> first/last diagonal -1.
     d2 = (
         np.diag(np.full(nz, -2.0))
@@ -47,8 +47,12 @@ def _vertical_inverses(lams: np.ndarray, nz: int, dz: float) -> np.ndarray:
     )
     d2[0, 0] = -1.0
     d2[-1, -1] = -1.0
-    d2 /= dz * dz
+    return d2 / (dz * dz)
 
+
+def _vertical_inverses(lams: np.ndarray, nz: int, dz: float) -> np.ndarray:
+    """Stack of inverses of (D2z_neumann + lam I), shape (M, nz, nz)."""
+    d2 = _neumann_d2(nz, dz)
     inv = np.empty((lams.size, nz, nz), dtype=np.float64)
     eye = np.eye(nz)
     for i, lam in enumerate(lams):
@@ -100,7 +104,7 @@ class Spectral2D(NamedTuple):
     inv: torch.Tensor  # (nx, nz, nz) per-DFT-row vertical inverse, [m, z, f]
     dct: torch.Tensor  # (nz, nz) z analysis, transposed: [z, j]
     idct: torch.Tensor  # (nz, nz) z synthesis, transposed: [j, z]
-    dinv: torch.Tensor  # (nx, nz) 1 / (lambda_m + mu_j), 0 for the mean mode, [m, j]
+    dinv: torch.Tensor  # (nx, nz) the diagonal of each inverse in that basis, [m, j]
 
 
 def spectral_constants_2d(
@@ -111,7 +115,10 @@ def spectral_constants_2d(
     f_mat, g_mat, row_modes = _real_dft_matrices(nx)
     lams = _dft_eigenvalues(nx, dx)
     inv_rows = _vertical_inverses(lams, nz, dz)[row_modes]
-    cz, sz, mu = _dct2_matrices(nz, dz)
+    cz, sz, _ = _dct2_matrices(nz, dz)
+    # mu_j: D2z_neumann in the DCT-II basis that diagonalises it, taken from
+    # the matrix the dense stack inverts (at nz = 1 that matrix is -1 / dz^2)
+    mu = np.einsum("zj,zf,jf->j", sz, _neumann_d2(nz, dz), cz)
     lam = lams[row_modes][:, None] + mu[None, :]
     with np.errstate(divide="ignore"):
         dinv = np.where(np.abs(lam) < 1e-14, 0.0, 1.0 / lam)

@@ -43,12 +43,7 @@ from rbc_gym_tpu_torch.ops.kernels2d import (
     tendencies_2d_plain,
 )
 from rbc_gym_tpu_torch.ops import stencils as st
-from rbc_gym_tpu_torch.ops.limits import (
-    K1_MAX_NX,
-    K1_MAX_NZ,
-    SMEM_PER_BLOCK,
-    env_step_2d_smem_bytes,
-)
+from rbc_gym_tpu_torch.ops.limits import K1_MIN_NX, SMEM_PER_BLOCK, env_step_2d_smem_bytes
 from rbc_gym_tpu_torch.ops.poisson import Spectral2D, spectral_constants_2d
 from rbc_gym_tpu_torch.sim.actuation import heater_profile_2d
 from rbc_gym_tpu_torch.sim.grid import Grid2D
@@ -131,14 +126,14 @@ ENV_STEP_PATHS = {
 
 def env_step_kernel_limit(dtype: torch.dtype, nx: int, nz: int):
     """Why K1 cannot take this configuration, or None if it can: float32
-    only, the grid its warps and lanes cover (4 <= nx <= 128, 2 <= nz <=
-    64), and its state and slabs in a block's shared memory (the checks of
-    ``launch_env_step_2d`` in ``csrc/rbc2d.cu``)."""
+    only, nx >= 3 (its x stencils wrap once), and the shared memory of the
+    instance that takes the grid in a block (the checks of
+    ``launch_env_step_2d`` in ``csrc/rbc2d.cu``; ``limits.env_step_2d_on_chip``
+    says which instance)."""
     if dtype != torch.float32:
         return f"the fused kernels take float32, not {dtype}"
-    if not (4 <= nx <= K1_MAX_NX and 2 <= nz <= K1_MAX_NZ):
-        return (f"the env-step kernel needs 4 <= nx <= {K1_MAX_NX} and 2 <= nz <= "
-                f"{K1_MAX_NZ} (nx={nx}, nz={nz})")
+    if nx < K1_MIN_NX:
+        return f"the env-step kernel needs nx >= {K1_MIN_NX} (nx={nx})"
     need = env_step_2d_smem_bytes(nx, nz)
     if need > SMEM_PER_BLOCK:
         return (f"the env-step kernel needs {need:,} bytes of shared memory per block at "
@@ -153,9 +148,9 @@ def select_env_step_path(dtype: torch.dtype, nx: int, nz: int, device_type: str,
     Auto (``fused=None``) is the JAX package's rule
     (rbc_gym_tpu/sim/solver2d.py:247-250): "fused" on CUDA for float32,
     "plain" for float64 and on the CPU. Where K1 cannot take a float32
-    grid on CUDA (``env_step_kernel_limit``: its grid rule, or its state
-    and slabs above the card's 232,448 bytes of shared memory per block)
-    it raises ``NotImplementedError`` naming the limit,
+    grid on CUDA (``env_step_kernel_limit``: nx < 3, or its slabs above
+    the card's 232,448 bytes of shared memory per block) it raises
+    ``NotImplementedError`` naming the limit,
     since the JAX package runs its kernel there. ``fused=False`` is
     "plain"; ``fused=True`` forces the kernels and raises ``ValueError``,
     naming the limit, if they cannot take it (on the CPU the wrappers

@@ -29,20 +29,12 @@ gates:
 One JSON line per tree and kernel, then the card's name and power limit.
 A tree that does not build is reported and skipped. Exits non-zero
 without a card or if any tree fails.
-
-    python3 scripts/kernel_variants.py --ablate TREE NAME [NAME ...]
-
-(no card needed) copies TREE to ``TREE-NAME`` for each NAME of
-``ABLATIONS`` and puts that one cause back into the copy's kernel: the
-final design less one of its remedies, for a variant table.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -135,125 +127,6 @@ ENTRIES = ("env_step_2d", "stage_march", "stage_rk_3d")
 SASS_INSTANCES = ("env_step_2d_kernelILi96ELi64E", "stage_march_kernelILi16ELi32E",
                   "stage_march_kernelILi32ELin1E")
 
-K1_SRC = "rbc_gym_tpu_torch/csrc/rbc2d.cu"
-K3_SRC = "rbc_gym_tpu_torch/csrc/rbc3d.cu"
-# K1's phase 1 as the first design ran it: one thread a column sums pHY' in
-# float32 while the other threads wait
-K1_SERIAL_PHY = r"""      for (int i = threadIdx.x; i < nx; i += kK1Threads) {
-        const float* bc = X.b + i * nz;
-        float* pc = s1 + i * nz;
-        float acc = 0.5f * P.dz * P.min_b;
-        pc[nz - 1] = -acc;
-        for (int m = nz - 2; m >= 0; --m) {
-          acc += P.dz * (0.5f * (bc[m] + bc[m + 1]));
-          pc[m] = -acc;
-        }
-      }
-      __syncthreads();
-
-"""
-# K1's z fluxes through face k + 1 (u, b) and center k - 1 (w) computed by
-# the lane itself, in place of its neighbour's by a shuffle
-K1_Z_TWICE = r"""#pragma unroll
-            for (int s = 0; s < NS; ++s) {
-              const int k = kc[s], kp = min(k + 1, nz - 1);
-              const ZOrders oc1 = z_orders(kl[s] + 1, nz), ow0 = z_orders(kl[s], nw);
-              zu_up[s] = z_upwind(uc[tap(s, 1, nz)], uc[tap(s, 2, nz)], uc[k], uc[tap(s, 4, nz)],
-                                  uc[tap(s, 5, nz)], uc[tap(s, 6, nz)], oc1,
-                                  0.5f * (wm[k + 1] + wc[k + 1]));
-              zb_up[s] = z_upwind(bc[tap(s, 1, nz)], bc[tap(s, 2, nz)], bc[k], bc[tap(s, 4, nz)],
-                                  bc[tap(s, 5, nz)], bc[tap(s, 6, nz)], oc1, wc[k + 1]);
-              zw_dn[s] = z_upwind(wc[tap(s, 0, nw)], wc[tap(s, 1, nw)], wc[tap(s, 2, nw)], wc[k],
-                                  wc[tap(s, 4, nw)], wc[tap(s, 5, nw)], ow0,
-                                  0.5f * (wc[max(k - 1, 0)] + wc[k]));
-              (void)kp;
-            }
-"""
-# (file, pattern, replacement, is_regex) edits of each ablation
-ABLATIONS = {
-    # K1 ---------------------------------------------------------------------
-    "k1_runtime_sizes": [
-        (K1_SRC, "return nx == 96 && nz == 64 ? env_step_2d_kernel<96, 64> : env_step_2d_kernel<0, 0>;",
-         "return env_step_2d_kernel<0, 0>;", False)],
-    "k1_divisions": [
-        (K1_SRC, "(float)(1.0 / dx), (float)(1.0 / dz),\n             (float)(1.0 / ((double)dx * dx)), (float)(1.0 / ((double)dz * dz))",
-         "dx, dz,\n             (float)((double)dx * dx), (float)((double)dz * dz)", False),
-        (K1_SRC, "P.idts[m] = (float)(1.0 / dts);", "P.idts[m] = (float)dts;", False),
-        (K1_SRC, r"\* P\.id(x2|z2|x|z)\b", r"/ P.id\1", True),
-        (K1_SRC, "s1[i * nz + k] = div * idts;", "s1[i * nz + k] = div / idts;", False)],
-    "k1_untiled_products": [
-        (K1_SRC, "  if constexpr (kVec) {", "  if constexpr (false) {", False),
-        (K1_SRC, r"    for \(int k = 0; k < K; \+\+k\) \{\n      float bv\[NS\];.*?\n    \}\n  \}\n\}",
-         "#pragma unroll\n    for (int r = 0; r < XS; ++r)\n#pragma unroll\n      for (int s = 0; s < NS; ++s)\n"
-         "        for (int k = 0; k < K; ++k) acc[r][s] = fmaf(L[row[r] + k], R[k * ldr + col[s]], acc[r][s]);\n  }\n}", True)],
-    "k1_dense_stack": [
-        ("rbc_gym_tpu_torch/ops/kernels2d.py", "spectral.dct.data_ptr(),", "spectral.inv.data_ptr(),", False),
-        (K1_SRC, r"      tile_product<XS, NS, kVec>\(s2, ct, nz.*?store\(s2\);\n",
-         "#pragma unroll\n      for (int xi = 0; xi < XS; ++xi)\n#pragma unroll\n        for (int s = 0; s < NS; ++s) {\n"
-         "          const int m = min(x0 + xi, nx - 1);\n          const float* im = dct + (size_t)m * nz * nz + kc[s];\n"
-         "          float a = 0.0f;\n          for (int z = 0; z < nz; ++z) a = fmaf(__ldg(im + z * nz), s2[m * nz + z], a);\n"
-         "          pt[xi][s] = a;\n        }\n      __syncthreads();\n      store(s2);\n", True)],
-    "k1_fluxes_twice": [
-        (K1_SRC, "float adv = (f_new - fu[s]) * P.idx;", "float adv = (f_new - xflux_u(X, i - 1, k)) * P.idx;", False),
-        (K1_SRC, "float adv = (f_new - fw[s]) * P.idx;", "float adv = (f_new - xflux_w(X, i, s)) * P.idx;", False),
-        (K1_SRC, "float adv = (f_new - fb[s]) * P.idx;", "float adv = (f_new - xflux_b(X, i, s)) * P.idx;", False),
-        (K1_SRC, "            flux_above(zu, zu_up, lane, nz);\n            flux_above(zb, zb_up, lane, nz);\n"
-                 "            flux_below(zw, zw_dn, lane);\n", K1_Z_TWICE, False)],
-    "k1_serial_phy": [
-        (K1_SRC, r"#pragma unroll\n      for \(int xi = 0; xi < XS; \+\+xi\) \{\n        if \(xi < xn\) \{\n"
-                 r"          const float\* bc = X\.b.*?\n      __syncthreads\(\);\n\n",
-         K1_SERIAL_PHY.replace("\\", "\\\\"), True)],
-    # K3 ---------------------------------------------------------------------
-    "k3_runtime_sizes": [
-        (K3_SRC, "return ny == 32 && nz == 16 ? stage_march_kernel<16, 32> : stage_march_kernel<0, 0>;",
-         "return stage_march_kernel<0, 0>;", False)],
-    "k3_divisions": [
-        (K3_SRC, "(float)(1.0 / dx), (float)(1.0 / dy), (float)(1.0 / dz),\n          (float)(1.0 / ((double)dx * dx)), (float)(1.0 / ((double)dy * dy)),\n          (float)(1.0 / ((double)dz * dz))",
-         "dx, dy, dz,\n          (float)((double)dx * dx), (float)((double)dy * dy),\n          (float)((double)dz * dz)", False),
-        (K3_SRC, r"\* P\.id(x2|y2|z2|x|y|z)\b", r"/ P.id\1", True)],
-    "k3_y_fluxes_twice": [
-        (K3_SRC, "      if constexpr (kWhole) {\n        adv += y_diff(i, 1, j, jm) * P.idy;\n      } else {",
-         "      if constexpr (false) {\n      } else {", False),
-        (K3_SRC, "        if constexpr (kWhole) {\n          adv += y_diff(i, 0, jp, j) * P.idy;\n        } else {",
-         "        if constexpr (false) {\n        } else {", False),
-        (K3_SRC, "          if constexpr (kWhole) {\n            adv += y_diff(i, 2, jp, j) * P.idy;\n          } else {",
-         "          if constexpr (false) {\n          } else {", False),
-        (K3_SRC, "        if constexpr (kWhole) {\n          adv += y_diff(i, 3, jp, j) * P.idy;\n        } else {",
-         "        if constexpr (false) {\n        } else {", False)],
-    "k3_xz_fluxes_twice": [
-        (K3_SRC, "float adv = (f_new - fv) * P.idx;", "float adv = (f_new - xflux_v(i)) * P.idx;", False),
-        (K3_SRC, "float adv = (f_new - fu) * P.idx;", "float adv = (f_new - xflux_u(i - 1)) * P.idx;", False),
-        (K3_SRC, "float adv = (f_new - fw) * P.idx;", "float adv = (f_new - xflux_w(i)) * P.idx;", False),
-        (K3_SRC, "float adv = (f_new - fb) * P.idx;", "float adv = (f_new - xflux_b(i)) * P.idx;", False),
-        (K3_SRC, "    if constexpr (NZ > 0) {\n      f_kp = __shfl_down_sync", "    if constexpr (false) {\n      f_kp = __shfl_down_sync", False),
-        (K3_SRC, "        if constexpr (NZ > 0) {\n          fz_m = __shfl_up_sync", "        if constexpr (false) {\n          fz_m = __shfl_up_sync", False)],
-    "k3_serial_phy": [
-        (K3_SRC, "    if constexpr (kWhole && NZ > 0) {\n      const float* bc = B.row(x, j);",
-         "    if constexpr (false) {\n      const float* bc = B.row(x, j);", False)],
-    "k3_one_block_an_sm": [
-        (K3_SRC, "(NZ > 0 && NY > 0 ? 2 : 1)", "(NZ > 0 && NY > 0 ? 1 : 1)", False)],
-}
-
-
-def ablate(tree: Path, names: list) -> None:
-    """Copy ``tree`` to ``tree-NAME`` with the edits of ``ABLATIONS[NAME]``."""
-    for name in names:
-        dst = tree.with_name(f"{tree.name}-{name}")
-        shutil.rmtree(dst, ignore_errors=True)
-        shutil.copytree(tree, dst, ignore=shutil.ignore_patterns("_build", "__pycache__"))
-        for rel, pattern, repl, is_regex in ABLATIONS[name]:
-            path = dst / rel
-            text = path.read_text()
-            if is_regex:
-                new, n = re.subn(pattern, repl, text, flags=re.S)
-            else:
-                new, n = text.replace(pattern, repl), text.count(pattern)
-            if n == 0:
-                raise SystemExit(f"{name}: no match for {pattern[:60]!r} in {rel}")
-            path.write_text(new)
-        print(dst)
-
-
 def ptxas(tree: Path, nvcc: str) -> list:
     return [subprocess.Popen([nvcc, *PTXAS, str(src)], stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
@@ -280,9 +153,6 @@ def sass_histograms(tree: Path, cuobjdump: str) -> dict:
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--ablate"]:
-        ablate(Path(sys.argv[2]).resolve(), sys.argv[3:])
-        return 0
     import torch
 
     if not torch.cuda.is_available():

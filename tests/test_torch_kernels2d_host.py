@@ -52,8 +52,10 @@ static void wr(const char* n, const std::vector<float>& v) {
 }
 int main(int argc, char** argv) {
   const std::string mode = argv[1];
-  if (mode == "smem") {  // smem NX NZ: the launcher's floats
-    printf("%zu\n", env_step_2d_smem_floats(atoi(argv[2]), atoi(argv[3])));
+  if (mode == "smem") {  // smem NX NZ: the launcher's shared and scratch floats, instance
+    const int nx = atoi(argv[2]), nz = atoi(argv[3]);
+    printf("%zu %zu %d\n", env_step_2d_smem_floats(nx, nz), env_step_2d_scratch_floats(nx, nz),
+           (int)env_step_2d_on_chip(nx, nz));
     return 0;
   }
   // k1|k2 DIR E NX NZ NSUB DT DX DZ NU KAPPA MIN_B
@@ -82,7 +84,11 @@ int main(int argc, char** argv) {
   std::vector<float> out[4] = {std::vector<float>(C), std::vector<float>(F),
                                std::vector<float>(C), std::vector<float>(C)};
   const K1Params P = k1_params(nx, nz, nsub, dt, dx, dz, nu, kappa, min_b);
+  const RBCParams R{nx, nz, dx, dz, nu, kappa, min_b};
+  const bool on_chip = env_step_2d_on_chip(nx, nz);
   auto* kernel = env_step_kernel_for(nx, nz);
+  std::vector<float> scratch(E * env_step_2d_scratch_floats(nx, nz), NAN);
+  blockDim.x = kK1Threads;
   for (unsigned e = 0; e < (unsigned)E; ++e) {  // every thread of a block, at real barriers
     blockIdx.x = e;
     std::barrier<> bar(kK1Threads);
@@ -96,9 +102,15 @@ int main(int argc, char** argv) {
     for (int t = 0; t < kK1Threads; ++t) {
       threads.emplace_back([&, t] {
         threadIdx.x = t;
-        kernel(u.data(), w.data(), b.data(), bottom.data(), f.data(), g.data(), dct.data(),
-               idct.data(), dinv.data(), out[0].data(), out[1].data(), out[2].data(),
-               out[3].data(), P);
+        if (on_chip)
+          kernel(u.data(), w.data(), b.data(), bottom.data(), f.data(), g.data(), dct.data(),
+                 idct.data(), dinv.data(), out[0].data(), out[1].data(), out[2].data(),
+                 out[3].data(), P);
+        else
+          env_step_2d_global_kernel(u.data(), w.data(), b.data(), bottom.data(), f.data(),
+                                    g.data(), dct.data(), idct.data(), dinv.data(),
+                                    out[0].data(), out[1].data(), out[2].data(),
+                                    out[3].data(), scratch.data(), P, R);
       });
     }
     for (auto& th : threads) th.join();
@@ -125,12 +137,12 @@ def host_binary(tmp_path_factory):
     return exe
 
 
-def _run(host_binary, tmp_path, mode, n_env, nx, nz, heater_duration, seed):
+def _run(host_binary, tmp_path, mode, n_env, nx, nz, heater_duration, seed, dt_solver=None):
     """Write a float32 case (``chip_smoke.make_case``) and the solve's
     constants, run ``mode`` on the host -> (solver, case); the outputs are
     files in ``tmp_path``."""
     solver, case = chip_smoke.make_case("cpu", n_env, (nz, nx), heater_duration, seed=seed,
-                                        dtype=torch.float32)
+                                        dtype=torch.float32, dt_solver=dt_solver)
     for name, t in {**case, **solver.spectral._asdict()}.items():
         t.numpy().astype(np.float32).tofile(tmp_path / name)
     c, p = solver.coeffs, solver.params
@@ -148,15 +160,35 @@ def _got(tmp_path, name, like):
     (2, 96, 64),  # the reference grid: the compile-time instance
     (1, 20, 12),  # the runtime instance: two columns a warp, the last warps idle,
                   # one level a lane, the z ladder's walls meeting mid-column
+    (1, 128, 40),  # the runtime instance at its edge: 8 columns a warp, two levels a lane
+    # the off-chip instance
+    (1, 128, 64),  # the on-chip state does not fit: 296,448 bytes
+    (1, 20, 80),  # three chunks of 32 levels in pHY', the last part-filled
+    (1, 200, 20),  # nx > 128, a part-filled chunk
+    (1, 3, 8),  # the fewest columns the x stencils take
+    (1, 16, 1),  # one level
 ])
 def test_host_build_of_k1_matches_plain(host_binary, tmp_path, n_env, nx, nz):
     """K1 after 6 substeps (heater_duration 0.18) against
     ``env_step_2d_plain`` at the smoke's gate."""
-    solver, case = _run(host_binary, tmp_path, "k1", n_env, nx, nz, 0.18, seed=0)
+    _check_k1(host_binary, tmp_path, n_env, nx, nz, 0.18, None)
+
+
+def test_host_build_of_k1_off_the_chip_on_a_tall_grid(host_binary, tmp_path):
+    """The off-chip instance at 128x224 (its two slabs 229,376 bytes, seven
+    chunks of 32 levels in pHY'), 6 substeps at a dt_solver that keeps the
+    explicit diffusion stable at dz = 2 / 224."""
+    _check_k1(host_binary, tmp_path, 1, 128, 224, 0.012, 0.002)
+
+
+def _check_k1(host_binary, tmp_path, n_env, nx, nz, heater_duration, dt_solver):
+    solver, case = _run(host_binary, tmp_path, "k1", n_env, nx, nz, heater_duration, seed=0,
+                        dt_solver=dt_solver)
     assert solver.params.substeps_per_env_step == 6
     want = k2.env_step_2d_plain(case["u"], case["w"], case["b"], case["bottom"],
                                 solver.spectral, solver.coeffs, solver.params.dt_solver, 6)
     for name, x in zip(("u_out", "w_out", "b_out", "p_out"), want):
+        assert bool(torch.isfinite(x).all()), name
         np.testing.assert_allclose(_got(tmp_path, name, x), x.numpy(), rtol=0,
                                    atol=chip_smoke.K1_ATOL, err_msg=name)
     w_out = _got(tmp_path, "w_out", want[1])
@@ -173,22 +205,28 @@ def test_host_build_of_k2_matches_plain(host_binary, tmp_path, n_env, nx, nz):
                                    atol=chip_smoke.K2_ATOL, err_msg=name)
 
 
-@pytest.mark.parametrize("nx,nz", [(96, 64), (20, 12), (128, 16), (8, 2)])
+@pytest.mark.parametrize("nx,nz", [(96, 64), (20, 12), (128, 16), (8, 2), (128, 40),
+                                   (128, 64), (128, 224), (256, 32), (64, 128), (3, 8),
+                                   (16, 1), (256, 256)])
 def test_smem_formulas_match_the_launchers(host_binary, nx, nz):
-    """The selection rule's byte count is the launcher's own."""
+    """The selection rule's byte count, the wrapper's scratch and the
+    instance are the launcher's own."""
     out = subprocess.run([str(host_binary), "smem", str(nx), str(nz)], check=True,
                          capture_output=True, text=True).stdout.split()
     assert 4 * int(out[0]) == limits.env_step_2d_smem_bytes(nx, nz)
+    assert int(out[1]) == limits.env_step_2d_scratch_floats(nx, nz)
+    assert bool(int(out[2])) == limits.env_step_2d_on_chip(nx, nz)
 
 
-@pytest.mark.parametrize("nx,nz", [(96, 64), (20, 12)])
+@pytest.mark.parametrize("nx,nz", [(96, 64), (20, 12), (128, 224), (16, 1)])
 def test_dct_form_of_the_vertical_solve_is_the_dense_inverse(nx, nz):
     """K1's per-mode inverse, idct^T diag(dinv[m]) dct^T, is the dense
     stack the plain solve multiplies by (the pseudo-inverse for the mean
-    mode), in float64."""
+    mode; at nz = 1 the stack's operator is -1 / dz^2, not singular), in
+    float64."""
     grid = Grid2D(nx=nx, nz=nz, lx=2 * np.pi, lz=2.0)
     sp = spectral_constants_2d(nx, nz, grid.dx, grid.dz, torch.float64, "cpu")
     # inv[m][z][f]: p_hat[m][f] = sum_z inv[m][z][f] r_hat[m][z]
     dct_form = torch.einsum("zj,mj,jf->mzf", sp.dct, sp.dinv, sp.idct)
     np.testing.assert_allclose(dct_form.numpy(), sp.inv.numpy(), rtol=0, atol=1e-10)
-    assert float(sp.dinv[0, 0]) == 0.0
+    assert float(sp.dinv[0, 0]) == (0.0 if nz > 1 else -grid.dz ** 2)

@@ -38,6 +38,14 @@ BIG = (64, 64, 32)  # the 32x64x64 big grid
     # take it, the per-field path does (it took K3's first design)
     (F32, (32, 33, 32), "cuda", "field"),
     (F32, (8, 3, 16), "cuda", "field"),  # ny = 3 < 4: K3 refuses, the field path takes it
+    # whole-y where ny * nz <= 1096: the x-planes the rule moved there from
+    # the tiled side (K5, or the plain path where K5 cannot take them)
+    (F32, (32, 64, 17), "cuda", "field"),
+    (F32, (30, 64, 17), "cuda", "field"),
+    (F32, (16, 512, 2), "cuda", "stage"),  # 1024 points: K3 takes it
+    (F32, (32, 8, 137), "cuda", "field"),  # K5's rings would need 299,140 bytes
+    (F32, (32, 3, 365), "cuda", "field"),  # the largest x-plane the rule held whole-y before
+    (F32, (32, 3, 366), "cuda", "plain"),  # 1098 points: tiled, and K5 needs ny % 8 == 0
     (F32, (6, 32, 16), "cpu", "plain"),
     (F32, TRAINING, "cpu", "plain"),
     (F32, BIG, "cpu", "plain"),
@@ -151,8 +159,16 @@ def test_solver3d_exposes_its_path_and_runs_it():
 
 
 @pytest.mark.parametrize("dtype,nx,nz,device_type,want", [
-    (F32, 96, 64, "cuda", "fused"),  # K1: 230,528 bytes
-    (F32, 128, 16, "cuda", "fused"),  # 8 columns a warp, one level a lane: 69,120 bytes
+    (F32, 96, 64, "cuda", "fused"),  # K1 on the chip: 230,528 bytes
+    (F32, 128, 16, "cuda", "fused"),  # on the chip: 8 columns a warp, one level a lane
+    (F32, 128, 224, "cuda", "fused"),  # off the chip: two slabs, 229,376 bytes
+    (F32, 128, 64, "cuda", "fused"),  # off the chip: the on-chip state does not fit
+    (F32, 256, 32, "cuda", "fused"),  # off the chip: nx > 128
+    (F32, 64, 128, "cuda", "fused"),  # off the chip: nz > 64
+    (F32, 96, 65, "cuda", "fused"),
+    (F32, 132, 16, "cuda", "fused"),
+    (F32, 3, 8, "cuda", "fused"),  # the fewest columns the x stencils take
+    (F32, 8, 1, "cuda", "fused"),
     (F64, 96, 64, "cuda", "plain"),
     (F64, 256, 256, "cuda", "plain"),
     (F32, 96, 64, "cpu", "plain"),
@@ -162,17 +178,31 @@ def test_2d_auto_selection(dtype, nx, nz, device_type, want):
     assert s2.select_env_step_path(dtype, nx, nz, device_type) == want
 
 
+@pytest.mark.parametrize("nx,nz,on_chip", [
+    (96, 64, True), (20, 12, True), (128, 16, True), (128, 40, True), (4, 2, True),
+    (128, 64, False), (128, 224, False), (256, 32, False), (64, 128, False), (96, 65, False),
+    (132, 16, False), (3, 8, False), (8, 1, False),
+])
+def test_2d_kernel_instance(nx, nz, on_chip):
+    """Which instance of K1 takes a grid: on the chip within its lane map
+    and shared memory, off it (the two slabs alone) elsewhere."""
+    assert limits.env_step_2d_on_chip(nx, nz) == on_chip
+    assert limits.env_step_2d_scratch_floats(nx, nz) == (0 if on_chip else
+                                                         5 * nx * nz + 2 * nx * (nz + 1))
+
+
 def test_2d_auto_selection_raises_where_k1_does_not_fit():
     """The JAX package runs its fused kernels for every float32 grid; where
-    K1's state and slabs (296,448 bytes here) exceed a block, auto refuses."""
-    with pytest.raises(NotImplementedError, match="296,448 bytes.*232,448"):
-        s2.select_env_step_path(F32, 128, 64, "cuda")
+    K1's slabs (524,288 bytes here) exceed a block, auto refuses."""
+    with pytest.raises(NotImplementedError, match="524,288 bytes.*232,448"):
+        s2.select_env_step_path(F32, 256, 256, "cuda")
 
 
-@pytest.mark.parametrize("nx,nz", [(256, 256), (96, 65), (132, 16), (3, 8), (8, 1)])
+@pytest.mark.parametrize("nx,nz", [(2, 64), (1, 8)])
 def test_2d_auto_selection_raises_outside_k1s_grid_rule(nx, nz):
-    """K1's warps cover at most 128 columns and its lanes 64 levels."""
-    with pytest.raises(NotImplementedError, match=r"4 <= nx <= 128 and 2 <= nz <= 64"):
+    """K1's x stencils wrap once, so it needs nx >= 3 (as does the plain
+    version, whose stencils slice three columns)."""
+    with pytest.raises(NotImplementedError, match=r"nx >= 3"):
         s2.select_env_step_path(F32, nx, nz, "cuda")
     assert s2.select_env_step_path(F64, nx, nz, "cuda") == "plain"
 
@@ -180,15 +210,17 @@ def test_2d_auto_selection_raises_outside_k1s_grid_rule(nx, nz):
 def test_2d_forced_selection():
     for device_type in ("cuda", "cpu"):
         assert s2.select_env_step_path(F32, 96, 64, device_type, True) == "fused"
+        assert s2.select_env_step_path(F32, 128, 224, device_type, True) == "fused"
         assert s2.select_env_step_path(F32, 96, 64, device_type, False) == "plain"
-        with pytest.raises(ValueError, match="296,448 bytes") as err:
-            s2.select_env_step_path(F32, 128, 64, device_type, True)
+        with pytest.raises(ValueError, match="524,288 bytes") as err:
+            s2.select_env_step_path(F32, 256, 256, device_type, True)
         assert "232,448" in str(err.value)
         with pytest.raises(ValueError, match="float32"):
             s2.select_env_step_path(F64, 96, 64, device_type, True)
         with pytest.raises(ValueError, match="unknown fused"):
             s2.select_env_step_path(F32, 96, 64, device_type, "stage")
     assert limits.env_step_2d_smem_bytes(96, 64) == 230_528
+    assert limits.env_step_2d_smem_bytes(128, 64) == 65_536  # off the chip: 8 nx nz
 
 
 def test_solver2d_exposes_its_path_and_runs_it():

@@ -74,7 +74,8 @@ def test_smoke_phases_run_on_cpu_plain_halves():
     assert [tuple(t.shape) for t in k2] == [(2, 32, 16), (2, 32, 17), (2, 32, 16)]
     assert all(bool(torch.isfinite(t).all()) for t in (*k1, *k2))
 
-    parity = chip_smoke.kernel_parity("cpu", k1_envs=2, main_envs=2, f64_envs=2, **TINY)
+    parity = chip_smoke.kernel_parity("cpu", k1_envs=2, main_envs=2, off_chip_shape=(65, 4),
+                                      **TINY)
     assert max(parity["max_abs_err"].values()) == 0.0  # on the CPU both halves are plain
     assert set(parity["float64_plain_vs_50_substeps"]) == {"kernel", "plain_float32"}
     json.dumps(parity)
