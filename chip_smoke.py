@@ -43,15 +43,17 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
 11. timing_big       K5 per stage with its share of the bytes bound, K4, the
                      factored Poisson solve, the split of one big-grid env step
 12. kernel_parity_field K6 (each field) and K7 against their plain versions
-                     at the per-field path's shapes (1024 envs at 16x32x32)
-                     and forced on the big grid; one env step of the field
-                     path against its plain loop and against the K3 path
+                     at the per-field path's shapes (1024 envs at 16x32x32,
+                     K6's march instance), at 16x32x30 (auto's field grid)
+                     and forced on the big grid (K6's general instance); K6
+                     beside a float64 run; one env step of the field path
+                     against its plain loop and against the K3 path
 13. main_path_field  RBC3DVectorEnv(1024, fused="field"): reset, 3 steps; the
                      same checks, launch counters K6 468 (117 per field), K7
                      117, K4 117, K3 0, K5 0
-14. timing_field     K6 per field, K7, K4, their plain versions and bounds,
-                     the dense solve, pHY', the RK update, the split of one
-                     field-path env step
+14. timing_field     K6 per field, K7, K4, their plain versions, bounds and
+                     shares of them, the dense solve, pHY', the RK update,
+                     the split of one field-path env step
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -77,7 +79,7 @@ from rbc_gym_tpu_torch.envs.vector3d import RBC3DVectorEnv
 from rbc_gym_tpu_torch.ops import _build
 from rbc_gym_tpu_torch.ops import kernels2d as k2d
 from rbc_gym_tpu_torch.ops import kernels3d as k3d
-from rbc_gym_tpu_torch.ops.limits import env_step_2d_on_chip
+from rbc_gym_tpu_torch.ops.limits import env_step_2d_on_chip, field_tendency_on_march
 from rbc_gym_tpu_torch.ops.poisson import FACTORED_POISSON_MIN_NXNZ, make_poisson_solver_3d
 from rbc_gym_tpu_torch.sim import solver3d as s3d
 from rbc_gym_tpu_torch.sim.grid import Grid2D, Grid3D
@@ -458,13 +460,15 @@ def correct_3d_work(n_env: int, nx: int, ny: int, nz: int) -> dict:
     return {"flops": n_env * 9 * cells, "bytes": 4 * n_env * (5 * cells + 2 * faces)}
 
 
-# FLOP per cell of K6, counted as for K3 (the same tendency code).
-_FIELD_FLOPS_PER_CELL = {"u": 90, "v": 90, "w": 87, "b": 81}
+# FLOP per cell of K6, counted as for K3 (the same tendency code); u and v
+# add the 4 of their pHY' from b.
+_FIELD_FLOPS_PER_CELL = {"u": 94, "v": 94, "w": 87, "b": 81}
 
 
 def field_tendency_3d_work(n_env: int, nx: int, ny: int, nz: int, field: str) -> dict:
     """FLOP and bytes of one K6 launch: u, v, w and the field's own inputs
-    (pHY' for u and v, b and bottom for b) read once, g written once."""
+    (b for u, v and b, whose pHY' K6 computes; bottom for b) read once, g
+    written once."""
     cells, faces = nx * ny * nz, nx * ny * (nz + 1)
     words = {"u": 4 * cells + faces, "v": 4 * cells + faces, "w": 2 * cells + 2 * faces,
              "b": 4 * cells + faces + nx * ny}[field]
@@ -487,8 +491,8 @@ def poisson_3d_flops(n_env: int, nx: int, ny: int, nz: int, factored: bool) -> i
 
 def make_case_3d(device, num_envs: int, state_shape=(16, 32, 32), seed=0, dtype=None,
                  dt_solver=0.01, fused=None):
-    """3D solver (path ``fused``) plus fields, bottom plate, pHY' and the
-    pending solve q of their divergence, made by numpy from a seed."""
+    """3D solver (path ``fused``) plus fields, bottom plate and the pending
+    solve q of their divergence, made by numpy from a seed."""
     device = torch.device(device)
     dtype = dtype or working_dtype(device)
     nz, ny, nx = state_shape
@@ -512,8 +516,7 @@ def make_case_3d(device, num_envs: int, state_shape=(16, 32, 32), seed=0, dtype=
     u, v, w, b = t(u), t(v), t(w), t(b)
     bottom = solver.heater_profile(t(actions)).contiguous()
     q = solver.solve(k3d.div_3d_plain(u, v, w, solver.coeffs))
-    p_hy = k3d.hydrostatic_pressure(b, grid.dz, params.min_b)
-    return solver, dict(u=u, v=v, w=w, b=b, bottom=bottom, q=q, p_hy=p_hy)
+    return solver, dict(u=u, v=v, w=w, b=b, bottom=bottom, q=q)
 
 
 def k3_run(solver, case, stage: int, g_prev, kernel: bool, wrapper=k3d.stage_rk_3d):
@@ -987,19 +990,29 @@ def timing_big(device, num_envs=1024, state_shape=BIG_SHAPE, plain_envs=1024) ->
 # ---------------------------------------------------------------------------
 
 
+def k6_instance(state_shape) -> str:
+    """The K6 instance its launcher runs on a grid (nz, ny, nx)."""
+    nz, ny, nx = state_shape
+    return "march" if field_tendency_on_march(nx, ny, nz) else "general"
+
+
 def kernel_parity_field(device, main_envs=1024, step_envs=32, big_envs=128,
-                        state_shape=(16, 32, 32), big_shape=BIG_SHAPE) -> dict:
+                        state_shape=(16, 32, 32), big_shape=BIG_SHAPE,
+                        odd_shape=ODD_NX_SHAPE) -> dict:
     """K6 for each field and K7 against their plain versions at the field
-    path's shapes (``main_envs``) and, forced, on the big grid
-    (``big_envs``); one env step of the field path's kernels against its
-    plain loop, and against the lazy loop of the solver's own path (K3 on
-    the card) from the same state, at ``step_envs`` and ``main_envs``."""
+    path's shapes (``main_envs``), at ``odd_shape`` (nx % 4 != 0, where auto
+    takes the field path; ``main_envs``) and, forced, on the big grid
+    (``big_envs``); K6 and its float32 plain version against a float64
+    plain run at ``step_envs``; one env step of the field path's kernels
+    against its plain loop, and against the lazy loop of the solver's own
+    path (K3 on the card) from the same state, at ``step_envs`` and
+    ``main_envs``."""
     start = time.perf_counter()
     errs, by_field = {}, {}
-    for prefix, n_env, shape, seed, dt_solver in (
-        ("", main_envs, state_shape, 11, 0.01),
-        ("big_", big_envs, big_shape, 12, BIG_DT_SOLVER),
-    ):
+    grids = (("", main_envs, state_shape, 11, 0.01), ("odd_", main_envs, odd_shape, 15, 0.01),
+             ("big_", big_envs, big_shape, 12, BIG_DT_SOLVER))
+    instances = {prefix + "grid": k6_instance(shape) for prefix, _, shape, _, _ in grids}
+    for prefix, n_env, shape, seed, dt_solver in grids:
         solver, case = make_case_3d(device, n_env, shape, seed=seed, dt_solver=dt_solver)
         for field in "uvwb":
             got, want = k6_run(solver, case, field, True), k6_run(solver, case, field, False)
@@ -1008,6 +1021,15 @@ def kernel_parity_field(device, main_envs=1024, step_envs=32, big_envs=128,
         errs[f"{prefix}div"] = (abs_diffs(["div"], [k7_run(solver, case, True)],
                                           [k7_run(solver, case, False)])["div"], K7_ATOL)
         del case
+    # each field in float64 from the same inputs: both halves' float32 rounding
+    solver, case = make_case_3d(device, step_envs, state_shape, seed=16)
+    case64 = {k: v.double() for k, v in case.items()}
+    float64 = {}
+    for field in "uvwb":
+        ref = [k6_run(solver, case64, field, False)]
+        float64[f"g{field}"] = {
+            "kernel": abs_diffs(["g"], ref, [k6_run(solver, case, field, True)])["g"],
+            "plain_float32": abs_diffs(["g"], ref, [k6_run(solver, case, field, False)])["g"]}
     steps = {}
     for n_env in sorted({step_envs, main_envs}):
         solver, case = make_case_3d(device, n_env, state_shape, seed=13)
@@ -1026,8 +1048,9 @@ def kernel_parity_field(device, main_envs=1024, step_envs=32, big_envs=128,
     max_err = {"field_tendency_3d": max(errs[f"g{f}"][0] for f in "uvwb"),
                "div_3d": errs["div"][0]}
     return {"phase": "kernel_parity_field", "num_envs": main_envs, "big_envs": big_envs,
-            "max_abs_err": max_err,
+            "k6_instances": instances, "max_abs_err": max_err,
             "gated": {k: {"error": e, "atol": a} for k, (e, a) in errs.items()},
+            "field_tendency_3d_float64_plain_vs": float64,
             "env_step": {str(k): v for k, v in steps.items()},
             "seconds": time.perf_counter() - start}
 
@@ -1054,9 +1077,10 @@ def main_path_field(device, num_envs=1024, state_shape=(16, 32, 32), heater_dura
 
 def timing_field(device, num_envs=1024, state_shape=(16, 32, 32)) -> dict:
     """CUDA-event times at the field path's shapes: K6 per field, K7, K4,
-    their plain versions and bounds, the dense solve, pHY', the RK update
-    of one stage, and one field-path env step split into them. Launches
-    here are not the main path's."""
+    their plain versions, bounds and shares of them, the dense solve, pHY',
+    the RK update of one stage, and one field-path env step split into
+    them (pHY' once a step, after the loop; K6 computes it inside).
+    Launches here are not the main path's."""
     begin = time.perf_counter()
     nz, ny, nx = state_shape
     solver, case = make_case_3d(device, num_envs, state_shape, seed=14, fused="field")
@@ -1064,10 +1088,11 @@ def timing_field(device, num_envs=1024, state_shape=(16, 32, 32)) -> dict:
     for field in "uvwb":
         work = field_tendency_3d_work(num_envs, nx, ny, nz, field)
         bound_ms, bound_by = bound(work)
+        ms = _cuda_ms(lambda: k6_run(solver, case, field, True), 20)
         out[f"field_tendency_3d.{field}"] = {
-            "ms": _cuda_ms(lambda: k6_run(solver, case, field, True), 20),
-            "plain_ms": _cuda_ms(lambda: k6_run(solver, case, field, False), 3),
-            "bound_ms": bound_ms, "bound_by": bound_by, **work}
+            "ms": ms, "plain_ms": _cuda_ms(lambda: k6_run(solver, case, field, False), 3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+            **work}
     # K6 per stage: one launch per field; its record is the mean launch
     fields = [out[f"field_tendency_3d.{f}"] for f in "uvwb"]
     out["field_tendency_3d"] = {
@@ -1076,9 +1101,10 @@ def timing_field(device, num_envs=1024, state_shape=(16, 32, 32)) -> dict:
     for name, run, work in (("div_3d", k7_run, div_3d_work(num_envs, nx, ny, nz)),
                             ("correct_3d", k4_run, correct_3d_work(num_envs, nx, ny, nz))):
         bound_ms, bound_by = bound(work)
-        out[name] = {"ms": _cuda_ms(lambda: run(solver, case, True), 20),
-                     "plain_ms": _cuda_ms(lambda: run(solver, case, False), 3),
-                     "bound_ms": bound_ms, "bound_by": bound_by, **work}
+        ms = _cuda_ms(lambda: run(solver, case, True), 20)
+        out[name] = {"ms": ms, "plain_ms": _cuda_ms(lambda: run(solver, case, False), 3),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "share_of_bound": bound_ms / ms, **work}
     c = solver.coeffs
     g = [k6_run(solver, case, f, True) for f in "uvwb"]
     f4 = [case[n] for n in "uvwb"]
@@ -1104,9 +1130,10 @@ def timing_field(device, num_envs=1024, state_shape=(16, 32, 32)) -> dict:
              "correct_3d_ms": n_stages * out["correct_3d"]["ms"],
              "rk_update_ms": n_sub * (parts["rk_update_stage0_ms"]
                                       + 2 * parts["rk_update_stage12_ms"]),
-             "p_hy_ms": (n_stages + 1) * parts["p_hy_ms"]}
+             "p_hy_ms": parts["p_hy_ms"]}
     split["rest_ms"] = step_ms - sum(v for k, v in split.items() if k != "env_step_ms")
-    return {"phase": "timing_field", "num_envs": num_envs, "path": solver.path, "kernels": out,
+    return {"phase": "timing_field", "num_envs": num_envs, "path": solver.path,
+            "k6_instance": k6_instance(state_shape), "kernels": out,
             "parts": parts, "env_step_split": split, "seconds": time.perf_counter() - begin}
 
 
@@ -1164,6 +1191,9 @@ def main() -> int:
     emit({**times_big, "card": card})
     parity_field = kernel_parity_field(device)
     emit(parity_field)
+    both = {"grid": "march", "odd_grid": "march", "big_grid": "general"}
+    if parity_field["k6_instances"] != both:
+        raise AssertionError(f"K6 instances {parity_field['k6_instances']}, expected {both}")
     path_field = main_path_field(device)
     emit({**path_field, "card": card})
     times_field = timing_field(device)

@@ -36,6 +36,7 @@ struct dim3 {
 struct float4 {
   float x, y, z, w;
 };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline thread_local dim3 threadIdx;
 inline dim3 blockIdx, blockDim;
 template <class T>

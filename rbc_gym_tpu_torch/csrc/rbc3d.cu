@@ -95,33 +95,70 @@
 // Bound: bytes (u, v, w, q in; u, v, w out). Design: one thread per w
 // point, which also does the u and v point of the same cell.
 //
-// K6 field_tendency_3d_kernel replaces ops/pallas3d.py:_field_stage_kernel
-// (reached from make_field_stage_3d, pl.pallas_call at :1694): one field's
-// UB5 tendency (u, v, w or b; four launches a stage) of the per-field path,
-// without the RK update, which runs in PyTorch as it runs in XLA there.
-//   Bound: bytes. It reads u, v, w and the field's own input (pHY' for u
-//   and v, b and bottom for b) and writes g: about 330 KB per env at
-//   16x32x32 against some 90 FLOP per point.
-//   Design: one thread per output point in the public batch-major layout
-//   (z fastest, so a warp reads and writes runs of consecutive z), reading
-//   its taps straight from global memory, where L1 and L2 catch the reuse
-//   of neighbouring threads. The tendency code is K3's: GlobalField is a
-//   second slab type for the same templates, which wraps x and y
-//   periodically. So K6 computes the flux form (C6 - |v| D5/60) where the
-//   Pallas kernel selects a one-sided UB5 stencil by the sign of the
-//   velocity; the two are the same reconstruction and differ in float32
-//   rounding only (pallas3d.py:185-186). No shared memory, so no grid is
-//   too large for a block; offsets are 64-bit. The Pallas kernel's env
-//   slabs (e_blk lanes) have no counterpart. Plain float32 loads and FP32
-//   FMA; staging tiles in shared memory is later work.
+// K6 replaces ops/pallas3d.py:_field_stage_kernel (reached from
+// make_field_stage_3d, pl.pallas_call at :1694): one field's UB5 tendency g
+// (u, v, w or b; four launches a stage) of the per-field path, without the
+// RK update, which runs in PyTorch as it runs in XLA there.
+//   Bound: bytes. It reads u, v, w and the field's own input (b for u, v
+//   and b, and bottom for b) and writes g: about 330 KB per env at
+//   16x32x32 against some 90 FLOP per point. The Pallas kernel reads pHY'
+//   for u and v because the JAX package computes it in XLA with the rest of
+//   its glue (pallas3d.py:460-468); here the u and v instances take b and
+//   compute pHY' of the planes they need themselves, as K3 does, so the
+//   per-field loop calls no pHY' between its launches.
+//   What held its first design (one thread per output point, taps straight
+//   from global memory; 0.59-0.70 ms a launch at 1024 envs on 16x32x32 on
+//   an H100 80GB HBM3 at 700 W, 14-17 % of the bound) were K5's first
+//   design's causes: 64-bit runtime division in every index, a 64-bit wrap
+//   and multiply on every tap, IEEE division in every difference, every
+//   face flux computed by both of its cells, no staging, a runtime nz.
+//   Design: two instances, picked by the launcher from the grid alone.
+//   - The march instance, stage_march_kernel<NZ, NY, field>: K3's x march
+//     (one template) with the stage's correction, RK update and divergence
+//     compiled out. A block per env holds all of its periodic y, one thread
+//     per (y row, z) point of an x-plane; a cp.async ring of x-planes of u,
+//     v, w and b (b not for w) reads each plane from global memory once;
+//     the field's x flux is carried in a register to the next plane, its z
+//     fluxes handed between lanes by shuffles (NZ > 0), its y fluxes
+//     computed once into shared memory; pHY' of each plane is K3's float64
+//     lane scan of b; the spacings enter as reciprocals. Compile-time sizes
+//     for the training grid's 32 rows of 16, a runtime instance for every
+//     other grid of K3's whole-y rule (nx >= 4, ny >= 4, nz >= 2, ny * nz
+//     <= 1024). Shared memory, in floats: ny (38 nz + 8) for every field
+//     (field_smem_floats), 78,848 bytes at 16x32x32. One barrier a plane.
+//   - The general instance, field_tendency_3d_kernel, for every other grid
+//     the path takes (nx = 3, ny * nz > 1024, the big grid forced): one
+//     thread per output point in the public batch-major layout (z fastest),
+//     its taps from global memory (L1 and L2 catch the reuse), offsets
+//     32-bit within an env, reciprocals from the host; u and v sum pHY' of
+//     the two columns they need from b in float64, from k to the top.
+//   Both compute the flux form (C6 - |v| D5/60) where the Pallas kernel
+//   selects a one-sided UB5 stencil by the sign of the velocity (the march
+//   in the select form, ub5_upwind); the forms are one reconstruction and
+//   differ in float32 rounding only (pallas3d.py:185-186). The Pallas
+//   kernel's env slabs (e_blk lanes) have no counterpart.
 //
-// K7 div_3d_kernel replaces ops/pallas3d.py:_div_kernel (reached from
+// K7 div_3d_kernel<NZ> replaces ops/pallas3d.py:_div_kernel (reached from
 // make_projection_glue_3d, pl.pallas_call at :947): the staggered
 // div(u, v, w) at cell centers, once a stage on the per-field path.
-// Bound: bytes (u, v, w in, div out). Design: one thread per output point,
-// written straight into the solve layout (E, ny, nx, nz) that the Poisson
-// solve reads, as K3 and K5 emit theirs; the reads of u and v are runs of
-// nz consecutive floats.
+//   Bound: bytes (u, v, w in, div out). What held its first design (one
+//   thread per output point; 0.171 ms at 1024 envs on 16x32x32, 47 % of
+//   the bound): a 64-bit runtime % and / in every index, three IEEE
+//   divisions, u(x + 1) and w(k + 1) loaded again by each thread.
+//   Design: a block per (env, y row) writes one contiguous (nx, nz) slab of
+//   the solve layout (E, ny, nx, nz) that the Poisson solve reads, as K3
+//   and K5 emit theirs, with no shared memory and no barrier: each thread
+//   takes four consecutive levels (nz = 16 and 32, template parameters) as
+//   float4 loads of u(x), v(y), v(y + 1) and a float4 store, and w as a run
+//   of five; u(x + 1) comes by a shuffle from the lane that holds column
+//   x + 1 (a load only in a warp's last column and where x wraps). v(y + 1)
+//   is the next block's v(y), which L2 catches. Offsets are 32-bit within
+//   an env, the spacings reciprocals from the host; other nz (or unaligned
+//   tensors) run a one-level-a-thread instance of the same code. A first
+//   redesign (tiles of 512 points staged in shared memory between two
+//   barriers) took 0.155 ms, 52 % (PERF.md, section 6).
+#include <climits>
+#include <cstdint>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -131,19 +168,30 @@ namespace {
 
 constexpr int kThreads = 256;
 
-struct RBC3DParams {
+enum FieldIndex { kFieldU = 0, kFieldV = 1, kFieldW = 2, kFieldB = 3 };
+
+// The march's scalars: reciprocals of the spacings and their squares, taken
+// once on the host in double precision, so that no tendency divides.
+struct XYParams {
   int nx, ny, nz;
-  float dx, dy, dz, nu, kappa, min_b;
+  float idx, idy, idz, idx2, idy2, idz2, dz, nu, kappa, min_b;
 };
 
-// One env's field (nx, ny, nk) in global memory, the public layout (K6):
-// x and y wrap periodically (taps reach 3 points past either end, so
-// nx, ny >= 3).
+XYParams xy_params(int nx, int ny, int nz, float dx, float dy, float dz, float nu,
+                   float kappa, float min_b) {
+  return {nx, ny, nz, (float)(1.0 / dx), (float)(1.0 / dy), (float)(1.0 / dz),
+          (float)(1.0 / ((double)dx * dx)), (float)(1.0 / ((double)dy * dy)),
+          (float)(1.0 / ((double)dz * dz)), dz, nu, kappa, min_b};
+}
+
+// One env's field (nx, ny, nk) in global memory, the public layout (K6's
+// general instance): x and y wrap periodically (taps reach 3 points past
+// either end, so nx, ny >= 3); offsets within an env are 32-bit.
 struct GlobalField {
   const float* p;
   int nx, ny, nk;
   __device__ __forceinline__ const float* col(int x, int y) const {
-    return p + ((size_t)wrap_x(x, nx) * ny + wrap_x(y, ny)) * nk;
+    return p + (wrap_x(x, nx) * ny + wrap_x(y, ny)) * nk;
   }
   __device__ __forceinline__ float operator()(int x, int y, int k) const {
     return col(x, y)[k];
@@ -155,7 +203,21 @@ struct GlobalField {
   }
 };
 
-// The tendencies below are templates over K6's slab type.
+// pHY' of one env read as a field, from its b (K6's general instance for u
+// and v): the value at (x, y, k) sums its column from the top down to k in
+// float64, as hydrostatic_column does, so that it rounds once.
+struct HydrostaticField {
+  GlobalField b;
+  double dz, top;  // top: the half cell under the lid, dz min_b / 2
+  __device__ __forceinline__ float operator()(int x, int y, int k) const {
+    const float* bc = b.col(x, y);
+    double acc = top;
+    for (int m = b.nk - 2; m >= k; --m) acc += dz * (0.5 * ((double)bc[m] + (double)bc[m + 1]));
+    return (float)-acc;
+  }
+};
+
+// The tendencies below are templates over K6's slab types.
 
 // vel * UB5 reconstruction along x (non-periodic inside the slab) at
 // column i + m, taps i + m + off for off in -3..2.
@@ -168,92 +230,92 @@ __device__ __forceinline__ float flux_x(const S& q, int i, int y, int k, int m, 
 
 template <class S>
 __device__ __forceinline__ float lap_h(const S& q, int i, int j, int k, float c,
-                                       const RBC3DParams& P) {
+                                       const XYParams& P) {
   const int jm = q.ym(j), jp = q.yp(j);
-  return (q(i + 1, j, k) - 2.0f * c + q(i - 1, j, k)) / (P.dx * P.dx) +
-         (q(i, jp, k) - 2.0f * c + q(i, jm, k)) / (P.dy * P.dy);
+  return (q(i + 1, j, k) - 2.0f * c + q(i - 1, j, k)) * P.idx2 +
+         (q(i, jp, k) - 2.0f * c + q(i, jm, k)) * P.idy2;
 }
 
 // gu at (x-face i, y-center j, z-center k).
-template <class S>
-__device__ float tendency_u(const S& U, const S& V, const S& W, const S& PH,
-                            int i, int j, int k, const RBC3DParams& P) {
+template <class S, class H>
+__device__ float tendency_u(const S& U, const S& V, const S& W, const H& PH,
+                            int i, int j, int k, const XYParams& P) {
   const int nz = P.nz, jp = U.yp(j);
   const float uc_i = 0.5f * (U(i, j, k) + U(i + 1, j, k));
   const float uc_im = 0.5f * (U(i - 1, j, k) + U(i, j, k));
-  float adv = (flux_x(U, i, j, k, 1, uc_i) - flux_x(U, i - 1, j, k, 1, uc_im)) / P.dx;
+  float adv = (flux_x(U, i, j, k, 1, uc_i) - flux_x(U, i - 1, j, k, 1, uc_im)) * P.idx;
   const float vf_j = 0.5f * (V(i - 1, j, k) + V(i, j, k));
   const float vf_jp = 0.5f * (V(i - 1, jp, k) + V(i, jp, k));
-  adv += (U.flux_y(i, j + 1, k, 0, vf_jp) - U.flux_y(i, j, k, 0, vf_j)) / P.dy;
+  adv += (U.flux_y(i, j + 1, k, 0, vf_jp) - U.flux_y(i, j, k, 0, vf_j)) * P.idy;
   const float wf_k = 0.5f * (W(i - 1, j, k) + W(i, j, k));
   const float wf_kp = 0.5f * (W(i - 1, j, k + 1) + W(i, j, k + 1));
   const float* uc = U.col(i, j);
-  adv += (z_uw_flux(uc, nz, k + 1, 0, wf_kp) - z_uw_flux(uc, nz, k, 0, wf_k)) / P.dz;
-  const float dphy = (PH(i, j, k) - PH(i - 1, j, k)) / P.dx;
+  adv += (z_uw_flux(uc, nz, k + 1, 0, wf_kp) - z_uw_flux(uc, nz, k, 0, wf_k)) * P.idz;
+  const float dphy = (PH(i, j, k) - PH(i - 1, j, k)) * P.idx;
   const float q = uc[k];
   const float qm = k > 0 ? uc[k - 1] : -uc[0];  // no-slip ghost: 2 * 0 - q0
   const float qp = k < nz - 1 ? uc[k + 1] : -uc[nz - 1];
-  const float lap = lap_h(U, i, j, k, q, P) + (qp - 2.0f * q + qm) / (P.dz * P.dz);
+  const float lap = lap_h(U, i, j, k, q, P) + (qp - 2.0f * q + qm) * P.idz2;
   return -adv - dphy + P.nu * lap;
 }
 
 // gv at (x-center i, y-face j, z-center k).
-template <class S>
-__device__ float tendency_v(const S& U, const S& V, const S& W, const S& PH,
-                            int i, int j, int k, const RBC3DParams& P) {
+template <class S, class H>
+__device__ float tendency_v(const S& U, const S& V, const S& W, const H& PH,
+                            int i, int j, int k, const XYParams& P) {
   const int nz = P.nz, jm = V.ym(j), jp = V.yp(j);
   const float uf_i = 0.5f * (U(i, jm, k) + U(i, j, k));
   const float uf_ip = 0.5f * (U(i + 1, jm, k) + U(i + 1, j, k));
-  float adv = (flux_x(V, i + 1, j, k, 0, uf_ip) - flux_x(V, i, j, k, 0, uf_i)) / P.dx;
+  float adv = (flux_x(V, i + 1, j, k, 0, uf_ip) - flux_x(V, i, j, k, 0, uf_i)) * P.idx;
   const float vc_j = 0.5f * (V(i, j, k) + V(i, jp, k));
   const float vc_jm = 0.5f * (V(i, jm, k) + V(i, j, k));
-  adv += (V.flux_y(i, j, k, 1, vc_j) - V.flux_y(i, j - 1, k, 1, vc_jm)) / P.dy;
+  adv += (V.flux_y(i, j, k, 1, vc_j) - V.flux_y(i, j - 1, k, 1, vc_jm)) * P.idy;
   const float wf_k = 0.5f * (W(i, jm, k) + W(i, j, k));
   const float wf_kp = 0.5f * (W(i, jm, k + 1) + W(i, j, k + 1));
   const float* vc = V.col(i, j);
-  adv += (z_uw_flux(vc, nz, k + 1, 0, wf_kp) - z_uw_flux(vc, nz, k, 0, wf_k)) / P.dz;
-  const float dphy = (PH(i, j, k) - PH(i, jm, k)) / P.dy;
+  adv += (z_uw_flux(vc, nz, k + 1, 0, wf_kp) - z_uw_flux(vc, nz, k, 0, wf_k)) * P.idz;
+  const float dphy = (PH(i, j, k) - PH(i, jm, k)) * P.idy;
   const float q = vc[k];
   const float qm = k > 0 ? vc[k - 1] : -vc[0];
   const float qp = k < nz - 1 ? vc[k + 1] : -vc[nz - 1];
-  const float lap = lap_h(V, i, j, k, q, P) + (qp - 2.0f * q + qm) / (P.dz * P.dz);
+  const float lap = lap_h(V, i, j, k, q, P) + (qp - 2.0f * q + qm) * P.idz2;
   return -adv - dphy + P.nu * lap;
 }
 
 // gw at (x-center i, y-center j, z-face k); zero on the wall faces.
 template <class S>
 __device__ float tendency_w(const S& U, const S& V, const S& W, int i, int j,
-                            int k, const RBC3DParams& P) {
+                            int k, const XYParams& P) {
   const int nz = P.nz, jp = W.yp(j);
   if (k == 0 || k == nz) return 0.0f;
   const float uf_i = 0.5f * (U(i, j, k - 1) + U(i, j, k));
   const float uf_ip = 0.5f * (U(i + 1, j, k - 1) + U(i + 1, j, k));
-  float adv = (flux_x(W, i + 1, j, k, 0, uf_ip) - flux_x(W, i, j, k, 0, uf_i)) / P.dx;
+  float adv = (flux_x(W, i + 1, j, k, 0, uf_ip) - flux_x(W, i, j, k, 0, uf_i)) * P.idx;
   const float vf_j = 0.5f * (V(i, j, k - 1) + V(i, j, k));
   const float vf_jp = 0.5f * (V(i, jp, k - 1) + V(i, jp, k));
-  adv += (W.flux_y(i, j + 1, k, 0, vf_jp) - W.flux_y(i, j, k, 0, vf_j)) / P.dy;
+  adv += (W.flux_y(i, j + 1, k, 0, vf_jp) - W.flux_y(i, j, k, 0, vf_j)) * P.idy;
   const float* wc = W.col(i, j);
   const float wc_k = 0.5f * (wc[k] + wc[k + 1]);
   const float wc_km = 0.5f * (wc[k - 1] + wc[k]);
-  adv += (z_uw_flux(wc, nz + 1, k, 1, wc_k) - z_uw_flux(wc, nz + 1, k - 1, 1, wc_km)) / P.dz;
+  adv += (z_uw_flux(wc, nz + 1, k, 1, wc_k) - z_uw_flux(wc, nz + 1, k - 1, 1, wc_km)) * P.idz;
   const float q = wc[k];
-  const float lap = lap_h(W, i, j, k, q, P) + (wc[k + 1] - 2.0f * q + wc[k - 1]) / (P.dz * P.dz);
+  const float lap = lap_h(W, i, j, k, q, P) + (wc[k + 1] - 2.0f * q + wc[k - 1]) * P.idz2;
   return -adv + P.nu * lap;
 }
 
 // gb at (x-center i, y-center j, z-center k); Dirichlet bottom and min_b.
 template <class S>
 __device__ float tendency_b(const S& U, const S& V, const S& W, const S& B,
-                            float bottom, int i, int j, int k, const RBC3DParams& P) {
+                            float bottom, int i, int j, int k, const XYParams& P) {
   const int nz = P.nz, jp = B.yp(j);
-  float adv = (flux_x(B, i + 1, j, k, 0, U(i + 1, j, k)) - flux_x(B, i, j, k, 0, U(i, j, k))) / P.dx;
-  adv += (B.flux_y(i, j + 1, k, 0, V(i, jp, k)) - B.flux_y(i, j, k, 0, V(i, j, k))) / P.dy;
+  float adv = (flux_x(B, i + 1, j, k, 0, U(i + 1, j, k)) - flux_x(B, i, j, k, 0, U(i, j, k))) * P.idx;
+  adv += (B.flux_y(i, j + 1, k, 0, V(i, jp, k)) - B.flux_y(i, j, k, 0, V(i, j, k))) * P.idy;
   const float* bc = B.col(i, j);
-  adv += (z_uw_flux(bc, nz, k + 1, 0, W(i, j, k + 1)) - z_uw_flux(bc, nz, k, 0, W(i, j, k))) / P.dz;
+  adv += (z_uw_flux(bc, nz, k + 1, 0, W(i, j, k + 1)) - z_uw_flux(bc, nz, k, 0, W(i, j, k))) * P.idz;
   const float q = bc[k];
   const float qm = k > 0 ? bc[k - 1] : 2.0f * bottom - bc[0];
   const float qp = k < nz - 1 ? bc[k + 1] : 2.0f * P.min_b - bc[nz - 1];
-  const float lap = lap_h(B, i, j, k, q, P) + (qp - 2.0f * q + qm) / (P.dz * P.dz);
+  const float lap = lap_h(B, i, j, k, q, P) + (qp - 2.0f * q + qm) * P.idz2;
   return -adv + P.kappa * lap;
 }
 
@@ -273,20 +335,6 @@ constexpr int kWLo = -3, kWRows = kYT + 6;
 constexpr int kBLo = -3, kBRows = kYT + 6;
 constexpr int kQLo = -4, kQRows = kYT + 8;
 constexpr int kPLo = -1, kPRows = kYT + 2;
-
-// The march's scalars: reciprocals of the spacings and their squares, taken
-// once on the host in double precision, so that no tendency divides.
-struct XYParams {
-  int nx, ny, nz;
-  float idx, idy, idz, idx2, idy2, idz2, dz, nu, kappa, min_b;
-};
-
-XYParams xy_params(int nx, int ny, int nz, float dx, float dy, float dz, float nu,
-                   float kappa, float min_b) {
-  return {nx, ny, nz, (float)(1.0 / dx), (float)(1.0 / dy), (float)(1.0 / dz),
-          (float)(1.0 / ((double)dx * dx)), (float)(1.0 / ((double)dy * dy)),
-          (float)(1.0 / ((double)dz * dz)), dz, nu, kappa, min_b};
-}
 
 constexpr int kXYMinNx = 4;                 // plane indices -4..nx+3 wrap once
 constexpr size_t kSmemPerBlock = 232448;    // an H100 block's shared memory
@@ -336,14 +384,36 @@ size_t stage_smem_floats(int ny, int nz) {
          ((kRing * 3 + 2 + kPhRing + 1 + 8) * (size_t)nz + (kRing + 1) * (size_t)(nz + 1));
 }
 
+// Shared memory K6's march instance needs per block, in floats, for every
+// field: rings of kRing x-planes of u, v, b and w, kPhRing of pHY' and the
+// field's y fluxes of two planes, each plane all ny rows: ny (38 nz + 8).
+size_t field_smem_floats(int ny, int nz) {
+  return (size_t)ny * ((kRing * 3 + kPhRing + 2) * (size_t)nz + kRing * (size_t)(nz + 1));
+}
+
 // Threads of a block: one per (row, z) point of an x-plane; K5's rows
-// 0..kYT (NY < 0), K3's rows 0..ny - 1 (NY >= 0).
+// 0..kYT (NY < 0), K3's and K6's rows 0..ny - 1 (NY >= 0).
 __host__ __device__ constexpr int march_threads(int nz, int ny) { return (ny < 0 ? kYT + 1 : ny) * nz; }
 
+// Whether K6 takes the grid with its march instance (K3's whole-y rule);
+// every other grid runs its general instance.
+bool field_on_march(int nx, int ny, int nz) {
+  return nx >= kXYMinNx && ny >= 4 && nz >= 2 && march_threads(nz, ny) <= kMaxThreads &&
+         sizeof(float) * field_smem_floats(ny, nz) <= kSmemPerBlock;
+}
+
+// The march's kField for a whole stage (K3 and K5), and whether an instance
+// of kField computes field f's tendency.
+constexpr int kStage = -1;
+__host__ __device__ constexpr bool runs(int field, int f) { return field == kStage || field == f; }
+
 // The march kernel: K5 for NY < 0 (a block per (env, kYT y rows)), K3 for
-// NY >= 0 (a block per env, all of periodic y; NY = 0: ny at run time). NZ
-// (and NY) > 0 fix the sizes at compile time.
-template <int NZ, int NY>
+// NY >= 0 (a block per env, all of periodic y; NY = 0: ny at run time), and
+// K6's march instance for kField >= 0: K3's blocks, one field's tendency g
+// only, written to that field's g pointer (no correction, RK update or
+// divergence; one barrier a plane). NZ (and NY) > 0 fix the sizes at
+// compile time.
+template <int NZ, int NY, int kField = kStage>
 __global__ void __launch_bounds__(NZ > 0 && NY != 0 ? march_threads(NZ, NY) : kMaxThreads,
                                   NY < 0 ? (NZ == 32 ? 3 : 1) : (NZ > 0 && NY > 0 ? 2 : 1))
 stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
@@ -354,7 +424,14 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
                       float* b_out, float* div_out, float* gu_out, float* gv_out,
                       float* gw_out, float* gb_out, float dt, float gamma, float zeta,
                       XYParams P) {
-  constexpr bool kWhole = NY >= 0;  // K3
+  constexpr bool kWhole = NY >= 0;  // K3 and K6
+  constexpr bool kK6 = kField != kStage;
+  static_assert(!kK6 || kWhole, "K6 marches over whole y");
+  // the tendencies this instance computes; b is read for gb and for pHY'
+  constexpr bool kU = runs(kField, kFieldU), kV = runs(kField, kFieldV);
+  constexpr bool kW = runs(kField, kFieldW), kB = runs(kField, kFieldB);
+  constexpr bool kPhy = kU || kV, kReadsB = kPhy || kB;
+  constexpr int kYF = kK6 ? 1 : 4;  // fields whose y fluxes are staged
   extern __shared__ float smem[];
   const int nx = P.nx, ny = NY > 0 ? NY : P.ny, nz = NZ > 0 ? NZ : P.nz, nw = nz + 1;
   // this thread's point of every x-plane: row j, level k; the only
@@ -383,12 +460,13 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   Ring<kRing, kWhole> V{U.end(), lo(kVLo), rows(kVRows), nz};
   Ring<kRing, kWhole> W{V.end(), lo(kWLo), rows(kWRows), nw};
   Ring<kRing, kWhole> B{W.end(), lo(kBLo), rows(kBRows), nz};
-  Ring<2, kWhole> Q{B.end(), lo(kQLo), rows(kQRows), nz};
+  Ring<2, kWhole> Q{B.end(), lo(kQLo), kK6 ? 0 : rows(kQRows), nz};
   Ring<kPhRing, kWhole> PH{Q.end(), lo(kPLo), rows(kPRows), nz};
   float* vs = PH.end();       // v* of the current plane, every row of threads
-  float* ws = vs + n_rows * nz;  // w* of the current plane, rows 0..kYT-1 (K3: all)
-  // K3: y fluxes of a plane, two planes by parity, each [u | v | w | b] (ny, nz)
-  float* yfl = ws + (kWhole ? ny : kYT) * nw;
+  float* ws = vs + (kK6 ? 0 : n_rows * nz);  // w* of the current plane, rows 0..kYT-1 (K3: all)
+  // K3: y fluxes of a plane, two planes by parity, each [u | v | w | b] (ny, nz);
+  // K6: its field's alone
+  float* yfl = ws + (kK6 ? 0 : (kWhole ? ny : kYT) * nw);
 
   // ---- staging: plane x of u, v, w, b and q, raw, by asynchronous copies ----
   auto copy_rows = [&](const Ring<kRing, kWhole>& R, const float* src, size_t row_stride,
@@ -411,9 +489,9 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
     const size_t xc = (size_t)wrap_x(x, nx);
     copy_rows(U, u_in + cell0 + xc * S, nz, x);
     copy_rows(V, v_in + cell0 + xc * S, nz, x);
-    copy_rows(B, b_in + cell0 + xc * S, nz, x);
+    if constexpr (kReadsB) copy_rows(B, b_in + cell0 + xc * S, nz, x);
     copy_rows(W, w_in + face0 + xc * SW, nw, x);
-    load_q(x);
+    if constexpr (!kK6) load_q(x);
     __pipeline_commit();
   };
   // ---- lazy-projection correction of plane x, once, as it arrives ----------
@@ -500,20 +578,21 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
     return ub5_upwind(R.row(x, c - 3)[kk], R.row(x, c - 2)[kk], R.row(x, c - 1)[kk],
                       R.row(x, c)[kk], R.row(x, c + 1)[kk], R.row(x, c + 2)[kk], vel);
   };
-  // K3: each y flux of plane x once, by the thread at its face (u, w, b: face
-  // j) or center (v: center j), for its neighbours to read
+  // K3 and K6: each y flux of plane x once, by the thread at its face (u, w,
+  // b: face j) or center (v: center j), for its neighbours to read
   auto y_fluxes = [&](int x) {
-    float* yf = yfl + (x & 1) * 4 * S + j * nz + k;
-    const float* va = V.row(x - 1, j);
+    float* yf = yfl + (x & 1) * kYF * S + j * nz + k;
     const float* vc = V.row(x, j);
-    yf[0] = yflux(U, x, j, k, 0.5f * (va[k] + vc[k]));
-    yf[S] = yflux(V, x, j + 1, k, 0.5f * (vc[k] + V.row(x, j + 1)[k]));
-    yf[2 * S] = k > 0 ? yflux(W, x, j, k, 0.5f * (vc[k - 1] + vc[k])) : 0.0f;
-    yf[3 * S] = yflux(B, x, j, k, vc[k]);
+    if constexpr (kU) yf[0] = yflux(U, x, j, k, 0.5f * (V.row(x - 1, j)[k] + vc[k]));
+    if constexpr (kV) yf[(kK6 ? 0 : 1) * S] = yflux(V, x, j + 1, k, 0.5f * (vc[k] + V.row(x, j + 1)[k]));
+    if constexpr (kW) {
+      yf[(kK6 ? 0 : 2) * S] = k > 0 ? yflux(W, x, j, k, 0.5f * (vc[k - 1] + vc[k])) : 0.0f;
+    }
+    if constexpr (kB) yf[(kK6 ? 0 : 3) * S] = yflux(B, x, j, k, vc[k]);
   };
-  // K3: the difference of field f's y fluxes of plane x at rows r1 and r0
+  // K3 and K6: the difference of field f's y fluxes of plane x at rows r1 and r0
   auto y_diff = [&](int x, int f, int r1, int r0) {
-    const float* yf = yfl + (x & 1) * 4 * S + f * S + k;
+    const float* yf = yfl + (x & 1) * kYF * S + (kK6 ? 0 : f) * S + k;
     return yf[r1 * nz] - yf[r0 * nz];
   };
   const int jm = kWhole ? wrap_x(j - 1, ny) : j - 1;
@@ -523,23 +602,30 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   };
 
   // ---- prologue: planes -3..3, pHY' of -1 and 0, the fluxes entering plane 0
-  load_q(-4);
+  if constexpr (!kK6) load_q(-4);
   for (int x = -3; x <= 3; ++x) {
     load_plane(x);
     __pipeline_wait_prior(0);
     __syncthreads();
-    correct_plane(x);
-    __syncthreads();
+    if constexpr (!kK6) {
+      correct_plane(x);
+      __syncthreads();
+    }
   }
-  if (kWhole || !own) {
-    for (int x = -1; x <= 1; ++x) hydrostatic(x);
+  if constexpr (kPhy) {
+    if (kWhole || !own) {
+      for (int x = -1; x <= 1; ++x) hydrostatic(x);
+    }
   }
   if constexpr (kWhole) y_fluxes(0);
-  float fu = 0.0f, fv = xflux_v(0), fw = 0.0f, fb = 0.0f;
+  float fu = 0.0f, fv = 0.0f, fw = 0.0f, fb = 0.0f;
+  if constexpr (kV) fv = xflux_v(0);
   if (own) {
-    fu = xflux_u(-1);
-    fb = xflux_b(0);
-    if (k > 0) fw = xflux_w(0);
+    if constexpr (kU) fu = xflux_u(-1);
+    if constexpr (kB) fb = xflux_b(0);
+    if constexpr (kW) {
+      if (k > 0) fw = xflux_w(0);
+    }
   }
   __syncthreads();
 
@@ -556,7 +642,7 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
     const size_t ow = face0 + (size_t)i * SW + (size_t)(y0 + j) * nw + k;
     // this point's g_prev and bottom, loaded before the arithmetic hides them
     float gp_u = 0.0f, gp_v = 0.0f, gp_w = 0.0f, gp_b = 0.0f, bottom = 0.0f;
-    if (reads_g) {
+    if (!kK6 && reads_g) {
       gp_v = gv_prev[ov];
       if (own) {
         gp_u = gu_prev[o];
@@ -564,10 +650,10 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
         gp_b = gb_prev[o];
       }
     }
-    if (own && k == 0) bottom = bottom_in[(e * nx + i) * ny + y0 + j];
+    if (kB && own && k == 0) bottom = bottom_in[(e * nx + i) * ny + y0 + j];
     const float* vc = V.row(i, j);
     // ---- gv and v* at (i, j, k), rows 0..kYT ----
-    {
+    if constexpr (kV) {
       const float f_new = xflux_v(i + 1);
       float adv = (f_new - fv) * P.idx;
       fv = f_new;
@@ -588,22 +674,26 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
       const float qm = k > 0 ? t2 : -vc[0], qp = k < nz - 1 ? t4 : -vc[nz - 1];
       const float lap = lap_h(V, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
       const float g = -adv - dphy + P.nu * lap;
-      const float f = rk_value(t3, g, gp_v);
-      vs[j * nz + k] = f;
-      if (own) {
-        v_out[o] = f;
-        if (emit_g) gv_out[o] = g;
+      if constexpr (kK6) {
+        gv_out[o] = g;
+      } else {
+        const float f = rk_value(t3, g, gp_v);
+        vs[j * nz + k] = f;
+        if (own) {
+          v_out[o] = f;
+          if (emit_g) gv_out[o] = g;
+        }
       }
     }
     // K5's row kYT, which has no other work, sums pHY' of plane i + 2
-    // meanwhile; K3's threads take their own points of it
-    if (kWhole || !own) hydrostatic(i + 2);
+    // meanwhile; K3's and K6's threads take their own points of it
+    if (kPhy && (kWhole || !own)) hydrostatic(i + 2);
     if (own) {
       const float* uc = U.row(i, j);
       const float* wc = W.row(i, j);
       const float* wm = W.row(i - 1, j);
       // ---- gu and u* at face i ----
-      {
+      if constexpr (kU) {
         const float f_new = xflux_u(i);
         float adv = (f_new - fu) * P.idx;
         fu = f_new;
@@ -624,19 +714,23 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
         const float qm = k > 0 ? t2 : -uc[0], qp = k < nz - 1 ? t4 : -uc[nz - 1];
         const float lap = lap_h(U, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
         const float g = -adv - dphy + P.nu * lap;
-        const float f = rk_value(t3, g, gp_u);
-        u_out[o] = f;
-        if (emit_g) gu_out[o] = g;
-        // div(i - 1) = ((u*(i) - u*(i-1)) / dx + dv) + dw, the plain version's order
-        if (i > 0) {
-          div_out[((e * ny + y0 + j) * nx + i - 1) * nz + k] = ((f - u_prev) * P.idx + dv) + dw;
+        if constexpr (kK6) {
+          gu_out[o] = g;
         } else {
-          u_first = f;
+          const float f = rk_value(t3, g, gp_u);
+          u_out[o] = f;
+          if (emit_g) gu_out[o] = g;
+          // div(i - 1) = ((u*(i) - u*(i-1)) / dx + dv) + dw, the plain version's order
+          if (i > 0) {
+            div_out[((e * ny + y0 + j) * nx + i - 1) * nz + k] = ((f - u_prev) * P.idx + dv) + dw;
+          } else {
+            u_first = f;
+          }
+          u_prev = f;
         }
-        u_prev = f;
       }
       // ---- gw and w* at (i, j, face k); the k = 0 thread takes both walls ----
-      {
+      if constexpr (kW) {
         const float t0 = wc[zwt[0]], t1 = wc[zwt[1]], t2 = wc[zwt[2]], t3 = wc[k],
                     t4 = wc[k + 1], t5 = wc[zwt[5]], t6 = wc[zwt[6]];
         // z fluxes at the centers k (every lane, k = 0 too) and k - 1
@@ -662,10 +756,17 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
           adv += (fz - fz_m) * P.idz;
           const float lap = lap_h(W, i, k, t3) + (t4 - 2.0f * t3 + t2) * P.idz2;
           const float g = -adv + P.nu * lap;
-          const float f = rk_value(t3, g, gp_w);
-          w_out[ow] = f;
-          if (emit_g) gw_out[ow] = g;
-          ws[j * nw + k] = f;
+          if constexpr (kK6) {
+            gw_out[ow] = g;
+          } else {
+            const float f = rk_value(t3, g, gp_w);
+            w_out[ow] = f;
+            if (emit_g) gw_out[ow] = g;
+            ws[j * nw + k] = f;
+          }
+        } else if constexpr (kK6) {  // wall faces: g is exactly 0
+          gw_out[ow] = 0.0f;
+          gw_out[ow + nz] = 0.0f;
         } else {  // wall faces: w, g and g_prev are all 0, so w* stays exactly 0
           for (int face = 0; face <= nz; face += nz) {
             const float f = rk_value(wc[face], 0.0f, reads_g ? gw_prev[ow + face] : 0.0f);
@@ -676,7 +777,7 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
         }
       }
       // ---- gb and b' ----
-      {
+      if constexpr (kB) {
         const float* bc = B.row(i, j);
         const float f_new = xflux_b(i + 1);
         float adv = (f_new - fb) * P.idx;
@@ -693,22 +794,28 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
         const float qp = k < nz - 1 ? t4 : 2.0f * P.min_b - bc[nz - 1];
         const float lap = lap_h(B, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
         const float g = -adv + P.kappa * lap;
-        const float f = rk_value(t3, g, gp_b);
-        b_out[o] = f;
-        if (emit_g) gb_out[o] = g;
+        if constexpr (kK6) {
+          gb_out[o] = g;
+        } else {
+          const float f = rk_value(t3, g, gp_b);
+          b_out[o] = f;
+          if (emit_g) gb_out[o] = g;
+        }
       }
     }
     if constexpr (kWhole) y_fluxes(i + 1);
     __pipeline_wait_prior(0);
     __syncthreads();  // plane i + 4 has landed; v*, w* of plane i are complete
-    correct_plane(i + 4);
-    if (own) {
-      dv = (vs[jp * nz + k] - vs[j * nz + k]) * P.idy;
-      dw = (ws[j * nw + k + 1] - ws[j * nw + k]) * P.idz;
+    if constexpr (!kK6) {
+      correct_plane(i + 4);
+      if (own) {
+        dv = (vs[jp * nz + k] - vs[j * nz + k]) * P.idy;
+        dw = (ws[j * nw + k + 1] - ws[j * nw + k]) * P.idz;
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
-  if (own) {  // div(nx - 1): u* at face nx is u* at face 0
+  if (!kK6 && own) {  // div(nx - 1): u* at face nx is u* at face 0
     div_out[((e * ny + y0 + j) * nx + nx - 1) * nz + k] = ((u_first - u_prev) * P.idx + dv) + dw;
   }
 }
@@ -724,6 +831,13 @@ decltype(&stage_march_kernel<0, -1>) stage_xy_kernel_for(int nz) {
 // runtime-size one for every other grid.
 decltype(&stage_march_kernel<0, 0>) stage_kernel_for(int ny, int nz) {
   return ny == 32 && nz == 16 ? stage_march_kernel<16, 32> : stage_march_kernel<0, 0>;
+}
+
+// K6's march instance for field kField: specialised like K3's.
+template <int kField>
+decltype(&stage_march_kernel<0, 0, kField>) field_march_kernel_for(int ny, int nz) {
+  return ny == 32 && nz == 16 ? stage_march_kernel<16, 32, kField>
+                              : stage_march_kernel<0, 0, kField>;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -752,61 +866,124 @@ correct_3d_kernel(const float* __restrict__ u, const float* __restrict__ v,
   w_out[p] = (k == 0 || k == nz) ? w[p] : w[p] - (qr[x * nz + k] - qr[x * nz + k - 1]) / dz;
 }
 
-enum FieldIndex { kFieldU = 0, kFieldV = 1, kFieldW = 2, kFieldB = 3 };
-
-// aux is pHY' for u and v and b for b; bottom is read for b only.
+// K6's general instance: one thread per output point of one env's
+// (nx, ny, nk) field, blocks_per_env blocks an env. b is read for u and v
+// (their pHY') and for b; bottom for b only.
 template <int kField>
 __global__ void __launch_bounds__(kThreads)
 field_tendency_3d_kernel(const float* __restrict__ u, const float* __restrict__ v,
-                         const float* __restrict__ w, const float* __restrict__ aux,
+                         const float* __restrict__ w, const float* __restrict__ b,
                          const float* __restrict__ bottom, float* __restrict__ g,
-                         int n_env, RBC3DParams P) {
+                         int blocks_per_env, XYParams P) {
   const int nx = P.nx, ny = P.ny, nz = P.nz;
   const int nk = kField == kFieldW ? nz + 1 : nz;
-  const size_t n = (size_t)n_env * nx * ny * nk;
-  const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const int k = p % nk;
-  size_t t = p / nk;
-  const int j = t % ny;
-  t /= ny;
-  const int i = t % nx;
-  const size_t e = t / nx;
+  const int e = blockIdx.x / blocks_per_env;
+  const int p = (blockIdx.x - e * blocks_per_env) * blockDim.x + threadIdx.x;
+  if (p >= nx * ny * nk) return;
+  const int k = p % nk, t = p / nk, j = t % ny, i = t / ny;
   const size_t cells = (size_t)nx * ny * nz, faces = (size_t)nx * ny * (nz + 1);
   const GlobalField U{u + e * cells, nx, ny, nz}, V{v + e * cells, nx, ny, nz},
       W{w + e * faces, nx, ny, nz + 1};
   float out;
-  if constexpr (kField == kFieldU) {
-    out = tendency_u(U, V, W, GlobalField{aux + e * cells, nx, ny, nz}, i, j, k, P);
-  } else if constexpr (kField == kFieldV) {
-    out = tendency_v(U, V, W, GlobalField{aux + e * cells, nx, ny, nz}, i, j, k, P);
+  if constexpr (kField == kFieldU || kField == kFieldV) {
+    const HydrostaticField PH{{b + e * cells, nx, ny, nz}, P.dz, 0.5 * (double)P.dz * P.min_b};
+    out = kField == kFieldU ? tendency_u(U, V, W, PH, i, j, k, P)
+                            : tendency_v(U, V, W, PH, i, j, k, P);
   } else if constexpr (kField == kFieldW) {
     out = tendency_w(U, V, W, i, j, k, P);
   } else {
-    out = tendency_b(U, V, W, GlobalField{aux + e * cells, nx, ny, nz},
-                     bottom[(e * nx + i) * ny + j], i, j, k, P);
+    out = tendency_b(U, V, W, GlobalField{b + e * cells, nx, ny, nz},
+                     bottom[(size_t)e * nx * ny + t], i, j, k, P);
   }
-  g[p] = out;
+  g[e * (size_t)(nx * ny * nk) + p] = out;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K7: threads of a block at most; levels a thread (as one float4) where nz
+// is a template parameter.
+constexpr int kDivThreads = 512;
+constexpr int kDivVec = 4;
+
+// K7: the (nx, nz) slab of one (env, y row) of the solve layout, a block's
+// threads over its points (x, k), k fastest; NZ > 0 (a multiple of 4): four
+// consecutive levels a thread, as float4 loads and stores. A thread reads
+// u(x); u(x + 1) comes from the lane that holds column x + 1, except where
+// that lane is in the next warp or x + 1 wraps. The loop's trip count is
+// the block's, so that every lane reaches each shuffle.
+template <int NZ>
+__global__ void __launch_bounds__(kDivThreads)
 div_3d_kernel(const float* __restrict__ u, const float* __restrict__ v,
-              const float* __restrict__ w, float* __restrict__ div_out, int n_env, int nx,
-              int ny, int nz, float dx, float dy, float dz) {
-  const size_t n = (size_t)n_env * ny * nx * nz;
-  const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const int k = p % nz;
-  size_t t = p / nz;
-  const int x = t % nx;
-  t /= nx;
-  const int y = t % ny;
-  const size_t e = t / ny;
-  const size_t c = ((e * nx + x) * ny + y) * nz + k;
-  const float u_ip = u[((e * nx + wrap_x(x + 1, nx)) * ny + y) * nz + k];
-  const float v_jp = v[((e * nx + x) * ny + wrap_x(y + 1, ny)) * nz + k];
-  const float* wc = w + ((e * nx + x) * ny + y) * (nz + 1);
-  div_out[p] = (u_ip - u[c]) / dx + (v_jp - v[c]) / dy + (wc[k + 1] - wc[k]) / dz;
+              const float* __restrict__ w, float* __restrict__ div_out, int nx, int ny,
+              int nz_rt, float idx, float idy, float idz) {
+  constexpr int kL = NZ > 0 ? kDivVec : 1;  // levels a thread
+  static_assert(NZ % kDivVec == 0, "vector K7 instances need nz % 4 == 0");
+  const int nz = NZ > 0 ? NZ : nz_rt, nw = nz + 1, lanes = nz / kL;  // lanes a column
+  const int e = blockIdx.x / ny, y = blockIdx.x - e * ny, yp = y + 1 < ny ? y + 1 : 0;
+  const int S = ny * nz, SW = ny * nw;  // x strides within an env
+  const float* ue = u + (size_t)e * nx * S + y * nz;  // row y of each x-plane
+  const float* vy = v + (size_t)e * nx * S + y * nz;
+  const float* vp = v + (size_t)e * nx * S + yp * nz;
+  const float* we = w + (size_t)e * nx * SW + y * nw;
+  float* out = div_out + ((size_t)e * ny + y) * nx * nz;
+  const int lane = threadIdx.x & 31, points = nx * lanes;
+  for (int q0 = 0; q0 < points; q0 += blockDim.x) {
+    const int q = q0 + threadIdx.x, x = q / lanes, k = (q - x * lanes) * kL;
+    const bool live = q < points;
+    const int xp = x + 1 < nx ? x + 1 : 0;
+    // the lane lanes further on holds column x + 1 unless it is in the next
+    // warp or column x + 1 wraps to 0
+    const bool own_xp = lane + lanes >= 32 || x + 1 >= nx;
+    float uc[kL], un[kL], dv[kL], wc[kL + 1];
+    if (live) {
+      if constexpr (NZ > 0) {
+        const float4 a = *reinterpret_cast<const float4*>(ue + x * S + k);
+        const float4 b = *reinterpret_cast<const float4*>(vy + x * S + k);
+        const float4 c = *reinterpret_cast<const float4*>(vp + x * S + k);
+        uc[0] = a.x, uc[1] = a.y, uc[2] = a.z, uc[3] = a.w;
+        dv[0] = c.x - b.x, dv[1] = c.y - b.y, dv[2] = c.z - b.z, dv[3] = c.w - b.w;
+        if (own_xp) {
+          const float4 n = *reinterpret_cast<const float4*>(ue + xp * S + k);
+          un[0] = n.x, un[1] = n.y, un[2] = n.z, un[3] = n.w;
+        }
+      } else {
+        uc[0] = ue[x * S + k];
+        dv[0] = vp[x * S + k] - vy[x * S + k];
+        if (own_xp) un[0] = ue[xp * S + k];
+      }
+      const float* wk = we + x * SW + k;  // a run of kL + 1 levels
+#pragma unroll
+      for (int l = 0; l <= kL; ++l) wc[l] = wk[l];
+    }
+#pragma unroll
+    for (int l = 0; l < kL; ++l) {
+      const float t = __shfl_down_sync(0xffffffffu, uc[l], lanes);
+      if (!own_xp) un[l] = t;
+    }
+    if (live) {
+      float d[kL];
+#pragma unroll
+      for (int l = 0; l < kL; ++l) {
+        d[l] = ((un[l] - uc[l]) * idx + dv[l] * idy) + (wc[l + 1] - wc[l]) * idz;
+      }
+      if constexpr (NZ > 0) {
+        *reinterpret_cast<float4*>(out + x * nz + k) = make_float4(d[0], d[1], d[2], d[3]);
+      } else {
+        out[x * nz + k] = d[0];
+      }
+    }
+  }
+}
+
+// K7's instance (vector where nz is 16 or 32 and the pointers it loads and
+// stores as float4 are 16-byte aligned) and its threads a block.
+struct DivLaunch {
+  decltype(&div_3d_kernel<0>) kernel;
+  int threads;
+};
+DivLaunch div_launch(int nx, int nz, bool aligned) {
+  const bool vec = aligned && (nz == 16 || nz == 32);
+  const int points = nx * (vec ? nz / kDivVec : nz);
+  return {!vec ? div_3d_kernel<0> : (nz == 16 ? div_3d_kernel<16> : div_3d_kernel<32>),
+          min(kDivThreads, (points + 31) / 32 * 32)};
 }
 
 }  // namespace
@@ -878,30 +1055,52 @@ int launch_correct_3d(const float* u, const float* v, const float* w, const floa
 }
 
 int launch_field_tendency_3d(int field, const float* u, const float* v, const float* w,
-                             const float* aux, const float* bottom, float* g, int n_env,
+                             const float* b, const float* bottom, float* g, int n_env,
                              int nx, int ny, int nz, float dx, float dy, float dz, float nu,
                              float kappa, float min_b, void* stream) {
   if (field < kFieldU || field > kFieldB || nx < 3 || ny < 3 || nz < 2 ||
-      (aux == nullptr) != (field == kFieldW) || (bottom != nullptr) != (field == kFieldB)) {
+      (size_t)nx * ny * (nz + 1) > (size_t)INT_MAX || (b == nullptr) != (field == kFieldW) ||
+      (bottom != nullptr) != (field == kFieldB)) {
     return (int)cudaErrorInvalidValue;
   }
-  const RBC3DParams P{nx, ny, nz, dx, dy, dz, nu, kappa, min_b};
-  const size_t n = (size_t)n_env * nx * ny * (field == kFieldW ? nz + 1 : nz);
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  const XYParams P = xy_params(nx, ny, nz, dx, dy, dz, nu, kappa, min_b);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (field_on_march(nx, ny, nz)) {
+    auto* kernel = field == kFieldU   ? field_march_kernel_for<kFieldU>(ny, nz)
+                   : field == kFieldV ? field_march_kernel_for<kFieldV>(ny, nz)
+                   : field == kFieldW ? field_march_kernel_for<kFieldW>(ny, nz)
+                                      : field_march_kernel_for<kFieldB>(ny, nz);
+    const size_t smem = sizeof(float) * field_smem_floats(ny, nz);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    float* gs[4] = {nullptr, nullptr, nullptr, nullptr};
+    gs[field] = g;  // the march writes a field's tendency to that field's g
+    kernel<<<n_env, march_threads(nz, ny), smem, st>>>(
+        u, v, w, b, nullptr, bottom, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+        nullptr, nullptr, nullptr, gs[0], gs[1], gs[2], gs[3], 0.0f, 0.0f, 0.0f, P);
+    return (int)cudaGetLastError();
+  }
+  const int per_env = nx * ny * (field == kFieldW ? nz + 1 : nz);
+  const int blocks_per_env = (per_env + kThreads - 1) / kThreads;
   auto* kernel = field == kFieldU   ? field_tendency_3d_kernel<kFieldU>
                  : field == kFieldV ? field_tendency_3d_kernel<kFieldV>
                  : field == kFieldW ? field_tendency_3d_kernel<kFieldW>
                                     : field_tendency_3d_kernel<kFieldB>;
-  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(u, v, w, aux, bottom, g, n_env, P);
+  kernel<<<(unsigned)n_env * blocks_per_env, kThreads, 0, st>>>(u, v, w, b, bottom, g,
+                                                                 blocks_per_env, P);
   return (int)cudaGetLastError();
 }
 
 int launch_div_3d(const float* u, const float* v, const float* w, float* div_out, int n_env,
                   int nx, int ny, int nz, float dx, float dy, float dz, void* stream) {
-  const size_t n = (size_t)n_env * ny * nx * nz;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  div_3d_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(u, v, w, div_out, n_env, nx,
-                                                                ny, nz, dx, dy, dz);
+  if (nx < 1 || ny < 1 || nz < 1 || (size_t)nx * ny * (nz + 1) > (size_t)INT_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool aligned = ((uintptr_t)u | (uintptr_t)v | (uintptr_t)div_out) % 16 == 0;
+  const DivLaunch L = div_launch(nx, nz, aligned);
+  L.kernel<<<(unsigned)n_env * ny, L.threads, 0, (cudaStream_t)stream>>>(
+      u, v, w, div_out, nx, ny, nz, (float)(1.0 / dx), (float)(1.0 / dy), (float)(1.0 / dz));
   return (int)cudaGetLastError();
 }
 

@@ -79,7 +79,7 @@ ARGTYPES = {
     ],
     "launch_field_tendency_3d": [
         _I,  # field: 0 u, 1 v, 2 w, 3 b
-        _P, _P, _P, _P, _P,  # u, v, w, aux (pHY' or b; NULL for w), bottom (b only)
+        _P, _P, _P, _P, _P,  # u, v, w, b (NULL for w), bottom (b only)
         _P,  # g
         _I, _I, _I, _I,  # n_env, nx, ny, nz
         _F, _F, _F, _F, _F, _F,  # dx, dy, dz, nu, kappa, min_b

@@ -7,7 +7,8 @@ all of periodic y), ``stage_rk_3d_xy`` replaces ``_stage_rk_kernel_xy``
 whole-y paths); both march along x over a ring of x-planes, from one
 kernel template. ``correct_3d`` replaces ``_correct_kernel`` (the
 velocity correction u -= grad q), ``field_tendency_3d`` replaces
-``_field_stage_kernel`` (one field's tendency, of the per-field path) and
+``_field_stage_kernel`` (one field's tendency, of the per-field path; its
+u and v instances compute pHY' from b themselves) and
 ``div_3d`` replaces ``_div_kernel`` (the staggered divergence). The
 kernels are CUDA C++ in ``csrc/rbc3d.cu``; the source says what bounds
 each on an H100 and what its design does about it. A wrapper launches its
@@ -28,9 +29,10 @@ linear, so dt_stage cancels), computes pHY' from b, the four UB5
 tendencies g, the RK update f* = f + dt (gamma g + zeta g_prev) and the
 divergence of the updated fields. Stage 0 reads no g_prev (zeta = 0) and
 stage 2 emits no g (the next substep's stage 0 does not read it). The
-per-field path computes the same stage from K6's tendencies, with the RK
-update, pHY' and the solve in PyTorch between the launches, and projects
-each stage right away (``sim/solver3d.field_substeps``).
+per-field path computes the same stage from K6's tendencies (pHY' inside
+the u and v launches), with the RK update and the solve in PyTorch between
+the launches, and projects each stage right away
+(``sim/solver3d.field_substeps``).
 
 The plain versions are the JAX package's XLA path written in PyTorch
 (``solver3d.tendencies_bm``); they run on any device, so a test can hold
@@ -149,12 +151,18 @@ def tendencies_3d_plain(
             tendency_w_plain(u, v, w, c), tendency_b_plain(u, v, w, b, bottom, c))
 
 
+def _from_b(tendency):
+    """The u or v ``tendency`` from b, through its pHY'."""
+    return lambda u, v, w, b, c: tendency(u, v, w, hydrostatic_pressure(b, c.dz, c.min_b), c)
+
+
 # The inputs of each field's tendency, in the order of the JAX package's
-# make_field_stage_3d (pallas3d.py:1631-1637), and its plain version.
-FIELD_INPUTS = {"u": ("u", "v", "w", "p_hy"), "v": ("u", "v", "w", "p_hy"),
+# make_field_stage_3d (pallas3d.py:1631-1637), except that u and v take b
+# where it takes pHY' (K6 computes pHY' from b), and its plain version.
+FIELD_INPUTS = {"u": ("u", "v", "w", "b"), "v": ("u", "v", "w", "b"),
                 "w": ("u", "v", "w"), "b": ("u", "v", "w", "b", "bottom")}
-_FIELD_PLAIN = {"u": tendency_u_plain, "v": tendency_v_plain, "w": tendency_w_plain,
-                "b": tendency_b_plain}
+_FIELD_PLAIN = {"u": _from_b(tendency_u_plain), "v": _from_b(tendency_v_plain),
+                "w": tendency_w_plain, "b": tendency_b_plain}
 
 
 def _check_field_args(field: str, arrays) -> None:
@@ -166,7 +174,8 @@ def _check_field_args(field: str, arrays) -> None:
 
 
 def field_tendency_3d_plain(field: str, *arrays: torch.Tensor, c: Coeffs3D) -> torch.Tensor:
-    """One field's tendency from the inputs ``FIELD_INPUTS[field]``."""
+    """One field's tendency from the inputs ``FIELD_INPUTS[field]``; u and v
+    compute pHY' from b with ``hydrostatic_pressure``."""
     _check_field_args(field, arrays)
     return _FIELD_PLAIN[field](*arrays, c)
 
@@ -327,7 +336,9 @@ correct_3d.launches = 0
 
 def field_tendency_3d(field: str, *arrays: torch.Tensor, c: Coeffs3D) -> torch.Tensor:
     """One field's tendency from ``FIELD_INPUTS[field]``: K6 for CUDA
-    tensors. Counts its launches in ``.launches`` and, per field, in
+    tensors, its march instance where ``limits.field_tendency_on_march``
+    holds and its general instance elsewhere (the launcher picks from the
+    grid). Counts its launches in ``.launches`` and, per field, in
     ``.launches_by_field``."""
     _check_field_args(field, arrays)
     if arrays[0].device.type == "cpu":
@@ -335,16 +346,14 @@ def field_tendency_3d(field: str, *arrays: torch.Tensor, c: Coeffs3D) -> torch.T
     e, nx, ny, nz = _shapes(arrays[0])
     cells, faces = (e, nx, ny, nz), (e, nx, ny, nz + 1)
     named = dict(zip(FIELD_INPUTS[field], arrays))
-    _check_cuda(named, dict(u=cells, v=cells, w=faces, p_hy=cells, b=cells, bottom=(e, nx, ny)))
+    _check_cuda(named, dict(u=cells, v=cells, w=faces, b=cells, bottom=(e, nx, ny)))
     g = torch.empty(faces if field == "w" else cells, dtype=torch.float32,
                     device=arrays[0].device)
-    # the fourth input: pHY' for u and v, b for b; bottom for b only
-    aux = named.get("p_hy", named.get("b"))
     lib = _build.load_library()
     with torch.cuda.device(g.device):
         err = lib.launch_field_tendency_3d(
-            "uvwb".index(field), *map(_ptr, (named["u"], named["v"], named["w"], aux,
-                                             named.get("bottom"), g)),
+            "uvwb".index(field), *map(_ptr, (named["u"], named["v"], named["w"],
+                                             named.get("b"), named.get("bottom"), g)),
             e, nx, ny, nz, c.dx, c.dy, c.dz, c.nu, c.kappa, c.min_b,
             torch.cuda.current_stream(g.device).cuda_stream,
         )

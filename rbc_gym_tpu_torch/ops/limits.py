@@ -58,6 +58,22 @@ def stage_smem_bytes(ny: int, nz: int) -> int:
     return 4 * ny * ((3 * XY_RING + 2 + 4 + 1 + 8) * nz + (XY_RING + 1) * (nz + 1))
 
 
+def field_smem_bytes(ny: int, nz: int) -> int:
+    """K6's march instance, for every field: ``XY_RING`` x-planes of u, v, b
+    of nz and of w of nz + 1, four of pHY' and the field's y fluxes of two
+    planes, every plane all ny rows (``field_smem_floats``): 4 ny (38 nz + 8)."""
+    return 4 * ny * ((3 * XY_RING + 4 + 2) * nz + XY_RING * (nz + 1))
+
+
+def field_tendency_on_march(nx: int, ny: int, nz: int) -> bool:
+    """Whether K6 takes the grid with its march instance (``field_on_march``
+    in ``csrc/rbc3d.cu``): K3's whole-y rule, nx >= 4, ny >= 4, nz >= 2,
+    ny * nz <= 1024 and its shared memory in a block. Every other grid of
+    the field path runs K6's general instance (one thread per point)."""
+    return (nx >= XY_MIN_NX and ny >= 4 and nz >= 2 and ny * nz <= MAX_THREADS
+            and field_smem_bytes(ny, nz) <= SMEM_PER_BLOCK)
+
+
 # The largest x-plane, ny * nz points, that the 3D path rule gives a whole-y
 # path (K3, or the per-field path where K3 cannot take it). It stands where
 # the JAX package's VMEM ceiling, (nz + 1) ny <= 1088

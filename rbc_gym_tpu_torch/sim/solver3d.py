@@ -22,9 +22,10 @@ once per solver by ``select_stage_path`` (``Solver3D.path``):
   ``stage_rk_3d_xy`` ("stage_xy"), with K4 ``correct_3d``, or their
   plain versions ("plain");
 - the per-field loop of its ``fused="field"`` path (``field_substeps``,
-  "field"): each stage computes pHY', the four tendencies (K6
-  ``field_tendency_3d``), the RK update, the divergence (K7 ``div_3d``),
-  its solve and the correction (K4), so every stage is projected.
+  "field"): each stage computes the four tendencies (K6
+  ``field_tendency_3d``, pHY' inside its u and v launches), the RK update,
+  the divergence (K7 ``div_3d``), its solve and the correction (K4), so
+  every stage is projected.
 All kernels are in ``csrc/rbc3d.cu``; for CPU tensors a kernel wrapper
 runs its plain version. ``substep`` is one substep of the per-field loop
 through the plain versions: the JAX package's eager ``substep_bm``, which
@@ -171,7 +172,7 @@ def stage_kernel_limit(kernel: str, dtype: torch.dtype, nx: int, ny: int, nz: in
     card's shared memory per block."""
     if dtype != torch.float32:
         return f"the {kernel} kernel takes float32, not {dtype}"
-    if kernel == "field":  # no shared memory; taps wrap 3 points in x and y
+    if kernel == "field":  # K6's general instance and K7 take any grid whose taps wrap once
         if nx < 3 or ny < 3 or nz < 2:
             return f"the field kernels need nx, ny >= 3 and nz >= 2 (nx={nx}, ny={ny}, nz={nz})"
         return None
@@ -298,17 +299,16 @@ def field_substeps(
     last stage's unscaled solve in the solve layout, which the last
     correction has already applied.
 
-    Each stage: pHY' from b, the four tendencies, the RK update, the
-    divergence, its solve and the correction. ``tend``, ``div`` and
-    ``correct`` are ``FIELD_KERNELS`` or ``FIELD_PLAIN``."""
+    Each stage: the four tendencies (u and v compute pHY' from b), the RK
+    update, the divergence, its solve and the correction. ``tend``, ``div``
+    and ``correct`` are ``FIELD_KERNELS`` or ``FIELD_PLAIN``."""
     q = None
     for dt in dts:
         dt = float(dt)
         g_prev = None
         for m in range(3):
             gamma, zeta = RK3_GAMMA[m], RK3_ZETA[m]
-            p_hy = hydrostatic_pressure(b, c.dz, c.min_b)
-            g = (tend("u", u, v, w, p_hy, c=c), tend("v", u, v, w, p_hy, c=c),
+            g = (tend("u", u, v, w, b, c=c), tend("v", u, v, w, b, c=c),
                  tend("w", u, v, w, c=c), tend("b", u, v, w, b, bottom, c=c))
             if m == 0:
                 u, v, w, b = (f + dt * gamma * gf for f, gf in zip((u, v, w, b), g))

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Time the stage kernels of several source trees on one CUDA card.
 
-    python3 scripts/kernel_variants.py [--kernels k1,k3,k5_training,k5] TREE [TREE ...]
+    python3 scripts/kernel_variants.py [--kernels k1,k3,k5_training,k5,k6,k7,field_step] TREE [TREE ...]
 
 Each TREE is a checkout of this repo (for example a ``git archive`` of a
 commit unpacked under the git-ignored ``rbc_gym_tpu_torch/_build/``).
 The script builds every tree's kernels at once (one nvcc each, in
 parallel, plus one ``-Xptxas -v`` compile of each ``csrc/*.cu`` for the
-registers, spills and shared memory of K1, K3 and K5, and a count of the
-SASS opcodes of their main instances from ``cuobjdump``), then runs each
+registers, spills and shared memory of K1, K3 and K5 to K7, and a count of
+the SASS opcodes of their main instances from ``cuobjdump``), then runs each
 tree in a process of its own, one after the other, importing that tree's
 own ``chip_smoke``. Per tree and kernel, CUDA events after a warm-up, the
 share of the bound (``chip_smoke.bound``) and the errors at the smoke's
@@ -24,7 +24,14 @@ gates:
 - ``k5_training``: K5 (``stage_rk_3d_xy``) forced on the same grid and
   inputs, K3's yardstick;
 - ``k5``: K5 at 1024 envs on the 32x64x64 big grid, as ``k3``, with stage
-  0 at 8 envs against float64.
+  0 at 8 envs against float64;
+- ``k6``: K6 (``field_tendency_3d``), each field, at 1024 envs on 16x32x32
+  and on 16x32x30 (its march instance in this tree) and at 128 envs on
+  32x64x64 (its general instance); its gates there, and each field at 32
+  envs on 16x32x32 against a float64 plain run;
+- ``k7``: K7 (``div_3d``) on the same grids, with its gates;
+- ``field_step``: one env step of ``fused="field"`` at 1024 envs on
+  16x32x32 (``Solver3D.env_step``, CUDA events).
 
 One JSON line per tree and kernel, then the card's name and power limit.
 A tree that does not build is reported and skipped. Exits non-zero
@@ -104,11 +111,72 @@ def stage(wrapper, shape, dt_solver, f64_envs, reps):
     return rec, errs
 
 
+# K6's and K7's grids: the field path's, the grid auto sends there (both
+# K6's march instance) and the big grid forced (K6's general instance)
+FIELD_GRIDS = (("training", (16, 32, 32), 1024, 0.01), ("odd_nx", (16, 32, 30), 1024, 0.01),
+               ("big", cs.BIG_SHAPE, 128, cs.BIG_DT_SOLVER))
+
+
+def k6():
+    rec, errs = {}, {}
+    for name, shape, n_env, dt_solver in FIELD_GRIDS:
+        nz, ny, nx = shape
+        solver, case = cs.make_case_3d(device, n_env, shape, seed=14, dt_solver=dt_solver)
+        r = {}
+        for f in "uvwb":
+            ms = cs._cuda_ms(lambda: cs.k6_run(solver, case, f, True), 20, warmup=3)
+            bound_ms, by = cs.bound(cs.field_tendency_3d_work(n_env, nx, ny, nz, f))
+            r[f] = {"ms": ms, "bound_ms": bound_ms, "share_of_bound": bound_ms / ms}
+            errs[f"{name}_g{f}"] = (cs.abs_diffs(["g"], [cs.k6_run(solver, case, f, True)],
+                                                 [cs.k6_run(solver, case, f, False)])["g"],
+                                    cs.K6_ATOL)
+        r["mean_ms"] = sum(r[f]["ms"] for f in "uvwb") / 4
+        rec[name] = r
+        del case
+        torch.cuda.empty_cache()
+    solver, case = cs.make_case_3d(device, 32, (16, 32, 32), seed=16)
+    case64 = {k: v.double() for k, v in case.items()}
+    rec["float64_vs"] = {}
+    for f in "uvwb":
+        ref = [cs.k6_run(solver, case64, f, False)]
+        rec["float64_vs"][f"g{f}"] = {
+            "kernel": cs.abs_diffs(["g"], ref, [cs.k6_run(solver, case, f, True)])["g"],
+            "plain_float32": cs.abs_diffs(["g"], ref, [cs.k6_run(solver, case, f, False)])["g"]}
+    return rec, errs
+
+
+def k7():
+    rec, errs = {}, {}
+    for name, shape, n_env, dt_solver in FIELD_GRIDS:
+        nz, ny, nx = shape
+        solver, case = cs.make_case_3d(device, n_env, shape, seed=14, dt_solver=dt_solver)
+        ms = cs._cuda_ms(lambda: cs.k7_run(solver, case, True), 20)
+        bound_ms, by = cs.bound(cs.div_3d_work(n_env, nx, ny, nz))
+        rec[name] = {"ms": ms, "bound_ms": bound_ms, "share_of_bound": bound_ms / ms}
+        errs[f"{name}_div"] = (cs.abs_diffs(["d"], [cs.k7_run(solver, case, True)],
+                                            [cs.k7_run(solver, case, False)])["d"], cs.K7_ATOL)
+        del case
+        torch.cuda.empty_cache()
+    return rec, errs
+
+
+def field_step():
+    solver, case = cs.make_case_3d(device, 1024, (16, 32, 32), seed=14, fused="field")
+    zeros = torch.zeros_like(case["u"])
+    f = cs.s3d.Fields3D(case["u"], case["v"], case["w"], case["b"], zeros, zeros)
+    actions = torch.zeros((1024, 8, 8), dtype=zeros.dtype, device=zeros.device)
+    ms = cs._cuda_ms(lambda: solver.env_step(f, actions), 3)
+    return {"path": solver.path, "env_step_ms": ms, "env_steps_per_s": 1024e3 / ms}, {}
+
+
 RUNS = {
     "k1": k1,
     "k3": lambda: stage(k3d.stage_rk_3d, (16, 32, 32), 0.01, 32, 20),
     "k5_training": lambda: stage(k3d.stage_rk_3d_xy, (16, 32, 32), 0.01, 32, 20),
     "k5": lambda: stage(k3d.stage_rk_3d_xy, cs.BIG_SHAPE, cs.BIG_DT_SOLVER, 8, 5),
+    "k6": k6,
+    "k7": k7,
+    "field_step": field_step,
 }
 for name in kernels:
     rec, errs = RUNS[name]()
@@ -122,10 +190,12 @@ sys.exit(0 if ok else 1)
 
 PTXAS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v",
          "-c", "-o", os.devnull)
-# kernel entries whose resource lines are kept, and the instances whose SASS is counted
-ENTRIES = ("env_step_2d", "stage_march", "stage_rk_3d")
+# kernel entries whose resource lines are kept, and the instances whose SASS
+# is counted: names (mangled) holding one of these, the specialised
+# instances of K1 (96x64), K3 and K6 (16x32x32), K5 (nz = 32) and K7 (nz = 16)
+ENTRIES = ("env_step_2d", "stage_march", "stage_rk_3d", "field_tendency", "div_3d")
 SASS_INSTANCES = ("env_step_2d_kernelILi96ELi64E", "stage_march_kernelILi16ELi32E",
-                  "stage_march_kernelILi32ELin1E")
+                  "stage_march_kernelILi32ELin1E", "div_3d_kernelILi16E")
 
 def ptxas(tree: Path, nvcc: str) -> list:
     return [subprocess.Popen([nvcc, *PTXAS, str(src)], stdout=subprocess.PIPE,
@@ -140,7 +210,8 @@ def sass_histograms(tree: Path, cuobjdump: str) -> dict:
     counts, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            current = next((n for n in SASS_INSTANCES if n in line), None)
+            name = line.split("Function :", 1)[1].strip().replace("_ZN12_GLOBAL__N_1", "")
+            current = name if any(n in name for n in SASS_INSTANCES) else None
         elif current and "/*" in line and ";" in line:
             words = line.split("*/", 1)[1].split(";")[0].split()
             if words and words[0].startswith("@"):
@@ -149,7 +220,8 @@ def sass_histograms(tree: Path, cuobjdump: str) -> dict:
                 op = words[0].split(".")[0]
                 c = counts.setdefault(current, {})
                 c[op] = c.get(op, 0) + 1
-    return {n: dict(sorted(c.items(), key=lambda kv: -kv[1])) for n, c in counts.items()}
+    return {n: {"total": sum(c.values()), **dict(sorted(c.items(), key=lambda kv: -kv[1]))}
+            for n, c in counts.items()}
 
 
 def main() -> int:

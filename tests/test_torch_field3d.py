@@ -9,7 +9,9 @@ their plain versions on the CPU. Tolerances, each with its reason:
 - one field's tendency, float32: 1e-5. The Pallas kernel selects a
   one-sided UB5 stencil by the sign of the velocity, the port computes
   the flux form C6 - |v| D5/60 (the same reconstruction, float32
-  rounding only; pallas3d.py:185-186), as K3's tendency gate.
+  rounding only; pallas3d.py:185-186), as K3's tendency gate. The Pallas
+  kernel reads the pHY' of the JAX package's ``_hydrostatic_pressure_3d``
+  for u and v, the port computes it from b (its float32 suffix sum).
 - the divergence, float32: 1e-6. The same three differences in the same
   order; the values are of order 0.1-1.
 - a whole env step of 4 substeps, float32: 5e-6 on u, v, w, b, the JAX
@@ -35,6 +37,10 @@ from rbc_gym_tpu_torch.sim.grid import Grid3D
 from rbc_gym_tpu_torch.utils.interop import fields_from_numpy, fields_to_numpy
 
 NX, NY, NZ = 6, 8, 8  # odd nx / 2: the grids where auto takes the field path
+# the Pallas kernels' inputs of each field (make_field_stage_3d): pHY' where
+# the port's u and v take b
+JAX_INPUTS = {"u": ("u", "v", "w", "p_hy"), "v": ("u", "v", "w", "p_hy"),
+              "w": ("u", "v", "w"), "b": ("u", "v", "w", "b", "bottom")}
 N_ENV = 2
 TEND_ATOL = 1e-5
 DIV_ATOL = 1e-6
@@ -87,7 +93,7 @@ def test_field_tendency_matches_jax_field_stage_kernel(case, field):
     tend = pallas3d.make_field_stage_3d(field, NX, NY, NZ, grid.dx, grid.dy, grid.dz, c.nu,
                                         c.kappa, c.min_b, e_blk=2, interpret=True)
     jax_args = [_to_bm(a[n]) if n != "bottom" else jnp.asarray(np.moveaxis(a[n], 0, -1))
-                for n in k3.FIELD_INPUTS[field]]
+                for n in JAX_INPUTS[field]]
     want = np.transpose(np.asarray(tend(*jax_args)), (3, 0, 2, 1))  # -> (E, nx, ny, nk)
     args = [torch.as_tensor(a[n]) for n in k3.FIELD_INPUTS[field]]
     before = k3.field_tendency_3d.launches
@@ -114,7 +120,8 @@ def test_plain_tendencies_are_the_four_field_tendencies(case):
     grid, a = case
     c = _coeffs(grid)
     t = {k: torch.as_tensor(v) for k, v in a.items()}
-    whole = k3.tendencies_3d_plain(t["u"], t["v"], t["w"], t["b"], t["p_hy"], t["bottom"], c)
+    p_hy = k3.hydrostatic_pressure(t["b"], c.dz, c.min_b)
+    whole = k3.tendencies_3d_plain(t["u"], t["v"], t["w"], t["b"], p_hy, t["bottom"], c)
     for field, g in zip("uvwb", whole):
         args = [t[n] for n in k3.FIELD_INPUTS[field]]
         assert torch.equal(g, k3.field_tendency_3d_plain(field, *args, c=c))
@@ -126,7 +133,7 @@ def test_wrappers_check_their_arguments(case):
     u, v, w = (torch.as_tensor(a[n]) for n in "uvw")
     with pytest.raises(ValueError, match="one of"):
         k3.field_tendency_3d("p", u, v, w, c=c)
-    with pytest.raises(ValueError, match="takes u, v, w, p_hy"):
+    with pytest.raises(ValueError, match="takes u, v, w, b"):
         k3.field_tendency_3d("u", u, v, w, c=c)
     # a tensor on neither the CPU nor CUDA never reaches the plain version
     meta = [t.to("meta") for t in (u, v, w)]

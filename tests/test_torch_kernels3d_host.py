@@ -50,38 +50,84 @@ static void wr(const char* n, const std::vector<float>& v) {
   fwrite(v.data(), 4, v.size(), f);
   fclose(f);
 }
+// n_blocks blocks of n_thr threads, one after the other; a block's threads
+// run `body` as host threads meeting at real barriers
+template <class Body>
+static void run_blocks(unsigned n_blocks, int n_thr, Body body) {
+  blockDim.x = n_thr;
+  for (unsigned blk = 0; blk < n_blocks; ++blk) {
+    blockIdx.x = blk;
+    std::barrier<> bar(n_thr);
+    block_barrier = &bar;
+    std::vector<std::unique_ptr<std::barrier<>>> warps;
+    for (int w = 0; w * 32 < n_thr; ++w) {
+      warps.push_back(std::make_unique<std::barrier<>>(std::min(32, n_thr - 32 * w)));
+      warp_barriers[w] = warps.back().get();
+    }
+    std::vector<std::thread> threads;
+    for (int t = 0; t < n_thr; ++t) {
+      threads.emplace_back([&, t] {
+        threadIdx.x = t;
+        body();
+      });
+    }
+    for (auto& th : threads) th.join();
+    block_barrier = nullptr;
+  }
+}
+// K6 for field F, the instance its launcher picks for the grid
+template <int F>
+static void field_tendency(const std::vector<float>& u, const std::vector<float>& v,
+                           const std::vector<float>& w, const float* b, const float* bottom,
+                           float* g, int E, const XYParams& P) {
+  const int nx = P.nx, ny = P.ny, nz = P.nz;
+  if (field_on_march(nx, ny, nz)) {
+    float* gs[4] = {nullptr, nullptr, nullptr, nullptr};
+    gs[F] = g;
+    auto* kernel = field_march_kernel_for<F>(ny, nz);
+    run_blocks((unsigned)E, march_threads(nz, ny), [&] {
+      kernel(u.data(), v.data(), w.data(), b, nullptr, bottom, nullptr, nullptr, nullptr,
+             nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, gs[0], gs[1], gs[2], gs[3],
+             0.0f, 0.0f, 0.0f, P);
+    });
+  } else {  // the general instance, point after point
+    const int per_env = nx * ny * (F == kFieldW ? nz + 1 : nz);
+    blockDim.x = 1;
+    for (int p = 0; p < E * per_env; ++p) {
+      blockIdx.x = (unsigned)p;
+      field_tendency_3d_kernel<F>(u.data(), v.data(), w.data(), b, bottom, g, per_env, P);
+    }
+  }
+}
 int main(int argc, char** argv) {
   if (std::string(argv[1]) == "smem") {  // smem NY NZ: the launchers' floats
-    printf("%zu %zu\n", stage_smem_floats(atoi(argv[2]), atoi(argv[3])),
-           stage_xy_smem_floats(atoi(argv[3])));
+    printf("%zu %zu %zu\n", stage_smem_floats(atoi(argv[2]), atoi(argv[3])),
+           stage_xy_smem_floats(atoi(argv[3])), field_smem_floats(atoi(argv[2]), atoi(argv[3])));
     return 0;
   }
   if (std::string(argv[1]) == "field") {  // field DIR E NX NY NZ DX DY DZ NU KAPPA MIN_B
     dir = argv[2];
     const int E = atoi(argv[3]), nx = atoi(argv[4]), ny = atoi(argv[5]), nz = atoi(argv[6]);
-    const RBC3DParams P{nx, ny, nz, (float)atof(argv[7]), (float)atof(argv[8]),
-                        (float)atof(argv[9]), (float)atof(argv[10]), (float)atof(argv[11]),
-                        (float)atof(argv[12])};
+    const float dx = atof(argv[7]), dy = atof(argv[8]), dz = atof(argv[9]);
+    const XYParams P = xy_params(nx, ny, nz, dx, dy, dz, atof(argv[10]), atof(argv[11]),
+                                 atof(argv[12]));
     const size_t C = (size_t)E * nx * ny * nz, F = (size_t)E * nx * ny * (nz + 1);
-    auto u = rd("u", C), v = rd("v", C), w = rd("w", F), b = rd("b", C), p_hy = rd("p_hy", C);
+    auto u = rd("u", C), v = rd("v", C), w = rd("w", F), b = rd("b", C);
     auto bottom = rd("bottom", (size_t)E * nx * ny);
     std::vector<float> g[4] = {std::vector<float>(C), std::vector<float>(C),
                                std::vector<float>(F), std::vector<float>(C)};
+    field_tendency<kFieldU>(u, v, w, b.data(), nullptr, g[0].data(), E, P);
+    field_tendency<kFieldV>(u, v, w, b.data(), nullptr, g[1].data(), E, P);
+    field_tendency<kFieldW>(u, v, w, nullptr, nullptr, g[2].data(), E, P);
+    field_tendency<kFieldB>(u, v, w, b.data(), bottom.data(), g[3].data(), E, P);
     std::vector<float> div(C);
-    blockDim.x = 1;
-    for (size_t p = 0; p < F; ++p) {
-      blockIdx.x = (unsigned)p;
-      field_tendency_3d_kernel<kFieldU>(u.data(), v.data(), w.data(), p_hy.data(), nullptr,
-                                        g[0].data(), E, P);
-      field_tendency_3d_kernel<kFieldV>(u.data(), v.data(), w.data(), p_hy.data(), nullptr,
-                                        g[1].data(), E, P);
-      field_tendency_3d_kernel<kFieldW>(u.data(), v.data(), w.data(), nullptr, nullptr,
-                                        g[2].data(), E, P);
-      field_tendency_3d_kernel<kFieldB>(u.data(), v.data(), w.data(), b.data(), bottom.data(),
-                                        g[3].data(), E, P);
-      div_3d_kernel(u.data(), v.data(), w.data(), div.data(), E, nx, ny, nz, P.dx, P.dy, P.dz);
-    }
+    const DivLaunch L = div_launch(nx, nz, true);
+    run_blocks((unsigned)(E * ny), L.threads, [&] {
+      L.kernel(u.data(), v.data(), w.data(), div.data(), nx, ny, nz, (float)(1.0 / dx),
+               (float)(1.0 / dy), (float)(1.0 / dz));
+    });
     wr("gu", g[0]); wr("gv", g[1]); wr("gw", g[2]); wr("gb", g[3]); wr("div", div);
+    printf("%s\n", field_on_march(nx, ny, nz) ? "march" : "general");
     return 0;
   }
   dir = argv[1];
@@ -89,9 +135,7 @@ int main(int argc, char** argv) {
   const int E = atoi(argv[2]), nx = atoi(argv[3]), ny = atoi(argv[4]), nz = atoi(argv[5]);
   const int stage = atoi(argv[6]);
   const float dt = atof(argv[7]), gamma = atof(argv[8]), zeta = atof(argv[9]);
-  const RBC3DParams P{nx, ny, nz, (float)atof(argv[10]), (float)atof(argv[11]),
-                      (float)atof(argv[12]), (float)atof(argv[13]), (float)atof(argv[14]),
-                      (float)atof(argv[15])};
+  const float dx = atof(argv[10]), dy = atof(argv[11]), dz = atof(argv[12]);
   const size_t C = (size_t)E * nx * ny * nz, F = (size_t)E * nx * ny * (nz + 1);
   auto u = rd("u", C), v = rd("v", C), w = rd("w", F), b = rd("b", C), q = rd("q", C);
   auto bottom = rd("bottom", (size_t)E * nx * ny);
@@ -105,33 +149,15 @@ int main(int argc, char** argv) {
   auto prev = [&](int i) { return stage > 0 ? gp[i].data() : nullptr; };
   auto emit = [&](int i) { return stage < 2 ? g[i].data() : nullptr; };
   {  // K3 and K5: every thread of a block, meeting at real barriers
-    const XYParams PX = xy_params(nx, ny, nz, P.dx, P.dy, P.dz, P.nu, P.kappa, P.min_b);
-    const int n_thr = xy ? march_threads(nz, -1) : march_threads(nz, ny);
+    const XYParams PX = xy_params(nx, ny, nz, dx, dy, dz, atof(argv[13]), atof(argv[14]),
+                                  atof(argv[15]));
     auto* kernel = xy ? stage_xy_kernel_for(nz) : stage_kernel_for(ny, nz);
-    const unsigned n_blocks = xy ? E * (unsigned)(ny / kYT) : (unsigned)E;
-    blockDim.x = n_thr;
-    for (unsigned blk = 0; blk < n_blocks; ++blk) {
-      blockIdx.x = blk;
-      std::barrier<> bar(n_thr);
-      block_barrier = &bar;
-      std::vector<std::unique_ptr<std::barrier<>>> warps;
-      for (int w = 0; w * 32 < n_thr; ++w) {
-        warps.push_back(std::make_unique<std::barrier<>>(std::min(32, n_thr - 32 * w)));
-        warp_barriers[w] = warps.back().get();
-      }
-      std::vector<std::thread> threads;
-      for (int t = 0; t < n_thr; ++t) {
-        threads.emplace_back([&, t] {
-          threadIdx.x = t;
-          kernel(u.data(), v.data(), w.data(), b.data(), q.data(), bottom.data(), prev(0),
-                 prev(1), prev(2), prev(3), out[0].data(), out[1].data(), out[2].data(),
-                 out[3].data(), out[4].data(), emit(0), emit(1), emit(2), emit(3), dt, gamma,
-                 zeta, PX);
-        });
-      }
-      for (auto& th : threads) th.join();
-      block_barrier = nullptr;
-    }
+    run_blocks(xy ? E * (unsigned)(ny / kYT) : (unsigned)E,
+               xy ? march_threads(nz, -1) : march_threads(nz, ny), [&] {
+      kernel(u.data(), v.data(), w.data(), b.data(), q.data(), bottom.data(), prev(0), prev(1),
+             prev(2), prev(3), out[0].data(), out[1].data(), out[2].data(), out[3].data(),
+             out[4].data(), emit(0), emit(1), emit(2), emit(3), dt, gamma, zeta, PX);
+    });
   }
   blockDim.x = 1;
   const char* names[9] = {"u_out", "v_out", "w_out", "b_out", "div", "gu", "gv", "gw", "gb"};
@@ -142,7 +168,7 @@ int main(int argc, char** argv) {
   for (size_t p = 0; p < F; ++p) {
     blockIdx.x = (unsigned)p;
     correct_3d_kernel(u.data(), v.data(), w.data(), q.data(), c[0].data(), c[1].data(),
-                      c[2].data(), E, nx, ny, nz, P.dx, P.dy, P.dz);
+                      c[2].data(), E, nx, ny, nz, dx, dy, dz);
   }
   wr("cu", c[0]); wr("cv", c[1]); wr("cw", c[2]);
   return 0;
@@ -254,26 +280,35 @@ def test_smem_formulas_match_the_launchers(host_binary, ny, nz):
     out = subprocess.run([str(host_binary), "smem", str(ny), str(nz)], check=True,
                          capture_output=True, text=True).stdout.split()
     assert [4 * int(n) for n in out] == [limits.stage_smem_bytes(ny, nz),
-                                         limits.stage_xy_smem_bytes(nz)]
+                                         limits.stage_xy_smem_bytes(nz),
+                                         limits.field_smem_bytes(ny, nz)]
 
 
-@pytest.mark.parametrize("shape", [
-    (2, 6, 8, 8),  # odd nx / 2: the grids where auto takes the field path
-    (1, 32, 32, 16),  # the training grid
-    (1, 3, 5, 4),  # the smallest nx the field kernels take; the z ladder meets
+@pytest.mark.parametrize("shape,instance", [
+    ((2, 6, 8, 8), "march"),  # odd nx / 2: the grids where auto takes the field path
+    ((1, 32, 32, 16), "march"),  # the training grid: the specialised instance, 512 threads
+    ((1, 30, 32, 16), "march"),  # the specialised instance at nx % 4 != 0 (16x32x30)
+    ((2, 5, 8, 8), "march"),  # runtime sizes, odd nx: every plane wraps once
+    ((1, 6, 12, 20), "march"),  # runtime sizes, nz neither 16 nor 32 (K7 too)
+    ((1, 3, 5, 4), "general"),  # nx = 3, the smallest nx the field kernels take
+    ((1, 4, 34, 32), "general"),  # ny * nz = 1088: whole-y, beyond the march's 1024 threads
 ])
-def test_host_build_of_k6_and_k7_matches_plain(host_binary, tmp_path, shape):
-    """K6 for each field and K7 against ``field_tendency_3d_plain`` and
-    ``div_3d_plain`` at the smoke's gates."""
+def test_host_build_of_k6_and_k7_matches_plain(host_binary, tmp_path, shape, instance):
+    """K6 for each field, in the instance its launcher picks for the grid,
+    and K7 against ``field_tendency_3d_plain`` and ``div_3d_plain`` at the
+    smoke's gates. K6's u and v read b and compute pHY' themselves (float64),
+    the plain version's pHY' is a float32 suffix sum."""
     e, nx, ny, nz = shape
+    assert limits.field_tendency_on_march(nx, ny, nz) == (instance == "march")
     case = _case(*shape, seed=1)
-    case["p_hy"] = k3.hydrostatic_pressure(torch.as_tensor(case["b"]), 2.0 / nz, 1.0).numpy()
     for name, a in case.items():
         a.astype(np.float32).tofile(tmp_path / name)
     c = k3.Coeffs3D(4 * np.pi / nx, 4 * np.pi / ny, 2.0 / nz, float(np.sqrt(0.7 / 2500)),
                     float(1 / np.sqrt(0.7 * 2500)), 1.0)
-    subprocess.run([str(host_binary), "field", f"{tmp_path}/", *map(str, shape),
-                    *(repr(float(x)) for x in c)], check=True)
+    ran = subprocess.run([str(host_binary), "field", f"{tmp_path}/", *map(str, shape),
+                          *(repr(float(x)) for x in c)], check=True, capture_output=True,
+                         text=True).stdout.split()
+    assert ran == [instance]
     t = {n: torch.as_tensor(a, dtype=torch.float32) for n, a in case.items()}
     for field in "uvwb":
         want = k3.field_tendency_3d_plain(field, *(t[n] for n in k3.FIELD_INPUTS[field]), c=c)

@@ -73,7 +73,7 @@ def test_auto_selection_raises_where_only_the_jax_package_has_a_kernel(shape, me
     ("stage_xy", TRAINING, "stage_xy"),  # ny = 32: four y blocks
     ("field", TRAINING, "field"),
     (True, TRAINING, "field"),  # the JAX package maps True to "field"
-    ("field", BIG, "field"),  # K6 and K7 use no shared memory
+    ("field", BIG, "field"),  # K6's general instance and K7 take any such grid
     (False, TRAINING, "plain"),
     (False, BIG, "plain"),
 ])
@@ -189,6 +189,28 @@ def test_2d_kernel_instance(nx, nz, on_chip):
     assert limits.env_step_2d_on_chip(nx, nz) == on_chip
     assert limits.env_step_2d_scratch_floats(nx, nz) == (0 if on_chip else
                                                          5 * nx * nz + 2 * nx * (nz + 1))
+
+
+@pytest.mark.parametrize("shape,march", [
+    (TRAINING, True),  # the specialised march instance: 512 threads, 78,848 bytes
+    ((30, 32, 16), True),  # 16x32x30, where auto takes the field path
+    ((6, 32, 16), True), ((5, 8, 8), True), ((6, 12, 20), True),
+    ((4, 4, 2), True),  # the smallest grid of K3's rule
+    ((16, 512, 2), True),  # 1024 points an x-plane
+    ((3, 32, 16), False),  # nx = 3 < 4
+    ((8, 3, 16), False),  # ny = 3 < 4
+    ((32, 33, 32), False), ((4, 34, 32), False), ((32, 3, 365), False),  # ny * nz > 1024
+    (BIG, False),  # the big grid, forced
+])
+def test_field_kernel_instance(shape, march):
+    """Which instance of K6 takes a grid of the field path: the march where
+    K3's whole-y rule holds, the general one (one thread per point)
+    elsewhere; the field path takes every one of these grids."""
+    assert s3.stage_kernel_limit("field", F32, *shape) is None
+    assert limits.field_tendency_on_march(*shape) == march
+    assert march == (s3.stage_kernel_limit("stage", F32, *shape) is None)
+    if march:
+        assert limits.field_smem_bytes(*shape[1:]) <= limits.SMEM_PER_BLOCK
 
 
 def test_2d_auto_selection_raises_where_k1_does_not_fit():

@@ -166,10 +166,14 @@ def test_smoke_field_phases_run_on_cpu_plain_halves():
     agree exactly; the main path is the user's ``fused="field"`` env."""
     tiny = dict(state_shape=(8, 8, 6))
     parity = chip_smoke.kernel_parity_field("cpu", main_envs=2, step_envs=1, big_envs=1,
-                                            big_shape=(8, 16, 16), **tiny)
+                                            big_shape=(8, 16, 16), odd_shape=(8, 8, 5), **tiny)
     assert all(v["error"] == 0.0 for v in parity["gated"].values())
-    assert {"gu", "gv", "gw", "gb", "div", "big_gb", "big_div", "env_step_1", "env_step_2",
-            "field_vs_stage_path_2"} <= set(parity["gated"])
+    assert {"gu", "gv", "gw", "gb", "div", "odd_gu", "odd_div", "big_gb", "big_div",
+            "env_step_1", "env_step_2", "field_vs_stage_path_2"} <= set(parity["gated"])
+    # at these sizes every grid is the march's (on the card the big grid's
+    # 2048-point x-planes take K6's general instance)
+    assert parity["k6_instances"] == {"grid": "march", "odd_grid": "march", "big_grid": "march"}
+    assert set(parity["field_tendency_3d_float64_plain_vs"]) == {"gu", "gv", "gw", "gb"}
     assert parity["max_abs_err"] == {"field_tendency_3d": 0.0, "div_3d": 0.0}
     json.dumps(parity)
     path = chip_smoke.main_path_field("cpu", num_envs=2, heater_duration=0.0125, steps=2, **tiny)
