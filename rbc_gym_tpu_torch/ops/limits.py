@@ -14,6 +14,7 @@ from __future__ import annotations
 SMEM_PER_BLOCK = 232_448
 
 MAX_THREADS = 1024  # threads a block may have; K3 runs one per point of an x-plane
+MAX_ENV_POINTS = 2**31 - 1  # K6's and K7's offsets within an env are 32-bit (INT_MAX)
 Y_BLK = 8  # y rows a K5 block owns (kYT)
 XY_MIN_NX = 4  # K3's and K5's plane indices -4..nx+3 wrap x once (kXYMinNx)
 XY_RING = 8  # x-planes of u, v, w, b a K3 or K5 block holds (kRing)

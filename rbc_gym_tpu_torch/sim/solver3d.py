@@ -64,6 +64,7 @@ from rbc_gym_tpu_torch.ops.kernels3d import (
 from rbc_gym_tpu_torch.ops import stencils as st
 from rbc_gym_tpu_torch.ops.limits import (
     SMEM_PER_BLOCK,
+    MAX_ENV_POINTS,
     MAX_THREADS,
     XY_MIN_NX,
     Y_BLK,
@@ -175,6 +176,9 @@ def stage_kernel_limit(kernel: str, dtype: torch.dtype, nx: int, ny: int, nz: in
     if kernel == "field":  # K6's general instance and K7 take any grid whose taps wrap once
         if nx < 3 or ny < 3 or nz < 2:
             return f"the field kernels need nx, ny >= 3 and nz >= 2 (nx={nx}, ny={ny}, nz={nz})"
+        if nx * ny * (nz + 1) > MAX_ENV_POINTS:
+            return (f"the field kernels index an env with 32-bit offsets: nx * ny * (nz + 1) "
+                    f"<= {MAX_ENV_POINTS:,} (nx={nx}, ny={ny}, nz={nz})")
         return None
     if kernel == "stage":
         if nx < XY_MIN_NX or ny < 4 or nz < 2:

@@ -93,6 +93,7 @@ def test_forced_selection_that_fits(fused, shape, want, device_type):
     ("field", F64, TRAINING, "float32, not torch.float64"),
     (True, F64, (6, 32, 16), "float32, not torch.float64"),
     ("field", F32, (2, 32, 16), "nx, ny >= 3"),
+    ("field", F32, (3, 3, 238_609_294), "32-bit offsets"),  # 2,147,483,655 points an env
 ])
 def test_forced_selection_that_cannot_fit_raises(fused, dtype, shape, message):
     for device_type in ("cuda", "cpu"):
