@@ -8,13 +8,17 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
 ``rbc_gym_tpu_torch/csrc`` and runs, printing one JSON line per phase:
 
 1. build             nvcc into rbc_gym_tpu_torch/_build/ (ctypes, no torch headers)
-2. kernel_parity     K1 and K2 against their plain PyTorch versions on the card;
-                     K1 and its plain version beside a float64 run
+2. kernel_parity     K1 and K2 against their plain PyTorch versions on the card
+                     (K2's three instances: 96x64, the runtime march on
+                     128x64, the general instance on 96x80); K1 and K2 and
+                     their plain versions beside a float64 run
 3. main_path         RBC2DVectorEnv(num_envs=1024) at 96x64, Ra=1e4: reset, 3
                      steps with random actions, one Solver2D.substep; checks
-                     shapes, finiteness, Nu, divergence and the launch counters
+                     shapes, finiteness, Nu, divergence, the launch counters
+                     and the substep's one PyTorch pHY' call
 4. timing            K1, K2, their plain versions and bounds (K1's share of
-                     it), in ms
+                     it), in ms; pHY' in PyTorch and Solver2D.substep with its
+                     split (3 K2, pHY', RK update, projection)
 5. kernel_parity_3d  K3 (each stage variant) and K4 against their plain
                      versions at the 3D main path's shapes, K3's stage 0 beside
                      a float64 run; one env step of the kernel path against
@@ -66,6 +70,7 @@ tests run them at a tiny size with the plain versions.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -79,16 +84,22 @@ from rbc_gym_tpu_torch.envs.vector3d import RBC3DVectorEnv
 from rbc_gym_tpu_torch.ops import _build
 from rbc_gym_tpu_torch.ops import kernels2d as k2d
 from rbc_gym_tpu_torch.ops import kernels3d as k3d
-from rbc_gym_tpu_torch.ops.limits import env_step_2d_on_chip, field_tendency_on_march
+from rbc_gym_tpu_torch.ops.limits import (
+    env_step_2d_on_chip,
+    field_tendency_on_march,
+    tendencies_2d_instance,
+)
 from rbc_gym_tpu_torch.ops.poisson import FACTORED_POISSON_MIN_NXNZ, make_poisson_solver_3d
+from rbc_gym_tpu_torch.sim import solver2d as s2d
 from rbc_gym_tpu_torch.sim import solver3d as s3d
 from rbc_gym_tpu_torch.sim.grid import Grid2D, Grid3D
 from rbc_gym_tpu_torch.sim.nusselt import nusselt_2d_physical
 from rbc_gym_tpu_torch.sim.solver2d import (
-    SimParams2D,
-    max_divergence,
     DIVERGENCE_ATOL,
+    Fields2D,
+    SimParams2D,
     make_solver2d,
+    max_divergence,
 )
 
 # The big grid: 32x64x64 at dt_solver 0.005, 25 substeps per env step.
@@ -203,9 +214,18 @@ def env_step_work(n_env: int, nx: int, nz: int, n_substeps: int) -> dict:
 
 
 def tendencies_work(n_env: int, nx: int, nz: int) -> dict:
+    """FLOP and bytes of the Pallas tendency kernel's function, K2's
+    yardstick: u, w, b, p_hy, bottom read and gu, gw, gb written once."""
     cells = nx * nz
     words = n_env * (3 * cells + nx * (nz + 1) + nx + 2 * cells + nx * (nz + 1))
     return {"flops": n_env * _TENDENCY_FLOPS_PER_CELL * cells, "bytes": 4 * words}
+
+
+def tendencies_own_bytes(n_env: int, nx: int, nz: int) -> int:
+    """Bytes of K2's own function, which takes b and no p_hy: u, w, b,
+    bottom read and gu, gw, gb written once."""
+    cells, faces = nx * nz, nx * (nz + 1)
+    return 4 * n_env * (4 * cells + 2 * faces + nx)
 
 
 def bound(work: dict) -> tuple[float, str]:
@@ -221,7 +241,7 @@ def bound(work: dict) -> tuple[float, str]:
 
 def make_case(device, num_envs: int, state_shape=(64, 96), heater_duration=0.18, seed=0,
               dtype=None, dt_solver=None):
-    """Solver plus fields, bottom profile and pHY' made by numpy from a seed."""
+    """Solver plus fields and bottom profile made by numpy from a seed."""
     device = torch.device(device)
     dtype = dtype or working_dtype(device)
     nz, nx = state_shape
@@ -244,8 +264,7 @@ def make_case(device, num_envs: int, state_shape=(64, 96), heater_duration=0.18,
 
     u, w, b = t(u), t(w), t(b)
     bottom = solver.heater_profile(t(actions)).contiguous()
-    p_hy = k2d.hydrostatic_pressure(b, grid.dz, params.min_b).contiguous()
-    return solver, dict(u=u, w=w, b=b, bottom=bottom, p_hy=p_hy)
+    return solver, dict(u=u, w=w, b=b, bottom=bottom)
 
 
 def k1_run(solver, case, kernel: bool):
@@ -256,7 +275,7 @@ def k1_run(solver, case, kernel: bool):
 
 def k2_run(solver, case, kernel: bool):
     fn = k2d.tendencies_2d if kernel else k2d.tendencies_2d_plain
-    return fn(case["u"], case["w"], case["b"], case["p_hy"], case["bottom"], solver.coeffs)
+    return fn(case["u"], case["w"], case["b"], case["bottom"], solver.coeffs)
 
 
 def abs_diffs(names, xs, ys) -> dict:
@@ -282,14 +301,17 @@ def phase_build() -> dict:
 
 
 def kernel_parity(device, k1_envs=128, main_envs=1024, state_shape=(64, 96),
-                  off_chip_shape=(64, 128)) -> dict:
+                  off_chip_shape=(64, 128), k2_runtime_shape=(64, 128),
+                  k2_general_shape=(80, 96)) -> dict:
     """Each kernel against its plain version from the same inputs: K1 after
     6 substeps (heater_duration 0.18) at ``k1_envs`` and after the main
-    path's 50 at ``main_envs``, K2 on one stage at ``main_envs``. Also K1
-    and its plain version against a float64 plain run, after 6 and after
-    50 substeps at ``k1_envs``, and K1's off-chip instance after 6 substeps
-    at ``k1_envs`` on ``off_chip_shape`` (128x64: the on-chip state does
-    not fit a block)."""
+    path's 50 at ``main_envs``, K2 on one stage at ``main_envs`` on
+    ``state_shape`` and on a grid of each of its other instances (128x64:
+    the runtime march; 96x80: the general instance). Also K1 and its plain
+    version against a float64 plain run, after 6 and after 50 substeps at
+    ``k1_envs``, K2 and its plain version against one at ``main_envs``, and
+    K1's off-chip instance after 6 substeps at ``k1_envs`` on
+    ``off_chip_shape`` (128x64: the on-chip state does not fit a block)."""
     start = time.perf_counter()
     solver, case = make_case(device, k1_envs, state_shape, heater_duration=0.18)
     k1_out = k1_run(solver, case, True)
@@ -308,18 +330,38 @@ def kernel_parity(device, k1_envs=128, main_envs=1024, state_shape=(64, 96),
     k1_off = abs_diffs(K1_OUT, k1_run(solver, case, True), k1_run(solver, case, False))
     solver, case = make_case(device, main_envs, state_shape, heater_duration=1.5, seed=1)
     k1_main = abs_diffs(K1_OUT, k1_run(solver, case, True), k1_run(solver, case, False))
-    k2 = abs_diffs(K2_OUT, k2_run(solver, case, True), k2_run(solver, case, False))
+    k2_out, k2_plain = k2_run(solver, case, True), k2_run(solver, case, False)
+    k2 = abs_diffs(K2_OUT, k2_out, k2_plain)
+    # K2 in float64 from the same inputs: both halves' float32 rounding
+    ref_k2 = k2_run(solver, {k: v.double() for k, v in case.items()}, False)
+    k2_float64 = {"kernel": abs_diffs(K2_OUT, ref_k2, k2_out),
+                  "plain_float32": abs_diffs(K2_OUT, ref_k2, k2_plain)}
+    del k2_out, k2_plain, ref_k2
+    k2_grids = {"grid": state_shape, "runtime_grid": k2_runtime_shape,
+                "general_grid": k2_general_shape}
+    k2_instances = {name: tendencies_2d_instance(shape[1], shape[0])
+                    for name, shape in k2_grids.items()}
+    k2_more = {}
+    for name, shape, seed in (("runtime_grid", k2_runtime_shape, 5),
+                              ("general_grid", k2_general_shape, 6)):
+        solver, case = make_case(device, main_envs, shape, heater_duration=0.18, seed=seed)
+        k2_more[name] = abs_diffs(K2_OUT, k2_run(solver, case, True), k2_run(solver, case, False))
     errs = {"env_step_2d": max(k1.values()), "env_step_2d_main": max(k1_main.values()),
-            "env_step_2d_off_chip": max(k1_off.values()), "tendencies_2d": max(k2.values())}
+            "env_step_2d_off_chip": max(k1_off.values()), "tendencies_2d": max(k2.values()),
+            "tendencies_2d_runtime": max(k2_more["runtime_grid"].values()),
+            "tendencies_2d_general": max(k2_more["general_grid"].values())}
     atols = {"env_step_2d": K1_ATOL, "env_step_2d_main": K1_MAIN_ATOL,
-             "env_step_2d_off_chip": K1_ATOL, "tendencies_2d": K2_ATOL}
+             "env_step_2d_off_chip": K1_ATOL, "tendencies_2d": K2_ATOL,
+             "tendencies_2d_runtime": K2_ATOL, "tendencies_2d_general": K2_ATOL}
     failed = {k: (errs[k], atols[k]) for k in errs if not errs[k] <= atols[k]}
     if failed:
         raise AssertionError(f"kernel parity failed (error, atol): {failed}")
     return {"phase": "kernel_parity", "max_abs_err": errs, "atol": atols,
             "env_step_2d_by_field": k1, "env_step_2d_main_by_field": k1_main,
             "env_step_2d_off_chip_by_field": k1_off, "off_chip_shape": list(off_chip_shape),
-            "tendencies_2d_by_field": k2,
+            "tendencies_2d_by_field": k2, "tendencies_2d_instances": k2_instances,
+            "tendencies_2d_other_grids_by_field": k2_more,
+            "tendencies_2d_float64_plain_vs": k2_float64,
             "float64_plain_vs": {"kernel": abs_diffs(K1_OUT, ref, k1_out),
                                  "plain_float32": abs_diffs(K1_OUT, ref, plain)},
             "float64_plain_vs_50_substeps": float64_50,
@@ -337,9 +379,28 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@contextlib.contextmanager
+def counting_p_hy():
+    """Count the calls of the PyTorch pHY' (``hydrostatic_pressure``, which
+    the 2D solver and the plain tendencies reach) made inside; yields a
+    one-item list holding the count."""
+    real, calls = k2d.hydrostatic_pressure, [0]
+
+    def counted(*args):
+        calls[0] += 1
+        return real(*args)
+
+    k2d.hydrostatic_pressure = s2d.hydrostatic_pressure = counted
+    try:
+        yield calls
+    finally:
+        k2d.hydrostatic_pressure = s2d.hydrostatic_pressure = real
+
+
 def main_path(device, num_envs=1024, state_shape=(64, 96), observation_shape=(8, 48),
               heater_duration=1.5, steps=3, seed=0) -> dict:
-    """The user's path: reset, ``steps`` env steps, one single substep."""
+    """The user's path: reset, ``steps`` env steps, one single substep (on
+    the card one PyTorch pHY' call: K2 computes its own)."""
     device = torch.device(device)
     env = RBC2DVectorEnv(num_envs, state_shape=state_shape,
                          observation_shape=observation_shape,
@@ -358,9 +419,13 @@ def main_path(device, num_envs=1024, state_shape=(64, 96), observation_shape=(8,
         state, ts = env.step(state, a)
     _sync(device)
     steps_s = time.perf_counter() - start
-    sub = env.solver.substep(state.fields, env.solver.heater_profile(actions[-1]))
+    bottom = env.solver.heater_profile(actions[-1])
+    with counting_p_hy() as p_hy_calls:
+        sub = env.solver.substep(state.fields, bottom)
     _sync(device)
     launches = {name: WRAPPERS[name].launches for name in ("env_step_2d", "tendencies_2d")}
+    if device.type == "cuda" and p_hy_calls[0] != 1:
+        raise AssertionError(f"the substep made {p_hy_calls[0]} PyTorch pHY' calls, not 1")
 
     nz_o, nx_o = observation_shape
     if tuple(ts.obs.shape) != (num_envs, 3, nz_o, nx_o):
@@ -388,7 +453,7 @@ def main_path(device, num_envs=1024, state_shape=(64, 96), observation_shape=(8,
             "reset_s": reset_s, "steps_s": steps_s,
             "env_steps_per_s": num_envs * steps / steps_s,
             "nusselt_physical": [nu_lo, nu_hi], "max_abs_div": div,
-            "div_atol": div_tol, "launches": launches}
+            "div_atol": div_tol, "launches": launches, "substep_p_hy_calls": p_hy_calls[0]}
 
 
 def _cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -403,11 +468,56 @@ def _cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_time_split(events: list, top: int = 12) -> dict:
+    """Device time by kernel name from a Chrome trace's events (``cat``
+    "kernel", ``ts`` and ``dur`` in us): the ``top`` largest names, the
+    busy sum and the device's idle share of the span from the first
+    kernel's start to the last one's end."""
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    if not kernels:
+        return {"not_measured": "the profiler recorded no kernel"}
+    by_name = {}
+    for e in kernels:
+        t, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (t + e["dur"], n + 1)
+    busy = sum(e["dur"] for e in kernels)
+    span = max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"device_busy_ms": busy / 1e3, "span_ms": span / 1e3,
+            "idle_share": 1.0 - busy / span if span > 0 else 0.0,
+            "kernels": [{"name": name[:120], "ms": t / 1e3, "count": n}
+                        for name, (t, n) in ranked]}
+
+
+def device_profile(fn) -> dict:
+    """One call of ``fn`` (after one warm-up) under ``torch.profiler`` with
+    CUDA activity: ``kernel_time_split`` of its trace."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/trace.json"
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    return kernel_time_split(events)
+
+
 def timing(device, num_envs=1024, state_shape=(64, 96), heater_duration=1.5,
            off_chip_shape=(64, 128)) -> dict:
     """CUDA-event times at the main path's shapes, with the plain versions
-    and the bounds, and K1's off-chip instance on ``off_chip_shape``;
-    launches made here are not the main path's."""
+    and the bounds, and K1's off-chip instance on ``off_chip_shape``; the
+    PyTorch pHY' and one ``Solver2D.substep`` split into its 3 K2 launches,
+    its one pHY' call, the RK updates and the projections (divergence,
+    solve and correction), each part timed alone, and the substep's
+    kernels by device time from ``torch.profiler``. Launches made here are
+    not the main path's."""
     begin = time.perf_counter()
     out = {}
     for name, shape, run, reps in (
@@ -425,7 +535,33 @@ def timing(device, num_envs=1024, state_shape=(64, 96), heater_duration=1.5,
         bound_ms, bound_by = bound(work)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "share_of_bound": bound_ms / ms, **work}
-    return {"phase": "timing", "num_envs": num_envs, "kernels": out,
+    nz, nx = state_shape
+    own = tendencies_own_bytes(num_envs, nx, nz)
+    out["tendencies_2d"].update(own_bytes=own, own_bound_ms=1e3 * own / HBM_BYTES_PER_S)
+
+    solver, case = make_case(device, num_envs, state_shape, heater_duration, seed=2)
+    c, dt = solver.coeffs, solver.params.dt_solver
+    uwb = (case["u"], case["w"], case["b"])
+    g = k2_run(solver, case, True)
+    parts = {
+        "p_hy_ms": _cuda_ms(lambda: k2d.hydrostatic_pressure(case["b"], c.dz, c.min_b), 20),
+        "rk_update_stage0_ms": _cuda_ms(lambda: k2d.rk3_update(uwb, g, None, 0, dt), 20),
+        "rk_update_stage12_ms": _cuda_ms(lambda: k2d.rk3_update(uwb, g, g, 1, dt), 20),
+        "project_ms": _cuda_ms(
+            lambda: k2d.project_2d(case["u"], case["w"], solver.spectral, c,
+                                   (k2d.RK3_GAMMA[0] + k2d.RK3_ZETA[0]) * dt), 10)}
+    zeros = torch.zeros_like(case["u"])
+    f = Fields2D(case["u"], case["w"], case["b"], zeros, zeros)
+    substep_ms = _cuda_ms(lambda: solver.substep(f, case["bottom"]), 5)
+    split = {"substep_ms": substep_ms,
+             "tendencies_2d_ms": 3 * out["tendencies_2d"]["ms"],
+             "p_hy_ms": parts["p_hy_ms"],
+             "rk_update_ms": parts["rk_update_stage0_ms"] + 2 * parts["rk_update_stage12_ms"],
+             "project_ms": 3 * parts["project_ms"]}
+    split["rest_ms"] = substep_ms - sum(v for k, v in split.items() if k != "substep_ms")
+    return {"phase": "timing", "num_envs": num_envs, "kernels": out, "substep_parts": parts,
+            "substep_split": split,
+            "substep_device": device_profile(lambda: solver.substep(f, case["bottom"])),
             "seconds": time.perf_counter() - begin}
 
 
@@ -1171,6 +1307,10 @@ def main() -> int:
     emit(phase_build())
     parity = kernel_parity(device)
     emit(parity)
+    k2_want = {"grid": "specialised", "runtime_grid": "runtime", "general_grid": "general"}
+    if parity["tendencies_2d_instances"] != k2_want:
+        raise AssertionError(f"K2 instances {parity['tendencies_2d_instances']}, "
+                             f"expected {k2_want}")
     path = main_path(device)
     card = card_line()
     emit({**path, "card": card})

@@ -58,20 +58,53 @@
 //   previous stage and pHY' in per-env global scratch, the slabs in shared
 //   memory, and each phase a loop over points between barriers (pHY' by the
 //   same warp scan, a chunk of 32 levels at a time from the top; the
-//   tendencies by K2's tendencies_block; the same DCT-form solve, one
+//   tendencies by ub5.cuh's tendencies_block; the same DCT-form solve, one
 //   32-column tile of each product after another).
 //
-// K2 tendencies_2d_kernel replaces ops/pallas2d.py:_tendency_kernel (reached
-// from make_tendencies_2d, pl.pallas_call at :562): gu, gw, gb of one RK3
-// stage. Bound: bytes (u, w, b, p_hy, bottom in; gu, gw, gb out, each once).
-// Design: one block per env over ub5.cuh's flux-form device code.
+// K2 tendencies_2d_march_kernel replaces ops/pallas2d.py:_tendency_kernel
+// (reached from make_tendencies_2d, pl.pallas_call at :562): gu, gw, gb of
+// one RK3 stage, for the single-substep API (Solver2D.substep).
+//   Bound: bytes. The Pallas kernel reads u, w, b, p_hy and bottom and
+//   writes gu, gw, gb; here K2 takes b and computes pHY' itself, so the
+//   single substep calls no pHY' between its stages: u, w, b, bottom in and
+//   gu, gw, gb out, about 149 KB an env at 96x64 against some 180 FLOP a
+//   point.
+//   What held its first design (one 256-thread block per env over
+//   tendencies_block; 0.41 ms at 1024 envs on 96x64 on an H100 80GB HBM3 at
+//   700 W, 13 % of the Pallas kernel's bytes bound): a runtime division in
+//   every index and IEEE division in every difference, every face flux
+//   computed by both of its cells, every tap a load from global memory,
+//   gw in a second pass over u and w, a branching z ladder, runtime nx and
+//   nz, and a pHY' tensor made by PyTorch before each launch.
+//   Design: K1's phases 1 and 2 (pHY' and the x march) with each point's g
+//   stored to global memory in place of K1's RK update. It is a copy of
+//   K1's code: one template shared by both changed K1's compiled code
+//   (PERF.md, section 6), so K1's source stays as it was. One 512-thread
+//   block per env in K1's layout (warp v owns the x columns [v xs, (v + 1)
+//   xs), lane l the levels l + 32 s) copies b, then u, w and bottom, into
+//   shared memory by 16-byte cp.async copies (b in a commit group of its
+//   own), computes pHY' into a shared slab by K1's float64 lane scan while
+//   u and w are in flight, and marches each warp along its columns: each
+//   x-face flux once (carried in a register), each z-face flux once
+//   (passed by shuffle), the z ladder branch-free, the spacings as
+//   reciprocals from the host; each g goes from a register to global
+//   memory, consecutive lanes to consecutive k. Shared memory, in floats:
+//   3 nx nz + nx (nz + 1) + nx (b, pHY', u, w, bottom), 99,072 bytes at
+//   96x64: two blocks an SM. nx, nz are template parameters for 96x64; a
+//   runtime instance takes every other grid with 4 <= nx <= 128 and 2 <=
+//   nz <= 64 (K1's layout; its shared memory always fits).
+//   Every other grid runs the general instance, tendencies_2d_general_kernel:
+//   pHY' into per-env global scratch by K1's off-chip chunked warp scan,
+//   then ub5.cuh's tendencies_block (a thread a point) with the host's
+//   reciprocals.
+#include <climits>
+#include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "ub5.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;  // K2
 
 // RK3 coefficients of the reference's :RungeKutta3 (pallas2d.py:214-215).
 __constant__ float kGamma[3] = {8.0f / 15.0f, 5.0f / 12.0f, 3.0f / 4.0f};
@@ -89,11 +122,18 @@ constexpr size_t kSmemPerBlock = 232448;  // an H100 block's shared memory
 constexpr unsigned kFull = 0xffffffffu;
 
 // K1's scalars: reciprocals of the spacings and their squares and of each
-// stage's dt_stage, taken once on the host in double precision.
+// stage's dt_stage, taken once on the host in double precision. K2 takes
+// them too (its n_substeps and dt unused).
 struct K1Params {
   int nx, nz, n_substeps;
   float dt, idx, idz, idx2, idz2, dz, nu, kappa, min_b;
   float dts[3], idts[3];  // (gamma + zeta) dt of each stage, and its reciprocal
+  // a difference over dx or dz, a second difference over dx^2 or dz^2
+  // (ub5.cuh's per-point tendencies)
+  __device__ __forceinline__ float ddx(float d) const { return d * idx; }
+  __device__ __forceinline__ float ddz(float d) const { return d * idz; }
+  __device__ __forceinline__ float d2x(float d) const { return d * idx2; }
+  __device__ __forceinline__ float d2z(float d) const { return d * idz2; }
 };
 
 K1Params k1_params(int nx, int nz, int n_substeps, float dt, float dx, float dz, float nu,
@@ -640,15 +680,229 @@ env_step_2d_global_kernel(const float* __restrict__ u_in, const float* __restric
 
 // ---- K2 -----------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-tendencies_2d_kernel(const float* __restrict__ u, const float* __restrict__ w,
-                     const float* __restrict__ b, const float* __restrict__ p_hy,
-                     const float* __restrict__ bottom, float* __restrict__ gu,
-                     float* __restrict__ gw, float* __restrict__ gb, RBCParams P) {
+// Shared memory of K2's march, in floats: b, pHY', u (nx, nz), w (nx, nz + 1)
+// and the bottom profile (nx).
+size_t tendencies_march_smem_floats(int nx, int nz) {
+  return 3 * (size_t)nx * nz + (size_t)nx * (nz + 1) + nx;
+}
+
+// Whether K2's march takes the grid: K1's warps' columns and lanes'
+// levels, and its shared memory (at most 132,096 bytes, at 128x64).
+bool tendencies_on_march(int nx, int nz) {
+  return nx >= 4 && k1_cols(nx) <= kK1MaxCols && nz >= 2 && nz <= kK1MaxNz &&
+         sizeof(float) * tendencies_march_smem_floats(nx, nz) <= kSmemPerBlock;
+}
+
+// Shared memory K2 needs per block, in floats: the march's, or none.
+size_t tendencies_2d_smem_floats(int nx, int nz) {
+  return tendencies_on_march(nx, nz) ? tendencies_march_smem_floats(nx, nz) : 0;
+}
+
+// Global scratch per env, in floats: none on the march; pHY' off it.
+size_t tendencies_2d_scratch_floats(int nx, int nz) {
+  return tendencies_on_march(nx, nz) ? 0 : (size_t)nx * nz;
+}
+
+// Copy n floats from global src to shared dst by cp.async: 16 bytes a copy
+// where both are 16-byte aligned and n % 4 == 0, else 4 bytes.
+__device__ __forceinline__ void copy_async(float* dst, const float* src, int n) {
+  if ((((uintptr_t)dst | (uintptr_t)src) & 15) == 0 && (n & 3) == 0) {
+    for (int q = 4 * threadIdx.x; q < n; q += 4 * kK1Threads)
+      __pipeline_memcpy_async(dst + q, src + q, 16);
+  } else {
+    for (int q = threadIdx.x; q < n; q += kK1Threads)
+      __pipeline_memcpy_async(dst + q, src + q, sizeof(float));
+  }
+}
+
+// K2's march (see the head of this file): K1's phases 1 and 2 with each g
+// stored. Two blocks an SM at 96x64 (at most 64 registers); one at runtime
+// sizes, where 64 registers spill and the shared memory may not fit two.
+template <int NX, int NZ>
+__global__ void __launch_bounds__(kK1Threads, NX > 0 ? 2 : 1)
+tendencies_2d_march_kernel(const float* __restrict__ u_in, const float* __restrict__ w_in,
+                           const float* __restrict__ b_in, const float* __restrict__ bottom_in,
+                           float* __restrict__ gu_out, float* __restrict__ gw_out,
+                           float* __restrict__ gb_out, K1Params P) {
+  constexpr int NS = kK1Levels;
+  constexpr int XS = NX > 0 ? k1_cols(NX) : kK1MaxCols;
+  extern __shared__ float smem[];
+  const int nx = NX > 0 ? NX : P.nx, nz = NZ > 0 ? NZ : P.nz, nw = nz + 1;
+  const int nc = nx * nz, nf = nx * nw;
   const size_t e = blockIdx.x;
-  const int nc = P.nx * P.nz, nw = P.nx * (P.nz + 1);
-  tendencies_block(u + e * nc, w + e * nw, b + e * nc, p_hy + e * nc,
-                   bottom + e * P.nx, gu + e * nc, gw + e * nw, gb + e * nc, P);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int xs = k1_cols(nx), x0 = warp * xs, xn = min(xs, nx - x0);  // xn may be <= 0
+
+  const State2D X{smem + 2 * nc, smem + 3 * nc, smem};  // u, w, b
+  float* phy = smem + nc;
+  float* bot = X.w + nf;
+  copy_async(X.b, b_in + e * nc, nc);
+  __pipeline_commit();
+  copy_async(X.u, u_in + e * nc, nc);
+  copy_async(X.w, w_in + e * nf, nf);
+  copy_async(bot, bottom_in + e * nx, nx);
+  __pipeline_commit();
+  float* gu = gu_out + e * nc;
+  float* gw = gw_out + e * nf;
+  float* gb = gb_out + e * nc;
+  for (int i = threadIdx.x; i < nx; i += kK1Threads) gw[i * nw + nz] = 0.0f;  // the top wall
+
+  auto wrap = [&](int i) { return i < 0 ? i + nx : (i >= nx ? i - nx : i); };
+  int kl[NS], kc[NS];  // this lane's levels, and the same clamped into the column
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    kl[s] = lane + 32 * s;
+    kc[s] = min(kl[s], nz - 1);
+  }
+  // z tap o of level s (offsets -3..3 as o = 0..6), clamped into a column of n
+  auto tap = [&](int s, int o, int n) { return min(max(kl[s] + o - 3, 0), n - 1); };
+
+  // x fluxes: u at center c (taps faces c-2..c+3); w, b at face c (taps c-3..c+2)
+  auto xflux_u = [&](int c, int k) {
+    const float* u = X.u + k;
+    const float a = u[wrap(c) * nz], b = u[wrap(c + 1) * nz];
+    return ub5_upwind(u[wrap(c - 2) * nz], u[wrap(c - 1) * nz], a, b, u[wrap(c + 2) * nz],
+                      u[wrap(c + 3) * nz], 0.5f * (a + b));
+  };
+  auto xflux_face = [&](const float* q, int ld, int c, float vel) {
+    return ub5_upwind(q[wrap(c - 3) * ld], q[wrap(c - 2) * ld], q[wrap(c - 1) * ld],
+                      q[wrap(c) * ld], q[wrap(c + 1) * ld], q[wrap(c + 2) * ld], vel);
+  };
+  auto xflux_w = [&](int c, int s) {
+    const float* uc = X.u + wrap(c) * nz;
+    const float vel = 0.5f * (uc[max(kl[s] - 1, 0)] + uc[kc[s]]);
+    return xflux_face(X.w + kc[s], nw, c, vel);
+  };
+  auto xflux_b = [&](int c, int s) {
+    return xflux_face(X.b + kc[s], nz, c, X.u[wrap(c) * nz + kc[s]]);
+  };
+
+  // ---- 1. pHY' of this warp's columns: a float64 suffix scan along z, on b
+  // alone, while u and w are still in flight ----------------------------------
+  __pipeline_wait_prior(1);  // this thread's copies of b; the barrier, every thread's
+  __syncthreads();
+#pragma unroll
+  for (int xi = 0; xi < XS; ++xi) {
+    if (xi < xn) {
+      double above = 0.0;
+      phy_levels<NS>(X.b + (x0 + xi) * nz, phy + (x0 + xi) * nz, 0, nz, lane, P, above);
+    }
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  // ---- 2. tendencies, marching along x, each g from a register to memory ----
+  float fu[NS], fw[NS], fb[NS];  // x fluxes entering the current column
+  if (xn > 0) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      fu[s] = xflux_u(x0 - 1, kc[s]);
+      fw[s] = xflux_w(x0, s);
+      fb[s] = xflux_b(x0, s);
+    }
+  }
+#pragma unroll
+  for (int xi = 0; xi < XS; ++xi) {
+    if (xi < xn) {
+      const int i = x0 + xi, im = wrap(i - 1), ip = wrap(i + 1);
+      const float* uc = X.u + i * nz;
+      const float* wc = X.w + i * nw;
+      const float* bc = X.b + i * nz;
+      const float* wm = X.w + im * nw;
+      // z fluxes through face k of u (velocity w at the x-face) and b,
+      // and through center k of w
+      float zu[NS], zb[NS], zw[NS], zu_up[NS], zb_up[NS], zw_dn[NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const ZOrders oc = z_orders(kl[s], nz), ow = z_orders(kl[s] + 1, nw);
+        const int k = kc[s];
+        zu[s] = z_upwind(uc[tap(s, 0, nz)], uc[tap(s, 1, nz)], uc[tap(s, 2, nz)], uc[k],
+                         uc[tap(s, 4, nz)], uc[tap(s, 5, nz)], oc, 0.5f * (wm[k] + wc[k]));
+        zb[s] = z_upwind(bc[tap(s, 0, nz)], bc[tap(s, 1, nz)], bc[tap(s, 2, nz)], bc[k],
+                         bc[tap(s, 4, nz)], bc[tap(s, 5, nz)], oc, wc[k]);
+        const float w0 = wc[k], w1 = wc[k + 1];
+        zw[s] = z_upwind(wc[tap(s, 1, nw)], wc[tap(s, 2, nw)], w0, w1, wc[tap(s, 5, nw)],
+                         wc[tap(s, 6, nw)], ow, 0.5f * (w0 + w1));
+      }
+      flux_above(zu, zu_up, lane, nz);
+      flux_above(zb, zb_up, lane, nz);
+      flux_below(zw, zw_dn, lane);
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const int kk = kl[s], k = kc[s];
+        if (kk >= nz) continue;  // a level past a short column: nothing to store
+        // ---- gu at (face i, center k) ----
+        {
+          const float f_new = xflux_u(i, k);
+          float adv = (f_new - fu[s]) * P.idx;
+          fu[s] = f_new;
+          adv += (zu_up[s] - zu[s]) * P.idz;
+          const float dphy = (phy[i * nz + k] - phy[im * nz + k]) * P.idx;
+          const float q = uc[k];
+          const float qm = kk > 0 ? uc[max(kk - 1, 0)] : -uc[0];
+          const float qp = kk < nz - 1 ? uc[min(kk + 1, nz - 1)] : -uc[nz - 1];
+          const float lap = (X.u[ip * nz + k] - 2.0f * q + X.u[im * nz + k]) * P.idx2 +
+                            (qp - 2.0f * q + qm) * P.idz2;
+          gu[i * nz + k] = -adv - dphy + P.nu * lap;
+        }
+        // ---- gw at (center i, face k); face 0 is a wall ----
+        {
+          const float f_new = xflux_w(i + 1, s);
+          float adv = (f_new - fw[s]) * P.idx;
+          fw[s] = f_new;
+          adv += (zw[s] - zw_dn[s]) * P.idz;
+          const float q = wc[k];
+          const float lap = (X.w[ip * nw + k] - 2.0f * q + X.w[im * nw + k]) * P.idx2 +
+                            (wc[k + 1] - 2.0f * q + wc[max(k - 1, 0)]) * P.idz2;
+          gw[i * nw + k] = kk == 0 ? 0.0f : -adv + P.nu * lap;
+        }
+        // ---- gb at (center i, center k) ----
+        {
+          const float f_new = xflux_b(i + 1, s);
+          float adv = (f_new - fb[s]) * P.idx;
+          fb[s] = f_new;
+          adv += (zb_up[s] - zb[s]) * P.idz;
+          const float q = bc[k];
+          const float qm = kk > 0 ? bc[max(kk - 1, 0)] : 2.0f * bot[i] - bc[0];
+          const float qp = kk < nz - 1 ? bc[min(kk + 1, nz - 1)] : 2.0f * P.min_b - bc[nz - 1];
+          const float lap = (X.b[ip * nz + k] - 2.0f * q + X.b[im * nz + k]) * P.idx2 +
+                            (qp - 2.0f * q + qm) * P.idz2;
+          gb[i * nz + k] = -adv + P.kappa * lap;
+        }
+      }
+    }
+  }
+}
+
+// The instance of K2's march for a grid: specialised for the reference's
+// 96x64, the runtime-size one for every other grid it takes.
+decltype(&tendencies_2d_march_kernel<0, 0>) tendencies_kernel_for(int nx, int nz) {
+  return nx == 96 && nz == 64 ? tendencies_2d_march_kernel<96, 64>
+                              : tendencies_2d_march_kernel<0, 0>;
+}
+
+// K2's general instance (see the head of this file): a block per env, pHY'
+// in phy_all (per-env scratch), then ub5.cuh's per-point code.
+__global__ void __launch_bounds__(kK1Threads)
+tendencies_2d_general_kernel(const float* __restrict__ u_in, const float* __restrict__ w_in,
+                             const float* __restrict__ b_in,
+                             const float* __restrict__ bottom_in, float* __restrict__ gu_out,
+                             float* __restrict__ gw_out, float* __restrict__ gb_out,
+                             float* __restrict__ phy_all, K1Params P) {
+  const int nx = P.nx, nz = P.nz;
+  const int nc = nx * nz, nf = nx * (nz + 1);
+  const size_t e = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* b = b_in + e * nc;
+  float* phy = phy_all + e * nc;
+  for (int i = warp; i < nx; i += kK1Warps) {
+    double above = 0.0;
+    for (int k0 = (nz - 1) / 32 * 32; k0 >= 0; k0 -= 32)
+      phy_levels<1>(b + i * nz, phy + i * nz, k0, nz, lane, P, above);
+  }
+  __syncthreads();
+  tendencies_block(u_in + e * nc, w_in + e * nf, b, phy, bottom_in + e * nx, gu_out + e * nc,
+                   gw_out + e * nf, gb_out + e * nc, P);
 }
 
 }  // namespace
@@ -687,14 +941,27 @@ int launch_env_step_2d(const float* u, const float* w, const float* b,
   return (int)cudaGetLastError();
 }
 
-int launch_tendencies_2d(const float* u, const float* w, const float* b,
-                         const float* p_hy, const float* bottom, float* gu,
-                         float* gw, float* gb, int n_env, int nx, int nz,
-                         float dx, float dz, float nu, float kappa, float min_b,
+int launch_tendencies_2d(const float* u, const float* w, const float* b, const float* bottom,
+                         float* gu, float* gw, float* gb, float* scratch, int n_env, int nx,
+                         int nz, float dx, float dz, float nu, float kappa, float min_b,
                          void* stream) {
-  const RBCParams P{nx, nz, dx, dz, nu, kappa, min_b};
-  tendencies_2d_kernel<<<n_env, kThreads, 0, (cudaStream_t)stream>>>(
-      u, w, b, p_hy, bottom, gu, gw, gb, P);
+  const bool on_march = tendencies_on_march(nx, nz);
+  if (nx < kK1MinNx || nz < 1 || (size_t)nx * (nz + 1) > (size_t)INT_MAX ||
+      (!on_march && scratch == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const K1Params P = k1_params(nx, nz, 1, 1.0f, dx, dz, nu, kappa, min_b);
+  if (!on_march) {
+    tendencies_2d_general_kernel<<<n_env, kK1Threads, 0, (cudaStream_t)stream>>>(
+        u, w, b, bottom, gu, gw, gb, scratch, P);
+    return (int)cudaGetLastError();
+  }
+  auto* kernel = tendencies_kernel_for(nx, nz);
+  const size_t smem = sizeof(float) * tendencies_march_smem_floats(nx, nz);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<n_env, kK1Threads, smem, (cudaStream_t)stream>>>(u, w, b, bottom, gu, gw, gb, P);
   return (int)cudaGetLastError();
 }
 

@@ -6,23 +6,33 @@
 //                                    axis: x in 2D, y in 3D) and uw_flux_x
 //   _z_row_flux/_z_uw_flux        -> z_uw_flux (interior C6/D5 rows, wall
 //     (:204-255)                     rows by the UB5 -> UB3 -> UB1 ladder)
-// and the body of ops/pallas2d.py:_tendencies (:144-184) -> tendencies_block
-// (K2), and the select form of _upwind_periodic / _z_upwind (:85-168) and
-// stencils._z_order_ladder that the x-march kernels (K1, K3, K5) use ->
-// ub5_upwind, z_orders and the branch-free z_upwind.
+// and the body of ops/pallas2d.py:_tendencies (:144-184) -> tendency_u,
+// tendency_w, tendency_b (one point each) and tendencies_block (K1's
+// off-chip instance, K2's general instance), and the select form of
+// _upwind_periodic / _z_upwind (:85-168) and stencils._z_order_ladder that
+// the x-march kernels (K1, K2, K3, K5) use -> ub5_upwind, z_orders and the
+// branch-free z_upwind.
 //
 // 2D layout: one env's fields are contiguous slabs, x-major with z fastest:
 // u, b, p_hy are (nx, nz), w is (nx, nz + 1), bottom is (nx,). x is periodic,
 // z is bounded (no-slip walls, w = 0 on the wall faces).
 //
-// In tendencies_block each output point is computed from the input slabs alone (fluxes on both
-// faces of a cell are recomputed rather than staged), so a block walks its
-// points in any order; consecutive threads take consecutive z for coalescing.
+// The per-point tendencies compute each output point from the input slabs
+// alone (fluxes on both faces of a cell are recomputed rather than staged),
+// so a block walks its points in any order. They are templates over the
+// scalars' type, which says how a difference is scaled by a spacing:
+// RBCParams divides (K1's off-chip instance), K1Params (rbc2d.cu)
+// multiplies by reciprocals taken on the host.
 #pragma once
 
 struct RBCParams {
   int nx, nz;
   float dx, dz, nu, kappa, min_b;
+  // a difference over dx or dz, and a second difference over dx^2 or dz^2
+  __device__ __forceinline__ float ddx(float d) const { return d / dx; }
+  __device__ __forceinline__ float ddz(float d) const { return d / dz; }
+  __device__ __forceinline__ float d2x(float d) const { return d / (dx * dx); }
+  __device__ __forceinline__ float d2z(float d) const { return d / (dz * dz); }
 };
 
 __device__ __forceinline__ int wrap_x(int i, int nx) {
@@ -134,73 +144,77 @@ __device__ __forceinline__ float z_upwind(float tm3, float tm2, float tm1, float
 }
 
 // gu at (x-face i, z-center k).
+template <class RP>
 __device__ __forceinline__ float tendency_u(const float* u, const float* w,
                                             const float* p_hy, int i, int k,
-                                            const RBCParams& P) {
+                                            const RP& P) {
   const int nx = P.nx, nz = P.nz, sw = nz + 1;
   const int im = wrap_x(i - 1, nx), ip = wrap_x(i + 1, nx);
   const float uc_i = 0.5f * (u[i * nz + k] + u[ip * nz + k]);
   const float uc_im = 0.5f * (u[im * nz + k] + u[i * nz + k]);
-  float adv = (uw_flux_x(u, nz, nx, i, k, 1, uc_i) -
-               uw_flux_x(u, nz, nx, im, k, 1, uc_im)) / P.dx;
+  float adv = P.ddx(uw_flux_x(u, nz, nx, i, k, 1, uc_i) -
+                    uw_flux_x(u, nz, nx, im, k, 1, uc_im));
   const float wxf_k = 0.5f * (w[im * sw + k] + w[i * sw + k]);
   const float wxf_kp = 0.5f * (w[im * sw + k + 1] + w[i * sw + k + 1]);
   const float* uc = u + i * nz;
-  adv += (z_uw_flux(uc, nz, k + 1, 0, wxf_kp) - z_uw_flux(uc, nz, k, 0, wxf_k)) / P.dz;
-  const float dphy = (p_hy[i * nz + k] - p_hy[im * nz + k]) / P.dx;
+  adv += P.ddz(z_uw_flux(uc, nz, k + 1, 0, wxf_kp) - z_uw_flux(uc, nz, k, 0, wxf_k));
+  const float dphy = P.ddx(p_hy[i * nz + k] - p_hy[im * nz + k]);
   const float q = uc[k];
-  const float lapx = (u[ip * nz + k] - 2.0f * q + u[im * nz + k]) / (P.dx * P.dx);
+  const float lapx = P.d2x(u[ip * nz + k] - 2.0f * q + u[im * nz + k]);
   const float qm = k > 0 ? uc[k - 1] : -uc[0];            // ghost: 2 * 0 - q0
   const float qp = k < nz - 1 ? uc[k + 1] : -uc[nz - 1];
-  const float lapz = (qp - 2.0f * q + qm) / (P.dz * P.dz);
+  const float lapz = P.d2z(qp - 2.0f * q + qm);
   return -adv - dphy + P.nu * (lapx + lapz);
 }
 
 // gw at (x-center i, z-face k); zero on the wall faces.
+template <class RP>
 __device__ __forceinline__ float tendency_w(const float* u, const float* w,
-                                            int i, int k, const RBCParams& P) {
+                                            int i, int k, const RP& P) {
   const int nx = P.nx, nz = P.nz, sw = nz + 1;
   if (k == 0 || k == nz) return 0.0f;
   const int im = wrap_x(i - 1, nx), ip = wrap_x(i + 1, nx);
   const float uzf_i = 0.5f * (u[i * nz + k - 1] + u[i * nz + k]);
   const float uzf_ip = 0.5f * (u[ip * nz + k - 1] + u[ip * nz + k]);
-  float adv = (uw_flux_x(w, sw, nx, ip, k, 0, uzf_ip) -
-               uw_flux_x(w, sw, nx, i, k, 0, uzf_i)) / P.dx;
+  float adv = P.ddx(uw_flux_x(w, sw, nx, ip, k, 0, uzf_ip) -
+                    uw_flux_x(w, sw, nx, i, k, 0, uzf_i));
   const float* wc = w + i * sw;
   const float wc_k = 0.5f * (wc[k] + wc[k + 1]);
   const float wc_km = 0.5f * (wc[k - 1] + wc[k]);
-  adv += (z_uw_flux(wc, sw, k, 1, wc_k) - z_uw_flux(wc, sw, k - 1, 1, wc_km)) / P.dz;
+  adv += P.ddz(z_uw_flux(wc, sw, k, 1, wc_k) - z_uw_flux(wc, sw, k - 1, 1, wc_km));
   const float q = wc[k];
-  const float lap = (w[ip * sw + k] - 2.0f * q + w[im * sw + k]) / (P.dx * P.dx) +
-                    (wc[k + 1] - 2.0f * q + wc[k - 1]) / (P.dz * P.dz);
+  const float lap = P.d2x(w[ip * sw + k] - 2.0f * q + w[im * sw + k]) +
+                    P.d2z(wc[k + 1] - 2.0f * q + wc[k - 1]);
   return -adv + P.nu * lap;
 }
 
 // gb at (x-center i, z-center k); Dirichlet bottom[i] and min_b walls.
+template <class RP>
 __device__ __forceinline__ float tendency_b(const float* u, const float* w,
                                             const float* b, const float* bottom,
-                                            int i, int k, const RBCParams& P) {
+                                            int i, int k, const RP& P) {
   const int nx = P.nx, nz = P.nz, sw = nz + 1;
   const int im = wrap_x(i - 1, nx), ip = wrap_x(i + 1, nx);
-  float adv = (uw_flux_x(b, nz, nx, ip, k, 0, u[ip * nz + k]) -
-               uw_flux_x(b, nz, nx, i, k, 0, u[i * nz + k])) / P.dx;
+  float adv = P.ddx(uw_flux_x(b, nz, nx, ip, k, 0, u[ip * nz + k]) -
+                    uw_flux_x(b, nz, nx, i, k, 0, u[i * nz + k]));
   const float* bc = b + i * nz;
-  adv += (z_uw_flux(bc, nz, k + 1, 0, w[i * sw + k + 1]) -
-          z_uw_flux(bc, nz, k, 0, w[i * sw + k])) / P.dz;
+  adv += P.ddz(z_uw_flux(bc, nz, k + 1, 0, w[i * sw + k + 1]) -
+               z_uw_flux(bc, nz, k, 0, w[i * sw + k]));
   const float q = bc[k];
-  const float lapx = (b[ip * nz + k] - 2.0f * q + b[im * nz + k]) / (P.dx * P.dx);
+  const float lapx = P.d2x(b[ip * nz + k] - 2.0f * q + b[im * nz + k]);
   const float qm = k > 0 ? bc[k - 1] : 2.0f * bottom[i] - bc[0];
   const float qp = k < nz - 1 ? bc[k + 1] : 2.0f * P.min_b - bc[nz - 1];
-  const float lapz = (qp - 2.0f * q + qm) / (P.dz * P.dz);
+  const float lapz = P.d2z(qp - 2.0f * q + qm);
   return -adv + P.kappa * (lapx + lapz);
 }
 
-// All three tendency slabs of one env, computed by the calling block.
+// All three tendency slabs of one env, computed by the calling block (K1's
+// off-chip instance, K2's general instance).
+template <class RP>
 __device__ __forceinline__ void tendencies_block(const float* u, const float* w,
                                                  const float* b, const float* p_hy,
                                                  const float* bottom, float* gu,
-                                                 float* gw, float* gb,
-                                                 const RBCParams& P) {
+                                                 float* gw, float* gb, const RP& P) {
   const int nc = P.nx * P.nz, nw = P.nx * (P.nz + 1);
   for (int p = threadIdx.x; p < nc; p += blockDim.x) {
     const int i = p / P.nz, k = p - i * P.nz;

@@ -64,13 +64,23 @@ class RBC2DVectorEnv:
         bank_sampling: str = "random",
         ic_noise: float = 0.0,
         dtype: torch.dtype = torch.float32,
+        poisson_precision: Optional[str] = None,
         device: str | torch.device | None = "cuda",
     ):
         """``bank_sampling`` and ``ic_noise`` act only on checkpoint-bank
         initial conditions (random or sequential bank index; Gaussian kick
         on bank states). Banks are read with h5py and are not ported yet
         (ROADMAP A.2), so ``checkpoint`` must be None, these two keep their
-        defaults, and initial conditions are the solver's random ones."""
+        defaults, and initial conditions are the solver's random ones.
+
+        ``poisson_precision`` counts the TPU matrix unit's passes in the JAX
+        package; the port's solve runs in full float32 (TF32 off), so only
+        None is accepted."""
+        if poisson_precision is not None:
+            raise ValueError(
+                f"poisson_precision={poisson_precision!r} is a TPU matrix-unit pass "
+                "count; the port's Poisson solve runs in full float32: pass None"
+            )
         if bank_sampling not in ("random", "sequential"):
             raise ValueError(f"unknown bank_sampling {bank_sampling!r}")
         if checkpoint is not None or bank_sampling != "random" or ic_noise > 0.0:

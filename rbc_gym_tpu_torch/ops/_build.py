@@ -1,7 +1,8 @@
 """Build the port's CUDA sources with nvcc and load them through ctypes.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` into a shared library with a
-plain C interface (no PyTorch headers, no ``cpp_extension``), written to
+One ``nvcc`` process per ``csrc/*.cu``, all started together, compiles
+each source into an object; one more links them into a shared library with
+a plain C interface (no PyTorch headers, no ``cpp_extension``), written to
 ``rbc_gym_tpu_torch/_build/`` under a name keyed by a hash of the sources
 and flags, so it is built once and reused until a source changes. Nothing
 here runs at import time: the first kernel launch builds and loads.
@@ -22,10 +23,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+TARGET = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*TARGET, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,8 +43,9 @@ ARGTYPES = {
         _P,  # stream
     ],
     "launch_tendencies_2d": [
-        _P, _P, _P, _P, _P,  # u, w, b, p_hy, bottom
+        _P, _P, _P, _P,  # u, w, b, bottom
         _P, _P, _P,  # gu, gw, gb
+        _P,  # per-env pHY' scratch of the general instance (NULL on the march)
         _I, _I, _I,  # n_env, nx, nz
         _F, _F, _F, _F, _F,  # dx, dz, nu, kappa, min_b
         _P,  # stream
@@ -134,12 +134,22 @@ def nvcc_path() -> str:
     return found
 
 
-def nvcc_command(output: Path) -> list[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(output), *map(str, sources())]
+def compile_command(source: Path, obj: Path) -> list[str]:
+    """nvcc of one source into an object."""
+    return [nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj), str(source)]
+
+
+def link_command(output: Path, objects: list[Path]) -> list[str]:
+    return [nvcc_path(), *TARGET, "-shared", "-o", str(output), *map(str, objects)]
 
 
 def library_path() -> Path:
     return BUILD_DIR / f"librbc_gym_kernels_{_source_hash()}.so"
+
+
+def _check(returncode: int, log: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{log}")
 
 
 def build() -> tuple[Path, float]:
@@ -152,13 +162,21 @@ def build() -> tuple[Path, float]:
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources()]
     start = time.perf_counter()
-    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
+    procs = [subprocess.Popen(compile_command(src, obj), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objects)]
+    logs = [proc.communicate()[0] for proc in procs]
+    try:
+        for proc, log in zip(procs, logs):
+            _check(proc.returncode, log)
+        proc = subprocess.run(link_command(tmp, objects), capture_output=True, text=True)
+        _check(proc.returncode, proc.stdout + proc.stderr)
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - start
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
     os.replace(tmp, lib)
     return lib, seconds
 

@@ -2,7 +2,8 @@
 
 ``env_step_2d`` replaces ``rbc_gym_tpu/ops/pallas2d.py:_env_step_kernel``
 (the whole env step) and ``tendencies_2d`` replaces ``_tendency_kernel``
-(one stage's gu, gw, gb). Both kernels are CUDA C++ in ``csrc/rbc2d.cu``;
+(one stage's gu, gw, gb; the Pallas kernel reads pHY', K2 takes b and
+computes pHY' itself). Both kernels are CUDA C++ in ``csrc/rbc2d.cu``;
 the source says what bounds each on an H100 and what its design does about
 it. A wrapper launches its kernel for CUDA tensors (float32, contiguous,
 batch-major (E, nx, nz[+1])) and raises on anything else; it takes its
@@ -10,10 +11,11 @@ plain version only for tensors on the CPU. Each wrapper counts its launches
 in ``<wrapper>.launches``.
 
 The plain versions are the JAX package's XLA path written in PyTorch:
-``tendencies_2d_plain`` is the stencil composition of
-``solver2d.tendencies_bm``, ``env_step_2d_plain`` the solver's eager
-substep loop. They run on any device, so a test can hold a kernel against
-its plain version on the same card.
+``tendencies_2d_phy`` is the stencil composition of
+``solver2d.tendencies_bm`` (it takes pHY'), ``tendencies_2d_plain`` the
+same after ``hydrostatic_pressure`` of b summed in float64 (as K1 and K2
+sum it), ``env_step_2d_plain`` the solver's eager substep loop. They run on any device, so a test can hold a
+kernel against its plain version on the same card.
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ def hydrostatic_pressure(b: torch.Tensor, dz: float, min_b: float) -> torch.Tens
     return -torch.flip(torch.cumsum(torch.flip(increments, (-1,)), dim=-1), (-1,))
 
 
-def tendencies_2d_plain(
+def tendencies_2d_phy(
     u: torch.Tensor,
     w: torch.Tensor,
     b: torch.Tensor,
@@ -69,7 +71,8 @@ def tendencies_2d_plain(
     bottom: torch.Tensor,
     c: Coeffs2D,
 ) -> Tensors3:
-    """gu, gw, gb of one RK3 stage (UB5 flux-form advection, diffusion)."""
+    """gu, gw, gb of one RK3 stage (UB5 flux-form advection, diffusion,
+    -d pHY'/dx), from pHY' as the JAX package's ``tendencies_bm`` takes it."""
     X, Z = -2, -1
     dx, dz = c.dx, c.dz
 
@@ -98,6 +101,42 @@ def tendencies_2d_plain(
     return gu, gw, gb
 
 
+def tendencies_2d_plain(
+    u: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    bottom: torch.Tensor,
+    c: Coeffs2D,
+) -> Tensors3:
+    """gu, gw, gb of one RK3 stage, pHY' computed from b as K1 and K2 do:
+    summed in float64 and rounded once to b's dtype. (A float32 sum rounds
+    at every level; its error, ~1e-6 in pHY' at 96x64, grows by 1/dx in
+    -d pHY'/dx to ~1e-5 in gu, the size of K2's gate.)"""
+    p_hy = hydrostatic_pressure(b.double(), c.dz, c.min_b).to(b.dtype)
+    return tendencies_2d_phy(u, w, b, p_hy, bottom, c)
+
+
+def rk3_update(f: Tensors3, g: Tensors3, g_prev: Tensors3 | None, m: int,
+               dt: float) -> Tensors3:
+    """Stage ``m``'s low-storage RK3 update of (u, w, b) by its tendencies
+    ``g`` and the previous stage's ``g_prev`` (None at stage 0)."""
+    gamma, zeta = RK3_GAMMA[m], RK3_ZETA[m]
+    if m == 0:
+        return tuple(x + dt * gamma * gx for x, gx in zip(f, g))
+    return tuple(x + dt * (gamma * gx + zeta * gp) for x, gx, gp in zip(f, g, g_prev))
+
+
+def project_2d(
+    u: torch.Tensor, w: torch.Tensor, spectral: Spectral2D, c: Coeffs2D, dt_stage: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The projection after a stage: p_nhs from div(u, w) / dt_stage, then
+    u and w corrected by its gradient -> (u, w, p_nhs)."""
+    div = st.ddx_f2c(u, c.dx) + st.ddz_f2c(w, c.dz)
+    p_nhs = poisson_solve_2d(spectral, div / dt_stage)
+    return (u - dt_stage * st.ddx_c2f(p_nhs, c.dx),
+            w - dt_stage * st.ddz_c2f_interior(p_nhs, c.dz), p_nhs)
+
+
 def rk3_substep(
     u: torch.Tensor,
     w: torch.Tensor,
@@ -108,29 +147,17 @@ def rk3_substep(
     dt: float,
     tendencies: Callable[..., Tensors3],
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One RK3 solver step of ``dt``: 3 stages, each projected.
+    """One RK3 solver step of ``dt``: 3 stages, each projected;
+    ``tendencies(u, w, b, bottom, c)`` computes pHY' from b itself.
 
     Returns (u, w, b, p_nhs); never writes to its inputs."""
     g_prev = None
     p_nhs = None
     for m in range(3):
-        gamma, zeta = RK3_GAMMA[m], RK3_ZETA[m]
-        p_hy = hydrostatic_pressure(b, c.dz, c.min_b)
-        gu, gw, gb = tendencies(u, w, b, p_hy, bottom, c)
-        if m == 0:
-            u = u + dt * gamma * gu
-            w = w + dt * gamma * gw
-            b = b + dt * gamma * gb
-        else:
-            u = u + dt * (gamma * gu + zeta * g_prev[0])
-            w = w + dt * (gamma * gw + zeta * g_prev[1])
-            b = b + dt * (gamma * gb + zeta * g_prev[2])
-        g_prev = (gu, gw, gb)
-        dt_stage = (gamma + zeta) * dt
-        div = st.ddx_f2c(u, c.dx) + st.ddz_f2c(w, c.dz)
-        p_nhs = poisson_solve_2d(spectral, div / dt_stage)
-        u = u - dt_stage * st.ddx_c2f(p_nhs, c.dx)
-        w = w - dt_stage * st.ddz_c2f_interior(p_nhs, c.dz)
+        g = tendencies(u, w, b, bottom, c)
+        u, w, b = rk3_update((u, w, b), g, g_prev, m, dt)
+        g_prev = g
+        u, w, p_nhs = project_2d(u, w, spectral, c, (RK3_GAMMA[m] + RK3_ZETA[m]) * dt)
     return u, w, b, p_nhs
 
 
@@ -188,24 +215,27 @@ def tendencies_2d(
     u: torch.Tensor,
     w: torch.Tensor,
     b: torch.Tensor,
-    p_hy: torch.Tensor,
     bottom: torch.Tensor,
     c: Coeffs2D,
 ) -> Tensors3:
-    """gu, gw, gb of one stage: the CUDA kernel for CUDA tensors."""
+    """gu, gw, gb of one stage, pHY' from b: the CUDA kernel for CUDA
+    tensors (its instance per grid: ``limits.tendencies_2d_instance``)."""
     if u.device.type == "cpu":
-        return tendencies_2d_plain(u, w, b, p_hy, bottom, c)
+        return tendencies_2d_plain(u, w, b, bottom, c)
     e, nx, nz = _field_shapes(u)
     _check_cuda(
-        dict(u=u, w=w, b=b, p_hy=p_hy, bottom=bottom),
-        dict(u=(e, nx, nz), w=(e, nx, nz + 1), b=(e, nx, nz), p_hy=(e, nx, nz), bottom=(e, nx)),
+        dict(u=u, w=w, b=b, bottom=bottom),
+        dict(u=(e, nx, nz), w=(e, nx, nz + 1), b=(e, nx, nz), bottom=(e, nx)),
     )
     gu, gw, gb = torch.empty_like(u), torch.empty_like(w), torch.empty_like(b)
+    scratch = torch.empty(e * limits.tendencies_2d_scratch_floats(nx, nz), dtype=u.dtype,
+                          device=u.device)
     lib = _build.load_library()
     with torch.cuda.device(u.device):
         err = lib.launch_tendencies_2d(
-            u.data_ptr(), w.data_ptr(), b.data_ptr(), p_hy.data_ptr(), bottom.data_ptr(),
+            u.data_ptr(), w.data_ptr(), b.data_ptr(), bottom.data_ptr(),
             gu.data_ptr(), gw.data_ptr(), gb.data_ptr(),
+            scratch.data_ptr() if scratch.numel() else None,
             e, nx, nz, c.dx, c.dz, c.nu, c.kappa, c.min_b,
             torch.cuda.current_stream(u.device).cuda_stream,
         )

@@ -51,6 +51,43 @@ def env_step_2d_scratch_floats(nx: int, nz: int) -> int:
     return 0 if env_step_2d_on_chip(nx, nz) else 5 * nx * nz + 2 * nx * (nz + 1)
 
 
+K2_SPECIALISED = (96, 64)  # (nx, nz) of K2's compile-time march instance
+
+
+def _tendencies_march_smem_bytes(nx: int, nz: int) -> int:
+    return 4 * (3 * nx * nz + nx * (nz + 1) + nx)
+
+
+def tendencies_2d_on_march(nx: int, nz: int) -> bool:
+    """Whether K2's march takes the grid (``tendencies_on_march`` in
+    ``csrc/rbc2d.cu``): K1's warp and lane layout, 4 <= nx <= 128 and
+    2 <= nz <= 64, and its shared memory in a block."""
+    return (4 <= nx <= K1_MAX_NX and 2 <= nz <= K1_MAX_NZ
+            and _tendencies_march_smem_bytes(nx, nz) <= SMEM_PER_BLOCK)
+
+
+def tendencies_2d_instance(nx: int, nz: int) -> str:
+    """The instance of K2 that its launcher runs on a grid: "specialised"
+    (the march at 96x64), "runtime" (the march at runtime sizes) or
+    "general" (pHY' in global scratch, one point a thread)."""
+    if not tendencies_2d_on_march(nx, nz):
+        return "general"
+    return "specialised" if (nx, nz) == K2_SPECIALISED else "runtime"
+
+
+def tendencies_2d_smem_bytes(nx: int, nz: int) -> int:
+    """K2's shared memory per block (``tendencies_2d_smem_floats``), float32:
+    on the march b, pHY', u (nx, nz), w (nx, nz + 1) and the bottom
+    profile; none for the general instance."""
+    return _tendencies_march_smem_bytes(nx, nz) if tendencies_2d_on_march(nx, nz) else 0
+
+
+def tendencies_2d_scratch_floats(nx: int, nz: int) -> int:
+    """K2's global scratch per env (``tendencies_2d_scratch_floats``): none
+    on the march, pHY' (nx, nz) for the general instance."""
+    return 0 if tendencies_2d_on_march(nx, nz) else nx * nz
+
+
 def stage_smem_bytes(ny: int, nz: int) -> int:
     """K3's x-plane rings, every plane all ny rows: ``XY_RING`` planes of u,
     v, b of nz and of w of nz + 1, two planes of q, four of pHY', v* and w*

@@ -217,7 +217,9 @@ def make_solver2d(
         )
 
     def substep(f: Fields2D, bottom_b: torch.Tensor) -> Fields2D:
-        """One RK3 solver step of dt_solver; bottom (..., nx) broadcasting."""
+        """One RK3 solver step of dt_solver; bottom (..., nx) broadcasting.
+        Each stage's tendencies compute pHY' from b themselves, so the
+        output's is the one ``hydrostatic_pressure`` call."""
         batch = f.u.shape[:-2]
         g = flat(f)
         u, w, b, p_nhs = rk3_substep(

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Time the stage kernels of several source trees on one CUDA card.
 
-    python3 scripts/kernel_variants.py [--kernels k1,k3,k5_training,k5,k6,k7,field_step] TREE [TREE ...]
+    python3 scripts/kernel_variants.py [--kernels k1,k2,k3,k5_training,k5,k6,k7,field_step] TREE [TREE ...]
 
 Each TREE is a checkout of this repo (for example a ``git archive`` of a
 commit unpacked under the git-ignored ``rbc_gym_tpu_torch/_build/``).
 The script builds every tree's kernels at once (one nvcc each, in
 parallel, plus one ``-Xptxas -v`` compile of each ``csrc/*.cu`` for the
-registers, spills and shared memory of K1, K3 and K5 to K7, and a count of
-the SASS opcodes of their main instances from ``cuobjdump``), then runs each
+registers, spills and shared memory of K1 to K7, and a count of the SASS
+opcodes of their main instances from ``cuobjdump``), then runs each
 tree in a process of its own, one after the other, importing that tree's
 own ``chip_smoke``. Per tree and kernel, CUDA events after a warm-up, the
 share of the bound (``chip_smoke.bound``) and the errors at the smoke's
@@ -18,6 +18,10 @@ gates:
   substeps; its gates (6 substeps at 128 envs, 50 at 1024 envs) and a
   50-substep step at 64 envs against a float64 plain run, beside the
   float32 plain version's own error;
+- ``k2``: K2 (``tendencies_2d``) at 1024 envs on 96x64, 128x64 and 96x80
+  (in this tree's design: the specialised and runtime march and the general
+  instance); its gate on 96x64, K2 and its plain version there against a
+  float64 plain run, and one ``Solver2D.substep`` at 1024 envs on 96x64;
 - ``k3``: K3 (``stage_rk_3d``) at 1024 envs on 16x32x32, stages 0, 1, 2;
   its gates at 1024 envs (each stage fed the plain outputs of the one
   before) and stage 0 at 32 envs against a float64 plain run;
@@ -51,6 +55,7 @@ import json, sys
 import torch
 import chip_smoke as cs
 from rbc_gym_tpu_torch.ops import kernels3d as k3d
+from rbc_gym_tpu_torch.sim.solver2d import Fields2D
 
 device = torch.device("cuda")
 tree, kernels = sys.argv[1], sys.argv[2].split(",")
@@ -83,6 +88,31 @@ def k1():
     rec["float64_50_substeps_vs"] = {
         "kernel": cs.abs_diffs(cs.K1_OUT, ref, cs.k1_run(s32, c32, True)),
         "plain_float32": cs.abs_diffs(cs.K1_OUT, ref, cs.k1_run(s32, c32, False))}
+    return rec, errs
+
+
+def k2():
+    rec = {}
+    for shape in ((64, 96), (64, 128), (80, 96)):
+        nz, nx = shape
+        solver, case = cs.make_case(device, 1024, shape, 1.5, seed=2)
+        ms = cs._cuda_ms(lambda: cs.k2_run(solver, case, True), 50, warmup=3)
+        bound_ms, by = cs.bound(cs.tendencies_work(1024, nx, nz))
+        rec[f"{nx}x{nz}"] = {"ms": ms, "bound_ms": bound_ms, "bound_by": by,
+                             "share_of_bound": bound_ms / ms}
+        if shape == (64, 96):
+            got, plain = cs.k2_run(solver, case, True), cs.k2_run(solver, case, False)
+            errs = {"tendencies_2d": (max(cs.abs_diffs(cs.K2_OUT, got, plain).values()),
+                                      cs.K2_ATOL)}
+            ref = cs.k2_run(solver, {k: v.double() for k, v in case.items()}, False)
+            rec["float64_vs"] = {"kernel": cs.abs_diffs(cs.K2_OUT, ref, got),
+                                 "plain_float32": cs.abs_diffs(cs.K2_OUT, ref, plain)}
+            zeros = torch.zeros_like(case["u"])
+            f = Fields2D(case["u"], case["w"], case["b"], zeros, zeros)
+            rec["substep_ms"] = cs._cuda_ms(lambda: solver.substep(f, case["bottom"]), 10)
+            del got, plain, ref
+        del case
+        torch.cuda.empty_cache()
     return rec, errs
 
 
@@ -171,6 +201,7 @@ def field_step():
 
 RUNS = {
     "k1": k1,
+    "k2": k2,
     "k3": lambda: stage(k3d.stage_rk_3d, (16, 32, 32), 0.01, 32, 20),
     "k5_training": lambda: stage(k3d.stage_rk_3d_xy, (16, 32, 32), 0.01, 32, 20),
     "k5": lambda: stage(k3d.stage_rk_3d_xy, cs.BIG_SHAPE, cs.BIG_DT_SOLVER, 8, 5),
@@ -192,10 +223,13 @@ PTXAS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptx
          "-c", "-o", os.devnull)
 # kernel entries whose resource lines are kept, and the instances whose SASS
 # is counted: names (mangled) holding one of these, the specialised
-# instances of K1 (96x64), K3 and K6 (16x32x32), K5 (nz = 32) and K7 (nz = 16)
-ENTRIES = ("env_step_2d", "stage_march", "stage_rk_3d", "field_tendency", "div_3d")
-SASS_INSTANCES = ("env_step_2d_kernelILi96ELi64E", "stage_march_kernelILi16ELi32E",
-                  "stage_march_kernelILi32ELin1E", "div_3d_kernelILi16E")
+# instances of K1 and K2 (96x64), K3 and K6 (16x32x32), K5 (nz = 32) and K7
+# (nz = 16)
+ENTRIES = ("env_step_2d", "tendencies_2d", "stage_march", "stage_rk_3d", "field_tendency",
+           "div_3d")
+SASS_INSTANCES = ("env_step_2d_kernelILi96ELi64E", "tendencies_2d_march_kernelILi96ELi64E",
+                  "stage_march_kernelILi16ELi32E", "stage_march_kernelILi32ELin1E",
+                  "div_3d_kernelILi16E")
 
 def ptxas(tree: Path, nvcc: str) -> list:
     return [subprocess.Popen([nvcc, *PTXAS, str(src)], stdout=subprocess.PIPE,

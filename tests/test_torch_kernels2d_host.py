@@ -5,12 +5,12 @@ The card is needed to run the kernels as built; their arithmetic and
 indexing can run here. ``_build.host_source`` cuts the C launchers (which
 need nvcc) off ``csrc/rbc2d.cu`` and puts ``csrc/host_shim.h`` in place of
 the CUDA headers. K1 keeps each point's previous tendencies in registers
-of one thread for the whole env step and exchanges z fluxes and pHY'
-partial sums by warp shuffles, so each of its blocks runs as 512 host
-threads meeting at real barriers; K2 loops over its points, so its blocks
-run on one thread each. The gates are the smoke's on-card ones
-(``chip_smoke.py``): the emulation differs from the plain versions in
-float32 rounding only.
+of one thread for the whole env step, and K1 and K2 exchange z fluxes and
+pHY' partial sums by warp shuffles, so each of their blocks runs as 512
+host threads meeting at real barriers. The host program picks K2's
+instance as its launcher does and prints it. The gates are the smoke's
+on-card ones (``chip_smoke.py``): the emulation differs from the plain
+versions in float32 rounding only.
 """
 
 import shutil
@@ -30,11 +30,12 @@ from rbc_gym_tpu_torch.sim.grid import Grid2D
 DRIVER = r"""
 #include <cstdio>
 #include <cstdlib>
+#include <functional>
 #include <memory>
 #include <string>
 #include <thread>
 #include <vector>
-namespace host { float smem[1 << 16]; }
+namespace host { alignas(16) float smem[1 << 16]; }
 #include "rbc2d_host.h"
 using namespace host;
 static std::string dir;
@@ -50,46 +51,11 @@ static void wr(const char* n, const std::vector<float>& v) {
   fwrite(v.data(), 4, v.size(), f);
   fclose(f);
 }
-int main(int argc, char** argv) {
-  const std::string mode = argv[1];
-  if (mode == "smem") {  // smem NX NZ: the launcher's shared and scratch floats, instance
-    const int nx = atoi(argv[2]), nz = atoi(argv[3]);
-    printf("%zu %zu %d\n", env_step_2d_smem_floats(nx, nz), env_step_2d_scratch_floats(nx, nz),
-           (int)env_step_2d_on_chip(nx, nz));
-    return 0;
-  }
-  // k1|k2 DIR E NX NZ NSUB DT DX DZ NU KAPPA MIN_B
-  dir = argv[2];
-  const int E = atoi(argv[3]), nx = atoi(argv[4]), nz = atoi(argv[5]), nsub = atoi(argv[6]);
-  const float dt = atof(argv[7]), dx = atof(argv[8]), dz = atof(argv[9]), nu = atof(argv[10]),
-              kappa = atof(argv[11]), min_b = atof(argv[12]);
-  const size_t C = (size_t)E * nx * nz, F = (size_t)E * nx * (nz + 1);
-  auto u = rd("u", C), w = rd("w", F), b = rd("b", C), bottom = rd("bottom", (size_t)E * nx);
-  if (mode == "k2") {
-    auto p_hy = rd("p_hy", C);
-    std::vector<float> gu(C), gw(F), gb(C);
-    const RBCParams P{nx, nz, dx, dz, nu, kappa, min_b};
-    blockDim.x = 1;
-    for (unsigned e = 0; e < (unsigned)E; ++e) {
-      blockIdx.x = e;
-      tendencies_2d_kernel(u.data(), w.data(), b.data(), p_hy.data(), bottom.data(), gu.data(),
-                           gw.data(), gb.data(), P);
-    }
-    wr("gu", gu); wr("gw", gw); wr("gb", gb);
-    return 0;
-  }
-  auto f = rd("f", (size_t)nx * nx), g = rd("g", (size_t)nx * nx);
-  auto dct = rd("dct", (size_t)nz * nz), idct = rd("idct", (size_t)nz * nz);
-  auto dinv = rd("dinv", (size_t)nx * nz);
-  std::vector<float> out[4] = {std::vector<float>(C), std::vector<float>(F),
-                               std::vector<float>(C), std::vector<float>(C)};
-  const K1Params P = k1_params(nx, nz, nsub, dt, dx, dz, nu, kappa, min_b);
-  const RBCParams R{nx, nz, dx, dz, nu, kappa, min_b};
-  const bool on_chip = env_step_2d_on_chip(nx, nz);
-  auto* kernel = env_step_kernel_for(nx, nz);
-  std::vector<float> scratch(E * env_step_2d_scratch_floats(nx, nz), NAN);
+// every block of E, one after another, each as kK1Threads host threads
+// meeting at real barriers
+static void run_blocks(int E, const std::function<void()>& body) {
   blockDim.x = kK1Threads;
-  for (unsigned e = 0; e < (unsigned)E; ++e) {  // every thread of a block, at real barriers
+  for (unsigned e = 0; e < (unsigned)E; ++e) {
     blockIdx.x = e;
     std::barrier<> bar(kK1Threads);
     block_barrier = &bar;
@@ -102,20 +68,69 @@ int main(int argc, char** argv) {
     for (int t = 0; t < kK1Threads; ++t) {
       threads.emplace_back([&, t] {
         threadIdx.x = t;
-        if (on_chip)
-          kernel(u.data(), w.data(), b.data(), bottom.data(), f.data(), g.data(), dct.data(),
-                 idct.data(), dinv.data(), out[0].data(), out[1].data(), out[2].data(),
-                 out[3].data(), P);
-        else
-          env_step_2d_global_kernel(u.data(), w.data(), b.data(), bottom.data(), f.data(),
-                                    g.data(), dct.data(), idct.data(), dinv.data(),
-                                    out[0].data(), out[1].data(), out[2].data(),
-                                    out[3].data(), scratch.data(), P, R);
+        body();
       });
     }
     for (auto& th : threads) th.join();
     block_barrier = nullptr;
   }
+}
+int main(int argc, char** argv) {
+  const std::string mode = argv[1];
+  if (mode == "smem") {  // smem NX NZ: K1's shared and scratch floats and instance, K2's
+    const int nx = atoi(argv[2]), nz = atoi(argv[3]);
+    printf("%zu %zu %d %zu %zu %d\n", env_step_2d_smem_floats(nx, nz),
+           env_step_2d_scratch_floats(nx, nz), (int)env_step_2d_on_chip(nx, nz),
+           tendencies_2d_smem_floats(nx, nz), tendencies_2d_scratch_floats(nx, nz),
+           (int)tendencies_on_march(nx, nz));
+    return 0;
+  }
+  // k1|k2 DIR E NX NZ NSUB DT DX DZ NU KAPPA MIN_B
+  dir = argv[2];
+  const int E = atoi(argv[3]), nx = atoi(argv[4]), nz = atoi(argv[5]), nsub = atoi(argv[6]);
+  const float dt = atof(argv[7]), dx = atof(argv[8]), dz = atof(argv[9]), nu = atof(argv[10]),
+              kappa = atof(argv[11]), min_b = atof(argv[12]);
+  const size_t C = (size_t)E * nx * nz, F = (size_t)E * nx * (nz + 1);
+  auto u = rd("u", C), w = rd("w", F), b = rd("b", C), bottom = rd("bottom", (size_t)E * nx);
+  if (mode == "k2") {  // as launch_tendencies_2d
+    std::vector<float> gu(C, NAN), gw(F, NAN), gb(C, NAN);
+    std::vector<float> scratch(E * tendencies_2d_scratch_floats(nx, nz), NAN);
+    const K1Params P = k1_params(nx, nz, 1, 1.0f, dx, dz, nu, kappa, min_b);
+    const bool on_march = tendencies_on_march(nx, nz);
+    auto* kernel = tendencies_kernel_for(nx, nz);
+    run_blocks(E, [&] {
+      if (on_march)
+        kernel(u.data(), w.data(), b.data(), bottom.data(), gu.data(), gw.data(), gb.data(), P);
+      else
+        tendencies_2d_general_kernel(u.data(), w.data(), b.data(), bottom.data(), gu.data(),
+                                     gw.data(), gb.data(), scratch.data(), P);
+    });
+    wr("gu", gu); wr("gw", gw); wr("gb", gb);
+    printf("%s\n", !on_march ? "general"
+                   : kernel == tendencies_2d_march_kernel<96, 64> ? "specialised" : "runtime");
+    return 0;
+  }
+  auto f = rd("f", (size_t)nx * nx), g = rd("g", (size_t)nx * nx);
+  auto dct = rd("dct", (size_t)nz * nz), idct = rd("idct", (size_t)nz * nz);
+  auto dinv = rd("dinv", (size_t)nx * nz);
+  std::vector<float> out[4] = {std::vector<float>(C), std::vector<float>(F),
+                               std::vector<float>(C), std::vector<float>(C)};
+  const K1Params P = k1_params(nx, nz, nsub, dt, dx, dz, nu, kappa, min_b);
+  const RBCParams R{nx, nz, dx, dz, nu, kappa, min_b};
+  const bool on_chip = env_step_2d_on_chip(nx, nz);
+  auto* kernel = env_step_kernel_for(nx, nz);
+  std::vector<float> scratch(E * env_step_2d_scratch_floats(nx, nz), NAN);
+  run_blocks(E, [&] {
+    if (on_chip)
+      kernel(u.data(), w.data(), b.data(), bottom.data(), f.data(), g.data(), dct.data(),
+             idct.data(), dinv.data(), out[0].data(), out[1].data(), out[2].data(),
+             out[3].data(), P);
+    else
+      env_step_2d_global_kernel(u.data(), w.data(), b.data(), bottom.data(), f.data(),
+                                g.data(), dct.data(), idct.data(), dinv.data(), out[0].data(),
+                                out[1].data(), out[2].data(), out[3].data(), scratch.data(), P,
+                                R);
+  });
   wr("u_out", out[0]); wr("w_out", out[1]); wr("b_out", out[2]); wr("p_out", out[3]);
   return 0;
 }
@@ -139,8 +154,8 @@ def host_binary(tmp_path_factory):
 
 def _run(host_binary, tmp_path, mode, n_env, nx, nz, heater_duration, seed, dt_solver=None):
     """Write a float32 case (``chip_smoke.make_case``) and the solve's
-    constants, run ``mode`` on the host -> (solver, case); the outputs are
-    files in ``tmp_path``."""
+    constants, run ``mode`` on the host -> (solver, case, what the host
+    program printed); the outputs are files in ``tmp_path``."""
     solver, case = chip_smoke.make_case("cpu", n_env, (nz, nx), heater_duration, seed=seed,
                                         dtype=torch.float32, dt_solver=dt_solver)
     for name, t in {**case, **solver.spectral._asdict()}.items():
@@ -148,8 +163,8 @@ def _run(host_binary, tmp_path, mode, n_env, nx, nz, heater_duration, seed, dt_s
     c, p = solver.coeffs, solver.params
     args = [mode, f"{tmp_path}/", *map(str, (n_env, nx, nz, p.substeps_per_env_step)),
             *(repr(float(x)) for x in (p.dt_solver, c.dx, c.dz, c.nu, c.kappa, c.min_b))]
-    subprocess.run([str(host_binary), *args], check=True)
-    return solver, case
+    out = subprocess.run([str(host_binary), *args], check=True, capture_output=True, text=True)
+    return solver, case, out.stdout.strip()
 
 
 def _got(tmp_path, name, like):
@@ -182,8 +197,8 @@ def test_host_build_of_k1_off_the_chip_on_a_tall_grid(host_binary, tmp_path):
 
 
 def _check_k1(host_binary, tmp_path, n_env, nx, nz, heater_duration, dt_solver):
-    solver, case = _run(host_binary, tmp_path, "k1", n_env, nx, nz, heater_duration, seed=0,
-                        dt_solver=dt_solver)
+    solver, case, _ = _run(host_binary, tmp_path, "k1", n_env, nx, nz, heater_duration,
+                           seed=0, dt_solver=dt_solver)
     assert solver.params.substeps_per_env_step == 6
     want = k2.env_step_2d_plain(case["u"], case["w"], case["b"], case["bottom"],
                                 solver.spectral, solver.coeffs, solver.params.dt_solver, 6)
@@ -195,27 +210,42 @@ def _check_k1(host_binary, tmp_path, n_env, nx, nz, heater_duration, dt_solver):
     assert np.all(w_out[..., 0] == 0) and np.all(w_out[..., -1] == 0)
 
 
-@pytest.mark.parametrize("n_env,nx,nz", [(2, 96, 64), (1, 20, 12)])
-def test_host_build_of_k2_matches_plain(host_binary, tmp_path, n_env, nx, nz):
-    solver, case = _run(host_binary, tmp_path, "k2", n_env, nx, nz, 0.18, seed=1)
-    want = k2.tendencies_2d_plain(case["u"], case["w"], case["b"], case["p_hy"], case["bottom"],
+@pytest.mark.parametrize("n_env,nx,nz,instance", [
+    (2, 96, 64, "specialised"),  # the reference grid: the compile-time march
+    (1, 20, 12, "runtime"),  # two columns a warp, the last warps idle, one level a lane
+    (1, 128, 64, "runtime"),  # the march at its edge: 8 columns a warp, 132,096 bytes
+    (1, 8, 80, "general"),  # nz > 64: three chunks of 32 levels in pHY'
+    (1, 3, 8, "general"),  # the fewest columns the x stencils take
+    (1, 16, 1, "general"),  # one level: both w faces are walls
+])
+def test_host_build_of_k2_matches_plain(host_binary, tmp_path, n_env, nx, nz, instance):
+    """Each K2 instance, pHY' from b, against ``tendencies_2d_plain`` at
+    the smoke's gate; the host program ran the instance the launcher picks."""
+    solver, case, ran = _run(host_binary, tmp_path, "k2", n_env, nx, nz, 0.18, seed=1)
+    assert ran == instance == limits.tendencies_2d_instance(nx, nz)
+    want = k2.tendencies_2d_plain(case["u"], case["w"], case["b"], case["bottom"],
                                   solver.coeffs)
     for name, x in zip(("gu", "gw", "gb"), want):
         np.testing.assert_allclose(_got(tmp_path, name, x), x.numpy(), rtol=0,
                                    atol=chip_smoke.K2_ATOL, err_msg=name)
+    gw = _got(tmp_path, "gw", want[1])
+    assert np.all(gw[..., 0] == 0) and np.all(gw[..., -1] == 0)
 
 
 @pytest.mark.parametrize("nx,nz", [(96, 64), (20, 12), (128, 16), (8, 2), (128, 40),
                                    (128, 64), (128, 224), (256, 32), (64, 128), (3, 8),
                                    (16, 1), (256, 256)])
 def test_smem_formulas_match_the_launchers(host_binary, nx, nz):
-    """The selection rule's byte count, the wrapper's scratch and the
-    instance are the launcher's own."""
+    """The selection rule's byte count, the wrappers' scratch and the
+    instances are the launchers' own, for K1 and K2."""
     out = subprocess.run([str(host_binary), "smem", str(nx), str(nz)], check=True,
                          capture_output=True, text=True).stdout.split()
     assert 4 * int(out[0]) == limits.env_step_2d_smem_bytes(nx, nz)
     assert int(out[1]) == limits.env_step_2d_scratch_floats(nx, nz)
     assert bool(int(out[2])) == limits.env_step_2d_on_chip(nx, nz)
+    assert 4 * int(out[3]) == limits.tendencies_2d_smem_bytes(nx, nz)
+    assert int(out[4]) == limits.tendencies_2d_scratch_floats(nx, nz)
+    assert bool(int(out[5])) == limits.tendencies_2d_on_march(nx, nz)
 
 
 @pytest.mark.parametrize("nx,nz", [(96, 64), (20, 12), (128, 224), (16, 1)])

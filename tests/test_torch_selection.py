@@ -192,6 +192,32 @@ def test_2d_kernel_instance(nx, nz, on_chip):
                                                          5 * nx * nz + 2 * nx * (nz + 1))
 
 
+@pytest.mark.parametrize("nx,nz,instance", [
+    (96, 64, "specialised"),  # the compile-time march: 99,072 bytes, two blocks an SM
+    (20, 12, "runtime"), (128, 16, "runtime"), (4, 2, "runtime"),
+    (128, 64, "runtime"),  # the march at its edge: 132,096 bytes, where K1 runs off the chip
+    (128, 40, "runtime"),
+    (96, 80, "general"),  # nz > 64
+    (128, 224, "general"), (256, 32, "general"), (64, 128, "general"), (96, 65, "general"),
+    (132, 16, "general"),  # nx > 128
+    (3, 8, "general"),  # nx = 3 < 4
+    (8, 1, "general"),  # nz = 1 < 2
+])
+def test_2d_tendency_kernel_instance(nx, nz, instance):
+    """Which instance of K2 takes a grid that the 2D path sends to the
+    kernels: the march where K1's warp and lane layout holds (compile-time
+    sizes at 96x64), the general instance (pHY' in global scratch)
+    elsewhere."""
+    assert s2.select_env_step_path(F32, nx, nz, "cuda") == "fused"
+    assert limits.tendencies_2d_instance(nx, nz) == instance
+    march = instance != "general"
+    assert limits.tendencies_2d_on_march(nx, nz) == march
+    assert limits.tendencies_2d_scratch_floats(nx, nz) == (0 if march else nx * nz)
+    assert limits.tendencies_2d_smem_bytes(nx, nz) == (
+        4 * (3 * nx * nz + nx * (nz + 1) + nx) if march else 0)
+    assert limits.tendencies_2d_smem_bytes(nx, nz) <= 132_096
+
+
 @pytest.mark.parametrize("shape,march", [
     (TRAINING, True),  # the specialised march instance: 512 threads, 78,848 bytes
     ((30, 32, 16), True),  # 16x32x30, where auto takes the field path

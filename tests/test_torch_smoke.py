@@ -75,14 +75,22 @@ def test_smoke_phases_run_on_cpu_plain_halves():
     assert all(bool(torch.isfinite(t).all()) for t in (*k1, *k2))
 
     parity = chip_smoke.kernel_parity("cpu", k1_envs=2, main_envs=2, off_chip_shape=(65, 4),
+                                      k2_runtime_shape=(12, 20), k2_general_shape=(80, 8),
                                       **TINY)
     assert max(parity["max_abs_err"].values()) == 0.0  # on the CPU both halves are plain
+    assert {"tendencies_2d_runtime", "tendencies_2d_general"} <= set(parity["max_abs_err"])
+    assert parity["tendencies_2d_instances"] == {
+        "grid": "runtime", "runtime_grid": "runtime", "general_grid": "general"}
     assert set(parity["float64_plain_vs_50_substeps"]) == {"kernel", "plain_float32"}
+    assert set(parity["tendencies_2d_float64_plain_vs"]) == {"kernel", "plain_float32"}
     json.dumps(parity)
 
     path = chip_smoke.main_path("cpu", num_envs=2, observation_shape=(8, 16),
                                 heater_duration=0.3, steps=2, **TINY)
     assert path["launches"] == {"env_step_2d": 0, "tendencies_2d": 0}
+    # the plain path's three stages each compute pHY', then the output's
+    # (on the card K2 computes its own: one call)
+    assert path["substep_p_hy_calls"] == 4
     assert path["max_abs_div"] < path["div_atol"]
     json.dumps(path)
 
@@ -212,6 +220,33 @@ def test_bounds_at_main_path_shapes():
     assert 9.5 < k1_ms < 11.0 and 0.04 < k2_ms < 0.08
 
 
+def test_k2_bytes_with_and_without_p_hy():
+    """K2's yardstick is the Pallas kernel's function (177,340,416 bytes at
+    1024 envs on 96x64, 0.0529 ms); K2's own takes b and no p_hy: one
+    (nx, nz) slab less, 152,174,592 bytes."""
+    assert chip_smoke.tendencies_work(1024, 96, 64)["bytes"] == 177_340_416
+    assert round(chip_smoke.bound(chip_smoke.tendencies_work(1024, 96, 64))[0], 4) == 0.0529
+    own = chip_smoke.tendencies_own_bytes(1024, 96, 64)
+    assert own == 152_174_592 == 177_340_416 - 4 * 1024 * 96 * 64
+    assert round(1e3 * own / chip_smoke.HBM_BYTES_PER_S, 4) == 0.0454
+
+
+def test_kernel_time_split_of_a_trace():
+    """The substep's device split from a Chrome trace: kernels by name,
+    largest first, their busy sum and the idle share of their span; CPU
+    events are not device time."""
+    events = [{"cat": "kernel", "name": "k2", "ts": 0.0, "dur": 100.0},
+              {"cat": "cpu_op", "name": "aten::add", "ts": 0.0, "dur": 900.0},
+              {"cat": "kernel", "name": "gemm", "ts": 150.0, "dur": 300.0},
+              {"cat": "kernel", "name": "k2", "ts": 500.0, "dur": 100.0}]
+    split = chip_smoke.kernel_time_split(events)
+    assert split["device_busy_ms"] == 0.5 and split["span_ms"] == 0.6
+    assert abs(split["idle_share"] - 1 / 6) < 1e-12
+    assert split["kernels"] == [{"name": "gemm", "ms": 0.3, "count": 1},
+                                {"name": "k2", "ms": 0.2, "count": 2}]
+    assert "not_measured" in chip_smoke.kernel_time_split(events[1:2])
+
+
 def test_3d_bounds_at_main_path_shapes():
     """K3 and K4 move more bytes than the card can hide behind their FLOP:
     ~1.2 MB per env per stage-1 launch at 3.35 TB/s (0.37 ms at 1024 envs)."""
@@ -256,11 +291,15 @@ def test_smoke_script_fails_without_a_card(tmp_path, alone):
 
 def test_nvcc_targets_sm90a_into_an_ignored_directory(monkeypatch):
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
-    cmd = _build.nvcc_command(_build.library_path())
-    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
-    assert "-shared" in cmd and sorted(cmd[-len(_build.sources()):]) == sorted(
-        map(str, _build.sources()))
     lib = _build.library_path()
+    objects = [lib.with_suffix(f".{src.stem}.o") for src in _build.sources()]
+    for src, obj in zip(_build.sources(), objects):  # one nvcc a source
+        cmd = _build.compile_command(src, obj)
+        assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+        assert "-c" in cmd and cmd[-1] == str(src)
+    cmd = _build.link_command(lib, objects)
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert "-shared" in cmd and cmd[-len(objects):] == list(map(str, objects))
     assert lib.parent == _build.BUILD_DIR
     rel = lib.relative_to(REPO)
     assert "rbc_gym_tpu_torch/_build/" in (REPO / ".gitignore").read_text().splitlines()

@@ -72,16 +72,37 @@ def _coeffs(grid, params=SimParams2D()):
     return k2d.Coeffs2D(grid.dx, grid.dz, params.nu, params.kappa, params.min_b)
 
 
-def test_tendencies_plain_matches_pallas_tendency_kernel():
-    grid, _ = _grids()
+def _pallas_tendencies(f, bottom, grid):
+    """The Pallas tendency kernel in interpret mode, fed pHY' from the JAX
+    package's ``_hydrostatic_pressure`` (``_np_fields``)."""
     p = SimParams2D()
-    f, bottom = _np_fields(8, seed=3), _bottom(8)
     tend = make_tendencies_2d(NX, NZ, grid.dx, grid.dz, p.nu, p.kappa, p.min_b,
                               e_blk=8, interpret=True)
-    want = tend(_bm(f.u), _bm(f.w), _bm(f.b), _bm(f.p_hy), _bm(bottom))
+    return tend(_bm(f.u), _bm(f.w), _bm(f.b), _bm(f.p_hy), _bm(bottom))
+
+
+def test_tendencies_plain_matches_pallas_tendency_kernel():
+    """The stencil composition that takes pHY' (``tendencies_2d_phy``),
+    term for term the JAX package's, from the same pHY'."""
+    grid, _ = _grids()
+    f, bottom = _np_fields(8, seed=3), _bottom(8)
+    want = _pallas_tendencies(f, bottom, grid)
     t = fields_from_numpy(f, "cpu", torch.float32)
-    got = k2d.tendencies_2d_plain(t.u, t.w, t.b, t.p_hy,
-                                  torch.as_tensor(bottom, dtype=torch.float32), _coeffs(grid))
+    got = k2d.tendencies_2d_phy(t.u, t.w, t.b, t.p_hy,
+                                torch.as_tensor(bottom, dtype=torch.float32), _coeffs(grid))
+    for name, g, w in zip(("gu", "gw", "gb"), got, want):
+        np.testing.assert_allclose(g.numpy(), _from_bm(w), rtol=0, atol=1e-5, err_msg=name)
+
+
+def test_tendencies_from_b_match_pallas_tendency_kernel():
+    """K2's plain version takes b and computes pHY' itself; it matches the
+    Pallas kernel fed the JAX package's pHY' of the same b."""
+    grid, _ = _grids()
+    f, bottom = _np_fields(8, seed=11), _bottom(8, seed=12)
+    want = _pallas_tendencies(f, bottom, grid)
+    t = fields_from_numpy(f, "cpu", torch.float32)
+    got = k2d.tendencies_2d_plain(t.u, t.w, t.b, torch.as_tensor(bottom, dtype=torch.float32),
+                                  _coeffs(grid))
     for name, g, w in zip(("gu", "gw", "gb"), got, want):
         np.testing.assert_allclose(g.numpy(), _from_bm(w), rtol=0, atol=1e-5, err_msg=name)
 
@@ -192,7 +213,7 @@ def test_wrappers_take_plain_path_only_on_cpu():
     f = s.init_random(torch.Generator().manual_seed(2), (2,))
     bottom = s.heater_profile(torch.zeros(2, 12, dtype=torch.float64))
     before = (k2d.env_step_2d.launches, k2d.tendencies_2d.launches)
-    args = (f.u, f.w, f.b, f.p_hy, bottom, s.coeffs)
+    args = (f.u, f.w, f.b, bottom, s.coeffs)
     for got, want in zip(k2d.tendencies_2d(*args), k2d.tendencies_2d_plain(*args)):
         assert torch.equal(got, want)
     step_args = (f.u, f.w, f.b, bottom, s.spectral, s.coeffs, 0.03, 2)
@@ -200,7 +221,7 @@ def test_wrappers_take_plain_path_only_on_cpu():
         assert torch.equal(got, want)
     assert (k2d.env_step_2d.launches, k2d.tendencies_2d.launches) == before
     # a tensor on neither the CPU nor CUDA never reaches a plain version
-    meta = [t.to("meta") for t in (f.u, f.w, f.b, f.p_hy, bottom)]
+    meta = [t.to("meta") for t in (f.u, f.w, f.b, bottom)]
     with pytest.raises(ValueError, match="CUDA"):
         k2d.tendencies_2d(*meta, s.coeffs)
 

@@ -186,3 +186,20 @@ def test_checkpoint_banks_are_not_ported_yet():
         _env(2, bank_sampling="sequential")
     with pytest.raises(NotImplementedError, match="A.2"):
         _env(2, ic_noise=0.01)
+
+
+def test_poisson_precision_is_taken_as_none_and_refused_otherwise():
+    """The JAX env takes ``poisson_precision`` (a TPU matrix-unit pass
+    count); the port takes None, as its 3D env does, and steps exactly as
+    without it, and refuses every other value by name."""
+    jenv = JRBC2DVectorEnv(2, **CFG, dtype=jnp.float64, poisson_precision=None)
+    env, default = _env(2, poisson_precision=None), _env(2)
+    _, state = _states(2, step=1, seed=9)
+    actions = np.random.default_rng(10).uniform(-1, 1, (2, 12))
+    _, ts = env.step(state, actions)
+    _, ts_default = default.step(state, actions)
+    assert torch.equal(ts.obs, ts_default.obs) and torch.equal(ts.reward, ts_default.reward)
+    assert jenv.num_envs == env.num_envs
+    for value in ("bf16x3", "highest"):
+        with pytest.raises(ValueError, match="poisson_precision"):
+            _env(2, poisson_precision=value)
