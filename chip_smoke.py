@@ -10,14 +10,15 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
 1. build             nvcc into rbc_gym_tpu_torch/_build/ (ctypes, no torch headers)
 2. kernel_parity     K1 and K2 against their plain PyTorch versions on the card
                      (K2's three instances: 96x64, the runtime march on
-                     128x64, the general instance on 96x80); K1 and K2 and
-                     their plain versions beside a float64 run
+                     128x64, the general instance on 96x80; K2, which sums
+                     pHY' in float64, against its plain version run in
+                     float64); K1 and its plain version beside a float64 run
 3. main_path         RBC2DVectorEnv(num_envs=1024) at 96x64, Ra=1e4: reset, 3
                      steps with random actions, one Solver2D.substep; checks
                      shapes, finiteness, Nu, divergence, the launch counters
                      and the substep's one PyTorch pHY' call
-4. timing            K1, K2, their plain versions and bounds (K1's share of
-                     it), in ms; pHY' in PyTorch and Solver2D.substep with its
+4. timing            K1, K2, their plain versions and bounds (their shares of
+                     them; K2's beside the Pallas kernel's), in ms; pHY' in PyTorch and Solver2D.substep with its
                      split (3 K2, pHY', RK update, projection)
 5. kernel_parity_3d  K3 (each stage variant) and K4 against their plain
                      versions at the 3D main path's shapes, K3's stage 0 beside
@@ -214,18 +215,21 @@ def env_step_work(n_env: int, nx: int, nz: int, n_substeps: int) -> dict:
 
 
 def tendencies_work(n_env: int, nx: int, nz: int) -> dict:
-    """FLOP and bytes of the Pallas tendency kernel's function, K2's
-    yardstick: u, w, b, p_hy, bottom read and gu, gw, gb written once."""
+    """FLOP and bytes of the Pallas tendency kernel's function, which reads
+    p_hy: u, w, b, p_hy, bottom read and gu, gw, gb written once. K2's
+    yardstick beside its own bound (``pallas_bound_ms``)."""
     cells = nx * nz
     words = n_env * (3 * cells + nx * (nz + 1) + nx + 2 * cells + nx * (nz + 1))
     return {"flops": n_env * _TENDENCY_FLOPS_PER_CELL * cells, "bytes": 4 * words}
 
 
-def tendencies_own_bytes(n_env: int, nx: int, nz: int) -> int:
-    """Bytes of K2's own function, which takes b and no p_hy: u, w, b,
-    bottom read and gu, gw, gb written once."""
+def tendencies_own_work(n_env: int, nx: int, nz: int) -> dict:
+    """FLOP and bytes of K2's own function, which takes b and no p_hy: u,
+    w, b, bottom read and gu, gw, gb written once; pHY' adds its 4 FLOP a
+    cell. K2's bound."""
     cells, faces = nx * nz, nx * (nz + 1)
-    return 4 * n_env * (4 * cells + 2 * faces + nx)
+    return {"flops": n_env * (_TENDENCY_FLOPS_PER_CELL + 4) * cells,
+            "bytes": 4 * n_env * (4 * cells + 2 * faces + nx)}
 
 
 def bound(work: dict) -> tuple[float, str]:
@@ -278,6 +282,20 @@ def k2_run(solver, case, kernel: bool):
     return fn(case["u"], case["w"], case["b"], case["bottom"], solver.coeffs)
 
 
+def k2_errors(solver, case, got) -> dict:
+    """K2's output ``got`` against its plain version run in float64 on the
+    same inputs (``kernel``, the gate), beside the float32 plain version
+    against the same (``plain_float32``) and K2 against the float32 plain
+    version (``kernel_vs_plain_float32``). K2 sums pHY' in float64; the
+    plain version sums it in the inputs' dtype, as the JAX package does,
+    and -d pHY'/dx grows that sum's float32 rounding by 1/dx."""
+    ref = k2_run(solver, {k: v.double() for k, v in case.items()}, False)
+    plain = k2_run(solver, case, False)
+    return {"kernel": abs_diffs(K2_OUT, ref, got),
+            "plain_float32": abs_diffs(K2_OUT, ref, plain),
+            "kernel_vs_plain_float32": abs_diffs(K2_OUT, got, plain)}
+
+
 def abs_diffs(names, xs, ys) -> dict:
     """max |x - y| per output, compared in float64."""
     return {n: float((x.double() - y.double()).abs().max()) for n, x, y in zip(names, xs, ys)}
@@ -307,9 +325,10 @@ def kernel_parity(device, k1_envs=128, main_envs=1024, state_shape=(64, 96),
     6 substeps (heater_duration 0.18) at ``k1_envs`` and after the main
     path's 50 at ``main_envs``, K2 on one stage at ``main_envs`` on
     ``state_shape`` and on a grid of each of its other instances (128x64:
-    the runtime march; 96x80: the general instance). Also K1 and its plain
-    version against a float64 plain run, after 6 and after 50 substeps at
-    ``k1_envs``, K2 and its plain version against one at ``main_envs``, and
+    the runtime march; 96x80: the general instance), each against its plain
+    version run in float64 (``k2_errors``). Also K1 and its plain version
+    against a float64 plain run, after 6 and after 50 substeps at
+    ``k1_envs``, and
     K1's off-chip instance after 6 substeps at ``k1_envs`` on
     ``off_chip_shape`` (128x64: the on-chip state does not fit a block)."""
     start = time.perf_counter()
@@ -330,26 +349,21 @@ def kernel_parity(device, k1_envs=128, main_envs=1024, state_shape=(64, 96),
     k1_off = abs_diffs(K1_OUT, k1_run(solver, case, True), k1_run(solver, case, False))
     solver, case = make_case(device, main_envs, state_shape, heater_duration=1.5, seed=1)
     k1_main = abs_diffs(K1_OUT, k1_run(solver, case, True), k1_run(solver, case, False))
-    k2_out, k2_plain = k2_run(solver, case, True), k2_run(solver, case, False)
-    k2 = abs_diffs(K2_OUT, k2_out, k2_plain)
-    # K2 in float64 from the same inputs: both halves' float32 rounding
-    ref_k2 = k2_run(solver, {k: v.double() for k, v in case.items()}, False)
-    k2_float64 = {"kernel": abs_diffs(K2_OUT, ref_k2, k2_out),
-                  "plain_float32": abs_diffs(K2_OUT, ref_k2, k2_plain)}
-    del k2_out, k2_plain, ref_k2
+    k2_all = {"grid": k2_errors(solver, case, k2_run(solver, case, True))}
     k2_grids = {"grid": state_shape, "runtime_grid": k2_runtime_shape,
                 "general_grid": k2_general_shape}
     k2_instances = {name: tendencies_2d_instance(shape[1], shape[0])
                     for name, shape in k2_grids.items()}
-    k2_more = {}
     for name, shape, seed in (("runtime_grid", k2_runtime_shape, 5),
                               ("general_grid", k2_general_shape, 6)):
         solver, case = make_case(device, main_envs, shape, heater_duration=0.18, seed=seed)
-        k2_more[name] = abs_diffs(K2_OUT, k2_run(solver, case, True), k2_run(solver, case, False))
+        k2_all[name] = k2_errors(solver, case, k2_run(solver, case, True))
+    k2 = {name: e["kernel"] for name, e in k2_all.items()}
     errs = {"env_step_2d": max(k1.values()), "env_step_2d_main": max(k1_main.values()),
-            "env_step_2d_off_chip": max(k1_off.values()), "tendencies_2d": max(k2.values()),
-            "tendencies_2d_runtime": max(k2_more["runtime_grid"].values()),
-            "tendencies_2d_general": max(k2_more["general_grid"].values())}
+            "env_step_2d_off_chip": max(k1_off.values()),
+            "tendencies_2d": max(k2["grid"].values()),
+            "tendencies_2d_runtime": max(k2["runtime_grid"].values()),
+            "tendencies_2d_general": max(k2["general_grid"].values())}
     atols = {"env_step_2d": K1_ATOL, "env_step_2d_main": K1_MAIN_ATOL,
              "env_step_2d_off_chip": K1_ATOL, "tendencies_2d": K2_ATOL,
              "tendencies_2d_runtime": K2_ATOL, "tendencies_2d_general": K2_ATOL}
@@ -359,9 +373,15 @@ def kernel_parity(device, k1_envs=128, main_envs=1024, state_shape=(64, 96),
     return {"phase": "kernel_parity", "max_abs_err": errs, "atol": atols,
             "env_step_2d_by_field": k1, "env_step_2d_main_by_field": k1_main,
             "env_step_2d_off_chip_by_field": k1_off, "off_chip_shape": list(off_chip_shape),
-            "tendencies_2d_by_field": k2, "tendencies_2d_instances": k2_instances,
-            "tendencies_2d_other_grids_by_field": k2_more,
-            "tendencies_2d_float64_plain_vs": k2_float64,
+            "tendencies_2d_by_field": k2["grid"], "tendencies_2d_instances": k2_instances,
+            "tendencies_2d_other_grids_by_field": {
+                name: k2[name] for name in ("runtime_grid", "general_grid")},
+            "tendencies_2d_float64_plain_vs": {
+                name: k2_all["grid"][name] for name in ("kernel", "plain_float32")},
+            "tendencies_2d_vs_plain_float32": {
+                name: e["kernel_vs_plain_float32"] for name, e in k2_all.items()},
+            "tendencies_2d_plain_float32_vs_float64": {
+                name: e["plain_float32"] for name, e in k2_all.items()},
             "float64_plain_vs": {"kernel": abs_diffs(K1_OUT, ref, k1_out),
                                  "plain_float32": abs_diffs(K1_OUT, ref, plain)},
             "float64_plain_vs_50_substeps": float64_50,
@@ -528,7 +548,7 @@ def timing(device, num_envs=1024, state_shape=(64, 96), heater_duration=1.5,
         solver, case = make_case(device, num_envs, shape, heater_duration, seed=2)
         nz, nx = shape
         n_sub = solver.params.substeps_per_env_step
-        work = (tendencies_work(num_envs, nx, nz) if run is k2_run
+        work = (tendencies_own_work(num_envs, nx, nz) if run is k2_run
                 else env_step_work(num_envs, nx, nz, n_sub))
         ms = _cuda_ms(lambda: run(solver, case, True), reps)
         plain_ms = _cuda_ms(lambda: run(solver, case, False), max(1, reps // 3))
@@ -536,8 +556,9 @@ def timing(device, num_envs=1024, state_shape=(64, 96), heater_duration=1.5,
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "share_of_bound": bound_ms / ms, **work}
     nz, nx = state_shape
-    own = tendencies_own_bytes(num_envs, nx, nz)
-    out["tendencies_2d"].update(own_bytes=own, own_bound_ms=1e3 * own / HBM_BYTES_PER_S)
+    pallas_ms = bound(tendencies_work(num_envs, nx, nz))[0]
+    out["tendencies_2d"].update(pallas_bound_ms=pallas_ms,
+                                share_of_pallas_bound=pallas_ms / out["tendencies_2d"]["ms"])
 
     solver, case = make_case(device, num_envs, state_shape, heater_duration, seed=2)
     c, dt = solver.coeffs, solver.params.dt_solver
@@ -1280,13 +1301,16 @@ def timing_field(device, num_envs=1024, state_shape=(16, 32, 32)) -> dict:
 
 def kernel_records(parity: dict, launches: dict, times: dict) -> list:
     """One record per kernel: launches from its main path, the gated parity
-    error at the main path's shapes, and this run's times and bounds."""
+    error at the main path's shapes, and this run's times and bounds (K2's
+    bound is its own function's; ``pallas_bound_ms`` the Pallas kernel's,
+    which also reads p_hy)."""
     return [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name],
          "max_abs_err": parity[MAIN_SHAPE_CHECK[name]],
          **{k: times[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-         "library_ms": None}
+         "library_ms": None,
+         **{k: times[name][k] for k in ("pallas_bound_ms",) if k in times[name]}}
         for name in WRAPPERS
     ]
 

@@ -13,8 +13,8 @@ in ``<wrapper>.launches``.
 The plain versions are the JAX package's XLA path written in PyTorch:
 ``tendencies_2d_phy`` is the stencil composition of
 ``solver2d.tendencies_bm`` (it takes pHY'), ``tendencies_2d_plain`` the
-same after ``hydrostatic_pressure`` of b summed in float64 (as K1 and K2
-sum it), ``env_step_2d_plain`` the solver's eager substep loop. They run on any device, so a test can hold a
+same after ``hydrostatic_pressure`` of b, ``env_step_2d_plain`` the
+solver's eager substep loop. They run on any device, so a test can hold a
 kernel against its plain version on the same card.
 """
 
@@ -108,11 +108,11 @@ def tendencies_2d_plain(
     bottom: torch.Tensor,
     c: Coeffs2D,
 ) -> Tensors3:
-    """gu, gw, gb of one RK3 stage, pHY' computed from b as K1 and K2 do:
-    summed in float64 and rounded once to b's dtype. (A float32 sum rounds
-    at every level; its error, ~1e-6 in pHY' at 96x64, grows by 1/dx in
-    -d pHY'/dx to ~1e-5 in gu, the size of K2's gate.)"""
-    p_hy = hydrostatic_pressure(b.double(), c.dz, c.min_b).to(b.dtype)
+    """gu, gw, gb of one RK3 stage, pHY' computed from b in b's dtype, as
+    the JAX package's XLA path does. (K1 and K2 sum pHY' in float64; a
+    float32 sum rounds at every level, and its error grows by 1/dx in
+    -d pHY'/dx, to ~1e-5 in gu at 96x64.)"""
+    p_hy = hydrostatic_pressure(b, c.dz, c.min_b)
     return tendencies_2d_phy(u, w, b, p_hy, bottom, c)
 
 

@@ -220,9 +220,12 @@ def _check_k1(host_binary, tmp_path, n_env, nx, nz, heater_duration, dt_solver):
 ])
 def test_host_build_of_k2_matches_plain(host_binary, tmp_path, n_env, nx, nz, instance):
     """Each K2 instance, pHY' from b, against ``tendencies_2d_plain`` at
-    the smoke's gate; the host program ran the instance the launcher picks."""
+    the smoke's gate (the plain version run in float64 on the same inputs,
+    since K2 sums pHY' in float64); the host program ran the instance the
+    launcher picks."""
     solver, case, ran = _run(host_binary, tmp_path, "k2", n_env, nx, nz, 0.18, seed=1)
     assert ran == instance == limits.tendencies_2d_instance(nx, nz)
+    case = {k: v.double() for k, v in case.items()}
     want = k2.tendencies_2d_plain(case["u"], case["w"], case["b"], case["bottom"],
                                   solver.coeffs)
     for name, x in zip(("gu", "gw", "gb"), want):
