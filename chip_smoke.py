@@ -59,6 +59,24 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
 14. timing_field     K6 per field, K7, K4, their plain versions, bounds and
                      shares of them, the dense solve, pHY', the RK update,
                      the split of one field-path env step
+15. bank_oracles     from the committed Ra=1e4 train bank (20 episodes):
+                     max|div| under the port's operator in float64, and the
+                     fixed point (4 episodes, zero action, 20 env steps of
+                     50 substeps) at Nu 4.000 +- 0.005 in float64 on the plain
+                     path and +- 0.02 in float32 through K1 (20 launches)
+16. policy_parity    the trained 2D policy (committed flax weights) on the
+                     card in float32 against the CPU in float64, 256
+                     normalised bank observations; TF32 off
+17. rl_eval_2d       the JAX baseline evaluation of that policy: test bank,
+                     64 envs, sequential, ic_noise 1e-3, 200 steps, trained
+                     and zero action; second-half Nu suppression >= 25 %,
+                     K1 400 launches
+18. rl_train_2d      PPO at the sarl2d_ra10000 configuration (256 envs on the
+                     train bank), 3 iterations through CheckpointCallback:
+                     finite metrics, updates applied, params moved, K1 64
+                     launches an iteration, the restored full state equal to
+                     the live one; seconds an iteration and their split, and
+                     one more update's kernels under torch.profiler
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -75,13 +93,18 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from rbc_gym_tpu_torch.envs.vector2d import RBC2DVectorEnv
 from rbc_gym_tpu_torch.envs.vector3d import RBC3DVectorEnv
+from rbc_gym_tpu_torch.experiments import eval_baselines, run_sarl_2d
+from rbc_gym_tpu_torch.models.nets import RBCActorCritic2D
+from rbc_gym_tpu_torch.models.params import load_params
 from rbc_gym_tpu_torch.ops import _build
 from rbc_gym_tpu_torch.ops import kernels2d as k2d
 from rbc_gym_tpu_torch.ops import kernels3d as k3d
@@ -91,6 +114,8 @@ from rbc_gym_tpu_torch.ops.limits import (
     tendencies_2d_instance,
 )
 from rbc_gym_tpu_torch.ops.poisson import FACTORED_POISSON_MIN_NXNZ, make_poisson_solver_3d
+from rbc_gym_tpu_torch.rl import PPO, CheckpointCallback, NusseltCallback, restore_training_state
+from rbc_gym_tpu_torch.rl.checkpoint import trainer_tensors
 from rbc_gym_tpu_torch.sim import solver2d as s2d
 from rbc_gym_tpu_torch.sim import solver3d as s3d
 from rbc_gym_tpu_torch.sim.grid import Grid2D, Grid3D
@@ -102,6 +127,8 @@ from rbc_gym_tpu_torch.sim.solver2d import (
     make_solver2d,
     max_divergence,
 )
+from rbc_gym_tpu_torch.utils.checkpoints import load_bank_2d
+from rbc_gym_tpu_torch.wrappers import functional as fn
 
 # The big grid: 32x64x64 at dt_solver 0.005, 25 substeps per env step.
 BIG_SHAPE = (32, 64, 64)
@@ -148,6 +175,34 @@ K7_ATOL = 5e-6
 # carried to the next stage), which the JAX package holds against its XLA
 # path at 5e-6 each (tests/test_pallas3d.py:30-43, :56-70).
 FIELD_VS_STAGE_ATOL = 1e-5
+
+# The 2D RL path. The committed copies of the Ra=1e4 banks and of the
+# trained sarl2d_ra10000 policy (rbc_gym_tpu_torch/utils/convert.py).
+REPO = Path(__file__).resolve().parent
+ASSETS = REPO / "rbc_gym_tpu_torch" / "assets"
+BANK_EPISODES = 20
+# PARITY.md 1: the reference's float64 projected velocities have max|div|
+# 6.4e-15 under the port's operator; 1e-12 is roundoff at a velocity-
+# gradient scale of ~5 (tests/test_parity_reference.py:74). The repo's
+# copies of the banks hold float32 values (each exactly representable),
+# so for them the bound is float32 rounding: bank_div_atol.
+BANK_DIV_ATOL = 1e-12
+# PARITY.md 2: the reference-converged Ra=1e4 roll is the solver's fixed
+# point, Nu 4.000 +- 0.005 over 30 time units in float64. Float32 rounding
+# moves it by ~1e-3 (the K1 gate's 4e-5 on fields of order 1, over 20 env
+# steps), so its band is 0.02.
+FIXED_POINT_NU = 4.0
+FIXED_POINT_ATOL = {torch.float64: 0.005, torch.float32: 0.02}
+# The trained policy's mean and value in float32 against float64: a float32
+# conv/dense stack of four layers, ~1e-6 relative rounding a layer.
+POLICY_ATOL = 1e-5
+POLICY_RTOL = 1e-5
+# JAX evaluated the trained policy at 31.2 % suppression, CI [29.3, 33.0]
+# (results/sarl2d_ra10000/baseline_eval.json); the port must reach 25 %.
+MIN_SUPPRESSION_PCT = 25.0
+# results/sarl2d_ra10000/config.yaml differs from run_sarl_2d's defaults
+# only in its iteration count (the anneal horizon).
+SARL2D_RA10000 = {"rl_nr_iterations": 500}
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
 FP32_FLOPS = 67e12
@@ -1295,6 +1350,235 @@ def timing_field(device, num_envs=1024, state_shape=(16, 32, 32)) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The 2D RL path: checkpoint banks, the trained policy, evaluation and PPO
+# ---------------------------------------------------------------------------
+
+
+def _timed(func, device, acc: list):
+    """``func`` with its synchronised host seconds added to ``acc[0]``."""
+
+    def run(*args, **kwargs):
+        _sync(device)
+        start = time.perf_counter()
+        out = func(*args, **kwargs)
+        _sync(device)
+        acc[0] += time.perf_counter() - start
+        return out
+
+    return run
+
+
+def bank_div_atol(data) -> float:
+    """The max|div| a bank's rounding allows: ``BANK_DIV_ATOL`` for float64
+    data, else (every value exactly a float32) two float32 ulps of the
+    largest |u| over dx plus two of the largest |w| over dz."""
+    if not all(np.array_equal(a, a.astype(np.float32)) for a in (data.u, data.w)):
+        return BANK_DIV_ATOL
+    dx, dz = 2 * np.pi / data.u.shape[1], 2.0 / data.u.shape[2]
+    ulp = float(np.finfo(np.float32).eps)
+    return 2 * ulp * (float(np.abs(data.u).max()) / dx + float(np.abs(data.w).max()) / dz)
+
+
+def bank_oracles(device, bank=ASSETS / "ckpt_ra10000_train.npz", episodes=BANK_EPISODES,
+                 n_fixed=4, steps=20) -> dict:
+    """PARITY.md 1-2 on the port: max|div| of every bank episode under the
+    port's operator in float64, and the Ra=1e4 fixed point (zero action,
+    dt 0.03, ``steps`` env steps of 50 substeps from the first ``n_fixed``
+    episodes): float64 on the plain path, float32 on the main path (K1 on
+    the card, its launches counted)."""
+    begin = time.perf_counter()
+    device = torch.device(device)
+    data = load_bank_2d(bank)
+    if data.num_episodes != episodes:
+        raise AssertionError(f"{bank} holds {data.num_episodes} episodes, not {episodes}")
+    grid = Grid2D(nx=data.b.shape[1], nz=data.b.shape[2], lx=2 * np.pi, lz=2.0)
+    f = Fields2D(*(torch.as_tensor(getattr(data, n), dtype=torch.float64, device=device)
+                   for n in ("u", "w", "b")), None, None)
+    div, div_atol = max_divergence(f, grid), bank_div_atol(data)
+    if not div < div_atol:
+        raise AssertionError(f"bank max |div| {div} >= {div_atol}")
+
+    out = {"phase": "bank_oracles", "bank": str(bank.relative_to(REPO)),
+           "episodes": data.num_episodes, "max_abs_div": div, "div_atol": div_atol}
+    for dtype, atol in ((torch.float64, FIXED_POINT_ATOL[torch.float64]),
+                        (torch.float32, FIXED_POINT_ATOL[torch.float32])):
+        env = RBC2DVectorEnv(n_fixed, checkpoint=str(bank), bank_sampling="sequential",
+                             auto_reset=False, dtype=dtype, device=device)
+        zero = torch.zeros((n_fixed, env.params.n_heaters), dtype=dtype, device=device)
+        reset_counters()
+        state, _ = env.reset(seed=0)
+        nus = []
+        for _ in range(steps):
+            state, ts = env.step(state, zero)
+            nus.append(ts.nusselt_state)
+        launches = k2d.env_step_2d.launches
+        nus = torch.stack(nus)
+        band = [float(nus.min()), float(nus.max())]
+        err = float((nus - FIXED_POINT_NU).abs().max())
+        name = str(dtype).replace("torch.", "")
+        if not err <= atol:
+            raise AssertionError(f"{name} fixed point: Nu in {band}, off {FIXED_POINT_NU} "
+                                 f"by {err} > {atol}")
+        if device.type == "cuda" and dtype == torch.float32 and launches != steps:
+            raise AssertionError(f"float32 fixed point launched K1 {launches} times, not {steps}")
+        out[f"fixed_point_{name}"] = {"path": env.solver.path, "nusselt_band": band,
+                                      "max_abs_err": err, "atol": atol, "env_steps": steps,
+                                      "env_step_2d_launches": launches}
+    out["seconds"] = time.perf_counter() - begin
+    return out
+
+
+def policy_parity(device, params=ASSETS / "sarl2d_ra10000_best_model.npz",
+                  bank=ASSETS / "ckpt_ra10000_train.npz", n_obs=256) -> dict:
+    """The trained 2D policy on ``device`` in float32 against the same net
+    on the CPU in float64, on ``n_obs`` normalised observations of bank
+    states (kicked by 1e-3 so that no two are equal)."""
+    device = torch.device(device)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on: the port's float32 products must run in float32")
+    config = run_sarl_2d.DEFAULT_CONFIG
+    env = RBC2DVectorEnv(n_obs, checkpoint=str(bank), ic_noise=1e-3, device=device)
+    _, obs = env.reset(seed=7)
+    obs = fn.normalize_observation(obs, fn.make_obs_norm_2d(config["rbc_heater_limit"]))
+    outs = {}
+    for name, dev, dtype, x in (("card", device, torch.float32, obs),
+                                ("cpu_float64", torch.device("cpu"), torch.float64,
+                                 obs.cpu().double())):
+        net = load_params(params, RBCActorCritic2D(log_std_init=config["rl_log_std_init"]))
+        net = net.to(device=dev, dtype=dtype).eval()
+        with torch.no_grad():
+            mean, _, value = net(x)
+        outs[name] = (mean.cpu().double(), value.cpu().double())
+    errs = {}
+    for i, name in enumerate(("mean", "value")):
+        got, want = outs["card"][i], outs["cpu_float64"][i]
+        errs[name] = float((got - want).abs().max())
+        excess = float(((got - want).abs() - POLICY_ATOL - POLICY_RTOL * want.abs()).max())
+        if excess > 0.0:
+            raise AssertionError(f"policy {name} off its float64 run by {errs[name]} "
+                                 f"(atol {POLICY_ATOL} + rtol {POLICY_RTOL})")
+    return {"phase": "policy_parity", "n_obs": n_obs, "max_abs_err": errs,
+            "atol": POLICY_ATOL, "rtol": POLICY_RTOL,
+            "value_range": [float(outs["cpu_float64"][1].min()),
+                            float(outs["cpu_float64"][1].max())],
+            "tf32": [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32]}
+
+
+def rl_eval_2d(device, episodes=64, steps=200, bank=ASSETS / "ckpt_ra10000_test.npz",
+               params=ASSETS / "sarl2d_ra10000_best_model.npz", ic_noise=1e-3, seed=123,
+               min_suppression=MIN_SUPPRESSION_PCT) -> dict:
+    """The JAX package's baseline evaluation of the trained 2D policy
+    (results/sarl2d_ra10000/baseline_eval.json) through the port's
+    ``eval_baselines``: the test bank sequentially, ``episodes`` envs,
+    ``steps`` env steps, the trained policy and zero action from the same
+    initial states; second-half Nu and the suppression against zero."""
+    device = torch.device(device)
+    config = {**run_sarl_2d.DEFAULT_CONFIG, **SARL2D_RA10000}
+    env, policies, nusselt_of, _ = eval_baselines.make_eval(config, str(bank), episodes,
+                                                            ic_noise, str(params), device)
+    _sync(device)
+    start = time.perf_counter()
+    state0, obs0 = env.reset(seed=seed)  # a gather from the bank on the device, and the kick
+    _sync(device)
+    reset_s = time.perf_counter() - start
+    reset_counters()
+    per_episode, out, seconds = {}, {}, 0.0
+    for name in ("trained", "zero"):
+        _sync(device)
+        start = time.perf_counter()
+        nus = eval_baselines.rollout(env, state0, obs0, policies[name], steps, nusselt_of,
+                                     seed + 1)
+        seconds += time.perf_counter() - start
+        if not np.isfinite(nus).all():
+            raise AssertionError(f"{name}: Nu is not finite")
+        per_episode[name] = nus[nus.shape[0] // 2:].mean(axis=0)
+        out[name] = {"nusselt_mean": float(nus.mean()),
+                     "nusselt_mean_second_half": float(per_episode[name].mean())}
+    launches = k2d.env_step_2d.launches
+    expect_launches(device, {"env_step_2d": launches}, {"env_step_2d": 2 * steps})
+    supp = eval_baselines.suppression(per_episode, "trained", np.arange(episodes) % env._bank.size)
+    if min_suppression is not None and not supp["pct"] >= min_suppression:
+        raise AssertionError(f"trained policy suppresses Nu by {supp['pct']} % of zero action, "
+                             f"under {min_suppression} %")
+    return {"phase": "rl_eval_2d", "episodes": episodes, "steps": steps,
+            "bank": str(bank.relative_to(REPO)), "path": env.solver.path, **out,
+            "suppression_vs_zero_pct": supp["pct"], "suppression_vs_zero_ci95": supp["ci95"],
+            "min_suppression_pct": min_suppression, "reset_s": reset_s, "seconds": seconds,
+            "env_steps_per_s": 2 * steps * episodes / seconds,
+            "launches": {"env_step_2d": launches}}
+
+
+def rl_train_2d(device, iterations=3, config_overrides=None) -> dict:
+    """``PPO`` at the sarl2d_ra10000 configuration through the port's
+    ``run_sarl_2d.make_trainer``: ``iterations`` iterations on the train
+    bank through ``CheckpointCallback`` into a temporary directory; the
+    full state restored into a fresh trainer equals the live one."""
+    device = torch.device(device)
+    config = {**run_sarl_2d.DEFAULT_CONFIG, **SARL2D_RA10000,
+              "rbc_checkpoint": str(ASSETS / "ckpt_ra10000_train.npz"),
+              **(config_overrides or {})}
+    trainer, _, _ = run_sarl_2d.make_trainer(config, device)
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    env_s, rollout_s, update_s = [0.0], [0.0], [0.0]
+    trainer.env.step = _timed(trainer.env.step, device, env_s)
+    trainer._rollout = _timed(trainer._rollout, device, rollout_s)
+    trainer._update = _timed(trainer._update, device, update_s)
+    records = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = CheckpointCallback(tmp, save_freq=1)
+        callbacks = (NusseltCallback(), lambda m, t: records.append(dict(m)), ckpt)
+        ckpt.sibling_callbacks = callbacks
+        reset_counters()
+        _sync(device)
+        start = time.perf_counter()
+        trainer.learn(iterations, callbacks=callbacks)
+        _sync(device)
+        seconds = time.perf_counter() - start
+        launches = k2d.env_step_2d.launches
+        fresh, _, _ = run_sarl_2d.make_trainer(config, device)
+        nusselt = NusseltCallback()
+        resumed_at = restore_training_state(ckpt.full_path, fresh, callbacks=(nusselt,))
+    expect_launches(device, {"env_step_2d": launches},
+                    {"env_step_2d": iterations * config["rl_n_steps"]})
+    for rec in records:
+        bad = [k for k, v in rec.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"iteration {rec['iteration']}: {bad} not finite")
+        if not rec["n_updates"] >= 1:
+            raise AssertionError(f"iteration {rec['iteration']} applied no update")
+    if all(torch.equal(a, b) for a, b in zip(before, trainer.model.parameters())):
+        raise AssertionError("training left the params unchanged")
+    live, restored = trainer_tensors(trainer), trainer_tensors(fresh)
+    differ = [k for k in live if not torch.equal(live[k], restored[k])]
+    if (differ or resumed_at != iterations or fresh.optimizer.count != trainer.optimizer.count
+            or nusselt.history != callbacks[0].history):
+        raise AssertionError(f"restored state differs: {differ}, resumes at {resumed_at}")
+    n = config["rl_n_envs"]
+    split = {"env_steps": env_s[0] / iterations,
+             "policy_forward": (rollout_s[0] - env_s[0]) / iterations,
+             "update": update_s[0] / iterations,
+             "gae_and_rest": (seconds - rollout_s[0] - update_s[0]) / iterations}
+    adam_count = trainer.optimizer.count
+    # the update's kernels by device time and its idle share, from one more
+    # rollout (outside the counted run)
+    update_device = "not measured (no card)"
+    if device.type == "cuda":
+        traj, last_value = PPO._rollout(trainer)
+        advantages, returns = trainer._gae(traj, last_value)
+        update_device = device_profile(lambda: PPO._update(trainer, traj, advantages, returns))
+    return {"phase": "rl_train_2d", "num_envs": n, "n_steps": config["rl_n_steps"],
+            "iterations": iterations, "path": trainer.env.solver.path,
+            "s_per_iteration": seconds / iterations, "split_s_per_iteration": split,
+            "update_device": update_device,
+            "env_steps_per_s": n * config["rl_n_steps"] * iterations / seconds,
+            "n_updates": [r["n_updates"] for r in records],
+            "approx_kl": [r["approx_kl"] for r in records],
+            "rollout_nusselt_mean": [r["rollout/nusselt_mean"] for r in records],
+            "adam_count": adam_count, "restored_tensors": len(live),
+            "launches": {"env_step_2d": launches}}
+
+
+# ---------------------------------------------------------------------------
 # Records
 # ---------------------------------------------------------------------------
 
@@ -1362,6 +1646,10 @@ def main() -> int:
     emit({**path_field, "card": card})
     times_field = timing_field(device)
     emit({**times_field, "card": card})
+    emit({**bank_oracles(device), "card": card})
+    emit({**policy_parity(device), "card": card})
+    emit({**rl_eval_2d(device), "card": card})
+    emit({**rl_train_2d(device), "card": card})
     # each kernel's launches from the main path that is its own (K4 runs on
     # every 3D path; its count is the training grid's lazy path, its error
     # the larger of the two grids')

@@ -56,6 +56,19 @@ def split_keys(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return _from_u64(_mix(k * two)), _from_u64(_mix(k * two + np.uint64(1)))
 
 
+def key_index(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """One index in [0, n) per key (``jax.random.randint(key, (), 0, n)``)."""
+    return torch.from_numpy((_mix(_to_u64(keys)) % np.uint64(n)).astype(np.int64))
+
+
+def batch_generator(keys: torch.Tensor, device) -> torch.Generator:
+    """One generator for a batch of keys, seeded from all of them, so that a
+    batch's random draws are one call on ``device``, not one per env."""
+    k = _to_u64(keys)
+    seed = np.bitwise_xor.reduce(_mix(k + np.arange(k.size, dtype=np.uint64) * _SPLIT_STRIDE))
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
 def autoreset_step(
     fields,
     key: torch.Tensor,

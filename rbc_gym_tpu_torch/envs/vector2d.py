@@ -10,16 +10,20 @@ explicit ``EnvState2D``:
 ``step`` never writes to the state it is given. Episode bookkeeping
 (truncation at ``episode_length``, masked autoreset with per-env key
 streams) happens inside ``step``. reward = -Nu of the sensor observation.
+With ``checkpoint=`` a bank file (``.npz`` anywhere, the reference's HDF5
+on a host with h5py) supplies the initial conditions; see ``envs.bank``.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from rbc_gym_tpu_torch.envs.autoreset import autoreset_step, fold_in, seed_keys
+from rbc_gym_tpu_torch.envs.autoreset import autoreset_step, fold_in, key_index, seed_keys
+from rbc_gym_tpu_torch.envs.bank import DeviceBank
 from rbc_gym_tpu_torch.sim import nusselt as nu
 from rbc_gym_tpu_torch.sim.grid import Grid2D
 from rbc_gym_tpu_torch.sim.solver2d import Fields2D, SimParams2D, make_solver2d
@@ -67,11 +71,19 @@ class RBC2DVectorEnv:
         poisson_precision: Optional[str] = None,
         device: str | torch.device | None = "cuda",
     ):
-        """``bank_sampling`` and ``ic_noise`` act only on checkpoint-bank
-        initial conditions (random or sequential bank index; Gaussian kick
-        on bank states). Banks are read with h5py and are not ported yet
-        (ROADMAP A.2), so ``checkpoint`` must be None, these two keep their
-        defaults, and initial conditions are the solver's random ones.
+        """``checkpoint``: a bank file (``.npz``, or HDF5 where h5py is
+        installed) of initial conditions; None starts from the solver's
+        random ones. ``bank_sampling``: "random" draws a bank index per env
+        from its key (reference semantics, sim/rbc_sim2D.jl:178),
+        "sequential" gives env i bank state i % bank_size (deterministic and
+        duplicate-free up to the bank size, for evaluation). ``ic_noise``
+        adds a Gaussian kick of that amplitude to bank states at reset, so
+        lockstep envs sharing a bank index decorrelate.
+
+        Sequential sampling governs explicit ``reset()`` calls only:
+        autoresets draw random bank states, so evaluation protocols relying
+        on the duplicate-free guarantee pass ``auto_reset=False`` (a
+        warning is logged otherwise).
 
         ``poisson_precision`` counts the TPU matrix unit's passes in the JAX
         package; the port's solve runs in full float32 (TF32 off), so only
@@ -83,10 +95,11 @@ class RBC2DVectorEnv:
             )
         if bank_sampling not in ("random", "sequential"):
             raise ValueError(f"unknown bank_sampling {bank_sampling!r}")
-        if checkpoint is not None or bank_sampling != "random" or ic_noise > 0.0:
-            raise NotImplementedError(
-                "checkpoint banks (and bank_sampling/ic_noise, which act on "
-                "them) are not ported yet (ROADMAP A.2): pass checkpoint=None"
+        if bank_sampling == "sequential" and auto_reset:
+            logging.getLogger(__name__).warning(
+                "bank_sampling='sequential' with auto_reset=True: mid-episode "
+                "autoresets draw random bank states; the duplicate-free guarantee "
+                "only covers the initial reset(). Pass auto_reset=False for evaluation."
             )
         self.num_envs = num_envs
         nz, nx = state_shape
@@ -102,13 +115,23 @@ class RBC2DVectorEnv:
         self.observation_shape = tuple(observation_shape)
         self.include_pressure = pressure
         self.auto_reset = auto_reset
+        self.bank_sampling = bank_sampling
+        self.ic_noise = float(ic_noise)
         self.dtype = dtype
         self.solver = make_solver2d(self.grid, self.params, dtype=dtype, device=device)
         self.device = self.solver.device
+        self._bank = None
+        if checkpoint is not None:
+            p = self.params
+            self._bank = DeviceBank(checkpoint, Fields2D, (nx, nz), dtype, self.device,
+                                    self.ic_noise, p.min_b, p.delta_b, self.grid.dz)
 
     # -- init ----------------------------------------------------------
     def _init_fields(self, keys: torch.Tensor) -> Fields2D:
-        """Fresh random initial state per env, each from its own key."""
+        """Fresh initial state per env, each from its own key: a random bank
+        episode, or the solver's random initial condition."""
+        if self._bank is not None:
+            return self._bank.fields(key_index(keys, self._bank.size), keys)
         per_env = [
             self.solver.init_random(torch.Generator(device=self.device).manual_seed(k))
             for k in keys.tolist()
@@ -117,7 +140,12 @@ class RBC2DVectorEnv:
 
     def reset(self, seed: int = 0) -> Tuple[EnvState2D, torch.Tensor]:
         keys = seed_keys(seed, self.num_envs)
-        fields = self._init_fields(fold_in(keys, 0))
+        init_keys = fold_in(keys, 0)
+        if self._bank is not None and self.bank_sampling == "sequential":
+            idx = torch.arange(self.num_envs) % self._bank.size
+            fields = self._bank.fields(idx, init_keys)
+        else:
+            fields = self._init_fields(init_keys)
         state = EnvState2D(
             fields=fields,
             t=torch.zeros(self.num_envs, dtype=self.dtype, device=self.device),

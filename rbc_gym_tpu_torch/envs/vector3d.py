@@ -12,17 +12,21 @@ functions over an explicit ``EnvState3D``:
 
 ``step`` never writes to the state it is given. Truncation and masked
 autoreset with per-env key streams happen inside ``step``; reward = -Nu
-(the reference's 3D definition, over the full state).
+(the reference's 3D definition, over the full state). With ``checkpoint=``
+a bank file (``.npz`` anywhere, the reference's HDF5 on a host with h5py)
+supplies the initial conditions; see ``envs.bank``.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from rbc_gym_tpu_torch.envs.autoreset import autoreset_step, fold_in, seed_keys
+from rbc_gym_tpu_torch.envs.autoreset import autoreset_step, fold_in, key_index, seed_keys
+from rbc_gym_tpu_torch.envs.bank import DeviceBank
 from rbc_gym_tpu_torch.sim.grid import Grid3D
 from rbc_gym_tpu_torch.sim.nusselt import nusselt_3d
 from rbc_gym_tpu_torch.sim.solver3d import Fields3D, SimParams3D, make_solver3d
@@ -64,6 +68,7 @@ class RBC3DVectorEnv:
         episode_length: float = 300,
         dt_solver: float = 0.01,
         checkpoint: Optional[str] = None,
+        checkpoint_idx: Optional[int] = None,
         auto_reset: bool = True,
         bank_sampling: str = "random",
         ic_noise: float = 0.0,
@@ -72,10 +77,12 @@ class RBC3DVectorEnv:
         poisson_precision: Optional[str] = None,
         device: str | torch.device | None = "cuda",
     ):
-        """``bank_sampling`` and ``ic_noise`` act only on checkpoint-bank
-        initial conditions, which are read with h5py and not ported yet
-        (ROADMAP A.2): ``checkpoint`` must be None, these two keep their
-        defaults, and initial conditions are the solver's random ones.
+        """``checkpoint``, ``bank_sampling``, ``ic_noise``: as in
+        ``RBC2DVectorEnv`` (bank initial conditions, random or sequential
+        bank index, Gaussian kick; sequential sampling governs explicit
+        ``reset()`` calls only, with a warning under ``auto_reset=True``).
+        ``checkpoint_idx`` pins every env to one bank state; it contradicts
+        sequential sampling and raises with it.
 
         ``fused`` picks the solver's loop and kernels (``Solver3D.path``, see
         ``sim.solver3d.select_stage_path``): None for auto, False for plain
@@ -92,11 +99,19 @@ class RBC3DVectorEnv:
             )
         if bank_sampling not in ("random", "sequential"):
             raise ValueError(f"unknown bank_sampling {bank_sampling!r}")
-        if checkpoint is not None or bank_sampling != "random" or ic_noise > 0.0:
-            raise NotImplementedError(
-                "checkpoint banks (and bank_sampling/ic_noise, which act on "
-                "them) are not ported yet (ROADMAP A.2): pass checkpoint=None"
-            )
+        if bank_sampling == "sequential":
+            if checkpoint_idx is not None:
+                raise ValueError(
+                    "checkpoint_idx and bank_sampling='sequential' conflict: sequential "
+                    "assigns env i bank state i % bank_size, checkpoint_idx pins all "
+                    "envs to one state"
+                )
+            if auto_reset:
+                logging.getLogger(__name__).warning(
+                    "bank_sampling='sequential' with auto_reset=True: mid-episode "
+                    "autoresets draw random bank states; the duplicate-free guarantee "
+                    "only covers the initial reset(). Pass auto_reset=False for evaluation."
+                )
         self.num_envs = num_envs
         nz, ny, nx = state_shape
         lz, ly, lx = domain
@@ -116,14 +131,30 @@ class RBC3DVectorEnv:
         self._t_per_step = self.params.heater_duration * self.params.t_ff
         self.episode_steps = int(round(float(episode_length) / self._t_per_step))
         self.auto_reset = auto_reset
+        self.bank_sampling = bank_sampling
+        self.ic_noise = float(ic_noise)
+        self.checkpoint_idx = checkpoint_idx
         self.dtype = dtype
         self.solver = make_solver3d(self.grid, self.params, dtype=dtype, device=device,
                                     fused=fused)
         self.device = self.solver.device
+        self._bank = None
+        if checkpoint is not None:
+            p = self.params
+            self._bank = DeviceBank(checkpoint, Fields3D, (nx, ny, nz), dtype, self.device,
+                                    self.ic_noise, p.min_b, p.delta_b, self.grid.dz)
 
     # -- init ----------------------------------------------------------
     def _init_fields(self, keys: torch.Tensor) -> Fields3D:
-        """Fresh random initial state per env, each from its own key."""
+        """Fresh initial state per env, each from its own key: a bank
+        episode (``checkpoint_idx``, else random), or the solver's random
+        initial condition."""
+        if self._bank is not None:
+            if self.checkpoint_idx is not None:
+                idx = torch.full((len(keys),), self.checkpoint_idx, dtype=torch.int64)
+            else:
+                idx = key_index(keys, self._bank.size)
+            return self._bank.fields(idx, keys)
         per_env = [
             self.solver.init_random(torch.Generator(device=self.device).manual_seed(k))
             for k in keys.tolist()
@@ -132,7 +163,12 @@ class RBC3DVectorEnv:
 
     def reset(self, seed: int = 0) -> Tuple[EnvState3D, torch.Tensor]:
         keys = seed_keys(seed, self.num_envs)
-        fields = self._init_fields(fold_in(keys, 0))
+        init_keys = fold_in(keys, 0)
+        if self._bank is not None and self.bank_sampling == "sequential":
+            idx = torch.arange(self.num_envs) % self._bank.size
+            fields = self._bank.fields(idx, init_keys)
+        else:
+            fields = self._init_fields(init_keys)
         state = EnvState3D(
             fields=fields,
             t=torch.zeros(self.num_envs, dtype=self.dtype, device=self.device),

@@ -177,15 +177,19 @@ def test_step_leaves_its_input_state_unmodified():
 
 
 def test_checkpoint_banks_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A.2"):
-        _env(2, checkpoint="data/checkpoints/train/ckpt_ra10000.h5")
+    """(Named when banks were refused.) A bank that does not fit the env's
+    grid is refused by name, an unknown sampling mode too; sequential
+    sampling and ic_noise, which act only on banks, are accepted without
+    one, as the JAX env accepts them."""
+    with pytest.raises(ValueError, match="do not fit"):
+        _env(2, checkpoint="rbc_gym_tpu_torch/assets/ckpt_ra10000_train.npz")
     with pytest.raises(ValueError, match="bank_sampling"):
         _env(2, bank_sampling="nope")
-    # both act only on banks, so they are refused rather than ignored
-    with pytest.raises(NotImplementedError, match="A.2"):
-        _env(2, bank_sampling="sequential")
-    with pytest.raises(NotImplementedError, match="A.2"):
-        _env(2, ic_noise=0.01)
+    _env(2, bank_sampling="sequential", auto_reset=False)
+    _env(2, ic_noise=0.01)
+    env = RBC2DVectorEnv(2, checkpoint="rbc_gym_tpu_torch/assets/ckpt_ra10000_train.npz",
+                         dtype=torch.float64, device="cpu")
+    assert env._bank.size == 20
 
 
 def test_poisson_precision_is_taken_as_none_and_refused_otherwise():

@@ -170,14 +170,20 @@ def test_step_leaves_its_input_state_unmodified():
 
 
 def test_checkpoint_banks_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A.2"):
-        _env(2, checkpoint="data/checkpoints/train/ckpt_ra2500_3d.h5")
+    """(Named when banks were refused.) A bank that does not fit the env's
+    grid is refused by name, an unknown sampling mode too, and pinning
+    every env to one bank state contradicts sequential sampling; without
+    a bank, sequential sampling and ic_noise are accepted, as the JAX env
+    accepts them."""
+    bank = "data/checkpoints/train/3D_ckpt_ra2500.h5"  # 16x32x32
+    with pytest.raises(ValueError, match="do not fit"):
+        _env(2, checkpoint=bank)
     with pytest.raises(ValueError, match="bank_sampling"):
         _env(2, bank_sampling="nope")
-    with pytest.raises(NotImplementedError, match="A.2"):
-        _env(2, bank_sampling="sequential")
-    with pytest.raises(NotImplementedError, match="A.2"):
-        _env(2, ic_noise=0.01)
+    with pytest.raises(ValueError, match="checkpoint_idx"):
+        _env(2, bank_sampling="sequential", checkpoint_idx=0)
+    _env(2, bank_sampling="sequential", auto_reset=False)
+    _env(2, ic_noise=0.01)
 
 
 def test_stage_xy_env_steps_and_refuses_unported_options():
