@@ -72,10 +72,11 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      and zero action; second-half Nu suppression >= 25 %,
                      K1 400 launches
 18. rl_train_2d      PPO at the sarl2d_ra10000 configuration (256 envs on the
-                     train bank), 3 iterations through CheckpointCallback:
+                     train bank), 4 iterations through CheckpointCallback:
                      finite metrics, updates applied, params moved, K1 64
-                     launches an iteration, the restored full state equal to
-                     the live one; seconds an iteration and their split, and
+                     launches an iteration, every env truncated once (step
+                     200) with a finite nonzero V(final_obs), the restored
+                     full state equal to the live one; seconds an iteration and their split, and
                      one more update's kernels under torch.profiler
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
@@ -1471,7 +1472,9 @@ def rl_eval_2d(device, episodes=64, steps=200, bank=ASSETS / "ckpt_ra10000_test.
     (results/sarl2d_ra10000/baseline_eval.json) through the port's
     ``eval_baselines``: the test bank sequentially, ``episodes`` envs,
     ``steps`` env steps, the trained policy and zero action from the same
-    initial states; second-half Nu and the suppression against zero."""
+    initial states; second-half Nu and the suppression against zero, its
+    CI clustered by bank state (the script's) and iid over episodes, and
+    the largest spread of zero-action Nu among episodes sharing a state."""
     device = torch.device(device)
     config = {**run_sarl_2d.DEFAULT_CONFIG, **SARL2D_RA10000}
     env, policies, nusselt_of, _ = eval_baselines.make_eval(config, str(bank), episodes,
@@ -1496,23 +1499,32 @@ def rl_eval_2d(device, episodes=64, steps=200, bank=ASSETS / "ckpt_ra10000_test.
                      "nusselt_mean_second_half": float(per_episode[name].mean())}
     launches = k2d.env_step_2d.launches
     expect_launches(device, {"env_step_2d": launches}, {"env_step_2d": 2 * steps})
-    supp = eval_baselines.suppression(per_episode, "trained", np.arange(episodes) % env._bank.size)
+    clusters = np.arange(episodes) % env._bank.size
+    supp = eval_baselines.suppression(per_episode, "trained", clusters)
+    supp_iid = eval_baselines.suppression(per_episode, "trained", None)
+    zero_ep = per_episode["zero"]
+    spread = max(float(np.ptp(zero_ep[clusters == c])) for c in np.unique(clusters))
     if min_suppression is not None and not supp["pct"] >= min_suppression:
         raise AssertionError(f"trained policy suppresses Nu by {supp['pct']} % of zero action, "
                              f"under {min_suppression} %")
     return {"phase": "rl_eval_2d", "episodes": episodes, "steps": steps,
             "bank": str(bank.relative_to(REPO)), "path": env.solver.path, **out,
             "suppression_vs_zero_pct": supp["pct"], "suppression_vs_zero_ci95": supp["ci95"],
+            "suppression_vs_zero_ci95_iid": supp_iid["ci95"],
+            "zero_second_half_std_across_episodes": float(zero_ep.std()),
+            "zero_second_half_max_spread_within_state": spread,
             "min_suppression_pct": min_suppression, "reset_s": reset_s, "seconds": seconds,
             "env_steps_per_s": 2 * steps * episodes / seconds,
             "launches": {"env_step_2d": launches}}
 
 
-def rl_train_2d(device, iterations=3, config_overrides=None) -> dict:
+def rl_train_2d(device, iterations=4, config_overrides=None) -> dict:
     """``PPO`` at the sarl2d_ra10000 configuration through the port's
     ``run_sarl_2d.make_trainer``: ``iterations`` iterations on the train
     bank through ``CheckpointCallback`` into a temporary directory; the
-    full state restored into a fresh trainer equals the live one."""
+    full state restored into a fresh trainer equals the live one. The run
+    outlasts an episode, so every env truncates, takes V(final_obs) and
+    restarts from a random bank state inside ``step``."""
     device = torch.device(device)
     config = {**run_sarl_2d.DEFAULT_CONFIG, **SARL2D_RA10000,
               "rbc_checkpoint": str(ASSETS / "ckpt_ra10000_train.npz"),
@@ -1521,7 +1533,15 @@ def rl_train_2d(device, iterations=3, config_overrides=None) -> dict:
     before = [p.detach().clone() for p in trainer.model.parameters()]
     env_s, rollout_s, update_s = [0.0], [0.0], [0.0]
     trainer.env.step = _timed(trainer.env.step, device, env_s)
-    trainer._rollout = _timed(trainer._rollout, device, rollout_s)
+    timed_rollout = _timed(trainer._rollout, device, rollout_s)
+    boundary_values = []
+
+    def rollout():
+        traj, last_value = timed_rollout()
+        boundary_values.append(traj.boundary_value[traj.truncated])
+        return traj, last_value
+
+    trainer._rollout = rollout
     trainer._update = _timed(trainer._update, device, update_s)
     records = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -1540,6 +1560,13 @@ def rl_train_2d(device, iterations=3, config_overrides=None) -> dict:
         resumed_at = restore_training_state(ckpt.full_path, fresh, callbacks=(nusselt,))
     expect_launches(device, {"env_step_2d": launches},
                     {"env_step_2d": iterations * config["rl_n_steps"]})
+    boundary = torch.cat(boundary_values)
+    n_env = config["rl_n_envs"]
+    truncations = n_env * (iterations * config["rl_n_steps"] // trainer.env.episode_steps)
+    if truncations == 0 or boundary.numel() != truncations:
+        raise AssertionError(f"{boundary.numel()} truncations, not {truncations} (and not 0)")
+    if not (torch.isfinite(boundary).all() and (boundary != 0).all()):
+        raise AssertionError("V(final_obs) at a truncation is not finite and nonzero")
     for rec in records:
         bad = [k for k, v in rec.items() if not np.isfinite(v)]
         if bad:
@@ -1553,7 +1580,7 @@ def rl_train_2d(device, iterations=3, config_overrides=None) -> dict:
     if (differ or resumed_at != iterations or fresh.optimizer.count != trainer.optimizer.count
             or nusselt.history != callbacks[0].history):
         raise AssertionError(f"restored state differs: {differ}, resumes at {resumed_at}")
-    n = config["rl_n_envs"]
+    n = n_env
     split = {"env_steps": env_s[0] / iterations,
              "policy_forward": (rollout_s[0] - env_s[0]) / iterations,
              "update": update_s[0] / iterations,
@@ -1574,6 +1601,8 @@ def rl_train_2d(device, iterations=3, config_overrides=None) -> dict:
             "n_updates": [r["n_updates"] for r in records],
             "approx_kl": [r["approx_kl"] for r in records],
             "rollout_nusselt_mean": [r["rollout/nusselt_mean"] for r in records],
+            "truncations": truncations,
+            "boundary_value_range": [float(boundary.min()), float(boundary.max())],
             "adam_count": adam_count, "restored_tensors": len(live),
             "launches": {"env_step_2d": launches}}
 

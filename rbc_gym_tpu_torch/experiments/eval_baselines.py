@@ -1,7 +1,9 @@
 """Trained-policy vs baseline Nusselt comparison with bootstrap CIs, on the port.
 
 Twin of ``experiments/eval_baselines.py``, plus ``--device`` (default
-``cuda``) and ``--out``. On a held-out checkpoint bank:
+``cuda``) and ``--out``. It writes ``baseline_eval_torch.json`` beside the
+JAX twin's ``baseline_eval.json``, which it never overwrites unless
+``--out`` names it. On a held-out checkpoint bank:
 
 * initial conditions are drawn without replacement from the bank
   (``bank_sampling="sequential"``, ``auto_reset=False``); with more
@@ -204,7 +206,7 @@ def main(argv=None):
                    help="observation z-row the proportional law senses")
     p.add_argument("--device", default="cuda")
     p.add_argument("--out", default=None,
-                   help="result file (default <result_dir>/baseline_eval.json)")
+                   help="result file (default <result_dir>/baseline_eval_torch.json)")
     args = p.parse_args(argv)
 
     import yaml
@@ -251,7 +253,7 @@ def main(argv=None):
     results.update(bank=bank, bank_size=bank_size, prop_gain=prop_gain, prop_row=args.prop_row,
                    ic_duplication=-(-args.episodes // bank_size), ic_noise=args.ic_noise,
                    model=args.model, device=str(env.device))
-    out = args.out or os.path.join(args.result_dir, "baseline_eval.json")
+    out = args.out or os.path.join(args.result_dir, "baseline_eval_torch.json")
     with open(out, "w") as f:
         json.dump(results, f, indent=2)
     if supp:

@@ -85,7 +85,7 @@ class CheckpointCallback:
     """Periodic snapshots (SB3 CheckpointCallback role), every ``save_freq``
     iterations:
 
-    * a params-only ``<prefix>_<global_step>_steps.npz`` (what evaluation
+    * a params-only ``rl_model_<global_step>_steps.npz`` (what evaluation
       reads), and
     * ``latest_full.npz``, the full resumable training state
       (``rl.checkpoint``), kept as one rolling file with a
@@ -95,12 +95,9 @@ class CheckpointCallback:
     full callback tuple, so their state rides along.
     """
 
-    def __init__(self, save_path: str, save_freq: int = 4, name_prefix: str = "rl_model",
-                 full_state: bool = True):
+    def __init__(self, save_path: str, save_freq: int = 4):
         self.save_path = save_path
         self.save_freq = save_freq
-        self.name_prefix = name_prefix
-        self.full_state = full_state
         self.sibling_callbacks: tuple = ()
 
     @property
@@ -112,19 +109,18 @@ class CheckpointCallback:
         if it % self.save_freq != 0:
             return
         save_params(trainer.model, os.path.join(
-            self.save_path, f"{self.name_prefix}_{metrics['global_step']}_steps.npz"))
-        if self.full_state:
-            # Crash-safe rotation: write the new snapshot under a temp name
-            # first, only then rotate latest -> previous -> new, so any
-            # crash leaves at least one complete snapshot on disk
-            # (restore_training_state_with_fallback walks latest ->
-            # latest.new -> previous).
-            full = self.full_path
-            new = full + ".new"
-            save_training_state(new, trainer, it, callbacks=self.sibling_callbacks)
-            if os.path.exists(full):
-                os.replace(full, os.path.join(self.save_path, "previous_full.npz"))
-            os.replace(new, full)
+            self.save_path, f"rl_model_{metrics['global_step']}_steps.npz"))
+        # Crash-safe rotation: write the new snapshot under a temp name
+        # first, only then rotate latest -> previous -> new, so any crash
+        # leaves at least one complete snapshot on disk
+        # (restore_training_state_with_fallback walks latest -> latest.new
+        # -> previous).
+        full = self.full_path
+        new = full + ".new"
+        save_training_state(new, trainer, it, callbacks=self.sibling_callbacks)
+        if os.path.exists(full):
+            os.replace(full, os.path.join(self.save_path, "previous_full.npz"))
+        os.replace(new, full)
 
 
 class EvaluationCallback:

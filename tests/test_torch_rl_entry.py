@@ -2,13 +2,17 @@
 
 ``run_sarl_2d`` trains, evaluates, snapshots and resumes as its JAX twin
 does (tests/test_experiments.py); ``eval_baselines`` writes the JAX twin's
-``baseline_eval.json`` for a 2D and a 3D result dir; each runs as
+record, as ``baseline_eval_torch.json``, for a 2D and a 3D result dir and
+leaves the JAX record beside it as it was, and its bootstrap is the JAX
+script's; each runs as
 ``python -m``; and the port's modules import none of the JAX stack, with
 h5py, msgpack and yaml imported only inside the host functions that need
 them.
 """
 
+import importlib.util
 import json
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -110,7 +114,7 @@ def test_eval_baselines_writes_the_jax_record(tmp_path, three_d):
     save_params(model, tmp_path / "models" / "best_model.npz")
     eval_baselines.main([str(tmp_path), "--bank", bank, "--episodes", "3", "--n_steps", "2",
                          "--device", "cpu"])
-    res = json.loads((tmp_path / "baseline_eval.json").read_text())
+    res = json.loads((tmp_path / "baseline_eval_torch.json").read_text())
     for name in ("trained", "zero", "random", "proportional"):
         r = res[name]
         assert r["episodes"] == 3 and r["n_steps"] == 2 and len(r["nusselt_trace"]) == 2
@@ -119,6 +123,64 @@ def test_eval_baselines_writes_the_jax_record(tmp_path, three_d):
     assert res["bank_size"] == 2 and res["ic_duplication"] == 2
     assert np.isfinite(res["suppression_vs_zero_pct"])
     assert set(res["suppression_random_vs_zero"]) == {"pct", "ci95"}
+
+
+def test_eval_baselines_leaves_the_jax_record_untouched(tmp_path):
+    """On a copy of a JAX result dir (its config, flax params and
+    ``baseline_eval.json``), the port writes its own file and the JAX
+    record stays byte for byte."""
+    src = REPO / "results" / "sarl2d_ra10000"
+    (tmp_path / "models").mkdir()
+    for name in ("config.yaml", "baseline_eval.json", "models/best_model.msgpack"):
+        shutil.copy(src / name, tmp_path / name)
+    eval_baselines.main([str(tmp_path), "--model", "models/best_model.msgpack",
+                         "--bank", str(REPO / "data/checkpoints/test/ckpt_ra10000.h5"),
+                         "--episodes", "2", "--n_steps", "1", "--device", "cpu"])
+    assert (tmp_path / "baseline_eval.json").read_bytes() == (
+        src / "baseline_eval.json").read_bytes()
+    res = json.loads((tmp_path / "baseline_eval_torch.json").read_text())
+    assert res["trained"]["episodes"] == 2 and res["bank_size"] == 10
+
+
+def _jax_eval_baselines():
+    """``experiments/eval_baselines.py`` (its bootstrap is plain numpy)."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_eval_baselines", REPO / "experiments" / "eval_baselines.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("clustered", [False, True])
+def test_bootstrap_and_suppression_are_the_jax_scripts(clustered):
+    """The port's ``bootstrap_ci`` and ``suppression`` give the JAX script's
+    CIs exactly on the same per-episode arrays (64 episodes on a bank of 10,
+    as in results/sarl2d_ra10000), clustered by bank state or not. The JAX
+    ``suppression`` is a closure inside its ``main``; its statistic is
+    restated here from there."""
+    jax_eb = _jax_eval_baselines()
+    rng = np.random.default_rng(3)
+    state = 3.7 + 0.4 * rng.standard_normal(10)
+    zero = state[np.arange(64) % 10] + 1e-3 * rng.standard_normal(64)
+    trained = 0.7 * zero + 0.01 * rng.standard_normal(64)
+    clusters = np.arange(64) % 10 if clustered else None
+
+    def mean(e):
+        return e.mean()
+
+    assert eval_baselines.bootstrap_ci(mean, (zero,), clusters=clusters) == \
+        jax_eb.bootstrap_ci(mean, (zero,), clusters=clusters)
+
+    def stat(te, ze):  # experiments/eval_baselines.py, main(), suppression()
+        zm = ze.mean()
+        if not np.isfinite(zm) or abs(zm) < 1e-9:
+            return np.nan
+        return 100.0 * (zm - te.mean()) / zm
+
+    want = jax_eb.bootstrap_ci(stat, (trained, zero), clusters=clusters)
+    got = eval_baselines.suppression({"trained": trained, "zero": zero}, "trained", clusters)
+    assert got["ci95"] == list(want)
+    assert got["pct"] == 100.0 * (zero.mean() - trained.mean()) / zero.mean()
 
 
 def test_bootstrap_resamples_clusters_together():

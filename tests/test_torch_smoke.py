@@ -245,8 +245,11 @@ def test_smoke_rl_config_is_the_trained_policys():
 
 
 def test_smoke_rl_train_runs_on_cpu_and_restores_exactly():
+    """Episodes of 2 env steps, so each of the 2 envs truncates twice in
+    the 4 steps (the card run truncates each of its 256 envs once)."""
     out = chip_smoke.rl_train_2d("cpu", iterations=2, config_overrides=dict(
-        rl_n_envs=2, rl_n_steps=2, rl_batch_size=2, rl_n_epochs=1))
+        rl_n_envs=2, rl_n_steps=2, rl_batch_size=2, rl_n_epochs=1, rbc_episode_length=3.0))
+    assert out["truncations"] == 4 and 0.0 not in out["boundary_value_range"]
     assert out["num_envs"] == 2 and out["iterations"] == 2 and out["launches"] == {
         "env_step_2d": 0}
     assert out["n_updates"] == [2.0, 2.0] and out["adam_count"] == 4

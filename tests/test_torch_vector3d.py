@@ -170,8 +170,9 @@ def test_step_leaves_its_input_state_unmodified():
 
 
 def test_checkpoint_banks_are_not_ported_yet():
-    """(Named when banks were refused.) A bank that does not fit the env's
-    grid is refused by name, an unknown sampling mode too, and pinning
+    """The bank options are validated. (The name is kept from when the
+    port refused banks.) A bank that does not fit the env's grid is
+    refused by name, an unknown sampling mode too, and pinning
     every env to one bank state contradicts sequential sampling; without
     a bank, sequential sampling and ic_noise are accepted, as the JAX env
     accepts them."""
