@@ -78,6 +78,28 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      200) with a finite nonzero V(final_obs), the restored
                      full state equal to the live one; seconds an iteration and their split, and
                      one more update's kernels under torch.profiler
+19. policy_parity_3d the trained 3D policy (sarl_ra2500) on the card in
+                     float32 against the CPU in float64, 256 normalised
+                     observations of the 3D test bank; TF32 off
+20. rl_eval_3d       the JAX baseline evaluation of that policy at its
+                     config (heater_duration 0.375: 38 substeps a step):
+                     test bank, 64 envs, sequential, ic_noise 1e-3, 80 steps,
+                     trained and zero action; suppression >= 0.5 %, K3
+                     18,240 and K4 160 launches
+21. rl_train_3d      PPO at the sarl3d_ra2500 configuration (256 envs on the
+                     3D train bank) through run_sarl.make_trainer, 2
+                     iterations (64 steps, past the 40-step episode) through
+                     CheckpointCallback: the checks of phase 18, K3 3,648 and
+                     K4 32 launches an iteration, 256 truncations
+22. rl_generalist_2d the generalist twin at Ra 1e4 and 3e4, 256 envs, one
+                     iteration a rung: records' Ra [10000, 30000], one model
+                     and one optimizer across the trainers with its count at
+                     the applied updates, K1 128 launches
+23. burnin           both bank generators: 2D Ra=1e4, 20 episodes, 600 time
+                     units (2,000 K1 launches of 10 substeps); 3D Ra=2500, 20
+                     episodes, 200 free-fall units (1,600 windows: 62,400 K3,
+                     1,600 K4); finite, distinct, divergence-free banks, each
+                     written as .npz, read by its vector env and stepped
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -92,6 +114,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -103,8 +126,9 @@ import torch
 
 from rbc_gym_tpu_torch.envs.vector2d import RBC2DVectorEnv
 from rbc_gym_tpu_torch.envs.vector3d import RBC3DVectorEnv
-from rbc_gym_tpu_torch.experiments import eval_baselines, run_sarl_2d
-from rbc_gym_tpu_torch.models.nets import RBCActorCritic2D
+from rbc_gym_tpu_torch.experiments import eval_baselines, run_sarl, run_sarl_2d
+from rbc_gym_tpu_torch.experiments import run_sarl_2d_generalist as gen
+from rbc_gym_tpu_torch.models.nets import RBCActorCritic, RBCActorCritic2D
 from rbc_gym_tpu_torch.models.params import load_params
 from rbc_gym_tpu_torch.ops import _build
 from rbc_gym_tpu_torch.ops import kernels2d as k2d
@@ -117,6 +141,7 @@ from rbc_gym_tpu_torch.ops.limits import (
 from rbc_gym_tpu_torch.ops.poisson import FACTORED_POISSON_MIN_NXNZ, make_poisson_solver_3d
 from rbc_gym_tpu_torch.rl import PPO, CheckpointCallback, NusseltCallback, restore_training_state
 from rbc_gym_tpu_torch.rl.checkpoint import trainer_tensors
+from rbc_gym_tpu_torch.sim import burnin as bank_gen
 from rbc_gym_tpu_torch.sim import solver2d as s2d
 from rbc_gym_tpu_torch.sim import solver3d as s3d
 from rbc_gym_tpu_torch.sim.grid import Grid2D, Grid3D
@@ -128,7 +153,7 @@ from rbc_gym_tpu_torch.sim.solver2d import (
     make_solver2d,
     max_divergence,
 )
-from rbc_gym_tpu_torch.utils.checkpoints import load_bank_2d
+from rbc_gym_tpu_torch.utils.checkpoints import load_bank_2d, save_bank_2d, save_bank_3d
 from rbc_gym_tpu_torch.wrappers import functional as fn
 
 # The big grid: 32x64x64 at dt_solver 0.005, 25 substeps per env step.
@@ -204,6 +229,20 @@ MIN_SUPPRESSION_PCT = 25.0
 # results/sarl2d_ra10000/config.yaml differs from run_sarl_2d's defaults
 # only in its iteration count (the anneal horizon).
 SARL2D_RA10000 = {"rl_nr_iterations": 500}
+# The 3D RL path: results/sarl_ra2500/config.yaml (= experiments/configs/
+# sarl3d_ra2500.yaml) over run_sarl's defaults: 256 envs, 32 steps a
+# rollout, 4 minibatches of 2048, episodes of 40 env steps of 38 substeps.
+SARL3D_RA2500 = {"rl_n_steps": 32, "rl_n_envs": 256, "rl_batch_size": 2048,
+                 "rl_anneal_lr": True, "rl_nr_iterations": 300, "rbc_episode_length": 60,
+                 "rl_log_std_init": -0.5,
+                 "rbc_checkpoint": "data/checkpoints/train/3D_ckpt_ra2500.h5"}
+# JAX evaluated the trained 3D policy (results/sarl_ra2500/baseline_eval.json:
+# test bank, 64 episodes, 80 steps, sequential, ic_noise 1e-3) at second-half
+# Nu 1.9330 against 1.9572 at zero action, 1.236 % suppression, CI [0.504,
+# 1.947]; the port must reach the lower end of that CI.
+JAX_EVAL_3D = {"trained_second_half_nu": 1.9330, "zero_second_half_nu": 1.9572,
+               "suppression_vs_zero_pct": 1.236, "suppression_vs_zero_ci95": [0.504, 1.947]}
+MIN_SUPPRESSION_3D_PCT = 0.5
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
 FP32_FLOPS = 67e12
@@ -1429,24 +1468,17 @@ def bank_oracles(device, bank=ASSETS / "ckpt_ra10000_train.npz", episodes=BANK_E
     return out
 
 
-def policy_parity(device, params=ASSETS / "sarl2d_ra10000_best_model.npz",
-                  bank=ASSETS / "ckpt_ra10000_train.npz", n_obs=256) -> dict:
-    """The trained 2D policy on ``device`` in float32 against the same net
-    on the CPU in float64, on ``n_obs`` normalised observations of bank
-    states (kicked by 1e-3 so that no two are equal)."""
-    device = torch.device(device)
+def _policy_vs_float64(make_net, params, obs: torch.Tensor) -> dict:
+    """A trained net on ``obs``'s device in float32 against the same net on
+    the CPU in float64: max errors of mean and value (gated at
+    ``POLICY_ATOL + POLICY_RTOL * |x|``) and the float64 values' range."""
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise AssertionError("TF32 is on: the port's float32 products must run in float32")
-    config = run_sarl_2d.DEFAULT_CONFIG
-    env = RBC2DVectorEnv(n_obs, checkpoint=str(bank), ic_noise=1e-3, device=device)
-    _, obs = env.reset(seed=7)
-    obs = fn.normalize_observation(obs, fn.make_obs_norm_2d(config["rbc_heater_limit"]))
     outs = {}
-    for name, dev, dtype, x in (("card", device, torch.float32, obs),
+    for name, dev, dtype, x in (("card", obs.device, torch.float32, obs.float()),
                                 ("cpu_float64", torch.device("cpu"), torch.float64,
                                  obs.cpu().double())):
-        net = load_params(params, RBCActorCritic2D(log_std_init=config["rl_log_std_init"]))
-        net = net.to(device=dev, dtype=dtype).eval()
+        net = load_params(params, make_net()).to(device=dev, dtype=dtype).eval()
         with torch.no_grad():
             mean, _, value = net(x)
         outs[name] = (mean.cpu().double(), value.cpu().double())
@@ -1458,25 +1490,49 @@ def policy_parity(device, params=ASSETS / "sarl2d_ra10000_best_model.npz",
         if excess > 0.0:
             raise AssertionError(f"policy {name} off its float64 run by {errs[name]} "
                                  f"(atol {POLICY_ATOL} + rtol {POLICY_RTOL})")
-    return {"phase": "policy_parity", "n_obs": n_obs, "max_abs_err": errs,
-            "atol": POLICY_ATOL, "rtol": POLICY_RTOL,
+    return {"n_obs": int(obs.shape[0]), "max_abs_err": errs, "atol": POLICY_ATOL,
+            "rtol": POLICY_RTOL,
             "value_range": [float(outs["cpu_float64"][1].min()),
                             float(outs["cpu_float64"][1].max())],
             "tf32": [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32]}
 
 
-def rl_eval_2d(device, episodes=64, steps=200, bank=ASSETS / "ckpt_ra10000_test.npz",
-               params=ASSETS / "sarl2d_ra10000_best_model.npz", ic_noise=1e-3, seed=123,
-               min_suppression=MIN_SUPPRESSION_PCT) -> dict:
-    """The JAX package's baseline evaluation of the trained 2D policy
-    (results/sarl2d_ra10000/baseline_eval.json) through the port's
-    ``eval_baselines``: the test bank sequentially, ``episodes`` envs,
-    ``steps`` env steps, the trained policy and zero action from the same
-    initial states; second-half Nu and the suppression against zero, its
-    CI clustered by bank state (the script's) and iid over episodes, and
-    the largest spread of zero-action Nu among episodes sharing a state."""
-    device = torch.device(device)
-    config = {**run_sarl_2d.DEFAULT_CONFIG, **SARL2D_RA10000}
+def policy_parity(device, params=ASSETS / "sarl2d_ra10000_best_model.npz",
+                  bank=ASSETS / "ckpt_ra10000_train.npz", n_obs=256) -> dict:
+    """The trained 2D policy on ``device`` in float32 against the same net
+    on the CPU in float64, on ``n_obs`` normalised observations of bank
+    states (kicked by 1e-3 so that no two are equal)."""
+    config = run_sarl_2d.DEFAULT_CONFIG
+    env = RBC2DVectorEnv(n_obs, checkpoint=str(bank), ic_noise=1e-3, device=torch.device(device))
+    _, obs = env.reset(seed=7)
+    obs = fn.normalize_observation(obs, fn.make_obs_norm_2d(config["rbc_heater_limit"]))
+    return {"phase": "policy_parity", **_policy_vs_float64(
+        lambda: RBCActorCritic2D(log_std_init=config["rl_log_std_init"]), params, obs)}
+
+
+def policy_parity_3d(device, params=ASSETS / "sarl_ra2500_best_model.npz",
+                     bank=ASSETS / "3D_ckpt_ra2500_test.npz", n_obs=256) -> dict:
+    """``policy_parity`` for the trained 3D policy (sarl_ra2500) on ``n_obs``
+    normalised observations of the 3D test bank's states, kicked by 1e-3."""
+    config = {**run_sarl.DEFAULT_CONFIG, **SARL3D_RA2500}
+    env = RBC3DVectorEnv(n_obs, checkpoint=str(bank), ic_noise=1e-3, device=torch.device(device))
+    _, obs = env.reset(seed=7)
+    norm = fn.make_obs_norm_3d(ra=config["rbc_rayleigh_number"],
+                               heater_limit=config["rbc_heater_limit"])
+    obs = fn.normalize_observation(obs, norm, channel_axis=-4)
+    return {"phase": "policy_parity_3d", **_policy_vs_float64(
+        lambda: RBCActorCritic(log_std_init=config["rl_log_std_init"]), params, obs)}
+
+
+def _trained_vs_zero(config, bank, params, episodes, steps, ic_noise, seed, min_suppression,
+                     device, counted) -> dict:
+    """The JAX package's baseline evaluation through the port's
+    ``eval_baselines``: the bank sequentially, ``episodes`` envs, ``steps``
+    env steps, the trained policy and zero action from the same initial
+    states; second-half Nu and the suppression against zero, its CI
+    clustered by bank state (the script's) and iid over episodes, the
+    largest spread of zero-action Nu among episodes sharing a state, and
+    the launches of the wrappers ``counted`` over both rollouts."""
     env, policies, nusselt_of, _ = eval_baselines.make_eval(config, str(bank), episodes,
                                                             ic_noise, str(params), device)
     _sync(device)
@@ -1497,8 +1553,7 @@ def rl_eval_2d(device, episodes=64, steps=200, bank=ASSETS / "ckpt_ra10000_test.
         per_episode[name] = nus[nus.shape[0] // 2:].mean(axis=0)
         out[name] = {"nusselt_mean": float(nus.mean()),
                      "nusselt_mean_second_half": float(per_episode[name].mean())}
-    launches = k2d.env_step_2d.launches
-    expect_launches(device, {"env_step_2d": launches}, {"env_step_2d": 2 * steps})
+    launches = {name: WRAPPERS[name].launches for name in counted}
     clusters = np.arange(episodes) % env._bank.size
     supp = eval_baselines.suppression(per_episode, "trained", clusters)
     supp_iid = eval_baselines.suppression(per_episode, "trained", None)
@@ -1507,29 +1562,54 @@ def rl_eval_2d(device, episodes=64, steps=200, bank=ASSETS / "ckpt_ra10000_test.
     if min_suppression is not None and not supp["pct"] >= min_suppression:
         raise AssertionError(f"trained policy suppresses Nu by {supp['pct']} % of zero action, "
                              f"under {min_suppression} %")
-    return {"phase": "rl_eval_2d", "episodes": episodes, "steps": steps,
-            "bank": str(bank.relative_to(REPO)), "path": env.solver.path, **out,
+    return {"episodes": episodes, "steps": steps, "bank": str(bank.relative_to(REPO)),
+            "path": env.solver.path, **out,
             "suppression_vs_zero_pct": supp["pct"], "suppression_vs_zero_ci95": supp["ci95"],
             "suppression_vs_zero_ci95_iid": supp_iid["ci95"],
             "zero_second_half_std_across_episodes": float(zero_ep.std()),
             "zero_second_half_max_spread_within_state": spread,
             "min_suppression_pct": min_suppression, "reset_s": reset_s, "seconds": seconds,
-            "env_steps_per_s": 2 * steps * episodes / seconds,
-            "launches": {"env_step_2d": launches}}
+            "env_steps_per_s": 2 * steps * episodes / seconds, "launches": launches}
 
 
-def rl_train_2d(device, iterations=4, config_overrides=None) -> dict:
-    """``PPO`` at the sarl2d_ra10000 configuration through the port's
-    ``run_sarl_2d.make_trainer``: ``iterations`` iterations on the train
-    bank through ``CheckpointCallback`` into a temporary directory; the
-    full state restored into a fresh trainer equals the live one. The run
+def rl_eval_2d(device, episodes=64, steps=200, bank=ASSETS / "ckpt_ra10000_test.npz",
+               params=ASSETS / "sarl2d_ra10000_best_model.npz", ic_noise=1e-3, seed=123,
+               min_suppression=MIN_SUPPRESSION_PCT) -> dict:
+    """The JAX record results/sarl2d_ra10000/baseline_eval.json's protocol
+    on the port (``_trained_vs_zero``); K1 once an env step."""
+    device = torch.device(device)
+    config = {**run_sarl_2d.DEFAULT_CONFIG, **SARL2D_RA10000}
+    out = _trained_vs_zero(config, bank, params, episodes, steps, ic_noise, seed,
+                           min_suppression, device, ("env_step_2d",))
+    expect_launches(device, out["launches"], {"env_step_2d": 2 * steps})
+    return {"phase": "rl_eval_2d", **out}
+
+
+def rl_eval_3d(device, episodes=64, steps=80, bank=ASSETS / "3D_ckpt_ra2500_test.npz",
+               params=ASSETS / "sarl_ra2500_best_model.npz", ic_noise=1e-3, seed=123,
+               min_suppression=MIN_SUPPRESSION_3D_PCT, config_overrides=None) -> dict:
+    """The JAX record results/sarl_ra2500/baseline_eval.json's protocol on
+    the port (``_trained_vs_zero``) at the sarl_ra2500 config: K3 three
+    times a substep, K4 once an env step; the JAX record's numbers beside."""
+    device = torch.device(device)
+    config = {**run_sarl.DEFAULT_CONFIG, **SARL3D_RA2500, **(config_overrides or {})}
+    out = _trained_vs_zero(config, bank, params, episodes, steps, ic_noise, seed,
+                           min_suppression, device, ("stage_rk_3d", "correct_3d"))
+    n_sub = len(s3d.SimParams3D(heater_duration=config["rbc_heater_duration"],
+                                dt_solver=config["rbc_dt_solver"]).substep_dts())
+    expect_launches(device, out["launches"],
+                    {"stage_rk_3d": 2 * steps * n_sub * 3, "correct_3d": 2 * steps})
+    return {"phase": "rl_eval_3d", **out, "substeps_per_step": n_sub, "jax_record": JAX_EVAL_3D}
+
+
+def _train_and_restore(make_trainer, config, device, iterations, counted) -> dict:
+    """``iterations`` PPO iterations of ``make_trainer(config, device)``'s
+    trainer through ``CheckpointCallback`` into a temporary directory, the
+    launches of the wrappers ``counted`` over them, and the full state
+    restored into a fresh trainer held equal to the live one. The run
     outlasts an episode, so every env truncates, takes V(final_obs) and
     restarts from a random bank state inside ``step``."""
-    device = torch.device(device)
-    config = {**run_sarl_2d.DEFAULT_CONFIG, **SARL2D_RA10000,
-              "rbc_checkpoint": str(ASSETS / "ckpt_ra10000_train.npz"),
-              **(config_overrides or {})}
-    trainer, _, _ = run_sarl_2d.make_trainer(config, device)
+    trainer, _, _ = make_trainer(config, device)
     before = [p.detach().clone() for p in trainer.model.parameters()]
     env_s, rollout_s, update_s = [0.0], [0.0], [0.0]
     trainer.env.step = _timed(trainer.env.step, device, env_s)
@@ -1554,12 +1634,10 @@ def rl_train_2d(device, iterations=4, config_overrides=None) -> dict:
         trainer.learn(iterations, callbacks=callbacks)
         _sync(device)
         seconds = time.perf_counter() - start
-        launches = k2d.env_step_2d.launches
-        fresh, _, _ = run_sarl_2d.make_trainer(config, device)
+        launches = {name: WRAPPERS[name].launches for name in counted}
+        fresh, _, _ = make_trainer(config, device)
         nusselt = NusseltCallback()
         resumed_at = restore_training_state(ckpt.full_path, fresh, callbacks=(nusselt,))
-    expect_launches(device, {"env_step_2d": launches},
-                    {"env_step_2d": iterations * config["rl_n_steps"]})
     boundary = torch.cat(boundary_values)
     n_env = config["rl_n_envs"]
     truncations = n_env * (iterations * config["rl_n_steps"] // trainer.env.episode_steps)
@@ -1567,12 +1645,7 @@ def rl_train_2d(device, iterations=4, config_overrides=None) -> dict:
         raise AssertionError(f"{boundary.numel()} truncations, not {truncations} (and not 0)")
     if not (torch.isfinite(boundary).all() and (boundary != 0).all()):
         raise AssertionError("V(final_obs) at a truncation is not finite and nonzero")
-    for rec in records:
-        bad = [k for k, v in rec.items() if not np.isfinite(v)]
-        if bad:
-            raise AssertionError(f"iteration {rec['iteration']}: {bad} not finite")
-        if not rec["n_updates"] >= 1:
-            raise AssertionError(f"iteration {rec['iteration']} applied no update")
+    check_records(records)
     if all(torch.equal(a, b) for a, b in zip(before, trainer.model.parameters())):
         raise AssertionError("training left the params unchanged")
     live, restored = trainer_tensors(trainer), trainer_tensors(fresh)
@@ -1580,7 +1653,6 @@ def rl_train_2d(device, iterations=4, config_overrides=None) -> dict:
     if (differ or resumed_at != iterations or fresh.optimizer.count != trainer.optimizer.count
             or nusselt.history != callbacks[0].history):
         raise AssertionError(f"restored state differs: {differ}, resumes at {resumed_at}")
-    n = n_env
     split = {"env_steps": env_s[0] / iterations,
              "policy_forward": (rollout_s[0] - env_s[0]) / iterations,
              "update": update_s[0] / iterations,
@@ -1593,18 +1665,200 @@ def rl_train_2d(device, iterations=4, config_overrides=None) -> dict:
         traj, last_value = PPO._rollout(trainer)
         advantages, returns = trainer._gae(traj, last_value)
         update_device = device_profile(lambda: PPO._update(trainer, traj, advantages, returns))
-    return {"phase": "rl_train_2d", "num_envs": n, "n_steps": config["rl_n_steps"],
-            "iterations": iterations, "path": trainer.env.solver.path,
-            "s_per_iteration": seconds / iterations, "split_s_per_iteration": split,
-            "update_device": update_device,
-            "env_steps_per_s": n * config["rl_n_steps"] * iterations / seconds,
+    return {"num_envs": n_env, "n_steps": config["rl_n_steps"], "iterations": iterations,
+            "path": trainer.env.solver.path, "s_per_iteration": seconds / iterations,
+            "split_s_per_iteration": split, "update_device": update_device,
+            "env_steps_per_s": n_env * config["rl_n_steps"] * iterations / seconds,
             "n_updates": [r["n_updates"] for r in records],
             "approx_kl": [r["approx_kl"] for r in records],
             "rollout_nusselt_mean": [r["rollout/nusselt_mean"] for r in records],
             "truncations": truncations,
             "boundary_value_range": [float(boundary.min()), float(boundary.max())],
-            "adam_count": adam_count, "restored_tensors": len(live),
-            "launches": {"env_step_2d": launches}}
+            "adam_count": adam_count, "restored_tensors": len(live), "launches": launches}
+
+
+def check_records(records: list) -> None:
+    """Every metric of every iteration finite, and an update applied."""
+    for rec in records:
+        bad = [k for k, v in rec.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"iteration {rec['iteration']}: {bad} not finite")
+        if not rec["n_updates"] >= 1:
+            raise AssertionError(f"iteration {rec['iteration']} applied no update")
+
+
+def rl_train_2d(device, iterations=4, config_overrides=None) -> dict:
+    """``PPO`` at the sarl2d_ra10000 configuration through the port's
+    ``run_sarl_2d.make_trainer`` on the train bank (``_train_and_restore``);
+    K1 once an env step."""
+    device = torch.device(device)
+    config = {**run_sarl_2d.DEFAULT_CONFIG, **SARL2D_RA10000,
+              "rbc_checkpoint": str(ASSETS / "ckpt_ra10000_train.npz"),
+              **(config_overrides or {})}
+    out = _train_and_restore(run_sarl_2d.make_trainer, config, device, iterations,
+                             ("env_step_2d",))
+    expect_launches(device, out["launches"],
+                    {"env_step_2d": iterations * config["rl_n_steps"]})
+    return {"phase": "rl_train_2d", **out}
+
+
+def rl_train_3d(device, iterations=2, config_overrides=None) -> dict:
+    """``PPO`` at the sarl3d_ra2500 configuration through the port's
+    ``run_sarl.make_trainer`` on the 3D train bank (``_train_and_restore``):
+    K3 three times a substep, K4 once an env step."""
+    device = torch.device(device)
+    config = {**run_sarl.DEFAULT_CONFIG, **SARL3D_RA2500,
+              "rbc_checkpoint": str(ASSETS / "3D_ckpt_ra2500_train.npz"),
+              **(config_overrides or {})}
+    out = _train_and_restore(run_sarl.make_trainer, config, device, iterations,
+                             ("stage_rk_3d", "correct_3d"))
+    steps = iterations * config["rl_n_steps"]
+    n_sub = len(s3d.SimParams3D(heater_duration=config["rbc_heater_duration"],
+                                dt_solver=config["rbc_dt_solver"]).substep_dts())
+    expect_launches(device, out["launches"],
+                    {"stage_rk_3d": steps * n_sub * 3, "correct_3d": steps})
+    return {"phase": "rl_train_3d", **out, "substeps_per_step": n_sub}
+
+
+def rl_generalist_2d(device, ras=(10_000, 30_000), iterations=2, num_envs=256,
+                     config_overrides=None) -> dict:
+    """The generalist twin at ``ras`` on the committed train banks, one
+    iteration a rung: the records' rungs in round-robin order, one model and
+    one optimizer across the trainers, its count at the applied updates,
+    finite metrics, K1 once an env step; the per-rung result dirs."""
+    device = torch.device(device)
+    args = gen.parse_args(["--ras", *map(str, ras), "--iterations", str(iterations),
+                           "--num_envs", str(num_envs)])
+    cfg = {**gen.make_config(args), **(config_overrides or {})}
+    pattern = str(ASSETS / "ckpt_ra{ra}_train.npz")
+    trainers = gen.make_trainers(cfg, device, pattern)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counters()
+        _sync(device)
+        start = time.perf_counter()
+        records = gen.train(trainers, cfg, os.path.join(tmp, "metrics.jsonl"))
+        _sync(device)
+        seconds = time.perf_counter() - start
+        launches = {"env_step_2d": k2d.env_step_2d.launches}
+        gen.write_rungs(trainers[0].model, cfg, tmp, pattern)
+        rungs = sorted(p.parents[1].name for p in Path(tmp).glob("ra*/models/best_model.npz"))
+    expect_launches(device, launches, {"env_step_2d": iterations * cfg["rl_n_steps"]})
+    rec_ras = [r["ra"] for r in records]
+    if rec_ras != [ras[i % len(ras)] for i in range(iterations)]:
+        raise AssertionError(f"records' Ra {rec_ras}")
+    check_records(records)
+    shared = (all(t.model is trainers[0].model for t in trainers)
+              and all(t.optimizer is trainers[0].optimizer for t in trainers))
+    applied = sum(r["n_updates"] for r in records)
+    if not shared or trainers[0].optimizer.count != applied:
+        raise AssertionError(f"shared {shared}, Adam count {trainers[0].optimizer.count} "
+                             f"for {applied} applied updates")
+    return {"phase": "rl_generalist_2d", "ras": rec_ras, "num_envs": cfg["rl_n_envs"],
+            "n_steps": cfg["rl_n_steps"], "iterations": iterations,
+            "s_per_iteration": seconds / iterations, "n_updates": [r["n_updates"] for r in records],
+            "adam_count": trainers[0].optimizer.count, "shared_model_and_optimizer": shared,
+            "rollout_nusselt_mean": [r["rollout/nusselt_mean"] for r in records],
+            "rung_dirs": rungs, "launches": launches}
+
+
+def _bank_checks(bank, div: float, div_atol: float) -> dict:
+    """A generated bank: finite, its episodes pairwise distinct, max|div u|
+    under ``div_atol``."""
+    names = [n for n in ("b", "u", "v", "w") if hasattr(bank, n)]
+    if not all(np.isfinite(getattr(bank, n)).all() for n in names):
+        raise AssertionError("bank is not finite")
+    n = bank.num_episodes
+    gaps = [float(np.abs(bank.b[i] - bank.b[j]).max()) for i in range(n) for j in range(i + 1, n)]
+    if min(gaps, default=1.0) == 0.0:
+        raise AssertionError("two episodes of the bank are equal")
+    if not div < div_atol:
+        raise AssertionError(f"bank max |div| {div} >= {div_atol}")
+    return {"episodes": n, "min_episode_gap_b": min(gaps, default=None), "max_abs_div": div,
+            "div_atol": div_atol}
+
+
+def _zero_action_nu(env, steps: int) -> float:
+    """Mean Nu over the envs after ``steps`` zero-action env steps."""
+    three_d = isinstance(env, RBC3DVectorEnv)
+    zero = torch.zeros((env.num_envs,) + (env.params.n_heaters,) * (2 if three_d else 1),
+                       dtype=env.dtype, device=env.device)
+    state, _ = env.reset(seed=0)
+    for _ in range(steps):
+        state, ts = env.step(state, zero)
+    return float((ts.nusselt if three_d else ts.nusselt_state).mean())
+
+
+def burnin(device, n_episodes=20, seed=42, duration_2d=600.0, duration_3d=200.0,
+           nu_steps=5, nu_heater_duration_3d=run_sarl.DEFAULT_CONFIG["rbc_heater_duration"]
+           ) -> dict:
+    """Both bank generators (``sim.burnin``) on ``device`` at the
+    reference's durations: 2D at Ra=1e4 (windows of 10 substeps, K1 once a
+    window), 3D at Ra=2500 (windows of 13 substeps: K3 three times a
+    substep, K4 once a window). Each bank finite, its episodes pairwise
+    distinct, max|div u| under the float32 gate, written as ``.npz``, read
+    by its vector env and stepped ``nu_steps`` times at zero action beside
+    the committed bank of the same split (the 3D env at the sarl_ra2500
+    config's 38-substep step)."""
+    device = torch.device(device)
+    out = {"phase": "burnin", "n_episodes": n_episodes, "seed": seed}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dim in ("2d", "3d"):
+            three_d = dim == "3d"
+            reset_counters()
+            _sync(device)
+            start = time.perf_counter()
+            if three_d:
+                bank = bank_gen.generate_bank_3d(2500, n_episodes, seed, duration=duration_3d,
+                                                 device=device)
+            else:
+                bank = bank_gen.generate_bank_2d(1e4, n_episodes, seed, duration=duration_2d,
+                                                 device=device)
+            _sync(device)
+            seconds = time.perf_counter() - start
+            # the generators' default windows: 0.3 time units of 10 substeps
+            # in 2D, 0.125 free-fall units of 13 in 3D
+            if three_d:
+                windows = int(round(duration_3d / 0.125))
+                n_sub = len(s3d.SimParams3D(heater_duration=0.125).substep_dts())
+                counted = {"stage_rk_3d": windows * n_sub * 3, "correct_3d": windows}
+                grid = Grid3D(nx=32, ny=32, nz=16, lx=4 * np.pi, ly=4 * np.pi, lz=2.0)
+                fields = s3d.Fields3D(*(torch.as_tensor(getattr(bank, n), dtype=torch.float64)
+                                        for n in ("u", "v", "w", "b")), None, None)
+                div, div_atol = (s3d.max_divergence_3d(fields, grid),
+                                 s3d.DIVERGENCE_ATOL[torch.float32])
+            else:
+                windows = int(round(duration_2d / 0.3))
+                counted = {"env_step_2d": windows}
+                grid = Grid2D(nx=96, nz=64, lx=2 * np.pi, lz=2.0)
+                fields = Fields2D(*(torch.as_tensor(getattr(bank, n), dtype=torch.float64)
+                                    for n in ("u", "w", "b")), None, None)
+                div, div_atol = max_divergence(fields, grid), DIVERGENCE_ATOL[torch.float32]
+            launches = {name: WRAPPERS[name].launches for name in counted}
+            expect_launches(device, launches, counted)
+            checks = _bank_checks(bank, div, div_atol)
+            path = Path(tmp) / ("3D_ckpt_ra2500.npz" if three_d else "ckpt_ra10000.npz")
+            (save_bank_3d if three_d else save_bank_2d)(str(path), bank)
+            committed = ASSETS / ("3D_ckpt_ra2500_train.npz" if three_d
+                                  else "ckpt_ra10000_train.npz")
+            nus = {}
+            for name, src in (("generated", path), ("committed", committed)):
+                if three_d:
+                    env = RBC3DVectorEnv(n_episodes, checkpoint=str(src),
+                                         heater_duration=nu_heater_duration_3d,
+                                         bank_sampling="sequential", auto_reset=False,
+                                         device=device)
+                else:
+                    env = RBC2DVectorEnv(n_episodes, checkpoint=str(src),
+                                         bank_sampling="sequential", auto_reset=False,
+                                         device=device)
+                nus[name] = _zero_action_nu(env, nu_steps)
+            if not all(np.isfinite(v) for v in nus.values()):
+                raise AssertionError(f"{dim}: Nu after {nu_steps} steps {nus}")
+            out[dim] = {"windows": windows, "seconds": seconds, "launches": launches, **checks,
+                        f"zero_action_nu_after_{nu_steps}_steps": nus,
+                        "committed_reference_nu": 1.957 if three_d else 4.0}
+    out["durations"] = {"2d": duration_2d, "3d": duration_3d}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1679,6 +1933,11 @@ def main() -> int:
     emit({**policy_parity(device), "card": card})
     emit({**rl_eval_2d(device), "card": card})
     emit({**rl_train_2d(device), "card": card})
+    emit({**policy_parity_3d(device), "card": card})
+    emit({**rl_eval_3d(device), "card": card})
+    emit({**rl_train_3d(device), "card": card})
+    emit({**rl_generalist_2d(device), "card": card})
+    emit({**burnin(device), "card": card})
     # each kernel's launches from the main path that is its own (K4 runs on
     # every 3D path; its count is the training grid's lazy path, its error
     # the larger of the two grids')

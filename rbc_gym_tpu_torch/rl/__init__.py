@@ -6,6 +6,7 @@ from rbc_gym_tpu_torch.rl.callbacks import (
     EvaluationCallback,
     MetricsLogger,
     NusseltCallback,
+    WandbCallback,
 )
 from rbc_gym_tpu_torch.rl.checkpoint import (
     restore_training_state,
@@ -23,6 +24,7 @@ __all__ = [
     "EvaluationCallback",
     "MetricsLogger",
     "NusseltCallback",
+    "WandbCallback",
     "load_params",
     "save_params",
     "restore_training_state",

@@ -4,8 +4,9 @@ Port of ``rbc_gym_tpu.rl.callbacks``. A callback is any callable
 ``cb(metrics: dict, trainer: PPO)`` invoked once per training iteration.
 NusseltCallback logs the running-min rollout Nusselt; EvaluationCallback
 runs a greedy evaluation rollout and keeps the best model;
-CheckpointCallback snapshots the params and the full training state.
-Params are saved as flax-layout ``.npz`` (``models.params``).
+CheckpointCallback snapshots the params and the full training state;
+WandbCallback logs to Weights & Biases. Params are saved as flax-layout
+``.npz`` (``models.params``).
 """
 
 from __future__ import annotations
@@ -175,3 +176,42 @@ class EvaluationCallback:
             logger.info("New best model with mean reward %s", mean_reward)
             if self.save_model and self.save_path:
                 save_params(trainer.model, os.path.join(self.save_path, "best_model.npz"))
+
+
+class WandbCallback:
+    """Optional Weights & Biases logging (wandb is imported here, on the
+    host that asks for it; neither the card nor the port needs it).
+
+    ``model_save_path``: directory whose model files (best_model /
+    final_model / checkpoints, ``.npz`` or ``.msgpack``) are live-synced to
+    the W&B run whenever their mtime changes, as the JAX package's
+    ``WandbCallback`` does (reference experiments/run_sarl.py:202-205).
+    """
+
+    def __init__(self, model_save_path: Optional[str] = None, **wandb_init_kwargs):
+        import wandb  # raises if unavailable: this callback is optional
+
+        self._wandb = wandb
+        if wandb.run is None:
+            wandb.init(**wandb_init_kwargs)
+        wandb.define_metric("rollout/nusselt_mean", summary="min", step_metric="global_step")
+        wandb.define_metric("*", step_metric="global_step")
+        self.model_save_path = model_save_path
+        self._synced_mtimes: dict = {}
+        if model_save_path:
+            os.makedirs(model_save_path, exist_ok=True)
+
+    def _sync_models(self) -> None:
+        for name in os.listdir(self.model_save_path):
+            if not name.endswith((".msgpack", ".npz")):
+                continue
+            path = os.path.join(self.model_save_path, name)
+            mtime = os.path.getmtime(path)
+            if self._synced_mtimes.get(name) != mtime:
+                self._wandb.save(path, base_path=self.model_save_path, policy="live")
+                self._synced_mtimes[name] = mtime
+
+    def __call__(self, metrics: dict, trainer) -> None:
+        self._wandb.log(metrics, step=metrics["global_step"])
+        if self.model_save_path:
+            self._sync_models()

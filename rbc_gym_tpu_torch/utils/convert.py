@@ -21,6 +21,7 @@ scalars as type 3) with msgpack alone.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 from pathlib import Path
 from typing import Dict
@@ -36,6 +37,10 @@ ASSETS = {
     "ckpt_ra10000_train.npz": "data/checkpoints/train/ckpt_ra10000.h5",
     "ckpt_ra10000_test.npz": "data/checkpoints/test/ckpt_ra10000.h5",
     "sarl2d_ra10000_best_model.npz": "results/sarl2d_ra10000/models/best_model.msgpack",
+    "3D_ckpt_ra2500_train.npz": "data/checkpoints/train/3D_ckpt_ra2500.h5",
+    "3D_ckpt_ra2500_test.npz": "data/checkpoints/test/3D_ckpt_ra2500.h5",
+    "sarl_ra2500_best_model.npz": "results/sarl_ra2500/models/best_model.msgpack",
+    "ckpt_ra30000_train.npz": "data/checkpoints/train/ckpt_ra30000.h5",
 }
 
 _EXT_NDARRAY = 1
@@ -76,14 +81,25 @@ def read_flax_msgpack(path) -> Dict[str, np.ndarray]:
     return flat
 
 
+def _narrowed(bank):
+    """``bank`` with each field as float32 where that loses nothing (the
+    repo's banks hold float32 values stored as float64)."""
+    for f in dataclasses.fields(bank):
+        a = getattr(bank, f.name)
+        if isinstance(a, np.ndarray) and np.array_equal(a, a.astype(np.float32)):
+            setattr(bank, f.name, a.astype(np.float32))
+    return bank
+
+
 def convert_bank(src, dst) -> None:
-    """Reference HDF5 bank -> .npz; 2D when the file's y axis has one point."""
+    """Reference HDF5 bank -> .npz, float32 where lossless; 2D when the
+    file's y axis has one point."""
     with ckpt._h5py().File(src, "r") as f:
         three_d = f["b"].shape[1] != 1  # h5py view (nz, 1 or ny, nx, E)
     if three_d:
-        ckpt.save_bank_3d(dst, ckpt.load_bank_3d(src))
+        ckpt.save_bank_3d(dst, _narrowed(ckpt.load_bank_3d(src)))
     else:
-        ckpt.save_bank_2d(dst, ckpt.load_bank_2d(src))
+        ckpt.save_bank_2d(dst, _narrowed(ckpt.load_bank_2d(src)))
 
 
 def convert_params(src, dst) -> None:

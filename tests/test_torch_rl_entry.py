@@ -44,6 +44,16 @@ TINY_2D = {
 }
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread a test: the suite runs in several processes
+    on a few cores, where torch's thread pools would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bank(path, shape, n=3, seed=0):
     """A tiny bank of conductive states with a small kick, (n, *shape)."""
     rng = np.random.default_rng(seed)
@@ -205,12 +215,13 @@ def test_entry_points_run_as_modules(module):
 
 def test_port_imports_with_jax_stack_and_host_libraries_refused():
     """Every module of the port (and chip_smoke) imports with jax, flax,
-    optax, rbc_gym_tpu, gymnasium, h5py, msgpack and yaml refused: the last
-    three are imported inside host-only functions, never at import."""
+    optax, rbc_gym_tpu, gymnasium, h5py, msgpack, yaml, wandb, matplotlib,
+    imageio and pyvista refused: the host libraries are imported inside
+    host-only functions, never at import."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
         BLOCKED = {"jax", "jaxlib", "flax", "optax", "gymnasium", "h5py", "msgpack", "yaml",
-                   "rbc_gym_tpu"}
+                   "rbc_gym_tpu", "wandb", "matplotlib", "imageio", "pyvista"}
         for name in list(sys.modules):
             if name.split(".")[0] in BLOCKED:
                 del sys.modules[name]

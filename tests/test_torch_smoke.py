@@ -61,11 +61,12 @@ def test_port_imports_with_reference_stack_refused():
 
 
 def test_no_reference_stack_imports_in_port_sources():
-    """No jax stack anywhere; h5py (and msgpack, yaml) only inside the
-    host functions that read or write their formats, never at a module's
-    top level."""
+    """No jax stack anywhere; h5py (and msgpack, yaml, wandb, matplotlib,
+    pyvista, imageio) only inside the host functions that use them, never
+    at a module's top level."""
     pattern = re.compile(r"^\s*(import|from) (jax|flax|optax|gymnasium|rbc_gym_tpu)\b", re.M)
-    top_level = re.compile(r"^(import|from) (h5py|msgpack|yaml)\b", re.M)
+    top_level = re.compile(
+        r"^(import|from) (h5py|msgpack|yaml|wandb|matplotlib|pyvista|imageio)\b", re.M)
     files = [f for f in sorted(PACKAGE.rglob("*.py"))
              if "_build" not in f.relative_to(PACKAGE).parts] + [REPO / "chip_smoke.py"]
     assert not [f for f in files if pattern.search(f.read_text())]
@@ -242,6 +243,79 @@ def test_smoke_rl_config_is_the_trained_policys():
     smoke = {**DEFAULT_CONFIG, **chip_smoke.SARL2D_RA10000}
     assert {k: smoke[k] for k in trained} == trained
     assert set(smoke) - set(trained) == {"rl_shared_trunk"} and not smoke["rl_shared_trunk"]
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread a test: the suite runs in several processes
+    on a few cores, where torch's thread pools would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_smoke_3d_rl_config_is_the_trained_policys():
+    """The 3D smoke trains and evaluates at results/sarl_ra2500's config,
+    which is experiments/configs/sarl3d_ra2500.yaml."""
+    import yaml
+
+    from rbc_gym_tpu_torch.experiments.run_sarl import DEFAULT_CONFIG
+
+    with open(REPO / "results" / "sarl_ra2500" / "config.yaml") as f:
+        trained = yaml.safe_load(f)
+    with open(REPO / "experiments" / "configs" / "sarl3d_ra2500.yaml") as f:
+        assert yaml.safe_load(f) == {k: v for k, v in trained.items()
+                                     if k not in ("rbc_checkpoint_idx", "rl_stat_window_size")}
+    smoke = {**DEFAULT_CONFIG, **chip_smoke.SARL3D_RA2500}
+    assert {k: smoke[k] for k in trained} == trained
+    assert set(smoke) - set(trained) == {"rl_share_features_extractor"}
+    assert not smoke["rl_share_features_extractor"]
+
+
+def test_smoke_3d_rl_phases_run_on_cpu(one_torch_thread):
+    """Phases 19-21 at a tiny size: the trained 3D policy on 2
+    observations, its evaluation and 2 PPO iterations on 2 envs with 2
+    substeps a step and 2-step episodes (each env truncates twice)."""
+    parity = chip_smoke.policy_parity_3d("cpu", n_obs=2)
+    assert parity["phase"] == "policy_parity_3d" and parity["tf32"] == [False, False]
+    assert max(parity["max_abs_err"].values()) < parity["atol"]
+    tiny = dict(rbc_heater_duration=0.0125)
+    evaluation = chip_smoke.rl_eval_3d("cpu", episodes=2, steps=2, min_suppression=None,
+                                       config_overrides=tiny)
+    assert evaluation["path"] == "plain" and evaluation["substeps_per_step"] == 2
+    assert evaluation["launches"] == {"stage_rk_3d": 0, "correct_3d": 0}
+    assert np.isfinite(evaluation["suppression_vs_zero_pct"])
+    assert evaluation["jax_record"]["suppression_vs_zero_pct"] == 1.236
+    out = chip_smoke.rl_train_3d("cpu", iterations=2, config_overrides=dict(
+        rl_n_envs=2, rl_n_steps=2, rl_batch_size=2, rl_n_epochs=1,
+        rbc_episode_length=0.1, **tiny))
+    assert out["truncations"] == 4 and 0.0 not in out["boundary_value_range"]
+    assert out["launches"] == {"stage_rk_3d": 0, "correct_3d": 0}
+    assert out["n_updates"] == [2.0, 2.0] and out["adam_count"] == 4
+    assert out["restored_tensors"] == 23 * 3 + 9 + 1 + 2  # params and moments; env; obs; gens
+    json.dumps({"p": parity, "e": evaluation, "t": out})
+
+
+def test_smoke_generalist_and_burnin_run_on_cpu(one_torch_thread):
+    """Phases 22-23 at a tiny size: the generalist on 2 envs a rung, and
+    both generators for 2 episodes of 2 windows, read back by their envs."""
+    out = chip_smoke.rl_generalist_2d("cpu", num_envs=2, config_overrides=dict(
+        rl_n_steps=2, rl_batch_size=2, rl_n_epochs=1, rbc_heater_duration=0.06))
+    assert out["ras"] == [10000, 30000] and out["shared_model_and_optimizer"]
+    assert out["adam_count"] == sum(out["n_updates"]) and out["launches"] == {"env_step_2d": 0}
+    assert out["rung_dirs"] == ["ra10000", "ra30000"]
+    bank = chip_smoke.burnin("cpu", n_episodes=2, duration_2d=0.6, duration_3d=0.25, nu_steps=1,
+                             nu_heater_duration_3d=0.0125)
+    assert bank["2d"]["windows"] == 2 and bank["3d"]["windows"] == 2
+    assert bank["2d"]["launches"] == {"env_step_2d": 0}
+    assert bank["3d"]["launches"] == {"stage_rk_3d": 0, "correct_3d": 0}
+    for dim in ("2d", "3d"):
+        rec = bank[dim]
+        assert rec["episodes"] == 2 and rec["min_episode_gap_b"] > 0.0
+        assert rec["max_abs_div"] < rec["div_atol"]
+        assert all(np.isfinite(v) for v in rec["zero_action_nu_after_1_steps"].values())
+    json.dumps({"g": out, "b": bank})
 
 
 def test_smoke_rl_train_runs_on_cpu_and_restores_exactly():
