@@ -101,6 +101,32 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      1,600 K4); finite, distinct, divergence-free banks, each
                      written as .npz, read by its vector env and stepped
 
+24. flowstats_2d     the 2D flow-statistics twin over the bank ladder (Ra 1e4
+                     to 1e7, 120 steps, 4 envs, tail 60, from the train banks):
+                     every point from its bank, finite, Ra=1e4 within 0.02
+                     of its drawn states' fixed points, the others within
+                     max(2 %, 4 std) of the JAX record; K1 840 launches
+25. flowstats_3d     the 3D twin at Ra 500 and 2000 (32x64x64, 50 substeps a
+                     step, 300 steps, one env, tail 100): path stage_xy (K5
+                     at 8 blocks a launch), the first step within 5e-6 of the
+                     plain path, K5 150 and K4 1 a step, Nu within max(3 %,
+                     4 std) of the JAX record, max|div| < 5e-4; ms a step
+26. probe_2d         the 2D probe twin at Ra=1e6 on the test bank (32
+                     episodes, 100 steps, rows 0/1/2/4, gains 1 and 30):
+                     zero-action Nu within 5 % of the JAX log's, row 1 at
+                     gain 30 raising Nu by >= 10 %; K1 900 launches
+27. probe_3d         the 3D probe twin at Ra=500 on the test bank (32
+                     episodes, 80 steps of 38 substeps; zero action, law T
+                     at row 1 with gains +3 and -3): zero-action Nu within 2 %
+                     of the JAX log's, both raising Nu by >= 15 %; K3 27,360
+                     and K4 240 launches
+28. profiling        utils.profiling's trace and annotate around 20 steps of
+                     phase 25's one-env env and 5 of phase 27's 32-env env
+                     (device idle shares, the annotations in the trace),
+                     StepTimer's p50 beside the host clock, the device memory
+                     stats; profile3d at 1,024 envs and profile_rl in 2D at
+                     256, beside timing_3d's and rl_train_2d's numbers
+
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
 Any failure is a traceback and a non-zero exit; without a CUDA device it
@@ -128,6 +154,8 @@ from rbc_gym_tpu_torch.envs.vector2d import RBC2DVectorEnv
 from rbc_gym_tpu_torch.envs.vector3d import RBC3DVectorEnv
 from rbc_gym_tpu_torch.experiments import eval_baselines, run_sarl, run_sarl_2d
 from rbc_gym_tpu_torch.experiments import run_sarl_2d_generalist as gen
+from rbc_gym_tpu_torch.experiments.flowstats import flowstats_ra as fs3d
+from rbc_gym_tpu_torch.experiments.flowstats import flowstats_ra_2d as fs2d
 from rbc_gym_tpu_torch.models.nets import RBCActorCritic, RBCActorCritic2D
 from rbc_gym_tpu_torch.models.params import load_params
 from rbc_gym_tpu_torch.ops import _build
@@ -141,6 +169,7 @@ from rbc_gym_tpu_torch.ops.limits import (
 from rbc_gym_tpu_torch.ops.poisson import FACTORED_POISSON_MIN_NXNZ, make_poisson_solver_3d
 from rbc_gym_tpu_torch.rl import PPO, CheckpointCallback, NusseltCallback, restore_training_state
 from rbc_gym_tpu_torch.rl.checkpoint import trainer_tensors
+from rbc_gym_tpu_torch.scripts import probe_control2d, probe_control3d, profile3d, profile_rl
 from rbc_gym_tpu_torch.sim import burnin as bank_gen
 from rbc_gym_tpu_torch.sim import solver2d as s2d
 from rbc_gym_tpu_torch.sim import solver3d as s3d
@@ -153,6 +182,7 @@ from rbc_gym_tpu_torch.sim.solver2d import (
     make_solver2d,
     max_divergence,
 )
+from rbc_gym_tpu_torch.utils import profiling
 from rbc_gym_tpu_torch.utils.checkpoints import load_bank_2d, save_bank_2d, save_bank_3d
 from rbc_gym_tpu_torch.wrappers import functional as fn
 
@@ -243,6 +273,36 @@ SARL3D_RA2500 = {"rl_n_steps": 32, "rl_n_envs": 256, "rl_batch_size": 2048,
 JAX_EVAL_3D = {"trained_second_half_nu": 1.9330, "zero_second_half_nu": 1.9572,
                "suppression_vs_zero_pct": 1.236, "suppression_vs_zero_ci95": [0.504, 1.947]}
 MIN_SUPPRESSION_3D_PCT = 0.5
+# Flow statistics (phases 24-25): the JAX records' nu_mean and nu_std of
+# experiments/flowstats/flowstats_ra_2d.json (120 steps, 4 envs, tail 60,
+# from the train banks) and flowstats_ra.json (32x64x64, 300 steps, 1 env,
+# tail 100). A point holds when its nu_mean is within the larger of
+# FLOWSTATS_RTOL and FLOWSTATS_STDS JAX standard deviations of the JAX one;
+# the Ra=1e4 point is the bank's fixed point, gated as in bank_oracles.
+JAX_FLOWSTATS_2D = {
+    "10000": (3.9997146646181743, 8.205443836150653e-06),
+    "30000": (5.030286558469137, 0.31352541739495915),
+    "100000": (6.7637302796045935, 0.38426452957222995),
+    "300000": (8.796651593844096, 1.3290867091643541),
+    "1000000": (13.322950665156046, 2.5087996767710523),
+    "3000000": (24.272461064656575, 3.759635080684223),
+    "10000000": (33.71948394775391, 3.1396454870124373),
+}
+JAX_FLOWSTATS_3D = {
+    "500": (1.3588727295398713, 0.0007710421898760217),
+    "2000": (1.7716144728660583, 0.024873890392957246),
+}
+FLOWSTATS_RTOL = {"2d": 0.02, "3d": 0.03}
+FLOWSTATS_STDS = 4.0
+# The probes (phases 26-27): results/probe2d_ra1000000.log (zero action,
+# row 1 at gain 30) and results/probe3d_ra500.log (zero action, law T at
+# row 1, gains +3 and -3), and the gates on them: the zero-action Nu
+# within PROBE_ZERO_RTOL of JAX's, the controller raising Nu by at least
+# PROBE_MIN_RISE (JAX: +27.3 % in 2D, +34.4 % and +36.8 % in 3D).
+JAX_PROBE_2D = {"zero": 13.2262, "row1_gain30": 16.8423}
+JAX_PROBE_3D = {"zero": 1.3772, "T_row1_gain+3": 1.8509, "T_row1_gain-3": 1.8835}
+PROBE_ZERO_RTOL = {"2d": 0.05, "3d": 0.02}
+PROBE_MIN_RISE = {"2d": 0.10, "3d": 0.15}
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
 FP32_FLOPS = 67e12
@@ -583,45 +643,18 @@ def _cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_time_split(events: list, top: int = 12) -> dict:
-    """Device time by kernel name from a Chrome trace's events (``cat``
-    "kernel", ``ts`` and ``dur`` in us): the ``top`` largest names, the
-    busy sum and the device's idle share of the span from the first
-    kernel's start to the last one's end."""
-    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
-    if not kernels:
-        return {"not_measured": "the profiler recorded no kernel"}
-    by_name = {}
-    for e in kernels:
-        t, n = by_name.get(e["name"], (0.0, 0))
-        by_name[e["name"]] = (t + e["dur"], n + 1)
-    busy = sum(e["dur"] for e in kernels)
-    span = max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"device_busy_ms": busy / 1e3, "span_ms": span / 1e3,
-            "idle_share": 1.0 - busy / span if span > 0 else 0.0,
-            "kernels": [{"name": name[:120], "ms": t / 1e3, "count": n}
-                        for name, (t, n) in ranked]}
+kernel_time_split = profiling.kernel_time_split
 
 
 def device_profile(fn) -> dict:
-    """One call of ``fn`` (after one warm-up) under ``torch.profiler`` with
-    CUDA activity: ``kernel_time_split`` of its trace."""
-    import tempfile
-
-    from torch.profiler import ProfilerActivity, profile
-
+    """One call of ``fn`` (after one warm-up) under ``utils.profiling.trace``
+    (CUDA activity, a synchronise on entry and exit): ``kernel_time_split``
+    of its trace."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as d:
-        path = f"{d}/trace.json"
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f).get("traceEvents", [])
-    return kernel_time_split(events)
+        with profiling.trace(d) as traced:
+            fn()
+        return kernel_time_split(profiling.trace_events(traced.path))
 
 
 def timing(device, num_envs=1024, state_shape=(64, 96), heater_duration=1.5,
@@ -1862,6 +1895,292 @@ def burnin(device, n_episodes=20, seed=42, duration_2d=600.0, duration_3d=200.0,
 
 
 # ---------------------------------------------------------------------------
+# Flow statistics, the control probes and the profiling hooks
+# ---------------------------------------------------------------------------
+
+
+def _near_jax(nu: float, jax_point: tuple, rtol: float) -> tuple:
+    """(holds, tolerance): ``nu`` within the larger of ``rtol`` of the JAX
+    mean and ``FLOWSTATS_STDS`` of its standard deviations."""
+    mean, std = jax_point
+    tol = max(rtol * mean, FLOWSTATS_STDS * std)
+    return abs(nu - mean) <= tol, tol
+
+
+def _finite_record(rec: dict, keys) -> None:
+    for k in keys:
+        if not np.isfinite(rec[k]).all():
+            raise AssertionError(f"Ra={rec['ra']}: {k} is not finite")
+
+
+def flowstats_2d(device, ras=tuple(fs2d.RA_SWEEP), steps=120, tail=60, num_envs=4, seed=0,
+                 check_jax=True) -> dict:
+    """The 2D flow-statistics twin over the bank ladder at the JAX protocol
+    (``fs2d.perform_experiment`` from the train banks in ``assets/``, K1
+    once an env step): every point from its bank and finite; with
+    ``check_jax`` the Ra=1e4 point at its bank states' fixed points and
+    every other within max(2 %, 4 std) of the JAX record; each point
+    beside the JAX one and its seconds.
+
+    The Ra=1e4 train bank holds two steady rolls: 16 states at Nu 4.000
+    and 4 (episodes 5, 6, 7 and 17) at Nu 3.1806, in both packages. Each
+    run draws 4 states at random, so its mean is a mix of the two: the
+    JAX run drew four at Nu 4 (3.9997), this one draws episodes 1, 17, 18
+    and 9 (seed 0). The gate is the float32 K1 gate of ``bank_oracles``,
+    0.02, on the drift from the drawn states' own fixed points: the tail's
+    mean Nu against the first step's, which for converged states is the
+    mean of their fixed points."""
+    device = torch.device(device)
+    reset_counters()
+    points, seconds, failed = {}, {}, {}
+    for ra in ras:
+        _sync(device)
+        start = time.perf_counter()
+        rec = fs2d.perform_experiment(ra, steps, num_envs, seed, None, device)
+        _sync(device)
+        seconds[str(ra)] = time.perf_counter() - start
+        _finite_record(rec, ("nusselt", "max_u", "max_w"))
+        if not rec["from_bank"]:
+            raise AssertionError(f"Ra={ra}: no bank in assets/, the run took random ICs")
+        pt = fs2d.point(rec, tail)
+        jax_mean, jax_std = JAX_FLOWSTATS_2D[str(ra)]
+        if ra == 10_000:
+            tol = FIXED_POINT_ATOL[torch.float32]
+            pt["fixed_point_first_step"] = rec["nusselt"][0]
+            holds = abs(pt["nu_mean"] - rec["nusselt"][0]) <= tol
+        else:
+            holds, tol = _near_jax(pt["nu_mean"], (jax_mean, jax_std), FLOWSTATS_RTOL["2d"])
+        if check_jax and not holds:
+            failed[str(ra)] = (pt["nu_mean"], jax_mean, tol)
+        points[str(ra)] = {**pt, "jax_nu_mean": jax_mean, "jax_nu_std": jax_std, "tol": tol}
+    launches = {"env_step_2d": k2d.env_step_2d.launches}
+    expect_launches(device, launches, {"env_step_2d": len(ras) * steps})
+    if failed:
+        raise AssertionError(f"2D flow statistics off the JAX record (port, JAX, tol): {failed}")
+    return {"phase": "flowstats_2d", "protocol": fs2d.protocol(steps, tail, num_envs),
+            "points": points, "seconds_per_ra": seconds, "launches": launches}
+
+
+def flowstats_3d(device, ras=(500, 2000), steps=300, tail=100, num_envs=1,
+                 state_shape=BIG_SHAPE, dt_solver=BIG_DT_SOLVER, heater_duration=0.25, seed=0,
+                 check_jax=True) -> dict:
+    """The 3D flow-statistics twin at the JAX protocol (32x64x64, 50
+    substeps a step, one env; ``fs3d.run_stats``), K5 at one env: the
+    solver's path K5's, the first env step of the kernel path within 5e-6
+    of the all-plain path from the same reset, K5 three times a substep and
+    K4 once a step, Nu and the maxima finite, max|div u| under the float32
+    gate at the end, and with ``check_jax`` the Nu mean of the last
+    ``tail`` steps within max(3 %, 4 std) of the JAX record; ms an env step."""
+    device = torch.device(device)
+    out = {"phase": "flowstats_3d", "num_envs": num_envs, "steps": steps, "points": {}}
+    failed = {}
+    for ra in ras:
+        env = fs3d.make_env(ra, state_shape, dt_solver, heater_duration, num_envs, device,
+                            working_dtype(device))
+        want_path = "stage_xy" if device.type == "cuda" else "plain"
+        if env.solver.path != want_path:
+            raise AssertionError(f"the sweep's env takes path {env.solver.path}, not {want_path}")
+        state, _ = env.reset(seed=seed)
+        f = state.fields
+        zero = torch.zeros((num_envs,) + (env.params.n_heaters,) * 2, dtype=env.dtype,
+                           device=device)
+        case = {"u": f.u, "v": f.v, "w": f.w, "b": f.b,
+                "bottom": env.solver.heater_profile(zero).contiguous()}
+        step_err = abs_diffs(ENV3_OUT, env_step_3d_run(env.solver, case, True),
+                             env_step_3d_run(env.solver, case, False))
+        if not max(step_err.values()) <= ENV_STEP_3D_ATOL:
+            raise AssertionError(f"Ra={ra}: first env step off the plain path: {step_err}")
+        n_sub = len(env.params.substep_dts())
+        reset_counters()
+        _sync(device)
+        start = time.perf_counter()
+        state, stats = fs3d.run_stats(env, state, steps)
+        _sync(device)
+        seconds = time.perf_counter() - start
+        launches = {name: WRAPPERS[name].launches
+                    for name in ("stage_rk_3d", "stage_rk_3d_xy", "correct_3d")}
+        expect_launches(device, launches, {"stage_rk_3d": 0, "stage_rk_3d_xy": 3 * n_sub * steps,
+                                           "correct_3d": steps})
+        rec = {"ra": ra, **stats}
+        _finite_record(rec, ("nusselt", "max_u", "max_v", "max_w"))
+        div = s3d.max_divergence_3d(state.fields, env.grid)
+        if not div < s3d.DIVERGENCE_ATOL[env.dtype]:
+            raise AssertionError(f"Ra={ra}: max |div| {div} at the end")
+        nu_mean = float(np.mean(stats["nusselt"][-tail:]))
+        jax_point = JAX_FLOWSTATS_3D.get(str(ra))
+        holds, tol = (True, None) if jax_point is None else _near_jax(
+            nu_mean, jax_point, FLOWSTATS_RTOL["3d"])
+        if check_jax and not holds:
+            failed[str(ra)] = (nu_mean, jax_point[0], tol)
+        out["points"][str(ra)] = {
+            "path": env.solver.path, "substeps_per_step": n_sub,
+            "first_step_vs_plain": step_err, "nu_mean": nu_mean,
+            "nu_std": float(np.std(stats["nusselt"][-tail:])),
+            "max_w": float(max(stats["max_w"])), "jax": jax_point, "tol": tol,
+            "max_abs_div": div, "seconds": seconds, "ms_per_env_step": 1e3 * seconds / steps,
+            "launches": launches}
+    if failed:
+        raise AssertionError(f"3D flow statistics off the JAX record (port, JAX, tol): {failed}")
+    return out
+
+
+def _probe_checks(name, zero, raised: dict, jax_zero, dim, check_jax, failed) -> dict:
+    """The relative rise of each controlled Nu over zero action, and the
+    probe gates (zero action near JAX's, every rise at least the floor)."""
+    rises = {k: (nu - zero) / zero for k, nu in raised.items()}
+    if check_jax:
+        if not abs(zero - jax_zero) <= PROBE_ZERO_RTOL[dim] * jax_zero:
+            failed[f"{name} zero"] = (zero, jax_zero)
+        low = {k: r for k, r in rises.items() if not r >= PROBE_MIN_RISE[dim]}
+        if low:
+            failed[f"{name} rise"] = low
+    return rises
+
+
+def probe_2d(device, ra=1e6, episodes=32, n_steps=100, rows=probe_control2d.ROWS,
+             gains=(1.0, 30.0), seed=7, bank=ASSETS / "ckpt_ra1000000_test.npz",
+             check_jax=True) -> dict:
+    """The 2D probe twin (``probe_control2d.probe``) at Ra=1e6 on the test
+    bank: zero action, then the law at each row and gain (K1 once an env
+    step); zero-action Nu within 5 % of the JAX log's, row 1 at the
+    largest gain raising Nu by at least 10 %."""
+    device = torch.device(device)
+    env = probe_control2d.make_env(episodes, ra, str(bank), device)
+    state0, obs0 = env.reset(seed=seed)
+    lines = []
+    reset_counters()
+    _sync(device)
+    start = time.perf_counter()
+    nus = probe_control2d.probe(env, state0, obs0, n_steps,
+                                [(r, g) for r in rows for g in gains], log=lines.append)
+    seconds = time.perf_counter() - start
+    launches = {"env_step_2d": k2d.env_step_2d.launches}
+    expect_launches(device, launches, {"env_step_2d": (1 + len(rows) * len(gains)) * n_steps})
+    if not all(np.isfinite(v) for v in nus.values()):
+        raise AssertionError(f"probe Nu not finite: {nus}")
+    failed = {}
+    rises = _probe_checks("2d", nus["zero"], {"row1_gain30": nus[(1, max(gains))]},
+                          JAX_PROBE_2D["zero"], "2d", check_jax, failed)
+    if failed:
+        raise AssertionError(f"2D probe off its gates: {failed}")
+    return {"phase": "probe_2d", "ra": ra, "episodes": episodes, "n_steps": n_steps,
+            "bank": str(Path(bank).relative_to(REPO)), "lines": lines, "rises": rises,
+            "jax": JAX_PROBE_2D, "seconds": seconds, "launches": launches}
+
+
+def probe_3d(device, ra=500, episodes=32, n_steps=80, heater_duration=0.375, row=1,
+             gains=(3.0, -3.0), seed=7, bank=ASSETS / "3D_ckpt_ra500_test.npz",
+             check_jax=True) -> dict:
+    """The 3D probe twin (``probe_control3d.probe``) at Ra=500 on the test
+    bank, 38 substeps a step: zero action, then law T at ``row`` with each
+    gain (K3 three times a substep, K4 once a step); zero-action Nu within
+    2 % of the JAX log's, both signs raising Nu by at least 15 %."""
+    device = torch.device(device)
+    env = probe_control3d.make_env(episodes, ra, heater_duration, str(bank), device=device)
+    state0, obs0 = env.reset(seed=seed)
+    lines = []
+    reset_counters()
+    _sync(device)
+    start = time.perf_counter()
+    header = f"Ra={ra:g} duration={heater_duration} burnin=0"
+    nus = probe_control3d.probe(env, state0, obs0, n_steps, [("T", row, g) for g in gains],
+                                header, log=lines.append)
+    seconds = time.perf_counter() - start
+    n_sub = len(env.params.substep_dts())
+    rollouts = 1 + len(gains)
+    launches = {name: WRAPPERS[name].launches for name in ("stage_rk_3d", "correct_3d")}
+    expect_launches(device, launches, {"stage_rk_3d": rollouts * n_steps * n_sub * 3,
+                                       "correct_3d": rollouts * n_steps})
+    if not all(np.isfinite(v) for v in nus.values()):
+        raise AssertionError(f"probe Nu not finite: {nus}")
+    failed = {}
+    rises = _probe_checks("3d", nus["zero"],
+                          {f"T_row{row}_gain{g:+g}": nus[("T", row, g)] for g in gains},
+                          JAX_PROBE_3D["zero"], "3d", check_jax, failed)
+    if failed:
+        raise AssertionError(f"3D probe off its gates: {failed}")
+    return {"phase": "probe_3d", "ra": ra, "episodes": episodes, "n_steps": n_steps,
+            "substeps_per_step": n_sub, "bank": str(Path(bank).relative_to(REPO)),
+            "lines": lines, "rises": rises, "jax": JAX_PROBE_3D, "seconds": seconds,
+            "launches": launches}
+
+
+def _traced_steps(env, state, obs, action_fn, steps: int, name: str, logdir: str) -> dict:
+    """``steps`` env steps under ``utils.profiling.trace``, each inside
+    ``annotate(name)`` and a ``StepTimer`` that waits on the step's Nu (as
+    the flow-statistics loop reads its statistics every step): the device
+    split and idle share of the trace, whether the annotation is in it,
+    StepTimer's summary and the host clock's ms a step."""
+    state, ts = env.step(state, action_fn(obs))  # warm-up, outside the trace
+    obs = ts.obs
+    timer = profiling.StepTimer(skip_first=0)
+    with profiling.trace(logdir) as traced:
+        start = time.perf_counter()
+        for _ in range(steps):
+            with profiling.annotate(name), timer:
+                state, ts = env.step(state, action_fn(obs))
+                timer.sink(ts.nusselt)
+            obs = ts.obs
+        host_s = time.perf_counter() - start
+    events = profiling.trace_events(traced.path)
+    annotated = sum(1 for e in events if e.get("name") == name
+                    and e.get("cat") == "user_annotation")
+    if annotated != steps:
+        raise AssertionError(f"the trace holds {annotated} '{name}' annotations, not {steps}")
+    return {"num_envs": env.num_envs, "steps": steps, "annotations_in_trace": annotated,
+            "host_ms_per_step": 1e3 * host_s / steps, "step_timer": timer.summary(),
+            "device": kernel_time_split(events)}
+
+
+def profiling_hooks(device, big_steps=20, probe_steps=5, profile3d_envs=1024,
+                    profile3d_reps=5, rl_envs=256, rl_k=1, big_shape=BIG_SHAPE,
+                    big_heater_duration=0.25, probe_episodes=32, probe_heater_duration=0.375,
+                    rl_n_steps=64) -> dict:
+    """``utils.profiling`` on the card: ``trace`` and ``annotate`` around
+    ``big_steps`` steps of phase 25's one-env big-grid env and
+    ``probe_steps`` of phase 27's 32-env env under law T, each one's device
+    idle share (as ``device_profile``) and its annotations in the written
+    trace, StepTimer's p50 beside the host clock, ``device_memory_stats()``;
+    then ``profile3d`` at ``profile3d_envs`` and ``profile_rl`` in 2D at
+    ``rl_envs`` (no gate on the times)."""
+    device = torch.device(device)
+    begin = time.perf_counter()
+    out = {"phase": "profiling"}
+    with tempfile.TemporaryDirectory() as d:
+        env = fs3d.make_env(500, big_shape, BIG_DT_SOLVER, big_heater_duration, 1, device,
+                            working_dtype(device))
+        zero = torch.zeros((1, 8, 8), dtype=env.dtype, device=device)
+        out["flowstats_3d_one_env"] = _traced_steps(
+            env, *env.reset(seed=0), lambda obs: zero, big_steps, "flowstats_3d_step", d)
+        env = probe_control3d.make_env(probe_episodes, 500, probe_heater_duration,
+                                       str(ASSETS / "3D_ckpt_ra500_test.npz"), device=device)
+        out["probe_3d_32_envs"] = _traced_steps(
+            env, *env.reset(seed=7), lambda obs: probe_control3d.law_T(obs, 3.0, 1, 8),
+            probe_steps, "probe_3d_step", d)
+    del env, zero
+    out["device_memory_stats"] = profiling.device_memory_stats()
+    lines = []
+    out["profile3d"] = profile3d.profile(profile3d_envs, profile3d_reps, device, log=lines.append)
+    out["profile_rl_2d"] = profile_rl.profile_row(2, rl_envs, rl_n_steps, 10, rl_k, device)
+    out["profile3d_lines"] = lines
+    out["seconds"] = time.perf_counter() - begin
+    return out
+
+
+def profiling_beside(times_3d: dict, train_2d: dict) -> dict:
+    """The numbers of earlier phases that time what ``profile3d`` and
+    ``profile_rl`` time: timing_3d's K3 per stage, dense solve and env step,
+    and rl_train_2d's seconds an iteration with its split."""
+    kernels = times_3d["kernels"]
+    return {"timing_3d": {**{f"stage_rk_3d.stage{m}_ms": kernels[f"stage_rk_3d.stage{m}"]["ms"]
+                             for m in range(3)},
+                          "poisson_dense_ms": times_3d["poisson"]["dense"]["ms"],
+                          "env_step_ms": times_3d["env_step_split"]["env_step_ms"]},
+            "rl_train_2d": {"s_per_iteration": train_2d["s_per_iteration"],
+                            "split_s_per_iteration": train_2d["split_s_per_iteration"]}}
+
+
+# ---------------------------------------------------------------------------
 # Records
 # ---------------------------------------------------------------------------
 
@@ -1932,12 +2251,20 @@ def main() -> int:
     emit({**bank_oracles(device), "card": card})
     emit({**policy_parity(device), "card": card})
     emit({**rl_eval_2d(device), "card": card})
-    emit({**rl_train_2d(device), "card": card})
+    train_2d = rl_train_2d(device)
+    emit({**train_2d, "card": card})
     emit({**policy_parity_3d(device), "card": card})
     emit({**rl_eval_3d(device), "card": card})
     emit({**rl_train_3d(device), "card": card})
     emit({**rl_generalist_2d(device), "card": card})
     emit({**burnin(device), "card": card})
+    emit({**flowstats_2d(device), "card": card})
+    emit({**flowstats_3d(device), "card": card})
+    emit({**probe_2d(device), "card": card})
+    emit({**probe_3d(device), "card": card})
+    hooks = profiling_hooks(device)
+    hooks["beside"] = profiling_beside(times_3d, train_2d)
+    emit({**hooks, "card": card})
     # each kernel's launches from the main path that is its own (K4 runs on
     # every 3D path; its count is the training grid's lazy path, its error
     # the larger of the two grids')

@@ -188,7 +188,9 @@ class RBC2DVectorEnv:
         fields = self.solver.env_step(state.fields, actions)
         step = state.step + 1
         t = (step - 1).to(self.dtype) * self.params.heater_duration
-        truncated = (step - 1) >= self.episode_steps
+        # in int64: an int32 step against an episode of more than 2**31 - 1
+        # steps (episode_length=10**9 at a short heater_duration) would wrap
+        truncated = (step - 1).long() >= self.episode_steps
 
         ns, no = self._nusselts(fields)
         final_obs = self._observe(fields)

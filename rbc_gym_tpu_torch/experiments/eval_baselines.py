@@ -70,6 +70,7 @@ def make_eval(config: dict, bank: str, episodes: int, ic_noise: float, model_pat
     Returns (env, policies, nusselt_of, prop_gain): ``policies`` maps a
     name to ``fn(obs, generator) -> actions``."""
     from rbc_gym_tpu_torch.models.params import load_params
+    from rbc_gym_tpu_torch.scripts import probe_control2d, probe_control3d
     from rbc_gym_tpu_torch.wrappers import functional as fn
 
     device = torch.device(device)
@@ -101,15 +102,10 @@ def make_eval(config: dict, bank: str, episodes: int, ic_noise: float, model_pat
                                    heater_limit=config["rbc_heater_limit"])
         channel_axis, a_shape = -4, (episodes, s, s)
         prop_gain = 0.3 if prop_gain is None else prop_gain
-        py, px = env.grid.ny // s, env.grid.nx // s
 
         def proportional(obs, gen):
             # oppose the tile-averaged near-bottom temperature fluctuation
-            # (scripts/probe_control3d.py)
-            t = obs[:, 0, prop_row]  # (E, ny, nx)
-            tiles = t.reshape(t.shape[0], s, py, s, px).mean(dim=(2, 4))
-            fluct = tiles - tiles.mean(dim=(-2, -1), keepdim=True)
-            return torch.clamp(-prop_gain * fluct, -1.0, 1.0)
+            return probe_control3d.law_T(obs, prop_gain, prop_row, s)
 
         def nusselt_of(ts):
             return ts.nusselt
@@ -126,15 +122,10 @@ def make_eval(config: dict, bank: str, episodes: int, ic_noise: float, model_pat
         norm = fn.make_obs_norm_2d(heater_limit=config["rbc_heater_limit"])
         channel_axis, a_shape = -3, (episodes, s)
         prop_gain = 10.0 if prop_gain is None else prop_gain
-        per_seg = env.observation_shape[1] // s
 
         def proportional(obs, gen):
-            # oppose the segment-averaged near-bottom temperature
-            # fluctuation (scripts/probe_control2d.py)
-            t_row = obs[:, 0, prop_row, :]  # (E, nx_obs)
-            t_seg = t_row.reshape(t_row.shape[0], s, per_seg).mean(-1)
-            fluct = t_seg - t_seg.mean(dim=-1, keepdim=True)
-            return torch.clamp(-prop_gain * fluct, -1.0, 1.0)
+            # oppose the segment-averaged near-bottom temperature fluctuation
+            return probe_control2d.law(obs, prop_gain, prop_row, s)
 
         def nusselt_of(ts):
             return ts.nusselt_state

@@ -41,6 +41,11 @@ ASSETS = {
     "3D_ckpt_ra2500_test.npz": "data/checkpoints/test/3D_ckpt_ra2500.h5",
     "sarl_ra2500_best_model.npz": "results/sarl_ra2500/models/best_model.msgpack",
     "ckpt_ra30000_train.npz": "data/checkpoints/train/ckpt_ra30000.h5",
+    # the 2D flow-statistics ladder, the 2D and 3D probes
+    **{f"ckpt_ra{ra}_train.npz": f"data/checkpoints/train/ckpt_ra{ra}.h5"
+       for ra in (100000, 300000, 1000000, 3000000, 10000000)},
+    "ckpt_ra1000000_test.npz": "data/checkpoints/test/ckpt_ra1000000.h5",
+    "3D_ckpt_ra500_test.npz": "data/checkpoints/test/3D_ckpt_ra500.h5",
 }
 
 _EXT_NDARRAY = 1

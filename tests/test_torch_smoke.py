@@ -474,3 +474,86 @@ def test_every_export_has_matching_argtypes():
             else:
                 want = ctypes.c_float
             assert argtype is want, f"{name}: {decl}"
+
+
+def test_smoke_flowstats_and_probe_phases_run_on_cpu(one_torch_thread):
+    """Phases 24-27 at a tiny size: the 2D sweep at Ra 1e4 from its bank
+    (its fixed-point gate holds after 2 steps), the 3D sweep on 8x16x16,
+    and both probes on 2 envs for 2 steps; the gates on the JAX records
+    need the full protocol."""
+    fs2 = chip_smoke.flowstats_2d("cpu", ras=(10_000,), steps=2, tail=1, num_envs=4)
+    pt = fs2["points"]["10000"]
+    assert pt["from_bank"] and pt["tol"] == 0.02
+    # seed 0 draws episodes 1, 17, 18 and 9; episode 17 is the bank's
+    # other roll, at Nu 3.1806
+    assert abs(pt["nu_mean"] - (3 * 4.0 + 3.1806) / 4) < 1e-3
+    assert abs(pt["nu_mean"] - pt["fixed_point_first_step"]) <= pt["tol"]
+    assert fs2["launches"] == {"env_step_2d": 0} and fs2["protocol"]["steps"] == 2
+    fs3 = chip_smoke.flowstats_3d("cpu", ras=(500,), steps=2, tail=1, state_shape=(8, 16, 16),
+                                  dt_solver=0.01, heater_duration=0.0125, check_jax=False)
+    pt = fs3["points"]["500"]
+    assert pt["path"] == "plain" and max(pt["first_step_vs_plain"].values()) == 0.0
+    assert pt["max_abs_div"] < 1e-8 and pt["substeps_per_step"] == 2
+    assert pt["jax"] == chip_smoke.JAX_FLOWSTATS_3D["500"]
+    p2 = chip_smoke.probe_2d("cpu", episodes=2, n_steps=2, rows=(1,), gains=(30.0,),
+                             check_jax=False)
+    assert len(p2["lines"]) == 2 and set(p2["rises"]) == {"row1_gain30"}
+    p3 = chip_smoke.probe_3d("cpu", episodes=2, n_steps=2, heater_duration=0.0125,
+                             check_jax=False)
+    assert len(p3["lines"]) == 3 and set(p3["rises"]) == {"T_row1_gain+3", "T_row1_gain-3"}
+    assert p3["launches"] == {"stage_rk_3d": 0, "correct_3d": 0}
+    json.dumps({"a": fs2, "b": fs3, "c": p2, "d": p3})
+
+
+def test_smoke_probe_gates_fail_off_the_jax_record():
+    failed = {}
+    rises = chip_smoke._probe_checks("2d", 10.0, {"row1": 10.5}, 13.2262, "2d", True, failed)
+    assert rises == {"row1": pytest.approx(0.05)} and set(failed) == {"2d zero", "2d rise"}
+    assert chip_smoke._near_jax(1.39, (1.3589, 0.00077), 0.03) == (True, pytest.approx(0.040767))
+    assert not chip_smoke._near_jax(2.2, (1.7716, 0.0249), 0.03)[0]
+
+
+def test_smoke_profiling_phase_runs_on_cpu(one_torch_thread):
+    """Phase 28 at a tiny size: each traced loop holds its annotations; the
+    CPU records no kernel, so the idle share is not measured; the memory
+    stats are one empty entry; profile3d and profile_rl give their rows."""
+    out = chip_smoke.profiling_hooks("cpu", big_steps=2, probe_steps=1, profile3d_envs=1,
+                                     profile3d_reps=1, rl_envs=1, rl_k=1,
+                                     big_shape=(8, 8, 8), big_heater_duration=0.0125,
+                                     probe_episodes=1,
+                                     probe_heater_duration=0.0125, rl_n_steps=1)
+    for name, steps in (("flowstats_3d_one_env", 2), ("probe_3d_32_envs", 1)):
+        rec = out[name]
+        assert rec["annotations_in_trace"] == steps and rec["step_timer"]["n"] == steps
+        assert "not_measured" in rec["device"] and rec["host_ms_per_step"] > 0
+    assert out["device_memory_stats"] == {"cpu": {}}
+    assert out["profile3d"]["num_envs"] == 1 and len(out["profile3d"]["ms"]) == 7
+    assert out["profile_rl_2d"]["envs"] == 1
+    json.dumps(out)
+    times_3d = {"kernels": {f"stage_rk_3d.stage{m}": {"ms": 0.7 + m} for m in range(3)},
+                "poisson": {"dense": {"ms": 0.9}}, "env_step_split": {"env_step_ms": 72.0}}
+    beside = chip_smoke.profiling_beside(
+        times_3d, {"s_per_iteration": 2.1, "split_s_per_iteration": {"update": 1.1}})
+    assert beside["timing_3d"]["stage_rk_3d.stage2_ms"] == 2.7
+    assert beside["rl_train_2d"]["s_per_iteration"] == 2.1
+
+
+def test_smoke_jax_records_are_the_committed_ones():
+    """The JAX numbers the new phases gate on are the committed records':
+    the flow-statistics JSONs and the probe logs."""
+    with open(REPO / "experiments" / "flowstats" / "flowstats_ra_2d.json") as f:
+        points = json.load(f)["points"]
+    assert chip_smoke.JAX_FLOWSTATS_2D == {
+        ra: (p["nu_mean"], p["nu_std"]) for ra, p in points.items()}
+    with open(REPO / "experiments" / "flowstats" / "flowstats_ra.json") as f:
+        points = json.load(f)
+    assert chip_smoke.JAX_FLOWSTATS_3D == {
+        ra: (points[ra]["nu_mean"], points[ra]["nu_std"]) for ra in ("500", "2000")}
+    log2 = (REPO / "results" / "probe2d_ra1000000.log").read_text()
+    assert f"steps): {chip_smoke.JAX_PROBE_2D['zero']:.4f}" in log2
+    assert f"row=1 gain= 30.0: Nu={chip_smoke.JAX_PROBE_2D['row1_gain30']:.4f}" in log2
+    log3 = (REPO / "results" / "probe3d_ra500.log").read_text()
+    assert f"zero-action Nu: {chip_smoke.JAX_PROBE_3D['zero']:.4f}" in log3
+    for sign in "+-":
+        nu = chip_smoke.JAX_PROBE_3D[f"T_row1_gain{sign}3"]
+        assert f"T row= 1 gain= {sign}3.00: Nu={nu:.4f}" in log3
