@@ -126,6 +126,28 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      StepTimer's p50 beside the host clock, the device memory
                      stats; profile3d at 1,024 envs and profile_rl in 2D at
                      256, beside timing_3d's and rl_train_2d's numbers
+29. single_env_2d    the gym-free 2D core (envs.single2d) at the 2D gym ID's
+                     defaults from the Ra=1e4 train bank: reset(seed=0) (the
+                     bank index drawn), one episode at zero action to
+                     truncation (200 steps, K1 200 launches at one block),
+                     the first 3 steps within 4e-5 of the solver forced
+                     plain, obs (3, 8, 48) finite, reward = -Nu(obs),
+                     truncation on step 200 and not before, the last Nu of
+                     the state within 0.02 of the first, a step from NaN
+                     fields raising RuntimeError; ms a step
+30. single_env_3d    the gym-free 3D core (envs.single3d) at the 3D gym ID's
+                     defaults (Ra=500, 13 substeps) from episode 0 of the
+                     Ra=500 test bank: 20 steps of seeded random actions (K3
+                     780, K4 20 at one env), the first step within 5e-6 of
+                     the plain path, obs (4, 16, 32, 32) finite, Nu in [1, 3],
+                     max|div| < 5e-4; truncation at episode_length=3 on
+                     step 6; ms a step
+31. ablate_actuation_3d the ablation twin (scripts.ablate_actuation3d) at
+                     Ra=2500, 38 substeps, 32 episodes of 80 steps on the
+                     test bank, amplitudes 0, 0.4 and 1.0, random and
+                     checkerboard (K3 54,720, K4 480): within 2 % (amplitude
+                     0, the two rows equal) and 3 % of docs/RL_RESULTS.md,
+                     the checkerboard non-decreasing in the amplitude
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -150,6 +172,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from rbc_gym_tpu_torch.envs import single2d, single3d
 from rbc_gym_tpu_torch.envs.vector2d import RBC2DVectorEnv
 from rbc_gym_tpu_torch.envs.vector3d import RBC3DVectorEnv
 from rbc_gym_tpu_torch.experiments import eval_baselines, run_sarl, run_sarl_2d
@@ -169,12 +192,14 @@ from rbc_gym_tpu_torch.ops.limits import (
 from rbc_gym_tpu_torch.ops.poisson import FACTORED_POISSON_MIN_NXNZ, make_poisson_solver_3d
 from rbc_gym_tpu_torch.rl import PPO, CheckpointCallback, NusseltCallback, restore_training_state
 from rbc_gym_tpu_torch.rl.checkpoint import trainer_tensors
+from rbc_gym_tpu_torch.scripts import ablate_actuation3d as ablate3d
 from rbc_gym_tpu_torch.scripts import probe_control2d, probe_control3d, profile3d, profile_rl
 from rbc_gym_tpu_torch.sim import burnin as bank_gen
 from rbc_gym_tpu_torch.sim import solver2d as s2d
 from rbc_gym_tpu_torch.sim import solver3d as s3d
 from rbc_gym_tpu_torch.sim.grid import Grid2D, Grid3D
 from rbc_gym_tpu_torch.sim.nusselt import nusselt_2d_physical
+from rbc_gym_tpu_torch.sim.solver3d import Fields3D
 from rbc_gym_tpu_torch.sim.solver2d import (
     DIVERGENCE_ATOL,
     Fields2D,
@@ -303,6 +328,17 @@ JAX_PROBE_2D = {"zero": 13.2262, "row1_gain30": 16.8423}
 JAX_PROBE_3D = {"zero": 1.3772, "T_row1_gain+3": 1.8509, "T_row1_gain-3": 1.8835}
 PROBE_ZERO_RTOL = {"2d": 0.05, "3d": 0.02}
 PROBE_MIN_RISE = {"2d": 0.10, "3d": 0.15}
+
+# The actuation ablation (phase 31): docs/RL_RESULTS.md:212-217, the JAX
+# script's second-half Nu (held-out bank, 80 steps) under random and
+# checkerboard forcing; the port's zero-amplitude row within
+# ABLATION_ZERO_RTOL of it, every other within ABLATION_RTOL.
+JAX_ABLATION = {"0": {"random": 1.957, "checker": 1.957},
+                "0.2": {"random": 1.954, "checker": 1.987},
+                "0.4": {"random": 1.974, "checker": 2.088},
+                "1": {"random": 2.048, "checker": 2.567}}
+ABLATION_ZERO_RTOL = 0.02
+ABLATION_RTOL = 0.03
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
 FP32_FLOPS = 67e12
@@ -2180,6 +2216,208 @@ def profiling_beside(times_3d: dict, train_2d: dict) -> dict:
                             "split_s_per_iteration": train_2d["split_s_per_iteration"]}}
 
 
+def single_env_2d(device, state_shape=(64, 96), observation_shape=(8, 48), heater_duration=1.5,
+                  episode_length=300, bank=ASSETS / "ckpt_ra10000_train.npz", parity_steps=3,
+                  seed=0) -> dict:
+    """The gym-free 2D core (``envs.single2d.RBC2DEnvCore``) at the 2D gym
+    ID's defaults, from the Ra=1e4 train bank: ``reset(seed)`` (the bank
+    index it draws, as ``np.random.default_rng(seed)`` draws it), one whole
+    episode at zero action, K1 once a step at one block; the first
+    ``parity_steps`` steps' fields within K1's gate of the same solver forced
+    plain, obs shape and finiteness, reward = -Nu of the observation,
+    truncation on the last step and not before, the last step's Nu of the
+    state within the float32 fixed-point gate of the first step's (the bank
+    holds steady rolls), a step from NaN fields raising RuntimeError; ms a
+    step."""
+    device = torch.device(device)
+    dtype = working_dtype(device)
+    core = single2d.RBC2DEnvCore(state_shape=state_shape, observation_shape=observation_shape,
+                                 heater_duration=heater_duration, episode_length=episode_length,
+                                 checkpoint=str(bank), dtype=dtype, device=device)
+    obs, info = core.reset(seed=seed)
+    bank_index = int(np.random.default_rng(seed).integers(core._bank.num_episodes))
+    zero = np.zeros(core.heater_segments, np.float32)
+    fields0, stepped, records = core._fields, [], []
+    reset_counters()
+    _sync(device)
+    start = time.perf_counter()
+    while True:
+        obs, reward, terminated, truncated, info = core.step(zero)
+        records.append((obs, reward, terminated, truncated, info))
+        if len(stepped) < parity_steps:
+            stepped.append(core._fields)
+        if truncated or len(records) > core.episode_steps:
+            break
+    _sync(device)
+    seconds = time.perf_counter() - start
+    launches = {"env_step_2d": k2d.env_step_2d.launches}
+    steps = len(records)
+    expect_launches(device, launches, {"env_step_2d": steps})
+
+    plain = make_solver2d(core._grid, core._params, dtype=dtype, device=device, fused=False)
+    f, errors = fields0, []
+    for got in stepped:
+        f = plain.env_step(f, zero)
+        errors.append(abs_diffs(K1_OUT, [getattr(got, n) for n in K1_OUT],
+                                [getattr(f, n) for n in K1_OUT]))
+    worst = max(max(e.values()) for e in errors)
+    if not worst <= K1_MAIN_ATOL:
+        raise AssertionError(f"the single env's steps off the plain solver: {errors}")
+    nz_o, nx_o = observation_shape
+    for obs, reward, terminated, truncated, info in records:
+        if obs.shape != (3, nz_o, nx_o) or not np.isfinite(obs).all():
+            raise AssertionError(f"obs of shape {obs.shape}, finite {np.isfinite(obs).all()}")
+        if reward != -info["nusselt_obs"] or terminated:
+            raise AssertionError(f"reward {reward} against Nu {info['nusselt_obs']}")
+    truncated_at = [i + 1 for i, r in enumerate(records) if r[3]]
+    if truncated_at != [core.episode_steps]:
+        raise AssertionError(f"truncated at steps {truncated_at}, not {core.episode_steps}")
+    nu_first, nu_last = records[0][4]["nusselt_state"], records[-1][4]["nusselt_state"]
+    tol = FIXED_POINT_ATOL[torch.float32]
+    if not abs(nu_last - nu_first) <= tol:
+        raise AssertionError(f"Nu of the state moved from {nu_first} to {nu_last} (gate {tol})")
+    b = core._fields.b.clone()
+    b.view(-1)[0] = float("nan")
+    core._fields = core._fields._replace(b=b)
+    try:
+        core.step(zero)
+        raise AssertionError("a step from NaN fields did not raise RuntimeError")
+    except RuntimeError as e:
+        nan_error = str(e)
+    return {"phase": "single_env_2d", "path": core._solver.path, "bank_index": bank_index,
+            "bank": str(Path(bank).relative_to(REPO)), "steps": steps,
+            "episode_steps": core.episode_steps, "truncated_at": truncated_at,
+            "first_steps_vs_plain": errors, "atol": K1_MAIN_ATOL,
+            "nusselt_state_first_last": [nu_first, nu_last], "fixed_point_atol": tol,
+            "nusselt_obs_last": records[-1][4]["nusselt_obs"], "nan_raises": nan_error,
+            "seconds": seconds, "ms_per_step": 1e3 * seconds / steps, "launches": launches}
+
+
+def single_env_3d(device, ra=500, state_shape=(16, 32, 32), heater_duration=0.125, steps=20,
+                  bank=ASSETS / "3D_ckpt_ra500_test.npz", checkpoint_idx=0,
+                  truncation_length=3, seed=0) -> dict:
+    """The gym-free 3D core (``envs.single3d.RBC3DEnvCore``) at the 3D gym
+    ID's defaults from episode ``checkpoint_idx`` of the Ra=500 test bank:
+    ``steps`` steps of random actions from a seeded generator, K3 three
+    times a substep and K4 once a step at one env; the first step within
+    the 3D env-step gate of the plain path, obs shape and finiteness, Nu in
+    [1, 3], max|div u| under the float32 gate; a second core with
+    ``episode_length=truncation_length`` truncating on its last step and
+    not before; ms a step."""
+    device = torch.device(device)
+    dtype = working_dtype(device)
+    config = dict(rayleigh_number=ra, state_shape=state_shape, heater_duration=heater_duration,
+                  checkpoint=str(bank), checkpoint_idx=checkpoint_idx, dtype=dtype,
+                  device=device)
+    core = single3d.RBC3DEnvCore(**config)
+    core.reset(seed=seed)
+    s = core.heater_segments
+    actions = np.random.default_rng(seed).uniform(-1.0, 1.0, (steps, s, s)).astype(np.float32)
+    fields0, records = core._fields, []
+    reset_counters()
+    _sync(device)
+    start = time.perf_counter()
+    for a in actions:
+        records.append(core.step(a))
+        if len(records) == 1:
+            first = core._fields
+    _sync(device)
+    seconds = time.perf_counter() - start
+    n_sub = len(core._params.substep_dts())
+    launches = {name: WRAPPERS[name].launches for name in STAGE_WRAPPERS}
+    expect_launches(device, launches, {"stage_rk_3d": 3 * n_sub * steps, "stage_rk_3d_xy": 0,
+                                       "correct_3d": steps})
+
+    plain = s3d.make_solver3d(core._grid, core._params, dtype=dtype, device=device, fused=False)
+    want = plain.env_step(fields0, actions[0])
+    step_err = abs_diffs(ENV3_OUT, [getattr(first, n) for n in ENV3_OUT],
+                         [getattr(want, n) for n in ENV3_OUT])
+    if not max(step_err.values()) <= ENV_STEP_3D_ATOL:
+        raise AssertionError(f"the single env's first step off the plain path: {step_err}")
+    nz, ny, nx = state_shape
+    nus = [info["nusselt"] for _, _, _, _, info in records]
+    for obs, reward, terminated, truncated, info in records:
+        if obs.shape != (4, nz, ny, nx) or not np.isfinite(obs).all():
+            raise AssertionError(f"obs of shape {obs.shape}, finite {np.isfinite(obs).all()}")
+        if reward != -info["nusselt"] or terminated or truncated:
+            raise AssertionError(f"step {info['step']}: reward {reward}, Nu {info['nusselt']}, "
+                                 f"terminated {terminated}, truncated {truncated}")
+    if not (1.0 <= min(nus) and max(nus) <= 3.0):
+        raise AssertionError(f"Nu in [{min(nus)}, {max(nus)}], outside [1, 3]")
+    div = s3d.max_divergence_3d(Fields3D(*(q[None] for q in core._fields)), core._grid)
+    if not div < s3d.DIVERGENCE_ATOL[dtype]:
+        raise AssertionError(f"max |div| {div}")
+
+    short = single3d.RBC3DEnvCore(**config, episode_length=truncation_length)
+    short.reset(seed=seed)
+    truncated_at = [i + 1 for i in range(short.episode_steps + 1)
+                    if short.step(np.zeros((s, s), np.float32))[3]]
+    if truncated_at[:1] != [short.episode_steps]:
+        raise AssertionError(f"truncated at steps {truncated_at}, not {short.episode_steps}")
+    return {"phase": "single_env_3d", "path": core._solver.path, "steps": steps,
+            "substeps_per_step": n_sub, "first_step_vs_plain": step_err,
+            "atol": ENV_STEP_3D_ATOL, "nusselt": [min(nus), max(nus)], "max_abs_div": div,
+            "truncation": {"episode_length": truncation_length,
+                           "episode_steps": short.episode_steps, "truncated_at": truncated_at},
+            "seconds": seconds, "ms_per_step": 1e3 * seconds / steps, "launches": launches}
+
+
+def ablation_gates(rows: dict) -> dict:
+    """The ablation's rows (amplitude -> {"random": Nu, "checker": Nu}, in
+    increasing amplitude) against the JAX record: what is off its gate."""
+    failed = {}
+    for amp, row in rows.items():
+        jax_row = JAX_ABLATION[amp]
+        rtol = ABLATION_ZERO_RTOL if float(amp) == 0.0 else ABLATION_RTOL
+        off = {m: (row[m], jax_row[m]) for m in row
+               if not abs(row[m] - jax_row[m]) <= rtol * jax_row[m]}
+        if off:
+            failed[amp] = off
+    if "0" in rows and rows["0"]["random"] != rows["0"]["checker"]:
+        failed["0 random == checker"] = rows["0"]
+    checker = [row["checker"] for row in rows.values()]
+    if any(b < a for a, b in zip(checker, checker[1:])):
+        failed["checker non-decreasing"] = checker
+    return failed
+
+
+def ablate_actuation_3d(device, episodes=32, n_steps=80, ra=2500, heater_duration=0.375,
+                        amplitudes=(0.0, 0.4, 1.0), bank=ASSETS / "3D_ckpt_ra2500_test.npz",
+                        seed=7, check_jax=True) -> dict:
+    """The ablation twin (``scripts.ablate_actuation3d.ablate``) on the
+    Ra=2500 test bank, 38 substeps a step, random and checkerboard forcing
+    at each amplitude (K3 three times a substep, K4 once a step); with
+    ``check_jax`` held to the JAX record: at amplitude 0 the two rows equal
+    and within 2 % of it, every other row within 3 %, the checkerboard
+    rows non-decreasing in the amplitude; seconds."""
+    device = torch.device(device)
+    env = ablate3d.make_env(episodes, ra, heater_duration, str(bank), device)
+    state0, _ = env.reset(seed=seed)
+    lines = []
+    reset_counters()
+    _sync(device)
+    start = time.perf_counter()
+    table = ablate3d.ablate(env, state0, amplitudes, n_steps, seed, log=lines.append)
+    _sync(device)
+    seconds = time.perf_counter() - start
+    n_sub = len(env.params.substep_dts())
+    rollouts = 2 * len(amplitudes)
+    launches = {name: WRAPPERS[name].launches for name in ("stage_rk_3d", "correct_3d")}
+    expect_launches(device, launches, {"stage_rk_3d": rollouts * n_steps * n_sub * 3,
+                                       "correct_3d": rollouts * n_steps})
+    rows = {f"{amp:g}": {"random": nr, "checker": nc}
+            for amp, nr, nc in zip(amplitudes, table["random"], table["checker"])}
+    if not all(np.isfinite(v) for row in rows.values() for v in row.values()):
+        raise AssertionError(f"ablation Nu not finite: {rows}")
+    failed = ablation_gates(rows) if check_jax else {}
+    if failed:
+        raise AssertionError(f"ablation off the JAX record (port, JAX): {failed}")
+    return {"phase": "ablate_actuation_3d", "ra": ra, "episodes": episodes, "n_steps": n_steps,
+            "substeps_per_step": n_sub, "bank": str(Path(bank).relative_to(REPO)),
+            "lines": lines, "rows": rows, "jax": JAX_ABLATION, "seconds": seconds,
+            "ms_per_step": 1e3 * seconds / (rollouts * n_steps), "launches": launches}
+
+
 # ---------------------------------------------------------------------------
 # Records
 # ---------------------------------------------------------------------------
@@ -2265,6 +2503,9 @@ def main() -> int:
     hooks = profiling_hooks(device)
     hooks["beside"] = profiling_beside(times_3d, train_2d)
     emit({**hooks, "card": card})
+    emit({**single_env_2d(device), "card": card})
+    emit({**single_env_3d(device), "card": card})
+    emit({**ablate_actuation_3d(device), "card": card})
     # each kernel's launches from the main path that is its own (K4 runs on
     # every 3D path; its count is the training grid's lazy path, its error
     # the larger of the two grids')

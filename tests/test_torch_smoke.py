@@ -26,6 +26,15 @@ from rbc_gym_tpu_torch.ops import _build
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "rbc_gym_tpu_torch"
 TINY = dict(state_shape=(16, 32))
+# the host-only modules: gymnasium types, so they need gymnasium at import
+GYM_MODULES = (
+    "rbc_gym_tpu_torch.envs.gym_vector",
+    "rbc_gym_tpu_torch.envs.rbc2d",
+    "rbc_gym_tpu_torch.envs.rbc3d",
+    "rbc_gym_tpu_torch.wrappers.rbc_normalize_observation",
+    "rbc_gym_tpu_torch.wrappers.rbc_normalize_reward",
+    "rbc_gym_tpu_torch.wrappers.rbc_reward_shaping",
+)
 
 
 def _run(args, cwd=REPO, env=None, timeout=300):
@@ -50,27 +59,44 @@ def test_port_imports_with_reference_stack_refused():
         import rbc_gym_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             rbc_gym_tpu_torch.__path__, "rbc_gym_tpu_torch.")]
+        refused = []
         for name in names:
-            importlib.import_module(name)
+            try:
+                importlib.import_module(name)
+            except ImportError as e:
+                assert "refused import of gymnasium" in str(e), (name, e)
+                refused.append(name)
         import chip_smoke
-        print(len(names))
+        print(len(names), " ".join(sorted(refused)))
     """)
     proc = _run([sys.executable, "-c", code])
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 12
+    count, *refused = proc.stdout.split()
+    assert int(count) >= 12
+    # the host-only gymnasium modules, and nothing else, need gymnasium
+    assert refused == sorted(GYM_MODULES)
 
 
 def test_no_reference_stack_imports_in_port_sources():
-    """No jax stack anywhere; h5py (and msgpack, yaml, wandb, matplotlib,
-    pyvista, imageio) only inside the host functions that use them, never
-    at a module's top level."""
-    pattern = re.compile(r"^\s*(import|from) (jax|flax|optax|gymnasium|rbc_gym_tpu)\b", re.M)
+    """No jax stack anywhere; gymnasium only in the host-only gym modules
+    (at their top) and in the package's registration (inside a function,
+    where it may be missing); h5py (and msgpack, yaml, wandb, matplotlib,
+    pyvista, imageio, pygame) only inside the host functions that use
+    them, never at a module's top level."""
+    jax_stack = re.compile(r"^\s*(import|from) (jax|flax|optax|rbc_gym_tpu)\b", re.M)
+    gym_any = re.compile(r"^\s*(import|from) gymnasium\b", re.M)
+    gym_top = re.compile(r"^(import|from) gymnasium\b", re.M)
     top_level = re.compile(
-        r"^(import|from) (h5py|msgpack|yaml|wandb|matplotlib|pyvista|imageio)\b", re.M)
+        r"^(import|from) (h5py|msgpack|yaml|wandb|matplotlib|pyvista|imageio|pygame)\b", re.M)
     files = [f for f in sorted(PACKAGE.rglob("*.py"))
              if "_build" not in f.relative_to(PACKAGE).parts] + [REPO / "chip_smoke.py"]
-    assert not [f for f in files if pattern.search(f.read_text())]
-    assert not [f for f in files if top_level.search(f.read_text())]
+    gym_files = sorted(PACKAGE.parent / (m.replace(".", "/") + ".py") for m in GYM_MODULES)
+    texts = {f: f.read_text() for f in files}
+    assert not [f for f in files if jax_stack.search(texts[f])]
+    assert [f for f in files if gym_top.search(texts[f])] == gym_files
+    assert [f for f in files if gym_any.search(texts[f])] == sorted(
+        gym_files + [PACKAGE / "__init__.py"])
+    assert not [f for f in files if top_level.search(texts[f])]
 
 
 def test_smoke_phases_run_on_cpu_plain_halves():
@@ -503,6 +529,45 @@ def test_smoke_flowstats_and_probe_phases_run_on_cpu(one_torch_thread):
     assert len(p3["lines"]) == 3 and set(p3["rises"]) == {"T_row1_gain+3", "T_row1_gain-3"}
     assert p3["launches"] == {"stage_rk_3d": 0, "correct_3d": 0}
     json.dumps({"a": fs2, "b": fs3, "c": p2, "d": p3})
+
+
+def test_smoke_single_env_and_ablation_phases_run_on_cpu(one_torch_thread):
+    """Phases 29-31 at a small size on the plain path: the 2D core from the
+    Ra=1e4 train bank for a 2-step episode (seed 0 draws episode 17, the
+    bank's roll at Nu 3.1806), the 3D core from the Ra=500 test bank for 2
+    steps of 2 substeps with a 2-step truncation, the ablation on 2
+    episodes for 2 steps; the JAX record's gates need the full protocol."""
+    s2 = chip_smoke.single_env_2d("cpu", heater_duration=0.06, episode_length=0.12,
+                                  parity_steps=2)
+    assert s2["path"] == "plain" and s2["bank_index"] == 17 and s2["steps"] == 2
+    assert s2["truncated_at"] == [2] and s2["launches"] == {"env_step_2d": 0}
+    assert len(s2["first_steps_vs_plain"]) == 2
+    assert all(v == 0.0 for e in s2["first_steps_vs_plain"] for v in e.values())
+    assert abs(s2["nusselt_state_first_last"][0] - 3.1806) < 1e-3
+    assert "NaN" in s2["nan_raises"]
+    s3 = chip_smoke.single_env_3d("cpu", heater_duration=0.0125, steps=2,
+                                  truncation_length=0.1)
+    assert s3["path"] == "plain" and s3["substeps_per_step"] == 2
+    assert max(s3["first_step_vs_plain"].values()) == 0.0 and s3["max_abs_div"] < 1e-8
+    assert s3["truncation"]["episode_steps"] == 2 and s3["truncation"]["truncated_at"][0] == 2
+    assert 1.0 <= s3["nusselt"][0] <= s3["nusselt"][1] <= 3.0
+    ab = chip_smoke.ablate_actuation_3d("cpu", episodes=2, n_steps=2, heater_duration=0.0125,
+                                        check_jax=False)
+    assert list(ab["rows"]) == ["0", "0.4", "1"] and len(ab["lines"]) == 3
+    assert ab["rows"]["0"]["random"] == ab["rows"]["0"]["checker"]
+    assert ab["launches"] == {"stage_rk_3d": 0, "correct_3d": 0}
+    json.dumps({"a": s2, "b": s3, "c": ab})
+
+
+def test_smoke_ablation_gates():
+    """The JAX record passes its own gates; a zero row off by 3 %, unequal
+    zero rows or a checkerboard falling with the amplitude fail."""
+    jax_rows = {k: chip_smoke.JAX_ABLATION[k] for k in ("0", "0.4", "1")}
+    assert chip_smoke.ablation_gates(jax_rows) == {}
+    off = {**jax_rows, "0": {"random": 1.957 * 1.03, "checker": 1.957}}
+    assert set(chip_smoke.ablation_gates(off)) == {"0", "0 random == checker"}
+    falling = {**jax_rows, "1": {"random": 2.048, "checker": 2.0}}
+    assert set(chip_smoke.ablation_gates(falling)) == {"1", "checker non-decreasing"}
 
 
 def test_smoke_probe_gates_fail_off_the_jax_record():
