@@ -148,6 +148,26 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      checkerboard (K3 54,720, K4 480): within 2 % (amplitude
                      0, the two rows equal) and 3 % of docs/RL_RESULTS.md,
                      the checkerboard non-decreasing in the amplitude
+32. example_vectorized the run_vectorized twin's native_lockstep: 6 envs, one
+                     warm-up and 20 timed zero-action steps (K1 21
+                     launches), the rewards finite with -reward (Nu of the
+                     observation) in the main path's range; env-steps/s
+33. example_timing   the timing twin's time_native: 1024 envs at
+                     heater_duration 0.99 (33 substeps), one warm-up and 10
+                     timed steps (K1 11 launches), finite rewards; us an env
+                     step
+34. example_ppo_native the run_ppo_native twin: PPO on RBC3DVectorEnv(16),
+                     10 iterations of 8 steps (K3 3,120 and K4 80 launches),
+                     every metric finite, best rollout Nu in [1, 3], TF32
+                     off; seconds an iteration and the update's share
+35. launchers        the bank launchers through bash into a temporary
+                     OUT_DIR (npz, Ra 1e4 in 2D and 2500 in 3D, 2 episodes,
+                     a cut duration): each bank loads, is finite with
+                     distinct episodes and max|div u| under the float32
+                     gate; fill_missing_banks.sh then skips all six; and
+                     train_sa.sbatch outside Slurm (16 envs, 8 steps, one
+                     iteration) leaves config.yaml, metrics.jsonl and
+                     models/final_model.npz
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -161,6 +181,7 @@ tests run them at a tiny size with the plain versions.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -168,6 +189,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -175,6 +197,8 @@ import torch
 from rbc_gym_tpu_torch.envs import single2d, single3d
 from rbc_gym_tpu_torch.envs.vector2d import RBC2DVectorEnv
 from rbc_gym_tpu_torch.envs.vector3d import RBC3DVectorEnv
+from rbc_gym_tpu_torch.examples import run_ppo_native, run_vectorized
+from rbc_gym_tpu_torch.examples import timing as example_timing_twin
 from rbc_gym_tpu_torch.experiments import eval_baselines, run_sarl, run_sarl_2d
 from rbc_gym_tpu_torch.experiments import run_sarl_2d_generalist as gen
 from rbc_gym_tpu_torch.experiments.flowstats import flowstats_ra as fs3d
@@ -208,7 +232,12 @@ from rbc_gym_tpu_torch.sim.solver2d import (
     max_divergence,
 )
 from rbc_gym_tpu_torch.utils import profiling
-from rbc_gym_tpu_torch.utils.checkpoints import load_bank_2d, save_bank_2d, save_bank_3d
+from rbc_gym_tpu_torch.utils.checkpoints import (
+    load_bank_2d,
+    load_bank_3d,
+    save_bank_2d,
+    save_bank_3d,
+)
 from rbc_gym_tpu_torch.wrappers import functional as fn
 
 # The big grid: 32x64x64 at dt_solver 0.005, 25 substeps per env step.
@@ -2419,6 +2448,188 @@ def ablate_actuation_3d(device, episodes=32, n_steps=80, ra=2500, heater_duratio
 
 
 # ---------------------------------------------------------------------------
+# The example twins and the launchers
+# ---------------------------------------------------------------------------
+
+
+def example_vectorized(device, num_envs=6, steps=20, nu_range=NU_RANGE, **env_kwargs) -> dict:
+    """``examples.run_vectorized.native_lockstep``: one warm-up and
+    ``steps`` timed zero-action steps, K1 once a step; the rewards finite,
+    -reward (Nu of the observation) in ``nu_range``; its printed lines and
+    env-steps/s."""
+    device = torch.device(device)
+    reset_counters()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        rewards, rate = run_vectorized.native_lockstep(num_envs, steps, device=device,
+                                                       **env_kwargs)
+    launches = {"env_step_2d": k2d.env_step_2d.launches}
+    expect_launches(device, launches, {"env_step_2d": steps + 1})
+    nu = -rewards
+    if not (np.isfinite(rewards).all() and nu_range[0] <= nu.min() and nu.max() <= nu_range[1]):
+        raise AssertionError(f"rewards {rewards}: -reward outside {nu_range}")
+    return {"phase": "example_vectorized", "num_envs": num_envs, "steps": steps,
+            "env_steps_per_s": rate, "nusselt_obs": [float(nu.min()), float(nu.max())],
+            "lines": printed.getvalue().splitlines(), "launches": launches}
+
+
+def example_timing(device, num_envs=1024, steps=10, **env_kwargs) -> dict:
+    """``examples.timing.time_native``: one warm-up and ``steps`` timed
+    zero-action steps at the twin's heater_duration, K1 once a step;
+    finite rewards; us an env step and the substeps an env step."""
+    device = torch.device(device)
+    reset_counters()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        out = example_timing_twin.time_native(num_envs, steps, device=device, **env_kwargs)
+    launches = {"env_step_2d": k2d.env_step_2d.launches}
+    expect_launches(device, launches, {"env_step_2d": steps + 1})
+    if not np.isfinite(out["rewards"]).all():
+        raise AssertionError(f"rewards not finite: {out['rewards']}")
+    return {"phase": "example_timing", "num_envs": num_envs, "steps": steps,
+            "heater_duration": out["heater_duration"], "substeps_per_step": out["substeps"],
+            "us_per_env_step": out["us_per_env_step"], "x_reference": out["x_reference"],
+            "lines": printed.getvalue().splitlines(), "launches": launches}
+
+
+def example_ppo_native(device, iterations=10, **kwargs) -> dict:
+    """The ``examples.run_ppo_native`` twin: ``iterations`` PPO iterations
+    on the 3D env, K3 three times a substep and K4 once an env step; every
+    metric of every iteration finite with an update applied, the best
+    rollout Nu finite and in [1, 3], TF32 off; seconds an iteration (the
+    first apart) and the update's share of them."""
+    device = torch.device(device)
+    update_s, ends, records = [0.0], [], []
+
+    def record(metrics, trainer):
+        _sync(device)
+        ends.append(time.perf_counter())
+        records.append(dict(metrics))
+
+    reset_counters()
+    with mock.patch.object(PPO, "_update", _timed(PPO._update, device, update_s)), \
+            contextlib.redirect_stdout(io.StringIO()) as printed:
+        _sync(device)
+        start = time.perf_counter()
+        trainer, nusselt = run_ppo_native.main(iterations=iterations, device=device,
+                                               callbacks=(record,), **kwargs)
+    launches = {name: WRAPPERS[name].launches for name in ("stage_rk_3d", "correct_3d")}
+    steps = iterations * trainer.config.n_steps
+    n_sub = len(trainer.env.params.substep_dts())
+    expect_launches(device, launches, {"stage_rk_3d": steps * n_sub * 3, "correct_3d": steps})
+    check_records(records)
+    best = float(nusselt.best_nusselt)
+    if not (np.isfinite(best) and 1.0 <= best <= 3.0):
+        raise AssertionError(f"best rollout Nu {best} outside [1, 3]")
+    tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32}
+    if any(tf32.values()):
+        raise AssertionError(f"TF32 on: {tf32}")
+    iteration_s = np.diff([start, *ends])
+    return {"phase": "example_ppo_native", "num_envs": trainer.env.num_envs,
+            "n_steps": trainer.config.n_steps, "iterations": iterations,
+            "substeps_per_step": n_sub, "path": trainer.env.solver.path,
+            "first_iteration_s": float(iteration_s[0]),
+            "s_per_iteration": float(iteration_s.mean()),
+            "s_per_later_iteration": float(iteration_s[1:].mean()) if iterations > 1 else None,
+            "update_share": update_s[0] / float(iteration_s.sum()),
+            "best_nusselt": best, "n_updates": [r["n_updates"] for r in records],
+            "loss": [r["loss"] for r in records], "tf32": tf32,
+            "last_line": printed.getvalue().splitlines()[-1], "launches": launches}
+
+
+LAUNCHER_DIR = REPO / "rbc_gym_tpu_torch" / "scripts"
+SPLITS = ("train", "test", "val")
+
+
+def _launch(script: str, env: dict, *args) -> str:
+    """``bash`` runs the launcher twin ``script`` with ``env`` over this
+    process's environment; a non-zero exit raises with its output. Its
+    standard output."""
+    proc = subprocess.run(["bash", str(LAUNCHER_DIR / script), *args],
+                          env={**os.environ, **env}, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{script} exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    return proc.stdout
+
+
+def launchers(device, ra_2d=10_000, ra_3d=2500, duration_2d=3.0, duration_3d=1.0,
+              random_inits=2, args_2d=(), args_3d=(), sbatch=None) -> dict:
+    """The bank launchers into a temporary OUT_DIR (``FORMAT=npz``, one Ra
+    each, ``random_inits`` episodes, the durations cut; ``args_2d`` and
+    ``args_3d`` go to every call): every bank loads through
+    ``utils.checkpoints``, is finite with distinct episodes and max|div u|
+    under the float32 gate (``DIVERGENCE_ATOL``, the burn-in phase's: a
+    float32 burn-in projects in float32, so the rounding bound
+    ``bank_div_atol`` of a float64 field stored as float32 does not apply,
+    and is reported beside it in 2D); ``fill_missing_banks.sh`` over that
+    directory skips all six and generates nothing. Then ``train_sa.sbatch``
+    outside Slurm (``sbatch``: its environment, default 16 envs, 8 steps,
+    one iteration) leaves config.yaml, one finite metrics record and
+    models/final_model.npz."""
+    device = torch.device(device)
+    common = {"DEVICE": device.type, "PYTHON": sys.executable}
+    out = {"phase": "launchers", "ra_2d": ra_2d, "ra_3d": ra_3d, "random_inits": random_inits,
+           "durations": {"2d": duration_2d, "3d": duration_3d}}
+    with tempfile.TemporaryDirectory() as tmp:
+        banks = Path(tmp) / "banks"
+        env = {**common, "OUT_DIR": str(banks), "FORMAT": "npz"}
+        inits = ("--random_inits", str(random_inits))
+        for dim, script, ra, duration, args in (
+                ("2d", "create_checkpoints_2D.sh", ra_2d, duration_2d, args_2d),
+                ("3d", "create_checkpoints_3D.sh", ra_3d, duration_3d, args_3d)):
+            start = time.perf_counter()
+            printed = _launch(script, {**env, "RAS": str(ra), "DURATION": str(duration)},
+                              *inits, *args)
+            out[dim] = {"seconds": time.perf_counter() - start, "lines": printed.splitlines()}
+            for split in SPLITS:
+                if dim == "2d":
+                    bank = load_bank_2d(banks / split / f"ckpt_ra{ra}.npz")
+                    _, nx, nz = bank.b.shape
+                    grid = Grid2D(nx=nx, nz=nz, lx=2 * np.pi, lz=2.0)
+                    fields = Fields2D(*(torch.as_tensor(getattr(bank, n))
+                                        for n in ("u", "w", "b")), None, None)
+                    div, atol = max_divergence(fields, grid), DIVERGENCE_ATOL[torch.float32]
+                    extra = {"bank_div_atol": bank_div_atol(bank)}
+                else:
+                    bank = load_bank_3d(banks / split / f"3D_ckpt_ra{ra}.npz")
+                    _, nx, ny, nz = bank.b.shape
+                    grid = Grid3D(nx=nx, ny=ny, nz=nz, lx=4 * np.pi, ly=4 * np.pi, lz=2.0)
+                    fields = s3d.Fields3D(*(torch.as_tensor(getattr(bank, n))
+                                            for n in ("u", "v", "w", "b")), None, None)
+                    div, atol = s3d.max_divergence_3d(fields, grid), s3d.DIVERGENCE_ATOL[
+                        torch.float32]
+                    extra = {}
+                if bank.num_episodes != random_inits:
+                    raise AssertionError(f"{dim} {split}: {bank.num_episodes} episodes")
+                out[dim][split] = {**_bank_checks(bank, div, atol), **extra}
+        printed = _launch("fill_missing_banks.sh",
+                          {**env, "RAS_2D": str(ra_2d), "RAS_3D": str(ra_3d)}, *inits)
+        want = ([f"skip {banks}/{split}/3D_ckpt_ra{ra_3d}.npz" for split in SPLITS]
+                + [f"skip {banks}/{split}/ckpt_ra{ra_2d}.npz" for split in SPLITS]
+                + ["all banks present"])
+        if printed.splitlines() != want:
+            raise AssertionError(f"fill_missing_banks.sh printed {printed.splitlines()}")
+        out["fill_missing_banks"] = printed.splitlines()
+
+        run = Path(tmp) / "sarl"
+        sb_env = {"NUM_ENVS": "16", "N_STEPS": "8", "ITERATIONS": "1", **(sbatch or {})}
+        start = time.perf_counter()
+        printed = _launch("train_sa.sbatch", {**common, **sb_env, "OUTPUT_DIR": str(run)})
+        seconds = time.perf_counter() - start
+        missing = [n for n in ("config.yaml", "metrics.jsonl", "models/final_model.npz")
+                   if not (run / n).is_file()]
+        if missing:
+            raise AssertionError(f"train_sa.sbatch left no {missing} in {run}")
+        metrics = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+        if len(metrics) != int(sb_env["ITERATIONS"]):
+            raise AssertionError(f"{len(metrics)} metrics records")
+        check_records(metrics)
+        out["train_sa"] = {**sb_env, "seconds": seconds, "first_line": printed.splitlines()[0],
+                           "outputs": sorted(str(p.relative_to(run)) for p in run.rglob("*")
+                                             if p.is_file())}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Records
 # ---------------------------------------------------------------------------
 
@@ -2506,6 +2717,10 @@ def main() -> int:
     emit({**single_env_2d(device), "card": card})
     emit({**single_env_3d(device), "card": card})
     emit({**ablate_actuation_3d(device), "card": card})
+    emit({**example_vectorized(device), "card": card})
+    emit({**example_timing(device), "card": card})
+    emit({**example_ppo_native(device), "card": card})
+    emit({**launchers(device), "card": card})
     # each kernel's launches from the main path that is its own (K4 runs on
     # every 3D path; its count is the training grid's lazy path, its error
     # the larger of the two grids')

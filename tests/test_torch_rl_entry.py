@@ -218,8 +218,8 @@ def test_port_imports_with_jax_stack_and_host_libraries_refused():
     optax, rbc_gym_tpu, gymnasium, h5py, msgpack, yaml, wandb, matplotlib,
     imageio and pyvista refused: the host libraries are imported inside
     host-only functions, never at import. The host-only gym modules, whose
-    classes derive from gymnasium's, are the exception: they, and nothing
-    else, are refused, and for gymnasium."""
+    classes derive from gymnasium's, and the gym example twins are the
+    exception: they, and nothing else, are refused, and for gymnasium."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
         BLOCKED = {"jax", "jaxlib", "flax", "optax", "gymnasium", "h5py", "msgpack", "yaml",
@@ -259,6 +259,11 @@ def test_port_imports_with_jax_stack_and_host_libraries_refused():
         "rbc_gym_tpu_torch.envs.gym_vector",
         "rbc_gym_tpu_torch.envs.rbc2d",
         "rbc_gym_tpu_torch.envs.rbc3d",
+        "rbc_gym_tpu_torch.examples.run_2D",
+        "rbc_gym_tpu_torch.examples.run_3D",
+        "rbc_gym_tpu_torch.examples.run_checkpoint",
+        "rbc_gym_tpu_torch.examples.run_wandb",
+        "rbc_gym_tpu_torch.examples.run_wrapped",
         "rbc_gym_tpu_torch.wrappers.rbc_normalize_observation",
         "rbc_gym_tpu_torch.wrappers.rbc_normalize_reward",
         "rbc_gym_tpu_torch.wrappers.rbc_reward_shaping",

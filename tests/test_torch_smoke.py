@@ -7,6 +7,7 @@ build command targets sm_90a into a git-ignored directory; and every
 exported C function has its ctypes signature declared.
 """
 
+import ast
 import ctypes
 import json
 import re
@@ -26,15 +27,26 @@ from rbc_gym_tpu_torch.ops import _build
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "rbc_gym_tpu_torch"
 TINY = dict(state_shape=(16, 32))
-# the host-only modules: gymnasium types, so they need gymnasium at import
+# the host-only modules: gymnasium types, or gym demos, so they need
+# gymnasium at import
 GYM_MODULES = (
     "rbc_gym_tpu_torch.envs.gym_vector",
     "rbc_gym_tpu_torch.envs.rbc2d",
     "rbc_gym_tpu_torch.envs.rbc3d",
+    "rbc_gym_tpu_torch.examples.run_2D",
+    "rbc_gym_tpu_torch.examples.run_3D",
+    "rbc_gym_tpu_torch.examples.run_checkpoint",
+    "rbc_gym_tpu_torch.examples.run_wandb",
+    "rbc_gym_tpu_torch.examples.run_wrapped",
     "rbc_gym_tpu_torch.wrappers.rbc_normalize_observation",
     "rbc_gym_tpu_torch.wrappers.rbc_normalize_reward",
     "rbc_gym_tpu_torch.wrappers.rbc_reward_shaping",
 )
+# the card-side example twins import gymnasium only inside these functions
+GYM_FUNCTIONS = {
+    "rbc_gym_tpu_torch/examples/run_vectorized.py": {"gymnasium_sync"},
+    "rbc_gym_tpu_torch/examples/timing.py": {"time_gym_env"},
+}
 
 
 def _run(args, cwd=REPO, env=None, timeout=300):
@@ -77,12 +89,26 @@ def test_port_imports_with_reference_stack_refused():
     assert refused == sorted(GYM_MODULES)
 
 
+def _functions_importing(path: Path, module: str) -> set:
+    """The names of the functions of ``path`` whose bodies import ``module``."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            for inner in ast.walk(node):
+                imported = ([a.name for a in inner.names] if isinstance(inner, ast.Import)
+                            else [inner.module] if isinstance(inner, ast.ImportFrom) else [])
+                if any(m and m.split(".")[0] == module for m in imported):
+                    names.add(node.name)
+    return names
+
+
 def test_no_reference_stack_imports_in_port_sources():
     """No jax stack anywhere; gymnasium only in the host-only gym modules
-    (at their top) and in the package's registration (inside a function,
-    where it may be missing); h5py (and msgpack, yaml, wandb, matplotlib,
-    pyvista, imageio, pygame) only inside the host functions that use
-    them, never at a module's top level."""
+    (at their top), in the package's registration (inside a function,
+    where it may be missing) and in the card-side example twins' gym
+    functions (``GYM_FUNCTIONS``); h5py (and msgpack, yaml, wandb,
+    matplotlib, pyvista, imageio, pygame) only inside the host functions
+    that use them, never at a module's top level."""
     jax_stack = re.compile(r"^\s*(import|from) (jax|flax|optax|rbc_gym_tpu)\b", re.M)
     gym_any = re.compile(r"^\s*(import|from) gymnasium\b", re.M)
     gym_top = re.compile(r"^(import|from) gymnasium\b", re.M)
@@ -94,8 +120,11 @@ def test_no_reference_stack_imports_in_port_sources():
     texts = {f: f.read_text() for f in files}
     assert not [f for f in files if jax_stack.search(texts[f])]
     assert [f for f in files if gym_top.search(texts[f])] == gym_files
+    gym_inside = [REPO / f for f in GYM_FUNCTIONS]
     assert [f for f in files if gym_any.search(texts[f])] == sorted(
-        gym_files + [PACKAGE / "__init__.py"])
+        gym_files + gym_inside + [PACKAGE / "__init__.py"])
+    for f, functions in GYM_FUNCTIONS.items():
+        assert _functions_importing(REPO / f, "gymnasium") == functions
     assert not [f for f in files if top_level.search(texts[f])]
 
 
@@ -622,3 +651,50 @@ def test_smoke_jax_records_are_the_committed_ones():
     for sign in "+-":
         nu = chip_smoke.JAX_PROBE_3D[f"T_row1_gain{sign}3"]
         assert f"T row= 1 gain= {sign}3.00: Nu={nu:.4f}" in log3
+
+
+def test_smoke_example_phases_run_on_cpu(one_torch_thread):
+    """Phases 32-34 at a tiny size on the plain path: the vectorized and
+    timing twins on a 16x32 grid (the 8x16 observation's Nu sits below the
+    full grid's range, so the rehearsal's range starts at 0), the PPO twin
+    on 2 envs for 2 iterations of 2 steps of 2 substeps."""
+    vec = chip_smoke.example_vectorized("cpu", 2, 2, nu_range=(0.0, chip_smoke.NU_RANGE[1]),
+                                        **TINY, observation_shape=(8, 16), heater_duration=0.3)
+    assert vec["launches"] == {"env_step_2d": 0} and vec["env_steps_per_s"] > 0
+    assert re.fullmatch(r"native lockstep: 2 envs x 2 steps in [0-9.]+s \([0-9]+ env-steps/s\)",
+                        vec["lines"][0])
+    assert vec["lines"][1].startswith("rewards: [")
+    tim = chip_smoke.example_timing("cpu", 2, 2, **TINY, observation_shape=(8, 16),
+                                    heater_duration=0.06)
+    assert tim["substeps_per_step"] == 2 and tim["heater_duration"] == 0.06
+    assert tim["launches"] == {"env_step_2d": 0} and tim["us_per_env_step"] > 0
+    ppo = chip_smoke.example_ppo_native("cpu", iterations=2, num_envs=2, n_steps=2, n_epochs=1,
+                                        n_minibatches=2, heater_duration=0.0125)
+    assert ppo["path"] == "plain" and ppo["substeps_per_step"] == 2
+    assert ppo["launches"] == {"stage_rk_3d": 0, "correct_3d": 0}
+    assert ppo["n_updates"] == [2.0, 2.0] and 0 < ppo["update_share"] < 1
+    assert ppo["tf32"] == {"matmul": False, "cudnn": False}
+    assert ppo["last_line"] == f"best rollout nusselt: {ppo['best_nusselt']}"
+    json.dumps({"a": vec, "b": tim, "c": ppo})
+
+
+def test_smoke_launchers_phase_runs_on_cpu(tmp_path, monkeypatch):
+    """Phase 35 on the CPU: the bank launchers at 32x16 and 8x8x8 for one
+    snapshot window, fill_missing_banks skipping all six banks, and
+    train_sa.sbatch for one iteration of 2 envs through a small config."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    config = tmp_path / "tiny.yaml"
+    config.write_text("rl_n_epochs: 1\nrl_batch_size: 2\nrbc_heater_duration: 0.0125\n"
+                      "rbc_episode_length: 0.1\n")
+    out = chip_smoke.launchers("cpu", duration_2d=0.3, duration_3d=0.125,
+                               args_2d=("--N", "32", "16"), args_3d=("--N", "8", "8", "8"),
+                               sbatch={"NUM_ENVS": "2", "N_STEPS": "2", "CONFIG": str(config)})
+    for dim in ("2d", "3d"):
+        assert [out[dim][s]["episodes"] for s in chip_smoke.SPLITS] == [2, 2, 2]
+        assert len(out[dim]["lines"]) == 3
+    assert out["2d"]["train"]["max_abs_div"] < out["2d"]["train"]["div_atol"]
+    assert len(out["fill_missing_banks"]) == 7
+    assert out["train_sa"]["first_line"].startswith("launching: ")
+    assert {"config.yaml", "metrics.jsonl", "models/final_model.npz"} <= set(
+        out["train_sa"]["outputs"])
+    json.dumps(out)
