@@ -168,6 +168,26 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      train_sa.sbatch outside Slurm (16 envs, 8 steps, one
                      iteration) leaves config.yaml, metrics.jsonl and
                      models/final_model.npz
+36. multi_rank       two gloo ranks sharing the card (NCCL refuses two ranks
+                     on one device), each through parallel.shard_vector_env
+                     and shard_ppo_trainer, against one process on the same
+                     inputs: the 2D main path (1024 envs as 2 x 512, 3 steps,
+                     K1 3 launches a rank), the training grid (1024 envs as
+                     2 x 512, 2 steps) on K3's path (K3 and K4) and on the
+                     field path (K6, K7 and K4), rewards and obs within 1e-5
+                     relative; one 2D PPO iteration at the sarl2d_ra10000
+                     configuration (256 envs as 2 x 128, K1 64 launches a
+                     rank) of one epoch (8 updates, cuDNN deterministic):
+                     params within 1e-5 of one process's; of the full 10
+                     epochs (80 updates): the params' difference beside one
+                     process's own repeat (float32 rounding grows over the
+                     updates); both equal on the two ranks, one n_updates;
+                     the weak-scaling harness (bench_multihost.sh, 512 envs
+                     a rank, one and two ranks: the split on one card, not a
+                     scaling figure); and launch_multihost.sh -> run_sarl
+                     over two ranks (16 envs, one iteration of one epoch):
+                     one metrics record, written by rank 0, the n_updates of
+                     run_sarl in one process, the params beside its repeat
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -184,6 +204,7 @@ import contextlib
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -214,6 +235,8 @@ from rbc_gym_tpu_torch.ops.limits import (
     tendencies_2d_instance,
 )
 from rbc_gym_tpu_torch.ops.poisson import FACTORED_POISSON_MIN_NXNZ, make_poisson_solver_3d
+from rbc_gym_tpu_torch.parallel import initialize_distributed, make_env_mesh, shard_vector_env
+from rbc_gym_tpu_torch.parallel.launch import run_ranks
 from rbc_gym_tpu_torch.rl import PPO, CheckpointCallback, NusseltCallback, restore_training_state
 from rbc_gym_tpu_torch.rl.checkpoint import trainer_tensors
 from rbc_gym_tpu_torch.scripts import ablate_actuation3d as ablate3d
@@ -2540,15 +2563,23 @@ LAUNCHER_DIR = REPO / "rbc_gym_tpu_torch" / "scripts"
 SPLITS = ("train", "test", "val")
 
 
-def _launch(script: str, env: dict, *args) -> str:
+def _launch(script: str, env: dict, *args, timeout: float = 600.0) -> str:
     """``bash`` runs the launcher twin ``script`` with ``env`` over this
-    process's environment; a non-zero exit raises with its output. Its
-    standard output."""
-    proc = subprocess.run(["bash", str(LAUNCHER_DIR / script), *args],
-                          env={**os.environ, **env}, capture_output=True, text=True)
+    process's environment, in a session of its own; a non-zero exit raises
+    with its output, and so does the time limit, after killing the session
+    (every process the script started). Its standard output."""
+    proc = subprocess.Popen(["bash", str(LAUNCHER_DIR / script), *args],
+                            env={**os.environ, **env}, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        stdout, stderr = proc.communicate()
+        raise RuntimeError(f"{script} outlasted {timeout} s:\n{stdout}\n{stderr}")
     if proc.returncode != 0:
-        raise RuntimeError(f"{script} exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
-    return proc.stdout
+        raise RuntimeError(f"{script} exited {proc.returncode}:\n{stdout}\n{stderr}")
+    return stdout
 
 
 def launchers(device, ra_2d=10_000, ra_3d=2500, duration_2d=3.0, duration_3d=1.0,
@@ -2630,6 +2661,323 @@ def launchers(device, ra_2d=10_000, ra_3d=2500, duration_2d=3.0, duration_3d=1.0
 
 
 # ---------------------------------------------------------------------------
+# Multi-rank: the env-axis split over two ranks sharing the card (phase 36)
+# ---------------------------------------------------------------------------
+
+# NCCL refuses two ranks on one device; gloo takes CUDA tensors for the
+# all-reduce and broadcast that the split needs, and the tensors stay on
+# the card.
+MULTI_RANK_BACKEND = "gloo"
+# the ranks against one process: rewards and obs as max|two - one| /
+# max|one|, the params after one PPO iteration of one epoch absolutely
+MULTI_RANK_RTOL = 1e-5
+MULTI_RANK_PARAMS_ATOL = 1e-5
+# the card run: the main path, the training grid (K3's path and the field
+# path, K6 and K7) and the 2D PPO configuration of rl_train_2d
+MULTI_RANK_SPEC = {
+    "seed": 0,
+    "env_2d": {"num_envs": 1024, "steps": 3, "state_shape": [64, 96],
+               "observation_shape": [8, 48], "heater_duration": 1.5},
+    "env_3d": {"num_envs": 1024, "steps": 2, "state_shape": [16, 32, 32],
+               "heater_duration": 0.125},
+    "ppo_2d": {"rl_n_envs": 256},
+}
+# One PPO iteration each. "one_epoch" (8 updates of 2048 at the card's
+# config) is gated at MULTI_RANK_PARAMS_ATOL, with cuDNN's deterministic
+# algorithms so that one process repeats itself exactly; "full" (the
+# configuration's 10 epochs, 80 updates) runs as users run it and is
+# recorded beside one process's own repeat: the float32 update amplifies
+# rounding, so after 80 updates one process differs from itself by ~6e-4
+# under cuDNN's default algorithms (PERF.md §6).
+MULTI_RANK_PPO_RUNS = {"one_epoch": ({"rl_n_epochs": 1}, True), "full": ({}, False)}
+
+
+def _multi_rank_envs(spec: dict, device: torch.device) -> list:
+    """(name, env class, kwargs, wrappers counted) of the env parts."""
+    dtype = working_dtype(device)
+    e2, e3 = spec["env_2d"], spec["env_3d"]
+    kw_3d = dict(state_shape=tuple(e3["state_shape"]), heater_duration=e3["heater_duration"])
+    return [
+        ("env_2d", RBC2DVectorEnv, dict(state_shape=tuple(e2["state_shape"]),
+                                        observation_shape=tuple(e2["observation_shape"]),
+                                        heater_duration=e2["heater_duration"], dtype=dtype),
+         ("env_step_2d",)),
+        ("env_3d", RBC3DVectorEnv, dict(kw_3d, dtype=dtype), STAGE_WRAPPERS),
+        # forced, so float32 on any device
+        ("env_3d_field", RBC3DVectorEnv, dict(kw_3d, fused="field", dtype=torch.float32),
+         FIELD_PATH_WRAPPERS),
+    ]
+
+
+def _multi_rank_env_parts(spec: dict, device: torch.device, mesh=None):
+    """The env parts of ``spec`` in one process or as this rank of
+    ``mesh``: (arrays, record). Each steps the whole fleet's seeded random
+    actions (a rank its rows) from reset(seed); the rewards of every step
+    and the last obs are gathered to rank 0 (None on the other ranks)."""
+    arrays, record = {}, {}
+    for name, cls, kw, counted in _multi_rank_envs(spec, device):
+        part = spec[name.replace("_field", "")]
+        n, lo = part["num_envs"], 0
+        if mesh is None:
+            env = cls(n, device=device, **kw)
+        else:
+            env = shard_vector_env(cls, n, mesh, **kw)
+            lo = env.env_offset
+        rng = np.random.default_rng(spec["seed"])
+        shape = (n,) + ((env.params.n_heaters,) if cls is RBC2DVectorEnv
+                        else (env.params.n_heaters,) * 2)
+        reset_counters()
+        start = time.perf_counter()
+        state, obs = env.reset(seed=spec["seed"])
+        rewards = []
+        for _ in range(part["steps"]):
+            state, ts = env.step(state, rng.uniform(-1.0, 1.0, shape)[lo:lo + env.num_envs])
+            rewards.append(ts.reward)
+        _sync(device)
+        record[name] = {"num_envs": env.num_envs, "path": env.solver.path,
+                        "seconds": time.perf_counter() - start,
+                        "launches": {k: WRAPPERS[k].launches for k in counted}}
+        for key, x in (("rewards", torch.stack(rewards, 1)), ("obs", ts.obs)):
+            arrays[f"{name}/{key}"] = x.cpu() if mesh is None else mesh.gather_rows(x)
+    return arrays, record
+
+
+def _multi_rank_ppo(spec: dict, device: torch.device, run: str, mesh=None):
+    """One PPO iteration of ``MULTI_RANK_PPO_RUNS[run]`` at the
+    sarl2d_ra10000 configuration on the train bank, in one process or as
+    this rank of ``mesh``: (params, record)."""
+    overrides, deterministic = MULTI_RANK_PPO_RUNS[run]
+    config = {**run_sarl_2d.DEFAULT_CONFIG, **SARL2D_RA10000,
+              "rbc_checkpoint": str(ASSETS / "ckpt_ra10000_train.npz"),
+              **spec["ppo_2d"], **overrides}
+    trainer, _, _ = run_sarl_2d.make_trainer(config, device, mesh)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        reset_counters()
+        _sync(device)
+        start = time.perf_counter()
+        metrics = trainer.learn(1)
+        _sync(device)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    params = {k: p.detach().cpu().numpy() for k, p in trainer.model.named_parameters()}
+    return params, {"num_envs": trainer.env.num_envs, "n_steps": config["rl_n_steps"],
+                    "seconds": time.perf_counter() - start, "metrics": metrics,
+                    "launches": {"env_step_2d": k2d.env_step_2d.launches}}
+
+
+def rank_worker(tmp: str) -> int:
+    """One rank of ``multi_rank_ranks`` (``chip_smoke.py --rank-worker
+    DIR``): joins the ranks (torchrun's variables) on ``DIR/spec.json``'s
+    device with gloo, runs the env parts and the PPO runs as its rank and
+    writes ``DIR/rank<r>.npz`` and ``DIR/rank<r>.json``."""
+    import torch.distributed as dist
+
+    spec = json.loads((Path(tmp) / "spec.json").read_text())
+    if not initialize_distributed(backend=MULTI_RANK_BACKEND, device=spec["device"],
+                                  timeout=spec["timeout"]):
+        raise RuntimeError("--rank-worker outside a multi-rank launch")
+    mesh = make_env_mesh(device=spec["device"])
+    arrays, record = _multi_rank_env_parts(spec, mesh.device, mesh)
+    arrays = {k: v.numpy() for k, v in arrays.items() if v is not None}
+    for run in MULTI_RANK_PPO_RUNS:
+        params, record[run] = _multi_rank_ppo(spec, mesh.device, run, mesh)
+        arrays.update({f"{run}/params/{k}": v for k, v in params.items()})
+    record.update(rank=mesh.rank, world_size=mesh.size, backend=dist.get_backend(),
+                  device=str(mesh.device))
+    np.savez(Path(tmp) / f"rank{mesh.rank}.npz", **arrays)
+    (Path(tmp) / f"rank{mesh.rank}.json").write_text(json.dumps(record))
+    dist.destroy_process_group()
+    return 0
+
+
+def _max_rel(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), np.finfo(np.float64).tiny))
+
+
+def _max_abs(a: dict, b: dict) -> float:
+    return max(float(np.abs(a[k] - b[k]).max()) for k in b)
+
+
+def multi_rank_ranks(device, spec=None, timeout: float = 600.0) -> dict:
+    """``spec``'s parts in one process, then as two gloo ranks on the same
+    device (``parallel.launch.run_ranks`` of ``chip_smoke.py
+    --rank-worker``): the ranks' rewards and obs within ``MULTI_RANK_RTOL``
+    of one process's; after each PPO run their params equal to each other
+    and one ``n_updates`` on both ranks and in one process, and after the
+    one-epoch run the params within ``MULTI_RANK_PARAMS_ATOL`` of one
+    process's (the full run's difference is recorded beside one process's
+    own repeat); on the card each rank's launches (K1 once a 2D env step,
+    K3 and K4 on the training grid, K6, K7 and K4 on its field path)."""
+    device = torch.device(device)
+    spec = {**MULTI_RANK_SPEC, **(spec or {}), "device": str(device), "timeout": timeout}
+    start = time.perf_counter()
+    one, one_record = _multi_rank_env_parts(spec, device)
+    one = {k: v.numpy() for k, v in one.items()}
+    one_params = {}
+    for run in MULTI_RANK_PPO_RUNS:
+        one_params[run], one_record[run] = _multi_rank_ppo(spec, device, run)
+    repeat, _ = _multi_rank_ppo(spec, device, "full")
+    one_s = time.perf_counter() - start
+    if device.type == "cuda":
+        torch.cuda.empty_cache()  # the card's memory for the ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "spec.json").write_text(json.dumps(spec))
+        start = time.perf_counter()
+        run_ranks([sys.executable, str(REPO / "chip_smoke.py"), "--rank-worker", tmp], 2,
+                  env={"OMP_NUM_THREADS": "1"}, timeout=timeout)
+        ranks_s = time.perf_counter() - start
+        arrays = [dict(np.load(Path(tmp) / f"rank{r}.npz")) for r in (0, 1)]
+        records = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in (0, 1)]
+    out = {"phase": "multi_rank", "backend": records[0]["backend"],
+           "devices": [r["device"] for r in records], "one_process_s": one_s,
+           "ranks_s": ranks_s, "max_rel_diff": {}, "launches_per_rank": {}}
+    failed = [r["backend"] for r in records if r["backend"] != MULTI_RANK_BACKEND]
+    for name, _, _, counted in _multi_rank_envs(spec, device):
+        for key in ("rewards", "obs"):
+            k = f"{name}/{key}"
+            out["max_rel_diff"][k] = diff = _max_rel(arrays[0][k], one[k])
+            if not diff <= MULTI_RANK_RTOL:
+                failed.append(f"{k}: {diff}")
+        out["launches_per_rank"][name] = [r[name]["launches"] for r in records]
+        out[name] = {"num_envs_per_rank": records[0][name]["num_envs"],
+                     "path": records[0][name]["path"],
+                     "rank_seconds": [r[name]["seconds"] for r in records],
+                     "one_process_seconds": one_record[name]["seconds"]}
+    for run in MULTI_RANK_PPO_RUNS:
+        ranks = [{k[len(run) + 8:]: v for k, v in a.items() if k.startswith(f"{run}/params/")}
+                 for a in arrays]
+        n_updates = [r[run]["metrics"]["n_updates"] for r in records]
+        rec = out[run] = {
+            "num_envs_per_rank": records[0][run]["num_envs"],
+            "cudnn_deterministic": MULTI_RANK_PPO_RUNS[run][1],
+            "params_max_abs_diff": _max_abs(ranks[0], one_params[run]),
+            "params_ranks_max_abs_diff": _max_abs(ranks[0], ranks[1]),
+            "n_updates": {"ranks": n_updates,
+                          "one_process": one_record[run]["metrics"]["n_updates"]},
+            "metrics_max_abs_diff": max(abs(records[0][run]["metrics"][k] - v)
+                                        for k, v in one_record[run]["metrics"].items()),
+            "rank_seconds": [r[run]["seconds"] for r in records],
+            "one_process_seconds": one_record[run]["seconds"]}
+        if run == "full":
+            rec["one_process_repeat_params_max_abs_diff"] = _max_abs(repeat, one_params[run])
+        elif not rec["params_max_abs_diff"] <= MULTI_RANK_PARAMS_ATOL:
+            failed.append(f"{run} params: {rec['params_max_abs_diff']} from one process")
+        if rec["params_ranks_max_abs_diff"] != 0.0 or len({*n_updates, rec["n_updates"][
+                "one_process"]}) != 1:
+            failed.append(f"{run}: ranks differ by {rec['params_ranks_max_abs_diff']}, "
+                          f"n_updates {rec['n_updates']}")
+        out["launches_per_rank"][run] = [r[run]["launches"] for r in records]
+    if device.type == "cuda":
+        e2, e3 = spec["env_2d"], spec["env_3d"]
+        n_stages = e3["steps"] * 3 * len(s3d.SimParams3D(
+            heater_duration=e3["heater_duration"]).substep_dts())
+        k1_ppo = {"env_step_2d": one_record["full"]["n_steps"]}
+        want = {"env_2d": {"env_step_2d": e2["steps"]},
+                "env_3d": {"stage_rk_3d": n_stages, "stage_rk_3d_xy": 0,
+                           "correct_3d": e3["steps"]},
+                "env_3d_field": {"stage_rk_3d": 0, "stage_rk_3d_xy": 0, "correct_3d": n_stages,
+                                 "field_tendency_3d": 4 * n_stages, "div_3d": n_stages},
+                "one_epoch": k1_ppo, "full": k1_ppo}
+        for name, counts in want.items():
+            if out["launches_per_rank"][name] != [counts, counts]:
+                failed.append(f"{name} launches {out['launches_per_rank'][name]}, "
+                              f"expected {counts} on each rank")
+    if failed:
+        raise AssertionError(f"multi_rank: {failed}; {out}")
+    return out
+
+
+def multi_rank_bench(device, envs_per_rank=512, steps=5, args=()) -> dict:
+    """The weak-scaling harness (``bench_multihost.sh``) at ``envs_per_rank``
+    envs a rank, one rank and two gloo ranks on ``device``: its three
+    records, the efficiency its own arithmetic. Two ranks sharing one card
+    measure the split, not scaling."""
+    device = torch.device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        printed = _launch("bench_multihost.sh", {"BENCH_MULTIHOST_OUT": tmp,
+                                                 "PYTHON": sys.executable},
+                          str(envs_per_rank), str(steps), "--device", device.type,
+                          "--backend", MULTI_RANK_BACKEND, *args)
+    one, two, eff = [json.loads(x) for x in printed.splitlines() if x.startswith("{")]
+    if (one["processes"], two["processes"], two["num_envs"]) != (1, 2, 2 * envs_per_rank):
+        raise AssertionError(f"bench records {one}, {two}")
+    if abs(eff["value"] - two["value"] / (2 * one["value"])) > 1e-9 * eff["value"]:
+        raise AssertionError(f"efficiency {eff}")
+    return {"one_rank": one, "two_ranks": two, "efficiency": eff,
+            "note": "two ranks sharing one card: the split, not a scaling figure"}
+
+
+def multi_rank_launcher(device, num_envs=16, iterations=1, config=None) -> dict:
+    """``launch_multihost.sh`` with NPROC=2, BACKEND=gloo: ``run_sarl`` over
+    two ranks for ``iterations`` iterations at its defaults under
+    ``config`` (default: one epoch an iteration, within float32 rounding of
+    one process, see ``MULTI_RANK_PPO_RUNS``). Rank 0 alone writes: one
+    metrics record an iteration, each counting the whole fleet's steps, the
+    frozen config, the models and the full state in the one-process layout.
+    The same ``n_updates`` as ``run_sarl`` run here in one process; the
+    final params' difference from it is recorded beside that of a second
+    one-process run (cuDNN's default algorithms are not deterministic)."""
+    import yaml
+
+    device = torch.device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Path(tmp) / "in.yaml"
+        cfg.write_text(yaml.safe_dump(config or {"rl_n_epochs": 1}))
+        flags = ["--config", str(cfg), "--num_envs", str(num_envs), "--iterations",
+                 str(iterations), "--device", device.type]
+        run, one = Path(tmp) / "sarl", Path(tmp) / "one"
+        start = time.perf_counter()
+        _launch("launch_multihost.sh", {"NPROC": "2", "BACKEND": MULTI_RANK_BACKEND,
+                                        "PYTHON": sys.executable},
+                "--output_dir", str(run), *flags)
+        seconds = time.perf_counter() - start
+        start = time.perf_counter()
+        run_sarl.main(["--output_dir", str(one), *flags])
+        one_s = time.perf_counter() - start
+        run_sarl.main(["--output_dir", str(Path(tmp) / "again"), *flags])
+        final = [dict(np.load(d / "models" / "final_model.npz"))
+                 for d in (run, one, Path(tmp) / "again")]
+        params_diff, repeat_diff = _max_abs(final[0], final[1]), _max_abs(final[2], final[1])
+        one_metrics = [json.loads(x) for x in (one / "metrics.jsonl").read_text().splitlines()]
+        config = yaml.safe_load((run / "config.yaml").read_text())
+        metrics = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+        check_records(metrics)
+        steps = [m["global_step"] for m in metrics]
+        want = [config["rl_n_steps"] * num_envs * (i + 1) for i in range(iterations)]
+        if [m["iteration"] for m in metrics] != list(range(iterations)) or steps != want:
+            raise AssertionError(f"metrics records {metrics}: not one an iteration over the "
+                                 f"fleet of {num_envs}")
+        n_updates = [[m["n_updates"] for m in ms] for ms in (metrics, one_metrics)]
+        if n_updates[0] != n_updates[1]:
+            raise AssertionError(f"two ranks against one process: n_updates {n_updates}")
+        with np.load(run / "models" / "checkpoints" / "latest_full.npz") as z:
+            if z["env/key"].shape != (num_envs,):
+                raise AssertionError(f"latest_full.npz holds {z['env/key'].shape} env keys")
+        outputs = sorted(str(p.relative_to(run)) for p in run.rglob("*") if p.is_file())
+        missing = {"config.yaml", "metrics.jsonl", "models/final_model.npz",
+                   "models/best_model.npz"} - set(outputs)
+        if missing:
+            raise AssertionError(f"launch_multihost.sh left no {sorted(missing)}")
+    return {"num_envs": num_envs, "iterations": iterations, "seconds": seconds,
+            "one_process_seconds": one_s, "global_steps": steps, "outputs": outputs,
+            "params_max_abs_diff": params_diff,
+            "one_process_repeat_params_max_abs_diff": repeat_diff, "n_updates": n_updates[0]}
+
+
+def multi_rank(device) -> dict:
+    """Phase 36: ``multi_rank_ranks``, ``multi_rank_bench`` and
+    ``multi_rank_launcher`` at their card sizes."""
+    start = time.perf_counter()
+    out = multi_rank_ranks(device)
+    out["bench"] = multi_rank_bench(device)
+    out["launcher"] = multi_rank_launcher(device)
+    out["seconds"] = time.perf_counter() - start
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Records
 # ---------------------------------------------------------------------------
 
@@ -2658,6 +3006,8 @@ def card_line() -> str:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--rank-worker"]:
+        return rank_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 1
@@ -2721,6 +3071,7 @@ def main() -> int:
     emit({**example_timing(device), "card": card})
     emit({**example_ppo_native(device), "card": card})
     emit({**launchers(device), "card": card})
+    emit({**multi_rank(device), "card": card})
     # each kernel's launches from the main path that is its own (K4 runs on
     # every 3D path; its count is the training grid's lazy path, its error
     # the larger of the two grids')

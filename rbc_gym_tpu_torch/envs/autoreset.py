@@ -44,6 +44,16 @@ def seed_keys(seed: int, n: int) -> torch.Tensor:
     return _from_u64(_mix(base + np.arange(n, dtype=np.uint64) * _SPLIT_STRIDE))
 
 
+def fleet_slice(num_envs: int, env_slice=None) -> Tuple[int, int]:
+    """(offset, fleet size) of an env of ``num_envs`` envs: ``env_slice``
+    checked to hold them, or the whole fleet."""
+    offset, fleet = (0, num_envs) if env_slice is None else map(int, env_slice)
+    if not 0 <= offset <= fleet - num_envs:
+        raise ValueError(f"env_slice={env_slice}: envs [{offset}, {offset + num_envs}) do not lie "
+                         f"in a fleet of {fleet}")
+    return offset, fleet
+
+
 def fold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
     """Derive one key per key from an integer (``jax.random.fold_in``)."""
     return _from_u64(_mix(_to_u64(keys) + _mix(np.array([data], np.uint64) + _FOLD_SALT)))

@@ -22,7 +22,13 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from rbc_gym_tpu_torch.envs.autoreset import autoreset_step, fold_in, key_index, seed_keys
+from rbc_gym_tpu_torch.envs.autoreset import (
+    autoreset_step,
+    fleet_slice,
+    fold_in,
+    key_index,
+    seed_keys,
+)
 from rbc_gym_tpu_torch.envs.bank import DeviceBank
 from rbc_gym_tpu_torch.sim import nusselt as nu
 from rbc_gym_tpu_torch.sim.grid import Grid2D
@@ -70,6 +76,7 @@ class RBC2DVectorEnv:
         dtype: torch.dtype = torch.float32,
         poisson_precision: Optional[str] = None,
         device: str | torch.device | None = "cuda",
+        env_slice: Optional[Tuple[int, int]] = None,
     ):
         """``checkpoint``: a bank file (``.npz``, or HDF5 where h5py is
         installed) of initial conditions; None starts from the solver's
@@ -87,7 +94,15 @@ class RBC2DVectorEnv:
 
         ``poisson_precision`` counts the TPU matrix unit's passes in the JAX
         package; the port's solve runs in full float32 (TF32 off), so only
-        None is accepted."""
+        None is accepted.
+
+        ``env_slice=(offset, fleet_size)`` makes this env the envs ``[offset,
+        offset + num_envs)`` of a fleet of ``fleet_size`` (default: the whole
+        fleet): a reset draws their keys and sequential bank states, so a
+        rank's shard (``parallel.shard_vector_env``) resets and steps as
+        those rows of the one-process fleet. ``ic_noise`` is the exception:
+        its kick is drawn for the batch at hand (``envs.bank``), so a shard
+        draws its own."""
         if poisson_precision is not None:
             raise ValueError(
                 f"poisson_precision={poisson_precision!r} is a TPU matrix-unit pass "
@@ -102,6 +117,7 @@ class RBC2DVectorEnv:
                 "only covers the initial reset(). Pass auto_reset=False for evaluation."
             )
         self.num_envs = num_envs
+        self.env_offset, self.fleet_size = fleet_slice(num_envs, env_slice)
         nz, nx = state_shape
         self.grid = Grid2D(nx=nx, nz=nz, lx=2 * np.pi, lz=2.0)
         self.params = SimParams2D(
@@ -139,10 +155,11 @@ class RBC2DVectorEnv:
         return Fields2D(*(torch.stack(qs) for qs in zip(*per_env)))
 
     def reset(self, seed: int = 0) -> Tuple[EnvState2D, torch.Tensor]:
-        keys = seed_keys(seed, self.num_envs)
+        lo, hi = self.env_offset, self.env_offset + self.num_envs
+        keys = seed_keys(seed, self.fleet_size)[lo:hi]
         init_keys = fold_in(keys, 0)
         if self._bank is not None and self.bank_sampling == "sequential":
-            idx = torch.arange(self.num_envs) % self._bank.size
+            idx = torch.arange(lo, hi) % self._bank.size
             fields = self._bank.fields(idx, init_keys)
         else:
             fields = self._init_fields(init_keys)

@@ -25,7 +25,13 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from rbc_gym_tpu_torch.envs.autoreset import autoreset_step, fold_in, key_index, seed_keys
+from rbc_gym_tpu_torch.envs.autoreset import (
+    autoreset_step,
+    fleet_slice,
+    fold_in,
+    key_index,
+    seed_keys,
+)
 from rbc_gym_tpu_torch.envs.bank import DeviceBank
 from rbc_gym_tpu_torch.sim.grid import Grid3D
 from rbc_gym_tpu_torch.sim.nusselt import nusselt_3d
@@ -76,6 +82,7 @@ class RBC3DVectorEnv:
         fused: bool | str | None = None,
         poisson_precision: Optional[str] = None,
         device: str | torch.device | None = "cuda",
+        env_slice: Optional[Tuple[int, int]] = None,
     ):
         """``checkpoint``, ``bank_sampling``, ``ic_noise``: as in
         ``RBC2DVectorEnv`` (bank initial conditions, random or sequential
@@ -91,7 +98,11 @@ class RBC3DVectorEnv:
         float32 inside the whole-y boundary where nx % 4 != 0 or K3 cannot
         take the grid. ``poisson_precision`` counts
         the TPU matrix unit's passes in the JAX package; the port's solve
-        runs in full float32 (TF32 off), so only None is accepted."""
+        runs in full float32 (TF32 off), so only None is accepted.
+
+        ``env_slice``: as in ``RBC2DVectorEnv`` (this env as envs ``[offset,
+        offset + num_envs)`` of a fleet of ``fleet_size``; a shard draws its
+        own ``ic_noise`` kick)."""
         if poisson_precision is not None:
             raise ValueError(
                 f"poisson_precision={poisson_precision!r} is a TPU matrix-unit pass "
@@ -113,6 +124,7 @@ class RBC3DVectorEnv:
                     "only covers the initial reset(). Pass auto_reset=False for evaluation."
                 )
         self.num_envs = num_envs
+        self.env_offset, self.fleet_size = fleet_slice(num_envs, env_slice)
         nz, ny, nx = state_shape
         lz, ly, lx = domain
         self.grid = Grid3D(nx=nx, ny=ny, nz=nz, lx=lx, ly=ly, lz=lz)
@@ -162,10 +174,11 @@ class RBC3DVectorEnv:
         return Fields3D(*(torch.stack(qs) for qs in zip(*per_env)))
 
     def reset(self, seed: int = 0) -> Tuple[EnvState3D, torch.Tensor]:
-        keys = seed_keys(seed, self.num_envs)
+        lo, hi = self.env_offset, self.env_offset + self.num_envs
+        keys = seed_keys(seed, self.fleet_size)[lo:hi]
         init_keys = fold_in(keys, 0)
         if self._bank is not None and self.bank_sampling == "sequential":
-            idx = torch.arange(self.num_envs) % self._bank.size
+            idx = torch.arange(lo, hi) % self._bank.size
             fields = self._bank.fields(idx, init_keys)
         else:
             fields = self._init_fields(init_keys)

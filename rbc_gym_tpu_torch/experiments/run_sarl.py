@@ -10,15 +10,22 @@ order and output layout, plus ``--device`` (default ``cuda``). The bank
 Ra=2500 training bank as a card reads it. Params are saved as flax-layout
 ``.npz``.
 
-The JAX script's multi-host steps (``initialize_distributed`` and
-``shard_ppo_trainer`` over a host x env mesh) have no counterpart here:
-the port trains on one card (multi-GPU is ROADMAP A.9).
+The JAX script's multi-host steps have their twins: the script joins the
+process group of a multi-rank launch (``parallel.initialize_distributed``,
+a no-op in one process) and, over R ranks, each rank steps its rows of the
+fleet (``parallel.shard_vector_env``) and trains with the gradients summed
+over the ranks (``parallel.shard_ppo_trainer``); R ranks reproduce one
+process to float rounding. Only rank 0 evaluates and writes files.
+Where ``rl_n_envs`` does not divide over the ranks the script raises: the
+JAX script then trains unsharded, which with ranks would be R copies of
+one training writing the same files.
 
 Usage:
   python -m rbc_gym_tpu_torch.experiments.run_sarl \\
       --config experiments/configs/sarl3d_ra2500.yaml --output_dir results/run1 \\
       [--checkpoint rbc_gym_tpu_torch/assets/3D_ckpt_ra2500_train.npz] \\
       [--iterations K] [--wandb] [--resume_training] [--device cpu]
+  NPROC=2 bash rbc_gym_tpu_torch/scripts/launch_multihost.sh --output_dir results/run1 ...
 
 Output: ``<output_dir>/config.yaml`` (the frozen config), ``metrics.jsonl``,
 ``models/best_model.npz``, ``models/final_model.npz``,
@@ -84,6 +91,9 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", type=str, default=None,
                    help="override rbc_checkpoint (3D bank path)")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--backend", type=str, default=None,
+                   help="torch.distributed backend of a multi-rank launch (default: nccl on "
+                        "CUDA, gloo on the CPU; gloo lets ranks share a card)")
     return p.parse_args(argv)
 
 
@@ -122,13 +132,16 @@ def load_config(args) -> dict:
     return config
 
 
-def make_trainer(config: dict, device: str):
+def make_trainer(config: dict, device: str, mesh=None):
     """The PPO trainer of ``config``, its eval env and its obs transform,
-    on ``device``."""
+    on ``device``. Over the ranks of ``mesh`` (``parallel``) the trainer
+    steps this rank's rows of the fleet and the eval env is rank 0's (None
+    on the other ranks)."""
     import torch
 
     from rbc_gym_tpu_torch.envs.vector3d import RBC3DVectorEnv
     from rbc_gym_tpu_torch.models.nets import RBCActorCritic
+    from rbc_gym_tpu_torch.parallel import shard_ppo_trainer, shard_vector_env
     from rbc_gym_tpu_torch.rl import PPO, PPOConfig
     from rbc_gym_tpu_torch.wrappers import functional as fn
 
@@ -145,8 +158,12 @@ def make_trainer(config: dict, device: str):
         device=device,
     )
     n_envs = config["rl_n_envs"]
-    env = RBC3DVectorEnv(num_envs=n_envs, **env_kwargs)
-    eval_env = RBC3DVectorEnv(num_envs=max(1, n_envs // 4), **env_kwargs)
+    if mesh is None:
+        env = RBC3DVectorEnv(num_envs=n_envs, **env_kwargs)
+    else:
+        env = shard_vector_env(RBC3DVectorEnv, n_envs, mesh, **env_kwargs)
+    eval_env = (RBC3DVectorEnv(num_envs=max(1, n_envs // 4), **env_kwargs)
+                if mesh is None or mesh.rank == 0 else None)
     norm = fn.make_obs_norm_3d(ra=config["rbc_rayleigh_number"],
                                heater_limit=config["rbc_heater_limit"])
 
@@ -181,6 +198,8 @@ def make_trainer(config: dict, device: str):
         seed=config["seed"],
         device=torch.device(device),
     )
+    if mesh is not None:
+        shard_ppo_trainer(trainer, mesh)
     return trainer, eval_env, obs_transform
 
 
@@ -190,10 +209,25 @@ def main(argv=None):
     args = parse_args(argv)
     config = load_config(args)
     os.makedirs(args.output_dir, exist_ok=True)
-    import yaml
 
-    with open(os.path.join(args.output_dir, "config.yaml"), "w") as f:
-        yaml.safe_dump(config, f)
+    # a multi-rank launch (launch_multihost.sh) joins the process group here;
+    # a no-op in one process
+    from rbc_gym_tpu_torch.parallel import initialize_distributed, make_host_env_mesh
+
+    mesh, device = None, args.device
+    if initialize_distributed(backend=args.backend, device=args.device):
+        mesh = make_host_env_mesh(device=args.device)
+        device = mesh.device
+        lo, hi = mesh.rows(config["rl_n_envs"])
+        logger.info("Sharded PPO over mesh %s: rank %d of %d steps envs [%d, %d) of %d on %s",
+                    mesh.shape, mesh.rank, mesh.size, lo, hi, config["rl_n_envs"], device)
+        mesh.barrier()  # every rank has read the frozen config before rank 0 rewrites it
+    root = mesh is None or mesh.rank == 0
+    if root:
+        import yaml
+
+        with open(os.path.join(args.output_dir, "config.yaml"), "w") as f:
+            yaml.safe_dump(config, f)
 
     from rbc_gym_tpu_torch.rl import (
         CheckpointCallback,
@@ -206,7 +240,7 @@ def main(argv=None):
         truncate_metrics_jsonl,
     )
 
-    trainer, eval_env, obs_transform = make_trainer(config, args.device)
+    trainer, eval_env, obs_transform = make_trainer(config, device, mesh)
     logger.info("Rollout buffer: %d timesteps per rollout (%d envs x %d steps)",
                 config["rl_n_steps"] * config["rl_n_envs"], config["rl_n_envs"],
                 config["rl_n_steps"])
@@ -222,7 +256,7 @@ def main(argv=None):
                            save_model=True, save_path=models, obs_transform=obs_transform),
         MetricsLogger(metrics_path),
     ]
-    if args.wandb:
+    if args.wandb and root:
         callbacks.append(WandbCallback(project="rbc-3D-rl", config=config, dir=args.output_dir,
                                        model_save_path=models))
     callbacks = tuple(callbacks) + (ckpt_cb,)
@@ -234,13 +268,16 @@ def main(argv=None):
         # primary is missing or corrupt
         start_iteration = restore_training_state_with_fallback(ckpt_cb.full_path, trainer,
                                                                callbacks=callbacks)
-        kept = truncate_metrics_jsonl(metrics_path, start_iteration - 1)
-        logger.info("Resuming at iteration %d (%d metrics records kept)", start_iteration, kept)
+        if root:
+            kept = truncate_metrics_jsonl(metrics_path, start_iteration - 1)
+            logger.info("Resuming at iteration %d (%d metrics records kept)", start_iteration,
+                        kept)
 
     metrics = trainer.learn(config["rl_nr_iterations"], callbacks=callbacks,
                             start_iteration=start_iteration)
-    logger.info("Final metrics: %s", json.dumps(metrics, indent=2))
-    save_params(trainer.model, os.path.join(models, "final_model.npz"))
+    if root:
+        logger.info("Final metrics: %s", json.dumps(metrics, indent=2))
+        save_params(trainer.model, os.path.join(models, "final_model.npz"))
 
 
 if __name__ == "__main__":

@@ -96,12 +96,14 @@ def load_config(args) -> dict:
     return config
 
 
-def make_trainer(config: dict, device: str):
-    """The PPO trainer of ``config`` and its eval env, on ``device``."""
+def make_trainer(config: dict, device: str, mesh=None):
+    """The PPO trainer of ``config`` and its eval env, on ``device``; over
+    the ranks of ``mesh`` as ``run_sarl.make_trainer``."""
     import torch
 
     from rbc_gym_tpu_torch.envs.vector2d import RBC2DVectorEnv
     from rbc_gym_tpu_torch.models.nets import RBCActorCritic2D
+    from rbc_gym_tpu_torch.parallel import shard_ppo_trainer, shard_vector_env
     from rbc_gym_tpu_torch.rl import PPO, PPOConfig
     from rbc_gym_tpu_torch.wrappers import functional as fn
 
@@ -117,8 +119,12 @@ def make_trainer(config: dict, device: str):
         checkpoint=config["rbc_checkpoint"],
         device=device,
     )
-    env = RBC2DVectorEnv(num_envs=n_envs, **env_kwargs)
-    eval_env = RBC2DVectorEnv(num_envs=max(1, n_envs // 4), **env_kwargs)
+    if mesh is None:
+        env = RBC2DVectorEnv(num_envs=n_envs, **env_kwargs)
+    else:
+        env = shard_vector_env(RBC2DVectorEnv, n_envs, mesh, **env_kwargs)
+    eval_env = (RBC2DVectorEnv(num_envs=max(1, n_envs // 4), **env_kwargs)
+                if mesh is None or mesh.rank == 0 else None)
     norm = fn.make_obs_norm_2d(heater_limit=config["rbc_heater_limit"])
 
     def obs_transform(o):
@@ -155,6 +161,8 @@ def make_trainer(config: dict, device: str):
         seed=config["seed"],
         device=torch.device(device),
     )
+    if mesh is not None:
+        shard_ppo_trainer(trainer, mesh)
     return trainer, eval_env, obs_transform
 
 

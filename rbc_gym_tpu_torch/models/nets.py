@@ -55,7 +55,7 @@ def periodic_pad_3d(x: torch.Tensor, pad_d: int = 1, pad_h: int = 1,
 
 def channels_last_flatten(x: torch.Tensor) -> torch.Tensor:
     """(B, C, *spatial) -> (B, prod(spatial) * C) in flax's NHWC order."""
-    return torch.movedim(x, 1, -1).reshape(x.shape[0], -1)
+    return torch.movedim(x, 1, -1).flatten(1)
 
 
 def lecun_normal_(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:

@@ -7,6 +7,11 @@ runs a greedy evaluation rollout and keeps the best model;
 CheckpointCallback snapshots the params and the full training state;
 WandbCallback logs to Weights & Biases. Params are saved as flax-layout
 ``.npz`` (``models.params``).
+
+Over ranks (``trainer.mesh``, see ``parallel``) every rank calls every
+callback with the same metrics, and only rank 0 writes files: metrics,
+models and checkpoints. Only rank 0 evaluates; it broadcasts the result,
+so that every rank keeps the same best score.
 """
 
 from __future__ import annotations
@@ -24,6 +29,11 @@ from rbc_gym_tpu_torch.models.params import save_params
 from rbc_gym_tpu_torch.rl.checkpoint import save_training_state
 
 logger = logging.getLogger(__name__)
+
+
+def _rank(trainer) -> int:
+    mesh = getattr(trainer, "mesh", None)
+    return 0 if mesh is None else mesh.rank
 
 
 class MetricsLogger:
@@ -45,6 +55,8 @@ class MetricsLogger:
         self._t0 = time.time() - state["elapsed"]
 
     def __call__(self, metrics: dict, trainer) -> None:
+        if _rank(trainer) != 0:
+            return
         record = dict(metrics, wall_time=round(time.time() - self._t0, 2))
         if self.path:
             with open(self.path, "a") as f:
@@ -109,8 +121,10 @@ class CheckpointCallback:
         it = metrics["iteration"]
         if it % self.save_freq != 0:
             return
-        save_params(trainer.model, os.path.join(
-            self.save_path, f"rl_model_{metrics['global_step']}_steps.npz"))
+        root = _rank(trainer) == 0
+        if root:
+            save_params(trainer.model, os.path.join(
+                self.save_path, f"rl_model_{metrics['global_step']}_steps.npz"))
         # Crash-safe rotation: write the new snapshot under a temp name
         # first, only then rotate latest -> previous -> new, so any crash
         # leaves at least one complete snapshot on disk
@@ -119,6 +133,8 @@ class CheckpointCallback:
         full = self.full_path
         new = full + ".new"
         save_training_state(new, trainer, it, callbacks=self.sibling_callbacks)
+        if not root:
+            return
         if os.path.exists(full):
             os.replace(full, os.path.join(self.save_path, "previous_full.npz"))
         os.replace(new, full)
@@ -168,13 +184,19 @@ class EvaluationCallback:
     def __call__(self, metrics: dict, trainer) -> None:
         if metrics["iteration"] % self.freq != 0:
             return
-        mean_reward, mean_nusselt = self.evaluate(trainer.model)
+        root = _rank(trainer) == 0
+        result = torch.tensor(self.evaluate(trainer.model) if root else (0.0, 0.0),
+                              dtype=torch.float64, device=trainer.device)
+        mesh = getattr(trainer, "mesh", None)
+        if mesh is not None:
+            mesh.broadcast_(result)
+        mean_reward, mean_nusselt = result.tolist()
         metrics["eval/reward"] = mean_reward
         metrics["eval/nusselt"] = mean_nusselt
         if mean_reward > self.best_mean_reward:
             self.best_mean_reward = mean_reward
             logger.info("New best model with mean reward %s", mean_reward)
-            if self.save_model and self.save_path:
+            if self.save_model and self.save_path and root:
                 save_params(trainer.model, os.path.join(self.save_path, "best_model.npz"))
 
 

@@ -20,6 +20,15 @@ Format: one ``.npz`` of named arrays (``model/<name>``, ``adam/mu/<name>``,
 holds exactly the live trainer's arrays, each with its shape and dtype, so
 resuming with a changed architecture or env size fails loudly instead of
 corrupting state.
+
+Over ranks (``parallel.shard_ppo_trainer``) the file keeps the one-process
+layout: the ranks' env rows and observations are gathered to rank 0,
+which alone writes, and the replicated parameters, moments and generator
+states are rank 0's (every generator is drawn for the whole fleet, so the
+streams are the one process's). A restore takes each rank's rows of the
+fleet, so a checkpoint resumes at any world size that divides the fleet,
+one process included. Every rank reads the file: the checkpoint directory
+must be visible to all of them.
 """
 
 from __future__ import annotations
@@ -37,6 +46,11 @@ import torch
 logger = logging.getLogger(__name__)
 
 FORMAT_VERSION = 1
+
+
+def _sharded(name: str) -> bool:
+    """Whether the state ``name`` holds one row per env (split over ranks)."""
+    return name.startswith("env/") or name == "last_obs"
 
 
 def _env_tensors(env_state) -> Dict[str, torch.Tensor]:
@@ -73,8 +87,15 @@ def _callback_states(callbacks: Iterable) -> dict:
 
 
 def save_training_state(path: str, trainer, iteration: int, callbacks: Sequence = ()) -> None:
-    """Atomically write a full training checkpoint to ``path`` (.npz)."""
-    arrays = {k: v.detach().cpu().numpy() for k, v in trainer_tensors(trainer).items()}
+    """Atomically write a full training checkpoint to ``path`` (.npz).
+    Over ranks every rank calls this (it gathers the env rows) and rank 0
+    writes."""
+    mesh = getattr(trainer, "mesh", None)
+    arrays = {k: mesh.gather_rows(v) if mesh is not None and _sharded(k) else v.detach().cpu()
+              for k, v in trainer_tensors(trainer).items()}
+    if mesh is not None and mesh.rank != 0:
+        return
+    arrays = {k: v.numpy() for k, v in arrays.items()}
     meta = {
         "format_version": FORMAT_VERSION,
         "iteration": int(iteration),
@@ -113,6 +134,12 @@ def restore_training_state(path: str, trainer, callbacks: Sequence = ()) -> int:
                              "config/architecture mismatch (did the model, env or optimizer "
                              "change?)")
         saved = {k: z[k] for k in live}
+    lo, fleet = trainer.env_offset, trainer.fleet_size
+    for k in filter(_sharded, live):
+        if saved[k].shape[0] != fleet:
+            raise ValueError(f"{path}: state {k} holds {saved[k].shape[0]} envs, the live "
+                             f"trainer's fleet {fleet}: config mismatch")
+        saved[k] = saved[k][lo:lo + trainer.env.num_envs]
     for k, want in live.items():
         got = saved[k]
         want_dtype = str(want.dtype).replace("torch.", "")

@@ -20,6 +20,18 @@ Random numbers come from two ``torch.Generator``s on the device, one for
 the action noise and one for the minibatch permutations; the model's
 initial weights from a CPU generator, so they are the same on every
 device. All three are seeded from ``seed``.
+
+Over ranks (``parallel.shard_ppo_trainer``, which sets ``mesh``) each rank
+steps its rows of the fleet and R ranks reproduce one process to float
+rounding: every rank draws the whole fleet's action noise and keeps its
+rows, and the same global permutation, from which it takes the samples of
+its envs; a minibatch's advantage mean and population std, its losses,
+KL and clip fraction are sums over the ranks divided by the global
+minibatch size, the entropy term counts once (1/R on each rank), and the
+gradients are summed by one all-reduce a minibatch before the clip and
+Adam, so every rank applies the same update and takes the same
+``target_kl`` decision. A rank with no sample in a minibatch joins every
+collective all the same.
 """
 
 from __future__ import annotations
@@ -79,7 +91,7 @@ class Transition(NamedTuple):
 def gaussian_log_prob(action, mean, log_std):
     var = torch.exp(2.0 * log_std)
     lp = -0.5 * ((action - mean) ** 2 / var + 2.0 * log_std + _LOG_2PI)
-    return lp.reshape(lp.shape[0], -1).sum(-1)
+    return lp.flatten(1).sum(-1)
 
 
 def gaussian_entropy(log_std):
@@ -88,6 +100,12 @@ def gaussian_entropy(log_std):
 
 def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t * t).sum() for t in tensors))
+
+
+def _mean_std(x: torch.Tensor, count: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and population std of ``x`` over ``count`` samples."""
+    mean = x.sum() / count
+    return mean, torch.sqrt(((x - mean) ** 2).sum() / count)
 
 
 class ClippedAdam:
@@ -181,6 +199,14 @@ class PPO:
             lr = config.learning_rate
         self.optimizer = ClippedAdam(list(self.model.parameters()), lr, config.max_grad_norm)
         self.global_step = 0
+        # the env's rows [offset, offset + num_envs) of a fleet of fleet_size
+        self.env_offset = getattr(env, "env_offset", 0)
+        self.fleet_size = getattr(env, "fleet_size", env.num_envs)
+        self.mesh = None  # the ranks' layout (parallel.shard_ppo_trainer)
+
+    def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks (itself in one process)."""
+        return t if self.mesh is None else self.mesh.all_reduce_(t)
 
     # ------------------------------------------------------------------
     def _rollout(self) -> Tuple[Transition, torch.Tensor]:
@@ -190,8 +216,12 @@ class PPO:
         with torch.no_grad():
             for _ in range(cfg.n_steps):
                 mean, log_std, value = self.model(obs)
-                noise = torch.randn(mean.shape, generator=self.action_gen, dtype=mean.dtype,
-                                    device=mean.device)
+                # the whole fleet's noise, so that a rank's rows are the
+                # one-process draw's
+                lo = self.env_offset
+                noise = torch.randn((self.fleet_size,) + tuple(mean.shape[1:]),
+                                    generator=self.action_gen, dtype=mean.dtype,
+                                    device=mean.device)[lo:lo + mean.shape[0]]
                 action = mean + torch.exp(log_std) * noise
                 log_prob = gaussian_log_prob(action, mean, log_std)
                 env_state, ts = self.env.step(env_state, torch.clamp(action, -1.0, 1.0))
@@ -228,33 +258,85 @@ class PPO:
             advantages[t] = adv
         return advantages, advantages + traj.value
 
-    def _loss(self, obs, action, old_log_prob, advantages, returns):
+    def _loss(self, obs, action, old_log_prob, advantages, returns, count=None, adv_stats=None,
+              ranks: int = 1):
+        """The clipped-surrogate loss of a minibatch and its metrics.
+
+        Over ranks these rows are one rank's part of the minibatch:
+        ``count`` is the minibatch's size over all ranks (default: these
+        rows'), ``adv_stats`` its advantages' mean and population std
+        (default: these rows'), and each of the ``ranks`` ranks counts 1/R
+        of the entropy term, so that the ranks' losses, metrics and
+        gradients sum to the whole minibatch's."""
         cfg = self.config
+        count = advantages.shape[0] if count is None else count
         mean, log_std, value = self.model(obs)
         log_prob = gaussian_log_prob(action, mean, log_std)
         ratio = torch.exp(log_prob - old_log_prob)
         if cfg.normalize_advantage:
-            advantages = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+            adv_mean, adv_std = (_mean_std(advantages, count) if adv_stats is None
+                                 else adv_stats)
+            advantages = (advantages - adv_mean) / (adv_std + 1e-8)
         pg1 = -advantages * ratio
         pg2 = -advantages * torch.clamp(ratio, 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps)
-        pg_loss = torch.maximum(pg1, pg2).mean()
-        v_loss = 0.5 * ((value - returns) ** 2).mean()
+        pg_loss = torch.maximum(pg1, pg2).sum() / count
+        v_loss = 0.5 * ((value - returns) ** 2).sum() / count
         entropy = gaussian_entropy(log_std)
-        loss = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
+        loss = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy / ranks
         with torch.no_grad():
-            approx_kl = ((ratio - 1.0) - torch.log(ratio)).mean()
-            clip_frac = ((ratio - 1.0).abs() > cfg.clip_eps).to(ratio.dtype).mean()
+            approx_kl = ((ratio - 1.0) - torch.log(ratio)).sum() / count
+            clip_frac = ((ratio - 1.0).abs() > cfg.clip_eps).to(ratio.dtype).sum() / count
             metrics = {"loss": loss.detach(), "policy_loss": pg_loss.detach(),
                        "value_loss": v_loss.detach(), "entropy": entropy.detach(),
                        "approx_kl": approx_kl, "clip_fraction": clip_frac,
                        "policy_std": torch.exp(log_std).mean()}
         return loss, metrics
 
+    def _owned(self, idx: torch.Tensor) -> torch.Tensor:
+        """This rank's local rows of the global flat indices ``idx`` (index
+        ``t * fleet + e`` is env e at step t), in the order of ``idx``."""
+        if self.mesh is None:
+            return idx
+        n, lo = self.env.num_envs, self.env_offset
+        t, e = idx // self.fleet_size, idx % self.fleet_size - lo
+        mine = (e >= 0) & (e < n)
+        return t[mine] * n + e[mine]
+
+    def _advantage_stats(self, adv: torch.Tensor, minibatches, count: int):
+        """(mean, population std) of each minibatch's advantages over the
+        ranks: all-reduced sums, then all-reduced squared deviations."""
+        sums = torch.stack([adv.index_select(0, i).sum() for i in minibatches])
+        means = self._all_reduce(sums) / count
+        squares = torch.stack([((adv.index_select(0, i) - m) ** 2).sum()
+                               for i, m in zip(minibatches, means)])
+        return list(zip(means, torch.sqrt(self._all_reduce(squares) / count)))
+
+    def _reduce(self, grads, metrics):
+        """The gradients and the per-sample metrics summed over the ranks in
+        one flat all-reduce; the loss rebuilt from the summed parts."""
+        if self.mesh is None:
+            return grads, metrics
+        cfg = self.config
+        keys = ("policy_loss", "value_loss", "approx_kl", "clip_fraction")
+        flat = self._all_reduce(torch.cat([g.reshape(-1) for g in grads]
+                                          + [torch.stack([metrics[k] for k in keys])]))
+        out, start = [], 0
+        for g in grads:
+            out.append(flat[start:start + g.numel()].view_as(g))
+            start += g.numel()
+        metrics.update(zip(keys, flat[start:]))
+        metrics["loss"] = (metrics["policy_loss"] + cfg.vf_coef * metrics["value_loss"]
+                           - cfg.ent_coef * metrics["entropy"])
+        return out, metrics
+
     def _update(self, traj: Transition, advantages, returns) -> Dict[str, torch.Tensor]:
         cfg = self.config
-        batch = cfg.n_steps * self.env.num_envs
-        mb = batch // cfg.n_minibatches
-        flat = [x.reshape((batch,) + tuple(x.shape[2:]))
+        local = cfg.n_steps * self.env.num_envs
+        # the global minibatch: over ranks the permutation runs over the
+        # whole fleet's samples, of which each rank takes its own
+        mb = cfg.n_steps * self.fleet_size // cfg.n_minibatches
+        ranks = 1 if self.mesh is None else self.mesh.size
+        flat = [x.reshape((local,) + tuple(x.shape[2:]))
                 for x in (traj.obs, traj.action, traj.log_prob, advantages, returns)]
         params = self.optimizer.params
         sums: Dict[str, torch.Tensor] = {}
@@ -262,13 +344,18 @@ class PPO:
         for _ in range(cfg.n_epochs):
             # drawn every epoch, also after target_kl stopped the updates,
             # so the stream does not depend on where they stopped
-            perm = torch.randperm(batch, generator=self.perm_gen, device=self.device)
-            for i in range(cfg.n_minibatches):
-                if not cont:
-                    break
-                idx = perm[i * mb:(i + 1) * mb]
-                loss, metrics = self._loss(*(x.index_select(0, idx) for x in flat))
-                grads = torch.autograd.grad(loss, params)
+            perm = torch.randperm(cfg.n_steps * self.fleet_size, generator=self.perm_gen,
+                                  device=self.device)
+            if not cont:
+                continue
+            minibatches = [self._owned(perm[i * mb:(i + 1) * mb])
+                           for i in range(cfg.n_minibatches)]
+            stats = (self._advantage_stats(flat[3], minibatches, mb) if cfg.normalize_advantage
+                     else [None] * cfg.n_minibatches)
+            for idx, adv_stats in zip(minibatches, stats):
+                loss, metrics = self._loss(*(x.index_select(0, idx) for x in flat), count=mb,
+                                           adv_stats=adv_stats, ranks=ranks)
+                grads, metrics = self._reduce(torch.autograd.grad(loss, params), metrics)
                 metrics["grad_norm"] = global_norm(grads)
                 if cfg.target_kl is not None and not (
                         float(metrics["approx_kl"]) <= 1.5 * cfg.target_kl):
@@ -288,9 +375,12 @@ class PPO:
         traj, last_value = self._rollout()
         advantages, returns = self._gae(traj, last_value)
         metrics = self._update(traj, advantages, returns)
-        metrics["rollout/reward_mean"] = traj.reward.mean()
-        metrics["rollout/nusselt_mean"] = traj.nusselt.mean()
-        metrics["rollout/value_mean"] = traj.value.mean()
+        # means over the whole fleet
+        sums = self._all_reduce(torch.stack([traj.reward.sum(), traj.nusselt.sum(),
+                                             traj.value.sum()]))
+        means = sums / (self.config.n_steps * self.fleet_size)
+        for k, v in zip(("reward_mean", "nusselt_mean", "value_mean"), means):
+            metrics["rollout/" + k] = v
         return metrics
 
     # ------------------------------------------------------------------
@@ -306,7 +396,7 @@ class PPO:
         metrics_np: Dict[str, float] = {}
         for it in range(start_iteration, iterations):
             metrics = self._iteration()
-            self.global_step += self.config.n_steps * self.env.num_envs
+            self.global_step += self.config.n_steps * self.fleet_size
             metrics_np = {k: float(v) for k, v in metrics.items()}
             metrics_np["global_step"] = self.global_step
             metrics_np["iteration"] = it

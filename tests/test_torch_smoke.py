@@ -388,6 +388,38 @@ def test_smoke_rl_train_runs_on_cpu_and_restores_exactly():
     json.dumps(out)
 
 
+def test_smoke_multi_rank_phase_runs_on_cpu(one_torch_thread):
+    """Phase 36's ranks on the CPU at a tiny size: two gloo ranks through
+    ``chip_smoke.py --rank-worker``: the 2D env, the training grid's two
+    paths and one 2D PPO iteration equal one process's within the card's
+    gates (the 2D env and the float64 3D path bit for bit), the ranks' params
+    equal to each other; no kernel launches here. The bench and launcher
+    parts run in tests/test_torch_parallel_launch.py."""
+    spec = {"env_2d": {"num_envs": 8, "steps": 3, "state_shape": [16, 32],
+                       "observation_shape": [8, 16], "heater_duration": 0.3},
+            "env_3d": {"num_envs": 4, "steps": 1, "state_shape": [8, 8, 8],
+                       "heater_duration": 0.0125},
+            "ppo_2d": {"rl_n_envs": 4, "rl_n_steps": 2, "rl_batch_size": 4,
+                       "rbc_heater_duration": 0.3}}
+    out = chip_smoke.multi_rank_ranks("cpu", spec, timeout=300)
+    assert out["phase"] == "multi_rank" and out["backend"] == "gloo"
+    assert out["devices"] == ["cpu", "cpu"]
+    for name in ("env_2d", "env_3d"):
+        assert out["max_rel_diff"][f"{name}/rewards"] == 0.0
+        assert out["max_rel_diff"][f"{name}/obs"] == 0.0
+    assert out["max_rel_diff"]["env_3d_field/rewards"] <= chip_smoke.MULTI_RANK_RTOL
+    assert out["env_3d_field"]["path"] == "field" and out["env_2d"]["num_envs_per_rank"] == 4
+    for run, n_updates in (("one_epoch", 2.0), ("full", 2.0)):
+        assert out[run]["params_ranks_max_abs_diff"] == 0.0
+        assert out[run]["params_max_abs_diff"] <= chip_smoke.MULTI_RANK_PARAMS_ATOL
+        assert out[run]["n_updates"] == {"ranks": [n_updates] * 2, "one_process": n_updates}
+        assert out[run]["num_envs_per_rank"] == 2
+    assert out["one_epoch"]["cudnn_deterministic"] and not out["full"]["cudnn_deterministic"]
+    assert out["full"]["one_process_repeat_params_max_abs_diff"] == 0.0  # no cuDNN here
+    assert out["launches_per_rank"]["env_2d"] == [{"env_step_2d": 0}] * 2
+    json.dumps(out)
+
+
 def test_field_bounds():
     """K6 and K7 at 1024 envs on 16x32x32 move more bytes than their FLOP
     hide: 339,738,624 bytes for gu and gv, 276,824,064 for gw, 343,932,928

@@ -176,10 +176,9 @@ def test_step_leaves_its_input_state_unmodified():
         assert torch.equal(before, after)
 
 
-def test_checkpoint_banks_are_not_ported_yet():
-    """The bank options are validated. (The name is kept from when the
-    port refused banks.) A bank that does not fit the env's grid is
-    refused by name, an unknown sampling mode too; sequential
+def test_bank_options_are_validated():
+    """A bank that does not fit the env's grid is refused by name, an
+    unknown sampling mode too; sequential
     sampling and ic_noise, which act only on banks, are accepted without
     one, as the JAX env accepts them."""
     with pytest.raises(ValueError, match="do not fit"):
