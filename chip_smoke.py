@@ -52,7 +52,7 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      K6's march instance), at 16x32x30 (auto's field grid)
                      and forced on the big grid (K6's general instance); K6
                      beside a float64 run; one env step of the field path
-                     against its plain loop and against the K3 path
+                     against the all-plain path and against the K3 path
 13. main_path_field  RBC3DVectorEnv(1024, fused="field"): reset, 3 steps; the
                      same checks, launch counters K6 468 (117 per field), K7
                      117, K4 117, K3 0, K5 0
@@ -188,6 +188,23 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      over two ranks (16 envs, one iteration of one epoch):
                      one metrics record, written by rank 0, the n_updates of
                      run_sarl in one process, the params beside its repeat
+37. measurement      the measurement modules and their scripts: utils.parity
+                     on the card, each gate on its main path's grid (K1 in
+                     2D; K3 and K4, K6/K7 and K4 at 16x32x32, K5 and K4 at
+                     32x64x64, each against the plain path within the JAX
+                     helper's 5e-6, with its launches) and its
+                     refusal of the CPU; utils.flopcount over the plain 2D
+                     env step at 96x64 and 4 envs (elementwise FLOP per
+                     point-stage, equal to the CPU's count; GEMM the solve's
+                     closed form; no unknown op), over the 3D Poisson solves
+                     (16x32x32 dense, 32x64x64 factored; their closed forms),
+                     and its refusal of a K3-path env step, naming K3;
+                     utils.roofline's shares of the main_path, main_path_3d
+                     and main_path_big rates, each in (0, 100] %; and the
+                     scripts at 1024 envs: bench3d on the stage and field
+                     paths, ablate3d, probe_mxu_recon (its two
+                     reconstructions within 1e-5 of the field's max |value|),
+                     every time finite, the launches of each counted
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -195,7 +212,10 @@ Any failure is a traceback and a non-zero exit; without a CUDA device it
 exits non-zero before printing a result.
 
 The phase functions take the device and sizes as arguments, so the CPU
-tests run them at a tiny size with the plain versions.
+tests run them at a tiny size with the plain versions. The whole 3D env
+steps that phases 5, 9 and 12 compare, and their float64 side-checks,
+start from ``utils.parity.env_steps_3d``'s seeded start, the run that
+phase 37 and a bench gate on.
 """
 
 from __future__ import annotations
@@ -229,6 +249,7 @@ from rbc_gym_tpu_torch.models.params import load_params
 from rbc_gym_tpu_torch.ops import _build
 from rbc_gym_tpu_torch.ops import kernels2d as k2d
 from rbc_gym_tpu_torch.ops import kernels3d as k3d
+from rbc_gym_tpu_torch.ops import registry
 from rbc_gym_tpu_torch.ops.limits import (
     env_step_2d_on_chip,
     field_tendency_on_march,
@@ -239,7 +260,9 @@ from rbc_gym_tpu_torch.parallel import initialize_distributed, make_env_mesh, sh
 from rbc_gym_tpu_torch.parallel.launch import run_ranks
 from rbc_gym_tpu_torch.rl import PPO, CheckpointCallback, NusseltCallback, restore_training_state
 from rbc_gym_tpu_torch.rl.checkpoint import trainer_tensors
+from rbc_gym_tpu_torch.scripts import ablate3d as substep_ablation
 from rbc_gym_tpu_torch.scripts import ablate_actuation3d as ablate3d
+from rbc_gym_tpu_torch.scripts import bench3d, probe_mxu_recon
 from rbc_gym_tpu_torch.scripts import probe_control2d, probe_control3d, profile3d, profile_rl
 from rbc_gym_tpu_torch.sim import burnin as bank_gen
 from rbc_gym_tpu_torch.sim import solver2d as s2d
@@ -254,7 +277,19 @@ from rbc_gym_tpu_torch.sim.solver2d import (
     make_solver2d,
     max_divergence,
 )
-from rbc_gym_tpu_torch.utils import profiling
+from rbc_gym_tpu_torch.utils import flopcount, parity, profiling, roofline
+from rbc_gym_tpu_torch.utils.roofline import (
+    FP32_FLOPS,
+    bound,
+    correct_3d_work,
+    div_3d_work,
+    env_step_work,
+    field_tendency_3d_work,
+    poisson_3d_flops,
+    stage_rk_3d_work,
+    tendencies_own_work,
+    tendencies_work,
+)
 from rbc_gym_tpu_torch.utils.checkpoints import (
     load_bank_2d,
     load_bank_3d,
@@ -392,10 +427,6 @@ JAX_ABLATION = {"0": {"random": 1.957, "checker": 1.957},
 ABLATION_ZERO_RTOL = 0.02
 ABLATION_RTOL = 0.03
 
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
-FP32_FLOPS = 67e12
-HBM_BYTES_PER_S = 3.35e12
-
 SOURCES = {
     "env_step_2d": "rbc_gym_tpu_torch/csrc/rbc2d.cu",
     "tendencies_2d": "rbc_gym_tpu_torch/csrc/rbc2d.cu",
@@ -419,10 +450,7 @@ MAIN_SHAPE_CHECK = {"env_step_2d": "env_step_2d_main", "tendencies_2d": "tendenc
                     "stage_rk_3d": "stage_rk_3d", "correct_3d": "correct_3d",
                     "stage_rk_3d_xy": "stage_rk_3d_xy", "field_tendency_3d": "field_tendency_3d",
                     "div_3d": "div_3d"}
-WRAPPERS = {"env_step_2d": k2d.env_step_2d, "tendencies_2d": k2d.tendencies_2d,
-            "stage_rk_3d": k3d.stage_rk_3d, "correct_3d": k3d.correct_3d,
-            "stage_rk_3d_xy": k3d.stage_rk_3d_xy, "field_tendency_3d": k3d.field_tendency_3d,
-            "div_3d": k3d.div_3d}
+WRAPPERS = registry.KERNEL_WRAPPERS
 
 
 def emit(obj) -> None:
@@ -431,54 +459,6 @@ def emit(obj) -> None:
 
 def working_dtype(device: torch.device) -> torch.dtype:
     return torch.float32 if device.type == "cuda" else torch.float64
-
-
-# ---------------------------------------------------------------------------
-# Work counts (what each kernel must do on its inputs) and bounds
-# ---------------------------------------------------------------------------
-
-# FLOP per cell of one stage outside the spectral products, counted from
-# csrc with each face flux counted once (the kernels recompute a flux on
-# both of its cells; that repeat is not work the function needs): the
-# tendencies gu 61 + gw 59 + gb 54 (one 19-FLOP C6/D5 flux per face and
-# direction, the face interpolations, differences, Laplacians), pHY' 4,
-# RK update 15, divergence 6, correction 8.
-_TENDENCY_FLOPS_PER_CELL = 61 + 59 + 54
-_STAGE_FLOPS_PER_CELL = _TENDENCY_FLOPS_PER_CELL + 4 + 15 + 6 + 8
-
-
-def env_step_work(n_env: int, nx: int, nz: int, n_substeps: int) -> dict:
-    """FLOP and bytes of K1 on these shapes: u, w, b, bottom read and u, w,
-    b, p written once per env; F, G and the modal inverses read once."""
-    cells, faces = nx * nz, nx * (nz + 1)
-    solve = 2 * (2 * nx * nx * nz + nx * nz * nz)  # F.rhs, inverse, G.p_hat
-    flops = n_env * n_substeps * 3 * (_STAGE_FLOPS_PER_CELL * cells + solve)
-    words = n_env * (5 * cells + 2 * faces + nx) + 2 * nx * nx + nx * nz * nz
-    return {"flops": flops, "bytes": 4 * words}
-
-
-def tendencies_work(n_env: int, nx: int, nz: int) -> dict:
-    """FLOP and bytes of the Pallas tendency kernel's function, which reads
-    p_hy: u, w, b, p_hy, bottom read and gu, gw, gb written once. K2's
-    yardstick beside its own bound (``pallas_bound_ms``)."""
-    cells = nx * nz
-    words = n_env * (3 * cells + nx * (nz + 1) + nx + 2 * cells + nx * (nz + 1))
-    return {"flops": n_env * _TENDENCY_FLOPS_PER_CELL * cells, "bytes": 4 * words}
-
-
-def tendencies_own_work(n_env: int, nx: int, nz: int) -> dict:
-    """FLOP and bytes of K2's own function, which takes b and no p_hy: u,
-    w, b, bottom read and gu, gw, gb written once; pHY' adds its 4 FLOP a
-    cell. K2's bound."""
-    cells, faces = nx * nz, nx * (nz + 1)
-    return {"flops": n_env * (_TENDENCY_FLOPS_PER_CELL + 4) * cells,
-            "bytes": 4 * n_env * (4 * cells + 2 * faces + nx)}
-
-
-def bound(work: dict) -> tuple[float, str]:
-    t_ops = work["flops"] / FP32_FLOPS
-    t_bytes = work["bytes"] / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -806,60 +786,10 @@ def timing(device, num_envs=1024, state_shape=(64, 96), heater_duration=1.5,
 # 3D: the training grid through RBC3DVectorEnv
 # ---------------------------------------------------------------------------
 
-# FLOP per cell of one K3 stage, counted from csrc/rbc3d.cu with each face
-# flux once (as for K1): the tendencies gu 90 + gv 90 + gw 87 + gb 81 (per
-# direction a 19-FLOP C6/D5 flux, the face velocity, the difference; three
-# 4-FLOP second differences), the correction 9, pHY' 4, the RK update 3
-# per field at stage 0 and 5 at stages 1-2, the divergence 8.
-_TENDENCY_3D_FLOPS_PER_CELL = 90 + 90 + 87 + 81
 
-
-def stage_rk_3d_work(n_env: int, nx: int, ny: int, nz: int, stage: int) -> dict:
-    """FLOP and bytes of one K3 or K5 launch (one function): u, v, b, q,
-    bottom and w read and
-    u*, v*, b', div and w* written once per env; g_prev read at stages 1-2
-    and g written at stages 0-1 (three cell slabs and one face slab each)."""
-    cells, faces = nx * ny * nz, nx * ny * (nz + 1)
-    slab4 = 3 * cells + faces
-    words = 4 * cells + faces + nx * ny + 4 * cells + faces
-    words += slab4 * ((stage > 0) + (stage < 2))
-    per_cell = _TENDENCY_3D_FLOPS_PER_CELL + 9 + 4 + 8 + 4 * (3 if stage == 0 else 5)
-    return {"flops": n_env * per_cell * cells, "bytes": 4 * n_env * words}
-
-
-def correct_3d_work(n_env: int, nx: int, ny: int, nz: int) -> dict:
-    """u, v, w, q read and u, v, w written once; 3 FLOP per velocity point."""
-    cells, faces = nx * ny * nz, nx * ny * (nz + 1)
-    return {"flops": n_env * 9 * cells, "bytes": 4 * n_env * (5 * cells + 2 * faces)}
-
-
-# FLOP per cell of K6, counted as for K3 (the same tendency code); u and v
-# add the 4 of their pHY' from b.
-_FIELD_FLOPS_PER_CELL = {"u": 94, "v": 94, "w": 87, "b": 81}
-
-
-def field_tendency_3d_work(n_env: int, nx: int, ny: int, nz: int, field: str) -> dict:
-    """FLOP and bytes of one K6 launch: u, v, w and the field's own inputs
-    (b for u, v and b, whose pHY' K6 computes; bottom for b) read once, g
-    written once."""
-    cells, faces = nx * ny * nz, nx * ny * (nz + 1)
-    words = {"u": 4 * cells + faces, "v": 4 * cells + faces, "w": 2 * cells + 2 * faces,
-             "b": 4 * cells + faces + nx * ny}[field]
-    return {"flops": n_env * _FIELD_FLOPS_PER_CELL[field] * cells, "bytes": 4 * n_env * words}
-
-
-def div_3d_work(n_env: int, nx: int, ny: int, nz: int) -> dict:
-    """u, v, w read and div written once; three differences, three
-    divisions and two sums per cell."""
-    cells, faces = nx * ny * nz, nx * ny * (nz + 1)
-    return {"flops": n_env * 8 * cells, "bytes": 4 * n_env * (3 * cells + faces)}
-
-
-def poisson_3d_flops(n_env: int, nx: int, ny: int, nz: int, factored: bool) -> int:
-    """Multiply-adds of one solve as ``make_poisson_solver_3d`` does it."""
-    k = nx * nz
-    xz = 2 * (nx + nz) if factored else k  # (x, z) transform, per output point
-    return n_env * ny * (2 * 2 * k * xz + 2 * 2 * ny * k + k)
+# The amplitude of the cases' noise on u, v, w and b: large enough that the
+# advective fluxes, not the diffusion alone, set the kernels' outputs.
+CASE_AMP = 0.05
 
 
 def make_case_3d(device, num_envs: int, state_shape=(16, 32, 32), seed=0, dtype=None,
@@ -873,7 +803,7 @@ def make_case_3d(device, num_envs: int, state_shape=(16, 32, 32), seed=0, dtype=
     params = s3d.SimParams3D(dt_solver=dt_solver)
     solver = s3d.make_solver3d(grid, params, dtype=dtype, device=device, fused=fused)
     rng = np.random.default_rng(seed)
-    amp = 0.05
+    amp = CASE_AMP
     u = amp * rng.standard_normal((num_envs, nx, ny, nz))
     v = amp * rng.standard_normal((num_envs, nx, ny, nz))
     w = amp * rng.standard_normal((num_envs, nx, ny, nz + 1))
@@ -925,20 +855,20 @@ def k7_run(solver, case, kernel: bool):
     return fn(case["u"], case["v"], case["w"], solver.coeffs)
 
 
-def field_step_run(solver, case, kernel: bool):
-    """One env step's per-field loop from the case's fields -> (u, v, w,
-    b, p_nhs), through the kernels or their plain versions."""
-    dts = [float(d) for d in solver.params.substep_dts()]
-    u, v, w, b, q = s3d.field_substeps(
-        case["u"], case["v"], case["w"], case["b"], case["bottom"], dts, solver.solve,
-        solver.coeffs, *(s3d.FIELD_KERNELS if kernel else s3d.FIELD_PLAIN))
-    dt_last = (k3d.RK3_GAMMA[2] + k3d.RK3_ZETA[2]) * dts[-1]
-    return u, v, w, b, k3d.from_solve_layout(q) / dt_last
-
-
 K3_OUT = ("u", "v", "w", "b", "div")
 G_OUT = ("gu", "gv", "gw", "gb")
 ENV3_OUT = ("u", "v", "w", "b", "p_nhs")
+
+
+def env_step_paths_3d(device, num_envs: int, state_shape, paths, seed: int,
+                      dt_solver=0.01, dtype=torch.float32) -> list:
+    """(u, v, w, b, p_nhs) after one env step of each path of ``paths`` (a
+    ``fused`` value; None is the solver's own) from one seeded start at the
+    cases' amplitude: ``utils.parity.env_steps_3d``, the bench gate's run."""
+    fields = parity.env_steps_3d(paths, num_envs, state_shape=state_shape, dt_solver=dt_solver,
+                                 heater_duration=s3d.SimParams3D().heater_duration,
+                                 random_kick=CASE_AMP, device=device, seed=seed, dtype=dtype)
+    return [[getattr(f, n) for n in ENV3_OUT] for f in fields]
 
 
 def stage_parity(solver, case, wrapper, prefix=""):
@@ -982,7 +912,8 @@ def kernel_parity_3d(device, main_envs=1024, step_envs=32, state_shape=(16, 32, 
     path's shapes, each stage fed the plain outputs of the one before; K3's
     stage 0 beside a float64 run at ``step_envs``; one whole env step of
     the kernel path against the all-plain path at ``step_envs`` and at
-    ``main_envs``, and both against a float64 plain run."""
+    ``main_envs``, and both against a float64 plain run
+    (``env_step_paths_3d``)."""
     start = time.perf_counter()
     solver, case = make_case_3d(device, main_envs, state_shape, seed=3)
     by_stage, errs = stage_parity(solver, case, k3d.stage_rk_3d)
@@ -993,15 +924,13 @@ def kernel_parity_3d(device, main_envs=1024, step_envs=32, state_shape=(16, 32, 
                               k3d.stage_rk_3d)
     steps = {}
     for n_env in sorted({step_envs, main_envs}):
-        solver, case = make_case_3d(device, n_env, state_shape, seed=4)
-        kern = env_step_3d_run(solver, case, True)
-        plain = env_step_3d_run(solver, case, False)
+        kern, plain = env_step_paths_3d(device, n_env, state_shape, (None, False), seed=4)
         steps[n_env] = {"kernel_vs_plain": abs_diffs(ENV3_OUT, kern, plain)}
         errs[f"env_step_{n_env}"] = (max(steps[n_env]["kernel_vs_plain"].values()),
                                      ENV_STEP_3D_ATOL)
         if n_env == step_envs:
-            ref = env_step_3d_run(*make_case_3d(device, n_env, state_shape, seed=4,
-                                                dtype=torch.float64), False)
+            ref, = env_step_paths_3d(device, n_env, state_shape, (False,), seed=4,
+                                     dtype=torch.float64)
             steps[n_env]["float64_plain_vs"] = {
                 "kernel": abs_diffs(ENV3_OUT, ref, kern),
                 "plain_float32": abs_diffs(ENV3_OUT, ref, plain)}
@@ -1267,8 +1196,9 @@ def kernel_parity_big(device, main_envs=1024, big_envs=8, small_envs=256, step_e
     run of stage 0, and, forced, at the training grid, where ny = 32 makes
     four y blocks (``small_envs``); one whole big-grid env step (25
     substeps) of the kernel path against the all-plain path and both
-    against a float64 plain run (``step_envs``)."""
+    against a float64 plain run (``step_envs``; ``env_step_paths_3d``)."""
     start = time.perf_counter()
+    device = torch.device(device)
     solver, case = make_case_3d(device, main_envs, state_shape, seed=6, dt_solver=BIG_DT_SOLVER)
     by_stage, errs = stage_parity(solver, case, k3d.stage_rk_3d_xy)
     k4 = abs_diffs("uvw", k4_run(solver, case, True), k4_run(solver, case, False))
@@ -1285,13 +1215,13 @@ def kernel_parity_big(device, main_envs=1024, big_envs=8, small_envs=256, step_e
     solver, case = make_case_3d(device, small_envs, small_shape, seed=7)
     by_stage_small, errs_small = stage_parity(solver, case, k3d.stage_rk_3d_xy, "small_")
     errs.update(errs_small)
-    solver, case = make_case_3d(device, step_envs, state_shape, seed=8, dt_solver=BIG_DT_SOLVER)
-    kern = env_step_3d_run(solver, case, True)
-    plain = env_step_3d_run(solver, case, False)
-    step = {"path": solver.path, "kernel_vs_plain": abs_diffs(ENV3_OUT, kern, plain)}
+    kern, plain = env_step_paths_3d(device, step_envs, state_shape, (None, False), seed=8,
+                                    dt_solver=BIG_DT_SOLVER)
+    step = {"path": s3d.select_stage_path(torch.float32, *state_shape[::-1], device.type),
+            "kernel_vs_plain": abs_diffs(ENV3_OUT, kern, plain)}
     errs["env_step"] = (max(step["kernel_vs_plain"].values()), ENV_STEP_3D_ATOL)
-    ref = env_step_3d_run(*make_case_3d(device, step_envs, state_shape, seed=8,
-                                        dtype=torch.float64, dt_solver=BIG_DT_SOLVER), False)
+    ref, = env_step_paths_3d(device, step_envs, state_shape, (False,), seed=8,
+                             dt_solver=BIG_DT_SOLVER, dtype=torch.float64)
     step["float64_plain_vs"] = {"kernel": abs_diffs(ENV3_OUT, ref, kern),
                                 "plain_float32": abs_diffs(ENV3_OUT, ref, plain)}
     failed = {k: v for k, v in errs.items() if not v[0] <= v[1]}
@@ -1376,11 +1306,12 @@ def kernel_parity_field(device, main_envs=1024, step_envs=32, big_envs=128,
     path's shapes (``main_envs``), at ``odd_shape`` (nx % 4 != 0, where auto
     takes the field path; ``main_envs``) and, forced, on the big grid
     (``big_envs``); K6 and its float32 plain version against a float64
-    plain run at ``step_envs``; one env step of the field path's kernels
-    against its plain loop, and against the lazy loop of the solver's own
-    path (K3 on the card) from the same state, at ``step_envs`` and
-    ``main_envs``."""
+    plain run at ``step_envs``; one env step of the field path against the
+    all-plain path, and against the solver's own path (K3 on the card)
+    from the same state, at ``step_envs`` and
+    ``main_envs`` (``env_step_paths_3d``)."""
     start = time.perf_counter()
+    device = torch.device(device)
     errs, by_field = {}, {}
     grids = (("", main_envs, state_shape, 11, 0.01), ("odd_", main_envs, odd_shape, 15, 0.01),
              ("big_", big_envs, big_shape, 12, BIG_DT_SOLVER))
@@ -1405,12 +1336,12 @@ def kernel_parity_field(device, main_envs=1024, step_envs=32, big_envs=128,
             "plain_float32": abs_diffs(["g"], ref, [k6_run(solver, case, field, False)])["g"]}
     steps = {}
     for n_env in sorted({step_envs, main_envs}):
-        solver, case = make_case_3d(device, n_env, state_shape, seed=13)
-        kern = field_step_run(solver, case, True)
+        kern, plain, stage_path = env_step_paths_3d(device, n_env, state_shape,
+                                                    ("field", False, None), seed=13)
         steps[n_env] = {
-            "stage_path": solver.path,
-            "kernel_vs_plain": abs_diffs(ENV3_OUT, kern, field_step_run(solver, case, False)),
-            "field_vs_stage_path": abs_diffs(ENV3_OUT, kern, env_step_3d_run(solver, case, True))}
+            "stage_path": s3d.select_stage_path(torch.float32, *state_shape[::-1], device.type),
+            "kernel_vs_plain": abs_diffs(ENV3_OUT, kern, plain),
+            "field_vs_stage_path": abs_diffs(ENV3_OUT, kern, stage_path)}
         errs[f"env_step_{n_env}"] = (max(steps[n_env]["kernel_vs_plain"].values()),
                                      ENV_STEP_3D_ATOL)
         errs[f"field_vs_stage_path_{n_env}"] = (
@@ -2978,6 +2909,188 @@ def multi_rank(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 37: the measurement modules and their scripts
+# ---------------------------------------------------------------------------
+
+# Each kernel path's gate in utils.parity's run, on the grid and dt_solver
+# of the main path that times it (one env step of 6 substeps in 2D; in 3D
+# heater_duration 0.03: 3 substeps at dt 0.01, 6 on the big grid at 0.005):
+# its (state_shape, dt_solver), RK stages, and the launches of its
+# wrappers per stage and per env step.
+PARITY_PATHS = {
+    "2d": (None, 0, {}, {"env_step_2d": 1}),
+    "stage": (((16, 32, 32), 0.01), 9, {"stage_rk_3d": 1}, {"correct_3d": 1}),
+    "stage_xy": ((BIG_SHAPE, BIG_DT_SOLVER), 18, {"stage_rk_3d_xy": 1}, {"correct_3d": 1}),
+    "field": (((16, 32, 32), 0.01), 9,
+              {"field_tendency_3d": 4, "div_3d": 1, "correct_3d": 1}, {}),
+}
+# the kernels each script runs on the card
+SCRIPT_KERNELS = {
+    "bench3d_stage": {"stage_rk_3d", "correct_3d"},
+    "bench3d_field": {"field_tendency_3d", "div_3d", "correct_3d"},
+    "ablate3d": {"stage_rk_3d", "div_3d", "correct_3d"},
+    "probe_mxu_recon": set(),
+}
+# the probe's two reconstructions agree to float32 rounding of five taps
+PROBE_RTOL = 1e-5
+ROOFLINE_SHARES = ("fp32_utilization_pct", "gemm_utilization_pct", "hbm_min_utilization_pct")
+
+
+def _expect_kernels(device, name: str, got: dict, kernels: set) -> None:
+    """On the card: every kernel of ``kernels`` launched, no other."""
+    if device.type == "cuda" and {k for k, n in got.items() if n} != kernels:
+        raise AssertionError(f"{name} launched {got}, expected exactly {sorted(kernels)}")
+
+
+def measurement_parity(device, num_envs=128) -> dict:
+    """``utils.parity`` on the card, as a bench gates a path before it
+    times it: K1 (2D), K3 and K6/K7 on the training grid and K5 on the big
+    grid against the plain path, each within the JAX helper's gate, with
+    the launches each run made."""
+    out = {"atol": parity.ATOL_DEFAULT, "max_abs_err": {}, "launches": {}}
+    for path, (grid, stages, per_stage, per_step) in PARITY_PATHS.items():
+        reset_counters()
+        if path == "2d":
+            err = parity.fused_parity_2d(num_envs=num_envs, device=device)
+        else:
+            err = parity.fused_parity_3d(num_envs=num_envs, state_shape=grid[0],
+                                         dt_solver=grid[1], fused=path, device=device)
+        got = registry.kernel_launches()
+        want = dict.fromkeys(WRAPPERS, 0)
+        for name, n in per_stage.items():
+            want[name] += n * stages
+        for name, n in per_step.items():
+            want[name] += n
+        expect_launches(device, got, want)
+        out["max_abs_err"][path] = err
+        out["launches"][path] = {k: n for k, n in got.items() if n}
+    return out
+
+
+def measurement_flops(device, state_shape_2d=(64, 96), num_envs=4, heater_duration_2d=1.5,
+                      poisson_shapes=((16, 32, 32), BIG_SHAPE), refused_envs=4) -> dict:
+    """``utils.flopcount`` on the card: the plain 2D env step (elementwise
+    per point-stage, equal to the CPU's count of the same step; GEMM per
+    point-stage the solve's closed form; no unknown op), the 3D Poisson
+    solves of the kernel paths against their closed forms (dense and
+    factored), and one K3-path env step, which the count must refuse."""
+    out = {}
+    nz, nx = state_shape_2d
+    grid = Grid2D(nx=nx, nz=nz, lx=2 * np.pi, lz=2.0)
+    params = SimParams2D(heater_duration=heater_duration_2d)
+    counts = {}
+    for dev in (device, torch.device("cpu")):
+        solver = make_solver2d(grid, params, dtype=torch.float32, device=dev, fused=False)
+        f = solver.init_random(torch.Generator(device=dev).manual_seed(0), (num_envs,))
+        a = torch.zeros((num_envs, params.n_heaters), dtype=torch.float32, device=dev)
+        counts[dev.type] = flopcount.count_fn_flops(solver.env_step, f, a)
+    c = counts[device.type]
+    per = nx * nz * num_envs * 3 * params.substeps_per_env_step
+    out["plain_2d"] = {"state_shape": list(state_shape_2d), "num_envs": num_envs,
+                       "elementwise_per_point_stage": c["elementwise"] / per,
+                       "gemm_per_point_stage": c["gemm"] / per,
+                       "unknown_ops": sorted(c["unknown_ops"])}
+    if c["unknown_ops"]:
+        raise AssertionError(f"unknown ops in the plain 2D step: {sorted(c['unknown_ops'])}")
+    if c["gemm"] / per != roofline.poisson_gemm_flops_per_point_2d(nx, nz):
+        raise AssertionError(f"2D GEMM per point-stage {c['gemm'] / per}")
+    if (c["elementwise"], c["gemm"]) != (counts["cpu"]["elementwise"], counts["cpu"]["gemm"]):
+        raise AssertionError(f"the card's count {c} is not the CPU's {counts['cpu']}")
+    out["poisson_3d"] = {}
+    for shape in poisson_shapes:
+        got = roofline.torch_poisson_flops_per_point("3d", shape, device)
+        want = roofline.poisson_gemm_flops_per_point_3d(shape[2], shape[1], shape[0])
+        out["poisson_3d"]["x".join(map(str, shape))] = {"gemm_per_point": got, "closed_form": want}
+        if got != want:
+            raise AssertionError(f"3D solve at {shape}: {got} GEMM FLOP a point, not {want}")
+    solver = s3d.make_solver3d(Grid3D(nx=32, ny=32, nz=16, lx=4 * np.pi, ly=4 * np.pi, lz=2.0),
+                               s3d.SimParams3D(), dtype=torch.float32, device=device,
+                               fused="stage")
+    f = solver.init_random(torch.Generator(device=device).manual_seed(0), (refused_envs,))
+    a = torch.zeros((refused_envs, 8, 8), dtype=torch.float32, device=device)
+    try:
+        flopcount.count_fn_flops(solver.env_step, f, a)
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    if device.type == "cuda" and (refusal is None or "stage_rk_3d" not in refusal):
+        raise AssertionError(f"counting a K3-path step was not refused by name: {refusal}")
+    out["k3_path_refused"] = refusal
+    return out
+
+
+def measurement_roofline(rates: dict) -> dict:
+    """``roofline_metrics`` of each main path's rate: every share finite
+    and in (0, 100] %."""
+    costs = {"main_path": roofline.cost_2d(), "main_path_3d": roofline.cost_3d(),
+             "main_path_big": roofline.cost_3d(state_shape=BIG_SHAPE, dt_solver=BIG_DT_SOLVER)}
+    out = {}
+    for name, cost in costs.items():
+        m = roofline.roofline_metrics(cost, rates[name])
+        shares = [m[k] for k in ROOFLINE_SHARES]
+        if not all(np.isfinite(x) and 0.0 < x <= 100.0 for x in shares):
+            raise AssertionError(f"{name}: shares {shares} outside (0, 100] %")
+        out[name] = {"env_steps_per_s": rates[name], **m}
+    return out
+
+
+def measurement_scripts(device, num_envs=1024, bench_steps=10, n_units=substep_ablation.N_UNITS,
+                        n_iter=probe_mxu_recon.N_ITER) -> dict:
+    """The scripts at ``num_envs``: ``bench3d.run`` on the stage and field
+    paths, ``ablate3d`` and ``probe_mxu_recon`` (its two reconstructions
+    within ``PROBE_RTOL`` of the field's max |value|); every time finite,
+    the launches of each counted."""
+    out = {"lines": [], "launches": {}}
+    log = out["lines"].append
+    runs = {
+        "bench3d_stage": lambda: bench3d.run("stage", num_envs, bench_steps, device, log),
+        "bench3d_field": lambda: bench3d.run("field", num_envs, bench_steps, device, log),
+        "ablate3d": lambda: substep_ablation.ablate(num_envs, device, n_units, log),
+        "probe_mxu_recon": lambda: probe_mxu_recon.probe(num_envs, device, n_iter, log=log),
+    }
+    for name, run in runs.items():
+        reset_counters()
+        out[name] = run()
+        _sync(device)
+        got = registry.kernel_launches()
+        _expect_kernels(device, name, got, SCRIPT_KERNELS[name])
+        out["launches"][name] = {k: n for k, n in got.items() if n}
+    times = [out["bench3d_stage"], out["bench3d_field"],
+             *out["ablate3d"]["ms_per_unit"].values(), *out["probe_mxu_recon"]["ms"].values()]
+    if not all(np.isfinite(t) and t > 0 for t in times):
+        raise AssertionError(f"a script's time is not finite: {times}")
+    probe = out["probe_mxu_recon"]
+    if max(probe["max_abs_err"].values()) > PROBE_RTOL * probe["max_abs_q"]:
+        raise AssertionError(f"the GEMM reconstruction is off: {probe['max_abs_err']}")
+    return out
+
+
+def measurement(device, rates: dict, flop_sizes=None, script_sizes=None) -> dict:
+    """Phase 37: ``measurement_parity`` (on the card), the parity checks'
+    refusal of the CPU, ``measurement_flops``, ``measurement_roofline`` of
+    ``rates`` (env-steps/s of main_path, main_path_3d, main_path_big) and
+    ``measurement_scripts``; ``flop_sizes`` and ``script_sizes`` go to
+    their parts (the CPU tests' tiny sizes)."""
+    start = time.perf_counter()
+    out = {"phase": "measurement"}
+    if device.type == "cuda":
+        out["parity"] = measurement_parity(device)
+    out["cpu_refused"] = {}
+    for check in (parity.fused_parity_2d, parity.fused_parity_3d):
+        try:
+            check(num_envs=1, device="cpu")
+        except ValueError as e:
+            out["cpu_refused"][check.__name__] = str(e)
+        if check.__name__ not in out["cpu_refused"].get(check.__name__, ""):
+            raise AssertionError(f"{check.__name__} did not refuse the CPU by name")
+    out["flops"] = measurement_flops(device, **(flop_sizes or {}))
+    out["roofline"] = measurement_roofline(rates)
+    out["scripts"] = measurement_scripts(device, **(script_sizes or {}))
+    out["seconds"] = time.perf_counter() - start
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Records
 # ---------------------------------------------------------------------------
 
@@ -3072,6 +3185,9 @@ def main() -> int:
     emit({**example_ppo_native(device), "card": card})
     emit({**launchers(device), "card": card})
     emit({**multi_rank(device), "card": card})
+    rates = {"main_path": path["env_steps_per_s"], "main_path_3d": path_3d["env_steps_per_s"],
+             "main_path_big": path_big["env_steps_per_s"]}
+    emit({**measurement(device, rates), "card": card})
     # each kernel's launches from the main path that is its own (K4 runs on
     # every 3D path; its count is the training grid's lazy path, its error
     # the larger of the two grids')

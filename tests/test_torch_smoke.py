@@ -730,3 +730,23 @@ def test_smoke_launchers_phase_runs_on_cpu(tmp_path, monkeypatch):
     assert {"config.yaml", "metrics.jsonl", "models/final_model.npz"} <= set(
         out["train_sa"]["outputs"])
     json.dumps(out)
+
+
+def test_smoke_measurement_phase_runs_on_cpu(one_torch_thread):
+    """Phase 37 at a tiny size: the parity checks refuse the CPU by name,
+    the flop counts hold their closed forms, the shares of given rates lie
+    in (0, 100] %, and the scripts run on their plain halves."""
+    rates = {"main_path": 20_000.0, "main_path_3d": 12_000.0, "main_path_big": 1_000.0}
+    out = chip_smoke.measurement(
+        torch.device("cpu"), rates,
+        flop_sizes=dict(state_shape_2d=(16, 32), num_envs=2, heater_duration_2d=0.06,
+                        poisson_shapes=((8, 8, 16), (32, 16, 32)), refused_envs=1),
+        script_sizes=dict(num_envs=1, bench_steps=1, n_units=1, n_iter=1))
+    assert set(out["cpu_refused"]) == {"fused_parity_2d", "fused_parity_3d"}
+    assert "parity" not in out  # the card's part
+    assert out["flops"]["plain_2d"]["gemm_per_point_stage"] == 2.0 * (2 * 32 + 16)
+    assert 250 < out["flops"]["plain_2d"]["elementwise_per_point_stage"] < 260
+    assert out["roofline"]["main_path"]["fp32_utilization_pct"] == pytest.approx(
+        100 * 211.4 * 96 * 64 * 150 * 20_000 / 67e12)
+    assert out["scripts"]["ablate3d"]["path"] == "plain"
+    json.dumps(out)
