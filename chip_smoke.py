@@ -205,6 +205,19 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      paths, ablate3d, probe_mxu_recon (its two
                      reconstructions within 1e-5 of the field's max |value|),
                      every time finite, the launches of each counted
+38. lazy_options     the lazy loop's options at 1024 envs on 16x32x32: K3's
+                     analysis instance (fused="stage_qp") at each stage
+                     against its plain version (fields and g at K3's gates,
+                     rhat against the plain version in float64 within twice
+                     the float32 plain version's own error); from one reset,
+                     one env step each of fused="stage_qp" (within 5e-6 of
+                     "stage", the instance 39 launches, K3 none), "stage_ew"
+                     (bit for bit "stage", K3 39) and poisson_precision
+                     "high" (within 5e-6 of "highest") and "default"
+                     (finite), the divergence after each; q of the three
+                     precisions against a float64 solve; both TF32 flags
+                     off; the instance's ms a stage beside K3 plus the dense
+                     analysis product, a stage_qp step beside a stage step
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -286,6 +299,7 @@ from rbc_gym_tpu_torch.utils.roofline import (
     env_step_work,
     field_tendency_3d_work,
     poisson_3d_flops,
+    stage_rk_3d_rhat_work,
     stage_rk_3d_work,
     tendencies_own_work,
     tendencies_work,
@@ -343,6 +357,12 @@ K7_ATOL = 5e-6
 # carried to the next stage), which the JAX package holds against its XLA
 # path at 5e-6 each (tests/test_pallas3d.py:30-43, :56-70).
 FIELD_VS_STAGE_ATOL = 1e-5
+# K3's analysis instance (fused="stage_qp") writes rhat = kron(Fx, Cz) div,
+# which it sums in two factors where its plain version takes one dense
+# GEMM: rhat is held against the plain version run in float64, at most
+# RHAT_VS_PLAIN times the float32 plain version's own error there (K2's
+# rule). Its fields and g keep K3's gates.
+RHAT_VS_PLAIN = 2.0
 
 # The 2D RL path. The committed copies of the Ra=1e4 banks and of the
 # trained sarl2d_ra10000 policy (rbc_gym_tpu_torch/utils/convert.py).
@@ -435,6 +455,7 @@ SOURCES = {
     "stage_rk_3d_xy": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
     "field_tendency_3d": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
     "div_3d": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
+    "stage_rk_3d_rhat": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
 }
 REPLACES = {
     "env_step_2d": "rbc_gym_tpu/ops/pallas2d.py:220",
@@ -444,12 +465,14 @@ REPLACES = {
     "stage_rk_3d_xy": "rbc_gym_tpu/ops/pallas3d.py:1242",
     "field_tendency_3d": "rbc_gym_tpu/ops/pallas3d.py:441",
     "div_3d": "rbc_gym_tpu/ops/pallas3d.py:886",
+    # the same Pallas body with emit_rhat (its in-kernel analysis, :853-882)
+    "stage_rk_3d_rhat": "rbc_gym_tpu/ops/pallas3d.py:597",
 }
 # the gated parity error at the main path's shapes that each kernel reports
 MAIN_SHAPE_CHECK = {"env_step_2d": "env_step_2d_main", "tendencies_2d": "tendencies_2d",
                     "stage_rk_3d": "stage_rk_3d", "correct_3d": "correct_3d",
                     "stage_rk_3d_xy": "stage_rk_3d_xy", "field_tendency_3d": "field_tendency_3d",
-                    "div_3d": "div_3d"}
+                    "div_3d": "div_3d", "stage_rk_3d_rhat": "stage_rk_3d_rhat"}
 WRAPPERS = registry.KERNEL_WRAPPERS
 
 
@@ -3091,6 +3114,180 @@ def measurement(device, rates: dict, flop_sizes=None, script_sizes=None) -> dict
 
 
 # ---------------------------------------------------------------------------
+# 3D: the lazy loop's options, fused="stage_qp" and "stage_ew", poisson_precision
+# ---------------------------------------------------------------------------
+
+
+def stage_inputs(case) -> tuple:
+    return tuple(case[n] for n in ("u", "v", "w", "b", "q", "bottom"))
+
+
+def rhat_errors(c, inputs, dt: float, stage: int, g_prev, rhat) -> dict:
+    """Max |rhat - rhat64| of ``rhat`` (K3's analysis instance) and of the
+    float32 plain version, rhat64 the plain version run in float64 on the
+    same inputs (u, v, w, b, q, bottom)."""
+    gp64 = None if g_prev is None else tuple(t.double() for t in g_prev)
+    ref = k3d.stage_rk_3d_rhat_plain(*(t.double() for t in inputs), c, dt, stage, gp64)[4]
+    plain = k3d.stage_rk_3d_rhat_plain(*inputs, c, dt, stage, g_prev)[4]
+    return {"kernel": float((rhat.double() - ref).abs().max()),
+            "plain_float32": float((plain.double() - ref).abs().max()),
+            "max_abs_rhat": float(ref.abs().max())}
+
+
+def k3_analysis_parity(solver, case, dt=0.04) -> tuple:
+    """Stage 0, 1, 2 of K3's analysis instance against its plain version,
+    each stage fed the plain outputs of the one before: u*, v*, w*, b' and g
+    at K3's gates, rhat within ``RHAT_VS_PLAIN`` times the float32 plain
+    version's own error against the float64 one -> (errors by stage, {check:
+    (error, bound)})."""
+    by_stage, errs, g_prev = {}, {}, None
+    stage_case = dict(case)
+    for stage in range(3):
+        inputs = stage_inputs(stage_case)
+        got = k3d.stage_rk_3d_rhat(*inputs, solver.coeffs, dt, stage, g_prev)
+        want = k3d.stage_rk_3d_rhat_plain(*inputs, solver.coeffs, dt, stage, g_prev)
+        fields = abs_diffs("uvwb", got[:4], want[:4])
+        g = abs_diffs(G_OUT, got[5], want[5]) if stage < 2 else {}
+        rhat = rhat_errors(solver.coeffs, inputs, dt, stage, g_prev, got[4])
+        by_stage[f"stage{stage}"] = {**fields, **g, "rhat_vs_plain_float32": float(
+            (got[4] - want[4]).abs().max()), "rhat_float64_plain_vs": rhat}
+        errs[f"stage{stage}_fields"] = (max(fields.values()), K3_FIELD_ATOL)
+        if g:
+            errs[f"stage{stage}_g"] = (max(g.values()), K3_G_ATOL)
+        errs[f"stage{stage}_rhat"] = (rhat["kernel"], RHAT_VS_PLAIN * rhat["plain_float32"])
+        plain = k3d.stage_rk_3d_plain(*inputs, solver.coeffs, dt, stage, g_prev)
+        stage_case.update(zip("uvwb", plain[:4]), q=solver.solve(plain[4]))
+        g_prev = plain[5]
+    return by_stage, errs
+
+
+def lazy_options(device, num_envs=1024, state_shape=(16, 32, 32), heater_duration=0.125,
+                 seed=0, reps=20) -> dict:
+    """Phase 38: the lazy loop's options on the training grid at
+    ``num_envs``, float32. K3's analysis instance against its plain version at each
+    stage (``k3_analysis_parity``); one env step of
+    ``RBC3DVectorEnv(fused="stage_qp")``, ``"stage_ew"`` and
+    ``poisson_precision="high"`` and ``"default"`` from the state of
+    ``fused="stage"``'s reset, each with its launches counted from zero:
+    stage_qp within ``ENV_STEP_3D_ATOL`` of stage (the new instance 39
+    launches, K3 none), stage_ew bit for bit stage's, "high" within
+    ``ENV_STEP_3D_ATOL`` of "highest" (the default), each with
+    ``check_3d``'s checks, "default" finite with its divergence shown; q of
+    the three precisions against a float64 solve of a divergence; both
+    TF32 flags off afterwards; and CUDA-event times of
+    the instance against K3 plus the dense analysis product, and of a
+    stage_qp step against a stage step."""
+    begin = time.perf_counter()
+    device = torch.device(device)
+    dtype = torch.float32  # the paths are forced, so they run in float32 on any device
+    nz, ny, nx = state_shape
+    solver, case = make_case_3d(device, num_envs, state_shape, seed=11, dtype=dtype,
+                                fused="stage_qp")
+    by_stage, errs = k3_analysis_parity(solver, case)
+
+    kw = dict(state_shape=state_shape, heater_duration=heater_duration, dtype=dtype,
+              device=device)
+    envs = {"stage": RBC3DVectorEnv(num_envs, fused="stage", **kw),
+            "stage_qp": RBC3DVectorEnv(num_envs, fused="stage_qp", **kw),
+            "stage_ew": RBC3DVectorEnv(num_envs, fused="stage_ew", **kw),
+            "high": RBC3DVectorEnv(num_envs, fused="stage", poisson_precision="high", **kw),
+            "default": RBC3DVectorEnv(num_envs, fused="stage", poisson_precision="default",
+                                      **kw)}
+    rng = np.random.default_rng(seed)
+    action = rng.uniform(-1.0, 1.0, (num_envs, 8, 8))
+    state, obs = envs["stage"].reset(seed=seed)
+    n_stages = 3 * len(envs["stage"].params.substep_dts())
+    steps, launches, checks = {}, {}, {}
+    for name, env in envs.items():
+        reset_counters()
+        nxt, ts = env.step(state, action)
+        _sync(device)
+        launches[name] = {k: WRAPPERS[k].launches for k in ("stage_rk_3d", "stage_rk_3d_rhat",
+                                                             "correct_3d")}
+        steps[name] = nxt
+        if name == "default":  # one TF32 product a transform: finite, its divergence shown
+            if not all(bool(torch.isfinite(t).all()) for t in (*nxt.fields, ts.obs, ts.reward)):
+                raise AssertionError("the poisson_precision='default' step is not finite")
+            checks[name] = {"max_abs_div": s3d.max_divergence_3d(nxt.fields, env.grid)}
+        else:
+            checks[name] = check_3d(env, nxt, obs, ts)
+    k3 = {"stage_rk_3d": n_stages, "stage_rk_3d_rhat": 0, "correct_3d": 1}
+    for name in ("stage", "stage_ew", "high", "default"):
+        expect_launches(device, launches[name], k3)
+    expect_launches(device, launches["stage_qp"],
+                    {"stage_rk_3d": 0, "stage_rk_3d_rhat": n_stages, "correct_3d": 1})
+
+    def step_diff(a, b):
+        return abs_diffs(ENV3_OUT, [getattr(steps[a].fields, n) for n in ENV3_OUT],
+                         [getattr(steps[b].fields, n) for n in ENV3_OUT])
+
+    diffs = {"stage_qp_vs_stage": step_diff("stage_qp", "stage"),
+             "high_vs_highest": step_diff("high", "stage"),
+             "default_vs_highest": step_diff("default", "stage")}
+    errs["stage_qp_env_step"] = (max(diffs["stage_qp_vs_stage"].values()), ENV_STEP_3D_ATOL)
+    errs["high_env_step"] = (max(diffs["high_vs_highest"].values()), ENV_STEP_3D_ATOL)
+    stage_ew_equal = all(torch.equal(a, b) for a, b in zip(steps["stage_ew"].fields,
+                                                            steps["stage"].fields))
+    if not stage_ew_equal:
+        raise AssertionError("the stage_ew step is not the stage step bit for bit")
+
+    rhs = k3d.div_3d_plain(case["u"], case["v"], case["w"], solver.coeffs)
+    g = solver.grid
+    q64 = make_poisson_solver_3d(nx, ny, nz, g.dx, g.dy, g.dz, torch.float64, device)(rhs.double())
+    q_errors = {}
+    for prec in ("highest", "high", "default"):
+        q = make_poisson_solver_3d(nx, ny, nz, g.dx, g.dy, g.dz, dtype, device,
+                                   precision=prec)(rhs)
+        q_errors[prec] = float((q.double() - q64).abs().max())
+    q_errors["max_abs_q"] = float(q64.abs().max())
+    tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32}
+    if any(tf32.values()):
+        raise AssertionError(f"a TF32 flag is on after the precisions: {tf32}")
+    failed = {k: v for k, v in errs.items() if not v[0] <= v[1]}
+    if failed:
+        raise AssertionError(f"lazy-loop option checks failed (error, bound): {failed}")
+
+    times = {}
+    if device.type == "cuda":
+        analysis = k3d._analysis(nx, nz, dtype, device)
+        g_prev = k3d.stage_rk_3d_plain(*stage_inputs(case), solver.coeffs, 0.04, 0)[5]
+        div = k3d.stage_rk_3d(*stage_inputs(case), solver.coeffs, 0.04, 0)[4]
+        for stage in range(3):
+            gp = g_prev if stage else None
+
+            def run(wrapper, gp=gp, stage=stage):
+                return wrapper(*stage_inputs(case), solver.coeffs, 0.04, stage, gp)
+
+            work = stage_rk_3d_rhat_work(num_envs, nx, ny, nz, stage)
+            bound_ms, bound_by = bound(work)
+            rec = {"ms": _cuda_ms(lambda: run(k3d.stage_rk_3d_rhat), reps),
+                   "plain_ms": _cuda_ms(lambda: run(k3d.stage_rk_3d_rhat_plain), 3),
+                   "k3_ms": _cuda_ms(lambda: run(k3d.stage_rk_3d), reps),
+                   "analysis_ms": _cuda_ms(lambda: analysis(div), reps),
+                   "bound_ms": bound_ms, "bound_by": bound_by, **work}
+            rec["k3_plus_analysis_ms"] = rec["k3_ms"] + rec["analysis_ms"]
+            rec["share_of_bound"] = bound_ms / rec["ms"]
+            times[f"stage_rk_3d_rhat.stage{stage}"] = rec
+        per_stage = [times[f"stage_rk_3d_rhat.stage{m}"] for m in range(3)]
+        times["stage_rk_3d_rhat"] = {
+            **{k: sum(r[k] for r in per_stage) / 3 for k in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": per_stage[1]["bound_by"]}
+        f = steps["stage"].fields
+        a = torch.zeros((num_envs, 8, 8), dtype=dtype, device=device)
+        for name in ("stage", "stage_qp"):
+            times[f"env_step_{name}_ms"] = _cuda_ms(lambda: envs[name].solver.env_step(f, a), 3)
+    return {"phase": "lazy_options", "num_envs": num_envs,
+            "gated": {k: {"error": e, "bound": b} for k, (e, b) in errs.items()},
+            "max_abs_err": {"stage_rk_3d_rhat": max(
+                max(v for k, v in st.items() if isinstance(v, float)) for st in by_stage.values())},
+            "stage_rk_3d_rhat_by_stage": by_stage, "env_step_diffs": diffs,
+            "stage_ew_equal": stage_ew_equal, "launches": launches, "checks": checks,
+            "q_vs_float64": q_errors, "tf32_flags": tf32, "times": times,
+            "seconds": time.perf_counter() - begin}
+
+
+# ---------------------------------------------------------------------------
 # Records
 # ---------------------------------------------------------------------------
 
@@ -3188,22 +3385,26 @@ def main() -> int:
     rates = {"main_path": path["env_steps_per_s"], "main_path_3d": path_3d["env_steps_per_s"],
              "main_path_big": path_big["env_steps_per_s"]}
     emit({**measurement(device, rates), "card": card})
+    options = lazy_options(device)
+    emit({**options, "card": card})
     # each kernel's launches from the main path that is its own (K4 runs on
     # every 3D path; its count is the training grid's lazy path, its error
     # the larger of the two grids')
     errors = {**parity["max_abs_err"], **parity_3d["max_abs_err"],
               "stage_rk_3d_xy": parity_big["max_abs_err"]["stage_rk_3d_xy"],
-              **parity_field["max_abs_err"]}
+              **parity_field["max_abs_err"], **options["max_abs_err"]}
     errors["correct_3d"] = max(errors["correct_3d"], parity_big["max_abs_err"]["correct_3d"])
     field_names = ("field_tendency_3d", "div_3d")
     emit({"kernels": kernel_records(
         errors,
         {**path["launches"], **path_3d["launches"],
          "stage_rk_3d_xy": path_big["launches"]["stage_rk_3d_xy"],
-         **{k: path_field["launches"][k] for k in field_names}},
+         **{k: path_field["launches"][k] for k in field_names},
+         "stage_rk_3d_rhat": options["launches"]["stage_qp"]["stage_rk_3d_rhat"]},
         {**times["kernels"], **times_3d["kernels"],
          "stage_rk_3d_xy": times_big["kernels"]["stage_rk_3d_xy"],
-         **{k: times_field["kernels"][k] for k in field_names}})})
+         **{k: times_field["kernels"][k] for k in field_names},
+         "stage_rk_3d_rhat": options["times"]["stage_rk_3d_rhat"]})})
     emit({"phase": "total", "seconds": time.perf_counter() - wall})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,32 @@
 //   registers was slower, PERF.md, section 6). The grid's rule: nx >= 4,
 //   ny >= 4, nz >= 2, ny * nz <= 1024 and that formula under the limit.
 //
+// K3's analysis instance, stage_march_kernel<NZ, NY >= 0, kStage, true>,
+// replaces the same Pallas body with emit_rhat (pallas3d.py:853-882; the
+// fused="stage_qp" path): the stage writes rhat = T_A div (E, ny, nx nz),
+// T_A = kron(Fx, Cz) of ops/poisson.py, in place of div, and the solve's
+// tail (y-DFT, modal reciprocal, inverse y-DFT, synthesis) runs after it.
+//   Bound: bytes, as K3 (rhat has div's size); the analysis adds 2 (nx + nz)
+//   FLOP a cell at its least, 96 at 16x32x32, against K3's ~380.
+//   Design: the analysis in its two factors, not the dense T_A column block
+//   of the Pallas dot (512 multiply-adds a point there): where K3 writes
+//   div of plane i - 1, each thread puts it into shared memory; after the
+//   plane's barrier the thread at (y = j, kz = k) sums t = sum_z Cz[k, z]
+//   div[j, z] over its column (nz multiply-adds from shared memory: the
+//   column's values are broadcasts, Cz^T's row conflict-free) and adds
+//   Fx[kx, i - 1] t into its nx entries of the rhat accumulator for every kx
+//   (nx multiply-adds: 48 a thread a plane at 16x32x32). The accumulator,
+//   every (kx, y, kz), is in shared memory, [kx][y][kz], so a warp's
+//   accesses are consecutive and each entry has one owner (no barrier, no
+//   atomic); after the march each thread writes its nx entries once.
+//   Shared memory, in floats: K3's, then ny nz (nx + 1) + nx^2 + nz^2 (one
+//   plane of div, the accumulator, Fx, Cz^T): 172,160 bytes at 16x32x32,
+//   one 512-thread block an SM where K3 runs two. The grid's rule: K3's,
+//   with this formula under the limit (16x32x64 is refused). The Pallas
+//   kernel's x-block accumulation across grid steps has no counterpart: one
+//   block marches all of its env's x-planes. The analysis is float32
+//   whatever poisson_precision is, as the Pallas dot is at HIGHEST.
+//
 // K5 stage_march_kernel<NZ, -1> replaces ops/pallas3d.py:_stage_rk_kernel_xy
 // (reached from make_stage_rk_3d_xy, pl.pallas_call at :1592): K3's stage,
 // with K3's contract and layouts, for grids outside the path rule's whole-y
@@ -384,6 +410,14 @@ size_t stage_smem_floats(int ny, int nz) {
          ((kRing * 3 + 2 + kPhRing + 1 + 8) * (size_t)nz + (kRing + 1) * (size_t)(nz + 1));
 }
 
+// Shared memory K3's analysis instance needs per block, in floats: K3's,
+// then the divergence of one plane, Fx, Cz^T and the rhat accumulator of
+// every (kx, y, kz): ny nz (nx + 1) + nx^2 + nz^2 more.
+size_t stage_qp_smem_floats(int nx, int ny, int nz) {
+  return stage_smem_floats(ny, nz) + (size_t)ny * nz * (nx + 1) + (size_t)nx * nx +
+         (size_t)nz * nz;
+}
+
 // Shared memory K6's march instance needs per block, in floats, for every
 // field: rings of kRing x-planes of u, v, b and w, kPhRing of pHY' and the
 // field's y fluxes of two planes, each plane all ny rows: ny (38 nz + 8).
@@ -412,10 +446,14 @@ __host__ __device__ constexpr bool runs(int field, int f) { return field == kSta
 // K6's march instance for kField >= 0: K3's blocks, one field's tendency g
 // only, written to that field's g pointer (no correction, RK update or
 // divergence; one barrier a plane). NZ (and NY) > 0 fix the sizes at
-// compile time.
-template <int NZ, int NY, int kField = kStage>
+// compile time. kRhat: K3's analysis instance, which writes rhat = T_A div
+// to div_out in place of div (its shared memory allows one block an SM),
+// from Fx and Cz^T in `analysis` (NULL for every other instance: a pointer
+// in XYParams moved the other instances' register allocation).
+template <int NZ, int NY, int kField = kStage, bool kRhat = false>
 __global__ void __launch_bounds__(NZ > 0 && NY != 0 ? march_threads(NZ, NY) : kMaxThreads,
-                                  NY < 0 ? (NZ == 32 ? 3 : 1) : (NZ > 0 && NY > 0 ? 2 : 1))
+                                  NY < 0 ? (NZ == 32 ? 3 : 1)
+                                         : (NZ > 0 && NY > 0 && !kRhat ? 2 : 1))
 stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
                       const float* __restrict__ w_in, const float* __restrict__ b_in,
                       const float* __restrict__ q_in, const float* __restrict__ bottom_in,
@@ -423,10 +461,11 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
                       const float* gb_prev, float* u_out, float* v_out, float* w_out,
                       float* b_out, float* div_out, float* gu_out, float* gv_out,
                       float* gw_out, float* gb_out, float dt, float gamma, float zeta,
-                      XYParams P) {
+                      XYParams P, const float* __restrict__ analysis) {
   constexpr bool kWhole = NY >= 0;  // K3 and K6
   constexpr bool kK6 = kField != kStage;
   static_assert(!kK6 || kWhole, "K6 marches over whole y");
+  static_assert(!kRhat || (kWhole && !kK6), "the analysis instance is K3's");
   // the tendencies this instance computes; b is read for gb and for pHY'
   constexpr bool kU = runs(kField, kFieldU), kV = runs(kField, kFieldV);
   constexpr bool kW = runs(kField, kFieldW), kB = runs(kField, kFieldB);
@@ -467,6 +506,16 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   // K3: y fluxes of a plane, two planes by parity, each [u | v | w | b] (ny, nz);
   // K6: its field's alone
   float* yfl = ws + (kK6 ? 0 : (kWhole ? ny : kYT) * nw);
+  // K3's analysis instance: div of one plane (ny, nz), Fx [kx][x], Cz^T
+  // [z][kz] and the accumulator rhat [kx][y][kz] (a thread's own entries
+  // lie S apart, so a warp's accesses are consecutive)
+  float* ds = yfl + 2 * kYF * S;
+  float* fxs = ds + S;
+  float* czs = fxs + nx * nx;
+  float* acc = czs + nz * nz;
+  if constexpr (kRhat) {  // visible after the prologue's first barrier
+    for (int t = threadIdx.x; t < nx * nx + nz * nz; t += blockDim.x) fxs[t] = analysis[t];
+  }
 
   // ---- staging: plane x of u, v, w, b and q, raw, by asynchronous copies ----
   auto copy_rows = [&](const Ring<kRing, kWhole>& R, const float* src, size_t row_stride,
@@ -596,6 +645,20 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
     return yf[r1 * nz] - yf[r0 * nz];
   };
   const int jm = kWhole ? wrap_x(j - 1, ny) : j - 1;
+  // K3's analysis instance: this thread's (y = j, kz = k) share of plane x,
+  // in two factors: t = sum_z Cz[k, z] div(x)[j, z] over its column (the
+  // plane's div in shared memory), then rhat[kx, j, k] += Fx[kx, x] t for
+  // every kx; plane 0 starts the sums
+  auto analyse = [&](int x) {
+    const float* dc = ds + j * nz;
+    float t = 0.0f;
+#pragma unroll
+    for (int z = 0; z < nz; ++z) t = fmaf(czs[z * nz + k], dc[z], t);
+    float* a = acc + j * nz + k;
+    for (int kx = 0; kx < nx; ++kx) {
+      a[kx * S] = x == 0 ? fxs[kx * nx] * t : fmaf(fxs[kx * nx + x], t, a[kx * S]);
+    }
+  };
   auto lap_h = [&](const Ring<kRing, kWhole>& R, int i, int kk, float c) {
     return (R.row(i + 1, j)[kk] - 2.0f * c + R.row(i - 1, j)[kk]) * P.idx2 +
            (R.row(i, j + 1)[kk] - 2.0f * c + R.row(i, j - 1)[kk]) * P.idy2;
@@ -722,7 +785,12 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
           if (emit_g) gu_out[o] = g;
           // div(i - 1) = ((u*(i) - u*(i-1)) / dx + dv) + dw, the plain version's order
           if (i > 0) {
-            div_out[((e * ny + y0 + j) * nx + i - 1) * nz + k] = ((f - u_prev) * P.idx + dv) + dw;
+            const float d = ((f - u_prev) * P.idx + dv) + dw;
+            if constexpr (kRhat) {
+              ds[j * nz + k] = d;
+            } else {
+              div_out[((e * ny + y0 + j) * nx + i - 1) * nz + k] = d;
+            }
           } else {
             u_first = f;
           }
@@ -812,11 +880,25 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
         dv = (vs[jp * nz + k] - vs[j * nz + k]) * P.idy;
         dw = (ws[j * nw + k + 1] - ws[j * nw + k]) * P.idz;
       }
+      if constexpr (kRhat) {
+        if (i > 0) analyse(i - 1);  // ds holds div(i - 1), complete since the barrier
+      }
       __syncthreads();
     }
   }
   if (!kK6 && own) {  // div(nx - 1): u* at face nx is u* at face 0
-    div_out[((e * ny + y0 + j) * nx + nx - 1) * nz + k] = ((u_first - u_prev) * P.idx + dv) + dw;
+    const float d = ((u_first - u_prev) * P.idx + dv) + dw;
+    if constexpr (kRhat) {
+      ds[j * nz + k] = d;
+    } else {
+      div_out[((e * ny + y0 + j) * nx + nx - 1) * nz + k] = d;
+    }
+  }
+  if constexpr (kRhat) {  // the last plane's share, then rhat (E, ny, nx nz) once
+    __syncthreads();
+    analyse(nx - 1);
+    float* out = div_out + (e * ny + j) * (size_t)nx * nz + k;
+    for (int kx = 0; kx < nx; ++kx) out[kx * nz] = acc[kx * S + j * nz + k];
   }
 }
 
@@ -831,6 +913,12 @@ decltype(&stage_march_kernel<0, -1>) stage_xy_kernel_for(int nz) {
 // runtime-size one for every other grid.
 decltype(&stage_march_kernel<0, 0>) stage_kernel_for(int ny, int nz) {
   return ny == 32 && nz == 16 ? stage_march_kernel<16, 32> : stage_march_kernel<0, 0>;
+}
+
+// K3's analysis instance: specialised like K3.
+decltype(&stage_march_kernel<0, 0, kStage, true>) stage_qp_kernel_for(int ny, int nz) {
+  return ny == 32 && nz == 16 ? stage_march_kernel<16, 32, kStage, true>
+                              : stage_march_kernel<0, 0, kStage, true>;
 }
 
 // K6's march instance for field kField: specialised like K3's.
@@ -1013,7 +1101,37 @@ int launch_stage_rk_3d(const float* u, const float* v, const float* w, const flo
   const XYParams P = xy_params(nx, ny, nz, dx, dy, dz, nu, kappa, min_b);
   kernel<<<n_env, march_threads(nz, ny), smem, (cudaStream_t)stream>>>(
       u, v, w, b, q, bottom, gu_prev, gv_prev, gw_prev, gb_prev, u_out, v_out, w_out,
-      b_out, div_out, gu, gv, gw, gb, dt, gamma, zeta, P);
+      b_out, div_out, gu, gv, gw, gb, dt, gamma, zeta, P, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// K3's analysis instance: launch_stage_rk_3d's arguments with rhat (E, ny,
+// nx nz) in place of div and, last before the stream, Fx (nx, nx) and
+// Cz^T (nz, nz) in one buffer.
+int launch_stage_rk_3d_rhat(const float* u, const float* v, const float* w, const float* b,
+                            const float* q, const float* bottom, const float* gu_prev,
+                            const float* gv_prev, const float* gw_prev, const float* gb_prev,
+                            float* u_out, float* v_out, float* w_out, float* b_out,
+                            float* rhat_out, float* gu, float* gv, float* gw, float* gb,
+                            int n_env, int nx, int ny, int nz, int stage, float dt,
+                            float gamma, float zeta, float dx, float dy, float dz, float nu,
+                            float kappa, float min_b, const float* analysis, void* stream) {
+  const bool reads_g = gu_prev && gv_prev && gw_prev && gb_prev;
+  const bool writes_g = gu && gv && gw && gb;
+  const size_t smem = sizeof(float) * stage_qp_smem_floats(nx, ny, nz);
+  if (nx < kXYMinNx || ny < 4 || nz < 2 || march_threads(nz, ny) > kMaxThreads ||
+      smem > kSmemPerBlock || stage < 0 || stage > 2 || reads_g != (stage > 0) ||
+      writes_g != (stage < 2) || analysis == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto* kernel = stage_qp_kernel_for(ny, nz);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const XYParams P = xy_params(nx, ny, nz, dx, dy, dz, nu, kappa, min_b);
+  kernel<<<n_env, march_threads(nz, ny), smem, (cudaStream_t)stream>>>(
+      u, v, w, b, q, bottom, gu_prev, gv_prev, gw_prev, gb_prev, u_out, v_out, w_out,
+      b_out, rhat_out, gu, gv, gw, gb, dt, gamma, zeta, P, analysis);
   return (int)cudaGetLastError();
 }
 
@@ -1040,7 +1158,7 @@ int launch_stage_rk_3d_xy(const float* u, const float* v, const float* w, const 
   const unsigned blocks = (unsigned)n_env * (ny / kYT);
   kernel<<<blocks, march_threads(nz, -1), smem, (cudaStream_t)stream>>>(
       u, v, w, b, q, bottom, gu_prev, gv_prev, gw_prev, gb_prev, u_out, v_out, w_out,
-      b_out, div_out, gu, gv, gw, gb, dt, gamma, zeta, P);
+      b_out, div_out, gu, gv, gw, gb, dt, gamma, zeta, P, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -1078,7 +1196,7 @@ int launch_field_tendency_3d(int field, const float* u, const float* v, const fl
     gs[field] = g;  // the march writes a field's tendency to that field's g
     kernel<<<n_env, march_threads(nz, ny), smem, st>>>(
         u, v, w, b, nullptr, bottom, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-        nullptr, nullptr, nullptr, gs[0], gs[1], gs[2], gs[3], 0.0f, 0.0f, 0.0f, P);
+        nullptr, nullptr, nullptr, gs[0], gs[1], gs[2], gs[3], 0.0f, 0.0f, 0.0f, P, nullptr);
     return (int)cudaGetLastError();
   }
   const int per_env = nx * ny * (field == kFieldW ? nz + 1 : nz);

@@ -92,9 +92,10 @@ class RBC2DVectorEnv:
         on the duplicate-free guarantee pass ``auto_reset=False`` (a
         warning is logged otherwise).
 
-        ``poisson_precision`` counts the TPU matrix unit's passes in the JAX
-        package; the port's solve runs in full float32 (TF32 off), so only
-        None is accepted.
+        ``poisson_precision``: None, "highest" or "high", which the JAX
+        package's 2D solver runs as one full-precision solve, as the port
+        does; "bf16x3" and "default" are refused by name
+        (``sim.solver2d.check_poisson_precision_2d``).
 
         ``env_slice=(offset, fleet_size)`` makes this env the envs ``[offset,
         offset + num_envs)`` of a fleet of ``fleet_size`` (default: the whole
@@ -103,11 +104,6 @@ class RBC2DVectorEnv:
         those rows of the one-process fleet. ``ic_noise`` is the exception:
         its kick is drawn for the batch at hand (``envs.bank``), so a shard
         draws its own."""
-        if poisson_precision is not None:
-            raise ValueError(
-                f"poisson_precision={poisson_precision!r} is a TPU matrix-unit pass "
-                "count; the port's Poisson solve runs in full float32: pass None"
-            )
         if bank_sampling not in ("random", "sequential"):
             raise ValueError(f"unknown bank_sampling {bank_sampling!r}")
         if bank_sampling == "sequential" and auto_reset:
@@ -134,7 +130,8 @@ class RBC2DVectorEnv:
         self.bank_sampling = bank_sampling
         self.ic_noise = float(ic_noise)
         self.dtype = dtype
-        self.solver = make_solver2d(self.grid, self.params, dtype=dtype, device=device)
+        self.solver = make_solver2d(self.grid, self.params, dtype=dtype, device=device,
+                                    poisson_precision=poisson_precision)
         self.device = self.solver.device
         self._bank = None
         if checkpoint is not None:

@@ -96,18 +96,15 @@ class RBC3DVectorEnv:
         PyTorch, "stage" (K3), "stage_xy" (K5) or "field" (the per-field
         path, K6 and K7; True is its alias). Auto takes "field" on CUDA in
         float32 inside the whole-y boundary where nx % 4 != 0 or K3 cannot
-        take the grid. ``poisson_precision`` counts
-        the TPU matrix unit's passes in the JAX package; the port's solve
-        runs in full float32 (TF32 off), so only None is accepted.
+        take the grid; "stage_qp" (K3's analysis instance and the solve's
+        tail) and "stage_ew" (K3) are opt-in. ``poisson_precision`` is the
+        precision of the solve's products (``sim.solver3d.make_solver3d``):
+        None or "highest" (full float32), "high" (three TF32 products of
+        split operands) or "default" (one TF32 product).
 
         ``env_slice``: as in ``RBC2DVectorEnv`` (this env as envs ``[offset,
         offset + num_envs)`` of a fleet of ``fleet_size``; a shard draws its
         own ``ic_noise`` kick)."""
-        if poisson_precision is not None:
-            raise ValueError(
-                f"poisson_precision={poisson_precision!r} is a TPU matrix-unit pass "
-                "count; the port's Poisson solve runs in full float32: pass None"
-            )
         if bank_sampling not in ("random", "sequential"):
             raise ValueError(f"unknown bank_sampling {bank_sampling!r}")
         if bank_sampling == "sequential":
@@ -148,7 +145,7 @@ class RBC3DVectorEnv:
         self.checkpoint_idx = checkpoint_idx
         self.dtype = dtype
         self.solver = make_solver3d(self.grid, self.params, dtype=dtype, device=device,
-                                    fused=fused)
+                                    fused=fused, poisson_precision=poisson_precision)
         self.device = self.solver.device
         self._bank = None
         if checkpoint is not None:

@@ -60,6 +60,17 @@ ARGTYPES = {
         _F, _F, _F, _F, _F, _F,  # dx, dy, dz, nu, kappa, min_b
         _P,  # stream
     ],
+    "launch_stage_rk_3d_rhat": [
+        _P, _P, _P, _P, _P, _P,  # u, v, w, b, q, bottom
+        _P, _P, _P, _P,  # gu_prev, gv_prev, gw_prev, gb_prev (NULL at stage 0)
+        _P, _P, _P, _P, _P,  # u_out, v_out, w_out, b_out, rhat_out
+        _P, _P, _P, _P,  # gu, gv, gw, gb (NULL at stage 2)
+        _I, _I, _I, _I, _I,  # n_env, nx, ny, nz, stage
+        _F, _F, _F,  # dt, gamma, zeta
+        _F, _F, _F, _F, _F, _F,  # dx, dy, dz, nu, kappa, min_b
+        _P,  # Fx (nx, nx) then Cz^T (nz, nz)
+        _P,  # stream
+    ],
     "launch_stage_rk_3d_xy": [
         _P, _P, _P, _P, _P, _P,  # u, v, w, b, q, bottom
         _P, _P, _P, _P,  # gu_prev, gv_prev, gw_prev, gb_prev (NULL at stage 0)

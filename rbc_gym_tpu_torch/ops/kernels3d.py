@@ -5,7 +5,11 @@
 all of periodic y), ``stage_rk_3d_xy`` replaces ``_stage_rk_kernel_xy``
 (the same stage, a block per env and 8 y rows, for grids outside the
 whole-y paths); both march along x over a ring of x-planes, from one
-kernel template. ``correct_3d`` replaces ``_correct_kernel`` (the
+kernel template. ``stage_rk_3d_rhat`` replaces the same Pallas body with
+its ``emit_rhat`` option (``fused="stage_qp"``): K3's instance that
+writes the Poisson analysis rhat = T_A div (``ops/poisson.py``
+``poisson_analysis_matrix_3d``) in place of div, so that the solve's tail
+alone runs after it. ``correct_3d`` replaces ``_correct_kernel`` (the
 velocity correction u -= grad q), ``field_tendency_3d`` replaces
 ``_field_stage_kernel`` (one field's tendency, of the per-field path; its
 u and v instances compute pHY' from b themselves) and
@@ -41,11 +45,14 @@ a kernel against its plain version on the same card.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from rbc_gym_tpu_torch.ops import _build
+from rbc_gym_tpu_torch.ops.poisson import make_poisson_analysis_3d, poisson_analysis_factors_3d
 from rbc_gym_tpu_torch.ops import stencils as st
 from rbc_gym_tpu_torch.ops.kernels2d import (
     RK3_GAMMA,
@@ -226,9 +233,43 @@ def stage_rk_3d_plain(
     return (*new, div_3d_plain(new[0], new[1], new[2], c), g if stage < 2 else None)
 
 
+@functools.lru_cache(maxsize=None)
+def _analysis(nx: int, nz: int, dtype: torch.dtype, device: torch.device):
+    return make_poisson_analysis_3d(nx, nz, dtype, device)
+
+
+def stage_rk_3d_rhat_plain(
+    u: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    q: torch.Tensor,
+    bottom: torch.Tensor,
+    c: Coeffs3D,
+    dt: float,
+    stage: int,
+    g_prev: Optional[Tensors4] = None,
+):
+    """``stage_rk_3d_plain`` followed by the dense analysis product (full
+    precision in the working dtype) -> (u*, v*, w*, b', rhat, g), rhat
+    (E, ny, nx nz) with (kx, kz) merged x-major."""
+    *fields, div, g = stage_rk_3d_plain(u, v, w, b, q, bottom, c, dt, stage, g_prev)
+    nx, nz = u.shape[X], u.shape[Z]
+    return (*fields, _analysis(nx, nz, div.dtype, div.device)(div), g)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _analysis_factors(nx: int, nz: int, device: torch.device) -> torch.Tensor:
+    """Fx (nx, nx) row-major then Cz^T (nz, nz), float32 on ``device``: the
+    buffer K3's analysis instance reads."""
+    fx, cz = poisson_analysis_factors_3d(nx, nz)
+    both = np.concatenate([fx.ravel(), np.ascontiguousarray(cz.T).ravel()])
+    return torch.as_tensor(both, dtype=torch.float32, device=device)
 
 
 def _shapes(u: torch.Tensor) -> Tuple[int, int, int, int]:
@@ -243,8 +284,10 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _launch_stage(name: str, u, v, w, b, q, bottom, c: Coeffs3D, dt: float, stage: int,
-                  g_prev: Optional[Tensors4]):
-    """Check a stage's CUDA tensors, allocate its outputs, launch ``name``."""
+                  g_prev: Optional[Tensors4], rhat: bool = False):
+    """Check a stage's CUDA tensors, allocate its outputs, launch ``name``
+    (``rhat``: K3's analysis instance, which writes rhat (E, ny, nx nz) in
+    place of div and takes the analysis factors)."""
     e, nx, ny, nz = _shapes(u)
     cells, faces = (e, nx, ny, nz), (e, nx, ny, nz + 1)
     named = dict(u=u, v=v, w=w, b=b, q=q, bottom=bottom)
@@ -254,6 +297,9 @@ def _launch_stage(name: str, u, v, w, b, q, bottom, c: Coeffs3D, dt: float, stag
         shapes.update(gu_prev=cells, gv_prev=cells, gw_prev=faces, gb_prev=cells)
     _check_cuda(named, shapes)
     outs = [torch.empty_like(t) for t in (u, v, w, b, q)]
+    if rhat:
+        outs[4] = outs[4].view(e, ny, nx * nz)
+    extra = (_analysis_factors(nx, nz, u.device).data_ptr(),) if rhat else ()
     g = [torch.empty_like(t) for t in (u, v, w, b)] if stage < 2 else None
     gp = g_prev if g_prev is not None else (None,) * 4
     go = g if g is not None else (None,) * 4
@@ -263,16 +309,18 @@ def _launch_stage(name: str, u, v, w, b, q, bottom, c: Coeffs3D, dt: float, stag
             *(t.data_ptr() for t in (u, v, w, b, q, bottom)),
             *map(_ptr, gp), *(t.data_ptr() for t in outs), *map(_ptr, go),
             e, nx, ny, nz, stage, dt, RK3_GAMMA[stage], RK3_ZETA[stage],
-            c.dx, c.dy, c.dz, c.nu, c.kappa, c.min_b,
+            c.dx, c.dy, c.dz, c.nu, c.kappa, c.min_b, *extra,
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     _raise_on(err, name)
     return (*outs, g)
 
 
-def _stage_wrapper(name: str, doc: str):
+def _stage_wrapper(name: str, doc: str, rhat: bool = False):
     """The wrapper of stage kernel ``name``: K3 and K5 compute one function,
-    so both take ``stage_rk_3d_plain`` for CPU tensors."""
+    so both take ``stage_rk_3d_plain`` for CPU tensors; K3's analysis
+    instance (``rhat``) takes ``stage_rk_3d_rhat_plain``."""
+    plain = stage_rk_3d_rhat_plain if rhat else stage_rk_3d_plain
 
     def wrapper(
         u: torch.Tensor,
@@ -291,8 +339,8 @@ def _stage_wrapper(name: str, doc: str):
         if (g_prev is None) != (stage == 0):
             raise ValueError("stages 1 and 2 take g_prev, stage 0 does not")
         if u.device.type == "cpu":
-            return stage_rk_3d_plain(u, v, w, b, q, bottom, c, dt, stage, g_prev)
-        out = _launch_stage(name, u, v, w, b, q, bottom, c, dt, stage, g_prev)
+            return plain(u, v, w, b, q, bottom, c, dt, stage, g_prev)
+        out = _launch_stage(name, u, v, w, b, q, bottom, c, dt, stage, g_prev, rhat)
         wrapper.launches += 1
         return out
 
@@ -306,6 +354,10 @@ stage_rk_3d = _stage_wrapper(
     "stage_rk_3d", "One lazy-projection RK3 stage: K3 for CUDA tensors.")
 stage_rk_3d_xy = _stage_wrapper(
     "stage_rk_3d_xy", "The same stage, y-blocked and marching along x: K5 for CUDA tensors.")
+stage_rk_3d_rhat = _stage_wrapper(
+    "stage_rk_3d_rhat",
+    "The same stage writing rhat = T_A div (E, ny, nx nz) in place of div: K3's analysis "
+    "instance for CUDA tensors.", rhat=True)
 
 
 def correct_3d(

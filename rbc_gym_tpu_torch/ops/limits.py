@@ -96,6 +96,14 @@ def stage_smem_bytes(ny: int, nz: int) -> int:
     return 4 * ny * ((3 * XY_RING + 2 + 4 + 1 + 8) * nz + (XY_RING + 1) * (nz + 1))
 
 
+def stage_qp_smem_bytes(nx: int, ny: int, nz: int) -> int:
+    """K3's analysis instance: K3's rings, then the divergence of one
+    x-plane, Fx (nx, nx), Cz^T (nz, nz) and the rhat accumulator of every
+    (kx, y, kz) (``stage_qp_smem_floats``): K3's + 4 (ny nz (nx + 1) + nx^2
+    + nz^2)."""
+    return stage_smem_bytes(ny, nz) + 4 * (ny * nz * (nx + 1) + nx * nx + nz * nz)
+
+
 def field_smem_bytes(ny: int, nz: int) -> int:
     """K6's march instance, for every field: ``XY_RING`` x-planes of u, v, b
     of nz and of w of nz + 1, four of pHY' and the field's y fluxes of two

@@ -25,6 +25,7 @@ so no field is permuted between stages.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -179,6 +180,160 @@ def _dct2_matrices(nz: int, dz: float):
     return c, s, lam
 
 
+# The precisions of the 3D solve's products that the JAX package accepts
+# (``make_solver3d(poisson_precision=...)``); None and "highest" are one.
+POISSON_PRECISIONS_3D = (None, "highest", "high", "default")
+
+# The low mantissa bits that TF32 (10 explicit bits) drops from a float32 (23).
+_TF32_DROPPED_BITS = 13
+
+
+def check_precision_3d(precision) -> None:
+    """Refuse a name that is not one of ``POISSON_PRECISIONS_3D``."""
+    if precision not in POISSON_PRECISIONS_3D:
+        raise ValueError(f"unknown poisson_precision={precision!r}: one of "
+                         + ", ".join(map(repr, POISSON_PRECISIONS_3D)))
+
+
+def tf32_split(a: torch.Tensor):
+    """(hi, lo) with hi + lo == a exactly: hi is ``a`` with its low 13
+    mantissa bits cleared, so TF32-exact, and lo = a - hi (exact in
+    float32: it is those 13 bits)."""
+    hi = (a.view(torch.int32) & -(1 << _TF32_DROPPED_BITS)).view(torch.float32)
+    return hi, a - hi
+
+
+@contextlib.contextmanager
+def _tf32_matmul():
+    """cuBLAS TF32 products inside, the global flag as it was afterwards
+    (also on error)."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, precision: str | None = None) -> torch.Tensor:
+    """``torch.matmul(a, b)`` at one of ``POISSON_PRECISIONS_3D``, the H100's
+    counterparts of the TPU matrix unit's passes (the JAX package's
+    ``jax.lax.Precision`` of these XLA-side products):
+
+    * None or "highest": full float32, TF32 off (HIGHEST, 6 bf16 passes);
+    * "high": three TF32 tensor-core products of the split operands,
+      hi a . hi b + hi a . lo b + lo a . hi b (``tf32_split``), the
+      counterpart of HIGH's bf16x3 (8 + 8 bits): |lo| < 2^-10 |a|, so the
+      dropped lo . lo term and TF32's rounding of lo are each under 2^-20
+      of a product's magnitude;
+    * "default": one TF32 product (DEFAULT, one bf16 pass). TF32 keeps 10
+      mantissa bits where bf16 keeps 8, so "default" is more exact on the
+      card than on a TPU.
+
+    TF32 is on only around these products. float64 operands (and the CPU,
+    which has no TF32, for "default") take the full-precision product."""
+    check_precision_3d(precision)
+    if precision in (None, "highest") or a.dtype != torch.float32:
+        return torch.matmul(a, b)
+    with _tf32_matmul():
+        if precision == "default":
+            return torch.matmul(a, b)
+        a_hi, a_lo = tf32_split(a)
+        b_hi, b_lo = tf32_split(b)
+        return (torch.matmul(a_hi, b_lo) + torch.matmul(a_lo, b_hi)) + torch.matmul(a_hi, b_hi)
+
+
+def poisson_analysis_factors_3d(nx: int, nz: int):
+    """Fx (nx, nx) and Cz (nz, nz), float64: the factors of the (x, z)-modal
+    analysis ``poisson_analysis_matrix_3d`` = kron(Fx, Cz)."""
+    fx, _, _ = _real_dft_matrices(nx)
+    cz, _, _ = _dct2_matrices(nz, 1.0)  # dz only enters the eigenvalues
+    return fx, cz
+
+
+def poisson_analysis_matrix_3d(nx: int, nz: int) -> np.ndarray:
+    """T_A = kron(Fx, Cz), (nx nz, nx nz) float64, row (kx kz) and column
+    (x z) merged x-major: ``rhat[e, y] = T_A @ rhs[e, y].reshape(nx nz)``,
+    the first product of the dense solve (the JAX package's function of
+    this name). K3's analysis instance accumulates it plane by plane."""
+    fx, cz = poisson_analysis_factors_3d(nx, nz)
+    return np.kron(fx, cz)
+
+
+def _solve_constants_3d(nx, ny, nz, dx, dy, dz):
+    """Float64 constants of the 3D solve: Fx, Gx, Fy, Gy, Cz, Sz and the
+    modal reciprocal (kx, kz, ky) (zero for the singular mean mode)."""
+    fx, gx, rows_x = _real_dft_matrices(nx)
+    lx = _dft_eigenvalues(nx, dx)[rows_x]
+    fy, gy, rows_y = _real_dft_matrices(ny)
+    ly = _dft_eigenvalues(ny, dy)[rows_y]
+    cz, sz, lz = _dct2_matrices(nz, dz)
+    lam = lx[:, None, None] + lz[None, :, None] + ly[None, None, :]  # (kx, kz, ky)
+    with np.errstate(divide="ignore"):
+        dinv = np.where(np.abs(lam) < 1e-12, 0.0, 1.0 / lam)
+    return fx, gx, fy, gy, cz, sz, dinv
+
+
+def _cast(a: np.ndarray, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+
+def _make_modal(ny, k, fy, gy, dinv, dtype, device, precision):
+    """(E, ny, K) (x, z)-modal rows -> y-DFT, reciprocal, inverse y-DFT."""
+    fy_t, gy_t = _cast(fy, dtype, device), _cast(gy, dtype, device)
+    dinv_t = _cast(dinv.reshape(k, ny).T, dtype, device)  # (ky, kx kz)
+
+    def modal(r: torch.Tensor) -> torch.Tensor:
+        return matmul(gy_t, matmul(fy_t, r, precision) * dinv_t, precision)
+
+    return modal
+
+
+def make_poisson_analysis_3d(
+    nx: int, nz: int, dtype=torch.float32, device="cuda", precision: str | None = None
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The dense solve's analysis: rhs (E, ny, nx, nz) in the solve layout
+    -> rhat (E, ny, K), K = nx nz merged x-major: one GEMM over E * ny rows
+    with ``poisson_analysis_matrix_3d``."""
+    k = nx * nz
+    t_a_t = _cast(poisson_analysis_matrix_3d(nx, nz).T, dtype, device)
+
+    def analysis(rhs: torch.Tensor) -> torch.Tensor:
+        e, ny = rhs.shape[:2]
+        return matmul(rhs.reshape(e * ny, k), t_a_t, precision).reshape(e, ny, k)
+
+    return analysis
+
+
+def make_poisson_tail_3d(
+    nx: int,
+    ny: int,
+    nz: int,
+    dx: float,
+    dy: float,
+    dz: float,
+    dtype=torch.float32,
+    device="cuda",
+    precision: str | None = None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The rest of the dense solve for a caller that holds ``rhat`` (E, ny,
+    K) (``make_poisson_analysis_3d``, or K3's analysis instance): the
+    y-DFT, the modal reciprocal, the inverse y-DFT and the synthesis
+    kron(Gx, Sz), whatever nx nz is -> p (E, ny, nx, nz). The JAX
+    package's ``make_poisson_tail_3d_bm`` in the solve layout."""
+    fx, gx, fy, gy, cz, sz, dinv = _solve_constants_3d(nx, ny, nz, dx, dy, dz)
+    k = nx * nz
+    modal = _make_modal(ny, k, fy, gy, dinv, dtype, device, precision)
+    t_s_t = _cast(np.kron(gx, sz).T, dtype, device)
+
+    def tail(rhat: torch.Tensor) -> torch.Tensor:
+        e = rhat.shape[0]
+        p = matmul(modal(rhat).reshape(e * ny, k), t_s_t, precision)
+        return p.reshape(e, ny, nx, nz)
+
+    return tail
+
+
 def make_poisson_solver_3d(
     nx: int,
     ny: int,
@@ -189,6 +344,7 @@ def make_poisson_solver_3d(
     dtype=torch.float32,
     device="cuda",
     factored: bool | None = None,
+    precision: str | None = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Zero-mean solve of laplace(p) = rhs, rhs and p in the solve layout
     (E, ny, nx, nz).
@@ -196,54 +352,30 @@ def make_poisson_solver_3d(
     The JAX package's ``make_poisson_solver_3d_bm`` in both of its forms:
     * dense (default below ``FACTORED_POISSON_MIN_NXNZ``): the x-DFT and the
       z-DCT combine into one (nx nz, nx nz) matrix kron(Fx, Cz), applied
-      as one GEMM over E * ny rows; its tail is the y-DFT, the modal
-      reciprocal, the inverse y-DFT and the synthesis kron(Gx, Sz);
+      as one GEMM over E * ny rows; the solve is
+      ``make_poisson_tail_3d`` after ``make_poisson_analysis_3d``;
     * factored: the x and z transforms stay (nx, nx) and (nz, nz) products.
     Constants are built in float64 numpy and cast once; every product is
-    ``torch.matmul`` in the working dtype (TF32 is off).
+    ``matmul`` at ``precision`` (None: full float32, TF32 off).
     """
+    check_precision_3d(precision)
     if factored is None:
         factored = nx * nz >= FACTORED_POISSON_MIN_NXNZ
-    fx, gx, rows_x = _real_dft_matrices(nx)
-    lx = _dft_eigenvalues(nx, dx)[rows_x]
-    fy, gy, rows_y = _real_dft_matrices(ny)
-    ly = _dft_eigenvalues(ny, dy)[rows_y]
-    cz, sz, lz = _dct2_matrices(nz, dz)
-    lam = lx[:, None, None] + lz[None, :, None] + ly[None, None, :]  # (kx, kz, ky)
-    with np.errstate(divide="ignore"):
-        dinv = np.where(np.abs(lam) < 1e-12, 0.0, 1.0 / lam)
+    if not factored:
+        analysis = make_poisson_analysis_3d(nx, nz, dtype, device, precision)
+        tail = make_poisson_tail_3d(nx, ny, nz, dx, dy, dz, dtype, device, precision)
+        return lambda rhs: tail(analysis(rhs))
+
+    fx, gx, fy, gy, cz, sz, dinv = _solve_constants_3d(nx, ny, nz, dx, dy, dz)
     k = nx * nz
-
-    def cast(a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
-
-    fy_t, gy_t = cast(fy), cast(gy)
-    dinv_t = cast(dinv.reshape(k, ny).T)  # (ky, kx kz)
-
-    def modal(r: torch.Tensor) -> torch.Tensor:
-        """(E, ny, K) (x, z)-modal rows -> y-DFT, reciprocal, inverse y-DFT."""
-        return torch.matmul(gy_t, torch.matmul(fy_t, r) * dinv_t)
-
-    if factored:
-        fx_t, gx_t = cast(fx), cast(gx)
-        czt, szt = cast(cz.T), cast(sz.T)
-
-        def solve(rhs: torch.Tensor) -> torch.Tensor:
-            e = rhs.shape[0]
-            r = torch.matmul(fx_t, torch.matmul(rhs, czt))  # (E, ny, kx, kz)
-            r = modal(r.reshape(e, ny, k)).reshape(e, ny, nx, nz)
-            return torch.matmul(torch.matmul(gx_t, r), szt)
-
-        return solve
-
-    # row (kx kz), column (x z): the x-major merge of the solve layout
-    t_a_t = cast(np.kron(fx, cz).T)
-    t_s_t = cast(np.kron(gx, sz).T)
+    modal = _make_modal(ny, k, fy, gy, dinv, dtype, device, precision)
+    fx_t, gx_t = _cast(fx, dtype, device), _cast(gx, dtype, device)
+    czt, szt = _cast(cz.T, dtype, device), _cast(sz.T, dtype, device)
 
     def solve(rhs: torch.Tensor) -> torch.Tensor:
         e = rhs.shape[0]
-        r = torch.matmul(rhs.reshape(e * ny, k), t_a_t).reshape(e, ny, k)
-        p = torch.matmul(modal(r).reshape(e * ny, k), t_s_t)
-        return p.reshape(e, ny, nx, nz)
+        r = matmul(fx_t, matmul(rhs, czt, precision), precision)  # (E, ny, kx, kz)
+        r = modal(r.reshape(e, ny, k)).reshape(e, ny, nx, nz)
+        return matmul(matmul(gx_t, r, precision), szt, precision)
 
     return solve

@@ -21,6 +21,7 @@ KERNEL_WRAPPERS = {
     "stage_rk_3d_xy": kernels3d.stage_rk_3d_xy,
     "field_tendency_3d": kernels3d.field_tendency_3d,
     "div_3d": kernels3d.div_3d,
+    "stage_rk_3d_rhat": kernels3d.stage_rk_3d_rhat,
 }
 
 

@@ -178,15 +178,39 @@ def max_divergence(f: Fields2D, grid: Grid2D) -> float:
     return float(div.abs().max())
 
 
+# poisson_precision values of the JAX package's 2D solver that the port
+# runs: there "high" is "highest" (rbc_gym_tpu/sim/solver2d.py:174-175), and
+# both and None are the full float32 solve, which K1 and the plain path run.
+POISSON_PRECISIONS_2D = (None, "highest", "high")
+# The JAX package runs these inside its K1 through a split-product branch
+# (rbc_gym_tpu/ops/pallas2d.py:270-304) that has no Hopper counterpart yet.
+UNPORTED_PRECISIONS_2D = ("bf16x3", "default")
+
+
+def check_poisson_precision_2d(precision) -> None:
+    """Refuse a 2D ``poisson_precision`` that the port does not run, by name."""
+    if precision in UNPORTED_PRECISIONS_2D:
+        raise ValueError(
+            f"poisson_precision={precision!r} runs in the JAX package's K1 through its "
+            "split-product branch, which has no Hopper instance yet (ROADMAP B.8); "
+            "pass None, 'highest' or 'high'")
+    if precision not in POISSON_PRECISIONS_2D:
+        raise ValueError(f"unknown poisson_precision={precision!r}: one of "
+                         + ", ".join(map(repr, POISSON_PRECISIONS_2D + UNPORTED_PRECISIONS_2D)))
+
+
 def make_solver2d(
     grid: Grid2D,
     params: SimParams2D,
     dtype: torch.dtype = torch.float32,
     device: str | torch.device | None = "cuda",
     fused: bool | None = None,
+    poisson_precision: str | None = None,
 ) -> Solver2D:
     """Build the 2D solver function bundle on ``device``; ``fused`` picks
-    the path (``select_env_step_path``)."""
+    the path (``select_env_step_path``); ``poisson_precision`` is one of
+    ``POISSON_PRECISIONS_2D``, all the full float32 solve."""
+    check_poisson_precision_2d(poisson_precision)
     device = default_device(device)
     nx, nz = grid.nx, grid.nz
     path = select_env_step_path(dtype, nx, nz, device.type, fused)

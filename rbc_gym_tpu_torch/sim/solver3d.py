@@ -18,9 +18,10 @@ once per solver by ``select_stage_path`` (``Solver3D.path``):
   substep three stage launches with a Poisson solve after each, the
   pending (unscaled) solve ``q`` carried between stages; one correction
   at the end of the env step; pHY' and p_nhs = q / dt_stage recovered
-  once. The stage function is K3 ``stage_rk_3d`` ("stage") or K5
-  ``stage_rk_3d_xy`` ("stage_xy"), with K4 ``correct_3d``, or their
-  plain versions ("plain");
+  once. The stage function is K3 ``stage_rk_3d`` ("stage", and
+  "stage_ew"), K3's analysis instance ``stage_rk_3d_rhat`` ("stage_qp",
+  whose solve is then the tail alone) or K5 ``stage_rk_3d_xy``
+  ("stage_xy"), with K4 ``correct_3d``, or their plain versions ("plain");
 - the per-field loop of its ``fused="field"`` path (``field_substeps``,
   "field"): each stage computes the four tendencies (K6
   ``field_tendency_3d``, pHY' inside its u and v launches), the RK update,
@@ -54,6 +55,7 @@ from rbc_gym_tpu_torch.ops.kernels3d import (
     from_solve_layout,
     stage_rk_3d,
     stage_rk_3d_plain,
+    stage_rk_3d_rhat,
     stage_rk_3d_xy,
     tendencies_3d_plain,
     to_solve_layout,
@@ -68,11 +70,12 @@ from rbc_gym_tpu_torch.ops.limits import (
     MAX_THREADS,
     XY_MIN_NX,
     Y_BLK,
+    stage_qp_smem_bytes,
     stage_smem_bytes,
     stage_xy_smem_bytes,
     whole_y_fits,
 )
-from rbc_gym_tpu_torch.ops.poisson import make_poisson_solver_3d
+from rbc_gym_tpu_torch.ops.poisson import make_poisson_solver_3d, make_poisson_tail_3d
 from rbc_gym_tpu_torch.sim.actuation import heater_profile_3d, preprocess_action_3d
 from rbc_gym_tpu_torch.sim.grid import Grid3D
 
@@ -132,9 +135,10 @@ class Solver3D(NamedTuple):
     params: SimParams3D
     dtype: torch.dtype
     device: torch.device
-    path: str  # env_step's loop and kernels: "stage", "stage_xy", "field" or "plain"
+    path: str  # env_step's loop and kernels: a KERNEL_PATHS value or "plain"
     coeffs: Coeffs3D
     solve: Callable  # solve-layout rhs (E, ny, nx, nz) -> p
+    stage_solve: Callable  # the solve of a stage's output: ``solve``, or on "stage_qp" the tail
     init_random: Callable  # (generator, batch_shape) -> Fields3D
     env_step: Callable  # (Fields3D, action (..., S, S)) -> Fields3D
     substep: Callable  # (Fields3D, bottom (..., nx, ny), dt) -> Fields3D
@@ -148,9 +152,16 @@ class Solver3D(NamedTuple):
 DIVERGENCE_ATOL = {torch.float64: 1e-8, torch.float32: 5e-4}
 
 
-# The stage and correction functions of each lazy-loop path.
+# The stage and correction functions of each lazy-loop path. "stage_ew" is
+# the JAX package's K3 read through overlapping x-padded pl.Element windows,
+# so that no x halo is concatenated in VMEM; K3's x march already reads each
+# x-plane once through its cp.async ring, so on the card the same function
+# runs K3 itself. "stage_qp" runs K3's analysis instance, whose rhat the
+# solve's tail takes (``make_solver3d``).
 STAGE_PATHS = {
     "stage": (stage_rk_3d, correct_3d),
+    "stage_ew": (stage_rk_3d, correct_3d),
+    "stage_qp": (stage_rk_3d_rhat, correct_3d),
     "stage_xy": (stage_rk_3d_xy, correct_3d),
     "plain": (stage_rk_3d_plain, correct_3d_plain),
 }
@@ -158,19 +169,17 @@ STAGE_PATHS = {
 # the kernels, and their plain versions.
 FIELD_KERNELS = (field_tendency_3d, div_3d, correct_3d)
 FIELD_PLAIN = (field_tendency_3d_plain, div_3d_plain, correct_3d_plain)
-# fused= values of the JAX package that the port refuses, with the reason.
-REFUSED_FUSED = {
-    "stage_qp": "not carried over (PERF.md section 6: K3's emit_rhat option)",
-    "stage_ew": "not carried over (PERF.md section 6: K3's element_windows option)",
-}
-KERNEL_PATHS = ("stage", "stage_xy", "field")
+KERNEL_PATHS = ("stage", "stage_xy", "field", "stage_qp", "stage_ew")
+# K3's paths: the stage kernel over whole y (its analysis instance on "stage_qp")
+K3_PATHS = ("stage", "stage_qp", "stage_ew")
 
 
 def stage_kernel_limit(kernel: str, dtype: torch.dtype, nx: int, ny: int, nz: int):
-    """Why the kernels of path ``kernel`` ("stage" for K3, "stage_xy" for
-    K5, "field" for K6 and K7) cannot take this configuration, or None if
-    they can: the checks of the launchers in ``csrc/rbc3d.cu`` and the
-    card's shared memory per block."""
+    """Why the kernels of path ``kernel`` ("stage" and "stage_ew" for K3,
+    "stage_qp" for K3's analysis instance, "stage_xy" for K5, "field" for
+    K6 and K7) cannot take this configuration, or None if they can: the
+    checks of the launchers in ``csrc/rbc3d.cu`` and the card's shared
+    memory per block."""
     if dtype != torch.float32:
         return f"the {kernel} kernel takes float32, not {dtype}"
     if kernel == "field":  # K6's general instance and K7 take any grid whose taps wrap once
@@ -180,14 +189,17 @@ def stage_kernel_limit(kernel: str, dtype: torch.dtype, nx: int, ny: int, nz: in
             return (f"the field kernels index an env with 32-bit offsets: nx * ny * (nz + 1) "
                     f"<= {MAX_ENV_POINTS:,} (nx={nx}, ny={ny}, nz={nz})")
         return None
-    if kernel == "stage":
+    if kernel in K3_PATHS:
         if nx < XY_MIN_NX or ny < 4 or nz < 2:
-            return (f"the stage kernel needs nx >= {XY_MIN_NX}, ny >= 4 and nz >= 2 "
+            return (f"the {kernel} kernel needs nx >= {XY_MIN_NX}, ny >= 4 and nz >= 2 "
                     f"(nx={nx}, ny={ny}, nz={nz})")
         if ny * nz > MAX_THREADS:
-            return (f"the stage kernel needs ny * nz <= {MAX_THREADS}, one thread per point "
+            return (f"the {kernel} kernel needs ny * nz <= {MAX_THREADS}, one thread per point "
                     f"of an x-plane (ny={ny}, nz={nz})")
-        need = stage_smem_bytes(ny, nz)
+        if kernel == "stage_qp":
+            need = stage_qp_smem_bytes(nx, ny, nz)
+        else:
+            need = stage_smem_bytes(ny, nz)
     else:
         if nx < XY_MIN_NX or ny % Y_BLK or nz < 2:
             return (f"the stage_xy kernel needs nx >= {XY_MIN_NX}, ny % {Y_BLK} == 0 and "
@@ -214,18 +226,17 @@ def select_stage_path(dtype: torch.dtype, nx: int, ny: int, nz: int, device_type
     K5's own x-plane rings do not fit either; otherwise the plain path, as
     the JAX package takes its XLA path there. float64 and the CPU take the plain
     path, as the JAX package does. ``fused=False`` is the plain path;
-    "stage", "stage_xy" or "field" (True is the JAX package's alias of
-    "field") forces that path and raises ``ValueError``, naming the limit,
-    if its kernels cannot take the configuration (on the CPU the wrappers
-    then run their plain versions). "stage_qp" and "stage_ew" are not
-    carried over and are refused by name.
+    a ``KERNEL_PATHS`` value (True is the JAX package's alias of "field")
+    forces that path and raises ``ValueError``, naming the limit, if its
+    kernels cannot take the configuration (on the CPU the wrappers then
+    run their plain versions). "stage_qp" (K3's analysis instance, whose
+    shared memory grows with nx) and "stage_ew" (K3) are opt-in, as in the
+    JAX package.
     """
     if fused is False:
         return "plain"
     if fused is True:
         fused = "field"
-    if fused in REFUSED_FUSED:
-        raise ValueError(f"fused={fused!r}: {REFUSED_FUSED[fused]}")
     if fused is None:
         if device_type != "cuda" or dtype != torch.float32:
             return "plain"
@@ -273,7 +284,9 @@ def lazy_substeps(
     solve in the solve layout.
 
     The incoming fields are projected, so the pending solve starts at zero.
-    ``stage_rk`` and ``correct`` are a path's pair of ``STAGE_PATHS``."""
+    ``stage_rk`` and ``correct`` are a path's pair of ``STAGE_PATHS``;
+    ``solve`` takes a stage's fifth output to q (div, or on "stage_qp"
+    rhat, through the tail: ``Solver3D.stage_solve``)."""
     e, nx, ny, nz = u.shape
     q = torch.zeros((e, ny, nx, nz), dtype=u.dtype, device=u.device)
     for dt in dts:
@@ -331,10 +344,17 @@ def make_solver3d(
     dtype: torch.dtype = torch.float32,
     device: str | torch.device | None = "cuda",
     fused: bool | str | None = None,
+    poisson_precision: str | None = None,
 ) -> Solver3D:
     """Build the 3D solver bundle on ``device``. ``fused`` picks the loop
     and its kernels (``select_stage_path``); the Poisson solve takes the
-    JAX package's form for the grid (dense below nx * nz = 1024)."""
+    JAX package's form for the grid (dense below nx * nz = 1024), on
+    "stage_qp" its tail after K3's analysis instance.
+    ``poisson_precision`` is the precision of the solve's products
+    (``ops.poisson.matmul``): None or "highest" full float32, "high" three
+    TF32 products of split operands, "default" one; the analysis inside
+    K3's instance is float32 whatever it is, as the Pallas kernel's dot is
+    HIGHEST."""
     if abs(grid.lz - params.lz) > 1e-12:
         params = dataclasses.replace(params, lz=grid.lz)
     device = default_device(device)
@@ -342,7 +362,12 @@ def make_solver3d(
     path = select_stage_path(dtype, nx, ny, nz, device.type, fused)
     min_b = params.min_b
     coeffs = Coeffs3D(grid.dx, grid.dy, grid.dz, params.nu, params.kappa, min_b)
-    solve = make_poisson_solver_3d(nx, ny, nz, grid.dx, grid.dy, grid.dz, dtype, device)
+    solve = make_poisson_solver_3d(nx, ny, nz, grid.dx, grid.dy, grid.dz, dtype, device,
+                                   precision=poisson_precision)
+    stage_solve = solve
+    if path == "stage_qp":
+        stage_solve = make_poisson_tail_3d(nx, ny, nz, grid.dx, grid.dy, grid.dz, dtype, device,
+                                           precision=poisson_precision)
     dts = [float(d) for d in params.substep_dts()]
     dt_last = (RK3_GAMMA[2] + RK3_ZETA[2]) * dts[-1]
 
@@ -372,7 +397,7 @@ def make_solver3d(
             u, v, w, b, q = field_substeps(g.u, g.v, g.w, g.b, bottom, dts, solve, coeffs,
                                            *FIELD_KERNELS)
         else:
-            u, v, w, b, q = lazy_substeps(g.u, g.v, g.w, g.b, bottom, dts, solve, coeffs,
+            u, v, w, b, q = lazy_substeps(g.u, g.v, g.w, g.b, bottom, dts, stage_solve, coeffs,
                                           *STAGE_PATHS[path])
         out = Fields3D(u, v, w, b, hydrostatic_pressure(b, grid.dz, min_b),
                        from_solve_layout(q) / dt_last)
@@ -417,6 +442,7 @@ def make_solver3d(
         path=path,
         coeffs=coeffs,
         solve=solve,
+        stage_solve=stage_solve,
         init_random=init_random,
         env_step=env_step,
         substep=substep,

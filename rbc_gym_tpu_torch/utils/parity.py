@@ -4,8 +4,9 @@ Twin of ``rbc_gym_tpu/utils/parity.py``: a bench asserts, before it times
 a path, that the path's kernels still compute what the plain path does on
 the card it runs on, so that a kernel regression never ships inside a
 headline number. Each check runs whole env steps of the forced kernel
-path (2D ``fused=True``: K1; 3D ``fused="stage"``: K3 and K4,
-``"stage_xy"``: K5 and K4, ``"field"``: K6, K7 and K4) and of
+path (2D ``fused=True``: K1; 3D ``fused="stage"`` or ``"stage_ew"``: K3
+and K4, ``"stage_qp"``: K3's analysis instance and K4, ``"stage_xy"``: K5
+and K4, ``"field"``: K6, K7 and K4) and of
 ``fused=False`` in float32 from the same seeded fields and actions, and
 returns the largest field difference. ``env_steps_3d`` is the 3D run
 itself, without the gate or the device check: ``chip_smoke.py`` takes its
@@ -15,9 +16,9 @@ The gate is the JAX helper's: the two paths differ only in float32
 summation order (the solves, pHY'), so they agree to ``ATOL_DEFAULT``
 after a short run. The checks refuse any device but CUDA: on the CPU
 both sides would run the plain versions, and their 0.0 would prove
-nothing. The JAX helpers' ``poisson_precision`` (a TPU matrix-unit pass
-count) is not carried over: the port's solves run in full float32 with
-TF32 off.
+nothing. ``poisson_precision`` goes to both solvers, as in the JAX helpers:
+in 3D the precision of the solve's products (``ops.poisson.matmul``), in
+2D None, "highest" or "high" (one full float32 solve).
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ def fused_parity_2d(
     check: bool = True,
     device="cuda",
     seed: int = 0,
+    poisson_precision=None,
 ) -> float:
     """Max |u, w, b| difference of K1 (``fused=True``) against the plain
     path after ``steps`` env steps from the same random initial condition.
@@ -71,8 +73,10 @@ def fused_parity_2d(
     nz, nx = state_shape
     grid = Grid2D(nx=nx, nz=nz, lx=2 * np.pi, lz=2.0)
     params = SimParams2D(ra=ra, heater_duration=0.18)  # 6 substeps
-    s_plain = make_solver2d(grid, params, dtype=torch.float32, device=device, fused=False)
-    s_fused = make_solver2d(grid, params, dtype=torch.float32, device=device, fused=True)
+    s_plain = make_solver2d(grid, params, dtype=torch.float32, device=device, fused=False,
+                            poisson_precision=poisson_precision)
+    s_fused = make_solver2d(grid, params, dtype=torch.float32, device=device, fused=True,
+                            poisson_precision=poisson_precision)
     f = s_plain.init_random(torch.Generator(device=device).manual_seed(seed), (num_envs,))
     a = _actions((num_envs, params.n_heaters), device, seed + 1)
     fp, ff = f, f
@@ -96,13 +100,15 @@ def env_steps_3d(
     device="cuda",
     seed: int = 0,
     dtype: torch.dtype = torch.float32,
+    poisson_precision=None,
 ) -> list:
     """The fields after ``steps`` env steps of each path of ``paths`` (a
     ``fused`` value of ``make_solver3d``: False is the plain path, None the
     solver's own choice) from one start: ``init_random`` of a float32 plain
     solver from a generator seeded ``seed`` and uniform actions in [-1, 1]
     from ``seed + 1``, both cast to ``dtype``, so that a float64 run starts
-    from the float32 run's values. Any device; no gate."""
+    from the float32 run's values; every path's solve at
+    ``poisson_precision``. Any device; no gate."""
     from rbc_gym_tpu_torch.sim.grid import Grid3D
     from rbc_gym_tpu_torch.sim.solver3d import Fields3D, SimParams3D, make_solver3d
 
@@ -117,10 +123,11 @@ def env_steps_3d(
     f0 = Fields3D(*(x.to(dtype) for x in f0))
     out = []
     for path in paths:
-        if path is False and dtype == torch.float32:
+        if path is False and dtype == torch.float32 and poisson_precision is None:
             solver = draw
         else:
-            solver = make_solver3d(grid, params, dtype=dtype, device=device, fused=path)
+            solver = make_solver3d(grid, params, dtype=dtype, device=device, fused=path,
+                                   poisson_precision=poisson_precision)
         f = f0
         for _ in range(steps):
             f = solver.env_step(f, a)
@@ -139,16 +146,17 @@ def fused_parity_3d(
     check: bool = True,
     device="cuda",
     seed: int = 0,
+    poisson_precision=None,
 ) -> float:
     """Max |u, v, w, b| difference of the 3D kernel path ``fused``
-    ("stage", "stage_xy" or "field") against the plain path after
+    (a ``sim.solver3d.KERNEL_PATHS`` value) against the plain path after
     ``steps`` env steps (``heater_duration`` 0.03: 3 substeps at
     ``dt_solver`` 0.01, 6 at the big grid's 0.005). A bench gates each path
     on the ``state_shape`` and ``dt_solver`` it times, so that the check
     runs the kernel instance the timing runs."""
     device = _cuda_only(device, "fused_parity_3d")
     plain, kernel = env_steps_3d((False, fused), num_envs, steps, ra, state_shape, dt_solver,
-                                 device=device, seed=seed)
+                                 device=device, seed=seed, poisson_precision=poisson_precision)
     err = max_abs_diff(plain, kernel, ("u", "v", "w", "b"))
     if check and not err < atol:
         raise AssertionError(f"3D {fused} fused/plain parity {err} >= {atol}")

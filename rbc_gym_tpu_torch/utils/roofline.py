@@ -229,6 +229,16 @@ def stage_rk_3d_work(n_env: int, nx: int, ny: int, nz: int, stage: int) -> dict:
     return {"flops": n_env * per_cell * cells, "bytes": 4 * n_env * words}
 
 
+def stage_rk_3d_rhat_work(n_env: int, nx: int, ny: int, nz: int, stage: int) -> dict:
+    """FLOP and bytes of one launch of K3's analysis instance: K3's bytes
+    (rhat, of div's size, written in its place) and K3's FLOP plus the
+    analysis rhat = kron(Fx, Cz) div at its least work, the factored
+    2 (nx + nz) FLOP a cell (Cz along z, then Fx along x), whatever the
+    kernel does."""
+    work = stage_rk_3d_work(n_env, nx, ny, nz, stage)
+    return {**work, "flops": work["flops"] + n_env * 2 * (nx + nz) * nx * ny * nz}
+
+
 def correct_3d_work(n_env: int, nx: int, ny: int, nz: int) -> dict:
     """u, v, w, q read and u, v, w written once; 3 FLOP per velocity point."""
     cells, faces = nx * ny * nz, nx * ny * (nz + 1)

@@ -104,8 +104,13 @@ def test_adapter_seeding():
 @pytest.mark.parametrize("cls, kwargs", [(RBC2DGymVectorEnv, SMALL_2D),
                                          (RBC3DGymVectorEnv, SMALL_3D)])
 def test_adapters_refuse_poisson_precision_by_name(cls, kwargs):
+    """The adapters pass ``poisson_precision`` through: "highest" is taken
+    in 2D and 3D; 2D's "bf16x3" (the JAX K1's split-product branch) and
+    a name neither package knows are refused by name."""
+    assert cls(2, **kwargs, poisson_precision="highest", device="cpu").num_envs == 2
+    bad = "bf16x3" if cls is RBC2DGymVectorEnv else "exact"
     with pytest.raises(ValueError, match="poisson_precision"):
-        cls(2, **kwargs, poisson_precision="highest", device="cpu")
+        cls(2, **kwargs, poisson_precision=bad, device="cpu")
 
 
 def test_env_layer_exports_the_jax_names():

@@ -88,7 +88,7 @@ static void field_tendency(const std::vector<float>& u, const std::vector<float>
     run_blocks((unsigned)E, march_threads(nz, ny), [&] {
       kernel(u.data(), v.data(), w.data(), b, nullptr, bottom, nullptr, nullptr, nullptr,
              nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, gs[0], gs[1], gs[2], gs[3],
-             0.0f, 0.0f, 0.0f, P);
+             0.0f, 0.0f, 0.0f, P, nullptr);
     });
   } else {  // the general instance, point after point
     const int per_env = nx * ny * (F == kFieldW ? nz + 1 : nz);
@@ -103,6 +103,10 @@ int main(int argc, char** argv) {
   if (std::string(argv[1]) == "smem") {  // smem NY NZ: the launchers' floats
     printf("%zu %zu %zu\n", stage_smem_floats(atoi(argv[2]), atoi(argv[3])),
            stage_xy_smem_floats(atoi(argv[3])), field_smem_floats(atoi(argv[2]), atoi(argv[3])));
+    return 0;
+  }
+  if (std::string(argv[1]) == "smem_qp") {  // smem_qp NX NY NZ: the analysis instance's floats
+    printf("%zu\n", stage_qp_smem_floats(atoi(argv[2]), atoi(argv[3]), atoi(argv[4])));
     return 0;
   }
   if (std::string(argv[1]) == "field") {  // field DIR E NX NY NZ DX DY DZ NU KAPPA MIN_B
@@ -132,6 +136,7 @@ int main(int argc, char** argv) {
   }
   dir = argv[1];
   const bool xy = std::string(argv[16]) == "xy";  // K5, else K3
+  const bool qp = std::string(argv[16]) == "qp";  // K3's analysis instance: rhat in "div"
   const int E = atoi(argv[2]), nx = atoi(argv[3]), ny = atoi(argv[4]), nz = atoi(argv[5]);
   const int stage = atoi(argv[6]);
   const float dt = atof(argv[7]), gamma = atof(argv[8]), zeta = atof(argv[9]);
@@ -148,15 +153,19 @@ int main(int argc, char** argv) {
                              std::vector<float>(F), std::vector<float>(C)};
   auto prev = [&](int i) { return stage > 0 ? gp[i].data() : nullptr; };
   auto emit = [&](int i) { return stage < 2 ? g[i].data() : nullptr; };
+  std::vector<float> analysis;
+  if (qp) analysis = rd("analysis", (size_t)nx * nx + (size_t)nz * nz);
   {  // K3 and K5: every thread of a block, meeting at real barriers
     const XYParams PX = xy_params(nx, ny, nz, dx, dy, dz, atof(argv[13]), atof(argv[14]),
                                   atof(argv[15]));
-    auto* kernel = xy ? stage_xy_kernel_for(nz) : stage_kernel_for(ny, nz);
+    auto* kernel = xy ? stage_xy_kernel_for(nz)
+                      : (qp ? stage_qp_kernel_for(ny, nz) : stage_kernel_for(ny, nz));
     run_blocks(xy ? E * (unsigned)(ny / kYT) : (unsigned)E,
                xy ? march_threads(nz, -1) : march_threads(nz, ny), [&] {
       kernel(u.data(), v.data(), w.data(), b.data(), q.data(), bottom.data(), prev(0), prev(1),
              prev(2), prev(3), out[0].data(), out[1].data(), out[2].data(), out[3].data(),
-             out[4].data(), emit(0), emit(1), emit(2), emit(3), dt, gamma, zeta, PX);
+             out[4].data(), emit(0), emit(1), emit(2), emit(3), dt, gamma, zeta, PX,
+             qp ? analysis.data() : nullptr);
     });
   }
   blockDim.x = 1;
@@ -210,12 +219,15 @@ def _case(e, nx, ny, nz, seed):
 
 
 def _run_stage(host_binary, tmp_path, shape, stage, kernel):
-    """Run one stage of ``kernel`` ("x": K3 and K4, "xy": K5) on the host
-    and hold it against the plain versions."""
+    """Run one stage of ``kernel`` ("x": K3 and K4, "xy": K5, "qp": K3's
+    analysis instance, whose rhat lands in "div") on the host and hold it
+    against the plain versions."""
     e, nx, ny, nz = shape
     case = _case(*shape, seed=0)
     for name, a in case.items():
         a.astype(np.float32).tofile(tmp_path / name)
+    if kernel == "qp":
+        k3._analysis_factors(nx, nz, torch.device("cpu")).numpy().tofile(tmp_path / "analysis")
     c = k3.Coeffs3D(4 * np.pi / nx, 4 * np.pi / ny, 2.0 / nz, float(np.sqrt(0.7 / 2500)),
                     float(1 / np.sqrt(0.7 * 2500)), 1.0)
     dt = 0.04
@@ -234,6 +246,13 @@ def _run_stage(host_binary, tmp_path, shape, stage, kernel):
     want = k3.stage_rk_3d_plain(*(t(case[n]) for n in ("u", "v", "w", "b", "q", "bottom")),
                                 c, dt, stage, g_prev if stage else None)
     for name, x in zip(("u_out", "v_out", "w_out", "b_out", "div"), want[:5]):
+        if kernel == "qp" and name == "div":
+            rhat = got("div", x).reshape(e, ny, nx * nz)
+            inputs = tuple(t(case[n]) for n in ("u", "v", "w", "b", "q", "bottom"))
+            errors = chip_smoke.rhat_errors(c, inputs, dt, stage, g_prev if stage else None,
+                                            torch.as_tensor(rhat))
+            assert errors["kernel"] <= chip_smoke.RHAT_VS_PLAIN * errors["plain_float32"], errors
+            continue
         np.testing.assert_allclose(got(name, x), x.numpy(), rtol=0,
                                    atol=chip_smoke.K3_FIELD_ATOL, err_msg=name)
     for name, x in zip(("gu", "gv", "gw", "gb"), want[5] or ()):
@@ -272,6 +291,34 @@ def test_host_build_of_k3_and_k4_matches_plain(host_binary, tmp_path, shape, sta
 ])
 def test_host_build_of_k5_matches_plain(host_binary, tmp_path, shape, stage):
     _run_stage(host_binary, tmp_path, shape, stage, "xy")
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2])
+@pytest.mark.parametrize("shape", [
+    (2, 32, 32, 16),  # the training grid: the specialised instance, 512 threads
+    (1, 8, 8, 8),  # runtime sizes
+    (1, 4, 5, 7),  # the smallest nx; odd ny and nz
+])
+def test_host_build_of_k3_analysis_instance_matches_plain(host_binary, tmp_path, shape, stage):
+    """K3's analysis instance: the fields and g at K3's gates, rhat against
+    the plain version run in float64 within ``RHAT_VS_PLAIN`` times the
+    float32 plain version's own error there."""
+    _run_stage(host_binary, tmp_path, shape, stage, "qp")
+
+
+@pytest.mark.parametrize("nx,ny,nz", [(32, 32, 16), (64, 32, 16), (4, 5, 7), (48, 16, 24)])
+def test_analysis_instance_smem_formula_matches_the_launcher(host_binary, nx, ny, nz):
+    """``limits.stage_qp_smem_bytes`` is the analysis launcher's own count,
+    and the selection rule refuses "stage_qp" exactly where it exceeds the
+    card's shared memory."""
+    from rbc_gym_tpu_torch.sim import solver3d as s3
+
+    out = subprocess.run([str(host_binary), "smem_qp", str(nx), str(ny), str(nz)], check=True,
+                         capture_output=True, text=True).stdout.split()
+    assert 4 * int(out[0]) == limits.stage_qp_smem_bytes(nx, ny, nz)
+    fits = limits.stage_qp_smem_bytes(nx, ny, nz) <= limits.SMEM_PER_BLOCK
+    limit = s3.stage_kernel_limit("stage_qp", torch.float32, nx, ny, nz)
+    assert (limit is None) == fits, limit
 
 
 @pytest.mark.parametrize("ny,nz", [(32, 16), (64, 32), (8, 8), (4, 256), (33, 31)])

@@ -121,14 +121,32 @@ def test_k5_still_takes_every_grid_it_took(shape, auto):
     assert s3.select_stage_path(F32, *shape, "cpu") == "plain"
 
 
-@pytest.mark.parametrize("fused,error,reason", [
-    ("stage_qp", ValueError, "not carried over"),
-    ("stage_ew", ValueError, "not carried over"),
-    ("stage_x", ValueError, "unknown fused"),
+@pytest.mark.parametrize("fused,shape,dtype,reason", [
+    ("stage_x", TRAINING, F32, "unknown fused"),
+    # K3's analysis instance: its rhat accumulator (nx + 1 x-planes) and Fx
+    # outgrow a block's shared memory at nx = 64
+    ("stage_qp", (64, 32, 16), F32, "249,984 bytes of shared memory"),
+    ("stage_qp", BIG, F32, r"ny \* nz <= 1024"),
+    ("stage_ew", BIG, F32, r"ny \* nz <= 1024"),
+    ("stage_qp", TRAINING, F64, "float32"),
 ])
-def test_refused_fused_values_are_named(fused, error, reason):
-    with pytest.raises(error, match=reason):
-        s3.select_stage_path(F32, *TRAINING, "cuda", fused)
+def test_refused_fused_values_are_named(fused, shape, dtype, reason):
+    with pytest.raises(ValueError, match=reason):
+        s3.select_stage_path(dtype, *shape, "cuda", fused)
+
+
+@pytest.mark.parametrize("fused,shape", [
+    ("stage_qp", TRAINING),  # 172,160 bytes: one block an SM
+    ("stage_qp", (16, 16, 8)),
+    ("stage_qp", (48, 16, 24)),
+    ("stage_ew", TRAINING),  # K3 itself
+    ("stage_ew", (6, 32, 16)),  # K3 takes nx % 4 != 0 when forced
+])
+def test_stage_qp_and_stage_ew_are_accepted_where_their_kernel_fits(fused, shape):
+    assert s3.select_stage_path(F32, *shape, "cuda", fused) == fused
+    assert s3.select_stage_path(F32, *shape, "cpu", fused) == fused
+    assert s3.stage_kernel_limit(fused, F32, *shape) is None
+    assert s3.select_stage_path(F32, *shape, "cuda") != fused  # opt-in only
 
 
 def test_solver3d_exposes_its_path_and_runs_it():

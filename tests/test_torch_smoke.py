@@ -158,13 +158,14 @@ def test_smoke_phases_run_on_cpu_plain_halves():
 
     fake = {"ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5, "bound_by": "bytes"}
     names = ("env_step_2d", "tendencies_2d", "stage_rk_3d", "correct_3d", "stage_rk_3d_xy",
-             "field_tendency_3d", "div_3d")
+             "field_tendency_3d", "div_3d", "stage_rk_3d_rhat")
     records = chip_smoke.kernel_records(
         {"env_step_2d": 1e-7, "env_step_2d_main": 2e-7, "tendencies_2d": 1e-8,
          "stage_rk_3d": 3e-7, "correct_3d": 1e-8, "stage_rk_3d_xy": 4e-7,
-         "field_tendency_3d": 5e-7, "div_3d": 6e-8},
+         "field_tendency_3d": 5e-7, "div_3d": 6e-8, "stage_rk_3d_rhat": 1e-5},
         {"env_step_2d": 3, "tendencies_2d": 3, "stage_rk_3d": 117, "correct_3d": 3,
-         "stage_rk_3d_xy": 225, "field_tendency_3d": 468, "div_3d": 117},
+         "stage_rk_3d_xy": 225, "field_tendency_3d": 468, "div_3d": 117,
+         "stage_rk_3d_rhat": 39},
         {name: fake for name in names},
     )
     assert [rec["name"] for rec in records] == list(names)
@@ -202,6 +203,25 @@ def test_smoke_3d_phases_run_on_cpu_plain_halves():
     lo, hi = chip_smoke.NU_RANGE_3D
     assert lo <= path["nusselt"][0] <= path["nusselt"][1] <= hi
     json.dumps(path)
+
+
+def test_smoke_lazy_options_phase_runs_on_cpu_plain_halves():
+    """Phase 38 at a reduced grid: the analysis instance's plain version
+    against itself (its rhat against the float64 run within twice its own
+    error), the stage_qp, stage_ew and precision env steps from one reset,
+    q of the three precisions against float64, both TF32 flags off."""
+    out = chip_smoke.lazy_options("cpu", num_envs=2, state_shape=(8, 8, 8),
+                                  heater_duration=0.0125)
+    assert all(v["error"] <= v["bound"] for v in out["gated"].values())
+    assert {"stage0_fields", "stage1_g", "stage2_rhat", "stage_qp_env_step",
+            "high_env_step"} <= set(out["gated"])
+    assert out["max_abs_err"] == {"stage_rk_3d_rhat": 0.0}  # both halves plain here
+    assert out["stage_ew_equal"] and out["env_step_diffs"]["stage_qp_vs_stage"]["u"] == 0.0
+    assert not any(n for launches in out["launches"].values() for n in launches.values())
+    assert set(out["q_vs_float64"]) == {"highest", "high", "default", "max_abs_q"}
+    assert out["tf32_flags"] == {"matmul": False, "cudnn": False}
+    assert out["times"] == {}  # timed on the card only
+    json.dumps(out)
 
 
 def test_smoke_big_grid_phases_run_on_cpu_plain_halves():

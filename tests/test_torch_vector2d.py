@@ -193,17 +193,22 @@ def test_bank_options_are_validated():
 
 
 def test_poisson_precision_is_taken_as_none_and_refused_otherwise():
-    """The JAX env takes ``poisson_precision`` (a TPU matrix-unit pass
-    count); the port takes None, as its 3D env does, and steps exactly as
-    without it, and refuses every other value by name."""
-    jenv = JRBC2DVectorEnv(2, **CFG, dtype=jnp.float64, poisson_precision=None)
-    env, default = _env(2, poisson_precision=None), _env(2)
+    """The JAX env's 2D ``poisson_precision``: None, "highest" and "high"
+    (which the JAX package maps to "highest") are one full-precision solve,
+    so the port steps exactly as without it; "bf16x3" and "default", which
+    run in the JAX package's K1 through a split-product branch, and unknown
+    names are refused by name."""
+    jenv = JRBC2DVectorEnv(2, **CFG, dtype=jnp.float64, poisson_precision="high")
+    default = _env(2)
     _, state = _states(2, step=1, seed=9)
     actions = np.random.default_rng(10).uniform(-1, 1, (2, 12))
-    _, ts = env.step(state, actions)
     _, ts_default = default.step(state, actions)
-    assert torch.equal(ts.obs, ts_default.obs) and torch.equal(ts.reward, ts_default.reward)
-    assert jenv.num_envs == env.num_envs
-    for value in ("bf16x3", "highest"):
-        with pytest.raises(ValueError, match="poisson_precision"):
+    for value in (None, "highest", "high"):
+        _, ts = _env(2, poisson_precision=value).step(state, actions)
+        assert torch.equal(ts.obs, ts_default.obs) and torch.equal(ts.reward, ts_default.reward)
+    assert jenv.num_envs == default.num_envs
+    for value in ("bf16x3", "default"):
+        with pytest.raises(ValueError, match=f"poisson_precision={value!r}.*split-product"):
             _env(2, poisson_precision=value)
+    with pytest.raises(ValueError, match="unknown poisson_precision"):
+        _env(2, poisson_precision="bf16")

@@ -191,9 +191,10 @@ def test_stage_xy_env_steps_and_refuses_unported_options():
     """The K5 path forced on the CPU (its wrapper runs the plain version):
     steps, leaves its input state alone, equals the plain path; the JAX
     env's ``fused="field"`` and its alias True take the field path in
-    float32 and are refused in float64; its
-    ``fused`` values that are not carried over, and any
-    ``poisson_precision`` but None, are refused by name."""
+    float32 and are refused in float64, as are ``"stage_qp"`` and
+    ``"stage_ew"``, which take their own paths in float32; a
+    ``poisson_precision`` the JAX package's 3D solver does not know is
+    refused by name."""
     env = RBC3DVectorEnv(2, state_shape=(8, 16, 16), heater_duration=0.0125,
                          episode_length=0.15, fused="stage_xy", device="cpu")
     plain = RBC3DVectorEnv(2, state_shape=(8, 16, 16), heater_duration=0.0125,
@@ -214,7 +215,10 @@ def test_stage_xy_env_steps_and_refuses_unported_options():
         with pytest.raises(ValueError, match="float32"):
             _env(2, fused=fused)
     for fused in ("stage_qp", "stage_ew"):
+        assert RBC3DVectorEnv(2, **CFG, fused=fused, device="cpu").solver.path == fused
         with pytest.raises(ValueError, match=repr(fused)):
             _env(2, fused=fused)
+    for precision in (None, "highest", "high", "default"):
+        assert _env(2, poisson_precision=precision).num_envs == 2
     with pytest.raises(ValueError, match="poisson_precision"):
         _env(2, poisson_precision="bf16x3")
