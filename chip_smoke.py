@@ -218,6 +218,24 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      precisions against a float64 solve; both TF32 flags
                      off; the instance's ms a stage beside K3 plus the dense
                      analysis product, a stage_qp step beside a stage step
+39. poisson_precision_2d the 2D solver's "bf16x3" and "default" through K1's
+                     split-product and one-pass TF32 instances at 1024 envs
+                     on 96x64: each against its plain version at 6 substeps
+                     ("bf16x3" at K1's gate against three TF32-split
+                     products; "default" against the plain version in
+                     float64, within twice the float32 plain version's own
+                     error at "default" or K1's gate), beside float32 K1
+                     and a float64 run; the runtime and off-chip instances
+                     at "bf16x3" at 8 envs; one env step of RBC2DVectorEnv
+                     at each name (the instance 1 launch, float32 K1 none;
+                     finite, Nu in range, max|div| under 1e-4, at "default"
+                     under twice the plain path's own at "default", which
+                     a one-pass TF32 solve leaves at ~2e-4); Solver2D.substep at
+                     "bf16x3" within 5e-6 of "highest"; utils.parity at
+                     "bf16x3"; the Ra=1e4 bank's fixed point through the
+                     split instance (Nu 4.000 +- 0.02, 20 launches); both
+                     TF32 flags off; each instance's ms beside float32 K1
+                     (timed first and last), plain ms, bound and share
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -268,7 +286,11 @@ from rbc_gym_tpu_torch.ops.limits import (
     field_tendency_on_march,
     tendencies_2d_instance,
 )
-from rbc_gym_tpu_torch.ops.poisson import FACTORED_POISSON_MIN_NXNZ, make_poisson_solver_3d
+from rbc_gym_tpu_torch.ops.poisson import (
+    FACTORED_POISSON_MIN_NXNZ,
+    make_poisson_solver_3d,
+    spectral_constants_2d,
+)
 from rbc_gym_tpu_torch.parallel import initialize_distributed, make_env_mesh, shard_vector_env
 from rbc_gym_tpu_torch.parallel.launch import run_ranks
 from rbc_gym_tpu_torch.rl import PPO, CheckpointCallback, NusseltCallback, restore_training_state
@@ -322,6 +344,15 @@ BIG_DT_SOLVER = 0.005
 # 50 substeps the same gate scaled by the 50/6 more stages, rounded down.
 K1_ATOL = 5e-6
 K1_MAIN_ATOL = 4e-5
+# K1's one-pass TF32 instance (poisson_precision "default") rounds every
+# operand of the solve to TF32 (2^-11 relative), far above K1_ATOL. It is
+# held against its plain version run in float64 on the same inputs, within
+# K1_TF32_VS_PLAIN times the error of the float32 plain version at
+# "default" (its products one TF32 pass on the card too) against the same
+# (phase 38's rule for rhat), or within K1_ATOL where that is larger: the
+# float32 instance's own gate, which on small grids lies above both TF32
+# errors. The split-product instance keeps K1_ATOL.
+K1_TF32_VS_PLAIN = 2.0
 # K2, one stage: the JAX test of the tendency kernel (tests/test_solver2d.py:208).
 K2_ATOL = 1e-5
 # Physical Nu at Ra=1e4 spans conduction (1) to developed 2D convection (~5).
@@ -456,6 +487,8 @@ SOURCES = {
     "field_tendency_3d": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
     "div_3d": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
     "stage_rk_3d_rhat": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
+    "env_step_2d_tf32x3": "rbc_gym_tpu_torch/csrc/rbc2d.cu",
+    "env_step_2d_tf32": "rbc_gym_tpu_torch/csrc/rbc2d.cu",
 }
 REPLACES = {
     "env_step_2d": "rbc_gym_tpu/ops/pallas2d.py:220",
@@ -467,12 +500,18 @@ REPLACES = {
     "div_3d": "rbc_gym_tpu/ops/pallas3d.py:886",
     # the same Pallas body with emit_rhat (its in-kernel analysis, :853-882)
     "stage_rk_3d_rhat": "rbc_gym_tpu/ops/pallas3d.py:597",
+    # the same Pallas body with bf16x3 (its split-product branch, :270-304)
+    # and with its DEFAULT products (:432-436)
+    "env_step_2d_tf32x3": "rbc_gym_tpu/ops/pallas2d.py:220",
+    "env_step_2d_tf32": "rbc_gym_tpu/ops/pallas2d.py:220",
 }
 # the gated parity error at the main path's shapes that each kernel reports
 MAIN_SHAPE_CHECK = {"env_step_2d": "env_step_2d_main", "tendencies_2d": "tendencies_2d",
                     "stage_rk_3d": "stage_rk_3d", "correct_3d": "correct_3d",
                     "stage_rk_3d_xy": "stage_rk_3d_xy", "field_tendency_3d": "field_tendency_3d",
-                    "div_3d": "div_3d", "stage_rk_3d_rhat": "stage_rk_3d_rhat"}
+                    "div_3d": "div_3d", "stage_rk_3d_rhat": "stage_rk_3d_rhat",
+                    "env_step_2d_tf32x3": "env_step_2d_tf32x3",
+                    "env_step_2d_tf32": "env_step_2d_tf32"}
 WRAPPERS = registry.KERNEL_WRAPPERS
 
 
@@ -517,10 +556,35 @@ def make_case(device, num_envs: int, state_shape=(64, 96), heater_duration=0.18,
     return solver, dict(u=u, w=w, b=b, bottom=bottom)
 
 
-def k1_run(solver, case, kernel: bool):
+def k1_run(solver, case, kernel: bool, precision=None):
     fn = k2d.env_step_2d if kernel else k2d.env_step_2d_plain
     return fn(case["u"], case["w"], case["b"], case["bottom"], solver.spectral,
-              solver.coeffs, solver.params.dt_solver, solver.params.substeps_per_env_step)
+              solver.coeffs, solver.params.dt_solver, solver.params.substeps_per_env_step,
+              precision)
+
+
+def k1_float64(solver, case):
+    """K1's plain version run in float64 on ``case`` (any dtype), with the
+    solve's constants built in float64 (every product full precision)."""
+    g = solver.grid
+    spectral = spectral_constants_2d(g.nx, g.nz, g.dx, g.dz, torch.float64, case["u"].device)
+    return k2d.env_step_2d_plain(*(case[k].double() for k in ("u", "w", "b", "bottom")),
+                                 spectral, solver.coeffs, solver.params.dt_solver,
+                                 solver.params.substeps_per_env_step)
+
+
+def k1_tf32_errors(solver, case, got, plain=None, ref=None) -> dict:
+    """Max |x - x64| over u, w, b, p_nhs of K1's output ``got`` (``kernel``)
+    and of the float32 plain version at "default" (``plain_float32``; ``plain``
+    if given, else run here), x64 the plain version run in float64 on the
+    same inputs (``k1_float64``), and the one-pass instance's gate on
+    ``kernel`` (``bound``, K1_TF32_VS_PLAIN); ``ref`` if given is x64."""
+    ref = k1_float64(solver, case) if ref is None else ref
+    plain = k1_run(solver, case, False, "default") if plain is None else plain
+    kernel = max(abs_diffs(K1_OUT, ref, got).values())
+    plain = max(abs_diffs(K1_OUT, ref, plain).values())
+    return {"kernel": kernel, "plain_float32": plain,
+            "bound": max(K1_TF32_VS_PLAIN * plain, K1_ATOL)}
 
 
 def k2_run(solver, case, kernel: bool):
@@ -696,8 +760,24 @@ def main_path(device, num_envs=1024, state_shape=(64, 96), observation_shape=(8,
     nz_o, nx_o = observation_shape
     if tuple(ts.obs.shape) != (num_envs, 3, nz_o, nx_o):
         raise AssertionError(f"obs shape {tuple(ts.obs.shape)}")
-    for name, x in [("obs", ts.obs), ("reward", ts.reward), *state.fields._asdict().items(),
-                    *(("substep." + k, v) for k, v in sub._asdict().items())]:
+    checks = check_2d(env, state, ts, extra=sub)
+    if device.type == "cuda" and min(launches.values()) < 1:
+        raise AssertionError(f"the main path missed a kernel: {launches}")
+    return {"phase": "main_path", "num_envs": num_envs, "steps": steps,
+            "reset_s": reset_s, "steps_s": steps_s,
+            "env_steps_per_s": num_envs * steps / steps_s, **checks,
+            "launches": launches, "substep_p_hy_calls": p_hy_calls[0]}
+
+
+def check_2d(env, state, ts, extra=None, div_atol=None) -> dict:
+    """A 2D env step's checks: obs, reward and the fields (and ``extra``'s,
+    a substep's) finite, reward = -Nu of the observation, the physical Nu
+    of the state in ``NU_RANGE``, max |div| under the dtype's gate (or
+    ``div_atol``)."""
+    fields = [*state.fields._asdict().items()]
+    if extra is not None:
+        fields += [("substep." + k, v) for k, v in extra._asdict().items()]
+    for name, x in [("obs", ts.obs), ("reward", ts.reward), *fields]:
         if not bool(torch.isfinite(x).all()):
             raise AssertionError(f"{name} is not finite")
     if not torch.equal(ts.reward, -ts.nusselt_obs):
@@ -709,17 +789,13 @@ def main_path(device, num_envs=1024, state_shape=(64, 96), observation_shape=(8,
     nu_lo, nu_hi = float(nu_phys.min()), float(nu_phys.max())
     if not (NU_RANGE[0] <= nu_lo and nu_hi <= NU_RANGE[1]):
         raise AssertionError(f"Nu in [{nu_lo}, {nu_hi}], outside {NU_RANGE}")
-    div_tol = DIVERGENCE_ATOL[env.dtype]
-    div = max(max_divergence(f, g), max_divergence(sub, g))
+    div_tol = DIVERGENCE_ATOL[env.dtype] if div_atol is None else div_atol
+    div = max_divergence(f, g)
+    if extra is not None:
+        div = max(div, max_divergence(extra, g))
     if div >= div_tol:
         raise AssertionError(f"max |div| {div} >= {div_tol}")
-    if device.type == "cuda" and min(launches.values()) < 1:
-        raise AssertionError(f"the main path missed a kernel: {launches}")
-    return {"phase": "main_path", "num_envs": num_envs, "steps": steps,
-            "reset_s": reset_s, "steps_s": steps_s,
-            "env_steps_per_s": num_envs * steps / steps_s,
-            "nusselt_physical": [nu_lo, nu_hi], "max_abs_div": div,
-            "div_atol": div_tol, "launches": launches, "substep_p_hy_calls": p_hy_calls[0]}
+    return {"nusselt_physical": [nu_lo, nu_hi], "max_abs_div": div, "div_atol": div_tol}
 
 
 def _cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -1494,6 +1570,26 @@ def bank_div_atol(data) -> float:
     return 2 * ulp * (float(np.abs(data.u).max()) / dx + float(np.abs(data.w).max()) / dz)
 
 
+def fixed_point_env(n_fixed: int, bank, dtype, device, **kwargs) -> RBC2DVectorEnv:
+    """The first ``n_fixed`` episodes of ``bank`` in order, never reset."""
+    return RBC2DVectorEnv(n_fixed, checkpoint=str(bank), bank_sampling="sequential",
+                          auto_reset=False, dtype=dtype, device=device, **kwargs)
+
+
+def fixed_point(env, steps: int) -> tuple:
+    """``steps`` zero-action env steps of ``env`` from its reset -> (the
+    band [min, max] of Nu of the states, its largest distance from
+    ``FIXED_POINT_NU``)."""
+    zero = torch.zeros((env.num_envs, env.params.n_heaters), dtype=env.dtype, device=env.device)
+    state, _ = env.reset(seed=0)
+    nus = []
+    for _ in range(steps):
+        state, ts = env.step(state, zero)
+        nus.append(ts.nusselt_state)
+    nus = torch.stack(nus)
+    return [float(nus.min()), float(nus.max())], float((nus - FIXED_POINT_NU).abs().max())
+
+
 def bank_oracles(device, bank=ASSETS / "ckpt_ra10000_train.npz", episodes=BANK_EPISODES,
                  n_fixed=4, steps=20) -> dict:
     """PARITY.md 1-2 on the port: max|div| of every bank episode under the
@@ -1517,19 +1613,10 @@ def bank_oracles(device, bank=ASSETS / "ckpt_ra10000_train.npz", episodes=BANK_E
            "episodes": data.num_episodes, "max_abs_div": div, "div_atol": div_atol}
     for dtype, atol in ((torch.float64, FIXED_POINT_ATOL[torch.float64]),
                         (torch.float32, FIXED_POINT_ATOL[torch.float32])):
-        env = RBC2DVectorEnv(n_fixed, checkpoint=str(bank), bank_sampling="sequential",
-                             auto_reset=False, dtype=dtype, device=device)
-        zero = torch.zeros((n_fixed, env.params.n_heaters), dtype=dtype, device=device)
+        env = fixed_point_env(n_fixed, bank, dtype, device)
         reset_counters()
-        state, _ = env.reset(seed=0)
-        nus = []
-        for _ in range(steps):
-            state, ts = env.step(state, zero)
-            nus.append(ts.nusselt_state)
+        band, err = fixed_point(env, steps)
         launches = k2d.env_step_2d.launches
-        nus = torch.stack(nus)
-        band = [float(nus.min()), float(nus.max())]
-        err = float((nus - FIXED_POINT_NU).abs().max())
         name = str(dtype).replace("torch.", "")
         if not err <= atol:
             raise AssertionError(f"{name} fixed point: Nu in {band}, off {FIXED_POINT_NU} "
@@ -3288,6 +3375,166 @@ def lazy_options(device, num_envs=1024, state_shape=(16, 32, 32), heater_duratio
 
 
 # ---------------------------------------------------------------------------
+# 2D: poisson_precision "bf16x3" and "default", K1's TF32 instances
+# ---------------------------------------------------------------------------
+
+# K1's instances by the JAX 2D solver's names: the wrapper that counts each,
+# and the precision of its solve's products (``ops.kernels2d.K1_PASSES``).
+K1_INSTANCES_2D = {"highest": ("env_step_2d", None),
+                   "bf16x3": ("env_step_2d_tf32x3", "high"),
+                   "default": ("env_step_2d_tf32", "default")}
+K1_WRAPPERS = tuple(name for name, _ in K1_INSTANCES_2D.values())
+
+
+def poisson_precision_2d(device, num_envs=1024, state_shape=(64, 96), observation_shape=(8, 48),
+                         few_envs=8,
+                         other_shapes=(("runtime", (32, 128)), ("runtime_plain", (40, 128)),
+                                       ("off_chip", (64, 128))),
+                         parity_envs=128, n_fixed=4, fixed_steps=20, reps=3) -> dict:
+    """Phase 39: the 2D ``poisson_precision`` "bf16x3" and "default", float32.
+    From one case of ``num_envs`` on ``state_shape`` (6 substeps), K1's
+    split-product instance against its plain version at "high" (K1_ATOL)
+    and its one-pass instance against the plain version run in float64
+    (``k1_tf32_errors``), both beside float32 K1 and its plain version
+    against the same float64 run; the split-product runtime (nz a multiple
+    of 32 and not) and off-chip instances on ``other_shapes`` at
+    ``few_envs``; one env step of ``RBC2DVectorEnv(num_envs,
+    poisson_precision=...)`` at each name from one reset, with
+    ``check_2d``'s checks (at "default" the divergence within
+    K1_TF32_VS_PLAIN times the plain path's own at "default" from the same
+    state) and the instance's launch counted (float32 K1's not);
+    ``Solver2D.substep`` at "bf16x3" within K1_ATOL of "highest";
+    ``utils.parity.fused_parity_2d(poisson_precision="bf16x3")`` (on the
+    card; its refusal of the CPU elsewhere); the Ra=1e4 bank's fixed point
+    through the split instance (``fixed_point``, ``n_fixed`` episodes,
+    ``fixed_steps`` steps); both TF32 flags off afterwards; and CUDA-event
+    times of each instance at the main path's 50 substeps beside float32 K1
+    (timed first and last), with the plain versions and the bounds."""
+    begin = time.perf_counter()
+    device = torch.device(device)
+    dtype = torch.float32  # the precisions act in float32 only
+    gated = {}
+    solver, case = make_case(device, num_envs, state_shape, heater_duration=0.18, seed=21,
+                             dtype=dtype)
+    ref = k1_float64(solver, case)
+    runs = {name: (k1_run(solver, case, True, prec), k1_run(solver, case, False, prec))
+            for name, (_, prec) in K1_INSTANCES_2D.items()}
+    vs_plain = {name: abs_diffs(K1_OUT, got, plain) for name, (got, plain) in runs.items()}
+    vs_float64 = {name: {"kernel": max(abs_diffs(K1_OUT, ref, got).values()),
+                         "plain_float32": max(abs_diffs(K1_OUT, ref, plain).values())}
+                  for name, (got, plain) in runs.items()}
+    gated["bf16x3"] = (max(vs_plain["bf16x3"].values()), K1_ATOL)
+    one_pass = k1_tf32_errors(solver, case, *runs["default"], ref=ref)
+    gated["default"] = (one_pass["kernel"], one_pass["bound"])
+
+    others = {}
+    for name, shape in other_shapes:
+        nz, nx = shape
+        on_chip = env_step_2d_on_chip(nx, nz)
+        if on_chip != (name != "off_chip"):
+            raise AssertionError(f"{shape} does not run K1's {name} instance")
+        s, c = make_case(device, few_envs, shape, heater_duration=0.18, seed=22, dtype=dtype)
+        err = abs_diffs(K1_OUT, k1_run(s, c, True, "high"), k1_run(s, c, False, "high"))
+        others[name] = {"shape": list(shape), "swizzled": on_chip and nz % 32 == 0, **err}
+        gated[f"bf16x3_{name}"] = (max(err.values()), K1_ATOL)
+
+    kw = dict(state_shape=state_shape, observation_shape=observation_shape, dtype=dtype,
+              device=device)
+    envs = {name: RBC2DVectorEnv(num_envs, poisson_precision=name, **kw)
+            for name in K1_INSTANCES_2D}
+    rng = np.random.default_rng(0)
+    action = rng.uniform(-1.0, 1.0, (num_envs, envs["highest"].params.n_heaters))
+    state, _ = envs["highest"].reset(seed=0)
+    launches, checks, failures = {}, {}, {}
+    for name in ("bf16x3", "default"):
+        reset_counters()
+        nxt, ts = envs[name].step(state, action)
+        _sync(device)
+        launches[name] = {k: WRAPPERS[k].launches for k in K1_WRAPPERS}
+        div_atol = DIVERGENCE_ATOL[dtype]
+        if name == "default":
+            # one TF32 pass a product leaves the solve's residual, and so
+            # the projected divergence, at TF32's rounding: the plain
+            # path's own at "default" from the same state, K1_TF32_VS_PLAIN
+            # times (or the float32 gate where that is larger)
+            plain = make_solver2d(envs[name].grid, envs[name].params, dtype, device,
+                                  fused=False, poisson_precision=name)
+            plain_div = max_divergence(plain.env_step(state.fields, action), plain.grid)
+            div_atol = max(div_atol, K1_TF32_VS_PLAIN * plain_div)
+        try:
+            checks[name] = check_2d(envs[name], nxt, ts, div_atol=div_atol)
+        except AssertionError as e:
+            failures[f"{name}_env_step"] = str(e)
+        if name == "default":
+            checks.setdefault(name, {})["plain_max_abs_div"] = plain_div
+        expect_launches(device, launches[name],
+                        {k: int(k == K1_INSTANCES_2D[name][0]) for k in K1_WRAPPERS})
+    bottom = envs["highest"].solver.heater_profile(action)
+    subs = {name: envs[name].solver.substep(state.fields, bottom) for name in ("highest", "bf16x3")}
+    substep_diff = abs_diffs(K1_OUT, [getattr(subs["bf16x3"], n) for n in ("u", "w", "b", "p_nhs")],
+                             [getattr(subs["highest"], n) for n in ("u", "w", "b", "p_nhs")])
+    gated["substep_bf16x3"] = (max(substep_diff.values()), K1_ATOL)
+
+    if device.type == "cuda":
+        err = parity.fused_parity_2d(num_envs=parity_envs, device=device,
+                                     poisson_precision="bf16x3", check=False)
+        gated["fused_parity_2d_bf16x3"] = (err, parity.ATOL_DEFAULT)
+    else:
+        try:
+            parity.fused_parity_2d(num_envs=1, device=device, poisson_precision="bf16x3")
+            raise AssertionError("fused_parity_2d ran on the CPU")
+        except ValueError:
+            pass
+
+    env = fixed_point_env(n_fixed, ASSETS / "ckpt_ra10000_train.npz", dtype, device,
+                          poisson_precision="bf16x3")
+    reset_counters()
+    band, err = fixed_point(env, fixed_steps)
+    fixed = {"path": env.solver.path, "nusselt_band": band, "env_steps": fixed_steps,
+             "launches": {k: WRAPPERS[k].launches for k in K1_WRAPPERS}}
+    expect_launches(device, fixed["launches"], {"env_step_2d": 0, "env_step_2d_tf32x3":
+                                                fixed_steps, "env_step_2d_tf32": 0})
+    gated["fixed_point_bf16x3"] = (err, FIXED_POINT_ATOL[torch.float32])
+
+    tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32}
+    if any(tf32.values()):
+        raise AssertionError(f"a TF32 flag is on after the 2D precisions: {tf32}")
+    failed = {**failures, **{k: v for k, v in gated.items() if not v[0] <= v[1]}}
+    if failed:
+        raise AssertionError(f"2D poisson_precision checks failed (error, bound): {failed}; "
+                             f"by field against plain: {vs_plain}; against float64: "
+                             f"{vs_float64}")
+
+    times = {}
+    if device.type == "cuda":
+        solver, case = make_case(device, num_envs, state_shape, heater_duration=1.5, seed=2,
+                                 dtype=dtype)
+        nz, nx = state_shape
+        n_sub = solver.params.substeps_per_env_step
+        order = ("highest", "bf16x3", "default", "highest")
+        for i, name in enumerate(order):
+            wrapper, prec = K1_INSTANCES_2D[name]
+            ms = _cuda_ms(lambda: k1_run(solver, case, True, prec), reps)
+            if i == len(order) - 1:
+                times[wrapper]["ms_again"] = ms
+                continue
+            work = env_step_work(num_envs, nx, nz, n_sub, prec)
+            bound_ms, bound_by = bound(work)
+            times[wrapper] = {"ms": ms, "plain_ms": _cuda_ms(
+                lambda: k1_run(solver, case, False, prec), 1), "bound_ms": bound_ms,
+                "bound_by": bound_by, "share_of_bound": bound_ms / ms, **work}
+    return {"phase": "poisson_precision_2d", "num_envs": num_envs,
+            "gated": {k: {"error": e, "bound": b} for k, (e, b) in gated.items()},
+            "max_abs_err": {K1_INSTANCES_2D[n][0]: max(vs_plain[n].values())
+                            for n in ("bf16x3", "default")},
+            "vs_plain_by_field": vs_plain, "vs_float64": vs_float64, "other_instances": others,
+            "launches": launches, "checks": checks, "substep_bf16x3_vs_highest": substep_diff,
+            "fixed_point_bf16x3": fixed, "tf32_flags": tf32, "times": times,
+            "seconds": time.perf_counter() - begin}
+
+
+# ---------------------------------------------------------------------------
 # Records
 # ---------------------------------------------------------------------------
 
@@ -3387,12 +3634,16 @@ def main() -> int:
     emit({**measurement(device, rates), "card": card})
     options = lazy_options(device)
     emit({**options, "card": card})
+    precisions = poisson_precision_2d(device)
+    emit({**precisions, "card": card})
+    tf32 = {"env_step_2d_tf32x3": "bf16x3", "env_step_2d_tf32": "default"}
     # each kernel's launches from the main path that is its own (K4 runs on
     # every 3D path; its count is the training grid's lazy path, its error
     # the larger of the two grids')
     errors = {**parity["max_abs_err"], **parity_3d["max_abs_err"],
               "stage_rk_3d_xy": parity_big["max_abs_err"]["stage_rk_3d_xy"],
-              **parity_field["max_abs_err"], **options["max_abs_err"]}
+              **parity_field["max_abs_err"], **options["max_abs_err"],
+              **precisions["max_abs_err"]}
     errors["correct_3d"] = max(errors["correct_3d"], parity_big["max_abs_err"]["correct_3d"])
     field_names = ("field_tendency_3d", "div_3d")
     emit({"kernels": kernel_records(
@@ -3400,11 +3651,13 @@ def main() -> int:
         {**path["launches"], **path_3d["launches"],
          "stage_rk_3d_xy": path_big["launches"]["stage_rk_3d_xy"],
          **{k: path_field["launches"][k] for k in field_names},
-         "stage_rk_3d_rhat": options["launches"]["stage_qp"]["stage_rk_3d_rhat"]},
+         "stage_rk_3d_rhat": options["launches"]["stage_qp"]["stage_rk_3d_rhat"],
+         **{k: precisions["launches"][name][k] for k, name in tf32.items()}},
         {**times["kernels"], **times_3d["kernels"],
          "stage_rk_3d_xy": times_big["kernels"]["stage_rk_3d_xy"],
          **{k: times_field["kernels"][k] for k in field_names},
-         "stage_rk_3d_rhat": options["times"]["stage_rk_3d_rhat"]})})
+         "stage_rk_3d_rhat": options["times"]["stage_rk_3d_rhat"],
+         **{k: precisions["times"][k] for k in tf32}})})
     emit({"phase": "total", "seconds": time.perf_counter() - wall})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,15 @@
 //   __pipeline_wait_prior and the barrier after it guarantee on the card;
 // - a warp shuffle posts each lane's value and meets the other lanes of its
 //   warp at the warp's barrier, reads its source lane's, and meets them
-//   again.
+//   again;
+// - K1's TF32 tensor-core product (rbc2d.cu's to_tf32 and mma_tf32, which
+//   this file replaces: RBC_HOST_BUILD) rounds as cvt.rna.tf32.f32 does, and
+//   its m16n8k8 mma is warp-collective like a shuffle: each lane posts its
+//   A and B fragments, meets its warp, sums its four results in float32
+//   over the whole 16 x 8 A and 8 x 8 B in the PTX fragment layout, and
+//   meets the warp again.
 #pragma once
+#define RBC_HOST_BUILD 1
 #include <algorithm>
 #include <barrier>
 #include <cmath>
@@ -78,4 +85,36 @@ template <class T>
 inline T __shfl_up_sync(unsigned, T v, unsigned delta, int width = 32) {
   const unsigned lane = threadIdx.x % width;
   return shuffle(v, lane >= delta ? threadIdx.x - delta : threadIdx.x);
+}
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  std::memcpy(&u, &x, sizeof u);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float x;
+  std::memcpy(&x, &u, sizeof x);
+  return x;
+}
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero
+inline unsigned to_tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+inline float mma_slots[1024][6];  // each thread's a0..a3, b0, b1
+inline void mma_tf32(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  std::barrier<>& bar = *warp_barriers[threadIdx.x / 32];
+  for (int i = 0; i < 4; ++i) mma_slots[threadIdx.x][i] = __uint_as_float(a[i]);
+  for (int i = 0; i < 2; ++i) mma_slots[threadIdx.x][4 + i] = __uint_as_float(b[i]);
+  bar.arrive_and_wait();
+  const unsigned base = threadIdx.x - threadIdx.x % 32, g = threadIdx.x % 32 / 4,
+                 t = threadIdx.x % 4;
+  // A[m][k] is lane 4 (m % 8) + k % 4's a[(m >= 8) + 2 (k >= 4)]; B[k][n] is
+  // lane 4 n + k % 4's b[k >= 4]; d[i] is D[g + 8 (i >= 2)][2 t + i % 2]
+  for (int i = 0; i < 4; ++i) {
+    const unsigned m = g + 8 * (i >> 1), n = 2 * t + (i & 1);
+    float sum = d[i];
+    for (unsigned k = 0; k < 8; ++k)
+      sum += mma_slots[base + 4 * (m % 8) + k % 4][(m >= 8) + 2 * (k >= 4)] *
+             mma_slots[base + 4 * n + k % 4][4 + (k >= 4)];
+    d[i] = sum;
+  }
+  bar.arrive_and_wait();
 }

@@ -60,6 +60,34 @@
 //   same warp scan, a chunk of 32 levels at a time from the top; the
 //   tendencies by ub5.cuh's tendencies_block; the same DCT-form solve, one
 //   32-column tile of each product after another).
+//   The split-product branch of the TPU kernel (pallas2d.py:270-304, dot3:
+//   each solve product as three one-pass bf16 dots over hi and lo parts;
+//   the 2D solver's poisson_precision "bf16x3") and its one-pass DEFAULT
+//   products ("default") are instances of the same three kernels with a
+//   compile-time pass count, kPasses: 3 (the launcher's passes, from the
+//   wrapper's precision "high") or 1 ("default"); 0 is the float32 solve
+//   above, which these instances leave as it was. Each of the solve's four
+//   products runs on the tensor cores as warp-level
+//   mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32 tiles over the (nx, nz) slab
+//   (mma_product): a warp takes a 16 x 32 tile of the result, four m16n8k8
+//   tiles side by side sharing the A fragment, and walks the contraction 8
+//   deep at a time. Operands are split in registers as they are loaded
+//   (tf32_operands): at 3 passes hi is the value with its low 13 mantissa
+//   bits cleared (TF32-exact, ops/poisson.tf32_split) and lo = x - hi
+//   rounded to TF32, and a product is hi . lo + lo . hi + hi . hi (the
+//   dropped lo . lo is under 2^-20 of it); at 1 pass each operand is
+//   rounded once (cvt.rna.tf32.f32). Every operand reaches the mma
+//   TF32-exact, its low 13 bits zero, so nothing depends on what the
+//   tensor core does with raw float32 bits. The constants are read as they
+//   are (no second copy), and the shared memory is the float32 instance's.
+//   The fragments' layout is not the thread-owns-columns one, so each
+//   product writes its slab, and the correction reads its points from the
+//   slab after the barrier. Where nz is a multiple of 32 the slabs and the
+//   z transforms are stored with their columns XOR-swizzled by the row
+//   (slab_swizzle), so that neither a fragment's rows nor its columns fall
+//   on one bank; elsewhere they are stored plain. Fragments beyond the edge
+//   of a grid that is not a multiple of the tile are zero. Simple first:
+//   mma.sync from shared memory and L2, no wgmma, TMA or pipelining.
 //
 // K2 tendencies_2d_march_kernel replaces ops/pallas2d.py:_tendency_kernel
 // (reached from make_tendencies_2d, pl.pallas_call at :562): gu, gw, gb of
@@ -149,6 +177,106 @@ K1Params k1_params(int nx, int nz, int n_substeps, float dt, float dx, float dz,
     P.idts[m] = (float)(1.0 / dts);
   }
   return P;
+}
+
+// ---- the TF32 tensor-core products of K1's split-product instances -----------
+
+#ifndef RBC_HOST_BUILD  // csrc/host_shim.h stands in for these two on the host
+// x rounded to TF32 (to nearest, ties away from zero), in a b32 register.
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d += a . b for one m16n8k8 tile of the warp: a (16 x 8, row-major) and b
+// (8 x 8, column-major) TF32 in the PTX fragment layout (lane = 4 g + t:
+// a = A[g][t], A[g + 8][t], A[g][t + 4], A[g + 8][t + 4]; b = B[t][g],
+// B[t + 4][g]; d = D[g][2t], D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1]).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+#endif
+
+// The TF32 operands of N float32 values for kPasses passes: at 3, hi (the
+// value with its low 13 mantissa bits cleared) and lo (the rest, rounded to
+// TF32); at 1, the value rounded to TF32, in hi.
+template <int kPasses, int N>
+__device__ __forceinline__ void tf32_operands(const float (&x)[N], unsigned (&hi)[N],
+                                              unsigned (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if constexpr (kPasses == 3) {
+      hi[i] = __float_as_uint(x[i]) & 0xffffe000u;
+      lo[i] = to_tf32(x[i] - __uint_as_float(hi[i]));
+    } else {
+      hi[i] = to_tf32(x[i]);
+    }
+  }
+}
+
+// The column of element (row, col) of a slab or z transform stored
+// swizzled: col XOR a function of the row's low three bits, a multiple of 4
+// under 32, so that the 8 rows x 4 columns of an A fragment and the 4 rows
+// x 8 columns of a B fragment each fall on 32 banks (rows of nz % 32 == 0).
+__host__ __device__ __forceinline__ int slab_swizzle(int row) {
+  return ((row & 3) << 3) | (row & 4);
+}
+
+// dst = L . R for the (M, N) result, K deep, on the tensor cores in kPasses
+// TF32 passes a product: warp v takes the 16 x 32 tiles v, v + 16, ...,
+// each four m16n8k8 tiles sharing their A fragment. ld_l(r, k) and ld_r(k,
+// c) read the operands and st(r, c, v) takes each result; with kEdge they
+// are not called outside [0, M) x [0, K), [0, K) x [0, N) and [0, M) x [0,
+// N), the operands there being zero.
+template <int kPasses, bool kEdge, class LdL, class LdR, class St>
+__device__ __forceinline__ void mma_product(int M, int N, int K, LdL ld_l, LdR ld_r, St st) {
+  constexpr int NT = 4;  // m16n8k8 tiles side by side
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles_n = (N + 8 * NT - 1) / (8 * NT), tiles = (M + 15) / 16 * tiles_n;
+  auto l = [&](int r, int k) { return !kEdge || (r < M && k < K) ? ld_l(r, k) : 0.0f; };
+  auto rr = [&](int k, int c) { return !kEdge || (k < K && c < N) ? ld_r(k, c) : 0.0f; };
+  for (int tile = warp; tile < tiles; tile += kK1Warps) {
+    const int m0 = tile / tiles_n * 16, n0 = tile % tiles_n * (8 * NT);
+    float acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+#pragma unroll 2
+    for (int k0 = 0; k0 < K; k0 += 8) {
+      const float a[4] = {l(m0 + g, k0 + t), l(m0 + g + 8, k0 + t), l(m0 + g, k0 + t + 4),
+                          l(m0 + g + 8, k0 + t + 4)};
+      unsigned ah[4], al[4];
+      tf32_operands<kPasses>(a, ah, al);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = n0 + 8 * j + g;
+        const float b[2] = {rr(k0 + t, c), rr(k0 + t + 4, c)};
+        unsigned bh[2], bl[2];
+        tf32_operands<kPasses>(b, bh, bl);
+        if constexpr (kPasses == 3) {
+          mma_tf32(acc[j], ah, bl);
+          mma_tf32(acc[j], al, bh);
+        }
+        mma_tf32(acc[j], ah, bh);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = m0 + g + 8 * (i >> 1), c = n0 + 8 * j + 2 * t + (i & 1);
+        if (!kEdge || (r < M && c < N)) st(r, c, acc[j][i]);
+      }
+    }
+  }
 }
 
 // x columns a K1 warp owns.
@@ -304,7 +432,7 @@ __device__ __forceinline__ void flux_below(const float (&f)[NS], float (&out)[NS
   }
 }
 
-template <int NX, int NZ>
+template <int NX, int NZ, int kPasses = 0>
 __global__ void __launch_bounds__(kK1Threads, 1)
 env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_in,
                    const float* __restrict__ b_in, const float* __restrict__ bottom_in,
@@ -336,9 +464,21 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
     X.b[q] = b_in[e * nc + q];
   }
   for (int q = threadIdx.x; q < nf; q += kK1Threads) X.w[q] = Y.w[q] = w_in[e * nf + q];
-  for (int q = threadIdx.x; q < nz * nz; q += kK1Threads) {
-    ct[q] = dct[q];
-    st[q] = idct[q];
+  // the TF32 instances' slabs and z transforms: (row, col) at row * nz +
+  // (col ^ slab_swizzle(row)) where nz % 32 == 0, else plain
+  const bool swz = kPasses > 0 && (NZ > 0 ? NZ % 32 == 0 : nz % 32 == 0);
+  auto S = [&](int row, int col) { return row * nz + (swz ? col ^ slab_swizzle(row) : col); };
+  if constexpr (kPasses == 0) {
+    for (int q = threadIdx.x; q < nz * nz; q += kK1Threads) {
+      ct[q] = dct[q];
+      st[q] = idct[q];
+    }
+  } else {
+    for (int q = threadIdx.x; q < nz * nz; q += kK1Threads) {
+      const int r = q / nz, c = q - r * nz;
+      ct[S(r, c)] = dct[q];
+      st[S(r, c)] = idct[q];
+    }
   }
   for (int q = threadIdx.x; q < nx; q += kK1Threads) bot[q] = bottom_in[e * nx + q];
   __syncthreads();
@@ -494,60 +634,104 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
           if (xi < xn && k < nz) {
             const float div = (Y.u[wrap(i + 1) * nz + k] - Y.u[i * nz + k]) * P.idx +
                               (Y.w[i * nw + k + 1] - Y.w[i * nw + k]) * P.idz;
-            s1[i * nz + k] = div * idts;
+            if constexpr (kPasses == 0) {
+              s1[i * nz + k] = div * idts;
+            } else {
+              s1[S(i, k)] = div * idts;
+            }
           }
         }
       }
       __syncthreads();
 
-      // ---- 4. the solve: four products, each from one slab into the other -----
-      auto store = [&](float* dst) {
+      if constexpr (kPasses == 0) {
+        // ---- 4. the solve: four products, each from one slab into the other ---
+        auto store = [&](float* dst) {
+#pragma unroll
+          for (int xi = 0; xi < XS; ++xi)
+#pragma unroll
+            for (int s = 0; s < NS; ++s)
+              if (xi < xn && kl[s] < nz) dst[(x0 + xi) * nz + kl[s]] = pt[xi][s];
+        };
+        tile_product<XS, NS, kVec>(fmat, s1, nx, nz, x0, nx, 0, lane, pt);  // r_hat = F . rhs
+        store(s2);
+        __syncthreads();
+        tile_product<XS, NS, kVec>(s2, ct, nz, nz, x0, nx, 0, lane, pt);  // r_hat C^T
 #pragma unroll
         for (int xi = 0; xi < XS; ++xi)
 #pragma unroll
           for (int s = 0; s < NS; ++s)
-            if (xi < xn && kl[s] < nz) dst[(x0 + xi) * nz + kl[s]] = pt[xi][s];
-      };
-      tile_product<XS, NS, kVec>(fmat, s1, nx, nz, x0, nx, 0, lane, pt);  // r_hat = F . rhs
-      store(s2);
-      __syncthreads();
-      tile_product<XS, NS, kVec>(s2, ct, nz, nz, x0, nx, 0, lane, pt);  // r_hat C^T
+            pt[xi][s] *= __ldg(dinv + min(x0 + xi, nx - 1) * nz + kc[s]);
+        store(s1);
+        __syncthreads();
+        tile_product<XS, NS, kVec>(s1, st, nz, nz, x0, nx, 0, lane, pt);  // p_hat = R~ S^T
+        store(s2);
+        __syncthreads();
+        tile_product<XS, NS, kVec>(gmat, s2, nx, nz, x0, nx, 0, lane, pt);  // p = G . p_hat
+        store(s1);
+        if (last) {
 #pragma unroll
-      for (int xi = 0; xi < XS; ++xi)
+          for (int xi = 0; xi < XS; ++xi)
 #pragma unroll
-        for (int s = 0; s < NS; ++s)
-          pt[xi][s] *= __ldg(dinv + min(x0 + xi, nx - 1) * nz + kc[s]);
-      store(s1);
-      __syncthreads();
-      tile_product<XS, NS, kVec>(s1, st, nz, nz, x0, nx, 0, lane, pt);  // p_hat = R~ S^T
-      store(s2);
-      __syncthreads();
-      tile_product<XS, NS, kVec>(gmat, s2, nx, nz, x0, nx, 0, lane, pt);  // p = G . p_hat
-      store(s1);
-      if (last) {
-#pragma unroll
-        for (int xi = 0; xi < XS; ++xi)
-#pragma unroll
-          for (int s = 0; s < NS; ++s)
-            if (xi < xn && kl[s] < nz) p_out[e * nc + (x0 + xi) * nz + kl[s]] = pt[xi][s];
-      }
-      __syncthreads();
+            for (int s = 0; s < NS; ++s)
+              if (xi < xn && kl[s] < nz) p_out[e * nc + (x0 + xi) * nz + kl[s]] = pt[xi][s];
+        }
+        __syncthreads();
 
-      // ---- 5. correct this thread's u*, w* by grad p ----------------------------
+        // ---- 5. correct this thread's u*, w* by grad p --------------------------
 #pragma unroll
-      for (int xi = 0; xi < XS; ++xi) {
+        for (int xi = 0; xi < XS; ++xi) {
 #pragma unroll
-        for (int s = 0; s < NS; ++s) {
-          const int i = x0 + xi, k = kl[s];
-          if (xi < xn && k < nz) {
-            const float p = pt[xi][s];
-            const float pm = xi > 0 ? pt[xi - 1][s] : s1[wrap(i - 1) * nz + k];
-            Y.u[i * nz + k] -= dts * ((p - pm) * P.idx);
-            if (k > 0) Y.w[i * nw + k] -= dts * ((p - s1[i * nz + k - 1]) * P.idz);
+          for (int s = 0; s < NS; ++s) {
+            const int i = x0 + xi, k = kl[s];
+            if (xi < xn && k < nz) {
+              const float p = pt[xi][s];
+              const float pm = xi > 0 ? pt[xi - 1][s] : s1[wrap(i - 1) * nz + k];
+              Y.u[i * nz + k] -= dts * ((p - pm) * P.idx);
+              if (k > 0) Y.w[i * nw + k] -= dts * ((p - s1[i * nz + k - 1]) * P.idz);
+            }
           }
         }
+        __syncthreads();
+      } else {
+        // ---- 4. the solve on the tensor cores: four products, slab to slab --
+        constexpr bool kEdge = !(NX > 0 && NX % 16 == 0 && NZ % 32 == 0);
+        auto slab = [&](const float* a) { return [=](int r, int c) { return a[S(r, c)]; }; };
+        auto to_slab = [&](float* a) { return [=](int r, int c, float v) { a[S(r, c)] = v; }; };
+        auto global = [](const float* a, int ld) {
+          return [=](int r, int c) { return __ldg(a + r * ld + c); };
+        };
+        mma_product<kPasses, kEdge>(nx, nz, nx, global(fmat, nx), slab(s1),
+                                    to_slab(s2));  // r_hat = F . rhs
+        __syncthreads();
+        mma_product<kPasses, kEdge>(nx, nz, nz, slab(s2), slab(ct),  // (r_hat C^T) * d
+                                    [&](int r, int c, float v) {
+                                      s1[S(r, c)] = v * __ldg(dinv + r * nz + c);
+                                    });
+        __syncthreads();
+        mma_product<kPasses, kEdge>(nx, nz, nz, slab(s1), slab(st),
+                                    to_slab(s2));  // p_hat = R~ S^T
+        __syncthreads();
+        mma_product<kPasses, kEdge>(nx, nz, nx, global(gmat, nx), slab(s2),
+                                    to_slab(s1));  // p = G . p_hat
+        __syncthreads();
+
+        // ---- 5. correct this thread's u*, w* by grad p, read from the slab --
+#pragma unroll
+        for (int xi = 0; xi < XS; ++xi) {
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            const int i = x0 + xi, k = kl[s];
+            if (xi < xn && k < nz) {
+              const float p = s1[S(i, k)];
+              Y.u[i * nz + k] -= dts * ((p - s1[S(wrap(i - 1), k)]) * P.idx);
+              if (k > 0) Y.w[i * nw + k] -= dts * ((p - s1[S(i, k - 1)]) * P.idz);
+              if (last) p_out[e * nc + i * nz + k] = p;
+            }
+          }
+        }
+        __syncthreads();
       }
-      __syncthreads();
       const State2D t = X;
       X = Y;
       Y = t;
@@ -561,10 +745,14 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
   for (int q = threadIdx.x; q < nf; q += kK1Threads) w_out[e * nf + q] = X.w[q];
 }
 
-// The K1 instance for a grid: specialised for the reference's 96x64, the
-// runtime-size one for every other grid.
-decltype(&env_step_2d_kernel<0, 0>) env_step_kernel_for(int nx, int nz) {
-  return nx == 96 && nz == 64 ? env_step_2d_kernel<96, 64> : env_step_2d_kernel<0, 0>;
+// The on-chip K1 instance for a grid and a pass count: specialised for the
+// reference's 96x64, the runtime-size one for every other grid; the float32
+// solve (0 passes) or the TF32 one (1 or 3).
+decltype(&env_step_2d_kernel<0, 0>) env_step_kernel_for(int nx, int nz, int passes) {
+  const bool ref = nx == 96 && nz == 64;
+  if (passes == 3) return ref ? env_step_2d_kernel<96, 64, 3> : env_step_2d_kernel<0, 0, 3>;
+  if (passes == 1) return ref ? env_step_2d_kernel<96, 64, 1> : env_step_2d_kernel<0, 0, 1>;
+  return ref ? env_step_2d_kernel<96, 64> : env_step_2d_kernel<0, 0>;
 }
 
 // dst = L . R for the (nrow, ldr) result, one 4 x 32 tile a warp at a time,
@@ -587,6 +775,7 @@ __device__ __forceinline__ void block_product(const float* L, const float* R, in
 
 // K1's off-chip instance (see the head of this file), for the grids the
 // on-chip one cannot hold.
+template <int kPasses = 0>
 __global__ void __launch_bounds__(kK1Threads)
 env_step_2d_global_kernel(const float* __restrict__ u_in, const float* __restrict__ w_in,
                           const float* __restrict__ b_in, const float* __restrict__ bottom_in,
@@ -655,16 +844,33 @@ env_step_2d_global_kernel(const float* __restrict__ u_in, const float* __restric
         s1[q] = div * idts;
       }
       __syncthreads();
-      auto as_is = [](float v, int, int) { return v; };
-      block_product(fmat, s1, nx, nz, nx, s2, as_is);  // r_hat = F . rhs
-      __syncthreads();
-      block_product(s2, dct, nz, nz, nx, s1,  // (r_hat C^T) * d
-                    [&](float v, int m, int j) { return v * __ldg(dinv + m * nz + j); });
-      __syncthreads();
-      block_product(s1, idct, nz, nz, nx, s2, as_is);  // p_hat = R~ S^T
-      __syncthreads();
-      block_product(gmat, s2, nx, nz, nx, p, as_is);  // p = G . p_hat
-      __syncthreads();
+      if constexpr (kPasses == 0) {
+        auto as_is = [](float v, int, int) { return v; };
+        block_product(fmat, s1, nx, nz, nx, s2, as_is);  // r_hat = F . rhs
+        __syncthreads();
+        block_product(s2, dct, nz, nz, nx, s1,  // (r_hat C^T) * d
+                      [&](float v, int m, int j) { return v * __ldg(dinv + m * nz + j); });
+        __syncthreads();
+        block_product(s1, idct, nz, nz, nx, s2, as_is);  // p_hat = R~ S^T
+        __syncthreads();
+        block_product(gmat, s2, nx, nz, nx, p, as_is);  // p = G . p_hat
+        __syncthreads();
+      } else {  // the same products on the tensor cores, every slab plain
+        auto rd = [](const float* a, int ld) {
+          return [=](int r, int c) { return a[r * ld + c]; };
+        };
+        auto wr = [nz](float* a) { return [=](int r, int c, float v) { a[r * nz + c] = v; }; };
+        mma_product<kPasses, true>(nx, nz, nx, rd(fmat, nx), rd(s1, nz), wr(s2));
+        __syncthreads();
+        mma_product<kPasses, true>(nx, nz, nz, rd(s2, nz), rd(dct, nz), [&](int r, int c, float v) {
+          s1[r * nz + c] = v * __ldg(dinv + r * nz + c);
+        });
+        __syncthreads();
+        mma_product<kPasses, true>(nx, nz, nz, rd(s1, nz), rd(idct, nz), wr(s2));
+        __syncthreads();
+        mma_product<kPasses, true>(nx, nz, nx, rd(gmat, nx), rd(s2, nz), wr(p));
+        __syncthreads();
+      }
       for (int q = threadIdx.x; q < nc; q += kK1Threads) {
         const int i = q / nz, k = q - i * nz;
         u[q] -= dts * ((p[q] - p[wrap_x(i - 1, nx) * nz + k]) * P.idx);
@@ -676,6 +882,13 @@ env_step_2d_global_kernel(const float* __restrict__ u_in, const float* __restric
       __syncthreads();
     }
   }
+}
+
+// The off-chip K1 instance for a pass count.
+decltype(&env_step_2d_global_kernel<0>) env_step_global_kernel_for(int passes) {
+  if (passes == 3) return env_step_2d_global_kernel<3>;
+  if (passes == 1) return env_step_2d_global_kernel<1>;
+  return env_step_2d_global_kernel<0>;
 }
 
 // ---- K2 -----------------------------------------------------------------------
@@ -914,25 +1127,26 @@ int launch_env_step_2d(const float* u, const float* w, const float* b,
                        const float* dct, const float* idct, const float* dinv, float* u_out,
                        float* w_out, float* b_out, float* p_out, float* scratch, int n_env,
                        int nx, int nz, int n_substeps, float dt, float dx, float dz, float nu,
-                       float kappa, float min_b, void* stream) {
+                       float kappa, float min_b, int passes, void* stream) {
   const bool on_chip = env_step_2d_on_chip(nx, nz);
   const size_t smem = sizeof(float) * env_step_2d_smem_floats(nx, nz);
   if (nx < kK1MinNx || nz < 1 || smem > kSmemPerBlock || n_substeps < 1 ||
-      (!on_chip && scratch == nullptr)) {
+      (!on_chip && scratch == nullptr) || (passes != 0 && passes != 1 && passes != 3)) {
     return (int)cudaErrorInvalidValue;
   }
   const K1Params P = k1_params(nx, nz, n_substeps, dt, dx, dz, nu, kappa, min_b);
   if (!on_chip) {
-    cudaError_t err = cudaFuncSetAttribute(
-        env_step_2d_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    auto* global = env_step_global_kernel_for(passes);
+    cudaError_t err =
+        cudaFuncSetAttribute(global, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const RBCParams R{nx, nz, dx, dz, nu, kappa, min_b};
-    env_step_2d_global_kernel<<<n_env, kK1Threads, smem, (cudaStream_t)stream>>>(
+    global<<<n_env, kK1Threads, smem, (cudaStream_t)stream>>>(
         u, w, b, bottom, fmat, gmat, dct, idct, dinv, u_out, w_out, b_out, p_out, scratch, P,
         R);
     return (int)cudaGetLastError();
   }
-  auto* kernel = env_step_kernel_for(nx, nz);
+  auto* kernel = env_step_kernel_for(nx, nz, passes);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -5,7 +5,7 @@ and ``RBC3DGymVectorEnv`` (``vector3d.py:269-320``): numpy in and out over
 ``RBC2DVectorEnv`` and ``RBC3DVectorEnv``, whose state stays on their
 device between steps. Keyword arguments go to the vector env as they
 are (``device``, ``checkpoint``, ``fused`` in 3D; ``poisson_precision``,
-which the 2D env refuses by name for "bf16x3" and "default"). ``reset(seed=)`` seeds the
+the JAX env's names in 2D and 3D). ``reset(seed=)`` seeds the
 vector env's per-env key streams, which are the port's own: the initial
 conditions differ from the JAX adapters' for the same seed.
 """

@@ -92,10 +92,11 @@ class RBC2DVectorEnv:
         on the duplicate-free guarantee pass ``auto_reset=False`` (a
         warning is logged otherwise).
 
-        ``poisson_precision``: None, "highest" or "high", which the JAX
-        package's 2D solver runs as one full-precision solve, as the port
-        does; "bf16x3" and "default" are refused by name
-        (``sim.solver2d.check_poisson_precision_2d``).
+        ``poisson_precision``: the JAX env's names. None, "highest" and
+        "high" are one full float32 solve; "bf16x3" runs K1's
+        split-product instance (three TF32 tensor-core passes a product)
+        and "default" its one-pass instance; an unknown name is refused
+        (``sim.solver2d.POISSON_PRECISIONS_2D``).
 
         ``env_slice=(offset, fleet_size)`` makes this env the envs ``[offset,
         offset + num_envs)`` of a fleet of ``fleet_size`` (default: the whole

@@ -40,6 +40,7 @@ ARGTYPES = {
         _P,  # per-env scratch of the off-chip instance (NULL on the chip)
         _I, _I, _I, _I,  # n_env, nx, nz, n_substeps
         _F, _F, _F, _F, _F, _F,  # dt, dx, dz, nu, kappa, min_b
+        _I,  # TF32 passes of the solve's products: 0 (float32), 1 or 3
         _P,  # stream
     ],
     "launch_tendencies_2d": [

@@ -1,7 +1,10 @@
 """The 2D env-step kernels: wrappers, their plain PyTorch versions, counters.
 
 ``env_step_2d`` replaces ``rbc_gym_tpu/ops/pallas2d.py:_env_step_kernel``
-(the whole env step) and ``tendencies_2d`` replaces ``_tendency_kernel``
+(the whole env step; its float32 solve, and at ``precision`` "high" and
+"default" the kernel's split-product branch as TF32 tensor-core instances,
+counted on ``env_step_2d_tf32x3`` and ``env_step_2d_tf32``) and
+``tendencies_2d`` replaces ``_tendency_kernel``
 (one stage's gu, gw, gb; the Pallas kernel reads pHY', K2 takes b and
 computes pHY' itself). Both kernels are CUDA C++ in ``csrc/rbc2d.cu``;
 the source says what bounds each on an H100 and what its design does about
@@ -26,7 +29,7 @@ import torch
 
 from rbc_gym_tpu_torch.ops import _build, limits
 from rbc_gym_tpu_torch.ops import stencils as st
-from rbc_gym_tpu_torch.ops.poisson import Spectral2D, poisson_solve_2d
+from rbc_gym_tpu_torch.ops.poisson import Spectral2D, check_precision, poisson_solve_2d
 
 RK3_GAMMA = (8.0 / 15.0, 5.0 / 12.0, 3.0 / 4.0)
 RK3_ZETA = (0.0, -17.0 / 60.0, -5.0 / 12.0)
@@ -127,12 +130,14 @@ def rk3_update(f: Tensors3, g: Tensors3, g_prev: Tensors3 | None, m: int,
 
 
 def project_2d(
-    u: torch.Tensor, w: torch.Tensor, spectral: Spectral2D, c: Coeffs2D, dt_stage: float
+    u: torch.Tensor, w: torch.Tensor, spectral: Spectral2D, c: Coeffs2D, dt_stage: float,
+    precision: str | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The projection after a stage: p_nhs from div(u, w) / dt_stage, then
-    u and w corrected by its gradient -> (u, w, p_nhs)."""
+    """The projection after a stage: p_nhs from div(u, w) / dt_stage (the
+    solve's products at ``precision``, ``ops.poisson.matmul``), then u and
+    w corrected by its gradient -> (u, w, p_nhs)."""
     div = st.ddx_f2c(u, c.dx) + st.ddz_f2c(w, c.dz)
-    p_nhs = poisson_solve_2d(spectral, div / dt_stage)
+    p_nhs = poisson_solve_2d(spectral, div / dt_stage, precision)
     return (u - dt_stage * st.ddx_c2f(p_nhs, c.dx),
             w - dt_stage * st.ddz_c2f_interior(p_nhs, c.dz), p_nhs)
 
@@ -146,9 +151,11 @@ def rk3_substep(
     c: Coeffs2D,
     dt: float,
     tendencies: Callable[..., Tensors3],
+    precision: str | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One RK3 solver step of ``dt``: 3 stages, each projected;
-    ``tendencies(u, w, b, bottom, c)`` computes pHY' from b itself.
+    """One RK3 solver step of ``dt``: 3 stages, each projected at
+    ``precision``; ``tendencies(u, w, b, bottom, c)`` computes pHY' from b
+    itself.
 
     Returns (u, w, b, p_nhs); never writes to its inputs."""
     g_prev = None
@@ -157,7 +164,8 @@ def rk3_substep(
         g = tendencies(u, w, b, bottom, c)
         u, w, b = rk3_update((u, w, b), g, g_prev, m, dt)
         g_prev = g
-        u, w, p_nhs = project_2d(u, w, spectral, c, (RK3_GAMMA[m] + RK3_ZETA[m]) * dt)
+        u, w, p_nhs = project_2d(u, w, spectral, c, (RK3_GAMMA[m] + RK3_ZETA[m]) * dt,
+                                 precision)
     return u, w, b, p_nhs
 
 
@@ -170,11 +178,14 @@ def env_step_2d_plain(
     c: Coeffs2D,
     dt: float,
     n_substeps: int,
+    precision: str | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``n_substeps`` RK3 substeps of the eager path -> (u, w, b, p_nhs)."""
+    """``n_substeps`` RK3 substeps of the eager path, the solve's products
+    at ``precision`` -> (u, w, b, p_nhs)."""
     p_nhs = torch.zeros_like(u)
     for _ in range(n_substeps):
-        u, w, b, p_nhs = rk3_substep(u, w, b, bottom, spectral, c, dt, tendencies_2d_plain)
+        u, w, b, p_nhs = rk3_substep(u, w, b, bottom, spectral, c, dt, tendencies_2d_plain,
+                                     precision)
     return u, w, b, p_nhs
 
 
@@ -247,6 +258,14 @@ def tendencies_2d(
 tendencies_2d.launches = 0
 
 
+# K1's instances by the precision of the solve's products (``ops.poisson.
+# matmul``'s names): the TF32 passes each product takes, 0 for the float32
+# solve on the CUDA cores (None and "highest"), 3 for the split-product
+# instance ("high": hi . hi + hi . lo + lo . hi), 1 for the one-pass one
+# ("default"). The launcher's ``passes`` argument.
+K1_PASSES = {None: 0, "highest": 0, "high": 3, "default": 1}
+
+
 def env_step_2d(
     u: torch.Tensor,
     w: torch.Tensor,
@@ -256,11 +275,17 @@ def env_step_2d(
     c: Coeffs2D,
     dt: float,
     n_substeps: int,
+    precision: str | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """A whole env step (n_substeps RK3 substeps) -> (u, w, b, p_nhs):
-    the CUDA kernel for CUDA tensors."""
+    the CUDA kernel for CUDA tensors, in the instance for ``precision``
+    (``K1_PASSES``). Each instance counts its launches on its own wrapper:
+    the float32 one here, the others on ``env_step_2d_tf32x3`` and
+    ``env_step_2d_tf32``."""
+    check_precision(precision)
+    passes = K1_PASSES[precision]
     if u.device.type == "cpu":
-        return env_step_2d_plain(u, w, b, bottom, spectral, c, dt, n_substeps)
+        return env_step_2d_plain(u, w, b, bottom, spectral, c, dt, n_substeps, precision)
     e, nx, nz = _field_shapes(u)
     _check_cuda(
         dict(u=u, w=w, b=b, bottom=bottom, f=spectral.f, g=spectral.g, dct=spectral.dct,
@@ -281,12 +306,28 @@ def env_step_2d(
             spectral.idct.data_ptr(), spectral.dinv.data_ptr(),
             u_out.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), p_out.data_ptr(),
             scratch.data_ptr() if scratch.numel() else None,
-            e, nx, nz, n_substeps, dt, c.dx, c.dz, c.nu, c.kappa, c.min_b,
+            e, nx, nz, n_substeps, dt, c.dx, c.dz, c.nu, c.kappa, c.min_b, passes,
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     _raise_on(err, "env_step_2d")
-    env_step_2d.launches += 1
+    K1_INSTANCES[passes].launches += 1
     return u_out, w_out, b_out, p_out
 
 
+def env_step_2d_tf32x3(u, w, b, bottom, spectral, c, dt, n_substeps):
+    """K1's split-product instance: ``env_step_2d`` at "high", each of the
+    solve's products three TF32 tensor-core passes over hi and lo parts."""
+    return env_step_2d(u, w, b, bottom, spectral, c, dt, n_substeps, "high")
+
+
+def env_step_2d_tf32(u, w, b, bottom, spectral, c, dt, n_substeps):
+    """K1's one-pass instance: ``env_step_2d`` at "default", each of the
+    solve's products one TF32 tensor-core pass."""
+    return env_step_2d(u, w, b, bottom, spectral, c, dt, n_substeps, "default")
+
+
 env_step_2d.launches = 0
+env_step_2d_tf32x3.launches = 0
+env_step_2d_tf32.launches = 0
+# the wrapper that counts each instance's launches, by its passes
+K1_INSTANCES = {0: env_step_2d, 3: env_step_2d_tf32x3, 1: env_step_2d_tf32}

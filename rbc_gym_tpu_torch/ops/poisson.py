@@ -32,6 +32,81 @@ import numpy as np
 import torch
 
 
+# ---------------------------------------------------------------------------
+# Products at a precision (both solves)
+# ---------------------------------------------------------------------------
+
+# The precisions of a solve's products (``matmul``): the JAX package's
+# ``jax.lax.Precision`` names of its XLA-side products, which its 3D solver
+# takes as ``poisson_precision`` and its 2D solver maps its own names onto
+# (sim/solver2d.py); None and "highest" are one.
+MATMUL_PRECISIONS = (None, "highest", "high", "default")
+
+# The low mantissa bits that TF32 (10 explicit bits) drops from a float32 (23).
+_TF32_DROPPED_BITS = 13
+
+
+def check_precision(precision) -> None:
+    """Refuse a name that is not one of ``MATMUL_PRECISIONS``."""
+    if precision not in MATMUL_PRECISIONS:
+        raise ValueError(f"unknown poisson_precision={precision!r}: one of "
+                         + ", ".join(map(repr, MATMUL_PRECISIONS)))
+
+
+def tf32_split(a: torch.Tensor):
+    """(hi, lo) with hi + lo == a exactly: hi is ``a`` with its low 13
+    mantissa bits cleared, so TF32-exact, and lo = a - hi (exact in
+    float32: it is those 13 bits)."""
+    hi = (a.view(torch.int32) & -(1 << _TF32_DROPPED_BITS)).view(torch.float32)
+    return hi, a - hi
+
+
+@contextlib.contextmanager
+def _tf32_matmul():
+    """cuBLAS TF32 products inside, the global flag as it was afterwards
+    (also on error)."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, precision: str | None = None) -> torch.Tensor:
+    """``torch.matmul(a, b)`` at one of ``MATMUL_PRECISIONS``, the H100's
+    counterparts of the TPU matrix unit's passes (the JAX package's
+    ``jax.lax.Precision`` of its XLA-side solve products; every product of
+    the 2D and 3D solves here goes through this function):
+
+    * None or "highest": full float32, TF32 off (HIGHEST, 6 bf16 passes);
+    * "high": three TF32 tensor-core products of the split operands,
+      hi a . hi b + hi a . lo b + lo a . hi b (``tf32_split``), the
+      counterpart of HIGH's bf16x3 (8 + 8 bits): |lo| < 2^-10 |a|, so the
+      dropped lo . lo term and TF32's rounding of lo are each under 2^-20
+      of a product's magnitude;
+    * "default": one TF32 product (DEFAULT, one bf16 pass). TF32 keeps 10
+      mantissa bits where bf16 keeps 8, so "default" is more exact on the
+      card than on a TPU.
+
+    TF32 is on only around these products. float64 operands (and the CPU,
+    which has no TF32, for "default") take the full-precision product."""
+    check_precision(precision)
+    if precision in (None, "highest") or a.dtype != torch.float32:
+        return torch.matmul(a, b)
+    with _tf32_matmul():
+        if precision == "default":
+            return torch.matmul(a, b)
+        a_hi, a_lo = tf32_split(a)
+        b_hi, b_lo = tf32_split(b)
+        return (torch.matmul(a_hi, b_lo) + torch.matmul(a_lo, b_hi)) + torch.matmul(a_hi, b_hi)
+
+
+# ---------------------------------------------------------------------------
+# 2D
+# ---------------------------------------------------------------------------
+
+
 def _dft_eigenvalues(n: int, d: float) -> np.ndarray:
     """Eigenvalues of the periodic 1D second-difference for rfft modes."""
     m = np.arange(n // 2 + 1)
@@ -131,23 +206,27 @@ def spectral_constants_2d(
                       cast(dinv))
 
 
-def poisson_solve_2d(consts: Spectral2D, rhs: torch.Tensor) -> torch.Tensor:
-    """Zero-mean solution of laplace(p) = rhs for rhs (E, nx, nz)."""
-    rhat = torch.matmul(consts.f, rhs)  # (E, m, z)
+def poisson_solve_2d(consts: Spectral2D, rhs: torch.Tensor,
+                     precision: str | None = None) -> torch.Tensor:
+    """Zero-mean solution of laplace(p) = rhs for rhs (E, nx, nz), each of
+    its three products a ``matmul`` at ``precision`` (None: full float32)."""
+    rhat = matmul(consts.f, rhs, precision)  # (E, m, z)
     # per-mode (z, f) inverse: batch over m, rows over envs
-    phat = torch.matmul(rhat.transpose(0, 1), consts.inv).transpose(0, 1)
-    return torch.matmul(consts.g, phat)  # (E, x, f)
+    phat = matmul(rhat.transpose(0, 1), consts.inv, precision).transpose(0, 1)
+    return matmul(consts.g, phat, precision)  # (E, x, f)
 
 
 def make_poisson_solver_2d_bm(
-    nx: int, nz: int, dx: float, dz: float, dtype=torch.float32, device="cuda"
+    nx: int, nz: int, dx: float, dz: float, dtype=torch.float32, device="cuda",
+    precision: str | None = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Solver for a batch-major (E, nx, nz) cell-centered RHS -> pressure.
 
     The JAX package's batch-minor ``make_poisson_solver_2d_bm`` with the
-    port's public (E, nx, nz) layout: three ``torch.matmul`` calls."""
+    port's public (E, nx, nz) layout: three products at ``precision``."""
+    check_precision(precision)
     consts = spectral_constants_2d(nx, nz, dx, dz, dtype, device)
-    return lambda rhs: poisson_solve_2d(consts, rhs)
+    return lambda rhs: poisson_solve_2d(consts, rhs, precision)
 
 
 # ---------------------------------------------------------------------------
@@ -178,69 +257,6 @@ def _dct2_matrices(nz: int, dz: float):
         raise ArithmeticError("DCT-II synthesis is not the inverse of analysis")
     lam = -(2.0 - 2.0 * np.cos(np.pi * k / nz)) / (dz * dz)
     return c, s, lam
-
-
-# The precisions of the 3D solve's products that the JAX package accepts
-# (``make_solver3d(poisson_precision=...)``); None and "highest" are one.
-POISSON_PRECISIONS_3D = (None, "highest", "high", "default")
-
-# The low mantissa bits that TF32 (10 explicit bits) drops from a float32 (23).
-_TF32_DROPPED_BITS = 13
-
-
-def check_precision_3d(precision) -> None:
-    """Refuse a name that is not one of ``POISSON_PRECISIONS_3D``."""
-    if precision not in POISSON_PRECISIONS_3D:
-        raise ValueError(f"unknown poisson_precision={precision!r}: one of "
-                         + ", ".join(map(repr, POISSON_PRECISIONS_3D)))
-
-
-def tf32_split(a: torch.Tensor):
-    """(hi, lo) with hi + lo == a exactly: hi is ``a`` with its low 13
-    mantissa bits cleared, so TF32-exact, and lo = a - hi (exact in
-    float32: it is those 13 bits)."""
-    hi = (a.view(torch.int32) & -(1 << _TF32_DROPPED_BITS)).view(torch.float32)
-    return hi, a - hi
-
-
-@contextlib.contextmanager
-def _tf32_matmul():
-    """cuBLAS TF32 products inside, the global flag as it was afterwards
-    (also on error)."""
-    before = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = before
-
-
-def matmul(a: torch.Tensor, b: torch.Tensor, precision: str | None = None) -> torch.Tensor:
-    """``torch.matmul(a, b)`` at one of ``POISSON_PRECISIONS_3D``, the H100's
-    counterparts of the TPU matrix unit's passes (the JAX package's
-    ``jax.lax.Precision`` of these XLA-side products):
-
-    * None or "highest": full float32, TF32 off (HIGHEST, 6 bf16 passes);
-    * "high": three TF32 tensor-core products of the split operands,
-      hi a . hi b + hi a . lo b + lo a . hi b (``tf32_split``), the
-      counterpart of HIGH's bf16x3 (8 + 8 bits): |lo| < 2^-10 |a|, so the
-      dropped lo . lo term and TF32's rounding of lo are each under 2^-20
-      of a product's magnitude;
-    * "default": one TF32 product (DEFAULT, one bf16 pass). TF32 keeps 10
-      mantissa bits where bf16 keeps 8, so "default" is more exact on the
-      card than on a TPU.
-
-    TF32 is on only around these products. float64 operands (and the CPU,
-    which has no TF32, for "default") take the full-precision product."""
-    check_precision_3d(precision)
-    if precision in (None, "highest") or a.dtype != torch.float32:
-        return torch.matmul(a, b)
-    with _tf32_matmul():
-        if precision == "default":
-            return torch.matmul(a, b)
-        a_hi, a_lo = tf32_split(a)
-        b_hi, b_lo = tf32_split(b)
-        return (torch.matmul(a_hi, b_lo) + torch.matmul(a_lo, b_hi)) + torch.matmul(a_hi, b_hi)
 
 
 def poisson_analysis_factors_3d(nx: int, nz: int):
@@ -358,7 +374,7 @@ def make_poisson_solver_3d(
     Constants are built in float64 numpy and cast once; every product is
     ``matmul`` at ``precision`` (None: full float32, TF32 off).
     """
-    check_precision_3d(precision)
+    check_precision(precision)
     if factored is None:
         factored = nx * nz >= FACTORED_POISSON_MIN_NXNZ
     if not factored:

@@ -22,6 +22,10 @@ KERNEL_WRAPPERS = {
     "field_tendency_3d": kernels3d.field_tendency_3d,
     "div_3d": kernels3d.div_3d,
     "stage_rk_3d_rhat": kernels3d.stage_rk_3d_rhat,
+    # K1's TF32 instances (``kernels2d.K1_PASSES``): ``env_step_2d`` at
+    # precision "high" and "default" counts its launches on these
+    "env_step_2d_tf32x3": kernels2d.env_step_2d_tf32x3,
+    "env_step_2d_tf32": kernels2d.env_step_2d_tf32,
 }
 
 

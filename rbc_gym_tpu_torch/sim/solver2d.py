@@ -17,8 +17,9 @@ reference's ``:RungeKutta3`` with a projection after every stage.
 Fields are batch-major, (..., nx, nz[+1]) with any leading env batch.
 ``select_env_step_path`` picks the path once per solver (``Solver2D.path``),
 as the JAX solver's ``fused`` does: on "fused", ``env_step`` launches the
-whole-step kernel K1 and ``substep`` the tendency kernel K2 with the RK
-update and projection around it; on "plain" both run the plain versions.
+whole-step kernel K1 (the instance for ``poisson_precision``) and
+``substep`` the tendency kernel K2 with the RK update and projection around
+it; on "plain" both run the plain versions.
 Auto takes "fused" on CUDA for float32, as the JAX solver does, and
 raises where K1 cannot take the grid (``env_step_kernel_limit``); "plain" for
 float64 and on the CPU.
@@ -178,25 +179,24 @@ def max_divergence(f: Fields2D, grid: Grid2D) -> float:
     return float(div.abs().max())
 
 
-# poisson_precision values of the JAX package's 2D solver that the port
-# runs: there "high" is "highest" (rbc_gym_tpu/sim/solver2d.py:174-175), and
-# both and None are the full float32 solve, which K1 and the plain path run.
-POISSON_PRECISIONS_2D = (None, "highest", "high")
-# The JAX package runs these inside its K1 through a split-product branch
-# (rbc_gym_tpu/ops/pallas2d.py:270-304) that has no Hopper counterpart yet.
-UNPORTED_PRECISIONS_2D = ("bf16x3", "default")
+# The JAX package's 2D ``poisson_precision`` names and the precision of the
+# solve's products that each means (``ops.poisson.matmul``'s names;
+# rbc_gym_tpu/sim/solver2d.py:174-184): None, "highest" and "high" (which
+# the JAX package maps to "highest") the full float32 solve; "bf16x3", which
+# runs its K1's split-product branch and HIGH products in its XLA-side
+# projection, "high" here (K1's split-product instance, three TF32 products
+# of split operands); "default" one pass in both.
+POISSON_PRECISIONS_2D = {None: None, "highest": None, "high": None, "bf16x3": "high",
+                         "default": "default"}
 
 
-def check_poisson_precision_2d(precision) -> None:
-    """Refuse a 2D ``poisson_precision`` that the port does not run, by name."""
-    if precision in UNPORTED_PRECISIONS_2D:
-        raise ValueError(
-            f"poisson_precision={precision!r} runs in the JAX package's K1 through its "
-            "split-product branch, which has no Hopper instance yet (ROADMAP B.8); "
-            "pass None, 'highest' or 'high'")
+def check_poisson_precision_2d(precision) -> str | None:
+    """The precision of the solve's products for a 2D ``poisson_precision``
+    (``POISSON_PRECISIONS_2D``); an unknown name is refused by name."""
     if precision not in POISSON_PRECISIONS_2D:
         raise ValueError(f"unknown poisson_precision={precision!r}: one of "
-                         + ", ".join(map(repr, POISSON_PRECISIONS_2D + UNPORTED_PRECISIONS_2D)))
+                         + ", ".join(map(repr, POISSON_PRECISIONS_2D)))
+    return POISSON_PRECISIONS_2D[precision]
 
 
 def make_solver2d(
@@ -209,8 +209,10 @@ def make_solver2d(
 ) -> Solver2D:
     """Build the 2D solver function bundle on ``device``; ``fused`` picks
     the path (``select_env_step_path``); ``poisson_precision`` is one of
-    ``POISSON_PRECISIONS_2D``, all the full float32 solve."""
-    check_poisson_precision_2d(poisson_precision)
+    ``POISSON_PRECISIONS_2D``: the precision of the solve's products in
+    ``env_step`` (on "fused" the K1 instance that matches it) and in the
+    projections of ``substep``."""
+    products = check_poisson_precision_2d(poisson_precision)
     device = default_device(device)
     nx, nz = grid.nx, grid.nz
     path = select_env_step_path(dtype, nx, nz, device.type, fused)
@@ -248,7 +250,7 @@ def make_solver2d(
         g = flat(f)
         u, w, b, p_nhs = rk3_substep(
             g.u, g.w, g.b, flat_bottom(bottom_b, batch), spectral, coeffs,
-            params.dt_solver, tendencies,
+            params.dt_solver, tendencies, products,
         )
         out = Fields2D(u, w, b, hydrostatic_pressure(b, grid.dz, min_b), p_nhs)
         return unflat(out, batch)
@@ -259,7 +261,7 @@ def make_solver2d(
         g = flat(f)
         u, w, b, p_nhs = step_fn(
             g.u, g.w, g.b, flat_bottom(heater_profile(action), batch), spectral,
-            coeffs, params.dt_solver, n_substeps,
+            coeffs, params.dt_solver, n_substeps, products,
         )
         out = Fields2D(u, w, b, hydrostatic_pressure(b, grid.dz, min_b), p_nhs)
         return unflat(out, batch)

@@ -18,7 +18,9 @@ after a short run. The checks refuse any device but CUDA: on the CPU
 both sides would run the plain versions, and their 0.0 would prove
 nothing. ``poisson_precision`` goes to both solvers, as in the JAX helpers:
 in 3D the precision of the solve's products (``ops.poisson.matmul``), in
-2D None, "highest" or "high" (one full float32 solve).
+2D the JAX 2D solver's names (``sim.solver2d.POISSON_PRECISIONS_2D``:
+"bf16x3" holds K1's split-product instance against three TF32 products
+of split operands in the plain path).
 """
 
 from __future__ import annotations

@@ -33,7 +33,9 @@ their names. Shares are not rounded.
 Peaks: one NVIDIA H100 SXM at its 700 W limit, from NVIDIA's data sheet:
 float32 67 TFLOP/s on the CUDA cores, and HBM3 3.35 TB/s. TF32 is off in
 the port (``rbc_gym_tpu_torch/__init__.py``), so cuBLAS SGEMM runs on the
-same CUDA cores, and the GEMM share divides by the same 67 TFLOP/s.
+same CUDA cores, and the GEMM share divides by the same 67 TFLOP/s. Only
+the bounds of K1's TF32 instances (``env_step_work`` at a TF32
+precision) take the tensor cores' dense TF32 peak, 495 TFLOP/s.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import numpy as np
 import torch
 
 from rbc_gym_tpu_torch import default_device
+from rbc_gym_tpu_torch.ops.kernels2d import K1_PASSES
 from rbc_gym_tpu_torch.ops.poisson import (
     FACTORED_POISSON_MIN_NXNZ,
     make_poisson_solver_2d_bm,
@@ -50,9 +53,11 @@ from rbc_gym_tpu_torch.ops.poisson import (
 from rbc_gym_tpu_torch.sim.grid import Grid2D, Grid3D
 from rbc_gym_tpu_torch.utils.flopcount import count_fn_flops
 
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3,
+# and dense TF32 on the tensor cores (K1's TF32 instances' solve products).
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+TF32_FLOPS = 495e12
 
 # Stamped into every bench record beside its shares.
 ROOFLINE_PLATFORM = (
@@ -175,14 +180,23 @@ _TENDENCY_FLOPS_PER_CELL = 61 + 59 + 54
 _STAGE_FLOPS_PER_CELL = _TENDENCY_FLOPS_PER_CELL + 4 + 15 + 6 + 8
 
 
-def env_step_work(n_env: int, nx: int, nz: int, n_substeps: int) -> dict:
+def env_step_work(n_env: int, nx: int, nz: int, n_substeps: int, precision=None) -> dict:
     """FLOP and bytes of K1 on these shapes: u, w, b, bottom read and u, w,
-    b, p written once per env; F, G and the modal inverses read once."""
+    b, p written once per env; F, G and the modal inverses read once. At
+    ``precision`` "high" or "default" (K1's TF32 instances,
+    ``ops.kernels2d.K1_PASSES``) the solve's products run on the tensor
+    cores: their FLOP are ``tf32_flops``, once for each pass (three at
+    "high"), which ``bound`` takes at the TF32 peak; ``flops`` keeps the
+    rest."""
     cells, faces = nx * nz, nx * (nz + 1)
     solve = 2 * (2 * nx * nx * nz + nx * nz * nz)  # F.rhs, inverse, G.p_hat
-    flops = n_env * n_substeps * 3 * (_STAGE_FLOPS_PER_CELL * cells + solve)
+    stages = n_env * n_substeps * 3
     words = n_env * (5 * cells + 2 * faces + nx) + 2 * nx * nx + nx * nz * nz
-    return {"flops": flops, "bytes": 4 * words}
+    passes = K1_PASSES[precision]
+    if passes == 0:
+        return {"flops": stages * (_STAGE_FLOPS_PER_CELL * cells + solve), "bytes": 4 * words}
+    return {"flops": stages * _STAGE_FLOPS_PER_CELL * cells,
+            "tf32_flops": stages * solve * passes, "bytes": 4 * words}
 
 
 def tendencies_work(n_env: int, nx: int, nz: int) -> dict:
@@ -204,7 +218,11 @@ def tendencies_own_work(n_env: int, nx: int, nz: int) -> dict:
 
 
 def bound(work: dict) -> tuple[float, str]:
-    t_ops = work["flops"] / FP32_FLOPS
+    """(ms, "operations" or "bytes"): the least time of ``work`` on the
+    card, the larger of its bytes at the HBM rate and its operations at
+    their peaks: float32 ``flops`` on the CUDA cores plus ``tf32_flops``
+    (where a kernel has them) on the tensor cores, one after the other."""
+    t_ops = work["flops"] / FP32_FLOPS + work.get("tf32_flops", 0) / TF32_FLOPS
     t_bytes = work["bytes"] / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 

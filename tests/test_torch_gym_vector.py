@@ -2,8 +2,8 @@
 
 ``RBC2DGymVectorEnv`` and ``RBC3DGymVectorEnv`` have the JAX adapters'
 spaces and info keys, take and give numpy, pass their keyword arguments
-to the port's vector env (``device``, ``fused``, the refused
-``poisson_precision``) and return what that functional env returns from
+to the port's vector env (``device``, ``fused``, ``poisson_precision``,
+unknown names refused) and return what that functional env returns from
 the same seed and actions. ``models.torch_nets`` with the JAX module's
 weights loaded gives the JAX module's outputs.
 """
@@ -104,13 +104,34 @@ def test_adapter_seeding():
 @pytest.mark.parametrize("cls, kwargs", [(RBC2DGymVectorEnv, SMALL_2D),
                                          (RBC3DGymVectorEnv, SMALL_3D)])
 def test_adapters_refuse_poisson_precision_by_name(cls, kwargs):
-    """The adapters pass ``poisson_precision`` through: "highest" is taken
-    in 2D and 3D; 2D's "bf16x3" (the JAX K1's split-product branch) and
-    a name neither package knows are refused by name."""
-    assert cls(2, **kwargs, poisson_precision="highest", device="cpu").num_envs == 2
-    bad = "bf16x3" if cls is RBC2DGymVectorEnv else "exact"
+    """The adapters pass ``poisson_precision`` through: "highest" and
+    "default" are taken in 2D and 3D, 2D's "bf16x3" (K1's split-product
+    instance) too; a name neither package knows is refused by name."""
+    taken = ("highest", "default") + (("bf16x3",) if cls is RBC2DGymVectorEnv else ())
+    for value in taken:
+        assert cls(2, **kwargs, poisson_precision=value, device="cpu").num_envs == 2
     with pytest.raises(ValueError, match="poisson_precision"):
-        cls(2, **kwargs, poisson_precision=bad, device="cpu")
+        cls(2, **kwargs, poisson_precision="exact", device="cpu")
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "default"])
+def test_2d_adapter_at_bf16x3_and_default_equals_its_functional_env(precision):
+    """The 2D adapter at each of the JAX env's other two names steps as the
+    port's vector env at that name (which ``tests/test_torch_vector2d.py``
+    holds against the JAX env), numpy in and out."""
+    env = RBC2DGymVectorEnv(2, seed=7, **SMALL_2D, poisson_precision=precision,
+                            dtype=torch.float64, device="cpu")
+    ref = RBC2DVectorEnv(2, **SMALL_2D, poisson_precision=precision, dtype=torch.float64,
+                         device="cpu")
+    obs, _ = env.reset()
+    state, ref_obs = ref.reset(seed=7)
+    np.testing.assert_array_equal(obs, ref_obs.numpy().astype(np.float32))
+    a = np.random.default_rng(3).uniform(-1, 1, (2, 12)).astype(np.float32)
+    obs, reward, _, _, info = env.step(a)
+    state, ts = ref.step(state, a)
+    np.testing.assert_array_equal(obs, ts.obs.numpy().astype(np.float32))
+    np.testing.assert_array_equal(reward, ts.reward.numpy().astype(np.float32))
+    np.testing.assert_array_equal(info["nusselt_obs"], ts.nusselt_obs.numpy())
 
 
 def test_env_layer_exports_the_jax_names():

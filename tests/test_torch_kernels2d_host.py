@@ -15,6 +15,7 @@ versions in float32 rounding only.
 
 import shutil
 import subprocess
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -23,7 +24,7 @@ import torch
 import chip_smoke
 from rbc_gym_tpu_torch.ops import _build
 from rbc_gym_tpu_torch.ops import kernels2d as k2
-from rbc_gym_tpu_torch.ops import limits
+from rbc_gym_tpu_torch.ops import limits, poisson
 from rbc_gym_tpu_torch.ops.poisson import spectral_constants_2d
 from rbc_gym_tpu_torch.sim.grid import Grid2D
 
@@ -85,7 +86,7 @@ int main(int argc, char** argv) {
            (int)tendencies_on_march(nx, nz));
     return 0;
   }
-  // k1|k2 DIR E NX NZ NSUB DT DX DZ NU KAPPA MIN_B
+  // k1|k2 DIR E NX NZ NSUB DT DX DZ NU KAPPA MIN_B [PASSES]
   dir = argv[2];
   const int E = atoi(argv[3]), nx = atoi(argv[4]), nz = atoi(argv[5]), nsub = atoi(argv[6]);
   const float dt = atof(argv[7]), dx = atof(argv[8]), dz = atof(argv[9]), nu = atof(argv[10]),
@@ -117,8 +118,10 @@ int main(int argc, char** argv) {
                                std::vector<float>(C), std::vector<float>(C)};
   const K1Params P = k1_params(nx, nz, nsub, dt, dx, dz, nu, kappa, min_b);
   const RBCParams R{nx, nz, dx, dz, nu, kappa, min_b};
+  const int passes = argc > 13 ? atoi(argv[13]) : 0;  // as launch_env_step_2d
   const bool on_chip = env_step_2d_on_chip(nx, nz);
-  auto* kernel = env_step_kernel_for(nx, nz);
+  auto* kernel = env_step_kernel_for(nx, nz, passes);
+  auto* global = env_step_global_kernel_for(passes);
   std::vector<float> scratch(E * env_step_2d_scratch_floats(nx, nz), NAN);
   run_blocks(E, [&] {
     if (on_chip)
@@ -126,10 +129,9 @@ int main(int argc, char** argv) {
              idct.data(), dinv.data(), out[0].data(), out[1].data(), out[2].data(),
              out[3].data(), P);
     else
-      env_step_2d_global_kernel(u.data(), w.data(), b.data(), bottom.data(), f.data(),
-                                g.data(), dct.data(), idct.data(), dinv.data(), out[0].data(),
-                                out[1].data(), out[2].data(), out[3].data(), scratch.data(), P,
-                                R);
+      global(u.data(), w.data(), b.data(), bottom.data(), f.data(), g.data(), dct.data(),
+             idct.data(), dinv.data(), out[0].data(), out[1].data(), out[2].data(),
+             out[3].data(), scratch.data(), P, R);
   });
   wr("u_out", out[0]); wr("w_out", out[1]); wr("b_out", out[2]); wr("p_out", out[3]);
   return 0;
@@ -152,17 +154,20 @@ def host_binary(tmp_path_factory):
     return exe
 
 
-def _run(host_binary, tmp_path, mode, n_env, nx, nz, heater_duration, seed, dt_solver=None):
+def _run(host_binary, tmp_path, mode, n_env, nx, nz, heater_duration, seed, dt_solver=None,
+         precision=None):
     """Write a float32 case (``chip_smoke.make_case``) and the solve's
-    constants, run ``mode`` on the host -> (solver, case, what the host
-    program printed); the outputs are files in ``tmp_path``."""
+    constants, run ``mode`` on the host (K1 in the instance for
+    ``precision``) -> (solver, case, what the host program printed); the
+    outputs are files in ``tmp_path``."""
     solver, case = chip_smoke.make_case("cpu", n_env, (nz, nx), heater_duration, seed=seed,
                                         dtype=torch.float32, dt_solver=dt_solver)
     for name, t in {**case, **solver.spectral._asdict()}.items():
         t.numpy().astype(np.float32).tofile(tmp_path / name)
     c, p = solver.coeffs, solver.params
     args = [mode, f"{tmp_path}/", *map(str, (n_env, nx, nz, p.substeps_per_env_step)),
-            *(repr(float(x)) for x in (p.dt_solver, c.dx, c.dz, c.nu, c.kappa, c.min_b))]
+            *(repr(float(x)) for x in (p.dt_solver, c.dx, c.dz, c.nu, c.kappa, c.min_b)),
+            str(k2.K1_PASSES[precision])]
     out = subprocess.run([str(host_binary), *args], check=True, capture_output=True, text=True)
     return solver, case, out.stdout.strip()
 
@@ -196,18 +201,66 @@ def test_host_build_of_k1_off_the_chip_on_a_tall_grid(host_binary, tmp_path):
     _check_k1(host_binary, tmp_path, 1, 128, 224, 0.012, 0.002)
 
 
-def _check_k1(host_binary, tmp_path, n_env, nx, nz, heater_duration, dt_solver):
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("n_env,nx,nz", [
+    (1, 96, 64),  # the reference grid: the compile-time instance, tile-exact, swizzled
+    (1, 20, 12),  # the runtime instance: partial tiles in m, n and k, plain slabs
+    (1, 128, 64),  # the off-chip instance
+    (1, 3, 8),  # the fewest columns: one partial tile, 3 of 8 deep in F and G
+    (1, 16, 1),  # one level: the z products 1 deep
+])
+def test_host_build_of_k1_tf32_instances_match_plain(host_binary, tmp_path, n_env, nx, nz,
+                                                     precision):
+    """K1's split-product ("high", 3 passes) and one-pass ("default")
+    instances after 2 substeps (heater_duration 0.06: every product of
+    every stage, the previous stage's tendencies across a substep, p out)
+    against ``env_step_2d_plain`` at the same precision, at the smoke's
+    gates for 6 substeps (``chip_smoke.k1_tf32_errors``). Each emulated
+    mma meets its warp twice, so a substep here costs several times one of
+    float32 K1."""
+    _check_k1(host_binary, tmp_path, n_env, nx, nz, 0.06, None, precision, n_sub=2)
+
+
+def _tf32_matmul_of_the_card(a, b, precision=None):
+    """``ops.poisson.matmul`` as cuBLAS runs it on the card at "default":
+    each float32 operand rounded to TF32 (to nearest) before a float32
+    product. On the CPU, which has no TF32, the port's "default" is the
+    full float32 product."""
+    if precision != "default" or a.dtype != torch.float32:
+        return _MATMUL(a, b, precision)
+    return torch.matmul(*(((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+                          for t in (a, b)))
+
+
+_MATMUL = poisson.matmul
+
+
+def _check_k1(host_binary, tmp_path, n_env, nx, nz, heater_duration, dt_solver,
+              precision=None, n_sub=6):
     solver, case, _ = _run(host_binary, tmp_path, "k1", n_env, nx, nz, heater_duration,
-                           seed=0, dt_solver=dt_solver)
-    assert solver.params.substeps_per_env_step == 6
-    want = k2.env_step_2d_plain(case["u"], case["w"], case["b"], case["bottom"],
-                                solver.spectral, solver.coeffs, solver.params.dt_solver, 6)
-    for name, x in zip(("u_out", "w_out", "b_out", "p_out"), want):
-        assert bool(torch.isfinite(x).all()), name
-        np.testing.assert_allclose(_got(tmp_path, name, x), x.numpy(), rtol=0,
-                                   atol=chip_smoke.K1_ATOL, err_msg=name)
-    w_out = _got(tmp_path, "w_out", want[1])
-    assert np.all(w_out[..., 0] == 0) and np.all(w_out[..., -1] == 0)
+                           seed=0, dt_solver=dt_solver, precision=precision)
+    assert solver.params.substeps_per_env_step == n_sub
+
+    def plain(c, matmul=_MATMUL):
+        with mock.patch.object(poisson, "matmul", matmul):
+            return k2.env_step_2d_plain(c["u"], c["w"], c["b"], c["bottom"], solver.spectral,
+                                        solver.coeffs, solver.params.dt_solver, n_sub,
+                                        precision)
+
+    want = plain(case)
+    got = [_got(tmp_path, name, x) for name, x in zip(("u_out", "w_out", "b_out", "p_out"), want)]
+    for name, x, y in zip(("u_out", "w_out", "b_out", "p_out"), want, got):
+        assert bool(torch.isfinite(x).all()) and np.isfinite(y).all(), name
+    if precision == "default":
+        errors = chip_smoke.k1_tf32_errors(
+            solver, case, [torch.as_tensor(y) for y in got],
+            plain(case, _tf32_matmul_of_the_card))
+        assert errors["kernel"] <= errors["bound"], errors
+    else:
+        for name, x, y in zip(("u_out", "w_out", "b_out", "p_out"), want, got):
+            np.testing.assert_allclose(y, x.numpy(), rtol=0, atol=chip_smoke.K1_ATOL,
+                                       err_msg=name)
+    assert np.all(got[1][..., 0] == 0) and np.all(got[1][..., -1] == 0)
 
 
 @pytest.mark.parametrize("n_env,nx,nz,instance", [

@@ -11,6 +11,7 @@ package, ROADMAP C). The multi-rank runs are in
 """
 
 import os
+import sys
 
 import jax
 import pytest
@@ -32,6 +33,7 @@ from rbc_gym_tpu_torch.parallel import (
     shard_vector_env,
 )
 from rbc_gym_tpu_torch.parallel.distributed import rank_device_index
+from rbc_gym_tpu_torch.parallel.launch import run_ranks
 from rbc_gym_tpu_torch.parallel.mesh import EnvMesh, env_rows, mesh_shape
 from rbc_gym_tpu_torch.rl import PPO, PPOConfig, restore_training_state, save_training_state
 
@@ -201,3 +203,36 @@ def test_callbacks_write_nothing_off_rank_0(tmp_path):
     assert not os.path.exists(path)
     MetricsLogger(str(path), echo_every=0)({"iteration": 0, "global_step": 4}, None)
     assert path.read_text().count("\n") == 1
+
+
+RESERVED_PORT_CHECK = """
+import errno, os, socket
+port = int(os.environ["MASTER_PORT"])
+with socket.socket() as s:  # a plain bind, as another process on the host would make
+    try:
+        s.bind(("localhost", port))
+        raise SystemExit("the ranks' port was free to take")
+    except OSError as e:
+        assert e.errno == errno.EADDRINUSE, e
+for _ in range(200):  # the ports the host hands out are never it
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        assert s.getsockname()[1] != port
+if os.environ["RANK"] == "0":  # rank 0's TCPStore listens on it with SO_REUSEADDR
+    with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind(("localhost", port))
+        s.listen()
+"""
+
+
+def test_run_ranks_holds_the_ranks_port_while_they_run():
+    """The port ``run_ranks`` gives its ranks stays reserved for them
+    (``parallel.launch.reserved_port``): another process can neither bind
+    it nor be handed it while they run, and rank 0 can listen on it. A
+    port picked free and released before rank 0 bound it could be taken
+    in between by another test's process, failing rank 0's bind with
+    EADDRINUSE (the fixture of ``test_torch_parallel_env.py`` failed in a
+    run of the suite on six workers)."""
+    outputs = run_ranks([sys.executable, "-c", RESERVED_PORT_CHECK], 2, timeout=120)
+    assert outputs == ["", ""]

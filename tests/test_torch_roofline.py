@@ -72,6 +72,8 @@ def test_roofline_metrics_at_a_fixed_rate():
 # PERF.md section 6's bounds (ms at 1024 envs, as quoted) and the work each is of
 BOUNDS = [
     ("K1", lambda: roofline.env_step_work(1024, 96, 64, 50), "10.127"),
+    ("K1 split-product", lambda: roofline.env_step_work(1024, 96, 64, 50, "high"), "5.844"),
+    ("K1 one-pass", lambda: roofline.env_step_work(1024, 96, 64, 50, "default"), "3.892"),
     ("K2", lambda: roofline.tendencies_own_work(1024, 96, 64), "0.0454"),
     *[(f"K3 stage {m}", lambda m=m: roofline.stage_rk_3d_work(1024, 32, 32, 16, m), want)
       for m, want in enumerate(("0.2855", "0.3668", "0.2855"))],
@@ -102,3 +104,22 @@ def test_counted_poisson_gemms_are_the_closed_forms(dim, shape, want):
     if dim == "3d":
         nz, ny, nx = shape
         assert roofline.poisson_gemm_flops_per_point_3d(nx, ny, nz) == want
+
+
+@pytest.mark.parametrize("precision,passes", [("high", 3), ("default", 1)])
+def test_k1_tf32_work_moves_the_solve_to_the_tensor_cores(precision, passes):
+    """K1's TF32 instances do the float32 instance's work with the solve's
+    products, 2 (2 nx^2 nz + nx nz^2) FLOP a stage, on the tensor cores,
+    once for each pass; their bound adds those at the TF32 peak to the rest
+    at the float32 one. "highest" is the float32 instance's work."""
+    e, nx, nz, n_sub = 1024, 96, 64, 50
+    f32 = roofline.env_step_work(e, nx, nz, n_sub)
+    work = roofline.env_step_work(e, nx, nz, n_sub, precision)
+    solve = e * n_sub * 3 * 2 * (2 * nx * nx * nz + nx * nz * nz)
+    assert work["bytes"] == f32["bytes"] and work["flops"] + solve == f32["flops"]
+    assert work["tf32_flops"] == passes * solve
+    assert roofline.bound(work) == (pytest.approx(1e3 * (
+        work["flops"] / roofline.FP32_FLOPS + passes * solve / roofline.TF32_FLOPS)),
+        "operations")
+    assert roofline.env_step_work(e, nx, nz, n_sub, "highest") == f32
+    assert roofline.bound(f32)[0] == pytest.approx(1e3 * f32["flops"] / roofline.FP32_FLOPS)

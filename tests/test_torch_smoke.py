@@ -158,14 +158,16 @@ def test_smoke_phases_run_on_cpu_plain_halves():
 
     fake = {"ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5, "bound_by": "bytes"}
     names = ("env_step_2d", "tendencies_2d", "stage_rk_3d", "correct_3d", "stage_rk_3d_xy",
-             "field_tendency_3d", "div_3d", "stage_rk_3d_rhat")
+             "field_tendency_3d", "div_3d", "stage_rk_3d_rhat", "env_step_2d_tf32x3",
+             "env_step_2d_tf32")
     records = chip_smoke.kernel_records(
         {"env_step_2d": 1e-7, "env_step_2d_main": 2e-7, "tendencies_2d": 1e-8,
          "stage_rk_3d": 3e-7, "correct_3d": 1e-8, "stage_rk_3d_xy": 4e-7,
-         "field_tendency_3d": 5e-7, "div_3d": 6e-8, "stage_rk_3d_rhat": 1e-5},
+         "field_tendency_3d": 5e-7, "div_3d": 6e-8, "stage_rk_3d_rhat": 1e-5,
+         "env_step_2d_tf32x3": 3e-7, "env_step_2d_tf32": 2e-5},
         {"env_step_2d": 3, "tendencies_2d": 3, "stage_rk_3d": 117, "correct_3d": 3,
          "stage_rk_3d_xy": 225, "field_tendency_3d": 468, "div_3d": 117,
-         "stage_rk_3d_rhat": 39},
+         "stage_rk_3d_rhat": 39, "env_step_2d_tf32x3": 1, "env_step_2d_tf32": 1},
         {name: fake for name in names},
     )
     assert [rec["name"] for rec in records] == list(names)
@@ -219,6 +221,31 @@ def test_smoke_lazy_options_phase_runs_on_cpu_plain_halves():
     assert out["stage_ew_equal"] and out["env_step_diffs"]["stage_qp_vs_stage"]["u"] == 0.0
     assert not any(n for launches in out["launches"].values() for n in launches.values())
     assert set(out["q_vs_float64"]) == {"highest", "high", "default", "max_abs_q"}
+    assert out["tf32_flags"] == {"matmul": False, "cudnn": False}
+    assert out["times"] == {}  # timed on the card only
+    json.dumps(out)
+
+
+def test_smoke_poisson_precision_2d_phase_runs_on_cpu_plain_halves():
+    """Phase 39 with few envs on small grids (the bank's fixed point on
+    its own 96x64): on the CPU both halves are the plain version at the
+    same precision (the
+    one-pass check against the float64 run then holds at one times the
+    plain version's error), the env steps at "bf16x3" and "default" pass
+    the 2D checks, the substep at "bf16x3" is within K1's gate of
+    "highest", the parity helper refuses the CPU, the bank's fixed point
+    holds after one step, both TF32 flags are off."""
+    out = chip_smoke.poisson_precision_2d(
+        "cpu", num_envs=2, state_shape=(16, 32), observation_shape=(8, 16), few_envs=1,
+        n_fixed=1, fixed_steps=1,
+        other_shapes=(("runtime", (32, 20)), ("runtime_plain", (12, 20)), ("off_chip", (8, 3))))
+    assert all(v["error"] <= v["bound"] for v in out["gated"].values())
+    assert {"bf16x3", "default", "bf16x3_runtime", "bf16x3_runtime_plain", "bf16x3_off_chip",
+            "substep_bf16x3", "fixed_point_bf16x3"} == set(out["gated"])
+    assert out["max_abs_err"] == {"env_step_2d_tf32x3": 0.0, "env_step_2d_tf32": 0.0}
+    assert [o["swizzled"] for o in out["other_instances"].values()] == [True, False, False]
+    assert not any(n for launches in out["launches"].values() for n in launches.values())
+    assert all(c["max_abs_div"] < c["div_atol"] for c in out["checks"].values())
     assert out["tf32_flags"] == {"matmul": False, "cudnn": False}
     assert out["times"] == {}  # timed on the card only
     json.dumps(out)

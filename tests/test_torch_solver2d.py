@@ -122,6 +122,73 @@ def test_env_step_plain_matches_pallas_whole_step_kernel():
         np.testing.assert_allclose(g.numpy(), _from_bm(w), rtol=0, atol=5e-6, err_msg=name)
 
 
+def _pallas_and_plain_steps(precision, kernel_precision, seed):
+    """One 2-substep env step of 8 envs from the same float32 fields: the
+    Pallas whole-step kernel in the interpreter at ``kernel_precision``, the
+    port's plain version at ``precision`` (``ops.poisson.matmul``'s names),
+    and the plain version run in float64."""
+    grid, _ = _grids()
+    p = SimParams2D(heater_duration=0.06)
+    f, bottom = _np_fields(8, seed=seed), _bottom(8, seed=seed + 1)
+    step = make_env_step_fused_2d(NX, NZ, grid.dx, grid.dz, p.dt_solver, p.nu, p.kappa,
+                                  p.min_b, p.substeps_per_env_step, e_blk=8, interpret=True,
+                                  poisson_precision=kernel_precision)
+    want = [_from_bm(x) for x in step(_bm(f.u), _bm(f.w), _bm(f.b), _bm(bottom))]
+    got, ref = [], []
+    for dtype, out in ((torch.float32, got), (torch.float64, ref)):
+        s = make_solver2d(grid, p, dtype=dtype, device="cpu")
+        t = fields_from_numpy(f, "cpu", dtype)
+        out += [x.double().numpy() for x in k2d.env_step_2d_plain(
+            t.u, t.w, t.b, torch.as_tensor(bottom, dtype=dtype), s.spectral, s.coeffs,
+            p.dt_solver, p.substeps_per_env_step, precision)]
+    return got, want, ref
+
+
+def test_env_step_plain_at_high_matches_pallas_split_product_branch():
+    """The plain version at "high" (three TF32-split products, the JAX 2D
+    solver's "bf16x3") against the Pallas kernel's split-product branch
+    (``poisson_precision="high"``: three bf16-split dots). Each side drops
+    its lo . lo term: at most 2^-18 of a product's terms for bf16's 8 bits,
+    2^-20 for TF32's 10; the products run in float32 on the CPU on both
+    sides. Over 2 substeps with max |p| ~ 7e-3 those drops stay far under
+    the float32 summation-order differences that the float32 gate, 5e-6,
+    already allows (``test_env_step_plain_matches_pallas_whole_step_kernel``);
+    each side's error against the plain version in float64 is in the message."""
+    got, want, ref = _pallas_and_plain_steps("high", "high", seed=13)
+    for name, g, w, r in zip(("u", "w", "b", "p_nhs"), got, want, ref):
+        off64 = f"port {np.abs(g - r).max():.3e}, JAX {np.abs(w - r).max():.3e} off float64"
+        np.testing.assert_allclose(g, w, rtol=0, atol=5e-6, err_msg=f"{name}: {off64}")
+
+
+def test_env_step_plain_at_default_matches_pallas_default_products():
+    """The plain version at "default" against the Pallas kernel at
+    ``poisson_precision="default"`` (one DEFAULT pass a product): on the
+    CPU both run their products in full float32, so the float32 gate
+    5e-6 holds."""
+    got, want, _ = _pallas_and_plain_steps("default", "default", seed=15)
+    for name, g, w in zip(("u", "w", "b", "p_nhs"), got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=5e-6, err_msg=name)
+
+
+def test_substep_at_bf16x3_matches_jax_substep():
+    """``Solver2D.substep`` at ``poisson_precision="bf16x3"`` (its
+    projections' products three TF32-split products) against the JAX
+    solver's substep at "bf16x3" (its XLA projection at ``Precision.HIGH``,
+    full float32 on the CPU), float32, at the float32 gate 5e-6: the lo . lo
+    term the port drops is under 2^-20 of a product's terms."""
+    grid, jgrid = _grids()
+    port = make_solver2d(grid, SimParams2D(), dtype=torch.float32, device="cpu",
+                         poisson_precision="bf16x3")
+    ref = jsolver.make_solver2d(jgrid, jsolver.SimParams2D(), dtype=jnp.float32, fused=False,
+                                poisson_precision="bf16x3")
+    f, bottom = _np_fields(2, seed=17), _bottom(2, seed=18)
+    want = jax.jit(ref.substep)(jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32), f),
+                                jnp.asarray(bottom, jnp.float32))
+    got = port.substep(fields_from_numpy(f, "cpu", torch.float32),
+                       torch.as_tensor(bottom, dtype=torch.float32))
+    _assert_fields_close(got, want, atol=5e-6)
+
+
 @pytest.fixture(scope="module")
 def solvers64():
     grid, jgrid = _grids()

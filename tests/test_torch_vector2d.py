@@ -196,7 +196,8 @@ def test_poisson_precision_is_taken_as_none_and_refused_otherwise():
     """The JAX env's 2D ``poisson_precision``: None, "highest" and "high"
     (which the JAX package maps to "highest") are one full-precision solve,
     so the port steps exactly as without it; "bf16x3" and "default", which
-    run in the JAX package's K1 through a split-product branch, and unknown
+    run K1's split-product and one-pass instances, are taken
+    (``test_split_and_one_pass_precisions_match_the_jax_env``); unknown
     names are refused by name."""
     jenv = JRBC2DVectorEnv(2, **CFG, dtype=jnp.float64, poisson_precision="high")
     default = _env(2)
@@ -208,7 +209,24 @@ def test_poisson_precision_is_taken_as_none_and_refused_otherwise():
         assert torch.equal(ts.obs, ts_default.obs) and torch.equal(ts.reward, ts_default.reward)
     assert jenv.num_envs == default.num_envs
     for value in ("bf16x3", "default"):
-        with pytest.raises(ValueError, match=f"poisson_precision={value!r}.*split-product"):
+        assert _env(2, poisson_precision=value).solver.path == "plain"
+    for value in ("bf16", "HIGH", "tf32"):
+        with pytest.raises(ValueError, match="unknown poisson_precision"):
             _env(2, poisson_precision=value)
-    with pytest.raises(ValueError, match="unknown poisson_precision"):
-        _env(2, poisson_precision="bf16")
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "default"])
+def test_split_and_one_pass_precisions_match_the_jax_env(precision):
+    """At "bf16x3" and "default" the port's env steps as the JAX env at the
+    same name, in float64 (where both solves' products are full precision
+    whatever the name), at the env step's float64 tolerance."""
+    jenv = JRBC2DVectorEnv(2, **CFG, dtype=jnp.float64, poisson_precision=precision)
+    env = _env(2, poisson_precision=precision)
+    jstate, state = _states(2, step=1, seed=11)
+    actions = np.random.default_rng(12).uniform(-1, 1, (2, 12))
+    jnext, jts = jenv.step(jstate, jnp.asarray(actions))
+    nxt, ts = env.step(state, actions)
+    for name in ("obs", "reward", "nusselt_state", "nusselt_obs"):
+        _close(getattr(ts, name), getattr(jts, name), name)
+    for name, got in fields_to_numpy(nxt.fields).items():
+        _close(got, getattr(jnext.fields, name), name)
