@@ -209,7 +209,8 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      analysis instance (fused="stage_qp") at each stage
                      against its plain version (fields and g at K3's gates,
                      rhat against the plain version in float64 within twice
-                     the float32 plain version's own error); from one reset,
+                     the float32 plain version's own error), and at stage 1
+                     at 128 envs on nx = 64 (16x32x64); from one reset,
                      one env step each of fused="stage_qp" (within 5e-6 of
                      "stage", the instance 39 launches, K3 none), "stage_ew"
                      (bit for bit "stage", K3 39) and poisson_precision
@@ -217,7 +218,9 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      (finite), the divergence after each; q of the three
                      precisions against a float64 solve; both TF32 flags
                      off; the instance's ms a stage beside K3 plus the dense
-                     analysis product, a stage_qp step beside a stage step
+                     analysis product, a stage_qp step beside a stage step,
+                     the resident blocks an SM, registers and local memory
+                     of the instance and of K3
 39. poisson_precision_2d the 2D solver's "bf16x3" and "default" through K1's
                      split-product and one-pass TF32 instances at 1024 envs
                      on 96x64: each against its plain version at 6 substeps
@@ -3221,16 +3224,21 @@ def rhat_errors(c, inputs, dt: float, stage: int, g_prev, rhat) -> dict:
             "max_abs_rhat": float(ref.abs().max())}
 
 
-def k3_analysis_parity(solver, case, dt=0.04) -> tuple:
-    """Stage 0, 1, 2 of K3's analysis instance against its plain version,
-    each stage fed the plain outputs of the one before: u*, v*, w*, b' and g
-    at K3's gates, rhat within ``RHAT_VS_PLAIN`` times the float32 plain
-    version's own error against the float64 one -> (errors by stage, {check:
-    (error, bound)})."""
+def k3_analysis_parity(solver, case, dt=0.04, stages=(0, 1, 2), prefix="") -> tuple:
+    """``stages`` of K3's analysis instance against its plain version, each
+    stage fed the plain outputs of the one before: u*, v*, w*, b' and g at
+    K3's gates, rhat within ``RHAT_VS_PLAIN`` times the float32 plain
+    version's own error against the float64 one -> (errors by stage, {check
+    (``prefix`` first): (error, bound)})."""
     by_stage, errs, g_prev = {}, {}, None
     stage_case = dict(case)
-    for stage in range(3):
+    for stage in range(max(stages) + 1):
         inputs = stage_inputs(stage_case)
+        if stage not in stages:
+            plain = k3d.stage_rk_3d_plain(*inputs, solver.coeffs, dt, stage, g_prev)
+            stage_case.update(zip("uvwb", plain[:4]), q=solver.solve(plain[4]))
+            g_prev = plain[5]
+            continue
         got = k3d.stage_rk_3d_rhat(*inputs, solver.coeffs, dt, stage, g_prev)
         want = k3d.stage_rk_3d_rhat_plain(*inputs, solver.coeffs, dt, stage, g_prev)
         fields = abs_diffs("uvwb", got[:4], want[:4])
@@ -3238,10 +3246,11 @@ def k3_analysis_parity(solver, case, dt=0.04) -> tuple:
         rhat = rhat_errors(solver.coeffs, inputs, dt, stage, g_prev, got[4])
         by_stage[f"stage{stage}"] = {**fields, **g, "rhat_vs_plain_float32": float(
             (got[4] - want[4]).abs().max()), "rhat_float64_plain_vs": rhat}
-        errs[f"stage{stage}_fields"] = (max(fields.values()), K3_FIELD_ATOL)
+        errs[f"{prefix}stage{stage}_fields"] = (max(fields.values()), K3_FIELD_ATOL)
         if g:
-            errs[f"stage{stage}_g"] = (max(g.values()), K3_G_ATOL)
-        errs[f"stage{stage}_rhat"] = (rhat["kernel"], RHAT_VS_PLAIN * rhat["plain_float32"])
+            errs[f"{prefix}stage{stage}_g"] = (max(g.values()), K3_G_ATOL)
+        errs[f"{prefix}stage{stage}_rhat"] = (rhat["kernel"],
+                                              RHAT_VS_PLAIN * rhat["plain_float32"])
         plain = k3d.stage_rk_3d_plain(*inputs, solver.coeffs, dt, stage, g_prev)
         stage_case.update(zip("uvwb", plain[:4]), q=solver.solve(plain[4]))
         g_prev = plain[5]
@@ -3249,10 +3258,11 @@ def k3_analysis_parity(solver, case, dt=0.04) -> tuple:
 
 
 def lazy_options(device, num_envs=1024, state_shape=(16, 32, 32), heater_duration=0.125,
-                 seed=0, reps=20) -> dict:
+                 seed=0, reps=20, wide_shape=(16, 32, 64), wide_envs=128) -> dict:
     """Phase 38: the lazy loop's options on the training grid at
     ``num_envs``, float32. K3's analysis instance against its plain version at each
-    stage (``k3_analysis_parity``); one env step of
+    stage (``k3_analysis_parity``), and at stage 1 on ``wide_shape`` at
+    ``wide_envs`` (nx = 64, which its first design refused); one env step of
     ``RBC3DVectorEnv(fused="stage_qp")``, ``"stage_ew"`` and
     ``poisson_precision="high"`` and ``"default"`` from the state of
     ``fused="stage"``'s reset, each with its launches counted from zero:
@@ -3263,7 +3273,8 @@ def lazy_options(device, num_envs=1024, state_shape=(16, 32, 32), heater_duratio
     the three precisions against a float64 solve of a divergence; both
     TF32 flags off afterwards; and CUDA-event times of
     the instance against K3 plus the dense analysis product, and of a
-    stage_qp step against a stage step."""
+    stage_qp step against a stage step, with both kernels' resident blocks
+    an SM, registers and local memory (``k3d.march_occupancy``)."""
     begin = time.perf_counter()
     device = torch.device(device)
     dtype = torch.float32  # the paths are forced, so they run in float32 on any device
@@ -3271,6 +3282,12 @@ def lazy_options(device, num_envs=1024, state_shape=(16, 32, 32), heater_duratio
     solver, case = make_case_3d(device, num_envs, state_shape, seed=11, dtype=dtype,
                                 fused="stage_qp")
     by_stage, errs = k3_analysis_parity(solver, case)
+    wide_solver, wide_case = make_case_3d(device, wide_envs, wide_shape, seed=12, dtype=dtype,
+                                          fused="stage_qp")
+    wide, wide_errs = k3_analysis_parity(wide_solver, wide_case, stages=(1,),
+                                         prefix=f"nx{wide_shape[2]}_")
+    errs.update(wide_errs)
+    del wide_solver, wide_case
 
     kw = dict(state_shape=state_shape, heater_duration=heater_duration, dtype=dtype,
               device=device)
@@ -3364,11 +3381,16 @@ def lazy_options(device, num_envs=1024, state_shape=(16, 32, 32), heater_duratio
         a = torch.zeros((num_envs, 8, 8), dtype=dtype, device=device)
         for name in ("stage", "stage_qp"):
             times[f"env_step_{name}_ms"] = _cuda_ms(lambda: envs[name].solver.env_step(f, a), 3)
+        times["occupancy"] = {name: k3d.march_occupancy(nx, ny, nz, rhat=rhat)
+                              for name, rhat in (("stage_rk_3d_rhat", True),
+                                                 ("stage_rk_3d", False))}
     return {"phase": "lazy_options", "num_envs": num_envs,
             "gated": {k: {"error": e, "bound": b} for k, (e, b) in errs.items()},
             "max_abs_err": {"stage_rk_3d_rhat": max(
                 max(v for k, v in st.items() if isinstance(v, float)) for st in by_stage.values())},
-            "stage_rk_3d_rhat_by_stage": by_stage, "env_step_diffs": diffs,
+            "stage_rk_3d_rhat_by_stage": by_stage,
+            "stage_rk_3d_rhat_wide": {"shape": list(wide_shape), "num_envs": wide_envs, **wide},
+            "env_step_diffs": diffs,
             "stage_ew_equal": stage_ew_equal, "launches": launches, "checks": checks,
             "q_vs_float64": q_errors, "tf32_flags": tf32, "times": times,
             "seconds": time.perf_counter() - begin}

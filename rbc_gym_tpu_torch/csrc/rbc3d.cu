@@ -46,23 +46,37 @@
 //   Bound: bytes, as K3 (rhat has div's size); the analysis adds 2 (nx + nz)
 //   FLOP a cell at its least, 96 at 16x32x32, against K3's ~380.
 //   Design: the analysis in its two factors, not the dense T_A column block
-//   of the Pallas dot (512 multiply-adds a point there): where K3 writes
-//   div of plane i - 1, each thread puts it into shared memory; after the
-//   plane's barrier the thread at (y = j, kz = k) sums t = sum_z Cz[k, z]
-//   div[j, z] over its column (nz multiply-adds from shared memory: the
-//   column's values are broadcasts, Cz^T's row conflict-free) and adds
-//   Fx[kx, i - 1] t into its nx entries of the rhat accumulator for every kx
-//   (nx multiply-adds: 48 a thread a plane at 16x32x32). The accumulator,
-//   every (kx, y, kz), is in shared memory, [kx][y][kz], so a warp's
-//   accesses are consecutive and each entry has one owner (no barrier, no
-//   atomic); after the march each thread writes its nx entries once.
-//   Shared memory, in floats: K3's, then ny nz (nx + 1) + nx^2 + nz^2 (one
-//   plane of div, the accumulator, Fx, Cz^T): 172,160 bytes at 16x32x32,
-//   one 512-thread block an SM where K3 runs two. The grid's rule: K3's,
-//   with this formula under the limit (16x32x64 is refused). The Pallas
-//   kernel's x-block accumulation across grid steps has no counterpart: one
-//   block marches all of its env's x-planes. The analysis is float32
-//   whatever poisson_precision is, as the Pallas dot is at HIGHEST.
+//   of the Pallas dot (512 multiply-adds a point there), the z-factor in the
+//   march and the x-factor after it. Where K3 writes div of plane i - 1,
+//   each thread puts it into shared memory; after the plane's barrier the
+//   thread at (y = j, kz = k) sums t = sum_z Cz[k, z] div[j, z] over its
+//   column (nz multiply-adds from shared memory: the column's values are
+//   broadcasts, Cz^T's row conflict-free) and stores t at rhat's own
+//   address for (j, x = i - 1, k): K3's div store, at the same place and of
+//   the same size. After the last plane each thread reads its own nx values
+//   of t back (its own stores: program order suffices, no barrier) and
+//   writes rhat[kx, j, k] = sum_x Fx[kx, x] t(x) over them (rhat_x_factor:
+//   at nx = 32 in registers, one accumulator a kx, Fx as float4 through the
+//   read-only cache; other nx stage t in the dead rings, threads taking
+//   turns). The order of operations is the first design's (Cz over z, then
+//   Fx in increasing x from Fx[kx, 0] t(0), fmaf), so rhat is its bits.
+//   What held that first design (1.02-1.10 ms a stage at 1024 envs on
+//   16x32x32, 27-34 % of the bound, against K3's 0.72-0.81; H100 80GB HBM3
+//   at 700 W): a shared rhat accumulator [kx][y][kz], nx ny nz floats,
+//   172,160 bytes a block, so one 512-thread block an SM (120 registers)
+//   where K3 runs two, nx shared reads and writes a thread a plane into it,
+//   and 16x32x64 refused. Shared memory, in floats: K3's, then ny nz + nz^2
+//   (one plane of div, Cz^T), and at least nx: 102,528 bytes at 16x32x32,
+//   two 512-thread blocks an SM with K3's launch bounds (64 registers). The
+//   grid's rule: K3's, with this formula under the limit. The t round trip
+//   (div's size once more each way) is L2 traffic. This design takes
+//   0.83-0.93 ms a stage there, 32-39 % of the bound, ~0.125 ms over K3;
+//   the z-factor by width-16 shuffles, the div row as float4, Fx in the
+//   dead rings or in constant memory, and 2 or 4 accumulators at a time
+//   were no faster (PERF.md, section 6). The Pallas kernel's
+//   x-block accumulation across grid steps has no counterpart: one block
+//   marches all of its env's x-planes. The analysis is float32 whatever
+//   poisson_precision is, as the Pallas dot is at HIGHEST.
 //
 // K5 stage_march_kernel<NZ, -1> replaces ops/pallas3d.py:_stage_rk_kernel_xy
 // (reached from make_stage_rk_3d_xy, pl.pallas_call at :1592): K3's stage,
@@ -405,17 +419,17 @@ size_t stage_xy_smem_floats(int nz) {
 // Shared memory K3 needs per block, in floats: rings of kRing x-planes of
 // u, v, b and w, two of q, kPhRing of pHY', v* and w* of one plane and the
 // y fluxes of u, v, w, b of two, each plane all ny rows: ny (48 nz + 9).
-size_t stage_smem_floats(int ny, int nz) {
+__host__ __device__ size_t stage_smem_floats(int ny, int nz) {
   return (size_t)ny *
          ((kRing * 3 + 2 + kPhRing + 1 + 8) * (size_t)nz + (kRing + 1) * (size_t)(nz + 1));
 }
 
 // Shared memory K3's analysis instance needs per block, in floats: K3's,
-// then the divergence of one plane, Fx, Cz^T and the rhat accumulator of
-// every (kx, y, kz): ny nz (nx + 1) + nx^2 + nz^2 more.
-size_t stage_qp_smem_floats(int nx, int ny, int nz) {
-  return stage_smem_floats(ny, nz) + (size_t)ny * nz * (nx + 1) + (size_t)nx * nx +
-         (size_t)nz * nz;
+// then the divergence of one plane and Cz^T, ny nz + nz^2 more, and at
+// least one thread's nx values of t for the x-factor after the march.
+__host__ __device__ size_t stage_qp_smem_floats(int nx, int ny, int nz) {
+  const size_t floats = stage_smem_floats(ny, nz) + (size_t)ny * nz + (size_t)nz * nz;
+  return floats > (size_t)nx ? floats : (size_t)nx;
 }
 
 // Shared memory K6's march instance needs per block, in floats, for every
@@ -441,19 +455,69 @@ bool field_on_march(int nx, int ny, int nz) {
 constexpr int kStage = -1;
 __host__ __device__ constexpr bool runs(int field, int f) { return field == kStage || field == f; }
 
+// rhat's x-factor, after the march: each thread's column holds t(x) at
+// col[x nz] (its own stores, so program order suffices), which becomes
+// rhat[kx] = sum_x Fx[kx, x] t(x), summed in increasing x from
+// Fx[kx, 0] t(0) with fmaf. At nx = kQpNx the thread holds its t in
+// registers, one accumulator a kx, Fx (row-major, 16-byte aligned) through
+// the read-only cache as float4. Every other nx stages the t of as many
+// threads at a time as the block's shared memory holds (dead after the
+// march; stage_qp_smem_floats keeps room for one), [x][thread], and the
+// threads take turns.
+constexpr int kQpNx = 32;
+__device__ __forceinline__ void rhat_x_factor(float* col, const float* __restrict__ fx, int nx,
+                                              int ny, int nz, float* smem) {
+  if (nx == kQpNx) {
+    float t[kQpNx];
+#pragma unroll
+    for (int x = 0; x < kQpNx; ++x) t[x] = col[x * nz];
+    const float4* f4 = reinterpret_cast<const float4*>(fx);
+    for (int kx = 0; kx < kQpNx; ++kx, f4 += kQpNx / 4) {
+      float4 f = __ldg(f4);
+      float a = f.x * t[0];
+      a = fmaf(f.y, t[1], a);
+      a = fmaf(f.z, t[2], a);
+      a = fmaf(f.w, t[3], a);
+#pragma unroll
+      for (int x = 4; x < kQpNx; x += 4) {
+        f = __ldg(f4 + x / 4);
+        a = fmaf(f.x, t[x], a);
+        a = fmaf(f.y, t[x + 1], a);
+        a = fmaf(f.z, t[x + 2], a);
+        a = fmaf(f.w, t[x + 3], a);
+      }
+      col[kx * nz] = a;
+    }
+    return;
+  }
+  const int turn = (int)(stage_qp_smem_floats(nx, ny, nz) / nx);  // threads a turn
+  for (int t0 = 0; t0 < (int)blockDim.x; t0 += turn) {
+    __syncthreads();  // the shared memory is free: the march, or the last turn, is done
+    const int s = (int)threadIdx.x - t0;
+    if (s < 0 || s >= turn) continue;
+    float* ts = smem + s;
+    for (int x = 0; x < nx; ++x) ts[x * turn] = col[x * nz];
+    for (int kx = 0; kx < nx; ++kx) {
+      const float* f = fx + kx * nx;
+      float a = __ldg(f) * ts[0];
+      for (int x = 1; x < nx; ++x) a = fmaf(__ldg(f + x), ts[x * turn], a);
+      col[kx * nz] = a;
+    }
+  }
+}
+
 // The march kernel: K5 for NY < 0 (a block per (env, kYT y rows)), K3 for
 // NY >= 0 (a block per env, all of periodic y; NY = 0: ny at run time), and
 // K6's march instance for kField >= 0: K3's blocks, one field's tendency g
 // only, written to that field's g pointer (no correction, RK update or
 // divergence; one barrier a plane). NZ (and NY) > 0 fix the sizes at
 // compile time. kRhat: K3's analysis instance, which writes rhat = T_A div
-// to div_out in place of div (its shared memory allows one block an SM),
-// from Fx and Cz^T in `analysis` (NULL for every other instance: a pointer
-// in XYParams moved the other instances' register allocation).
+// to div_out in place of div, from Fx and Cz^T in `analysis` (NULL for
+// every other instance: a pointer in XYParams moved the other instances'
+// register allocation); it has K3's launch bounds.
 template <int NZ, int NY, int kField = kStage, bool kRhat = false>
 __global__ void __launch_bounds__(NZ > 0 && NY != 0 ? march_threads(NZ, NY) : kMaxThreads,
-                                  NY < 0 ? (NZ == 32 ? 3 : 1)
-                                         : (NZ > 0 && NY > 0 && !kRhat ? 2 : 1))
+                                  NY < 0 ? (NZ == 32 ? 3 : 1) : (NZ > 0 && NY > 0 ? 2 : 1))
 stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
                       const float* __restrict__ w_in, const float* __restrict__ b_in,
                       const float* __restrict__ q_in, const float* __restrict__ bottom_in,
@@ -506,15 +570,11 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   // K3: y fluxes of a plane, two planes by parity, each [u | v | w | b] (ny, nz);
   // K6: its field's alone
   float* yfl = ws + (kK6 ? 0 : (kWhole ? ny : kYT) * nw);
-  // K3's analysis instance: div of one plane (ny, nz), Fx [kx][x], Cz^T
-  // [z][kz] and the accumulator rhat [kx][y][kz] (a thread's own entries
-  // lie S apart, so a warp's accesses are consecutive)
+  // K3's analysis instance: div of one plane (ny, nz) and Cz^T [z][kz]
   float* ds = yfl + 2 * kYF * S;
-  float* fxs = ds + S;
-  float* czs = fxs + nx * nx;
-  float* acc = czs + nz * nz;
+  float* czs = ds + S;
   if constexpr (kRhat) {  // visible after the prologue's first barrier
-    for (int t = threadIdx.x; t < nx * nx + nz * nz; t += blockDim.x) fxs[t] = analysis[t];
+    for (int t = threadIdx.x; t < nz * nz; t += blockDim.x) czs[t] = analysis[nx * nx + t];
   }
 
   // ---- staging: plane x of u, v, w, b and q, raw, by asynchronous copies ----
@@ -645,19 +705,18 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
     return yf[r1 * nz] - yf[r0 * nz];
   };
   const int jm = kWhole ? wrap_x(j - 1, ny) : j - 1;
-  // K3's analysis instance: this thread's (y = j, kz = k) share of plane x,
-  // in two factors: t = sum_z Cz[k, z] div(x)[j, z] over its column (the
-  // plane's div in shared memory), then rhat[kx, j, k] += Fx[kx, x] t for
-  // every kx; plane 0 starts the sums
+  // K3's analysis instance: this thread's column of rhat (E, ny, nx nz),
+  // (y = j, kz = k), nx values nz apart
+  float* const col = kRhat ? div_out + (e * ny + j) * (size_t)nx * nz + k : nullptr;
+  // its z-factor of plane x: t = sum_z Cz[k, z] div(x)[j, z] over its
+  // column (the plane's div in shared memory), stored at rhat's own address
+  // for (j, x, k), where K3 stores div; the x-factor reads it back
   auto analyse = [&](int x) {
     const float* dc = ds + j * nz;
     float t = 0.0f;
 #pragma unroll
     for (int z = 0; z < nz; ++z) t = fmaf(czs[z * nz + k], dc[z], t);
-    float* a = acc + j * nz + k;
-    for (int kx = 0; kx < nx; ++kx) {
-      a[kx * S] = x == 0 ? fxs[kx * nx] * t : fmaf(fxs[kx * nx + x], t, a[kx * S]);
-    }
+    col[x * nz] = t;
   };
   auto lap_h = [&](const Ring<kRing, kWhole>& R, int i, int kk, float c) {
     return (R.row(i + 1, j)[kk] - 2.0f * c + R.row(i - 1, j)[kk]) * P.idx2 +
@@ -894,11 +953,10 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
       div_out[((e * ny + y0 + j) * nx + nx - 1) * nz + k] = d;
     }
   }
-  if constexpr (kRhat) {  // the last plane's share, then rhat (E, ny, nx nz) once
+  if constexpr (kRhat) {  // the last plane's z-factor, then the x-factor
     __syncthreads();
     analyse(nx - 1);
-    float* out = div_out + (e * ny + j) * (size_t)nx * nz + k;
-    for (int kx = 0; kx < nx; ++kx) out[kx * nz] = acc[kx * S + j * nz + k];
+    rhat_x_factor(col, analysis, nx, ny, nz, smem);
   }
 }
 
@@ -1133,6 +1191,29 @@ int launch_stage_rk_3d_rhat(const float* u, const float* v, const float* w, cons
       u, v, w, b, q, bottom, gu_prev, gv_prev, gw_prev, gb_prev, u_out, v_out, w_out,
       b_out, rhat_out, gu, gv, gw, gb, dt, gamma, zeta, P, analysis);
   return (int)cudaGetLastError();
+}
+
+// What K3 (rhat = 0) or its analysis instance (rhat = 1) asks of an SM on
+// the grid, for the instance its launcher picks: out[0] resident blocks an
+// SM at its threads and shared memory, out[1] registers a thread, out[2]
+// local memory a thread (stack frame, spills included), out[3] shared
+// memory a block in bytes.
+int march_occupancy(int rhat, int nx, int ny, int nz, int* out) {
+  auto* kernel = rhat ? stage_qp_kernel_for(ny, nz) : stage_kernel_for(ny, nz);
+  const size_t smem =
+      sizeof(float) * (rhat ? stage_qp_smem_floats(nx, ny, nz) : stage_smem_floats(ny, nz));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, march_threads(nz, ny),
+                                                      smem);
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = (int)smem;
+  return (int)err;
 }
 
 int launch_stage_rk_3d_xy(const float* u, const float* v, const float* w, const float* b,

@@ -72,6 +72,10 @@ ARGTYPES = {
         _P,  # Fx (nx, nx) then Cz^T (nz, nz)
         _P,  # stream
     ],
+    "march_occupancy": [
+        _I, _I, _I, _I,  # rhat (0: K3, 1: its analysis instance), nx, ny, nz
+        _P,  # int out[4]: blocks an SM, registers, local bytes a thread, shared bytes
+    ],
     "launch_stage_rk_3d_xy": [
         _P, _P, _P, _P, _P, _P,  # u, v, w, b, q, bottom
         _P, _P, _P, _P,  # gu_prev, gv_prev, gw_prev, gb_prev (NULL at stage 0)

@@ -45,6 +45,7 @@ a kernel against its plain version on the same card.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
 
@@ -358,6 +359,18 @@ stage_rk_3d_rhat = _stage_wrapper(
     "stage_rk_3d_rhat",
     "The same stage writing rhat = T_A div (E, ny, nx nz) in place of div: K3's analysis "
     "instance for CUDA tensors.", rhat=True)
+
+
+def march_occupancy(nx: int, ny: int, nz: int, rhat: bool = False) -> dict:
+    """What K3, or with ``rhat`` its analysis instance, asks of an SM of the
+    current CUDA device on the grid, for the instance its launcher picks:
+    resident blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    at its threads and shared memory), registers and local memory a thread
+    (stack frame, spills included) and shared memory a block in bytes."""
+    out = (ctypes.c_int * 4)()
+    err = _build.load_library().march_occupancy(int(rhat), nx, ny, nz, ctypes.addressof(out))
+    _raise_on(err, "march_occupancy")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "smem_bytes"), out))
 
 
 def correct_3d(

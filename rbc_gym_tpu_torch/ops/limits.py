@@ -98,10 +98,10 @@ def stage_smem_bytes(ny: int, nz: int) -> int:
 
 def stage_qp_smem_bytes(nx: int, ny: int, nz: int) -> int:
     """K3's analysis instance: K3's rings, then the divergence of one
-    x-plane, Fx (nx, nx), Cz^T (nz, nz) and the rhat accumulator of every
-    (kx, y, kz) (``stage_qp_smem_floats``): K3's + 4 (ny nz (nx + 1) + nx^2
-    + nz^2)."""
-    return stage_smem_bytes(ny, nz) + 4 * (ny * nz * (nx + 1) + nx * nx + nz * nz)
+    x-plane and Cz^T (nz, nz), and at least one thread's nx values of t for
+    the x-factor after the march (``stage_qp_smem_floats``): max(K3's + 4
+    (ny nz + nz^2), 4 nx)."""
+    return max(stage_smem_bytes(ny, nz) + 4 * (ny * nz + nz * nz), 4 * nx)
 
 
 def field_smem_bytes(ny: int, nz: int) -> int:

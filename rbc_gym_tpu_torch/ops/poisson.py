@@ -271,7 +271,8 @@ def poisson_analysis_matrix_3d(nx: int, nz: int) -> np.ndarray:
     """T_A = kron(Fx, Cz), (nx nz, nx nz) float64, row (kx kz) and column
     (x z) merged x-major: ``rhat[e, y] = T_A @ rhs[e, y].reshape(nx nz)``,
     the first product of the dense solve (the JAX package's function of
-    this name). K3's analysis instance accumulates it plane by plane."""
+    this name). K3's analysis instance applies it in its two factors: Cz
+    plane by plane in its x march, Fx after it."""
     fx, cz = poisson_analysis_factors_3d(nx, nz)
     return np.kron(fx, cz)
 

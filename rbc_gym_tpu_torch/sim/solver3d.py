@@ -229,9 +229,9 @@ def select_stage_path(dtype: torch.dtype, nx: int, ny: int, nz: int, device_type
     a ``KERNEL_PATHS`` value (True is the JAX package's alias of "field")
     forces that path and raises ``ValueError``, naming the limit, if its
     kernels cannot take the configuration (on the CPU the wrappers then
-    run their plain versions). "stage_qp" (K3's analysis instance, whose
-    shared memory grows with nx) and "stage_ew" (K3) are opt-in, as in the
-    JAX package.
+    run their plain versions). "stage_qp" (K3's analysis instance, which
+    needs Cz^T, nz^2 floats, beside K3's shared memory) and "stage_ew" (K3)
+    are opt-in, as in the JAX package.
     """
     if fused is False:
         return "plain"

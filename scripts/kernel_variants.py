@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the stage kernels of several source trees on one CUDA card.
 
-    python3 scripts/kernel_variants.py [--kernels k1,k2,k3,k5_training,k5,k6,k7,field_step] TREE [TREE ...]
+    python3 scripts/kernel_variants.py [--kernels k1,k2,k3,k3qp,k5_training,k5,k6,k7,field_step]
+        TREE [TREE ...]
 
 Each TREE is a checkout of this repo (for example a ``git archive`` of a
 commit unpacked under the git-ignored ``rbc_gym_tpu_torch/_build/``).
@@ -27,6 +28,12 @@ gates:
 - ``k3``: K3 (``stage_rk_3d``) at 1024 envs on 16x32x32, stages 0, 1, 2;
   its gates at 1024 envs (each stage fed the plain outputs of the one
   before) and stage 0 at 32 envs against a float64 plain run;
+- ``k3qp``: K3's analysis instance (``stage_rk_3d_rhat``, ``fused=
+  "stage_qp"``) at 1024 envs on 16x32x32, stages 0, 1, 2, beside K3 on the
+  same inputs in the same process; its gates (``k3_analysis_parity``), and
+  where the tree has it, ``march_occupancy`` of both. Each tree's rhat of
+  the three stages on one seeded case is compared with the first tree's
+  (a line ``k3qp_rhat``: max |difference| a stage, and whether bit for bit);
 - ``k5_training``: K5 (``stage_rk_3d_xy``) forced on the same grid and
   inputs, K3's yardstick;
 - ``k5``: K5 at 1024 envs on the 32x64x64 big grid, as ``k3``, with stage
@@ -199,6 +206,41 @@ def k7():
     return rec, errs
 
 
+# where a tree's k3qp run leaves its rhat (the tree's git-ignored build
+# directory), for the comparison across trees
+K3QP_RHAT = "rbc_gym_tpu_torch/_build/k3qp_rhat.pt"
+
+
+def k3qp():
+    shape = (16, 32, 32)
+    nz, ny, nx = shape
+    solver, case = cs.make_case_3d(device, 1024, shape, seed=11, dtype=torch.float32,
+                                   fused="stage_qp")
+    inputs = cs.stage_inputs(case)
+    g_prev = k3d.stage_rk_3d_plain(*inputs, solver.coeffs, 0.04, 0)[5]
+    rec, rhat = {}, []
+    for m in range(3):
+        gp = g_prev if m else None
+
+        def run(wrapper, m=m, gp=gp):
+            return wrapper(*inputs, solver.coeffs, 0.04, m, gp)
+
+        ms = cs._cuda_ms(lambda: run(k3d.stage_rk_3d_rhat), 20)
+        bound_ms, by = cs.bound(cs.stage_rk_3d_rhat_work(1024, nx, ny, nz, m))
+        rec[f"stage{m}"] = {"ms": ms, "k3_ms": cs._cuda_ms(lambda: run(k3d.stage_rk_3d), 20),
+                            "bound_ms": bound_ms, "bound_by": by,
+                            "share_of_bound": bound_ms / ms}
+        rhat.append(run(k3d.stage_rk_3d_rhat)[4].cpu())
+    rec["mean_ms"] = sum(rec[f"stage{m}"]["ms"] for m in range(3)) / 3
+    torch.save(rhat, K3QP_RHAT)
+    del g_prev, rhat
+    if hasattr(k3d, "march_occupancy"):
+        rec["occupancy"] = {name: k3d.march_occupancy(nx, ny, nz, rhat=r)
+                            for name, r in (("stage_rk_3d_rhat", True), ("stage_rk_3d", False))}
+    _, errs = cs.k3_analysis_parity(solver, case)
+    return rec, errs
+
+
 def field_step():
     solver, case = cs.make_case_3d(device, 1024, (16, 32, 32), seed=14, fused="field")
     zeros = torch.zeros_like(case["u"])
@@ -212,6 +254,7 @@ RUNS = {
     "k1": k1,
     "k2": k2,
     "k3": lambda: stage(k3d.stage_rk_3d, (16, 32, 32), 0.01, 32, 20),
+    "k3qp": k3qp,
     "k5_training": lambda: stage(k3d.stage_rk_3d_xy, (16, 32, 32), 0.01, 32, 20),
     "k5": lambda: stage(k3d.stage_rk_3d_xy, cs.BIG_SHAPE, cs.BIG_DT_SOLVER, 8, 5),
     "k6": k6,
@@ -267,6 +310,25 @@ def sass_histograms(tree: Path, cuobjdump: str) -> dict:
             for n, c in counts.items()}
 
 
+def compare_k3qp_rhat(trees: list) -> None:
+    """One line: each tree's k3qp rhat against the first tree's; the files go."""
+    import torch
+
+    files = [t / "rbc_gym_tpu_torch" / "_build" / "k3qp_rhat.pt" for t in trees]
+    have = [(t, f) for t, f in zip(trees, files) if f.exists()]
+    if len(have) > 1:
+        ref = torch.load(have[0][1])
+        for t, f in have[1:]:
+            got = torch.load(f)
+            pairs = list(zip(got, ref))
+            print(json.dumps({"k3qp_rhat": str(t), "against": str(have[0][0]),
+                              "max_abs_diff": [float((a - b).abs().max()) for a, b in pairs],
+                              "bit_for_bit": [bool(torch.equal(a, b)) for a, b in pairs]}),
+                  flush=True)
+    for f in files:
+        f.unlink(missing_ok=True)
+
+
 def main() -> int:
     import torch
 
@@ -313,6 +375,7 @@ def main() -> int:
                 print(json.dumps({"tree": str(t), "error": "timed out after 900 s"}), flush=True)
                 rc = 1
             failed |= rc != 0
+    compare_k3qp_rhat([t for t, b in zip(trees, builds) if b.returncode == 0])
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
                           "-i", "0"], capture_output=True, text=True).stdout.strip(), flush=True)
     return 1 if failed else 0

@@ -1,0 +1,28 @@
+"""Float32 K1's off-chip instance (the grids whose state does not fit a
+block's shared memory, or whose columns K1's on-chip layout cannot take),
+compiled for the host and held against the plain version on the CPU
+(``torch_kernels2d_host``)."""
+
+import pytest
+
+from torch_kernels2d_host import check_k1, host_binary  # noqa: F401 (host_binary: a fixture)
+
+
+@pytest.mark.parametrize("n_env,nx,nz", [
+    (1, 128, 64),  # the on-chip state does not fit: 296,448 bytes
+    (1, 20, 80),  # three chunks of 32 levels in pHY', the last part-filled
+    (1, 200, 20),  # nx > 128, a part-filled chunk
+    (1, 3, 8),  # the fewest columns the x stencils take
+    (1, 16, 1),  # one level
+])
+def test_host_build_of_k1_matches_plain(host_binary, tmp_path, n_env, nx, nz):
+    """K1 after 6 substeps (heater_duration 0.18) against
+    ``env_step_2d_plain`` at the smoke's gate."""
+    check_k1(host_binary, tmp_path, n_env, nx, nz, 0.18, None)
+
+
+def test_host_build_of_k1_off_the_chip_on_a_tall_grid(host_binary, tmp_path):
+    """The off-chip instance at 128x224 (its two slabs 229,376 bytes, seven
+    chunks of 32 levels in pHY'), 6 substeps at a dt_solver that keeps the
+    explicit diffusion stable at dz = 2 / 224."""
+    check_k1(host_binary, tmp_path, 1, 128, 224, 0.012, 0.002)

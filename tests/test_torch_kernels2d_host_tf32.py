@@ -1,0 +1,27 @@
+"""K1's TF32 instances (2D ``poisson_precision`` "bf16x3" and "default"),
+compiled for the host and held against the plain version at the same
+precision on the CPU (``torch_kernels2d_host``)."""
+
+import pytest
+
+from torch_kernels2d_host import check_k1, host_binary  # noqa: F401 (host_binary: a fixture)
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("n_env,nx,nz", [
+    (1, 96, 64),  # the reference grid: the compile-time instance, tile-exact, swizzled
+    (1, 20, 12),  # the runtime instance: partial tiles in m, n and k, plain slabs
+    (1, 128, 64),  # the off-chip instance
+    (1, 3, 8),  # the fewest columns: one partial tile, 3 of 8 deep in F and G
+    (1, 16, 1),  # one level: the z products 1 deep
+])
+def test_host_build_of_k1_tf32_instances_match_plain(host_binary, tmp_path, n_env, nx, nz,
+                                                     precision):
+    """K1's split-product ("high", 3 passes) and one-pass ("default")
+    instances after 2 substeps (heater_duration 0.06: every product of
+    every stage, the previous stage's tendencies across a substep, p out)
+    against ``env_step_2d_plain`` at the same precision, at the smoke's
+    gates for 6 substeps (``chip_smoke.k1_tf32_errors``). Each emulated
+    mma meets its warp twice, so a substep here costs several times one of
+    float32 K1."""
+    check_k1(host_binary, tmp_path, n_env, nx, nz, 0.06, None, precision, n_sub=2)

@@ -306,7 +306,19 @@ def test_host_build_of_k3_analysis_instance_matches_plain(host_binary, tmp_path,
     _run_stage(host_binary, tmp_path, shape, stage, "qp")
 
 
-@pytest.mark.parametrize("nx,ny,nz", [(32, 32, 16), (64, 32, 16), (4, 5, 7), (48, 16, 24)])
+def test_host_build_of_k3_analysis_instance_at_nx_64(host_binary, tmp_path):
+    """Stage 1 of the specialised instance at nx = 64, a grid whose shared
+    rhat accumulator the instance's first design could not hold: t goes
+    through its staged x-factor, at the same gates."""
+    assert limits.stage_qp_smem_bytes(64, 32, 16) <= limits.SMEM_PER_BLOCK
+    _run_stage(host_binary, tmp_path, (1, 64, 32, 16), 1, "qp")
+
+
+@pytest.mark.parametrize("nx,ny,nz", [
+    (32, 32, 16), (64, 32, 16), (4, 5, 7), (48, 16, 24),
+    (16, 4, 256),  # Cz^T outgrows the block where K3 fits
+    (50_000, 4, 2), (60_000, 4, 2),  # one thread's t, nx floats, sets the footprint
+])
 def test_analysis_instance_smem_formula_matches_the_launcher(host_binary, nx, ny, nz):
     """``limits.stage_qp_smem_bytes`` is the analysis launcher's own count,
     and the selection rule refuses "stage_qp" exactly where it exceeds the

@@ -123,9 +123,9 @@ def test_k5_still_takes_every_grid_it_took(shape, auto):
 
 @pytest.mark.parametrize("fused,shape,dtype,reason", [
     ("stage_x", TRAINING, F32, "unknown fused"),
-    # K3's analysis instance: its rhat accumulator (nx + 1 x-planes) and Fx
-    # outgrow a block's shared memory at nx = 64
-    ("stage_qp", (64, 32, 16), F32, "249,984 bytes of shared memory"),
+    # K3's analysis instance: K3 takes ny = 4, nz = 256, but the instance's
+    # Cz^T (nz^2) outgrows a block's shared memory there
+    ("stage_qp", (16, 4, 256), F32, "462,992 bytes of shared memory"),
     ("stage_qp", BIG, F32, r"ny \* nz <= 1024"),
     ("stage_ew", BIG, F32, r"ny \* nz <= 1024"),
     ("stage_qp", TRAINING, F64, "float32"),
@@ -136,7 +136,8 @@ def test_refused_fused_values_are_named(fused, shape, dtype, reason):
 
 
 @pytest.mark.parametrize("fused,shape", [
-    ("stage_qp", TRAINING),  # 172,160 bytes: one block an SM
+    ("stage_qp", TRAINING),  # 102,528 bytes: two blocks an SM, as K3
+    ("stage_qp", (64, 32, 16)),  # nx = 64: no shared memory grows with nx
     ("stage_qp", (16, 16, 8)),
     ("stage_qp", (48, 16, 24)),
     ("stage_ew", TRAINING),  # K3 itself

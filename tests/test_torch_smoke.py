@@ -210,13 +210,15 @@ def test_smoke_3d_phases_run_on_cpu_plain_halves():
 def test_smoke_lazy_options_phase_runs_on_cpu_plain_halves():
     """Phase 38 at a reduced grid: the analysis instance's plain version
     against itself (its rhat against the float64 run within twice its own
-    error), the stage_qp, stage_ew and precision env steps from one reset,
-    q of the three precisions against float64, both TF32 flags off."""
+    error), also at stage 1 on a grid of twice the x-planes, the stage_qp,
+    stage_ew and precision env steps from one reset, q of the three
+    precisions against float64, both TF32 flags off."""
     out = chip_smoke.lazy_options("cpu", num_envs=2, state_shape=(8, 8, 8),
-                                  heater_duration=0.0125)
+                                  heater_duration=0.0125, wide_shape=(8, 8, 16), wide_envs=2)
     assert all(v["error"] <= v["bound"] for v in out["gated"].values())
-    assert {"stage0_fields", "stage1_g", "stage2_rhat", "stage_qp_env_step",
-            "high_env_step"} <= set(out["gated"])
+    assert {"stage0_fields", "stage1_g", "stage2_rhat", "nx16_stage1_fields",
+            "nx16_stage1_rhat", "stage_qp_env_step", "high_env_step"} <= set(out["gated"])
+    assert set(out["stage_rk_3d_rhat_wide"]) == {"shape", "num_envs", "stage1"}
     assert out["max_abs_err"] == {"stage_rk_3d_rhat": 0.0}  # both halves plain here
     assert out["stage_ew_equal"] and out["env_step_diffs"]["stage_qp_vs_stage"]["u"] == 0.0
     assert not any(n for launches in out["launches"].values() for n in launches.values())

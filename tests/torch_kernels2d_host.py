@@ -1,5 +1,5 @@
-"""K1 and K2's CUDA source, compiled for the host and held against the
-plain versions, on the CPU.
+"""The host build of K1 and K2's CUDA source, shared by the
+``tests/test_torch_kernels2d_host_*.py`` files (not collected itself).
 
 The card is needed to run the kernels as built; their arithmetic and
 indexing can run here. ``_build.host_source`` cuts the C launchers (which
@@ -10,7 +10,8 @@ pHY' partial sums by warp shuffles, so each of their blocks runs as 512
 host threads meeting at real barriers. The host program picks K2's
 instance as its launcher does and prints it. The gates are the smoke's
 on-card ones (``chip_smoke.py``): the emulation differs from the plain
-versions in float32 rounding only.
+versions in float32 rounding only. A test file imports ``host_binary``
+(built once a file) and the helpers below.
 """
 
 import shutil
@@ -24,9 +25,7 @@ import torch
 import chip_smoke
 from rbc_gym_tpu_torch.ops import _build
 from rbc_gym_tpu_torch.ops import kernels2d as k2
-from rbc_gym_tpu_torch.ops import limits, poisson
-from rbc_gym_tpu_torch.ops.poisson import spectral_constants_2d
-from rbc_gym_tpu_torch.sim.grid import Grid2D
+from rbc_gym_tpu_torch.ops import poisson
 
 DRIVER = r"""
 #include <cstdio>
@@ -154,8 +153,8 @@ def host_binary(tmp_path_factory):
     return exe
 
 
-def _run(host_binary, tmp_path, mode, n_env, nx, nz, heater_duration, seed, dt_solver=None,
-         precision=None):
+def run_case(host_binary, tmp_path, mode, n_env, nx, nz, heater_duration, seed,
+             dt_solver=None, precision=None):
     """Write a float32 case (``chip_smoke.make_case``) and the solve's
     constants, run ``mode`` on the host (K1 in the instance for
     ``precision``) -> (solver, case, what the host program printed); the
@@ -172,53 +171,8 @@ def _run(host_binary, tmp_path, mode, n_env, nx, nz, heater_duration, seed, dt_s
     return solver, case, out.stdout.strip()
 
 
-def _got(tmp_path, name, like):
+def read_output(tmp_path, name, like):
     return np.fromfile(tmp_path / name, np.float32).reshape(like.shape)
-
-
-@pytest.mark.parametrize("n_env,nx,nz", [
-    (2, 96, 64),  # the reference grid: the compile-time instance
-    (1, 20, 12),  # the runtime instance: two columns a warp, the last warps idle,
-                  # one level a lane, the z ladder's walls meeting mid-column
-    (1, 128, 40),  # the runtime instance at its edge: 8 columns a warp, two levels a lane
-    # the off-chip instance
-    (1, 128, 64),  # the on-chip state does not fit: 296,448 bytes
-    (1, 20, 80),  # three chunks of 32 levels in pHY', the last part-filled
-    (1, 200, 20),  # nx > 128, a part-filled chunk
-    (1, 3, 8),  # the fewest columns the x stencils take
-    (1, 16, 1),  # one level
-])
-def test_host_build_of_k1_matches_plain(host_binary, tmp_path, n_env, nx, nz):
-    """K1 after 6 substeps (heater_duration 0.18) against
-    ``env_step_2d_plain`` at the smoke's gate."""
-    _check_k1(host_binary, tmp_path, n_env, nx, nz, 0.18, None)
-
-
-def test_host_build_of_k1_off_the_chip_on_a_tall_grid(host_binary, tmp_path):
-    """The off-chip instance at 128x224 (its two slabs 229,376 bytes, seven
-    chunks of 32 levels in pHY'), 6 substeps at a dt_solver that keeps the
-    explicit diffusion stable at dz = 2 / 224."""
-    _check_k1(host_binary, tmp_path, 1, 128, 224, 0.012, 0.002)
-
-
-@pytest.mark.parametrize("precision", ["high", "default"])
-@pytest.mark.parametrize("n_env,nx,nz", [
-    (1, 96, 64),  # the reference grid: the compile-time instance, tile-exact, swizzled
-    (1, 20, 12),  # the runtime instance: partial tiles in m, n and k, plain slabs
-    (1, 128, 64),  # the off-chip instance
-    (1, 3, 8),  # the fewest columns: one partial tile, 3 of 8 deep in F and G
-    (1, 16, 1),  # one level: the z products 1 deep
-])
-def test_host_build_of_k1_tf32_instances_match_plain(host_binary, tmp_path, n_env, nx, nz,
-                                                     precision):
-    """K1's split-product ("high", 3 passes) and one-pass ("default")
-    instances after 2 substeps (heater_duration 0.06: every product of
-    every stage, the previous stage's tendencies across a substep, p out)
-    against ``env_step_2d_plain`` at the same precision, at the smoke's
-    gates for 6 substeps (``chip_smoke.k1_tf32_errors``). Each emulated
-    mma meets its warp twice, so a substep here costs several times one of
-    float32 K1."""
-    _check_k1(host_binary, tmp_path, n_env, nx, nz, 0.06, None, precision, n_sub=2)
 
 
 def _tf32_matmul_of_the_card(a, b, precision=None):
@@ -235,10 +189,10 @@ def _tf32_matmul_of_the_card(a, b, precision=None):
 _MATMUL = poisson.matmul
 
 
-def _check_k1(host_binary, tmp_path, n_env, nx, nz, heater_duration, dt_solver,
+def check_k1(host_binary, tmp_path, n_env, nx, nz, heater_duration, dt_solver,
               precision=None, n_sub=6):
-    solver, case, _ = _run(host_binary, tmp_path, "k1", n_env, nx, nz, heater_duration,
-                           seed=0, dt_solver=dt_solver, precision=precision)
+    solver, case, _ = run_case(host_binary, tmp_path, "k1", n_env, nx, nz, heater_duration,
+                               seed=0, dt_solver=dt_solver, precision=precision)
     assert solver.params.substeps_per_env_step == n_sub
 
     def plain(c, matmul=_MATMUL):
@@ -248,8 +202,9 @@ def _check_k1(host_binary, tmp_path, n_env, nx, nz, heater_duration, dt_solver,
                                         precision)
 
     want = plain(case)
-    got = [_got(tmp_path, name, x) for name, x in zip(("u_out", "w_out", "b_out", "p_out"), want)]
-    for name, x, y in zip(("u_out", "w_out", "b_out", "p_out"), want, got):
+    names = ("u_out", "w_out", "b_out", "p_out")
+    got = [read_output(tmp_path, name, x) for name, x in zip(names, want)]
+    for name, x, y in zip(names, want, got):
         assert bool(torch.isfinite(x).all()) and np.isfinite(y).all(), name
     if precision == "default":
         errors = chip_smoke.k1_tf32_errors(
@@ -257,62 +212,7 @@ def _check_k1(host_binary, tmp_path, n_env, nx, nz, heater_duration, dt_solver,
             plain(case, _tf32_matmul_of_the_card))
         assert errors["kernel"] <= errors["bound"], errors
     else:
-        for name, x, y in zip(("u_out", "w_out", "b_out", "p_out"), want, got):
+        for name, x, y in zip(names, want, got):
             np.testing.assert_allclose(y, x.numpy(), rtol=0, atol=chip_smoke.K1_ATOL,
                                        err_msg=name)
     assert np.all(got[1][..., 0] == 0) and np.all(got[1][..., -1] == 0)
-
-
-@pytest.mark.parametrize("n_env,nx,nz,instance", [
-    (2, 96, 64, "specialised"),  # the reference grid: the compile-time march
-    (1, 20, 12, "runtime"),  # two columns a warp, the last warps idle, one level a lane
-    (1, 128, 64, "runtime"),  # the march at its edge: 8 columns a warp, 132,096 bytes
-    (1, 8, 80, "general"),  # nz > 64: three chunks of 32 levels in pHY'
-    (1, 3, 8, "general"),  # the fewest columns the x stencils take
-    (1, 16, 1, "general"),  # one level: both w faces are walls
-])
-def test_host_build_of_k2_matches_plain(host_binary, tmp_path, n_env, nx, nz, instance):
-    """Each K2 instance, pHY' from b, against ``tendencies_2d_plain`` at
-    the smoke's gate (the plain version run in float64 on the same inputs,
-    since K2 sums pHY' in float64); the host program ran the instance the
-    launcher picks."""
-    solver, case, ran = _run(host_binary, tmp_path, "k2", n_env, nx, nz, 0.18, seed=1)
-    assert ran == instance == limits.tendencies_2d_instance(nx, nz)
-    case = {k: v.double() for k, v in case.items()}
-    want = k2.tendencies_2d_plain(case["u"], case["w"], case["b"], case["bottom"],
-                                  solver.coeffs)
-    for name, x in zip(("gu", "gw", "gb"), want):
-        np.testing.assert_allclose(_got(tmp_path, name, x), x.numpy(), rtol=0,
-                                   atol=chip_smoke.K2_ATOL, err_msg=name)
-    gw = _got(tmp_path, "gw", want[1])
-    assert np.all(gw[..., 0] == 0) and np.all(gw[..., -1] == 0)
-
-
-@pytest.mark.parametrize("nx,nz", [(96, 64), (20, 12), (128, 16), (8, 2), (128, 40),
-                                   (128, 64), (128, 224), (256, 32), (64, 128), (3, 8),
-                                   (16, 1), (256, 256)])
-def test_smem_formulas_match_the_launchers(host_binary, nx, nz):
-    """The selection rule's byte count, the wrappers' scratch and the
-    instances are the launchers' own, for K1 and K2."""
-    out = subprocess.run([str(host_binary), "smem", str(nx), str(nz)], check=True,
-                         capture_output=True, text=True).stdout.split()
-    assert 4 * int(out[0]) == limits.env_step_2d_smem_bytes(nx, nz)
-    assert int(out[1]) == limits.env_step_2d_scratch_floats(nx, nz)
-    assert bool(int(out[2])) == limits.env_step_2d_on_chip(nx, nz)
-    assert 4 * int(out[3]) == limits.tendencies_2d_smem_bytes(nx, nz)
-    assert int(out[4]) == limits.tendencies_2d_scratch_floats(nx, nz)
-    assert bool(int(out[5])) == limits.tendencies_2d_on_march(nx, nz)
-
-
-@pytest.mark.parametrize("nx,nz", [(96, 64), (20, 12), (128, 224), (16, 1)])
-def test_dct_form_of_the_vertical_solve_is_the_dense_inverse(nx, nz):
-    """K1's per-mode inverse, idct^T diag(dinv[m]) dct^T, is the dense
-    stack the plain solve multiplies by (the pseudo-inverse for the mean
-    mode; at nz = 1 the stack's operator is -1 / dz^2, not singular), in
-    float64."""
-    grid = Grid2D(nx=nx, nz=nz, lx=2 * np.pi, lz=2.0)
-    sp = spectral_constants_2d(nx, nz, grid.dx, grid.dz, torch.float64, "cpu")
-    # inv[m][z][f]: p_hat[m][f] = sum_z inv[m][z][f] r_hat[m][z]
-    dct_form = torch.einsum("zj,mj,jf->mzf", sp.dct, sp.dinv, sp.idct)
-    np.testing.assert_allclose(dct_form.numpy(), sp.inv.numpy(), rtol=0, atol=1e-10)
-    assert float(sp.dinv[0, 0]) == (0.0 if nz > 1 else -grid.dz ** 2)
