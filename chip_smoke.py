@@ -12,13 +12,20 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      (K2's three instances: 96x64, the runtime march on
                      128x64, the general instance on 96x80; K2, which sums
                      pHY' in float64, against its plain version run in
-                     float64); K1 and its plain version beside a float64 run
+                     float64); K1 and its plain version beside a float64 run;
+                     K1's cluster instance on 128x64 (6 substeps at 128
+                     envs, 50 at 1024) and 192x64 (6 at 128) and its
+                     off-chip instance on 127x64
 3. main_path         RBC2DVectorEnv(num_envs=1024) at 96x64, Ra=1e4: reset, 3
                      steps with random actions, one Solver2D.substep; checks
                      shapes, finiteness, Nu, divergence, the launch counters
                      and the substep's one PyTorch pHY' call
 4. timing            K1, K2, their plain versions and bounds (their shares of
-                     them; K2's beside the Pallas kernel's), in ms; pHY' in PyTorch and Solver2D.substep with its
+                     them; K2's beside the Pallas kernel's), in ms, K1's
+                     cluster instance on 128x64 and off-chip one on 127x64
+                     the same way, and every K1 instance's registers, local
+                     memory, shared bytes, blocks an SM and resident clusters;
+                     pHY' in PyTorch and Solver2D.substep with its
                      split (3 K2, pHY', RK update, projection)
 5. kernel_parity_3d  K3 (each stage variant) and K4 against their plain
                      versions at the 3D main path's shapes, K3's stage 0 beside
@@ -228,8 +235,9 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      products; "default" against the plain version in
                      float64, within twice the float32 plain version's own
                      error at "default" or K1's gate), beside float32 K1
-                     and a float64 run; the runtime and off-chip instances
-                     at "bf16x3" at 8 envs; one env step of RBC2DVectorEnv
+                     and a float64 run; the runtime, cluster (128x64) and
+                     off-chip (127x64) instances at "bf16x3" at 8 envs, the
+                     one-pass cluster instance against float64 there; one env step of RBC2DVectorEnv
                      at each name (the instance 1 launch, float32 K1 none;
                      finite, Nu in range, max|div| under 1e-4, at "default"
                      under twice the plain path's own at "default", which
@@ -239,6 +247,10 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      split instance (Nu 4.000 +- 0.02, 20 launches); both
                      TF32 flags off; each instance's ms beside float32 K1
                      (timed first and last), plain ms, bound and share
+40. main_path_cluster RBC2DVectorEnv(num_envs=1024) on 128x64, the grid of
+                     K1's cluster instance (two CTAs of 64 columns): reset,
+                     3 steps with random actions; the 2D checks, the cluster
+                     instance 3 launches and the other K1 instances none
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -285,6 +297,7 @@ from rbc_gym_tpu_torch.ops import kernels2d as k2d
 from rbc_gym_tpu_torch.ops import kernels3d as k3d
 from rbc_gym_tpu_torch.ops import registry
 from rbc_gym_tpu_torch.ops.limits import (
+    env_step_2d_cluster_size,
     env_step_2d_on_chip,
     field_tendency_on_march,
     tendencies_2d_instance,
@@ -347,6 +360,9 @@ BIG_DT_SOLVER = 0.005
 # 50 substeps the same gate scaled by the 50/6 more stages, rounded down.
 K1_ATOL = 5e-6
 K1_MAIN_ATOL = 4e-5
+# K1's cluster instance's grid: 128x64 (nz, nx), whose on-chip state
+# (296,448 bytes) does not fit a block, on two CTAs of 64 columns
+CLUSTER_SHAPE = (64, 128)
 # K1's one-pass TF32 instance (poisson_precision "default") rounds every
 # operand of the solve to TF32 (2^-11 relative), far above K1_ATOL. It is
 # held against its plain version run in float64 on the same inputs, within
@@ -492,6 +508,7 @@ SOURCES = {
     "stage_rk_3d_rhat": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
     "env_step_2d_tf32x3": "rbc_gym_tpu_torch/csrc/rbc2d.cu",
     "env_step_2d_tf32": "rbc_gym_tpu_torch/csrc/rbc2d.cu",
+    "env_step_2d_cluster": "rbc_gym_tpu_torch/csrc/rbc2d.cu",
 }
 REPLACES = {
     "env_step_2d": "rbc_gym_tpu/ops/pallas2d.py:220",
@@ -507,6 +524,8 @@ REPLACES = {
     # and with its DEFAULT products (:432-436)
     "env_step_2d_tf32x3": "rbc_gym_tpu/ops/pallas2d.py:220",
     "env_step_2d_tf32": "rbc_gym_tpu/ops/pallas2d.py:220",
+    # the same Pallas body on the grids K1's on-chip instance cannot hold
+    "env_step_2d_cluster": "rbc_gym_tpu/ops/pallas2d.py:220",
 }
 # the gated parity error at the main path's shapes that each kernel reports
 MAIN_SHAPE_CHECK = {"env_step_2d": "env_step_2d_main", "tendencies_2d": "tendencies_2d",
@@ -514,7 +533,8 @@ MAIN_SHAPE_CHECK = {"env_step_2d": "env_step_2d_main", "tendencies_2d": "tendenc
                     "stage_rk_3d_xy": "stage_rk_3d_xy", "field_tendency_3d": "field_tendency_3d",
                     "div_3d": "div_3d", "stage_rk_3d_rhat": "stage_rk_3d_rhat",
                     "env_step_2d_tf32x3": "env_step_2d_tf32x3",
-                    "env_step_2d_tf32": "env_step_2d_tf32"}
+                    "env_step_2d_tf32": "env_step_2d_tf32",
+                    "env_step_2d_cluster": "env_step_2d_cluster_main"}
 WRAPPERS = registry.KERNEL_WRAPPERS
 
 
@@ -632,8 +652,9 @@ def phase_build() -> dict:
 
 
 def kernel_parity(device, k1_envs=128, main_envs=1024, state_shape=(64, 96),
-                  off_chip_shape=(64, 128), k2_runtime_shape=(64, 128),
-                  k2_general_shape=(80, 96)) -> dict:
+                  off_chip_shape=(64, 127), k2_runtime_shape=(64, 128),
+                  k2_general_shape=(80, 96), cluster_shape=CLUSTER_SHAPE,
+                  cluster_wide_shape=(64, 192)) -> dict:
     """Each kernel against its plain version from the same inputs: K1 after
     6 substeps (heater_duration 0.18) at ``k1_envs`` and after the main
     path's 50 at ``main_envs``, K2 on one stage at ``main_envs`` on
@@ -641,9 +662,13 @@ def kernel_parity(device, k1_envs=128, main_envs=1024, state_shape=(64, 96),
     the runtime march; 96x80: the general instance), each against its plain
     version run in float64 (``k2_errors``). Also K1 and its plain version
     against a float64 plain run, after 6 and after 50 substeps at
-    ``k1_envs``, and
-    K1's off-chip instance after 6 substeps at ``k1_envs`` on
-    ``off_chip_shape`` (128x64: the on-chip state does not fit a block)."""
+    ``k1_envs``; K1's cluster instance on ``cluster_shape`` (128x64: the
+    on-chip state does not fit a block, two CTAs of 64 columns do) after 6
+    substeps at ``k1_envs`` and after 50 at ``main_envs``, and on
+    ``cluster_wide_shape`` (192x64: two CTAs of 96 columns) after 6 at
+    ``k1_envs``; and K1's off-chip
+    instance after 6 substeps at ``k1_envs`` on ``off_chip_shape`` (127x64:
+    no cluster splits an odd nx)."""
     start = time.perf_counter()
     solver, case = make_case(device, k1_envs, state_shape, heater_duration=0.18)
     k1_out = k1_run(solver, case, True)
@@ -656,10 +681,23 @@ def kernel_parity(device, k1_envs=128, main_envs=1024, state_shape=(64, 96),
     float64_50 = {"kernel": abs_diffs(K1_OUT, ref50, k1_run(solver, case, True)),
                   "plain_float32": abs_diffs(K1_OUT, ref50, k1_run(solver, case, False))}
     nz, nx = off_chip_shape
-    if env_step_2d_on_chip(nx, nz):
-        raise AssertionError(f"{off_chip_shape} runs K1's on-chip instance, not the off-chip one")
+    if env_step_2d_on_chip(nx, nz) or env_step_2d_cluster_size(nx, nz):
+        raise AssertionError(f"{off_chip_shape} does not run K1's off-chip instance")
     solver, case = make_case(device, k1_envs, off_chip_shape, heater_duration=0.18, seed=4)
     k1_off = abs_diffs(K1_OUT, k1_run(solver, case, True), k1_run(solver, case, False))
+    nz, nx = cluster_shape
+    if not env_step_2d_cluster_size(nx, nz):
+        raise AssertionError(f"{cluster_shape} does not run K1's cluster instance")
+    solver, case = make_case(device, k1_envs, cluster_shape, heater_duration=0.18, seed=8)
+    k1_cluster = abs_diffs(K1_OUT, k1_run(solver, case, True), k1_run(solver, case, False))
+    solver, case = make_case(device, main_envs, cluster_shape, heater_duration=1.5, seed=9)
+    k1_cluster_main = abs_diffs(K1_OUT, k1_run(solver, case, True), k1_run(solver, case, False))
+    del case
+    nz, nx = cluster_wide_shape
+    if not env_step_2d_cluster_size(nx, nz):
+        raise AssertionError(f"{cluster_wide_shape} does not run K1's cluster instance")
+    solver, case = make_case(device, k1_envs, cluster_wide_shape, heater_duration=0.18, seed=10)
+    k1_cluster_wide = abs_diffs(K1_OUT, k1_run(solver, case, True), k1_run(solver, case, False))
     solver, case = make_case(device, main_envs, state_shape, heater_duration=1.5, seed=1)
     k1_main = abs_diffs(K1_OUT, k1_run(solver, case, True), k1_run(solver, case, False))
     k2_all = {"grid": k2_errors(solver, case, k2_run(solver, case, True))}
@@ -674,11 +712,16 @@ def kernel_parity(device, k1_envs=128, main_envs=1024, state_shape=(64, 96),
     k2 = {name: e["kernel"] for name, e in k2_all.items()}
     errs = {"env_step_2d": max(k1.values()), "env_step_2d_main": max(k1_main.values()),
             "env_step_2d_off_chip": max(k1_off.values()),
+            "env_step_2d_cluster": max(k1_cluster.values()),
+            "env_step_2d_cluster_main": max(k1_cluster_main.values()),
+            "env_step_2d_cluster_wide": max(k1_cluster_wide.values()),
             "tendencies_2d": max(k2["grid"].values()),
             "tendencies_2d_runtime": max(k2["runtime_grid"].values()),
             "tendencies_2d_general": max(k2["general_grid"].values())}
     atols = {"env_step_2d": K1_ATOL, "env_step_2d_main": K1_MAIN_ATOL,
-             "env_step_2d_off_chip": K1_ATOL, "tendencies_2d": K2_ATOL,
+             "env_step_2d_off_chip": K1_ATOL, "env_step_2d_cluster": K1_ATOL,
+             "env_step_2d_cluster_main": K1_MAIN_ATOL, "env_step_2d_cluster_wide": K1_ATOL,
+             "tendencies_2d": K2_ATOL,
              "tendencies_2d_runtime": K2_ATOL, "tendencies_2d_general": K2_ATOL}
     failed = {k: (errs[k], atols[k]) for k in errs if not errs[k] <= atols[k]}
     if failed:
@@ -686,6 +729,11 @@ def kernel_parity(device, k1_envs=128, main_envs=1024, state_shape=(64, 96),
     return {"phase": "kernel_parity", "max_abs_err": errs, "atol": atols,
             "env_step_2d_by_field": k1, "env_step_2d_main_by_field": k1_main,
             "env_step_2d_off_chip_by_field": k1_off, "off_chip_shape": list(off_chip_shape),
+            "env_step_2d_cluster_by_field": k1_cluster,
+            "env_step_2d_cluster_main_by_field": k1_cluster_main,
+            "env_step_2d_cluster_wide_by_field": k1_cluster_wide,
+            "cluster_shape": list(cluster_shape), "cluster_wide_shape": list(cluster_wide_shape),
+            "cluster_ctas": env_step_2d_cluster_size(cluster_shape[1], cluster_shape[0]),
             "tendencies_2d_by_field": k2["grid"], "tendencies_2d_instances": k2_instances,
             "tendencies_2d_other_grids_by_field": {
                 name: k2[name] for name in ("runtime_grid", "general_grid")},
@@ -772,6 +820,39 @@ def main_path(device, num_envs=1024, state_shape=(64, 96), observation_shape=(8,
             "launches": launches, "substep_p_hy_calls": p_hy_calls[0]}
 
 
+def main_path_cluster(device, num_envs=1024, state_shape=CLUSTER_SHAPE,
+                      observation_shape=(8, 48), heater_duration=1.5, steps=3,
+                      seed=0) -> dict:
+    """The user's path on a grid of K1's cluster instance: reset and
+    ``steps`` env steps of ``RBC2DVectorEnv`` on ``state_shape`` (on the
+    card one cluster launch a step and no other K1 instance), with
+    ``check_2d``'s checks; env-steps/s."""
+    device = torch.device(device)
+    env = RBC2DVectorEnv(num_envs, state_shape=state_shape,
+                         observation_shape=observation_shape,
+                         heater_duration=heater_duration,
+                         dtype=working_dtype(device), device=device)
+    rng = np.random.default_rng(seed)
+    actions = [rng.uniform(-1.0, 1.0, (num_envs, env.params.n_heaters)) for _ in range(steps)]
+    state, _ = env.reset(seed=seed)
+    _sync(device)
+    reset_counters()
+    start = time.perf_counter()
+    for a in actions:
+        state, ts = env.step(state, a)
+    _sync(device)
+    steps_s = time.perf_counter() - start
+    launches = {name: WRAPPERS[name].launches for name in K1_WRAPPERS + ("env_step_2d_cluster",)}
+    expect_launches(device, launches, {**dict.fromkeys(K1_WRAPPERS, 0),
+                                       "env_step_2d_cluster": steps})
+    checks = check_2d(env, state, ts)
+    nz, nx = state_shape
+    return {"phase": "main_path_cluster", "num_envs": num_envs, "state_shape": list(state_shape),
+            "cluster_ctas": env_step_2d_cluster_size(nx, nz), "steps": steps,
+            "steps_s": steps_s, "env_steps_per_s": num_envs * steps / steps_s, **checks,
+            "launches": launches}
+
+
 def check_2d(env, state, ts, extra=None, div_atol=None) -> dict:
     """A 2D env step's checks: obs, reward and the fields (and ``extra``'s,
     a substep's) finite, reward = -Nu of the observation, the physical Nu
@@ -828,9 +909,12 @@ def device_profile(fn) -> dict:
 
 
 def timing(device, num_envs=1024, state_shape=(64, 96), heater_duration=1.5,
-           off_chip_shape=(64, 128)) -> dict:
+           off_chip_shape=(64, 127), cluster_shape=CLUSTER_SHAPE) -> dict:
     """CUDA-event times at the main path's shapes, with the plain versions
-    and the bounds, and K1's off-chip instance on ``off_chip_shape``; the
+    and the bounds, K1's cluster instance on ``cluster_shape`` and its
+    off-chip instance on ``off_chip_shape``, and what the card gives each
+    K1 instance (``kernels2d.env_step_2d_occupancy``: registers, local
+    memory, shared bytes, blocks an SM, resident clusters); the
     PyTorch pHY' and one ``Solver2D.substep`` split into its 3 K2 launches,
     its one pHY' call, the RK updates and the projections (divergence,
     solve and correction), each part timed alone, and the substep's
@@ -841,6 +925,7 @@ def timing(device, num_envs=1024, state_shape=(64, 96), heater_duration=1.5,
     for name, shape, run, reps in (
         ("env_step_2d", state_shape, k1_run, 3),
         ("tendencies_2d", state_shape, k2_run, 20),
+        ("env_step_2d_cluster", cluster_shape, k1_run, 3),
         ("env_step_2d_off_chip", off_chip_shape, k1_run, 1),
     ):
         solver, case = make_case(device, num_envs, shape, heater_duration, seed=2)
@@ -852,7 +937,18 @@ def timing(device, num_envs=1024, state_shape=(64, 96), heater_duration=1.5,
         plain_ms = _cuda_ms(lambda: run(solver, case, False), max(1, reps // 3))
         bound_ms, bound_by = bound(work)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "share_of_bound": bound_ms / ms, **work}
+                     "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+                     "shape": list(shape), **work}
+        del case
+    occupancy = {}
+    if device.type == "cuda":
+        for name, shape, precision in (
+                ("on_chip", state_shape, None), ("on_chip_tf32x3", state_shape, "high"),
+                ("on_chip_tf32", state_shape, "default"), ("cluster", cluster_shape, None),
+                ("cluster_tf32x3", cluster_shape, "high"),
+                ("cluster_tf32", cluster_shape, "default"), ("off_chip", off_chip_shape, None)):
+            occupancy[name] = {"shape": list(shape), "precision": precision,
+                               **k2d.env_step_2d_occupancy(shape[1], shape[0], precision)}
     nz, nx = state_shape
     pallas_ms = bound(tendencies_work(num_envs, nx, nz))[0]
     out["tendencies_2d"].update(pallas_bound_ms=pallas_ms,
@@ -878,7 +974,8 @@ def timing(device, num_envs=1024, state_shape=(64, 96), heater_duration=1.5,
              "rk_update_ms": parts["rk_update_stage0_ms"] + 2 * parts["rk_update_stage12_ms"],
              "project_ms": 3 * parts["project_ms"]}
     split["rest_ms"] = substep_ms - sum(v for k, v in split.items() if k != "substep_ms")
-    return {"phase": "timing", "num_envs": num_envs, "kernels": out, "substep_parts": parts,
+    return {"phase": "timing", "num_envs": num_envs, "kernels": out, "occupancy": occupancy,
+            "substep_parts": parts,
             "substep_split": split,
             "substep_device": device_profile(lambda: solver.substep(f, case["bottom"])),
             "seconds": time.perf_counter() - begin}
@@ -3411,7 +3508,7 @@ K1_WRAPPERS = tuple(name for name, _ in K1_INSTANCES_2D.values())
 def poisson_precision_2d(device, num_envs=1024, state_shape=(64, 96), observation_shape=(8, 48),
                          few_envs=8,
                          other_shapes=(("runtime", (32, 128)), ("runtime_plain", (40, 128)),
-                                       ("off_chip", (64, 128))),
+                                       ("cluster", CLUSTER_SHAPE), ("off_chip", (64, 127))),
                          parity_envs=128, n_fixed=4, fixed_steps=20, reps=3) -> dict:
     """Phase 39: the 2D ``poisson_precision`` "bf16x3" and "default", float32.
     From one case of ``num_envs`` on ``state_shape`` (6 substeps), K1's
@@ -3419,8 +3516,9 @@ def poisson_precision_2d(device, num_envs=1024, state_shape=(64, 96), observatio
     and its one-pass instance against the plain version run in float64
     (``k1_tf32_errors``), both beside float32 K1 and its plain version
     against the same float64 run; the split-product runtime (nz a multiple
-    of 32 and not) and off-chip instances on ``other_shapes`` at
-    ``few_envs``; one env step of ``RBC2DVectorEnv(num_envs,
+    of 32 and not), cluster and off-chip instances on ``other_shapes`` at
+    ``few_envs``, and the one-pass cluster instance there too (its gate
+    against float64, as above); one env step of ``RBC2DVectorEnv(num_envs,
     poisson_precision=...)`` at each name from one reset, with
     ``check_2d``'s checks (at "default" the divergence within
     K1_TF32_VS_PLAIN times the plain path's own at "default" from the same
@@ -3452,13 +3550,18 @@ def poisson_precision_2d(device, num_envs=1024, state_shape=(64, 96), observatio
     others = {}
     for name, shape in other_shapes:
         nz, nx = shape
-        on_chip = env_step_2d_on_chip(nx, nz)
-        if on_chip != (name != "off_chip"):
+        on_chip, cluster = env_step_2d_on_chip(nx, nz), env_step_2d_cluster_size(nx, nz) > 0
+        instance = "cluster" if cluster else ("off_chip" if not on_chip else name)
+        if instance != name:
             raise AssertionError(f"{shape} does not run K1's {name} instance")
         s, c = make_case(device, few_envs, shape, heater_duration=0.18, seed=22, dtype=dtype)
         err = abs_diffs(K1_OUT, k1_run(s, c, True, "high"), k1_run(s, c, False, "high"))
         others[name] = {"shape": list(shape), "swizzled": on_chip and nz % 32 == 0, **err}
         gated[f"bf16x3_{name}"] = (max(err.values()), K1_ATOL)
+        if cluster:  # the one-pass cluster instance, against float64
+            one = k1_tf32_errors(s, c, k1_run(s, c, True, "default"))
+            others[name]["default_vs_float64"] = one
+            gated[f"default_{name}"] = (one["kernel"], one["bound"])
 
     kw = dict(state_shape=state_shape, observation_shape=observation_shape, dtype=dtype,
               device=device)
@@ -3658,6 +3761,8 @@ def main() -> int:
     emit({**options, "card": card})
     precisions = poisson_precision_2d(device)
     emit({**precisions, "card": card})
+    path_cluster = main_path_cluster(device)
+    emit({**path_cluster, "card": card})
     tf32 = {"env_step_2d_tf32x3": "bf16x3", "env_step_2d_tf32": "default"}
     # each kernel's launches from the main path that is its own (K4 runs on
     # every 3D path; its count is the training grid's lazy path, its error
@@ -3674,7 +3779,8 @@ def main() -> int:
          "stage_rk_3d_xy": path_big["launches"]["stage_rk_3d_xy"],
          **{k: path_field["launches"][k] for k in field_names},
          "stage_rk_3d_rhat": options["launches"]["stage_qp"]["stage_rk_3d_rhat"],
-         **{k: precisions["launches"][name][k] for k, name in tf32.items()}},
+         **{k: precisions["launches"][name][k] for k, name in tf32.items()},
+         "env_step_2d_cluster": path_cluster["launches"]["env_step_2d_cluster"]},
         {**times["kernels"], **times_3d["kernels"],
          "stage_rk_3d_xy": times_big["kernels"]["stage_rk_3d_xy"],
          **{k: times_field["kernels"][k] for k in field_names},

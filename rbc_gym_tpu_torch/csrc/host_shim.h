@@ -20,7 +20,13 @@
 //   its m16n8k8 mma is warp-collective like a shuffle: each lane posts its
 //   A and B fragments, meets its warp, sums its four results in float32
 //   over the whole 16 x 8 A and 8 x 8 B in the PTX fragment layout, and
-//   meets the warp again.
+//   meets the warp again;
+// - K1's cluster instance runs its c CTAs together, c x 512 host threads,
+//   each CTA with its own shared memory, block barrier, warp barriers and
+//   shuffle slots (a thread knows its CTA by `host_cta`): cluster_map
+//   takes an address in the thread's CTA to the same offset in another
+//   CTA's buffer, and cluster_barrier is one std::barrier of all c x 512
+//   threads.
 #pragma once
 #define RBC_HOST_BUILD 1
 #include <algorithm>
@@ -52,22 +58,47 @@ inline T __ldg(const T* p) {
 }
 // the barrier of the block's threads (none when a block runs on one thread)
 inline std::barrier<>* block_barrier = nullptr;
+// a cluster's CTAs (kMaxHostCtas at most): this thread's CTA, its block
+// barrier and shared memory (nullptr outside a cluster: then block_barrier
+// and the host program's smem), every CTA's shared memory, and the cluster's barrier
+constexpr unsigned kMaxHostCtas = 8;
+inline thread_local unsigned host_cta = 0;
+inline thread_local std::barrier<>* cta_barrier = nullptr;
+inline thread_local float* host_cta_smem = nullptr;
+inline float* host_cluster_smem[kMaxHostCtas];
+inline unsigned host_cluster_ctas = 1;
+inline std::barrier<>* host_cluster_barrier = nullptr;
 inline void __syncthreads() {
-  if (block_barrier) block_barrier->arrive_and_wait();
+  if (cta_barrier) {
+    cta_barrier->arrive_and_wait();
+  } else if (block_barrier) {
+    block_barrier->arrive_and_wait();
+  }
 }
+inline int cluster_rank() { return (int)host_cta; }
+inline int cluster_size() { return (int)host_cluster_ctas; }
+template <class T>
+inline T* cluster_map(T* p, int rank) {
+  return (T*)(host_cluster_smem[rank] + ((const float*)p - host_cluster_smem[host_cta]));
+}
+inline void cluster_barrier() { host_cluster_barrier->arrive_and_wait(); }
+inline float* cta_shared(float* s) { return host_cta_smem ? host_cta_smem : s; }
 inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n, size_t = 0) {
   std::memcpy(dst, src, n);
 }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(size_t) {}
-inline std::barrier<>* warp_barriers[32];
-inline double shuffle_slots[1024];
+// each CTA's warps' barriers and its threads' shuffle slots, at host_cta * 32
+// and host_cta * 1024
+inline std::barrier<>* warp_barriers[kMaxHostCtas * 32];
+inline double shuffle_slots[kMaxHostCtas * 1024];
 template <class T>
 inline T shuffle(T v, unsigned src) {
-  std::barrier<>& bar = *warp_barriers[threadIdx.x / 32];
-  shuffle_slots[threadIdx.x] = (double)v;
+  std::barrier<>& bar = *warp_barriers[host_cta * 32 + threadIdx.x / 32];
+  double* slots = shuffle_slots + host_cta * 1024;
+  slots[threadIdx.x] = (double)v;
   bar.arrive_and_wait();
-  const T out = (T)shuffle_slots[src];
+  const T out = (T)slots[src];
   bar.arrive_and_wait();
   return out;
 }
@@ -98,9 +129,10 @@ inline float __uint_as_float(unsigned u) {
 }
 // x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero
 inline unsigned to_tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
-inline float mma_slots[1024][6];  // each thread's a0..a3, b0, b1
+inline float mma_slots_all[kMaxHostCtas * 1024][6];  // each thread's a0..a3, b0, b1
 inline void mma_tf32(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
-  std::barrier<>& bar = *warp_barriers[threadIdx.x / 32];
+  std::barrier<>& bar = *warp_barriers[host_cta * 32 + threadIdx.x / 32];
+  float (*mma_slots)[6] = mma_slots_all + host_cta * 1024;
   for (int i = 0; i < 4; ++i) mma_slots[threadIdx.x][i] = __uint_as_float(a[i]);
   for (int i = 0; i < 2; ++i) mma_slots[threadIdx.x][4 + i] = __uint_as_float(b[i]);
   bar.arrive_and_wait();

@@ -52,6 +52,39 @@
 //   2 (2 nx nz + nx (nz + 1)) + 2 nx nz + 2 nz^2 + nx, 230,528 bytes at
 //   96x64: one block an SM, 1024 envs in 7.76 waves over 132 SMs. FP32 FMA
 //   on the CUDA cores; no tensor cores, no TF32.
+//   The grids it cannot hold run on a thread-block cluster where one
+//   takes them: env_step_2d_cluster_kernel, c = env_step_2d_cluster_size
+//   CTAs of 512 threads an env (the smallest of 2, 4, 8 that divides nx
+//   and whose nxl = nx / c columns the on-chip layout takes: 128x64 and
+//   192x64 on two, 256x64 on four). Off the chip the state and every
+//   intermediate made 330 KB an env at 128x64, through L2 and HBM at each
+//   of 150 stages a step (243.69 ms at 1024 envs there, 6.5 % of the
+//   bound); the cluster keeps the env step in c SMs' shared memory. CTA r
+//   holds the columns [r nxl, (r + 1) nxl) in K1's layout over nxl
+//   columns (its shared memory on_chip_smem_floats(nxl, nz): 164,608
+//   bytes at 128x64), with its own z transforms and g_prev in registers,
+//   and reads only what crosses a slice from its neighbours' shared
+//   memory (distributed shared memory, cluster_map): the march's x halos
+//   (three columns of u, w, b each side, one of pHY'; nxl >= 4, so only
+//   the next CTA's, periodic from CTA c - 1 to 0), copied into a halo in
+//   the divergence slab before the march; the divergence's u[i + 1] and
+//   the correction's p[i - 1], read in place; and for the two
+//   x-contracting products (r_hat = F . rhs, p = G . p_hat: a CTA the rows
+//   of its columns) the other CTAs' slabs, copied three at a time into the
+//   state copy that is dead after the march. The z products are local. F
+//   and G are read through L1 and L2 as on the chip. Per stage five
+//   cluster barriers (barrier.cluster.arrive.release / wait.acquire), each
+//   where a CTA next reads what its neighbours wrote: after pHY' (their
+//   corrected state and pHY'), after the march (u*), after the divergence,
+//   after p_hat and after p; one more before a CTA exits. The other
+//   barriers stay its own (one after the halo copy, one after each copy of
+//   slabs and each product), and nothing a neighbour may still read is
+//   overwritten before the next cluster barrier: pHY' goes to the slab no
+//   neighbour reads then, the halo to the one whose p they have read. The
+//   TF32 instances keep their slabs plain (unswizzled) and take the x
+//   products as one 16 x 32 tile a warp summed over the slabs (nxl <=
+//   128, nz <= 64: at most 16 tiles). Compile-time 64 and 96 columns of 64
+//   levels a CTA at float32, a runtime-size instance otherwise.
 //   Every other grid with nx >= 3 whose two (nx, nz) slabs fit a block
 //   (8 nx nz bytes) runs the off-chip instance, env_step_2d_global_kernel:
 //   the state in the output tensors, the tendencies of this and the
@@ -127,8 +160,12 @@
 //   reciprocals.
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#ifndef RBC_HOST_BUILD
+#include <cooperative_groups.h>
+#endif
 
 #include "ub5.cuh"
 
@@ -181,7 +218,7 @@ K1Params k1_params(int nx, int nz, int n_substeps, float dt, float dx, float dz,
 
 // ---- the TF32 tensor-core products of K1's split-product instances -----------
 
-#ifndef RBC_HOST_BUILD  // csrc/host_shim.h stands in for these two on the host
+#ifndef RBC_HOST_BUILD  // csrc/host_shim.h stands in for these on the host
 // x rounded to TF32 (to nearest, ties away from zero), in a b32 register.
 __device__ __forceinline__ unsigned to_tf32(float x) {
   unsigned r;
@@ -201,6 +238,31 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
+
+// ---- thread-block clusters (K1's cluster instance) ----------------------------
+
+// This CTA's rank in its cluster, and the cluster's CTAs.
+__device__ __forceinline__ int cluster_rank() {
+  return (int)cooperative_groups::this_cluster().block_rank();
+}
+__device__ __forceinline__ int cluster_size() {
+  return (int)cooperative_groups::this_cluster().num_blocks();
+}
+// The address of *p, in this CTA's shared memory, in CTA rank's (distributed
+// shared memory: a generic pointer the other SM's loads go through).
+template <class T>
+__device__ __forceinline__ T* cluster_map(T* p, int rank) {
+  return cooperative_groups::this_cluster().map_shared_rank(p, rank);
+}
+// Every thread of the cluster meets here: what any of them wrote before is
+// seen by all after (release, then acquire, at cluster scope). It is also a
+// barrier of the CTA's own threads.
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// The CTA's dynamic shared memory (on the host, each CTA's own buffer).
+__device__ __forceinline__ float* cta_shared(float* s) { return s; }
 #endif
 
 // The TF32 operands of N float32 values for kPasses passes: at 3, hi (the
@@ -285,7 +347,7 @@ __host__ __device__ constexpr int k1_cols(int nx) { return (nx + kK1Warps - 1) /
 // Shared memory of the on-chip instance, in floats: two copies of u, b
 // (nx, nz) and w (nx, nz + 1), two (nx, nz) slabs, the z analysis and
 // synthesis (nz, nz) and the bottom profile (nx).
-size_t on_chip_smem_floats(int nx, int nz) {
+__host__ __device__ constexpr size_t on_chip_smem_floats(int nx, int nz) {
   return 2 * (2 * (size_t)nx * nz + (size_t)nx * (nz + 1)) + 2 * (size_t)nx * nz +
          2 * (size_t)nz * nz + nx;
 }
@@ -297,16 +359,52 @@ bool env_step_2d_on_chip(int nx, int nz) {
          sizeof(float) * on_chip_smem_floats(nx, nz) <= kSmemPerBlock;
 }
 
-// Shared memory K1 needs per block, in floats: the on-chip instance's, or
-// the off-chip one's two (nx, nz) slabs.
-size_t env_step_2d_smem_floats(int nx, int nz) {
-  return env_step_2d_on_chip(nx, nz) ? on_chip_smem_floats(nx, nz) : 2 * (size_t)nx * nz;
+constexpr int kK1MaxCluster = 8;  // CTAs of K1's cluster instance: the portable limit
+
+// The CTAs of K1's cluster instance on a grid the on-chip instance cannot
+// hold: the smallest c of 2, 4 and 8 that divides nx and whose slab of nx /
+// c columns the on-chip layout takes (at least 4 columns, k1_cols <= 8, 2
+// <= nz <= 64, its shared memory in a block); 0 on the chip's grids and
+// where no c does (those run the off-chip instance).
+int env_step_2d_cluster_size(int nx, int nz) {
+  if (env_step_2d_on_chip(nx, nz)) return 0;
+  for (int c = 2; c <= kK1MaxCluster; c *= 2) {
+    const int nxl = nx / c;
+    if (nx % c == 0 && nxl >= 4 && k1_cols(nxl) <= kK1MaxCols && nz >= 2 && nz <= kK1MaxNz &&
+        sizeof(float) * on_chip_smem_floats(nxl, nz) <= kSmemPerBlock) {
+      return c;
+    }
+  }
+  return 0;
 }
 
-// Global scratch per env, in floats: none on the chip; off it, gu, gw, gb
-// of this stage and of the previous one, and pHY'.
+// Whether a CTA of K1's cluster instance also holds its rows of F and G
+// (2 (nx / c) nx floats) beside its state: where they fit a block (128x64,
+// not 192x64 or 256x64). Its float32 products then read them there, not
+// through L1 and L2.
+bool env_step_2d_cluster_fg(int nx, int nz) {
+  const int c = env_step_2d_cluster_size(nx, nz);
+  return c > 0 && sizeof(float) * (on_chip_smem_floats(nx / c, nz) + 2 * (size_t)(nx / c) * nx) <=
+                      kSmemPerBlock;
+}
+
+// Shared memory K1 needs per block, in floats: the on-chip instance's, a
+// cluster CTA's (the on-chip layout over nx / c columns, and its rows of F
+// and G where they fit), or the off-chip one's two (nx, nz) slabs.
+size_t env_step_2d_smem_floats(int nx, int nz) {
+  if (env_step_2d_on_chip(nx, nz)) return on_chip_smem_floats(nx, nz);
+  const int c = env_step_2d_cluster_size(nx, nz);
+  if (c == 0) return 2 * (size_t)nx * nz;
+  return on_chip_smem_floats(nx / c, nz) +
+         (env_step_2d_cluster_fg(nx, nz) ? 2 * (size_t)(nx / c) * nx : 0);
+}
+
+// Global scratch per env, in floats: none on the chip or a cluster; off
+// them, gu, gw, gb of this stage and of the previous one, and pHY'.
 size_t env_step_2d_scratch_floats(int nx, int nz) {
-  return env_step_2d_on_chip(nx, nz) ? 0 : 5 * (size_t)nx * nz + 2 * (size_t)nx * (nz + 1);
+  return env_step_2d_on_chip(nx, nz) || env_step_2d_cluster_size(nx, nz) > 0
+             ? 0
+             : 5 * (size_t)nx * nz + 2 * (size_t)nx * (nz + 1);
 }
 
 struct State2D {
@@ -891,6 +989,571 @@ decltype(&env_step_2d_global_kernel<0>) env_step_global_kernel_for(int passes) {
   return env_step_2d_global_kernel<0>;
 }
 
+// ---- K1's cluster instance ----------------------------------------------------
+
+// acc[r][s] += sum_{k < K} L[row_r][k] R[k][col_s], as tile_product (the
+// rows and columns clamped alike, col0 = 0) with L's rows ldl apart and
+// acc not cleared first, so that one sum can run over several slabs.
+template <int XS, int NS, bool kVec>
+__device__ __forceinline__ void tile_product_acc(const float* L, int ldl, const float* R, int K,
+                                                 int ldr, int row0, int nrow, int lane,
+                                                 float (&acc)[XS][NS]) {
+  int row[XS], col[NS];
+#pragma unroll
+  for (int r = 0; r < XS; ++r) row[r] = min(row0 + r, nrow - 1) * ldl;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) col[s] = min(lane + 32 * s, ldr - 1);
+  if constexpr (kVec) {
+#pragma unroll 4
+    for (int k = 0; k < K; k += 4) {
+      float4 a[XS];
+#pragma unroll
+      for (int r = 0; r < XS; ++r) a[r] = *reinterpret_cast<const float4*>(L + row[r] + k);
+      const float* rk = R + k * ldr;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float bv[NS];
+#pragma unroll
+        for (int s = 0; s < NS; ++s) bv[s] = rk[kk * ldr + col[s]];
+#pragma unroll
+        for (int r = 0; r < XS; ++r) {
+          const float av = kk == 0 ? a[r].x : (kk == 1 ? a[r].y : (kk == 2 ? a[r].z : a[r].w));
+#pragma unroll
+          for (int s = 0; s < NS; ++s) acc[r][s] = fmaf(av, bv[s], acc[r][s]);
+        }
+      }
+    }
+  } else {
+    for (int k = 0; k < K; ++k) {
+      float bv[NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) bv[s] = R[k * ldr + col[s]];
+#pragma unroll
+      for (int r = 0; r < XS; ++r) {
+        const float av = L[row[r] + k];
+#pragma unroll
+        for (int s = 0; s < NS; ++s) acc[r][s] = fmaf(av, bv[s], acc[r][s]);
+      }
+    }
+  }
+}
+
+// acc += L . R over the 16 x 32 tile at (m0, n0), K deep, in kPasses TF32
+// passes: mma_product's loop for one tile, its accumulator kept by the
+// caller. ld_l and ld_r give 0 outside their operands.
+template <int kPasses, class LdL, class LdR>
+__device__ __forceinline__ void mma_tile(int m0, int n0, int K, LdL ld_l, LdR ld_r,
+                                         float (&acc)[4][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    const float a[4] = {ld_l(m0 + g, k0 + t), ld_l(m0 + g + 8, k0 + t), ld_l(m0 + g, k0 + t + 4),
+                        ld_l(m0 + g + 8, k0 + t + 4)};
+    unsigned ah[4], al[4];
+    tf32_operands<kPasses>(a, ah, al);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = n0 + 8 * j + g;
+      const float b[2] = {ld_r(k0 + t, c), ld_r(k0 + t + 4, c)};
+      unsigned bh[2], bl[2];
+      tf32_operands<kPasses>(b, bh, bl);
+      if constexpr (kPasses == 3) {
+        mma_tf32(acc[j], ah, bl);
+        mma_tf32(acc[j], al, bh);
+      }
+      mma_tf32(acc[j], ah, bh);
+    }
+  }
+}
+
+// Slabs of the other CTAs that K1's cluster instance copies into its dead
+// state copy at a time (that copy holds 3 nc + nxl floats).
+constexpr int kK1StagedSlabs = 3;
+
+// K1's cluster instance (see the head of this file): one env on a cluster
+// of c CTAs; CTA r holds the columns [r nxl, (r + 1) nxl), nxl = nx / c, in
+// the on-chip layout. NXL, NZ are nxl and nz where compile-time.
+template <int NXL, int NZ, int kPasses = 0>
+__global__ void __launch_bounds__(kK1Threads, 1)
+env_step_2d_cluster_kernel(const float* __restrict__ u_in, const float* __restrict__ w_in,
+                           const float* __restrict__ b_in, const float* __restrict__ bottom_in,
+                           const float* __restrict__ fmat, const float* __restrict__ gmat,
+                           const float* __restrict__ dct, const float* __restrict__ idct,
+                           const float* __restrict__ dinv, float* __restrict__ u_out,
+                           float* __restrict__ w_out, float* __restrict__ b_out,
+                           float* __restrict__ p_out, K1Params P, int fg_rows) {
+  constexpr int NS = kK1Levels;
+  constexpr int XS = NXL > 0 ? k1_cols(NXL) : kK1MaxCols;
+  constexpr bool kVec = NXL > 0 && NXL % 4 == 0 && NZ % 4 == 0;
+  extern __shared__ float smem[];
+  float* const cta = cta_shared(smem);
+  const int c = cluster_size(), r = cluster_rank();
+  const int left = r > 0 ? r - 1 : c - 1, right = r + 1 < c ? r + 1 : 0;
+  const int nx = P.nx, nz = NZ > 0 ? NZ : P.nz, nw = nz + 1;
+  const int nxl = NXL > 0 ? NXL : nx / c;
+  const int nc = nxl * nz, nf = nxl * nw;
+  const size_t e = blockIdx.x / c;
+  const int x_off = r * nxl;  // this CTA's first column
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int xs = k1_cols(nxl), x0 = warp * xs, xn = min(xs, nxl - x0);  // xn may be <= 0
+
+  State2D X{cta, cta + nc, cta + nc + nf};
+  State2D Y{X.b + nc, X.b + nc + nc, X.b + nc + nc + nf};
+  float* sa = Y.b + nc;       // the halo, then the divergence, then p
+  float* sb = sa + nc;        // pHY', then r_hat, then p_hat
+  float* ct = sb + nc;        // z analysis, (z, j)
+  float* st = ct + nz * nz;   // z synthesis, (j, z)
+  float* bot = st + nz * nz;  // bottom (nxl)
+  // with fg_rows (env_step_2d_cluster_fg) this CTA's rows of F, then of G
+  // (nxl x nx each), which the float32 products read here
+  // (never where the CTA's slab is compile-time and F and G's rows cannot
+  // fit beside it even at c = 2, as at 96 x 64: that code is left out)
+  constexpr bool kMayHoldFG =
+      NXL == 0 || sizeof(float) * (on_chip_smem_floats(NXL, NZ) + 4 * (size_t)NXL * NXL) <=
+                      kSmemPerBlock;
+  const bool fg = kPasses == 0 && kMayHoldFG && fg_rows;
+  float* frows = bot + nxl;
+  float* grows = frows + nxl * nx;
+  // the march's x halo in sa: columns -3, -2, -1, nxl, nxl + 1, nxl + 2 of
+  // u, w and b, and pHY' of column -1 (19 nz + 6 floats; nxl >= 49 on every
+  // grid the cluster takes, so they fit)
+  float* hu = sa;
+  float* hw = hu + 6 * nz;
+  float* hb = hw + 6 * nw;
+  float* hp = hb + 6 * nz;
+
+  {
+    const size_t ec = e * (size_t)nx * nz + (size_t)x_off * nz;
+    const size_t ef = e * (size_t)nx * nw + (size_t)x_off * nw;
+    for (int q = threadIdx.x; q < nc; q += kK1Threads) {
+      X.u[q] = u_in[ec + q];
+      X.b[q] = b_in[ec + q];
+    }
+    for (int q = threadIdx.x; q < nf; q += kK1Threads) X.w[q] = Y.w[q] = w_in[ef + q];
+    for (int q = threadIdx.x; q < nz * nz; q += kK1Threads) {
+      ct[q] = dct[q];
+      st[q] = idct[q];
+    }
+    for (int q = threadIdx.x; q < nxl; q += kK1Threads) bot[q] = bottom_in[e * nx + x_off + q];
+    if (fg) {
+      for (int q = threadIdx.x; q < nxl * nx; q += kK1Threads) {
+        frows[q] = fmat[(size_t)x_off * nx + q];
+        grows[q] = gmat[(size_t)x_off * nx + q];
+      }
+    }
+  }
+  __syncthreads();
+
+  int kl[NS], kc[NS];  // this lane's levels, and the same clamped into the column
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    kl[s] = lane + 32 * s;
+    kc[s] = min(kl[s], nz - 1);
+  }
+  auto tap = [&](int s, int o, int n) { return min(max(kl[s] + o - 3, 0), n - 1); };
+  // column i (-3 <= i < nxl + 3) of a field of the state X: its own, or the halo's
+  auto col = [&](const float* f, const float* h, int ld, int i) {
+    return i < 0 ? h + (i + 3) * ld : (i >= nxl ? h + (i - nxl + 3) * ld : f + i * ld);
+  };
+  auto xflux_u = [&](int cc, int k) {
+    auto u = [&](int i) { return col(X.u, hu, nz, i)[k]; };
+    const float a = u(cc), b = u(cc + 1);
+    return ub5_upwind(u(cc - 2), u(cc - 1), a, b, u(cc + 2), u(cc + 3), 0.5f * (a + b));
+  };
+  auto xflux_face = [&](const float* f, const float* h, int ld, int cc, int k, float vel) {
+    auto q = [&](int i) { return col(f, h, ld, i)[k]; };
+    return ub5_upwind(q(cc - 3), q(cc - 2), q(cc - 1), q(cc), q(cc + 1), q(cc + 2), vel);
+  };
+  auto xflux_w = [&](int cc, int s) {
+    const float* uc = col(X.u, hu, nz, cc);
+    const float vel = 0.5f * (uc[max(kl[s] - 1, 0)] + uc[kc[s]]);
+    return xflux_face(X.w, hw, nw, cc, kc[s], vel);
+  };
+  auto xflux_b = [&](int cc, int s) {
+    return xflux_face(X.b, hb, nz, cc, kc[s], col(X.u, hu, nz, cc)[kc[s]]);
+  };
+  // the halo from the neighbours' shared memory: two warps a run of columns
+  auto halo_copy = [&] {
+    const int run = warp >> 1;
+    if (run < 7) {
+      const float* src;
+      float* dst;
+      int n;
+      switch (run) {
+        case 0: src = X.u + (nxl - 3) * nz; dst = hu; n = 3 * nz; break;
+        case 1: src = X.w + (nxl - 3) * nw; dst = hw; n = 3 * nw; break;
+        case 2: src = X.b + (nxl - 3) * nz; dst = hb; n = 3 * nz; break;
+        case 3: src = sb + (nxl - 1) * nz; dst = hp; n = nz; break;
+        case 4: src = X.u; dst = hu + 3 * nz; n = 3 * nz; break;
+        case 5: src = X.w; dst = hw + 3 * nw; n = 3 * nw; break;
+        default: src = X.b; dst = hb + 3 * nz; n = 3 * nz; break;
+      }
+      src = cluster_map(src, run < 4 ? left : right);
+      for (int q = (warp & 1) * 32 + lane; q < n; q += 64) dst[q] = src[q];
+    }
+  };
+  // the slabs of CTAs r + q0 .. r + q0 + nq - 1 (mod c), copied into the
+  // dead state copy D: slab at the same place in each CTA
+  auto stage_slabs = [&](float* D, const float* slab, int q0, int nq) {
+    for (int j = 0; j < nq; ++j) {
+      const int q = (r + q0 + j) % c;
+      const float* src = cluster_map(slab, q);
+      float* dst = D + j * nc;
+      if ((((uintptr_t)dst | (uintptr_t)src) & 15) == 0 && (nc & 3) == 0) {
+#pragma unroll 4
+        for (int i = 4 * threadIdx.x; i < nc; i += 4 * kK1Threads)
+          *reinterpret_cast<float4*>(dst + i) = *reinterpret_cast<const float4*>(src + i);
+      } else {
+        for (int i = threadIdx.x; i < nc; i += kK1Threads) dst[i] = src[i];
+      }
+    }
+  };
+
+  float gp[XS][NS][3] = {};  // the previous stage's gu, gw, gb of this thread's points
+  float pt[XS][NS];          // the solve's tile: this thread's points
+  for (int step = 0; step < P.n_substeps; ++step) {
+    for (int stage = 0; stage < 3; ++stage) {
+      const float gamma = kGamma[stage], zeta = kZeta[stage];
+      const float dts = P.dts[stage], idts = P.idts[stage];
+      const bool last = step == P.n_substeps - 1 && stage == 2;
+      auto rk = [&](float f, float g, float g_prev) {
+        return stage == 0 ? f + P.dt * (gamma * g) : f + P.dt * (gamma * g + zeta * g_prev);
+      };
+      float* D = X.u;  // the state copy that is dead after the march (3 nc + nxl floats)
+
+      // ---- 1. pHY' of this warp's columns into sb ---------------------------
+#pragma unroll
+      for (int xi = 0; xi < XS; ++xi) {
+        if (xi < xn) {
+          double above = 0.0;
+          phy_levels<NS>(X.b + (x0 + xi) * nz, sb + (x0 + xi) * nz, 0, nz, lane, P, above);
+        }
+      }
+      cluster_barrier();  // (1) the neighbours' corrected state and pHY'
+      halo_copy();
+      __syncthreads();
+
+      // ---- 2. tendencies and the RK update, marching along x ----------------
+      {
+        float fu[NS], fw[NS], fb[NS];  // x fluxes entering the current column
+        if (xn > 0) {
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            fu[s] = xflux_u(x0 - 1, kc[s]);
+            fw[s] = xflux_w(x0, s);
+            fb[s] = xflux_b(x0, s);
+          }
+        }
+#pragma unroll
+        for (int xi = 0; xi < XS; ++xi) {
+          if (xi < xn) {
+            const int i = x0 + xi, im = i - 1, ip = i + 1;
+            const float* uc = X.u + i * nz;
+            const float* wc = X.w + i * nw;
+            const float* bc = X.b + i * nz;
+            const float* wm = col(X.w, hw, nw, im);
+            const float* phm = im < 0 ? hp : sb + im * nz;
+            float zu[NS], zb[NS], zw[NS], zu_up[NS], zb_up[NS], zw_dn[NS];
+#pragma unroll
+            for (int s = 0; s < NS; ++s) {
+              const ZOrders oc = z_orders(kl[s], nz), ow = z_orders(kl[s] + 1, nw);
+              const int k = kc[s];
+              zu[s] = z_upwind(uc[tap(s, 0, nz)], uc[tap(s, 1, nz)], uc[tap(s, 2, nz)], uc[k],
+                               uc[tap(s, 4, nz)], uc[tap(s, 5, nz)], oc,
+                               0.5f * (wm[k] + wc[k]));
+              zb[s] = z_upwind(bc[tap(s, 0, nz)], bc[tap(s, 1, nz)], bc[tap(s, 2, nz)], bc[k],
+                               bc[tap(s, 4, nz)], bc[tap(s, 5, nz)], oc, wc[k]);
+              const float w0 = wc[k], w1 = wc[k + 1];
+              zw[s] = z_upwind(wc[tap(s, 1, nw)], wc[tap(s, 2, nw)], w0, w1, wc[tap(s, 5, nw)],
+                               wc[tap(s, 6, nw)], ow, 0.5f * (w0 + w1));
+            }
+            flux_above(zu, zu_up, lane, nz);
+            flux_above(zb, zb_up, lane, nz);
+            flux_below(zw, zw_dn, lane);
+            const float* um = col(X.u, hu, nz, im);
+            const float* up = col(X.u, hu, nz, ip);
+            const float* wp = col(X.w, hw, nw, ip);
+            const float* bm = col(X.b, hb, nz, im);
+            const float* bp = col(X.b, hb, nz, ip);
+#pragma unroll
+            for (int s = 0; s < NS; ++s) {
+              const int kk = kl[s], k = kc[s];
+              // ---- gu and u* at (face i, center k) ----
+              {
+                const float f_new = xflux_u(i, k);
+                float adv = (f_new - fu[s]) * P.idx;
+                fu[s] = f_new;
+                adv += (zu_up[s] - zu[s]) * P.idz;
+                const float dphy = (sb[i * nz + k] - phm[k]) * P.idx;
+                const float q = uc[k];
+                const float qm = kk > 0 ? uc[max(kk - 1, 0)] : -uc[0];
+                const float qp = kk < nz - 1 ? uc[min(kk + 1, nz - 1)] : -uc[nz - 1];
+                const float lap =
+                    (up[k] - 2.0f * q + um[k]) * P.idx2 + (qp - 2.0f * q + qm) * P.idz2;
+                const float g = -adv - dphy + P.nu * lap;
+                if (kk < nz) Y.u[i * nz + k] = rk(q, g, gp[xi][s][0]);
+                gp[xi][s][0] = g;
+              }
+              // ---- gw and w* at (center i, face k); faces 0 and nz are walls ----
+              {
+                const float f_new = xflux_w(i + 1, s);
+                float adv = (f_new - fw[s]) * P.idx;
+                fw[s] = f_new;
+                adv += (zw[s] - zw_dn[s]) * P.idz;
+                const float q = wc[k];
+                const float lap = (wp[k] - 2.0f * q + wm[k]) * P.idx2 +
+                                  (wc[k + 1] - 2.0f * q + wc[max(k - 1, 0)]) * P.idz2;
+                const float g = kk == 0 ? 0.0f : -adv + P.nu * lap;
+                if (kk < nz) Y.w[i * nw + k] = rk(q, g, gp[xi][s][1]);
+                if (kk == nz - 1) Y.w[i * nw + nz] = 0.0f;  // Y was D: its top face is lost
+                gp[xi][s][1] = g;
+              }
+              // ---- gb and b' at (center i, center k) ----
+              {
+                const float f_new = xflux_b(i + 1, s);
+                float adv = (f_new - fb[s]) * P.idx;
+                fb[s] = f_new;
+                adv += (zb_up[s] - zb[s]) * P.idz;
+                const float q = bc[k];
+                const float qm = kk > 0 ? bc[max(kk - 1, 0)] : 2.0f * bot[i] - bc[0];
+                const float qp =
+                    kk < nz - 1 ? bc[min(kk + 1, nz - 1)] : 2.0f * P.min_b - bc[nz - 1];
+                const float lap =
+                    (bp[k] - 2.0f * q + bm[k]) * P.idx2 + (qp - 2.0f * q + qm) * P.idz2;
+                const float g = -adv + P.kappa * lap;
+                if (kk < nz) Y.b[i * nz + k] = rk(q, g, gp[xi][s][2]);
+                gp[xi][s][2] = g;
+              }
+            }
+          }
+        }
+      }
+      cluster_barrier();  // (2) the right neighbour's u*
+
+      // ---- 3. div(u*, w*) / dt_stage into sa ----------------------------------
+      {
+        const float* u_right = cluster_map(Y.u, right);  // its column 0 is our nxl
+#pragma unroll
+        for (int xi = 0; xi < XS; ++xi) {
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            const int i = x0 + xi, k = kl[s];
+            if (xi < xn && k < nz) {
+              float ue;
+              if (i + 1 < nxl) {
+                ue = Y.u[(i + 1) * nz + k];
+              } else {
+                ue = u_right[k];
+              }
+              const float div = (ue - Y.u[i * nz + k]) * P.idx +
+                                (Y.w[i * nw + k + 1] - Y.w[i * nw + k]) * P.idz;
+              sa[i * nz + k] = div * idts;
+            }
+          }
+        }
+      }
+      cluster_barrier();  // (3) every CTA's divergence
+
+      // ---- 4. the solve: the two x products over the cluster's slabs, the
+      // other CTAs' copied into D kK1StagedSlabs at a time; the z products local
+      if constexpr (kPasses == 0) {
+        auto store = [&](float* dst) {
+#pragma unroll
+          for (int xi = 0; xi < XS; ++xi)
+#pragma unroll
+            for (int s = 0; s < NS; ++s)
+              if (xi < xn && kl[s] < nz) dst[(x0 + xi) * nz + kl[s]] = pt[xi][s];
+        };
+        auto clear = [&] {
+#pragma unroll
+          for (int xi = 0; xi < XS; ++xi)
+#pragma unroll
+            for (int s = 0; s < NS; ++s) pt[xi][s] = 0.0f;
+        };
+        // pt = L[own rows, :] . (the cluster's slabs, in column order), L's
+        // rows (nxl x nx) read from shared memory (rows) with in_smem, else
+        // from global memory: each its own code, so that neither address
+        // space's loads turn generic
+        auto x_product_from = [&](auto in_smem, const float* L, const float* rows,
+                                  const float* slab) {
+          const float* Lr = decltype(in_smem)::value ? rows : L + (size_t)x_off * nx;
+          clear();
+          tile_product_acc<XS, NS, kVec>(Lr + x_off, nx, slab, nxl, nz, x0, nxl, lane, pt);
+          for (int q0 = 1; q0 < c; q0 += kK1StagedSlabs) {
+            const int nq = min(kK1StagedSlabs, c - q0);
+            if (q0 > 1) __syncthreads();
+            stage_slabs(D, slab, q0, nq);
+            __syncthreads();
+            for (int j = 0; j < nq; ++j) {
+              const int q = (r + q0 + j) % c;
+              tile_product_acc<XS, NS, kVec>(Lr + q * nxl, nx, D + j * nc, nxl, nz, x0, nxl,
+                                             lane, pt);
+            }
+          }
+        };
+        auto x_product = [&](const float* L, const float* rows, const float* slab) {
+          if (fg) {
+            x_product_from(std::true_type{}, L, rows, slab);
+          } else {
+            x_product_from(std::false_type{}, L, rows, slab);
+          }
+        };
+        x_product(fmat, frows, sa);  // r_hat = F . rhs
+        store(sb);
+        __syncthreads();
+        clear();
+        tile_product_acc<XS, NS, kVec>(sb, nz, ct, nz, nz, x0, nxl, lane, pt);  // r_hat C^T
+#pragma unroll
+        for (int xi = 0; xi < XS; ++xi)
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+            pt[xi][s] *= __ldg(dinv + (x_off + min(x0 + xi, nxl - 1)) * nz + kc[s]);
+        store(D);
+        __syncthreads();
+        clear();
+        tile_product_acc<XS, NS, kVec>(D, nz, st, nz, nz, x0, nxl, lane, pt);  // p_hat = R~ S^T
+        store(sb);
+        cluster_barrier();  // (4) every CTA's p_hat
+        x_product(gmat, grows, sb);  // p = G . p_hat
+        store(sa);
+        if (last) {
+#pragma unroll
+          for (int xi = 0; xi < XS; ++xi)
+#pragma unroll
+            for (int s = 0; s < NS; ++s)
+              if (xi < xn && kl[s] < nz)
+                p_out[e * nx * nz + (size_t)(x_off + x0 + xi) * nz + kl[s]] = pt[xi][s];
+        }
+        cluster_barrier();  // (5) every CTA's p
+
+        // ---- 5. correct this thread's u*, w* by grad p ------------------------
+        const float* p_left = cluster_map(sa, left) + (nxl - 1) * nz;  // our column -1
+#pragma unroll
+        for (int xi = 0; xi < XS; ++xi) {
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            const int i = x0 + xi, k = kl[s];
+            if (xi < xn && k < nz) {
+              const float p = pt[xi][s];
+              float pm;
+              if (xi > 0) {
+                pm = pt[xi > 0 ? xi - 1 : 0][s];
+              } else if (i > 0) {
+                pm = sa[(i - 1) * nz + k];
+              } else {
+                pm = p_left[k];
+              }
+              Y.u[i * nz + k] -= dts * ((p - pm) * P.idx);
+              if (k > 0) Y.w[i * nw + k] -= dts * ((p - sa[i * nz + k - 1]) * P.idz);
+            }
+          }
+        }
+      } else {
+        // ---- 4. the solve on the tensor cores, every slab plain -------------
+        auto rd = [](const float* a, int ld) {
+          return [=](int rr, int cc) { return a[rr * ld + cc]; };
+        };
+        auto wr = [nz](float* a) { return [=](int rr, int cc, float v) { a[rr * nz + cc] = v; }; };
+        // out[own rows] = L[own rows, :] . (the cluster's slabs): a warp's one
+        // 16 x 32 tile (nxl <= 128, nz <= 64: at most 16 tiles), summed over
+        // the slabs in its registers
+        auto x_product = [&](const float* L, const float* slab, float* out) {
+          const float* Lr = L + (size_t)x_off * nx;
+          const int tiles_n = (nz + 31) / 32, tiles = (nxl + 15) / 16 * tiles_n;
+          const bool mine = warp < tiles;
+          const int m0 = warp / tiles_n * 16, n0 = warp % tiles_n * 32;
+          float acc[4][4] = {};
+          auto chunk = [&](const float* Lq, const float* R) {
+            if (mine) {
+              mma_tile<kPasses>(
+                  m0, n0, nxl,
+                  [&](int rr, int k) {
+                    return rr < nxl && k < nxl ? __ldg(Lq + rr * nx + k) : 0.0f;
+                  },
+                  [&](int k, int cc) { return k < nxl && cc < nz ? R[k * nz + cc] : 0.0f; }, acc);
+            }
+          };
+          chunk(Lr + x_off, slab);
+          for (int q0 = 1; q0 < c; q0 += kK1StagedSlabs) {
+            const int nq = min(kK1StagedSlabs, c - q0);
+            if (q0 > 1) __syncthreads();
+            stage_slabs(D, slab, q0, nq);
+            __syncthreads();
+            for (int j = 0; j < nq; ++j) chunk(Lr + (r + q0 + j) % c * nxl, D + j * nc);
+          }
+          if (mine) {
+            const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int rr = m0 + g + 8 * (i >> 1), cc = n0 + 8 * j + 2 * t + (i & 1);
+                if (rr < nxl && cc < nz) out[rr * nz + cc] = acc[j][i];
+              }
+          }
+        };
+        x_product(fmat, sa, sb);  // r_hat = F . rhs
+        __syncthreads();
+        mma_product<kPasses, true>(nxl, nz, nz, rd(sb, nz), rd(ct, nz),  // (r_hat C^T) * d
+                                   [&](int rr, int cc, float v) {
+                                     D[rr * nz + cc] = v * __ldg(dinv + (x_off + rr) * nz + cc);
+                                   });
+        __syncthreads();
+        mma_product<kPasses, true>(nxl, nz, nz, rd(D, nz), rd(st, nz), wr(sb));  // p_hat
+        cluster_barrier();  // (4) every CTA's p_hat
+        x_product(gmat, sb, sa);  // p = G . p_hat
+        cluster_barrier();  // (5) every CTA's p
+
+        // ---- 5. correct this thread's u*, w* by grad p, read from sa -----------
+        const float* p_left = cluster_map(sa, left) + (nxl - 1) * nz;
+#pragma unroll
+        for (int xi = 0; xi < XS; ++xi) {
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            const int i = x0 + xi, k = kl[s];
+            if (xi < xn && k < nz) {
+              const float p = sa[i * nz + k];
+              float pm;
+              if (i > 0) {
+                pm = sa[(i - 1) * nz + k];
+              } else {
+                pm = p_left[k];
+              }
+              Y.u[i * nz + k] -= dts * ((p - pm) * P.idx);
+              if (k > 0) Y.w[i * nw + k] -= dts * ((p - sa[i * nz + k - 1]) * P.idz);
+              if (last) p_out[e * nx * nz + (size_t)(x_off + i) * nz + k] = p;
+            }
+          }
+        }
+      }
+      const State2D t = X;
+      X = Y;
+      Y = t;
+    }
+  }
+  cluster_barrier();  // no CTA leaves while a neighbour may still read its shared memory
+
+  const size_t ec = e * (size_t)nx * nz + (size_t)x_off * nz;
+  const size_t ef = e * (size_t)nx * nw + (size_t)x_off * nw;
+  for (int q = threadIdx.x; q < nc; q += kK1Threads) {
+    u_out[ec + q] = X.u[q];
+    b_out[ec + q] = X.b[q];
+  }
+  for (int q = threadIdx.x; q < nf; q += kK1Threads) w_out[ef + q] = X.w[q];
+}
+
+// The cluster K1 instance for a grid's slab and a pass count: at float32
+// specialised for 64 and 96 columns of 64 levels a CTA (128x64 and 256x64;
+// 192x64), the runtime-size one for every other.
+decltype(&env_step_2d_cluster_kernel<0, 0>) env_step_cluster_kernel_for(int nxl, int nz,
+                                                                          int passes) {
+  if (passes == 3) return env_step_2d_cluster_kernel<0, 0, 3>;
+  if (passes == 1) return env_step_2d_cluster_kernel<0, 0, 1>;
+  if (nz == 64 && nxl == 64) return env_step_2d_cluster_kernel<64, 64>;
+  if (nz == 64 && nxl == 96) return env_step_2d_cluster_kernel<96, 64>;
+  return env_step_2d_cluster_kernel<0, 0>;
+}
+
 // ---- K2 -----------------------------------------------------------------------
 
 // Shared memory of K2's march, in floats: b, pHY', u (nx, nz), w (nx, nz + 1)
@@ -1129,12 +1792,36 @@ int launch_env_step_2d(const float* u, const float* w, const float* b,
                        int nx, int nz, int n_substeps, float dt, float dx, float dz, float nu,
                        float kappa, float min_b, int passes, void* stream) {
   const bool on_chip = env_step_2d_on_chip(nx, nz);
+  const int csize = env_step_2d_cluster_size(nx, nz);
   const size_t smem = sizeof(float) * env_step_2d_smem_floats(nx, nz);
   if (nx < kK1MinNx || nz < 1 || smem > kSmemPerBlock || n_substeps < 1 ||
-      (!on_chip && scratch == nullptr) || (passes != 0 && passes != 1 && passes != 3)) {
+      (!on_chip && csize == 0 && scratch == nullptr) ||
+      (passes != 0 && passes != 1 && passes != 3)) {
     return (int)cudaErrorInvalidValue;
   }
   const K1Params P = k1_params(nx, nz, n_substeps, dt, dx, dz, nu, kappa, min_b);
+  if (csize > 0) {  // the cluster instance: n_env clusters of csize CTAs
+    auto* kernel = env_step_cluster_kernel_for(nx / csize, nz, passes);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = (unsigned)csize;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3((unsigned)(n_env * csize));
+    config.blockDim = dim3(kK1Threads);
+    config.dynamicSmemBytes = smem;
+    config.stream = (cudaStream_t)stream;
+    config.attrs = cluster;
+    config.numAttrs = 1;
+    err = cudaLaunchKernelEx(&config, kernel, u, w, b, bottom, fmat, gmat, dct, idct, dinv, u_out,
+                             w_out, b_out, p_out, P, (int)env_step_2d_cluster_fg(nx, nz));
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
   if (!on_chip) {
     auto* global = env_step_global_kernel_for(passes);
     cudaError_t err =
@@ -1153,6 +1840,55 @@ int launch_env_step_2d(const float* u, const float* w, const float* b,
   kernel<<<n_env, kK1Threads, smem, (cudaStream_t)stream>>>(
       u, w, b, bottom, fmat, gmat, dct, idct, dinv, u_out, w_out, b_out, p_out, P);
   return (int)cudaGetLastError();
+}
+
+// What the card gives the K1 instance its launcher picks for a grid and a
+// pass count: out[0] the instance (0 on the chip, 1 the cluster, 2 off the
+// chip), out[1] CTAs a cluster (1 off a cluster), out[2] blocks resident on
+// an SM, out[3] clusters resident on the card at once
+// (cudaOccupancyMaxActiveClusters; 0 off a cluster), out[4] registers a
+// thread, out[5] local memory a thread (stack and spills), bytes, out[6]
+// dynamic shared memory a block, bytes.
+int env_step_2d_occupancy(int nx, int nz, int passes, int* out) {
+  const bool on_chip = env_step_2d_on_chip(nx, nz);
+  const int csize = env_step_2d_cluster_size(nx, nz);
+  const size_t smem = sizeof(float) * env_step_2d_smem_floats(nx, nz);
+  if (nx < kK1MinNx || nz < 1 || smem > kSmemPerBlock ||
+      (passes != 0 && passes != 1 && passes != 3)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const void* kernel = on_chip     ? (const void*)env_step_kernel_for(nx, nz, passes)
+                       : csize > 0 ? (const void*)env_step_cluster_kernel_for(nx / csize, nz,
+                                                                             passes)
+                                   : (const void*)env_step_global_kernel_for(passes);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0, clusters = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kK1Threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (csize > 0) {
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = (unsigned)csize;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3((unsigned)csize);
+    config.blockDim = dim3(kK1Threads);
+    config.dynamicSmemBytes = smem;
+    config.attrs = cluster;
+    config.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int rec[7] = {on_chip ? 0 : (csize > 0 ? 1 : 2), csize > 0 ? csize : 1, blocks, clusters,
+                      attr.numRegs, (int)attr.localSizeBytes, (int)smem};
+  for (int i = 0; i < 7; ++i) out[i] = rec[i];
+  return 0;
 }
 
 int launch_tendencies_2d(const float* u, const float* w, const float* b, const float* bottom,

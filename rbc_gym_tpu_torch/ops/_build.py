@@ -43,6 +43,11 @@ ARGTYPES = {
         _I,  # TF32 passes of the solve's products: 0 (float32), 1 or 3
         _P,  # stream
     ],
+    "env_step_2d_occupancy": [
+        _I, _I, _I,  # nx, nz, passes
+        _P,  # int out[7]: instance, CTAs a cluster, blocks an SM, clusters resident,
+             # registers, local bytes a thread, shared bytes a block
+    ],
     "launch_tendencies_2d": [
         _P, _P, _P, _P,  # u, w, b, bottom
         _P, _P, _P,  # gu, gw, gb

@@ -3,7 +3,9 @@
 ``env_step_2d`` replaces ``rbc_gym_tpu/ops/pallas2d.py:_env_step_kernel``
 (the whole env step; its float32 solve, and at ``precision`` "high" and
 "default" the kernel's split-product branch as TF32 tensor-core instances,
-counted on ``env_step_2d_tf32x3`` and ``env_step_2d_tf32``) and
+counted on ``env_step_2d_tf32x3`` and ``env_step_2d_tf32``; on the grids
+that take a thread-block cluster, ``limits.env_step_2d_cluster_size``, its
+cluster instance at every precision, counted on ``env_step_2d_cluster``) and
 ``tendencies_2d`` replaces ``_tendency_kernel``
 (one stage's gu, gw, gb; the Pallas kernel reads pHY', K2 takes b and
 computes pHY' itself). Both kernels are CUDA C++ in ``csrc/rbc2d.cu``;
@@ -23,6 +25,7 @@ kernel against its plain version on the same card.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, NamedTuple, Tuple
 
 import torch
@@ -281,7 +284,10 @@ def env_step_2d(
     the CUDA kernel for CUDA tensors, in the instance for ``precision``
     (``K1_PASSES``). Each instance counts its launches on its own wrapper:
     the float32 one here, the others on ``env_step_2d_tf32x3`` and
-    ``env_step_2d_tf32``."""
+    ``env_step_2d_tf32``, and the cluster instance (a grid the on-chip
+    instance cannot hold, on ``limits.env_step_2d_cluster_size`` CTAs) at
+    any precision on ``env_step_2d_cluster``. A launch the card refuses
+    raises, naming the instance; nothing falls back to another."""
     check_precision(precision)
     passes = K1_PASSES[precision]
     if u.device.type == "cpu":
@@ -295,6 +301,7 @@ def env_step_2d(
     )
     if n_substeps < 1:
         raise ValueError(f"n_substeps must be >= 1, got {n_substeps}")
+    cluster = limits.env_step_2d_cluster_size(nx, nz) > 0
     u_out, w_out, b_out, p_out = (torch.empty_like(t) for t in (u, w, b, u))
     scratch = torch.empty(e * limits.env_step_2d_scratch_floats(nx, nz), dtype=u.dtype,
                           device=u.device)
@@ -309,8 +316,9 @@ def env_step_2d(
             e, nx, nz, n_substeps, dt, c.dx, c.dz, c.nu, c.kappa, c.min_b, passes,
             torch.cuda.current_stream(u.device).cuda_stream,
         )
-    _raise_on(err, "env_step_2d")
-    K1_INSTANCES[passes].launches += 1
+    counter = env_step_2d_cluster if cluster else K1_INSTANCES[passes]
+    _raise_on(err, counter.__name__)
+    counter.launches += 1
     return u_out, w_out, b_out, p_out
 
 
@@ -326,8 +334,40 @@ def env_step_2d_tf32(u, w, b, bottom, spectral, c, dt, n_substeps):
     return env_step_2d(u, w, b, bottom, spectral, c, dt, n_substeps, "default")
 
 
+def env_step_2d_cluster(u, w, b, bottom, spectral, c, dt, n_substeps, precision=None):
+    """K1's cluster instance: ``env_step_2d`` on a grid that
+    ``limits.env_step_2d_cluster_size`` gives a cluster of CTAs (each
+    holding nx / c columns in the on-chip layout); raises ``ValueError``
+    on any other grid."""
+    nx, nz = u.shape[-2:]
+    if limits.env_step_2d_cluster_size(nx, nz) == 0:
+        raise ValueError(f"K1's cluster instance does not take {nx}x{nz}: "
+                         "limits.env_step_2d_cluster_size is 0 there")
+    return env_step_2d(u, w, b, bottom, spectral, c, dt, n_substeps, precision)
+
+
+def env_step_2d_occupancy(nx: int, nz: int, precision: str | None = None) -> dict:
+    """What the card gives the K1 instance ``env_step_2d`` launches on an
+    ``nx`` x ``nz`` grid at ``precision`` (the launcher's selection):
+    "instance" ("on_chip", "cluster" or "off_chip"), "cluster_ctas",
+    "blocks_per_sm", "max_active_clusters" (``cudaOccupancyMaxActiveClusters``
+    on the card; 0 off a cluster), "registers", "local_bytes" (stack and
+    spills a thread) and "shared_bytes" a block. Needs a card."""
+    check_precision(precision)
+    out = (ctypes.c_int * 7)()
+    _raise_on(_build.load_library().env_step_2d_occupancy(nx, nz, K1_PASSES[precision],
+                                                          ctypes.addressof(out)),
+              "env_step_2d_occupancy")
+    keys = ("instance", "cluster_ctas", "blocks_per_sm", "max_active_clusters", "registers",
+            "local_bytes", "shared_bytes")
+    rec = dict(zip(keys, out))
+    rec["instance"] = ("on_chip", "cluster", "off_chip")[rec["instance"]]
+    return rec
+
+
 env_step_2d.launches = 0
 env_step_2d_tf32x3.launches = 0
 env_step_2d_tf32.launches = 0
+env_step_2d_cluster.launches = 0
 # the wrapper that counts each instance's launches, by its passes
 K1_INSTANCES = {0: env_step_2d, 3: env_step_2d_tf32x3, 1: env_step_2d_tf32}

@@ -37,18 +37,58 @@ def env_step_2d_on_chip(nx: int, nz: int) -> bool:
             and _on_chip_smem_bytes(nx, nz) <= SMEM_PER_BLOCK)
 
 
+K1_MAX_CLUSTER = 8  # CTAs of K1's cluster instance: the portable cluster size (kK1MaxCluster)
+
+
+def env_step_2d_cluster_size(nx: int, nz: int) -> int:
+    """The CTAs of K1's cluster instance on a grid the on-chip instance
+    cannot hold (``env_step_2d_cluster_size`` in ``csrc/rbc2d.cu``): the
+    smallest c of 2, 4 and 8 that divides nx and whose slab of nx / c
+    columns the on-chip layout takes (at least 4 columns, at most 8 a warp,
+    2 <= nz <= 64, its shared memory in a block); 0 on the on-chip
+    instance's grids and where no c does (the off-chip instance's)."""
+    if env_step_2d_on_chip(nx, nz):
+        return 0
+    c = 2
+    while c <= K1_MAX_CLUSTER:
+        if (nx % c == 0 and 4 <= nx // c <= K1_MAX_NX and 2 <= nz <= K1_MAX_NZ
+                and _on_chip_smem_bytes(nx // c, nz) <= SMEM_PER_BLOCK):
+            return c
+        c *= 2
+    return 0
+
+
+def env_step_2d_cluster_fg(nx: int, nz: int) -> bool:
+    """Whether a CTA of K1's cluster instance also holds its rows of F and G
+    (2 (nx / c) nx floats) beside its state (``env_step_2d_cluster_fg``):
+    where they fit a block (128x64; not 192x64 or 256x64)."""
+    c = env_step_2d_cluster_size(nx, nz)
+    return bool(c) and _on_chip_smem_bytes(nx // c, nz) + 8 * (nx // c) * nx <= SMEM_PER_BLOCK
+
+
 def env_step_2d_smem_bytes(nx: int, nz: int) -> int:
     """K1's shared memory per block (``env_step_2d_smem_floats``), float32:
     on the chip two copies of u, b (nx, nz) and w (nx, nz + 1), two (nx, nz)
-    slabs, the z analysis and synthesis (nz, nz) and the bottom profile;
-    off it the two slabs alone."""
-    return _on_chip_smem_bytes(nx, nz) if env_step_2d_on_chip(nx, nz) else 8 * nx * nz
+    slabs, the z analysis and synthesis (nz, nz) and the bottom profile; on
+    a cluster of c CTAs the same over nx / c columns a CTA, and the CTA's
+    rows of F and G where they fit (``env_step_2d_cluster_fg``); off both
+    the two slabs alone."""
+    if env_step_2d_on_chip(nx, nz):
+        return _on_chip_smem_bytes(nx, nz)
+    c = env_step_2d_cluster_size(nx, nz)
+    if not c:
+        return 8 * nx * nz
+    return _on_chip_smem_bytes(nx // c, nz) + (8 * (nx // c) * nx
+                                               if env_step_2d_cluster_fg(nx, nz) else 0)
 
 
 def env_step_2d_scratch_floats(nx: int, nz: int) -> int:
     """K1's global scratch per env (``env_step_2d_scratch_floats``): none on
-    the chip; off it gu, gw, gb of this stage and the previous one, and pHY'."""
-    return 0 if env_step_2d_on_chip(nx, nz) else 5 * nx * nz + 2 * nx * (nz + 1)
+    the chip or a cluster; off both gu, gw, gb of this stage and the
+    previous one, and pHY'."""
+    if env_step_2d_on_chip(nx, nz) or env_step_2d_cluster_size(nx, nz):
+        return 0
+    return 5 * nx * nz + 2 * nx * (nz + 1)
 
 
 K2_SPECIALISED = (96, 64)  # (nx, nz) of K2's compile-time march instance

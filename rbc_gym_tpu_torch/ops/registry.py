@@ -26,6 +26,9 @@ KERNEL_WRAPPERS = {
     # precision "high" and "default" counts its launches on these
     "env_step_2d_tf32x3": kernels2d.env_step_2d_tf32x3,
     "env_step_2d_tf32": kernels2d.env_step_2d_tf32,
+    # K1's cluster instance: ``env_step_2d`` on the grids that
+    # ``limits.env_step_2d_cluster_size`` gives a cluster counts here
+    "env_step_2d_cluster": kernels2d.env_step_2d_cluster,
 }
 
 

@@ -1,52 +1,50 @@
 """Run a command as R ranks on this host.
 
-What torchrun does for one host, without its agent process: each rank
-gets torchrun's variables (``MASTER_ADDR``/``MASTER_PORT`` on a local
-port held for the ranks while they run, ``reserved_port``,
-``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``), so
-``parallel.initialize_distributed`` joins them.
-A rank that fails stops the others, and so does the time limit: no rank
-is left waiting in a collective.
+What torchrun does for one host: each rank gets torchrun's variables
+(``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
+``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``), so ``parallel.initialize_distributed``
+joins them, and, as torchrun's agent does, this process hosts the ranks'
+rendezvous store: a ``TCPStore`` listening on a port the host hands out
+(port 0) before any rank starts, which every rank joins as a client
+(``TORCHELASTIC_USE_AGENT_STORE=True``). No port is picked ahead and
+released, so no other process on the host can take the ranks' port while
+they start. A rank that fails stops the others, and so does the time
+limit: no rank is left waiting in a collective.
 """
 
 from __future__ import annotations
 
 import contextlib
+import datetime
 import os
 import signal
-import socket
 import subprocess
 import tempfile
 import time
 from typing import Dict, List, Optional, Sequence
 
 
-@contextlib.contextmanager
-def reserved_port():
-    """Yield a local TCP port that stays reserved for the ranks inside: a
-    socket holds it bound with ``SO_REUSEADDR`` and does not listen, so
-    no other socket on the host is given it (a bind to port 0 passes it
-    over, a plain bind to it is refused) while rank 0's ``TCPStore``, which
-    binds with ``SO_REUSEADDR`` too, can listen on it. A port that was
-    free when it was picked and released before rank 0 bound it could be
-    taken in between by another process on the host, failing rank 0's
-    bind or handing rank 1 to another process's listener."""
-    with socket.socket() as s:
-        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        s.bind(("localhost", 0))
-        yield s.getsockname()[1]
+def rendezvous_store(timeout: float):
+    """A ``TCPStore`` server of this process on a port the host picks,
+    listening once this returns; its ``.port`` is the ranks' ``MASTER_PORT``."""
+    from torch.distributed import TCPStore
+
+    return TCPStore("localhost", 0, is_master=True, wait_for_workers=False,
+                    timeout=datetime.timedelta(seconds=timeout))
 
 
 def run_ranks(argv: Sequence[str], nproc: int, env: Optional[Dict[str, str]] = None,
               timeout: float = 600.0, cwd=None) -> List[str]:
     """Run ``argv`` as ``nproc`` ranks, each in a session of its own, with
-    ``env`` over this process's environment; returns each rank's output
-    (standard output and error). If a rank exits non-zero or the ranks
-    outlast ``timeout`` seconds, every rank still running is killed with
-    its session and this raises with the tail of each rank's output."""
+    ``env`` over this process's environment, joined through this process's
+    store (``rendezvous_store``); returns each rank's output (standard
+    output and error). If a rank exits non-zero or the ranks outlast
+    ``timeout`` seconds, every rank still running is killed with its
+    session and this raises with the tail of each rank's output."""
+    store = rendezvous_store(timeout)
     with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
         common = {**os.environ, **(env or {}), "MASTER_ADDR": "localhost",
-                  "MASTER_PORT": str(stack.enter_context(reserved_port())),
+                  "MASTER_PORT": str(store.port), "TORCHELASTIC_USE_AGENT_STORE": "True",
                   "WORLD_SIZE": str(nproc), "LOCAL_WORLD_SIZE": str(nproc)}
         logs = [stack.enter_context(open(os.path.join(tmp, f"rank{r}.log"), "w+"))
                 for r in range(nproc)]
@@ -72,6 +70,7 @@ def run_ranks(argv: Sequence[str], nproc: int, env: Optional[Dict[str, str]] = N
         for log in logs:
             log.seek(0)
             outputs.append(log.read())
+    del store
     failed = [r for r, p in enumerate(procs) if p.returncode != 0]
     if failed or timed_out:
         why = f"timed out after {timeout} s" if timed_out else f"rank(s) {failed} failed"

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the stage kernels of several source trees on one CUDA card.
 
-    python3 scripts/kernel_variants.py [--kernels k1,k2,k3,k3qp,k5_training,k5,k6,k7,field_step]
+    python3 scripts/kernel_variants.py [--kernels k1,k1c,k2,k3,k3qp,k5_training,k5,k6,k7,field_step]
         TREE [TREE ...]
 
 Each TREE is a checkout of this repo (for example a ``git archive`` of a
@@ -19,6 +19,12 @@ gates:
   substeps; its gates (6 substeps at 128 envs, 50 at 1024 envs) and a
   50-substep step at 64 envs against a float64 plain run, beside the
   float32 plain version's own error;
+- ``k1c``: K1 off the chip at 1024 envs on 128x64 and 192x64 (its
+  cluster instance where the tree has one, else its off-chip instance),
+  one env step of 50 substeps, its "high" and "default" instances on
+  128x64 too, with float32 K1 on 96x64 timed first and last; the gates at
+  6 substeps and 128 envs on both grids (and at "high" and "default" on
+  128x64), and where the tree has it ``env_step_2d_occupancy``;
 - ``k2``: K2 (``tendencies_2d``) at 1024 envs on 96x64, 128x64 and 96x80
   (in this tree's design: the specialised and runtime march and the general
   instance), with its share of its own bound and of the Pallas kernel's;
@@ -97,6 +103,46 @@ def k1():
     rec["float64_50_substeps_vs"] = {
         "kernel": cs.abs_diffs(cs.K1_OUT, ref, cs.k1_run(s32, c32, True)),
         "plain_float32": cs.abs_diffs(cs.K1_OUT, ref, cs.k1_run(s32, c32, False))}
+    return rec, errs
+
+
+def k1c():
+    # K1 off the chip: 128x64 and 192x64 (the cluster instance where the
+    # tree has one, else the off-chip instance), float32 K1 on 96x64 timed
+    # first and last in the same process
+    from rbc_gym_tpu_torch.ops import kernels2d as k2d, limits
+
+    def k1_ms(shape, reps=3, prec=None):
+        solver, case = cs.make_case(device, 1024, shape, 1.5, seed=2)
+        ms = cs._cuda_ms(lambda: cs.k1_run(solver, case, True, prec), reps)
+        del case
+        torch.cuda.empty_cache()
+        return solver, ms
+
+    rec, errs = {"k1_96x64_first_ms": k1_ms((64, 96))[1]}, {}
+    for shape in ((64, 128), (64, 192)):
+        nz, nx = shape
+        solver, ms = k1_ms(shape)
+        bound_ms, by = cs.bound(cs.env_step_work(1024, nx, nz, solver.params.substeps_per_env_step))
+        c = getattr(limits, "env_step_2d_cluster_size", lambda *_: 0)(nx, nz)
+        r = {"instance": f"cluster {c}" if c else "off_chip", "ms": ms, "bound_ms": bound_ms,
+             "bound_by": by, "share_of_bound": bound_ms / ms}
+        if hasattr(k2d, "env_step_2d_occupancy"):
+            r["occupancy"] = k2d.env_step_2d_occupancy(nx, nz)
+        s6, c6 = cs.make_case(device, 128, shape, 0.18, seed=4)
+        errs[f"{nx}x{nz}_6"] = (max(cs.abs_diffs(cs.K1_OUT, cs.k1_run(s6, c6, True),
+                                                 cs.k1_run(s6, c6, False)).values()), cs.K1_ATOL)
+        if shape == (64, 128):  # the TF32 instances there
+            errs[f"{nx}x{nz}_6_bf16x3"] = (max(cs.abs_diffs(
+                cs.K1_OUT, cs.k1_run(s6, c6, True, "high"),
+                cs.k1_run(s6, c6, False, "high")).values()), cs.K1_ATOL)
+            one = cs.k1_tf32_errors(s6, c6, cs.k1_run(s6, c6, True, "default"))
+            errs[f"{nx}x{nz}_6_default"] = (one["kernel"], one["bound"])
+            for prec in ("high", "default"):
+                r[f"ms_{prec}"] = k1_ms(shape, 3, prec)[1]
+        rec[f"{nx}x{nz}"] = r
+        del c6
+    rec["k1_96x64_last_ms"] = k1_ms((64, 96))[1]
     return rec, errs
 
 
@@ -252,6 +298,7 @@ def field_step():
 
 RUNS = {
     "k1": k1,
+    "k1c": k1c,
     "k2": k2,
     "k3": lambda: stage(k3d.stage_rk_3d, (16, 32, 32), 0.01, 32, 20),
     "k3qp": k3qp,
@@ -275,11 +322,12 @@ PTXAS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptx
          "-c", "-o", os.devnull)
 # kernel entries whose resource lines are kept, and the instances whose SASS
 # is counted: names (mangled) holding one of these, the specialised
-# instances of K1 and K2 (96x64), K3 and K6 (16x32x32), K5 (nz = 32) and K7
-# (nz = 16)
+# instances of K1 and K2 (96x64), K1's cluster instance (64x64 a CTA), K3
+# and K6 (16x32x32), K5 (nz = 32) and K7 (nz = 16)
 ENTRIES = ("env_step_2d", "tendencies_2d", "stage_march", "stage_rk_3d", "field_tendency",
            "div_3d")
-SASS_INSTANCES = ("env_step_2d_kernelILi96ELi64E", "tendencies_2d_march_kernelILi96ELi64E",
+SASS_INSTANCES = ("env_step_2d_kernelILi96ELi64E", "env_step_2d_cluster_kernelILi64ELi64E",
+                  "tendencies_2d_march_kernelILi96ELi64E",
                   "stage_march_kernelILi16ELi32E", "stage_march_kernelILi32ELin1E",
                   "div_3d_kernelILi16E")
 

@@ -1,6 +1,7 @@
-"""Float32 K1's off-chip instance (the grids whose state does not fit a
-block's shared memory, or whose columns K1's on-chip layout cannot take),
-compiled for the host and held against the plain version on the CPU
+"""Float32 K1's off-chip instance (the grids that neither the on-chip
+instance nor a cluster of 2, 4 or 8 CTAs takes; forced here on every case,
+so that 128x64 and 200x20 keep it), compiled for the host and held
+against the plain version on the CPU
 (``torch_kernels2d_host``)."""
 
 import pytest
@@ -17,12 +18,15 @@ from torch_kernels2d_host import check_k1, host_binary  # noqa: F401 (host_binar
 ])
 def test_host_build_of_k1_matches_plain(host_binary, tmp_path, n_env, nx, nz):
     """K1 after 6 substeps (heater_duration 0.18) against
-    ``env_step_2d_plain`` at the smoke's gate."""
-    check_k1(host_binary, tmp_path, n_env, nx, nz, 0.18, None)
+    ``env_step_2d_plain`` at the smoke's gate, forced onto the off-chip
+    instance (the launcher gives 128x64 and 200x20 its cluster instance)."""
+    check_k1(host_binary, tmp_path, n_env, nx, nz, 0.18, None, force_global=True,
+             instance="global 1")
 
 
 def test_host_build_of_k1_off_the_chip_on_a_tall_grid(host_binary, tmp_path):
     """The off-chip instance at 128x224 (its two slabs 229,376 bytes, seven
     chunks of 32 levels in pHY'), 6 substeps at a dt_solver that keeps the
     explicit diffusion stable at dz = 2 / 224."""
-    check_k1(host_binary, tmp_path, 1, 128, 224, 0.012, 0.002)
+    check_k1(host_binary, tmp_path, 1, 128, 224, 0.012, 0.002, force_global=True,
+             instance="global 1")

@@ -4,6 +4,8 @@ precision on the CPU (``torch_kernels2d_host``)."""
 
 import pytest
 
+from rbc_gym_tpu_torch.ops import limits
+
 from torch_kernels2d_host import check_k1, host_binary  # noqa: F401 (host_binary: a fixture)
 
 
@@ -11,7 +13,7 @@ from torch_kernels2d_host import check_k1, host_binary  # noqa: F401 (host_binar
 @pytest.mark.parametrize("n_env,nx,nz", [
     (1, 96, 64),  # the reference grid: the compile-time instance, tile-exact, swizzled
     (1, 20, 12),  # the runtime instance: partial tiles in m, n and k, plain slabs
-    (1, 128, 64),  # the off-chip instance
+    (1, 128, 64),  # the off-chip instance (forced: the launcher gives it a cluster)
     (1, 3, 8),  # the fewest columns: one partial tile, 3 of 8 deep in F and G
     (1, 16, 1),  # one level: the z products 1 deep
 ])
@@ -24,4 +26,5 @@ def test_host_build_of_k1_tf32_instances_match_plain(host_binary, tmp_path, n_en
     gates for 6 substeps (``chip_smoke.k1_tf32_errors``). Each emulated
     mma meets its warp twice, so a substep here costs several times one of
     float32 K1."""
-    check_k1(host_binary, tmp_path, n_env, nx, nz, 0.06, None, precision, n_sub=2)
+    check_k1(host_binary, tmp_path, n_env, nx, nz, 0.06, None, precision, n_sub=2,
+             force_global=not limits.env_step_2d_on_chip(nx, nz))

@@ -206,7 +206,8 @@ def test_callbacks_write_nothing_off_rank_0(tmp_path):
 
 
 RESERVED_PORT_CHECK = """
-import errno, os, socket
+import datetime, errno, os, socket
+from torch.distributed import TCPStore
 port = int(os.environ["MASTER_PORT"])
 with socket.socket() as s:  # a plain bind, as another process on the host would make
     try:
@@ -218,21 +219,46 @@ for _ in range(200):  # the ports the host hands out are never it
     with socket.socket() as s:
         s.bind(("localhost", 0))
         assert s.getsockname()[1] != port
-if os.environ["RANK"] == "0":  # rank 0's TCPStore listens on it with SO_REUSEADDR
-    with socket.socket() as s:
-        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        s.bind(("localhost", port))
-        s.listen()
+assert os.environ["TORCHELASTIC_USE_AGENT_STORE"] == "True"
+# every rank is a client of the launcher's store on that port
+store = TCPStore("localhost", port, is_master=False, timeout=datetime.timedelta(seconds=60))
+store.set(f"rank{os.environ['RANK']}", "here")
+store.wait(["rank0", "rank1"])
 """
 
 
 def test_run_ranks_holds_the_ranks_port_while_they_run():
-    """The port ``run_ranks`` gives its ranks stays reserved for them
-    (``parallel.launch.reserved_port``): another process can neither bind
-    it nor be handed it while they run, and rank 0 can listen on it. A
-    port picked free and released before rank 0 bound it could be taken
-    in between by another test's process, failing rank 0's bind with
-    EADDRINUSE (the fixture of ``test_torch_parallel_env.py`` failed in a
-    run of the suite on six workers)."""
-    outputs = run_ranks([sys.executable, "-c", RESERVED_PORT_CHECK], 2, timeout=120)
+    """The port ``run_ranks`` gives its ranks is its own store's
+    (``parallel.launch.rendezvous_store``), listening before they start:
+    another process can neither bind it nor be handed it while they run,
+    and each rank joins the store as a client, as under torchrun's agent."""
+    # (c10d warns where the host's name cannot be looked up: not this test's concern)
+    outputs = run_ranks([sys.executable, "-c", RESERVED_PORT_CHECK], 2, timeout=120,
+                        env={"TORCH_CPP_LOG_LEVEL": "ERROR"})
+    assert outputs == ["", ""]
+
+
+REUSING_LISTENER_CHECK = """
+import errno, os, socket
+port = int(os.environ["MASTER_PORT"])
+with socket.socket() as s:  # another job's TCPStore: SO_REUSEADDR, then listen
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    try:
+        s.bind(("localhost", port))
+        s.listen()
+        raise SystemExit("another process's store could listen on the ranks' port")
+    except OSError as e:
+        assert e.errno == errno.EADDRINUSE, e
+"""
+
+
+def test_run_ranks_port_cannot_be_taken_by_another_store():
+    """No other process can listen on the ranks' port while they run, not
+    even one binding with SO_REUSEADDR as a ``TCPStore`` or torchrun's
+    agent does. A port held by a socket that is bound but not listening
+    (the launcher before this test) lets such a process bind and listen on
+    it: then rank 0's store fails to listen (EADDRINUSE), or a rank joins
+    the other job's store; the fixture of ``test_torch_parallel_env.py``
+    failed under six test workers, one of them running torchrun."""
+    outputs = run_ranks([sys.executable, "-c", REUSING_LISTENER_CHECK], 2, timeout=120)
     assert outputs == ["", ""]

@@ -182,11 +182,11 @@ def test_solver3d_exposes_its_path_and_runs_it():
     (F32, 96, 64, "cuda", "fused"),  # K1 on the chip: 230,528 bytes
     (F32, 128, 16, "cuda", "fused"),  # on the chip: 8 columns a warp, one level a lane
     (F32, 128, 224, "cuda", "fused"),  # off the chip: two slabs, 229,376 bytes
-    (F32, 128, 64, "cuda", "fused"),  # off the chip: the on-chip state does not fit
-    (F32, 256, 32, "cuda", "fused"),  # off the chip: nx > 128
+    (F32, 128, 64, "cuda", "fused"),  # a cluster of two: the on-chip state does not fit
+    (F32, 256, 32, "cuda", "fused"),  # a cluster of two: nx > 128
     (F32, 64, 128, "cuda", "fused"),  # off the chip: nz > 64
     (F32, 96, 65, "cuda", "fused"),
-    (F32, 132, 16, "cuda", "fused"),
+    (F32, 132, 16, "cuda", "fused"),  # a cluster of two
     (F32, 3, 8, "cuda", "fused"),  # the fewest columns the x stencils take
     (F32, 8, 1, "cuda", "fused"),
     (F64, 96, 64, "cuda", "plain"),
@@ -205,10 +205,19 @@ def test_2d_auto_selection(dtype, nx, nz, device_type, want):
 ])
 def test_2d_kernel_instance(nx, nz, on_chip):
     """Which instance of K1 takes a grid: on the chip within its lane map
-    and shared memory, off it (the two slabs alone) elsewhere."""
+    and shared memory; else a thread-block cluster where 2, 4 or 8 CTAs of
+    the on-chip layout take nx (``CLUSTERS``); off the chip (the two slabs
+    alone, the rest in global scratch) elsewhere."""
     assert limits.env_step_2d_on_chip(nx, nz) == on_chip
-    assert limits.env_step_2d_scratch_floats(nx, nz) == (0 if on_chip else
+    c = limits.env_step_2d_cluster_size(nx, nz)
+    assert c == CLUSTERS.get((nx, nz), 0)
+    assert limits.env_step_2d_scratch_floats(nx, nz) == (0 if on_chip or c else
                                                          5 * nx * nz + 2 * nx * (nz + 1))
+
+
+# the grids of test_2d_kernel_instance that K1's cluster instance takes, and
+# its CTAs a cluster
+CLUSTERS = {(128, 64): 2, (256, 32): 2, (132, 16): 2}
 
 
 @pytest.mark.parametrize("nx,nz,instance", [
@@ -288,7 +297,9 @@ def test_2d_forced_selection():
         with pytest.raises(ValueError, match="unknown fused"):
             s2.select_env_step_path(F32, 96, 64, device_type, "stage")
     assert limits.env_step_2d_smem_bytes(96, 64) == 230_528
-    assert limits.env_step_2d_smem_bytes(128, 64) == 65_536  # off the chip: 8 nx nz
+    # a CTA of two: 64 columns and its rows of F and G
+    assert limits.env_step_2d_smem_bytes(128, 64) == 230_144
+    assert limits.env_step_2d_smem_bytes(128, 224) == 229_376  # off the chip: 8 nx nz
 
 
 def test_solver2d_exposes_its_path_and_runs_it():

@@ -75,17 +75,59 @@ static void run_blocks(int E, const std::function<void()>& body) {
     block_barrier = nullptr;
   }
 }
+// every env's cluster of c CTAs, one env after another, its c x kK1Threads
+// host threads running together: each CTA with its own shared memory and
+// barriers, all meeting at the cluster's barrier
+static void run_clusters(int E, int c, const std::function<void()>& body) {
+  blockDim.x = kK1Threads;
+  host_cluster_ctas = c;
+  std::vector<std::unique_ptr<float[]>> mem;
+  for (int r = 0; r < c; ++r) {
+    mem.push_back(std::make_unique<float[]>(1 << 16));
+    host_cluster_smem[r] = mem.back().get();
+  }
+  for (unsigned e = 0; e < (unsigned)E; ++e) {
+    blockIdx.x = e * c;  // the kernel's env is blockIdx.x / c, its CTA host_cta
+    std::barrier<> cluster(c * kK1Threads);
+    host_cluster_barrier = &cluster;
+    std::vector<std::unique_ptr<std::barrier<>>> ctas, warps;
+    for (int r = 0; r < c; ++r) {
+      ctas.push_back(std::make_unique<std::barrier<>>(kK1Threads));
+      for (int v = 0; v < kK1Warps; ++v) {
+        warps.push_back(std::make_unique<std::barrier<>>(32));
+        warp_barriers[r * 32 + v] = warps.back().get();
+      }
+    }
+    std::vector<std::thread> threads;
+    for (int r = 0; r < c; ++r) {
+      for (int t = 0; t < kK1Threads; ++t) {
+        threads.emplace_back([&, r, t] {
+          threadIdx.x = t;
+          host_cta = r;
+          cta_barrier = ctas[r].get();
+          host_cta_smem = host_cluster_smem[r];
+          body();
+        });
+      }
+    }
+    for (auto& th : threads) th.join();
+  }
+  host_cluster_barrier = nullptr;
+  host_cluster_ctas = 1;
+}
 int main(int argc, char** argv) {
   const std::string mode = argv[1];
-  if (mode == "smem") {  // smem NX NZ: K1's shared and scratch floats and instance, K2's
+  if (mode == "smem") {  // smem NX NZ: K1's shared and scratch floats and instance, K2's,
+                         // K1's cluster size and whether its CTAs hold F and G
     const int nx = atoi(argv[2]), nz = atoi(argv[3]);
-    printf("%zu %zu %d %zu %zu %d\n", env_step_2d_smem_floats(nx, nz),
+    printf("%zu %zu %d %zu %zu %d %d %d\n", env_step_2d_smem_floats(nx, nz),
            env_step_2d_scratch_floats(nx, nz), (int)env_step_2d_on_chip(nx, nz),
            tendencies_2d_smem_floats(nx, nz), tendencies_2d_scratch_floats(nx, nz),
-           (int)tendencies_on_march(nx, nz));
+           (int)tendencies_on_march(nx, nz), env_step_2d_cluster_size(nx, nz),
+           (int)env_step_2d_cluster_fg(nx, nz));
     return 0;
   }
-  // k1|k2 DIR E NX NZ NSUB DT DX DZ NU KAPPA MIN_B [PASSES]
+  // k1|k2 DIR E NX NZ NSUB DT DX DZ NU KAPPA MIN_B [PASSES [global]]
   dir = argv[2];
   const int E = atoi(argv[3]), nx = atoi(argv[4]), nz = atoi(argv[5]), nsub = atoi(argv[6]);
   const float dt = atof(argv[7]), dx = atof(argv[8]), dz = atof(argv[9]), nu = atof(argv[10]),
@@ -117,22 +159,37 @@ int main(int argc, char** argv) {
                                std::vector<float>(C), std::vector<float>(C)};
   const K1Params P = k1_params(nx, nz, nsub, dt, dx, dz, nu, kappa, min_b);
   const RBCParams R{nx, nz, dx, dz, nu, kappa, min_b};
-  const int passes = argc > 13 ? atoi(argv[13]) : 0;  // as launch_env_step_2d
-  const bool on_chip = env_step_2d_on_chip(nx, nz);
-  auto* kernel = env_step_kernel_for(nx, nz, passes);
-  auto* global = env_step_global_kernel_for(passes);
-  std::vector<float> scratch(E * env_step_2d_scratch_floats(nx, nz), NAN);
-  run_blocks(E, [&] {
-    if (on_chip)
+  // as launch_env_step_2d, unless "global" forces the off-chip instance
+  const int passes = argc > 13 ? atoi(argv[13]) : 0;
+  const bool forced = argc > 14 && std::string(argv[14]) == "global";
+  const bool on_chip = !forced && env_step_2d_on_chip(nx, nz);
+  const int csize = forced ? 0 : env_step_2d_cluster_size(nx, nz);
+  if (on_chip) {
+    auto* kernel = env_step_kernel_for(nx, nz, passes);
+    run_blocks(E, [&] {
       kernel(u.data(), w.data(), b.data(), bottom.data(), f.data(), g.data(), dct.data(),
              idct.data(), dinv.data(), out[0].data(), out[1].data(), out[2].data(),
              out[3].data(), P);
-    else
+    });
+  } else if (csize > 0) {
+    auto* kernel = env_step_cluster_kernel_for(nx / csize, nz, passes);
+    const int fg = env_step_2d_cluster_fg(nx, nz);
+    run_clusters(E, csize, [&] {
+      kernel(u.data(), w.data(), b.data(), bottom.data(), f.data(), g.data(), dct.data(),
+             idct.data(), dinv.data(), out[0].data(), out[1].data(), out[2].data(),
+             out[3].data(), P, fg);
+    });
+  } else {
+    auto* global = env_step_global_kernel_for(passes);
+    std::vector<float> scratch(E * (5 * (size_t)nx * nz + 2 * (size_t)nx * (nz + 1)), NAN);
+    run_blocks(E, [&] {
       global(u.data(), w.data(), b.data(), bottom.data(), f.data(), g.data(), dct.data(),
              idct.data(), dinv.data(), out[0].data(), out[1].data(), out[2].data(),
              out[3].data(), scratch.data(), P, R);
-  });
+    });
+  }
   wr("u_out", out[0]); wr("w_out", out[1]); wr("b_out", out[2]); wr("p_out", out[3]);
+  printf("%s %d\n", on_chip ? "on_chip" : csize > 0 ? "cluster" : "global", csize > 0 ? csize : 1);
   return 0;
 }
 """
@@ -154,11 +211,12 @@ def host_binary(tmp_path_factory):
 
 
 def run_case(host_binary, tmp_path, mode, n_env, nx, nz, heater_duration, seed,
-             dt_solver=None, precision=None):
+             dt_solver=None, precision=None, force_global=False):
     """Write a float32 case (``chip_smoke.make_case``) and the solve's
     constants, run ``mode`` on the host (K1 in the instance for
-    ``precision``) -> (solver, case, what the host program printed); the
-    outputs are files in ``tmp_path``."""
+    ``precision``, its off-chip one with ``force_global``) -> (solver,
+    case, what the host program printed: for K1 the instance that ran and
+    its CTAs a cluster); the outputs are files in ``tmp_path``."""
     solver, case = chip_smoke.make_case("cpu", n_env, (nz, nx), heater_duration, seed=seed,
                                         dtype=torch.float32, dt_solver=dt_solver)
     for name, t in {**case, **solver.spectral._asdict()}.items():
@@ -166,7 +224,7 @@ def run_case(host_binary, tmp_path, mode, n_env, nx, nz, heater_duration, seed,
     c, p = solver.coeffs, solver.params
     args = [mode, f"{tmp_path}/", *map(str, (n_env, nx, nz, p.substeps_per_env_step)),
             *(repr(float(x)) for x in (p.dt_solver, c.dx, c.dz, c.nu, c.kappa, c.min_b)),
-            str(k2.K1_PASSES[precision])]
+            str(k2.K1_PASSES[precision]), *(["global"] if force_global else [])]
     out = subprocess.run([str(host_binary), *args], check=True, capture_output=True, text=True)
     return solver, case, out.stdout.strip()
 
@@ -190,10 +248,15 @@ _MATMUL = poisson.matmul
 
 
 def check_k1(host_binary, tmp_path, n_env, nx, nz, heater_duration, dt_solver,
-              precision=None, n_sub=6):
-    solver, case, _ = run_case(host_binary, tmp_path, "k1", n_env, nx, nz, heater_duration,
-                               seed=0, dt_solver=dt_solver, precision=precision)
+              precision=None, n_sub=6, force_global=False, instance=None):
+    """K1 on the host against ``env_step_2d_plain`` at the smoke's gate;
+    ``instance`` (e.g. "cluster 2"), if given, is what the host program
+    says ran."""
+    solver, case, ran = run_case(host_binary, tmp_path, "k1", n_env, nx, nz, heater_duration,
+                                 seed=0, dt_solver=dt_solver, precision=precision,
+                                 force_global=force_global)
     assert solver.params.substeps_per_env_step == n_sub
+    assert instance is None or ran == instance, ran
 
     def plain(c, matmul=_MATMUL):
         with mock.patch.object(poisson, "matmul", matmul):
