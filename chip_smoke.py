@@ -3527,9 +3527,11 @@ def poisson_precision_2d(device, num_envs=1024, state_shape=(64, 96), observatio
     ``utils.parity.fused_parity_2d(poisson_precision="bf16x3")`` (on the
     card; its refusal of the CPU elsewhere); the Ra=1e4 bank's fixed point
     through the split instance (``fixed_point``, ``n_fixed`` episodes,
-    ``fixed_steps`` steps); both TF32 flags off afterwards; and CUDA-event
-    times of each instance at the main path's 50 substeps beside float32 K1
-    (timed first and last), with the plain versions and the bounds."""
+    ``fixed_steps`` steps); both TF32 flags off afterwards; and, on the
+    card, each instance's ``env_step_2d_occupancy`` on ``state_shape`` (at
+    96x64 the TF32 instances run their solve on wgmma) and CUDA-event times
+    of each at the main path's 50 substeps beside float32 K1 (timed first
+    and last), with the plain versions and the bounds."""
     begin = time.perf_counter()
     device = torch.device(device)
     dtype = torch.float32  # the precisions act in float32 only
@@ -3631,11 +3633,14 @@ def poisson_precision_2d(device, num_envs=1024, state_shape=(64, 96), observatio
                              f"by field against plain: {vs_plain}; against float64: "
                              f"{vs_float64}")
 
-    times = {}
+    times, occupancy = {}, {}
     if device.type == "cuda":
+        nz, nx = state_shape
+        # what the card gives the instances: registers, local and shared bytes
+        occupancy = {wrapper: k2d.env_step_2d_occupancy(nx, nz, prec)
+                     for wrapper, prec in K1_INSTANCES_2D.values()}
         solver, case = make_case(device, num_envs, state_shape, heater_duration=1.5, seed=2,
                                  dtype=dtype)
-        nz, nx = state_shape
         n_sub = solver.params.substeps_per_env_step
         order = ("highest", "bf16x3", "default", "highest")
         for i, name in enumerate(order):
@@ -3656,7 +3661,7 @@ def poisson_precision_2d(device, num_envs=1024, state_shape=(64, 96), observatio
             "vs_plain_by_field": vs_plain, "vs_float64": vs_float64, "other_instances": others,
             "launches": launches, "checks": checks, "substep_bf16x3_vs_highest": substep_diff,
             "fixed_point_bf16x3": fixed, "tf32_flags": tf32, "times": times,
-            "seconds": time.perf_counter() - begin}
+            "occupancy": occupancy, "seconds": time.perf_counter() - begin}
 
 
 # ---------------------------------------------------------------------------

@@ -26,14 +26,27 @@
 //   shuffle slots (a thread knows its CTA by `host_cta`): cluster_map
 //   takes an address in the thread's CTA to the same offset in another
 //   CTA's buffer, and cluster_barrier is one std::barrier of all c x 512
-//   threads.
+//   threads;
+// - K1's wgmma instances (96x64 at 1 and 3 TF32 passes): a warpgroup's
+//   m64n24k8 wgmma is collective over its 128 host threads like the mma
+//   above, meeting at the warpgroup's own std::barrier (warpgroup_barrier
+//   is that barrier too): each thread posts its A fragment, B is read from
+//   the shared memory the descriptor names (its start, leading and stride
+//   byte offsets decoded, relative to host_smem_base), and each thread sums
+//   its twelve results; the wgmma's fence, commit and wait are empty, since
+//   it completes as it is issued. A bulk copy lands at once (a memcpy by its
+//   issuing thread) and then completes its mbarrier's phase, a counter the
+//   waiting threads spin on.
 #pragma once
 #define RBC_HOST_BUILD 1
 #include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+#include <cstdlib>
 #include <cstring>
+#include <thread>
 using std::max;
 using std::min;
 #define __global__
@@ -147,6 +160,58 @@ inline void mma_tf32(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[
       sum += mma_slots[base + 4 * (m % 8) + k % 4][(m >= 8) + 2 * (k >= 4)] *
              mma_slots[base + 4 * n + k % 4][4 + (k >= 4)];
     d[i] = sum;
+  }
+  bar.arrive_and_wait();
+}
+// the on-chip K1 block's shared memory, against which shared addresses are
+// taken, and each warpgroup's barrier
+inline float* host_smem_base = nullptr;
+inline std::barrier<>* wg_barriers[4];
+inline unsigned smem_u32(const void* p) {
+  return (unsigned)((const char*)p - (const char*)host_smem_base);
+}
+inline void warpgroup_barrier() { wg_barriers[threadIdx.x / 128]->arrive_and_wait(); }
+inline void wgmma_fence() {}
+inline void wgmma_commit() {}
+template <int N>
+inline void wgmma_wait() {}
+inline void fence_operand(float&) {}
+inline void fence_proxy_async() {}
+inline void fence_mbar_init() {}
+inline void mbar_init(uint64_t* bar, unsigned) { __atomic_store_n(bar, 0, __ATOMIC_SEQ_CST); }
+inline void bulk_copy_g2s(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  std::memcpy(dst, src, bytes);
+  __atomic_fetch_add(bar, 1, __ATOMIC_SEQ_CST);  // the phase completes
+}
+// the phase of this parity has completed when the count of completed
+// phases has the other parity
+inline void mbar_wait(uint64_t* bar, unsigned parity) {
+  while ((__atomic_load_n(bar, __ATOMIC_SEQ_CST) & 1u) == parity) std::this_thread::yield();
+}
+inline float wgmma_slots[1024][4];  // each thread's a0..a3
+inline void wgmma_m64n24k8(float (&d)[12], const unsigned (&a)[4], uint64_t desc) {
+  std::barrier<>& bar = *wg_barriers[threadIdx.x / 128];
+  for (int i = 0; i < 4; ++i) wgmma_slots[threadIdx.x][i] = __uint_as_float(a[i]);
+  bar.arrive_and_wait();
+  if (desc >> 46 != 0) std::abort();  // no swizzle, no base offset
+  const unsigned base = threadIdx.x - threadIdx.x % 128, w = threadIdx.x % 128 / 32,
+                 g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const unsigned start = (desc & 0x3fffu) << 4, lbo = ((desc >> 16) & 0x3fffu) << 4,
+                 sbo = ((desc >> 32) & 0x3fffu) << 4;
+  const char* sm = (const char*)host_smem_base;
+  // A[m][k] is thread 32 (m / 16) + 4 (m % 8) + k % 4's a[(m % 16 >= 8) + 2 (k >= 4)];
+  // B[k][n] is at core matrix (n / 8, k / 4), row n % 8, column k % 4
+  for (int v = 0; v < 12; ++v) {
+    const unsigned m = 16 * w + g + 8 * ((v >> 1) & 1), n = 8 * (v >> 2) + 2 * t + (v & 1);
+    float sum = d[v];
+    for (unsigned k = 0; k < 8; ++k) {
+      float b;
+      std::memcpy(&b, sm + start + n / 8 * sbo + k / 4 * lbo + n % 8 * 16 + k % 4 * 4, 4);
+      const float a_mk = wgmma_slots[base + 32 * (m / 16) + 4 * (m % 8) + k % 4]
+                                    [(m % 16 >= 8) + 2 * (k >= 4)];
+      sum += a_mk * b;
+    }
+    d[v] = sum;
   }
   bar.arrive_and_wait();
 }

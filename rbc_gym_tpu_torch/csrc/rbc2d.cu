@@ -121,6 +121,25 @@
 //   on one bank; elsewhere they are stored plain. Fragments beyond the edge
 //   of a grid that is not a multiple of the tile are zero. Simple first:
 //   mma.sync from shared memory and L2, no wgmma, TMA or pipelining.
+//   At 96x64 the two TF32 instances run their solve on wgmma instead
+//   (k1_wgmma; 37.6 -> 30.3 ms at 3 passes and 32.2 -> 23.9 at 1, at 1024
+//   envs on an H100 80GB HBM3 at 700 W, PERF.md section 6). What held the
+//   mma.sync solve there (by ablation 21.0 and 15.1 ms of those 37.6 and
+//   32.2): three warps of a sub-partition walking their tiles' K serially,
+//   F and G read element by element from L2, every constant split again
+//   at every load, and a block barrier after each product. Design: each
+//   product is computed transposed, P^T = R^T L^T, nz = 64 rows (one wgmma
+//   M) by 96 modes or columns, warpgroup g of four the 24 of [24 g, 24 g +
+//   24) in m64n24k8 steps, A from registers, B from shared memory (see
+//   wg_product). F's and G's rows arrive by one bulk copy a stage into the
+//   state copy the march has just read (at 3 passes F's hi and lo there,
+//   and G's after product 3 warpgroup by warpgroup, where r_hat and t were);
+//   every constant comes packed on the host, TF32-exact (ops/poisson.py
+//   k1_tf32_constants), so the kernel splits and rounds only the slabs.
+//   Products 1 to 3 are local to a warpgroup's modes, so only the
+//   warpgroup meets between them; the block meets before products 1 and 4
+//   and before the correction. Shared memory 197,800 bytes at 3 passes and
+//   222,376 at 1; the float32 instance is untouched.
 //
 // K2 tendencies_2d_march_kernel replaces ops/pallas2d.py:_tendency_kernel
 // (reached from make_tendencies_2d, pl.pallas_call at :562): gu, gw, gb of
@@ -263,6 +282,89 @@ __device__ __forceinline__ void cluster_barrier() {
 }
 // The CTA's dynamic shared memory (on the host, each CTA's own buffer).
 __device__ __forceinline__ float* cta_shared(float* s) { return s; }
+
+// ---- Hopper's warpgroup products, bulk copies and barriers (K1's TF32
+// instances at 96x64) ------------------------------------------------------------
+
+// The shared-memory address of *p.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// The 128 threads of this thread's warpgroup meet (named barrier 1 + warpgroup).
+__device__ __forceinline__ void warpgroup_barrier() {
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + (int)(threadIdx.x >> 7)) : "memory");
+}
+// Registers written before this are seen by the wgmma issued after it.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Wait until at most N of this warpgroup's committed wgmma groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// d += a . b for the warpgroup's 64 x 24 tile, 8 deep, TF32 in, float32 out:
+// a (64 x 8) in registers (warp w of the group rows 16 w .. 16 w + 15, in
+// mma.m16n8k8's A layout: lane 4 g + t holds A[g][t], A[g + 8][t], A[g][t +
+// 4], A[g + 8][t + 4]), b (8 x 24) in shared memory, K-major, through its
+// descriptor; d[4 j + i] is D[16 w + g + 8 (i >> 1)][8 j + 2 t + (i & 1)].
+__device__ __forceinline__ void wgmma_m64n24k8(float (&d)[12], const unsigned (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, %16, p, 1, "
+      "1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+// Keeps the compiler from moving a register's reads and writes across it
+// (the accumulators of an asynchronous wgmma).
+__device__ __forceinline__ void fence_operand(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+// An mbarrier in shared memory that expects `count` arrivals a phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+// Orders this thread's generic accesses of shared memory before the async
+// proxy's (bulk copies, wgmma operand reads) that follow.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory that completes the phase of `bar` (one
+// arrival, expecting those bytes).
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, unsigned bytes,
+                                              uint64_t* bar) {
+  const unsigned b = smem_u32(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+}
+// Wait until the phase of `bar` of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned b = smem_u32(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+  }
+}
 #endif
 
 // The TF32 operands of N float32 values for kPasses passes: at 3, hi (the
@@ -339,6 +441,114 @@ __device__ __forceinline__ void mma_product(int M, int N, int K, LdL ld_l, LdR l
       }
     }
   }
+}
+
+// ---- K1's TF32 instances at 96x64: the solve on wgmma ---------------------------
+//
+// Each product P = L . R is computed transposed, P^T = R^T L^T, a 64 x 96
+// result (nz = 64 rows, one wgmma M): warpgroup g of the block's four takes
+// the 24 modes or columns [24 g, 24 g + 24) as its N, in m64n24k8 steps
+// over the contraction. A (64 x K) comes from registers: the slabs rhs^T and
+// p_hat^T from shared memory, the z transforms ct^T and st^T from global
+// memory, both stored in the fragment order (k1_afrag_index) so that a
+// lane's four values are one 16-byte load. B^T (24 x K a warpgroup) lies in
+// shared memory in the K-major core-matrix layout without swizzle
+// (k1_bcore_index): F's and G's rows, staged by bulk copies, and r_hat and
+// t, which the products before them write.
+
+__host__ __device__ constexpr bool k1_wgmma(int nx, int nz, int passes) {
+  return passes > 0 && nx == 96 && nz == 64;
+}
+constexpr int kWgN = 24;  // a warpgroup's N: 96 modes or columns over four warpgroups
+constexpr int kWgRows = kWgN * 96;  // one part of a warpgroup's rows of F or G
+constexpr int kWgModes = kWgN * 64;  // one part of a warpgroup's modes of r_hat or t
+
+// Element (row, k) of a 64-row A operand in the fragment order: k-step s = k
+// / 8, warp w = row / 16 of the group, lane 4 g + t's four values at slot 4 g
+// + (t ^ (g / 2 % 4)) (so that the divergence's and product 3's stores of
+// one level or column spread over the banks), register i.
+__host__ __device__ constexpr int k1_afrag_slot(int lane) {
+  return (lane & ~3) | ((lane & 3) ^ ((lane >> 3) & 3));
+}
+__host__ __device__ constexpr int k1_afrag_index(int row, int k) {
+  return (((k >> 3) * 4 + (row >> 4)) * 32 + k1_afrag_slot(4 * (row & 7) + (k & 3))) * 4 +
+         ((row >> 3) & 1) + 2 * ((k >> 2) & 1);
+}
+// Element (n, k) of a B^T operand with rows of K: 8 x 4 core matrices of 128
+// contiguous bytes, K-adjacent ones 128 bytes apart, N-adjacent ones 32 K.
+__host__ __device__ constexpr int k1_bcore_index(int n, int k, int K) {
+  return (n >> 3) * 8 * K + (k >> 2) * 32 + (n & 7) * 4 + (k & 3);
+}
+// The descriptor of a K-major B operand without swizzle at shared address
+// `addr`: core matrices 128 bytes apart along K (leading byte offset) and
+// `sbo` bytes apart along N (stride byte offset).
+__host__ __device__ constexpr uint64_t k1_bdesc(unsigned addr, unsigned sbo) {
+  return (uint64_t)((addr >> 4) & 0x3fffu) | ((uint64_t)(128u >> 4) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3fffu) << 32);
+}
+
+// The packed constants of the instance with `passes` (ops/poisson.py
+// k1_tf32_constants), in floats, each value TF32-exact as the products take
+// it (at 3 passes hi and lo, at 1 the value rounded): first F's and G's rows
+// of each warpgroup, in the order the state copy receives them ([g][F_g |
+// G_g] at 1 pass; [g][F_g hi | F_g lo] and then [g][G_g hi | G_g lo] at 3);
+// then ct^T and st^T in the fragment order (a lane's values of a k-step, hi
+// then lo; lanes in their own order) and dinv in the order of product 2's
+// accumulators ([g][w][lane][12]).
+__host__ __device__ constexpr int k1_tf32_parts(int passes) { return passes == 3 ? 2 : 1; }
+__host__ __device__ constexpr int k1_tf32_ct(int passes) {
+  return 4 * 2 * kWgRows * k1_tf32_parts(passes);
+}
+__host__ __device__ constexpr int k1_tf32_st(int passes) {
+  return k1_tf32_ct(passes) + 64 * 64 * k1_tf32_parts(passes);
+}
+__host__ __device__ constexpr int k1_tf32_dinv(int passes) {
+  return k1_tf32_st(passes) + 64 * 64 * k1_tf32_parts(passes);
+}
+__host__ __device__ constexpr int k1_tf32_floats(int passes) {
+  return k1_tf32_dinv(passes) + 96 * 64;
+}
+
+// Shared memory of the wgmma instances, bytes: two state copies, the slabs
+// s1 (pHY', rhs, p) and s2 (p_hat), at 1 pass a slab of r_hat and t (at 3
+// passes they take the state copy F leaves), the bottom profile and five
+// mbarriers.
+constexpr size_t k1_wgmma_smem_bytes(int passes) {
+  return sizeof(float) * (2 * (2 * 96 * 64 + 96 * 65) + (passes == 3 ? 2 : 3) * 96 * 64 + 96) +
+         5 * sizeof(uint64_t);
+}
+
+// acc = A . B for the warpgroup's 64 x 24 tile, KS k-steps deep, in
+// kPasses TF32 passes on wgmma: ld_a(s, hi, lo) gives the lane's A fragment
+// of k-step s, b is the warpgroup's B^T (its lo part b_lo floats on at 3
+// passes). At most two k-steps are in flight, so at most two of A's
+// fragments live in registers. The accumulators are ready when it returns.
+template <int kPasses, int KS, class LdA>
+__device__ __forceinline__ void wg_product(float (&acc)[12], LdA ld_a, const float* b, int b_lo) {
+  constexpr unsigned kSbo = 256 * KS;  // bytes between B^T's 8-row groups: 8 rows of 8 KS floats
+  const unsigned bh = smem_u32(b), bl = bh + 4 * b_lo;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    acc[i] = 0.0f;
+    fence_operand(acc[i]);
+  }
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    unsigned ah[4], al[4];
+    ld_a(s, ah, al);
+    wgmma_fence();
+    const uint64_t dh = k1_bdesc(bh + 256 * s, kSbo);  // k-step s: two core matrices on
+    if constexpr (kPasses == 3) {
+      wgmma_m64n24k8(acc, ah, k1_bdesc(bl + 256 * s, kSbo));
+      wgmma_m64n24k8(acc, al, dh);
+    }
+    wgmma_m64n24k8(acc, ah, dh);
+    wgmma_commit();
+    wgmma_wait<1>();  // k-step s - 1 is done: its A registers are free again
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 12; ++i) fence_operand(acc[i]);
 }
 
 // x columns a K1 warp owns.
@@ -538,10 +748,11 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
                    const float* __restrict__ dct, const float* __restrict__ idct,
                    const float* __restrict__ dinv, float* __restrict__ u_out,
                    float* __restrict__ w_out, float* __restrict__ b_out,
-                   float* __restrict__ p_out, K1Params P) {
+                   float* __restrict__ p_out, K1Params P, const float* __restrict__ tf32) {
   constexpr int NS = kK1Levels;
   constexpr int XS = NX > 0 ? k1_cols(NX) : kK1MaxCols;
   constexpr bool kVec = NX > 0 && NX % 4 == 0 && NZ % 4 == 0;
+  constexpr bool kWgmma = k1_wgmma(NX, NZ, kPasses);  // the solve on wgmma (tf32: its constants)
   extern __shared__ float smem[];
   const int nx = NX > 0 ? NX : P.nx, nz = NZ > 0 ? NZ : P.nz, nw = nz + 1;
   const int nc = nx * nz, nf = nx * nw;
@@ -555,7 +766,18 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
   float* s2 = s1 + nc;        // r_hat and p_hat
   float* ct = s2 + nc;        // z analysis, (z, j)
   float* st = ct + nz * nz;   // z synthesis, (j, z)
-  float* bot = st + nz * nz;  // bottom (nx)
+  // bottom (nx); the wgmma instances keep no z transforms, and at 1 pass a
+  // slab of r_hat and t, then their mbarriers: F's (and G's) copy, and at 3
+  // passes each warpgroup's of G
+  float* bot = kWgmma ? s2 + nc + (kPasses == 1 ? nc : 0) : st + nz * nz;
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(bot + nx);
+  // The wgmma instances' bulk copy of F's rows (hi, lo at 3 passes; G's too
+  // at 1 pass) into the state copy x after the march, on mbar[0] (ablate_k1
+  // drops the line that calls it)
+  auto stage_fg = [&](float* x) {
+    fence_proxy_async();
+    bulk_copy_g2s(x, tf32, 4 * 4 * 2 * kWgRows, mbar);
+  };
 
   for (int q = threadIdx.x; q < nc; q += kK1Threads) {
     X.u[q] = u_in[e * nc + q];
@@ -570,6 +792,11 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
     for (int q = threadIdx.x; q < nz * nz; q += kK1Threads) {
       ct[q] = dct[q];
       st[q] = idct[q];
+    }
+  } else if constexpr (kWgmma) {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < 5; ++i) mbar_init(mbar + i, 1);
+      fence_mbar_init();
     }
   } else {
     for (int q = threadIdx.x; q < nz * nz; q += kK1Threads) {
@@ -613,6 +840,7 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
 
   float gp[XS][NS][3] = {};  // the previous stage's gu, gw, gb of this thread's points
   float pt[XS][NS];     // the solve's tile: this thread's points
+  unsigned phase = 0;   // the wgmma instances' mbarriers: the parity of this stage's phase
   for (int step = 0; step < P.n_substeps; ++step) {
     for (int stage = 0; stage < 3; ++stage) {
       const float gamma = kGamma[stage], zeta = kZeta[stage];
@@ -722,6 +950,9 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
         }
       }
       __syncthreads();
+      if constexpr (kWgmma) {  // F's rows (at 1 pass and G's) into the state copy just read
+        if (threadIdx.x == 0) stage_fg(X.u);
+      }
 
       // ---- 3. div(u*, w*) / dt_stage ------------------------------------------
 #pragma unroll
@@ -734,6 +965,8 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
                               (Y.w[i * nw + k + 1] - Y.w[i * nw + k]) * P.idz;
             if constexpr (kPasses == 0) {
               s1[i * nz + k] = div * idts;
+            } else if constexpr (kWgmma) {  // rhs^T, product 1's A
+              s1[k1_afrag_index(k, i)] = div * idts;
             } else {
               s1[S(i, k)] = div * idts;
             }
@@ -790,6 +1023,112 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
             }
           }
         }
+        __syncthreads();
+      } else if constexpr (kWgmma) {
+        // ---- 4. the solve on the tensor cores: four products, slab to slab --
+        // warpgroup wg, its warp wl; the lane's rows of a 64 x 24 tile are
+        // 16 wl + g + 8 h, its columns 8 j + 2 t + e (acc[4 j + 2 h + e])
+        const int wg = threadIdx.x >> 7, wl = warp & 3, g = lane >> 2, t = lane & 3;
+        constexpr int H = k1_tf32_parts(kPasses);
+        float* xg = X.u + wg * 2 * kWgRows;  // F's rows of its modes, then G's of its columns
+        // its modes of r_hat, then t: at 3 passes where F's rows were
+        float* rt = kPasses == 3 ? xg : s2 + nc + wg * kWgModes;
+        auto row = [&](int i) { return 16 * wl + g + 8 * ((i >> 1) & 1); };
+        auto col = [&](int i) { return 8 * (i >> 2) + 2 * t + (i & 1); };
+        auto slab_a = [&](const float* a) {  // A from a slab, split here
+          return [=](int s, unsigned (&hi)[4], unsigned (&lo)[4]) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                a + ((s * 4 + wl) * 32 + k1_afrag_slot(lane)) * 4);
+            const float x[4] = {v.x, v.y, v.z, v.w};
+            tf32_operands<kPasses>(x, hi, lo);
+          };
+        };
+        auto const_a = [&](int at) {  // A from the packed constants, TF32-exact
+          return [=](int s, unsigned (&hi)[4], unsigned (&lo)[4]) {
+            const float4* p =
+                reinterpret_cast<const float4*>(tf32 + at) + ((s * 4 + wl) * 32 + lane) * H;
+            const float4 v = __ldg(p);
+            hi[0] = __float_as_uint(v.x), hi[1] = __float_as_uint(v.y);
+            hi[2] = __float_as_uint(v.z), hi[3] = __float_as_uint(v.w);
+            if constexpr (kPasses == 3) {
+              const float4 l = __ldg(p + 1);
+              lo[0] = __float_as_uint(l.x), lo[1] = __float_as_uint(l.y);
+              lo[2] = __float_as_uint(l.z), lo[3] = __float_as_uint(l.w);
+            }
+          };
+        };
+        // r_hat or t, a B^T operand of the next product: TF32-exact parts
+        auto store_b = [&](float* dst, int idx, float v) {
+          if constexpr (kPasses == 3) {
+            const unsigned hi = __float_as_uint(v) & 0xffffe000u;
+            dst[idx] = __uint_as_float(hi);
+            dst[idx + kWgModes] = __uint_as_float(to_tf32(v - __uint_as_float(hi)));
+          } else {
+            dst[idx] = __uint_as_float(to_tf32(v));
+          }
+        };
+        float acc[12];
+        mbar_wait(mbar, phase);  // F's rows have landed
+        wg_product<kPasses, 12>(acc, slab_a(s1), xg, kWgRows);  // r_hat^T = rhs^T F^T
+        if constexpr (kPasses == 3) warpgroup_barrier();  // F's rows read: r_hat takes them
+#pragma unroll
+        for (int i = 0; i < 12; ++i) store_b(rt, k1_bcore_index(col(i), row(i), 64), acc[i]);
+        fence_proxy_async();
+        warpgroup_barrier();
+        // t^T = ct^T r_hat^T
+        wg_product<kPasses, 8>(acc, const_a(k1_tf32_ct(kPasses)), rt, kWgModes);
+        {
+          const float4* d = reinterpret_cast<const float4*>(tf32 + k1_tf32_dinv(kPasses)) +
+                            ((wg * 4 + wl) * 32 + lane) * 3;
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            const float4 v = __ldg(d + q);
+            acc[4 * q] *= v.x, acc[4 * q + 1] *= v.y, acc[4 * q + 2] *= v.z, acc[4 * q + 3] *= v.w;
+          }
+        }
+        warpgroup_barrier();  // r_hat read: t takes its place
+#pragma unroll
+        for (int i = 0; i < 12; ++i) store_b(rt, k1_bcore_index(col(i), row(i), 64), acc[i]);
+        fence_proxy_async();
+        warpgroup_barrier();
+        // p_hat^T = st^T t^T
+        wg_product<kPasses, 8>(acc, const_a(k1_tf32_st(kPasses)), rt, kWgModes);
+#pragma unroll
+        for (int i = 0; i < 12; ++i) s2[k1_afrag_index(row(i), kWgN * wg + col(i))] = acc[i];
+        if constexpr (kPasses == 3) {  // G's rows of its columns where t was
+          warpgroup_barrier();
+          if ((threadIdx.x & 127) == 0) {
+            fence_proxy_async();
+            bulk_copy_g2s(xg, tf32 + 4 * 2 * kWgRows + wg * 2 * kWgRows, 4 * 2 * kWgRows,
+                          mbar + 1 + wg);
+          }
+        }
+        __syncthreads();  // p_hat of every mode
+        if constexpr (kPasses == 3) mbar_wait(mbar + 1 + wg, phase);
+        wg_product<kPasses, 12>(acc, slab_a(s2), kPasses == 3 ? xg : xg + kWgRows,
+                                kWgRows);  // p^T = p_hat^T G^T
+#pragma unroll
+        for (int i = 0; i < 12; ++i) s1[(kWgN * wg + col(i)) * nz + row(i)] = acc[i];
+        __syncthreads();
+
+        // ---- 5. correct this thread's u*, w* by grad p, read from the slab --
+#pragma unroll
+        for (int xi = 0; xi < XS; ++xi) {
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            const int i = x0 + xi, k = kl[s];
+            if (xi < xn && k < nz) {
+              const float p = s1[i * nz + k];
+              Y.u[i * nz + k] -= dts * ((p - s1[wrap(i - 1) * nz + k]) * P.idx);
+              if (k > 0) Y.w[i * nw + k] -= dts * ((p - s1[i * nz + k - 1]) * P.idz);
+              if (last) p_out[e * nc + i * nz + k] = p;
+            }
+          }
+        }
+        // the march never writes w's top wall face: zero it again in the copy
+        // the constants took
+        for (int q = threadIdx.x; q < nx; q += kK1Threads) X.w[q * nw + nz] = 0.0f;
+        phase ^= 1;
         __syncthreads();
       } else {
         // ---- 4. the solve on the tensor cores: four products, slab to slab --
@@ -1790,13 +2129,16 @@ int launch_env_step_2d(const float* u, const float* w, const float* b,
                        const float* dct, const float* idct, const float* dinv, float* u_out,
                        float* w_out, float* b_out, float* p_out, float* scratch, int n_env,
                        int nx, int nz, int n_substeps, float dt, float dx, float dz, float nu,
-                       float kappa, float min_b, int passes, void* stream) {
+                       float kappa, float min_b, int passes, const float* tf32,
+                       void* stream) {
   const bool on_chip = env_step_2d_on_chip(nx, nz);
   const int csize = env_step_2d_cluster_size(nx, nz);
-  const size_t smem = sizeof(float) * env_step_2d_smem_floats(nx, nz);
+  const bool wgmma = on_chip && k1_wgmma(nx, nz, passes);
+  const size_t smem = wgmma ? k1_wgmma_smem_bytes(passes)
+                            : sizeof(float) * env_step_2d_smem_floats(nx, nz);
   if (nx < kK1MinNx || nz < 1 || smem > kSmemPerBlock || n_substeps < 1 ||
       (!on_chip && csize == 0 && scratch == nullptr) ||
-      (passes != 0 && passes != 1 && passes != 3)) {
+      (passes != 0 && passes != 1 && passes != 3) || (wgmma && tf32 == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const K1Params P = k1_params(nx, nz, n_substeps, dt, dx, dz, nu, kappa, min_b);
@@ -1838,7 +2180,7 @@ int launch_env_step_2d(const float* u, const float* w, const float* b,
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<n_env, kK1Threads, smem, (cudaStream_t)stream>>>(
-      u, w, b, bottom, fmat, gmat, dct, idct, dinv, u_out, w_out, b_out, p_out, P);
+      u, w, b, bottom, fmat, gmat, dct, idct, dinv, u_out, w_out, b_out, p_out, P, tf32);
   return (int)cudaGetLastError();
 }
 
@@ -1852,7 +2194,9 @@ int launch_env_step_2d(const float* u, const float* w, const float* b,
 int env_step_2d_occupancy(int nx, int nz, int passes, int* out) {
   const bool on_chip = env_step_2d_on_chip(nx, nz);
   const int csize = env_step_2d_cluster_size(nx, nz);
-  const size_t smem = sizeof(float) * env_step_2d_smem_floats(nx, nz);
+  const size_t smem = on_chip && k1_wgmma(nx, nz, passes)
+                          ? k1_wgmma_smem_bytes(passes)
+                          : sizeof(float) * env_step_2d_smem_floats(nx, nz);
   if (nx < kK1MinNx || nz < 1 || smem > kSmemPerBlock ||
       (passes != 0 && passes != 1 && passes != 3)) {
     return (int)cudaErrorInvalidValue;

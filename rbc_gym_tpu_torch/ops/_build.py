@@ -41,6 +41,7 @@ ARGTYPES = {
         _I, _I, _I, _I,  # n_env, nx, nz, n_substeps
         _F, _F, _F, _F, _F, _F,  # dt, dx, dz, nu, kappa, min_b
         _I,  # TF32 passes of the solve's products: 0 (float32), 1 or 3
+        _P,  # the wgmma instances' packed constants (NULL elsewhere)
         _P,  # stream
     ],
     "env_step_2d_occupancy": [

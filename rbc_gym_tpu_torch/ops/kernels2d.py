@@ -32,7 +32,8 @@ import torch
 
 from rbc_gym_tpu_torch.ops import _build, limits
 from rbc_gym_tpu_torch.ops import stencils as st
-from rbc_gym_tpu_torch.ops.poisson import Spectral2D, check_precision, poisson_solve_2d
+from rbc_gym_tpu_torch.ops.poisson import (Spectral2D, check_precision, k1_tf32_constants,
+                                            poisson_solve_2d)
 
 RK3_GAMMA = (8.0 / 15.0, 5.0 / 12.0, 3.0 / 4.0)
 RK3_ZETA = (0.0, -17.0 / 60.0, -5.0 / 12.0)
@@ -268,6 +269,15 @@ tendencies_2d.launches = 0
 # ("default"). The launcher's ``passes`` argument.
 K1_PASSES = {None: 0, "highest": 0, "high": 3, "default": 1}
 
+def tf32_constants(spectral: Spectral2D, passes: int) -> torch.Tensor:
+    """``poisson.k1_tf32_constants`` of ``spectral`` at ``passes``, packed
+    on its first use and kept on the solver's ``dinv`` tensor (so for as
+    long as the solver's constants live), one a pass count."""
+    packs = spectral.dinv.__dict__.setdefault("_k1_tf32_constants", {})
+    if passes not in packs:
+        packs[passes] = k1_tf32_constants(spectral, passes)
+    return packs[passes]
+
 
 def env_step_2d(
     u: torch.Tensor,
@@ -302,6 +312,8 @@ def env_step_2d(
     if n_substeps < 1:
         raise ValueError(f"n_substeps must be >= 1, got {n_substeps}")
     cluster = limits.env_step_2d_cluster_size(nx, nz) > 0
+    tf32 = (tf32_constants(spectral, passes) if limits.env_step_2d_wgmma(nx, nz, passes)
+            else None)
     u_out, w_out, b_out, p_out = (torch.empty_like(t) for t in (u, w, b, u))
     scratch = torch.empty(e * limits.env_step_2d_scratch_floats(nx, nz), dtype=u.dtype,
                           device=u.device)
@@ -314,6 +326,7 @@ def env_step_2d(
             u_out.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), p_out.data_ptr(),
             scratch.data_ptr() if scratch.numel() else None,
             e, nx, nz, n_substeps, dt, c.dx, c.dz, c.nu, c.kappa, c.min_b, passes,
+            None if tf32 is None else tf32.data_ptr(),
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     counter = env_step_2d_cluster if cluster else K1_INSTANCES[passes]

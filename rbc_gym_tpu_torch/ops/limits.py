@@ -37,6 +37,17 @@ def env_step_2d_on_chip(nx: int, nz: int) -> bool:
             and _on_chip_smem_bytes(nx, nz) <= SMEM_PER_BLOCK)
 
 
+K1_WGMMA_GRID = (96, 64)  # (nx, nz) of K1's TF32 instances whose solve runs on wgmma
+
+
+def env_step_2d_wgmma(nx: int, nz: int, passes: int) -> bool:
+    """Whether K1's instance with ``passes`` TF32 passes runs its solve on
+    wgmma (``k1_wgmma`` in ``csrc/rbc2d.cu``): the on-chip TF32 instances at
+    96x64, which read their constants packed by
+    ``ops.poisson.k1_tf32_constants``."""
+    return passes in (1, 3) and (nx, nz) == K1_WGMMA_GRID
+
+
 K1_MAX_CLUSTER = 8  # CTAs of K1's cluster instance: the portable cluster size (kK1MaxCluster)
 
 

@@ -206,6 +206,79 @@ def spectral_constants_2d(
                       cast(dinv))
 
 
+def tf32_parts(x: np.ndarray, passes: int) -> list:
+    """The TF32 operands K1's tensor-core products take for the float32
+    values ``x``, as float32 arrays: at 3 passes [hi, lo], hi ``x`` with its
+    low 13 mantissa bits cleared and lo = x - hi rounded to TF32; at 1 pass
+    [x rounded to TF32]. Rounding is to nearest, ties away from zero
+    (``cvt.rna.tf32.f32``)."""
+    x = np.ascontiguousarray(x, np.float32)
+
+    def rna(v):
+        return ((v.view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+    if passes == 1:
+        return [rna(x)]
+    hi = (x.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+    return [hi, rna(x - hi)]
+
+
+K1_WGMMA_N = 24  # modes or columns of a K1 warpgroup's wgmma (96 over four)
+
+
+def k1_b_rows(mat: np.ndarray, group: int) -> np.ndarray:
+    """Rows [24 group, 24 group + 24) of ``mat`` (rows of K) as a B^T
+    operand of wgmma in the K-major core-matrix layout without swizzle
+    (``k1_bcore_index`` in ``csrc/rbc2d.cu``): 8 x 4 core matrices, each
+    row-major, ordered by 8-row group and then by K."""
+    rows = mat[K1_WGMMA_N * group:K1_WGMMA_N * (group + 1)]
+    k = rows.shape[1]
+    return rows.reshape(K1_WGMMA_N // 8, 8, k // 4, 4).transpose(0, 2, 1, 3).reshape(-1)
+
+
+def k1_a_fragments(a: np.ndarray) -> np.ndarray:
+    """A 64-row A operand of wgmma (64, K) as K1 reads it from registers,
+    (K / 8, 4, 32, 4): k-step s, warp w, lane 4 g + t, register i holds
+    A[16 w + g + 8 (i % 2)][8 s + t + 4 (i // 2)] (``wgmma_m64n24k8``)."""
+    k = a.shape[1]
+    return a.reshape(4, 2, 8, k // 8, 2, 4).transpose(3, 0, 2, 5, 4, 1).reshape(k // 8, 4, 32, 4)
+
+
+def k1_tf32_constants(spectral: Spectral2D, passes: int) -> torch.Tensor:
+    """The solve's constants of K1's TF32 instances at 96x64, packed once in
+    the order their kernel reads them (``k1_tf32_*`` in ``csrc/rbc2d.cu``),
+    a float32 tensor on the constants' device. Each value is TF32-exact as
+    the products take it (``tf32_parts``: at 3 passes hi and lo, at 1 the
+    value rounded), so the kernel splits and rounds no constant. In order:
+    F's and G's rows of each warpgroup g of four as B^T operands
+    (``k1_b_rows``: F's rows the modes [24 g, 24 g + 24), G's the columns),
+    in the order a bulk copy puts them into the state copy (at 1 pass
+    [g][F_g | G_g], at 3 [g][F_g hi | F_g lo] and then [g][G_g hi |
+    G_g lo]); ct^T and st^T, the A operands of products 2 and 3, in the
+    fragment order (``k1_a_fragments``; at 3 passes a lane's hi and then lo
+    values of a k-step); dinv in the order of product 2's accumulators:
+    [g][w][lane][4 j + 2 h + e] is dinv[24 g + 8 j + 2 t + e][16 w + g' + 8 h]
+    for lane 4 g' + t."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    f, g, ct, st, dinv = (np.asarray(t.detach().to("cpu", torch.float32))
+                          for t in (spectral.f, spectral.g, spectral.dct, spectral.idct,
+                                    spectral.dinv))
+    if dinv.shape != (96, 64):
+        raise ValueError(f"K1's wgmma instances take 96x64, not {dinv.shape[0]}x{dinv.shape[1]}")
+    fp, gp = tf32_parts(f, passes), tf32_parts(g, passes)
+    groups = range(96 // K1_WGMMA_N)
+    if passes == 1:
+        fg = [k1_b_rows(m[0], q) for q in groups for m in (fp, gp)]
+    else:
+        fg = [k1_b_rows(part, q) for m in (fp, gp) for q in groups for part in m]
+    consts = [np.concatenate([k1_a_fragments(part) for part in tf32_parts(a, passes)], axis=-1)
+              for a in (ct.T, st.T)]
+    d = dinv.reshape(4, 3, 4, 2, 4, 2, 8).transpose(0, 4, 6, 2, 1, 5, 3)
+    packed = np.concatenate([*fg, *(c.reshape(-1) for c in consts), d.reshape(-1)])
+    return torch.as_tensor(packed, device=spectral.f.device)
+
+
 def poisson_solve_2d(consts: Spectral2D, rhs: torch.Tensor,
                      precision: str | None = None) -> torch.Tensor:
     """Zero-mean solution of laplace(p) = rhs for rhs (E, nx, nz), each of

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the stage kernels of several source trees on one CUDA card.
 
-    python3 scripts/kernel_variants.py [--kernels k1,k1c,k2,k3,k3qp,k5_training,k5,k6,k7,field_step]
+    python3 scripts/kernel_variants.py
+        [--kernels k1,k1c,k1t,k1t_times,k2,k3,k3qp,k5_training,k5,k6,k7,field_step]
         TREE [TREE ...]
 
 Each TREE is a checkout of this repo (for example a ``git archive`` of a
@@ -25,6 +26,17 @@ gates:
   128x64 too, with float32 K1 on 96x64 timed first and last; the gates at
   6 substeps and 128 envs on both grids (and at "high" and "default" on
   128x64), and where the tree has it ``env_step_2d_occupancy``;
+- ``k1t``: K1's TF32 instances at 96x64 ("high": 3 passes, "default": 1)
+  at 1024 envs, one env step of 50 substeps, with float32 K1 timed first
+  and last, and the split of each instance's time: the same instances
+  built twice more from the tree's ``csrc/rbc2d.cu`` cut for timing only
+  (``ablate_k1``; their outputs are wrong and never gated), once without
+  the solve's four products (and the bulk copies of their constants where
+  the tree has them) and once without the march (phase 2, which float32
+  K1 shares): products = whole - no products, march = whole - no march,
+  the rest what is left. Their gates at 6 substeps and 128 envs, and
+  ``env_step_2d_occupancy`` of the three instances; ``k1t_times`` the
+  same without the cuts (for trees whose solve was changed by hand);
 - ``k2``: K2 (``tendencies_2d``) at 1024 envs on 96x64, 128x64 and 96x80
   (in this tree's design: the specialised and runtime march and the general
   instance), with its share of its own bound and of the Pallas kernel's;
@@ -143,6 +155,58 @@ def k1c():
         rec[f"{nx}x{nz}"] = r
         del c6
     rec["k1_96x64_last_ms"] = k1_ms((64, 96))[1]
+    return rec, errs
+
+
+ABLATIONS, K1T_DIR = ("products", "march"), "rbc_gym_tpu_torch/_build/k1t"
+
+
+def k1t(cuts=True):
+    # K1's TF32 instances at 96x64 and, with cuts, their split from the
+    # ablated libraries main() built beside the tree's own
+    import ctypes
+    from rbc_gym_tpu_torch.ops import _build, kernels2d as k2d
+
+    solver, case = cs.make_case(device, 1024, (64, 96), 1.5, seed=2)
+    n_sub = solver.params.substeps_per_env_step
+    names = (("float32", None), ("bf16x3", "high"), ("default", "default"))
+
+    def ms(prec):
+        return cs._cuda_ms(lambda: cs.k1_run(solver, case, True, prec), 10)
+
+    rec = {"float32_first_ms": ms(None)}
+    for name, prec in names[1:]:
+        bound_ms, by = cs.bound(cs.env_step_work(1024, 96, 64, n_sub, prec))
+        t = ms(prec)
+        rec[name] = {"ms": t, "bound_ms": bound_ms, "bound_by": by, "share_of_bound": bound_ms / t}
+    real = _build.load_library
+    for what in ABLATIONS if cuts else ():
+        lib = ctypes.CDLL(f"{K1T_DIR}/{what}/lib.so")
+        for fn_name, argtypes in _build.ARGTYPES.items():
+            if hasattr(lib, fn_name):
+                getattr(lib, fn_name).argtypes = argtypes
+                getattr(lib, fn_name).restype = ctypes.c_int
+        _build.load_library = lambda lib=lib: lib
+        try:
+            for name, prec in names:
+                if name != "float32" or what == "march":
+                    rec.setdefault(name, {})[f"no_{what}_ms"] = ms(prec)
+        finally:
+            _build.load_library = real
+    for name in ("bf16x3", "default") if cuts else ():
+        r = rec[name]
+        products, march = r["ms"] - r["no_products_ms"], r["ms"] - r["no_march_ms"]
+        r["split_ms"] = {"products": products, "march": march,
+                         "rest": r["ms"] - products - march}
+    rec["float32_last_ms"] = ms(None)
+    rec["occupancy"] = {name: k2d.env_step_2d_occupancy(96, 64, prec) for name, prec in names}
+    del case
+    s6, c6 = cs.make_case(device, 128, (64, 96), 0.18, seed=4)
+    errs = {"bf16x3_6": (max(cs.abs_diffs(cs.K1_OUT, cs.k1_run(s6, c6, True, "high"),
+                                          cs.k1_run(s6, c6, False, "high")).values()),
+                         cs.K1_ATOL)}
+    one = cs.k1_tf32_errors(s6, c6, cs.k1_run(s6, c6, True, "default"))
+    errs["default_6"] = (one["kernel"], one["bound"])
     return rec, errs
 
 
@@ -299,6 +363,8 @@ def field_step():
 RUNS = {
     "k1": k1,
     "k1c": k1c,
+    "k1t": k1t,
+    "k1t_times": lambda: k1t(cuts=False),
     "k2": k2,
     "k3": lambda: stage(k3d.stage_rk_3d, (16, 32, 32), 0.01, 32, 20),
     "k3qp": k3qp,
@@ -317,6 +383,60 @@ for name in kernels:
     print(json.dumps(rec), flush=True)
 sys.exit(0 if ok else 1)
 """
+
+# K1's timing-only cuts of ``k1t`` (MEASURE's ABLATIONS and K1T_DIR, under
+# the tree): each a library of ``csrc/rbc2d.cu`` alone, cut by ``ablate_k1``
+ABLATIONS = ("products", "march")
+K1T_DIR = Path("rbc_gym_tpu_torch") / "_build" / "k1t"
+
+
+def ablate_k1(src: str, what: str) -> str:
+    """``csrc/rbc2d.cu`` with a part of the on-chip K1's stage cut, for
+    timing only: "march" empties phase 2's block (the tendencies and the RK
+    update, which every instance shares), "products" drops the lines of the
+    first TF32 solve between its "// ---- 4. the solve on the tensor cores"
+    and "// ---- 5. correct" markers (the four products, and the waits for
+    their constants) and, before them, the line that issues the bulk copy of
+    F and G (``stage_fg(``) where the tree has one."""
+    lines = src.split("\n")
+    head = next(i for i, line in enumerate(lines) if "env_step_2d_kernel(const float*" in line)
+
+    def find(text, start):
+        return next(i for i in range(start, len(lines)) if text in lines[i])
+
+    if what == "march":
+        m = find("// ---- 2. tendencies and the RK update, marching along x", head)
+        if lines[m + 1].strip() != "{":
+            raise ValueError("phase 2 of K1 is not one block")
+        depth, j = 0, m + 1
+        while True:
+            depth += lines[j].count("{") - lines[j].count("}")
+            if depth == 0:
+                break
+            j += 1
+        return "\n".join(lines[:m + 1] + ["      {}"] + lines[j + 1:])
+    a = find("// ---- 4. the solve on the tensor cores", head)
+    b = find("// ---- 5. correct", a)
+    return "\n".join([line for line in lines[:a + 1] if "stage_fg(" not in line] + lines[b:])
+
+
+def build_ablations(tree: Path, nvcc: str) -> list:
+    """Start one nvcc a cut of ``ABLATIONS``: ``K1T_DIR/<what>/lib.so``
+    under the tree, from its own ``csrc/rbc2d.cu`` and headers."""
+    csrc = tree / "rbc_gym_tpu_torch" / "csrc"
+    procs = []
+    for what in ABLATIONS:
+        d = tree / K1T_DIR / what
+        d.mkdir(parents=True, exist_ok=True)
+        for header in csrc.glob("*.cuh"):
+            (d / header.name).write_text(header.read_text())
+        (d / "rbc2d.cu").write_text(ablate_k1((csrc / "rbc2d.cu").read_text(), what))
+        procs.append(subprocess.Popen(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler",
+             "-fPIC", "-shared", "-o", str(d / "lib.so"), str(d / "rbc2d.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
 
 PTXAS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v",
          "-c", "-o", os.devnull)
@@ -398,9 +518,17 @@ def main() -> int:
     from rbc_gym_tpu_torch.ops import _build
 
     compiles = [ptxas(t, _build.nvcc_path()) for t in trees]
+    cuts = [build_ablations(t, _build.nvcc_path()) if "k1t" in kernels.split(",") else []
+            for t in trees]
     failed = False
-    for t, b, procs in zip(trees, builds, compiles):
+    for t, b, procs, cut in zip(trees, builds, compiles, cuts):
         log, _ = b.communicate()
+        for p in cut:
+            out = p.communicate()[0]
+            if p.returncode != 0:
+                print(json.dumps({"tree": str(t), "k1t_cut_build_rc": p.returncode,
+                                  "nvcc": out.strip()[-2000:]}), flush=True)
+                failed = True
         lines, entry = [], ""
         for p in procs:
             for line in p.communicate()[0].splitlines():

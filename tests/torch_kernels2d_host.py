@@ -23,7 +23,7 @@ import pytest
 import torch
 
 import chip_smoke
-from rbc_gym_tpu_torch.ops import _build
+from rbc_gym_tpu_torch.ops import _build, limits
 from rbc_gym_tpu_torch.ops import kernels2d as k2
 from rbc_gym_tpu_torch.ops import poisson
 
@@ -59,10 +59,14 @@ static void run_blocks(int E, const std::function<void()>& body) {
     blockIdx.x = e;
     std::barrier<> bar(kK1Threads);
     block_barrier = &bar;
-    std::vector<std::unique_ptr<std::barrier<>>> warps;
+    std::vector<std::unique_ptr<std::barrier<>>> warps, groups;
     for (int v = 0; v < kK1Warps; ++v) {
       warps.push_back(std::make_unique<std::barrier<>>(32));
       warp_barriers[v] = warps.back().get();
+    }
+    for (int v = 0; v < kK1Threads / 128; ++v) {
+      groups.push_back(std::make_unique<std::barrier<>>(128));
+      wg_barriers[v] = groups.back().get();
     }
     std::vector<std::thread> threads;
     for (int t = 0; t < kK1Threads; ++t) {
@@ -166,10 +170,14 @@ int main(int argc, char** argv) {
   const int csize = forced ? 0 : env_step_2d_cluster_size(nx, nz);
   if (on_chip) {
     auto* kernel = env_step_kernel_for(nx, nz, passes);
+    // the wgmma instances' packed constants (ops/poisson.py k1_tf32_constants)
+    const bool wgmma = k1_wgmma(nx, nz, passes);
+    const auto tf32 = wgmma ? rd("tf32", k1_tf32_floats(passes)) : std::vector<float>();
+    host_smem_base = smem;
     run_blocks(E, [&] {
       kernel(u.data(), w.data(), b.data(), bottom.data(), f.data(), g.data(), dct.data(),
              idct.data(), dinv.data(), out[0].data(), out[1].data(), out[2].data(),
-             out[3].data(), P);
+             out[3].data(), P, wgmma ? tf32.data() : nullptr);
     });
   } else if (csize > 0) {
     auto* kernel = env_step_cluster_kernel_for(nx / csize, nz, passes);
@@ -189,7 +197,8 @@ int main(int argc, char** argv) {
     });
   }
   wr("u_out", out[0]); wr("w_out", out[1]); wr("b_out", out[2]); wr("p_out", out[3]);
-  printf("%s %d\n", on_chip ? "on_chip" : csize > 0 ? "cluster" : "global", csize > 0 ? csize : 1);
+  printf("%s %d\n", on_chip ? (k1_wgmma(nx, nz, passes) ? "on_chip_wgmma" : "on_chip")
+                   : csize > 0 ? "cluster" : "global", csize > 0 ? csize : 1);
   return 0;
 }
 """
@@ -221,10 +230,13 @@ def run_case(host_binary, tmp_path, mode, n_env, nx, nz, heater_duration, seed,
                                         dtype=torch.float32, dt_solver=dt_solver)
     for name, t in {**case, **solver.spectral._asdict()}.items():
         t.numpy().astype(np.float32).tofile(tmp_path / name)
+    passes = k2.K1_PASSES[precision]
+    if limits.env_step_2d_wgmma(nx, nz, passes) and not force_global:
+        poisson.k1_tf32_constants(solver.spectral, passes).numpy().tofile(tmp_path / "tf32")
     c, p = solver.coeffs, solver.params
     args = [mode, f"{tmp_path}/", *map(str, (n_env, nx, nz, p.substeps_per_env_step)),
             *(repr(float(x)) for x in (p.dt_solver, c.dx, c.dz, c.nu, c.kappa, c.min_b)),
-            str(k2.K1_PASSES[precision]), *(["global"] if force_global else [])]
+            str(passes), *(["global"] if force_global else [])]
     out = subprocess.run([str(host_binary), *args], check=True, capture_output=True, text=True)
     return solver, case, out.stdout.strip()
 
