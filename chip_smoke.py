@@ -251,6 +251,25 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      K1's cluster instance (two CTAs of 64 columns): reset,
                      3 steps with random actions; the 2D checks, the cluster
                      instance 3 launches and the other K1 instances none
+41. fine_grids       the grids where the JAX package runs its kernels and the
+                     port used to raise: K5's z split (a cluster of 2 CTAs a
+                     block at nz = 112 and 128) at each stage against the
+                     plain version in float64 beside the float32 plain
+                     version's own error (SPLIT_VS_PLAIN) on 128x128x128 at
+                     16 envs and 112x64x32 at 64;
+                     RBC3DVectorEnv(16, state_shape=(128, 128, 128),
+                     dt_solver=0.000625): reset, 3 steps, the 3D checks, the
+                     split 225 launches, K4 3, single-CTA K5 none;
+                     flowstats_ra.perform_experiment at Ra=2000, one env, 3
+                     steps there; K1's off-chip instance with its slabs in
+                     global scratch on 256x128 at 8 envs after 6 (K1_ATOL) and
+                     50 (K1_MAIN_ATOL) substeps and at "bf16x3" and
+                     "default" (phase 39's gates); RBC2DVectorEnv(1024,
+                     state_shape=(128, 256)) and (64, (256, 512)) at stable
+                     dt_solvers: reset, 3 steps, the 2D checks, the instance
+                     3 launches and no other K1 instance; both instances'
+                     occupancy and times beside their plain versions and
+                     bounds
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -299,7 +318,9 @@ from rbc_gym_tpu_torch.ops import registry
 from rbc_gym_tpu_torch.ops.limits import (
     env_step_2d_cluster_size,
     env_step_2d_on_chip,
+    env_step_2d_slabs_on_chip,
     field_tendency_on_march,
+    stage_xy_split_size,
     tendencies_2d_instance,
 )
 from rbc_gym_tpu_torch.ops.poisson import (
@@ -509,6 +530,8 @@ SOURCES = {
     "env_step_2d_tf32x3": "rbc_gym_tpu_torch/csrc/rbc2d.cu",
     "env_step_2d_tf32": "rbc_gym_tpu_torch/csrc/rbc2d.cu",
     "env_step_2d_cluster": "rbc_gym_tpu_torch/csrc/rbc2d.cu",
+    "stage_rk_3d_xy_split": "rbc_gym_tpu_torch/csrc/rbc3d.cu",
+    "env_step_2d_global": "rbc_gym_tpu_torch/csrc/rbc2d.cu",
 }
 REPLACES = {
     "env_step_2d": "rbc_gym_tpu/ops/pallas2d.py:220",
@@ -526,6 +549,10 @@ REPLACES = {
     "env_step_2d_tf32": "rbc_gym_tpu/ops/pallas2d.py:220",
     # the same Pallas body on the grids K1's on-chip instance cannot hold
     "env_step_2d_cluster": "rbc_gym_tpu/ops/pallas2d.py:220",
+    # the same Pallas bodies on the grids whose column single-CTA K5 cannot
+    # hold, and whose solve slabs K1's off-chip instance cannot keep on the chip
+    "stage_rk_3d_xy_split": "rbc_gym_tpu/ops/pallas3d.py:1242",
+    "env_step_2d_global": "rbc_gym_tpu/ops/pallas2d.py:220",
 }
 # the gated parity error at the main path's shapes that each kernel reports
 MAIN_SHAPE_CHECK = {"env_step_2d": "env_step_2d_main", "tendencies_2d": "tendencies_2d",
@@ -534,7 +561,9 @@ MAIN_SHAPE_CHECK = {"env_step_2d": "env_step_2d_main", "tendencies_2d": "tendenc
                     "div_3d": "div_3d", "stage_rk_3d_rhat": "stage_rk_3d_rhat",
                     "env_step_2d_tf32x3": "env_step_2d_tf32x3",
                     "env_step_2d_tf32": "env_step_2d_tf32",
-                    "env_step_2d_cluster": "env_step_2d_cluster_main"}
+                    "env_step_2d_cluster": "env_step_2d_cluster_main",
+                    "stage_rk_3d_xy_split": "stage_rk_3d_xy_split",
+                    "env_step_2d_global": "env_step_2d_global"}
 WRAPPERS = registry.KERNEL_WRAPPERS
 
 
@@ -3665,6 +3694,242 @@ def poisson_precision_2d(device, num_envs=1024, state_shape=(64, 96), observatio
 
 
 # ---------------------------------------------------------------------------
+# Phase 41: the fine grids, K5's z split and K1's off-chip slabs off the chip
+# ---------------------------------------------------------------------------
+
+# 3D: 128x128x128 (nz x ny x nx), whose columns single-CTA K5 cannot hold,
+# and 112x64x32. At 128 levels the explicit diffusion's largest rate,
+# kappa (4/dx^2 + 4/dy^2 + 4/dz^2), is ~411 at Ra=2500 (~460 at the
+# flow-statistics' Ra=2000) and RK3 is stable to 2.51 on the negative
+# real axis, so the solver's step must stay under 0.0061 (0.0055). The 3D
+# solver's step is dt_solver free-fall times of 4 (dt_solver 0.0025 blew
+# up within a substep on the plain path at 128 levels): 0.000625 is a
+# step of 0.0025, the rate's product 1.03 (1.15); 25 substeps a heater
+# step of 0.015625.
+FINE_SHAPE_3D = (128, 128, 128)
+FINE_ODD_SHAPE_3D = (112, 64, 32)
+FINE_DT_3D = 0.000625
+FINE_HEATER_3D = 0.015625
+# 2D (nz, nx) with a stable dt_solver and a 30-substep heater step each:
+# at Ra=1e4 the same rate, kappa (4/dx^2 + 4/dz^2), is ~275 at 256x128
+# (dt_solver <= 0.0091; 0.005 gives 1.38) and ~1,101 at 512x256 (<= 0.0023;
+# 0.0015 gives 1.65)
+FINE_GRIDS_2D = {(128, 256): (0.005, 0.15), (256, 512): (0.0015, 0.045)}
+# K5's z split runs on columns of nz >= 107 levels, where the cases' noise
+# (CASE_AMP, second differences over dz = 2 / nz) gives outputs up to
+# ~10^3 (div and gw at nz = 112), and one float32 rounding of them is
+# ~6e-5: there the float32 plain version itself is ~2e-4 off float64, far
+# past K5's gates, and so is single-CTA K5 at nz = 106 (its host build).
+# Each output is held against the plain version run in float64 on the same
+# inputs, within SPLIT_VS_PLAIN times the float32 plain version's own
+# error there, or within K5's gate (K3_FIELD_ATOL, K3_G_ATOL) where that is
+# larger (K2's rule).
+SPLIT_VS_PLAIN = 4.0
+FINE_WRAPPERS_3D = STAGE_WRAPPERS + ("stage_rk_3d_xy_split",)
+FINE_WRAPPERS_2D = K1_WRAPPERS + ("env_step_2d_cluster", "env_step_2d_global")
+
+
+def split_stage_parity(solver, case, prefix=""):
+    """Stage 0, 1, 2 of ``stage_rk_3d_xy`` (K5's z split on these columns)
+    and of the float32 plain version against the plain version run in
+    float64 on the same inputs, each stage fed the float32 plain outputs of
+    the one before -> (errors by stage and output, {check: (error, bound)})
+    with SPLIT_VS_PLAIN's bounds."""
+    def flat(out):
+        return (*out[:5], *(out[5] or ()))
+
+    by_stage, errs, g_prev = {}, {}, None
+    stage_case = dict(case)
+    for stage in range(3):
+        got = k3_run(solver, stage_case, stage, g_prev, True, k3d.stage_rk_3d_xy)
+        want = k3_run(solver, stage_case, stage, g_prev, False)
+        ref = k3_run(solver, {k: v.double() for k, v in stage_case.items()}, stage,
+                     None if g_prev is None else tuple(g.double() for g in g_prev), False)
+        names = K3_OUT + (G_OUT if stage < 2 else ())
+        kernel = abs_diffs(names, flat(ref), flat(got))
+        plain = abs_diffs(names, flat(ref), flat(want))
+        rec = {"kernel_vs_plain_float32": max(abs_diffs(names, flat(got), flat(want)).values())}
+        for n in names:
+            gate = K3_G_ATOL if n in G_OUT else K3_FIELD_ATOL
+            bound_n = max(gate, SPLIT_VS_PLAIN * plain[n])
+            rec[n] = {"kernel": kernel[n], "plain_float32": plain[n], "bound": bound_n}
+            errs[f"{prefix}stage{stage}_{n}"] = (kernel[n], bound_n)
+        by_stage[f"stage{stage}"] = rec
+        stage_case.update(zip("uvwb", want[:4]), q=solver.solve(want[4]))
+        g_prev = want[5]
+        del got, ref
+    return by_stage, errs
+
+
+def fine_grids(device, envs_3d=16, shape_3d=FINE_SHAPE_3D, odd_envs=64,
+               odd_shape=FINE_ODD_SHAPE_3D, dt_3d=FINE_DT_3D, heater_3d=FINE_HEATER_3D, steps=3,
+               flowstats_ra=2000, k1_envs=8, k1_shape=(128, 256), k1_substeps=(6, 50),
+               grids_2d=FINE_GRIDS_2D, envs_2d=((1024, (128, 256)), (64, (256, 512))),
+               observation_shape=(8, 48), timing_envs_2d=1024, reps=3) -> dict:
+    """Phase 41: the grids where the JAX package runs its kernels and the
+    port used to raise. 3D: K5's z split at each stage against its plain
+    version on ``shape_3d`` (``envs_3d``) and ``odd_shape`` (``odd_envs``),
+    ``split_stage_parity``; ``RBC3DVectorEnv(envs_3d, shape_3d)`` reset and
+    ``steps`` steps (finite, Nu, divergence, the split's launches, K4 one a
+    step, single-CTA K5 and K3 none); ``flowstats_ra.perform_experiment``
+    at one Ra, one env, ``steps`` steps on that grid. 2D: K1's off-chip
+    instance with its slabs in global scratch against its plain version on
+    ``k1_shape`` at ``k1_envs`` after 6 (K1_ATOL) and 50 (K1_MAIN_ATOL)
+    substeps, and at "bf16x3" and "default" with phase 39's gates;
+    ``RBC2DVectorEnv`` on each of ``envs_2d`` (reset, ``steps`` steps,
+    ``check_2d``, the instance ``steps`` launches and no other K1
+    instance). On the card: both instances' occupancy and CUDA-event times,
+    the split's per stage at ``shape_3d``, K1's at ``timing_envs_2d`` on
+    ``k1_shape`` (6 substeps), beside their plain versions and bounds."""
+    begin = time.perf_counter()
+    device = torch.device(device)
+    dtype = working_dtype(device)
+    gated, out, parts = {}, {"phase": "fine_grids"}, {}
+    mark = [begin]
+
+    def part(name):  # the seconds since the last part, under ``name``
+        now = time.perf_counter()
+        parts[name], mark[0] = now - mark[0], now
+
+    # ---- 3D: K5's z split --------------------------------------------------
+    nz, ny, nx = shape_3d
+    out["split_ctas"] = {"x".join(map(str, sh)): stage_xy_split_size(sh[0])
+                         for sh in (shape_3d, odd_shape)}
+    solver, case = make_case_3d(device, envs_3d, shape_3d, seed=41, dt_solver=dt_3d)
+    out["path_3d"] = solver.path
+    out["split_by_stage"], errs = split_stage_parity(solver, case)
+    gated.update(errs)
+    solver_odd, case_odd = make_case_3d(device, odd_envs, odd_shape, seed=42, dt_solver=dt_3d)
+    out["split_odd_by_stage"], errs = split_stage_parity(solver_odd, case_odd, "odd_")
+    gated.update(errs)
+    del case_odd
+    part("split_parity")
+
+    env = RBC3DVectorEnv(envs_3d, state_shape=shape_3d, dt_solver=dt_3d,
+                         heater_duration=heater_3d, dtype=dtype, device=device)
+    state, obs, ts, _, rec = drive_3d(env, steps, seed=0, counted=FINE_WRAPPERS_3D)
+    n_stages = steps * 3 * len(env.params.substep_dts())
+    expect_launches(device, rec["launches"], {"stage_rk_3d": 0, "stage_rk_3d_xy": 0,
+                                              "correct_3d": steps,
+                                              "stage_rk_3d_xy_split": n_stages})
+    out["main_path_3d"] = {**rec, **check_3d(env, state, obs, ts),
+                           "substeps_per_step": len(env.params.substep_dts())}
+    del env, state, obs, ts
+    part("main_path_3d")
+
+    reset_counters()
+    start = time.perf_counter()
+    record = fs3d.perform_experiment(flowstats_ra, steps, [nz, ny, nx], dt_3d, heater_3d, 1, 0,
+                                     str(device))
+    _sync(device)
+    launches = {k: WRAPPERS[k].launches for k in FINE_WRAPPERS_3D}
+    expect_launches(device, launches, {"stage_rk_3d": 0, "stage_rk_3d_xy": 0,
+                                       "correct_3d": steps, "stage_rk_3d_xy_split": n_stages})
+    nusselt = record["nusselt"]
+    if len(nusselt) != steps or not all(NU_RANGE_3D[0] <= n <= NU_RANGE_3D[1] for n in nusselt):
+        raise AssertionError(f"flowstats Nu {nusselt} outside {NU_RANGE_3D}")
+    _finite_record(record, ("nusselt", "max_u", "max_v", "max_w"))
+    out["flowstats_3d"] = {"ra": flowstats_ra, "nusselt": nusselt, "max_w": max(record["max_w"]),
+                           "seconds": time.perf_counter() - start, "launches": launches}
+    part("flowstats_3d")
+
+    # ---- 2D: K1's off-chip instance with its slabs in global scratch --------
+    k1_nz, k1_nx = k1_shape
+    if device.type == "cuda" and env_step_2d_slabs_on_chip(k1_nx, k1_nz):
+        raise AssertionError(f"{k1_shape} keeps K1's slabs on the chip")
+    k1_dt = grids_2d[tuple(k1_shape)][0]
+    k1 = {}
+    for n_sub, atol in zip(k1_substeps, (K1_ATOL, K1_MAIN_ATOL)):
+        s, c = make_case(device, k1_envs, k1_shape, heater_duration=n_sub * k1_dt, seed=43,
+                         dtype=torch.float32, dt_solver=k1_dt)
+        err = abs_diffs(K1_OUT, k1_run(s, c, True), k1_run(s, c, False))
+        k1[f"substeps_{n_sub}"] = err
+        gated[f"env_step_2d_global_{n_sub}"] = (max(err.values()), atol)
+        if n_sub == k1_substeps[0]:  # the TF32 instances, with phase 39's gates
+            err = abs_diffs(K1_OUT, k1_run(s, c, True, "high"), k1_run(s, c, False, "high"))
+            k1["bf16x3"] = err
+            gated["env_step_2d_global_bf16x3"] = (max(err.values()), K1_ATOL)
+            one = k1_tf32_errors(s, c, k1_run(s, c, True, "default"))
+            k1["default_vs_float64"] = one
+            gated["env_step_2d_global_default"] = (one["kernel"], one["bound"])
+        del s, c
+    out["env_step_2d_global"] = k1
+    part("global_slabs_parity")
+
+    out["main_path_2d"] = {}
+    for num_envs, shape in envs_2d:
+        dt, heater = grids_2d[tuple(shape)]
+        env = RBC2DVectorEnv(num_envs, state_shape=shape, dt_solver=dt, heater_duration=heater,
+                             observation_shape=observation_shape, dtype=dtype, device=device)
+        rng = np.random.default_rng(1)
+        actions = [rng.uniform(-1.0, 1.0, (num_envs, env.params.n_heaters)) for _ in range(steps)]
+        state, _ = env.reset(seed=0)
+        _sync(device)
+        reset_counters()
+        start = time.perf_counter()
+        for a in actions:
+            state, ts = env.step(state, a)
+        _sync(device)
+        steps_s = time.perf_counter() - start
+        launches = {k: WRAPPERS[k].launches for k in FINE_WRAPPERS_2D}
+        expect_launches(device, launches, {**dict.fromkeys(FINE_WRAPPERS_2D, 0),
+                                           "env_step_2d_global": steps})
+        out["main_path_2d"]["x".join(map(str, shape[::-1]))] = {
+            "num_envs": num_envs, "dt_solver": dt, "substeps_per_step":
+            env.params.substeps_per_env_step, "steps_s": steps_s,
+            "env_steps_per_s": num_envs * steps / steps_s, "launches": launches,
+            **check_2d(env, state, ts)}
+        del env, state, ts
+    part("main_path_2d")
+
+    failed = {k: v for k, v in gated.items() if not v[0] <= v[1]}
+    if failed:
+        raise AssertionError(f"fine-grid checks failed (error, bound): {failed}")
+    out["gated"] = {k: {"error": e, "bound": b} for k, (e, b) in gated.items()}
+    out["max_abs_err"] = {
+        "stage_rk_3d_xy_split": max(e for k, (e, _) in gated.items() if k.startswith("stage")),
+        "env_step_2d_global": gated[f"env_step_2d_global_{k1_substeps[-1]}"][0]}
+    out["launches"] = {"stage_rk_3d_xy_split": out["main_path_3d"]["launches"],
+                       "env_step_2d_global": out["main_path_2d"][
+                           "x".join(map(str, envs_2d[0][1][::-1]))]["launches"]}
+
+    times = {}
+    if device.type == "cuda":
+        out["occupancy"] = {"stage_rk_3d_xy_split": k3d.stage_xy_occupancy(nz),
+                            "env_step_2d_global": k2d.env_step_2d_occupancy(k1_nx, k1_nz)}
+        g_prev = k3_run(solver, case, 0, None, True, k3d.stage_rk_3d_xy)[5]
+        stages = []
+        for stage in range(3):
+            gp = g_prev if stage else None
+            work = stage_rk_3d_work(envs_3d, nx, ny, nz, stage)
+            bound_ms, bound_by = bound(work)
+            ms = _cuda_ms(lambda: k3_run(solver, case, stage, gp, True, k3d.stage_rk_3d_xy), reps)
+            stages.append({"ms": ms, "plain_ms": _cuda_ms(
+                lambda: k3_run(solver, case, stage, gp, False), 1), "bound_ms": bound_ms,
+                "bound_by": bound_by, "share_of_bound": bound_ms / ms, **work})
+        times["stage_rk_3d_xy_split"] = {
+            **{k: sum(st[k] for st in stages) / 3 for k in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": stages[1]["bound_by"], "num_envs": envs_3d,
+            "by_stage": stages}
+        del case, g_prev
+        s, c = make_case(device, timing_envs_2d, k1_shape, heater_duration=k1_substeps[0] * k1_dt,
+                         seed=45, dtype=torch.float32, dt_solver=k1_dt)
+        work = env_step_work(timing_envs_2d, k1_nx, k1_nz, k1_substeps[0])
+        bound_ms, bound_by = bound(work)
+        ms = _cuda_ms(lambda: k1_run(s, c, True), reps)
+        times["env_step_2d_global"] = {
+            "ms": ms, "plain_ms": _cuda_ms(lambda: k1_run(s, c, False), 1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "num_envs": timing_envs_2d,
+            "substeps": k1_substeps[0], **work}
+        for rec in times.values():
+            rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        part("timing")
+    out["times"] = times
+    out["seconds"], out["seconds_by_part"] = time.perf_counter() - begin, parts
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Records
 # ---------------------------------------------------------------------------
 
@@ -3768,6 +4033,8 @@ def main() -> int:
     emit({**precisions, "card": card})
     path_cluster = main_path_cluster(device)
     emit({**path_cluster, "card": card})
+    fine = fine_grids(device)
+    emit({**fine, "card": card})
     tf32 = {"env_step_2d_tf32x3": "bf16x3", "env_step_2d_tf32": "default"}
     # each kernel's launches from the main path that is its own (K4 runs on
     # every 3D path; its count is the training grid's lazy path, its error
@@ -3775,7 +4042,7 @@ def main() -> int:
     errors = {**parity["max_abs_err"], **parity_3d["max_abs_err"],
               "stage_rk_3d_xy": parity_big["max_abs_err"]["stage_rk_3d_xy"],
               **parity_field["max_abs_err"], **options["max_abs_err"],
-              **precisions["max_abs_err"]}
+              **precisions["max_abs_err"], **fine["max_abs_err"]}
     errors["correct_3d"] = max(errors["correct_3d"], parity_big["max_abs_err"]["correct_3d"])
     field_names = ("field_tendency_3d", "div_3d")
     emit({"kernels": kernel_records(
@@ -3785,12 +4052,13 @@ def main() -> int:
          **{k: path_field["launches"][k] for k in field_names},
          "stage_rk_3d_rhat": options["launches"]["stage_qp"]["stage_rk_3d_rhat"],
          **{k: precisions["launches"][name][k] for k, name in tf32.items()},
-         "env_step_2d_cluster": path_cluster["launches"]["env_step_2d_cluster"]},
+         "env_step_2d_cluster": path_cluster["launches"]["env_step_2d_cluster"],
+         **{k: fine["launches"][k][k] for k in fine["launches"]}},
         {**times["kernels"], **times_3d["kernels"],
          "stage_rk_3d_xy": times_big["kernels"]["stage_rk_3d_xy"],
          **{k: times_field["kernels"][k] for k in field_names},
          "stage_rk_3d_rhat": options["times"]["stage_rk_3d_rhat"],
-         **{k: precisions["times"][k] for k in tf32}})})
+         **{k: precisions["times"][k] for k in tf32}, **fine["times"]})})
     emit({"phase": "total", "seconds": time.perf_counter() - wall})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

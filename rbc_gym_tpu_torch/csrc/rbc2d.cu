@@ -85,14 +85,22 @@
 //   products as one 16 x 32 tile a warp summed over the slabs (nxl <=
 //   128, nz <= 64: at most 16 tiles). Compile-time 64 and 96 columns of 64
 //   levels a CTA at float32, a runtime-size instance otherwise.
-//   Every other grid with nx >= 3 whose two (nx, nz) slabs fit a block
-//   (8 nx nz bytes) runs the off-chip instance, env_step_2d_global_kernel:
-//   the state in the output tensors, the tendencies of this and the
-//   previous stage and pHY' in per-env global scratch, the slabs in shared
-//   memory, and each phase a loop over points between barriers (pHY' by the
-//   same warp scan, a chunk of 32 levels at a time from the top; the
-//   tendencies by ub5.cuh's tendencies_block; the same DCT-form solve, one
-//   32-column tile of each product after another).
+//   Every other grid with nx >= 3 runs the off-chip instance,
+//   env_step_2d_global_kernel: the state in the output tensors, the
+//   tendencies of this and the previous stage and pHY' in per-env global
+//   scratch, the two (nx, nz) slabs in shared memory where 8 nx nz bytes
+//   fit a block (127x64, 128x224), and each phase a loop over points
+//   between barriers (pHY' by the same warp scan, a chunk of 32 levels at a
+//   time from the top; the tendencies by ub5.cuh's tendencies_block; the
+//   same DCT-form solve, one 32-column tile of each product after another).
+//   On the finer grids (256x128, 512x256, 2048x64) its instance with
+//   kGlobalSlabs puts the slabs in the same per-env scratch after the rest
+//   and takes no shared memory; only the slab pointers differ, the phases
+//   and products are the same code. Simple first: every product then reads
+//   its slab operand through L1 and L2 (a block's two slabs are 256 KB at
+//   256x128, so beyond L2 at a full fleet they come from HBM); keeping them
+//   on the chip across a cluster, as the cluster instance does for nz <= 64,
+//   is the next pass.
 //   The split-product branch of the TPU kernel (pallas2d.py:270-304, dot3:
 //   each solve product as three one-pass bf16 dots over hi and lo parts;
 //   the 2D solver's poisson_precision "bf16x3") and its one-pass DEFAULT
@@ -182,10 +190,8 @@
 #include <type_traits>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
-#ifndef RBC_HOST_BUILD
-#include <cooperative_groups.h>
-#endif
 
+#include "cluster.cuh"
 #include "ub5.cuh"
 
 namespace {
@@ -257,31 +263,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-
-// ---- thread-block clusters (K1's cluster instance) ----------------------------
-
-// This CTA's rank in its cluster, and the cluster's CTAs.
-__device__ __forceinline__ int cluster_rank() {
-  return (int)cooperative_groups::this_cluster().block_rank();
-}
-__device__ __forceinline__ int cluster_size() {
-  return (int)cooperative_groups::this_cluster().num_blocks();
-}
-// The address of *p, in this CTA's shared memory, in CTA rank's (distributed
-// shared memory: a generic pointer the other SM's loads go through).
-template <class T>
-__device__ __forceinline__ T* cluster_map(T* p, int rank) {
-  return cooperative_groups::this_cluster().map_shared_rank(p, rank);
-}
-// Every thread of the cluster meets here: what any of them wrote before is
-// seen by all after (release, then acquire, at cluster scope). It is also a
-// barrier of the CTA's own threads.
-__device__ __forceinline__ void cluster_barrier() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
-               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-// The CTA's dynamic shared memory (on the host, each CTA's own buffer).
-__device__ __forceinline__ float* cta_shared(float* s) { return s; }
 
 // ---- Hopper's warpgroup products, bulk copies and barriers (K1's TF32
 // instances at 96x64) ------------------------------------------------------------
@@ -598,23 +579,39 @@ bool env_step_2d_cluster_fg(int nx, int nz) {
                       kSmemPerBlock;
 }
 
+// Whether K1 keeps its two (nx, nz) slabs in shared memory: on the chip and
+// on a cluster always; the off-chip instance where 8 nx nz bytes fit a
+// block (127x64, 128x224), else in global scratch (256x128, 2048x64).
+bool env_step_2d_slabs_on_chip(int nx, int nz) {
+  return env_step_2d_on_chip(nx, nz) || env_step_2d_cluster_size(nx, nz) > 0 ||
+         sizeof(float) * 2 * (size_t)nx * nz <= kSmemPerBlock;
+}
+
 // Shared memory K1 needs per block, in floats: the on-chip instance's, a
 // cluster CTA's (the on-chip layout over nx / c columns, and its rows of F
-// and G where they fit), or the off-chip one's two (nx, nz) slabs.
+// and G where they fit), or the off-chip one's two (nx, nz) slabs where
+// they fit (none where they go to global scratch).
 size_t env_step_2d_smem_floats(int nx, int nz) {
   if (env_step_2d_on_chip(nx, nz)) return on_chip_smem_floats(nx, nz);
   const int c = env_step_2d_cluster_size(nx, nz);
-  if (c == 0) return 2 * (size_t)nx * nz;
+  if (c == 0) return env_step_2d_slabs_on_chip(nx, nz) ? 2 * (size_t)nx * nz : 0;
   return on_chip_smem_floats(nx / c, nz) +
          (env_step_2d_cluster_fg(nx, nz) ? 2 * (size_t)(nx / c) * nx : 0);
 }
 
 // Global scratch per env, in floats: none on the chip or a cluster; off
-// them, gu, gw, gb of this stage and of the previous one, and pHY'.
+// them, gu, gw, gb of this stage and of the previous one, and pHY', then
+// the two slabs where they do not fit a block.
 size_t env_step_2d_scratch_floats(int nx, int nz) {
-  return env_step_2d_on_chip(nx, nz) || env_step_2d_cluster_size(nx, nz) > 0
-             ? 0
-             : 5 * (size_t)nx * nz + 2 * (size_t)nx * (nz + 1);
+  if (env_step_2d_on_chip(nx, nz) || env_step_2d_cluster_size(nx, nz) > 0) return 0;
+  return (env_step_2d_slabs_on_chip(nx, nz) ? 5 : 7) * (size_t)nx * nz +
+         2 * (size_t)nx * (nz + 1);
+}
+
+// K1 indexes an env's fields and scratch with 32-bit offsets: they stay
+// under 9 nx (nz + 1) floats.
+bool env_step_2d_offsets_fit(int nx, int nz) {
+  return 9 * (size_t)nx * (nz + 1) <= (size_t)INT_MAX;
 }
 
 struct State2D {
@@ -1211,8 +1208,9 @@ __device__ __forceinline__ void block_product(const float* L, const float* R, in
 }
 
 // K1's off-chip instance (see the head of this file), for the grids the
-// on-chip one cannot hold.
-template <int kPasses = 0>
+// on-chip one cannot hold; kGlobalSlabs: its two slabs in per-env global
+// scratch after the rest, where they do not fit a block.
+template <int kPasses = 0, bool kGlobalSlabs = false>
 __global__ void __launch_bounds__(kK1Threads)
 env_step_2d_global_kernel(const float* __restrict__ u_in, const float* __restrict__ w_in,
                           const float* __restrict__ b_in, const float* __restrict__ bottom_in,
@@ -1231,15 +1229,15 @@ env_step_2d_global_kernel(const float* __restrict__ u_in, const float* __restric
   float* b = b_all + e * nc;
   float* p = p_all + e * nc;
   const float* bottom = bottom_in + e * nx;
-  float* gu = scratch + e * (size_t)(5 * nc + 2 * nf);  // env_step_2d_scratch_floats
+  float* gu = scratch + e * (size_t)((kGlobalSlabs ? 7 : 5) * nc + 2 * nf);  // env_step_2d_scratch_floats
   float* gw = gu + nc;
   float* gb = gw + nf;
   float* gu0 = gb + nc;  // the previous stage's
   float* gw0 = gu0 + nc;
   float* gb0 = gw0 + nf;
   float* p_hy = gb0 + nc;
-  float* s1 = smem;       // the divergence, then R~
-  float* s2 = smem + nc;  // r_hat, then p_hat
+  float* s1 = kGlobalSlabs ? p_hy + nc : smem;  // the divergence, then R~
+  float* s2 = s1 + nc;                          // r_hat, then p_hat
 
   for (int q = threadIdx.x; q < nc; q += kK1Threads) {
     u[q] = u_in[e * nc + q];
@@ -1321,11 +1319,12 @@ env_step_2d_global_kernel(const float* __restrict__ u_in, const float* __restric
   }
 }
 
-// The off-chip K1 instance for a pass count.
-decltype(&env_step_2d_global_kernel<0>) env_step_global_kernel_for(int passes) {
-  if (passes == 3) return env_step_2d_global_kernel<3>;
-  if (passes == 1) return env_step_2d_global_kernel<1>;
-  return env_step_2d_global_kernel<0>;
+// The off-chip K1 instance for a pass count, its slabs in shared memory or
+// (slabs = false) in global scratch.
+decltype(&env_step_2d_global_kernel<0>) env_step_global_kernel_for(int passes, bool slabs) {
+  if (passes == 3) return slabs ? env_step_2d_global_kernel<3> : env_step_2d_global_kernel<3, true>;
+  if (passes == 1) return slabs ? env_step_2d_global_kernel<1> : env_step_2d_global_kernel<1, true>;
+  return slabs ? env_step_2d_global_kernel<0> : env_step_2d_global_kernel<0, true>;
 }
 
 // ---- K1's cluster instance ----------------------------------------------------
@@ -2136,8 +2135,8 @@ int launch_env_step_2d(const float* u, const float* w, const float* b,
   const bool wgmma = on_chip && k1_wgmma(nx, nz, passes);
   const size_t smem = wgmma ? k1_wgmma_smem_bytes(passes)
                             : sizeof(float) * env_step_2d_smem_floats(nx, nz);
-  if (nx < kK1MinNx || nz < 1 || smem > kSmemPerBlock || n_substeps < 1 ||
-      (!on_chip && csize == 0 && scratch == nullptr) ||
+  if (nx < kK1MinNx || nz < 1 || !env_step_2d_offsets_fit(nx, nz) || smem > kSmemPerBlock ||
+      n_substeps < 1 || (!on_chip && csize == 0 && scratch == nullptr) ||
       (passes != 0 && passes != 1 && passes != 3) || (wgmma && tf32 == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -2165,7 +2164,7 @@ int launch_env_step_2d(const float* u, const float* w, const float* b,
     return (int)cudaGetLastError();
   }
   if (!on_chip) {
-    auto* global = env_step_global_kernel_for(passes);
+    auto* global = env_step_global_kernel_for(passes, env_step_2d_slabs_on_chip(nx, nz));
     cudaError_t err =
         cudaFuncSetAttribute(global, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -2186,7 +2185,8 @@ int launch_env_step_2d(const float* u, const float* w, const float* b,
 
 // What the card gives the K1 instance its launcher picks for a grid and a
 // pass count: out[0] the instance (0 on the chip, 1 the cluster, 2 off the
-// chip), out[1] CTAs a cluster (1 off a cluster), out[2] blocks resident on
+// chip with its slabs in shared memory, 3 off the chip with its slabs in
+// global scratch), out[1] CTAs a cluster (1 off a cluster), out[2] blocks resident on
 // an SM, out[3] clusters resident on the card at once
 // (cudaOccupancyMaxActiveClusters; 0 off a cluster), out[4] registers a
 // thread, out[5] local memory a thread (stack and spills), bytes, out[6]
@@ -2197,14 +2197,15 @@ int env_step_2d_occupancy(int nx, int nz, int passes, int* out) {
   const size_t smem = on_chip && k1_wgmma(nx, nz, passes)
                           ? k1_wgmma_smem_bytes(passes)
                           : sizeof(float) * env_step_2d_smem_floats(nx, nz);
-  if (nx < kK1MinNx || nz < 1 || smem > kSmemPerBlock ||
+  const bool slabs = env_step_2d_slabs_on_chip(nx, nz);
+  if (nx < kK1MinNx || nz < 1 || !env_step_2d_offsets_fit(nx, nz) || smem > kSmemPerBlock ||
       (passes != 0 && passes != 1 && passes != 3)) {
     return (int)cudaErrorInvalidValue;
   }
   const void* kernel = on_chip     ? (const void*)env_step_kernel_for(nx, nz, passes)
                        : csize > 0 ? (const void*)env_step_cluster_kernel_for(nx / csize, nz,
                                                                              passes)
-                                   : (const void*)env_step_global_kernel_for(passes);
+                                   : (const void*)env_step_global_kernel_for(passes, slabs);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -2229,7 +2230,8 @@ int env_step_2d_occupancy(int nx, int nz, int passes, int* out) {
     err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
     if (err != cudaSuccess) return (int)err;
   }
-  const int rec[7] = {on_chip ? 0 : (csize > 0 ? 1 : 2), csize > 0 ? csize : 1, blocks, clusters,
+  const int rec[7] = {on_chip ? 0 : (csize > 0 ? 1 : (slabs ? 2 : 3)), csize > 0 ? csize : 1,
+                      blocks, clusters,
                       attr.numRegs, (int)attr.localSizeBytes, (int)smem};
   for (int i = 0; i < 7; ++i) out[i] = rec[i];
   return 0;

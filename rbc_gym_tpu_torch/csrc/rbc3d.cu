@@ -127,6 +127,35 @@
 //   warps). There is no matrix product, so no wgmma or tensor cores. The
 //   Pallas kernel's _YH = 8 (the TPU's sublane tiling), e_blk and XLA-side
 //   padding have no counterpart.
+//   K5's z split, stage_march_kernel<0, -1, kStage, false, true>, takes the
+//   columns one CTA cannot hold (nz >= 107: the rings above 232,448 bytes,
+//   and past nz = 113 the (kYT + 1) nz threads above 1024), which the
+//   Pallas kernel takes with no nz limit. Each block of the grid above
+//   becomes a thread-block cluster of c = 2, 4 or 8 CTAs
+//   (stage_xy_split_size: the smallest that fits; 2 up to nz = 198, 8 up
+//   to 784), launched with cudaLaunchKernelEx and a cluster dimension. CTA
+//   r owns the levels [r p, (r + 1) p), p = ceil(nz / c), the last part
+//   shorter, and holds kSplitHalo = 4 more on each inner side: the taps
+//   reach 3 levels, and the correction of w's lowest held tap face needs q
+//   one level further. Each CTA copies its window of every staged plane
+//   straight from global memory with the same cp.async ring, so the field
+//   halos need no distributed shared memory, and computes K5's point
+//   arithmetic unchanged at its own levels (the z ladder and the walls by
+//   the column's level, the taps clamped into the column) and w* at its
+//   faces [z0, z1]: face z1, whose w* its top divergence needs, is the next
+//   CTA's too, computed identically by both and written by its owner. Its
+//   rows have p + 1 threads, (kYT + 1) (p + 1) a CTA. The only value that
+//   crosses CTAs is pHY', K5's float64 suffix sum down each column: row
+//   kYT sums its CTA's levels of plane i + 3 into a partial total in its
+//   shared memory (two planes by parity), the plane's one cluster barrier
+//   (barrier.cluster arrive.release / wait.acquire, in place of the CTA
+//   barrier after the copy) publishes it, and during plane i + 1 the row
+//   reads the totals of the CTAs above through distributed shared memory
+//   (cluster_map), adds them in float64 and sums down its own levels from
+//   there, so each value still rounds once. Shared memory, in floats: 40
+//   (the totals) plus K5's formula over the held levels: 148,880 bytes a
+//   CTA at nz = 128, 585 threads, one CTA an SM. On the host, with no FMA
+//   contraction, the split's outputs are single-CTA K5's bit for bit.
 //
 // K4 correct_3d_kernel replaces ops/pallas3d.py:_correct_kernel (reached
 // from make_projection_glue_3d, pl.pallas_call at :959): u -= ddx q,
@@ -202,6 +231,7 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "cluster.cuh"
 #include "ub5.cuh"
 
 namespace {
@@ -443,6 +473,56 @@ size_t field_smem_floats(int ny, int nz) {
 // 0..kYT (NY < 0), K3's and K6's rows 0..ny - 1 (NY >= 0).
 __host__ __device__ constexpr int march_threads(int nz, int ny) { return (ny < 0 ? kYT + 1 : ny) * nz; }
 
+// K5's z split (see the head of this file): a cluster of c CTAs for each
+// block of the single-CTA K5, CTA r owning the levels [r part, (r + 1)
+// part) of the column (the last part shorter) and holding kSplitHalo more
+// on each inner side; two planes' partial sums of pHY' (kPRows columns, as
+// doubles) head its shared memory.
+constexpr int kSplitHalo = 4;
+constexpr int kXYMaxSplit = 8;  // the portable cluster size
+constexpr int kSplitTotFloats = 2 * 2 * kPRows;
+
+__host__ __device__ constexpr int split_part(int nz, int c) { return (nz + c - 1) / c; }
+
+// The most levels a CTA of the split holds.
+int split_levels(int nz, int c) {
+  const int part = split_part(nz, c);
+  int most = 0;
+  for (int r = 0; r < c; ++r) {
+    const int z0 = r * part, z1 = min(z0 + part, nz);
+    most = max(most, min(z1 + kSplitHalo, nz) - max(z0 - kSplitHalo, 0));
+  }
+  return most;
+}
+
+// Threads of a split CTA: rows 0..kYT of part + 1 levels (the last one the
+// face above its part, whose w* its top divergence needs).
+int split_threads(int nz, int c) { return (kYT + 1) * (split_part(nz, c) + 1); }
+
+// Shared memory a split CTA needs, in floats: the partial sums, then K5's
+// rings over the levels it holds.
+size_t stage_xy_split_smem_floats(int nz, int c) {
+  return kSplitTotFloats + stage_xy_smem_floats(split_levels(nz, c));
+}
+
+// The CTAs of K5's z split for a column of nz levels: 0 where one CTA holds
+// it (its rings in a block, its (kYT + 1) nz threads at most 1024: nz <=
+// 106), else the smallest c of 2, 4 and 8 whose parts are all non-empty and
+// whose CTAs' threads and shared memory fit; 0 where none does (nz > 784).
+int stage_xy_split_size(int nz) {
+  if (sizeof(float) * stage_xy_smem_floats(nz) <= kSmemPerBlock &&
+      march_threads(nz, -1) <= kMaxThreads) {
+    return 0;
+  }
+  for (int c = 2; c <= kXYMaxSplit; c *= 2) {
+    if ((c - 1) * split_part(nz, c) < nz && split_threads(nz, c) <= kMaxThreads &&
+        sizeof(float) * stage_xy_split_smem_floats(nz, c) <= kSmemPerBlock) {
+      return c;
+    }
+  }
+  return 0;
+}
+
 // Whether K6 takes the grid with its march instance (K3's whole-y rule);
 // every other grid runs its general instance.
 bool field_on_march(int nx, int ny, int nz) {
@@ -514,8 +594,9 @@ __device__ __forceinline__ void rhat_x_factor(float* col, const float* __restric
 // compile time. kRhat: K3's analysis instance, which writes rhat = T_A div
 // to div_out in place of div, from Fx and Cz^T in `analysis` (NULL for
 // every other instance: a pointer in XYParams moved the other instances'
-// register allocation); it has K3's launch bounds.
-template <int NZ, int NY, int kField = kStage, bool kRhat = false>
+// register allocation); it has K3's launch bounds. kSplit: K5's z split,
+// one CTA of a cluster that shares each block's column (NZ = 0, NY < 0).
+template <int NZ, int NY, int kField = kStage, bool kRhat = false, bool kSplit = false>
 __global__ void __launch_bounds__(NZ > 0 && NY != 0 ? march_threads(NZ, NY) : kMaxThreads,
                                   NY < 0 ? (NZ == 32 ? 3 : 1) : (NZ > 0 && NY > 0 ? 2 : 1))
 stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
@@ -530,36 +611,73 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   constexpr bool kK6 = kField != kStage;
   static_assert(!kK6 || kWhole, "K6 marches over whole y");
   static_assert(!kRhat || (kWhole && !kK6), "the analysis instance is K3's");
+  static_assert(!kSplit || (NZ == 0 && !kWhole), "the z split is K5's, at a runtime nz");
   // the tendencies this instance computes; b is read for gb and for pHY'
   constexpr bool kU = runs(kField, kFieldU), kV = runs(kField, kFieldV);
   constexpr bool kW = runs(kField, kFieldW), kB = runs(kField, kFieldB);
   constexpr bool kPhy = kU || kV, kReadsB = kPhy || kB;
   constexpr int kYF = kK6 ? 1 : 4;  // fields whose y fluxes are staged
   extern __shared__ float smem[];
-  const int nx = P.nx, ny = NY > 0 ? NY : P.ny, nz = NZ > 0 ? NZ : P.nz, nw = nz + 1;
-  // this thread's point of every x-plane: row j, level k; the only
-  // divisions by a runtime size are these and the block's
-  const int j = threadIdx.x / nz, k = threadIdx.x - j * nz;
+  // The column's nzg levels. The split's CTA `rank` of n_cta owns the
+  // levels [z0, z1) and holds [zlo, zhi); elsewhere a CTA owns and holds
+  // them all. (Each expression below that differs for the split is a
+  // kSplit ? split : the single CTA's own, so that the other instances
+  // compile as they did.)
+  const int nx = P.nx, ny = NY > 0 ? NY : P.ny, nzg = NZ > 0 ? NZ : P.nz;
+  int n_cta = 1, rank = 0, part = nzg, z0 = 0, z1 = nzg, zlo = 0, zhi = nzg;
+  if constexpr (kSplit) {
+    n_cta = cluster_size();
+    rank = cluster_rank();
+    part = split_part(nzg, n_cta);
+    z0 = rank * part;
+    z1 = min(z0 + part, nzg);
+    zlo = max(z0 - kSplitHalo, 0);
+    zhi = min(z1 + kSplitHalo, nzg);
+  }
+  // nz: the levels of a ring's row (nzg, or the split's zhi - zlo)
+  const int nz = kSplit ? zhi - zlo : nzg, nw = nz + 1;
+  // this thread's point of every x-plane: row j, level k of the rings, kz of
+  // the column; the only divisions by a runtime size are these and the
+  // block's. A split row has part + 1 threads, the last one face z1's.
+  const int tk = kSplit ? part + 1 : nz;
+  const int j = threadIdx.x / tk, kl = threadIdx.x - j * tk;
+  const int kz = kSplit ? z0 + kl : kl, k = kSplit ? kz - zlo : kl;
   const int n_rows = kWhole ? ny : kYT + 1;  // rows of threads
   size_t e;
   int y0;
   if constexpr (kWhole) {
     e = blockIdx.x;
     y0 = 0;
+  } else if constexpr (kSplit) {
+    const unsigned blk = blockIdx.x / n_cta;  // the cluster
+    const int nyb = ny / kYT;
+    e = blk / nyb;
+    y0 = (blk - (int)e * nyb) * kYT;
   } else {
     const int nyb = ny / kYT;
     e = blockIdx.x / nyb;
     y0 = (blockIdx.x - (int)e * nyb) * kYT;
   }
-  const size_t S = (size_t)ny * nz, SW = (size_t)ny * nw;
+  const size_t S = (size_t)ny * (kSplit ? nzg : nz), SW = (size_t)ny * (kSplit ? nzg + 1 : nw);
   const size_t cell0 = e * nx * S, face0 = e * nx * SW;
-  const bool own = kWhole || j < kYT;  // K5's row kYT computes v* only, for the divergence
+  // the split's CTA computes u*, v*, b' at its levels and w* at its faces
+  // [z0, z1], and writes the faces it owns: face z1 is the next CTA's (the
+  // last CTA's top wall its own)
+  const bool cell = !kSplit || kz < z1, writes_w = !kSplit || kz < z1 || z1 == nzg;
+  const bool w_interior = kz > 0 && kz < nzg;  // the split's: its faces reach the top wall
+  // K5's row kYT computes v* only, for the divergence
+  const bool own = kSplit ? j < kYT && kz <= z1 : kWhole || j < kYT;
+  const bool phy_row = kSplit ? j == kYT : !own;  // the split's pHY' row
   const int jp = kWhole ? wrap_x(j + 1, ny) : j + 1;  // the row of v* above
 
   // each ring's first row and rows: K5's tile and halos, K3's every row
   auto lo = [&](int tile_lo) { return kWhole ? 0 : tile_lo; };
   auto rows = [&](int tile_rows) { return kWhole ? ny : tile_rows; };
-  Ring<kRing, kWhole> U{smem, lo(kULo), rows(kURows), nz};
+  // the split's partial sums of pHY' (two planes of kPRows columns) head
+  // its shared memory, at one address in every CTA of the cluster
+  double* const tot = reinterpret_cast<double*>(cta_shared(smem));
+  Ring<kRing, kWhole> U{kSplit ? cta_shared(smem) + kSplitTotFloats : smem, lo(kULo),
+                        rows(kURows), nz};
   Ring<kRing, kWhole> V{U.end(), lo(kVLo), rows(kVRows), nz};
   Ring<kRing, kWhole> W{V.end(), lo(kWLo), rows(kWRows), nw};
   Ring<kRing, kWhole> B{W.end(), lo(kBLo), rows(kBRows), nz};
@@ -583,28 +701,51 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
     for (int r = R.lo + j; r < R.lo + R.rows; r += n_rows) {
       const float* s = src + wrap_x(y0 + r, ny) * row_stride;
       float* d = R.row(x, r);
-      __pipeline_memcpy_async(d + k, s + k, sizeof(float));
-      if (R.nk > nz && k == 0) __pipeline_memcpy_async(d + nz, s + nz, sizeof(float));
+      if constexpr (kSplit) {  // the held levels, from zlo
+        for (int kk = kl; kk < R.nk; kk += tk)
+          __pipeline_memcpy_async(d + kk, s + zlo + kk, sizeof(float));
+      } else {
+        __pipeline_memcpy_async(d + k, s + k, sizeof(float));
+        if (R.nk > nz && k == 0) __pipeline_memcpy_async(d + nz, s + nz, sizeof(float));
+      }
     }
   };
   auto load_q = [&](int x) {  // q is (E, ny, nx, nz): row y of plane x is one run
-    const float* qe = q_in + e * ny * nx * nz + (size_t)wrap_x(x, nx) * nz;
+    const float* qe = q_in + e * ny * nx * nzg + (size_t)wrap_x(x, nx) * nzg;
     for (int r = Q.lo + j; r < Q.lo + Q.rows; r += n_rows) {
-      __pipeline_memcpy_async(Q.row(x, r) + k, qe + (size_t)wrap_x(y0 + r, ny) * nx * nz + k,
-                              sizeof(float));
+      if constexpr (kSplit) {
+        const float* qr = qe + (size_t)wrap_x(y0 + r, ny) * nx * nzg + zlo;
+        for (int kk = kl; kk < nz; kk += tk)
+          __pipeline_memcpy_async(Q.row(x, r) + kk, qr + kk, sizeof(float));
+      } else {
+        __pipeline_memcpy_async(Q.row(x, r) + k, qe + (size_t)wrap_x(y0 + r, ny) * nx * nz + k,
+                                sizeof(float));
+      }
     }
   };
   auto load_plane = [&](int x) {
     const size_t xc = (size_t)wrap_x(x, nx);
-    copy_rows(U, u_in + cell0 + xc * S, nz, x);
-    copy_rows(V, v_in + cell0 + xc * S, nz, x);
-    if constexpr (kReadsB) copy_rows(B, b_in + cell0 + xc * S, nz, x);
-    copy_rows(W, w_in + face0 + xc * SW, nw, x);
+    copy_rows(U, u_in + cell0 + xc * S, kSplit ? nzg : nz, x);
+    copy_rows(V, v_in + cell0 + xc * S, kSplit ? nzg : nz, x);
+    if constexpr (kReadsB) copy_rows(B, b_in + cell0 + xc * S, kSplit ? nzg : nz, x);
+    copy_rows(W, w_in + face0 + xc * SW, kSplit ? nzg + 1 : nw, x);
     if constexpr (!kK6) load_q(x);
     __pipeline_commit();
   };
   // ---- lazy-projection correction of plane x, once, as it arrives ----------
   auto correct_plane = [&](int x) {
+    if constexpr (kSplit) {  // every held level; w at the held faces with q below them
+      for (int r = U.lo + j; r < U.lo + U.rows; r += n_rows)
+        for (int kk = kl; kk < nz; kk += tk)
+          U.row(x, r)[kk] -= (Q.row(x, r)[kk] - Q.row(x - 1, r)[kk]) * P.idx;
+      for (int r = V.lo + j; r < V.lo + V.rows; r += n_rows)
+        for (int kk = kl; kk < nz; kk += tk)
+          V.row(x, r)[kk] -= (Q.row(x, r)[kk] - Q.row(x, r - 1)[kk]) * P.idy;
+      for (int r = W.lo + j; r < W.lo + W.rows; r += n_rows)
+        for (int kk = kl + 1; kk < nz; kk += tk)
+          W.row(x, r)[kk] -= (Q.row(x, r)[kk] - Q.row(x, r)[kk - 1]) * P.idz;
+      return;
+    }
     for (int r = U.lo + j; r < U.lo + U.rows; r += n_rows)
       U.row(x, r)[k] -= (Q.row(x, r)[k] - Q.row(x - 1, r)[k]) * P.idx;
     for (int r = V.lo + j; r < V.lo + V.rows; r += n_rows)
@@ -635,15 +776,58 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
       for (int r = r0; r < r1; r += nz) hydrostatic_column(B.row(x, r), PH.row(x, r), nz, P);
     }
   };
+  // The split's pHY' of plane x, in two passes around a cluster barrier by
+  // its row kYT, a column a thread: phy_total puts this CTA's part of each
+  // column's sum (the increments of its levels; the last CTA's with the top
+  // half cell) into tot[x & 1]; phy_column then sums down its levels in
+  // float64 from the parts of the CTAs above, read from their shared
+  // memory, so that each value still rounds once.
+  auto phy_inc = [&](const float* bc, int m) {  // the increment of level m
+    return (double)P.dz * (0.5 * ((double)bc[m - zlo] + (double)bc[m + 1 - zlo]));
+  };
+  auto phy_total = [&](int x) {
+    for (int r = kPLo + kl; r < kPLo + kPRows; r += tk) {
+      const float* bc = B.row(x, r);
+      double acc = z1 == nzg ? 0.5 * (double)P.dz * P.min_b : 0.0;
+      for (int m = min(z1, nzg - 1) - 1; m >= z0; --m) acc += phy_inc(bc, m);
+      tot[(x & 1) * kPRows + r - kPLo] = acc;
+    }
+  };
+  auto phy_column = [&](int x) {
+    for (int r = kPLo + kl; r < kPLo + kPRows; r += tk) {
+      const float* bc = B.row(x, r);
+      float* pc = PH.row(x, r);
+      double acc = 0.0;
+      int m = z1 - 1;
+      if (z1 == nzg) {  // the top: the half cell under the lid
+        acc = 0.5 * (double)P.dz * P.min_b;
+        pc[nzg - 1 - zlo] = (float)-acc;
+        m = nzg - 2;
+      } else {
+        for (int c = n_cta - 1; c > rank; --c)
+          acc += cluster_map(tot, c)[(x & 1) * kPRows + r - kPLo];
+      }
+      for (; m >= z0; --m) {
+        acc += phy_inc(bc, m);
+        pc[m - zlo] = (float)-acc;
+      }
+    }
+  };
 
   // z ladder orders of this thread's faces k and k + 1 in a column of nz
   // (u, v, b) and of nz + 1 points (w), once; z taps clamped into the column
-  const ZOrders zc0 = z_orders(k, nz), zc1 = z_orders(k + 1, nz);
-  const ZOrders zw0 = z_orders(k, nw), zw1 = z_orders(k + 1, nw);
-  int zt[7], zwt[7];  // offsets of taps k-3..k+3
+  const ZOrders zc0 = z_orders(kz, nzg), zc1 = z_orders(kz + 1, nzg);
+  const ZOrders zw0 = z_orders(kz, kSplit ? nzg + 1 : nw);
+  const ZOrders zw1 = z_orders(kz + 1, kSplit ? nzg + 1 : nw);
+  int zt[7], zwt[7];  // ring offsets of taps kz-3..kz+3
   for (int o = 0; o < 7; ++o) {
-    zt[o] = min(max(k + o - 3, 0), nz - 1);
-    zwt[o] = min(max(k + o - 3, 0), nw - 1);
+    if constexpr (kSplit) {
+      zt[o] = min(max(kz + o - 3, 0), nzg - 1) - zlo;
+      zwt[o] = min(max(kz + o - 3, 0), nzg) - zlo;
+    } else {
+      zt[o] = min(max(k + o - 3, 0), nz - 1);
+      zwt[o] = min(max(k + o - 3, 0), nw - 1);
+    }
   }
 
   // flux(k + 1) - flux(k) of a column's z fluxes through this thread's two
@@ -734,22 +918,39 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
       __syncthreads();
     }
   }
-  if constexpr (kPhy) {
+  if constexpr (kSplit) {  // pHY' of planes -1..1, and the partial sums of plane 2
+    for (int x = -1; x <= 1; ++x) {
+      if (phy_row) phy_total(x);
+      cluster_barrier();
+      if (phy_row) phy_column(x);
+    }
+    if (phy_row) phy_total(2);
+  } else if constexpr (kPhy) {
     if (kWhole || !own) {
       for (int x = -1; x <= 1; ++x) hydrostatic(x);
     }
   }
   if constexpr (kWhole) y_fluxes(0);
   float fu = 0.0f, fv = 0.0f, fw = 0.0f, fb = 0.0f;
-  if constexpr (kV) fv = xflux_v(0);
+  if constexpr (kV) {
+    if (cell) fv = xflux_v(0);
+  }
   if (own) {
-    if constexpr (kU) fu = xflux_u(-1);
-    if constexpr (kB) fb = xflux_b(0);
+    if constexpr (kU) {
+      if (cell) fu = xflux_u(-1);
+    }
+    if constexpr (kB) {
+      if (cell) fb = xflux_b(0);
+    }
     if constexpr (kW) {
-      if (k > 0) fw = xflux_w(0);
+      if (kSplit ? w_interior : k > 0) fw = xflux_w(0);
     }
   }
-  __syncthreads();
+  if constexpr (kSplit) {
+    cluster_barrier();  // every CTA's partial sums of plane 2
+  } else {
+    __syncthreads();
+  }
 
   const bool emit_g = gu_out != nullptr, reads_g = gu_prev != nullptr;
   // f + dt (gamma g + zeta g_prev), K3's rk_update on a loaded g_prev; stage 0 has none
@@ -759,101 +960,113 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   float u_first = 0.0f, u_prev = 0.0f, dv = 0.0f, dw = 0.0f;
   for (int i = 0; i < nx; ++i) {
     load_plane(i + 4);  // into plane i - 4's slot, overlapping this plane
-    const size_t o = cell0 + (size_t)i * S + (size_t)(y0 + j) * nz + k;
-    const size_t ov = cell0 + (size_t)i * S + (size_t)wrap_x(y0 + j, ny) * nz + k;
-    const size_t ow = face0 + (size_t)i * SW + (size_t)(y0 + j) * nw + k;
+    const size_t o = cell0 + (size_t)i * S + (size_t)(y0 + j) * (kSplit ? nzg : nz) + kz;
+    const size_t ov = cell0 + (size_t)i * S + (size_t)wrap_x(y0 + j, ny) * (kSplit ? nzg : nz) + kz;
+    const size_t ow = face0 + (size_t)i * SW + (size_t)(y0 + j) * (kSplit ? nzg + 1 : nw) + kz;
     // this point's g_prev and bottom, loaded before the arithmetic hides them
     float gp_u = 0.0f, gp_v = 0.0f, gp_w = 0.0f, gp_b = 0.0f, bottom = 0.0f;
     if (!kK6 && reads_g) {
-      gp_v = gv_prev[ov];
+      if (cell) gp_v = gv_prev[ov];
       if (own) {
-        gp_u = gu_prev[o];
+        if (cell) gp_u = gu_prev[o];
         gp_w = gw_prev[ow];
-        gp_b = gb_prev[o];
+        if (cell) gp_b = gb_prev[o];
       }
     }
-    if (kB && own && k == 0) bottom = bottom_in[(e * nx + i) * ny + y0 + j];
+    if (kB && own && kz == 0) bottom = bottom_in[(e * nx + i) * ny + y0 + j];
     const float* vc = V.row(i, j);
     // ---- gv and v* at (i, j, k), rows 0..kYT ----
     if constexpr (kV) {
-      const float f_new = xflux_v(i + 1);
-      float adv = (f_new - fv) * P.idx;
-      fv = f_new;
-      if constexpr (kWhole) {
-        adv += y_diff(i, 1, j, jm) * P.idy;
-      } else {
-        const float vc_j = 0.5f * (vc[k] + V.row(i, j + 1)[k]);
-        const float vc_jm = 0.5f * (V.row(i, j - 1)[k] + vc[k]);
-        adv += (yflux(V, i, j + 1, k, vc_j) - yflux(V, i, j, k, vc_jm)) * P.idy;
-      }
-      const float* wa = W.row(i, j - 1);
-      const float* wb = W.row(i, j);
-      const float wf_k = 0.5f * (wa[k] + wb[k]), wf_kp = 0.5f * (wa[k + 1] + wb[k + 1]);
-      const float t0 = vc[zt[0]], t1 = vc[zt[1]], t2 = vc[zt[2]], t3 = vc[k],
-                  t4 = vc[zt[4]], t5 = vc[zt[5]], t6 = vc[zt[6]];
-      adv += z_flux_diff(t0, t1, t2, t3, t4, t5, t6, wf_k, wf_kp) * P.idz;
-      const float dphy = (PH.row(i, j)[k] - PH.row(i, j - 1)[k]) * P.idy;
-      const float qm = k > 0 ? t2 : -vc[0], qp = k < nz - 1 ? t4 : -vc[nz - 1];
-      const float lap = lap_h(V, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
-      const float g = -adv - dphy + P.nu * lap;
-      if constexpr (kK6) {
-        gv_out[o] = g;
-      } else {
-        const float f = rk_value(t3, g, gp_v);
-        vs[j * nz + k] = f;
-        if (own) {
-          v_out[o] = f;
-          if (emit_g) gv_out[o] = g;
+      if (cell) {
+        const float f_new = xflux_v(i + 1);
+        float adv = (f_new - fv) * P.idx;
+        fv = f_new;
+        if constexpr (kWhole) {
+          adv += y_diff(i, 1, j, jm) * P.idy;
+        } else {
+          const float vc_j = 0.5f * (vc[k] + V.row(i, j + 1)[k]);
+          const float vc_jm = 0.5f * (V.row(i, j - 1)[k] + vc[k]);
+          adv += (yflux(V, i, j + 1, k, vc_j) - yflux(V, i, j, k, vc_jm)) * P.idy;
+        }
+        const float* wa = W.row(i, j - 1);
+        const float* wb = W.row(i, j);
+        const float wf_k = 0.5f * (wa[k] + wb[k]), wf_kp = 0.5f * (wa[k + 1] + wb[k + 1]);
+        const float t0 = vc[zt[0]], t1 = vc[zt[1]], t2 = vc[zt[2]], t3 = vc[k],
+                    t4 = vc[zt[4]], t5 = vc[zt[5]], t6 = vc[zt[6]];
+        adv += z_flux_diff(t0, t1, t2, t3, t4, t5, t6, wf_k, wf_kp) * P.idz;
+        const float dphy = (PH.row(i, j)[k] - PH.row(i, j - 1)[k]) * P.idy;
+        const float qm = kz > 0 ? t2 : -vc[0], qp = kz < nzg - 1 ? t4 : -vc[nz - 1];
+        const float lap = lap_h(V, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
+        const float g = -adv - dphy + P.nu * lap;
+        if constexpr (kK6) {
+          gv_out[o] = g;
+        } else {
+          const float f = rk_value(t3, g, gp_v);
+          vs[j * nz + k] = f;
+          if (own) {
+            v_out[o] = f;
+            if (emit_g) gv_out[o] = g;
+          }
         }
       }
     }
     // K5's row kYT, which has no other work, sums pHY' of plane i + 2
-    // meanwhile; K3's and K6's threads take their own points of it
-    if (kPhy && (kWhole || !own)) hydrostatic(i + 2);
+    // meanwhile (the split's: its last pass, and the first of plane i + 3);
+    // K3's and K6's threads take their own points of it
+    if constexpr (kSplit) {
+      if (phy_row) {
+        phy_column(i + 2);
+        phy_total(i + 3);
+      }
+    } else if (kPhy && (kWhole || !own)) {
+      hydrostatic(i + 2);
+    }
     if (own) {
       const float* uc = U.row(i, j);
       const float* wc = W.row(i, j);
       const float* wm = W.row(i - 1, j);
       // ---- gu and u* at face i ----
       if constexpr (kU) {
-        const float f_new = xflux_u(i);
-        float adv = (f_new - fu) * P.idx;
-        fu = f_new;
-        if constexpr (kWhole) {
-          adv += y_diff(i, 0, jp, j) * P.idy;
-        } else {
-          const float* va = V.row(i - 1, j);
-          const float* vb = V.row(i - 1, j + 1);
-          const float vf_j = 0.5f * (va[k] + vc[k]);
-          const float vf_jp = 0.5f * (vb[k] + V.row(i, j + 1)[k]);
-          adv += (yflux(U, i, j + 1, k, vf_jp) - yflux(U, i, j, k, vf_j)) * P.idy;
-        }
-        const float wf_k = 0.5f * (wm[k] + wc[k]), wf_kp = 0.5f * (wm[k + 1] + wc[k + 1]);
-        const float t0 = uc[zt[0]], t1 = uc[zt[1]], t2 = uc[zt[2]], t3 = uc[k],
-                    t4 = uc[zt[4]], t5 = uc[zt[5]], t6 = uc[zt[6]];
-        adv += z_flux_diff(t0, t1, t2, t3, t4, t5, t6, wf_k, wf_kp) * P.idz;
-        const float dphy = (PH.row(i, j)[k] - PH.row(i - 1, j)[k]) * P.idx;
-        const float qm = k > 0 ? t2 : -uc[0], qp = k < nz - 1 ? t4 : -uc[nz - 1];
-        const float lap = lap_h(U, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
-        const float g = -adv - dphy + P.nu * lap;
-        if constexpr (kK6) {
-          gu_out[o] = g;
-        } else {
-          const float f = rk_value(t3, g, gp_u);
-          u_out[o] = f;
-          if (emit_g) gu_out[o] = g;
-          // div(i - 1) = ((u*(i) - u*(i-1)) / dx + dv) + dw, the plain version's order
-          if (i > 0) {
-            const float d = ((f - u_prev) * P.idx + dv) + dw;
-            if constexpr (kRhat) {
-              ds[j * nz + k] = d;
-            } else {
-              div_out[((e * ny + y0 + j) * nx + i - 1) * nz + k] = d;
-            }
+        if (cell) {
+          const float f_new = xflux_u(i);
+          float adv = (f_new - fu) * P.idx;
+          fu = f_new;
+          if constexpr (kWhole) {
+            adv += y_diff(i, 0, jp, j) * P.idy;
           } else {
-            u_first = f;
+            const float* va = V.row(i - 1, j);
+            const float* vb = V.row(i - 1, j + 1);
+            const float vf_j = 0.5f * (va[k] + vc[k]);
+            const float vf_jp = 0.5f * (vb[k] + V.row(i, j + 1)[k]);
+            adv += (yflux(U, i, j + 1, k, vf_jp) - yflux(U, i, j, k, vf_j)) * P.idy;
           }
-          u_prev = f;
+          const float wf_k = 0.5f * (wm[k] + wc[k]), wf_kp = 0.5f * (wm[k + 1] + wc[k + 1]);
+          const float t0 = uc[zt[0]], t1 = uc[zt[1]], t2 = uc[zt[2]], t3 = uc[k],
+                      t4 = uc[zt[4]], t5 = uc[zt[5]], t6 = uc[zt[6]];
+          adv += z_flux_diff(t0, t1, t2, t3, t4, t5, t6, wf_k, wf_kp) * P.idz;
+          const float dphy = (PH.row(i, j)[k] - PH.row(i - 1, j)[k]) * P.idx;
+          const float qm = kz > 0 ? t2 : -uc[0], qp = kz < nzg - 1 ? t4 : -uc[nz - 1];
+          const float lap = lap_h(U, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
+          const float g = -adv - dphy + P.nu * lap;
+          if constexpr (kK6) {
+            gu_out[o] = g;
+          } else {
+            const float f = rk_value(t3, g, gp_u);
+            u_out[o] = f;
+            if (emit_g) gu_out[o] = g;
+            // div(i - 1) = ((u*(i) - u*(i-1)) / dx + dv) + dw, the plain version's order
+            if (i > 0) {
+              const float d = ((f - u_prev) * P.idx + dv) + dw;
+              if constexpr (kRhat) {
+                ds[j * nz + k] = d;
+              } else {
+                div_out[((e * ny + y0 + j) * nx + i - 1) * nzg + kz] = d;
+              }
+            } else {
+              u_first = f;
+            }
+            u_prev = f;
+          }
         }
       }
       // ---- gw and w* at (i, j, face k); the k = 0 thread takes both walls ----
@@ -868,7 +1081,7 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
         } else {
           fz_m = z_upwind(t0, t1, t2, t3, t4, t5, zw0, 0.5f * (t2 + t3));
         }
-        if (k > 0) {
+        if (kSplit ? w_interior : k > 0) {
           const float f_new = xflux_w(i + 1);
           float adv = (f_new - fw) * P.idx;
           fw = f_new;
@@ -887,55 +1100,67 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
             gw_out[ow] = g;
           } else {
             const float f = rk_value(t3, g, gp_w);
-            w_out[ow] = f;
-            if (emit_g) gw_out[ow] = g;
+            if (writes_w) {
+              w_out[ow] = f;
+              if (emit_g) gw_out[ow] = g;
+            }
             ws[j * nw + k] = f;
           }
         } else if constexpr (kK6) {  // wall faces: g is exactly 0
           gw_out[ow] = 0.0f;
           gw_out[ow + nz] = 0.0f;
         } else {  // wall faces: w, g and g_prev are all 0, so w* stays exactly 0
-          for (int face = 0; face <= nz; face += nz) {
-            const float f = rk_value(wc[face], 0.0f, reads_g ? gw_prev[ow + face] : 0.0f);
+          // (the split's thread at a wall takes its own face only)
+          for (int face = 0; face <= (kSplit ? 0 : nz); face += (kSplit ? 1 : nz)) {
+            const int fk = kSplit ? k + face : face;
+            const float f = rk_value(wc[fk], 0.0f, reads_g ? gw_prev[ow + face] : 0.0f);
             w_out[ow + face] = f;
             if (emit_g) gw_out[ow + face] = 0.0f;
-            ws[j * nw + face] = f;
+            ws[j * nw + fk] = f;
           }
         }
       }
       // ---- gb and b' ----
       if constexpr (kB) {
-        const float* bc = B.row(i, j);
-        const float f_new = xflux_b(i + 1);
-        float adv = (f_new - fb) * P.idx;
-        fb = f_new;
-        if constexpr (kWhole) {
-          adv += y_diff(i, 3, jp, j) * P.idy;
-        } else {
-          adv += (yflux(B, i, j + 1, k, V.row(i, j + 1)[k]) - yflux(B, i, j, k, vc[k])) * P.idy;
-        }
-        const float t0 = bc[zt[0]], t1 = bc[zt[1]], t2 = bc[zt[2]], t3 = bc[k],
-                    t4 = bc[zt[4]], t5 = bc[zt[5]], t6 = bc[zt[6]];
-        adv += z_flux_diff(t0, t1, t2, t3, t4, t5, t6, wc[k], wc[k + 1]) * P.idz;
-        const float qm = k > 0 ? t2 : 2.0f * bottom - bc[0];
-        const float qp = k < nz - 1 ? t4 : 2.0f * P.min_b - bc[nz - 1];
-        const float lap = lap_h(B, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
-        const float g = -adv + P.kappa * lap;
-        if constexpr (kK6) {
-          gb_out[o] = g;
-        } else {
-          const float f = rk_value(t3, g, gp_b);
-          b_out[o] = f;
-          if (emit_g) gb_out[o] = g;
+        if (cell) {
+          const float* bc = B.row(i, j);
+          const float f_new = xflux_b(i + 1);
+          float adv = (f_new - fb) * P.idx;
+          fb = f_new;
+          if constexpr (kWhole) {
+            adv += y_diff(i, 3, jp, j) * P.idy;
+          } else {
+            adv += (yflux(B, i, j + 1, k, V.row(i, j + 1)[k]) - yflux(B, i, j, k, vc[k])) * P.idy;
+          }
+          const float t0 = bc[zt[0]], t1 = bc[zt[1]], t2 = bc[zt[2]], t3 = bc[k],
+                      t4 = bc[zt[4]], t5 = bc[zt[5]], t6 = bc[zt[6]];
+          adv += z_flux_diff(t0, t1, t2, t3, t4, t5, t6, wc[k], wc[k + 1]) * P.idz;
+          const float qm = kz > 0 ? t2 : 2.0f * bottom - bc[0];
+          const float qp = kz < nzg - 1 ? t4 : 2.0f * P.min_b - bc[nz - 1];
+          const float lap = lap_h(B, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
+          const float g = -adv + P.kappa * lap;
+          if constexpr (kK6) {
+            gb_out[o] = g;
+          } else {
+            const float f = rk_value(t3, g, gp_b);
+            b_out[o] = f;
+            if (emit_g) gb_out[o] = g;
+          }
         }
       }
     }
     if constexpr (kWhole) y_fluxes(i + 1);
     __pipeline_wait_prior(0);
-    __syncthreads();  // plane i + 4 has landed; v*, w* of plane i are complete
+    // plane i + 4 has landed; v*, w* of plane i are complete (the split: and
+    // every CTA's partial sums of plane i + 3)
+    if constexpr (kSplit) {
+      cluster_barrier();
+    } else {
+      __syncthreads();
+    }
     if constexpr (!kK6) {
       correct_plane(i + 4);
-      if (own) {
+      if (kSplit ? own && cell : own) {
         dv = (vs[jp * nz + k] - vs[j * nz + k]) * P.idy;
         dw = (ws[j * nw + k + 1] - ws[j * nw + k]) * P.idz;
       }
@@ -945,12 +1170,12 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
       __syncthreads();
     }
   }
-  if (!kK6 && own) {  // div(nx - 1): u* at face nx is u* at face 0
+  if (!kK6 && (kSplit ? own && cell : own)) {  // div(nx - 1): u* at face nx is u* at face 0
     const float d = ((u_first - u_prev) * P.idx + dv) + dw;
     if constexpr (kRhat) {
       ds[j * nz + k] = d;
     } else {
-      div_out[((e * ny + y0 + j) * nx + nx - 1) * nz + k] = d;
+      div_out[((e * ny + y0 + j) * nx + nx - 1) * nzg + kz] = d;
     }
   }
   if constexpr (kRhat) {  // the last plane's z-factor, then the x-factor
@@ -965,6 +1190,11 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
 decltype(&stage_march_kernel<0, -1>) stage_xy_kernel_for(int nz) {
   return nz == 32 ? stage_march_kernel<32, -1>
                   : (nz == 16 ? stage_march_kernel<16, -1> : stage_march_kernel<0, -1>);
+}
+
+// K5's z-split instance (stage_xy_split_size > 0: nz >= 107).
+decltype(&stage_march_kernel<0, -1>) stage_xy_split_kernel() {
+  return stage_march_kernel<0, -1, kStage, false, true>;
 }
 
 // The K3 instance: specialised for the training grid's 32 rows of 16, the
@@ -1226,21 +1456,89 @@ int launch_stage_rk_3d_xy(const float* u, const float* v, const float* w, const 
                           float kappa, float min_b, void* stream) {
   const bool reads_g = gu_prev && gv_prev && gw_prev && gb_prev;
   const bool writes_g = gu && gv && gw && gb;
-  const size_t smem = sizeof(float) * stage_xy_smem_floats(nz);
+  const int csplit = nz >= 2 ? stage_xy_split_size(nz) : 0;
+  const size_t smem = sizeof(float) * (csplit > 0 ? stage_xy_split_smem_floats(nz, csplit)
+                                                  : stage_xy_smem_floats(nz));
   if (nx < kXYMinNx || ny % kYT != 0 || ny < kYT || nz < 2 || smem > kSmemPerBlock ||
       stage < 0 || stage > 2 || reads_g != (stage > 0) || writes_g != (stage < 2)) {
     return (int)cudaErrorInvalidValue;
+  }
+  const XYParams P = xy_params(nx, ny, nz, dx, dy, dz, nu, kappa, min_b);
+  const unsigned blocks = (unsigned)n_env * (ny / kYT);
+  if (csplit > 0) {  // the z split: a cluster of csplit CTAs for each block
+    auto* kernel = stage_xy_split_kernel();
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = (unsigned)csplit;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(blocks * (unsigned)csplit);
+    config.blockDim = dim3((unsigned)split_threads(nz, csplit));
+    config.dynamicSmemBytes = smem;
+    config.stream = (cudaStream_t)stream;
+    config.attrs = cluster;
+    config.numAttrs = 1;
+    err = cudaLaunchKernelEx(&config, kernel, u, v, w, b, q, bottom, gu_prev, gv_prev, gw_prev,
+                             gb_prev, u_out, v_out, w_out, b_out, div_out, gu, gv, gw, gb, dt,
+                             gamma, zeta, P, (const float*)nullptr);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
   }
   auto* kernel = stage_xy_kernel_for(nz);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const XYParams P = xy_params(nx, ny, nz, dx, dy, dz, nu, kappa, min_b);
-  const unsigned blocks = (unsigned)n_env * (ny / kYT);
   kernel<<<blocks, march_threads(nz, -1), smem, (cudaStream_t)stream>>>(
       u, v, w, b, q, bottom, gu_prev, gv_prev, gw_prev, gb_prev, u_out, v_out, w_out,
       b_out, div_out, gu, gv, gw, gb, dt, gamma, zeta, P, nullptr);
   return (int)cudaGetLastError();
+}
+
+// What the card gives the K5 instance its launcher picks for a column of
+// nz levels: out[0] the instance (0 one CTA a block, 1 the z split), out[1]
+// CTAs a cluster (1 off the split), out[2] blocks resident on an SM, out[3]
+// clusters resident on the card at once (cudaOccupancyMaxActiveClusters; 0
+// off the split), out[4] registers a thread, out[5] local memory a thread
+// (stack and spills), bytes, out[6] dynamic shared memory a block, bytes.
+int stage_xy_occupancy(int nz, int* out) {
+  const int csplit = nz >= 2 ? stage_xy_split_size(nz) : 0;
+  const size_t smem = sizeof(float) * (csplit > 0 ? stage_xy_split_smem_floats(nz, csplit)
+                                                  : stage_xy_smem_floats(nz));
+  if (nz < 2 || smem > kSmemPerBlock) return (int)cudaErrorInvalidValue;
+  auto* kernel = csplit > 0 ? stage_xy_split_kernel() : stage_xy_kernel_for(nz);
+  const int threads = csplit > 0 ? split_threads(nz, csplit) : march_threads(nz, -1);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0, clusters = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (csplit > 0) {
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = (unsigned)csplit;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3((unsigned)csplit);
+    config.blockDim = dim3((unsigned)threads);
+    config.dynamicSmemBytes = smem;
+    config.attrs = cluster;
+    config.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &config);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int rec[7] = {csplit > 0, csplit > 0 ? csplit : 1, blocks, clusters, attr.numRegs,
+                      (int)attr.localSizeBytes, (int)smem};
+  for (int i = 0; i < 7; ++i) out[i] = rec[i];
+  return 0;
 }
 
 int launch_correct_3d(const float* u, const float* v, const float* w, const float* q,

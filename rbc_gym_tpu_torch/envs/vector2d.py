@@ -77,6 +77,7 @@ class RBC2DVectorEnv:
         poisson_precision: Optional[str] = None,
         device: str | torch.device | None = "cuda",
         env_slice: Optional[Tuple[int, int]] = None,
+        dt_solver: float = SimParams2D.dt_solver,
     ):
         """``checkpoint``: a bank file (``.npz``, or HDF5 where h5py is
         installed) of initial conditions; None starts from the solver's
@@ -104,7 +105,13 @@ class RBC2DVectorEnv:
         rank's shard (``parallel.shard_vector_env``) resets and steps as
         those rows of the one-process fleet. ``ic_noise`` is the exception:
         its kick is drawn for the batch at hand (``envs.bank``), so a shard
-        draws its own."""
+        draws its own.
+
+        ``dt_solver`` (not in the JAX env, whose solver step is the
+        reference's 0.03): the solver's step, for grids finer than 96x64 whose
+        explicit diffusion is unstable at 0.03 (RK3 needs dt kappa (4/dx^2 +
+        4/dz^2) <= 2.5: at 256x128 and Ra=1e4, dt <= 0.009);
+        ``heater_duration`` must stay a multiple of it."""
         if bank_sampling not in ("random", "sequential"):
             raise ValueError(f"unknown bank_sampling {bank_sampling!r}")
         if bank_sampling == "sequential" and auto_reset:
@@ -122,6 +129,7 @@ class RBC2DVectorEnv:
             heater_duration=float(heater_duration),
             n_heaters=int(heater_segments),
             heater_limit=float(heater_limit),
+            dt_solver=float(dt_solver),
         )
         self.episode_length = float(episode_length)
         self.episode_steps = int(round(self.episode_length / heater_duration))

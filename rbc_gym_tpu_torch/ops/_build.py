@@ -92,6 +92,11 @@ ARGTYPES = {
         _F, _F, _F, _F, _F, _F,  # dx, dy, dz, nu, kappa, min_b
         _P,  # stream
     ],
+    "stage_xy_occupancy": [
+        _I,  # nz
+        _P,  # int out[7]: instance, CTAs a cluster, blocks an SM, clusters resident,
+             # registers, local bytes a thread, shared bytes a block
+    ],
     "launch_correct_3d": [
         _P, _P, _P, _P,  # u, v, w, q
         _P, _P, _P,  # u_out, v_out, w_out
@@ -129,7 +134,8 @@ def host_source(name: str) -> str:
     src = src[: src.index('extern "C" {')]
     src = src.replace("#include <cuda_runtime.h>", f'#include "{HOST_SHIM}"')
     src = src.replace("#include <cuda_pipeline.h>\n", "")
-    src = src.replace('#include "ub5.cuh"', f'#include "{CSRC_DIR / "ub5.cuh"}"')
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src = src.replace(f'#include "{header.name}"', f'#include "{header}"')
     return src.replace("namespace {", "namespace host {", 1)
 
 

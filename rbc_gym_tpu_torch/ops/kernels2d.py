@@ -5,7 +5,10 @@
 "default" the kernel's split-product branch as TF32 tensor-core instances,
 counted on ``env_step_2d_tf32x3`` and ``env_step_2d_tf32``; on the grids
 that take a thread-block cluster, ``limits.env_step_2d_cluster_size``, its
-cluster instance at every precision, counted on ``env_step_2d_cluster``) and
+cluster instance at every precision, counted on ``env_step_2d_cluster``; on
+the grids whose two solve slabs do not fit a block,
+``limits.env_step_2d_slabs_on_chip``, its off-chip instance with the slabs
+in global scratch at every precision, counted on ``env_step_2d_global``) and
 ``tendencies_2d`` replaces ``_tendency_kernel``
 (one stage's gu, gw, gb; the Pallas kernel reads pHY', K2 takes b and
 computes pHY' itself). Both kernels are CUDA C++ in ``csrc/rbc2d.cu``;
@@ -294,10 +297,12 @@ def env_step_2d(
     the CUDA kernel for CUDA tensors, in the instance for ``precision``
     (``K1_PASSES``). Each instance counts its launches on its own wrapper:
     the float32 one here, the others on ``env_step_2d_tf32x3`` and
-    ``env_step_2d_tf32``, and the cluster instance (a grid the on-chip
+    ``env_step_2d_tf32``, the cluster instance (a grid the on-chip
     instance cannot hold, on ``limits.env_step_2d_cluster_size`` CTAs) at
-    any precision on ``env_step_2d_cluster``. A launch the card refuses
-    raises, naming the instance; nothing falls back to another."""
+    any precision on ``env_step_2d_cluster``, and the off-chip instance
+    with its slabs in global scratch (``limits.env_step_2d_slabs_on_chip``
+    false) at any precision on ``env_step_2d_global``. A launch the card
+    refuses raises, naming the instance; nothing falls back to another."""
     check_precision(precision)
     passes = K1_PASSES[precision]
     if u.device.type == "cpu":
@@ -312,6 +317,7 @@ def env_step_2d(
     if n_substeps < 1:
         raise ValueError(f"n_substeps must be >= 1, got {n_substeps}")
     cluster = limits.env_step_2d_cluster_size(nx, nz) > 0
+    global_slabs = not limits.env_step_2d_slabs_on_chip(nx, nz)
     tf32 = (tf32_constants(spectral, passes) if limits.env_step_2d_wgmma(nx, nz, passes)
             else None)
     u_out, w_out, b_out, p_out = (torch.empty_like(t) for t in (u, w, b, u))
@@ -329,7 +335,8 @@ def env_step_2d(
             None if tf32 is None else tf32.data_ptr(),
             torch.cuda.current_stream(u.device).cuda_stream,
         )
-    counter = env_step_2d_cluster if cluster else K1_INSTANCES[passes]
+    counter = (env_step_2d_cluster if cluster else
+               env_step_2d_global if global_slabs else K1_INSTANCES[passes])
     _raise_on(err, counter.__name__)
     counter.launches += 1
     return u_out, w_out, b_out, p_out
@@ -359,10 +366,24 @@ def env_step_2d_cluster(u, w, b, bottom, spectral, c, dt, n_substeps, precision=
     return env_step_2d(u, w, b, bottom, spectral, c, dt, n_substeps, precision)
 
 
+def env_step_2d_global(u, w, b, bottom, spectral, c, dt, n_substeps, precision=None):
+    """K1's off-chip instance with its two solve slabs in per-env global
+    scratch: ``env_step_2d`` on a grid where neither the on-chip instance
+    nor a cluster takes it and 8 nx nz bytes exceed a block
+    (``limits.env_step_2d_slabs_on_chip`` false: 256x128, 2048x64); raises
+    ``ValueError`` on any other grid."""
+    nx, nz = u.shape[-2:]
+    if limits.env_step_2d_slabs_on_chip(nx, nz):
+        raise ValueError(f"K1's off-chip instance keeps its slabs on the chip at {nx}x{nz}: "
+                         "limits.env_step_2d_slabs_on_chip holds there")
+    return env_step_2d(u, w, b, bottom, spectral, c, dt, n_substeps, precision)
+
+
 def env_step_2d_occupancy(nx: int, nz: int, precision: str | None = None) -> dict:
     """What the card gives the K1 instance ``env_step_2d`` launches on an
     ``nx`` x ``nz`` grid at ``precision`` (the launcher's selection):
-    "instance" ("on_chip", "cluster" or "off_chip"), "cluster_ctas",
+    "instance" ("on_chip", "cluster", "off_chip" or, with its slabs in
+    global scratch, "off_chip_global_slabs"), "cluster_ctas",
     "blocks_per_sm", "max_active_clusters" (``cudaOccupancyMaxActiveClusters``
     on the card; 0 off a cluster), "registers", "local_bytes" (stack and
     spills a thread) and "shared_bytes" a block. Needs a card."""
@@ -374,7 +395,7 @@ def env_step_2d_occupancy(nx: int, nz: int, precision: str | None = None) -> dic
     keys = ("instance", "cluster_ctas", "blocks_per_sm", "max_active_clusters", "registers",
             "local_bytes", "shared_bytes")
     rec = dict(zip(keys, out))
-    rec["instance"] = ("on_chip", "cluster", "off_chip")[rec["instance"]]
+    rec["instance"] = ("on_chip", "cluster", "off_chip", "off_chip_global_slabs")[rec["instance"]]
     return rec
 
 
@@ -382,5 +403,6 @@ env_step_2d.launches = 0
 env_step_2d_tf32x3.launches = 0
 env_step_2d_tf32.launches = 0
 env_step_2d_cluster.launches = 0
+env_step_2d_global.launches = 0
 # the wrapper that counts each instance's launches, by its passes
 K1_INSTANCES = {0: env_step_2d, 3: env_step_2d_tf32x3, 1: env_step_2d_tf32}

@@ -4,8 +4,10 @@
 (one whole RK3 stage of the lazy-projection loop, a block per env holding
 all of periodic y), ``stage_rk_3d_xy`` replaces ``_stage_rk_kernel_xy``
 (the same stage, a block per env and 8 y rows, for grids outside the
-whole-y paths); both march along x over a ring of x-planes, from one
-kernel template. ``stage_rk_3d_rhat`` replaces the same Pallas body with
+whole-y paths; on a column one block cannot hold, nz >= 107, its z split,
+a thread-block cluster of CTAs a block, counted on
+``stage_rk_3d_xy_split``); both march along x over a ring of x-planes,
+from one kernel template. ``stage_rk_3d_rhat`` replaces the same Pallas body with
 its ``emit_rhat`` option (``fused="stage_qp"``): K3's instance that
 writes the Poisson analysis rhat = T_A div (``ops/poisson.py``
 ``poisson_analysis_matrix_3d``) in place of div, so that the solve's tail
@@ -52,7 +54,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from rbc_gym_tpu_torch.ops import _build
+from rbc_gym_tpu_torch.ops import _build, limits
 from rbc_gym_tpu_torch.ops.poisson import make_poisson_analysis_3d, poisson_analysis_factors_3d
 from rbc_gym_tpu_torch.ops import stencils as st
 from rbc_gym_tpu_torch.ops.kernels2d import (
@@ -342,7 +344,8 @@ def _stage_wrapper(name: str, doc: str, rhat: bool = False):
         if u.device.type == "cpu":
             return plain(u, v, w, b, q, bottom, c, dt, stage, g_prev)
         out = _launch_stage(name, u, v, w, b, q, bottom, c, dt, stage, g_prev, rhat)
-        wrapper.launches += 1
+        split = name == "stage_rk_3d_xy" and limits.stage_xy_split_size(u.shape[-1]) > 0
+        (stage_rk_3d_xy_split if split else wrapper).launches += 1
         return out
 
     wrapper.__name__ = wrapper.__qualname__ = name
@@ -354,11 +357,44 @@ def _stage_wrapper(name: str, doc: str, rhat: bool = False):
 stage_rk_3d = _stage_wrapper(
     "stage_rk_3d", "One lazy-projection RK3 stage: K3 for CUDA tensors.")
 stage_rk_3d_xy = _stage_wrapper(
-    "stage_rk_3d_xy", "The same stage, y-blocked and marching along x: K5 for CUDA tensors.")
+    "stage_rk_3d_xy", "The same stage, y-blocked and marching along x: K5 for CUDA tensors "
+    "(its z split on a column that one CTA cannot hold, counted on stage_rk_3d_xy_split).")
 stage_rk_3d_rhat = _stage_wrapper(
     "stage_rk_3d_rhat",
     "The same stage writing rhat = T_A div (E, ny, nx nz) in place of div: K3's analysis "
     "instance for CUDA tensors.", rhat=True)
+
+
+def stage_rk_3d_xy_split(u, v, w, b, q, bottom, c, dt, stage, g_prev=None):
+    """K5's z split: ``stage_rk_3d_xy`` on a column of nz levels that one CTA
+    cannot hold (``limits.stage_xy_split_size`` > 0: nz >= 107), each block
+    of K5 a thread-block cluster of CTAs that own parts of the column;
+    raises ``ValueError`` on any other nz."""
+    nz = u.shape[-1]
+    if limits.stage_xy_split_size(nz) == 0:
+        raise ValueError(f"K5's z split does not take nz={nz}: "
+                         "limits.stage_xy_split_size is 0 there")
+    return stage_rk_3d_xy(u, v, w, b, q, bottom, c, dt, stage, g_prev)
+
+
+stage_rk_3d_xy_split.launches = 0
+
+
+def stage_xy_occupancy(nz: int) -> dict:
+    """What the card gives the K5 instance ``stage_rk_3d_xy`` launches on a
+    column of ``nz`` levels: "instance" ("one_cta" or "split"),
+    "cluster_ctas", "blocks_per_sm", "max_active_clusters"
+    (``cudaOccupancyMaxActiveClusters``; 0 off the split), "registers",
+    "local_bytes" (stack and spills a thread) and "shared_bytes" a block.
+    Needs a card."""
+    out = (ctypes.c_int * 7)()
+    _raise_on(_build.load_library().stage_xy_occupancy(nz, ctypes.addressof(out)),
+              "stage_xy_occupancy")
+    keys = ("instance", "cluster_ctas", "blocks_per_sm", "max_active_clusters", "registers",
+            "local_bytes", "shared_bytes")
+    rec = dict(zip(keys, out))
+    rec["instance"] = ("one_cta", "split")[rec["instance"]]
+    return rec
 
 
 def march_occupancy(nx: int, ny: int, nz: int, rhat: bool = False) -> dict:

@@ -77,18 +77,29 @@ def env_step_2d_cluster_fg(nx: int, nz: int) -> bool:
     return bool(c) and _on_chip_smem_bytes(nx // c, nz) + 8 * (nx // c) * nx <= SMEM_PER_BLOCK
 
 
+def env_step_2d_slabs_on_chip(nx: int, nz: int) -> bool:
+    """Whether K1 keeps its two (nx, nz) slabs in shared memory
+    (``env_step_2d_slabs_on_chip`` in ``csrc/rbc2d.cu``): on the chip and on
+    a cluster always; the off-chip instance where 8 nx nz bytes fit a block
+    (127x64, 128x224), in per-env global scratch elsewhere (256x128,
+    2048x64)."""
+    return (env_step_2d_on_chip(nx, nz) or bool(env_step_2d_cluster_size(nx, nz))
+            or 8 * nx * nz <= SMEM_PER_BLOCK)
+
+
 def env_step_2d_smem_bytes(nx: int, nz: int) -> int:
     """K1's shared memory per block (``env_step_2d_smem_floats``), float32:
     on the chip two copies of u, b (nx, nz) and w (nx, nz + 1), two (nx, nz)
     slabs, the z analysis and synthesis (nz, nz) and the bottom profile; on
     a cluster of c CTAs the same over nx / c columns a CTA, and the CTA's
     rows of F and G where they fit (``env_step_2d_cluster_fg``); off both
-    the two slabs alone."""
+    the two slabs alone where they fit (``env_step_2d_slabs_on_chip``),
+    else none."""
     if env_step_2d_on_chip(nx, nz):
         return _on_chip_smem_bytes(nx, nz)
     c = env_step_2d_cluster_size(nx, nz)
     if not c:
-        return 8 * nx * nz
+        return 8 * nx * nz if env_step_2d_slabs_on_chip(nx, nz) else 0
     return _on_chip_smem_bytes(nx // c, nz) + (8 * (nx // c) * nx
                                                if env_step_2d_cluster_fg(nx, nz) else 0)
 
@@ -96,10 +107,21 @@ def env_step_2d_smem_bytes(nx: int, nz: int) -> int:
 def env_step_2d_scratch_floats(nx: int, nz: int) -> int:
     """K1's global scratch per env (``env_step_2d_scratch_floats``): none on
     the chip or a cluster; off both gu, gw, gb of this stage and the
-    previous one, and pHY'."""
+    previous one, and pHY', then the two slabs where they do not fit a
+    block."""
     if env_step_2d_on_chip(nx, nz) or env_step_2d_cluster_size(nx, nz):
         return 0
-    return 5 * nx * nz + 2 * nx * (nz + 1)
+    slabs = 0 if env_step_2d_slabs_on_chip(nx, nz) else 2 * nx * nz
+    return 5 * nx * nz + 2 * nx * (nz + 1) + slabs
+
+
+MAX_INT32 = 2**31 - 1
+
+
+def env_step_2d_offsets_fit(nx: int, nz: int) -> bool:
+    """Whether K1's 32-bit offsets reach an env's fields and scratch
+    (``env_step_2d_offsets_fit``): 9 nx (nz + 1) <= INT_MAX."""
+    return 9 * nx * (nz + 1) <= MAX_INT32
 
 
 K2_SPECIALISED = (96, 64)  # (nx, nz) of K2's compile-time march instance
@@ -193,3 +215,53 @@ def stage_xy_smem_bytes(nz: int) -> int:
     rows_nz = XY_RING * (3 * Y_BLK + 19) + 2 * (Y_BLK + 8) + 4 * (Y_BLK + 2) + Y_BLK + 1
     rows_nw = XY_RING * (Y_BLK + 6) + Y_BLK
     return 4 * (rows_nz * nz + rows_nw * (nz + 1))
+
+
+XY_SPLIT_HALO = 4  # levels a CTA of K5's z split holds past its own on each inner side (kSplitHalo)
+XY_MAX_SPLIT = 8  # CTAs of K5's z split: the portable cluster size (kXYMaxSplit)
+XY_PH_ROWS = Y_BLK + 2  # rows of K5's pHY' planes, one column each (kPRows)
+
+
+def _split_part(nz: int, c: int) -> int:
+    return -(-nz // c)
+
+
+def stage_xy_split_levels(nz: int, c: int) -> int:
+    """The most levels a CTA of K5's z split over ``c`` CTAs holds
+    (``split_levels``): CTA r owns [r p, (r + 1) p) of the column (p =
+    ceil(nz / c), the last part shorter) and holds ``XY_SPLIT_HALO`` more on
+    each inner side."""
+    part = _split_part(nz, c)
+    return max(min(min(z0 + part, nz) + XY_SPLIT_HALO, nz) - max(z0 - XY_SPLIT_HALO, 0)
+               for z0 in range(0, c * part, part))
+
+
+def stage_xy_split_threads(nz: int, c: int) -> int:
+    """Threads of a split CTA (``split_threads``): rows 0..y_blk of p + 1
+    levels, the last the face above its part."""
+    return (Y_BLK + 1) * (_split_part(nz, c) + 1)
+
+
+def stage_xy_split_smem_bytes(nz: int, c: int) -> int:
+    """A split CTA's shared memory (``stage_xy_split_smem_floats``): two
+    planes' partial sums of pHY' (``XY_PH_ROWS`` float64 each), then K5's
+    rings over the levels it holds."""
+    return 16 * XY_PH_ROWS + stage_xy_smem_bytes(stage_xy_split_levels(nz, c))
+
+
+def stage_xy_split_size(nz: int) -> int:
+    """The CTAs of K5's z split for a column of nz levels
+    (``stage_xy_split_size`` in ``csrc/rbc3d.cu``): 0 where one CTA holds it
+    (its rings in a block and (y_blk + 1) nz <= 1024 threads: nz <= 106),
+    else the smallest c of 2, 4 and 8 whose parts are all non-empty and
+    whose CTAs' threads and shared memory fit; 0 where none does (nz >
+    784)."""
+    if stage_xy_smem_bytes(nz) <= SMEM_PER_BLOCK and (Y_BLK + 1) * nz <= MAX_THREADS:
+        return 0
+    c = 2
+    while c <= XY_MAX_SPLIT:
+        if ((c - 1) * _split_part(nz, c) < nz and stage_xy_split_threads(nz, c) <= MAX_THREADS
+                and stage_xy_split_smem_bytes(nz, c) <= SMEM_PER_BLOCK):
+            return c
+        c *= 2
+    return 0

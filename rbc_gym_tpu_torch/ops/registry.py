@@ -29,6 +29,12 @@ KERNEL_WRAPPERS = {
     # K1's cluster instance: ``env_step_2d`` on the grids that
     # ``limits.env_step_2d_cluster_size`` gives a cluster counts here
     "env_step_2d_cluster": kernels2d.env_step_2d_cluster,
+    # K5's z split: ``stage_rk_3d_xy`` on a column one CTA cannot hold
+    # (``limits.stage_xy_split_size`` > 0) counts here
+    "stage_rk_3d_xy_split": kernels3d.stage_rk_3d_xy_split,
+    # K1's off-chip instance with its slabs in global scratch: ``env_step_2d``
+    # where ``limits.env_step_2d_slabs_on_chip`` fails counts here
+    "env_step_2d_global": kernels2d.env_step_2d_global,
 }
 
 

@@ -44,7 +44,7 @@ from rbc_gym_tpu_torch.ops.kernels2d import (
     tendencies_2d_plain,
 )
 from rbc_gym_tpu_torch.ops import stencils as st
-from rbc_gym_tpu_torch.ops.limits import K1_MIN_NX, SMEM_PER_BLOCK, env_step_2d_smem_bytes
+from rbc_gym_tpu_torch.ops.limits import K1_MIN_NX, MAX_INT32, env_step_2d_offsets_fit
 from rbc_gym_tpu_torch.ops.poisson import Spectral2D, spectral_constants_2d
 from rbc_gym_tpu_torch.sim.actuation import heater_profile_2d
 from rbc_gym_tpu_torch.sim.grid import Grid2D
@@ -127,18 +127,19 @@ ENV_STEP_PATHS = {
 
 def env_step_kernel_limit(dtype: torch.dtype, nx: int, nz: int):
     """Why K1 cannot take this configuration, or None if it can: float32
-    only, nx >= 3 (its x stencils wrap once), and the shared memory of the
-    instance that takes the grid in a block (the checks of
-    ``launch_env_step_2d`` in ``csrc/rbc2d.cu``; ``limits.env_step_2d_on_chip``
-    says which instance)."""
+    only, nx >= 3 (its x stencils wrap once) and an env within its 32-bit
+    offsets (the checks of ``launch_env_step_2d`` in ``csrc/rbc2d.cu``).
+    Every such grid has an instance whose shared memory fits a block: on
+    the chip, on a cluster, or off the chip with its two slabs in shared
+    memory or, where they do not fit, in global scratch
+    (``limits.env_step_2d_slabs_on_chip``)."""
     if dtype != torch.float32:
         return f"the fused kernels take float32, not {dtype}"
     if nx < K1_MIN_NX:
         return f"the env-step kernel needs nx >= {K1_MIN_NX} (nx={nx})"
-    need = env_step_2d_smem_bytes(nx, nz)
-    if need > SMEM_PER_BLOCK:
-        return (f"the env-step kernel needs {need:,} bytes of shared memory per block at "
-                f"nx={nx}, nz={nz}; the card's limit is {SMEM_PER_BLOCK:,}")
+    if not env_step_2d_offsets_fit(nx, nz):
+        return (f"the env-step kernel indexes an env with 32-bit offsets: 9 nx (nz + 1) <= "
+                f"{MAX_INT32:,} (nx={nx}, nz={nz})")
     return None
 
 
@@ -149,9 +150,8 @@ def select_env_step_path(dtype: torch.dtype, nx: int, nz: int, device_type: str,
     Auto (``fused=None``) is the JAX package's rule
     (rbc_gym_tpu/sim/solver2d.py:247-250): "fused" on CUDA for float32,
     "plain" for float64 and on the CPU. Where K1 cannot take a float32
-    grid on CUDA (``env_step_kernel_limit``: nx < 3, or its slabs above
-    the card's 232,448 bytes of shared memory per block) it raises
-    ``NotImplementedError`` naming the limit,
+    grid on CUDA (``env_step_kernel_limit``: nx < 3, or an env past its
+    32-bit offsets) it raises ``NotImplementedError`` naming the limit,
     since the JAX package runs its kernel there. ``fused=False`` is
     "plain"; ``fused=True`` forces the kernels and raises ``ValueError``,
     naming the limit, if they cannot take it (on the CPU the wrappers

@@ -68,11 +68,14 @@ from rbc_gym_tpu_torch.ops.limits import (
     SMEM_PER_BLOCK,
     MAX_ENV_POINTS,
     MAX_THREADS,
+    XY_MAX_SPLIT,
     XY_MIN_NX,
     Y_BLK,
     stage_qp_smem_bytes,
     stage_smem_bytes,
     stage_xy_smem_bytes,
+    stage_xy_split_size,
+    stage_xy_split_smem_bytes,
     whole_y_fits,
 )
 from rbc_gym_tpu_torch.ops.poisson import make_poisson_solver_3d, make_poisson_tail_3d
@@ -204,7 +207,14 @@ def stage_kernel_limit(kernel: str, dtype: torch.dtype, nx: int, ny: int, nz: in
         if nx < XY_MIN_NX or ny % Y_BLK or nz < 2:
             return (f"the stage_xy kernel needs nx >= {XY_MIN_NX}, ny % {Y_BLK} == 0 and "
                     f"nz >= 2 (nx={nx}, ny={ny}, nz={nz})")
+        if stage_xy_split_size(nz):  # one CTA cannot hold the column: K5's z split
+            return None
         need = stage_xy_smem_bytes(nz)
+        if need > SMEM_PER_BLOCK:
+            need = stage_xy_split_smem_bytes(nz, XY_MAX_SPLIT)
+            return (f"the {kernel} kernel needs {need:,} bytes of shared memory per block "
+                    f"at nx={nx}, ny={ny}, nz={nz} even with its column split over "
+                    f"{XY_MAX_SPLIT} CTAs; the card's limit is {SMEM_PER_BLOCK:,}")
     if need > SMEM_PER_BLOCK:
         return (f"the {kernel} kernel needs {need:,} bytes of shared memory per block "
                 f"at nx={nx}, ny={ny}, nz={nz}; the card's limit is {SMEM_PER_BLOCK:,}")
@@ -222,9 +232,11 @@ def select_stage_path(dtype: torch.dtype, nx: int, ny: int, nz: int, device_type
     float32: inside it, K3 if nx % 4 == 0 and K3 takes the grid (one
     thread per point of an x-plane: ny * nz <= 1024), otherwise the
     per-field path; outside it,
-    K5 if nx % 4 == 0 and ny % 8 == 0, raising ``NotImplementedError`` if
-    K5's own x-plane rings do not fit either; otherwise the plain path, as
-    the JAX package takes its XLA path there. float64 and the CPU take the plain
+    K5 if nx % 4 == 0 and ny % 8 == 0 (its z split over a cluster of 2, 4
+    or 8 CTAs where one CTA cannot hold the column, nz >= 107:
+    ``limits.stage_xy_split_size``), raising ``NotImplementedError`` only
+    past the split's reach (nz > 784); otherwise the plain path, as the
+    JAX package takes its XLA path there. float64 and the CPU take the plain
     path, as the JAX package does. ``fused=False`` is the plain path;
     a ``KERNEL_PATHS`` value (True is the JAX package's alias of "field")
     forces that path and raises ``ValueError``, naming the limit, if its

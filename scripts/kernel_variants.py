@@ -2,15 +2,18 @@
 """Time the stage kernels of several source trees on one CUDA card.
 
     python3 scripts/kernel_variants.py
-        [--kernels k1,k1c,k1t,k1t_times,k2,k3,k3qp,k5_training,k5,k6,k7,field_step]
+        [--kernels k1,k1c,k1o,k1t,k1t_times,k2,k3,k3qp,k5_training,k5,k6,k7,field_step]
         TREE [TREE ...]
 
 Each TREE is a checkout of this repo (for example a ``git archive`` of a
 commit unpacked under the git-ignored ``rbc_gym_tpu_torch/_build/``).
 The script builds every tree's kernels at once (one nvcc each, in
 parallel, plus one ``-Xptxas -v`` compile of each ``csrc/*.cu`` for the
-registers, spills and shared memory of K1 to K7, and a count of the SASS
-opcodes of their main instances from ``cuobjdump``), then runs each
+registers, spills and shared memory of K1 to K7, a count of the SASS
+opcodes of their main instances from ``cuobjdump``, and one ``-ptx``
+compile whose every kernel's PTX, with the file's hash and label numbers
+taken out, each later tree holds against the first's: a ``ptx`` line of
+the kernels that differ and those only one tree has), then runs each
 tree in a process of its own, one after the other, importing that tree's
 own ``chip_smoke``. Per tree and kernel, CUDA events after a warm-up, the
 share of the bound (``chip_smoke.bound``) and the errors at the smoke's
@@ -26,6 +29,10 @@ gates:
   128x64 too, with float32 K1 on 96x64 timed first and last; the gates at
   6 substeps and 128 envs on both grids (and at "high" and "default" on
   128x64), and where the tree has it ``env_step_2d_occupancy``;
+- ``k1o``: K1's off-chip instance (its slabs in shared memory) at 1024
+  envs on 127x64, one env step of 50 substeps, float32 and "high", with
+  float32 K1 on 96x64 timed first and last; its gates at 6 substeps and
+  128 envs;
 - ``k1t``: K1's TF32 instances at 96x64 ("high": 3 passes, "default": 1)
   at 1024 envs, one env step of 50 substeps, with float32 K1 timed first
   and last, and the split of each instance's time: the same instances
@@ -154,6 +161,27 @@ def k1c():
                 r[f"ms_{prec}"] = k1_ms(shape, 3, prec)[1]
         rec[f"{nx}x{nz}"] = r
         del c6
+    rec["k1_96x64_last_ms"] = k1_ms((64, 96))[1]
+    return rec, errs
+
+
+def k1o():
+    # K1's off-chip instance on 127x64 (no cluster divides nx = 127)
+    def k1_ms(shape, prec=None):
+        solver, case = cs.make_case(device, 1024, shape, 1.5, seed=2)
+        ms = cs._cuda_ms(lambda: cs.k1_run(solver, case, True, prec), 3)
+        del case
+        torch.cuda.empty_cache()
+        return solver, ms
+
+    rec, errs = {"k1_96x64_first_ms": k1_ms((64, 96))[1]}, {}
+    solver, ms = k1_ms((64, 127))
+    bound_ms, by = cs.bound(cs.env_step_work(1024, 127, 64, solver.params.substeps_per_env_step))
+    rec["127x64"] = {"ms": ms, "ms_high": k1_ms((64, 127), "high")[1], "bound_ms": bound_ms,
+                     "bound_by": by, "share_of_bound": bound_ms / ms}
+    s6, c6 = cs.make_case(device, 128, (64, 127), 0.18, seed=4)
+    errs["127x64_6"] = (max(cs.abs_diffs(cs.K1_OUT, cs.k1_run(s6, c6, True),
+                                         cs.k1_run(s6, c6, False)).values()), cs.K1_ATOL)
     rec["k1_96x64_last_ms"] = k1_ms((64, 96))[1]
     return rec, errs
 
@@ -363,6 +391,7 @@ def field_step():
 RUNS = {
     "k1": k1,
     "k1c": k1c,
+    "k1o": k1o,
     "k1t": k1t,
     "k1t_times": lambda: k1t(cuts=False),
     "k2": k2,
@@ -438,23 +467,58 @@ def build_ablations(tree: Path, nvcc: str) -> list:
     return procs
 
 
-PTXAS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v",
-         "-c", "-o", os.devnull)
+TARGET_O3 = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
+PTXAS = (*TARGET_O3, "-Xptxas", "-v", "-c", "-o", os.devnull)
 # kernel entries whose resource lines are kept, and the instances whose SASS
 # is counted: names (mangled) holding one of these, the specialised
-# instances of K1 and K2 (96x64), K1's cluster instance (64x64 a CTA), K3
-# and K6 (16x32x32), K5 (nz = 32) and K7 (nz = 16)
+# instances of K1 (96x64, each pass count) and K2 (96x64), K1's cluster
+# instance (64x64 a CTA) and its off-chip one (each pass count and slab
+# residency), K3 and K6 (16x32x32), K5 (nz = 32, 16 and the runtime-nz
+# instance, with the z split) and K7 (nz = 16)
 ENTRIES = ("env_step_2d", "tendencies_2d", "stage_march", "stage_rk_3d", "field_tendency",
            "div_3d")
 SASS_INSTANCES = ("env_step_2d_kernelILi96ELi64E", "env_step_2d_cluster_kernelILi64ELi64E",
-                  "tendencies_2d_march_kernelILi96ELi64E",
+                  "env_step_2d_global_kernel", "tendencies_2d_march_kernelILi96ELi64E",
                   "stage_march_kernelILi16ELi32E", "stage_march_kernelILi32ELin1E",
+                  "stage_march_kernelILi16ELin1E", "stage_march_kernelILi0ELin1E",
                   "div_3d_kernelILi16E")
 
 def ptxas(tree: Path, nvcc: str) -> list:
     return [subprocess.Popen([nvcc, *PTXAS, str(src)], stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
             for src in sorted((tree / "rbc_gym_tpu_torch" / "csrc").glob("*.cu"))]
+
+
+def ptx_sources(tree: Path, nvcc: str) -> list:
+    """One ``-ptx`` compile of each of the tree's ``csrc/*.cu`` into its build directory."""
+    out = tree / "rbc_gym_tpu_torch" / "_build"
+    out.mkdir(parents=True, exist_ok=True)
+    return [subprocess.Popen([nvcc, *TARGET_O3, "-ptx", "-o", str(out / f"{src.stem}.ptx"),
+                              str(src)], stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+            for src in sorted((tree / "rbc_gym_tpu_torch" / "csrc").glob("*.cu"))]
+
+
+def ptx_kernels(tree: Path) -> dict:
+    """Each kernel's PTX body in the tree's ``-ptx`` builds, keyed by file and
+    entry: the anonymous namespace's hash and the label numbers (which move
+    when a kernel is added before another) normalised, and a trailing
+    default template argument (``ELb0E``) dropped from the key, so that an
+    instance keeps its key when a template grows a defaulted parameter."""
+    import re
+
+    kernels = {}
+    for ptx in sorted((tree / "rbc_gym_tpu_torch" / "_build").glob("*.ptx")):
+        text = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", ptx.read_text())
+        text = re.sub(r"\$L__BB\d+_", "$L__BB_", text)
+        for m in re.finditer(r"\.entry (\S+)\(", text):
+            name = m.group(1)
+            end = text.find(".entry ", m.end())
+            key = name
+            while "ELb0EEEv" in key:
+                key = key.replace("ELb0EEEv", "EEEv")
+            kernels[f"{ptx.stem}:{key}"] = text[m.end():end if end > 0 else len(text)].replace(
+                name, "")
+    return kernels
 
 
 def sass_histograms(tree: Path, cuobjdump: str) -> dict:
@@ -518,6 +582,7 @@ def main() -> int:
     from rbc_gym_tpu_torch.ops import _build
 
     compiles = [ptxas(t, _build.nvcc_path()) for t in trees]
+    ptxs = [ptx_sources(t, _build.nvcc_path()) for t in trees]
     cuts = [build_ablations(t, _build.nvcc_path()) if "k1t" in kernels.split(",") else []
             for t in trees]
     failed = False
@@ -542,6 +607,17 @@ def main() -> int:
             rec["sass"] = sass_histograms(t, str(Path(_build.nvcc_path()).with_name("cuobjdump")))
         print(json.dumps(rec), flush=True)
         failed |= b.returncode != 0
+    for procs in ptxs:
+        for p in procs:
+            p.wait()
+    first = ptx_kernels(trees[0])
+    for t in trees[1:]:
+        other = ptx_kernels(t)
+        print(json.dumps({"ptx": str(t), "against": str(trees[0]), "kernels": len(other),
+                          "differ": sorted(k for k in first.keys() & other.keys()
+                                           if first[k] != other[k]),
+                          "only_here": sorted(other.keys() - first.keys()),
+                          "only_there": sorted(first.keys() - other.keys())}), flush=True)
     for t, b in zip(trees, builds):
         if b.returncode == 0:
             try:

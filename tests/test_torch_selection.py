@@ -54,15 +54,27 @@ def test_auto_selection(dtype, shape, device_type, want):
     assert s3.select_stage_path(dtype, *shape, device_type) == want
 
 
-@pytest.mark.parametrize("shape,message", [
-    # K3 too large, K5's constraints hold but its x-plane rings need 233,740 bytes
-    ((64, 64, 107), "stage_xy kernel needs 233,740 bytes.*232,448"),
+@pytest.mark.parametrize("shape,want", [
+    # K3 too large, K5's constraints hold but one CTA's x-plane rings would
+    # need 233,740 bytes (nz = 107) or more: K5's z split takes the column
+    ((64, 64, 107), "stage_xy"),  # two CTAs of 54 and 53 levels
+    ((32, 64, 112), "stage_xy"),  # 112x64x32
+    ((128, 128, 128), "stage_xy"),  # 128x128x128
+    ((256, 256, 128), "stage_xy"),  # 128x256x256
+    ((64, 64, 512), "stage_xy"),  # eight CTAs of 64 levels
+    # past the split's reach: eight CTAs of 99 levels would need 233,900 bytes
+    ((64, 64, 785), "stage_xy kernel needs 233,900 bytes.*8 CTAs.*232,448"),
 ])
-def test_auto_selection_raises_where_only_the_jax_package_has_a_kernel(shape, message):
+def test_auto_selection_raises_where_only_the_jax_package_has_a_kernel(shape, want):
     """Auto never puts the plain path on the card where the JAX package
-    runs a kernel that the port lacks."""
-    with pytest.raises(NotImplementedError, match=message):
-        s3.select_stage_path(F32, *shape, "cuda")
+    runs a kernel: the grids where single-CTA K5 cannot hold the column
+    take its z split, and the port raises only where that cannot either."""
+    if want == "stage_xy":
+        assert s3.select_stage_path(F32, *shape, "cuda") == want
+        assert limits.stage_xy_split_size(shape[2]) > 0
+    else:
+        with pytest.raises(NotImplementedError, match=want):
+            s3.select_stage_path(F32, *shape, "cuda")
     assert s3.select_stage_path(F64, *shape, "cuda") == "plain"
 
 
@@ -87,7 +99,7 @@ def test_forced_selection_that_fits(fused, shape, want, device_type):
     ("stage", F64, TRAINING, "float32"),
     ("stage", F32, (3, 32, 16), "nx >= 4, ny >= 4 and nz >= 2"),
     ("stage_xy", F32, (64, 60, 32), "ny % 8 == 0"),
-    ("stage_xy", F32, (64, 64, 107), "233,740 bytes"),
+    ("stage_xy", F32, (64, 64, 785), "233,900 bytes"),  # past the z split's 8 CTAs
     ("stage_xy", F32, (3, 64, 32), "nx >= 4"),
     ("stage_xy", F64, BIG, "float32"),
     ("field", F64, TRAINING, "float32, not torch.float64"),
@@ -202,17 +214,31 @@ def test_2d_auto_selection(dtype, nx, nz, device_type, want):
     (96, 64, True), (20, 12, True), (128, 16, True), (128, 40, True), (4, 2, True),
     (128, 64, False), (128, 224, False), (256, 32, False), (64, 128, False), (96, 65, False),
     (132, 16, False), (3, 8, False), (8, 1, False),
+    (256, 128, False), (2048, 64, False),  # off the chip, the slabs in global scratch
 ])
 def test_2d_kernel_instance(nx, nz, on_chip):
     """Which instance of K1 takes a grid: on the chip within its lane map
     and shared memory; else a thread-block cluster where 2, 4 or 8 CTAs of
     the on-chip layout take nx (``CLUSTERS``); off the chip (the two slabs
-    alone, the rest in global scratch) elsewhere."""
+    alone in shared memory, the rest in global scratch) elsewhere, its
+    slabs in global scratch too where they do not fit a block
+    (``GLOBAL_SLABS``)."""
     assert limits.env_step_2d_on_chip(nx, nz) == on_chip
     c = limits.env_step_2d_cluster_size(nx, nz)
     assert c == CLUSTERS.get((nx, nz), 0)
-    assert limits.env_step_2d_scratch_floats(nx, nz) == (0 if on_chip or c else
-                                                         5 * nx * nz + 2 * nx * (nz + 1))
+    global_slabs = (nx, nz) in GLOBAL_SLABS
+    assert limits.env_step_2d_slabs_on_chip(nx, nz) == (not global_slabs)
+    assert limits.env_step_2d_scratch_floats(nx, nz) == (
+        0 if on_chip or c else
+        (7 if global_slabs else 5) * nx * nz + 2 * nx * (nz + 1))
+    if global_slabs:
+        assert limits.env_step_2d_smem_bytes(nx, nz) == 0
+    assert limits.env_step_2d_smem_bytes(nx, nz) <= limits.SMEM_PER_BLOCK
+
+
+# the grids of test_2d_kernel_instance whose off-chip slabs, 8 nx nz bytes,
+# do not fit a block
+GLOBAL_SLABS = {(256, 128), (2048, 64)}
 
 
 # the grids of test_2d_kernel_instance that K1's cluster instance takes, and
@@ -268,11 +294,16 @@ def test_field_kernel_instance(shape, march):
         assert limits.field_smem_bytes(*shape[1:]) <= limits.SMEM_PER_BLOCK
 
 
-def test_2d_auto_selection_raises_where_k1_does_not_fit():
+@pytest.mark.parametrize("nx,nz", [(256, 128), (512, 256), (2048, 64), (256, 256)])
+def test_2d_auto_selection_raises_where_k1_does_not_fit(nx, nz):
     """The JAX package runs its fused kernels for every float32 grid; where
-    K1's slabs (524,288 bytes here) exceed a block, auto refuses."""
-    with pytest.raises(NotImplementedError, match="524,288 bytes.*232,448"):
-        s2.select_env_step_path(F32, 256, 256, "cuda")
+    K1's two slabs (262,144 bytes at 256x128) exceed a block, its off-chip
+    instance keeps them in global scratch, so auto takes K1 there too. It
+    refuses only an env past K1's 32-bit offsets."""
+    assert limits.env_step_2d_slabs_on_chip(nx, nz) is False
+    assert s2.select_env_step_path(F32, nx, nz, "cuda") == "fused"
+    with pytest.raises(NotImplementedError, match="32-bit offsets"):
+        s2.select_env_step_path(F32, 65_536, 4096, "cuda")
 
 
 @pytest.mark.parametrize("nx,nz", [(2, 64), (1, 8)])
@@ -289,9 +320,10 @@ def test_2d_forced_selection():
         assert s2.select_env_step_path(F32, 96, 64, device_type, True) == "fused"
         assert s2.select_env_step_path(F32, 128, 224, device_type, True) == "fused"
         assert s2.select_env_step_path(F32, 96, 64, device_type, False) == "plain"
-        with pytest.raises(ValueError, match="524,288 bytes") as err:
-            s2.select_env_step_path(F32, 256, 256, device_type, True)
-        assert "232,448" in str(err.value)
+        assert s2.select_env_step_path(F32, 256, 256, device_type, True) == "fused"
+        with pytest.raises(ValueError, match="32-bit offsets") as err:
+            s2.select_env_step_path(F32, 65_536, 4096, device_type, True)
+        assert "2,147,483,647" in str(err.value)
         with pytest.raises(ValueError, match="float32"):
             s2.select_env_step_path(F64, 96, 64, device_type, True)
         with pytest.raises(ValueError, match="unknown fused"):

@@ -56,22 +56,25 @@ def test_smoke_phases_run_on_cpu_plain_halves():
     fake = {"ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5, "bound_by": "bytes"}
     names = ("env_step_2d", "tendencies_2d", "stage_rk_3d", "correct_3d", "stage_rk_3d_xy",
              "field_tendency_3d", "div_3d", "stage_rk_3d_rhat", "env_step_2d_tf32x3",
-             "env_step_2d_tf32", "env_step_2d_cluster")
+             "env_step_2d_tf32", "env_step_2d_cluster", "stage_rk_3d_xy_split",
+             "env_step_2d_global")
     records = chip_smoke.kernel_records(
         {"env_step_2d": 1e-7, "env_step_2d_main": 2e-7, "tendencies_2d": 1e-8,
          "stage_rk_3d": 3e-7, "correct_3d": 1e-8, "stage_rk_3d_xy": 4e-7,
          "field_tendency_3d": 5e-7, "div_3d": 6e-8, "stage_rk_3d_rhat": 1e-5,
          "env_step_2d_tf32x3": 3e-7, "env_step_2d_tf32": 2e-5,
-         "env_step_2d_cluster_main": 3e-6},
+         "env_step_2d_cluster_main": 3e-6, "stage_rk_3d_xy_split": 4e-6,
+         "env_step_2d_global": 5e-6},
         {"env_step_2d": 3, "tendencies_2d": 3, "stage_rk_3d": 117, "correct_3d": 3,
          "stage_rk_3d_xy": 225, "field_tendency_3d": 468, "div_3d": 117,
          "stage_rk_3d_rhat": 39, "env_step_2d_tf32x3": 1, "env_step_2d_tf32": 1,
-         "env_step_2d_cluster": 3},
+         "env_step_2d_cluster": 3, "stage_rk_3d_xy_split": 225, "env_step_2d_global": 3},
         {name: fake for name in names},
     )
     assert [rec["name"] for rec in records] == list(names)
     assert records[0]["max_abs_err"] == 2e-7  # the main path's shapes
-    assert records[-1]["max_abs_err"] == 3e-6  # the cluster's path at its main shapes
+    assert records[10]["max_abs_err"] == 3e-6  # the cluster's path at its main shapes
+    assert records[-1]["max_abs_err"] == 5e-6 and records[-1]["launches"] == 3
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for rec in records:

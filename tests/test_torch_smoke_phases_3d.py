@@ -89,3 +89,33 @@ def test_smoke_field_phases_run_on_cpu_plain_halves():
     assert sel["fused_true"] == "field" and sel["paths"]["odd_nx"] == "plain"
     assert "float32" in sel["forced_field_float64"]
     assert not any(sel["odd_nx_step_launches"].values())
+
+
+def test_smoke_fine_grids_phase_runs_on_cpu_plain_halves():
+    """Phase 41 at a tiny size: both halves of every comparison are the
+    plain versions here (the split's stages agree exactly with the float64
+    plain run, since the CPU runs them in float64), the envs' and the
+    flow-statistics run's checks run as on the card; the card's defaults
+    are grids that K5's z split and K1's global slabs take."""
+    assert chip_smoke.stage_xy_split_size(chip_smoke.FINE_SHAPE_3D[0]) == 2
+    assert chip_smoke.stage_xy_split_size(chip_smoke.FINE_ODD_SHAPE_3D[0]) == 2
+    assert not any(chip_smoke.env_step_2d_slabs_on_chip(nx, nz)
+                   for nz, nx in chip_smoke.FINE_GRIDS_2D)
+    out = chip_smoke.fine_grids(
+        "cpu", envs_3d=1, shape_3d=(8, 8, 8), odd_envs=1, odd_shape=(6, 8, 4),
+        heater_3d=0.0125, steps=2, k1_envs=1, k1_shape=(16, 32), k1_substeps=(2, 3),
+        grids_2d={(16, 32): (0.03, 0.06)}, envs_2d=((2, (16, 32)),), observation_shape=(8, 16))
+    # K1 at "default" is held against float64 (the float32 plain version
+    # on the CPU is that far off); every other half is the plain version
+    assert all(v["error"] == 0.0 for k, v in out["gated"].items() if not k.endswith("default"))
+    assert all(v["error"] <= v["bound"] for v in out["gated"].values())
+    assert {"stage0_gu", "stage2_div", "odd_stage1_gw", "env_step_2d_global_2",
+            "env_step_2d_global_3", "env_step_2d_global_bf16x3",
+            "env_step_2d_global_default"} <= set(out["gated"])
+    assert out["max_abs_err"] == {"stage_rk_3d_xy_split": 0.0, "env_step_2d_global": 0.0}
+    assert out["main_path_3d"]["launches"] == dict.fromkeys(chip_smoke.FINE_WRAPPERS_3D, 0)
+    assert out["main_path_3d"]["max_abs_div"] < out["main_path_3d"]["div_atol"]
+    assert len(out["flowstats_3d"]["nusselt"]) == 2
+    assert out["main_path_2d"]["32x16"]["substeps_per_step"] == 2
+    assert out["times"] == {}
+    json.dumps(out)

@@ -122,16 +122,18 @@ static void run_clusters(int E, int c, const std::function<void()>& body) {
 int main(int argc, char** argv) {
   const std::string mode = argv[1];
   if (mode == "smem") {  // smem NX NZ: K1's shared and scratch floats and instance, K2's,
-                         // K1's cluster size and whether its CTAs hold F and G
+                         // K1's cluster size, whether its CTAs hold F and G, whether its
+                         // slabs are on the chip and its offsets fit
     const int nx = atoi(argv[2]), nz = atoi(argv[3]);
-    printf("%zu %zu %d %zu %zu %d %d %d\n", env_step_2d_smem_floats(nx, nz),
+    printf("%zu %zu %d %zu %zu %d %d %d %d %d\n", env_step_2d_smem_floats(nx, nz),
            env_step_2d_scratch_floats(nx, nz), (int)env_step_2d_on_chip(nx, nz),
            tendencies_2d_smem_floats(nx, nz), tendencies_2d_scratch_floats(nx, nz),
            (int)tendencies_on_march(nx, nz), env_step_2d_cluster_size(nx, nz),
-           (int)env_step_2d_cluster_fg(nx, nz));
+           (int)env_step_2d_cluster_fg(nx, nz), (int)env_step_2d_slabs_on_chip(nx, nz),
+           (int)env_step_2d_offsets_fit(nx, nz));
     return 0;
   }
-  // k1|k2 DIR E NX NZ NSUB DT DX DZ NU KAPPA MIN_B [PASSES [global]]
+  // k1|k2 DIR E NX NZ NSUB DT DX DZ NU KAPPA MIN_B [PASSES [global|global_slabs]]
   dir = argv[2];
   const int E = atoi(argv[3]), nx = atoi(argv[4]), nz = atoi(argv[5]), nsub = atoi(argv[6]);
   const float dt = atof(argv[7]), dx = atof(argv[8]), dz = atof(argv[9]), nu = atof(argv[10]),
@@ -164,8 +166,10 @@ int main(int argc, char** argv) {
   const K1Params P = k1_params(nx, nz, nsub, dt, dx, dz, nu, kappa, min_b);
   const RBCParams R{nx, nz, dx, dz, nu, kappa, min_b};
   // as launch_env_step_2d, unless "global" forces the off-chip instance
+  // ("global_slabs": with its slabs in global scratch)
   const int passes = argc > 13 ? atoi(argv[13]) : 0;
-  const bool forced = argc > 14 && std::string(argv[14]) == "global";
+  const std::string force = argc > 14 ? argv[14] : "";
+  const bool forced = force == "global" || force == "global_slabs";
   const bool on_chip = !forced && env_step_2d_on_chip(nx, nz);
   const int csize = forced ? 0 : env_step_2d_cluster_size(nx, nz);
   if (on_chip) {
@@ -188,8 +192,10 @@ int main(int argc, char** argv) {
              out[3].data(), P, fg);
     });
   } else {
-    auto* global = env_step_global_kernel_for(passes);
-    std::vector<float> scratch(E * (5 * (size_t)nx * nz + 2 * (size_t)nx * (nz + 1)), NAN);
+    const bool slabs = force == "global" || (force.empty() && env_step_2d_slabs_on_chip(nx, nz));
+    auto* global = env_step_global_kernel_for(passes, slabs);
+    std::vector<float> scratch(
+        E * ((slabs ? 5 : 7) * (size_t)nx * nz + 2 * (size_t)nx * (nz + 1)), NAN);
     run_blocks(E, [&] {
       global(u.data(), w.data(), b.data(), bottom.data(), f.data(), g.data(), dct.data(),
              idct.data(), dinv.data(), out[0].data(), out[1].data(), out[2].data(),
@@ -197,8 +203,11 @@ int main(int argc, char** argv) {
     });
   }
   wr("u_out", out[0]); wr("w_out", out[1]); wr("b_out", out[2]); wr("p_out", out[3]);
+  const bool global_slabs = !on_chip && csize == 0 &&
+                            (force == "global_slabs" || (force.empty() && !env_step_2d_slabs_on_chip(nx, nz)));
   printf("%s %d\n", on_chip ? (k1_wgmma(nx, nz, passes) ? "on_chip_wgmma" : "on_chip")
-                   : csize > 0 ? "cluster" : "global", csize > 0 ? csize : 1);
+                   : csize > 0 ? "cluster" : (global_slabs ? "global_slabs" : "global"),
+         csize > 0 ? csize : 1);
   return 0;
 }
 """
@@ -223,9 +232,13 @@ def run_case(host_binary, tmp_path, mode, n_env, nx, nz, heater_duration, seed,
              dt_solver=None, precision=None, force_global=False):
     """Write a float32 case (``chip_smoke.make_case``) and the solve's
     constants, run ``mode`` on the host (K1 in the instance for
-    ``precision``, its off-chip one with ``force_global``) -> (solver,
-    case, what the host program printed: for K1 the instance that ran and
-    its CTAs a cluster); the outputs are files in ``tmp_path``."""
+    ``precision``; ``force_global`` "global" forces its off-chip instance,
+    "global_slabs" that instance with its slabs in global scratch, and True
+    is "global") -> (solver, case, what the host program printed: for K1
+    the instance that ran and its CTAs a cluster); the outputs are files in
+    ``tmp_path``."""
+    if force_global is True:
+        force_global = "global"
     solver, case = chip_smoke.make_case("cpu", n_env, (nz, nx), heater_duration, seed=seed,
                                         dtype=torch.float32, dt_solver=dt_solver)
     for name, t in {**case, **solver.spectral._asdict()}.items():
@@ -236,7 +249,7 @@ def run_case(host_binary, tmp_path, mode, n_env, nx, nz, heater_duration, seed,
     c, p = solver.coeffs, solver.params
     args = [mode, f"{tmp_path}/", *map(str, (n_env, nx, nz, p.substeps_per_env_step)),
             *(repr(float(x)) for x in (p.dt_solver, c.dx, c.dz, c.nu, c.kappa, c.min_b)),
-            str(passes), *(["global"] if force_global else [])]
+            str(passes), *([force_global] if force_global else [])]
     out = subprocess.run([str(host_binary), *args], check=True, capture_output=True, text=True)
     return solver, case, out.stdout.strip()
 
