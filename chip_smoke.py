@@ -252,8 +252,8 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      3 steps with random actions; the 2D checks, the cluster
                      instance 3 launches and the other K1 instances none
 41. fine_grids       the grids where the JAX package runs its kernels and the
-                     port used to raise: K5's z split (a cluster of 2 CTAs a
-                     block at nz = 112 and 128) at each stage against the
+                     port used to raise: K5's z split (four CTAs of 32 levels
+                     a block at nz = 112 and 128) at each stage against the
                      plain version in float64 beside the float32 plain
                      version's own error (SPLIT_VS_PLAIN) on 128x128x128 at
                      16 envs and 112x64x32 at 64;
@@ -269,7 +269,8 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      dt_solvers: reset, 3 steps, the 2D checks, the instance
                      3 launches and no other K1 instance; both instances'
                      occupancy and times beside their plain versions and
-                     bounds
+                     bounds, the split's also at one env (the flow
+                     statistics' launch)
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -3780,7 +3781,8 @@ def fine_grids(device, envs_3d=16, shape_3d=FINE_SHAPE_3D, odd_envs=64,
     ``check_2d``, the instance ``steps`` launches and no other K1
     instance). On the card: both instances' occupancy and CUDA-event times,
     the split's per stage at ``shape_3d``, K1's at ``timing_envs_2d`` on
-    ``k1_shape`` (6 substeps), beside their plain versions and bounds."""
+    ``k1_shape`` (6 substeps), beside their plain versions and bounds, and
+    the split's at one env on ``shape_3d`` (the flow statistics' launch)."""
     begin = time.perf_counter()
     device = torch.device(device)
     dtype = working_dtype(device)
@@ -3907,11 +3909,17 @@ def fine_grids(device, envs_3d=16, shape_3d=FINE_SHAPE_3D, odd_envs=64,
             stages.append({"ms": ms, "plain_ms": _cuda_ms(
                 lambda: k3_run(solver, case, stage, gp, False), 1), "bound_ms": bound_ms,
                 "bound_by": bound_by, "share_of_bound": bound_ms / ms, **work})
+        del case, g_prev
+        s1, c1 = make_case_3d(device, 1, shape_3d, seed=46, dt_solver=dt_3d)
+        g1 = k3_run(s1, c1, 0, None, True, k3d.stage_rk_3d_xy)[5]
+        one_env = [_cuda_ms(lambda: k3_run(s1, c1, stage, g1 if stage else None, True,
+                                           k3d.stage_rk_3d_xy), 10 * reps)
+                   for stage in range(3)]
         times["stage_rk_3d_xy_split"] = {
             **{k: sum(st[k] for st in stages) / 3 for k in ("ms", "plain_ms", "bound_ms")},
             "bound_by": stages[1]["bound_by"], "num_envs": envs_3d,
-            "by_stage": stages}
-        del case, g_prev
+            "by_stage": stages, "one_env_ms_by_stage": one_env}
+        del s1, c1, g1
         s, c = make_case(device, timing_envs_2d, k1_shape, heater_duration=k1_substeps[0] * k1_dt,
                          seed=45, dtype=torch.float32, dt_solver=k1_dt)
         work = env_step_work(timing_envs_2d, k1_nx, k1_nz, k1_substeps[0])

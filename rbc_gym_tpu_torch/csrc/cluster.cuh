@@ -1,7 +1,6 @@
-// Thread-block clusters as __device__ code, shared by K1's cluster instance
-// (rbc2d.cu) and K5's z-split instance (rbc3d.cu). csrc/host_shim.h stands
-// in for these on the host, where a cluster's CTAs run together as host
-// threads.
+// Thread-block clusters as __device__ code, for K1's cluster instance
+// (rbc2d.cu). csrc/host_shim.h stands in for these on the host, where a
+// cluster's CTAs run together as host fibers.
 #pragma once
 
 #ifndef RBC_HOST_BUILD

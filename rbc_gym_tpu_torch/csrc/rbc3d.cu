@@ -127,35 +127,52 @@
 //   warps). There is no matrix product, so no wgmma or tensor cores. The
 //   Pallas kernel's _YH = 8 (the TPU's sublane tiling), e_blk and XLA-side
 //   padding have no counterpart.
-//   K5's z split, stage_march_kernel<0, -1, kStage, false, true>, takes the
-//   columns one CTA cannot hold (nz >= 107: the rings above 232,448 bytes,
-//   and past nz = 113 the (kYT + 1) nz threads above 1024), which the
-//   Pallas kernel takes with no nz limit. Each block of the grid above
-//   becomes a thread-block cluster of c = 2, 4 or 8 CTAs
-//   (stage_xy_split_size: the smallest that fits; 2 up to nz = 198, 8 up
-//   to 784), launched with cudaLaunchKernelEx and a cluster dimension. CTA
-//   r owns the levels [r p, (r + 1) p), p = ceil(nz / c), the last part
-//   shorter, and holds kSplitHalo = 4 more on each inner side: the taps
-//   reach 3 levels, and the correction of w's lowest held tap face needs q
-//   one level further. Each CTA copies its window of every staged plane
-//   straight from global memory with the same cp.async ring, so the field
-//   halos need no distributed shared memory, and computes K5's point
-//   arithmetic unchanged at its own levels (the z ladder and the walls by
-//   the column's level, the taps clamped into the column) and w* at its
-//   faces [z0, z1]: face z1, whose w* its top divergence needs, is the next
-//   CTA's too, computed identically by both and written by its owner. Its
-//   rows have p + 1 threads, (kYT + 1) (p + 1) a CTA. The only value that
-//   crosses CTAs is pHY', K5's float64 suffix sum down each column: row
-//   kYT sums its CTA's levels of plane i + 3 into a partial total in its
-//   shared memory (two planes by parity), the plane's one cluster barrier
-//   (barrier.cluster arrive.release / wait.acquire, in place of the CTA
-//   barrier after the copy) publishes it, and during plane i + 1 the row
-//   reads the totals of the CTAs above through distributed shared memory
-//   (cluster_map), adds them in float64 and sums down its own levels from
-//   there, so each value still rounds once. Shared memory, in floats: 40
-//   (the totals) plus K5's formula over the held levels: 148,880 bytes a
-//   CTA at nz = 128, 585 threads, one CTA an SM. On the host, with no FMA
-//   contraction, the split's outputs are single-CTA K5's bit for bit.
+//   K5's z split, stage_march_kernel<kSplitPart, -1, kStage, false, true>,
+//   takes the columns one CTA cannot hold (nz >= 107: the rings above
+//   232,448 bytes, and past nz = 113 the (kYT + 1) nz threads above 1024),
+//   with no upper bound, as the Pallas kernel. Each block of the grid above
+//   becomes c = ceil(nz / 32) CTAs, launched one after another
+//   (stage_xy_split_size). CTA r owns the levels [32 r, 32 r + 32), the
+//   last part shorter, and holds kSplitHalo = 4 more on each side in rings
+//   of kSplitLevels = 40 levels a row (the taps reach 3 levels, and the
+//   correction of w's lowest held tap face needs q one level further;
+//   levels past the column are never copied or read). It copies its window
+//   of every staged plane straight from global memory with K5's cp.async
+//   ring, so the field halos cross no CTA. Its warps: 0..kYT are K5's rows,
+//   a level a lane, so its z fluxes are handed between lanes by shuffles
+//   as at nz = 32 (a part's edge lanes compute the flux through its edge
+//   face themselves); warp kYT + 1 computes w* at face z1 of rows
+//   0..kYT-1, a lane a row (the part's top divergence needs it; the next
+//   CTA computes and writes the same face); warp kYT + 2 sums pHY'. Every
+//   lane of a row warp computes, and a lane past the column touches no
+//   global memory, so no warp's lanes take different roles. pHY', K5's
+//   float64 sum down each column, is the only value a part needs from the
+//   parts above it: the pHY' warp sums each part's total in the order the
+//   part's own CTA would (the top part from the half cell under the lid),
+//   a lane a part and column, adds the totals from the top down and sums
+//   down its own levels from there, so each value rounds once as in the
+//   first design, and nothing crosses CTAs: no cluster, no distributed
+//   shared memory, no barrier but the CTA's two a plane. Its own levels'
+//   b comes from the ring, that of the three parts above from rows staged
+//   a plane ahead with the CTA's other copies (kSplitStage = 97 levels of
+//   its kPRows columns, two planes by parity), and that of parts further
+//   up (nz > 128 + 32 r) from global memory. Shared memory: K5's formula at
+//   40 levels plus the staged rows, 95,440 bytes; 352 threads and 80
+//   registers a CTA, two CTAs an SM.
+//   What held the first design (PR 24: a cluster of 2, 4 or 8 CTAs with
+//   the runtime-nz code, pHY' totals through distributed shared memory and
+//   a cluster barrier a plane; 6.82-7.08 ms a stage at 16 envs on
+//   128x128x128 on an H100 80GB HBM3 at 700 W, 8-10 % of the bound), by
+//   ablation (PERF.md, section 6): pHY', summed by 10 threads a CTA in two
+//   serial passes of 64 levels a plane on the plane's critical path, ~43 %
+//   of its time; the runtime-nz code most of the rest; the cluster barrier
+//   ~3.5 %; two CTAs an SM alone bought nothing. This design takes 4.15-4.30
+//   ms a stage there, 13-17 % of the bound, nearly all of it its rows
+//   (~110 ps a cell against K5's ~56 at nz = 32: two CTAs of 11 warps an
+//   SM against three of 9, 25 % more levels copied); by ablation its pHY'
+//   warp 1-4 % and its edge lanes' own fluxes ~2 %.
+//   On the host, with no FMA contraction, the split's outputs are
+//   single-CTA K5's bit for bit.
 //
 // K4 correct_3d_kernel replaces ops/pallas3d.py:_correct_kernel (reached
 // from make_projection_glue_3d, pl.pallas_call at :959): u -= ddx q,
@@ -231,7 +248,6 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
-#include "cluster.cuh"
 #include "ub5.cuh"
 
 namespace {
@@ -473,54 +489,40 @@ size_t field_smem_floats(int ny, int nz) {
 // 0..kYT (NY < 0), K3's and K6's rows 0..ny - 1 (NY >= 0).
 __host__ __device__ constexpr int march_threads(int nz, int ny) { return (ny < 0 ? kYT + 1 : ny) * nz; }
 
-// K5's z split (see the head of this file): a cluster of c CTAs for each
-// block of the single-CTA K5, CTA r owning the levels [r part, (r + 1)
-// part) of the column (the last part shorter) and holding kSplitHalo more
-// on each inner side; two planes' partial sums of pHY' (kPRows columns, as
-// doubles) head its shared memory.
+// K5's z split (see the head of this file): c CTAs for each block of the
+// single-CTA K5, CTA r owning the levels [r kSplitPart, (r + 1) kSplitPart)
+// of the column (the last part shorter), one level a lane, and holding
+// kSplitHalo more on each side (the rings' rows are kSplitLevels long
+// whatever the part; levels past the column are never copied or read).
+// Warps 0..kYT are the rows of the single-CTA K5, warp kYT + 1 computes w*
+// at face z1 of rows 0..kYT-1 (a lane a row), warp kYT + 2 pHY' (a lane a
+// part of a column, kSplitRound parts of kPRows columns a round). b of
+// those columns over the kSplitStage levels from z1 (the parts it sums
+// last) is staged a plane ahead, two planes by parity, after the rings.
+constexpr int kSplitPart = 32;
 constexpr int kSplitHalo = 4;
-constexpr int kXYMaxSplit = 8;  // the portable cluster size
-constexpr int kSplitTotFloats = 2 * 2 * kPRows;
+constexpr int kSplitLevels = kSplitPart + 2 * kSplitHalo;
+constexpr int kSplitWarps = kYT + 3;
+constexpr int kSplitThreads = 32 * kSplitWarps;
+constexpr int kSplitRound = 32 / kPRows;
+constexpr int kSplitStage = kSplitRound * kSplitPart + 1;
 
-__host__ __device__ constexpr int split_part(int nz, int c) { return (nz + c - 1) / c; }
-
-// The most levels a CTA of the split holds.
-int split_levels(int nz, int c) {
-  const int part = split_part(nz, c);
-  int most = 0;
-  for (int r = 0; r < c; ++r) {
-    const int z0 = r * part, z1 = min(z0 + part, nz);
-    most = max(most, min(z1 + kSplitHalo, nz) - max(z0 - kSplitHalo, 0));
-  }
-  return most;
-}
-
-// Threads of a split CTA: rows 0..kYT of part + 1 levels (the last one the
-// face above its part, whose w* its top divergence needs).
-int split_threads(int nz, int c) { return (kYT + 1) * (split_part(nz, c) + 1); }
-
-// Shared memory a split CTA needs, in floats: the partial sums, then K5's
-// rings over the levels it holds.
+// Shared memory a split CTA needs, in floats: K5's rings over the levels
+// it holds, then the staged columns.
 size_t stage_xy_split_smem_floats(int nz, int c) {
-  return kSplitTotFloats + stage_xy_smem_floats(split_levels(nz, c));
+  return stage_xy_smem_floats(kSplitLevels) + 2 * kPRows * kSplitStage;
 }
 
 // The CTAs of K5's z split for a column of nz levels: 0 where one CTA holds
 // it (its rings in a block, its (kYT + 1) nz threads at most 1024: nz <=
-// 106), else the smallest c of 2, 4 and 8 whose parts are all non-empty and
-// whose CTAs' threads and shared memory fit; 0 where none does (nz > 784).
+// 106), else one a kSplitPart levels, ceil(nz / kSplitPart), with no upper
+// bound (each CTA's threads and shared memory are the same at every nz).
 int stage_xy_split_size(int nz) {
   if (sizeof(float) * stage_xy_smem_floats(nz) <= kSmemPerBlock &&
       march_threads(nz, -1) <= kMaxThreads) {
     return 0;
   }
-  for (int c = 2; c <= kXYMaxSplit; c *= 2) {
-    if ((c - 1) * split_part(nz, c) < nz && split_threads(nz, c) <= kMaxThreads &&
-        sizeof(float) * stage_xy_split_smem_floats(nz, c) <= kSmemPerBlock) {
-      return c;
-    }
-  }
-  return 0;
+  return (nz + kSplitPart - 1) / kSplitPart;
 }
 
 // Whether K6 takes the grid with its march instance (K3's whole-y rule);
@@ -595,10 +597,12 @@ __device__ __forceinline__ void rhat_x_factor(float* col, const float* __restric
 // to div_out in place of div, from Fx and Cz^T in `analysis` (NULL for
 // every other instance: a pointer in XYParams moved the other instances'
 // register allocation); it has K3's launch bounds. kSplit: K5's z split,
-// one CTA of a cluster that shares each block's column (NZ = 0, NY < 0).
+// one of the CTAs that share each block's column (NZ = kSplitPart, the
+// levels it owns, NY < 0; the column's nz at run time).
 template <int NZ, int NY, int kField = kStage, bool kRhat = false, bool kSplit = false>
-__global__ void __launch_bounds__(NZ > 0 && NY != 0 ? march_threads(NZ, NY) : kMaxThreads,
-                                  NY < 0 ? (NZ == 32 ? 3 : 1) : (NZ > 0 && NY > 0 ? 2 : 1))
+__global__ void __launch_bounds__(kSplit ? kSplitThreads
+                                         : (NZ > 0 && NY != 0 ? march_threads(NZ, NY) : kMaxThreads),
+                                  kSplit ? 2 : (NY < 0 ? (NZ == 32 ? 3 : 1) : (NZ > 0 && NY > 0 ? 2 : 1)))
 stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
                       const float* __restrict__ w_in, const float* __restrict__ b_in,
                       const float* __restrict__ q_in, const float* __restrict__ bottom_in,
@@ -611,7 +615,7 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   constexpr bool kK6 = kField != kStage;
   static_assert(!kK6 || kWhole, "K6 marches over whole y");
   static_assert(!kRhat || (kWhole && !kK6), "the analysis instance is K3's");
-  static_assert(!kSplit || (NZ == 0 && !kWhole), "the z split is K5's, at a runtime nz");
+  static_assert(!kSplit || (NZ == kSplitPart && !kWhole), "the z split is K5's, a warp a row");
   // the tendencies this instance computes; b is read for gb and for pHY'
   constexpr bool kU = runs(kField, kFieldU), kV = runs(kField, kFieldV);
   constexpr bool kW = runs(kField, kFieldW), kB = runs(kField, kFieldB);
@@ -619,37 +623,39 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   constexpr int kYF = kK6 ? 1 : 4;  // fields whose y fluxes are staged
   extern __shared__ float smem[];
   // The column's nzg levels. The split's CTA `rank` of n_cta owns the
-  // levels [z0, z1) and holds [zlo, zhi); elsewhere a CTA owns and holds
-  // them all. (Each expression below that differs for the split is a
-  // kSplit ? split : the single CTA's own, so that the other instances
-  // compile as they did.)
-  const int nx = P.nx, ny = NY > 0 ? NY : P.ny, nzg = NZ > 0 ? NZ : P.nz;
-  int n_cta = 1, rank = 0, part = nzg, z0 = 0, z1 = nzg, zlo = 0, zhi = nzg;
+  // levels [z0, z1) and holds [zlo, zlo + kSplitLevels) of them, zlo = z0 -
+  // kSplitHalo; elsewhere a CTA owns and holds them all. (Each expression
+  // below that differs for the split is a kSplit ? split : the single
+  // CTA's own, so that the other instances compile as they did.)
+  const int nx = P.nx, ny = NY > 0 ? NY : P.ny, nzg = kSplit ? P.nz : (NZ > 0 ? NZ : P.nz);
+  int n_cta = 1, rank = 0, z0 = 0, z1 = nzg, zlo = 0;
   if constexpr (kSplit) {
-    n_cta = cluster_size();
-    rank = cluster_rank();
-    part = split_part(nzg, n_cta);
-    z0 = rank * part;
-    z1 = min(z0 + part, nzg);
-    zlo = max(z0 - kSplitHalo, 0);
-    zhi = min(z1 + kSplitHalo, nzg);
+    n_cta = (nzg + NZ - 1) / NZ;
+    rank = (int)(blockIdx.x % (unsigned)n_cta);
+    z0 = rank * NZ;
+    z1 = min(z0 + NZ, nzg);
+    zlo = z0 - kSplitHalo;
   }
-  // nz: the levels of a ring's row (nzg, or the split's zhi - zlo)
-  const int nz = kSplit ? zhi - zlo : nzg, nw = nz + 1;
+  // nz: the levels of a ring's row (nzg, or the split's kSplitLevels)
+  const int nz = kSplit ? kSplitLevels : nzg, nw = nz + 1;
   // this thread's point of every x-plane: row j, level k of the rings, kz of
   // the column; the only divisions by a runtime size are these and the
-  // block's. A split row has part + 1 threads, the last one face z1's.
-  const int tk = kSplit ? part + 1 : nz;
-  const int j = threadIdx.x / tk, kl = threadIdx.x - j * tk;
-  const int kz = kSplit ? z0 + kl : kl, k = kSplit ? kz - zlo : kl;
+  // block's. The split's warp jw: rows 0..kYT a level a lane, kYT + 1 face
+  // z1 of row `lane`, kYT + 2 pHY'.
+  const int tk = kSplit ? 32 : nz;
+  const int jw = threadIdx.x / tk, kl = threadIdx.x - jw * tk;
+  const bool face_warp = kSplit && jw == kYT + 1, phy_warp = kSplit && jw == kYT + 2;
+  const int j = face_warp ? kl : jw;
+  const int kz = kSplit ? (face_warp ? z1 : z0 + kl) : kl, k = kSplit ? kz - zlo : kl;
   const int n_rows = kWhole ? ny : kYT + 1;  // rows of threads
+  const int copy_rows_step = kSplit ? kSplitWarps : n_rows;  // rows of copying threads
   size_t e;
   int y0;
   if constexpr (kWhole) {
     e = blockIdx.x;
     y0 = 0;
   } else if constexpr (kSplit) {
-    const unsigned blk = blockIdx.x / n_cta;  // the cluster
+    const unsigned blk = blockIdx.x / (unsigned)n_cta;  // the single-CTA K5's block
     const int nyb = ny / kYT;
     e = blk / nyb;
     y0 = (blk - (int)e * nyb) * kYT;
@@ -661,23 +667,23 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   const size_t S = (size_t)ny * (kSplit ? nzg : nz), SW = (size_t)ny * (kSplit ? nzg + 1 : nw);
   const size_t cell0 = e * nx * S, face0 = e * nx * SW;
   // the split's CTA computes u*, v*, b' at its levels and w* at its faces
-  // [z0, z1], and writes the faces it owns: face z1 is the next CTA's (the
-  // last CTA's top wall its own)
-  const bool cell = !kSplit || kz < z1, writes_w = !kSplit || kz < z1 || z1 == nzg;
+  // [z0, z1] (face z1 by its face warp), and writes the faces it owns: face
+  // z1 is the next CTA's (the last CTA's top wall its own). Every lane of
+  // its rows' warps computes, so that their shuffles take whole warps; a
+  // lane past the column (the last part shorter) reads and writes no
+  // global memory (`mine`).
+  const bool cell = !kSplit || jw <= kYT;
+  const bool mine = !kSplit || face_warp || kz < z1;
+  const bool writes_w = !kSplit || (face_warp ? z1 == nzg : kz < z1);
   const bool w_interior = kz > 0 && kz < nzg;  // the split's: its faces reach the top wall
   // K5's row kYT computes v* only, for the divergence
-  const bool own = kSplit ? j < kYT && kz <= z1 : kWhole || j < kYT;
-  const bool phy_row = kSplit ? j == kYT : !own;  // the split's pHY' row
+  const bool own = kSplit ? jw < kYT || (face_warp && kl < kYT) : kWhole || j < kYT;
   const int jp = kWhole ? wrap_x(j + 1, ny) : j + 1;  // the row of v* above
 
   // each ring's first row and rows: K5's tile and halos, K3's every row
   auto lo = [&](int tile_lo) { return kWhole ? 0 : tile_lo; };
   auto rows = [&](int tile_rows) { return kWhole ? ny : tile_rows; };
-  // the split's partial sums of pHY' (two planes of kPRows columns) head
-  // its shared memory, at one address in every CTA of the cluster
-  double* const tot = reinterpret_cast<double*>(cta_shared(smem));
-  Ring<kRing, kWhole> U{kSplit ? cta_shared(smem) + kSplitTotFloats : smem, lo(kULo),
-                        rows(kURows), nz};
+  Ring<kRing, kWhole> U{smem, lo(kULo), rows(kURows), nz};
   Ring<kRing, kWhole> V{U.end(), lo(kVLo), rows(kVRows), nz};
   Ring<kRing, kWhole> W{V.end(), lo(kWLo), rows(kWRows), nw};
   Ring<kRing, kWhole> B{W.end(), lo(kBLo), rows(kBRows), nz};
@@ -698,12 +704,15 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   // ---- staging: plane x of u, v, w, b and q, raw, by asynchronous copies ----
   auto copy_rows = [&](const Ring<kRing, kWhole>& R, const float* src, size_t row_stride,
                        int x) {
-    for (int r = R.lo + j; r < R.lo + R.rows; r += n_rows) {
+    for (int r = R.lo + (kSplit ? jw : j); r < R.lo + R.rows; r += copy_rows_step) {
       const float* s = src + wrap_x(y0 + r, ny) * row_stride;
       float* d = R.row(x, r);
-      if constexpr (kSplit) {  // the held levels, from zlo
-        for (int kk = kl; kk < R.nk; kk += tk)
-          __pipeline_memcpy_async(d + kk, s + zlo + kk, sizeof(float));
+      if constexpr (kSplit) {  // the held levels of the column (row_stride: nzg, faces nzg + 1)
+        for (int kk = kl; kk < R.nk; kk += tk) {
+          const int level = zlo + kk;
+          if (level >= 0 && level < (int)row_stride)
+            __pipeline_memcpy_async(d + kk, s + level, sizeof(float));
+        }
       } else {
         __pipeline_memcpy_async(d + k, s + k, sizeof(float));
         if (R.nk > nz && k == 0) __pipeline_memcpy_async(d + nz, s + nz, sizeof(float));
@@ -712,15 +721,33 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   };
   auto load_q = [&](int x) {  // q is (E, ny, nx, nz): row y of plane x is one run
     const float* qe = q_in + e * ny * nx * nzg + (size_t)wrap_x(x, nx) * nzg;
-    for (int r = Q.lo + j; r < Q.lo + Q.rows; r += n_rows) {
+    for (int r = Q.lo + (kSplit ? jw : j); r < Q.lo + Q.rows; r += copy_rows_step) {
       if constexpr (kSplit) {
-        const float* qr = qe + (size_t)wrap_x(y0 + r, ny) * nx * nzg + zlo;
-        for (int kk = kl; kk < nz; kk += tk)
-          __pipeline_memcpy_async(Q.row(x, r) + kk, qr + kk, sizeof(float));
+        const float* qr = qe + (size_t)wrap_x(y0 + r, ny) * nx * nzg;
+        for (int kk = kl; kk < nz; kk += tk) {
+          const int level = zlo + kk;
+          if (level >= 0 && level < nzg)
+            __pipeline_memcpy_async(Q.row(x, r) + kk, qr + level, sizeof(float));
+        }
       } else {
         __pipeline_memcpy_async(Q.row(x, r) + k, qe + (size_t)wrap_x(y0 + r, ny) * nx * nz + k,
                                 sizeof(float));
       }
+    }
+  };
+  // the split: b of the pHY' columns of plane x over the kSplitStage levels
+  // from z1 (those of the column), into slot x & 1 of the staged rows,
+  // which follow K5's rings where K3 keeps its y fluxes
+  auto stage_row = [&](int x, int r) {
+    return yfl + ((x & 1) * kPRows + r - kPLo) * kSplitStage;
+  };
+  auto stage_above = [&](int x) {
+    const float* bp = b_in + cell0 + (size_t)wrap_x(x, nx) * S + z1;
+    for (int r = kPLo + jw; r < kPLo + kPRows; r += copy_rows_step) {
+      const float* src = bp + (size_t)wrap_x(y0 + r, ny) * nzg;
+      float* d = stage_row(x, r);
+      for (int kk = kl; kk < kSplitStage && z1 + kk < nzg; kk += tk)
+        __pipeline_memcpy_async(d + kk, src + kk, sizeof(float));
     }
   };
   auto load_plane = [&](int x) {
@@ -730,19 +757,21 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
     if constexpr (kReadsB) copy_rows(B, b_in + cell0 + xc * S, kSplit ? nzg : nz, x);
     copy_rows(W, w_in + face0 + xc * SW, kSplit ? nzg + 1 : nw, x);
     if constexpr (!kK6) load_q(x);
+    if constexpr (kSplit) stage_above(x - 1);  // pHY' of plane x - 1 is summed next
     __pipeline_commit();
   };
   // ---- lazy-projection correction of plane x, once, as it arrives ----------
   auto correct_plane = [&](int x) {
-    if constexpr (kSplit) {  // every held level; w at the held faces with q below them
-      for (int r = U.lo + j; r < U.lo + U.rows; r += n_rows)
-        for (int kk = kl; kk < nz; kk += tk)
+    if constexpr (kSplit) {  // the held levels of the column; w at its interior faces
+      const int k0 = max(-zlo, 0), k1 = min(nzg - zlo, nz);
+      for (int r = U.lo + jw; r < U.lo + U.rows; r += copy_rows_step)
+        for (int kk = k0 + kl; kk < k1; kk += tk)
           U.row(x, r)[kk] -= (Q.row(x, r)[kk] - Q.row(x - 1, r)[kk]) * P.idx;
-      for (int r = V.lo + j; r < V.lo + V.rows; r += n_rows)
-        for (int kk = kl; kk < nz; kk += tk)
+      for (int r = V.lo + jw; r < V.lo + V.rows; r += copy_rows_step)
+        for (int kk = k0 + kl; kk < k1; kk += tk)
           V.row(x, r)[kk] -= (Q.row(x, r)[kk] - Q.row(x, r - 1)[kk]) * P.idy;
-      for (int r = W.lo + j; r < W.lo + W.rows; r += n_rows)
-        for (int kk = kl + 1; kk < nz; kk += tk)
+      for (int r = W.lo + jw; r < W.lo + W.rows; r += copy_rows_step)
+        for (int kk = k0 + 1 + kl; kk < k1; kk += tk)
           W.row(x, r)[kk] -= (Q.row(x, r)[kk] - Q.row(x, r)[kk - 1]) * P.idz;
       return;
     }
@@ -776,41 +805,61 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
       for (int r = r0; r < r1; r += nz) hydrostatic_column(B.row(x, r), PH.row(x, r), nz, P);
     }
   };
-  // The split's pHY' of plane x, in two passes around a cluster barrier by
-  // its row kYT, a column a thread: phy_total puts this CTA's part of each
-  // column's sum (the increments of its levels; the last CTA's with the top
-  // half cell) into tot[x & 1]; phy_column then sums down its levels in
-  // float64 from the parts of the CTAs above, read from their shared
-  // memory, so that each value still rounds once.
-  auto phy_inc = [&](const float* bc, int m) {  // the increment of level m
-    return (double)P.dz * (0.5 * ((double)bc[m - zlo] + (double)bc[m + 1 - zlo]));
-  };
-  auto phy_total = [&](int x) {
-    for (int r = kPLo + kl; r < kPLo + kPRows; r += tk) {
-      const float* bc = B.row(x, r);
-      double acc = z1 == nzg ? 0.5 * (double)P.dz * P.min_b : 0.0;
-      for (int m = min(z1, nzg - 1) - 1; m >= z0; --m) acc += phy_inc(bc, m);
-      tot[(x & 1) * kPRows + r - kPLo] = acc;
+  // The split's pHY' of plane x at its own levels, by its pHY' warp, so
+  // that no value crosses CTAs: in rounds of kSplitRound parts from the
+  // top, its lanes each sum one part's increments of one of the kPRows
+  // columns in float64 (the top part from the half cell under the lid), as
+  // the CTA that owns that part would; lane r adds its column's totals,
+  // taken by shuffles, in order from the top, then sums down its own levels
+  // from there, so that each value still rounds once, in the first
+  // design's order. b comes from the ring for its own levels, from the
+  // staged rows for the last round's parts (those right above it), and
+  // from global memory (an input, which no CTA writes) above those.
+  auto phy_split = [&](int x) {
+    const double dz = P.dz, top = 0.5 * (double)P.dz * P.min_b;
+    // s plus the increments of a part's levels q = steps - 1 .. 0 from the
+    // top (bc: b of the part's levels from its bottom), each partial sum
+    // stored as pc[q] = -s where pc is given; the increments past `steps`
+    // are zero, which leave s as it is, so that every lane runs one chain
+    // without branches
+    auto part_sum = [&](const float* bc, int steps, double s, float* pc) {
+#pragma unroll 8
+      for (int q = NZ - 1; q >= 0; --q) {
+        const double h = q < steps ? 0.5 * ((double)bc[q] + (double)bc[q + 1]) : 0.0;
+        s += dz * h;
+        if (pc != nullptr) pc[q] = (float)-s;
+      }
+      return s;
+    };
+    const int near = min(n_cta - 1, rank + kSplitRound);  // the last round's top part
+    double acc = 0.0;  // lane r < kPRows: its column's totals so far
+    for (int p1 = n_cta - 1; p1 > rank;) {
+      const bool staged = p1 <= near;
+      const int np = staged ? p1 - rank : min(kSplitRound, p1 - near);
+      double t = 0.0;
+      if (kl < np * kPRows) {
+        const int p = p1 - kl / kPRows, r = kPLo + kl % kPRows, pz0 = p * NZ;
+        const int steps = min(pz0 + NZ, nzg - 1) - pz0;  // its increments, pz0 + q < pz0 + steps
+        if (pz0 + NZ >= nzg) t = top;
+        if (staged) {
+          t = part_sum(stage_row(x, r) + (pz0 - z1), steps, t, nullptr);
+        } else {
+          t = part_sum(b_in + cell0 + (size_t)wrap_x(x, nx) * S +
+                           (size_t)wrap_x(y0 + r, ny) * nzg + pz0,
+                       steps, t, nullptr);
+        }
+      }
+      for (int q = 0; q < np; ++q) {  // every lane takes part in the shuffle
+        const double tq = __shfl_sync(0xffffffffu, t, q * kPRows + kl % kPRows);
+        if (kl < kPRows) acc += tq;
+      }
+      p1 -= np;
     }
-  };
-  auto phy_column = [&](int x) {
-    for (int r = kPLo + kl; r < kPLo + kPRows; r += tk) {
-      const float* bc = B.row(x, r);
-      float* pc = PH.row(x, r);
-      double acc = 0.0;
-      int m = z1 - 1;
-      if (z1 == nzg) {  // the top: the half cell under the lid
-        acc = 0.5 * (double)P.dz * P.min_b;
-        pc[nzg - 1 - zlo] = (float)-acc;
-        m = nzg - 2;
-      } else {
-        for (int c = n_cta - 1; c > rank; --c)
-          acc += cluster_map(tot, c)[(x & 1) * kPRows + r - kPLo];
-      }
-      for (; m >= z0; --m) {
-        acc += phy_inc(bc, m);
-        pc[m - zlo] = (float)-acc;
-      }
+    if (kl < kPRows) {  // the own levels, from the ring (level z0 at kSplitHalo)
+      const int r = kPLo + kl;
+      if (z1 == nzg) acc = top;  // the top: the half cell under the lid, -top at nzg - 1
+      part_sum(B.row(x, r) + kSplitHalo, min(z1, nzg - 1) - z0, acc,
+               PH.row(x, r) + kSplitHalo);
     }
   };
 
@@ -830,17 +879,23 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
     }
   }
 
+
   // flux(k + 1) - flux(k) of a column's z fluxes through this thread's two
-  // faces (taps at k-3..k+3). At nz = 32 or 16 the lanes of a column are
-  // consecutive, and a lane takes face k + 1's flux from its neighbour
-  // (through the top wall it is 0: w = 0 there); else it computes both.
+  // faces (taps at k-3..k+3). At nz = 32 or 16, and in the split, the lanes
+  // of a column are consecutive, and a lane takes face k + 1's flux from its
+  // neighbour (through the top wall it is 0: w = 0 there; the split's top
+  // lane computes face z1's itself); else it computes both.
   auto z_flux_diff = [&](float t0, float t1, float t2, float t3, float t4, float t5,
                          float t6, float vel_k, float vel_kp) {
     const float f_k = z_upwind(t0, t1, t2, t3, t4, t5, zc0, vel_k);
     float f_kp;
     if constexpr (NZ > 0) {
       f_kp = __shfl_down_sync(__activemask(), f_k, 1, NZ);
-      if (k == nz - 1) f_kp = 0.0f;
+      if constexpr (kSplit) {
+        if (kz + 1 == z1) f_kp = z1 == nzg ? 0.0f : z_upwind(t1, t2, t3, t4, t5, t6, zc1, vel_kp);
+      } else {
+        if (k == nz - 1) f_kp = 0.0f;
+      }
     } else {
       f_kp = z_upwind(t1, t2, t3, t4, t5, t6, zc1, vel_kp);
     }
@@ -917,15 +972,11 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
       correct_plane(x);
       __syncthreads();
     }
-  }
-  if constexpr (kSplit) {  // pHY' of planes -1..1, and the partial sums of plane 2
-    for (int x = -1; x <= 1; ++x) {
-      if (phy_row) phy_total(x);
-      cluster_barrier();
-      if (phy_row) phy_column(x);
+    if constexpr (kSplit) {  // pHY' of planes -1..1, each once its columns have landed
+      if (phy_warp && x >= 0 && x <= 2) phy_split(x - 1);
     }
-    if (phy_row) phy_total(2);
-  } else if constexpr (kPhy) {
+  }
+  if constexpr (!kSplit && kPhy) {
     if (kWhole || !own) {
       for (int x = -1; x <= 1; ++x) hydrostatic(x);
     }
@@ -946,11 +997,7 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
       if (kSplit ? w_interior : k > 0) fw = xflux_w(0);
     }
   }
-  if constexpr (kSplit) {
-    cluster_barrier();  // every CTA's partial sums of plane 2
-  } else {
-    __syncthreads();
-  }
+  __syncthreads();
 
   const bool emit_g = gu_out != nullptr, reads_g = gu_prev != nullptr;
   // f + dt (gamma g + zeta g_prev), K3's rk_update on a loaded g_prev; stage 0 has none
@@ -965,7 +1012,7 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
     const size_t ow = face0 + (size_t)i * SW + (size_t)(y0 + j) * (kSplit ? nzg + 1 : nw) + kz;
     // this point's g_prev and bottom, loaded before the arithmetic hides them
     float gp_u = 0.0f, gp_v = 0.0f, gp_w = 0.0f, gp_b = 0.0f, bottom = 0.0f;
-    if (!kK6 && reads_g) {
+    if (!kK6 && reads_g && mine) {
       if (cell) gp_v = gv_prev[ov];
       if (own) {
         if (cell) gp_u = gu_prev[o];
@@ -995,7 +1042,9 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
                     t4 = vc[zt[4]], t5 = vc[zt[5]], t6 = vc[zt[6]];
         adv += z_flux_diff(t0, t1, t2, t3, t4, t5, t6, wf_k, wf_kp) * P.idz;
         const float dphy = (PH.row(i, j)[k] - PH.row(i, j - 1)[k]) * P.idy;
-        const float qm = kz > 0 ? t2 : -vc[0], qp = kz < nzg - 1 ? t4 : -vc[nz - 1];
+        // (the split's ring does not start at level 0: its wall levels are t3)
+        const float qm = kz > 0 ? t2 : (kSplit ? -t3 : -vc[0]);
+        const float qp = kz < nzg - 1 ? t4 : (kSplit ? -t3 : -vc[nz - 1]);
         const float lap = lap_h(V, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
         const float g = -adv - dphy + P.nu * lap;
         if constexpr (kK6) {
@@ -1003,7 +1052,7 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
         } else {
           const float f = rk_value(t3, g, gp_v);
           vs[j * nz + k] = f;
-          if (own) {
+          if (own && mine) {
             v_out[o] = f;
             if (emit_g) gv_out[o] = g;
           }
@@ -1011,13 +1060,10 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
       }
     }
     // K5's row kYT, which has no other work, sums pHY' of plane i + 2
-    // meanwhile (the split's: its last pass, and the first of plane i + 3);
-    // K3's and K6's threads take their own points of it
+    // meanwhile (the split's pHY' warp); K3's and K6's threads take their
+    // own points of it
     if constexpr (kSplit) {
-      if (phy_row) {
-        phy_column(i + 2);
-        phy_total(i + 3);
-      }
+      if (phy_warp) phy_split(i + 2);
     } else if (kPhy && (kWhole || !own)) {
       hydrostatic(i + 2);
     }
@@ -1045,21 +1091,24 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
                       t4 = uc[zt[4]], t5 = uc[zt[5]], t6 = uc[zt[6]];
           adv += z_flux_diff(t0, t1, t2, t3, t4, t5, t6, wf_k, wf_kp) * P.idz;
           const float dphy = (PH.row(i, j)[k] - PH.row(i - 1, j)[k]) * P.idx;
-          const float qm = kz > 0 ? t2 : -uc[0], qp = kz < nzg - 1 ? t4 : -uc[nz - 1];
+          const float qm = kz > 0 ? t2 : (kSplit ? -t3 : -uc[0]);
+          const float qp = kz < nzg - 1 ? t4 : (kSplit ? -t3 : -uc[nz - 1]);
           const float lap = lap_h(U, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
           const float g = -adv - dphy + P.nu * lap;
           if constexpr (kK6) {
             gu_out[o] = g;
           } else {
             const float f = rk_value(t3, g, gp_u);
-            u_out[o] = f;
-            if (emit_g) gu_out[o] = g;
+            if (mine) {
+              u_out[o] = f;
+              if (emit_g) gu_out[o] = g;
+            }
             // div(i - 1) = ((u*(i) - u*(i-1)) / dx + dv) + dw, the plain version's order
             if (i > 0) {
               const float d = ((f - u_prev) * P.idx + dv) + dw;
               if constexpr (kRhat) {
                 ds[j * nz + k] = d;
-              } else {
+              } else if (mine) {
                 div_out[((e * ny + y0 + j) * nx + i - 1) * nzg + kz] = d;
               }
             } else {
@@ -1076,7 +1125,14 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
         // z fluxes at the centers k (every lane, k = 0 too) and k - 1
         const float fz = z_upwind(t1, t2, t3, t4, t5, t6, zw1, 0.5f * (t3 + t4));
         float fz_m;
-        if constexpr (NZ > 0) {
+        if constexpr (kSplit) {  // the face warp's lanes hold no column: it computes both
+          if (face_warp) {
+            fz_m = z_upwind(t0, t1, t2, t3, t4, t5, zw0, 0.5f * (t2 + t3));
+          } else {
+            fz_m = __shfl_up_sync(__activemask(), fz, 1, NZ);
+            if (kz == z0) fz_m = z_upwind(t0, t1, t2, t3, t4, t5, zw0, 0.5f * (t2 + t3));
+          }
+        } else if constexpr (NZ > 0) {
           fz_m = __shfl_up_sync(__activemask(), fz, 1, NZ);
         } else {
           fz_m = z_upwind(t0, t1, t2, t3, t4, t5, zw0, 0.5f * (t2 + t3));
@@ -1109,14 +1165,19 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
         } else if constexpr (kK6) {  // wall faces: g is exactly 0
           gw_out[ow] = 0.0f;
           gw_out[ow + nz] = 0.0f;
+        } else if constexpr (kSplit) {  // a wall face of its own (the face warp's: the top)
+          if (mine) {
+            const float f = rk_value(t3, 0.0f, reads_g ? gw_prev[ow] : 0.0f);
+            w_out[ow] = f;
+            if (emit_g) gw_out[ow] = 0.0f;
+            ws[j * nw + k] = f;
+          }
         } else {  // wall faces: w, g and g_prev are all 0, so w* stays exactly 0
-          // (the split's thread at a wall takes its own face only)
-          for (int face = 0; face <= (kSplit ? 0 : nz); face += (kSplit ? 1 : nz)) {
-            const int fk = kSplit ? k + face : face;
-            const float f = rk_value(wc[fk], 0.0f, reads_g ? gw_prev[ow + face] : 0.0f);
+          for (int face = 0; face <= nz; face += nz) {
+            const float f = rk_value(wc[face], 0.0f, reads_g ? gw_prev[ow + face] : 0.0f);
             w_out[ow + face] = f;
             if (emit_g) gw_out[ow + face] = 0.0f;
-            ws[j * nw + fk] = f;
+            ws[j * nw + face] = f;
           }
         }
       }
@@ -1135,29 +1196,26 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
           const float t0 = bc[zt[0]], t1 = bc[zt[1]], t2 = bc[zt[2]], t3 = bc[k],
                       t4 = bc[zt[4]], t5 = bc[zt[5]], t6 = bc[zt[6]];
           adv += z_flux_diff(t0, t1, t2, t3, t4, t5, t6, wc[k], wc[k + 1]) * P.idz;
-          const float qm = kz > 0 ? t2 : 2.0f * bottom - bc[0];
-          const float qp = kz < nzg - 1 ? t4 : 2.0f * P.min_b - bc[nz - 1];
+          const float qm = kz > 0 ? t2 : 2.0f * bottom - (kSplit ? t3 : bc[0]);
+          const float qp = kz < nzg - 1 ? t4 : 2.0f * P.min_b - (kSplit ? t3 : bc[nz - 1]);
           const float lap = lap_h(B, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
           const float g = -adv + P.kappa * lap;
           if constexpr (kK6) {
             gb_out[o] = g;
           } else {
             const float f = rk_value(t3, g, gp_b);
-            b_out[o] = f;
-            if (emit_g) gb_out[o] = g;
+            if (mine) {
+              b_out[o] = f;
+              if (emit_g) gb_out[o] = g;
+            }
           }
         }
       }
     }
     if constexpr (kWhole) y_fluxes(i + 1);
     __pipeline_wait_prior(0);
-    // plane i + 4 has landed; v*, w* of plane i are complete (the split: and
-    // every CTA's partial sums of plane i + 3)
-    if constexpr (kSplit) {
-      cluster_barrier();
-    } else {
-      __syncthreads();
-    }
+    // plane i + 4 has landed; v*, w* of plane i are complete
+    __syncthreads();
     if constexpr (!kK6) {
       correct_plane(i + 4);
       if (kSplit ? own && cell : own) {
@@ -1170,7 +1228,7 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
       __syncthreads();
     }
   }
-  if (!kK6 && (kSplit ? own && cell : own)) {  // div(nx - 1): u* at face nx is u* at face 0
+  if (!kK6 && (kSplit ? own && cell && mine : own)) {  // div(nx - 1): u* at face nx is u* at face 0
     const float d = ((u_first - u_prev) * P.idx + dv) + dw;
     if constexpr (kRhat) {
       ds[j * nz + k] = d;
@@ -1194,7 +1252,7 @@ decltype(&stage_march_kernel<0, -1>) stage_xy_kernel_for(int nz) {
 
 // K5's z-split instance (stage_xy_split_size > 0: nz >= 107).
 decltype(&stage_march_kernel<0, -1>) stage_xy_split_kernel() {
-  return stage_march_kernel<0, -1, kStage, false, true>;
+  return stage_march_kernel<kSplitPart, -1, kStage, false, true>;
 }
 
 // The K3 instance: specialised for the training grid's 32 rows of 16, the
@@ -1465,27 +1523,15 @@ int launch_stage_rk_3d_xy(const float* u, const float* v, const float* w, const 
   }
   const XYParams P = xy_params(nx, ny, nz, dx, dy, dz, nu, kappa, min_b);
   const unsigned blocks = (unsigned)n_env * (ny / kYT);
-  if (csplit > 0) {  // the z split: a cluster of csplit CTAs for each block
+  if (csplit > 0) {  // the z split: csplit CTAs for each block, one after another
     auto* kernel = stage_xy_split_kernel();
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    cudaLaunchAttribute cluster[1];
-    cluster[0].id = cudaLaunchAttributeClusterDimension;
-    cluster[0].val.clusterDim.x = (unsigned)csplit;
-    cluster[0].val.clusterDim.y = 1;
-    cluster[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t config = {};
-    config.gridDim = dim3(blocks * (unsigned)csplit);
-    config.blockDim = dim3((unsigned)split_threads(nz, csplit));
-    config.dynamicSmemBytes = smem;
-    config.stream = (cudaStream_t)stream;
-    config.attrs = cluster;
-    config.numAttrs = 1;
-    err = cudaLaunchKernelEx(&config, kernel, u, v, w, b, q, bottom, gu_prev, gv_prev, gw_prev,
-                             gb_prev, u_out, v_out, w_out, b_out, div_out, gu, gv, gw, gb, dt,
-                             gamma, zeta, P, (const float*)nullptr);
-    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks * (unsigned)csplit, kSplitThreads, smem,
+             (cudaStream_t)stream>>>(u, v, w, b, q, bottom, gu_prev, gv_prev, gw_prev, gb_prev,
+                                     u_out, v_out, w_out, b_out, div_out, gu, gv, gw, gb, dt,
+                                     gamma, zeta, P, nullptr);
     return (int)cudaGetLastError();
   }
   auto* kernel = stage_xy_kernel_for(nz);
@@ -1500,42 +1546,26 @@ int launch_stage_rk_3d_xy(const float* u, const float* v, const float* w, const 
 
 // What the card gives the K5 instance its launcher picks for a column of
 // nz levels: out[0] the instance (0 one CTA a block, 1 the z split), out[1]
-// CTAs a cluster (1 off the split), out[2] blocks resident on an SM, out[3]
-// clusters resident on the card at once (cudaOccupancyMaxActiveClusters; 0
-// off the split), out[4] registers a thread, out[5] local memory a thread
-// (stack and spills), bytes, out[6] dynamic shared memory a block, bytes.
+// CTAs a block (1 off the split), out[2] CTAs resident on an SM, out[3]
+// threads a CTA, out[4] registers a thread, out[5] local memory a thread
+// (stack and spills), bytes, out[6] dynamic shared memory a CTA, bytes.
 int stage_xy_occupancy(int nz, int* out) {
   const int csplit = nz >= 2 ? stage_xy_split_size(nz) : 0;
   const size_t smem = sizeof(float) * (csplit > 0 ? stage_xy_split_smem_floats(nz, csplit)
                                                   : stage_xy_smem_floats(nz));
   if (nz < 2 || smem > kSmemPerBlock) return (int)cudaErrorInvalidValue;
   auto* kernel = csplit > 0 ? stage_xy_split_kernel() : stage_xy_kernel_for(nz);
-  const int threads = csplit > 0 ? split_threads(nz, csplit) : march_threads(nz, -1);
+  const int threads = csplit > 0 ? kSplitThreads : march_threads(nz, -1);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
-  int blocks = 0, clusters = 0;
+  int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   if (err != cudaSuccess) return (int)err;
-  if (csplit > 0) {
-    cudaLaunchAttribute cluster[1];
-    cluster[0].id = cudaLaunchAttributeClusterDimension;
-    cluster[0].val.clusterDim.x = (unsigned)csplit;
-    cluster[0].val.clusterDim.y = 1;
-    cluster[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t config = {};
-    config.gridDim = dim3((unsigned)csplit);
-    config.blockDim = dim3((unsigned)threads);
-    config.dynamicSmemBytes = smem;
-    config.attrs = cluster;
-    config.numAttrs = 1;
-    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &config);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int rec[7] = {csplit > 0, csplit > 0 ? csplit : 1, blocks, clusters, attr.numRegs,
+  const int rec[7] = {csplit > 0, csplit > 0 ? csplit : 1, blocks, threads, attr.numRegs,
                       (int)attr.localSizeBytes, (int)smem};
   for (int i = 0; i < 7; ++i) out[i] = rec[i];
   return 0;

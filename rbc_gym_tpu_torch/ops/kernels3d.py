@@ -5,8 +5,7 @@
 all of periodic y), ``stage_rk_3d_xy`` replaces ``_stage_rk_kernel_xy``
 (the same stage, a block per env and 8 y rows, for grids outside the
 whole-y paths; on a column one block cannot hold, nz >= 107, its z split,
-a thread-block cluster of CTAs a block, counted on
-``stage_rk_3d_xy_split``); both march along x over a ring of x-planes,
+CTAs of 32 levels each a block, counted on ``stage_rk_3d_xy_split``); both march along x over a ring of x-planes,
 from one kernel template. ``stage_rk_3d_rhat`` replaces the same Pallas body with
 its ``emit_rhat`` option (``fused="stage_qp"``): K3's instance that
 writes the Poisson analysis rhat = T_A div (``ops/poisson.py``
@@ -368,7 +367,7 @@ stage_rk_3d_rhat = _stage_wrapper(
 def stage_rk_3d_xy_split(u, v, w, b, q, bottom, c, dt, stage, g_prev=None):
     """K5's z split: ``stage_rk_3d_xy`` on a column of nz levels that one CTA
     cannot hold (``limits.stage_xy_split_size`` > 0: nz >= 107), each block
-    of K5 a thread-block cluster of CTAs that own parts of the column;
+    of K5 ceil(nz / 32) CTAs that own 32 levels of the column each;
     raises ``ValueError`` on any other nz."""
     nz = u.shape[-1]
     if limits.stage_xy_split_size(nz) == 0:
@@ -383,14 +382,14 @@ stage_rk_3d_xy_split.launches = 0
 def stage_xy_occupancy(nz: int) -> dict:
     """What the card gives the K5 instance ``stage_rk_3d_xy`` launches on a
     column of ``nz`` levels: "instance" ("one_cta" or "split"),
-    "cluster_ctas", "blocks_per_sm", "max_active_clusters"
-    (``cudaOccupancyMaxActiveClusters``; 0 off the split), "registers",
-    "local_bytes" (stack and spills a thread) and "shared_bytes" a block.
-    Needs a card."""
+    "ctas_per_block" (the split's CTAs for each block of single-CTA K5; 1
+    off the split), "blocks_per_sm" (CTAs resident on an SM), "threads" a
+    CTA, "registers", "local_bytes" (stack and spills a thread) and
+    "shared_bytes" a CTA. Needs a card."""
     out = (ctypes.c_int * 7)()
     _raise_on(_build.load_library().stage_xy_occupancy(nz, ctypes.addressof(out)),
               "stage_xy_occupancy")
-    keys = ("instance", "cluster_ctas", "blocks_per_sm", "max_active_clusters", "registers",
+    keys = ("instance", "ctas_per_block", "blocks_per_sm", "threads", "registers",
             "local_bytes", "shared_bytes")
     rec = dict(zip(keys, out))
     rec["instance"] = ("one_cta", "split")[rec["instance"]]

@@ -217,51 +217,41 @@ def stage_xy_smem_bytes(nz: int) -> int:
     return 4 * (rows_nz * nz + rows_nw * (nz + 1))
 
 
-XY_SPLIT_HALO = 4  # levels a CTA of K5's z split holds past its own on each inner side (kSplitHalo)
-XY_MAX_SPLIT = 8  # CTAs of K5's z split: the portable cluster size (kXYMaxSplit)
+XY_SPLIT_PART = 32  # levels a CTA of K5's z split owns, a warp's lanes (kSplitPart)
+XY_SPLIT_HALO = 4  # levels a CTA of K5's z split holds past its own on each side (kSplitHalo)
+XY_SPLIT_WARPS = Y_BLK + 3  # warps of a split CTA: rows 0..y_blk, face z1, pHY' (kSplitWarps)
 XY_PH_ROWS = Y_BLK + 2  # rows of K5's pHY' planes, one column each (kPRows)
-
-
-def _split_part(nz: int, c: int) -> int:
-    return -(-nz // c)
+XY_SPLIT_STAGE = 3 * XY_SPLIT_PART + 1  # levels of a split CTA's staged pHY' rows (kSplitStage)
 
 
 def stage_xy_split_levels(nz: int, c: int) -> int:
-    """The most levels a CTA of K5's z split over ``c`` CTAs holds
-    (``split_levels``): CTA r owns [r p, (r + 1) p) of the column (p =
-    ceil(nz / c), the last part shorter) and holds ``XY_SPLIT_HALO`` more on
-    each inner side."""
-    part = _split_part(nz, c)
-    return max(min(min(z0 + part, nz) + XY_SPLIT_HALO, nz) - max(z0 - XY_SPLIT_HALO, 0)
-               for z0 in range(0, c * part, part))
+    """The levels a CTA of K5's z split holds, its rings' rows
+    (``kSplitLevels``): CTA r owns [32 r, 32 r + 32) of the column (the last
+    part shorter) and holds ``XY_SPLIT_HALO`` more on each side, whatever
+    nz and c."""
+    return XY_SPLIT_PART + 2 * XY_SPLIT_HALO
 
 
 def stage_xy_split_threads(nz: int, c: int) -> int:
-    """Threads of a split CTA (``split_threads``): rows 0..y_blk of p + 1
-    levels, the last the face above its part."""
-    return (Y_BLK + 1) * (_split_part(nz, c) + 1)
+    """Threads of a split CTA (``kSplitThreads``): ``XY_SPLIT_WARPS`` warps."""
+    return 32 * XY_SPLIT_WARPS
+
 
 
 def stage_xy_split_smem_bytes(nz: int, c: int) -> int:
-    """A split CTA's shared memory (``stage_xy_split_smem_floats``): two
-    planes' partial sums of pHY' (``XY_PH_ROWS`` float64 each), then K5's
-    rings over the levels it holds."""
-    return 16 * XY_PH_ROWS + stage_xy_smem_bytes(stage_xy_split_levels(nz, c))
+    """A split CTA's shared memory (``stage_xy_split_smem_floats``): K5's
+    rings over the levels it holds, then two planes of its pHY' warp's
+    staged rows (``XY_PH_ROWS`` columns of ``XY_SPLIT_STAGE`` levels)."""
+    return (stage_xy_smem_bytes(stage_xy_split_levels(nz, c))
+            + 4 * 2 * XY_PH_ROWS * XY_SPLIT_STAGE)
 
 
 def stage_xy_split_size(nz: int) -> int:
     """The CTAs of K5's z split for a column of nz levels
     (``stage_xy_split_size`` in ``csrc/rbc3d.cu``): 0 where one CTA holds it
     (its rings in a block and (y_blk + 1) nz <= 1024 threads: nz <= 106),
-    else the smallest c of 2, 4 and 8 whose parts are all non-empty and
-    whose CTAs' threads and shared memory fit; 0 where none does (nz >
-    784)."""
+    else one a ``XY_SPLIT_PART`` levels, ceil(nz / 32), with no upper bound:
+    each CTA's threads and shared memory are the same at every nz."""
     if stage_xy_smem_bytes(nz) <= SMEM_PER_BLOCK and (Y_BLK + 1) * nz <= MAX_THREADS:
         return 0
-    c = 2
-    while c <= XY_MAX_SPLIT:
-        if ((c - 1) * _split_part(nz, c) < nz and stage_xy_split_threads(nz, c) <= MAX_THREADS
-                and stage_xy_split_smem_bytes(nz, c) <= SMEM_PER_BLOCK):
-            return c
-        c *= 2
-    return 0
+    return -(-nz // XY_SPLIT_PART)

@@ -2,7 +2,8 @@
 """Time the stage kernels of several source trees on one CUDA card.
 
     python3 scripts/kernel_variants.py
-        [--kernels k1,k1c,k1o,k1t,k1t_times,k2,k3,k3qp,k5_training,k5,k6,k7,field_step]
+        [--kernels k1,k1c,k1o,k1t,k1t_times,k2,k3,k3qp,k5_training,k5,k5z,k5z_times,k6,k7,
+                   field_step]
         TREE [TREE ...]
 
 Each TREE is a checkout of this repo (for example a ``git archive`` of a
@@ -63,6 +64,16 @@ gates:
   inputs, K3's yardstick;
 - ``k5``: K5 at 1024 envs on the 32x64x64 big grid, as ``k3``, with stage
   0 at 8 envs against float64;
+- ``k5z``: K5's z split at 16 envs on 128x128x128 (``chip_smoke.FINE_SHAPE_3D``,
+  dt_solver ``FINE_DT_3D``), stages 0, 1, 2, and at one env (the flow
+  statistics' launch), with ``stage_xy_occupancy``; its gates
+  (``chip_smoke.split_stage_parity``); and the split of its time: the same
+  instance built from the tree's ``csrc/rbc3d.cu`` cut for timing only
+  (``ablate_k5z``; outputs wrong, never gated), once a cut of ``K5Z_CUTS``:
+  "sync" the plane's cluster barrier as a CTA barrier (one cluster barrier
+  kept before exit), "nophy" the loop's pHY' passes skipped, "c4" the
+  launcher's rule forced onto four CTAs or more, and their combinations;
+  ``k5z_times`` the same without the cuts;
 - ``k6``: K6 (``field_tendency_3d``), each field, at 1024 envs on 16x32x32
   and on 16x32x30 (its march instance in this tree) and at 128 envs on
   32x64x64 (its general instance); its gates there, and each field at 32
@@ -85,7 +96,7 @@ import sys
 from pathlib import Path
 
 MEASURE = r"""
-import json, sys
+import json, os, sys
 import torch
 import chip_smoke as cs
 from rbc_gym_tpu_torch.ops import kernels3d as k3d
@@ -187,6 +198,9 @@ def k1o():
 
 
 ABLATIONS, K1T_DIR = ("products", "march"), "rbc_gym_tpu_torch/_build/k1t"
+K5Z_CUTS = ("sync", "nophy", "sync_nophy", "c4", "c4_sync_nophy", "noface", "noedge",
+            "nophy_noface_noedge")
+K5Z_DIR = "rbc_gym_tpu_torch/_build/k5z"
 
 
 def k1t(cuts=True):
@@ -235,6 +249,53 @@ def k1t(cuts=True):
                          cs.K1_ATOL)}
     one = cs.k1_tf32_errors(s6, c6, cs.k1_run(s6, c6, True, "default"))
     errs["default_6"] = (one["kernel"], one["bound"])
+    return rec, errs
+
+
+def k5z(cuts=True):
+    # K5's z split on 128x128x128 at 16 envs and at one env, and with cuts
+    # the same launches from the ablated libraries main() built beside the
+    # tree's own
+    import ctypes
+    from rbc_gym_tpu_torch.ops import _build, limits
+
+    shape = cs.FINE_SHAPE_3D
+    nz, ny, nx = shape
+    wrapper = k3d.stage_rk_3d_xy
+
+    def times(n_env, reps):
+        solver, case = cs.make_case_3d(device, n_env, shape, seed=41, dt_solver=cs.FINE_DT_3D)
+        g_prev = cs.k3_run(solver, case, 0, None, False)[5]
+        out = []
+        for m in range(3):
+            gp = g_prev if m else None
+            out.append(cs._cuda_ms(lambda: cs.k3_run(solver, case, m, gp, True, wrapper), reps))
+        return out
+
+    rec = {"ctas": limits.stage_xy_split_size(nz), "stage_ms": times(16, 5)}
+    rec["bound_ms"] = [cs.bound(cs.stage_rk_3d_work(16, nx, ny, nz, m))[0] for m in range(3)]
+    rec["share_of_bound"] = [b / t for b, t in zip(rec["bound_ms"], rec["stage_ms"])]
+    rec["one_env_stage_ms"] = times(1, 20)
+    if hasattr(k3d, "stage_xy_occupancy"):
+        rec["occupancy"] = k3d.stage_xy_occupancy(nz)
+    real = _build.load_library
+    for what in K5Z_CUTS if cuts else ():
+        if not os.path.exists(f"{K5Z_DIR}/{what}/lib.so"):  # a cut the tree's design has not
+            continue
+        lib = ctypes.CDLL(f"{K5Z_DIR}/{what}/lib.so")
+        for fn_name, argtypes in _build.ARGTYPES.items():
+            if hasattr(lib, fn_name):
+                getattr(lib, fn_name).argtypes = argtypes
+                getattr(lib, fn_name).restype = ctypes.c_int
+        _build.load_library = lambda lib=lib: lib
+        try:
+            rec[f"{what}_stage_ms"] = times(16, 5)
+            rec[f"{what}_occupancy"] = k3d.stage_xy_occupancy(nz)
+        finally:
+            _build.load_library = real
+    rec["stage_ms_last"] = times(16, 5)
+    solver, case = cs.make_case_3d(device, 16, shape, seed=41, dt_solver=cs.FINE_DT_3D)
+    rec["by_stage"], errs = cs.split_stage_parity(solver, case)
     return rec, errs
 
 
@@ -399,6 +460,8 @@ RUNS = {
     "k3qp": k3qp,
     "k5_training": lambda: stage(k3d.stage_rk_3d_xy, (16, 32, 32), 0.01, 32, 20),
     "k5": lambda: stage(k3d.stage_rk_3d_xy, cs.BIG_SHAPE, cs.BIG_DT_SOLVER, 8, 5),
+    "k5z": k5z,
+    "k5z_times": lambda: k5z(cuts=False),
     "k6": k6,
     "k7": k7,
     "field_step": field_step,
@@ -449,20 +512,82 @@ def ablate_k1(src: str, what: str) -> str:
     return "\n".join([line for line in lines[:a + 1] if "stage_fg(" not in line] + lines[b:])
 
 
-def build_ablations(tree: Path, nvcc: str) -> list:
-    """Start one nvcc a cut of ``ABLATIONS``: ``K1T_DIR/<what>/lib.so``
-    under the tree, from its own ``csrc/rbc2d.cu`` and headers."""
+# K5's z split's timing-only cuts of ``k5z`` (MEASURE's K5Z_CUTS and K5Z_DIR)
+K5Z_CUTS = ("sync", "nophy", "sync_nophy", "c4", "c4_sync_nophy", "noface", "noedge",
+            "nophy_noface_noedge")
+K5Z_DIR = Path("rbc_gym_tpu_torch") / "_build" / "k5z"
+
+
+def ablate_k5z(src: str, what: str) -> str:
+    """``csrc/rbc3d.cu`` with a part of K5's z split cut or changed, for
+    timing only; "_" joins cuts, and a cut the tree's design has not raises
+    ``ValueError``. PR 24's cluster design: "sync" makes the cluster
+    barrier of the plane loop a CTA barrier and adds one cluster barrier
+    before the kernel ends (no CTA's shared memory is read after it exits),
+    "nophy" drops the pHY' passes of the plane loop, "c4" starts the
+    launcher's rule at four CTAs. PR 25's design: "nophy" drops the pHY'
+    warp's sum in the plane loop, "noface" the face warp's w* at face z1,
+    "noedge" the z fluxes that a part's edge lanes compute themselves."""
+    for cut in what.split("_"):
+        if cut == "sync":
+            a = src.index("    // every CTA's partial sums of plane i + 3)")
+            old = "      cluster_barrier();"
+            b = src.index(old, a)
+            src = src[:b] + "      __syncthreads();" + src[b + len(old):]
+            tail = "  if constexpr (kRhat) {  // the last plane's z-factor, then the x-factor"
+            src = src.replace(tail, "  if constexpr (kSplit) cluster_barrier();\n" + tail, 1)
+        elif cut == "nophy":
+            olds = ("        phy_column(i + 2);\n        phy_total(i + 3);\n",
+                    "      if (phy_warp) phy_split(i + 2);\n")
+            old = next((o for o in olds if o in src), None)
+            if old is None:
+                raise ValueError("no pHY' passes in the plane loop")
+            src = src.replace(old, "")
+        elif cut == "c4":
+            old = "for (int c = 2; c <= kXYMaxSplit; c *= 2) {"
+            if old not in src:
+                raise ValueError("no split rule to force")
+            src = src.replace(old, "for (int c = 4; c <= kXYMaxSplit; c *= 2) {")
+        elif cut == "noface":
+            old = "jw < kYT || (face_warp && kl < kYT)"
+            if old not in src:
+                raise ValueError("no face warp")
+            src = src.replace(old, "jw < kYT")
+        elif cut == "noedge":
+            olds = ("z1 == nzg ? 0.0f : z_upwind(t1, t2, t3, t4, t5, t6, zc1, vel_kp)",
+                    "            if (kz == z0) fz_m = z_upwind(t0, t1, t2, t3, t4, t5, zw0, 0.5f * (t2 + t3));\n")
+            if not all(o in src for o in olds):
+                raise ValueError("no edge lanes")
+            src = src.replace(olds[0], "0.0f").replace(olds[1], "")
+        else:
+            raise ValueError(f"unknown cut {cut}")
+    return src
+
+
+def build_ablations(tree: Path, nvcc: str, kernels: str) -> list:
+    """Start one nvcc a cut: for ``k1t`` each of ``ABLATIONS``
+    (``K1T_DIR/<what>/lib.so`` from the tree's own ``csrc/rbc2d.cu``), for
+    ``k5z`` each of ``K5Z_CUTS`` (``K5Z_DIR/<what>/lib.so`` from its
+    ``csrc/rbc3d.cu``), each with the tree's headers."""
     csrc = tree / "rbc_gym_tpu_torch" / "csrc"
+    names = kernels.split(",")
+    cuts = [(K1T_DIR, what, "rbc2d.cu", ablate_k1) for what in ABLATIONS if "k1t" in names]
+    cuts += [(K5Z_DIR, what, "rbc3d.cu", ablate_k5z) for what in K5Z_CUTS if "k5z" in names]
     procs = []
-    for what in ABLATIONS:
-        d = tree / K1T_DIR / what
+    for base, what, source, ablate in cuts:
+        try:
+            cut = ablate((csrc / source).read_text(), what)
+        except ValueError as err:  # a cut of another design
+            print(json.dumps({"tree": str(tree), "cut": what, "skipped": str(err)}), flush=True)
+            continue
+        d = tree / base / what
         d.mkdir(parents=True, exist_ok=True)
         for header in csrc.glob("*.cuh"):
             (d / header.name).write_text(header.read_text())
-        (d / "rbc2d.cu").write_text(ablate_k1((csrc / "rbc2d.cu").read_text(), what))
+        (d / source).write_text(cut)
         procs.append(subprocess.Popen(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler",
-             "-fPIC", "-shared", "-o", str(d / "lib.so"), str(d / "rbc2d.cu")],
+             "-fPIC", "-shared", "-o", str(d / "lib.so"), str(d / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     return procs
 
@@ -583,15 +708,14 @@ def main() -> int:
 
     compiles = [ptxas(t, _build.nvcc_path()) for t in trees]
     ptxs = [ptx_sources(t, _build.nvcc_path()) for t in trees]
-    cuts = [build_ablations(t, _build.nvcc_path()) if "k1t" in kernels.split(",") else []
-            for t in trees]
+    cuts = [build_ablations(t, _build.nvcc_path(), kernels) for t in trees]
     failed = False
     for t, b, procs, cut in zip(trees, builds, compiles, cuts):
         log, _ = b.communicate()
         for p in cut:
             out = p.communicate()[0]
             if p.returncode != 0:
-                print(json.dumps({"tree": str(t), "k1t_cut_build_rc": p.returncode,
+                print(json.dumps({"tree": str(t), "cut_build_rc": p.returncode,
                                   "nvcc": out.strip()[-2000:]}), flush=True)
                 failed = True
         lines, entry = [], ""

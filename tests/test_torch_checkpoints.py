@@ -30,6 +30,7 @@ from rbc_gym_tpu_torch.sim.grid import Grid2D
 from rbc_gym_tpu_torch.sim.solver2d import Fields2D, max_divergence
 from rbc_gym_tpu_torch.utils import checkpoints as ckpt
 from rbc_gym_tpu_torch.utils import convert
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 BANK_2D = "data/checkpoints/train/ckpt_ra10000.h5"
 BANK_3D = "data/checkpoints/train/3D_ckpt_ra2500.h5"

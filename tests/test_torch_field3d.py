@@ -35,6 +35,7 @@ from rbc_gym_tpu_torch.ops import kernels3d as k3
 from rbc_gym_tpu_torch.sim import solver3d as s3
 from rbc_gym_tpu_torch.sim.grid import Grid3D
 from rbc_gym_tpu_torch.utils.interop import fields_from_numpy, fields_to_numpy
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 NX, NY, NZ = 6, 8, 8  # odd nx / 2: the grids where auto takes the field path
 # the Pallas kernels' inputs of each field (make_field_stage_3d): pHY' where

@@ -17,6 +17,7 @@ import torch
 from rbc_gym_tpu_torch.ops import limits
 from rbc_gym_tpu_torch.sim import solver2d as s2
 from rbc_gym_tpu_torch.sim import solver3d as s3
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 F32 = torch.float32
 

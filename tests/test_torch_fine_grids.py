@@ -26,6 +26,7 @@ from rbc_gym_tpu_torch.ops import limits
 from rbc_gym_tpu_torch.sim import solver2d, solver3d
 from rbc_gym_tpu_torch.sim.grid import Grid2D, Grid3D
 from rbc_gym_tpu_torch.utils.interop import fields_from_numpy, fields_to_numpy
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 ATOL = 1e-10
 
@@ -70,9 +71,9 @@ def test_2d_env_step_at_232x128_matches_jax():
 
 def test_3d_env_step_at_nz_112_matches_jax():
     """(nx, ny, nz) = (4, 16, 112), whose columns K5's z split takes on the
-    card (two CTAs of 56 levels): one env step of 2 substeps."""
+    card (four CTAs of 32, 32, 32 and 16 levels): one env step of 2 substeps."""
     nx, ny, nz, dt = 4, 16, 112, 0.0005
-    assert limits.stage_xy_split_size(nz) == 2
+    assert limits.stage_xy_split_size(nz) == 4
     dims = dict(nx=nx, ny=ny, nz=nz, lx=4 * np.pi, ly=4 * np.pi, lz=2.0)
     port = solver3d.make_solver3d(Grid3D(**dims),
                                   solver3d.SimParams3D(dt_solver=dt, heater_duration=2 * dt),

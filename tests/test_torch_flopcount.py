@@ -31,6 +31,7 @@ from rbc_gym_tpu_torch.sim.grid import Grid2D, Grid3D
 from rbc_gym_tpu_torch.sim.solver2d import Fields2D, SimParams2D, make_solver2d
 from rbc_gym_tpu_torch.sim.solver3d import Fields3D, SimParams3D, make_solver3d
 from rbc_gym_tpu_torch.utils.flopcount import count_fn_flops
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 
 def _zero_fields(jax_cls, torch_cls, shapes):

@@ -40,6 +40,7 @@ from rbc_gym_tpu_torch.sim.solver3d import Fields3D
 from rbc_gym_tpu_torch.utils import checkpoints as ckpt
 from rbc_gym_tpu_torch.utils import convert
 from rbc_gym_tpu_torch.utils.interop import fields_from_numpy
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 JAX_DIR = REPO / "experiments" / "flowstats"
@@ -56,14 +57,6 @@ def _jax_script(name):
     return module
 
 
-@pytest.fixture
-def one_torch_thread():
-    """One intra-op thread a test: the suite runs in several processes
-    on a few cores, where torch's thread pools would oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np_fields_3d(n, seed):
@@ -79,7 +72,7 @@ def _np_fields_3d(n, seed):
     return jsolver.Fields3D(u, v, w, b, p_hy, np.zeros_like(u))
 
 
-def test_3d_statistics_match_jax_from_shared_fields(one_torch_thread):
+def test_3d_statistics_match_jax_from_shared_fields():
     """flowstats_ra.py:46-49's reductions over the JAX env's steps and the
     twin's ``run_stats`` from the same float64 fields: 2 envs, 3 steps of
     13 substeps on 8x16x16, to 1e-10."""
@@ -118,7 +111,7 @@ def test_3d_statistics_match_jax_from_shared_fields(one_torch_thread):
     np.testing.assert_allclose(end.t.numpy(), np.asarray(jstate.t), rtol=0, atol=1e-12)
 
 
-def test_2d_sweep_matches_jax_from_a_one_state_bank(tmp_path, one_torch_thread):
+def test_2d_sweep_matches_jax_from_a_one_state_bank(tmp_path):
     """``perform_experiment`` of flowstats_ra_2d.py and of the twin, both
     from ``ckpt_ra30000.h5`` in a tmp dir holding one episode of the
     repo's Ra=3e4 train bank (so both draw it), 2 envs, 2 steps at 96x64

@@ -13,6 +13,7 @@ import torch
 
 from rbc_gym_tpu_torch.ops import limits
 from rbc_gym_tpu_torch.ops.poisson import k1_tf32_constants, spectral_constants_2d
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 NX, NZ, N = 96, 64, 24  # the grid, and a warpgroup's modes or columns
 ROWS = N * NX  # one part of a warpgroup's rows of F or G

@@ -7,6 +7,7 @@ against the plain version on the CPU
 import pytest
 
 from torch_kernels2d_host import check_k1, host_binary  # noqa: F401 (host_binary: a fixture)
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("n_env,nx,nz", [

@@ -15,6 +15,7 @@ from rbc_gym_tpu_torch.ops.poisson import spectral_constants_2d
 from rbc_gym_tpu_torch.sim.grid import Grid2D
 
 from torch_kernels2d_host import host_binary, read_output, run_case  # noqa: F401 (a fixture)
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("n_env,nx,nz,instance", [

@@ -12,6 +12,7 @@ from rbc_gym_tpu_torch.ops import kernels3d as k3
 from rbc_gym_tpu_torch.ops import limits
 
 from torch_kernels3d_host import host_binary, make_case, run_stage  # noqa: F401 (a fixture)
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("stage", [0, 1, 2])

@@ -29,6 +29,7 @@ from rbc_gym_tpu_torch.models.params import (
     state_dict_from_flax,
 )
 from rbc_gym_tpu_torch.rl.ppo import PPO, PPOConfig
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 ATOL = 1e-10
 OBS_2D = (3, 8, 48)

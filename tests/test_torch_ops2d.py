@@ -20,6 +20,7 @@ from rbc_gym_tpu_torch.ops import stencils as tst
 from rbc_gym_tpu_torch.sim import actuation as tact
 from rbc_gym_tpu_torch.sim import nusselt as tnu
 from rbc_gym_tpu_torch.sim.grid import Grid2D
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 ATOL = 1e-12
 E, NX, NZ = 3, 16, 12

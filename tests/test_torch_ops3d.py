@@ -27,6 +27,7 @@ from rbc_gym_tpu_torch.ops import stencils as tst
 from rbc_gym_tpu_torch.sim import actuation as tact
 from rbc_gym_tpu_torch.sim import nusselt as tnu
 from rbc_gym_tpu_torch.sim.grid import Grid3D
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 ATOL64 = 1e-10
 ATOL32 = 5e-6

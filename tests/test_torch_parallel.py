@@ -36,6 +36,7 @@ from rbc_gym_tpu_torch.parallel.distributed import rank_device_index
 from rbc_gym_tpu_torch.parallel.launch import run_ranks
 from rbc_gym_tpu_torch.parallel.mesh import EnvMesh, env_rows, mesh_shape
 from rbc_gym_tpu_torch.rl import PPO, PPOConfig, restore_training_state, save_training_state
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 ENV_2D = dict(state_shape=(16, 32), observation_shape=(8, 16), heater_duration=0.3,
               dtype=torch.float64, device="cpu")

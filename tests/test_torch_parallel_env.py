@@ -29,6 +29,7 @@ from rbc_gym_tpu_torch.envs.vector3d import RBC3DVectorEnv
 from rbc_gym_tpu_torch.parallel.launch import run_ranks
 
 import torch_parallel_worker as worker
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 ATOL = 1e-10  # tests/test_torch_vector2d.py: the float64 env step
 N = worker.N_ENVS_2D

@@ -16,6 +16,7 @@ on a free local port and two gloo ranks:
 import pytest
 
 import chip_smoke
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 ASSETS = chip_smoke.ASSETS
 TINY_3D = {

@@ -25,20 +25,15 @@ from rbc_gym_tpu_torch.parallel.launch import run_ranks
 from rbc_gym_tpu_torch.rl import CheckpointCallback, restore_training_state
 
 import torch_parallel_worker as worker
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 RTOL = 1e-9
 
 
-@pytest.fixture(scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory, one_thread):
+def ranks(tmp_path_factory):
     """The worker's outputs, after writing the one-process checkpoint that
     its last run resumes from."""
     out = tmp_path_factory.mktemp("ppo")

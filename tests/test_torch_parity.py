@@ -15,6 +15,7 @@ import torch
 
 from rbc_gym_tpu_torch.scripts import ablate3d, bench3d, probe_mxu_recon, smoke_times
 from rbc_gym_tpu_torch.utils import parity
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("check", [parity.fused_parity_2d, parity.fused_parity_3d])
@@ -101,17 +102,9 @@ def test_bench3d_refuses_an_unknown_path():
         bench3d.parse_args(["xla"])
 
 
-@pytest.fixture
-def one_torch_thread():
-    """One intra-op thread: the suite runs in several processes on a few
-    cores, where torch's thread pools would oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
-def test_bench3d_plain_rate_is_finite(one_torch_thread):
+def test_bench3d_plain_rate_is_finite():
     lines = []
     rate = bench3d.run("plain", 2, steps=1, device="cpu", log=lines.append)
     assert math.isfinite(rate) and rate > 0

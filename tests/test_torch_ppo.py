@@ -31,6 +31,7 @@ from rbc_gym_tpu_torch.rl.ppo import (
     linear_schedule,
 )
 from rbc_gym_tpu_torch.wrappers import functional as fn
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 ENV = dict(state_shape=(16, 32), observation_shape=(8, 16), heater_duration=0.3,
            episode_length=0.9)  # 3 steps an episode

@@ -16,6 +16,7 @@ import torch
 
 from rbc_gym_tpu_torch.scripts import probe_control2d as pc2
 from rbc_gym_tpu_torch.scripts import probe_control3d as pc3
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 LOG_2D = REPO / "results" / "probe2d_ra1000000.log"
@@ -29,14 +30,6 @@ LINES_3D = [re.compile(rf"^Ra=\S+ duration=\S+ burnin=\d+ zero-action Nu: {FLOAT
             re.compile(rf"^[Tw] row=[ \d]\d gain=[ +-]*\d+\.\d\d: Nu={FLOAT}  supp={PCT}$")]
 
 
-@pytest.fixture
-def one_torch_thread():
-    """One intra-op thread a test: the suite runs in several processes
-    on a few cores, where torch's thread pools would oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _dyadic_obs(seed, shape, lo, hi):
@@ -99,7 +92,7 @@ def _printed(capsys):
     return lines[0], lines[1:]
 
 
-def test_probe_2d_cli_prints_the_jax_lines(capsys, one_torch_thread):
+def test_probe_2d_cli_prints_the_jax_lines(capsys):
     out = pc2.main(["--ra", "1000000", "--episodes", "2", "--n-steps", "1", "--gains", "30",
                     "--device", "cpu"])
     ic, lines = _printed(capsys)
@@ -110,7 +103,7 @@ def test_probe_2d_cli_prints_the_jax_lines(capsys, one_torch_thread):
     assert all(np.isfinite(v) for v in out.values())
 
 
-def test_probe_3d_cli_prints_the_jax_lines(capsys, one_torch_thread):
+def test_probe_3d_cli_prints_the_jax_lines(capsys):
     args = ["--ra", "500", "--episodes", "2", "--n-steps", "2", "--heater-duration", "0.0125",
             "--gains", "3.0", "--device", "cpu"]
     out = pc3.main(args)

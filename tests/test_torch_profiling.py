@@ -19,16 +19,9 @@ from rbc_gym_tpu_torch.models.nets import RBCActorCritic2D
 from rbc_gym_tpu_torch.rl import PPO, MetricsLogger, PPOConfig
 from rbc_gym_tpu_torch.scripts import profile3d, profile_rl
 from rbc_gym_tpu_torch.utils import profiling
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 
-@pytest.fixture
-def one_torch_thread():
-    """One intra-op thread a test: the suite runs in several processes
-    on a few cores, where torch's thread pools would oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_step_timer_summary():
@@ -95,7 +88,7 @@ def test_step_timer_finds_the_devices_of_nested_outputs():
     assert profiling.device_ms(lambda: t + t, reps=2, device="cpu") > 0.0
 
 
-def test_plot_twin_writes_pngs_from_a_tiny_ppo_run(tmp_path, one_torch_thread):
+def test_plot_twin_writes_pngs_from_a_tiny_ppo_run(tmp_path):
     env = RBC2DVectorEnv(2, state_shape=(16, 32), observation_shape=(8, 16),
                          heater_duration=0.06, device="cpu")
     model = RBCActorCritic2D(n_heaters=12, obs_shape=env.observation_shape)
@@ -118,7 +111,7 @@ def test_plot_twin_writes_pngs_from_a_tiny_ppo_run(tmp_path, one_torch_thread):
     assert not (tmp_path / "curves.png").exists()  # the JAX script's name stays free
 
 
-def test_profile_rl_runs_on_cpu(capsys, one_torch_thread):
+def test_profile_rl_runs_on_cpu(capsys):
     rows = profile_rl.main(["--dim", "2", "--envs", "2", "--n_steps", "1", "--k", "1",
                             "--epochs", "1", "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
@@ -129,7 +122,7 @@ def test_profile_rl_runs_on_cpu(capsys, one_torch_thread):
     assert tuple(actions.shape) == (1, 8, 8) and trainer.env.params.heater_duration == 0.375
 
 
-def test_profile3d_runs_on_cpu(capsys, one_torch_thread):
+def test_profile3d_runs_on_cpu(capsys):
     out = profile3d.main(["1", "--reps", "1", "--device", "cpu"])
     assert out["clock"].startswith("host clock") and out["path"] == "plain"
     assert set(out["ms"]) == {"stage-RK kernel (m=0)", "stage-RK kernel (m=1)",

@@ -30,6 +30,7 @@ from rbc_gym_tpu_torch.rl import (
     truncate_metrics_jsonl,
 )
 from rbc_gym_tpu_torch.rl.checkpoint import trainer_tensors
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 TOTAL_ITERS = 4
 STOP_AFTER = 2  # B runs iterations 0..1, C resumes at 2

@@ -13,6 +13,7 @@ import pytest
 from rbc_gym_tpu.utils import roofline as jax_roofline
 from rbc_gym_tpu_torch.sim.solver3d import SimParams3D
 from rbc_gym_tpu_torch.utils import roofline
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 KEY_MAP = {
     "vpu_flops_per_env_step": "elementwise_flops_per_env_step",

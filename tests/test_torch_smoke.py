@@ -22,6 +22,7 @@ import chip_smoke
 from rbc_gym_tpu_torch.ops import _build
 
 from torch_smoke_common import PACKAGE, REPO, _run
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 # the host-only modules: gymnasium types, or gym demos, so they need
 # gymnasium at import

@@ -14,6 +14,7 @@ import torch
 import chip_smoke
 
 from torch_smoke_common import REPO, TINY
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 
 def test_smoke_phases_run_on_cpu_plain_halves():

@@ -9,6 +9,7 @@ are in ``tests/torch_smoke_common.py``); each test as it was there.
 import json
 
 import chip_smoke
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 
 def test_smoke_3d_phases_run_on_cpu_plain_halves():
@@ -97,8 +98,8 @@ def test_smoke_fine_grids_phase_runs_on_cpu_plain_halves():
     plain run, since the CPU runs them in float64), the envs' and the
     flow-statistics run's checks run as on the card; the card's defaults
     are grids that K5's z split and K1's global slabs take."""
-    assert chip_smoke.stage_xy_split_size(chip_smoke.FINE_SHAPE_3D[0]) == 2
-    assert chip_smoke.stage_xy_split_size(chip_smoke.FINE_ODD_SHAPE_3D[0]) == 2
+    assert chip_smoke.stage_xy_split_size(chip_smoke.FINE_SHAPE_3D[0]) == 4
+    assert chip_smoke.stage_xy_split_size(chip_smoke.FINE_ODD_SHAPE_3D[0]) == 4
     assert not any(chip_smoke.env_step_2d_slabs_on_chip(nx, nz)
                    for nz, nx in chip_smoke.FINE_GRIDS_2D)
     out = chip_smoke.fine_grids(

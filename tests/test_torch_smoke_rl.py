@@ -13,7 +13,7 @@ import pytest
 
 import chip_smoke
 
-from torch_smoke_common import one_torch_thread  # noqa: F401 (one_torch_thread: a fixture)
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 
 def test_smoke_bank_oracles_run_on_cpu():
@@ -43,7 +43,7 @@ def test_smoke_policy_phases_run_on_cpu():
     json.dumps({"p": parity, "e": evaluation})
 
 
-def test_smoke_3d_rl_phases_run_on_cpu(one_torch_thread):
+def test_smoke_3d_rl_phases_run_on_cpu():
     """Phases 19-21 at a tiny size: the trained 3D policy on 2
     observations, its evaluation and 2 PPO iterations on 2 envs with 2
     substeps a step and 2-step episodes (each env truncates twice)."""
@@ -67,7 +67,7 @@ def test_smoke_3d_rl_phases_run_on_cpu(one_torch_thread):
     json.dumps({"p": parity, "e": evaluation, "t": out})
 
 
-def test_smoke_generalist_and_burnin_run_on_cpu(one_torch_thread):
+def test_smoke_generalist_and_burnin_run_on_cpu():
     """Phases 22-23 at a tiny size: the generalist on 2 envs a rung, and
     both generators for 2 episodes of 2 windows, read back by their envs."""
     out = chip_smoke.rl_generalist_2d("cpu", num_envs=2, config_overrides=dict(
@@ -103,7 +103,7 @@ def test_smoke_rl_train_runs_on_cpu_and_restores_exactly():
     json.dumps(out)
 
 
-def test_smoke_multi_rank_phase_runs_on_cpu(one_torch_thread):
+def test_smoke_multi_rank_phase_runs_on_cpu():
     """Phase 36's ranks on the CPU at a tiny size: two gloo ranks through
     ``chip_smoke.py --rank-worker``: the 2D env, the training grid's two
     paths and one 2D PPO iteration equal one process's within the card's

@@ -14,10 +14,11 @@ import torch
 
 import chip_smoke
 
-from torch_smoke_common import TINY, one_torch_thread  # noqa: F401 (one_torch_thread: a fixture)
+from torch_smoke_common import TINY
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 
-def test_smoke_flowstats_and_probe_phases_run_on_cpu(one_torch_thread):
+def test_smoke_flowstats_and_probe_phases_run_on_cpu():
     """Phases 24-27 at a tiny size: the 2D sweep at Ra 1e4 from its bank
     (its fixed-point gate holds after 2 steps), the 3D sweep on 8x16x16,
     and both probes on 2 envs for 2 steps; the gates on the JAX records
@@ -46,7 +47,7 @@ def test_smoke_flowstats_and_probe_phases_run_on_cpu(one_torch_thread):
     json.dumps({"a": fs2, "b": fs3, "c": p2, "d": p3})
 
 
-def test_smoke_single_env_and_ablation_phases_run_on_cpu(one_torch_thread):
+def test_smoke_single_env_and_ablation_phases_run_on_cpu():
     """Phases 29-31 at a small size on the plain path: the 2D core from the
     Ra=1e4 train bank for a 2-step episode (seed 0 draws episode 17, the
     bank's roll at Nu 3.1806), the 3D core from the Ra=500 test bank for 2
@@ -74,7 +75,7 @@ def test_smoke_single_env_and_ablation_phases_run_on_cpu(one_torch_thread):
     json.dumps({"a": s2, "b": s3, "c": ab})
 
 
-def test_smoke_profiling_phase_runs_on_cpu(one_torch_thread):
+def test_smoke_profiling_phase_runs_on_cpu():
     """Phase 28 at a tiny size: each traced loop holds its annotations; the
     CPU records no kernel, so the idle share is not measured; the memory
     stats are one empty entry; profile3d and profile_rl give their rows."""
@@ -99,7 +100,7 @@ def test_smoke_profiling_phase_runs_on_cpu(one_torch_thread):
     assert beside["rl_train_2d"]["s_per_iteration"] == 2.1
 
 
-def test_smoke_example_phases_run_on_cpu(one_torch_thread):
+def test_smoke_example_phases_run_on_cpu():
     """Phases 32-34 at a tiny size on the plain path: the vectorized and
     timing twins on a 16x32 grid (the 8x16 observation's Nu sits below the
     full grid's range, so the rehearsal's range starts at 0), the PPO twin
@@ -146,7 +147,7 @@ def test_smoke_launchers_phase_runs_on_cpu(tmp_path, monkeypatch):
     json.dumps(out)
 
 
-def test_smoke_measurement_phase_runs_on_cpu(one_torch_thread):
+def test_smoke_measurement_phase_runs_on_cpu():
     """Phase 37 at a tiny size: the parity checks refuse the CPU by name,
     the flop counts hold their closed forms, the shares of given rates lie
     in (0, 100] %, and the scripts run on their plain halves."""

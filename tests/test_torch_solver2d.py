@@ -33,6 +33,7 @@ from rbc_gym_tpu_torch.sim.solver2d import (
     max_divergence,
 )
 from rbc_gym_tpu_torch.utils.interop import fields_from_numpy, fields_to_numpy
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 NX, NZ = 96, 64
 

@@ -31,6 +31,7 @@ from rbc_gym_tpu_torch.sim.solver3d import (
     max_divergence_3d,
 )
 from rbc_gym_tpu_torch.utils.interop import fields_from_numpy, fields_to_numpy
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 ATOL = 1e-10
 

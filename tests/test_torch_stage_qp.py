@@ -45,6 +45,7 @@ from rbc_gym_tpu_torch.sim.grid import Grid3D
 from rbc_gym_tpu_torch.sim.solver2d import Fields2D
 from rbc_gym_tpu_torch.sim.solver3d import Fields3D, SimParams3D, make_solver3d
 from rbc_gym_tpu_torch.utils.interop import fields_from_numpy, fields_to_numpy
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 ATOL64 = 1e-12
 ATOL32 = 5e-6

@@ -25,6 +25,7 @@ from rbc_gym_tpu_torch.ops import kernels3d as k3
 from rbc_gym_tpu_torch.sim.grid import Grid3D
 from rbc_gym_tpu_torch.sim.solver3d import Fields3D, SimParams3D, make_solver3d
 from rbc_gym_tpu_torch.utils.interop import fields_from_numpy, fields_to_numpy
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 
 def _grids(nx, ny, nz):

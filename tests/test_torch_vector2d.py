@@ -21,6 +21,7 @@ from rbc_gym_tpu.sim import solver2d as jsolver
 from rbc_gym_tpu_torch.envs.autoreset import seed_keys
 from rbc_gym_tpu_torch.envs.vector2d import EnvState2D, RBC2DVectorEnv
 from rbc_gym_tpu_torch.utils.interop import fields_from_numpy, fields_to_numpy
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 CFG = dict(
     state_shape=(16, 32),

@@ -14,6 +14,7 @@ import torch
 from rbc_gym_tpu.wrappers import functional as jfn
 from rbc_gym_tpu.wrappers.rbc_normalize_observation import u_limit_3d as j_u_limit_3d
 from rbc_gym_tpu_torch.wrappers import functional as fn
+from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 ATOL = 1e-12
 

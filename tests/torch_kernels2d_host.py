@@ -7,14 +7,14 @@ need nvcc) off ``csrc/rbc2d.cu`` and puts ``csrc/host_shim.h`` in place of
 the CUDA headers. K1 keeps each point's previous tendencies in registers
 of one thread for the whole env step, and K1 and K2 exchange z fluxes and
 pHY' partial sums by warp shuffles, so each of their blocks runs as 512
-host threads meeting at real barriers. The host program picks K2's
+host fibers (``csrc/host_shim.h`` ``run_fibers``) meeting at their barriers. The host program picks K2's
 instance as its launcher does and prints it. The gates are the smoke's
 on-card ones (``chip_smoke.py``): the emulation differs from the plain
 versions in float32 rounding only. A test file imports ``host_binary``
-(built once a file) and the helpers below.
+(built once a test run, ``torch_smoke_common.host_binary``) and the
+helpers below.
 """
 
-import shutil
 import subprocess
 from unittest import mock
 
@@ -23,7 +23,8 @@ import pytest
 import torch
 
 import chip_smoke
-from rbc_gym_tpu_torch.ops import _build, limits
+import torch_smoke_common
+from rbc_gym_tpu_torch.ops import limits
 from rbc_gym_tpu_torch.ops import kernels2d as k2
 from rbc_gym_tpu_torch.ops import poisson
 
@@ -33,7 +34,6 @@ DRIVER = r"""
 #include <functional>
 #include <memory>
 #include <string>
-#include <thread>
 #include <vector>
 namespace host { alignas(16) float smem[1 << 16]; }
 #include "rbc2d_host.h"
@@ -51,36 +51,32 @@ static void wr(const char* n, const std::vector<float>& v) {
   fwrite(v.data(), 4, v.size(), f);
   fclose(f);
 }
-// every block of E, one after another, each as kK1Threads host threads
-// meeting at real barriers
+// every block of E, one after another, each as kK1Threads host fibers
+// meeting at their barriers
 static void run_blocks(int E, const std::function<void()>& body) {
   blockDim.x = kK1Threads;
   for (unsigned e = 0; e < (unsigned)E; ++e) {
     blockIdx.x = e;
-    std::barrier<> bar(kK1Threads);
+    HostBarrier bar(kK1Threads);
     block_barrier = &bar;
-    std::vector<std::unique_ptr<std::barrier<>>> warps, groups;
+    std::vector<std::unique_ptr<HostBarrier>> warps, groups;
     for (int v = 0; v < kK1Warps; ++v) {
-      warps.push_back(std::make_unique<std::barrier<>>(32));
+      warps.push_back(std::make_unique<HostBarrier>(32));
       warp_barriers[v] = warps.back().get();
     }
     for (int v = 0; v < kK1Threads / 128; ++v) {
-      groups.push_back(std::make_unique<std::barrier<>>(128));
+      groups.push_back(std::make_unique<HostBarrier>(128));
       wg_barriers[v] = groups.back().get();
     }
-    std::vector<std::thread> threads;
-    for (int t = 0; t < kK1Threads; ++t) {
-      threads.emplace_back([&, t] {
-        threadIdx.x = t;
-        body();
-      });
-    }
-    for (auto& th : threads) th.join();
+    run_fibers(kK1Threads, [&](int t) {
+      threadIdx.x = t;
+      body();
+    });
     block_barrier = nullptr;
   }
 }
 // every env's cluster of c CTAs, one env after another, its c x kK1Threads
-// host threads running together: each CTA with its own shared memory and
+// host fibers running together: each CTA with its own shared memory and
 // barriers, all meeting at the cluster's barrier
 static void run_clusters(int E, int c, const std::function<void()>& body) {
   blockDim.x = kK1Threads;
@@ -92,29 +88,24 @@ static void run_clusters(int E, int c, const std::function<void()>& body) {
   }
   for (unsigned e = 0; e < (unsigned)E; ++e) {
     blockIdx.x = e * c;  // the kernel's env is blockIdx.x / c, its CTA host_cta
-    std::barrier<> cluster(c * kK1Threads);
+    HostBarrier cluster(c * kK1Threads);
     host_cluster_barrier = &cluster;
-    std::vector<std::unique_ptr<std::barrier<>>> ctas, warps;
+    std::vector<std::unique_ptr<HostBarrier>> ctas, warps;
     for (int r = 0; r < c; ++r) {
-      ctas.push_back(std::make_unique<std::barrier<>>(kK1Threads));
+      ctas.push_back(std::make_unique<HostBarrier>(kK1Threads));
       for (int v = 0; v < kK1Warps; ++v) {
-        warps.push_back(std::make_unique<std::barrier<>>(32));
+        warps.push_back(std::make_unique<HostBarrier>(32));
         warp_barriers[r * 32 + v] = warps.back().get();
       }
     }
-    std::vector<std::thread> threads;
-    for (int r = 0; r < c; ++r) {
-      for (int t = 0; t < kK1Threads; ++t) {
-        threads.emplace_back([&, r, t] {
-          threadIdx.x = t;
-          host_cta = r;
-          cta_barrier = ctas[r].get();
-          host_cta_smem = host_cluster_smem[r];
-          body();
-        });
-      }
-    }
-    for (auto& th : threads) th.join();
+    run_fibers(c * kK1Threads, [&](int i) {
+      const int r = i / kK1Threads;
+      threadIdx.x = i % kK1Threads;
+      host_cta = r;
+      cta_barrier = ctas[r].get();
+      host_cta_smem = host_cluster_smem[r];
+      body();
+    });
   }
   host_cluster_barrier = nullptr;
   host_cluster_ctas = 1;
@@ -215,17 +206,7 @@ int main(int argc, char** argv) {
 
 @pytest.fixture(scope="module")
 def host_binary(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no host C++ compiler to build the kernels' host emulation")
-    d = tmp_path_factory.mktemp("rbc2d_host")
-    (d / "rbc2d_host.h").write_text(_build.host_source("rbc2d.cu"))
-    (d / "driver.cpp").write_text(DRIVER)
-    exe = d / "driver"
-    proc = subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-o", str(exe),
-                           str(d / "driver.cpp")], capture_output=True, text=True)
-    assert proc.returncode == 0, proc.stderr
-    return exe
+    return torch_smoke_common.host_binary(tmp_path_factory, "rbc2d.cu", DRIVER)
 
 
 def run_case(host_binary, tmp_path, mode, n_env, nx, nz, heater_duration, seed,

@@ -10,21 +10,17 @@ need nvcc) off ``csrc/rbc3d.cu`` and puts ``csrc/host_shim.h`` in place of
 the CUDA headers. The one-thread-per-point kernels (K4, K6, K7) run point
 after point. K3 and K5, one x-march template, keep one thread per point
 of an x-plane for the whole march (their carried fluxes live in
-registers), so each of their blocks runs as that many host threads
-meeting at real barriers (``std::barrier``); a cp.async copy lands at
-once, which its wait and the barrier after it guarantee on the card, and
+registers), so each of their blocks runs as that many host fibers
+meeting at their barriers (``csrc/host_shim.h`` ``run_fibers``: fibers
+that take turns on one OS thread); a cp.async copy lands at once, which its wait and the barrier after it guarantee on the card, and
 a warp shuffle meets the other lanes of its warp at a barrier of their
-own. K5's z split runs the c CTAs of each cluster together, each with its
-own shared memory and barrier, reading the partial sums of pHY' of the
-CTAs above it through ``cluster_map`` and meeting them at
-``cluster_barrier``, as K1's cluster instance does on the host
-(``tests/torch_kernels2d_host.py``). The gates are the smoke's on-card
+own. K5's z split runs each block's CTAs one after another, as blocks of
+their own: nothing crosses its CTAs. The gates are the smoke's on-card
 ones (``chip_smoke.py``): the emulation differs from the plain versions in
 float32 rounding only. A test file imports ``host_binary`` (built once a
-file) and the helpers below.
+test run, ``torch_smoke_common.host_binary``) and the helpers below.
 """
 
-import shutil
 import subprocess
 
 import numpy as np
@@ -32,7 +28,7 @@ import pytest
 import torch
 
 import chip_smoke
-from rbc_gym_tpu_torch.ops import _build
+import torch_smoke_common
 from rbc_gym_tpu_torch.ops import kernels3d as k3
 
 HOST_PROGRAM = r"""
@@ -40,7 +36,6 @@ HOST_PROGRAM = r"""
 #include <cstdlib>
 #include <memory>
 #include <string>
-#include <thread>
 #include <vector>
 namespace host { alignas(16) float smem[1 << 20]; }
 #include "rbc3d_host.h"
@@ -59,70 +54,25 @@ static void wr(const char* n, const std::vector<float>& v) {
   fclose(f);
 }
 // n_blocks blocks of n_thr threads, one after the other; a block's threads
-// run `body` as host threads meeting at real barriers
+// run `body` as host fibers meeting at their barriers
 template <class Body>
 static void run_blocks(unsigned n_blocks, int n_thr, Body body) {
   blockDim.x = n_thr;
   for (unsigned blk = 0; blk < n_blocks; ++blk) {
     blockIdx.x = blk;
-    std::barrier<> bar(n_thr);
+    HostBarrier bar(n_thr);
     block_barrier = &bar;
-    std::vector<std::unique_ptr<std::barrier<>>> warps;
+    std::vector<std::unique_ptr<HostBarrier>> warps;
     for (int w = 0; w * 32 < n_thr; ++w) {
-      warps.push_back(std::make_unique<std::barrier<>>(std::min(32, n_thr - 32 * w)));
+      warps.push_back(std::make_unique<HostBarrier>(std::min(32, n_thr - 32 * w)));
       warp_barriers[w] = warps.back().get();
     }
-    std::vector<std::thread> threads;
-    for (int t = 0; t < n_thr; ++t) {
-      threads.emplace_back([&, t] {
-        threadIdx.x = t;
-        body();
-      });
-    }
-    for (auto& th : threads) th.join();
+    run_fibers(n_thr, [&](int t) {
+      threadIdx.x = t;
+      body();
+    });
     block_barrier = nullptr;
   }
-}
-// n_clusters clusters of c CTAs of n_thr threads, one cluster after another,
-// its c x n_thr host threads running together: each CTA with its own shared
-// memory and barriers, all meeting at the cluster's barrier
-template <class Body>
-static void run_clusters(unsigned n_clusters, int c, int n_thr, Body body) {
-  blockDim.x = n_thr;
-  host_cluster_ctas = c;
-  std::vector<std::unique_ptr<float[]>> mem;
-  for (int r = 0; r < c; ++r) {
-    mem.push_back(std::make_unique<float[]>(1 << 16));
-    host_cluster_smem[r] = mem.back().get();
-  }
-  for (unsigned cl = 0; cl < n_clusters; ++cl) {
-    blockIdx.x = cl * c;  // the kernel's block is blockIdx.x / c, its CTA host_cta
-    std::barrier<> cluster(c * n_thr);
-    host_cluster_barrier = &cluster;
-    std::vector<std::unique_ptr<std::barrier<>>> ctas, warps;
-    for (int r = 0; r < c; ++r) {
-      ctas.push_back(std::make_unique<std::barrier<>>(n_thr));
-      for (int w = 0; w * 32 < n_thr; ++w) {
-        warps.push_back(std::make_unique<std::barrier<>>(std::min(32, n_thr - 32 * w)));
-        warp_barriers[r * 32 + w] = warps.back().get();
-      }
-    }
-    std::vector<std::thread> threads;
-    for (int r = 0; r < c; ++r) {
-      for (int t = 0; t < n_thr; ++t) {
-        threads.emplace_back([&, r, t] {
-          threadIdx.x = t;
-          host_cta = r;
-          cta_barrier = ctas[r].get();
-          host_cta_smem = host_cluster_smem[r];
-          body();
-        });
-      }
-    }
-    for (auto& th : threads) th.join();
-  }
-  host_cluster_barrier = nullptr;
-  host_cluster_ctas = 1;
 }
 // K6 for field F, the instance its launcher picks for the grid
 template <int F>
@@ -157,7 +107,7 @@ int main(int argc, char** argv) {
   if (std::string(argv[1]) == "split") {  // split NZ: K5's z split, as its launcher sizes it
     const int nz = atoi(argv[2]), c = stage_xy_split_size(nz);
     printf("%d %zu %d %d\n", c, c ? stage_xy_split_smem_floats(nz, c) : stage_xy_smem_floats(nz),
-           c ? split_threads(nz, c) : march_threads(nz, -1), c ? split_levels(nz, c) : nz);
+           c ? kSplitThreads : march_threads(nz, -1), c ? kSplitLevels : nz);
     return 0;
   }
   if (std::string(argv[1]) == "smem_qp") {  // smem_qp NX NY NZ: the analysis instance's floats
@@ -217,9 +167,10 @@ int main(int argc, char** argv) {
                                 atof(argv[15]));
   const int csplit = kind == "xy" ? stage_xy_split_size(nz)
                                   : (xy ? atoi(kind.c_str() + 5) : 0);
-  if (csplit > 0) {  // K5's z split: each block's cluster of csplit CTAs together
+  if (csplit > 0) {  // K5's z split: each block's csplit CTAs, one after another
+    if (csplit != (nz + kSplitPart - 1) / kSplitPart) return 3;  // one CTA a part, as launched
     auto* kernel = stage_xy_split_kernel();
-    run_clusters(E * (unsigned)(ny / kYT), csplit, split_threads(nz, csplit), [&] {
+    run_blocks(E * (unsigned)(ny / kYT) * csplit, kSplitThreads, [&] {
       kernel(u.data(), v.data(), w.data(), b.data(), q.data(), bottom.data(), prev(0), prev(1),
              prev(2), prev(3), out[0].data(), out[1].data(), out[2].data(), out[3].data(),
              out[4].data(), emit(0), emit(1), emit(2), emit(3), dt, gamma, zeta, PX, nullptr);
@@ -255,18 +206,7 @@ int main(int argc, char** argv) {
 
 @pytest.fixture(scope="module")
 def host_binary(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no host C++ compiler to build the kernels' host emulation")
-    d = tmp_path_factory.mktemp("rbc3d_host")
-    (d / "rbc3d_host.h").write_text(_build.host_source("rbc3d.cu"))
-    (d / "host_program.cpp").write_text(HOST_PROGRAM)
-    exe = d / "host_program"
-    proc = subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-o", str(exe),
-                           str(d / "host_program.cpp")],
-                          capture_output=True, text=True)
-    assert proc.returncode == 0, proc.stderr
-    return exe
+    return torch_smoke_common.host_binary(tmp_path_factory, "rbc3d.cu", HOST_PROGRAM)
 
 
 def make_case(e, nx, ny, nz, seed):
