@@ -329,7 +329,8 @@ from rbc_gym_tpu_torch.ops.poisson import (
     make_poisson_solver_3d,
     spectral_constants_2d,
 )
-from rbc_gym_tpu_torch.parallel import initialize_distributed, make_env_mesh, shard_vector_env
+from rbc_gym_tpu_torch.parallel import (initialize_distributed, make_env_mesh, shard_vector_env,
+                                        shutdown_distributed)
 from rbc_gym_tpu_torch.parallel.launch import run_ranks
 from rbc_gym_tpu_torch.rl import PPO, CheckpointCallback, NusseltCallback, restore_training_state
 from rbc_gym_tpu_torch.rl.checkpoint import trainer_tensors
@@ -2942,13 +2943,23 @@ def rank_worker(tmp: str) -> int:
     """One rank of ``multi_rank_ranks`` (``chip_smoke.py --rank-worker
     DIR``): joins the ranks (torchrun's variables) on ``DIR/spec.json``'s
     device with gloo, runs the env parts and the PPO runs as its rank and
-    writes ``DIR/rank<r>.npz`` and ``DIR/rank<r>.json``."""
-    import torch.distributed as dist
-
+    writes ``DIR/rank<r>.npz`` and ``DIR/rank<r>.json``, and ends its group."""
     spec = json.loads((Path(tmp) / "spec.json").read_text())
     if not initialize_distributed(backend=MULTI_RANK_BACKEND, device=spec["device"],
                                   timeout=spec["timeout"]):
         raise RuntimeError("--rank-worker outside a multi-rank launch")
+    done = False
+    try:
+        _rank_worker_parts(spec, tmp)
+        done = True
+    finally:
+        shutdown_distributed(barrier=done)
+    return 0
+
+
+def _rank_worker_parts(spec: dict, tmp: str) -> None:
+    import torch.distributed as dist
+
     mesh = make_env_mesh(device=spec["device"])
     arrays, record = _multi_rank_env_parts(spec, mesh.device, mesh)
     arrays = {k: v.numpy() for k, v in arrays.items() if v is not None}
@@ -2959,8 +2970,6 @@ def rank_worker(tmp: str) -> int:
                   device=str(mesh.device))
     np.savez(Path(tmp) / f"rank{mesh.rank}.npz", **arrays)
     (Path(tmp) / f"rank{mesh.rank}.json").write_text(json.dumps(record))
-    dist.destroy_process_group()
-    return 0
 
 
 def _max_rel(got: np.ndarray, want: np.ndarray) -> float:
@@ -3766,7 +3775,8 @@ def fine_grids(device, envs_3d=16, shape_3d=FINE_SHAPE_3D, odd_envs=64,
                odd_shape=FINE_ODD_SHAPE_3D, dt_3d=FINE_DT_3D, heater_3d=FINE_HEATER_3D, steps=3,
                flowstats_ra=2000, k1_envs=8, k1_shape=(128, 256), k1_substeps=(6, 50),
                grids_2d=FINE_GRIDS_2D, envs_2d=((1024, (128, 256)), (64, (256, 512))),
-               observation_shape=(8, 48), timing_envs_2d=1024, reps=3) -> dict:
+               observation_shape=(8, 48), timing_envs_2d=1024, off_chip_shape=(64, 127),
+               reps=3) -> dict:
     """Phase 41: the grids where the JAX package runs its kernels and the
     port used to raise. 3D: K5's z split at each stage against its plain
     version on ``shape_3d`` (``envs_3d``) and ``odd_shape`` (``odd_envs``),
@@ -3782,7 +3792,12 @@ def fine_grids(device, envs_3d=16, shape_3d=FINE_SHAPE_3D, odd_envs=64,
     instance). On the card: both instances' occupancy and CUDA-event times,
     the split's per stage at ``shape_3d``, K1's at ``timing_envs_2d`` on
     ``k1_shape`` (6 substeps), beside their plain versions and bounds, and
-    the split's at one env on ``shape_3d`` (the flow statistics' launch)."""
+    the split's at one env on ``shape_3d`` (the flow statistics' launch);
+    beside them (``off_chip_times``, not in the ``kernels`` line) K1's
+    off-chip instance at ``timing_envs_2d`` on ``off_chip_shape`` (its slabs
+    in shared memory; an env step of 50 substeps) beside its plain version
+    and bound, and its "high" and "default" instances on ``k1_shape``
+    beside their bounds."""
     begin = time.perf_counter()
     device = torch.device(device)
     dtype = working_dtype(device)
@@ -3929,8 +3944,28 @@ def fine_grids(device, envs_3d=16, shape_3d=FINE_SHAPE_3D, odd_envs=64,
             "ms": ms, "plain_ms": _cuda_ms(lambda: k1_run(s, c, False), 1),
             "bound_ms": bound_ms, "bound_by": bound_by, "num_envs": timing_envs_2d,
             "substeps": k1_substeps[0], **work}
-        for rec in times.values():
+        off = {}
+        for prec in ("high", "default"):
+            bound_ms, bound_by = bound(env_step_work(timing_envs_2d, k1_nx, k1_nz, k1_substeps[0],
+                                                     prec))
+            off[f"{k1_nx}x{k1_nz}_{prec}"] = {
+                "ms": _cuda_ms(lambda: k1_run(s, c, True, prec), reps), "bound_ms": bound_ms,
+                "bound_by": bound_by, "num_envs": timing_envs_2d, "substeps": k1_substeps[0]}
+        del s, c
+        s, c = make_case(device, timing_envs_2d, off_chip_shape, heater_duration=1.5, seed=47,
+                         dtype=torch.float32)
+        o_nz, o_nx = off_chip_shape
+        n_sub = s.params.substeps_per_env_step
+        bound_ms, bound_by = bound(env_step_work(timing_envs_2d, o_nx, o_nz, n_sub))
+        off[f"{o_nx}x{o_nz}"] = {
+            "ms": _cuda_ms(lambda: k1_run(s, c, True), reps),
+            "plain_ms": _cuda_ms(lambda: k1_run(s, c, False), 1), "bound_ms": bound_ms,
+            "bound_by": bound_by, "num_envs": timing_envs_2d, "substeps": n_sub,
+            "occupancy": k2d.env_step_2d_occupancy(o_nx, o_nz)}
+        del s, c
+        for rec in (*times.values(), *off.values()):
             rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        out["off_chip_times"] = off
         part("timing")
     out["times"] = times
     out["seconds"], out["seconds_by_part"] = time.perf_counter() - begin, parts

@@ -16,7 +16,7 @@
 //   __pipeline_wait_prior and the barrier after it guarantee on the card;
 // - a warp shuffle posts each lane's value and meets the other lanes of its
 //   warp at the warp's barrier, reads its source lane's, and meets them
-//   again;
+//   again; __syncwarp meets them once;
 // - K1's TF32 tensor-core product (rbc2d.cu's to_tf32 and mma_tf32, which
 //   this file replaces: RBC_HOST_BUILD) rounds as cvt.rna.tf32.f32 does, and
 //   its m16n8k8 mma is warp-collective like a shuffle: each lane posts its
@@ -61,11 +61,15 @@ using std::min;
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 #define __shared__
 #define __constant__
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
+};
+struct float2 {
+  float x, y;
 };
 struct float4 {
   float x, y, z, w;
@@ -245,6 +249,11 @@ inline T shuffle(T v, unsigned src) {
   const T out = (T)slots[src];
   bar.arrive_and_wait();
   return out;
+}
+// the lanes of this thread's warp meet (K1's off-chip march orders its
+// warp's carries and ring of columns in shared memory by it)
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  if (HostBarrier* bar = warp_barriers[host_cta * 32 + threadIdx.x / 32]) bar->arrive_and_wait();
 }
 inline unsigned __activemask() { return 0xffffffffu; }
 template <class T>

@@ -86,21 +86,49 @@
 //   128, nz <= 64: at most 16 tiles). Compile-time 64 and 96 columns of 64
 //   levels a CTA at float32, a runtime-size instance otherwise.
 //   Every other grid with nx >= 3 runs the off-chip instance,
-//   env_step_2d_global_kernel: the state in the output tensors, the
-//   tendencies of this and the previous stage and pHY' in per-env global
-//   scratch, the two (nx, nz) slabs in shared memory where 8 nx nz bytes
-//   fit a block (127x64, 128x224), and each phase a loop over points
-//   between barriers (pHY' by the same warp scan, a chunk of 32 levels at a
-//   time from the top; the tendencies by ub5.cuh's tendencies_block; the
-//   same DCT-form solve, one 32-column tile of each product after another).
-//   On the finer grids (256x128, 512x256, 2048x64) its instance with
-//   kGlobalSlabs puts the slabs in the same per-env scratch after the rest
-//   and takes no shared memory; only the slab pointers differ, the phases
-//   and products are the same code. Simple first: every product then reads
-//   its slab operand through L1 and L2 (a block's two slabs are 256 KB at
-//   256x128, so beyond L2 at a full fleet they come from HBM); keeping them
-//   on the chip across a cluster, as the cluster instance does for nz <= 64,
-//   is the next pass.
+//   env_step_2d_global_kernel (nz > 64, nz < 2, nx = 3, an nx no cluster
+//   splits: 127x64, 128x224, 256x128, 512x256, 2048x64), one 512-thread
+//   block an env.
+//   What held its first design (159.9 ms at 1024 envs, 6 substeps, on
+//   256x128, 8.4 % of the bound; 30.5 on 127x64; 203.7 at 64 envs on
+//   512x256; H100 80GB HBM3 at 700 W, by ablation in that call: the four
+//   products ~70, ~13 and ~155 ms of those, the phases before them ~54,
+//   ~19 and ~0): products from L1 and L2 as 4 x 32 tiles a warp, five loads
+//   for four FMA and every tile walking a whole strip of its right
+//   operand; pHY', tendencies_block (a thread a point, each face flux
+//   twice, IEEE division, every tap from global memory), the RK update, the
+//   divergence and the correction each a pass over points between barriers,
+//   some 40 field-sized passes a stage.
+//   Design: per stage,
+//   1. the march (g_march, its own registers): warp v takes strips of xw =
+//      ceil(nx / 16) <= 16 columns, each chunk by chunk of 32 levels from
+//      the top, lane l the level k0 + l, column by column: the columns of
+//      u, w, b it needs (i - 3 .. i + 3, 40 levels from k0 - 3, clamped
+//      into the column as the z ladder clamps its taps) in the warp's ring
+//      of eight in shared memory, the next one loaded into registers while
+//      a column is computed; pHY' by the float64 lane scan, its running sum
+//      carried down the chunks; each x-face flux once, carried in a
+//      register; each z-face flux once, from the next lane by shuffle (the
+//      chunk above's carried in shared memory, lane 0's w flux below its
+//      own); the RK update from the reciprocals into the other copy of the
+//      state (the output tensors and a copy in scratch alternate so that the
+//      last stage writes the outputs), g into scratch, the divergence of
+//      column i - 1 once u*[i] is known;
+//   2. the divergence of each strip's last column;
+//   3. the four products (g_product, its own registers): tiles of the
+//      result computed a GTile at a time from chunks of both operands that
+//      cp.async stages into a ring of two in shared memory; float32 FMA on a
+//      4 x 4 block a thread (128 x 64 tiles) or, where nz > 64, 8 x 8 (256 x
+//      128), which halves the shared loads an FMA; the TF32 instances'
+//      mma.sync fragments from the same tiles;
+//   4. the correction, a warp a column.
+//   The two slabs sit in shared memory after the ring, the carries and the
+//   columns where nx nz <= 13,408 (127x64: 190,208 bytes, one block an
+//   SM), else in per-env global scratch (kGlobalSlabs: 125,184 bytes); 128
+//   registers. Times (H100 80GB HBM3, 700 W, 1024 envs, 6 substeps):
+//   59.9 ms on 256x128 (22.4 % of the bound), 12.9 on 127x64, 41.4 at 64
+//   envs on 512x256, "high" / "default" 60.6 / 53.0 on 256x128 (PERF.md,
+//   section 6, rows 1g and 1o).
 //   The split-product branch of the TPU kernel (pallas2d.py:270-304, dot3:
 //   each solve product as three one-pass bf16 dots over hi and lo parts;
 //   the 2D solver's poisson_precision "bf16x3") and its one-pass DEFAULT
@@ -579,33 +607,68 @@ bool env_step_2d_cluster_fg(int nx, int nz) {
                       kSmemPerBlock;
 }
 
+// K1's off-chip instance: its products' tiles (a ring of two stages in
+// shared memory), its march's strips and carries, and its scratch.
+// A product's tiles: narrow, 128 x 64 outputs from 32-deep chunks, a 4 x 4
+// block a thread (and the TF32 instances' 32 x 16 a warp); wide (float32
+// where nz > 64), 256 x 128 from 16-deep chunks, 8 x 8 a thread, which
+// halves the shared-memory loads an FMA: a narrow thread's 8 loaded values
+// feed 16 FMA, so the loads, not the FMA pipes, would set the pace.
+template <bool kWide>
+struct GTile {
+  static constexpr int TM = kWide ? 256 : 128, TN = kWide ? 128 : 64, KC = kWide ? 16 : 32;
+  static constexpr int LdA = KC + 4;  // floats between a staged A tile's rows (conflict-free)
+  static constexpr int LdB = TN + 8;  // floats between a staged B tile's rows (conflict-free)
+  static constexpr int Floats = TM * LdA + KC * LdB;
+};
+// floats of one stage of the ring (two stages: the next chunk in flight
+// while this one is used)
+constexpr int kGStage =
+    GTile<true>::Floats > GTile<false>::Floats ? GTile<true>::Floats : GTile<false>::Floats;
+constexpr int kGStrip = 16;  // most columns of a march strip
+// a warp's carries from one chunk of its strip to the next below, floats:
+// pHY''s running sum (a double) of each column and the strip's left
+// neighbour, then each column's z fluxes of u and b and w* at the chunk's
+// lowest level
+constexpr int kGCarry = 2 * (kGStrip + 1) + 3 * kGStrip + 2;
+// a warp's ring of eight columns of u, w and b, each 40 levels from k0 - 3
+constexpr int kGColLevels = 40;
+constexpr int kGCols = 8 * 3 * kGColLevels;
+constexpr size_t kGSmemFloats = 2 * kGStage + kK1Warps * (kGCarry + kGCols);
+
+// Scratch per env of the off-chip instance, in floats: a second copy of u,
+// w, b and the tendencies gu, gw, gb (each stage's, then the previous
+// stage's), then the two slabs where they are not in shared memory.
+__host__ __device__ constexpr size_t off_chip_scratch_floats(int nx, int nz, bool global_slabs) {
+  return (global_slabs ? 6 : 4) * (size_t)nx * nz + 2 * (size_t)nx * (nz + 1);
+}
+
 // Whether K1 keeps its two (nx, nz) slabs in shared memory: on the chip and
-// on a cluster always; the off-chip instance where 8 nx nz bytes fit a
-// block (127x64, 128x224), else in global scratch (256x128, 2048x64).
+// on a cluster always; the off-chip instance where they fit a block beside
+// its products' ring and its march's carries and columns (nx nz <= 13,408:
+// 127x64, not 128x224), else in global scratch (256x128, 2048x64).
 bool env_step_2d_slabs_on_chip(int nx, int nz) {
   return env_step_2d_on_chip(nx, nz) || env_step_2d_cluster_size(nx, nz) > 0 ||
-         sizeof(float) * 2 * (size_t)nx * nz <= kSmemPerBlock;
+         sizeof(float) * (kGSmemFloats + 2 * (size_t)nx * nz) <= kSmemPerBlock;
 }
 
 // Shared memory K1 needs per block, in floats: the on-chip instance's, a
 // cluster CTA's (the on-chip layout over nx / c columns, and its rows of F
-// and G where they fit), or the off-chip one's two (nx, nz) slabs where
-// they fit (none where they go to global scratch).
+// and G where they fit), or the off-chip one's ring and carries and its two
+// (nx, nz) slabs where they fit.
 size_t env_step_2d_smem_floats(int nx, int nz) {
   if (env_step_2d_on_chip(nx, nz)) return on_chip_smem_floats(nx, nz);
   const int c = env_step_2d_cluster_size(nx, nz);
-  if (c == 0) return env_step_2d_slabs_on_chip(nx, nz) ? 2 * (size_t)nx * nz : 0;
+  if (c == 0) return kGSmemFloats + (env_step_2d_slabs_on_chip(nx, nz) ? 2 * (size_t)nx * nz : 0);
   return on_chip_smem_floats(nx / c, nz) +
          (env_step_2d_cluster_fg(nx, nz) ? 2 * (size_t)(nx / c) * nx : 0);
 }
 
 // Global scratch per env, in floats: none on the chip or a cluster; off
-// them, gu, gw, gb of this stage and of the previous one, and pHY', then
-// the two slabs where they do not fit a block.
+// them off_chip_scratch_floats.
 size_t env_step_2d_scratch_floats(int nx, int nz) {
   if (env_step_2d_on_chip(nx, nz) || env_step_2d_cluster_size(nx, nz) > 0) return 0;
-  return (env_step_2d_slabs_on_chip(nx, nz) ? 5 : 7) * (size_t)nx * nz +
-         2 * (size_t)nx * (nz + 1);
+  return off_chip_scratch_floats(nx, nz, !env_step_2d_slabs_on_chip(nx, nz));
 }
 
 // K1 indexes an env's fields and scratch with 32-bit offsets: they stay
@@ -1189,130 +1252,504 @@ decltype(&env_step_2d_kernel<0, 0>) env_step_kernel_for(int nx, int nz, int pass
   return ref ? env_step_2d_kernel<96, 64> : env_step_2d_kernel<0, 0>;
 }
 
-// dst = L . R for the (nrow, ldr) result, one 4 x 32 tile a warp at a time,
-// each element scaled by epi(value, row, col) on its way out.
-template <class Epi>
-__device__ __forceinline__ void block_product(const float* L, const float* R, int K, int ldr,
-                                              int nrow, float* dst, Epi epi) {
-  constexpr int XS = 4;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int tiles_c = (ldr + 31) / 32, tiles = (nrow + XS - 1) / XS * tiles_c;
-  for (int t = warp; t < tiles; t += kK1Warps) {
-    const int r0 = t / tiles_c * XS, col = t % tiles_c * 32 + lane;
-    float acc[XS][1];
-    tile_product<XS, 1, false>(L, R, K, ldr, r0, nrow, col - lane, lane, acc);
+// ---- K1's off-chip instance ---------------------------------------------------
+//
+// Its solve's products are register-tiled: the block computes the (M, N)
+// result a GTile at a time, over the contraction in chunks, each chunk's
+// operand tiles staged in shared memory by cp.async (a ring of two: the
+// next chunk in flight while this one is used); its march is one pass a
+// stage over strips of columns (see the head of this file).
+
+// One operand of a product: row-major rows `ld` floats apart, in shared
+// memory (`shared`) or global memory; `vec`: 16-byte copies (ld % 4 == 0
+// and the start 16-byte aligned).
+struct GOperand {
+  const float* p;
+  int ld;
+  bool shared, vec;
+};
+__device__ __forceinline__ GOperand g_operand(const float* p, int ld, bool shared) {
+  return {p, ld, shared, (ld & 3) == 0 && ((uintptr_t)p & 15) == 0};
+}
+
+// Stage rows [r0, r0 + R) x columns [c0, c0 + C) of the (nr, ncol) operand
+// into dst (rows ldd floats apart), zero outside it: from global memory by
+// cp.async (16 bytes a copy where the operand allows, else 4), from shared
+// memory by loads and stores.
+template <int R, int C>
+__device__ __forceinline__ void g_stage(float* dst, int ldd, const GOperand& a, int nr, int ncol,
+                                        int r0, int c0) {
+  constexpr int C4 = C / 4;
+  for (int q = threadIdx.x; q < R * C4; q += kK1Threads) {
+    const int r = q / C4, c = q % C4 * 4, gr = r0 + r, gc = c0 + c;
+    float* d = dst + r * ldd + c;
+    const float* s = a.p + (size_t)min(gr, nr - 1) * a.ld + gc;
+    if (gr < nr && a.vec && gc + 4 <= ncol) {
+      if (a.shared) {
+        *reinterpret_cast<float4*>(d) = *reinterpret_cast<const float4*>(s);
+      } else {
+        __pipeline_memcpy_async(d, s, 16);
+      }
+    } else {
 #pragma unroll
-    for (int r = 0; r < XS; ++r)
-      if (r0 + r < nrow && col < ldr) dst[(r0 + r) * ldr + col] = epi(acc[r][0], r0 + r, col);
+      for (int j = 0; j < 4; ++j) {
+        if (gr < nr && gc + j < ncol) {
+          if (a.shared) {
+            d[j] = s[j];
+          } else {
+            __pipeline_memcpy_async(d + j, s + j, sizeof(float));
+          }
+        } else {
+          d[j] = 0.0f;
+        }
+      }
+    }
+  }
+}
+
+// C = A . B for the (M, N) result, K deep, each element at (m, n) times
+// scale[m * N + n] where `scale` is given; the ring is the first 2 kGStage
+// floats of the block's shared memory, its tiles GTile<kWide>'s. kPasses
+// 0: float32 FMA, thread (mg, ng) of a 32 x 16 grid computing rows mg + 32
+// r (r < 4, wide 8) and columns 4 ng .. 4 ng + 3 (wide also 64 more) of a
+// tile, from one 16-byte load of each staged A row per four contraction
+// steps (wide one 4-byte load a step) and one (two) 16-byte loads of B's a
+// step; 1 or
+// 3 (narrow only): TF32 mma.sync, warp (wm, wn) of a 4 x 4 grid a 32 x 16
+// block of m16n8k8 tiles, its fragments read from the same staged tiles
+// and split as mma_product splits them. Not inlined, so that its registers
+// are its own and not the stage's. Every thread meets the block before it
+// returns.
+template <int kPasses, bool kWide>
+__device__ __noinline__ void g_product(GOperand A, GOperand B, int M, int N, int K, float* C,
+                                       int ldc, const float* __restrict__ scale) {
+  using T = GTile<kWide>;
+  static_assert(kPasses == 0 || !kWide, "the TF32 products take the narrow tiles");
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nk = (K + T::KC - 1) / T::KC;
+  auto epi = [&](float v, int m, int n) { return scale ? v * __ldg(scale + m * N + n) : v; };
+  const int ng = (warp >> 3) * 8 + (lane & 7), mg = (warp & 7) * 4 + (lane >> 3);
+  const int g = lane >> 2, t = lane & 3, wm = warp & 3, wn = warp >> 2;
+  constexpr int R = kWide ? 8 : 4;  // rows of a float32 thread's block
+  for (int m0 = 0; m0 < M; m0 += T::TM) {
+    for (int n0 = 0; n0 < N; n0 += T::TN) {
+      auto issue = [&](int c) {
+        float* st = smem + (c & 1) * kGStage;
+        g_stage<T::TM, T::KC>(st, T::LdA, A, M, K, m0, c * T::KC);
+        g_stage<T::KC, T::TN>(st + T::TM * T::LdA, T::LdB, B, K, N, c * T::KC, n0);
+      };
+      issue(0);
+      __pipeline_commit();
+      float acc[R][kWide ? 8 : 4] = {};  // TF32: acc[2 i + j] the (i, j) m16n8 tile's
+      for (int c = 0; c < nk; ++c) {
+        if (c + 1 < nk) issue(c + 1);
+        __pipeline_commit();  // (empty after the last chunk: the count stays one a chunk)
+        __pipeline_wait_prior(1);
+        __syncthreads();
+        const float* st = smem + (c & 1) * kGStage;
+        if constexpr (kPasses == 0 && kWide) {
+          const float* As = st + mg * T::LdA;
+          const float* Bs = st + T::TM * T::LdA + 4 * ng;
+#pragma unroll 1
+          for (int kk = 0; kk < T::KC; ++kk) {  // (unrolled, its 64 sums spill)
+            float a[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r) a[r] = As[32 * r * T::LdA + kk];
+            const float4 b0 = *reinterpret_cast<const float4*>(Bs + kk * T::LdB);
+            const float4 b1 = *reinterpret_cast<const float4*>(Bs + kk * T::LdB + 64);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              acc[r][0] = fmaf(a[r], b0.x, acc[r][0]);
+              acc[r][1] = fmaf(a[r], b0.y, acc[r][1]);
+              acc[r][2] = fmaf(a[r], b0.z, acc[r][2]);
+              acc[r][3] = fmaf(a[r], b0.w, acc[r][3]);
+              acc[r][4] = fmaf(a[r], b1.x, acc[r][4]);
+              acc[r][5] = fmaf(a[r], b1.y, acc[r][5]);
+              acc[r][6] = fmaf(a[r], b1.z, acc[r][6]);
+              acc[r][7] = fmaf(a[r], b1.w, acc[r][7]);
+            }
+          }
+        } else if constexpr (kPasses == 0) {
+          const float* As = st + mg * T::LdA;
+          const float* Bs = st + T::TM * T::LdA + 4 * ng;
+#pragma unroll 2
+          for (int kk = 0; kk < T::KC; kk += 4) {
+            float4 a[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              a[r] = *reinterpret_cast<const float4*>(As + 32 * r * T::LdA + kk);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float4 b = *reinterpret_cast<const float4*>(Bs + (kk + q) * T::LdB);
+#pragma unroll
+              for (int r = 0; r < R; ++r) {
+                const float av = q == 0 ? a[r].x : (q == 1 ? a[r].y : (q == 2 ? a[r].z : a[r].w));
+                acc[r][0] = fmaf(av, b.x, acc[r][0]);
+                acc[r][1] = fmaf(av, b.y, acc[r][1]);
+                acc[r][2] = fmaf(av, b.z, acc[r][2]);
+                acc[r][3] = fmaf(av, b.w, acc[r][3]);
+              }
+            }
+          }
+        } else {
+          const float* As = st + (32 * wm + g) * T::LdA + t;
+          const float* Bs = st + T::TM * T::LdA + t * T::LdB + 16 * wn + g;
+#pragma unroll
+          for (int kk = 0; kk < T::KC; kk += 8) {
+            unsigned ah[2][4], al[2][4];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const float* a = As + 16 * i * T::LdA + kk;
+              const float x[4] = {a[0], a[8 * T::LdA], a[4], a[8 * T::LdA + 4]};
+              tf32_operands<kPasses>(x, ah[i], al[i]);
+            }
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float* b = Bs + kk * T::LdB + 8 * j;
+              const float y[2] = {b[0], b[4 * T::LdB]};
+              unsigned bh[2], bl[2];
+              tf32_operands<kPasses>(y, bh, bl);
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                if constexpr (kPasses == 3) {
+                  mma_tf32(acc[2 * i + j], ah[i], bl);
+                  mma_tf32(acc[2 * i + j], al[i], bh);
+                }
+                mma_tf32(acc[2 * i + j], ah[i], bh);
+              }
+            }
+          }
+        }
+        __syncthreads();
+      }
+      if constexpr (kPasses == 0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int m = m0 + mg + 32 * r;
+#pragma unroll
+          for (int j = 0; j < (kWide ? 8 : 4); ++j) {
+            const int n = n0 + 4 * ng + (j & 3) + 64 * (j >> 2);
+            if (m < M && n < N) C[m * ldc + n] = epi(acc[r][j], m, n);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int m = m0 + 32 * wm + 16 * i + g + 8 * (e >> 1);
+              const int n = n0 + 16 * wn + 8 * j + 2 * t + (e & 1);
+              if (m < M && n < N) C[m * ldc + n] = epi(acc[2 * i + j][e], m, n);
+            }
+      }
+    }
+  }
+  __syncthreads();  // the result, before anyone reads it
+}
+
+// pHY' at level k = k0 + lane of a column of nz levels, its b at k and k +
+// 1 (each clamped into the column) given, from `above`, the sum over the
+// levels above k0 (which gains this chunk's): phy_levels<1> returning the
+// lane's value.
+__device__ __forceinline__ float phy_at(float b0, float b1, int k, int nz, int lane,
+                                        const K1Params& P, double& above) {
+  const double face = 0.5 * ((double)b0 + (double)b1);
+  double v = k < nz - 1 ? (double)P.dz * face : (k == nz - 1 ? 0.5 * P.dz * P.min_b : 0.0);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double t = __shfl_down_sync(kFull, v, off);
+    if (lane + off < 32) v += t;
+  }
+  const double total = __shfl_sync(kFull, v, 0);
+  const float p = (float)-(v + above);
+  above += total;
+  return p;
+}
+
+// K1's off-chip march of one stage (see the head of this file), X to Y:
+// pHY', the tendencies, the RK update and the divergence, strip by strip,
+// each strip chunk by chunk of 32 levels from the top (lane l the level k0
+// + l), each chunk column by column; every tap from the warp's ring of
+// columns in shared memory. Not inlined, so that its registers are its own
+// and not the stage's.
+__device__ __noinline__ void g_march(State2D X, State2D Y, State2D G, float* s1,
+                                     const float* bot, K1Params P, int stage, int xw,
+                                     int nstrips) {
+  extern __shared__ float smem[];
+  const int nx = P.nx, nz = P.nz, nw = nz + 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // after the products' ring: this warp's carries and its ring of columns
+  double* above = reinterpret_cast<double*>(smem + 2 * kGStage + warp * (kGCarry + kGCols));
+  float* carry = reinterpret_cast<float*>(above + kGStrip + 1);  // zu, zb, w* of each column
+  float* cols = smem + 2 * kGStage + warp * (kGCarry + kGCols) + kGCarry;
+  const float gamma = kGamma[stage], zeta = kZeta[stage], idts = P.idts[stage];
+  auto rk = [&](float f, float g, float g_prev) {
+    return stage == 0 ? f + P.dt * (gamma * g) : f + P.dt * (gamma * g + zeta * g_prev);
+  };
+  auto wrap = [&](int i) { return i < 0 ? i + nx : (i >= nx ? i - nx : i); };
+  // position p of field f (0 u, 1 w, 2 b) of column c in the ring:
+  // level k0 - 3 + p clamped into the column (so a tap at offset o
+  // from lane l's level is position l + 3 + o, clamped as the z ladder
+  // clamps it); slot c & 7 (c > -8)
+  auto at = [&](int c, int f, int p) -> const float& {
+    return cols[(((c + 8) & 7) * 3 + f) * kGColLevels + p];
+  };
+  // this lane's values of column c (wrapped cw) for the ring: its
+  // level and, lanes < 8, positions 0..2 and 35..39
+  struct ColumnValues {
+    float main[3], halo[3];
+  };
+  auto load_column = [&](int cw, int k0) {
+    ColumnValues v;
+    const int p = lane < 3 ? lane : lane + 32;
+    const float* src[3] = {X.u + cw * nz, X.w + cw * nw, X.b + cw * nz};
+    const int len[3] = {nz, nw, nz};
+#pragma unroll
+    for (int f = 0; f < 3; ++f) {
+      v.main[f] = src[f][min(k0 + lane, len[f] - 1)];
+      v.halo[f] = lane < 8 ? src[f][min(max(k0 - 3 + p, 0), len[f] - 1)] : 0.0f;
+    }
+    return v;
+  };
+  auto store_column = [&](int c, const ColumnValues& v) {
+    float* s = cols + ((c + 8) & 7) * 3 * kGColLevels;
+#pragma unroll
+    for (int f = 0; f < 3; ++f) {
+      s[f * kGColLevels + lane + 3] = v.main[f];
+      if (lane < 8) s[f * kGColLevels + (lane < 3 ? lane : lane + 32)] = v.halo[f];
+    }
+  };
+  const int p0 = lane + 3;  // this lane's level's position
+  // x fluxes at this lane's level: u at center c (its faces c-2..c+3);
+  // w, b at face c (their centers c-3..c+2)
+  auto xflux_u = [&](int c) {
+    const float a = at(c, 0, p0), b = at(c + 1, 0, p0);
+    return ub5_upwind(at(c - 2, 0, p0), at(c - 1, 0, p0), a, b, at(c + 2, 0, p0),
+                      at(c + 3, 0, p0), 0.5f * (a + b));
+  };
+  auto xflux_face = [&](int f, int c, float vel) {
+    return ub5_upwind(at(c - 3, f, p0), at(c - 2, f, p0), at(c - 1, f, p0), at(c, f, p0),
+                      at(c + 1, f, p0), at(c + 2, f, p0), vel);
+  };
+  auto xflux_w = [&](int c) {
+    return xflux_face(1, c, 0.5f * (at(c, 0, p0 - 1) + at(c, 0, p0)));
+  };
+  auto xflux_b = [&](int c) { return xflux_face(2, c, at(c, 0, p0)); };
+  // the z flux of w through center k0 - 3 + q of column c (taps at q - 2 .. q + 3)
+  auto zflux_w = [&](int c, int q, int kl) {
+    const float w0 = at(c, 1, q), w1 = at(c, 1, q + 1);
+    return z_upwind(at(c, 1, q - 2), at(c, 1, q - 1), w0, w1, at(c, 1, q + 2),
+                    at(c, 1, q + 3), z_orders(kl + 1, nw), 0.5f * (w0 + w1));
+  };
+  for (int s = warp; s < nstrips; s += kK1Warps) {
+    const int xa = s * xw, n = min(xw, nx - xa);
+    for (int j = lane; j <= n; j += 32) above[j] = 0.0;
+    for (int k0 = (nz - 1) / 32 * 32; k0 >= 0; k0 -= 32) {
+      const int kk = k0 + lane;
+      const ZOrders oc = z_orders(kk, nz);
+      // the ring: columns xa - 3 .. xa + 3 (for step j, i - 3 .. i + 3)
+      __syncwarp();  // the last chunk's ring read by every lane
+      for (int c = xa - 3; c <= xa + 3; ++c) store_column(c, load_column(wrap(c), k0));
+      __syncwarp();
+      double ab = above[0];
+      __syncwarp();
+      float pm = phy_at(at(xa - 1, 2, p0), at(xa - 1, 2, p0 + 1), kk, nz, lane, P,
+                        ab);  // pHY' at i - 1
+      if (lane == 0) above[0] = ab;
+      float fu = xflux_u(xa - 1), fw = xflux_w(xa), fb = xflux_b(xa);
+      float us_prev = 0.0f, ws_prev = 0.0f, wtop_prev = 0.0f;  // column i - 1's
+      for (int j = 0; j < n; ++j) {
+        const int i = xa + j;
+        // column i + 4 for step j + 1, loaded while this step runs
+        const bool ahead = j + 1 < n;
+        ColumnValues next;
+        if (ahead) next = load_column(wrap(i + 4), k0);
+        // the chunk above's: pHY''s sum, the z fluxes of u and b through
+        // face k0 + 32 and w* there
+        ab = above[j + 1];
+        const float zu_top = carry[3 * j], zb_top = carry[3 * j + 1];
+        const float ws_top = carry[3 * j + 2];
+        __syncwarp();
+        const float phy = phy_at(at(i, 2, p0), at(i, 2, p0 + 1), kk, nz, lane, P, ab);
+        // z fluxes through face k of u (velocity w at the x-face) and b,
+        // and through center k of w; each once, the neighbours' by shuffle
+        const float zu = z_upwind(at(i, 0, p0 - 3), at(i, 0, p0 - 2), at(i, 0, p0 - 1),
+                                  at(i, 0, p0), at(i, 0, p0 + 1), at(i, 0, p0 + 2), oc,
+                                  0.5f * (at(i - 1, 1, p0) + at(i, 1, p0)));
+        const float zb = z_upwind(at(i, 2, p0 - 3), at(i, 2, p0 - 2), at(i, 2, p0 - 1),
+                                  at(i, 2, p0), at(i, 2, p0 + 1), at(i, 2, p0 + 2), oc,
+                                  at(i, 1, p0));
+        const float zw = zflux_w(i, p0, kk);
+        const float ru = __shfl_sync(kFull, zu, (lane + 1) & 31);
+        const float rb = __shfl_sync(kFull, zb, (lane + 1) & 31);
+        const float rw = __shfl_sync(kFull, zw, (lane + 31) & 31);
+        const float zu_up = kk + 1 >= nz ? 0.0f : (lane == 31 ? zu_top : ru);
+        const float zb_up = kk + 1 >= nz ? 0.0f : (lane == 31 ? zb_top : rb);
+        float zw_dn = rw;  // lane 0: the chunk below's top, its own (face 0: unused)
+        if (lane == 0) zw_dn = k0 > 0 ? zflux_w(i, 2, k0 - 1) : 0.0f;
+        float us, ws, bs, gu, gw, gb;
+        // ---- gu and u* at (face i, center k) ----
+        {
+          const float f_new = xflux_u(i);
+          float adv = (f_new - fu) * P.idx;
+          fu = f_new;
+          adv += (zu_up - zu) * P.idz;
+          const float dphy = (phy - pm) * P.idx;
+          const float q = at(i, 0, p0);
+          const float qm = kk > 0 ? at(i, 0, p0 - 1) : -q;
+          const float qp = kk < nz - 1 ? at(i, 0, p0 + 1) : -q;
+          const float lap = (at(i + 1, 0, p0) - 2.0f * q + at(i - 1, 0, p0)) * P.idx2 +
+                            (qp - 2.0f * q + qm) * P.idz2;
+          gu = -adv - dphy + P.nu * lap;
+          us = rk(q, gu, stage > 0 && kk < nz ? G.u[i * nz + kk] : 0.0f);
+        }
+        // ---- gw and w* at (center i, face k); face 0 is a wall ----
+        {
+          const float f_new = xflux_w(i + 1);
+          float adv = (f_new - fw) * P.idx;
+          fw = f_new;
+          adv += (zw - zw_dn) * P.idz;
+          const float q = at(i, 1, p0);
+          const float lap = (at(i + 1, 1, p0) - 2.0f * q + at(i - 1, 1, p0)) * P.idx2 +
+                            (at(i, 1, p0 + 1) - 2.0f * q + at(i, 1, p0 - 1)) * P.idz2;
+          gw = kk == 0 ? 0.0f : -adv + P.nu * lap;
+          ws = rk(q, gw, stage > 0 && kk < nz ? G.w[i * nw + kk] : 0.0f);
+        }
+        // ---- gb and b' at (center i, center k) ----
+        {
+          const float f_new = xflux_b(i + 1);
+          float adv = (f_new - fb) * P.idx;
+          fb = f_new;
+          adv += (zb_up - zb) * P.idz;
+          const float q = at(i, 2, p0);
+          const float qm = kk > 0 ? at(i, 2, p0 - 1) : 2.0f * bot[i] - q;
+          const float qp = kk < nz - 1 ? at(i, 2, p0 + 1) : 2.0f * P.min_b - q;
+          const float lap = (at(i + 1, 2, p0) - 2.0f * q + at(i - 1, 2, p0)) * P.idx2 +
+                            (qp - 2.0f * q + qm) * P.idz2;
+          gb = -adv + P.kappa * lap;
+          bs = rk(q, gb, stage > 0 && kk < nz ? G.b[i * nz + kk] : 0.0f);
+        }
+        pm = phy;
+        if (kk < nz) {
+          Y.u[i * nz + kk] = us;
+          Y.w[i * nw + kk] = ws;
+          Y.b[i * nz + kk] = bs;
+          G.u[i * nz + kk] = gu;
+          G.w[i * nw + kk] = gw;
+          G.b[i * nz + kk] = gb;
+        }
+        // ---- div(u*, w*) / dt_stage of column i - 1 (its u*[i] is here) ----
+        const float rs = __shfl_sync(kFull, ws_prev, (lane + 1) & 31);
+        if (j > 0 && kk < nz) {
+          const int im = wrap(i - 1);
+          const float wup = kk + 1 < nz ? (lane == 31 ? wtop_prev : rs) : Y.w[im * nw + nz];
+          s1[im * nz + kk] = ((us - us_prev) * P.idx + (wup - ws_prev) * P.idz) * idts;
+        }
+        us_prev = us, ws_prev = ws, wtop_prev = ws_top;
+        // for the chunk below
+        if (lane == 0) {
+          above[j + 1] = ab;
+          carry[3 * j] = zu, carry[3 * j + 1] = zb, carry[3 * j + 2] = ws;
+        }
+        // column i + 4 into the slot of i - 4, which no step reads again
+        if (ahead) store_column(i + 4, next);
+        __syncwarp();
+      }
+    }
   }
 }
 
 // K1's off-chip instance (see the head of this file), for the grids the
-// on-chip one cannot hold; kGlobalSlabs: its two slabs in per-env global
-// scratch after the rest, where they do not fit a block.
+// on-chip one and the cluster cannot hold; kGlobalSlabs: its two slabs in
+// per-env global scratch, where they and the ring do not fit a block.
 template <int kPasses = 0, bool kGlobalSlabs = false>
-__global__ void __launch_bounds__(kK1Threads)
+__global__ void __launch_bounds__(kK1Threads, 1)
 env_step_2d_global_kernel(const float* __restrict__ u_in, const float* __restrict__ w_in,
                           const float* __restrict__ b_in, const float* __restrict__ bottom_in,
                           const float* __restrict__ fmat, const float* __restrict__ gmat,
                           const float* __restrict__ dct, const float* __restrict__ idct,
                           const float* __restrict__ dinv, float* u_all, float* w_all,
-                          float* b_all, float* p_all, float* scratch, K1Params P,
-                          RBCParams R) {
+                          float* b_all, float* p_all, float* scratch, K1Params P) {
   extern __shared__ float smem[];
   const int nx = P.nx, nz = P.nz, nw = nz + 1;
   const int nc = nx * nz, nf = nx * nw;
   const size_t e = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* u = u_all + e * nc;
-  float* w = w_all + e * nf;
-  float* b = b_all + e * nc;
+  float* s0 = scratch + e * off_chip_scratch_floats(nx, nz, kGlobalSlabs);
+  // the state's two copies: the output tensors and one in scratch, with the
+  // tendencies after it and then (kGlobalSlabs) the slabs
+  const State2D out{u_all + e * nc, w_all + e * nf, b_all + e * nc};
+  const State2D cpy{s0, s0 + nc, s0 + nc + nf};
+  const State2D G{cpy.b + nc, cpy.b + nc + nc, cpy.b + nc + nc + nf};  // gu, gw, gb
+  float* s1 = kGlobalSlabs ? G.b + nc : smem + kGSmemFloats;  // the divergence, then R~
+  float* s2 = s1 + nc;                                         // r_hat, then p_hat
   float* p = p_all + e * nc;
-  const float* bottom = bottom_in + e * nx;
-  float* gu = scratch + e * (size_t)((kGlobalSlabs ? 7 : 5) * nc + 2 * nf);  // env_step_2d_scratch_floats
-  float* gw = gu + nc;
-  float* gb = gw + nf;
-  float* gu0 = gb + nc;  // the previous stage's
-  float* gw0 = gu0 + nc;
-  float* gb0 = gw0 + nf;
-  float* p_hy = gb0 + nc;
-  float* s1 = kGlobalSlabs ? p_hy + nc : smem;  // the divergence, then R~
-  float* s2 = s1 + nc;                          // r_hat, then p_hat
+  const float* bot = bottom_in + e * nx;
+  const bool sh = !kGlobalSlabs;
 
-  for (int q = threadIdx.x; q < nc; q += kK1Threads) {
-    u[q] = u_in[e * nc + q];
-    b[q] = b_in[e * nc + q];
-  }
-  for (int q = threadIdx.x; q < nf; q += kK1Threads) w[q] = w_in[e * nf + q];
+  // w's top wall face, which the stages never write, in both copies
+  for (int i = threadIdx.x; i < nx; i += kK1Threads)
+    out.w[i * nw + nz] = cpy.w[i * nw + nz] = w_in[e * nf + i * nw + nz];
   __syncthreads();
 
-  for (int step = 0; step < P.n_substeps; ++step) {
-    for (int stage = 0; stage < 3; ++stage) {
-      const float gamma = kGamma[stage], zeta = kZeta[stage];
+  auto wrap = [&](int i) { return i < 0 ? i + nx : (i >= nx ? i - nx : i); };
+  // the march's strips: xw columns each (at most kGStrip), so that at most
+  // one strip a warp is short of a full block's share
+  const int xw = min(kGStrip, (nx + kK1Warps - 1) / kK1Warps);
+  const int nstrips = (nx + xw - 1) / xw;
+  const int stages = 3 * P.n_substeps;
+  for (int step = 0, t = 0; step < P.n_substeps; ++step) {
+    for (int stage = 0; stage < 3; ++stage, ++t) {
       const float dts = P.dts[stage], idts = P.idts[stage];
-      auto rk = [&](float f, float g, float g_prev) {
-        return stage == 0 ? f + P.dt * (gamma * g) : f + P.dt * (gamma * g + zeta * g_prev);
+      // this stage reads X and writes Y: the copies alternate so that the
+      // last stage writes the outputs; the first reads the inputs
+      const State2D Y = (stages - 1 - t) % 2 == 0 ? out : cpy;
+      const State2D Z = (stages - 1 - t) % 2 == 0 ? cpy : out;
+      const State2D X = t == 0 ? State2D{const_cast<float*>(u_in) + e * nc,
+                                         const_cast<float*>(w_in) + e * nf,
+                                         const_cast<float*>(b_in) + e * nc}
+                               : Z;
+
+      // ---- 1. the march: pHY', the tendencies, the RK update and the divergence
+      g_march(X, Y, G, s1, bot, P, stage, xw, nstrips);
+      __syncthreads();
+      // ---- 2. the divergence of each strip's last column (its u*[i + 1] the
+      // next strip's warp wrote) ----
+      for (int s = warp; s < nstrips; s += kK1Warps) {
+        const int i = min(s * xw + xw, nx) - 1, ip = wrap(i + 1);
+        for (int k = lane; k < nz; k += 32) {
+          const float div = (Y.u[ip * nz + k] - Y.u[i * nz + k]) * P.idx +
+                            (Y.w[i * nw + k + 1] - Y.w[i * nw + k]) * P.idz;
+          s1[i * nz + k] = div * idts;
+        }
+      }
+      __syncthreads();
+
+      // ---- 3. the solve: four tiled products, slab to slab ----
+      auto product = [&](const GOperand& a, const GOperand& b, int k, float* c, const float* d) {
+        if (kPasses == 0 && nz > 64) {
+          g_product<0, true>(a, b, nx, nz, k, c, nz, d);
+        } else {
+          g_product<kPasses, false>(a, b, nx, nz, k, c, nz, d);
+        }
       };
+      const GOperand rhs = g_operand(s1, nz, sh), rt = g_operand(s2, nz, sh);
+      product(g_operand(fmat, nx, false), rhs, nx, s2, nullptr);  // r_hat = F . rhs
+      product(rt, g_operand(dct, nz, false), nz, s1, dinv);       // (r_hat C^T) * d
+      product(rhs, g_operand(idct, nz, false), nz, s2, nullptr);  // p_hat = R~ S^T
+      product(g_operand(gmat, nx, false), rt, nx, p, nullptr);    // p = G . p_hat
+
+      // ---- 4. correct u*, w* by grad p, a warp a column ----
       for (int i = warp; i < nx; i += kK1Warps) {
-        double above = 0.0;
-        for (int k0 = (nz - 1) / 32 * 32; k0 >= 0; k0 -= 32)
-          phy_levels<1>(b + i * nz, p_hy + i * nz, k0, nz, lane, P, above);
-      }
-      __syncthreads();
-      tendencies_block(u, w, b, p_hy, bottom, gu, gw, gb, R);
-      __syncthreads();
-      for (int q = threadIdx.x; q < nc; q += kK1Threads) {
-        u[q] = rk(u[q], gu[q], gu0[q]);
-        b[q] = rk(b[q], gb[q], gb0[q]);
-        gu0[q] = gu[q];
-        gb0[q] = gb[q];
-      }
-      for (int q = threadIdx.x; q < nf; q += kK1Threads) {
-        w[q] = rk(w[q], gw[q], gw0[q]);
-        gw0[q] = gw[q];
-      }
-      __syncthreads();
-      for (int q = threadIdx.x; q < nc; q += kK1Threads) {
-        const int i = q / nz, k = q - i * nz;
-        const float div = (u[wrap_x(i + 1, nx) * nz + k] - u[q]) * P.idx +
-                          (w[i * nw + k + 1] - w[i * nw + k]) * P.idz;
-        s1[q] = div * idts;
-      }
-      __syncthreads();
-      if constexpr (kPasses == 0) {
-        auto as_is = [](float v, int, int) { return v; };
-        block_product(fmat, s1, nx, nz, nx, s2, as_is);  // r_hat = F . rhs
-        __syncthreads();
-        block_product(s2, dct, nz, nz, nx, s1,  // (r_hat C^T) * d
-                      [&](float v, int m, int j) { return v * __ldg(dinv + m * nz + j); });
-        __syncthreads();
-        block_product(s1, idct, nz, nz, nx, s2, as_is);  // p_hat = R~ S^T
-        __syncthreads();
-        block_product(gmat, s2, nx, nz, nx, p, as_is);  // p = G . p_hat
-        __syncthreads();
-      } else {  // the same products on the tensor cores, every slab plain
-        auto rd = [](const float* a, int ld) {
-          return [=](int r, int c) { return a[r * ld + c]; };
-        };
-        auto wr = [nz](float* a) { return [=](int r, int c, float v) { a[r * nz + c] = v; }; };
-        mma_product<kPasses, true>(nx, nz, nx, rd(fmat, nx), rd(s1, nz), wr(s2));
-        __syncthreads();
-        mma_product<kPasses, true>(nx, nz, nz, rd(s2, nz), rd(dct, nz), [&](int r, int c, float v) {
-          s1[r * nz + c] = v * __ldg(dinv + r * nz + c);
-        });
-        __syncthreads();
-        mma_product<kPasses, true>(nx, nz, nz, rd(s1, nz), rd(idct, nz), wr(s2));
-        __syncthreads();
-        mma_product<kPasses, true>(nx, nz, nx, rd(gmat, nx), rd(s2, nz), wr(p));
-        __syncthreads();
-      }
-      for (int q = threadIdx.x; q < nc; q += kK1Threads) {
-        const int i = q / nz, k = q - i * nz;
-        u[q] -= dts * ((p[q] - p[wrap_x(i - 1, nx) * nz + k]) * P.idx);
-      }
-      for (int q = threadIdx.x; q < nf; q += kK1Threads) {
-        const int i = q / nw, k = q - i * nw;
-        if (k > 0 && k < nz) w[q] -= dts * ((p[i * nz + k] - p[i * nz + k - 1]) * P.idz);
+        const int im = wrap(i - 1);
+        for (int k = lane; k < nz; k += 32) {
+          const float pc = p[i * nz + k];
+          Y.u[i * nz + k] -= dts * ((pc - p[im * nz + k]) * P.idx);
+          if (k > 0) Y.w[i * nw + k] -= dts * ((pc - p[i * nz + k - 1]) * P.idz);
+        }
       }
       __syncthreads();
     }
@@ -2168,10 +2605,8 @@ int launch_env_step_2d(const float* u, const float* w, const float* b,
     cudaError_t err =
         cudaFuncSetAttribute(global, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const RBCParams R{nx, nz, dx, dz, nu, kappa, min_b};
     global<<<n_env, kK1Threads, smem, (cudaStream_t)stream>>>(
-        u, w, b, bottom, fmat, gmat, dct, idct, dinv, u_out, w_out, b_out, p_out, scratch, P,
-        R);
+        u, w, b, bottom, fmat, gmat, dct, idct, dinv, u_out, w_out, b_out, p_out, scratch, P);
     return (int)cudaGetLastError();
   }
   auto* kernel = env_step_kernel_for(nx, nz, passes);

@@ -7,8 +7,8 @@
 //   _z_row_flux/_z_uw_flux        -> z_uw_flux (interior C6/D5 rows, wall
 //     (:204-255)                     rows by the UB5 -> UB3 -> UB1 ladder)
 // and the body of ops/pallas2d.py:_tendencies (:144-184) -> tendency_u,
-// tendency_w, tendency_b (one point each) and tendencies_block (K1's
-// off-chip instance, K2's general instance), and the select form of
+// tendency_w, tendency_b (one point each) and tendencies_block (K2's
+// general instance), and the select form of
 // _upwind_periodic / _z_upwind (:85-168) and stencils._z_order_ladder that
 // the x-march kernels (K1, K2, K3, K5) use -> ub5_upwind, z_orders and the
 // branch-free z_upwind.
@@ -20,20 +20,9 @@
 // The per-point tendencies compute each output point from the input slabs
 // alone (fluxes on both faces of a cell are recomputed rather than staged),
 // so a block walks its points in any order. They are templates over the
-// scalars' type, which says how a difference is scaled by a spacing:
-// RBCParams divides (K1's off-chip instance), K1Params (rbc2d.cu)
-// multiplies by reciprocals taken on the host.
+// scalars' type, which says how a difference is scaled by a spacing
+// (K1Params, rbc2d.cu: by reciprocals taken on the host).
 #pragma once
-
-struct RBCParams {
-  int nx, nz;
-  float dx, dz, nu, kappa, min_b;
-  // a difference over dx or dz, and a second difference over dx^2 or dz^2
-  __device__ __forceinline__ float ddx(float d) const { return d / dx; }
-  __device__ __forceinline__ float ddz(float d) const { return d / dz; }
-  __device__ __forceinline__ float d2x(float d) const { return d / (dx * dx); }
-  __device__ __forceinline__ float d2z(float d) const { return d / (dz * dz); }
-};
 
 __device__ __forceinline__ int wrap_x(int i, int nx) {
   return i < 0 ? i + nx : (i >= nx ? i - nx : i);
@@ -208,8 +197,8 @@ __device__ __forceinline__ float tendency_b(const float* u, const float* w,
   return -adv + P.kappa * (lapx + lapz);
 }
 
-// All three tendency slabs of one env, computed by the calling block (K1's
-// off-chip instance, K2's general instance).
+// All three tendency slabs of one env, computed by the calling block (K2's
+// general instance).
 template <class RP>
 __device__ __forceinline__ void tendencies_block(const float* u, const float* w,
                                                  const float* b, const float* p_hy,

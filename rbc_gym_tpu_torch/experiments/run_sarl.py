@@ -210,8 +210,21 @@ def main(argv=None):
     config = load_config(args)
     os.makedirs(args.output_dir, exist_ok=True)
 
-    # a multi-rank launch (launch_multihost.sh) joins the process group here;
-    # a no-op in one process
+    # a multi-rank launch (launch_multihost.sh) joins the process group here
+    # and ends it on the way out; both no-ops in one process
+    from rbc_gym_tpu_torch.parallel import shutdown_distributed
+
+    done = False
+    try:
+        train(args, config)
+        done = True
+    finally:
+        shutdown_distributed(barrier=done)
+
+
+def train(args, config) -> None:
+    """``main`` after its arguments and config: the group (if any), the
+    trainer, the callbacks and the training run."""
     from rbc_gym_tpu_torch.parallel import initialize_distributed, make_host_env_mesh
 
     mesh, device = None, args.device

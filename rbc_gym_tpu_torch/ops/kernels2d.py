@@ -369,9 +369,10 @@ def env_step_2d_cluster(u, w, b, bottom, spectral, c, dt, n_substeps, precision=
 def env_step_2d_global(u, w, b, bottom, spectral, c, dt, n_substeps, precision=None):
     """K1's off-chip instance with its two solve slabs in per-env global
     scratch: ``env_step_2d`` on a grid where neither the on-chip instance
-    nor a cluster takes it and 8 nx nz bytes exceed a block
-    (``limits.env_step_2d_slabs_on_chip`` false: 256x128, 2048x64); raises
-    ``ValueError`` on any other grid."""
+    nor a cluster takes it and 8 nx nz bytes do not fit a block beside the
+    instance's own shared memory (``limits.env_step_2d_slabs_on_chip``
+    false: 128x224, 256x128, 2048x64); raises ``ValueError`` on any other
+    grid."""
     nx, nz = u.shape[-2:]
     if limits.env_step_2d_slabs_on_chip(nx, nz):
         raise ValueError(f"K1's off-chip instance keeps its slabs on the chip at {nx}x{nz}: "

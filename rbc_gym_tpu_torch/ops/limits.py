@@ -77,14 +77,23 @@ def env_step_2d_cluster_fg(nx: int, nz: int) -> bool:
     return bool(c) and _on_chip_smem_bytes(nx // c, nz) + 8 * (nx // c) * nx <= SMEM_PER_BLOCK
 
 
+# K1's off-chip instance's own shared memory (``kGSmemFloats`` in
+# ``csrc/rbc2d.cu``): its products' ring of two stages, each the larger of
+# its two tiles' (``GTile``: a 256 x 16 chunk of the left operand and a 16 x
+# 128 one of the right in padded rows, 256 x 20 + 16 x 136 floats; the
+# narrow 128 x 36 + 32 x 72), and each warp's carries (84 floats) and ring
+# of eight columns of u, w and b, 40 levels each, of its march (16 warps).
+K1_OFF_CHIP_SMEM_BYTES = 4 * (2 * (256 * 20 + 16 * 136) + 16 * (84 + 8 * 3 * 40))
+
+
 def env_step_2d_slabs_on_chip(nx: int, nz: int) -> bool:
     """Whether K1 keeps its two (nx, nz) slabs in shared memory
     (``env_step_2d_slabs_on_chip`` in ``csrc/rbc2d.cu``): on the chip and on
     a cluster always; the off-chip instance where 8 nx nz bytes fit a block
-    (127x64, 128x224), in per-env global scratch elsewhere (256x128,
-    2048x64)."""
+    beside its own ``K1_OFF_CHIP_SMEM_BYTES`` (nx nz <= 13,408: 127x64), in
+    per-env global scratch elsewhere (128x224, 256x128, 2048x64)."""
     return (env_step_2d_on_chip(nx, nz) or bool(env_step_2d_cluster_size(nx, nz))
-            or 8 * nx * nz <= SMEM_PER_BLOCK)
+            or K1_OFF_CHIP_SMEM_BYTES + 8 * nx * nz <= SMEM_PER_BLOCK)
 
 
 def env_step_2d_smem_bytes(nx: int, nz: int) -> int:
@@ -93,26 +102,26 @@ def env_step_2d_smem_bytes(nx: int, nz: int) -> int:
     slabs, the z analysis and synthesis (nz, nz) and the bottom profile; on
     a cluster of c CTAs the same over nx / c columns a CTA, and the CTA's
     rows of F and G where they fit (``env_step_2d_cluster_fg``); off both
-    the two slabs alone where they fit (``env_step_2d_slabs_on_chip``),
-    else none."""
+    ``K1_OFF_CHIP_SMEM_BYTES`` and the two slabs where they fit
+    (``env_step_2d_slabs_on_chip``)."""
     if env_step_2d_on_chip(nx, nz):
         return _on_chip_smem_bytes(nx, nz)
     c = env_step_2d_cluster_size(nx, nz)
     if not c:
-        return 8 * nx * nz if env_step_2d_slabs_on_chip(nx, nz) else 0
+        return K1_OFF_CHIP_SMEM_BYTES + (8 * nx * nz if env_step_2d_slabs_on_chip(nx, nz) else 0)
     return _on_chip_smem_bytes(nx // c, nz) + (8 * (nx // c) * nx
                                                if env_step_2d_cluster_fg(nx, nz) else 0)
 
 
 def env_step_2d_scratch_floats(nx: int, nz: int) -> int:
     """K1's global scratch per env (``env_step_2d_scratch_floats``): none on
-    the chip or a cluster; off both gu, gw, gb of this stage and the
-    previous one, and pHY', then the two slabs where they do not fit a
-    block."""
+    the chip or a cluster; off both a second copy of u, w, b and the
+    tendencies gu, gw, gb, then the two slabs where they are not in shared
+    memory."""
     if env_step_2d_on_chip(nx, nz) or env_step_2d_cluster_size(nx, nz):
         return 0
     slabs = 0 if env_step_2d_slabs_on_chip(nx, nz) else 2 * nx * nz
-    return 5 * nx * nz + 2 * nx * (nz + 1) + slabs
+    return 4 * nx * nz + 2 * nx * (nz + 1) + slabs
 
 
 MAX_INT32 = 2**31 - 1

@@ -12,6 +12,7 @@ from rbc_gym_tpu_torch.parallel.mesh import (
 )
 from rbc_gym_tpu_torch.parallel.distributed import (
     initialize_distributed,
+    shutdown_distributed,
     make_host_env_mesh,
     shard_ppo_trainer,
     host_local_slice,
@@ -23,6 +24,7 @@ __all__ = [
     "replicate",
     "shard_vector_env",
     "initialize_distributed",
+    "shutdown_distributed",
     "make_host_env_mesh",
     "shard_ppo_trainer",
     "host_local_slice",

@@ -101,6 +101,24 @@ def initialize_distributed(init_method: Optional[str] = None,
     return True
 
 
+def shutdown_distributed(barrier: bool = True) -> None:
+    """End the process group that ``initialize_distributed`` joined; a
+    no-op where there is none. With ``barrier`` every rank first meets the
+    others, so that no rank tears its group down while another still talks
+    to it; a rank that is leaving on an error passes False, since the others
+    may never reach the barrier. A rank that exits with its group alive can
+    abort as the interpreter ends ("terminate called without an active
+    exception": the group's threads are still running), so every entry
+    point that joins a group ends it here, in a ``finally``."""
+    if not dist.is_initialized():
+        return
+    try:
+        if barrier:
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
 def host_shape() -> Tuple[int, int]:
     """(hosts, ranks a host) of the process group: ``LOCAL_WORLD_SIZE``
     ranks a host (torchrun's), all of them on one host without it."""

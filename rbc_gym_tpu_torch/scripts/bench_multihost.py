@@ -46,13 +46,22 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    from rbc_gym_tpu_torch.parallel import (
-        initialize_distributed,
-        make_host_env_mesh,
-        shard_vector_env,
-    )
+    from rbc_gym_tpu_torch.parallel import initialize_distributed, shutdown_distributed
 
     distributed = initialize_distributed(backend=args.backend, device=args.device)
+    done = False
+    try:
+        record = run(args, distributed)
+        done = True
+    finally:
+        shutdown_distributed(barrier=done)
+    return record
+
+
+def run(args, distributed: bool) -> dict:
+    """The timed steps of ``main`` on this rank's shard; rank 0's record."""
+    from rbc_gym_tpu_torch.parallel import make_host_env_mesh, shard_vector_env
+
     mesh = make_host_env_mesh(device=args.device)
     device = mesh.device
     num_envs = args.num_envs_per_process * mesh.size
@@ -106,8 +115,6 @@ def main(argv=None) -> dict:
         if args.out:
             with open(args.out, "w") as f:
                 json.dump(record, f)
-    if distributed:
-        torch.distributed.destroy_process_group()
     return record
 
 

@@ -2,8 +2,8 @@
 """Time the stage kernels of several source trees on one CUDA card.
 
     python3 scripts/kernel_variants.py
-        [--kernels k1,k1c,k1o,k1t,k1t_times,k2,k3,k3qp,k5_training,k5,k5z,k5z_times,k6,k7,
-                   field_step]
+        [--kernels k1,k1c,k1o,k1g,k1g_times,k1t,k1t_times,k2,k3,k3qp,k5_training,k5,k5z,
+                   k5z_times,k6,k7,field_step]
         TREE [TREE ...]
 
 Each TREE is a checkout of this repo (for example a ``git archive`` of a
@@ -34,6 +34,20 @@ gates:
   envs on 127x64, one env step of 50 substeps, float32 and "high", with
   float32 K1 on 96x64 timed first and last; its gates at 6 substeps and
   128 envs;
+- ``k1g``: K1's off-chip instance, one env step of 6 substeps, float32
+  at 1024 envs on 256x128 (dt_solver 0.005, its slabs in global scratch)
+  and on 127x64 (its slabs in shared memory) and at 64 envs on 512x256
+  (dt_solver 0.0015), "high" and "default" on 256x128, with float32 K1 on
+  96x64 timed first and last, the occupancy of each grid's instance; and
+  the split of the float32 times: the same instance built three times
+  more from the tree's ``csrc/rbc2d.cu`` cut for timing only
+  (``ablate_k1g``; outputs wrong, never gated), without the solve's four
+  products, without the march (pHY', the tendencies and the RK update),
+  and without both (what is left: the divergence, the correction and the
+  barriers); on the fused-march design also without parts of the march:
+  pHY', the z fluxes, the x fluxes, the previous stage's tendencies. Its gates at 6
+  substeps and 8 envs on 256x128 (float32, "high", "default") and 127x64;
+  ``k1g_times`` the same without the cuts;
 - ``k1t``: K1's TF32 instances at 96x64 ("high": 3 passes, "default": 1)
   at 1024 envs, one env step of 50 substeps, with float32 K1 timed first
   and last, and the split of each instance's time: the same instances
@@ -91,6 +105,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -299,6 +314,87 @@ def k5z(cuts=True):
     return rec, errs
 
 
+K1G_CUTS = ("noproducts", "nomarch", "noproducts_nomarch", "nophy", "noz", "nox", "nog")
+K1G_DIR = "rbc_gym_tpu_torch/_build/k1g"
+# k1g's grids, each one env step of 6 substeps: (name, (nz, nx), envs,
+# dt_solver): 256x128 and 512x256 take the off-chip instance with its slabs
+# in global scratch, 127x64 the one with its slabs in shared memory
+K1G_GRIDS = (("256x128", (128, 256), 1024, 0.005), ("127x64", (64, 127), 1024, 0.03),
+             ("512x256", (256, 512), 64, 0.0015))
+
+
+def k1g(cuts=True):
+    # K1's off-chip instance on K1G_GRIDS, float32 (and on 256x128 "high" and
+    # "default"), float32 K1 on 96x64 timed first and last, and with cuts the
+    # same float32 launches from the ablated libraries main() built beside the
+    # tree's own
+    import ctypes
+    from rbc_gym_tpu_torch.ops import _build, kernels2d as k2d
+
+    def case(shape, n_env, dt, seed=2):
+        return cs.make_case(device, n_env, shape, 6 * dt, seed=seed, dt_solver=dt)
+
+    def times(prec=None, grids=K1G_GRIDS):
+        out = {}
+        for name, shape, n_env, dt in grids:
+            solver, c = case(shape, n_env, dt)
+            assert solver.params.substeps_per_env_step == 6
+            out[name] = cs._cuda_ms(lambda: cs.k1_run(solver, c, True, prec), 3)
+            del c
+            torch.cuda.empty_cache()
+        return out
+
+    def k1_96x64():
+        solver, c = cs.make_case(device, 1024, (64, 96), 1.5, seed=2)
+        return cs._cuda_ms(lambda: cs.k1_run(solver, c, True), 3)
+
+    rec = {"k1_96x64_first_ms": k1_96x64(), "ms": times()}
+    for name, shape, n_env, dt in K1G_GRIDS:
+        nz, nx = shape
+        bound_ms, by = cs.bound(cs.env_step_work(n_env, nx, nz, 6))
+        rec[name] = {"envs": n_env, "dt_solver": dt, "bound_ms": bound_ms, "bound_by": by,
+                     "share_of_bound": bound_ms / rec["ms"][name],
+                     "occupancy": k2d.env_step_2d_occupancy(nx, nz)}
+    for prec in ("high", "default"):
+        rec[f"ms_{prec}"] = times(prec, K1G_GRIDS[:1])
+    real = _build.load_library
+    for what in K1G_CUTS if cuts else ():
+        if not os.path.exists(f"{K1G_DIR}/{what}/lib.so"):  # a cut the tree's design has not
+            continue
+        lib = ctypes.CDLL(f"{K1G_DIR}/{what}/lib.so")
+        for fn_name, argtypes in _build.ARGTYPES.items():
+            if hasattr(lib, fn_name):
+                getattr(lib, fn_name).argtypes = argtypes
+                getattr(lib, fn_name).restype = ctypes.c_int
+        _build.load_library = lambda lib=lib: lib
+        try:
+            rec[f"{what}_ms"] = times()
+        finally:
+            _build.load_library = real
+    if cuts and all(f"{w}_ms" in rec for w in K1G_CUTS):
+        rec["split_ms"] = {}
+        for name, *_ in K1G_GRIDS:
+            whole = rec["ms"][name]
+            products = whole - rec["noproducts_ms"][name]
+            march = whole - rec["nomarch_ms"][name]
+            rec["split_ms"][name] = {"products": products, "march": march,
+                                     "rest": rec["noproducts_nomarch_ms"][name]}
+    rec["ms_last"] = times()
+    rec["k1_96x64_last_ms"] = k1_96x64()
+    errs = {}
+    for name, shape, _, dt in K1G_GRIDS[:2]:
+        s6, c6 = case(shape, 8, dt, seed=4)
+        errs[f"{name}_6"] = (max(cs.abs_diffs(cs.K1_OUT, cs.k1_run(s6, c6, True),
+                                              cs.k1_run(s6, c6, False)).values()), cs.K1_ATOL)
+        if name == "256x128":
+            errs[f"{name}_6_bf16x3"] = (max(cs.abs_diffs(
+                cs.K1_OUT, cs.k1_run(s6, c6, True, "high"),
+                cs.k1_run(s6, c6, False, "high")).values()), cs.K1_ATOL)
+            one = cs.k1_tf32_errors(s6, c6, cs.k1_run(s6, c6, True, "default"))
+            errs[f"{name}_6_default"] = (one["kernel"], one["bound"])
+    return rec, errs
+
+
 def k2():
     rec = {}
     for shape in ((64, 96), (64, 128), (80, 96)):
@@ -455,6 +551,8 @@ RUNS = {
     "k1o": k1o,
     "k1t": k1t,
     "k1t_times": lambda: k1t(cuts=False),
+    "k1g": k1g,
+    "k1g_times": lambda: k1g(cuts=False),
     "k2": k2,
     "k3": lambda: stage(k3d.stage_rk_3d, (16, 32, 32), 0.01, 32, 20),
     "k3qp": k3qp,
@@ -510,6 +608,98 @@ def ablate_k1(src: str, what: str) -> str:
     a = find("// ---- 4. the solve on the tensor cores", head)
     b = find("// ---- 5. correct", a)
     return "\n".join([line for line in lines[:a + 1] if "stage_fg(" not in line] + lines[b:])
+
+
+# K1's off-chip instance's timing-only cuts of ``k1g`` (MEASURE's K1G_CUTS and K1G_DIR)
+K1G_CUTS = ("noproducts", "nomarch", "noproducts_nomarch", "nophy", "noz", "nox", "nog")
+K1G_DIR = Path("rbc_gym_tpu_torch") / "_build" / "k1g"
+
+
+def _block_end(lines: list, start: int) -> int:
+    """The line that closes the brace block opened on line ``start`` (an
+    ``else`` chain's braces included)."""
+    depth = 0
+    for j in range(start, len(lines)):
+        depth += lines[j].count("{") - lines[j].count("}")
+        if depth == 0:
+            return j
+    raise ValueError(f"the block on line {start} is not closed")
+
+
+# ablate_k1g's cuts of parts of the fused march: (pattern, replacement) pairs
+# over the off-chip instance's text
+MARCH_CUTS = {
+    "nophy": ((r"float pm = phy_at\([^;]*;", "float pm = 0.0f;"),
+              (r"const float phy = phy_at\([^;]*;", "const float phy = 0.0f;")),
+    "noz": ((r"const float zu = z_upwind\([^;]*;", "const float zu = 0.0f;"),
+            (r"const float zb = z_upwind\([^;]*;", "const float zb = 0.0f;"),
+            (r"const float zw = zflux_w\([^;]*;", "const float zw = 0.0f;"),
+            (r"if \(lane == 0\) zw_dn = [^;]*;", "")),
+    "nox": ((r"float fu = xflux_u\([^;]*;", "float fu = 0.0f, fw = 0.0f, fb = 0.0f;"),
+            (r"const float f_new = xflux_[uwb]\([^;]*;", "const float f_new = 0.0f;")),
+    "nog": ((r"stage > 0 && kk < nz \? G\.[uwb]\[[^]]*\] : 0\.0f", "0.0f"),
+            (r"\n *G\.[uwb]\[i \* n[zw] \+ kk\] = g[uwb];", "")),
+}
+
+
+def ablate_k1g(src: str, what: str) -> str:
+    """``csrc/rbc2d.cu`` with a part of K1's off-chip instance
+    (``env_step_2d_global_kernel``) cut, for timing only; "_" joins cuts,
+    and a design the cuts do not know raises ``ValueError``. "noproducts"
+    drops the solve's four products, "nomarch" pHY', the tendencies and the
+    RK update (and in the fused-march design the divergence it fuses). The
+    first design: each phase its loops between barriers, found by their
+    text. The fused-march design: the march is the call or block after its
+    "// ---- 1. the march" comment, the products the lines from "// ---- 3.
+    the solve" to "// ---- 4. correct"; and parts of its march, each found
+    by its text: "nophy" pHY'
+    as 0 (no scan), "noz" the z fluxes as 0, "nox" the x fluxes as 0, "nog"
+    the previous stage's tendencies neither read nor stored."""
+    lines = src.split("\n")
+    head = next(i for i, line in enumerate(lines)
+                if "env_step_2d_global_kernel(const float*" in line)
+
+    def find(text, start):
+        i = next((i for i in range(start, len(lines)) if text in lines[i]), None)
+        if i is None:
+            raise ValueError(f"no {text!r} in the off-chip instance")
+        return i
+
+    new_design = any("// ---- 1. the march" in line for line in lines[head:])
+    for cut in what.split("_"):
+        if cut == "nomarch" and new_design:
+            m = find("// ---- 1. the march", head)
+            b = next(j for j in range(m, len(lines)) if not lines[j].strip().startswith("//"))
+            if lines[b].strip().startswith("g_march("):  # the march a function of its own
+                lines = lines[:b] + lines[b + 1:]
+            elif lines[b].strip() == "{":
+                lines = lines[:b] + ["      {}"] + lines[_block_end(lines, b) + 1:]
+            else:
+                raise ValueError("the march is neither a block nor a call")
+        elif cut == "nomarch":
+            a = find("for (int i = warp; i < nx; i += kK1Warps) {", head)
+            d = find("const float div = (u[wrap_x(i + 1, nx) * nz + k] - u[q]) * P.idx +", a)
+            lines = lines[:a] + lines[d - 2:]  # from the divergence loop on
+        elif cut in MARCH_CUTS and new_design:
+            start = next((i for i, line in enumerate(lines) if "void g_march(" in line), head)
+            end = find("env_step_global_kernel_for(int passes", head)
+            body = "\n".join(lines[start:end])
+            for old, rep in MARCH_CUTS[cut]:
+                if not re.search(old, body):
+                    raise ValueError(f"{cut}: no {old!r} in the off-chip instance")
+                body = re.sub(old, rep, body)
+            lines = lines[:start] + body.split("\n") + lines[end:]
+        elif cut == "noproducts" and new_design:
+            a = find("// ---- 3. the solve", head)
+            lines = lines[:a + 1] + lines[find("// ---- 4. correct", a):]
+        elif cut == "noproducts":
+            a = find("if constexpr (kPasses == 0) {", head)
+            if "auto as_is" not in lines[a + 1]:
+                raise ValueError("the products are not where the first design put them")
+            lines = lines[:a] + lines[_block_end(lines, a) + 1:]
+        else:
+            raise ValueError(f"unknown cut {cut}")
+    return "\n".join(lines)
 
 
 # K5's z split's timing-only cuts of ``k5z`` (MEASURE's K5Z_CUTS and K5Z_DIR)
@@ -568,11 +758,13 @@ def build_ablations(tree: Path, nvcc: str, kernels: str) -> list:
     """Start one nvcc a cut: for ``k1t`` each of ``ABLATIONS``
     (``K1T_DIR/<what>/lib.so`` from the tree's own ``csrc/rbc2d.cu``), for
     ``k5z`` each of ``K5Z_CUTS`` (``K5Z_DIR/<what>/lib.so`` from its
-    ``csrc/rbc3d.cu``), each with the tree's headers."""
+    ``csrc/rbc3d.cu``), for ``k1g`` each of ``K1G_CUTS`` (``K1G_DIR``, from
+    its ``csrc/rbc2d.cu``), each with the tree's headers."""
     csrc = tree / "rbc_gym_tpu_torch" / "csrc"
     names = kernels.split(",")
     cuts = [(K1T_DIR, what, "rbc2d.cu", ablate_k1) for what in ABLATIONS if "k1t" in names]
     cuts += [(K5Z_DIR, what, "rbc3d.cu", ablate_k5z) for what in K5Z_CUTS if "k5z" in names]
+    cuts += [(K1G_DIR, what, "rbc2d.cu", ablate_k1g) for what in K1G_CUTS if "k1g" in names]
     procs = []
     for base, what, source, ablate in cuts:
         try:

@@ -16,6 +16,7 @@ from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
     (1, 200, 20),  # nx > 128, a part-filled chunk
     (1, 3, 8),  # the fewest columns the x stencils take
     (1, 16, 1),  # one level
+    (1, 150, 33),  # ragged: two row tiles of the products, the second 22 rows; strips of 10
 ])
 def test_host_build_of_k1_matches_plain(host_binary, tmp_path, n_env, nx, nz):
     """K1 after 6 substeps (heater_duration 0.18) against
@@ -26,8 +27,9 @@ def test_host_build_of_k1_matches_plain(host_binary, tmp_path, n_env, nx, nz):
 
 
 def test_host_build_of_k1_off_the_chip_on_a_tall_grid(host_binary, tmp_path):
-    """The off-chip instance at 128x224 (its two slabs 229,376 bytes, seven
-    chunks of 32 levels in pHY'), 6 substeps at a dt_solver that keeps the
-    explicit diffusion stable at dz = 2 / 224."""
-    check_k1(host_binary, tmp_path, 1, 128, 224, 0.012, 0.002, force_global=True,
-             instance="global 1")
+    """The off-chip instance at 128x224 as the launcher runs it (its two
+    slabs, 229,376 bytes, and its products' ring do not fit a block, so they
+    are in global scratch; seven chunks of 32 levels in the march), 6
+    substeps at a dt_solver that keeps the explicit diffusion stable at dz =
+    2 / 224."""
+    check_k1(host_binary, tmp_path, 1, 128, 224, 0.012, 0.002, instance="global_slabs 1")

@@ -1,5 +1,6 @@
 """K1's off-chip instance with its two solve slabs in per-env global
-scratch (the grids whose slabs, 8 nx nz bytes, exceed a block: 256x128,
+scratch (the grids whose slabs, 8 nx nz bytes, do not fit a block beside
+the instance's products' ring and march carries: 128x224, 256x128,
 512x256, 2048x64), forced here onto small grids, compiled for the host and
 held against the plain version on the CPU (``torch_kernels2d_host``)."""
 
@@ -16,6 +17,10 @@ from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 @pytest.mark.parametrize("n_env,nx,nz", [
     (2, 20, 80),  # three chunks of 32 levels in pHY'; the slabs of two envs side by side
     (1, 3, 8),  # the fewest columns the x stencils take
+    # ragged: nx, nz no multiple of the products' 128 x 64 tile, their
+    # 32-deep chunk or 4 (every copy 4 bytes), the march's last strip of
+    # 37 columns in strips of 3 one column, its top chunk of 70 levels 6
+    (2, 37, 70),
 ])
 def test_host_build_of_k1_with_global_slabs_matches_plain(host_binary, tmp_path, n_env, nx, nz):
     """Float32 K1 after 6 substeps (heater_duration 0.18) against
@@ -42,7 +47,8 @@ def test_slab_residency_matches_the_launcher(host_binary, nx, nz):
     """``limits.env_step_2d_slabs_on_chip``, ``env_step_2d_smem_bytes``,
     ``env_step_2d_scratch_floats`` and ``env_step_2d_offsets_fit`` are the
     launcher's own; the launcher without a force picks global slabs exactly
-    where the off-chip slabs exceed a block."""
+    where the off-chip slabs, beside the instance's own shared memory (its
+    products' ring and its march's carries), exceed a block."""
     out = subprocess.run([str(host_binary), "smem", str(nx), str(nz)], check=True,
                          capture_output=True, text=True).stdout.split()
     assert 4 * int(out[0]) == limits.env_step_2d_smem_bytes(nx, nz)
@@ -50,4 +56,5 @@ def test_slab_residency_matches_the_launcher(host_binary, nx, nz):
     assert bool(int(out[8])) == limits.env_step_2d_slabs_on_chip(nx, nz)
     assert bool(int(out[9])) == limits.env_step_2d_offsets_fit(nx, nz)
     off_chip = not (limits.env_step_2d_on_chip(nx, nz) or limits.env_step_2d_cluster_size(nx, nz))
-    assert limits.env_step_2d_slabs_on_chip(nx, nz) == (not off_chip or 8 * nx * nz <= 232_448)
+    assert limits.env_step_2d_slabs_on_chip(nx, nz) == (
+        not off_chip or limits.K1_OFF_CHIP_SMEM_BYTES + 8 * nx * nz <= 232_448)

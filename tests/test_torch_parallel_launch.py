@@ -6,6 +6,9 @@ on a free local port and two gloo ranks:
   harness, end to end at 16 envs a process and 3 steps, with the JAX
   harness's records and efficiency arithmetic
   (``tests/test_bench_multihost.py``);
+* two ranks of ``tests/torch_parallel_worker.py`` (part ``groups``)
+  launched several times in a row, each rank joining its group, one
+  all-reduce, and ending it before it exits;
 * ``rbc_gym_tpu_torch/scripts/launch_multihost.sh`` running ``run_sarl``
   at a tiny 3D config: rank 0 alone writes the outputs (one metrics record
   an iteration, the models, the full state in the one-process layout), and
@@ -13,9 +16,14 @@ on a free local port and two gloo ranks:
   the record sets them beside one process's own repeat).
 """
 
+import json
+import sys
+
 import pytest
 
 import chip_smoke
+import torch_parallel_worker as worker
+from rbc_gym_tpu_torch.parallel.launch import run_ranks
 from torch_smoke_common import one_thread_a_module  # noqa: F401 (autouse)
 
 ASSETS = chip_smoke.ASSETS
@@ -58,3 +66,20 @@ def test_launcher_trains_over_two_ranks_and_rank_0_writes(one_rank_thread):
     assert out["one_process_repeat_params_max_abs_diff"] == 0.0
     assert out["params_max_abs_diff"] <= chip_smoke.MULTI_RANK_PARAMS_ATOL
     assert out["n_updates"] == [2.0, 2.0]  # 2 minibatches of 4, one epoch
+
+
+def test_ranks_end_their_group_before_they_exit(one_rank_thread, tmp_path):
+    """A rank that exits with its process group alive can abort as the
+    interpreter ends ("terminate called without an active exception",
+    exit -6, in a few launches of a hundred under load). Each rank of the
+    worker ends its group (``parallel.shutdown_distributed``: a barrier,
+    then ``destroy_process_group``), so every launch of several in a row
+    exits 0 on both ranks, with no such abort in their output."""
+    for launch in range(4):
+        out = tmp_path / str(launch)
+        out.mkdir()
+        logs = run_ranks([sys.executable, worker.__file__, str(out), "groups"], 2, timeout=120)
+        assert not any("terminate called" in log for log in logs), logs
+        for rank in range(2):
+            rec = json.loads((out / f"groups_rank{rank}.json").read_text())
+            assert rec == {"rank": rank, "size": 2, "sum": [2.0, 2.0]}

@@ -221,10 +221,10 @@ def test_2d_auto_selection(dtype, nx, nz, device_type, want):
 def test_2d_kernel_instance(nx, nz, on_chip):
     """Which instance of K1 takes a grid: on the chip within its lane map
     and shared memory; else a thread-block cluster where 2, 4 or 8 CTAs of
-    the on-chip layout take nx (``CLUSTERS``); off the chip (the two slabs
-    alone in shared memory, the rest in global scratch) elsewhere, its
-    slabs in global scratch too where they do not fit a block
-    (``GLOBAL_SLABS``)."""
+    the on-chip layout take nx (``CLUSTERS``); off the chip (its products'
+    ring, its march's carries and the two slabs in shared memory, the rest
+    in global scratch) elsewhere, its slabs in global scratch too where they
+    do not fit a block beside the rest (``GLOBAL_SLABS``)."""
     assert limits.env_step_2d_on_chip(nx, nz) == on_chip
     c = limits.env_step_2d_cluster_size(nx, nz)
     assert c == CLUSTERS.get((nx, nz), 0)
@@ -232,15 +232,15 @@ def test_2d_kernel_instance(nx, nz, on_chip):
     assert limits.env_step_2d_slabs_on_chip(nx, nz) == (not global_slabs)
     assert limits.env_step_2d_scratch_floats(nx, nz) == (
         0 if on_chip or c else
-        (7 if global_slabs else 5) * nx * nz + 2 * nx * (nz + 1))
+        (6 if global_slabs else 4) * nx * nz + 2 * nx * (nz + 1))
     if global_slabs:
-        assert limits.env_step_2d_smem_bytes(nx, nz) == 0
+        assert limits.env_step_2d_smem_bytes(nx, nz) == limits.K1_OFF_CHIP_SMEM_BYTES
     assert limits.env_step_2d_smem_bytes(nx, nz) <= limits.SMEM_PER_BLOCK
 
 
 # the grids of test_2d_kernel_instance whose off-chip slabs, 8 nx nz bytes,
-# do not fit a block
-GLOBAL_SLABS = {(256, 128), (2048, 64)}
+# do not fit a block beside the off-chip instance's own shared memory
+GLOBAL_SLABS = {(256, 128), (2048, 64), (128, 224)}
 
 
 # the grids of test_2d_kernel_instance that K1's cluster instance takes, and
@@ -333,7 +333,9 @@ def test_2d_forced_selection():
     assert limits.env_step_2d_smem_bytes(96, 64) == 230_528
     # a CTA of two: 64 columns and its rows of F and G
     assert limits.env_step_2d_smem_bytes(128, 64) == 230_144
-    assert limits.env_step_2d_smem_bytes(128, 224) == 229_376  # off the chip: 8 nx nz
+    # off the chip: its ring and carries, the slabs (229,376 bytes) in global scratch
+    assert limits.env_step_2d_smem_bytes(128, 224) == 125_184
+    assert limits.env_step_2d_smem_bytes(127, 64) == 125_184 + 8 * 127 * 64  # and the slabs
 
 
 def test_solver2d_exposes_its_path_and_runs_it():

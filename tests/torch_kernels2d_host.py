@@ -155,7 +155,6 @@ int main(int argc, char** argv) {
   std::vector<float> out[4] = {std::vector<float>(C), std::vector<float>(F),
                                std::vector<float>(C), std::vector<float>(C)};
   const K1Params P = k1_params(nx, nz, nsub, dt, dx, dz, nu, kappa, min_b);
-  const RBCParams R{nx, nz, dx, dz, nu, kappa, min_b};
   // as launch_env_step_2d, unless "global" forces the off-chip instance
   // ("global_slabs": with its slabs in global scratch)
   const int passes = argc > 13 ? atoi(argv[13]) : 0;
@@ -185,12 +184,16 @@ int main(int argc, char** argv) {
   } else {
     const bool slabs = force == "global" || (force.empty() && env_step_2d_slabs_on_chip(nx, nz));
     auto* global = env_step_global_kernel_for(passes, slabs);
-    std::vector<float> scratch(
-        E * ((slabs ? 5 : 7) * (size_t)nx * nz + 2 * (size_t)nx * (nz + 1)), NAN);
+    std::vector<float> scratch(E * off_chip_scratch_floats(nx, nz, !slabs), NAN);
+    std::fill(out[0].begin(), out[0].end(), NAN);  // the outputs are scratch until the end
+    std::fill(out[1].begin(), out[1].end(), NAN);
+    std::fill(out[2].begin(), out[2].end(), NAN);
+    std::fill(out[3].begin(), out[3].end(), NAN);
+    if (kGSmemFloats + (slabs ? 2 * (size_t)nx * nz : 0) > sizeof(smem) / sizeof(float)) exit(3);
     run_blocks(E, [&] {
       global(u.data(), w.data(), b.data(), bottom.data(), f.data(), g.data(), dct.data(),
              idct.data(), dinv.data(), out[0].data(), out[1].data(), out[2].data(),
-             out[3].data(), scratch.data(), P, R);
+             out[3].data(), scratch.data(), P);
     });
   }
   wr("u_out", out[0]); wr("w_out", out[1]); wr("b_out", out[2]); wr("p_out", out[3]);

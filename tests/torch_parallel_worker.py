@@ -14,7 +14,12 @@ rank's own records) for the parent test to compare with one process:
 * ``ppo``: one PPO iteration of the tiny 2D trainer (``ppo_trainer``) in
   four runs: plain (writing a full checkpoint), with a ``target_kl`` that
   stops mid-epoch, with minibatches of one sample (a rank holds none of
-  most), and resumed from the one-process checkpoint ``OUT_DIR/ckpt_1p``.
+  most), and resumed from the one-process checkpoint ``OUT_DIR/ckpt_1p``;
+* ``groups``: one all-reduce, each rank's record of it in
+  ``OUT_DIR/groups_rank<r>.json``.
+
+Every part ends its rank's group (``parallel.shutdown_distributed``) before
+the process exits.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from rbc_gym_tpu_torch.parallel import (  # noqa: E402
     shard_batch,
     shard_ppo_trainer,
     shard_vector_env,
+    shutdown_distributed,
 )
 from rbc_gym_tpu_torch.rl import (  # noqa: E402
     CheckpointCallback,
@@ -154,12 +160,24 @@ def part_ppo(mesh, out: str) -> None:
         json.dump(records, f)
 
 
+def part_groups(mesh, out: str) -> None:
+    """One all-reduce over the group, and this rank's record of it."""
+    total = mesh.all_reduce_(torch.ones(2, dtype=torch.float64))
+    with open(os.path.join(out, f"groups_rank{mesh.rank}.json"), "w") as f:
+        json.dump({"rank": mesh.rank, "size": mesh.size, "sum": total.tolist()}, f)
+
+
 def main(out: str, part: str) -> None:
     torch.set_num_threads(1)
     if not initialize_distributed(device="cpu", timeout=120):
         raise RuntimeError("initialize_distributed returned False in a multi-rank launch")
-    mesh = make_env_mesh(device="cpu")
-    {"env": part_env, "ppo": part_ppo}[part](mesh, out)
+    done = False
+    try:
+        mesh = make_env_mesh(device="cpu")
+        {"env": part_env, "ppo": part_ppo, "groups": part_groups}[part](mesh, out)
+        done = True
+    finally:
+        shutdown_distributed(barrier=done)
 
 
 if __name__ == "__main__":
