@@ -235,9 +235,12 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      products; "default" against the plain version in
                      float64, within twice the float32 plain version's own
                      error at "default" or K1's gate), beside float32 K1
-                     and a float64 run; the runtime, cluster (128x64) and
-                     off-chip (127x64) instances at "bf16x3" at 8 envs, the
-                     one-pass cluster instance against float64 there; one env step of RBC2DVectorEnv
+                     and a float64 run; at 8 envs the instances on wgmma
+                     off 96x64 (128x32, 64x64 on the chip; 128x64, 192x64
+                     on a cluster), the runtime-size one (96x32 on swizzled
+                     slabs, 128x40) and the off-chip one (127x64) at
+                     "bf16x3", and the one-pass ones but the off-chip one
+                     against float64; one env step of RBC2DVectorEnv
                      at each name (the instance 1 launch, float32 K1 none;
                      finite, Nu in range, max|div| under 1e-4, at "default"
                      under twice the plain path's own at "default", which
@@ -246,11 +249,16 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      "bf16x3"; the Ra=1e4 bank's fixed point through the
                      split instance (Nu 4.000 +- 0.02, 20 launches); both
                      TF32 flags off; each instance's ms beside float32 K1
-                     (timed first and last), plain ms, bound and share
+                     (timed first and last), plain ms, bound and share; at
+                     1024 envs, one env step of 50 substeps, each precision
+                     on 128x64, 192x64, 128x32 and 64x64 (ms, plain ms,
+                     bound, share, occupancy)
 40. main_path_cluster RBC2DVectorEnv(num_envs=1024) on 128x64, the grid of
                      K1's cluster instance (two CTAs of 64 columns): reset,
                      3 steps with random actions; the 2D checks, the cluster
-                     instance 3 launches and the other K1 instances none
+                     instance 3 launches and the other K1 instances none;
+                     one step at poisson_precision "bf16x3" (the cluster's
+                     solve on wgmma: 1 cluster launch, no other K1)
 41. fine_grids       the grids where the JAX package runs its kernels and the
                      port used to raise: K5's z split (four CTAs of 32 levels
                      a block at nz = 112 and 128) at each stage against the
@@ -319,6 +327,7 @@ from rbc_gym_tpu_torch.ops import registry
 from rbc_gym_tpu_torch.ops.limits import (
     env_step_2d_cluster_size,
     env_step_2d_on_chip,
+    env_step_2d_wgmma,
     env_step_2d_slabs_on_chip,
     field_tendency_on_march,
     stage_xy_split_size,
@@ -878,10 +887,25 @@ def main_path_cluster(device, num_envs=1024, state_shape=CLUSTER_SHAPE,
                                        "env_step_2d_cluster": steps})
     checks = check_2d(env, state, ts)
     nz, nx = state_shape
+    # one step at "bf16x3" from the same state: the cluster instance at three
+    # TF32 passes (on wgmma at 64 and 96 columns of 64 levels a CTA)
+    split = RBC2DVectorEnv(num_envs, state_shape=state_shape,
+                           observation_shape=observation_shape,
+                           heater_duration=heater_duration, poisson_precision="bf16x3",
+                           dtype=working_dtype(device), device=device)
+    reset_counters()
+    nxt, ts = split.step(state, actions[0])
+    _sync(device)
+    split_launches = {name: WRAPPERS[name].launches
+                      for name in K1_WRAPPERS + ("env_step_2d_cluster",)}
+    expect_launches(device, split_launches, {**dict.fromkeys(K1_WRAPPERS, 0),
+                                             "env_step_2d_cluster": 1})
     return {"phase": "main_path_cluster", "num_envs": num_envs, "state_shape": list(state_shape),
             "cluster_ctas": env_step_2d_cluster_size(nx, nz), "steps": steps,
             "steps_s": steps_s, "env_steps_per_s": num_envs * steps / steps_s, **checks,
-            "launches": launches}
+            "launches": launches,
+            "bf16x3": {"wgmma": env_step_2d_wgmma(nx, nz, 3), **check_2d(split, nxt, ts),
+                       "launches": split_launches}}
 
 
 def check_2d(env, state, ts, extra=None, div_atol=None) -> dict:
@@ -3544,20 +3568,32 @@ K1_INSTANCES_2D = {"highest": ("env_step_2d", None),
 K1_WRAPPERS = tuple(name for name, _ in K1_INSTANCES_2D.values())
 
 
+# Phase 39's grids (nz, nx) of K1's TF32 instances off 96x64 timed at 1024
+# envs: the cluster's on wgmma (128x64, 192x64) and the on-chip ones (128x32,
+# 64x64), each beside float32 K1 there.
+TF32_GRIDS_2D = ((64, 128), (64, 192), (32, 128), (64, 64))
+
+
 def poisson_precision_2d(device, num_envs=1024, state_shape=(64, 96), observation_shape=(8, 48),
                          few_envs=8,
-                         other_shapes=(("runtime", (32, 128)), ("runtime_plain", (40, 128)),
-                                       ("cluster", CLUSTER_SHAPE), ("off_chip", (64, 127))),
-                         parity_envs=128, n_fixed=4, fixed_steps=20, reps=3) -> dict:
+                         other_shapes=(("wgmma_128x32", (32, 128)), ("wgmma_64x64", (64, 64)),
+                                       ("runtime_96x32", (32, 96)), ("runtime_plain", (40, 128)),
+                                       ("cluster", CLUSTER_SHAPE), ("cluster_192x64", (64, 192)),
+                                       ("off_chip", (64, 127))),
+                         parity_envs=128, n_fixed=4, fixed_steps=20, reps=3,
+                         grids=TF32_GRIDS_2D) -> dict:
     """Phase 39: the 2D ``poisson_precision`` "bf16x3" and "default", float32.
     From one case of ``num_envs`` on ``state_shape`` (6 substeps), K1's
     split-product instance against its plain version at "high" (K1_ATOL)
     and its one-pass instance against the plain version run in float64
     (``k1_tf32_errors``), both beside float32 K1 and its plain version
-    against the same float64 run; the split-product runtime (nz a multiple
-    of 32 and not), cluster and off-chip instances on ``other_shapes`` at
-    ``few_envs``, and the one-pass cluster instance there too (its gate
-    against float64, as above); one env step of ``RBC2DVectorEnv(num_envs,
+    against the same float64 run; the split-product instances on
+    ``other_shapes`` at ``few_envs`` (each name starts with the instance
+    the grid takes: "wgmma" on the chip with its solve on wgmma, "runtime"
+    the runtime-size one, at least one of them on swizzled slabs (nz a
+    multiple of 32), "cluster", "off_chip"), and the one-pass instances
+    there too but the off-chip one (their gate against float64, as above);
+    one env step of ``RBC2DVectorEnv(num_envs,
     poisson_precision=...)`` at each name from one reset, with
     ``check_2d``'s checks (at "default" the divergence within
     K1_TF32_VS_PLAIN times the plain path's own at "default" from the same
@@ -3570,7 +3606,9 @@ def poisson_precision_2d(device, num_envs=1024, state_shape=(64, 96), observatio
     card, each instance's ``env_step_2d_occupancy`` on ``state_shape`` (at
     96x64 the TF32 instances run their solve on wgmma) and CUDA-event times
     of each at the main path's 50 substeps beside float32 K1 (timed first
-    and last), with the plain versions and the bounds."""
+    and last), with the plain versions and the bounds; and the same at
+    ``num_envs`` on each of ``grids`` (``grid_times``: each precision's ms,
+    plain ms, bound, share and occupancy)."""
     begin = time.perf_counter()
     device = torch.device(device)
     dtype = torch.float32  # the precisions act in float32 only
@@ -3592,17 +3630,23 @@ def poisson_precision_2d(device, num_envs=1024, state_shape=(64, 96), observatio
     for name, shape in other_shapes:
         nz, nx = shape
         on_chip, cluster = env_step_2d_on_chip(nx, nz), env_step_2d_cluster_size(nx, nz) > 0
-        instance = "cluster" if cluster else ("off_chip" if not on_chip else name)
-        if instance != name:
+        wgmma = env_step_2d_wgmma(nx, nz, 3)
+        instance = ("cluster" if cluster else "off_chip" if not on_chip
+                    else "wgmma" if wgmma else "runtime")
+        if not name.startswith(instance):
             raise AssertionError(f"{shape} does not run K1's {name} instance")
         s, c = make_case(device, few_envs, shape, heater_duration=0.18, seed=22, dtype=dtype)
         err = abs_diffs(K1_OUT, k1_run(s, c, True, "high"), k1_run(s, c, False, "high"))
-        others[name] = {"shape": list(shape), "swizzled": on_chip and nz % 32 == 0, **err}
+        others[name] = {"shape": list(shape), "wgmma": wgmma,
+                        "swizzled": on_chip and not wgmma and nz % 32 == 0, **err}
         gated[f"bf16x3_{name}"] = (max(err.values()), K1_ATOL)
-        if cluster:  # the one-pass cluster instance, against float64
+        if on_chip or cluster:  # the one-pass instance but the off-chip one, against float64
             one = k1_tf32_errors(s, c, k1_run(s, c, True, "default"))
             others[name]["default_vs_float64"] = one
             gated[f"default_{name}"] = (one["kernel"], one["bound"])
+    if not any(o["swizzled"] for o in others.values()):
+        raise AssertionError("no runtime-size grid on swizzled slabs (nz a multiple of 32) among "
+                             f"{[shape for _, shape in other_shapes]}")
 
     kw = dict(state_shape=state_shape, observation_shape=observation_shape, dtype=dtype,
               device=device)
@@ -3672,7 +3716,7 @@ def poisson_precision_2d(device, num_envs=1024, state_shape=(64, 96), observatio
                              f"by field against plain: {vs_plain}; against float64: "
                              f"{vs_float64}")
 
-    times, occupancy = {}, {}
+    times, occupancy, grid_times = {}, {}, {}
     if device.type == "cuda":
         nz, nx = state_shape
         # what the card gives the instances: registers, local and shared bytes
@@ -3693,6 +3737,22 @@ def poisson_precision_2d(device, num_envs=1024, state_shape=(64, 96), observatio
             times[wrapper] = {"ms": ms, "plain_ms": _cuda_ms(
                 lambda: k1_run(solver, case, False, prec), 1), "bound_ms": bound_ms,
                 "bound_by": bound_by, "share_of_bound": bound_ms / ms, **work}
+        del case
+        for nz, nx in grids:  # each precision, float32 K1 first, one case a grid
+            solver, case = make_case(device, num_envs, (nz, nx), heater_duration=1.5, seed=2,
+                                     dtype=dtype)
+            n_sub = solver.params.substeps_per_env_step
+            rec = grid_times[f"{nx}x{nz}"] = {}
+            for name, (_, prec) in K1_INSTANCES_2D.items():
+                ms = _cuda_ms(lambda: k1_run(solver, case, True, prec), reps)
+                bound_ms, bound_by = bound(env_step_work(num_envs, nx, nz, n_sub, prec))
+                rec[name] = {"ms": ms, "plain_ms": _cuda_ms(
+                    lambda: k1_run(solver, case, False, prec), 1, warmup=0),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "share_of_bound": bound_ms / ms,
+                    "occupancy": k2d.env_step_2d_occupancy(nx, nz, prec)}
+            del case
+            torch.cuda.empty_cache()
     return {"phase": "poisson_precision_2d", "num_envs": num_envs,
             "gated": {k: {"error": e, "bound": b} for k, (e, b) in gated.items()},
             "max_abs_err": {K1_INSTANCES_2D[n][0]: max(vs_plain[n].values())
@@ -3700,7 +3760,8 @@ def poisson_precision_2d(device, num_envs=1024, state_shape=(64, 96), observatio
             "vs_plain_by_field": vs_plain, "vs_float64": vs_float64, "other_instances": others,
             "launches": launches, "checks": checks, "substep_bf16x3_vs_highest": substep_diff,
             "fixed_point_bf16x3": fixed, "tf32_flags": tf32, "times": times,
-            "occupancy": occupancy, "seconds": time.perf_counter() - begin}
+            "occupancy": occupancy, "grid_times": grid_times,
+            "seconds": time.perf_counter() - begin}
 
 
 # ---------------------------------------------------------------------------

@@ -29,16 +29,19 @@
 //   takes an address in the thread's CTA to the same offset in another
 //   CTA's buffer, and cluster_barrier is one HostBarrier of all c x 512
 //   threads;
-// - K1's wgmma instances (96x64 at 1 and 3 TF32 passes): a warpgroup's
-//   m64n24k8 wgmma is collective over its 128 host threads like the mma
-//   above, meeting at the warpgroup's own HostBarrier (warpgroup_barrier
-//   is that barrier too): each thread posts its A fragment, B is read from
-//   the shared memory the descriptor names (its start, leading and stride
-//   byte offsets decoded, relative to host_smem_base), and each thread sums
-//   its twelve results; the wgmma's fence, commit and wait are empty, since
-//   it completes as it is issued. A bulk copy lands at once (a memcpy by its
-//   issuing thread) and then completes its mbarrier's phase, a counter the
-//   waiting threads spin on.
+// - K1's wgmma instances (on the chip 96x64, 64x64 and 128x32, on a cluster
+//   64 and 96 columns of 64 levels a CTA, at 1 and 3 TF32 passes): a
+//   warpgroup's m64nNk8 wgmma (N = 16, 24 or 32) is collective over its 128
+//   host threads like the mma above, meeting at the warpgroup's own
+//   HostBarrier (warpgroup_barrier is that barrier too; a CTA's four its
+//   own): each thread posts its A fragment, B is read from the shared memory
+//   the descriptor names (its start, leading and stride byte offsets
+//   decoded, relative to the CTA's shared memory: host_cta_smem in a
+//   cluster, else host_smem_base), and each thread sums its N / 2 results;
+//   the wgmma's fence, commit and wait are empty, since it completes as it
+//   is issued. A bulk copy lands at once (a memcpy by its issuing thread)
+//   and then completes its mbarrier's phase, a counter the waiting threads
+//   spin on.
 // A fiber's CUDA thread state (threadIdx and the cluster's thread_locals
 // below) is its own: the scheduler saves it when the fiber waits and puts
 // it back when the fiber resumes. Fibers replace one OS thread per CUDA
@@ -304,13 +307,19 @@ inline void mma_tf32(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[
   bar.arrive_and_wait();
 }
 // the on-chip K1 block's shared memory, against which shared addresses are
-// taken, and each warpgroup's barrier
+// taken outside a cluster (in a cluster the CTA's own), and each CTA's
+// warpgroups' barriers, at host_cta * 4
 inline float* host_smem_base = nullptr;
-inline HostBarrier* wg_barriers[4];
-inline unsigned smem_u32(const void* p) {
-  return (unsigned)((const char*)p - (const char*)host_smem_base);
+inline HostBarrier* wg_barriers[kMaxHostCtas * 4];
+inline const char* host_shared_base() {
+  return (const char*)(host_cta_smem ? host_cta_smem : host_smem_base);
 }
-inline void warpgroup_barrier() { wg_barriers[threadIdx.x / 128]->arrive_and_wait(); }
+inline unsigned smem_u32(const void* p) {
+  return (unsigned)((const char*)p - host_shared_base());
+}
+inline void warpgroup_barrier() {
+  wg_barriers[host_cta * 4 + threadIdx.x / 128]->arrive_and_wait();
+}
 inline void wgmma_fence() {}
 inline void wgmma_commit() {}
 template <int N>
@@ -328,27 +337,29 @@ inline void bulk_copy_g2s(void* dst, const void* src, unsigned bytes, uint64_t* 
 inline void mbar_wait(uint64_t* bar, unsigned parity) {
   while ((__atomic_load_n(bar, __ATOMIC_SEQ_CST) & 1u) == parity) host_yield();
 }
-inline float wgmma_slots[1024][4];  // each thread's a0..a3
-inline void wgmma_m64n24k8(float (&d)[12], const unsigned (&a)[4], uint64_t desc) {
-  HostBarrier& bar = *wg_barriers[threadIdx.x / 128];
-  for (int i = 0; i < 4; ++i) wgmma_slots[threadIdx.x][i] = __uint_as_float(a[i]);
+inline float wgmma_slots[kMaxHostCtas * 1024][4];  // each thread's a0..a3
+template <int N>
+inline void wgmma_tf32(float (&d)[N / 2], const unsigned (&a)[4], uint64_t desc) {
+  HostBarrier& bar = *wg_barriers[host_cta * 4 + threadIdx.x / 128];
+  float (*slots)[4] = wgmma_slots + host_cta * 1024;
+  for (int i = 0; i < 4; ++i) slots[threadIdx.x][i] = __uint_as_float(a[i]);
   bar.arrive_and_wait();
   if (desc >> 46 != 0) std::abort();  // no swizzle, no base offset
   const unsigned base = threadIdx.x - threadIdx.x % 128, w = threadIdx.x % 128 / 32,
                  g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
   const unsigned start = (desc & 0x3fffu) << 4, lbo = ((desc >> 16) & 0x3fffu) << 4,
                  sbo = ((desc >> 32) & 0x3fffu) << 4;
-  const char* sm = (const char*)host_smem_base;
+  const char* sm = host_shared_base();
   // A[m][k] is thread 32 (m / 16) + 4 (m % 8) + k % 4's a[(m % 16 >= 8) + 2 (k >= 4)];
   // B[k][n] is at core matrix (n / 8, k / 4), row n % 8, column k % 4
-  for (int v = 0; v < 12; ++v) {
+  for (int v = 0; v < N / 2; ++v) {
     const unsigned m = 16 * w + g + 8 * ((v >> 1) & 1), n = 8 * (v >> 2) + 2 * t + (v & 1);
     float sum = d[v];
     for (unsigned k = 0; k < 8; ++k) {
       float b;
       std::memcpy(&b, sm + start + n / 8 * sbo + k / 4 * lbo + n % 8 * 16 + k % 4 * 4, 4);
-      const float a_mk = wgmma_slots[base + 32 * (m / 16) + 4 * (m % 8) + k % 4]
-                                    [(m % 16 >= 8) + 2 * (k >= 4)];
+      const float a_mk = slots[base + 32 * (m / 16) + 4 * (m % 8) + k % 4]
+                              [(m % 16 >= 8) + 2 * (k >= 4)];
       sum += a_mk * b;
     }
     d[v] = sum;

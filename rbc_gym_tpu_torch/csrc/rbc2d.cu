@@ -80,11 +80,12 @@
 //   barriers stay its own (one after the halo copy, one after each copy of
 //   slabs and each product), and nothing a neighbour may still read is
 //   overwritten before the next cluster barrier: pHY' goes to the slab no
-//   neighbour reads then, the halo to the one whose p they have read. The
-//   TF32 instances keep their slabs plain (unswizzled) and take the x
-//   products as one 16 x 32 tile a warp summed over the slabs (nxl <=
-//   128, nz <= 64: at most 16 tiles). Compile-time 64 and 96 columns of 64
-//   levels a CTA at float32, a runtime-size instance otherwise.
+//   neighbour reads then, the halo to the one whose p they have read.
+//   Compile-time 64 and 96 columns of 64 levels a CTA (at TF32 the solve on
+//   wgmma, below), a runtime-size instance otherwise; the runtime-size TF32
+//   instances keep their slabs plain (unswizzled) and take the x products
+//   as one 16 x 32 tile a warp summed over the slabs (nxl <= 128, nz <= 64:
+//   at most 16 tiles).
 //   Every other grid with nx >= 3 runs the off-chip instance,
 //   env_step_2d_global_kernel (nz > 64, nz < 2, nx = 3, an nx no cluster
 //   splits: 127x64, 128x224, 256x128, 512x256, 2048x64), one 512-thread
@@ -157,25 +158,41 @@
 //   on one bank; elsewhere they are stored plain. Fragments beyond the edge
 //   of a grid that is not a multiple of the tile are zero. Simple first:
 //   mma.sync from shared memory and L2, no wgmma, TMA or pipelining.
-//   At 96x64 the two TF32 instances run their solve on wgmma instead
-//   (k1_wgmma; 37.6 -> 30.3 ms at 3 passes and 32.2 -> 23.9 at 1, at 1024
-//   envs on an H100 80GB HBM3 at 700 W, PERF.md section 6). What held the
-//   mma.sync solve there (by ablation 21.0 and 15.1 ms of those 37.6 and
-//   32.2): three warps of a sub-partition walking their tiles' K serially,
-//   F and G read element by element from L2, every constant split again
-//   at every load, and a block barrier after each product. Design: each
-//   product is computed transposed, P^T = R^T L^T, nz = 64 rows (one wgmma
-//   M) by 96 modes or columns, warpgroup g of four the 24 of [24 g, 24 g +
-//   24) in m64n24k8 steps, A from registers, B from shared memory (see
-//   wg_product). F's and G's rows arrive by one bulk copy a stage into the
-//   state copy the march has just read (at 3 passes F's hi and lo there,
-//   and G's after product 3 warpgroup by warpgroup, where r_hat and t were);
-//   every constant comes packed on the host, TF32-exact (ops/poisson.py
+//   On 96x64, 64x64 and 128x32 the on-chip TF32 instances, and on a cluster
+//   those of 64 and 96 columns of 64 levels a CTA (128x64, 256x64; 192x64),
+//   run their solve on wgmma instead (k1_wgmma, k1_cluster_wgmma; the
+//   section "K1's TF32 instances on wgmma" below). What held the mma.sync
+//   solve (by ablation at 96x64 21.0 and 15.1 ms of 37.6 and 32.2 at 1024
+//   envs on an H100 80GB HBM3 at 700 W): three warps of a sub-partition
+//   walking their tiles' K serially, F and G read element by element from
+//   L2, every constant split again at every load, and a block barrier after
+//   each product; on a cluster besides, one 16 x 32 tile a warp (half the
+//   block idle at 128x64), F and G's rows in shared memory only at float32,
+//   and no compile-time instance (the runtime-size ones spilled 768 bytes a
+//   thread). Design: each product transposed, P^T = R^T L^T, the levels as
+//   wgmma's M (at nz = 32 two warps of a warpgroup hold zero rows, so that
+//   one code takes every instance and F and G stay in shared memory as B),
+//   a warpgroup a quarter of the block's columns as N (m64n16k8 at 64,
+//   m64n24k8 at 96, m64n32k8 at 128), A from registers, B from shared
+//   memory; F's and G's rows stream through a ring of two slots a warpgroup
+//   by bulk copies on mbarriers, a chunk of columns (on a cluster one
+//   source CTA's or half of it) at a time, the next in flight while one is
+//   multiplied; A of a neighbour's chunk comes from its slab through
+//   distributed shared memory (a staged copy of the slab, stage_slabs, was
+//   within 3 % either way and needs room that 96 columns a CTA do not
+//   have); every constant comes packed on the host, TF32-exact (ops/poisson.py
 //   k1_tf32_constants), so the kernel splits and rounds only the slabs.
 //   Products 1 to 3 are local to a warpgroup's modes, so only the
-//   warpgroup meets between them; the block meets before products 1 and 4
-//   and before the correction. Shared memory 197,800 bytes at 3 passes and
-//   222,376 at 1; the float32 instance is untouched.
+//   warpgroup meets between them; a cluster keeps its five barriers a stage.
+//   A compile-time instance takes the march at one level a lane where nz
+//   <= 32. Times at 1024 envs, "high" / "default" (float32 beside them):
+//   128x64 64.1 / 54.5 ms (72.3; the runtime-size instances 163.2 /
+//   151.4), 192x64 90.5 / 74.7 (134.3), 128x32 26.0 / 20.6 (146.4), 64x64
+//   20.3 / 16.0 (78.3), 96x64 30.2 / 23.4 (PERF.md section 6, rows 1c, 1r,
+//   1s, 1d). The float32 instances are untouched. The runtime-size on-chip
+//   TF32 instance (every other grid) takes F and G packed on the host in
+//   its A-fragment order and stages them through shared memory by cp.async
+//   (staged_product); its z transforms are still split as they are loaded.
 //
 // K2 tendencies_2d_march_kernel replaces ops/pallas2d.py:_tendency_kernel
 // (reached from make_tendencies_2d, pl.pallas_call at :562): gu, gw, gb of
@@ -315,21 +332,44 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
-// d += a . b for the warpgroup's 64 x 24 tile, 8 deep, TF32 in, float32 out:
-// a (64 x 8) in registers (warp w of the group rows 16 w .. 16 w + 15, in
-// mma.m16n8k8's A layout: lane 4 g + t holds A[g][t], A[g + 8][t], A[g][t +
-// 4], A[g + 8][t + 4]), b (8 x 24) in shared memory, K-major, through its
-// descriptor; d[4 j + i] is D[16 w + g + 8 (i >> 1)][8 j + 2 t + (i & 1)].
-__device__ __forceinline__ void wgmma_m64n24k8(float (&d)[12], const unsigned (&a)[4],
-                                               uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, %16, p, 1, "
-      "1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+// d += a . b for the warpgroup's 64 x N tile (N = 16, 24 or 32), 8 deep,
+// TF32 in, float32 out: a (64 x 8) in registers (warp w of the group rows
+// 16 w .. 16 w + 15, in mma.m16n8k8's A layout: lane 4 g + t holds A[g][t],
+// A[g + 8][t], A[g][t + 4], A[g + 8][t + 4]), b (8 x N) in shared memory,
+// K-major, through its descriptor; d[4 j + i] is D[16 w + g + 8 (i >> 1)][8
+// j + 2 t + (i & 1)].
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const unsigned (&a)[4],
+                                           uint64_t desc) {
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  } else if constexpr (N == 24) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, %16, p, 1, "
+        "1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  } else {
+    static_assert(N == 32, "K1's warpgroups take 16, 24 or 32 modes or columns");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
 }
 // Keeps the compiler from moving a register's reads and writes across it
 // (the accumulators of an asynchronous wgmma).
@@ -452,35 +492,194 @@ __device__ __forceinline__ void mma_product(int M, int N, int K, LdL ld_l, LdR l
   }
 }
 
-// ---- K1's TF32 instances at 96x64: the solve on wgmma ---------------------------
-//
-// Each product P = L . R is computed transposed, P^T = R^T L^T, a 64 x 96
-// result (nz = 64 rows, one wgmma M): warpgroup g of the block's four takes
-// the 24 modes or columns [24 g, 24 g + 24) as its N, in m64n24k8 steps
-// over the contraction. A (64 x K) comes from registers: the slabs rhs^T and
-// p_hat^T from shared memory, the z transforms ct^T and st^T from global
-// memory, both stored in the fragment order (k1_afrag_index) so that a
-// lane's four values are one 16-byte load. B^T (24 x K a warpgroup) lies in
-// shared memory in the K-major core-matrix layout without swizzle
-// (k1_bcore_index): F's and G's rows, staged by bulk copies, and r_hat and
-// t, which the products before them write.
-
-__host__ __device__ constexpr bool k1_wgmma(int nx, int nz, int passes) {
-  return passes > 0 && nx == 96 && nz == 64;
+// The runtime-size on-chip TF32 instance's x products take F and G packed
+// on the host, TF32-exact, in mma_product's A-fragment order (ops/poisson.py
+// k1_tf32_constants at a grid without a wgmma instance: [k-step][16-row
+// tile][part][lane][4], zero past nx), and stage them by cp.async, a chunk
+// of k-steps at a time, into a ring of two: in the state copy the march has
+// just read (16-byte aligned from its start) where it holds two k-steps,
+// else in a region of its own after the rest of the block's shared memory.
+// Floats of one k-step of a packed F or G, and of that region.
+__host__ __device__ constexpr int k1_rt_step(int nx, int passes) {
+  return (nx + 15) / 16 * 128 * (passes == 3 ? 2 : 1);
 }
-constexpr int kWgN = 24;  // a warpgroup's N: 96 modes or columns over four warpgroups
-constexpr int kWgRows = kWgN * 96;  // one part of a warpgroup's rows of F or G
-constexpr int kWgModes = kWgN * 64;  // one part of a warpgroup's modes of r_hat or t
+__host__ __device__ constexpr int k1_rt_own_floats(int nx, int nz, int passes) {
+  return 2 * k1_rt_step(nx, passes) + 3 <= 2 * nx * nz + nx * (nz + 1)
+             ? 0
+             : 2 * k1_rt_step(nx, passes);
+}
+// Floats of F's pack (G's follows it), and the instance's shared memory:
+// the on-chip layout (on_chip_smem_floats, below) and, 16-byte aligned, the
+// ring's region where it has one.
+__host__ __device__ constexpr int k1_rt_pack_floats(int nx, int passes) {
+  return (nx + 7) / 8 * k1_rt_step(nx, passes);
+}
 
-// Element (row, k) of a 64-row A operand in the fragment order: k-step s = k
-// / 8, warp w = row / 16 of the group, lane 4 g + t's four values at slot 4 g
-// + (t ^ (g / 2 % 4)) (so that the divergence's and product 3's stores of
-// one level or column spread over the banks), register i.
+// dst = L . R for the (M, N) result, K deep, in kPasses TF32 passes on
+// mma.sync, as mma_product (warp v the 16 x 32 tile v: M <= 128, N <= 64),
+// with L packed (k1_rt_step) and staged chunk by chunk of k-steps from
+// `pack` into the ring at `ring` (cap floats, 16-byte aligned): the next
+// chunk in flight while one is multiplied; R read by ld_r and split as it
+// is loaded, zero outside [0, K) x [0, N). Every thread meets the block
+// after each chunk.
+template <int kPasses, class LdR, class St>
+__device__ __forceinline__ void staged_product(const float* __restrict__ pack, float* ring,
+                                               int cap, int M, int N, int K, LdR ld_r, St st) {
+  constexpr int NT = 4, H = kPasses == 3 ? 2 : 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int mts = (M + 15) / 16, kst = (K + 7) / 8, tiles_n = (N + 31) / 32;
+  const int step = mts * 128 * H;              // floats of a k-step
+  const int ks = min(kst, cap / (2 * step));   // k-steps a chunk
+  const int nch = (kst + ks - 1) / ks;
+  auto issue = [&](int ch) {
+    const int s0 = ch * ks, n4 = (min(kst, s0 + ks) - s0) * step / 4;
+    float* dst = ring + (ch & 1) * ks * step;
+    const float* src = pack + (size_t)s0 * step;
+    for (int q = threadIdx.x; q < n4; q += kK1Threads)
+      __pipeline_memcpy_async(dst + 4 * q, src + 4 * q, 16);
+  };
+  const bool mine = warp < mts * tiles_n;
+  const int mt = warp / tiles_n, n0 = warp % tiles_n * 32;
+  float acc[NT][4] = {};
+  issue(0);
+  __pipeline_commit();
+  for (int ch = 0; ch < nch; ++ch) {
+    if (ch + 1 < nch) issue(ch + 1);
+    __pipeline_commit();  // (empty after the last chunk: the count stays one a chunk)
+    __pipeline_wait_prior(1);
+    __syncthreads();
+    if (mine) {
+      const float* a = ring + (ch & 1) * ks * step + (mt * H * 32 + lane) * 4;
+      const int s0 = ch * ks, ns = min(kst, s0 + ks) - s0;
+      for (int sl = 0; sl < ns; ++sl) {
+        const int k0 = 8 * (s0 + sl);
+        const float4 vh = *reinterpret_cast<const float4*>(a + sl * step);
+        const unsigned ah[4] = {__float_as_uint(vh.x), __float_as_uint(vh.y),
+                                __float_as_uint(vh.z), __float_as_uint(vh.w)};
+        unsigned al[4] = {};
+        if constexpr (kPasses == 3) {
+          const float4 vl = *reinterpret_cast<const float4*>(a + sl * step + 128);
+          al[0] = __float_as_uint(vl.x), al[1] = __float_as_uint(vl.y);
+          al[2] = __float_as_uint(vl.z), al[3] = __float_as_uint(vl.w);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = n0 + 8 * j + g;
+          const float b[2] = {k0 + t < K && c < N ? ld_r(k0 + t, c) : 0.0f,
+                              k0 + t + 4 < K && c < N ? ld_r(k0 + t + 4, c) : 0.0f};
+          unsigned bh[2], bl[2];
+          tf32_operands<kPasses>(b, bh, bl);
+          if constexpr (kPasses == 3) {
+            mma_tf32(acc[j], ah, bl);
+            mma_tf32(acc[j], al, bh);
+          }
+          mma_tf32(acc[j], ah, bh);
+        }
+      }
+    }
+    __syncthreads();  // the chunk's stage is free for the chunk after next
+  }
+  if (mine) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 16 * mt + g + 8 * (i >> 1), c = n0 + 8 * j + 2 * t + (i & 1);
+        if (r < M && c < N) st(r, c, acc[j][i]);
+      }
+    }
+  }
+}
+
+// ---- K1's TF32 instances on wgmma ------------------------------------------------
+//
+// Each product P = L . R is computed transposed, P^T = R^T L^T: the nz
+// levels are the rows of one wgmma M of 64 (at nz = 32 warps 2 and 3 of each
+// warpgroup hold rows of zeros), the block's NXL modes or columns (a CTA's on
+// a cluster) its N, warpgroup g of four the NW = NXL / 4 of [g NW, g NW +
+// NW) in m64nNWk8 steps over the contraction. A (64 x K) comes from
+// registers: the slabs rhs^T and p_hat^T from shared memory (on a cluster
+// the source CTA's, through distributed shared memory), the z transforms
+// ct^T and st^T from global memory, both stored in the fragment order
+// (k1_afrag_index) so that a lane's four values are one 16-byte load. B^T
+// (NW x K a warpgroup) lies in shared memory in the K-major core-matrix
+// layout without swizzle (k1_bcore_index): r_hat and t, which products 1 and
+// 2 write, and F's and G's rows of the warpgroup's modes or columns, KC of
+// their columns at a time, each chunk staged by one bulk copy into the
+// warpgroup's ring of two slots, the next chunk in flight while one is
+// multiplied (K1WgRing). Where the ring lies: in the state copy the march has
+// just read (from the march to the correction it is dead), or where that
+// copy is too small for two chunks in a region of its own (then r_hat and t
+// take the dead copy); at 96 columns and 3 passes r_hat and t take the
+// ring's place after product 1, and G's chunks come after product 3.
+// Products 1 to 3 are local to a warpgroup's modes, so only the warpgroup
+// meets between them.
+
+// Whether the on-chip TF32 instance for a grid runs its solve on wgmma:
+// 96x64, 64x64 and 128x32; and the cluster's for a CTA's nxl columns of nz
+// levels: 64 and 96 columns of 64 levels (128x64, 256x64; 192x64).
+__host__ __device__ constexpr bool k1_wgmma(int nx, int nz, int passes) {
+  return passes > 0 && ((nz == 64 && (nx == 96 || nx == 64)) || (nx == 128 && nz == 32));
+}
+__host__ __device__ constexpr bool k1_cluster_wgmma(int nxl, int nz, int passes) {
+  return passes > 0 && nz == 64 && (nxl == 64 || nxl == 96);
+}
+// TF32 parts of an operand: hi and lo at 3 passes, the rounded value at 1
+__host__ __device__ constexpr int k1_tf32_parts(int passes) { return passes == 3 ? 2 : 1; }
+// F's or G's columns a chunk, for a block of nxl columns, and the ring's
+// place: one fit, written out for the instances there are. The chunk is the
+// widest of nxl, nxl / 2, ... whose ring (8 slots) fits the dead state copy
+// (2 nc + nf floats), where it then lies, else a region of its own beside
+// the rest of the block's shared memory (k1_wg_smem_bytes); r_hat and t take
+// the ring's place where it is in the dead copy and a region of their own
+// does not fit. ops/limits.py k1_wgmma_chunk computes the fit, and
+// tests/test_torch_kernels2d_host_k1_cluster.py holds this table's chunk to
+// it. (A constexpr loop computing the fit here changed the PTX of the
+// 96 x 64 instances, float32's included.)
+__host__ __device__ constexpr int k1_wg_chunk(int nxl, int passes) {
+  return nxl == 128 ? (passes == 3 ? 32 : 64) : (nxl == 96 && passes == 3 ? 48 : nxl);
+}
+// Whether the ring lies in the dead state copy (else in a region of its own,
+// with r_hat and t in the dead copy), and whether r_hat and t take the ring's
+// place (else a region of their own where the ring is in the dead copy)
+__host__ __device__ constexpr bool k1_wg_ring_in_dead(int nxl, int passes) {
+  return nxl == 96 || (nxl == 64 && passes == 1);
+}
+__host__ __device__ constexpr bool k1_wg_rt_in_ring(int nxl, int passes) {
+  return nxl == 96 && passes == 3;
+}
+// floats of one slot: a warpgroup's rows of one chunk, each part
+__host__ __device__ constexpr int k1_wg_slot(int nxl, int passes) {
+  return k1_tf32_parts(passes) * (nxl / 4) * k1_wg_chunk(nxl, passes);
+}
+constexpr int kWgBars = 8;  // mbarriers: each warpgroup's two slots
+
+// Floats of a wgmma instance's region of its own: its ring, or r_hat's and
+// t's (at 3 passes and 96 columns none).
+__host__ __device__ constexpr int k1_wg_own_floats(int nxl, int nz, int passes) {
+  return !k1_wg_ring_in_dead(nxl, passes) ? 8 * k1_wg_slot(nxl, passes)
+         : k1_wg_rt_in_ring(nxl, passes)  ? 0
+                                          : k1_tf32_parts(passes) * nxl * nz;
+}
+// Shared memory of a wgmma instance over nxl columns of nz levels, bytes:
+// two state copies, the slabs s1 (pHY', rhs^T, p) and s2 (p_hat^T), the
+// bottom profile, its own region and the mbarriers.
+__host__ __device__ constexpr size_t k1_wg_smem_bytes(int nxl, int nz, int passes) {
+  const size_t nc = (size_t)nxl * nz;
+  return sizeof(float) * (2 * (2 * nc + (size_t)nxl * (nz + 1)) + 2 * nc + nxl +
+                          k1_wg_own_floats(nxl, nz, passes)) +
+         kWgBars * sizeof(uint64_t);
+}
+
+// Element (row, k) of a 16 mw-row A operand in the fragment order: k-step s
+// = k / 8, warp w = row / 16 of the group, lane 4 g + t's four values at slot
+// 4 g + (t ^ (g / 2 % 4)) (so that the divergence's and product 3's stores
+// of one level or column spread over the banks), register i.
 __host__ __device__ constexpr int k1_afrag_slot(int lane) {
   return (lane & ~3) | ((lane & 3) ^ ((lane >> 3) & 3));
 }
-__host__ __device__ constexpr int k1_afrag_index(int row, int k) {
-  return (((k >> 3) * 4 + (row >> 4)) * 32 + k1_afrag_slot(4 * (row & 7) + (k & 3))) * 4 +
+__host__ __device__ constexpr int k1_afrag_index(int row, int k, int mw) {
+  return (((k >> 3) * mw + (row >> 4)) * 32 + k1_afrag_slot(4 * (row & 7) + (k & 3))) * 4 +
          ((row >> 3) & 1) + 2 * ((k >> 2) & 1);
 }
 // Element (n, k) of a B^T operand with rows of K: 8 x 4 core matrices of 128
@@ -496,68 +695,257 @@ __host__ __device__ constexpr uint64_t k1_bdesc(unsigned addr, unsigned sbo) {
          ((uint64_t)((sbo >> 4) & 0x3fffu) << 32);
 }
 
-// The packed constants of the instance with `passes` (ops/poisson.py
+// The packed constants of a wgmma instance on an nx x nz grid (ops/poisson.py
 // k1_tf32_constants), in floats, each value TF32-exact as the products take
-// it (at 3 passes hi and lo, at 1 the value rounded): first F's and G's rows
-// of each warpgroup, in the order the state copy receives them ([g][F_g |
-// G_g] at 1 pass; [g][F_g hi | F_g lo] and then [g][G_g hi | G_g lo] at 3);
-// then ct^T and st^T in the fragment order (a lane's values of a k-step, hi
-// then lo; lanes in their own order) and dinv in the order of product 2's
-// accumulators ([g][w][lane][12]).
-__host__ __device__ constexpr int k1_tf32_parts(int passes) { return passes == 3 ? 2 : 1; }
-__host__ __device__ constexpr int k1_tf32_ct(int passes) {
-  return 4 * 2 * kWgRows * k1_tf32_parts(passes);
+// it (at 3 passes hi and lo, at 1 the value rounded): F's chunks, then G's,
+// each [CTA r][chunk j][warpgroup g][part][the g's rows of the chunk's
+// columns as B^T], in the order CTA r takes them (chunk j the columns of CTA
+// (r + j / (nxl / KC)) % c); then ct^T and st^T in the fragment order of
+// their nz / 16 warps (a lane's values of a k-step, hi then lo; lanes in
+// their own order), and dinv in the order of product 2's accumulators
+// ([r][g][w][lane][NW / 2]).
+__host__ __device__ constexpr int k1_tf32_g(int nx, int passes) {
+  return k1_tf32_parts(passes) * nx * nx;
 }
-__host__ __device__ constexpr int k1_tf32_st(int passes) {
-  return k1_tf32_ct(passes) + 64 * 64 * k1_tf32_parts(passes);
+__host__ __device__ constexpr int k1_tf32_ct(int nx, int passes) {
+  return 2 * k1_tf32_g(nx, passes);
 }
-__host__ __device__ constexpr int k1_tf32_dinv(int passes) {
-  return k1_tf32_st(passes) + 64 * 64 * k1_tf32_parts(passes);
+__host__ __device__ constexpr int k1_tf32_st(int nx, int nz, int passes) {
+  return k1_tf32_ct(nx, passes) + k1_tf32_parts(passes) * nz * nz;
 }
-__host__ __device__ constexpr int k1_tf32_floats(int passes) {
-  return k1_tf32_dinv(passes) + 96 * 64;
-}
-
-// Shared memory of the wgmma instances, bytes: two state copies, the slabs
-// s1 (pHY', rhs, p) and s2 (p_hat), at 1 pass a slab of r_hat and t (at 3
-// passes they take the state copy F leaves), the bottom profile and five
-// mbarriers.
-constexpr size_t k1_wgmma_smem_bytes(int passes) {
-  return sizeof(float) * (2 * (2 * 96 * 64 + 96 * 65) + (passes == 3 ? 2 : 3) * 96 * 64 + 96) +
-         5 * sizeof(uint64_t);
+__host__ __device__ constexpr int k1_tf32_dinv(int nx, int nz, int passes) {
+  return k1_tf32_st(nx, nz, passes) + k1_tf32_parts(passes) * nz * nz;
 }
 
-// acc = A . B for the warpgroup's 64 x 24 tile, KS k-steps deep, in
-// kPasses TF32 passes on wgmma: ld_a(s, hi, lo) gives the lane's A fragment
-// of k-step s, b is the warpgroup's B^T (its lo part b_lo floats on at 3
-// passes). At most two k-steps are in flight, so at most two of A's
-// fragments live in registers. The accumulators are ready when it returns.
-template <int kPasses, int KS, class LdA>
-__device__ __forceinline__ void wg_product(float (&acc)[12], LdA ld_a, const float* b, int b_lo) {
-  constexpr unsigned kSbo = 256 * KS;  // bytes between B^T's 8-row groups: 8 rows of 8 KS floats
-  const unsigned bh = smem_u32(b), bl = bh + 4 * b_lo;
+// The warpgroup's accumulators cleared (and fenced from the wgmma after).
+template <int N>
+__device__ __forceinline__ void wg_clear(float (&acc)[N]) {
 #pragma unroll
-  for (int i = 0; i < 12; ++i) {
+  for (int i = 0; i < N; ++i) {
     acc[i] = 0.0f;
     fence_operand(acc[i]);
   }
+}
+
+// acc += A . B for the warpgroup's 64 x N tile, KS k-steps deep, in kPasses
+// TF32 passes on wgmma: ld(s) loads the lane's A values of k-step s (the
+// next k-step's load is in flight while one is multiplied) and Ld::split(v,
+// hi, lo) gives their TF32 parts; B^T lies at shared address b (its lo part
+// at b_lo), its 8-row groups sbo bytes apart. At most two k-steps are in
+// flight, so at most two of A's fragments live in registers. The
+// accumulators are ready when it returns.
+template <int kPasses, int N, int KS, class Ld>
+__device__ __forceinline__ void wg_mma(float (&acc)[N / 2], Ld ld, unsigned b, unsigned b_lo,
+                                       unsigned sbo) {
+  auto next = ld(0);
 #pragma unroll
   for (int s = 0; s < KS; ++s) {
+    const auto v = next;
+    if (s + 1 < KS) next = ld(s + 1);
     unsigned ah[4], al[4];
-    ld_a(s, ah, al);
+    Ld::split(v, ah, al);
     wgmma_fence();
-    const uint64_t dh = k1_bdesc(bh + 256 * s, kSbo);  // k-step s: two core matrices on
+    const uint64_t dh = k1_bdesc(b + 256 * s, sbo);  // k-step s: two core matrices on
     if constexpr (kPasses == 3) {
-      wgmma_m64n24k8(acc, ah, k1_bdesc(bl + 256 * s, kSbo));
-      wgmma_m64n24k8(acc, al, dh);
+      wgmma_tf32<N>(acc, ah, k1_bdesc(b_lo + 256 * s, sbo));
+      wgmma_tf32<N>(acc, al, dh);
     }
-    wgmma_m64n24k8(acc, ah, dh);
+    wgmma_tf32<N>(acc, ah, dh);
     wgmma_commit();
     wgmma_wait<1>();  // k-step s - 1 is done: its A registers are free again
   }
   wgmma_wait<0>();
 #pragma unroll
-  for (int i = 0; i < 12; ++i) fence_operand(acc[i]);
+  for (int i = 0; i < N / 2; ++i) fence_operand(acc[i]);
+}
+
+// The A values of a slab in the fragment order (rows nz = 16 MW levels, the
+// warps past them zero), split here into their TF32 parts.
+template <int kPasses, int MW>
+struct WgSlabA {
+  const float* a;  // the lane's values of k-step 0
+  __device__ __forceinline__ float4 operator()(int s) const {
+    if (((threadIdx.x >> 5) & 3) >= MW) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    return *reinterpret_cast<const float4*>(a + s * MW * 128);
+  }
+  static __device__ __forceinline__ void split(const float4& v, unsigned (&hi)[4],
+                                               unsigned (&lo)[4]) {
+    const float x[4] = {v.x, v.y, v.z, v.w};
+    tf32_operands<kPasses>(x, hi, lo);
+  }
+};
+
+// The TF32 parts of a packed constant's A values, as packed (hi, then lo).
+struct WgParts {
+  float4 hi, lo;
+};
+template <int kPasses, int MW>
+struct WgConstA {
+  const float4* p;  // the lane's parts of k-step 0
+  __device__ __forceinline__ WgParts operator()(int s) const {
+    constexpr int H = k1_tf32_parts(kPasses);
+    WgParts v{make_float4(0.0f, 0.0f, 0.0f, 0.0f), make_float4(0.0f, 0.0f, 0.0f, 0.0f)};
+    if (((threadIdx.x >> 5) & 3) < MW) {
+      v.hi = __ldg(p + s * MW * 32 * H);
+      if constexpr (kPasses == 3) v.lo = __ldg(p + s * MW * 32 * H + 1);
+    }
+    return v;
+  }
+  static __device__ __forceinline__ void split(const WgParts& v, unsigned (&hi)[4],
+                                               unsigned (&lo)[4]) {
+    hi[0] = __float_as_uint(v.hi.x), hi[1] = __float_as_uint(v.hi.y);
+    hi[2] = __float_as_uint(v.hi.z), hi[3] = __float_as_uint(v.hi.w);
+    lo[0] = __float_as_uint(v.lo.x), lo[1] = __float_as_uint(v.lo.y);
+    lo[2] = __float_as_uint(v.lo.z), lo[3] = __float_as_uint(v.lo.w);
+  }
+};
+
+// A warpgroup's ring (see above): the stream of a stage's 2 nch bulk copies,
+// F's chunks of product 1 and then G's of product 4, copy n into slot n & 1,
+// each completing its slot's mbarrier, and the two x products over them.
+template <int NXL, int NZ, int kPasses>
+struct K1WgRing {
+  static constexpr int H = k1_tf32_parts(kPasses), NW = NXL / 4, MW = NZ / 16;
+  static constexpr int KC = k1_wg_chunk(NXL, kPasses), S = k1_wg_slot(NXL, kPasses);
+  static constexpr bool kRtInRing = k1_wg_rt_in_ring(NXL, kPasses);
+  float* slots;       // this warpgroup's two slots (the dead copy's move each stage)
+  uint64_t* bar;      // their mbarriers
+  const float* f;     // this warpgroup's part of this CTA's first chunk of F
+  int g_off, nch;     // floats from F's chunks to G's; chunks an x product
+  unsigned phases;    // bit s: the parity of slot s's next phase
+
+  // copy n may go now: the stream's, and at kRtInRing not G's before product 3
+  __device__ __forceinline__ bool may_issue(int n) const {
+    return n < 2 * nch && !(kRtInRing && n >= nch);
+  }
+  // copy n of the stream, by the warpgroup's first thread
+  __device__ __forceinline__ void issue(int n) const {
+    if ((threadIdx.x & 127) == 0) {
+      const int j = n < nch ? n : n - nch;
+      fence_proxy_async();
+      bulk_copy_g2s(slots + (n & 1) * S, f + (n < nch ? 0 : g_off) + (size_t)j * 4 * S,
+                    sizeof(float) * S, bar + (n & 1));
+    }
+  }
+  // the first two copies of the stage (where the ring is in the dead copy,
+  // after the march)
+  __device__ __forceinline__ void start() const {
+    if (may_issue(0)) issue(0);
+    if (may_issue(1)) issue(1);
+  }
+  // at kRtInRing, after product 3: G's first two chunks
+  __device__ __forceinline__ void start_g() const {
+    if constexpr (kRtInRing) {
+      issue(nch);
+      if (nch + 1 < 2 * nch) issue(nch + 1);
+    }
+  }
+  // acc = A . B^T of an x product, its copies m .. m + nch - 1: chunk j's
+  // columns those of CTA q = (r + j / (NXL / KC)) % c, A from q's slab
+  // (src(q), fragment order) from k-step (j % (NXL / KC)) KC / 8 on.
+  template <class Src>
+  __device__ __forceinline__ void x_product(float (&acc)[NW / 2], int m, Src src, int r, int c) {
+    constexpr int SUB = NXL / KC;
+    const int wl = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    wg_clear(acc);
+    for (int j = 0; j < nch; ++j) {
+      const int n = m + j, s = n & 1;
+      const float* a = src((r + j / SUB) % c) +
+                       (((j % SUB) * (KC / 8) * MW + wl) * 32 + k1_afrag_slot(lane)) * 4;
+      mbar_wait(bar + s, (phases >> s) & 1);
+      phases ^= 1u << s;
+      const unsigned b = smem_u32(slots + s * S);
+      wg_mma<kPasses, NW, KC / 8>(acc, WgSlabA<kPasses, MW>{a}, b, b + sizeof(float) * NW * KC,
+                                  32 * KC);
+      warpgroup_barrier();  // every warp's wgmma of the chunk is done: the slot is free
+      if (n + 2 < 2 * nch && (!kRtInRing || n >= nch || n + 2 < nch)) issue(n + 2);
+    }
+  }
+};
+
+// One stage's solve on wgmma (see above), products 1 to 3 of this thread's
+// warpgroup over a block of NXL columns of NZ levels, nx = c NXL in all (CTA
+// r of c on a cluster; 0 of 1 on the chip): rhs^T in s1 (fragment order) of
+// every CTA in (src(q): CTA q's s1), p_hat^T out into s2 (fragment order),
+// r_hat and then t in rt (this warpgroup's). Product 4 (k1_wg_product_4)
+// follows once every CTA's p_hat^T is written.
+template <int NXL, int NZ, int kPasses, class Ring, class Src>
+__device__ __forceinline__ void k1_wg_products_123(Ring& ring, float* s2, float* rt,
+                                                   const float* __restrict__ tf32, int r, int c,
+                                                   Src src) {
+  constexpr int NW = Ring::NW, MW = Ring::MW, NA = NW / 2;
+  const int wg = threadIdx.x >> 7, wl = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, nx = c * NXL;
+  // the lane's rows of a 64 x NW tile are 16 wl + g + 8 h, its columns 8 j +
+  // 2 t + e (acc[4 j + 2 h + e]); the rows past nz (warps wl >= MW) are zero
+  auto row = [&](int i) { return 16 * wl + g + 8 * ((i >> 1) & 1); };
+  auto col = [&](int i) { return 8 * (i >> 2) + 2 * t + (i & 1); };
+  // r_hat or t into rt, the B^T operand of the next product: TF32-exact parts
+  auto store_b = [&](const float (&acc)[NA]) {
+    if (wl < MW) {
+#pragma unroll
+      for (int i = 0; i < NA; ++i) {
+        const int idx = k1_bcore_index(col(i), row(i), NZ);
+        if constexpr (kPasses == 3) {
+          const unsigned hi = __float_as_uint(acc[i]) & 0xffffe000u;
+          rt[idx] = __uint_as_float(hi);
+          rt[idx + NW * NZ] = __uint_as_float(to_tf32(acc[i] - __uint_as_float(hi)));
+        } else {
+          rt[idx] = __uint_as_float(to_tf32(acc[i]));
+        }
+      }
+    }
+    fence_proxy_async();
+    warpgroup_barrier();
+  };
+  const unsigned b_rt = smem_u32(rt), b_rt_lo = b_rt + sizeof(float) * NW * NZ;
+  auto consts = [&](int at) {  // A from the packed constants: the lane's parts of k-step 0
+    return WgConstA<kPasses, MW>{reinterpret_cast<const float4*>(tf32 + at) +
+                                 (wl * 32 + lane) * k1_tf32_parts(kPasses)};
+  };
+  float acc[NA];
+  ring.x_product(acc, 0, src, r, c);  // r_hat^T = rhs^T F^T
+  store_b(acc);
+  wg_clear(acc);  // t^T = (ct^T r_hat^T) * dinv^T
+  wg_mma<kPasses, NW, NZ / 8>(acc, consts(k1_tf32_ct(nx, kPasses)), b_rt, b_rt_lo, 32 * NZ);
+  if (wl < MW) {
+    const float4* d = reinterpret_cast<const float4*>(tf32 + k1_tf32_dinv(nx, NZ, kPasses)) +
+                      (((r * 4 + wg) * MW + wl) * 32 + lane) * (NA / 4);
+#pragma unroll
+    for (int q = 0; q < NA / 4; ++q) {
+      const float4 v = __ldg(d + q);
+      acc[4 * q] *= v.x, acc[4 * q + 1] *= v.y, acc[4 * q + 2] *= v.z, acc[4 * q + 3] *= v.w;
+    }
+  }
+  warpgroup_barrier();  // r_hat read: t takes its place
+  store_b(acc);
+  wg_clear(acc);  // p_hat^T = st^T t^T
+  wg_mma<kPasses, NW, NZ / 8>(acc, consts(k1_tf32_st(nx, NZ, kPasses)), b_rt, b_rt_lo, 32 * NZ);
+  if (wl < MW) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) s2[k1_afrag_index(row(i), NW * wg + col(i), MW)] = acc[i];
+  }
+  if constexpr (Ring::kRtInRing) {  // t read: G's first chunks take the ring
+    warpgroup_barrier();
+    ring.start_g();
+  }
+}
+
+// Product 4 of k1_wg_products_123's solve, p^T = p_hat^T G^T: p_hat^T of
+// every CTA in (src(q): CTA q's s2), p (plain, (column, level)) out into s1.
+template <int NXL, int NZ, int kPasses, class Ring, class Src>
+__device__ __forceinline__ void k1_wg_product_4(Ring& ring, float* s1, int r, int c, Src src) {
+  constexpr int NW = Ring::NW, MW = Ring::MW;
+  const int wg = threadIdx.x >> 7, wl = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float acc[NW / 2];
+  ring.x_product(acc, ring.nch, src, r, c);
+  if (wl < MW) {
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i)
+      s1[(NW * wg + 8 * (i >> 2) + 2 * t + (i & 1)) * NZ + 16 * wl + g + 8 * ((i >> 1) & 1)] =
+          acc[i];
+  }
 }
 
 // x columns a K1 warp owns.
@@ -569,6 +957,11 @@ __host__ __device__ constexpr int k1_cols(int nx) { return (nx + kK1Warps - 1) /
 __host__ __device__ constexpr size_t on_chip_smem_floats(int nx, int nz) {
   return 2 * (2 * (size_t)nx * nz + (size_t)nx * (nz + 1)) + 2 * (size_t)nx * nz +
          2 * (size_t)nz * nz + nx;
+}
+__host__ __device__ constexpr size_t k1_rt_smem_floats(int nx, int nz, int passes) {
+  return k1_rt_own_floats(nx, nz, passes)
+             ? ((on_chip_smem_floats(nx, nz) + 3) & ~(size_t)3) + k1_rt_own_floats(nx, nz, passes)
+             : on_chip_smem_floats(nx, nz);
 }
 
 // Whether the on-chip instance takes the grid: its warps' columns, its
@@ -595,6 +988,31 @@ int env_step_2d_cluster_size(int nx, int nz) {
     }
   }
   return 0;
+}
+
+// Whether K1's instance for a grid and a pass count runs its solve on wgmma:
+// the on-chip instance where k1_wgmma takes the grid, the cluster's where
+// k1_cluster_wgmma takes a CTA's columns.
+bool env_step_2d_wgmma(int nx, int nz, int passes) {
+  const int c = env_step_2d_cluster_size(nx, nz);
+  return c > 0 ? k1_cluster_wgmma(nx / c, nz, passes)
+               : env_step_2d_on_chip(nx, nz) && k1_wgmma(nx, nz, passes);
+}
+
+// Whether K1's instance for a grid and a pass count reads constants packed
+// on the host (the launcher's tf32, ops/poisson.py k1_tf32_constants): the
+// wgmma instances and the on-chip runtime-size TF32 one.
+bool env_step_2d_packed(int nx, int nz, int passes) {
+  return env_step_2d_wgmma(nx, nz, passes) || (passes > 0 && env_step_2d_on_chip(nx, nz));
+}
+
+// F's or G's columns a chunk of a wgmma instance's ring (k1_wg_chunk over a
+// CTA's columns; ops/limits.py k1_wgmma_chunk, by which the host packs
+// them); 0 where the instance is not on wgmma.
+int env_step_2d_wgmma_chunk(int nx, int nz, int passes) {
+  if (!env_step_2d_wgmma(nx, nz, passes)) return 0;
+  const int c = env_step_2d_cluster_size(nx, nz);
+  return k1_wg_chunk(c > 0 ? nx / c : nx, passes);
 }
 
 // Whether a CTA of K1's cluster instance also holds its rows of F and G
@@ -669,6 +1087,18 @@ size_t env_step_2d_smem_floats(int nx, int nz) {
 size_t env_step_2d_scratch_floats(int nx, int nz) {
   if (env_step_2d_on_chip(nx, nz) || env_step_2d_cluster_size(nx, nz) > 0) return 0;
   return off_chip_scratch_floats(nx, nz, !env_step_2d_slabs_on_chip(nx, nz));
+}
+
+// Shared memory K1's instance for a grid and a pass count asks a block,
+// bytes: a wgmma instance's (k1_wg_smem_bytes, over a CTA's columns on a
+// cluster), the on-chip runtime-size TF32 one's (k1_rt_smem_floats), else
+// env_step_2d_smem_floats.
+size_t env_step_2d_launch_smem_bytes(int nx, int nz, int passes) {
+  const int c = env_step_2d_cluster_size(nx, nz);
+  if (env_step_2d_wgmma(nx, nz, passes)) return k1_wg_smem_bytes(c > 0 ? nx / c : nx, nz, passes);
+  if (passes > 0 && env_step_2d_on_chip(nx, nz))
+    return sizeof(float) * k1_rt_smem_floats(nx, nz, passes);
+  return sizeof(float) * env_step_2d_smem_floats(nx, nz);
 }
 
 // K1 indexes an env's fields and scratch with 32-bit offsets: they stay
@@ -809,10 +1239,11 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
                    const float* __restrict__ dinv, float* __restrict__ u_out,
                    float* __restrict__ w_out, float* __restrict__ b_out,
                    float* __restrict__ p_out, K1Params P, const float* __restrict__ tf32) {
-  constexpr int NS = kK1Levels;
+  constexpr int NS = NZ > 0 && NZ <= 32 ? 1 : kK1Levels;  // a lane's levels: one where nz <= 32
   constexpr int XS = NX > 0 ? k1_cols(NX) : kK1MaxCols;
   constexpr bool kVec = NX > 0 && NX % 4 == 0 && NZ % 4 == 0;
   constexpr bool kWgmma = k1_wgmma(NX, NZ, kPasses);  // the solve on wgmma (tf32: its constants)
+  constexpr bool kRingInDead = kWgmma && k1_wg_ring_in_dead(NX, kPasses);
   extern __shared__ float smem[];
   const int nx = NX > 0 ? NX : P.nx, nz = NZ > 0 ? NZ : P.nz, nw = nz + 1;
   const int nc = nx * nz, nf = nx * nw;
@@ -826,18 +1257,18 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
   float* s2 = s1 + nc;        // r_hat and p_hat
   float* ct = s2 + nc;        // z analysis, (z, j)
   float* st = ct + nz * nz;   // z synthesis, (j, z)
-  // bottom (nx); the wgmma instances keep no z transforms, and at 1 pass a
-  // slab of r_hat and t, then their mbarriers: F's (and G's) copy, and at 3
-  // passes each warpgroup's of G
-  float* bot = kWgmma ? s2 + nc + (kPasses == 1 ? nc : 0) : st + nz * nz;
-  uint64_t* mbar = reinterpret_cast<uint64_t*>(bot + nx);
-  // The wgmma instances' bulk copy of F's rows (hi, lo at 3 passes; G's too
-  // at 1 pass) into the state copy x after the march, on mbar[0] (ablate_k1
-  // drops the line that calls it)
-  auto stage_fg = [&](float* x) {
-    fence_proxy_async();
-    bulk_copy_g2s(x, tf32, 4 * 4 * 2 * kWgRows, mbar);
-  };
+  // bottom (nx); the wgmma instances keep no z transforms: after the bottom
+  // their own region (their ring, or r_hat's and t's) and the mbarriers
+  float* bot = kWgmma ? s2 + nc : st + nz * nz;
+  float* own = bot + nx;
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(own + k1_wg_own_floats(NX, NZ, kPasses));
+  // The wgmma instances' ring of F's and G's chunks (K1WgRing), this
+  // warpgroup's; its first copies of a stage go where the ring allows
+  // (ablate_k1 and ablate_k1c drop the lines that call stage_fg)
+  using Wg = K1WgRing<kWgmma ? NX : 64, kWgmma ? NZ : 64, kWgmma ? kPasses : 1>;
+  Wg ring{nullptr, mbar + 2 * (threadIdx.x >> 7), tf32 + (threadIdx.x >> 7) * Wg::S,
+          k1_tf32_g(nx, kPasses), nx / Wg::KC, 0u};
+  auto stage_fg = [&] { ring.start(); };
 
   for (int q = threadIdx.x; q < nc; q += kK1Threads) {
     X.u[q] = u_in[e * nc + q];
@@ -855,7 +1286,7 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
     }
   } else if constexpr (kWgmma) {
     if (threadIdx.x == 0) {
-      for (int i = 0; i < 5; ++i) mbar_init(mbar + i, 1);
+      for (int i = 0; i < kWgBars; ++i) mbar_init(mbar + i, 1);
       fence_mbar_init();
     }
   } else {
@@ -900,7 +1331,6 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
 
   float gp[XS][NS][3] = {};  // the previous stage's gu, gw, gb of this thread's points
   float pt[XS][NS];     // the solve's tile: this thread's points
-  unsigned phase = 0;   // the wgmma instances' mbarriers: the parity of this stage's phase
   for (int step = 0; step < P.n_substeps; ++step) {
     for (int stage = 0; stage < 3; ++stage) {
       const float gamma = kGamma[stage], zeta = kZeta[stage];
@@ -909,6 +1339,10 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
       auto rk = [&](float f, float g, float g_prev) {
         return stage == 0 ? f + P.dt * (gamma * g) : f + P.dt * (gamma * g + zeta * g_prev);
       };
+      if constexpr (kWgmma) {  // the ring in the copy this stage's march reads, or its own
+        ring.slots = (kRingInDead ? X.u : own) + (threadIdx.x >> 7) * 2 * Wg::S;
+        if constexpr (!kRingInDead) stage_fg();  // its first chunks while the march runs
+      }
 
       // ---- 1. pHY' of this warp's columns: a float64 suffix scan along z ----
 #pragma unroll
@@ -1010,9 +1444,7 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
         }
       }
       __syncthreads();
-      if constexpr (kWgmma) {  // F's rows (at 1 pass and G's) into the state copy just read
-        if (threadIdx.x == 0) stage_fg(X.u);
-      }
+      if constexpr (kRingInDead) stage_fg();  // F's first chunks into the state copy just read
 
       // ---- 3. div(u*, w*) / dt_stage ------------------------------------------
 #pragma unroll
@@ -1026,7 +1458,7 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
             if constexpr (kPasses == 0) {
               s1[i * nz + k] = div * idts;
             } else if constexpr (kWgmma) {  // rhs^T, product 1's A
-              s1[k1_afrag_index(k, i)] = div * idts;
+              s1[k1_afrag_index(k, i, NZ / 16)] = div * idts;
             } else {
               s1[S(i, k)] = div * idts;
             }
@@ -1086,89 +1518,13 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
         __syncthreads();
       } else if constexpr (kWgmma) {
         // ---- 4. the solve on the tensor cores: four products, slab to slab --
-        // warpgroup wg, its warp wl; the lane's rows of a 64 x 24 tile are
-        // 16 wl + g + 8 h, its columns 8 j + 2 t + e (acc[4 j + 2 h + e])
-        const int wg = threadIdx.x >> 7, wl = warp & 3, g = lane >> 2, t = lane & 3;
-        constexpr int H = k1_tf32_parts(kPasses);
-        float* xg = X.u + wg * 2 * kWgRows;  // F's rows of its modes, then G's of its columns
-        // its modes of r_hat, then t: at 3 passes where F's rows were
-        float* rt = kPasses == 3 ? xg : s2 + nc + wg * kWgModes;
-        auto row = [&](int i) { return 16 * wl + g + 8 * ((i >> 1) & 1); };
-        auto col = [&](int i) { return 8 * (i >> 2) + 2 * t + (i & 1); };
-        auto slab_a = [&](const float* a) {  // A from a slab, split here
-          return [=](int s, unsigned (&hi)[4], unsigned (&lo)[4]) {
-            const float4 v = *reinterpret_cast<const float4*>(
-                a + ((s * 4 + wl) * 32 + k1_afrag_slot(lane)) * 4);
-            const float x[4] = {v.x, v.y, v.z, v.w};
-            tf32_operands<kPasses>(x, hi, lo);
-          };
-        };
-        auto const_a = [&](int at) {  // A from the packed constants, TF32-exact
-          return [=](int s, unsigned (&hi)[4], unsigned (&lo)[4]) {
-            const float4* p =
-                reinterpret_cast<const float4*>(tf32 + at) + ((s * 4 + wl) * 32 + lane) * H;
-            const float4 v = __ldg(p);
-            hi[0] = __float_as_uint(v.x), hi[1] = __float_as_uint(v.y);
-            hi[2] = __float_as_uint(v.z), hi[3] = __float_as_uint(v.w);
-            if constexpr (kPasses == 3) {
-              const float4 l = __ldg(p + 1);
-              lo[0] = __float_as_uint(l.x), lo[1] = __float_as_uint(l.y);
-              lo[2] = __float_as_uint(l.z), lo[3] = __float_as_uint(l.w);
-            }
-          };
-        };
-        // r_hat or t, a B^T operand of the next product: TF32-exact parts
-        auto store_b = [&](float* dst, int idx, float v) {
-          if constexpr (kPasses == 3) {
-            const unsigned hi = __float_as_uint(v) & 0xffffe000u;
-            dst[idx] = __uint_as_float(hi);
-            dst[idx + kWgModes] = __uint_as_float(to_tf32(v - __uint_as_float(hi)));
-          } else {
-            dst[idx] = __uint_as_float(to_tf32(v));
-          }
-        };
-        float acc[12];
-        mbar_wait(mbar, phase);  // F's rows have landed
-        wg_product<kPasses, 12>(acc, slab_a(s1), xg, kWgRows);  // r_hat^T = rhs^T F^T
-        if constexpr (kPasses == 3) warpgroup_barrier();  // F's rows read: r_hat takes them
-#pragma unroll
-        for (int i = 0; i < 12; ++i) store_b(rt, k1_bcore_index(col(i), row(i), 64), acc[i]);
-        fence_proxy_async();
-        warpgroup_barrier();
-        // t^T = ct^T r_hat^T
-        wg_product<kPasses, 8>(acc, const_a(k1_tf32_ct(kPasses)), rt, kWgModes);
-        {
-          const float4* d = reinterpret_cast<const float4*>(tf32 + k1_tf32_dinv(kPasses)) +
-                            ((wg * 4 + wl) * 32 + lane) * 3;
-#pragma unroll
-          for (int q = 0; q < 3; ++q) {
-            const float4 v = __ldg(d + q);
-            acc[4 * q] *= v.x, acc[4 * q + 1] *= v.y, acc[4 * q + 2] *= v.z, acc[4 * q + 3] *= v.w;
-          }
-        }
-        warpgroup_barrier();  // r_hat read: t takes its place
-#pragma unroll
-        for (int i = 0; i < 12; ++i) store_b(rt, k1_bcore_index(col(i), row(i), 64), acc[i]);
-        fence_proxy_async();
-        warpgroup_barrier();
-        // p_hat^T = st^T t^T
-        wg_product<kPasses, 8>(acc, const_a(k1_tf32_st(kPasses)), rt, kWgModes);
-#pragma unroll
-        for (int i = 0; i < 12; ++i) s2[k1_afrag_index(row(i), kWgN * wg + col(i))] = acc[i];
-        if constexpr (kPasses == 3) {  // G's rows of its columns where t was
-          warpgroup_barrier();
-          if ((threadIdx.x & 127) == 0) {
-            fence_proxy_async();
-            bulk_copy_g2s(xg, tf32 + 4 * 2 * kWgRows + wg * 2 * kWgRows, 4 * 2 * kWgRows,
-                          mbar + 1 + wg);
-          }
-        }
+        k1_wg_products_123<NX, NZ, kPasses>(
+            ring, s2,
+            Wg::kRtInRing ? ring.slots
+                          : (kRingInDead ? own : X.u) + (threadIdx.x >> 7) * Wg::H * Wg::NW * NZ,
+            tf32, 0, 1, [&](int) { return s1; });
         __syncthreads();  // p_hat of every mode
-        if constexpr (kPasses == 3) mbar_wait(mbar + 1 + wg, phase);
-        wg_product<kPasses, 12>(acc, slab_a(s2), kPasses == 3 ? xg : xg + kWgRows,
-                                kWgRows);  // p^T = p_hat^T G^T
-#pragma unroll
-        for (int i = 0; i < 12; ++i) s1[(kWgN * wg + col(i)) * nz + row(i)] = acc[i];
+        k1_wg_product_4<NX, NZ, kPasses>(ring, s1, 0, 1, [&](int) { return s2; });
         __syncthreads();
 
         // ---- 5. correct this thread's u*, w* by grad p, read from the slab --
@@ -1186,20 +1542,21 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
           }
         }
         // the march never writes w's top wall face: zero it again in the copy
-        // the constants took
+        // the ring or r_hat and t took
         for (int q = threadIdx.x; q < nx; q += kK1Threads) X.w[q * nw + nz] = 0.0f;
-        phase ^= 1;
         __syncthreads();
       } else {
         // ---- 4. the solve on the tensor cores: four products, slab to slab --
         constexpr bool kEdge = !(NX > 0 && NX % 16 == 0 && NZ % 32 == 0);
         auto slab = [&](const float* a) { return [=](int r, int c) { return a[S(r, c)]; }; };
         auto to_slab = [&](float* a) { return [=](int r, int c, float v) { a[S(r, c)] = v; }; };
-        auto global = [](const float* a, int ld) {
-          return [=](int r, int c) { return __ldg(a + r * ld + c); };
-        };
-        mma_product<kPasses, kEdge>(nx, nz, nx, global(fmat, nx), slab(s1),
-                                    to_slab(s2));  // r_hat = F . rhs
+        // F's and G's packs (tf32: F's, then G's) through the ring (k1_rt_step)
+        const int own = k1_rt_own_floats(nx, nz, kPasses);
+        float* ring = own ? smem + ((on_chip_smem_floats(nx, nz) + 3) & ~(size_t)3)
+                          : X.u + ((4 - ((smem_u32(X.u) >> 2) & 3)) & 3);
+        const int cap = own ? own : 2 * nc + nf - 3;
+        staged_product<kPasses>(tf32, ring, cap, nx, nz, nx, slab(s1),
+                                to_slab(s2));  // r_hat = F . rhs
         __syncthreads();
         mma_product<kPasses, kEdge>(nx, nz, nz, slab(s2), slab(ct),  // (r_hat C^T) * d
                                     [&](int r, int c, float v) {
@@ -1209,8 +1566,8 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
         mma_product<kPasses, kEdge>(nx, nz, nz, slab(s1), slab(st),
                                     to_slab(s2));  // p_hat = R~ S^T
         __syncthreads();
-        mma_product<kPasses, kEdge>(nx, nz, nx, global(gmat, nx), slab(s2),
-                                    to_slab(s1));  // p = G . p_hat
+        staged_product<kPasses>(tf32 + k1_rt_pack_floats(nx, kPasses), ring, cap, nx, nz, nx,
+                                slab(s2), to_slab(s1));  // p = G . p_hat
         __syncthreads();
 
         // ---- 5. correct this thread's u*, w* by grad p, read from the slab --
@@ -1227,6 +1584,9 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
             }
           }
         }
+        // the march never writes w's top wall face: zero it again in the copy
+        // the ring may have taken
+        for (int q = threadIdx.x; q < nx; q += kK1Threads) X.w[q * nw + nz] = 0.0f;
         __syncthreads();
       }
       const State2D t = X;
@@ -1242,14 +1602,22 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
   for (int q = threadIdx.x; q < nf; q += kK1Threads) w_out[e * nf + q] = X.w[q];
 }
 
-// The on-chip K1 instance for a grid and a pass count: specialised for the
-// reference's 96x64, the runtime-size one for every other grid; the float32
-// solve (0 passes) or the TF32 one (1 or 3).
+// The on-chip K1 instance for a grid and a pass count: the float32 solve (0
+// passes) specialised for the reference's 96x64, the runtime-size one for
+// every other grid; the TF32 one (1 or 3) on wgmma where k1_wgmma takes the
+// grid (96x64, 64x64, 128x32), else the runtime-size one.
 decltype(&env_step_2d_kernel<0, 0>) env_step_kernel_for(int nx, int nz, int passes) {
   const bool ref = nx == 96 && nz == 64;
-  if (passes == 3) return ref ? env_step_2d_kernel<96, 64, 3> : env_step_2d_kernel<0, 0, 3>;
-  if (passes == 1) return ref ? env_step_2d_kernel<96, 64, 1> : env_step_2d_kernel<0, 0, 1>;
-  return ref ? env_step_2d_kernel<96, 64> : env_step_2d_kernel<0, 0>;
+  if (passes == 0) return ref ? env_step_2d_kernel<96, 64> : env_step_2d_kernel<0, 0>;
+  if (!k1_wgmma(nx, nz, passes)) {
+    return passes == 3 ? env_step_2d_kernel<0, 0, 3> : env_step_2d_kernel<0, 0, 1>;
+  }
+  if (passes == 3) {
+    return ref ? env_step_2d_kernel<96, 64, 3>
+                : (nx == 64 ? env_step_2d_kernel<64, 64, 3> : env_step_2d_kernel<128, 32, 3>);
+  }
+  return ref ? env_step_2d_kernel<96, 64, 1>
+             : (nx == 64 ? env_step_2d_kernel<64, 64, 1> : env_step_2d_kernel<128, 32, 1>);
 }
 
 // ---- K1's off-chip instance ---------------------------------------------------
@@ -1860,6 +2228,9 @@ env_step_2d_cluster_kernel(const float* __restrict__ u_in, const float* __restri
   constexpr int NS = kK1Levels;
   constexpr int XS = NXL > 0 ? k1_cols(NXL) : kK1MaxCols;
   constexpr bool kVec = NXL > 0 && NXL % 4 == 0 && NZ % 4 == 0;
+  // the solve on wgmma (dct: its packed constants, k1_tf32_constants)
+  constexpr bool kWg = NXL > 0 && k1_cluster_wgmma(NXL, NZ, kPasses);
+  constexpr bool kRingInDead = kWg && k1_wg_ring_in_dead(NXL, kPasses);
   extern __shared__ float smem[];
   float* const cta = cta_shared(smem);
   const int c = cluster_size(), r = cluster_rank();
@@ -1878,7 +2249,19 @@ env_step_2d_cluster_kernel(const float* __restrict__ u_in, const float* __restri
   float* sb = sa + nc;        // pHY', then r_hat, then p_hat
   float* ct = sb + nc;        // z analysis, (z, j)
   float* st = ct + nz * nz;   // z synthesis, (j, z)
-  float* bot = st + nz * nz;  // bottom (nxl)
+  float* bot = kWg ? sb + nc : st + nz * nz;  // bottom (nxl); no z transforms on wgmma
+  // the wgmma instances' own region (their ring, or r_hat's and t's), their
+  // mbarriers and their ring (K1WgRing), this warpgroup's; its first copies
+  // of a stage go where the ring allows (ablate_k1c drops the lines that call
+  // stage_fg)
+  float* own = bot + nxl;
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(own + k1_wg_own_floats(NXL, NZ, kPasses));
+  using Wg = K1WgRing<kWg ? NXL : 64, kWg ? NZ : 64, kWg ? kPasses : 1>;
+  const float* tf32 = dct;
+  const int nch = nx / Wg::KC;
+  Wg ring{nullptr, mbar + 2 * (threadIdx.x >> 7), tf32 + (r * nch * 4 + (threadIdx.x >> 7)) * Wg::S,
+          k1_tf32_g(nx, kPasses), nch, 0u};
+  auto stage_fg = [&] { ring.start(); };
   // with fg_rows (env_step_2d_cluster_fg) this CTA's rows of F, then of G
   // (nxl x nx each), which the float32 products read here
   // (never where the CTA's slab is compile-time and F and G's rows cannot
@@ -1905,9 +2288,14 @@ env_step_2d_cluster_kernel(const float* __restrict__ u_in, const float* __restri
       X.b[q] = b_in[ec + q];
     }
     for (int q = threadIdx.x; q < nf; q += kK1Threads) X.w[q] = Y.w[q] = w_in[ef + q];
-    for (int q = threadIdx.x; q < nz * nz; q += kK1Threads) {
-      ct[q] = dct[q];
-      st[q] = idct[q];
+    if constexpr (!kWg) {
+      for (int q = threadIdx.x; q < nz * nz; q += kK1Threads) {
+        ct[q] = dct[q];
+        st[q] = idct[q];
+      }
+    } else if (threadIdx.x == 0) {
+      for (int i = 0; i < kWgBars; ++i) mbar_init(mbar + i, 1);
+      fence_mbar_init();
     }
     for (int q = threadIdx.x; q < nxl; q += kK1Threads) bot[q] = bottom_in[e * nx + x_off + q];
     if (fg) {
@@ -1995,6 +2383,10 @@ env_step_2d_cluster_kernel(const float* __restrict__ u_in, const float* __restri
         return stage == 0 ? f + P.dt * (gamma * g) : f + P.dt * (gamma * g + zeta * g_prev);
       };
       float* D = X.u;  // the state copy that is dead after the march (3 nc + nxl floats)
+      if constexpr (kWg) {  // the ring in D, or its own
+        ring.slots = (kRingInDead ? D : own) + (threadIdx.x >> 7) * 2 * Wg::S;
+        if constexpr (!kRingInDead) stage_fg();  // its first chunks while the march runs
+      }
 
       // ---- 1. pHY' of this warp's columns into sb ---------------------------
 #pragma unroll
@@ -2104,6 +2496,7 @@ env_step_2d_cluster_kernel(const float* __restrict__ u_in, const float* __restri
         }
       }
       cluster_barrier();  // (2) the right neighbour's u*
+      if constexpr (kRingInDead) stage_fg();  // F's first chunks into D
 
       // ---- 3. div(u*, w*) / dt_stage into sa ----------------------------------
       {
@@ -2122,7 +2515,7 @@ env_step_2d_cluster_kernel(const float* __restrict__ u_in, const float* __restri
               }
               const float div = (ue - Y.u[i * nz + k]) * P.idx +
                                 (Y.w[i * nw + k + 1] - Y.w[i * nw + k]) * P.idz;
-              sa[i * nz + k] = div * idts;
+              sa[kWg ? k1_afrag_index(k, i, NZ / 16) : i * nz + k] = div * idts;  // wgmma: rhs^T
             }
           }
         }
@@ -2223,6 +2616,38 @@ env_step_2d_cluster_kernel(const float* __restrict__ u_in, const float* __restri
             }
           }
         }
+      } else if constexpr (kWg) {
+        // a source CTA's slab: this CTA's own, or a neighbour's through
+        // distributed shared memory
+        auto from = [&](float* slab) {
+          return [=](int q) {
+            return q == r ? (const float*)slab : (const float*)cluster_map(slab, q);
+          };
+        };
+        // ---- 4. the solve on the tensor cores: the x products over the cluster's slabs
+        float* rt = Wg::kRtInRing ? ring.slots
+                                  : (kRingInDead ? own : D) + (threadIdx.x >> 7) * Wg::H * Wg::NW * NZ;
+        k1_wg_products_123<NXL, NZ, kPasses>(ring, sb, rt, tf32, r, c, from(sa));
+        cluster_barrier();  // (4) every CTA's p_hat
+        k1_wg_product_4<NXL, NZ, kPasses>(ring, sa, r, c, from(sb));
+        cluster_barrier();  // (5) every CTA's p
+
+        // ---- 5. correct this thread's u*, w* by grad p, read from sa -----------
+        const float* p_left = cluster_map(sa, left) + (nxl - 1) * nz;
+#pragma unroll
+        for (int xi = 0; xi < XS; ++xi) {
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            const int i = x0 + xi, k = kl[s];
+            if (xi < xn && k < nz) {
+              const float p = sa[i * nz + k];
+              const float pm = i > 0 ? sa[(i - 1) * nz + k] : p_left[k];
+              Y.u[i * nz + k] -= dts * ((p - pm) * P.idx);
+              if (k > 0) Y.w[i * nw + k] -= dts * ((p - sa[i * nz + k - 1]) * P.idz);
+              if (last) p_out[e * nx * nz + (size_t)(x_off + i) * nz + k] = p;
+            }
+          }
+        }
       } else {
         // ---- 4. the solve on the tensor cores, every slab plain -------------
         auto rd = [](const float* a, int ld) {
@@ -2317,11 +2742,19 @@ env_step_2d_cluster_kernel(const float* __restrict__ u_in, const float* __restri
   for (int q = threadIdx.x; q < nf; q += kK1Threads) w_out[ef + q] = X.w[q];
 }
 
-// The cluster K1 instance for a grid's slab and a pass count: at float32
-// specialised for 64 and 96 columns of 64 levels a CTA (128x64 and 256x64;
-// 192x64), the runtime-size one for every other.
+// The cluster K1 instance for a grid's slab and a pass count: specialised
+// for 64 and 96 columns of 64 levels a CTA (128x64 and 256x64; 192x64), at
+// TF32 on wgmma, the runtime-size one for every other.
 decltype(&env_step_2d_cluster_kernel<0, 0>) env_step_cluster_kernel_for(int nxl, int nz,
                                                                           int passes) {
+  if (passes > 0 && k1_cluster_wgmma(nxl, nz, passes)) {
+    if (nxl == 64) {
+      return passes == 3 ? env_step_2d_cluster_kernel<64, 64, 3>
+                         : env_step_2d_cluster_kernel<64, 64, 1>;
+    }
+    return passes == 3 ? env_step_2d_cluster_kernel<96, 64, 3>
+                       : env_step_2d_cluster_kernel<96, 64, 1>;
+  }
   if (passes == 3) return env_step_2d_cluster_kernel<0, 0, 3>;
   if (passes == 1) return env_step_2d_cluster_kernel<0, 0, 1>;
   if (nz == 64 && nxl == 64) return env_step_2d_cluster_kernel<64, 64>;
@@ -2569,12 +3002,12 @@ int launch_env_step_2d(const float* u, const float* w, const float* b,
                        void* stream) {
   const bool on_chip = env_step_2d_on_chip(nx, nz);
   const int csize = env_step_2d_cluster_size(nx, nz);
-  const bool wgmma = on_chip && k1_wgmma(nx, nz, passes);
-  const size_t smem = wgmma ? k1_wgmma_smem_bytes(passes)
-                            : sizeof(float) * env_step_2d_smem_floats(nx, nz);
+  const bool wgmma = env_step_2d_wgmma(nx, nz, passes);
+  const size_t smem = env_step_2d_launch_smem_bytes(nx, nz, passes);
   if (nx < kK1MinNx || nz < 1 || !env_step_2d_offsets_fit(nx, nz) || smem > kSmemPerBlock ||
       n_substeps < 1 || (!on_chip && csize == 0 && scratch == nullptr) ||
-      (passes != 0 && passes != 1 && passes != 3) || (wgmma && tf32 == nullptr)) {
+      (passes != 0 && passes != 1 && passes != 3) ||
+      (env_step_2d_packed(nx, nz, passes) && tf32 == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const K1Params P = k1_params(nx, nz, n_substeps, dt, dx, dz, nu, kappa, min_b);
@@ -2595,8 +3028,10 @@ int launch_env_step_2d(const float* u, const float* w, const float* b,
     config.stream = (cudaStream_t)stream;
     config.attrs = cluster;
     config.numAttrs = 1;
-    err = cudaLaunchKernelEx(&config, kernel, u, w, b, bottom, fmat, gmat, dct, idct, dinv, u_out,
-                             w_out, b_out, p_out, P, (int)env_step_2d_cluster_fg(nx, nz));
+    // the wgmma instances take their packed constants in dct's place
+    err = cudaLaunchKernelEx(&config, kernel, u, w, b, bottom, fmat, gmat, wgmma ? tf32 : dct, idct,
+                             dinv, u_out, w_out, b_out, p_out, P,
+                             (int)env_step_2d_cluster_fg(nx, nz));
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
@@ -2629,9 +3064,7 @@ int launch_env_step_2d(const float* u, const float* w, const float* b,
 int env_step_2d_occupancy(int nx, int nz, int passes, int* out) {
   const bool on_chip = env_step_2d_on_chip(nx, nz);
   const int csize = env_step_2d_cluster_size(nx, nz);
-  const size_t smem = on_chip && k1_wgmma(nx, nz, passes)
-                          ? k1_wgmma_smem_bytes(passes)
-                          : sizeof(float) * env_step_2d_smem_floats(nx, nz);
+  const size_t smem = env_step_2d_launch_smem_bytes(nx, nz, passes);
   const bool slabs = env_step_2d_slabs_on_chip(nx, nz);
   if (nx < kK1MinNx || nz < 1 || !env_step_2d_offsets_fit(nx, nz) || smem > kSmemPerBlock ||
       (passes != 0 && passes != 1 && passes != 3)) {

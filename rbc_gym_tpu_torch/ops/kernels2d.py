@@ -318,7 +318,7 @@ def env_step_2d(
         raise ValueError(f"n_substeps must be >= 1, got {n_substeps}")
     cluster = limits.env_step_2d_cluster_size(nx, nz) > 0
     global_slabs = not limits.env_step_2d_slabs_on_chip(nx, nz)
-    tf32 = (tf32_constants(spectral, passes) if limits.env_step_2d_wgmma(nx, nz, passes)
+    tf32 = (tf32_constants(spectral, passes) if limits.env_step_2d_packed(nx, nz, passes)
             else None)
     u_out, w_out, b_out, p_out = (torch.empty_like(t) for t in (u, w, b, u))
     scratch = torch.empty(e * limits.env_step_2d_scratch_floats(nx, nz), dtype=u.dtype,

@@ -37,17 +37,6 @@ def env_step_2d_on_chip(nx: int, nz: int) -> bool:
             and _on_chip_smem_bytes(nx, nz) <= SMEM_PER_BLOCK)
 
 
-K1_WGMMA_GRID = (96, 64)  # (nx, nz) of K1's TF32 instances whose solve runs on wgmma
-
-
-def env_step_2d_wgmma(nx: int, nz: int, passes: int) -> bool:
-    """Whether K1's instance with ``passes`` TF32 passes runs its solve on
-    wgmma (``k1_wgmma`` in ``csrc/rbc2d.cu``): the on-chip TF32 instances at
-    96x64, which read their constants packed by
-    ``ops.poisson.k1_tf32_constants``."""
-    return passes in (1, 3) and (nx, nz) == K1_WGMMA_GRID
-
-
 K1_MAX_CLUSTER = 8  # CTAs of K1's cluster instance: the portable cluster size (kK1MaxCluster)
 
 
@@ -67,6 +56,55 @@ def env_step_2d_cluster_size(nx: int, nz: int) -> int:
             return c
         c *= 2
     return 0
+
+
+# K1's TF32 instances whose solve runs on wgmma (``k1_wgmma`` and
+# ``k1_cluster_wgmma`` in ``csrc/rbc2d.cu``): the on-chip grids (nx, nz), and
+# a cluster CTA's columns and levels (nx / c, nz)
+K1_WGMMA_GRIDS = ((96, 64), (64, 64), (128, 32))
+K1_CLUSTER_WGMMA_SLABS = ((64, 64), (96, 64))
+
+
+def env_step_2d_wgmma(nx: int, nz: int, passes: int) -> bool:
+    """Whether K1's instance with ``passes`` TF32 passes runs its solve on
+    wgmma (``env_step_2d_wgmma`` in ``csrc/rbc2d.cu``), reading its constants
+    packed by ``ops.poisson.k1_tf32_constants``: the on-chip instance at
+    96x64, 64x64 and 128x32 (``K1_WGMMA_GRIDS``), the cluster's where a
+    CTA's columns are 64 or 96 of 64 levels (``K1_CLUSTER_WGMMA_SLABS``:
+    128x64 and 256x64, 192x64)."""
+    if passes not in (1, 3):
+        return False
+    c = env_step_2d_cluster_size(nx, nz)
+    if c:
+        return (nx // c, nz) in K1_CLUSTER_WGMMA_SLABS
+    return env_step_2d_on_chip(nx, nz) and (nx, nz) in K1_WGMMA_GRIDS
+
+
+def env_step_2d_packed(nx: int, nz: int, passes: int) -> bool:
+    """Whether K1's instance with ``passes`` TF32 passes reads its solve's
+    constants packed on the host by ``ops.poisson.k1_tf32_constants``
+    (``env_step_2d_packed`` in ``csrc/rbc2d.cu``): the wgmma instances
+    (``env_step_2d_wgmma``) and the on-chip runtime-size TF32 one, whose x
+    products stage F's and G's packs through shared memory."""
+    return env_step_2d_wgmma(nx, nz, passes) or (passes in (1, 3)
+                                                  and env_step_2d_on_chip(nx, nz))
+
+
+def k1_wgmma_chunk(nxl: int, nz: int, passes: int) -> int:
+    """F's or G's columns a chunk of a wgmma instance's ring over ``nxl``
+    columns of ``nz`` levels a block (``k1_wg_chunk``): the widest of nxl,
+    nxl / 2, ... whose eight slots (two a warpgroup) fit the dead state copy
+    or a region of their own beside the rest of the block's shared memory."""
+    parts = 2 if passes == 3 else 1
+    nc = nxl * nz
+    base = 4 * (2 * (2 * nc + nxl * (nz + 1)) + 2 * nc + nxl) + 8 * 8  # and 8 mbarriers
+    kc = nxl
+    while kc > 8:
+        ring = 8 * parts * (nxl // 4) * kc
+        if ring <= nxl * (3 * nz + 1) or base + 4 * ring <= SMEM_PER_BLOCK:
+            break
+        kc //= 2
+    return kc
 
 
 def env_step_2d_cluster_fg(nx: int, nz: int) -> bool:

@@ -223,59 +223,96 @@ def tf32_parts(x: np.ndarray, passes: int) -> list:
     return [hi, rna(x - hi)]
 
 
-K1_WGMMA_N = 24  # modes or columns of a K1 warpgroup's wgmma (96 over four)
-
-
-def k1_b_rows(mat: np.ndarray, group: int) -> np.ndarray:
-    """Rows [24 group, 24 group + 24) of ``mat`` (rows of K) as a B^T
-    operand of wgmma in the K-major core-matrix layout without swizzle
-    (``k1_bcore_index`` in ``csrc/rbc2d.cu``): 8 x 4 core matrices, each
-    row-major, ordered by 8-row group and then by K."""
-    rows = mat[K1_WGMMA_N * group:K1_WGMMA_N * (group + 1)]
-    k = rows.shape[1]
-    return rows.reshape(K1_WGMMA_N // 8, 8, k // 4, 4).transpose(0, 2, 1, 3).reshape(-1)
+def k1_b_core(block: np.ndarray) -> np.ndarray:
+    """A block of rows (N, K) as a B^T operand of wgmma in the K-major
+    core-matrix layout without swizzle (``k1_bcore_index`` in
+    ``csrc/rbc2d.cu``): 8 x 4 core matrices, each row-major, ordered by
+    8-row group and then by K, flattened."""
+    n, k = block.shape
+    return block.reshape(n // 8, 8, k // 4, 4).transpose(0, 2, 1, 3).reshape(-1)
 
 
 def k1_a_fragments(a: np.ndarray) -> np.ndarray:
-    """A 64-row A operand of wgmma (64, K) as K1 reads it from registers,
-    (K / 8, 4, 32, 4): k-step s, warp w, lane 4 g + t, register i holds
-    A[16 w + g + 8 (i % 2)][8 s + t + 4 (i // 2)] (``wgmma_m64n24k8``)."""
-    k = a.shape[1]
-    return a.reshape(4, 2, 8, k // 8, 2, 4).transpose(3, 0, 2, 5, 4, 1).reshape(k // 8, 4, 32, 4)
+    """An A operand of wgmma with 16 mw rows (mw = rows / 16, the warps that
+    hold them) as K1 reads it from registers, (K / 8, mw, 32, 4): k-step s,
+    warp w, lane 4 g + t, register i holds A[16 w + g + 8 (i % 2)][8 s + t
+    + 4 (i // 2)] (``wgmma_tf32``)."""
+    rows, k = a.shape
+    mw = rows // 16
+    return a.reshape(mw, 2, 8, k // 8, 2, 4).transpose(3, 0, 2, 5, 4, 1).reshape(k // 8, mw, 32,
+                                                                                   4)
 
 
 def k1_tf32_constants(spectral: Spectral2D, passes: int) -> torch.Tensor:
-    """The solve's constants of K1's TF32 instances at 96x64, packed once in
-    the order their kernel reads them (``k1_tf32_*`` in ``csrc/rbc2d.cu``),
-    a float32 tensor on the constants' device. Each value is TF32-exact as
-    the products take it (``tf32_parts``: at 3 passes hi and lo, at 1 the
-    value rounded), so the kernel splits and rounds no constant. In order:
-    F's and G's rows of each warpgroup g of four as B^T operands
-    (``k1_b_rows``: F's rows the modes [24 g, 24 g + 24), G's the columns),
-    in the order a bulk copy puts them into the state copy (at 1 pass
-    [g][F_g | G_g], at 3 [g][F_g hi | F_g lo] and then [g][G_g hi |
-    G_g lo]); ct^T and st^T, the A operands of products 2 and 3, in the
-    fragment order (``k1_a_fragments``; at 3 passes a lane's hi and then lo
-    values of a k-step); dinv in the order of product 2's accumulators:
-    [g][w][lane][4 j + 2 h + e] is dinv[24 g + 8 j + 2 t + e][16 w + g' + 8 h]
-    for lane 4 g' + t."""
+    """The solve's constants of K1's TF32 instances that read them packed
+    (``limits.env_step_2d_packed``), packed once in the order their kernel
+    reads them, a float32 tensor on the constants' device. Each value is
+    TF32-exact as the products take it (``tf32_parts``: at 3 passes hi and
+    lo, at 1 the value rounded), so the kernel splits and rounds no packed
+    constant.
+
+    The instances on wgmma (``limits.env_step_2d_wgmma``: on the chip
+    96x64, 64x64, 128x32; on a cluster of c CTAs 64 or 96 columns of 64
+    levels a CTA; ``k1_tf32_*`` in ``csrc/rbc2d.cu``): F's chunks and then
+    G's, each [CTA r][chunk j][warpgroup g][part] the B^T operand
+    (``k1_b_core``) of the warpgroup's NW = nx / (4 c) rows (F's the modes r
+    nx / c + g NW .., G's the columns) over the chunk's KC columns
+    (``limits.k1_wgmma_chunk``): chunk j those of CTA (r + j // (nx / c /
+    KC)) % c from (j % (nx / c / KC)) KC on, in the order CTA r takes them;
+    ct^T and st^T, the A operands of products 2 and 3, in the fragment order
+    of nz / 16 warps (``k1_a_fragments``; at 3 passes a lane's hi and then
+    lo values of a k-step); dinv in the order of product 2's accumulators:
+    [r][g][w][lane][4 j + 2 h + e] is dinv[r nx / c + g NW + 8 j + 2 t +
+    e][16 w + g' + 8 h] for lane 4 g' + t.
+
+    The on-chip runtime-size instance (``k1_rt_step``): F and then G, each
+    zero-padded to whole 16-row tiles and 8-deep k-steps, in mma.sync's A
+    fragment order [k-step][tile][part][lane][4] (``k1_a_fragments`` of the
+    padded matrix, its parts side by side)."""
+    from rbc_gym_tpu_torch.ops import limits  # (limits imports nothing of this module)
+
     if passes not in (1, 3):
         raise ValueError(f"passes must be 1 or 3, got {passes}")
     f, g, ct, st, dinv = (np.asarray(t.detach().to("cpu", torch.float32))
                           for t in (spectral.f, spectral.g, spectral.dct, spectral.idct,
                                     spectral.dinv))
-    if dinv.shape != (96, 64):
-        raise ValueError(f"K1's wgmma instances take 96x64, not {dinv.shape[0]}x{dinv.shape[1]}")
-    fp, gp = tf32_parts(f, passes), tf32_parts(g, passes)
-    groups = range(96 // K1_WGMMA_N)
-    if passes == 1:
-        fg = [k1_b_rows(m[0], q) for q in groups for m in (fp, gp)]
-    else:
-        fg = [k1_b_rows(part, q) for m in (fp, gp) for q in groups for part in m]
+    nx, nz = dinv.shape
+    if not limits.env_step_2d_packed(nx, nz, passes):
+        raise ValueError(f"K1 has no instance with packed constants at {nx}x{nz} and {passes} "
+                         "passes (limits.env_step_2d_packed)")
+    if not limits.env_step_2d_wgmma(nx, nz, passes):
+        rows, depth = -(-nx // 16) * 16, -(-nx // 8) * 8
+
+        def runtime(m):
+            padded = [np.pad(part, ((0, rows - nx), (0, depth - nx))) for part in
+                      tf32_parts(m, passes)]
+            return np.stack([k1_a_fragments(part) for part in padded], axis=2).reshape(-1)
+
+        return torch.as_tensor(np.concatenate([runtime(f), runtime(g)]),
+                               device=spectral.f.device)
+    c = limits.env_step_2d_cluster_size(nx, nz) or 1
+    nxl = nx // c
+    nw, kc = nxl // 4, limits.k1_wgmma_chunk(nxl, nz, passes)
+    sub = nxl // kc
+
+    def chunks(parts):
+        out = []
+        for r in range(c):
+            for j in range(c * sub):
+                col = ((r + j // sub) % c) * nxl + (j % sub) * kc
+                for q in range(4):
+                    rows = slice(r * nxl + q * nw, r * nxl + (q + 1) * nw)
+                    out += [k1_b_core(part[rows, col:col + kc]) for part in parts]
+        return out
+
     consts = [np.concatenate([k1_a_fragments(part) for part in tf32_parts(a, passes)], axis=-1)
               for a in (ct.T, st.T)]
-    d = dinv.reshape(4, 3, 4, 2, 4, 2, 8).transpose(0, 4, 6, 2, 1, 5, 3)
-    packed = np.concatenate([*fg, *(c.reshape(-1) for c in consts), d.reshape(-1)])
+    rr, gg, w, lane, i = np.meshgrid(np.arange(c), np.arange(4), np.arange(nz // 16),
+                                     np.arange(32), np.arange(nw // 2), indexing="ij")
+    d = dinv[rr * nxl + gg * nw + 8 * (i // 4) + 2 * (lane % 4) + i % 2,
+             16 * w + lane // 4 + 8 * ((i // 2) % 2)]
+    packed = np.concatenate([*chunks(tf32_parts(f, passes)), *chunks(tf32_parts(g, passes)),
+                             *(x.reshape(-1) for x in consts), d.reshape(-1)])
     return torch.as_tensor(packed, device=spectral.f.device)
 
 

@@ -2,8 +2,8 @@
 """Time the stage kernels of several source trees on one CUDA card.
 
     python3 scripts/kernel_variants.py
-        [--kernels k1,k1c,k1o,k1g,k1g_times,k1t,k1t_times,k2,k3,k3qp,k5_training,k5,k5z,
-                   k5z_times,k6,k7,field_step]
+        [--kernels k1,k1c,k1c_times,k1o,k1g,k1g_times,k1t,k1t_times,k2,k3,k3qp,
+                   k5_training,k5,k5z,k5z_times,k6,k7,field_step]
         TREE [TREE ...]
 
 Each TREE is a checkout of this repo (for example a ``git archive`` of a
@@ -24,12 +24,19 @@ gates:
   substeps; its gates (6 substeps at 128 envs, 50 at 1024 envs) and a
   50-substep step at 64 envs against a float64 plain run, beside the
   float32 plain version's own error;
-- ``k1c``: K1 off the chip at 1024 envs on 128x64 and 192x64 (its
-  cluster instance where the tree has one, else its off-chip instance),
-  one env step of 50 substeps, its "high" and "default" instances on
-  128x64 too, with float32 K1 on 96x64 timed first and last; the gates at
-  6 substeps and 128 envs on both grids (and at "high" and "default" on
-  128x64), and where the tree has it ``env_step_2d_occupancy``;
+- ``k1c``: K1 at 1024 envs, one env step of 50 substeps, at each
+  precision (float32, "high", "default") on ``K1C_GRIDS``: 128x64 and
+  192x64 (its cluster instance where the tree has one, else its off-chip
+  instance) and 128x32, 64x64 and 128x40 (on the chip), with float32 K1
+  on 96x64 timed first and last; the gates at 6 substeps and 128 envs at
+  each precision, and ``env_step_2d_occupancy``; and the TF32 times of
+  builds of the tree's ``csrc/rbc2d.cu`` cut for timing only
+  (``ablate_k1c``; outputs wrong, never gated): without the products,
+  without the march, and on the wgmma design without the z or the x
+  products' wgmma; and of two variants (``K1C_VARIANTS``): a
+  neighbour's slab staged in shared memory in place of distributed
+  shared memory, three k-steps in flight; ``k1c_times`` the same without
+  the cut builds;
 - ``k1o``: K1's off-chip instance (its slabs in shared memory) at 1024
   envs on 127x64, one env step of 50 substeps, float32 and "high", with
   float32 K1 on 96x64 timed first and last; its gates at 6 substeps and
@@ -103,6 +110,7 @@ without a card or if any tree fails.
 
 from __future__ import annotations
 
+import difflib
 import json
 import os
 import re
@@ -151,13 +159,24 @@ def k1():
     return rec, errs
 
 
-def k1c():
-    # K1 off the chip: 128x64 and 192x64 (the cluster instance where the
-    # tree has one, else the off-chip instance), float32 K1 on 96x64 timed
-    # first and last in the same process
-    from rbc_gym_tpu_torch.ops import kernels2d as k2d, limits
+K1C_CUTS, K1C_DIR = (("products", "march", "noz", "nox", "staged", "wait2"),
+                     "rbc_gym_tpu_torch/_build/k1c")
+K1C_VARIANTS = ("staged", "wait2")  # builds that change the design, not cut it
+# k1c's grids (nz, nx): the cluster instance's 128x64 and 192x64, the
+# on-chip instance's 128x32 and 64x64 (off 96x64: its runtime-size TF32
+# instances where the tree has no other) and 128x40 (its runtime-size one)
+K1C_GRIDS = ((64, 128), (64, 192), (32, 128), (64, 64), (40, 128))
+K1C_PRECISIONS = (("float32", None), ("bf16x3", "high"), ("default", "default"))
 
-    def k1_ms(shape, reps=3, prec=None):
+
+def k1c(cuts=True):
+    # K1 on K1C_GRIDS at each precision, float32 K1 on 96x64 timed first and
+    # last in the same process, and with cuts the TF32 launches from the
+    # ablated libraries main() built beside the tree's own
+    import ctypes
+    from rbc_gym_tpu_torch.ops import _build, kernels2d as k2d, limits
+
+    def k1_ms(shape, prec=None, reps=3):
         solver, case = cs.make_case(device, 1024, shape, 1.5, seed=2)
         ms = cs._cuda_ms(lambda: cs.k1_run(solver, case, True, prec), reps)
         del case
@@ -165,28 +184,53 @@ def k1c():
         return solver, ms
 
     rec, errs = {"k1_96x64_first_ms": k1_ms((64, 96))[1]}, {}
-    for shape in ((64, 128), (64, 192)):
+    for shape in K1C_GRIDS:
         nz, nx = shape
-        solver, ms = k1_ms(shape)
-        bound_ms, by = cs.bound(cs.env_step_work(1024, nx, nz, solver.params.substeps_per_env_step))
         c = getattr(limits, "env_step_2d_cluster_size", lambda *_: 0)(nx, nz)
-        r = {"instance": f"cluster {c}" if c else "off_chip", "ms": ms, "bound_ms": bound_ms,
-             "bound_by": by, "share_of_bound": bound_ms / ms}
-        if hasattr(k2d, "env_step_2d_occupancy"):
-            r["occupancy"] = k2d.env_step_2d_occupancy(nx, nz)
+        on_chip = limits.env_step_2d_on_chip(nx, nz)
+        r = {"instance": f"cluster {c}" if c else ("on_chip" if on_chip else "off_chip")}
+        for name, prec in K1C_PRECISIONS:
+            solver, ms = k1_ms(shape, prec)
+            bound_ms, by = cs.bound(cs.env_step_work(1024, nx, nz,
+                                                     solver.params.substeps_per_env_step, prec))
+            r[name] = {"ms": ms, "bound_ms": bound_ms, "bound_by": by,
+                       "share_of_bound": bound_ms / ms}
+            if hasattr(k2d, "env_step_2d_occupancy"):
+                r[name]["occupancy"] = k2d.env_step_2d_occupancy(nx, nz, prec)
         s6, c6 = cs.make_case(device, 128, shape, 0.18, seed=4)
         errs[f"{nx}x{nz}_6"] = (max(cs.abs_diffs(cs.K1_OUT, cs.k1_run(s6, c6, True),
                                                  cs.k1_run(s6, c6, False)).values()), cs.K1_ATOL)
-        if shape == (64, 128):  # the TF32 instances there
-            errs[f"{nx}x{nz}_6_bf16x3"] = (max(cs.abs_diffs(
-                cs.K1_OUT, cs.k1_run(s6, c6, True, "high"),
-                cs.k1_run(s6, c6, False, "high")).values()), cs.K1_ATOL)
-            one = cs.k1_tf32_errors(s6, c6, cs.k1_run(s6, c6, True, "default"))
-            errs[f"{nx}x{nz}_6_default"] = (one["kernel"], one["bound"])
-            for prec in ("high", "default"):
-                r[f"ms_{prec}"] = k1_ms(shape, 3, prec)[1]
+        errs[f"{nx}x{nz}_6_bf16x3"] = (max(cs.abs_diffs(
+            cs.K1_OUT, cs.k1_run(s6, c6, True, "high"),
+            cs.k1_run(s6, c6, False, "high")).values()), cs.K1_ATOL)
+        one = cs.k1_tf32_errors(s6, c6, cs.k1_run(s6, c6, True, "default"))
+        errs[f"{nx}x{nz}_6_default"] = (one["kernel"], one["bound"])
         rec[f"{nx}x{nz}"] = r
         del c6
+    real = _build.load_library
+    for what in K1C_CUTS if cuts else ():
+        if not os.path.exists(f"{K1C_DIR}/{what}/lib.so"):  # a cut the tree's design has not
+            continue
+        lib = ctypes.CDLL(f"{K1C_DIR}/{what}/lib.so")
+        for fn_name, argtypes in _build.ARGTYPES.items():
+            if hasattr(lib, fn_name):
+                getattr(lib, fn_name).argtypes = argtypes
+                getattr(lib, fn_name).restype = ctypes.c_int
+        _build.load_library = lambda lib=lib: lib
+        try:
+            for nz, nx in K1C_GRIDS:
+                for name, prec in K1C_PRECISIONS[1:]:
+                    key = f"{what}_ms" if what in K1C_VARIANTS else f"no_{what}_ms"
+                    rec[f"{nx}x{nz}"][name][key] = k1_ms((nz, nx), prec)[1]
+        finally:
+            _build.load_library = real
+    for nz, nx in K1C_GRIDS:
+        for name, _ in K1C_PRECISIONS[1:] if cuts else ():
+            r = rec[f"{nx}x{nz}"][name]
+            if "no_products_ms" in r and "no_march_ms" in r:
+                products, march = r["ms"] - r["no_products_ms"], r["ms"] - r["no_march_ms"]
+                r["split_ms"] = {"products": products, "march": march,
+                                 "rest": r["ms"] - products - march}
     rec["k1_96x64_last_ms"] = k1_ms((64, 96))[1]
     return rec, errs
 
@@ -548,6 +592,7 @@ def field_step():
 RUNS = {
     "k1": k1,
     "k1c": k1c,
+    "k1c_times": lambda: k1c(cuts=False),
     "k1o": k1o,
     "k1t": k1t,
     "k1t_times": lambda: k1t(cuts=False),
@@ -608,6 +653,87 @@ def ablate_k1(src: str, what: str) -> str:
     a = find("// ---- 4. the solve on the tensor cores", head)
     b = find("// ---- 5. correct", a)
     return "\n".join([line for line in lines[:a + 1] if "stage_fg(" not in line] + lines[b:])
+
+
+# K1's TF32 cuts and variants of ``k1c`` (MEASURE's K1C_CUTS, K1C_VARIANTS and K1C_DIR)
+K1C_CUTS = ("products", "march", "noz", "nox", "staged", "wait2")
+K1C_DIR = Path("rbc_gym_tpu_torch") / "_build" / "k1c"
+
+
+def ablate_k1c(src: str, what: str) -> str:
+    """``csrc/rbc2d.cu`` with a part of K1's on-chip and cluster instances
+    cut, for timing only: "march" empties phase 2's block of each kernel
+    (the tendencies and the RK update), "products" drops, in each kernel,
+    the lines of every TF32 solve from its "// ---- 4. the solve on the
+    tensor cores" marker to the next "// ---- 5. correct" but the cluster
+    barriers among them, and the lines that issue the bulk copies of F and
+    G (``stage_fg(``) before them. "staged" is a variant, not a cut: the
+    cluster's wgmma instances at 64 columns a CTA read a neighbour's slab
+    from a copy in their own shared memory (``stage_slabs``, after the
+    dead copy's first 2 nc floats, between block barriers) in place of
+    distributed shared memory; its outputs hold the gates. The wgmma
+    design's cuts: "noz" drops the z products' wgmma (products 2 and 3, and
+    their constants' loads), "nox" the x products' (products 1 and 4; their
+    bulk copies and waits stay); "wait2", a variant, lets three k-steps of
+    a product be in flight (``wgmma_wait<2>``) in place of two."""
+    wg_cuts = {"noz": (r"\n *wg_mma<kPasses, NW, NZ / 8>\(acc, consts\([^;]*;", ""),
+               "nox": (r"\n *wg_mma<kPasses, NW, KC / 8>\(acc, WgSlabA[^;]*;", ""),
+               "wait2": (r"wgmma_wait<1>\(\);  // k-step s - 1 is done",
+                         "wgmma_wait<2>();  // k-step s - 2 is done")}
+    if what in wg_cuts:
+        old, new = wg_cuts[what]
+        if not re.search(old, src):
+            raise ValueError(f"{what}: no {old!r} in K1's wgmma solve")
+        return re.sub(old, new, src)
+    if what == "staged":
+        old = ("            return q == r ? (const float*)slab : "
+               "(const float*)cluster_map(slab, q);")
+        if old not in src:
+            raise ValueError("no wgmma slab source in the cluster instance")
+        new = """            if (q == r || NXL != 64) {
+              return q == r ? (const float*)slab : (const float*)cluster_map(slab, q);
+            }
+            __syncthreads();
+            stage_slabs(D + 2 * nc, slab, (q - r + c) % c, 1);
+            __syncthreads();
+            return (const float*)(D + 2 * nc);"""
+        return src.replace(old, new)
+    lines = src.split("\n")
+    heads = [i for i, line in enumerate(lines)
+             if "env_step_2d_kernel(const float*" in line
+             or "env_step_2d_cluster_kernel(const float*" in line]
+    if len(heads) != 2:
+        raise ValueError("K1's on-chip and cluster kernels are not where k1c looks")
+
+    def find(text, start):
+        i = next((i for i in range(start, len(lines)) if text in lines[i]), None)
+        if i is None:
+            raise ValueError(f"no {text!r} in K1")
+        return i
+
+    for head in reversed(heads):  # the later kernel first: the earlier's lines stay put
+        end = next((i for i in range(head + 1, len(lines)) if lines[i].startswith("}")),
+                   len(lines))
+        if what == "march":
+            m = find("// ---- 2. tendencies and the RK update, marching along x", head)
+            if lines[m + 1].strip() != "{":
+                raise ValueError("phase 2 of K1 is not one block")
+            lines = lines[:m + 1] + ["      {}"] + lines[_block_end(lines, m + 1) + 1:]
+        elif what == "products":
+            out, i = lines[:head], head
+            while i < end:
+                if "// ---- 4. the solve on the tensor cores" in lines[i]:
+                    b = find("// ---- 5. correct", i)
+                    out += [lines[i]] + [x for x in lines[i + 1:b] if "cluster_barrier(" in x]
+                    i = b
+                else:
+                    out.append(lines[i])
+                    i += 1
+            lines = [x for x in out[:head] ] + [x for x in out[head:] if "stage_fg(" not in x] \
+                + lines[end:]
+        else:
+            raise ValueError(f"unknown cut {what}")
+    return "\n".join(lines)
 
 
 # K1's off-chip instance's timing-only cuts of ``k1g`` (MEASURE's K1G_CUTS and K1G_DIR)
@@ -765,6 +891,7 @@ def build_ablations(tree: Path, nvcc: str, kernels: str) -> list:
     cuts = [(K1T_DIR, what, "rbc2d.cu", ablate_k1) for what in ABLATIONS if "k1t" in names]
     cuts += [(K5Z_DIR, what, "rbc3d.cu", ablate_k5z) for what in K5Z_CUTS if "k5z" in names]
     cuts += [(K1G_DIR, what, "rbc2d.cu", ablate_k1g) for what in K1G_CUTS if "k1g" in names]
+    cuts += [(K1C_DIR, what, "rbc2d.cu", ablate_k1c) for what in K1C_CUTS if "k1c" in names]
     procs = []
     for base, what, source, ablate in cuts:
         try:
@@ -816,25 +943,40 @@ def ptx_sources(tree: Path, nvcc: str) -> list:
 
 
 def ptx_kernels(tree: Path) -> dict:
-    """Each kernel's PTX body in the tree's ``-ptx`` builds, keyed by file and
-    entry: the anonymous namespace's hash and the label numbers (which move
-    when a kernel is added before another) normalised, and a trailing
-    default template argument (``ELb0E``) dropped from the key, so that an
-    instance keeps its key when a template grows a defaulted parameter."""
+    """Each kernel's and device function's PTX body in the tree's ``-ptx``
+    builds, keyed by file and name: each body runs from its ``.entry`` or
+    ``.func`` to the next top-level one (so that a function emitted between
+    two kernels is not counted as part of the first); the anonymous
+    namespace's and internal symbols' hashes (which differ between copies
+    of a source), the label, local-depot, call-sequence and
+    internal-function numbers (which move when a kernel is added before
+    another) normalised, blank lines dropped, and a
+    trailing default template argument (``ELb0E``) dropped from the key, so
+    that an instance keeps its key when a template grows a defaulted
+    parameter."""
     import re
 
+    head = re.compile(r"^[ \t]*(?:\.(?:visible|weak|extern)[ \t]+)*\.(entry|func)[ \t]+"
+                      r"(?:\([^)]*\)[ \t]*)?([A-Za-z_$][\w$]*)[ \t]*\(", re.M)
     kernels = {}
     for ptx in sorted((tree / "rbc_gym_tpu_torch" / "_build").glob("*.ptx")):
         text = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", ptx.read_text())
+        text = re.sub(r"_INTERNAL_[0-9a-f]+_", "_INTERNAL_", text)
         text = re.sub(r"\$L__BB\d+_", "$L__BB_", text)
-        for m in re.finditer(r"\.entry (\S+)\(", text):
-            name = m.group(1)
-            end = text.find(".entry ", m.end())
+        text = re.sub(r"__internal_\d+", "__internal_", text)
+        text = re.sub(r"__local_depot\d+", "__local_depot", text)
+        text = re.sub(r"callseq \d+", "callseq", text)
+        text = re.sub(r"\n\s*\n", "\n", text)
+        heads = list(head.finditer(text))
+        for m, nxt in zip(heads, heads[1:] + [None]):
+            name = m.group(2)
+            body = text[m.end():nxt.start() if nxt else len(text)]
+            if m.group(1) == "func" and "{" not in body.split(";", 1)[0]:
+                continue  # a declaration, not a definition
             key = name
             while "ELb0EEEv" in key:
                 key = key.replace("ELb0EEEv", "EEEv")
-            kernels[f"{ptx.stem}:{key}"] = text[m.end():end if end > 0 else len(text)].replace(
-                name, "")
+            kernels[f"{ptx.stem}:{key}"] = body.replace(name, "")
     return kernels
 
 
@@ -929,11 +1071,16 @@ def main() -> int:
     first = ptx_kernels(trees[0])
     for t in trees[1:]:
         other = ptx_kernels(t)
+        differ = sorted(k for k in first.keys() & other.keys() if first[k] != other[k])
         print(json.dumps({"ptx": str(t), "against": str(trees[0]), "kernels": len(other),
-                          "differ": sorted(k for k in first.keys() & other.keys()
-                                           if first[k] != other[k]),
+                          "differ": differ,
                           "only_here": sorted(other.keys() - first.keys()),
                           "only_there": sorted(first.keys() - other.keys())}), flush=True)
+        for k in differ[:3]:  # where the first differ: a few lines of each diff
+            diff = list(difflib.unified_diff(first[k].splitlines(), other[k].splitlines(),
+                                             lineterm="", n=1))
+            print(json.dumps({"ptx_diff": k, "lines": len(diff), "head": diff[:40]}),
+                  flush=True)
     for t, b in zip(trees, builds):
         if b.returncode == 0:
             try:

@@ -123,9 +123,9 @@ def test_smoke_poisson_precision_2d_phase_runs_on_cpu_plain_halves():
         other_shapes=(("runtime", (32, 20)), ("runtime_plain", (12, 20)), ("cluster", (2, 130)),
                       ("off_chip", (8, 3))))
     assert all(v["error"] <= v["bound"] for v in out["gated"].values())
-    assert {"bf16x3", "default", "bf16x3_runtime", "bf16x3_runtime_plain", "bf16x3_cluster",
-            "default_cluster", "bf16x3_off_chip", "substep_bf16x3",
-            "fixed_point_bf16x3"} == set(out["gated"])
+    assert {"bf16x3", "default", "bf16x3_runtime", "default_runtime", "bf16x3_runtime_plain",
+            "default_runtime_plain", "bf16x3_cluster", "default_cluster", "bf16x3_off_chip",
+            "substep_bf16x3", "fixed_point_bf16x3"} == set(out["gated"])
     assert out["max_abs_err"] == {"env_step_2d_tf32x3": 0.0, "env_step_2d_tf32": 0.0}
     assert [o["swizzled"] for o in out["other_instances"].values()] == [True, False, False,
                                                                          False]

@@ -46,6 +46,13 @@ static std::vector<float> rd(const char* n, size_t count) {
   fclose(f);
   return v;
 }
+static std::vector<float> rd_all(const char* n) {  // a file of floats, whole
+  FILE* f = fopen((dir + n).c_str(), "rb");
+  if (!f || fseek(f, 0, SEEK_END) != 0) exit(2);
+  const size_t count = (size_t)ftell(f) / 4;
+  fclose(f);
+  return rd(n, count);
+}
 static void wr(const char* n, const std::vector<float>& v) {
   FILE* f = fopen((dir + n).c_str(), "wb");
   fwrite(v.data(), 4, v.size(), f);
@@ -90,12 +97,16 @@ static void run_clusters(int E, int c, const std::function<void()>& body) {
     blockIdx.x = e * c;  // the kernel's env is blockIdx.x / c, its CTA host_cta
     HostBarrier cluster(c * kK1Threads);
     host_cluster_barrier = &cluster;
-    std::vector<std::unique_ptr<HostBarrier>> ctas, warps;
+    std::vector<std::unique_ptr<HostBarrier>> ctas, warps, groups;
     for (int r = 0; r < c; ++r) {
       ctas.push_back(std::make_unique<HostBarrier>(kK1Threads));
       for (int v = 0; v < kK1Warps; ++v) {
         warps.push_back(std::make_unique<HostBarrier>(32));
         warp_barriers[r * 32 + v] = warps.back().get();
+      }
+      for (int v = 0; v < kK1Threads / 128; ++v) {
+        groups.push_back(std::make_unique<HostBarrier>(128));
+        wg_barriers[r * 4 + v] = groups.back().get();
       }
     }
     run_fibers(c * kK1Threads, [&](int i) {
@@ -114,14 +125,20 @@ int main(int argc, char** argv) {
   const std::string mode = argv[1];
   if (mode == "smem") {  // smem NX NZ: K1's shared and scratch floats and instance, K2's,
                          // K1's cluster size, whether its CTAs hold F and G, whether its
-                         // slabs are on the chip and its offsets fit
+                         // slabs are on the chip and its offsets fit, whether its instance
+                         // at 1 and at 3 TF32 passes runs on wgmma, whether it reads
+                         // packed constants, and its wgmma ring's chunk
     const int nx = atoi(argv[2]), nz = atoi(argv[3]);
-    printf("%zu %zu %d %zu %zu %d %d %d %d %d\n", env_step_2d_smem_floats(nx, nz),
+    printf("%zu %zu %d %zu %zu %d %d %d %d %d %d %d %d %d %d %d\n",
+           env_step_2d_smem_floats(nx, nz),
            env_step_2d_scratch_floats(nx, nz), (int)env_step_2d_on_chip(nx, nz),
            tendencies_2d_smem_floats(nx, nz), tendencies_2d_scratch_floats(nx, nz),
            (int)tendencies_on_march(nx, nz), env_step_2d_cluster_size(nx, nz),
            (int)env_step_2d_cluster_fg(nx, nz), (int)env_step_2d_slabs_on_chip(nx, nz),
-           (int)env_step_2d_offsets_fit(nx, nz));
+           (int)env_step_2d_offsets_fit(nx, nz), (int)env_step_2d_wgmma(nx, nz, 1),
+           (int)env_step_2d_wgmma(nx, nz, 3), (int)env_step_2d_packed(nx, nz, 1),
+           (int)env_step_2d_packed(nx, nz, 3), env_step_2d_wgmma_chunk(nx, nz, 1),
+           env_step_2d_wgmma_chunk(nx, nz, 3));
     return 0;
   }
   // k1|k2 DIR E NX NZ NSUB DT DX DZ NU KAPPA MIN_B [PASSES [global|global_slabs]]
@@ -162,24 +179,27 @@ int main(int argc, char** argv) {
   const bool forced = force == "global" || force == "global_slabs";
   const bool on_chip = !forced && env_step_2d_on_chip(nx, nz);
   const int csize = forced ? 0 : env_step_2d_cluster_size(nx, nz);
+  // the packed constants (ops/poisson.py k1_tf32_constants) of the wgmma
+  // instances and the on-chip runtime-size TF32 one
+  const bool wgmma = !forced && env_step_2d_wgmma(nx, nz, passes);
+  const bool packed = !forced && env_step_2d_packed(nx, nz, passes);
+  const auto tf32 = packed ? rd_all("tf32") : std::vector<float>();
   if (on_chip) {
     auto* kernel = env_step_kernel_for(nx, nz, passes);
-    // the wgmma instances' packed constants (ops/poisson.py k1_tf32_constants)
-    const bool wgmma = k1_wgmma(nx, nz, passes);
-    const auto tf32 = wgmma ? rd("tf32", k1_tf32_floats(passes)) : std::vector<float>();
+    if (env_step_2d_launch_smem_bytes(nx, nz, passes) > sizeof(smem)) exit(3);
     host_smem_base = smem;
     run_blocks(E, [&] {
       kernel(u.data(), w.data(), b.data(), bottom.data(), f.data(), g.data(), dct.data(),
              idct.data(), dinv.data(), out[0].data(), out[1].data(), out[2].data(),
-             out[3].data(), P, wgmma ? tf32.data() : nullptr);
+             out[3].data(), P, packed ? tf32.data() : nullptr);
     });
   } else if (csize > 0) {
     auto* kernel = env_step_cluster_kernel_for(nx / csize, nz, passes);
     const int fg = env_step_2d_cluster_fg(nx, nz);
-    run_clusters(E, csize, [&] {
-      kernel(u.data(), w.data(), b.data(), bottom.data(), f.data(), g.data(), dct.data(),
-             idct.data(), dinv.data(), out[0].data(), out[1].data(), out[2].data(),
-             out[3].data(), P, fg);
+    run_clusters(E, csize, [&] {  // the wgmma instances take their constants in dct's place
+      kernel(u.data(), w.data(), b.data(), bottom.data(), f.data(), g.data(),
+             wgmma ? tf32.data() : dct.data(), idct.data(), dinv.data(), out[0].data(),
+             out[1].data(), out[2].data(), out[3].data(), P, fg);
     });
   } else {
     const bool slabs = force == "global" || (force.empty() && env_step_2d_slabs_on_chip(nx, nz));
@@ -199,9 +219,9 @@ int main(int argc, char** argv) {
   wr("u_out", out[0]); wr("w_out", out[1]); wr("b_out", out[2]); wr("p_out", out[3]);
   const bool global_slabs = !on_chip && csize == 0 &&
                             (force == "global_slabs" || (force.empty() && !env_step_2d_slabs_on_chip(nx, nz)));
-  printf("%s %d\n", on_chip ? (k1_wgmma(nx, nz, passes) ? "on_chip_wgmma" : "on_chip")
-                   : csize > 0 ? "cluster" : (global_slabs ? "global_slabs" : "global"),
-         csize > 0 ? csize : 1);
+  printf("%s%s %d\n", on_chip ? "on_chip" : csize > 0 ? "cluster"
+                                           : (global_slabs ? "global_slabs" : "global"),
+         wgmma ? "_wgmma" : "", csize > 0 ? csize : 1);
   return 0;
 }
 """
@@ -228,7 +248,7 @@ def run_case(host_binary, tmp_path, mode, n_env, nx, nz, heater_duration, seed,
     for name, t in {**case, **solver.spectral._asdict()}.items():
         t.numpy().astype(np.float32).tofile(tmp_path / name)
     passes = k2.K1_PASSES[precision]
-    if limits.env_step_2d_wgmma(nx, nz, passes) and not force_global:
+    if limits.env_step_2d_packed(nx, nz, passes) and not force_global:
         poisson.k1_tf32_constants(solver.spectral, passes).numpy().tofile(tmp_path / "tf32")
     c, p = solver.coeffs, solver.params
     args = [mode, f"{tmp_path}/", *map(str, (n_env, nx, nz, p.substeps_per_env_step)),
