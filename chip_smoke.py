@@ -279,6 +279,21 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      occupancy and times beside their plain versions and
                      bounds, the split's also at one env (the flow
                      statistics' launch)
+42. runtime_buckets  K1's runtime-size buckets (each grid off the
+                     compile-time instances on the fewest columns a warp and
+                     levels a lane that hold it): float32 K1 against its
+                     plain version at 8 envs after 6 (K1_ATOL) and 50
+                     (K1_MAIN_ATOL) substeps on 64x64, 128x32, 128x40, 96x32
+                     and 48x32 on the chip and 256x32 and 160x64 on a
+                     cluster, and where a TF32 instance is a bucket (128x40,
+                     96x32, 48x32, 256x32, 160x64) at "bf16x3" and "default"
+                     with phase 39's gates (256x32 at dt_solver 0.01: the
+                     default 0.03 is unstable there);
+                     RBC2DVectorEnv(1024) on 64x64 and on 256x32: reset, one
+                     step, the 2D checks, the instance 1 launch and no other
+                     K1 instance; float32 K1's times at 1024 envs, 50
+                     substeps, on each grid beside its plain version, bound
+                     and occupancy
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -325,6 +340,7 @@ from rbc_gym_tpu_torch.ops import kernels2d as k2d
 from rbc_gym_tpu_torch.ops import kernels3d as k3d
 from rbc_gym_tpu_torch.ops import registry
 from rbc_gym_tpu_torch.ops.limits import (
+    env_step_2d_bucket,
     env_step_2d_cluster_size,
     env_step_2d_on_chip,
     env_step_2d_wgmma,
@@ -4034,6 +4050,121 @@ def fine_grids(device, envs_3d=16, shape_3d=FINE_SHAPE_3D, odd_envs=64,
 
 
 # ---------------------------------------------------------------------------
+# Phase 42: K1's runtime-size buckets
+# ---------------------------------------------------------------------------
+
+# Phase 42's grids (nz, nx), each with the bucket float32 K1 runs it on
+# (columns a warp, levels a lane, column stride, 0 for nz;
+# ``limits.env_step_2d_bucket``): on the chip 64x64 (4, 2, 64), 128x32,
+# 96x32 and 48x32 (8, 1, 32), 128x40 (8, 2, 48); on a cluster of two CTAs
+# 256x32 (8, 1, 0) and 160x64 (8, 2, 0)
+K1_BUCKET_GRIDS = {(64, 64): (4, 2, 64), (32, 128): (8, 1, 32), (40, 128): (8, 2, 48),
+                   (32, 96): (8, 1, 32), (32, 48): (8, 1, 32), (32, 256): (8, 1, 0),
+                   (64, 160): (8, 2, 0)}
+# Phase 42's dt_solver where the default 0.03 is unstable: at 256x32 (dx =
+# 2 pi / 256) an env step from the env's reset, or 50 substeps of a case,
+# turn non-finite on the plain path too; 0.01 holds (50 substeps a step of
+# 0.5)
+K1_BUCKET_DT = {(32, 256): 0.01}
+
+
+def runtime_buckets(device, grids=K1_BUCKET_GRIDS, few_envs=8, num_envs=1024,
+                    path_shapes=((64, 64), (32, 256)), observation_shape=(8, 48),
+                    dt_solver=K1_BUCKET_DT, reps=3) -> dict:
+    """Phase 42: K1's runtime-size buckets. On each of ``grids``, float32 K1
+    (its bucket as ``grids`` says) against its plain version at
+    ``few_envs`` after 6 substeps (K1_ATOL) and 50 (K1_MAIN_ATOL), and where
+    the grid's TF32 instances are a bucket too at "bf16x3" (K1_ATOL) and
+    "default" (against the plain version in float64, ``k1_tf32_errors``)
+    after 6; ``RBC2DVectorEnv(num_envs)`` on each of ``path_shapes`` (a grid
+    on the chip and one on a cluster): reset, then with the counts at 0 one
+    step, ``check_2d``'s checks, its instance 1 launch (``env_step_2d`` or
+    ``env_step_2d_cluster``) and no other K1 instance. On the card, float32
+    K1 at ``num_envs`` and 50 substeps on each grid beside its plain
+    version, bound (``env_step_work``) and occupancy. Each grid steps at
+    ``dt_solver``'s step where it has one, else the default 0.03, and an
+    env step (a heater step) is 50 of them."""
+    begin = time.perf_counter()
+    device = torch.device(device)
+    dtype = working_dtype(device)
+    gated, by_grid = {}, {}
+
+    def dt(shape):  # the grid's solver step and its 50-substep heater step
+        step = dt_solver.get(tuple(shape), 0.03)
+        return {"dt_solver": step, "heater_duration": 50 * step}
+
+    for (nz, nx), want in grids.items():
+        got = env_step_2d_bucket(nx, nz, 0)
+        if got != want:
+            raise AssertionError(f"{nx}x{nz} runs bucket {got}, not {want}")
+        name = f"{nx}x{nz}"
+        step = dt((nz, nx))["dt_solver"]
+        s, c = make_case(device, few_envs, (nz, nx), heater_duration=6 * step, seed=48,
+                         dtype=dtype, dt_solver=step)
+        err6 = abs_diffs(K1_OUT, k1_run(s, c, True), k1_run(s, c, False))
+        gated[f"{name}_6"] = (max(err6.values()), K1_ATOL)
+        tf32 = {p: env_step_2d_bucket(nx, nz, p) for p in (1, 3)}
+        rec = {"bucket": want, "cluster_ctas": env_step_2d_cluster_size(nx, nz),
+               "tf32_buckets": tf32, "by_field_6": err6}
+        if tf32[3] is not None:  # the TF32 instances a bucket too
+            err = abs_diffs(K1_OUT, k1_run(s, c, True, "high"), k1_run(s, c, False, "high"))
+            gated[f"{name}_6_bf16x3"] = (max(err.values()), K1_ATOL)
+            one = k1_tf32_errors(s, c, k1_run(s, c, True, "default"))
+            gated[f"{name}_6_default"] = (one["kernel"], one["bound"])
+            rec["default_vs_float64"] = one
+        s, c = make_case(device, few_envs, (nz, nx), seed=49, dtype=dtype, **dt((nz, nx)))
+        err50 = abs_diffs(K1_OUT, k1_run(s, c, True), k1_run(s, c, False))
+        gated[f"{name}_50"] = (max(err50.values()), K1_MAIN_ATOL)
+        rec["by_field_50"] = err50
+        by_grid[name] = rec
+        del s, c
+
+    paths = {}
+    counted = K1_WRAPPERS + ("env_step_2d_cluster",)
+    for nz, nx in path_shapes:
+        env = RBC2DVectorEnv(num_envs, state_shape=(nz, nx), observation_shape=observation_shape,
+                             dtype=dtype, device=device, **dt((nz, nx)))
+        state, _ = env.reset(seed=0)
+        action = np.random.default_rng(0).uniform(-1.0, 1.0, (num_envs, env.params.n_heaters))
+        _sync(device)
+        reset_counters()
+        start = time.perf_counter()
+        state, ts = env.step(state, action)
+        _sync(device)
+        step_s = time.perf_counter() - start
+        launches = {k: WRAPPERS[k].launches for k in counted}
+        mine = "env_step_2d_cluster" if env_step_2d_cluster_size(nx, nz) else "env_step_2d"
+        expect_launches(device, launches, {k: int(k == mine) for k in counted})
+        paths[f"{nx}x{nz}"] = {"bucket": env_step_2d_bucket(nx, nz, 0), "launches": launches,
+                               "step_s": step_s, **check_2d(env, state, ts)}
+        del env, state, ts
+
+    failed = {k: v for k, v in gated.items() if not v[0] <= v[1]}
+    if failed:
+        raise AssertionError(f"K1's runtime-size buckets failed (error, atol): {failed}")
+
+    times = {}
+    if device.type == "cuda":
+        for (nz, nx), bucket in grids.items():
+            s, c = make_case(device, num_envs, (nz, nx), seed=2, dtype=torch.float32,
+                             **dt((nz, nx)))
+            work = env_step_work(num_envs, nx, nz, s.params.substeps_per_env_step)
+            bound_ms, bound_by = bound(work)
+            ms = _cuda_ms(lambda: k1_run(s, c, True), reps)
+            times[f"{nx}x{nz}"] = {
+                "ms": ms, "plain_ms": _cuda_ms(lambda: k1_run(s, c, False), 1, warmup=0),
+                "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+                "bucket": bucket, "dt_solver": dt((nz, nx))["dt_solver"],
+                "occupancy": k2d.env_step_2d_occupancy(nx, nz)}
+            del s, c
+            torch.cuda.empty_cache()
+    return {"phase": "runtime_buckets", "gated": {k: {"error": e, "atol": a}
+                                                  for k, (e, a) in gated.items()},
+            "by_grid": by_grid, "main_paths": paths, "times": times,
+            "seconds": time.perf_counter() - begin}
+
+
+# ---------------------------------------------------------------------------
 # Records
 # ---------------------------------------------------------------------------
 
@@ -4139,6 +4270,7 @@ def main() -> int:
     emit({**path_cluster, "card": card})
     fine = fine_grids(device)
     emit({**fine, "card": card})
+    emit({**runtime_buckets(device), "card": card})
     tf32 = {"env_step_2d_tf32x3": "bf16x3", "env_step_2d_tf32": "default"}
     # each kernel's launches from the main path that is its own (K4 runs on
     # every 3D path; its count is the training grid's lazy path, its error

@@ -47,8 +47,37 @@
 //   5. the correction of the thread's own u, w by grad p.
 //   The spacings and the z transforms' constants are taken in double on
 //   the host. nx, nz are template parameters for 96x64 (no runtime / or %);
-//   a runtime instance takes the other grids with 4 <= nx <= 128, 2 <= nz <=
-//   64 whose shared memory fits. Shared memory, in floats:
+//   the other grids with 4 <= nx <= 128, 2 <= nz <= 64 whose shared memory
+//   fits run a runtime-size bucket (k1_bucket): an instance compiled for at
+//   most XS columns a warp and NS levels a lane, nx and nz runtime and
+//   masked inside. What held the one runtime-size instance it replaces (8
+//   columns of two levels at stride nz; 78.4, 148.0 and 152.4 ms at 1024
+//   envs on 64x64, 128x32 and 128x40, 5-7 % of the bound, on an H100 80GB
+//   HBM3 at 700 W): rows and levels of the largest block computed on every
+//   grid (64x64 uses 4 columns a warp, 128x32 one level a lane), and 1080
+//   bytes a thread of local memory. Cut to the grid's block it still kept
+//   424-1288 bytes: ptxas hoisted every column's and tap's address (a
+//   runtime stride, the periodic wrap) and every row of F and G out of the
+//   stage loop, about a hundred values, and spilled them. Design: a
+//   bucket's columns lie 32, 48 or 64 floats apart (w's one more; the
+//   levels past nz padding, never read) where that fits: one level a lane
+//   at 32 (nz <= 32, 8 columns a warp), two at 48 (nz <= 48, 8) and at 64
+//   (nz <= 64, 4 where nx <= 64); the rest at stride nz (8 columns of two).
+//   The padded buckets hold three ghost columns each side of the state's
+//   fields, copied from their periodic neighbours during pHY', so that the
+//   march's x taps are affine in the column (no wrap). Every bucket
+//   launders its column and level bases each column, and a product its
+//   first row (opaque), so that the addresses are computed where they are
+//   used: no bucket keeps more than 104 bytes a thread (PERF.md, section 6).
+//   In float32 the previous stage's tendencies stay in the state copy the
+//   march has read, not in registers: the march reads them where it writes
+//   the point, holds its own gb in s2 and gu in s1 behind the march, and
+//   stores them after it. A bucket's float32 products (bucket_product) read
+//   L as float4 where nx and nz are multiples of 4, with R's four rows in
+//   registers first (4 NS + 4 operands live). The fields come in and go out
+//   column by column through the padding.
+//   Times at 1024 envs: PERF.md, section 6, rows 1b and 1cb. Shared memory
+//   of the compile-time instance, in floats:
 //   2 (2 nx nz + nx (nz + 1)) + 2 nx nz + 2 nz^2 + nx, 230,528 bytes at
 //   96x64: one block an SM, 1024 envs in 7.76 waves over 132 SMs. FP32 FMA
 //   on the CUDA cores; no tensor cores, no TF32.
@@ -82,10 +111,12 @@
 //   overwritten before the next cluster barrier: pHY' goes to the slab no
 //   neighbour reads then, the halo to the one whose p they have read.
 //   Compile-time 64 and 96 columns of 64 levels a CTA (at TF32 the solve on
-//   wgmma, below), a runtime-size instance otherwise; the runtime-size TF32
-//   instances keep their slabs plain (unswizzled) and take the x products
-//   as one 16 x 32 tile a warp summed over the slabs (nxl <= 128, nz <= 64:
-//   at most 16 tiles).
+//   wgmma, below), a runtime-size bucket otherwise (k1_bucket): 8 columns a
+//   warp of one level a lane where nz <= 32 in float32, else of two, at
+//   stride nz, their column and level bases laundered each column as on the
+//   chip; the runtime-size TF32 instances keep their slabs plain
+//   (unswizzled) and take the x products as one 16 x 32 tile a warp summed
+//   over the slabs (nxl <= 128, nz <= 64: at most 16 tiles).
 //   Every other grid with nx >= 3 runs the off-chip instance,
 //   env_step_2d_global_kernel (nz > 64, nz < 2, nx = 3, an nx no cluster
 //   splits: 127x64, 128x224, 256x128, 512x256, 2048x64), one 512-thread
@@ -193,6 +224,8 @@
 //   TF32 instance (every other grid) takes F and G packed on the host in
 //   its A-fragment order and stages them through shared memory by cp.async
 //   (staged_product); its z transforms are still split as they are loaded.
+//   It runs the buckets' march at 8 columns a warp of two levels a lane,
+//   stride nz (its column and level bases laundered each column).
 //
 // K2 tendencies_2d_march_kernel replaces ops/pallas2d.py:_tendency_kernel
 // (reached from make_tendencies_2d, pl.pallas_call at :562): gu, gw, gb of
@@ -958,10 +991,19 @@ __host__ __device__ constexpr size_t on_chip_smem_floats(int nx, int nz) {
   return 2 * (2 * (size_t)nx * nz + (size_t)nx * (nz + 1)) + 2 * (size_t)nx * nz +
          2 * (size_t)nz * nz + nx;
 }
-__host__ __device__ constexpr size_t k1_rt_smem_floats(int nx, int nz, int passes) {
+// The same with the columns of u, b and the slabs ld floats apart, w's ld +
+// 1, the z transforms' rows ld apart, and g ghost columns each side of the
+// state's fields (a runtime-size bucket's compile-time stride: the levels
+// past nz are padding, never read); on_chip_smem_floats at ld = nz, g = 0.
+__host__ __device__ constexpr size_t k1_padded_smem_floats(int nx, int nz, int ld, int g) {
+  return 2 * (2 * (size_t)(nx + 2 * g) * ld + (size_t)(nx + 2 * g) * (ld + 1)) +
+         2 * (size_t)nx * ld + 2 * (size_t)nz * ld + nx;
+}
+__host__ __device__ constexpr size_t k1_rt_smem_floats(int nx, int nz, int passes, int ld, int g) {
   return k1_rt_own_floats(nx, nz, passes)
-             ? ((on_chip_smem_floats(nx, nz) + 3) & ~(size_t)3) + k1_rt_own_floats(nx, nz, passes)
-             : on_chip_smem_floats(nx, nz);
+             ? ((k1_padded_smem_floats(nx, nz, ld, g) + 3) & ~(size_t)3) +
+                   k1_rt_own_floats(nx, nz, passes)
+             : k1_padded_smem_floats(nx, nz, ld, g);
 }
 
 // Whether the on-chip instance takes the grid: its warps' columns, its
@@ -969,6 +1011,45 @@ __host__ __device__ constexpr size_t k1_rt_smem_floats(int nx, int nz, int passe
 bool env_step_2d_on_chip(int nx, int nz) {
   return nx >= 4 && k1_cols(nx) <= kK1MaxCols && nz >= 2 && nz <= kK1MaxNz &&
          sizeof(float) * on_chip_smem_floats(nx, nz) <= kSmemPerBlock;
+}
+
+// K1's runtime-size bucket for a block of nxl columns (a grid on the chip,
+// a CTA's slab on a cluster) of nz levels and a pass count: the columns a
+// warp and levels a lane its instance is compiled for, each the fewest of a
+// few that hold the block, and the compile-time stride of its columns (0:
+// nz, at runtime). A grid off the compile-time instances then pays neither
+// for the largest block (the instance's per-thread tendencies and tile are
+// XS x NS x 3 and XS x NS registers) nor for a runtime stride in every
+// index of its march (the runtime-size instance, 8 x 2 at stride nz, kept
+// 1080 bytes a thread in local memory). On the chip in float32: nz <= 32 8
+// columns of one level a lane at stride 32; nz <= 48 8 of two at stride 48;
+// nz <= 64 4 of two at stride 64 where nxl <= 64; else 8 of two at stride
+// nz. On a cluster in float32 8 columns of one level a lane where nz <= 32,
+// else of two, at stride nz. At TF32 8 columns of two levels a lane at
+// stride nz (buckets of their own, two instances more at each stride, would
+// lengthen the build). {0, 0, 0} where a compile-time instance runs the
+// block (ops/limits.py env_step_2d_bucket).
+struct K1Bucket {
+  int cols, levels, ld;
+};
+K1Bucket k1_bucket(int nxl, int nz, int passes, bool cluster) {
+  const bool compiled = cluster ? (passes > 0 ? k1_cluster_wgmma(nxl, nz, passes)
+                                              : nz == 64 && (nxl == 64 || nxl == 96))
+                                 : (passes > 0 ? k1_wgmma(nxl, nz, passes) : nxl == 96 && nz == 64);
+  if (compiled) return {0, 0, 0};
+  if (cluster || passes > 0) return {8, passes == 0 && nz <= 32 ? 1 : 2, 0};
+  if (nz <= 32) return {8, 1, 32};
+  if (nz <= 48) return {8, 2, 48};
+  return k1_cols(nxl) <= 4 ? K1Bucket{4, 2, 64} : K1Bucket{8, 2, 0};
+}
+// Shared memory of the on-chip instance for a grid and a pass count, floats:
+// its bucket's stride and, at a compile-time stride, three ghost columns
+// each side (the kernel's kG), else on_chip_smem_floats's layout; at TF32
+// (k1_rt_smem_floats) and its ring's own region where it has one.
+size_t k1_on_chip_smem_floats(int nx, int nz, int passes) {
+  const int ld = k1_bucket(nx, nz, passes, false).ld;
+  return passes > 0 ? k1_rt_smem_floats(nx, nz, passes, ld ? ld : nz, ld ? 3 : 0)
+                    : k1_padded_smem_floats(nx, nz, ld ? ld : nz, ld ? 3 : 0);
 }
 
 constexpr int kK1MaxCluster = 8;  // CTAs of K1's cluster instance: the portable limit
@@ -997,6 +1078,17 @@ bool env_step_2d_wgmma(int nx, int nz, int passes) {
   const int c = env_step_2d_cluster_size(nx, nz);
   return c > 0 ? k1_cluster_wgmma(nx / c, nz, passes)
                : env_step_2d_on_chip(nx, nz) && k1_wgmma(nx, nz, passes);
+}
+
+// The runtime-size bucket (k1_bucket) of K1's instance for a grid and a
+// pass count, on the chip or over a cluster CTA's slab, as 10000 columns a
+// warp + 100 stride + levels a lane; 0 where a compile-time instance or the
+// off-chip one takes the grid.
+int env_step_2d_bucket(int nx, int nz, int passes) {
+  const int c = env_step_2d_cluster_size(nx, nz);
+  if (c == 0 && !env_step_2d_on_chip(nx, nz)) return 0;
+  const K1Bucket b = k1_bucket(c > 0 ? nx / c : nx, nz, passes, c > 0);
+  return 10000 * b.cols + 100 * b.ld + b.levels;
 }
 
 // Whether K1's instance for a grid and a pass count reads constants packed
@@ -1075,7 +1167,7 @@ bool env_step_2d_slabs_on_chip(int nx, int nz) {
 // and G where they fit), or the off-chip one's ring and carries and its two
 // (nx, nz) slabs where they fit.
 size_t env_step_2d_smem_floats(int nx, int nz) {
-  if (env_step_2d_on_chip(nx, nz)) return on_chip_smem_floats(nx, nz);
+  if (env_step_2d_on_chip(nx, nz)) return k1_on_chip_smem_floats(nx, nz, 0);
   const int c = env_step_2d_cluster_size(nx, nz);
   if (c == 0) return kGSmemFloats + (env_step_2d_slabs_on_chip(nx, nz) ? 2 * (size_t)nx * nz : 0);
   return on_chip_smem_floats(nx / c, nz) +
@@ -1097,7 +1189,7 @@ size_t env_step_2d_launch_smem_bytes(int nx, int nz, int passes) {
   const int c = env_step_2d_cluster_size(nx, nz);
   if (env_step_2d_wgmma(nx, nz, passes)) return k1_wg_smem_bytes(c > 0 ? nx / c : nx, nz, passes);
   if (passes > 0 && env_step_2d_on_chip(nx, nz))
-    return sizeof(float) * k1_rt_smem_floats(nx, nz, passes);
+    return sizeof(float) * k1_on_chip_smem_floats(nx, nz, passes);
   return sizeof(float) * env_step_2d_smem_floats(nx, nz);
 }
 
@@ -1164,6 +1256,90 @@ __device__ __forceinline__ void tile_product(const float* L, const float* R, int
         for (int s = 0; s < NS; ++s) acc[r][s] = fmaf(av, bv[s], acc[r][s]);
       }
     }
+  }
+}
+
+// v, opaque to the compiler from here on: nothing computed from it is
+// hoisted out of the loop around this point. K1's runtime-size buckets
+// launder their column and level bases each column and each product, so
+// that the addresses of every column and tap, and every row of F and G,
+// are computed where they are used and not held (spilled, at 128
+// registers) across the stage loop.
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+// acc[r][s] += sum_{k < K} L[row_r][k] R[k][col_s], the float32 products of
+// K1's runtime-size buckets: rows row_r = min(row0 + r, nrow - 1) of L (ldl
+// floats apart), columns col_s = min(lane + 32 s, ncol - 1) of R (rows ldr
+// apart). Where vec (K % 4 == 0, L's rows 16-byte aligned) four k a step: R's
+// four rows into registers first, then L's row r one float4 at a time beside
+// them, so that a thread holds 4 NS + 4 operands (tile_product's kVec holds
+// 4 XS + NS: 32 more registers at 8 columns a warp, beside the march's
+// tendencies); else one k a step, as tile_product. The sum over k runs in
+// the same order either way.
+template <int XS, int NS>
+__device__ __forceinline__ void bucket_product(const float* L, int ldl, const float* R, int K,
+                                               int ldr, int ncol, int row0, int nrow, int lane,
+                                               bool vec, float (&acc)[XS][NS]) {
+  int row[XS], col[NS];
+  row0 = opaque(row0);
+#pragma unroll
+  for (int r = 0; r < XS; ++r) row[r] = min(row0 + r, nrow - 1) * ldl;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) col[s] = min(lane + 32 * s, ncol - 1);
+  if (vec) {
+#pragma unroll 2
+    for (int k = 0; k < K; k += 4) {
+      float bv[4][NS];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int s = 0; s < NS; ++s) bv[kk][s] = R[(k + kk) * ldr + col[s]];
+#pragma unroll
+      for (int r = 0; r < XS; ++r) {
+        const float4 a = *reinterpret_cast<const float4*>(L + row[r] + k);
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          acc[r][s] = fmaf(a.x, bv[0][s], acc[r][s]);
+          acc[r][s] = fmaf(a.y, bv[1][s], acc[r][s]);
+          acc[r][s] = fmaf(a.z, bv[2][s], acc[r][s]);
+          acc[r][s] = fmaf(a.w, bv[3][s], acc[r][s]);
+        }
+      }
+    }
+  } else {
+    for (int k = 0; k < K; ++k) {
+      float bv[NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) bv[s] = R[k * ldr + col[s]];
+#pragma unroll
+      for (int r = 0; r < XS; ++r) {
+        const float av = L[row[r] + k];
+#pragma unroll
+        for (int s = 0; s < NS; ++s) acc[r][s] = fmaf(av, bv[s], acc[r][s]);
+      }
+    }
+  }
+}
+
+// pt = L . R over an on-chip K1 thread's tile (L's rows ldl floats apart,
+// R's ldr, its first ncol columns; rows from row0, columns from 0):
+// tile_product (ldl = K, ncol = ldr), or in a runtime-size bucket
+// bucket_product.
+template <bool kBucket, int XS, int NS, bool kVec>
+__device__ __forceinline__ void k1_tile(const float* L, int ldl, const float* R, int K, int ldr,
+                                        int ncol, int row0, int nrow, int lane, bool vec,
+                                        float (&acc)[XS][NS]) {
+  if constexpr (kBucket) {
+#pragma unroll
+    for (int r = 0; r < XS; ++r)
+#pragma unroll
+      for (int s = 0; s < NS; ++s) acc[r][s] = 0.0f;
+    bucket_product<XS, NS>(L, ldl, R, K, ldr, ncol, row0, nrow, lane, vec, acc);
+  } else {
+    tile_product<XS, NS, kVec>(L, R, K, ldr, row0, nrow, 0, lane, acc);
   }
 }
 
@@ -1239,27 +1415,55 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
                    const float* __restrict__ dinv, float* __restrict__ u_out,
                    float* __restrict__ w_out, float* __restrict__ b_out,
                    float* __restrict__ p_out, K1Params P, const float* __restrict__ tf32) {
-  constexpr int NS = NZ > 0 && NZ <= 32 ? 1 : kK1Levels;  // a lane's levels: one where nz <= 32
-  constexpr int XS = NX > 0 ? k1_cols(NX) : kK1MaxCols;
+  // NX < 0: a runtime-size bucket (k1_bucket) of at most -NX columns a warp,
+  // its columns -NZ floats apart (32, 48 or 64: the levels past nz padding,
+  // never read) or, at NZ = -1 or -2, nz apart with -NZ levels a lane
+  constexpr bool kBucket = NX < 0;
+  constexpr int kLd = kBucket && NZ < -2 ? -NZ : 0;  // a bucket's compile-time stride
+  // ghost columns each side of the state's fields (their periodic
+  // neighbours'): the buckets of a compile-time stride, so that the march's
+  // x taps are affine in the column and need no wrap
+  constexpr int kG = kLd ? 3 : 0;
+  // a lane's levels: one where nz <= 32
+  constexpr int NS =
+      kBucket ? (kLd ? (kLd + 31) / 32 : -NZ) : (NZ > 0 && NZ <= 32 ? 1 : kK1Levels);
+  constexpr int XS = kBucket ? -NX : (NX > 0 ? k1_cols(NX) : kK1MaxCols);
+  // a float32 bucket of 16 points a thread keeps the previous stage's
+  // tendencies in the state copy the march has read (dead until the next
+  // march writes it), not in registers: the march reads them where it
+  // writes the point, and holds few of its own until it ends: gb in s2 (free
+  // during the march), gu of column i in s1 once column i + 1 has read its
+  // pHY' (but the strip's last column's, which the next warp reads), gw in
+  // registers. With 48 tendencies in registers 128x40 spilled 168 bytes a
+  // thread and took 3 % longer; at 8 points they fit, and the round trips
+  // through shared memory cost 64x64 6 % (PERF.md, section 6).
+  constexpr bool kGpDead = kBucket && kPasses == 0 && XS * NS > 8;
   constexpr bool kVec = NX > 0 && NX % 4 == 0 && NZ % 4 == 0;
   constexpr bool kWgmma = k1_wgmma(NX, NZ, kPasses);  // the solve on wgmma (tf32: its constants)
   constexpr bool kRingInDead = kWgmma && k1_wg_ring_in_dead(NX, kPasses);
   extern __shared__ float smem[];
   const int nx = NX > 0 ? NX : P.nx, nz = NZ > 0 ? NZ : P.nz, nw = nz + 1;
-  const int nc = nx * nz, nf = nx * nw;
+  // the columns of u, b and the slabs ld floats apart, w's ldw; a copy of
+  // the state's fields ncg, nfg floats (with their ghost columns) and ncopy
+  // in all; an env's fields in global memory gc and gf floats apart
+  const int ld = kLd ? kLd : nz, ldw = ld + 1;
+  const int nc = nx * ld, nf = nx * ldw, gc = nx * nz, gf = nx * nw;
+  const int ncg = (nx + 2 * kG) * ld, nfg = (nx + 2 * kG) * ldw, ncopy = 2 * ncg + nfg;
   const size_t e = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int xs = k1_cols(nx), x0 = warp * xs, xn = min(xs, nx - x0);  // xn may be <= 0
+  // a bucket's products read L four values at a time where nx and nz allow
+  const bool vec = kBucket && (nx & 3) == 0 && (nz & 3) == 0;
 
-  State2D X{smem, smem + nc, smem + nc + nf};
-  State2D Y{X.b + nc, X.b + nc + nc, X.b + nc + nc + nf};
-  float* s1 = Y.b + nc;       // pHY', then the divergence, R~ and p
+  State2D X{smem + kG * ld, smem + ncg + kG * ldw, smem + ncg + nfg + kG * ld};
+  State2D Y{X.u + ncopy, X.w + ncopy, X.b + ncopy};
+  float* s1 = smem + 2 * ncopy;  // pHY', then the divergence, R~ and p
   float* s2 = s1 + nc;        // r_hat and p_hat
   float* ct = s2 + nc;        // z analysis, (z, j)
-  float* st = ct + nz * nz;   // z synthesis, (j, z)
+  float* st = ct + nz * ld;   // z synthesis, (j, z)
   // bottom (nx); the wgmma instances keep no z transforms: after the bottom
   // their own region (their ring, or r_hat's and t's) and the mbarriers
-  float* bot = kWgmma ? s2 + nc : st + nz * nz;
+  float* bot = kWgmma ? s2 + nc : st + nz * ld;
   float* own = bot + nx;
   uint64_t* mbar = reinterpret_cast<uint64_t*>(own + k1_wg_own_floats(NX, NZ, kPasses));
   // The wgmma instances' ring of F's and G's chunks (K1WgRing), this
@@ -1270,15 +1474,27 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
           k1_tf32_g(nx, kPasses), nx / Wg::KC, 0u};
   auto stage_fg = [&] { ring.start(); };
 
-  for (int q = threadIdx.x; q < nc; q += kK1Threads) {
-    X.u[q] = u_in[e * nc + q];
-    X.b[q] = b_in[e * nc + q];
+  if constexpr (kLd > 0) {  // column by column into the padded layout
+    for (int q = threadIdx.x; q < gc; q += kK1Threads) {
+      const int i = q / nz, k = q - i * nz;
+      X.u[i * ld + k] = u_in[e * gc + q];
+      X.b[i * ld + k] = b_in[e * gc + q];
+    }
+    for (int q = threadIdx.x; q < gf; q += kK1Threads) {
+      const int i = q / nw, k = q - i * nw;
+      X.w[i * ldw + k] = Y.w[i * ldw + k] = w_in[e * gf + q];
+    }
+  } else {
+    for (int q = threadIdx.x; q < nc; q += kK1Threads) {
+      X.u[q] = u_in[e * nc + q];
+      X.b[q] = b_in[e * nc + q];
+    }
+    for (int q = threadIdx.x; q < nf; q += kK1Threads) X.w[q] = Y.w[q] = w_in[e * nf + q];
   }
-  for (int q = threadIdx.x; q < nf; q += kK1Threads) X.w[q] = Y.w[q] = w_in[e * nf + q];
-  // the TF32 instances' slabs and z transforms: (row, col) at row * nz +
+  // the TF32 instances' slabs and z transforms: (row, col) at row * ld +
   // (col ^ slab_swizzle(row)) where nz % 32 == 0, else plain
   const bool swz = kPasses > 0 && (NZ > 0 ? NZ % 32 == 0 : nz % 32 == 0);
-  auto S = [&](int row, int col) { return row * nz + (swz ? col ^ slab_swizzle(row) : col); };
+  auto S = [&](int row, int col) { return row * ld + (swz ? col ^ slab_swizzle(row) : col); };
   if constexpr (kPasses == 0) {
     for (int q = threadIdx.x; q < nz * nz; q += kK1Threads) {
       ct[q] = dct[q];
@@ -1300,6 +1516,9 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
   __syncthreads();
 
   auto wrap = [&](int i) { return i < 0 ? i + nx : (i >= nx ? i - nx : i); };
+  // column i of the state X: i itself where ghost columns hold the periodic
+  // neighbours, else wrapped
+  auto xcol = [&](int i) { return kG > 0 ? i : wrap(i); };
   int kl[NS], kc[NS];  // this lane's levels, and the same clamped into the column
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
@@ -1312,24 +1531,25 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
   // x fluxes: u at center c (taps faces c-2..c+3); w, b at face c (taps c-3..c+2)
   auto xflux_u = [&](const State2D& S, int c, int k) {
     const float* u = S.u + k;
-    const float a = u[wrap(c) * nz], b = u[wrap(c + 1) * nz];
-    return ub5_upwind(u[wrap(c - 2) * nz], u[wrap(c - 1) * nz], a, b, u[wrap(c + 2) * nz],
-                      u[wrap(c + 3) * nz], 0.5f * (a + b));
+    const float a = u[xcol(c) * ld], b = u[xcol(c + 1) * ld];
+    return ub5_upwind(u[xcol(c - 2) * ld], u[xcol(c - 1) * ld], a, b, u[xcol(c + 2) * ld],
+                      u[xcol(c + 3) * ld], 0.5f * (a + b));
   };
   auto xflux_face = [&](const float* q, int ld, int c, float vel) {
-    return ub5_upwind(q[wrap(c - 3) * ld], q[wrap(c - 2) * ld], q[wrap(c - 1) * ld],
-                      q[wrap(c) * ld], q[wrap(c + 1) * ld], q[wrap(c + 2) * ld], vel);
+    return ub5_upwind(q[xcol(c - 3) * ld], q[xcol(c - 2) * ld], q[xcol(c - 1) * ld],
+                      q[xcol(c) * ld], q[xcol(c + 1) * ld], q[xcol(c + 2) * ld], vel);
   };
   auto xflux_w = [&](const State2D& S, int c, int s) {
-    const float* uc = S.u + wrap(c) * nz;
+    const float* uc = S.u + xcol(c) * ld;
     const float vel = 0.5f * (uc[max(kl[s] - 1, 0)] + uc[kc[s]]);
-    return xflux_face(S.w + kc[s], nw, c, vel);
+    return xflux_face(S.w + kc[s], ldw, c, vel);
   };
   auto xflux_b = [&](const State2D& S, int c, int s) {
-    return xflux_face(S.b + kc[s], nz, c, S.u[wrap(c) * nz + kc[s]]);
+    return xflux_face(S.b + kc[s], ld, c, S.u[xcol(c) * ld + kc[s]]);
   };
 
   float gp[XS][NS][3] = {};  // the previous stage's gu, gw, gb of this thread's points
+  float gul[NS];        // a float32 bucket's gu of the strip's last column
   float pt[XS][NS];     // the solve's tile: this thread's points
   for (int step = 0; step < P.n_substeps; ++step) {
     for (int stage = 0; stage < 3; ++stage) {
@@ -1349,8 +1569,19 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
       for (int xi = 0; xi < XS; ++xi) {
         if (xi < xn) {
           double above = 0.0;
-          phy_levels<NS>(X.b + (x0 + xi) * nz, s1 + (x0 + xi) * nz, 0, nz, lane, P, above);
+          phy_levels<NS>(X.b + (x0 + xi) * ld, s1 + (x0 + xi) * ld, 0, nz, lane, P, above);
         }
+      }
+      if constexpr (kG > 0) {  // X's ghost columns -3..-1 and nx..nx + 2 from theirs
+        auto ghosts = [&](float* f, int ldf) {
+          for (int q = threadIdx.x; q < 2 * kG * ldf; q += kK1Threads) {
+            const int g = q / ldf, c = g < kG ? g - kG : nx + g - kG;
+            f[c * ldf + q - g * ldf] = f[(g < kG ? c + nx : c - nx) * ldf + q - g * ldf];
+          }
+        };
+        ghosts(X.u, ld);
+        ghosts(X.w, ldw);
+        ghosts(X.b, ld);
       }
       __syncthreads();
 
@@ -1368,11 +1599,20 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
 #pragma unroll
         for (int xi = 0; xi < XS; ++xi) {
           if (xi < xn) {
-            const int i = x0 + xi, im = wrap(i - 1), ip = wrap(i + 1);
-            const float* uc = X.u + i * nz;
-            const float* wc = X.w + i * nw;
-            const float* bc = X.b + i * nz;
-            const float* wm = X.w + im * nw;
+            if constexpr (kBucket) {  // this column's bases, computed here (opaque)
+              const int ln = opaque(lane);
+#pragma unroll
+              for (int s = 0; s < NS; ++s) {
+                kl[s] = ln + 32 * s;
+                kc[s] = min(kl[s], nz - 1);
+              }
+            }
+            const int i = (kBucket ? opaque(x0) : x0) + xi, im = wrap(i - 1);
+            const int xm = xcol(i - 1), xp = xcol(i + 1);  // columns i -+ 1 of X
+            const float* uc = X.u + i * ld;
+            const float* wc = X.w + i * ldw;
+            const float* bc = X.b + i * ld;
+            const float* wm = X.w + xm * ldw;
             // z fluxes through face k of u (velocity w at the x-face) and b,
             // and through center k of w
             float zu[NS], zb[NS], zw[NS], zu_up[NS], zb_up[NS], zw_dn[NS];
@@ -1401,15 +1641,18 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
                 float adv = (f_new - fu[s]) * P.idx;
                 fu[s] = f_new;
                 adv += (zu_up[s] - zu[s]) * P.idz;
-                const float dphy = (s1[i * nz + k] - s1[im * nz + k]) * P.idx;
+                const float dphy = (s1[i * ld + k] - s1[im * ld + k]) * P.idx;
+                // the previous column's gu where its pHY' was, now read
+                if (kGpDead && xi > 0 && kk < nz) s1[im * ld + k] = gp[xi > 0 ? xi - 1 : 0][s][0];
                 const float q = uc[k];
                 const float qm = kk > 0 ? uc[max(kk - 1, 0)] : -uc[0];
                 const float qp = kk < nz - 1 ? uc[min(kk + 1, nz - 1)] : -uc[nz - 1];
-                const float lap = (X.u[ip * nz + k] - 2.0f * q + X.u[im * nz + k]) * P.idx2 +
+                const float lap = (X.u[xp * ld + k] - 2.0f * q + X.u[xm * ld + k]) * P.idx2 +
                                   (qp - 2.0f * q + qm) * P.idz2;
                 const float g = -adv - dphy + P.nu * lap;
-                if (kk < nz) Y.u[i * nz + k] = rk(q, g, gp[xi][s][0]);
+                if (kk < nz) Y.u[i * ld + k] = rk(q, g, kGpDead ? Y.u[i * ld + k] : gp[xi][s][0]);
                 gp[xi][s][0] = g;
+                if (kGpDead) gul[s] = g;
               }
               // ---- gw and w* at (center i, face k); face 0 is a wall ----
               {
@@ -1418,10 +1661,10 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
                 fw[s] = f_new;
                 adv += (zw[s] - zw_dn[s]) * P.idz;
                 const float q = wc[k];
-                const float lap = (X.w[ip * nw + k] - 2.0f * q + X.w[im * nw + k]) * P.idx2 +
+                const float lap = (X.w[xp * ldw + k] - 2.0f * q + X.w[xm * ldw + k]) * P.idx2 +
                                   (wc[k + 1] - 2.0f * q + wc[max(k - 1, 0)]) * P.idz2;
                 const float g = kk == 0 ? 0.0f : -adv + P.nu * lap;
-                if (kk < nz) Y.w[i * nw + k] = rk(q, g, gp[xi][s][1]);
+                if (kk < nz) Y.w[i * ldw + k] = rk(q, g, kGpDead ? Y.w[i * ldw + k] : gp[xi][s][1]);
                 gp[xi][s][1] = g;
               }
               // ---- gb and b' at (center i, center k) ----
@@ -1433,11 +1676,15 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
                 const float q = bc[k];
                 const float qm = kk > 0 ? bc[max(kk - 1, 0)] : 2.0f * bot[i] - bc[0];
                 const float qp = kk < nz - 1 ? bc[min(kk + 1, nz - 1)] : 2.0f * P.min_b - bc[nz - 1];
-                const float lap = (X.b[ip * nz + k] - 2.0f * q + X.b[im * nz + k]) * P.idx2 +
+                const float lap = (X.b[xp * ld + k] - 2.0f * q + X.b[xm * ld + k]) * P.idx2 +
                                   (qp - 2.0f * q + qm) * P.idz2;
                 const float g = -adv + P.kappa * lap;
-                if (kk < nz) Y.b[i * nz + k] = rk(q, g, gp[xi][s][2]);
-                gp[xi][s][2] = g;
+                if (kk < nz) Y.b[i * ld + k] = rk(q, g, kGpDead ? Y.b[i * ld + k] : gp[xi][s][2]);
+                if (kGpDead && kk < nz) {
+                  s2[i * ld + k] = g;
+                } else {
+                  gp[xi][s][2] = g;
+                }
               }
             }
           }
@@ -1445,6 +1692,20 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
       }
       __syncthreads();
       if constexpr (kRingInDead) stage_fg();  // F's first chunks into the state copy just read
+      if constexpr (kGpDead) {  // this stage's tendencies into the copy just read
+#pragma unroll
+        for (int xi = 0; xi < XS; ++xi) {
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            const int i = x0 + xi, k = kl[s];
+            if (xi < xn && k < nz) {
+              X.u[i * ld + k] = xi + 1 < xn ? s1[i * ld + k] : gul[s];
+              X.w[i * ldw + k] = gp[xi][s][1];
+              X.b[i * ld + k] = s2[i * ld + k];
+            }
+          }
+        }
+      }
 
       // ---- 3. div(u*, w*) / dt_stage ------------------------------------------
 #pragma unroll
@@ -1453,10 +1714,10 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
         for (int s = 0; s < NS; ++s) {
           const int i = x0 + xi, k = kl[s];
           if (xi < xn && k < nz) {
-            const float div = (Y.u[wrap(i + 1) * nz + k] - Y.u[i * nz + k]) * P.idx +
-                              (Y.w[i * nw + k + 1] - Y.w[i * nw + k]) * P.idz;
+            const float div = (Y.u[wrap(i + 1) * ld + k] - Y.u[i * ld + k]) * P.idx +
+                              (Y.w[i * ldw + k + 1] - Y.w[i * ldw + k]) * P.idz;
             if constexpr (kPasses == 0) {
-              s1[i * nz + k] = div * idts;
+              s1[i * ld + k] = div * idts;
             } else if constexpr (kWgmma) {  // rhs^T, product 1's A
               s1[k1_afrag_index(k, i, NZ / 16)] = div * idts;
             } else {
@@ -1474,12 +1735,14 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
           for (int xi = 0; xi < XS; ++xi)
 #pragma unroll
             for (int s = 0; s < NS; ++s)
-              if (xi < xn && kl[s] < nz) dst[(x0 + xi) * nz + kl[s]] = pt[xi][s];
+              if (xi < xn && kl[s] < nz) dst[(x0 + xi) * ld + kl[s]] = pt[xi][s];
         };
-        tile_product<XS, NS, kVec>(fmat, s1, nx, nz, x0, nx, 0, lane, pt);  // r_hat = F . rhs
+        // r_hat = F . rhs
+        k1_tile<kBucket, XS, NS, kVec>(fmat, nx, s1, nx, ld, nz, x0, nx, lane, vec, pt);
         store(s2);
         __syncthreads();
-        tile_product<XS, NS, kVec>(s2, ct, nz, nz, x0, nx, 0, lane, pt);  // r_hat C^T
+        k1_tile<kBucket, XS, NS, kVec>(s2, ld, ct, nz, nz, nz, x0, nx, lane, vec,
+                                       pt);  // r_hat C^T
 #pragma unroll
         for (int xi = 0; xi < XS; ++xi)
 #pragma unroll
@@ -1487,17 +1750,19 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
             pt[xi][s] *= __ldg(dinv + min(x0 + xi, nx - 1) * nz + kc[s]);
         store(s1);
         __syncthreads();
-        tile_product<XS, NS, kVec>(s1, st, nz, nz, x0, nx, 0, lane, pt);  // p_hat = R~ S^T
+        k1_tile<kBucket, XS, NS, kVec>(s1, ld, st, nz, nz, nz, x0, nx, lane, vec,
+                                       pt);  // p_hat = R~ S^T
         store(s2);
         __syncthreads();
-        tile_product<XS, NS, kVec>(gmat, s2, nx, nz, x0, nx, 0, lane, pt);  // p = G . p_hat
+        // p = G . p_hat
+        k1_tile<kBucket, XS, NS, kVec>(gmat, nx, s2, nx, ld, nz, x0, nx, lane, vec, pt);
         store(s1);
         if (last) {
 #pragma unroll
           for (int xi = 0; xi < XS; ++xi)
 #pragma unroll
             for (int s = 0; s < NS; ++s)
-              if (xi < xn && kl[s] < nz) p_out[e * nc + (x0 + xi) * nz + kl[s]] = pt[xi][s];
+              if (xi < xn && kl[s] < nz) p_out[e * gc + (x0 + xi) * nz + kl[s]] = pt[xi][s];
         }
         __syncthreads();
 
@@ -1509,9 +1774,9 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
             const int i = x0 + xi, k = kl[s];
             if (xi < xn && k < nz) {
               const float p = pt[xi][s];
-              const float pm = xi > 0 ? pt[xi - 1][s] : s1[wrap(i - 1) * nz + k];
-              Y.u[i * nz + k] -= dts * ((p - pm) * P.idx);
-              if (k > 0) Y.w[i * nw + k] -= dts * ((p - s1[i * nz + k - 1]) * P.idz);
+              const float pm = xi > 0 ? pt[xi - 1][s] : s1[wrap(i - 1) * ld + k];
+              Y.u[i * ld + k] -= dts * ((p - pm) * P.idx);
+              if (k > 0) Y.w[i * ldw + k] -= dts * ((p - s1[i * ld + k - 1]) * P.idz);
             }
           }
         }
@@ -1552,9 +1817,10 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
         auto to_slab = [&](float* a) { return [=](int r, int c, float v) { a[S(r, c)] = v; }; };
         // F's and G's packs (tf32: F's, then G's) through the ring (k1_rt_step)
         const int own = k1_rt_own_floats(nx, nz, kPasses);
-        float* ring = own ? smem + ((on_chip_smem_floats(nx, nz) + 3) & ~(size_t)3)
-                          : X.u + ((4 - ((smem_u32(X.u) >> 2) & 3)) & 3);
-        const int cap = own ? own : 2 * nc + nf - 3;
+        float* dead = X.u - kG * ld;  // the state copy the march has read
+        float* ring = own ? smem + ((k1_padded_smem_floats(nx, nz, ld, kG) + 3) & ~(size_t)3)
+                          : dead + ((4 - ((smem_u32(dead) >> 2) & 3)) & 3);
+        const int cap = own ? own : ncopy - 3;
         staged_product<kPasses>(tf32, ring, cap, nx, nz, nx, slab(s1),
                                 to_slab(s2));  // r_hat = F . rhs
         __syncthreads();
@@ -1578,15 +1844,15 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
             const int i = x0 + xi, k = kl[s];
             if (xi < xn && k < nz) {
               const float p = s1[S(i, k)];
-              Y.u[i * nz + k] -= dts * ((p - s1[S(wrap(i - 1), k)]) * P.idx);
-              if (k > 0) Y.w[i * nw + k] -= dts * ((p - s1[S(i, k - 1)]) * P.idz);
-              if (last) p_out[e * nc + i * nz + k] = p;
+              Y.u[i * ld + k] -= dts * ((p - s1[S(wrap(i - 1), k)]) * P.idx);
+              if (k > 0) Y.w[i * ldw + k] -= dts * ((p - s1[S(i, k - 1)]) * P.idz);
+              if (last) p_out[e * gc + i * nz + k] = p;
             }
           }
         }
         // the march never writes w's top wall face: zero it again in the copy
         // the ring may have taken
-        for (int q = threadIdx.x; q < nx; q += kK1Threads) X.w[q * nw + nz] = 0.0f;
+        for (int q = threadIdx.x; q < nx; q += kK1Threads) X.w[q * ldw + nz] = 0.0f;
         __syncthreads();
       }
       const State2D t = X;
@@ -1595,22 +1861,43 @@ env_step_2d_kernel(const float* __restrict__ u_in, const float* __restrict__ w_i
     }
   }
 
-  for (int q = threadIdx.x; q < nc; q += kK1Threads) {
-    u_out[e * nc + q] = X.u[q];
-    b_out[e * nc + q] = X.b[q];
+  if constexpr (kLd > 0) {
+    for (int q = threadIdx.x; q < gc; q += kK1Threads) {
+      const int i = q / nz, k = q - i * nz;
+      u_out[e * gc + q] = X.u[i * ld + k];
+      b_out[e * gc + q] = X.b[i * ld + k];
+    }
+    for (int q = threadIdx.x; q < gf; q += kK1Threads) {
+      const int i = q / nw;
+      w_out[e * gf + q] = X.w[q + i * (ldw - nw)];
+    }
+  } else {
+    for (int q = threadIdx.x; q < nc; q += kK1Threads) {
+      u_out[e * nc + q] = X.u[q];
+      b_out[e * nc + q] = X.b[q];
+    }
+    for (int q = threadIdx.x; q < nf; q += kK1Threads) w_out[e * nf + q] = X.w[q];
   }
-  for (int q = threadIdx.x; q < nf; q += kK1Threads) w_out[e * nf + q] = X.w[q];
 }
 
 // The on-chip K1 instance for a grid and a pass count: the float32 solve (0
-// passes) specialised for the reference's 96x64, the runtime-size one for
-// every other grid; the TF32 one (1 or 3) on wgmma where k1_wgmma takes the
-// grid (96x64, 64x64, 128x32), else the runtime-size one.
+// passes) specialised for the reference's 96x64, its runtime-size bucket
+// (k1_bucket; the template's NX the bucket's -columns a warp, NZ its
+// -stride, or -levels a lane at stride nz) for every other grid; the TF32
+// one (1 or 3) on wgmma where k1_wgmma takes the grid (96x64, 64x64,
+// 128x32), else its bucket: 8 columns a warp of two levels a lane at
+// stride nz.
 decltype(&env_step_2d_kernel<0, 0>) env_step_kernel_for(int nx, int nz, int passes) {
   const bool ref = nx == 96 && nz == 64;
-  if (passes == 0) return ref ? env_step_2d_kernel<96, 64> : env_step_2d_kernel<0, 0>;
+  const K1Bucket b = k1_bucket(nx, nz, passes, false);
+  if (passes == 0) {
+    if (ref) return env_step_2d_kernel<96, 64>;
+    if (b.ld == 32) return env_step_2d_kernel<-8, -32>;
+    if (b.ld == 48) return env_step_2d_kernel<-8, -48>;
+    return b.ld == 64 ? env_step_2d_kernel<-4, -64> : env_step_2d_kernel<-8, -2>;
+  }
   if (!k1_wgmma(nx, nz, passes)) {
-    return passes == 3 ? env_step_2d_kernel<0, 0, 3> : env_step_2d_kernel<0, 0, 1>;
+    return passes == 3 ? env_step_2d_kernel<-8, -2, 3> : env_step_2d_kernel<-8, -2, 1>;
   }
   if (passes == 3) {
     return ref ? env_step_2d_kernel<96, 64, 3>
@@ -2181,6 +2468,19 @@ __device__ __forceinline__ void tile_product_acc(const float* L, int ldl, const 
   }
 }
 
+// acc += L . R over a cluster K1 thread's tile (L's rows ldl floats apart):
+// tile_product_acc, or in a runtime-size bucket bucket_product.
+template <bool kBucket, int XS, int NS, bool kVec>
+__device__ __forceinline__ void k1_tile_acc(const float* L, int ldl, const float* R, int K,
+                                            int ldr, int row0, int nrow, int lane, bool vec,
+                                            float (&acc)[XS][NS]) {
+  if constexpr (kBucket) {
+    bucket_product<XS, NS>(L, ldl, R, K, ldr, ldr, row0, nrow, lane, vec, acc);
+  } else {
+    tile_product_acc<XS, NS, kVec>(L, ldl, R, K, ldr, row0, nrow, lane, acc);
+  }
+}
+
 // acc += L . R over the 16 x 32 tile at (m0, n0), K deep, in kPasses TF32
 // passes: mma_product's loop for one tile, its accumulator kept by the
 // caller. ld_l and ld_r give 0 outside their operands.
@@ -2225,8 +2525,11 @@ env_step_2d_cluster_kernel(const float* __restrict__ u_in, const float* __restri
                            const float* __restrict__ dinv, float* __restrict__ u_out,
                            float* __restrict__ w_out, float* __restrict__ b_out,
                            float* __restrict__ p_out, K1Params P, int fg_rows) {
-  constexpr int NS = kK1Levels;
-  constexpr int XS = NXL > 0 ? k1_cols(NXL) : kK1MaxCols;
+  // NXL < 0: a runtime-size bucket (k1_bucket) of at most -NXL columns a
+  // warp and -NZ levels a lane
+  constexpr bool kBucket = NXL < 0;
+  constexpr int NS = kBucket ? -NZ : kK1Levels;
+  constexpr int XS = kBucket ? -NXL : (NXL > 0 ? k1_cols(NXL) : kK1MaxCols);
   constexpr bool kVec = NXL > 0 && NXL % 4 == 0 && NZ % 4 == 0;
   // the solve on wgmma (dct: its packed constants, k1_tf32_constants)
   constexpr bool kWg = NXL > 0 && k1_cluster_wgmma(NXL, NZ, kPasses);
@@ -2242,6 +2545,8 @@ env_step_2d_cluster_kernel(const float* __restrict__ u_in, const float* __restri
   const int x_off = r * nxl;  // this CTA's first column
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int xs = k1_cols(nxl), x0 = warp * xs, xn = min(xs, nxl - x0);  // xn may be <= 0
+  // a bucket's products read L four values at a time where nxl and nz allow
+  const bool vec = kBucket && (nxl & 3) == 0 && (nz & 3) == 0;
 
   State2D X{cta, cta + nc, cta + nc + nf};
   State2D Y{X.b + nc, X.b + nc + nc, X.b + nc + nc + nf};
@@ -2267,8 +2572,8 @@ env_step_2d_cluster_kernel(const float* __restrict__ u_in, const float* __restri
   // (never where the CTA's slab is compile-time and F and G's rows cannot
   // fit beside it even at c = 2, as at 96 x 64: that code is left out)
   constexpr bool kMayHoldFG =
-      NXL == 0 || sizeof(float) * (on_chip_smem_floats(NXL, NZ) + 4 * (size_t)NXL * NXL) <=
-                      kSmemPerBlock;
+      kBucket || NXL == 0 ||
+      sizeof(float) * (on_chip_smem_floats(NXL, NZ) + 4 * (size_t)NXL * NXL) <= kSmemPerBlock;
   const bool fg = kPasses == 0 && kMayHoldFG && fg_rows;
   float* frows = bot + nxl;
   float* grows = frows + nxl * nx;
@@ -2414,7 +2719,15 @@ env_step_2d_cluster_kernel(const float* __restrict__ u_in, const float* __restri
 #pragma unroll
         for (int xi = 0; xi < XS; ++xi) {
           if (xi < xn) {
-            const int i = x0 + xi, im = i - 1, ip = i + 1;
+            if constexpr (kBucket) {  // this column's bases, computed here (opaque)
+              const int ln = opaque(lane);
+#pragma unroll
+              for (int s = 0; s < NS; ++s) {
+                kl[s] = ln + 32 * s;
+                kc[s] = min(kl[s], nz - 1);
+              }
+            }
+            const int i = (kBucket ? opaque(x0) : x0) + xi, im = i - 1, ip = i + 1;
             const float* uc = X.u + i * nz;
             const float* wc = X.w + i * nw;
             const float* bc = X.b + i * nz;
@@ -2546,7 +2859,8 @@ env_step_2d_cluster_kernel(const float* __restrict__ u_in, const float* __restri
                                   const float* slab) {
           const float* Lr = decltype(in_smem)::value ? rows : L + (size_t)x_off * nx;
           clear();
-          tile_product_acc<XS, NS, kVec>(Lr + x_off, nx, slab, nxl, nz, x0, nxl, lane, pt);
+          k1_tile_acc<kBucket, XS, NS, kVec>(Lr + x_off, nx, slab, nxl, nz, x0, nxl, lane, vec,
+                                             pt);
           for (int q0 = 1; q0 < c; q0 += kK1StagedSlabs) {
             const int nq = min(kK1StagedSlabs, c - q0);
             if (q0 > 1) __syncthreads();
@@ -2554,8 +2868,8 @@ env_step_2d_cluster_kernel(const float* __restrict__ u_in, const float* __restri
             __syncthreads();
             for (int j = 0; j < nq; ++j) {
               const int q = (r + q0 + j) % c;
-              tile_product_acc<XS, NS, kVec>(Lr + q * nxl, nx, D + j * nc, nxl, nz, x0, nxl,
-                                             lane, pt);
+              k1_tile_acc<kBucket, XS, NS, kVec>(Lr + q * nxl, nx, D + j * nc, nxl, nz, x0,
+                                                 nxl, lane, vec, pt);
             }
           }
         };
@@ -2570,7 +2884,8 @@ env_step_2d_cluster_kernel(const float* __restrict__ u_in, const float* __restri
         store(sb);
         __syncthreads();
         clear();
-        tile_product_acc<XS, NS, kVec>(sb, nz, ct, nz, nz, x0, nxl, lane, pt);  // r_hat C^T
+        k1_tile_acc<kBucket, XS, NS, kVec>(sb, nz, ct, nz, nz, x0, nxl, lane, vec,
+                                           pt);  // r_hat C^T
 #pragma unroll
         for (int xi = 0; xi < XS; ++xi)
 #pragma unroll
@@ -2579,7 +2894,8 @@ env_step_2d_cluster_kernel(const float* __restrict__ u_in, const float* __restri
         store(D);
         __syncthreads();
         clear();
-        tile_product_acc<XS, NS, kVec>(D, nz, st, nz, nz, x0, nxl, lane, pt);  // p_hat = R~ S^T
+        k1_tile_acc<kBucket, XS, NS, kVec>(D, nz, st, nz, nz, x0, nxl, lane, vec,
+                                           pt);  // p_hat = R~ S^T
         store(sb);
         cluster_barrier();  // (4) every CTA's p_hat
         x_product(gmat, grows, sb);  // p = G . p_hat
@@ -2744,7 +3060,9 @@ env_step_2d_cluster_kernel(const float* __restrict__ u_in, const float* __restri
 
 // The cluster K1 instance for a grid's slab and a pass count: specialised
 // for 64 and 96 columns of 64 levels a CTA (128x64 and 256x64; 192x64), at
-// TF32 on wgmma, the runtime-size one for every other.
+// TF32 on wgmma, for every other slab its bucket (k1_bucket: 8 columns a
+// warp of one level a lane where nz <= 32 in float32, else of two, at
+// stride nz).
 decltype(&env_step_2d_cluster_kernel<0, 0>) env_step_cluster_kernel_for(int nxl, int nz,
                                                                           int passes) {
   if (passes > 0 && k1_cluster_wgmma(nxl, nz, passes)) {
@@ -2755,11 +3073,12 @@ decltype(&env_step_2d_cluster_kernel<0, 0>) env_step_cluster_kernel_for(int nxl,
     return passes == 3 ? env_step_2d_cluster_kernel<96, 64, 3>
                        : env_step_2d_cluster_kernel<96, 64, 1>;
   }
-  if (passes == 3) return env_step_2d_cluster_kernel<0, 0, 3>;
-  if (passes == 1) return env_step_2d_cluster_kernel<0, 0, 1>;
+  if (passes == 3) return env_step_2d_cluster_kernel<-8, -2, 3>;
+  if (passes == 1) return env_step_2d_cluster_kernel<-8, -2, 1>;
   if (nz == 64 && nxl == 64) return env_step_2d_cluster_kernel<64, 64>;
   if (nz == 64 && nxl == 96) return env_step_2d_cluster_kernel<96, 64>;
-  return env_step_2d_cluster_kernel<0, 0>;
+  return k1_bucket(nxl, nz, 0, true).levels == 1 ? env_step_2d_cluster_kernel<-8, -1>
+                                                 : env_step_2d_cluster_kernel<-8, -2>;
 }
 
 // ---- K2 -----------------------------------------------------------------------

@@ -387,7 +387,9 @@ def env_step_2d_occupancy(nx: int, nz: int, precision: str | None = None) -> dic
     global scratch, "off_chip_global_slabs"), "cluster_ctas",
     "blocks_per_sm", "max_active_clusters" (``cudaOccupancyMaxActiveClusters``
     on the card; 0 off a cluster), "registers", "local_bytes" (stack and
-    spills a thread) and "shared_bytes" a block. Needs a card."""
+    spills a thread) and "shared_bytes" a block, and "bucket", the
+    runtime-size bucket the launcher picked (``limits.env_step_2d_bucket``;
+    None for a compile-time or the off-chip instance). Needs a card."""
     check_precision(precision)
     out = (ctypes.c_int * 7)()
     _raise_on(_build.load_library().env_step_2d_occupancy(nx, nz, K1_PASSES[precision],
@@ -397,6 +399,7 @@ def env_step_2d_occupancy(nx: int, nz: int, precision: str | None = None) -> dic
             "local_bytes", "shared_bytes")
     rec = dict(zip(keys, out))
     rec["instance"] = ("on_chip", "cluster", "off_chip", "off_chip_global_slabs")[rec["instance"]]
+    rec["bucket"] = limits.env_step_2d_bucket(nx, nz, K1_PASSES[precision])
     return rec
 
 

@@ -25,8 +25,13 @@ K1_MAX_NZ = 64  # z levels of an on-chip K1 column: two per lane (kK1MaxNz)
 K1_MAX_NX = 128  # x columns on the chip: at most 8 per warp of 16 (kK1MaxCols)
 
 
-def _on_chip_smem_bytes(nx: int, nz: int) -> int:
-    return 4 * (2 * (2 * nx * nz + nx * (nz + 1)) + 2 * nx * nz + 2 * nz * nz + nx)
+def _on_chip_smem_bytes(nx: int, nz: int, ld: int | None = None, g: int = 0) -> int:
+    """K1's on-chip layout (``on_chip_smem_floats``); with ``ld`` its columns
+    ld floats apart (w's ld + 1), the z transforms' rows ld apart and g ghost
+    columns each side of the state's fields (``k1_padded_smem_floats``)."""
+    ld = nz if ld is None else ld
+    return 4 * (2 * (2 * (nx + 2 * g) * ld + (nx + 2 * g) * (ld + 1)) + 2 * nx * ld
+                + 2 * nz * ld + nx)
 
 
 def env_step_2d_on_chip(nx: int, nz: int) -> bool:
@@ -56,6 +61,36 @@ def env_step_2d_cluster_size(nx: int, nz: int) -> int:
             return c
         c *= 2
     return 0
+
+
+def env_step_2d_bucket(nx: int, nz: int, passes: int) -> tuple[int, int, int] | None:
+    """The runtime-size bucket K1's launcher runs a grid on (``k1_bucket`` in
+    ``csrc/rbc2d.cu``), as (columns a warp, levels a lane, column stride)
+    of a block of nxl columns (nx on the chip, nx / c a CTA on a cluster);
+    a stride of 0 is nz, at runtime, and a compile-time one pads each
+    column past nz. In float32 (``passes`` 0) on the chip: nz <= 32 (8, 1,
+    32); nz <= 48 (8, 2, 48); nz <= 64 (4, 2, 64) where nx <= 64; else (8,
+    2, 0); on a cluster (8, 1, 0) where nz <= 32, else (8, 2, 0). At TF32
+    (8, 2, 0) on the chip and on a cluster. None where a compile-time instance takes
+    the grid (float32 96x64 and a cluster's 64 or 96 columns of 64 levels;
+    at TF32 the wgmma grids) or the off-chip instance does."""
+    c = env_step_2d_cluster_size(nx, nz)
+    if not c and not env_step_2d_on_chip(nx, nz):
+        return None
+    nxl = nx // c if c else nx
+    if passes:
+        compiled = ((nxl, nz) in K1_CLUSTER_WGMMA_SLABS if c else (nx, nz) in K1_WGMMA_GRIDS)
+    else:
+        compiled = (nxl, nz) in ((64, 64), (96, 64)) if c else (nx, nz) == (96, 64)
+    if compiled:
+        return None
+    if c or passes:
+        return (8, 1 if not passes and nz <= 32 else 2, 0)
+    if nz <= 32:
+        return (8, 1, 32)
+    if nz <= 48:
+        return (8, 2, 48)
+    return (4, 2, 64) if nx <= 64 else (8, 2, 0)
 
 
 # K1's TF32 instances whose solve runs on wgmma (``k1_wgmma`` and
@@ -137,13 +172,17 @@ def env_step_2d_slabs_on_chip(nx: int, nz: int) -> bool:
 def env_step_2d_smem_bytes(nx: int, nz: int) -> int:
     """K1's shared memory per block (``env_step_2d_smem_floats``), float32:
     on the chip two copies of u, b (nx, nz) and w (nx, nz + 1), two (nx, nz)
-    slabs, the z analysis and synthesis (nz, nz) and the bottom profile; on
+    slabs, the z analysis and synthesis (nz, nz) and the bottom profile,
+    each column padded to its bucket's stride (``env_step_2d_bucket``) and,
+    at a compile-time stride, three ghost columns each side of the state's
+    fields; on
     a cluster of c CTAs the same over nx / c columns a CTA, and the CTA's
     rows of F and G where they fit (``env_step_2d_cluster_fg``); off both
     ``K1_OFF_CHIP_SMEM_BYTES`` and the two slabs where they fit
     (``env_step_2d_slabs_on_chip``)."""
     if env_step_2d_on_chip(nx, nz):
-        return _on_chip_smem_bytes(nx, nz)
+        ld = (env_step_2d_bucket(nx, nz, 0) or (0, 0, 0))[2]
+        return _on_chip_smem_bytes(nx, nz, ld or nz, 3 if ld else 0)
     c = env_step_2d_cluster_size(nx, nz)
     if not c:
         return K1_OFF_CHIP_SMEM_BYTES + (8 * nx * nz if env_step_2d_slabs_on_chip(nx, nz) else 0)

@@ -2,8 +2,8 @@
 """Time the stage kernels of several source trees on one CUDA card.
 
     python3 scripts/kernel_variants.py
-        [--kernels k1,k1c,k1c_times,k1o,k1g,k1g_times,k1t,k1t_times,k2,k3,k3qp,
-                   k5_training,k5,k5z,k5z_times,k6,k7,field_step]
+        [--kernels k1,k1c,k1c_times,k1r,k1r_times,k1o,k1g,k1g_times,k1t,k1t_times,
+                   k2,k3,k3r,k3qp,k5_training,k5,k5r,k5z,k5z_times,k6,k7,field_step]
         TREE [TREE ...]
 
 Each TREE is a checkout of this repo (for example a ``git archive`` of a
@@ -37,6 +37,18 @@ gates:
   neighbour's slab staged in shared memory in place of distributed
   shared memory, three k-steps in flight; ``k1c_times`` the same without
   the cut builds;
+- ``k1r``: K1's runtime-size instances at 1024 envs, one env step of 50
+  substeps, at each precision on ``K1R_GRIDS``: 64x64, 128x32, 128x40,
+  96x32 and 48x32 on the chip, 256x32 and 160x64 on a cluster of two
+  CTAs, with float32 K1 on 96x64 timed first and last; the gates at 6
+  substeps and 128 envs at each precision, and ``env_step_2d_occupancy``;
+  and every time again from builds of the tree's ``csrc/rbc2d.cu`` cut for
+  timing only (``ablate_k1r``; outputs wrong, never gated): without the
+  solve's products (float32 and TF32) and without the march;
+  ``k1r_times`` the same without the cut builds;
+- ``k3r``, ``k5r``: K3's runtime-size instance on 16x24x24 and K5's
+  runtime-nz one on 48x64x64, as ``k3`` and ``k5``, with the card's
+  occupancy of the instance;
 - ``k1o``: K1's off-chip instance (its slabs in shared memory) at 1024
   envs on 127x64, one env step of 50 substeps, float32 and "high", with
   float32 K1 on 96x64 timed first and last; its gates at 6 substeps and
@@ -232,6 +244,96 @@ def k1c(cuts=True):
                 r["split_ms"] = {"products": products, "march": march,
                                  "rest": r["ms"] - products - march}
     rec["k1_96x64_last_ms"] = k1_ms((64, 96))[1]
+    return rec, errs
+
+
+# k1r's grids (nz, nx): the on-chip runtime-size instance's 64x64, 128x32,
+# 128x40, 96x32 and 48x32, and the cluster's 256x32 (2 x 128x32) and 160x64
+# (2 x 80x64)
+K1R_GRIDS = ((64, 64), (32, 128), (40, 128), (32, 96), (32, 48), (32, 256), (64, 160))
+K1R_CUTS, K1R_DIR = ("products", "march"), "rbc_gym_tpu_torch/_build/k1r"
+
+
+def k1r(cuts=True):
+    # K1 on K1R_GRIDS at each precision, float32 K1 on 96x64 timed first and
+    # last in the same process, and with cuts every launch again from the
+    # ablated libraries main() built beside the tree's own
+    import ctypes
+    from rbc_gym_tpu_torch.ops import _build, kernels2d as k2d, limits
+
+    def k1_ms(shape, prec=None, reps=3):
+        solver, case = cs.make_case(device, 1024, shape, 1.5, seed=2)
+        ms = cs._cuda_ms(lambda: cs.k1_run(solver, case, True, prec), reps)
+        del case
+        torch.cuda.empty_cache()
+        return solver, ms
+
+    rec, errs = {"k1_96x64_first_ms": k1_ms((64, 96))[1]}, {}
+    for shape in K1R_GRIDS:
+        nz, nx = shape
+        c = limits.env_step_2d_cluster_size(nx, nz)
+        r = {"instance": f"cluster {c}" if c else "on_chip"}
+        for name, prec in K1C_PRECISIONS:
+            solver, ms = k1_ms(shape, prec)
+            bound_ms, by = cs.bound(cs.env_step_work(1024, nx, nz,
+                                                     solver.params.substeps_per_env_step, prec))
+            r[name] = {"ms": ms, "bound_ms": bound_ms, "bound_by": by,
+                       "share_of_bound": bound_ms / ms,
+                       "occupancy": k2d.env_step_2d_occupancy(nx, nz, prec)}
+        s6, c6 = cs.make_case(device, 128, shape, 0.18, seed=4)
+        errs[f"{nx}x{nz}_6"] = (max(cs.abs_diffs(cs.K1_OUT, cs.k1_run(s6, c6, True),
+                                                 cs.k1_run(s6, c6, False)).values()), cs.K1_ATOL)
+        errs[f"{nx}x{nz}_6_bf16x3"] = (max(cs.abs_diffs(
+            cs.K1_OUT, cs.k1_run(s6, c6, True, "high"),
+            cs.k1_run(s6, c6, False, "high")).values()), cs.K1_ATOL)
+        one = cs.k1_tf32_errors(s6, c6, cs.k1_run(s6, c6, True, "default"))
+        errs[f"{nx}x{nz}_6_default"] = (one["kernel"], one["bound"])
+        rec[f"{nx}x{nz}"] = r
+        del c6
+    real = _build.load_library
+    for what in K1R_CUTS if cuts else ():
+        if not os.path.exists(f"{K1R_DIR}/{what}/lib.so"):
+            continue
+        lib = ctypes.CDLL(f"{K1R_DIR}/{what}/lib.so")
+        for fn_name, argtypes in _build.ARGTYPES.items():
+            if hasattr(lib, fn_name):
+                getattr(lib, fn_name).argtypes = argtypes
+                getattr(lib, fn_name).restype = ctypes.c_int
+        _build.load_library = lambda lib=lib: lib
+        try:
+            for nz, nx in K1R_GRIDS:
+                for name, prec in K1C_PRECISIONS:
+                    rec[f"{nx}x{nz}"][name][f"no_{what}_ms"] = k1_ms((nz, nx), prec)[1]
+        finally:
+            _build.load_library = real
+    for nz, nx in K1R_GRIDS:
+        for name, _ in K1C_PRECISIONS if cuts else ():
+            r = rec[f"{nx}x{nz}"][name]
+            if "no_products_ms" in r and "no_march_ms" in r:
+                products, march = r["ms"] - r["no_products_ms"], r["ms"] - r["no_march_ms"]
+                r["split_ms"] = {"products": products, "march": march,
+                                 "rest": r["ms"] - products - march}
+    rec["k1_96x64_last_ms"] = k1_ms((64, 96))[1]
+    return rec, errs
+
+
+def stage_runtime(wrapper, shape, dt_solver, f64_envs, reps):
+    # stage() on a grid that runs a runtime-size 3D instance, with the card's
+    # occupancy of that instance and its plain version's time a stage
+    rec, errs = stage(wrapper, shape, dt_solver, f64_envs, reps)
+    nz, ny, nx = shape
+    solver, case = cs.make_case_3d(device, 1024, shape, seed=5, dt_solver=dt_solver)
+    g_prev = cs.k3_run(solver, case, 0, None, False)[5]
+    for m in range(3):
+        gp = g_prev if m else None
+        rec[f"stage{m}"]["plain_ms"] = cs._cuda_ms(
+            lambda: cs.k3_run(solver, case, m, gp, False), 1)
+    del case, g_prev
+    torch.cuda.empty_cache()
+    if wrapper is k3d.stage_rk_3d:
+        rec["occupancy"] = k3d.march_occupancy(nx, ny, nz, rhat=False)
+    else:
+        rec["occupancy"] = k3d.stage_xy_occupancy(nz)
     return rec, errs
 
 
@@ -593,6 +695,10 @@ RUNS = {
     "k1": k1,
     "k1c": k1c,
     "k1c_times": lambda: k1c(cuts=False),
+    "k1r": k1r,
+    "k1r_times": lambda: k1r(cuts=False),
+    "k3r": lambda: stage_runtime(k3d.stage_rk_3d, (16, 24, 24), 0.01, 32, 20),
+    "k5r": lambda: stage_runtime(k3d.stage_rk_3d_xy, (48, 64, 64), cs.BIG_DT_SOLVER, 8, 5),
     "k1o": k1o,
     "k1t": k1t,
     "k1t_times": lambda: k1t(cuts=False),
@@ -734,6 +840,36 @@ def ablate_k1c(src: str, what: str) -> str:
         else:
             raise ValueError(f"unknown cut {what}")
     return "\n".join(lines)
+
+
+# K1's runtime-size cuts of ``k1r`` (MEASURE's K1R_CUTS and K1R_DIR)
+K1R_CUTS = ("products", "march")
+K1R_DIR = Path("rbc_gym_tpu_torch") / "_build" / "k1r"
+
+
+def ablate_k1r(src: str, what: str) -> str:
+    """``csrc/rbc2d.cu`` with a part of K1's on-chip and cluster instances
+    cut, for timing only: "march" as ``ablate_k1c``; "products" the TF32
+    solves as ``ablate_k1c`` and, in each kernel, the float32 solve: the
+    lines from its "// ---- 4. the solve: " marker to the next "// ---- 5.
+    correct" but its ``if constexpr (kPasses == 0) {`` and the cluster
+    barriers among them."""
+    if what == "march":
+        return ablate_k1c(src, what)
+    lines = ablate_k1c(src, "products").split("\n")
+    out, i, found = [], 0, 0
+    while i < len(lines):
+        if "// ---- 4. the solve: " in lines[i]:
+            b = next(j for j in range(i, len(lines)) if "// ---- 5. correct" in lines[j])
+            out += [lines[i]] + [x for x in lines[i + 1:b] if "cluster_barrier(" in x
+                                 or x.strip() == "if constexpr (kPasses == 0) {"]
+            i, found = b, found + 1
+        else:
+            out.append(lines[i])
+            i += 1
+    if found < 2:
+        raise ValueError("K1's float32 solves are not where k1r looks")
+    return "\n".join(out)
 
 
 # K1's off-chip instance's timing-only cuts of ``k1g`` (MEASURE's K1G_CUTS and K1G_DIR)
@@ -892,6 +1028,7 @@ def build_ablations(tree: Path, nvcc: str, kernels: str) -> list:
     cuts += [(K5Z_DIR, what, "rbc3d.cu", ablate_k5z) for what in K5Z_CUTS if "k5z" in names]
     cuts += [(K1G_DIR, what, "rbc2d.cu", ablate_k1g) for what in K1G_CUTS if "k1g" in names]
     cuts += [(K1C_DIR, what, "rbc2d.cu", ablate_k1c) for what in K1C_CUTS if "k1c" in names]
+    cuts += [(K1R_DIR, what, "rbc2d.cu", ablate_k1r) for what in K1R_CUTS if "k1r" in names]
     procs = []
     for base, what, source, ablate in cuts:
         try:

@@ -134,3 +134,26 @@ def test_smoke_poisson_precision_2d_phase_runs_on_cpu_plain_halves():
     assert out["tf32_flags"] == {"matmul": False, "cudnn": False}
     assert out["times"] == {}  # timed on the card only
     json.dumps(out)
+
+
+def test_smoke_runtime_buckets_phase_runs_on_cpu_plain_halves():
+    """Phase 42 with few envs on small grids of each bucket (on the CPU both
+    halves are the plain version, so every gate holds at 0): the float32
+    gates after 6 and 50 substeps on every grid, the TF32 gates where the
+    grid's TF32 instances are a bucket (here every grid), the env step on a grid of the chip and one of a cluster with the
+    2D checks and no launch, and no times off the card."""
+    out = chip_smoke.runtime_buckets(
+        "cpu", grids={(12, 20): (8, 1, 32), (40, 20): (8, 2, 48), (50, 20): (4, 2, 64),
+                      (50, 65): (8, 2, 0), (16, 130): (8, 1, 0)},
+        few_envs=1, num_envs=2, path_shapes=((16, 32), (16, 130)), observation_shape=(8, 16))
+    grids = ("20x12", "20x40", "20x50", "65x50", "130x16")
+    assert set(out["gated"]) == {f"{g}_{k}" for g in grids
+                                 for k in ("6", "6_bf16x3", "6_default", "50")}
+    assert all(v["error"] <= v["atol"] for v in out["gated"].values())
+    assert out["by_grid"]["130x16"]["cluster_ctas"] == 2
+    assert {k: p["bucket"] for k, p in out["main_paths"].items()} == {"32x16": (8, 1, 32),
+                                                                      "130x16": (8, 1, 0)}
+    assert not any(n for p in out["main_paths"].values() for n in p["launches"].values())
+    assert all(p["max_abs_div"] < p["div_atol"] for p in out["main_paths"].values())
+    assert out["times"] == {}  # timed on the card only
+    json.dumps(out)

@@ -141,6 +141,16 @@ int main(int argc, char** argv) {
            env_step_2d_wgmma_chunk(nx, nz, 3));
     return 0;
   }
+  if (mode == "buckets") {  // buckets NX0 NX1 NZ0 NZ1: a line a grid of the sweep: nx, nz,
+                            // K1's runtime-size bucket at 0, 1 and 3 TF32 passes (as
+                            // env_step_2d_bucket) and its float32 shared floats
+    for (int nx = atoi(argv[2]); nx < atoi(argv[3]); ++nx)
+      for (int nz = atoi(argv[4]); nz < atoi(argv[5]); ++nz)
+        printf("%d %d %d %d %d %zu\n", nx, nz, env_step_2d_bucket(nx, nz, 0),
+               env_step_2d_bucket(nx, nz, 1), env_step_2d_bucket(nx, nz, 3),
+               env_step_2d_smem_floats(nx, nz));
+    return 0;
+  }
   // k1|k2 DIR E NX NZ NSUB DT DX DZ NU KAPPA MIN_B [PASSES [global|global_slabs]]
   dir = argv[2];
   const int E = atoi(argv[3]), nx = atoi(argv[4]), nz = atoi(argv[5]), nsub = atoi(argv[6]);
@@ -222,6 +232,9 @@ int main(int argc, char** argv) {
   printf("%s%s %d\n", on_chip ? "on_chip" : csize > 0 ? "cluster"
                                            : (global_slabs ? "global_slabs" : "global"),
          wgmma ? "_wgmma" : "", csize > 0 ? csize : 1);
+  // the runtime-size bucket that ran (10000 columns a warp + 100 stride +
+  // levels a lane; 0 none)
+  printf("bucket %d\n", forced ? 0 : env_step_2d_bucket(nx, nz, passes));
   return 0;
 }
 """
@@ -239,8 +252,8 @@ def run_case(host_binary, tmp_path, mode, n_env, nx, nz, heater_duration, seed,
     ``precision``; ``force_global`` "global" forces its off-chip instance,
     "global_slabs" that instance with its slabs in global scratch, and True
     is "global") -> (solver, case, what the host program printed: for K1
-    the instance that ran and its CTAs a cluster); the outputs are files in
-    ``tmp_path``."""
+    the instance that ran and its CTAs a cluster, then a line "bucket B"
+    with its runtime-size bucket); the outputs are files in ``tmp_path``."""
     if force_global is True:
         force_global = "global"
     solver, case = chip_smoke.make_case("cpu", n_env, (nz, nx), heater_duration, seed=seed,
@@ -277,15 +290,21 @@ _MATMUL = poisson.matmul
 
 
 def check_k1(host_binary, tmp_path, n_env, nx, nz, heater_duration, dt_solver,
-              precision=None, n_sub=6, force_global=False, instance=None):
+              precision=None, n_sub=6, force_global=False, instance=None, bucket=None):
     """K1 on the host against ``env_step_2d_plain`` at the smoke's gate;
     ``instance`` (e.g. "cluster 2"), if given, is what the host program
-    says ran."""
-    solver, case, ran = run_case(host_binary, tmp_path, "k1", n_env, nx, nz, heater_duration,
-                                 seed=0, dt_solver=dt_solver, precision=precision,
-                                 force_global=force_global)
+    says ran, and ``bucket`` (e.g. (8, 1, 32)), if given, its runtime-size
+    bucket, which is ``limits.env_step_2d_bucket``'s."""
+    solver, case, printed = run_case(host_binary, tmp_path, "k1", n_env, nx, nz,
+                                     heater_duration, seed=0, dt_solver=dt_solver,
+                                     precision=precision, force_global=force_global)
+    ran, ran_bucket = printed.splitlines()
     assert solver.params.substeps_per_env_step == n_sub
     assert instance is None or ran == instance, ran
+    if bucket is not None:
+        assert ran_bucket == f"bucket {10000 * bucket[0] + 100 * bucket[2] + bucket[1]}", \
+            ran_bucket
+        assert limits.env_step_2d_bucket(nx, nz, k2.K1_PASSES[precision]) == bucket
 
     def plain(c, matmul=_MATMUL):
         with mock.patch.object(poisson, "matmul", matmul):
