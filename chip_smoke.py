@@ -294,6 +294,22 @@ nvcc under $CUDA_HOME (default /usr/local/cuda). It builds the kernels from
                      K1 instance; float32 K1's times at 1024 envs, 50
                      substeps, on each grid beside its plain version, bound
                      and occupancy
+43. runtime_3d       K3's and K5's runtime-size buckets (each grid off the
+                     compile-time instances on the runtime-size layout with
+                     its rings' rows a compile-time stride apart, each z
+                     flux once): each stage against its plain version at 8
+                     envs (K3_FIELD_ATOL, K3_G_ATOL; past 64 levels against
+                     float64, SPLIT_VS_PLAIN's rule) and stage 0 beside
+                     float64, K3 on 16x24x24, 20x16x8, 7x36x12, 12x32x16,
+                     32x32x16, 40x16x16, 80x8x16 and 120x8x8, K5 on
+                     48x64x64, 24x64x64, 50x64x32, 80x64x32, 96x64x16 and
+                     106x64x16 (a bucket or the runtime-size instance, as
+                     K3_RUNTIME_GRIDS and K5_RUNTIME_GRIDS say);
+                     RBC3DVectorEnv(1024, state_shape=(16, 24, 24)) and
+                     (256, (48, 64, 64), dt_solver=0.005): reset, one step,
+                     the 3D checks, K3 39 and K5 0 launches, K5 75 and K3 0;
+                     each grid's stages at 1024 envs beside the plain
+                     version, bound and occupancy
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -346,6 +362,8 @@ from rbc_gym_tpu_torch.ops.limits import (
     env_step_2d_wgmma,
     env_step_2d_slabs_on_chip,
     field_tendency_on_march,
+    stage_bucket,
+    stage_xy_bucket,
     stage_xy_split_size,
     tendencies_2d_instance,
 )
@@ -3816,19 +3834,19 @@ FINE_WRAPPERS_3D = STAGE_WRAPPERS + ("stage_rk_3d_xy_split",)
 FINE_WRAPPERS_2D = K1_WRAPPERS + ("env_step_2d_cluster", "env_step_2d_global")
 
 
-def split_stage_parity(solver, case, prefix=""):
-    """Stage 0, 1, 2 of ``stage_rk_3d_xy`` (K5's z split on these columns)
-    and of the float32 plain version against the plain version run in
-    float64 on the same inputs, each stage fed the float32 plain outputs of
-    the one before -> (errors by stage and output, {check: (error, bound)})
-    with SPLIT_VS_PLAIN's bounds."""
+def split_stage_parity(solver, case, prefix="", wrapper=k3d.stage_rk_3d_xy):
+    """Stage 0, 1, 2 of ``wrapper`` (by default ``stage_rk_3d_xy``, K5's z
+    split on these columns) and of the float32 plain version against the
+    plain version run in float64 on the same inputs, each stage fed the
+    float32 plain outputs of the one before -> (errors by stage and output,
+    {check: (error, bound)}) with SPLIT_VS_PLAIN's bounds."""
     def flat(out):
         return (*out[:5], *(out[5] or ()))
 
     by_stage, errs, g_prev = {}, {}, None
     stage_case = dict(case)
     for stage in range(3):
-        got = k3_run(solver, stage_case, stage, g_prev, True, k3d.stage_rk_3d_xy)
+        got = k3_run(solver, stage_case, stage, g_prev, True, wrapper)
         want = k3_run(solver, stage_case, stage, g_prev, False)
         ref = k3_run(solver, {k: v.double() for k, v in stage_case.items()}, stage,
                      None if g_prev is None else tuple(g.double() for g in g_prev), False)
@@ -4164,6 +4182,126 @@ def runtime_buckets(device, grids=K1_BUCKET_GRIDS, few_envs=8, num_envs=1024,
             "seconds": time.perf_counter() - begin}
 
 
+# Phase 43's grids (nz, ny, nx), each with the bucket its kernel runs it on
+# (its rings' stride; ``limits.stage_bucket``, ``stage_xy_bucket``; None:
+# the runtime-size instance, where no bucket measured faster). K3:
+# 16x24x24 and 32x32x16 (the compile-time columns of 16 and 32 with ny at
+# run time, 32x32x16 at 1024 threads), 40x16x16 (48), 80x8x16 (96),
+# 120x8x8 (128), each stride's lowest nz at as many blocks an SM as the
+# runtime-size instance (33x16x16, 65x8x16, 97x8x8) and at fewer, on the
+# runtime-size instance (33x13x16, 65x7x16, 97x5x8), and on it too
+# 20x16x8, 7x36x12 (odd nz) and 12x32x16; K5: 48x64x64 (48), 40x64x16
+# (48, its lowest nz), 96x64x16 (96), and on the runtime-nz instance
+# 24x64x64, 36x64x32 (below the 48 bucket), 50x64x32 (odd nz, above it),
+# 80x64x32, 95x64x16 (below the 96 bucket) and 106x64x16 (the largest column
+# one CTA holds)
+K3_RUNTIME_GRIDS = {(16, 24, 24): 16, (20, 16, 8): None, (7, 36, 12): None, (12, 32, 16): None,
+                    (32, 32, 16): 32, (40, 16, 16): 48, (80, 8, 16): 96, (120, 8, 8): 128,
+                    (33, 16, 16): 48, (33, 13, 16): None, (65, 8, 16): 96, (65, 7, 16): None,
+                    (97, 8, 8): 128, (97, 5, 8): None}
+K5_RUNTIME_GRIDS = {(48, 64, 64): 48, (24, 64, 64): None, (50, 64, 32): None,
+                    (80, 64, 32): None, (96, 64, 16): 96, (106, 64, 16): None,
+                    (40, 64, 16): 48, (36, 64, 32): None, (95, 64, 16): None}
+# Past this many levels the cases' noise (CASE_AMP over dz = 2 / nz) gives
+# outputs whose float32 rounding is of K3's absolute gates: from 80 levels
+# the float32 plain version is itself 1.4e-5-2.8e-5 off float64, and the
+# runtime-size instances fail the gates there by as much (PERF.md, rows 3r
+# and 5r), so those grids are held as K5's z split is
+# (``split_stage_parity``, SPLIT_VS_PLAIN's rule).
+RUNTIME_ABS_GATE_MAX_NZ = 64
+# Phase 43's env steps: (envs, state_shape, dt_solver)
+RUNTIME_PATHS_3D = ((1024, (16, 24, 24), 0.01), (256, (48, 64, 64), BIG_DT_SOLVER))
+
+
+def tiled_case(case: dict, n: int) -> dict:
+    """The case's envs repeated to ``n`` (the times need no fresh noise, and
+    numpy's draws for 1024 envs of the larger grids take tens of seconds)."""
+    e = case["u"].shape[0]
+    return {k: v.repeat(-(-n // e), *([1] * (v.dim() - 1)))[:n].contiguous()
+            for k, v in case.items()}
+
+
+def runtime_3d(device, k3_grids=K3_RUNTIME_GRIDS, k5_grids=K5_RUNTIME_GRIDS, few_envs=8,
+               paths=RUNTIME_PATHS_3D, heater_duration=0.125, num_envs=1024, reps=3) -> dict:
+    """Phase 43: K3's and K5's runtime-size buckets. On each of ``k3_grids``
+    (K3) and ``k5_grids`` (K5), the bucket ``limits`` gives as the grids
+    say, each stage against the plain version at ``few_envs`` (each stage
+    fed the plain outputs of the one before; K3_FIELD_ATOL, K3_G_ATOL to
+    ``RUNTIME_ABS_GATE_MAX_NZ`` levels, ``split_stage_parity`` past them),
+    stage 0 beside a float64 run; ``RBC3DVectorEnv`` on each of ``paths``:
+    reset, then with the counts at 0 one step, ``check_3d``'s checks and its
+    path's launches (K3 or K5 three a substep, the other none, K4 one). On
+    the card, each grid's stages at ``num_envs`` (the few-env case tiled)
+    beside the plain version, bound (``stage_rk_3d_work``) and occupancy."""
+    begin = time.perf_counter()
+    device = torch.device(device)
+    dtype = working_dtype(device)
+    kinds = (("stage_rk_3d", k3d.stage_rk_3d, k3_grids, stage_bucket),
+             ("stage_rk_3d_xy", k3d.stage_rk_3d_xy, k5_grids, lambda ny, nz: stage_xy_bucket(nz)))
+    gated, by_grid = {}, {}
+    for name, wrapper, grids, bucket in kinds:
+        for shape, want in grids.items():
+            nz, ny, nx = shape
+            if bucket(ny, nz) != want:
+                raise AssertionError(f"{name} runs {shape} on bucket {bucket(ny, nz)}, not {want}")
+            key = f"{name}_{nz}x{ny}x{nx}"
+            solver, case = make_case_3d(device, few_envs, shape, seed=50, dtype=dtype)
+            if nz > RUNTIME_ABS_GATE_MAX_NZ:
+                stages, errs = split_stage_parity(solver, case, f"{key}_", wrapper)
+            else:
+                stages, errs = stage_parity(solver, case, wrapper, f"{key}_")
+            gated.update(errs)
+            by_grid[key] = {"bucket": want, "by_stage": stages,
+                            "stage0_float64_plain_vs": stage0_float64(solver, case, wrapper)}
+            del solver, case
+
+    main_paths = {}
+    for n_env, shape, dt_solver in paths:
+        env = RBC3DVectorEnv(n_env, state_shape=shape, dt_solver=dt_solver,
+                             heater_duration=heater_duration, dtype=dtype, device=device)
+        state, obs, ts, _, rec = drive_3d(env, 1, seed=0)
+        mine = {"stage": "stage_rk_3d", "stage_xy": "stage_rk_3d_xy"}.get(env.solver.path)
+        n_stages = 3 * len(env.params.substep_dts())
+        expect_launches(device, rec["launches"],
+                        {"stage_rk_3d": n_stages * (mine == "stage_rk_3d"),
+                         "stage_rk_3d_xy": n_stages * (mine == "stage_rk_3d_xy"),
+                         "correct_3d": 1})
+        main_paths["x".join(map(str, shape))] = {**rec, "dt_solver": dt_solver,
+                                                 **check_3d(env, state, obs, ts)}
+        del env, state, obs, ts
+    failed = {k: v for k, v in gated.items() if not v[0] <= v[1]}
+    if failed:
+        raise AssertionError(f"K3's and K5's runtime-size buckets failed (error, atol): {failed}")
+
+    times = {}
+    if device.type == "cuda":
+        for name, wrapper, grids, _ in kinds:
+            for shape, want in grids.items():
+                nz, ny, nx = shape
+                solver, case = make_case_3d(device, few_envs, shape, seed=5, dtype=torch.float32)
+                case = tiled_case(case, num_envs)
+                g_prev = k3_run(solver, case, 0, None, False)[5]
+                rec = {"bucket": want, "stages": []}
+                for m in range(3):
+                    gp = g_prev if m else None
+                    ms = _cuda_ms(lambda: k3_run(solver, case, m, gp, True, wrapper), reps)
+                    bound_ms, bound_by = bound(stage_rk_3d_work(num_envs, nx, ny, nz, m))
+                    rec["stages"].append({
+                        "ms": ms, "plain_ms": _cuda_ms(lambda: k3_run(solver, case, m, gp, False),
+                                                       1, warmup=0),
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "share_of_bound": bound_ms / ms})
+                rec["occupancy"] = (k3d.march_occupancy(nx, ny, nz) if name == "stage_rk_3d"
+                                    else k3d.stage_xy_occupancy(nz))
+                times[f"{name}_{nz}x{ny}x{nx}"] = rec
+                del case, g_prev
+                torch.cuda.empty_cache()
+    return {"phase": "runtime_3d", "gated": {k: {"error": e, "atol": a}
+                                             for k, (e, a) in gated.items()},
+            "by_grid": by_grid, "main_paths": main_paths, "times": times,
+            "seconds": time.perf_counter() - begin}
+
+
 # ---------------------------------------------------------------------------
 # Records
 # ---------------------------------------------------------------------------
@@ -4271,6 +4409,7 @@ def main() -> int:
     fine = fine_grids(device)
     emit({**fine, "card": card})
     emit({**runtime_buckets(device), "card": card})
+    emit({**runtime_3d(device), "card": card})
     tf32 = {"env_step_2d_tf32x3": "bf16x3", "env_step_2d_tf32": "default"}
     # each kernel's launches from the main path that is its own (K4 runs on
     # every 3D path; its count is the training grid's lazy path, its error

@@ -174,6 +174,41 @@
 //   On the host, with no FMA contraction, the split's outputs are
 //   single-CTA K5's bit for bit.
 //
+// K3's and K5's runtime-size buckets, stage_march_kernel<-S, NY> (NY = 0:
+// K3 with ny at run time; NY = -1: K5), take grids off the compile-time
+// instances. The runtime-size instances' causes (PERF.md, section 6, rows
+// 3r and 5r): each z-face flux computed by both of its cells (a column of
+// nz lanes straddles warps at nz = 24 or 48), K3's pHY' summed by one
+// thread a column on the plane's critical path, every ring address on a
+// runtime stride, and one launch bound for all (1024 threads, 64
+// registers). Design: the runtime-size layout, nz lanes a row, with the
+// rings' rows S floats apart (w's S + 1), so that every shared-memory
+// address has a compile-time stride; each z flux handed to the neighbouring
+// lane by a 32-wide shuffle, a warp's lane 31 computing the face above it
+// (and lane 0 w's center below it) where the column goes on in the next
+// warp, the flux through the top wall 0; in K5 the lanes of row kYT that
+// share a warp with rows 0..kYT-1 compute those rows' work too and store
+// none, so that every shuffle takes whole warps; K3's pHY' in two passes
+// around the plane's barrier, a float64 suffix scan across the column's
+// lanes in each warp, then the totals of the column's segments in the warps
+// above (phy_scan, phy_carry), so that each value rounds once; K5's launch
+// bounds from S ((kYT + 1) S threads, the blocks an SM its shared memory at
+// S leaves). K3 at nz = 16 and 32 runs the compile-time column with ny at
+// run time (<16, 0>, <32, 0>). A first design held each column on L lanes,
+// nz rounded up to a multiple of 32 with lanes past the column idle, as the
+// split's rows: at 48 levels K5's 64-lane rows left one 576-thread block an
+// SM and ran 0.74-0.82 of the runtime-nz instance's speed; K3's idle lanes
+// cost as much where nz < 0.8 L. A divergent evaluation by one lane costs
+// its warp a whole one: the edge lanes' own fluxes took 23-32 % of K5's
+// bucket's time at 48 levels, and taking them on four lanes at once did
+// not recover it (K3's stack grew). The buckets are used where they
+// measured faster than the runtime-size instances, timed at each range's
+// edges (stage_bucket, stage_xy_bucket; PERF.md, section 6): K3 where its
+// padded rings leave as many blocks an SM, K5 only near its strides. Every
+// other grid keeps <0, 0> or <0, -1>. Every expression that differs for a
+// bucket is kBucket ? the bucket's : the other instances' own, so that
+// they compile as they did.
+//
 // K4 correct_3d_kernel replaces ops/pallas3d.py:_correct_kernel (reached
 // from make_projection_glue_3d, pl.pallas_call at :959): u -= ddx q,
 // v -= ddy q, w -= ddz q at interior faces, once per env step after the
@@ -456,7 +491,7 @@ __device__ __forceinline__ void hydrostatic_column(const float* bc, float* pc, i
 // Shared memory K5 needs per block, in floats: rings of kRing x-planes of u,
 // v, b (nz per row) and w (nz + 1), two planes of q, kPhRing of pHY', and
 // v*, w* of one plane.
-size_t stage_xy_smem_floats(int nz) {
+__host__ __device__ constexpr size_t stage_xy_smem_floats(int nz) {
   return (size_t)(kRing * (kURows + kVRows + kBRows) + 2 * kQRows + kPhRing * kPRows +
                   kYT + 1) * nz +
          (size_t)(kRing * kWRows + kYT) * (nz + 1);
@@ -488,6 +523,82 @@ size_t field_smem_floats(int ny, int nz) {
 // Threads of a block: one per (row, z) point of an x-plane; K5's rows
 // 0..kYT (NY < 0), K3's and K6's rows 0..ny - 1 (NY >= 0).
 __host__ __device__ constexpr int march_threads(int nz, int ny) { return (ny < 0 ? kYT + 1 : ny) * nz; }
+
+// K3's and K5's runtime-size buckets (see the head of this file): a grid
+// off the compile-time instances runs stage_march_kernel<-S, NY>, the
+// runtime-size layout (nz lanes a row) with its rings' rows S floats apart,
+// where that measured faster than the runtime-size instance (PERF.md,
+// section 6, timed at each range's edges): K3 at nz 33..48 (S = 48) and
+// 65..128 (96, 128) where the padded rings leave as many blocks an SM as
+// the runtime-size instance (with fewer it was up to 0.73x), K5 at nz
+// 40..48 (48; 33 and 36 were slower) and at 96 (81..95 were slower or
+// even). K3 at nz = 16 and 32 runs the compile-time column with ny at run
+// time (<16, 0>, <32, 0>); its buckets keep kPhSegs float64 totals a row
+// for pHY'. 0: none (the compile-time instances, or the runtime-size
+// ones).
+constexpr int kPhSegs = 5;  // warps a column of at most 128 lanes touches
+
+// The blocks an SM a launch's shared memory leaves room for (each block
+// reserves 1 KB of an SM's 228 KB)
+constexpr size_t kSmemPerSM = 233472;
+__host__ __device__ constexpr int smem_blocks(size_t bytes) {
+  return (int)(kSmemPerSM / (bytes + 1024));
+}
+
+// K3's shared memory on a bucket of stride S, in floats: its rings at S,
+// then the pHY' totals (doubles, one float of alignment)
+size_t stage_bucket_smem_floats(int ny, int stride) {
+  return stage_smem_floats(ny, stride) + 2 * (size_t)kPhSegs * ny + 1;
+}
+
+// The blocks an SM a K3 launch on ny x nz takes with `bytes` of shared
+// memory: its ny nz threads hold 64 registers each (the launch bound of
+// 1024 threads, one block), so 32 warps of an SM's 64K registers
+int stage_blocks(int ny, int nz, size_t bytes) {
+  const int by_registers = 32 / ((ny * nz + 31) / 32);
+  return by_registers < smem_blocks(bytes) ? by_registers : smem_blocks(bytes);
+}
+
+// K3's bucket for a grid of its rule, its stride: nz at 16 and 32 (the
+// compile-time column) but on the training grid's 32 rows of 16, else 48,
+// 96 or 128 where its shared memory fits a block and leaves as many blocks
+// an SM as the runtime-size instance takes
+int stage_bucket(int ny, int nz) {
+  if (nz == 16 || nz == 32) return ny == 32 && nz == 16 ? 0 : nz;
+  const int stride =
+      nz > 32 && nz <= 48 ? 48 : (nz > 64 && nz <= 96 ? 96 : (nz > 96 && nz <= 128 ? 128 : 0));
+  const size_t bytes = sizeof(float) * stage_bucket_smem_floats(ny, stride);
+  return stride && bytes <= kSmemPerBlock &&
+                 stage_blocks(ny, nz, bytes) ==
+                     stage_blocks(ny, nz, sizeof(float) * stage_smem_floats(ny, nz))
+             ? stride
+             : 0;
+}
+
+// K5's bucket for a column of nz levels, its stride
+int stage_xy_bucket(int nz) { return nz >= 40 && nz <= 48 ? 48 : (nz == 96 ? 96 : 0); }
+
+// Shared memory of a K3 or K5 launch on a grid of its rule, in floats
+size_t stage_launch_smem_floats(int ny, int nz) {
+  const int stride = stage_bucket(ny, nz);
+  return stride == 0 || stride == nz ? stage_smem_floats(ny, nz)
+                                     : stage_bucket_smem_floats(ny, stride);
+}
+size_t stage_xy_launch_smem_floats(int nz) {
+  const int stride = stage_xy_bucket(nz);
+  return stage_xy_smem_floats(stride ? stride : nz);
+}
+
+// A K5 bucket's launch bounds: its most threads, rows 0..kYT of S lanes,
+// and the blocks an SM its shared memory at S leaves room for, so that
+// ptxas is held to no fewer registers than those blocks leave. K3's
+// buckets keep 1024 threads and one block (the largest grids take them).
+__host__ __device__ constexpr int bucket_threads(int stride, int ny) {
+  return ny < 0 ? (kYT + 1) * stride : kMaxThreads;
+}
+__host__ __device__ constexpr int xy_bucket_blocks(int stride) {
+  return smem_blocks(sizeof(float) * stage_xy_smem_floats(stride));
+}
 
 // K5's z split (see the head of this file): c CTAs for each block of the
 // single-CTA K5, CTA r owning the levels [r kSplitPart, (r + 1) kSplitPart)
@@ -598,11 +709,16 @@ __device__ __forceinline__ void rhat_x_factor(float* col, const float* __restric
 // every other instance: a pointer in XYParams moved the other instances'
 // register allocation); it has K3's launch bounds. kSplit: K5's z split,
 // one of the CTAs that share each block's column (NZ = kSplitPart, the
-// levels it owns, NY < 0; the column's nz at run time).
+// levels it owns, NY < 0; the column's nz at run time). NZ < 0: a K3 or K5
+// bucket, its rings' rows -NZ floats apart (nz at run time).
 template <int NZ, int NY, int kField = kStage, bool kRhat = false, bool kSplit = false>
-__global__ void __launch_bounds__(kSplit ? kSplitThreads
-                                         : (NZ > 0 && NY != 0 ? march_threads(NZ, NY) : kMaxThreads),
-                                  kSplit ? 2 : (NY < 0 ? (NZ == 32 ? 3 : 1) : (NZ > 0 && NY > 0 ? 2 : 1)))
+__global__ void __launch_bounds__(
+    kSplit ? kSplitThreads
+           : (NZ > 0 && NY != 0 ? march_threads(NZ, NY)
+                                : (NZ < 0 ? bucket_threads(-NZ, NY) : kMaxThreads)),
+    kSplit ? 2
+           : (NY < 0 ? (NZ == 32 ? 3 : (NZ < 0 ? xy_bucket_blocks(-NZ) : 1))
+                     : (NZ > 0 && NY > 0 ? 2 : 1)))
 stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
                       const float* __restrict__ w_in, const float* __restrict__ b_in,
                       const float* __restrict__ q_in, const float* __restrict__ bottom_in,
@@ -621,6 +737,12 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   constexpr bool kW = runs(kField, kFieldW), kB = runs(kField, kFieldB);
   constexpr bool kPhy = kU || kV, kReadsB = kPhy || kB;
   constexpr int kYF = kK6 ? 1 : 4;  // fields whose y fluxes are staged
+  // a bucket (NZ < 0): the runtime-size layout, nz lanes a row at run time,
+  // with the rings' rows kStride = -NZ floats apart (w's kStride + 1), so
+  // that every shared-memory address has a compile-time stride
+  constexpr bool kBucket = NZ < 0;
+  constexpr int kStride = kBucket ? -NZ : 0;
+  static_assert(!kBucket || (!kK6 && !kRhat && !kSplit), "the buckets are K3's and K5's stage");
   extern __shared__ float smem[];
   // The column's nzg levels. The split's CTA `rank` of n_cta owns the
   // levels [z0, z1) and holds [zlo, zlo + kSplitLevels) of them, zlo = z0 -
@@ -636,17 +758,20 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
     z1 = min(z0 + NZ, nzg);
     zlo = z0 - kSplitHalo;
   }
-  // nz: the levels of a ring's row (nzg, or the split's kSplitLevels)
-  const int nz = kSplit ? kSplitLevels : nzg, nw = nz + 1;
+  // nz: the levels of a ring's row (nzg, the split's kSplitLevels, a
+  // bucket's kStride: its rows padded past the column, the padding never
+  // read)
+  const int nz = kSplit ? kSplitLevels : (kBucket ? kStride : nzg), nw = nz + 1;
   // this thread's point of every x-plane: row j, level k of the rings, kz of
   // the column; the only divisions by a runtime size are these and the
   // block's. The split's warp jw: rows 0..kYT a level a lane, kYT + 1 face
   // z1 of row `lane`, kYT + 2 pHY'.
-  const int tk = kSplit ? 32 : nz;
+  const int tk = kSplit ? 32 : (kBucket ? nzg : nz);
   const int jw = threadIdx.x / tk, kl = threadIdx.x - jw * tk;
   const bool face_warp = kSplit && jw == kYT + 1, phy_warp = kSplit && jw == kYT + 2;
   const int j = face_warp ? kl : jw;
   const int kz = kSplit ? (face_warp ? z1 : z0 + kl) : kl, k = kSplit ? kz - zlo : kl;
+  const int lane = threadIdx.x & 31;
   const int n_rows = kWhole ? ny : kYT + 1;  // rows of threads
   const int copy_rows_step = kSplit ? kSplitWarps : n_rows;  // rows of copying threads
   size_t e;
@@ -664,7 +789,9 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
     e = blockIdx.x / nyb;
     y0 = (blockIdx.x - (int)e * nyb) * kYT;
   }
-  const size_t S = (size_t)ny * (kSplit ? nzg : nz), SW = (size_t)ny * (kSplit ? nzg + 1 : nw);
+  const size_t S = (size_t)ny * (kSplit || kBucket ? nzg : nz);
+  const size_t SW = (size_t)ny * (kSplit || kBucket ? nzg + 1 : nw);
+  const size_t SP = (size_t)ny * nz;  // a plane of K3's y fluxes in shared memory
   const size_t cell0 = e * nx * S, face0 = e * nx * SW;
   // the split's CTA computes u*, v*, b' at its levels and w* at its faces
   // [z0, z1] (face z1 by its face warp), and writes the faces it owns: face
@@ -715,7 +842,10 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
         }
       } else {
         __pipeline_memcpy_async(d + k, s + k, sizeof(float));
-        if (R.nk > nz && k == 0) __pipeline_memcpy_async(d + nz, s + nz, sizeof(float));
+        if (R.nk > nz && k == 0) {  // w's top face
+          const int top = kBucket ? nzg : nz;
+          __pipeline_memcpy_async(d + top, s + top, sizeof(float));
+        }
       }
     }
   };
@@ -730,8 +860,9 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
             __pipeline_memcpy_async(Q.row(x, r) + kk, qr + level, sizeof(float));
         }
       } else {
-        __pipeline_memcpy_async(Q.row(x, r) + k, qe + (size_t)wrap_x(y0 + r, ny) * nx * nz + k,
-                                sizeof(float));
+        __pipeline_memcpy_async(
+            Q.row(x, r) + k, qe + (size_t)wrap_x(y0 + r, ny) * nx * (kBucket ? nzg : nz) + k,
+            sizeof(float));
       }
     }
   };
@@ -752,10 +883,10 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   };
   auto load_plane = [&](int x) {
     const size_t xc = (size_t)wrap_x(x, nx);
-    copy_rows(U, u_in + cell0 + xc * S, kSplit ? nzg : nz, x);
-    copy_rows(V, v_in + cell0 + xc * S, kSplit ? nzg : nz, x);
-    if constexpr (kReadsB) copy_rows(B, b_in + cell0 + xc * S, kSplit ? nzg : nz, x);
-    copy_rows(W, w_in + face0 + xc * SW, kSplit ? nzg + 1 : nw, x);
+    copy_rows(U, u_in + cell0 + xc * S, kSplit || kBucket ? nzg : nz, x);
+    copy_rows(V, v_in + cell0 + xc * S, kSplit || kBucket ? nzg : nz, x);
+    if constexpr (kReadsB) copy_rows(B, b_in + cell0 + xc * S, kSplit || kBucket ? nzg : nz, x);
+    copy_rows(W, w_in + face0 + xc * SW, kSplit || kBucket ? nzg + 1 : nw, x);
     if constexpr (!kK6) load_q(x);
     if constexpr (kSplit) stage_above(x - 1);  // pHY' of plane x - 1 is summed next
     __pipeline_commit();
@@ -786,8 +917,8 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   };
   // ---- pHY' of plane x, in float64 so that each value rounds once: K5's
   // row kYT sums a column a thread from the top; K3's threads take a suffix
-  // scan across the lanes of their column (NZ > 0), else each column's
-  // k = 0 thread sums it ---------------------------------------------------
+  // scan across the lanes of their column (NZ > 0; a bucket's in two passes,
+  // phy_scan and phy_carry), else each column's k = 0 thread sums it -------
   auto hydrostatic = [&](int x) {
     if constexpr (kWhole && NZ > 0) {
       const float* bc = B.row(x, j);
@@ -802,9 +933,42 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
       PH.row(x, j)[k] = (float)-v;
     } else {
       const int r0 = kWhole ? (k == 0 ? j : n_rows) : kPLo + k, r1 = kWhole ? j + 1 : kPLo + kPRows;
-      for (int r = r0; r < r1; r += nz) hydrostatic_column(B.row(x, r), PH.row(x, r), nz, P);
+      for (int r = r0; r < r1; r += kBucket ? nzg : nz)
+        hydrostatic_column(B.row(x, r), PH.row(x, r), kBucket ? nzg : nz, P);
     }
   };
+  // K3's buckets: pHY' of plane x in two passes around a barrier. A
+  // column's lanes are consecutive but may straddle warps: phy_scan takes
+  // the float64 suffix scan across the column's lanes in this warp (its
+  // segment), whose first lane stores the segment's total; phy_carry, after
+  // the barrier, adds the totals of the column's segments in the warps
+  // above and stores the value, which rounds once. No thread sums more than
+  // five totals, where the runtime-size instance's k = 0 thread summed the
+  // column on the plane's critical path.
+  const int seg0 = (j * nzg) >> 5;  // the warp of the column's bottom
+  const int seg = ((int)threadIdx.x >> 5) - seg0, nseg = ((j * nzg + nzg - 1) >> 5) - seg0 + 1;
+  double* tot = nullptr;  // K3's buckets: ny rows of kPhSegs totals, after the y fluxes
+  if constexpr (kWhole && kBucket) {
+    const size_t off = (size_t)(yfl - smem) + 2 * kYF * SP;
+    tot = reinterpret_cast<double*>(smem + off + (off & 1));
+  }
+  auto phy_scan = [&](int x) {
+    const float* bc = B.row(x, j);
+    const double dz = P.dz;
+    double v = k < nzg - 1 ? dz * (0.5 * ((double)bc[k] + (double)bc[k + 1])) : 0.5 * dz * P.min_b;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const double t = __shfl_down_sync(__activemask(), v, off);
+      if (lane + off < 32 && k + off < nzg) v += t;  // the same warp and column
+    }
+    if (lane == 0 || k == 0) tot[j * kPhSegs + seg] = v;
+    return v;
+  };
+  auto phy_carry = [&](int x, double v) {
+    for (int t = seg + 1; t < nseg; ++t) v += tot[j * kPhSegs + t];
+    PH.row(x, j)[k] = (float)-v;
+  };
+
   // The split's pHY' of plane x at its own levels, by its pHY' warp, so
   // that no value crosses CTAs: in rounds of kSplitRound parts from the
   // top, its lanes each sum one part's increments of one of the kPRows
@@ -866,30 +1030,38 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   // z ladder orders of this thread's faces k and k + 1 in a column of nz
   // (u, v, b) and of nz + 1 points (w), once; z taps clamped into the column
   const ZOrders zc0 = z_orders(kz, nzg), zc1 = z_orders(kz + 1, nzg);
-  const ZOrders zw0 = z_orders(kz, kSplit ? nzg + 1 : nw);
-  const ZOrders zw1 = z_orders(kz + 1, kSplit ? nzg + 1 : nw);
+  const ZOrders zw0 = z_orders(kz, kSplit || kBucket ? nzg + 1 : nw);
+  const ZOrders zw1 = z_orders(kz + 1, kSplit || kBucket ? nzg + 1 : nw);
   int zt[7], zwt[7];  // ring offsets of taps kz-3..kz+3
   for (int o = 0; o < 7; ++o) {
     if constexpr (kSplit) {
       zt[o] = min(max(kz + o - 3, 0), nzg - 1) - zlo;
       zwt[o] = min(max(kz + o - 3, 0), nzg) - zlo;
     } else {
-      zt[o] = min(max(k + o - 3, 0), nz - 1);
-      zwt[o] = min(max(k + o - 3, 0), nw - 1);
+      zt[o] = min(max(k + o - 3, 0), kBucket ? nzg - 1 : nz - 1);
+      zwt[o] = min(max(k + o - 3, 0), kBucket ? nzg : nw - 1);
     }
   }
 
 
   // flux(k + 1) - flux(k) of a column's z fluxes through this thread's two
-  // faces (taps at k-3..k+3). At nz = 32 or 16, and in the split, the lanes
-  // of a column are consecutive, and a lane takes face k + 1's flux from its
-  // neighbour (through the top wall it is 0: w = 0 there; the split's top
-  // lane computes face z1's itself); else it computes both.
+  // faces (taps at k-3..k+3). At nz = 32 or 16, in a bucket and in the
+  // split, the lanes of a column are consecutive, and a lane takes face
+  // k + 1's flux from its neighbour (through the top wall it is 0: w = 0
+  // there; a bucket's warp's top lane, and the split's, computes the face
+  // above it itself); else it computes both.
   auto z_flux_diff = [&](float t0, float t1, float t2, float t3, float t4, float t5,
                          float t6, float vel_k, float vel_kp) {
     const float f_k = z_upwind(t0, t1, t2, t3, t4, t5, zc0, vel_k);
     float f_kp;
-    if constexpr (NZ > 0) {
+    if constexpr (kBucket) {  // a column's lanes are consecutive, and may straddle warps
+      f_kp = __shfl_down_sync(__activemask(), f_k, 1);
+      if (k == nzg - 1) {
+        f_kp = 0.0f;
+      } else if (lane == 31) {  // face k + 1 is the next warp's
+        f_kp = z_upwind(t1, t2, t3, t4, t5, t6, zc1, vel_kp);
+      }
+    } else if constexpr (NZ > 0) {
       f_kp = __shfl_down_sync(__activemask(), f_k, 1, NZ);
       if constexpr (kSplit) {
         if (kz + 1 == z1) f_kp = z1 == nzg ? 0.0f : z_upwind(t1, t2, t3, t4, t5, t6, zc1, vel_kp);
@@ -929,18 +1101,20 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
   // K3 and K6: each y flux of plane x once, by the thread at its face (u, w,
   // b: face j) or center (v: center j), for its neighbours to read
   auto y_fluxes = [&](int x) {
-    float* yf = yfl + (x & 1) * kYF * S + j * nz + k;
+    const size_t P1 = kBucket ? SP : S;  // a plane of y fluxes
+    float* yf = yfl + (x & 1) * kYF * P1 + j * nz + k;
     const float* vc = V.row(x, j);
     if constexpr (kU) yf[0] = yflux(U, x, j, k, 0.5f * (V.row(x - 1, j)[k] + vc[k]));
-    if constexpr (kV) yf[(kK6 ? 0 : 1) * S] = yflux(V, x, j + 1, k, 0.5f * (vc[k] + V.row(x, j + 1)[k]));
+    if constexpr (kV) yf[(kK6 ? 0 : 1) * P1] = yflux(V, x, j + 1, k, 0.5f * (vc[k] + V.row(x, j + 1)[k]));
     if constexpr (kW) {
-      yf[(kK6 ? 0 : 2) * S] = k > 0 ? yflux(W, x, j, k, 0.5f * (vc[k - 1] + vc[k])) : 0.0f;
+      yf[(kK6 ? 0 : 2) * P1] = k > 0 ? yflux(W, x, j, k, 0.5f * (vc[k - 1] + vc[k])) : 0.0f;
     }
-    if constexpr (kB) yf[(kK6 ? 0 : 3) * S] = yflux(B, x, j, k, vc[k]);
+    if constexpr (kB) yf[(kK6 ? 0 : 3) * P1] = yflux(B, x, j, k, vc[k]);
   };
   // K3 and K6: the difference of field f's y fluxes of plane x at rows r1 and r0
   auto y_diff = [&](int x, int f, int r1, int r0) {
-    const float* yf = yfl + (x & 1) * kYF * S + (kK6 ? 0 : f) * S + k;
+    const size_t P1 = kBucket ? SP : S;
+    const float* yf = yfl + (x & 1) * kYF * P1 + (kK6 ? 0 : f) * P1 + k;
     return yf[r1 * nz] - yf[r0 * nz];
   };
   const int jm = kWhole ? wrap_x(j - 1, ny) : j - 1;
@@ -976,7 +1150,14 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
       if (phy_warp && x >= 0 && x <= 2) phy_split(x - 1);
     }
   }
-  if constexpr (!kSplit && kPhy) {
+  if constexpr (kWhole && kBucket) {  // both passes of planes -1..1
+    for (int x = -1; x <= 1; ++x) {
+      const double v = phy_scan(x);
+      __syncthreads();
+      phy_carry(x, v);
+      __syncthreads();
+    }
+  } else if constexpr (!kSplit && kPhy) {
     if (kWhole || !own) {
       for (int x = -1; x <= 1; ++x) hydrostatic(x);
     }
@@ -1005,11 +1186,14 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
     return reads_g ? f + dt * (gamma * g + zeta * gp) : f + dt * (gamma * g);
   };
   float u_first = 0.0f, u_prev = 0.0f, dv = 0.0f, dw = 0.0f;
+  double phy_part = 0.0;  // K3's buckets: phy_scan of plane i + 2, for phy_carry
   for (int i = 0; i < nx; ++i) {
     load_plane(i + 4);  // into plane i - 4's slot, overlapping this plane
-    const size_t o = cell0 + (size_t)i * S + (size_t)(y0 + j) * (kSplit ? nzg : nz) + kz;
-    const size_t ov = cell0 + (size_t)i * S + (size_t)wrap_x(y0 + j, ny) * (kSplit ? nzg : nz) + kz;
-    const size_t ow = face0 + (size_t)i * SW + (size_t)(y0 + j) * (kSplit ? nzg + 1 : nw) + kz;
+    const size_t o = cell0 + (size_t)i * S + (size_t)(y0 + j) * (kSplit || kBucket ? nzg : nz) + kz;
+    const size_t ov = cell0 + (size_t)i * S +
+                      (size_t)wrap_x(y0 + j, ny) * (kSplit || kBucket ? nzg : nz) + kz;
+    const size_t ow =
+        face0 + (size_t)i * SW + (size_t)(y0 + j) * (kSplit || kBucket ? nzg + 1 : nw) + kz;
     // this point's g_prev and bottom, loaded before the arithmetic hides them
     float gp_u = 0.0f, gp_v = 0.0f, gp_w = 0.0f, gp_b = 0.0f, bottom = 0.0f;
     if (!kK6 && reads_g && mine) {
@@ -1044,7 +1228,7 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
         const float dphy = (PH.row(i, j)[k] - PH.row(i, j - 1)[k]) * P.idy;
         // (the split's ring does not start at level 0: its wall levels are t3)
         const float qm = kz > 0 ? t2 : (kSplit ? -t3 : -vc[0]);
-        const float qp = kz < nzg - 1 ? t4 : (kSplit ? -t3 : -vc[nz - 1]);
+        const float qp = kz < nzg - 1 ? t4 : (kSplit || kBucket ? -t3 : -vc[nz - 1]);
         const float lap = lap_h(V, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
         const float g = -adv - dphy + P.nu * lap;
         if constexpr (kK6) {
@@ -1064,10 +1248,14 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
     // own points of it
     if constexpr (kSplit) {
       if (phy_warp) phy_split(i + 2);
+    } else if constexpr (kWhole && kBucket) {
+      phy_part = phy_scan(i + 2);
     } else if (kPhy && (kWhole || !own)) {
       hydrostatic(i + 2);
     }
-    if (own) {
+    // a K5 bucket's row kYT computes u, w, b too where its warp holds rows
+    // 0..kYT-1 (whose lanes take part in every shuffle), and stores none
+    if (kBucket ? (int)(threadIdx.x & ~31u) < kYT * nzg || own : own) {
       const float* uc = U.row(i, j);
       const float* wc = W.row(i, j);
       const float* wm = W.row(i - 1, j);
@@ -1092,14 +1280,14 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
           adv += z_flux_diff(t0, t1, t2, t3, t4, t5, t6, wf_k, wf_kp) * P.idz;
           const float dphy = (PH.row(i, j)[k] - PH.row(i - 1, j)[k]) * P.idx;
           const float qm = kz > 0 ? t2 : (kSplit ? -t3 : -uc[0]);
-          const float qp = kz < nzg - 1 ? t4 : (kSplit ? -t3 : -uc[nz - 1]);
+          const float qp = kz < nzg - 1 ? t4 : (kSplit || kBucket ? -t3 : -uc[nz - 1]);
           const float lap = lap_h(U, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
           const float g = -adv - dphy + P.nu * lap;
           if constexpr (kK6) {
             gu_out[o] = g;
           } else {
             const float f = rk_value(t3, g, gp_u);
-            if (mine) {
+            if (kBucket ? own : mine) {
               u_out[o] = f;
               if (emit_g) gu_out[o] = g;
             }
@@ -1108,7 +1296,7 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
               const float d = ((f - u_prev) * P.idx + dv) + dw;
               if constexpr (kRhat) {
                 ds[j * nz + k] = d;
-              } else if (mine) {
+              } else if (kBucket ? own : mine) {
                 div_out[((e * ny + y0 + j) * nx + i - 1) * nzg + kz] = d;
               }
             } else {
@@ -1132,6 +1320,9 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
             fz_m = __shfl_up_sync(__activemask(), fz, 1, NZ);
             if (kz == z0) fz_m = z_upwind(t0, t1, t2, t3, t4, t5, zw0, 0.5f * (t2 + t3));
           }
+        } else if constexpr (kBucket) {  // a warp's bottom lane: center k - 1 is the last warp's
+          fz_m = __shfl_up_sync(__activemask(), fz, 1);
+          if (lane == 0 && k > 0) fz_m = z_upwind(t0, t1, t2, t3, t4, t5, zw0, 0.5f * (t2 + t3));
         } else if constexpr (NZ > 0) {
           fz_m = __shfl_up_sync(__activemask(), fz, 1, NZ);
         } else {
@@ -1156,11 +1347,11 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
             gw_out[ow] = g;
           } else {
             const float f = rk_value(t3, g, gp_w);
-            if (writes_w) {
+            if (kBucket ? own : writes_w) {
               w_out[ow] = f;
               if (emit_g) gw_out[ow] = g;
             }
-            ws[j * nw + k] = f;
+            if (!kBucket || own) ws[j * nw + k] = f;
           }
         } else if constexpr (kK6) {  // wall faces: g is exactly 0
           gw_out[ow] = 0.0f;
@@ -1172,8 +1363,9 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
             if (emit_g) gw_out[ow] = 0.0f;
             ws[j * nw + k] = f;
           }
-        } else {  // wall faces: w, g and g_prev are all 0, so w* stays exactly 0
-          for (int face = 0; face <= nz; face += nz) {
+        } else if (!kBucket || own) {  // wall faces: w, g and g_prev are all 0, so w* stays 0
+          const int top = kBucket ? nzg : nz;  // the top wall
+          for (int face = 0; face <= top; face += top) {
             const float f = rk_value(wc[face], 0.0f, reads_g ? gw_prev[ow + face] : 0.0f);
             w_out[ow + face] = f;
             if (emit_g) gw_out[ow + face] = 0.0f;
@@ -1197,14 +1389,15 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
                       t4 = bc[zt[4]], t5 = bc[zt[5]], t6 = bc[zt[6]];
           adv += z_flux_diff(t0, t1, t2, t3, t4, t5, t6, wc[k], wc[k + 1]) * P.idz;
           const float qm = kz > 0 ? t2 : 2.0f * bottom - (kSplit ? t3 : bc[0]);
-          const float qp = kz < nzg - 1 ? t4 : 2.0f * P.min_b - (kSplit ? t3 : bc[nz - 1]);
+          const float qp =
+              kz < nzg - 1 ? t4 : 2.0f * P.min_b - (kSplit || kBucket ? t3 : bc[nz - 1]);
           const float lap = lap_h(B, i, k, t3) + (qp - 2.0f * t3 + qm) * P.idz2;
           const float g = -adv + P.kappa * lap;
           if constexpr (kK6) {
             gb_out[o] = g;
           } else {
             const float f = rk_value(t3, g, gp_b);
-            if (mine) {
+            if (kBucket ? own : mine) {
               b_out[o] = f;
               if (emit_g) gb_out[o] = g;
             }
@@ -1217,6 +1410,7 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
     // plane i + 4 has landed; v*, w* of plane i are complete
     __syncthreads();
     if constexpr (!kK6) {
+      if constexpr (kWhole && kBucket) phy_carry(i + 2, phy_part);
       correct_plane(i + 4);
       if (kSplit ? own && cell : own) {
         dv = (vs[jp * nz + k] - vs[j * nz + k]) * P.idy;
@@ -1244,8 +1438,13 @@ stage_march_kernel(const float* __restrict__ u_in, const float* __restrict__ v_i
 }
 
 // The K5 instance for nz: specialised for the grids users run (the big
-// grid's 32, and 16), the runtime-nz one for every other nz.
+// grid's 32, and 16), a bucket (stage_xy_bucket) where it is faster, the
+// runtime-nz one for every other nz to 106.
 decltype(&stage_march_kernel<0, -1>) stage_xy_kernel_for(int nz) {
+  switch (stage_xy_bucket(nz)) {
+    case 48: return stage_march_kernel<-48, -1>;
+    case 96: return stage_march_kernel<-96, -1>;
+  }
   return nz == 32 ? stage_march_kernel<32, -1>
                   : (nz == 16 ? stage_march_kernel<16, -1> : stage_march_kernel<0, -1>);
 }
@@ -1255,9 +1454,17 @@ decltype(&stage_march_kernel<0, -1>) stage_xy_split_kernel() {
   return stage_march_kernel<kSplitPart, -1, kStage, false, true>;
 }
 
-// The K3 instance: specialised for the training grid's 32 rows of 16, the
-// runtime-size one for every other grid.
+// The K3 instance: specialised for the training grid's 32 rows of 16; on
+// other grids its bucket (stage_bucket; at nz = 16 and 32 the compile-time
+// column with ny at run time), else the runtime-size one.
 decltype(&stage_march_kernel<0, 0>) stage_kernel_for(int ny, int nz) {
+  switch (stage_bucket(ny, nz)) {
+    case 16: return stage_march_kernel<16, 0>;
+    case 32: return stage_march_kernel<32, 0>;
+    case 48: return stage_march_kernel<-48, 0>;
+    case 96: return stage_march_kernel<-96, 0>;
+    case 128: return stage_march_kernel<-128, 0>;
+  }
   return ny == 32 && nz == 16 ? stage_march_kernel<16, 32> : stage_march_kernel<0, 0>;
 }
 
@@ -1441,11 +1648,12 @@ int launch_stage_rk_3d(const float* u, const float* v, const float* w, const flo
     return (int)cudaErrorInvalidValue;
   }
   auto* kernel = stage_kernel_for(ny, nz);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t launch_smem = sizeof(float) * stage_launch_smem_floats(ny, nz);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)launch_smem);
   if (err != cudaSuccess) return (int)err;
   const XYParams P = xy_params(nx, ny, nz, dx, dy, dz, nu, kappa, min_b);
-  kernel<<<n_env, march_threads(nz, ny), smem, (cudaStream_t)stream>>>(
+  kernel<<<n_env, march_threads(nz, ny), launch_smem, (cudaStream_t)stream>>>(
       u, v, w, b, q, bottom, gu_prev, gv_prev, gw_prev, gb_prev, u_out, v_out, w_out,
       b_out, div_out, gu, gv, gw, gb, dt, gamma, zeta, P, nullptr);
   return (int)cudaGetLastError();
@@ -1485,22 +1693,23 @@ int launch_stage_rk_3d_rhat(const float* u, const float* v, const float* w, cons
 // the grid, for the instance its launcher picks: out[0] resident blocks an
 // SM at its threads and shared memory, out[1] registers a thread, out[2]
 // local memory a thread (stack frame, spills included), out[3] shared
-// memory a block in bytes.
+// memory a block in bytes, out[4] K3's bucket, its stride (0: none).
 int march_occupancy(int rhat, int nx, int ny, int nz, int* out) {
   auto* kernel = rhat ? stage_qp_kernel_for(ny, nz) : stage_kernel_for(ny, nz);
-  const size_t smem =
-      sizeof(float) * (rhat ? stage_qp_smem_floats(nx, ny, nz) : stage_smem_floats(ny, nz));
+  const size_t smem = sizeof(float) * (rhat ? stage_qp_smem_floats(nx, ny, nz)
+                                             : stage_launch_smem_floats(ny, nz));
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, march_threads(nz, ny),
-                                                      smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], kernel, march_threads(nz, ny), smem);
   out[1] = attr.numRegs;
   out[2] = (int)attr.localSizeBytes;
   out[3] = (int)smem;
+  out[4] = rhat ? 0 : stage_bucket(ny, nz);
   return (int)err;
 }
 
@@ -1516,7 +1725,7 @@ int launch_stage_rk_3d_xy(const float* u, const float* v, const float* w, const 
   const bool writes_g = gu && gv && gw && gb;
   const int csplit = nz >= 2 ? stage_xy_split_size(nz) : 0;
   const size_t smem = sizeof(float) * (csplit > 0 ? stage_xy_split_smem_floats(nz, csplit)
-                                                  : stage_xy_smem_floats(nz));
+                                                  : stage_xy_launch_smem_floats(nz));
   if (nx < kXYMinNx || ny % kYT != 0 || ny < kYT || nz < 2 || smem > kSmemPerBlock ||
       stage < 0 || stage > 2 || reads_g != (stage > 0) || writes_g != (stage < 2)) {
     return (int)cudaErrorInvalidValue;
@@ -1548,11 +1757,12 @@ int launch_stage_rk_3d_xy(const float* u, const float* v, const float* w, const 
 // nz levels: out[0] the instance (0 one CTA a block, 1 the z split), out[1]
 // CTAs a block (1 off the split), out[2] CTAs resident on an SM, out[3]
 // threads a CTA, out[4] registers a thread, out[5] local memory a thread
-// (stack and spills), bytes, out[6] dynamic shared memory a CTA, bytes.
+// (stack and spills), bytes, out[6] dynamic shared memory a CTA, bytes,
+// out[7] the bucket, its stride (0: none).
 int stage_xy_occupancy(int nz, int* out) {
   const int csplit = nz >= 2 ? stage_xy_split_size(nz) : 0;
   const size_t smem = sizeof(float) * (csplit > 0 ? stage_xy_split_smem_floats(nz, csplit)
-                                                  : stage_xy_smem_floats(nz));
+                                                  : stage_xy_launch_smem_floats(nz));
   if (nz < 2 || smem > kSmemPerBlock) return (int)cudaErrorInvalidValue;
   auto* kernel = csplit > 0 ? stage_xy_split_kernel() : stage_xy_kernel_for(nz);
   const int threads = csplit > 0 ? kSplitThreads : march_threads(nz, -1);
@@ -1565,9 +1775,9 @@ int stage_xy_occupancy(int nz, int* out) {
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   if (err != cudaSuccess) return (int)err;
-  const int rec[7] = {csplit > 0, csplit > 0 ? csplit : 1, blocks, threads, attr.numRegs,
-                      (int)attr.localSizeBytes, (int)smem};
-  for (int i = 0; i < 7; ++i) out[i] = rec[i];
+  const int rec[8] = {csplit > 0, csplit > 0 ? csplit : 1, blocks, threads, attr.numRegs,
+                      (int)attr.localSizeBytes, (int)smem, csplit > 0 ? 0 : stage_xy_bucket(nz)};
+  for (int i = 0; i < 8; ++i) out[i] = rec[i];
   return 0;
 }
 

@@ -80,7 +80,8 @@ ARGTYPES = {
     ],
     "march_occupancy": [
         _I, _I, _I, _I,  # rhat (0: K3, 1: its analysis instance), nx, ny, nz
-        _P,  # int out[4]: blocks an SM, registers, local bytes a thread, shared bytes
+        _P,  # int out[5]: blocks an SM, registers, local bytes a thread, shared bytes,
+             # K3's bucket (its ring stride, 0: none)
     ],
     "launch_stage_rk_3d_xy": [
         _P, _P, _P, _P, _P, _P,  # u, v, w, b, q, bottom
@@ -94,8 +95,8 @@ ARGTYPES = {
     ],
     "stage_xy_occupancy": [
         _I,  # nz
-        _P,  # int out[7]: instance, CTAs a cluster, blocks an SM, clusters resident,
-             # registers, local bytes a thread, shared bytes a block
+        _P,  # int out[8]: instance, CTAs a block, blocks an SM, threads a CTA,
+             # registers, local bytes a thread, shared bytes a CTA, K5's bucket
     ],
     "launch_correct_3d": [
         _P, _P, _P, _P,  # u, v, w, q

@@ -384,13 +384,14 @@ def stage_xy_occupancy(nz: int) -> dict:
     column of ``nz`` levels: "instance" ("one_cta" or "split"),
     "ctas_per_block" (the split's CTAs for each block of single-CTA K5; 1
     off the split), "blocks_per_sm" (CTAs resident on an SM), "threads" a
-    CTA, "registers", "local_bytes" (stack and spills a thread) and
-    "shared_bytes" a CTA. Needs a card."""
-    out = (ctypes.c_int * 7)()
+    CTA, "registers", "local_bytes" (stack and spills a thread),
+    "shared_bytes" a CTA and "bucket", the ring stride of K5's bucket
+    (``limits.stage_xy_bucket``; 0 off the buckets). Needs a card."""
+    out = (ctypes.c_int * 8)()
     _raise_on(_build.load_library().stage_xy_occupancy(nz, ctypes.addressof(out)),
               "stage_xy_occupancy")
     keys = ("instance", "ctas_per_block", "blocks_per_sm", "threads", "registers",
-            "local_bytes", "shared_bytes")
+            "local_bytes", "shared_bytes", "bucket")
     rec = dict(zip(keys, out))
     rec["instance"] = ("one_cta", "split")[rec["instance"]]
     return rec
@@ -401,11 +402,13 @@ def march_occupancy(nx: int, ny: int, nz: int, rhat: bool = False) -> dict:
     current CUDA device on the grid, for the instance its launcher picks:
     resident blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
     at its threads and shared memory), registers and local memory a thread
-    (stack frame, spills included) and shared memory a block in bytes."""
-    out = (ctypes.c_int * 4)()
+    (stack frame, spills included), shared memory a block in bytes and K3's
+    bucket, its ring stride (``limits.stage_bucket``; 0 off the buckets and
+    for the analysis instance)."""
+    out = (ctypes.c_int * 5)()
     err = _build.load_library().march_occupancy(int(rhat), nx, ny, nz, ctypes.addressof(out))
     _raise_on(err, "march_occupancy")
-    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "smem_bytes"), out))
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "smem_bytes", "bucket"), out))
 
 
 def correct_3d(

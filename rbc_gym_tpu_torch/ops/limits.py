@@ -255,6 +255,78 @@ def stage_smem_bytes(ny: int, nz: int) -> int:
     return 4 * ny * ((3 * XY_RING + 2 + 4 + 1 + 8) * nz + (XY_RING + 1) * (nz + 1))
 
 
+# K3's and K5's runtime-size buckets (``stage_bucket``, ``stage_xy_bucket``
+# and ``kPhSegs`` in ``csrc/rbc3d.cu``): a grid off the compile-time
+# instances runs the runtime-size layout (nz lanes a row) with its rings'
+# rows a compile-time stride apart, where that measured faster than the
+# runtime-size instance (PERF.md, section 6); K3's buckets keep
+# ``K3_PH_SEGS`` float64 pHY' totals a row
+K3_PH_SEGS = 5
+SMEM_PER_SM = 233_472  # an H100 SM's shared memory, each block reserving 1 KB of it
+
+
+def smem_blocks(nbytes: int) -> int:
+    """The blocks an SM a launch of ``nbytes`` of shared memory leaves room
+    for (``smem_blocks``)."""
+    return SMEM_PER_SM // (nbytes + 1024)
+
+
+def stage_blocks(ny: int, nz: int, nbytes: int) -> int:
+    """The blocks an SM a K3 launch on ny x nz takes with ``nbytes`` of
+    shared memory (``stage_blocks``): its ny nz threads hold 64 registers
+    each, so 32 warps of an SM's registers."""
+    return min(32 // -(-ny * nz // 32), smem_blocks(nbytes))
+
+
+def stage_bucket_smem_bytes(ny: int, stride: int) -> int:
+    """K3's shared memory on a bucket of ``stride`` (``stage_bucket_smem_floats``):
+    its rings at the stride, then the pHY' totals (doubles, one float of
+    alignment)."""
+    return stage_smem_bytes(ny, stride) + 4 * (2 * K3_PH_SEGS * ny + 1)
+
+
+def stage_bucket(ny: int, nz: int) -> int | None:
+    """The bucket K3's launcher runs a grid of its rule on, its stride
+    (``stage_bucket`` in ``csrc/rbc3d.cu``): nz itself at nz = 16 and 32
+    (the compile-time column with ny at run time) but on the training
+    grid's 32 rows of 16 (None: the compile-time instance), else 48 at nz
+    33..48, 96 at 65..96 and 128 at 97..128 where its shared memory
+    (``stage_bucket_smem_bytes``) fits a block and leaves as many blocks an
+    SM (``stage_blocks``) as the runtime-size instance takes; None elsewhere
+    (the runtime-size instance)."""
+    if nz in (16, 32):
+        return None if (ny, nz) == (32, 16) else nz
+    stride = 48 if 32 < nz <= 48 else 96 if 64 < nz <= 96 else 128 if 96 < nz <= 128 else None
+    if stride is None:
+        return None
+    nbytes = stage_bucket_smem_bytes(ny, stride)
+    fits = nbytes <= SMEM_PER_BLOCK and (
+        stage_blocks(ny, nz, nbytes) == stage_blocks(ny, nz, stage_smem_bytes(ny, nz)))
+    return stride if fits else None
+
+
+def stage_xy_bucket(nz: int) -> int | None:
+    """The bucket K5's launcher runs a column of nz levels on, its stride
+    (``stage_xy_bucket``): 48 at nz 40..48, 96 at 96; None elsewhere (the
+    compile-time nz = 16 and 32, the runtime-nz instance, the z split)."""
+    return 48 if 40 <= nz <= 48 else 96 if nz == 96 else None
+
+
+def stage_launch_smem_bytes(ny: int, nz: int) -> int:
+    """The shared memory K3's launcher asks for on a grid of its rule
+    (``stage_launch_smem_floats``): ``stage_bucket_smem_bytes`` on a bucket
+    of a padded stride, else ``stage_smem_bytes``."""
+    stride = stage_bucket(ny, nz)
+    return stage_smem_bytes(ny, nz) if stride in (None, nz) else stage_bucket_smem_bytes(ny, stride)
+
+
+def stage_xy_launch_smem_bytes(nz: int) -> int:
+    """The shared memory a one-CTA K5 launch asks for
+    (``stage_xy_launch_smem_floats``): ``stage_xy_smem_bytes`` at the
+    bucket's stride, else at nz."""
+    return stage_xy_smem_bytes(stage_xy_bucket(nz) or nz)
+
+
 def stage_qp_smem_bytes(nx: int, ny: int, nz: int) -> int:
     """K3's analysis instance: K3's rings, then the divergence of one
     x-plane and Cz^T (nz, nz), and at least one thread's nx values of t for

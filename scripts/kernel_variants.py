@@ -3,7 +3,8 @@
 
     python3 scripts/kernel_variants.py
         [--kernels k1,k1c,k1c_times,k1r,k1r_times,k1o,k1g,k1g_times,k1t,k1t_times,
-                   k2,k3,k3r,k3qp,k5_training,k5,k5r,k5z,k5z_times,k6,k7,field_step]
+                   k2,k3,k3r,k3r_times,k3qp,k5_training,k5,k5r,k5r_times,k5z,k5z_times,
+                   k6,k7,field_step]
         TREE [TREE ...]
 
 Each TREE is a checkout of this repo (for example a ``git archive`` of a
@@ -46,9 +47,23 @@ gates:
   timing only (``ablate_k1r``; outputs wrong, never gated): without the
   solve's products (float32 and TF32) and without the march;
   ``k1r_times`` the same without the cut builds;
-- ``k3r``, ``k5r``: K3's runtime-size instance on 16x24x24 and K5's
-  runtime-nz one on 48x64x64, as ``k3`` and ``k5``, with the card's
-  occupancy of the instance;
+- ``k3r``, ``k5r``: K3 on ``K3R_GRIDS`` and K5 on ``K5R_GRIDS``
+  (``chip_smoke.py`` phase 43's grids, K5's with more heights about its
+  buckets' lower edges), each stage at 1024 envs (a case of 8 envs tiled),
+  its bound, ps a cell, plain version and the card's occupancy of the
+  instance; phase 43's gates at 8 envs (past ``RUNTIME_ABS_GATE_MAX_NZ``
+  levels against float64; a tree without phase 43 holds every grid to the
+  absolute gates) and stage 0 beside float64; and the first grid's times
+  again from builds of the
+  tree's ``csrc/rbc3d.cu`` cut for timing only (``ablate_k3r``,
+  ``ablate_k5r``; outputs wrong, never gated): "noz2" the second z-flux
+  evaluations of the runtime-size code taken by shuffle, "nophy" without
+  the plane loop's pHY', "bounds" the runtime-size instance's launch bounds
+  at its launched threads, and their sum; K5 also "split" (its z split
+  from nz = 97, timed on 106x64x16), "noedge" (the z fluxes a bucket's
+  warp-edge lanes compute themselves left out) and "bounds1" (every
+  bucket's launch bounds at one block an SM); ``k3r_times`` and
+  ``k5r_times`` the same without the cut builds;
 - ``k1o``: K1's off-chip instance (its slabs in shared memory) at 1024
   envs on 127x64, one env step of 50 substeps, float32 and "high", with
   float32 K1 on 96x64 timed first and last; its gates at 6 substeps and
@@ -317,23 +332,97 @@ def k1r(cuts=True):
     return rec, errs
 
 
-def stage_runtime(wrapper, shape, dt_solver, f64_envs, reps):
-    # stage() on a grid that runs a runtime-size 3D instance, with the card's
-    # occupancy of that instance and its plain version's time a stage
-    rec, errs = stage(wrapper, shape, dt_solver, f64_envs, reps)
-    nz, ny, nx = shape
-    solver, case = cs.make_case_3d(device, 1024, shape, seed=5, dt_solver=dt_solver)
-    g_prev = cs.k3_run(solver, case, 0, None, False)[5]
-    for m in range(3):
-        gp = g_prev if m else None
-        rec[f"stage{m}"]["plain_ms"] = cs._cuda_ms(
-            lambda: cs.k3_run(solver, case, m, gp, False), 1)
-    del case, g_prev
-    torch.cuda.empty_cache()
-    if wrapper is k3d.stage_rk_3d:
-        rec["occupancy"] = k3d.march_occupancy(nx, ny, nz, rhat=False)
-    else:
-        rec["occupancy"] = k3d.stage_xy_occupancy(nz)
+# k3r's and k5r's grids (nz, ny, nx), each at 1024 envs, the first of each
+# the one its cuts are timed on: chip_smoke's phase 43 grids
+K3R_GRIDS = ((16, 24, 24), (20, 16, 8), (7, 36, 12), (12, 32, 16), (32, 32, 16), (40, 16, 16),
+             (80, 8, 16), (120, 8, 8), (33, 16, 16), (33, 13, 16), (65, 8, 16), (65, 7, 16),
+             (97, 8, 8), (97, 5, 8))
+# K5's: phase 43's, then more heights about its buckets' lower edges
+K5R_GRIDS = ((48, 64, 64), (24, 64, 64), (50, 64, 32), (80, 64, 32), (96, 64, 16),
+             (106, 64, 16), (40, 64, 16), (36, 64, 32), (95, 64, 16), (33, 64, 32),
+             (44, 64, 16), (46, 64, 16), (47, 64, 16), (81, 64, 16), (88, 64, 16), (92, 64, 16),
+             (94, 64, 16))
+K3R_CUTS, K3R_DIR = ("noz2", "nophy", "bounds", "noz2_nophy_bounds"), "rbc_gym_tpu_torch/_build/k3r"
+K5R_CUTS = ("noz2", "nophy", "bounds", "noz2_nophy_bounds", "split", "noedge", "bounds1",
+            "nophy_noedge")
+K5R_DIR = "rbc_gym_tpu_torch/_build/k5r"
+if not hasattr(cs, "tiled_case"):  # a tree from before chip_smoke's phase 43
+    cs.tiled_case = lambda case, n: {
+        k: v.repeat(-(-n // case["u"].shape[0]), *([1] * (v.dim() - 1)))[:n].contiguous()
+        for k, v in case.items()}
+
+
+def runtime_times(wrapper, grids, cut_dir, cut_names, cuts, dt_solver=0.01):
+    # each grid: the stages' times at 1024 envs (a case of 8 envs tiled),
+    # bound, plain version and occupancy, phase 43's gates at 8 envs and
+    # stage 0 beside float64; with cuts, the first grid's times (the "split" cut: the
+    # last grid's) again from the ablated libraries main() built beside the
+    # tree's own
+    import ctypes
+    from rbc_gym_tpu_torch.ops import _build
+
+    def times(solver, case, reps=5):
+        g_prev = cs.k3_run(solver, case, 0, None, False)[5]
+        out = [cs._cuda_ms(lambda: cs.k3_run(solver, case, m, g_prev if m else None, True,
+                                             wrapper), reps) for m in range(3)]
+        del g_prev
+        return out
+
+    def big(shape):
+        solver, case = cs.make_case_3d(device, 8, shape, seed=5, dt_solver=dt_solver)
+        return solver, cs.tiled_case(case, 1024)
+
+    def parity(solver, case, nz, prefix):
+        # phase 43's gates: the absolute ones to RUNTIME_ABS_GATE_MAX_NZ levels,
+        # against float64 past them (a tree from before phase 43: the absolute
+        # ones at every nz)
+        if nz > getattr(cs, "RUNTIME_ABS_GATE_MAX_NZ", nz):
+            return cs.split_stage_parity(solver, case, prefix, wrapper)
+        return cs.stage_parity(solver, case, wrapper, prefix=prefix)
+
+    rec, errs = {}, {}
+    for shape in grids:
+        nz, ny, nx = shape
+        name = "x".join(map(str, shape))
+        solver, case = big(shape)
+        r = {"stage_ms": times(solver, case)}
+        g_prev = cs.k3_run(solver, case, 0, None, False)[5]
+        r["plain_ms"] = [cs._cuda_ms(lambda: cs.k3_run(solver, case, m, g_prev if m else None,
+                                                       False), 1) for m in range(3)]
+        del case, g_prev
+        torch.cuda.empty_cache()
+        r["bound_ms"] = [cs.bound(cs.stage_rk_3d_work(1024, nx, ny, nz, m))[0] for m in range(3)]
+        r["share_of_bound"] = [b / t for b, t in zip(r["bound_ms"], r["stage_ms"])]
+        r["ps_a_cell"] = [1e9 * t / (1024 * nx * ny * nz) for t in r["stage_ms"]]
+        r["occupancy"] = (k3d.march_occupancy(nx, ny, nz) if wrapper is k3d.stage_rk_3d
+                          else k3d.stage_xy_occupancy(nz))
+        solver, case = cs.make_case_3d(device, 8, shape, seed=10, dt_solver=dt_solver)
+        _, e = parity(solver, case, nz, f"{name}_")
+        errs.update(e)
+        r["stage0_float64_vs"] = cs.stage0_float64(solver, case, wrapper)
+        del case
+        rec[name] = r
+    real = _build.load_library
+    for what in cut_names if cuts else ():
+        if not os.path.exists(f"{cut_dir}/{what}/lib.so"):  # a cut the tree's design has not
+            continue
+        lib = ctypes.CDLL(f"{cut_dir}/{what}/lib.so")
+        for fn_name, argtypes in _build.ARGTYPES.items():
+            if hasattr(lib, fn_name):
+                getattr(lib, fn_name).argtypes = argtypes
+                getattr(lib, fn_name).restype = ctypes.c_int
+        _build.load_library = lambda lib=lib: lib
+        shape = grids[-1] if what == "split" else grids[0]
+        try:
+            solver, case = big(shape)
+            rec["x".join(map(str, shape))][f"{what}_stage_ms"] = times(solver, case)
+            del case
+        finally:
+            _build.load_library = real
+        torch.cuda.empty_cache()
+    first = "x".join(map(str, grids[0]))
+    solver, case = big(grids[0])
+    rec[first]["stage_ms_last"] = times(solver, case)
     return rec, errs
 
 
@@ -697,8 +786,12 @@ RUNS = {
     "k1c_times": lambda: k1c(cuts=False),
     "k1r": k1r,
     "k1r_times": lambda: k1r(cuts=False),
-    "k3r": lambda: stage_runtime(k3d.stage_rk_3d, (16, 24, 24), 0.01, 32, 20),
-    "k5r": lambda: stage_runtime(k3d.stage_rk_3d_xy, (48, 64, 64), cs.BIG_DT_SOLVER, 8, 5),
+    "k3r": lambda: runtime_times(k3d.stage_rk_3d, K3R_GRIDS, K3R_DIR, K3R_CUTS, True),
+    "k3r_times": lambda: runtime_times(k3d.stage_rk_3d, K3R_GRIDS, K3R_DIR, K3R_CUTS, False),
+    "k5r": lambda: runtime_times(k3d.stage_rk_3d_xy, K5R_GRIDS, K5R_DIR, K5R_CUTS, True,
+                                 cs.BIG_DT_SOLVER),
+    "k5r_times": lambda: runtime_times(k3d.stage_rk_3d_xy, K5R_GRIDS, K5R_DIR, K5R_CUTS, False,
+                                       cs.BIG_DT_SOLVER),
     "k1o": k1o,
     "k1t": k1t,
     "k1t_times": lambda: k1t(cuts=False),
@@ -1016,6 +1109,100 @@ def ablate_k5z(src: str, what: str) -> str:
     return src
 
 
+# K3's and K5's runtime-size timing-only cuts of ``k3r`` and ``k5r``
+# (MEASURE's K3R_CUTS, K5R_CUTS and their directories)
+K3R_CUTS = ("noz2", "nophy", "bounds", "noz2_nophy_bounds")
+K3R_DIR = Path("rbc_gym_tpu_torch") / "_build" / "k3r"
+K5R_CUTS = ("noz2", "nophy", "bounds", "noz2_nophy_bounds", "split", "noedge", "bounds1",
+            "nophy_noedge")
+K5R_DIR = Path("rbc_gym_tpu_torch") / "_build" / "k5r"
+# the runtime-size instances' launched threads on k3r's and k5r's first
+# grids (16x24x24: 24 x 16; 48x64x64: 9 x 48)
+K3R_THREADS, K5R_THREADS = 384, 432
+
+
+def _ablate_runtime(src: str, what: str, k5: bool) -> str:
+    """``csrc/rbc3d.cu`` with a part of the runtime-size march instances
+    (K3's ``<0, 0>``, K5's ``<0, -1>``) or of the buckets cut or changed, for
+    timing only; "_" joins cuts, and a cut the tree's design has not raises
+    ``ValueError``. "noz2": the runtime-size code's z flux through face k +
+    1 and w's at center k - 1 taken from the neighbouring lane by a shuffle,
+    as the compile-time instances do, in place of computed a second time
+    (the values are wrong where a column straddles warps); "nophy": the
+    plane loop's pHY' dropped; "bounds": the runtime-size instance's launch
+    bounds at its launched threads on the first grid and two blocks an SM,
+    in place of 1024 threads and one (K5's alone, or K3's alone). K5 only:
+    "split" its z split from nz = 97 (in place of nz = 107); "noedge" the z
+    fluxes a bucket's warp-edge lanes compute themselves (the face above
+    lane 31, w's center below lane 0) left out; "bounds1" every bucket's
+    launch bounds at one block an SM (more registers)."""
+    for cut in what.split("_"):
+        if cut == "noz2":
+            olds = ("    } else {\n      f_kp = z_upwind(t1, t2, t3, t4, t5, t6, zc1, vel_kp);\n",
+                    "        } else {\n          fz_m = z_upwind(t0, t1, t2, t3, t4, t5, zw0, "
+                    "0.5f * (t2 + t3));\n")
+            if not all(o in src for o in olds):
+                raise ValueError("no second z flux to cut")
+            src = src.replace(olds[0], "    } else {\n      f_kp = __shfl_down_sync("
+                              "__activemask(), f_k, 1);\n")
+            src = src.replace(olds[1], "        } else {\n          fz_m = __shfl_up_sync("
+                              "__activemask(), fz, 1);\n")
+        elif cut == "nophy":
+            old = "    } else if (kPhy && (kWhole || !own)) {\n      hydrostatic(i + 2);\n"
+            if old not in src:
+                raise ValueError("no pHY' pass in the plane loop")
+            src = src.replace(old, "    } else if (kPhy && (kWhole || !own)) {\n")
+        elif cut == "bounds":
+            old_t = ": (NZ > 0 && NY != 0 ? march_threads(NZ, NY) : kMaxThreads),"
+            old_b = "(NY < 0 ? (NZ == 32 ? 3 : 1) : (NZ > 0 && NY > 0 ? 2 : 1))"
+            if old_t not in src or old_b not in src:
+                raise ValueError("no runtime-size launch bounds to set")
+            if k5:
+                mine = "NZ == 0 && NY < 0"
+                src = src.replace(old_t, f": (NZ > 0 && NY != 0 ? march_threads(NZ, NY) : "
+                                  f"({mine} ? {K5R_THREADS} : kMaxThreads)),")
+                src = src.replace(old_b, "(NY < 0 ? (NZ == 32 ? 3 : (NZ == 0 ? 2 : 1)) : "
+                                  "(NZ > 0 && NY > 0 ? 2 : 1))")
+            else:
+                mine = "NZ == 0 && NY == 0 && kField == kStage && !kRhat"
+                src = src.replace(old_t, f": (NZ > 0 && NY != 0 ? march_threads(NZ, NY) : "
+                                  f"({mine} ? {K3R_THREADS} : kMaxThreads)),")
+                src = src.replace(old_b, f"(NY < 0 ? (NZ == 32 ? 3 : 1) : "
+                                  f"(NZ > 0 && NY > 0 ? 2 : ({mine} ? 2 : 1)))")
+        elif cut == "split" and k5:
+            old = "march_threads(nz, -1) <= kMaxThreads) {"
+            if old not in src:
+                raise ValueError("no split rule to move")
+            src = src.replace(old, "march_threads(nz, -1) <= kMaxThreads && nz < 97) {")
+        elif cut == "noedge" and k5:
+            olds = ("      } else if (lane == 31) {  // face k + 1 is the next warp's\n"
+                    "        f_kp = z_upwind(t1, t2, t3, t4, t5, t6, zc1, vel_kp);\n",
+                    "          if (lane == 0 && k > 0) fz_m = z_upwind(t0, t1, t2, t3, t4, t5, zw0, "
+                    "0.5f * (t2 + t3));\n")
+            if not all(o in src for o in olds):
+                raise ValueError("no bucket edge lanes")
+            src = src.replace(olds[0], "      } else if (lane == 31) {\n        f_kp = 0.0f;\n")
+            src = src.replace(olds[1], "")
+        elif cut == "bounds1" and k5:
+            old = "  return (int)(kSmemPerSM / (sizeof(float) * stage_xy_smem_floats(stride) + 1024));\n"
+            if old not in src:
+                raise ValueError("no K5 buckets")
+            src = src.replace(old, "  return 1;\n")
+        else:
+            raise ValueError(f"unknown cut {cut}")
+    return src
+
+
+def ablate_k3r(src: str, what: str) -> str:
+    """``_ablate_runtime`` on K3's runtime-size instance."""
+    return _ablate_runtime(src, what, k5=False)
+
+
+def ablate_k5r(src: str, what: str) -> str:
+    """``_ablate_runtime`` on K5's runtime-nz instance."""
+    return _ablate_runtime(src, what, k5=True)
+
+
 def build_ablations(tree: Path, nvcc: str, kernels: str) -> list:
     """Start one nvcc a cut: for ``k1t`` each of ``ABLATIONS``
     (``K1T_DIR/<what>/lib.so`` from the tree's own ``csrc/rbc2d.cu``), for
@@ -1029,6 +1216,8 @@ def build_ablations(tree: Path, nvcc: str, kernels: str) -> list:
     cuts += [(K1G_DIR, what, "rbc2d.cu", ablate_k1g) for what in K1G_CUTS if "k1g" in names]
     cuts += [(K1C_DIR, what, "rbc2d.cu", ablate_k1c) for what in K1C_CUTS if "k1c" in names]
     cuts += [(K1R_DIR, what, "rbc2d.cu", ablate_k1r) for what in K1R_CUTS if "k1r" in names]
+    cuts += [(K3R_DIR, what, "rbc3d.cu", ablate_k3r) for what in K3R_CUTS if "k3r" in names]
+    cuts += [(K5R_DIR, what, "rbc3d.cu", ablate_k5r) for what in K5R_CUTS if "k5r" in names]
     procs = []
     for base, what, source, ablate in cuts:
         try:
@@ -1062,7 +1251,10 @@ SASS_INSTANCES = ("env_step_2d_kernelILi96ELi64E", "env_step_2d_cluster_kernelIL
                   "env_step_2d_global_kernel", "tendencies_2d_march_kernelILi96ELi64E",
                   "stage_march_kernelILi16ELi32E", "stage_march_kernelILi32ELin1E",
                   "stage_march_kernelILi16ELin1E", "stage_march_kernelILi0ELin1E",
-                  "div_3d_kernelILi16E")
+                  "stage_march_kernelILin48ELin1E", "stage_march_kernelILin96ELin1E",
+                  "stage_march_kernelILi16ELi0E", "stage_march_kernelILi32ELi0E",
+                  "stage_march_kernelILin48ELi0E", "stage_march_kernelILin96ELi0E",
+                  "stage_march_kernelILin128ELi0E", "div_3d_kernelILi16E")
 
 def ptxas(tree: Path, nvcc: str) -> list:
     return [subprocess.Popen([nvcc, *PTXAS, str(src)], stdout=subprocess.PIPE,

@@ -120,3 +120,31 @@ def test_smoke_fine_grids_phase_runs_on_cpu_plain_halves():
     assert out["main_path_2d"]["32x16"]["substeps_per_step"] == 2
     assert out["times"] == {}
     json.dumps(out)
+
+
+def test_smoke_runtime_3d_phase_runs_on_cpu_plain_halves():
+    """Phase 43 with few envs on small grids of K3's and K5's buckets (on
+    the CPU both halves are the plain version, so every gate holds at 0,
+    past ``RUNTIME_ABS_GATE_MAX_NZ`` levels against float64 too): each
+    grid's bucket as ``limits`` gives it, the gates of every stage, the env
+    steps with the 3D checks and no launch, and no times off the card."""
+    k3_grids = {(16, 8, 8): 16, (40, 4, 8): 48, (7, 36, 4): None}
+    k5_grids = {(20, 8, 8): None, (96, 8, 4): 96, (100, 8, 4): None}
+    out = chip_smoke.runtime_3d("cpu", k3_grids=k3_grids, k5_grids=k5_grids, few_envs=1,
+                                paths=((2, (8, 8, 8), 0.01), (2, (8, 16, 16), 0.005)),
+                                heater_duration=0.0125)
+    keys = [f"stage_rk_3d_{nz}x{ny}x{nx}" for nz, ny, nx in k3_grids] + [
+        f"stage_rk_3d_xy_{nz}x{ny}x{nx}" for nz, ny, nx in k5_grids]
+    assert set(out["by_grid"]) == set(keys)
+    assert all(v["error"] == 0.0 for v in out["gated"].values())
+    # the absolute gates to 64 levels, float64's rule past them
+    assert {"stage_rk_3d_16x8x8_stage1_g", "stage_rk_3d_xy_20x8x8_stage2_fields",
+            "stage_rk_3d_xy_96x8x4_stage1_gw", "stage_rk_3d_xy_100x8x4_stage2_div"} <= set(
+                out["gated"])
+    assert [v["bucket"] for v in out["by_grid"].values()] == [16, 48, None, None, 96, None]
+    assert set(out["main_paths"]) == {"8x8x8", "8x16x16"}
+    for p in out["main_paths"].values():
+        assert p["path"] == "plain" and not any(p["launches"].values())
+        assert p["max_abs_div"] < p["div_atol"]
+    assert out["times"] == {}  # timed on the card only
+    json.dumps(out)

@@ -46,10 +46,14 @@ def _np_fields(n_env, grid, seed, amp=0.05):
     return jsolver.Fields3D(u, v, w, b, p_hy, np.zeros_like(u))
 
 
-def test_stage_xy_env_steps_match_jax_pallas_xy_kernel():
-    """Two env steps of 2 substeps on 32x32x16: two x blocks and four y
-    blocks in the JAX kernel, so its halos and edge columns are crossed."""
-    grid, jgrid = _grids(32, 32, 16)
+@pytest.mark.parametrize("nx,ny,nz", [
+    (32, 32, 16),  # two x blocks and four y blocks in the JAX kernel
+    (16, 16, 24),  # nz off 16 and 32: on the card, K5's runtime-nz instance
+])
+def test_stage_xy_env_steps_match_jax_pallas_xy_kernel(nx, ny, nz):
+    """Two env steps of 2 substeps, x blocks of 4 and y blocks of 8 in the
+    JAX kernel, so its halos and edge columns are crossed."""
+    grid, jgrid = _grids(nx, ny, nz)
     port = make_solver3d(grid, SimParams3D(heater_duration=0.02), dtype=torch.float32,
                          device="cpu", fused="stage_xy")
     assert port.path == "stage_xy"

@@ -110,6 +110,14 @@ int main(int argc, char** argv) {
            c ? kSplitThreads : march_threads(nz, -1), c ? kSplitLevels : nz);
     return 0;
   }
+  if (std::string(argv[1]) == "buckets") {  // the launchers' buckets and floats
+    for (int ny = 4; ny <= 64; ++ny)
+      for (int nz = 2; nz <= 256 && ny * nz <= 1024; ++nz)
+        printf("k3 %d %d %d %zu\n", ny, nz, stage_bucket(ny, nz), stage_launch_smem_floats(ny, nz));
+    for (int nz = 2; nz <= 106; ++nz)
+      printf("k5 %d %d %zu\n", nz, stage_xy_bucket(nz), stage_xy_launch_smem_floats(nz));
+    return 0;
+  }
   if (std::string(argv[1]) == "smem_qp") {  // smem_qp NX NY NZ: the analysis instance's floats
     printf("%zu\n", stage_qp_smem_floats(atoi(argv[2]), atoi(argv[3]), atoi(argv[4])));
     return 0;
